@@ -1,0 +1,37 @@
+"""Device choice of the port's entry points.
+
+The port runs on the card unless the caller asks for the CPU: ``None`` means
+``cuda`` and fails where there is no card, and anything else (``"cpu"``,
+``"cuda:1"``, a ``torch.device``) is taken as given.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+
+def resolve(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` -> the CUDA card, with a
+    ``RuntimeError`` where none is present; an explicit device is honoured."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card found: the port runs on the card by default; pass "
+            "device='cpu' (CLI: --device cpu) to run on the CPU")
+    return torch.device("cuda")
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values, dtype, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values, dtype, device) -> torch.Tensor:
+    """A small read-only tensor of Python numbers (nested tuples), uploaded
+    once per (values, dtype, device).  ``torch.tensor(..., device="cuda")`` is
+    a blocking host->device copy: it waits for everything queued on the
+    stream, so inside a frame loop it would be a host synchronisation per
+    call.  Callers must not write into the result."""
+    return _constant(values, dtype, torch.device(device))

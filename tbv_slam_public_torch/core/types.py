@@ -24,6 +24,14 @@ class _Record:
         return dataclasses.replace(self, **kw)
 
 
+def stack_records(recs):
+    """One record whose fields are the stacked fields of ``recs`` (the
+    counterpart of ``jax.tree.map(jnp.stack)`` over a list of records)."""
+    return type(recs[0])(**{
+        f.name: torch.stack([getattr(r, f.name) for r in recs])
+        for f in dataclasses.fields(recs[0])})
+
+
 @dataclass
 class PointCloud(_Record):
     """Padded 2D point cloud with intensity; ``mask`` marks real points."""

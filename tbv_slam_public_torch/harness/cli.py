@@ -1,15 +1,25 @@
-"""Command-line entry points of the port: ``odometry``, ``slam`` and ``eval``.
+"""Command-line entry points of the port.
+
+Subcommands: ``odometry`` (CFEAR odometry over a dataset -> trajectories and
+the ``simple_graph.npz`` checkpoint), ``slam`` (loop closure + PGO from a
+checkpoint), ``online`` (the full per-frame pipeline from images),
+``reoptimize`` (PGO again on a saved full graph with other ``pgo.*``
+weights), ``constraints`` (dump / re-verify a full graph's loop
+constraints), ``train-alignment``, ``train-loop`` and ``eval``.
 
 Same arguments and dotted ``key=value`` config overrides as
-``tbv_slam_public_tpu.harness.cli``, plus ``--device`` (``cuda`` when a card
-is present, else ``cpu``).  Not ported yet: ``--chunk > 1``, the schur / cg
-/ auto solvers, and the other subcommands (see ROADMAP.md).  Plots are
-written only where matplotlib is installed.
+``tbv_slam_public_tpu.harness.cli``, plus ``--device``: the CUDA card when
+the option is absent (an error where there is none), ``--device cpu`` for
+the CPU.  ``--solver`` defaults to ``auto`` (schur on a SLAM graph).  Not
+ported yet: ``evaluate-scans``, ``baseline``, ``sweep`` (see ROADMAP.md).
+Plots are written only where matplotlib is installed.
 
     python -m tbv_slam_public_torch.harness.cli odometry --dataset sim:60:5 \
         --output out/odo radar.k_strongest=4
     python -m tbv_slam_public_torch.harness.cli slam \
-        --graph out/odo/simple_graph.npz --output out/slam --solver cholesky
+        --graph out/odo/simple_graph.npz --output out/slam
+    python -m tbv_slam_public_torch.harness.cli online --dataset sim:60:5 \
+        --output out/online --train-alignment pgo.optimize_every=10
 """
 from __future__ import annotations
 
@@ -51,11 +61,12 @@ def _build_cfg(meta: dict, overrides: List[str]):
 
 
 def _device(name: Optional[str]):
-    import torch
+    from ..core.device import resolve
 
-    if name:
-        return torch.device(name)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return resolve(name or None)
+
+
+SENSOR = dict(num_azimuths=400, num_range_bins=3768, range_res=0.0438)
 
 
 def _write_pars(cfg, outdir: str) -> None:
@@ -98,10 +109,6 @@ def cmd_odometry(args, overrides: List[str]) -> int:
     from ..io import checkpoint, oxford
     from ..models.odometry import OdometryPipeline
 
-    if args.chunk and args.chunk > 1:
-        raise NotImplementedError(
-            "--chunk > 1 (device-scanned frame chunks) is not ported yet "
-            "(see ROADMAP.md); run without --chunk")
     frames, meta = oxford.open_sequence(args.dataset)
     cfg = _build_cfg(meta, overrides)
     os.makedirs(args.output, exist_ok=True)
@@ -110,12 +117,23 @@ def cmd_odometry(args, overrides: List[str]) -> int:
     pipe = OdometryPipeline(cfg, device=_device(args.device))
     n = 0
     gts = []
+    chunk = max(int(args.chunk or 0), 0)
+    buf = []  # (image, stamp, gt) gathered for one device-resident chunk
     for fr in frames:
         if args.max_frames and n >= args.max_frames:
             break
-        pipe.process(fr.image, stamp=fr.stamp, gt_pose=fr.gt_pose)
+        if chunk > 1:
+            buf.append((fr.image, fr.stamp, fr.gt_pose))
+            if len(buf) == chunk:
+                pipe.process_chunk(np.stack([b[0] for b in buf]),
+                                   [b[1] for b in buf], [b[2] for b in buf])
+                buf.clear()
+        else:
+            pipe.process(fr.image, stamp=fr.stamp, gt_pose=fr.gt_pose)
         gts.append(fr.gt_pose)
         n += 1
+    for img, stamp, gt_pose in buf:  # tail (< chunk frames)
+        pipe.process(img, stamp=stamp, gt_pose=gt_pose)
 
     est = np.asarray(pipe.frame_poses)
     gt = np.stack(gts) if gts and all(g is not None for g in gts) else None
@@ -154,8 +172,7 @@ def cmd_slam(args, overrides: List[str]) -> int:
     from ..models.slam import run_offline_slam
 
     g = checkpoint.load_simple_graph(args.graph)
-    cfg = _build_cfg(dict(num_azimuths=400, num_range_bins=3768,
-                          range_res=0.0438), overrides)
+    cfg = _build_cfg(SENSOR, overrides)
     os.makedirs(args.output, exist_ok=True)
     timing.reset()
 
@@ -194,12 +211,248 @@ def cmd_slam(args, overrides: List[str]) -> int:
     return 0
 
 
+def cmd_online(args, overrides: List[str]) -> int:
+    from ..core.timing import timing
+    from ..io import checkpoint, oxford
+    from ..models.slam import TBVSLAM
+
+    frames, meta = oxford.open_sequence(args.dataset)
+    cfg = _build_cfg(meta, overrides)
+    os.makedirs(args.output, exist_ok=True)
+    timing.reset()
+
+    slam = TBVSLAM(cfg, train_alignment=args.train_alignment,
+                   device=_device(args.device))
+    n = 0
+    for fr in frames:
+        if args.max_frames and n >= args.max_frames:
+            break
+        slam.process_frame(fr.image, stamp=fr.stamp, gt_pose=fr.gt_pose)
+        n += 1
+    s = slam.finish(optimize=True, solver=args.solver)
+    if slam.alignment_learner is not None:
+        slam.alignment_learner.save(
+            os.path.join(args.output, "trained_alignment_classifier.txt"))
+    est = slam.graph.poses_array()
+    gt = slam.graph.gt_array()
+    metrics = _export_trajectories(args.output, est, gt, slam.graph.stamps,
+                                   "est")
+    checkpoint.save_full_graph(os.path.join(args.output, "full_graph.npz"),
+                               slam.graph, slam=slam)
+    _write_pars(cfg, args.output)
+    _write_timing(args.output)
+    print(json.dumps({**(s.metrics or {}), **metrics, "frames": n,
+                      "keyframes": s.num_keyframes, "loops": s.num_loops,
+                      "pgo_epochs": slam.pgo_epochs}))
+    return 0
+
+
+def _classifier_report(model, x: np.ndarray, y: np.ndarray, device):
+    """(probabilities, metrics) of a fitted model on its training data."""
+    import torch
+
+    from ..eval import loops as loops_eval
+    from ..ops import logistic
+
+    probs = logistic.predict_proba(
+        model, torch.as_tensor(x, device=device)).cpu().numpy()
+    return probs, loops_eval.classifier_metrics(probs, y)
+
+
+def cmd_train_alignment(args, overrides: List[str]) -> int:
+    """Alignment-classifier training (the odometry_training_node): run
+    odometry, generate the 13-perturbation training pairs per keyframe, fit,
+    save the coefficients and the ROC data."""
+    from ..eval import loops as loops_eval
+    from ..io import oxford
+    from ..models.odometry import OdometryPipeline
+    from ..models.verification import AlignmentLearner
+
+    frames, meta = oxford.open_sequence(args.dataset)
+    cfg = _build_cfg(meta, overrides)
+    os.makedirs(args.output, exist_ok=True)
+    dev = _device(args.device)
+
+    pipe = OdometryPipeline(cfg, device=dev)
+    learner = AlignmentLearner(cfg.verification, device=dev)
+    n = n_kf = 0
+    for fr in frames:
+        if args.max_frames and n >= args.max_frames:
+            break
+        pipe.process(fr.image, stamp=fr.stamp, gt_pose=fr.gt_pose)
+        while n_kf < len(pipe.kf_poses):
+            learner.add_training_pair(pipe.kf_peaks[n_kf], pipe.kf_cells[n_kf],
+                                      pipe.kf_poses[n_kf])
+            n_kf += 1
+        n += 1
+    learner.fit()
+    learner.save(os.path.join(args.output,
+                              "trained_alignment_classifier.txt"))
+
+    x, y = learner.training_data()
+    probs, cm = _classifier_report(learner.model, x, y, dev)
+    loops_eval.write_result_txt(os.path.join(args.output, "result.txt"), cm)
+    ths, prec, rec = loops_eval.pr_curve(probs, y)
+    np.savetxt(os.path.join(args.output, "roc.csv"),
+               np.stack([ths, prec, rec], 1), delimiter=",",
+               header="threshold,precision,recall")
+    print(json.dumps(dict(samples=int(len(y)), **cm.as_dict())))
+    return 0
+
+
+def cmd_train_loop(args, overrides: List[str]) -> int:
+    """Loop-verification classifier training: fit on a loop.csv (features +
+    GT labels) or a ``y,odom,sc,align`` data file."""
+    import torch
+
+    from ..eval import loops as loops_eval
+    from ..ops import logistic
+
+    if args.loop_csv:
+        rows = loops_eval.read_loop_csv(args.loop_csv)
+        x = np.asarray([[r["odom_bounds"], r["sc_sim"],
+                         r["alignment_quality"]] for r in rows], np.float32)
+        y = np.asarray([r["is_loop"] for r in rows], np.float32)
+    elif args.data:
+        data = np.loadtxt(args.data, delimiter=",")
+        y = data[:, 0].astype(np.float32)
+        x = data[:, 1:4].astype(np.float32)
+    else:
+        print("error: give --loop-csv or --data", file=sys.stderr)
+        return 2
+    dev = _device(args.device)
+    model = logistic.fit(torch.as_tensor(x, device=dev),
+                         torch.as_tensor(y, device=dev), balanced=False)
+    os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+    logistic.save_coefficients(model, args.output)
+    _, cm = _classifier_report(model, x, y, dev)
+    print(json.dumps(dict(samples=int(len(y)), **cm.as_dict())))
+    return 0
+
+
+def cmd_reoptimize(args, overrides: List[str]) -> int:
+    """Re-run PGO on a saved full graph with overridden weights (the
+    debug_optimizer / dynamic_reconfigure analogue): each invocation applies
+    ``pgo.*`` overrides (e.g. ``pgo.loop_scaling=1e4``) and reports the
+    metrics before and after."""
+    from ..io import checkpoint
+
+    cfg = _build_cfg(SENSOR, overrides)
+    graph = checkpoint.load_full_graph(args.graph, cfg,
+                                       device=_device(args.device))
+    pre = graph.align_to_gt()
+    res = graph.optimize(solver=args.solver)
+    post = graph.align_to_gt()
+    if args.output:
+        os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+        checkpoint.save_full_graph(args.output, graph,
+                                   loop_log=checkpoint.load_loop_log(
+                                       args.graph))
+    out = dict(cost0=float(res.cost0), cost=float(res.cost),
+               iterations=int(res.iterations), solver=graph.last_solver)
+    if pre is not None:
+        out.update(ate_rmse_before=pre["ate_rmse"],
+                   ate_rmse_after=post["ate_rmse"])
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_constraints(args, overrides: List[str]) -> int:
+    """Dump / re-verify the loop constraints of a saved full graph (the
+    DebugConstraints analogue): every loop-type constraint with its relative
+    pose, measured covariance and, when the checkpoint carries scan payloads
+    and ``--reverify`` is set, a freshly computed alignment quality at the
+    stored t_be.  With GT present, each constraint also gets the
+    EvaluationManager label geometry (< 4 m, < 2.5 deg)."""
+    import csv
+
+    import torch
+
+    from ..core import se2
+    from ..core.types import ODOMETRY, stack_records
+    from ..io import checkpoint
+    from ..models import verification as verif
+    from ..ops import logistic
+
+    cfg = _build_cfg(SENSOR, overrides)
+    dev = _device(args.device)
+    graph = checkpoint.load_full_graph(args.graph, cfg, device=dev)
+    gt = graph.gt_array()
+    slam = None
+    if args.reverify:
+        if "peaks_xy" not in np.load(args.graph).files:
+            print("error: checkpoint has no scan payloads; re-save with "
+                  "save_full_graph(..., slam=...)", file=sys.stderr)
+            return 2
+        slam = checkpoint.load_full_graph_slam(args.graph, cfg, device=dev)
+    align_model = logistic.from_values(cfg.verification.alignment_coefs[0],
+                                       cfg.verification.alignment_coefs[1:],
+                                       device=dev)
+    loops = [ed for ed in graph.edges if ed["etype"] != ODOMETRY]
+    quality = None
+    if slam is not None and loops:
+        lp = slam.loops
+        src = [lp._payload(ed["idx"][0]) for ed in loops]
+        ref = [lp._payload(ed["idx"][1]) for ed in loops]
+        t_be = torch.as_tensor(np.stack([ed["meas"] for ed in loops]),
+                               device=dev)
+        x6 = verif.alignment_features(
+            stack_records([p for _, p in src]),
+            stack_records([c for c, _ in src]), torch.zeros_like(t_be),
+            stack_records([p for _, p in ref]),
+            stack_records([c for c, _ in ref]), t_be, cfg.verification)
+        quality = logistic.predict_linear(align_model, x6).cpu().numpy()
+
+    rows = []
+    for k, ed in enumerate(loops):
+        a, b = ed["idx"]
+        row = dict(id_from=int(a), id_to=int(b), etype=int(ed["etype"]),
+                   t_x=float(ed["meas"][0]), t_y=float(ed["meas"][1]),
+                   t_yaw=float(ed["meas"][2]),
+                   has_cov=ed.get("cov") is not None)
+        if ed.get("cov") is not None:
+            c = np.asarray(ed["cov"])
+            row.update(cov_xx=float(c[0, 0]), cov_yy=float(c[1, 1]),
+                       cov_tt=float(c[2, 2]))
+        if gt is not None:
+            t_gt = se2.relative_np(gt[a], gt[b])
+            err_t = float(np.linalg.norm(ed["meas"][:2] - t_gt[:2]))
+            d = float(ed["meas"][2] - t_gt[2])
+            err_r = abs(float(np.arctan2(np.sin(d), np.cos(d))))
+            row.update(gt_err_m=round(err_t, 4),
+                       gt_err_deg=round(float(np.degrees(err_r)), 4),
+                       positive_ok=bool(err_t < 4.0
+                                        and err_r < np.radians(2.5)))
+        if quality is not None:
+            row["alignment_quality"] = float(quality[k])
+        rows.append(row)
+
+    if args.output:
+        os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+        keys = sorted({k for r in rows for k in r})
+        with open(args.output, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=keys)
+            w.writeheader()
+            w.writerows(rows)
+    n_pos = sum(1 for r in rows if r.get("positive_ok"))
+    print(json.dumps(dict(n_loops=len(rows),
+                          n_with_cov=sum(1 for r in rows if r["has_cov"]),
+                          n_positive_ok=n_pos if gt is not None else None,
+                          reverified=slam is not None,
+                          rows=rows if args.print_rows else None)))
+    return 0
+
+
 def cmd_eval(args, overrides: List[str]) -> int:
     from ..eval import kitti
 
     m = kitti.evaluate_files(args.gt, args.est, args.output)
     print(json.dumps(m.as_dict()))
     return 0
+
+
+SOLVER_CHOICES = ["auto", "schur", "cholesky", "cg"]
+DEVICE_HELP = "cuda (the default; an error without a card) or cpu"
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -213,18 +466,57 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--output", required=True)
     p.add_argument("--max-frames", type=int, default=0)
     p.add_argument("--chunk", type=int, default=0,
-                   help="not ported yet: values > 1 raise")
-    p.add_argument("--device", default=None)
+                   help="run frames in device-resident chunks of this size "
+                        "(one upload and one read per chunk)")
+    p.add_argument("--device", default=None, help=DEVICE_HELP)
     p.set_defaults(fn=cmd_odometry)
 
     p = sub.add_parser("slam")
     p.add_argument("--graph", required=True)
     p.add_argument("--output", required=True)
-    p.add_argument("--solver", default="cholesky",
-                   choices=["auto", "schur", "cholesky", "cg"],
-                   help="only cholesky is ported; the others raise")
-    p.add_argument("--device", default=None)
+    p.add_argument("--solver", default="auto", choices=SOLVER_CHOICES)
+    p.add_argument("--device", default=None, help=DEVICE_HELP)
     p.set_defaults(fn=cmd_slam)
+
+    p = sub.add_parser("online")
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--max-frames", type=int, default=0)
+    p.add_argument("--train-alignment", action="store_true",
+                   help="train the alignment classifier during the run")
+    p.add_argument("--solver", default="auto", choices=SOLVER_CHOICES,
+                   help="solver of the final optimization")
+    p.add_argument("--device", default=None, help=DEVICE_HELP)
+    p.set_defaults(fn=cmd_online)
+
+    p = sub.add_parser("reoptimize")
+    p.add_argument("--graph", required=True)
+    p.add_argument("--output", default=None)
+    p.add_argument("--solver", default="auto", choices=SOLVER_CHOICES)
+    p.add_argument("--device", default=None, help=DEVICE_HELP)
+    p.set_defaults(fn=cmd_reoptimize)
+
+    p = sub.add_parser("constraints")
+    p.add_argument("--graph", required=True)
+    p.add_argument("--output", default="")
+    p.add_argument("--reverify", action="store_true")
+    p.add_argument("--print-rows", action="store_true")
+    p.add_argument("--device", default=None, help=DEVICE_HELP)
+    p.set_defaults(fn=cmd_constraints)
+
+    p = sub.add_parser("train-alignment")
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--max-frames", type=int, default=0)
+    p.add_argument("--device", default=None, help=DEVICE_HELP)
+    p.set_defaults(fn=cmd_train_alignment)
+
+    p = sub.add_parser("train-loop")
+    p.add_argument("--loop-csv", default=None)
+    p.add_argument("--data", default=None)
+    p.add_argument("--output", required=True)
+    p.add_argument("--device", default=None, help=DEVICE_HELP)
+    p.set_defaults(fn=cmd_train_loop)
 
     p = sub.add_parser("eval")
     p.add_argument("--gt", required=True)

@@ -6,6 +6,7 @@ dtypes, so checkpoints cross between the two packages in both directions.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import List, Optional
 
 import numpy as np
@@ -111,10 +112,13 @@ def load_simple_graph(path: str) -> SimpleGraph:
     )
 
 
-def save_full_graph(path: str, graph, slam=None) -> None:
-    """The full pose graph incl. loop constraints; with ``slam`` (a
-    models.slam.OfflineSLAM) the loop closer's keyframe payloads too, so
-    verification can resume from the checkpoint."""
+def save_full_graph(path: str, graph, loop_log: Optional[List[dict]] = None,
+                    slam=None) -> None:
+    """The full pose graph incl. loop constraints (full_graph.pgh).  With
+    ``slam`` (a models.slam.TBVSLAM) the loop closer's keyframe payloads are
+    stored too, so loop closure and re-verification can resume from the
+    checkpoint; ``loop_log`` (default: the slam's candidate log) is stored as
+    one JSON string, a key the reference's loader does not read."""
     e = graph.edges
     eye = np.eye(3, dtype=np.float32)
     data = dict(
@@ -132,6 +136,10 @@ def save_full_graph(path: str, graph, slam=None) -> None:
     gt = graph.gt_array()
     if gt is not None:
         data["gt"] = gt
+    if loop_log is None and slam is not None:
+        loop_log = slam.loops.candidate_log
+    if loop_log:
+        data["loop_log"] = np.asarray(json.dumps(loop_log))
     if slam is not None and slam.loops.kf_peaks:
         lp = slam.loops
         peaks, cells = _stack_records(lp.kf_peaks), _stack_records(lp.kf_cells)
@@ -143,3 +151,62 @@ def save_full_graph(path: str, graph, slam=None) -> None:
             cells_avg_intensity=cells.avg_intensity, cells_valid=cells.valid,
             kf_odom=_stack(lp.kf_odom))
     np.savez_compressed(path, **data)
+
+
+def load_full_graph(path: str, cfg, device=None):
+    """Rebuild a models.slam.PoseGraph from a full-graph checkpoint written
+    by either package."""
+    from ..models.slam import PoseGraph
+
+    g = PoseGraph(cfg, device=device)
+    z = np.load(path)
+    gt = z["gt"] if "gt" in z.files else None
+    has_cov = z["edge_has_cov"] if "edge_has_cov" in z.files else None
+    covs = z["edge_cov"] if "edge_cov" in z.files else None
+    for i, p in enumerate(z["poses"]):
+        g.add_node(p, float(z["stamps"][i]), gt=None if gt is None else gt[i])
+    for k, (idx, meas, et) in enumerate(zip(z["edge_idx"], z["edge_meas"],
+                                            z["edge_type"])):
+        cov = covs[k] if covs is not None and has_cov is not None \
+            and has_cov[k] else None
+        g.edges.append(dict(idx=(int(idx[0]), int(idx[1])),
+                            meas=np.asarray(meas, np.float32),
+                            etype=int(et), cov=cov))
+    return g
+
+
+def load_loop_log(path: str) -> List[dict]:
+    """The candidate log of a full-graph checkpoint ([] where it has none)."""
+    z = np.load(path)
+    return json.loads(str(z["loop_log"])) if "loop_log" in z.files else []
+
+
+def load_full_graph_slam(path: str, cfg, device=None):
+    """Rebuild a full TBVSLAM, pose graph AND loop-closer keyframe payloads,
+    from a full-graph checkpoint saved with ``slam=``.  Loop closure is
+    resumable (processed pointer at the end): add more keyframes and call
+    loops.process_pending(), or re-verify existing constraints."""
+    from ..models.slam import TBVSLAM
+
+    z = np.load(path)
+    if "peaks_xy" not in z.files:
+        raise ValueError(f"{path} was saved without scan payloads "
+                         "(save_full_graph(..., slam=...))")
+    slam = TBVSLAM(cfg, device=device)
+    slam.graph = load_full_graph(path, cfg, device=slam.device)
+    n = slam.graph.num_nodes
+    for i in range(n):
+        peaks = PointCloud(xy=z["peaks_xy"][i],
+                           intensity=z["peaks_intensity"][i],
+                           mask=z["peaks_mask"][i])
+        cells = Cells(mean=z["cells_mean"][i], cov=z["cells_cov"][i],
+                      normal=z["cells_normal"][i],
+                      nsamples=z["cells_nsamples"][i],
+                      planarity=z["cells_planarity"][i],
+                      avg_intensity=z["cells_avg_intensity"][i],
+                      valid=z["cells_valid"][i])
+        slam.loops.add_keyframe(peaks, cells, z["kf_odom"][i])
+    slam.loops._processed = n
+    slam.loops.candidate_log = load_loop_log(path)
+    slam._kf_to_node = list(range(n))
+    return slam

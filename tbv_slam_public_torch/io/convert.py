@@ -48,3 +48,32 @@ def edges_from_numpy(d: Mapping, device=None) -> GraphEdges:
 def logistic_from_numpy(intercept, coef, device=None) -> LogisticModel:
     return from_values(float(np.asarray(intercept)), np.asarray(coef),
                        device=device)
+
+
+def training_data_from_numpy(learner, x, y) -> None:
+    """Load accumulated alignment-training samples (x [S, 6], y [S], for
+    instance the reference learner's concatenated ``_x`` / ``_y``) into a
+    models.verification.AlignmentLearner, replacing what it holds."""
+    learner._x = [np.asarray(x, np.float32).reshape(-1, 6)]
+    learner._y = [np.asarray(y, np.float32).reshape(-1)]
+
+
+def full_graph_from_numpy(poses, edges, cfg, stamps=None, gt=None,
+                          loop_log=None, device=None):
+    """A models.slam.PoseGraph from the reference's host form: ``poses``
+    [N, 3], ``edges`` a list of records with ``idx``, ``meas``, ``etype`` and
+    optional ``cov`` (the reference PoseGraph's ``edges``).  Returns
+    (graph, loop_log) with the log's rows copied as plain dicts."""
+    from ..models.slam import PoseGraph
+
+    g = PoseGraph(cfg, device=device)
+    for i, p in enumerate(np.asarray(poses, np.float32)):
+        g.add_node(p, 0.0 if stamps is None else float(stamps[i]),
+                   gt=None if gt is None else gt[i])
+    for ed in edges:
+        cov = ed.get("cov")
+        g.edges.append(dict(
+            idx=(int(ed["idx"][0]), int(ed["idx"][1])),
+            meas=np.asarray(ed["meas"], np.float32), etype=int(ed["etype"]),
+            cov=None if cov is None else np.asarray(cov, np.float32)))
+    return g, [dict(r) for r in (loop_log or [])]

@@ -1,11 +1,15 @@
 """Loop closure: retrieval, batched candidate registration, verification.
 
-Port of the offline wave path of ``tbv_slam_public_tpu.models.loopclosure``
-(ScanContextClosure, loopclosure.cpp:593-745): per-keyframe contexts (RSC
-descriptors of the aggregated local map and its lateral augmentations),
-odometry-coupled retrieval merged across augmentations, P2L registration of
-every (query, candidate) pair from the ScanContext guess, CorAl + CFEAR
-verification features, the logistic loop verifier, and per-query acceptance.
+Port of ``tbv_slam_public_tpu.models.loopclosure`` (ScanContextClosure,
+loopclosure.cpp:593-745): per-keyframe contexts (RSC descriptors of the
+aggregated local map and its lateral augmentations), odometry-coupled
+retrieval merged across augmentations, P2L registration of every (query,
+candidate) pair from the ScanContext guess, CorAl + CFEAR verification
+features, the logistic loop verifier, and per-query acceptance.  Two
+schedules share these stages: the offline wave over all keyframes
+(``process_all_batched``) and the online per-keyframe form
+(``process_pending`` / ``finish``), whose k candidates of one query go
+through the pair form with the query broadcast.
 
 The reference pads keyframe stores and waves to universal shapes so its
 compiled programs are cached; eager PyTorch needs no such padding, so waves
@@ -22,8 +26,9 @@ import torch
 
 from ..core import se2
 from ..core.config import TBVConfig
+from ..core.device import resolve
 from ..core.timing import timing
-from ..core.types import Cells, PointCloud
+from ..core.types import Cells, PointCloud, stack_records
 from ..ops import logistic, scancontext
 from ..ops import registration as reg_op
 from . import verification as verif
@@ -60,6 +65,16 @@ def db_insert_batch(db: LoopDB, slots: torch.Tensor, descs: torch.Tensor,
     db.ring[slots] = rings
     db.odom_pose[slots] = odom
     db.mask[slots] = True
+    return db
+
+
+def db_insert(db: LoopDB, slot: int, desc: torch.Tensor, ring: torch.Tensor,
+              odom_pose: torch.Tensor) -> LoopDB:
+    """Write one keyframe's descriptor into the DB (in place)."""
+    db.desc[slot] = desc
+    db.ring[slot] = ring
+    db.odom_pose[slot] = odom_pose
+    db.mask[slot] = True
     return db
 
 
@@ -245,6 +260,24 @@ def register_and_verify_pairs(q_cells: Cells, q_peaks: PointCloud,
         reg_score=score, reg_ok=reg_ok, valid=ok, cov=cov, cov_ok=cov_ok)
 
 
+def register_and_verify(q_cells: Cells, q_peaks: PointCloud,
+                        c_cells: Cells, c_peaks: PointCloud,
+                        taug: torch.Tensor, yaw: torch.Tensor,
+                        sc_sim: torch.Tensor, odom_bounds: torch.Tensor,
+                        cand_valid: torch.Tensor,
+                        align_model: logistic.LogisticModel,
+                        loop_model: logistic.LogisticModel,
+                        cfg: TBVConfig) -> CandidateResult:
+    """The K candidates [K, ...] of ONE query (the online form,
+    RegisterLoopCandidate): the query is broadcast over the candidates and
+    the batch goes through the pair form."""
+    k = yaw.shape[0]
+    rep = lambda x: x[None].expand((k,) + x.shape)
+    return register_and_verify_pairs(
+        q_cells.map(rep), q_peaks.map(rep), c_cells, c_peaks, taug, yaw,
+        sc_sim, odom_bounds, cand_valid, align_model, loop_model, cfg)
+
+
 @dataclass
 class LoopConstraint:
     id_from: int
@@ -259,6 +292,27 @@ def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
+def _fetch(rec) -> Dict[str, np.ndarray]:
+    """All fields of a record of [M, ...] tensors as host arrays, through ONE
+    device->host copy: the fields are packed row-wise into a float32 buffer
+    (indices stay exact below 2^24) and restored to their shapes and types."""
+    fields = [(f.name, getattr(rec, f.name)) for f in dataclasses.fields(rec)]
+    m = fields[0][1].shape[0]
+    flat = torch.cat([x.reshape(m, -1).to(torch.float32) for _, x in fields],
+                     1).cpu().numpy()
+    out, lo = {}, 0
+    for name, x in fields:
+        width = int(np.prod(x.shape[1:]))
+        a = flat[:, lo:lo + width].reshape(tuple(x.shape))
+        lo += width
+        if x.dtype == torch.bool:
+            a = a > 0.5
+        elif not x.dtype.is_floating_point:
+            a = a.astype(np.int64)
+        out[name] = a
+    return out
+
+
 class LoopCloser:
     """Host-side loop-closure driver (the ScanContextClosure strategy).
 
@@ -270,7 +324,7 @@ class LoopCloser:
                  align_model: Optional[logistic.LogisticModel] = None,
                  loop_model: Optional[logistic.LogisticModel] = None):
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve(device)
         self.align_model = (align_model or logistic.from_values(
             cfg.verification.alignment_coefs[0],
             cfg.verification.alignment_coefs[1:])).to(self.device)
@@ -284,6 +338,7 @@ class LoopCloser:
         self.candidate_log: List[dict] = []
         self._processed = 0
         self._store = None
+        self._on_device: Dict[int, tuple] = {}  # keyframe -> (cells, peaks)
 
     def add_keyframe(self, peaks: PointCloud, cells: Cells,
                      odom_pose: np.ndarray) -> None:
@@ -387,10 +442,8 @@ class LoopCloser:
         dets = []
         with timing.timer("loop_wave_detect"):
             for q, d, r in chunks:
-                det = detect(self.db, d, r, q, cfg)
-                dets.append(DetectResult(**{
-                    f.name: _host(getattr(det, f.name))
-                    for f in dataclasses.fields(det)}))
+                dets.append(DetectResult(**_fetch(detect(self.db, d, r, q,
+                                                          cfg))))
         det = DetectResult(**{f.name: np.concatenate(
             [getattr(x, f.name) for x in dets])
             for f in dataclasses.fields(DetectResult)})
@@ -421,8 +474,7 @@ class LoopCloser:
                     f32([det.dist_odom[qi, k] for qi, k in sel]),
                     torch.ones(len(sel), dtype=torch.bool, device=dev),
                     self.align_model, self.loop_model, cfg)
-                res = {f.name: _host(getattr(res, f.name))
-                       for f in dataclasses.fields(res)}
+                res = _fetch(res)
                 for i, key in enumerate(sel):
                     results[key] = {k: v[i] for k, v in res.items()}
 
@@ -460,6 +512,92 @@ class LoopCloser:
         self._processed = n
         return accepted
 
+    # -- per-keyframe processing (the online schedule) ---------------------
+    def process_pending(self) -> List[LoopConstraint]:
+        """Process every keyframe whose +-n_aggregate neighbourhood is
+        complete."""
+        out: List[LoopConstraint] = []
+        n_agg = self.cfg.loopclosure.n_aggregate
+        while self._processed + n_agg < len(self.kf_odom):
+            out.extend(self._process_one(self._processed))
+            self._processed += 1
+        return out
+
     def finish(self) -> List[LoopConstraint]:
-        """Offline finish: every remaining keyframe through the wave path."""
-        return self.process_all_batched()
+        """Process the trailing keyframes (incomplete neighbourhoods)."""
+        out: List[LoopConstraint] = []
+        while self._processed < len(self.kf_odom):
+            out.extend(self._process_one(self._processed))
+            self._processed += 1
+        return out
+
+    def _payload(self, i: int):
+        """Keyframe ``i``'s (cells, peaks) on the device, uploaded once."""
+        if i not in self._on_device:
+            up = lambda x: torch.as_tensor(x, device=self.device)
+            self._on_device[i] = (self.kf_cells[i].map(up),
+                                  self.kf_peaks[i].map(up))
+        return self._on_device[i]
+
+    def _process_one(self, q: int) -> List[LoopConstraint]:
+        cfg = self.cfg
+        dev = self.device
+        self._ensure_capacity(q + 1)
+        with timing.timer("loop_descriptor"):
+            local_map = self._aggregate_local_map(q).map(lambda x: x[None])
+            descs, rings = context_descriptors(local_map, cfg)
+            db_insert(self.db, q, descs[0, 0], rings[0, 0],
+                      torch.as_tensor(self.kf_odom[q], device=dev))
+        with timing.timer("loop_detect"):
+            # the one read per keyframe that decides whether to register
+            det = {k: v[0] for k, v in _fetch(detect(
+                self.db, descs, rings, torch.tensor([q], device=dev),
+                cfg)).items()}
+        if not det["valid"].any():
+            return []
+
+        k = cfg.scancontext.n_candidates
+        f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+        with timing.timer("loop_register_verify"):
+            cand = [self._payload(int(i))
+                    for i in np.where(det["valid"], det["index"], 0)]
+            q_cells, q_peaks = self._payload(q)
+            res = _fetch(register_and_verify(
+                q_cells, q_peaks, stack_records([c for c, _ in cand]),
+                stack_records([p for _, p in cand]),
+                augmentation_offsets(cfg, dev)[torch.as_tensor(det["aug"],
+                                                               device=dev)],
+                f32(det["yaw"]), f32(det["dist_sc"] + det["dist_odom"]),
+                f32(det["dist_odom"]),
+                torch.as_tensor(det["valid"], device=dev),
+                self.align_model, self.loop_model, cfg))
+
+        for i in range(k):
+            if det["valid"][i]:
+                self.candidate_log.append(dict(
+                    id_from=q, id_to=int(det["index"][i]),
+                    prob=float(res["prob"][i]),
+                    sc_sim=float(res["sc_sim"][i]),
+                    odom_bounds=float(res["odom_bounds"][i]),
+                    alignment_quality=float(res["align_quality"][i]),
+                    x6=res["x6"][i].tolist(), t_be=res["t_be"][i].tolist(),
+                    guess_nr=i, reg_ok=bool(res["reg_ok"][i])))
+
+        # ApplyConstratins: best (or all) above threshold
+        order = np.argsort(-res["prob"])
+        selected = order if cfg.verification.all_candidates else order[:1]
+        accepted = []
+        for i in selected:
+            if res["valid"][i] and \
+                    float(res["prob"][i]) > cfg.verification.model_threshold:
+                c = LoopConstraint(
+                    id_from=q, id_to=int(det["index"][i]),
+                    t_be=res["t_be"][i].copy(), prob=float(res["prob"][i]),
+                    quality=dict(
+                        sc_sim=float(res["sc_sim"][i]),
+                        odom_bounds=float(res["odom_bounds"][i]),
+                        alignment_quality=float(res["align_quality"][i])),
+                    cov=res["cov"][i].copy() if res["cov_ok"][i] else None)
+                self.constraints.append(c)
+                accepted.append(c)
+        return accepted

@@ -5,8 +5,11 @@ Port of ``tbv_slam_public_tpu.models.odometry`` (``init_state``,
 compensation -> features -> window registration -> sanity check ->
 keyframe gate -> window roll, with the keyframe decision applied as a masked
 update so a frame never waits on the device.  The pipeline reads the frame's
-scalars back once per frame; keyframe payloads stay on the device until the
-checkpoint is written.  The chunked ``lax.scan`` path is not ported yet.
+scalars back once per frame; keyframe payloads stay on the device until a
+consumer (checkpoint, loop closer) asks for them.  ``process_chunk`` stands
+for the reference's ``odometry_scan``: K frames go up in one copy, the K steps
+run back to back with no host read between them, and one read brings the K
+frames' scalars back.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from ..core import se2
 from ..core.config import TBVConfig
+from ..core.device import constant, resolve
 from ..core.timing import timing
 from ..core.types import Cells, PointCloud, make_cells
 from ..ops import features, radar, registration
@@ -110,7 +114,7 @@ def odometry_step(state: OdometryState, image: torch.Tensor, cfg: TBVConfig):
         else state.T_prev
     prior = None
     if ocfg.soft_constraint:
-        prior = torch.diag(torch.tensor([10.0, 10.0, 31.6], device=dev))
+        prior = torch.diag(constant((10.0, 10.0, 31.6), torch.float32, dev))
     batch = lambda x: x[None]
     res = registration.register_window(
         cells.map(batch), batch(Tguess), state.kf_cells.map(batch),
@@ -168,6 +172,13 @@ def odometry_step(state: OdometryState, image: torch.Tensor, cfg: TBVConfig):
     return state, out
 
 
+def _frame_scalars(out: OdometryOutput) -> torch.Tensor:
+    """[16] pose, cov, fused, constraint of one frame: what the host needs
+    of it, packed for one device->host read."""
+    return torch.cat([out.pose, out.cov.reshape(-1),
+                      out.fused.reshape(1).float(), out.constraint])
+
+
 class OdometryPipeline:
     """Host-side driver: feeds images, collects keyframes and constraints
     (the offline_odometry node).  Frame records are NumPy; keyframe payloads
@@ -175,7 +186,7 @@ class OdometryPipeline:
 
     def __init__(self, cfg: TBVConfig, device=None):
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve(device)
         self.state = init_state(cfg, self.device)
         self.frame_poses: List[np.ndarray] = []
         self.frame_stamps: List[float] = []
@@ -198,10 +209,15 @@ class OdometryPipeline:
         else:
             with timing.timer("odometry_step"):
                 self.state, out = odometry_step(self.state, image, self.cfg)
-        # ONE device->host read per frame: pose, cov, fused, constraint
-        host = torch.cat([out.pose, out.cov.reshape(-1),
-                          out.fused.reshape(1).float(),
-                          out.constraint]).cpu().numpy()
+        self._record_frame(_frame_scalars(out).cpu().numpy(), out, stamp,
+                           gt_pose)
+        return out
+
+    def _record_frame(self, host: np.ndarray, out: OdometryOutput, stamp,
+                      gt_pose) -> None:
+        """Per-frame bookkeeping from the frame's scalars on the host
+        (``_frame_scalars`` layout); the payload of a fused frame is kept as
+        device tensors."""
         pose_h, cov_h = host[:3], host[3:12].reshape(3, 3)
         fused, constraint_h = bool(host[12] > 0.5), host[13:16]
         self.frame_poses.append(pose_h)
@@ -221,4 +237,34 @@ class OdometryPipeline:
                     id_begin=self._last_kf_idx, id_end=kf_idx,
                     t_be=constraint_h, cov=cov_h))
             self._last_kf_idx = kf_idx
-        return out
+
+    def process_chunk(self, images: np.ndarray, stamps=None,
+                      gt_poses=None) -> int:
+        """Run a chunk of K frames on the device: one [K, A, R] upload, K
+        frame steps with no host read between them, then one read of the K
+        frames' scalars.  Frame 0 of a sequence (window seeding) goes through
+        ``process``.  Returns the number of keyframes fused."""
+        images = np.asarray(images)
+        k = images.shape[0]
+        if k == 0:
+            return 0
+        stamps = [0.0] * k if stamps is None else list(stamps)
+        gts = [None] * k if gt_poses is None else list(gt_poses)
+        n_kf0 = len(self.kf_poses)
+        start = 0
+        if self.state.frame_idx == 0:
+            self.process(images[0], stamps[0], gt_pose=gts[0])
+            start = 1
+            if k == 1:
+                return len(self.kf_poses) - n_kf0
+        with timing.timer("odometry_scan_chunk"):
+            dev_images = torch.as_tensor(images[start:], device=self.device)
+            outs = []
+            for img in dev_images:
+                self.state, out = odometry_step(self.state, img, self.cfg)
+                outs.append(out)
+            host = torch.stack([_frame_scalars(o) for o in outs]).cpu().numpy()
+        for i, out in enumerate(outs):
+            self._record_frame(host[i], out, stamps[start + i],
+                               gts[start + i])
+        return len(self.kf_poses) - n_kf0

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.config import FeatureConfig
+from ..core.device import constant
 from ..core.types import Cells, PointCloud
 
 
@@ -28,8 +29,8 @@ def eigh2x2(cov: torch.Tensor):
     n1 = (v1 * v1).sum(-1)
     n2 = (v2 * v2).sum(-1)
     v = torch.where((n1 > n2)[..., None], v1, v2)
-    e0 = torch.tensor([1.0, 0.0], dtype=cov.dtype, device=cov.device)
-    e1 = torch.tensor([0.0, 1.0], dtype=cov.dtype, device=cov.device)
+    e0 = constant((1.0, 0.0), cov.dtype, cov.device)
+    e1 = constant((0.0, 1.0), cov.dtype, cov.device)
     axis = torch.where((a <= c)[..., None], e0, e1)
     norm = torch.sqrt(torch.maximum(n1, n2))
     v = torch.where((norm > 1e-20)[..., None],
@@ -105,8 +106,7 @@ def compute_cells(cloud: PointCloud, cfg: FeatureConfig,
     cov_ok = (cond <= cfg.max_cond) & (det > cfg.min_det) & (lmin > 0) & \
         (lmax > 0)
     planarity = torch.log1p(cond / 2.0)
-    org = torch.tensor([float(origin[0]), float(origin[1])], dtype=dt,
-                       device=dev)
+    org = constant((float(origin[0]), float(origin[1])), dt, dev)
     flip = (normal * (org[None, :] - mean)).sum(-1) < 0
     normal = torch.where(flip[:, None], -normal, normal)
 

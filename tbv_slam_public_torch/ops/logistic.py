@@ -1,8 +1,8 @@
-"""Logistic-regression inference and coefficient I/O.
+"""Logistic regression: penalised IRLS fit, inference, coefficient I/O.
 
-Port of the inference half of ``tbv_slam_public_tpu.ops.logistic``
-(``predict_linear`` mirrors the reference's coef . x + intercept); the IRLS
-``fit`` is not ported yet (see ROADMAP.md).
+Port of ``tbv_slam_public_tpu.ops.logistic``: sklearn's
+LogisticRegression(class_weight="balanced", C=1) as a Newton/IRLS solve on
+tensors; ``predict_linear`` is the reference's coef . x + intercept.
 """
 from __future__ import annotations
 
@@ -27,6 +27,80 @@ def predict_linear(model: LogisticModel, x: torch.Tensor) -> torch.Tensor:
 
 def predict_proba(model: LogisticModel, x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(predict_linear(model, x))
+
+
+def predict(model: LogisticModel, x: torch.Tensor) -> torch.Tensor:
+    return predict_proba(model, x) > 0.5
+
+
+def fit(x: torch.Tensor, y: torch.Tensor, sample_mask: torch.Tensor = None, *,
+        c: float = 1.0, iterations: int = 50,
+        balanced: bool = True) -> LogisticModel:
+    """Penalised IRLS fit of sigma(w.x + b) for x [N, D], y [N] in {0, 1}.
+
+    sklearn's objective: minimise sum_i s_i * logloss_i + 0.5/C * |w|^2 with
+    the intercept unpenalised; "balanced" class weights are
+    n_samples / (2 * n_class)."""
+    n, d = x.shape
+    dt, dev = x.dtype, x.device
+    fm = torch.ones(n, dtype=dt, device=dev) if sample_mask is None \
+        else sample_mask.to(dt)
+    y = y.to(dt)
+    if balanced:
+        n_eff = fm.sum()
+        n_pos = (fm * y).sum()
+        w_pos = n_eff / (2.0 * torch.clamp(n_pos, min=1.0))
+        w_neg = n_eff / (2.0 * torch.clamp(n_eff - n_pos, min=1.0))
+        sw = torch.where(y > 0.5, w_pos, w_neg) * fm
+    else:
+        sw = fm
+    xb = torch.cat([torch.ones((n, 1), dtype=dt, device=dev), x], 1)
+    reg = torch.cat([torch.zeros(1, dtype=dt, device=dev),
+                     torch.full((d,), 1.0 / c, dtype=dt, device=dev)])
+    ridge = torch.diag(reg) + 1e-8 * torch.eye(d + 1, dtype=dt, device=dev)
+    w = torch.zeros(d + 1, dtype=dt, device=dev)
+    for _ in range(iterations):
+        p = torch.sigmoid(xb @ w)
+        g = xb.T @ (sw * (p - y)) + reg * w
+        r = torch.clamp(sw * p * (1.0 - p), min=1e-8)
+        h = (xb * r[:, None]).T @ xb + ridge
+        # damped Newton keeps early iterations stable on separable data
+        w = w - torch.clamp(torch.linalg.solve(h, g), -10.0, 10.0)
+    return LogisticModel(intercept=w[0], coef=w[1:])
+
+
+def accuracy(model: LogisticModel, x, y, mask=None) -> torch.Tensor:
+    ok = predict(model, x) == (y > 0.5)
+    if mask is not None:
+        return (ok & mask).sum() / torch.clamp(mask.sum(), min=1)
+    return ok.float().mean()
+
+
+def confusion(model: LogisticModel, x, y, mask=None):
+    """(tp, fp, tn, fn) counts."""
+    pred = predict(model, x)
+    truth = y > 0.5
+    if mask is None:
+        mask = torch.ones_like(truth)
+    return ((pred & truth & mask).sum(), (pred & ~truth & mask).sum(),
+            (~pred & ~truth & mask).sum(), (~pred & truth & mask).sum())
+
+
+def roc_curve(model: LogisticModel, x, y, mask=None, thresholds: int = 101):
+    """(fpr, tpr) NumPy arrays over evenly spaced probability thresholds."""
+    host = lambda t: t.detach().cpu().numpy() if torch.is_tensor(t) \
+        else np.asarray(t)
+    p = host(predict_proba(model, x))
+    truth = host(y) > 0.5
+    m = np.ones_like(truth) if mask is None else host(mask)
+    pos = max(np.sum(truth & m), 1)
+    neg = max(np.sum(~truth & m), 1)
+    tpr, fpr = [], []
+    for t in np.linspace(0, 1, thresholds):
+        pred = (p >= t) & m
+        tpr.append(np.sum(pred & truth) / pos)
+        fpr.append(np.sum(pred & ~truth) / neg)
+    return np.asarray(fpr), np.asarray(tpr)
 
 
 def from_values(intercept: float, coef, device=None) -> LogisticModel:

@@ -12,6 +12,7 @@ Cost convention (Ceres): total cost = 0.5 * sum_i w_i * rho(|r_i|^2).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -21,11 +22,14 @@ import torch
 
 from ..core import se2
 from ..core.config import RegistrationConfig
+from ..core.device import constant
 from ..core.types import Cells, RegistrationResult
 
 COST_P2L = 0
 COST_P2D = 1
 COST_P2P = 2
+
+DEFAULT_COV_DIAG = (0.1 ** 2, 0.1 ** 2, 0.01 ** 2)  # x, y [m^2], yaw [rad^2]
 
 LOSS_NONE = 0
 LOSS_HUBER = 1
@@ -333,15 +337,17 @@ def register_window(src: Cells, src_pose0: torch.Tensor, tgt: Cells,
         n_res = torch.where(run, cnt, n_res)
         active = run & ~regressed & ~converged
 
-    cov = torch.diag(torch.tensor([0.1 ** 2, 0.1 ** 2, 0.01 ** 2], dtype=dt,
-                                  device=dev)).expand(bsz, 3, 3)
+    cov = torch.diag(constant(DEFAULT_COV_DIAG, dt, dev)).expand(bsz, 3, 3)
     return RegistrationResult(pose=theta, score=score, num_residuals=n_res,
                               iterations=used, success=n_res > 1, cov=cov)
 
 
-def _quad_fit_pinv(xy_range: float, yaw_range: float, steps: int):
-    """Pseudo-inverse of the quadratic-fit design matrix over the steps^3
-    sampling grid (approximateCovarianceBySampling)."""
+@functools.lru_cache(maxsize=None)
+def _quad_fit_pinv(xy_range: float, yaw_range: float, steps: int, device):
+    """Pseudo-inverse [10, steps^3] of the quadratic-fit design matrix over
+    the steps^3 sampling grid and the grid's offsets [steps^3, 3]
+    (approximateCovarianceBySampling), as tensors on ``device``; computed and
+    uploaded once per grid and device."""
     xs = np.linspace(-xy_range / 2, xy_range / 2, steps)
     ts = np.linspace(-yaw_range / 2, yaw_range / 2, steps)
     rows, offs = [], []
@@ -352,8 +358,9 @@ def _quad_fit_pinv(xy_range: float, yaw_range: float, steps: int):
                              x, y, t, 1.0])
                 offs.append([x, y, t])
     a = np.asarray(rows, np.float64)
-    return (np.linalg.pinv(a).astype(np.float32),
-            np.asarray(offs, np.float32))
+    return (torch.as_tensor(np.linalg.pinv(a).astype(np.float32),
+                            device=device),
+            torch.as_tensor(np.asarray(offs, np.float32), device=device))
 
 
 def sampled_covariance(src: Cells, theta_opt: torch.Tensor, tgt: Cells,
@@ -367,9 +374,7 @@ def sampled_covariance(src: Cells, theta_opt: torch.Tensor, tgt: Cells,
     least-squares fit, inverse Hessian with Censi scaling.  Returns
     (cov [B, 3, 3], convex [B])."""
     dt, dev = src.mean.dtype, src.mean.device
-    pinv, offs = _quad_fit_pinv(xy_range, yaw_range, steps)
-    pinv = torch.as_tensor(pinv, device=dev)
-    offs = torch.as_tensor(offs, device=dev)
+    pinv, offs = _quad_fit_pinv(xy_range, yaw_range, steps, dev)
     s = offs.shape[0]
     bsz = theta_opt.shape[0]
     cost = cost_code(cfg.cost)
@@ -391,8 +396,7 @@ def sampled_covariance(src: Cells, theta_opt: torch.Tensor, tgt: Cells,
     eye = torch.eye(3, dtype=dt, device=dev)
     hinv = torch.linalg.inv(h + (~convex).to(dt)[:, None, None] * eye)
     cov = 2.0 * hinv * (final_score / denom)[:, None, None] * cov_scaler
-    fallback = torch.diag(torch.tensor([0.1 ** 2, 0.1 ** 2, 0.01 ** 2],
-                                       dtype=dt, device=dev))
+    fallback = torch.diag(constant(DEFAULT_COV_DIAG, dt, dev))
     return torch.where(convex[:, None, None], cov, fallback), convex
 
 

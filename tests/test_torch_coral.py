@@ -21,6 +21,11 @@ from tbv_slam_public_torch.kernels import coral_moments as tmoments
 from tbv_slam_public_torch.models import verification as tverif
 from tbv_slam_public_torch.ops import coral as tcoral
 
+# The suite runs several worker processes on one machine and these tensors are
+# small: one intra-op thread per process keeps the workers from
+# oversubscribing the cores.
+torch.set_num_threads(1)
+
 # float32 sums taken in another order (the same bound as test_pallas.py)
 RTOL, ATOL = 1e-5, 1e-4
 CELL_FIELDS = ("mean", "cov", "normal", "nsamples", "planarity",

@@ -22,6 +22,11 @@ from tbv_slam_public_torch.core.types import Cells, make_cells
 from tbv_slam_public_torch.io import convert
 from tbv_slam_public_torch.ops import logistic as tlog
 
+# The suite runs several worker processes on one machine and these tensors are
+# small: one intra-op thread per process keeps the workers from
+# oversubscribing the cores.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # trig of identical float32 angles differs by an ulp between XLA and torch
 TRIG_ATOL = 2e-6

@@ -12,6 +12,11 @@ import torch
 
 from tbv_slam_public_torch.kernels import coral_moments as tmoments
 
+# The suite runs several worker processes on one machine and these tensors are
+# small: one intra-op thread per process keeps the workers from
+# oversubscribing the cores.
+torch.set_num_threads(1)
+
 # CorAl moments: float32 sums taken in another order than the plain version
 RTOL, ATOL = 1e-5, 1e-4
 
@@ -65,3 +70,58 @@ def test_coral_kernel_rejects_mismatched_shapes(cuda):
     with pytest.raises(ValueError):
         tmoments.neighbor_moments(qs, qm, ps[:1], pm, 1.0)
     assert tmoments.LAUNCHES == before
+
+
+def _clouds(seed, m, n, dev, extent=15.0):
+    """M pairs of world-frame peak clouds: the second is the first moved by
+    a few decimetres, so neighbourhoods overlap as at a true alignment.  At
+    ~4 points per square metre a 1 m neighbourhood holds a dozen points and
+    its covariance is well conditioned."""
+    from tbv_slam_public_torch.core.types import PointCloud
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-extent, extent, (m, n, 2)).astype(np.float32)
+    shift = rng.normal(scale=0.2, size=(m, n, 2)).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    mk = lambda p: PointCloud(xy=t(p), intensity=t(np.ones((m, n), np.float32)),
+                              mask=t(rng.uniform(size=(m, n)) < 0.9))
+    return mk(xy), mk(xy + shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,m", [("training", 13), ("online", 12)])
+def test_coral_quality_launch_sets(cuda, route, m):
+    """The two routes the online path adds, at their widths: the 13
+    perturbations of one keyframe pair, and one query broadcast over its 12
+    candidates (a stride-0 view, as ``register_and_verify`` hands it on).
+    Either is one set of four launches, and agrees with the plain version
+    on the CPU: overlap exactly up to two boundary points, entropies to
+    1e-3."""
+    from tbv_slam_public_torch.ops import coral
+
+    src, ref = _clouds(3, m, 4096, cuda)
+    if route == "online":
+        src = src.map(lambda x: x[0][None].expand((m,) + x.shape[1:]))
+    before = tmoments.LAUNCHES
+    got = coral.coral_quality(src, ref, radius=1.0)
+    torch.cuda.synchronize()
+    assert tmoments.LAUNCHES == before + 4
+    cpu = lambda c: c.map(lambda x: x.cpu())
+    want = coral.coral_quality(cpu(src), cpu(ref), radius=1.0)
+    merged = (src.mask.sum(-1) + ref.mask.sum(-1)).cpu()
+    assert ((got.overlap.cpu() - want.overlap).abs() * merged <= 2.0).all()
+    torch.testing.assert_close(got.joint.cpu(), want.joint, rtol=1e-3,
+                               atol=1e-3)
+    torch.testing.assert_close(got.sep.cpu(), want.sep, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [13, 12])
+def test_coral_kernel_at_online_widths(cuda, m):
+    qs, qm, ps, pm = _inputs(4, m, 4096, 4096, cuda)
+    qs, qm = (x[0][None].expand((m,) + x.shape[1:]) for x in (qs, qm))
+    got = tmoments.neighbor_moments(qs, qm, ps, pm, 1.0)
+    want = tmoments.neighbor_moments_reference(qs, qm, ps, pm, 1.0)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)

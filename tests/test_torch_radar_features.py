@@ -13,6 +13,11 @@ from tbv_slam_public_torch.core.types import PointCloud as TCloud
 from tbv_slam_public_torch.ops import features as tfeat
 from tbv_slam_public_torch.ops import radar as tradar
 
+# The suite runs several worker processes on one machine and these tensors are
+# small: one intra-op thread per process keeps the workers from
+# oversubscribing the cores.
+torch.set_num_threads(1)
+
 RCFG = RadarConfig(num_azimuths=200, num_range_bins=256, range_res=0.3,
                    k_strongest=12, min_distance=1.0, max_distance=75.0)
 FCFG = FeatureConfig(resolution=3.0, cell_capacity=256, grid_extent=80.0)

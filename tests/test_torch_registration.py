@@ -15,6 +15,11 @@ from tbv_slam_public_tpu.ops import registration as jreg
 from tbv_slam_public_torch.io.convert import cells_from_numpy
 from tbv_slam_public_torch.ops import registration as treg
 
+# The suite runs several worker processes on one machine and these tensors are
+# small: one intra-op thread per process keeps the workers from
+# oversubscribing the cores.
+torch.set_num_threads(1)
+
 CELL_FIELDS = ("mean", "cov", "normal", "nsamples", "planarity",
                "avg_intensity", "valid")
 TGT_POSES = np.asarray([[0.7 * i, 0.0, 0.01 * i] for i in range(4)],

@@ -14,6 +14,11 @@ from tbv_slam_public_torch.models import loopclosure as tlc
 from tbv_slam_public_torch.ops import coral as tcoral
 from tbv_slam_public_torch.ops import scancontext as tsc
 
+# The suite runs several worker processes on one machine and these tensors are
+# small: one intra-op thread per process keeps the workers from
+# oversubscribing the cores.
+torch.set_num_threads(1)
+
 SC = ScanContextConfig()
 
 
@@ -106,7 +111,7 @@ def test_compact_cloud_exact(rng):
 def test_host_local_map_matches(rng):
     """ScansToLocalMap on the host (the reference's _aggregate_local_map)."""
     cfg = TBVConfig()
-    jl, tl = jlc.LoopCloser(cfg), tlc.LoopCloser(cfg)
+    jl, tl = jlc.LoopCloser(cfg), tlc.LoopCloser(cfg, device="cpu")
     for i in range(4):
         xy, inten, mask = _cloud(rng, 2500, 60.0)
         pose = np.asarray([2.0 * i, 0.3 * i, 0.05 * i], np.float32)
