@@ -5,13 +5,16 @@ Needs one CUDA card.  Phases, each of which raises on failure:
 
 1. device and kernel build (nvcc, sm_90a);
 2. every kernel of the main path against its plain PyTorch version on the
-   card, at the main path's shapes, with both times;
+   card, at the main path's shapes and at the edges of its tiling, two
+   launches bit-equal, with the times of the kernel, of its plain version
+   and of the host around a call;
 3. the port's CLI: ``odometry`` then ``slam`` (default solver, and again
    with ``--solver cholesky``) on a small simulated sequence;
 4. the offline slice at the sensor's size (400 azimuths x 3768 bins at
    0.0438 m, default config): odometry per frame -> simple_graph save/load
    -> loop closure with CorAl verification -> cholesky PGO, with the kernel
-   launch count of that run;
+   launch count of that run; then the kernel's time on that run's keyframe
+   clouds;
 5. cholesky PGO on the 4470-node Oxford real-odometry instance;
 6. the ``schur`` and ``cg`` solvers on that instance beside ``cholesky``,
    and one ``_schur_solve`` step against a float64 dense solve of the same
@@ -19,7 +22,8 @@ Needs one CUDA card.  Phases, each of which raises on failure:
 7. the online path at the sensor's size: ``TBVSLAM`` with in-run alignment
    training and periodic PGO epochs over the phase-4 frames, with the kernel
    launch counts of the training route and of the per-keyframe loop closure;
-   then the ``online`` and ``reoptimize`` CLIs and ``odometry --chunk 16``
+   the kernel against its plain version, and its time, on that run's last
+   training cloud; then the ``online`` and ``reoptimize`` CLIs and ``odometry --chunk 16``
    against the unchunked run of phase 3.
 
 Prints the card's name and power limit, one JSON line with the kernels, and
@@ -60,18 +64,38 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, spin: bool = True) -> float:
     """Mean milliseconds per call over ``reps`` calls, by CUDA events, after
-    one warm-up call."""
+    one warm-up call.  With ``spin`` the device first spins for a few
+    milliseconds while the host enqueues the calls, so a kernel shorter than
+    the host's time per call is still timed back to back; without it the
+    calls run as fast as the host hands them over, and the time is the
+    larger of the kernel's and the host's."""
     fn()
     torch.cuda.synchronize()
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if spin:
+        torch.cuda._sleep(20_000_000)
     t0.record()
     for _ in range(reps):
         fn()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Mean microseconds the host spends inside one call of ``fn`` (the
+    enqueue, not the kernel), each call made on an idle device."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / reps * 1e6
 
 
 def phase_build():
@@ -97,6 +121,24 @@ def phase_build():
     return smi, float(clock) * 1e6
 
 
+def device_us_by_kernel(fn, reps: int = 10) -> dict:
+    """Mean device microseconds per launch of each kernel that ``fn``
+    launches, from ``torch.profiler``; empty if the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    name = lambda key: key.replace("(anonymous namespace)::", "").split("(")[0]
+    return {name(e.key): e.device_time_total / e.count
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def _moment_bound(args, count, sm_hz):
     """Least time the card could take for one ``neighbor_moments`` call on
     these inputs: the larger of its bytes (inputs read once, outputs written
@@ -107,8 +149,8 @@ def _moment_bound(args, count, sm_hz):
     None of them is a fused multiply-add, which the data sheet's FLOP/s
     counts twice, so single operations issue at half that rate.  Also
     returns the same count taken over ALL M*Q*P pairs at 12 operations each
-    and 132 SMs x 128 lanes x the card's maximum SM clock: the work the
-    kernel does as written, masked or not."""
+    and 132 SMs x 128 lanes x the card's maximum SM clock: the work of a
+    kernel that gates and accumulates every pair, masked or not."""
     qs, qm, ps, pm = args
     m, q = qm.shape
     p = pm.shape[1]
@@ -125,12 +167,65 @@ def _moment_bound(args, count, sm_hz):
                 all_pairs_bound_ms=all_pairs)
 
 
-def _moment_inputs(rng, m, q, p, dev, frac=0.8, extent=60.0):
+def _moment_inputs(rng, m, q, p, dev, frac=0.8, extent=60.0, packed=False):
+    """Random clouds; ``packed`` puts the live slots first, as the pipeline's
+    clouds are, about ``frac`` of each row."""
     t = lambda a: torch.as_tensor(a, device=dev)
+
+    def mask(n):
+        if packed:
+            live = rng.uniform(0.8, 1.2, (m, 1)) * frac * n
+            return np.arange(n)[None] < live
+        return rng.uniform(size=(m, n)) < frac
+
     return (t(rng.uniform(-extent, extent, (m, q, 2)).astype(np.float32)),
-            t(rng.uniform(size=(m, q)) < frac),
+            t(mask(q)),
             t(rng.uniform(-extent, extent, (m, p, 2)).astype(np.float32)),
-            t(rng.uniform(size=(m, p)) < frac))
+            t(mask(p)))
+
+
+def _four(cm, sx, sm, rx, rm, radius):
+    """``pair_moments``' outputs from four ``neighbor_moments`` calls."""
+    own = zip(cm.neighbor_moments(sx, sm, sx, sm, radius),
+              cm.neighbor_moments(rx, rm, rx, rm, radius))
+    other = zip(cm.neighbor_moments(sx, sm, rx, rm, radius),
+                cm.neighbor_moments(rx, rm, sx, sm, radius))
+    return tuple(torch.stack([torch.cat(a, 1), torch.cat(b, 1)])
+                 for a, b in zip(own, other))
+
+
+def _pair_bound(sx, sm, rx, rm, count, sm_hz):
+    """``_moment_bound`` of one ``pair_moments`` call: the sum over its four
+    (query cloud, point cloud) combinations."""
+    s = sm.shape[1]
+    src, ref = (sx, sm), (rx, rm)
+    parts = [_moment_bound(q + p, n, sm_hz) for q, p, n in (
+        (src, src, count[0][:, :s]), (src, ref, count[1][:, :s]),
+        (ref, ref, count[0][:, s:]), (ref, src, count[1][:, s:]))]
+    return sum(b["bound_ms"] for b in parts)
+
+
+def _share(tag, bound_ms, ms):
+    """The share of the bound a time reaches; more than all of it means the
+    count or the kernel is wrong."""
+    share = bound_ms / ms
+    if share > 1.0:
+        raise AssertionError(f"{tag}: {ms} ms is under its bound of "
+                             f"{bound_ms} ms")
+    return share
+
+
+def _check_moments(tag, got, want, again):
+    """Counts bit-equal to the plain version's, sums within tolerance, and a
+    second launch bit-equal to the first.  Returns the largest error."""
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"coral count differs: {tag}")
+    for g, w, a in zip(got, want, again):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+        if not torch.equal(g, a):
+            raise AssertionError(f"two launches differ: {tag}")
+    return max(float((g - w).abs().max()) for g, w in zip(got, want)) \
+        if got[0].numel() else 0.0
 
 
 def phase_kernels(sm_hz):
@@ -139,41 +234,199 @@ def phase_kernels(sm_hz):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     radius = 1.0
-    cases = [(1, 50, 70, 0.8), (1, 128, 512, 0.8), (1, 200, 600, 0.8),
-             (1, 4096, 4096, 0.8), (64, 4096, 4096, 0.8),
-             (13, 4096, 4096, 0.8), (12, 4096, 4096, 0.8),
-             (3, 300, 700, 0.0)]
+    # (M, Q, P, live share, extent, live first): the main path's shapes,
+    # ragged tiles and query blocks, an all-dead launch, dense clouds
+    cases = [(1, 50, 70, 0.8, 60, False), (1, 128, 512, 0.8, 60, False),
+             (1, 200, 600, 0.8, 60, False), (1, 4096, 4096, 0.8, 60, False),
+             (64, 4096, 4096, 0.8, 60, False),
+             (13, 4096, 4096, 0.8, 60, False),
+             (12, 4096, 4096, 0.8, 60, False), (3, 300, 700, 0.0, 60, False),
+             (2, 513, 1025, 0.8, 20, False), (3, 1500, 1537, 0.5, 20, False),
+             (5, 700, 3000, 0.9, 10, False), (4, 4096, 4096, 0.25, 20, True)]
+    inputs = [(f"M={m} Q={q} P={p} live={frac}{' first' if packed else ''}",
+               _moment_inputs(rng, m, q, p, dev, frac, extent, packed))
+              for m, q, p, frac, extent, packed in cases]
+    # a stretch of dead slots longer than a tile between two live ones
+    a = list(_moment_inputs(rng, 2, 1100, 1600, dev, 1.0, 15))
+    a[3] = torch.zeros_like(a[3])
+    a[3][:, :300] = True
+    a[3][:, 1100:1300] = True
+    inputs.append(("a dead tile between live ones", tuple(a)))
+    # clouds live only in their last slot; the query sits on the point
+    a = [x.clone() for x in a]
+    for k in (1, 3):
+        a[k] = torch.zeros_like(a[k])
+        a[k][:, -1] = True
+    a[0][:, -1] = a[2][:, -1]
+    inputs.append(("live only in the last slot", tuple(a)))
     worst = 0.0
-    for m, q, p, frac in cases:
-        args = _moment_inputs(rng, m, q, p, dev, frac)
+    for tag, args in inputs:
+        m, q = args[1].shape
         got = cm.neighbor_moments(*args, radius)
+        again = cm.neighbor_moments(*args, radius)
         torch.cuda.synchronize()
         want = cm.neighbor_moments_reference(*args, radius)
-        if not torch.equal(got[0], want[0]):
-            raise AssertionError(f"coral count differs at M={m} Q={q} P={p}")
-        for g, w in zip(got[1:], want[1:]):
-            torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want)) \
-            if got[0].numel() else 0.0
+        err = _check_moments(tag, got, want, again)
         worst = max(worst, err)
-        log(f"[2] coral_moments M={m} Q={q} P={p} mask={frac}: ok, "
-            f"max_abs_err={err:.3g}, neighbours/query="
-            f"{float(want[0].float().mean()):.2f}")
+        log(f"[2] coral_moments {tag}: ok, max_abs_err={err:.3g}, "
+            f"neighbours/query="
+            f"{float(want[0].float().mean()) if want[0].numel() else 0:.2f}")
+    if float(got[0].sum()) != 2.0:  # the last case: one neighbour per row
+        raise AssertionError("the last slot's query missed its point")
+
+    # pair_moments: src and ref of different capacity, one row, the
+    # pipeline's shapes with the live slots first (loop closure: 12 rows of
+    # 4096 slots; in-run training: 13 rows of 4800 slots, which end in half a
+    # query block and a short second compaction pass), a broadcast src
+    pairs = [(3, 700, 1300, 0.8, 15, False), (2, 130, 50, 0.9, 5, False),
+             (1, 4096, 4096, 0.8, 30, False),
+             (12, 4096, 4096, 0.25, 30, True),
+             (13, 4800, 4800, 0.1, 30, True),
+             (13, 4800, 4800, 0.8, 60, False),
+             (64, 4096, 4096, 0.8, 60, False)]
+    pair_inputs = [(f"M={m} S={s} R={r} live={frac}"
+                    f"{' first' if packed else ''}",
+                    _moment_inputs(rng, m, s, r, dev, frac, extent, packed))
+                   for m, s, r, frac, extent, packed in pairs]
+    sx, sm, rx, rm = _moment_inputs(rng, 12, 4096, 4096, dev, 0.8, 30)
+    pair_inputs.append(("M=12 S=R=4096, one src for all rows",
+                        (sx[0][None].expand(12, -1, -1),
+                         sm[0][None].expand(12, -1), rx, rm)))
+    for tag, args in pair_inputs:
+        got = cm.pair_moments(*args, radius)
+        again = cm.pair_moments(*args, radius)
+        four = _four(cm, *args, radius)
+        torch.cuda.synchronize()
+        want = cm.pair_moments_reference(*args, radius)
+        err = _check_moments(f"pair {tag}", got, want, again)
+        worst = max(worst, err)
+        for g, f in zip(got, four):  # the same device code: equal bits
+            if not torch.equal(g, f):
+                raise AssertionError(f"pair_moments differs from four "
+                                     f"launches: {tag}")
+        log(f"[2] pair_moments {tag}: ok against four plain calls and four "
+            f"launches, max_abs_err={err:.3g}")
+
     args = _moment_inputs(rng, 64, 4096, 4096, dev)
     ms = cuda_ms(lambda: cm.neighbor_moments(*args, radius), 20)
     plain_ms = cuda_ms(lambda: cm.neighbor_moments_reference(*args, radius), 3)
     bound = _moment_bound(args, cm.neighbor_moments(*args, radius)[0], sm_hz)
-    log(f"[2] coral_moments at M=64 Q=P=4096: kernel {ms:.3f} ms, "
+    share = _share("coral_moments at M=64", bound["bound_ms"], ms)
+    log(f"[2] coral_moments at M=64 Q=P=4096: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms by "
-        f"{bound['bound_by']} ({bound['bound_ms'] / ms:.1%} reached), "
-        f"all-pairs bound {bound['all_pairs_bound_ms']:.4f} ms "
-        f"({bound['all_pairs_bound_ms'] / ms:.1%} reached); no single "
-        f"PyTorch call computes this function")
-    for m in (13, 12):  # the online path's launch widths
-        a = _moment_inputs(rng, m, 4096, 4096, dev)
-        t = cuda_ms(lambda: cm.neighbor_moments(*a, radius), 20)
-        log(f"[2] coral_moments at M={m} Q=P=4096: kernel {t:.3f} ms")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, **bound)
+        f"{bound['bound_by']} ({share:.1%} reached), all-pairs bound "
+        f"{bound['all_pairs_bound_ms']:.4f} ms; no single PyTorch call "
+        f"computes this function")
+    times = dict(ms=ms, share=share)
+    # 80 % live at the widths of an offline wave, of in-run training and of
+    # one online query; the training route's own capacity is the next loop
+    for m in (64, 13, 12):
+        a = args if m == 64 else _moment_inputs(rng, m, 4096, 4096, dev)
+        one = lambda: cm.neighbor_moments(*a, radius)
+        pair = lambda: cm.pair_moments(*a, radius)
+        four = lambda: _four(cm, *a, radius)
+        b1 = _moment_bound(a, one()[0], sm_hz)["bound_ms"]
+        b4 = _pair_bound(*a, pair()[0], sm_hz)
+        t = dict(one_ms=cuda_ms(one, 20),
+                 one_ms_host_paced=cuda_ms(one, 20, spin=False),
+                 pair_ms=cuda_ms(pair, 10),
+                 four_ms=cuda_ms(four, 10), pair_host_us=host_us(pair),
+                 four_host_us=host_us(four))
+        log(f"[2] at M={m} Q=P=4096: neighbor_moments {t['one_ms']:.4f} ms "
+            f"(bound {b1:.4f}, {_share('one', b1, t['one_ms']):.1%}; "
+            f"{t['one_ms_host_paced']:.4f} ms when the host paces the "
+            f"calls); "
+            f"pair_moments {t['pair_ms']:.4f} ms (bound {b4:.4f}, "
+            f"{_share('pair', b4, t['pair_ms']):.1%}) against four "
+            f"launches {t['four_ms']:.4f} ms; host per call "
+            f"{t['pair_host_us']:.1f} us against {t['four_host_us']:.1f} us")
+        t["pair_kernels_us"] = device_us_by_kernel(pair)
+        log(f"[2] at M={m}: device us of a pair_moments call by kernel "
+            f"{json.dumps(t['pair_kernels_us'])}")
+        times[f"M{m}"] = t
+    # the training route's launch: 13 rows of 4800 slots
+    for frac in (0.1, 0.8):
+        a = _moment_inputs(rng, 13, 4800, 4800, dev, frac, 30, frac < 0.5)
+        pair = lambda: cm.pair_moments(*a, radius)
+        b4 = _pair_bound(*a, pair()[0], sm_hz)
+        t = dict(pair_ms=cuda_ms(pair, 10), bound_ms=b4,
+                 pair_host_us=host_us(pair))
+        t["share"] = _share("pair at 4800 slots", b4, t["pair_ms"])
+        log(f"[2] at M=13 S=R=4800, {frac:.0%} live: pair_moments "
+            f"{t['pair_ms']:.4f} ms (bound {b4:.4f}, {t['share']:.1%}), "
+            f"host per call {t['pair_host_us']:.1f} us")
+        times[f"M13_4800_live{round(frac * 100)}"] = t
+    return dict(max_abs_err=worst, plain_ms=plain_ms, times=times, **bound)
+
+
+def phase_real_clouds(loops, sm_hz):
+    """The kernel on the offline run's keyframe clouds: consecutive keyframes
+    as (src, ref) pairs in the odometry frame, stacked into the widths of a
+    loop-verification wave and of one online query."""
+    from tbv_slam_public_torch.core import se2
+    from tbv_slam_public_torch.kernels import coral_moments as cm
+
+    dev = torch.device("cuda")
+    world = [se2.apply_np(pose, pc.xy.astype(np.float32))
+             for pose, pc in zip(loops.kf_odom, loops.kf_peaks)]
+    out = {}
+    for m in (64, 12):
+        ids = np.arange(m) % (len(world) - 1)
+        up = lambda rows: torch.as_tensor(np.stack(rows), device=dev)
+        sx, rx = up([world[i + 1] for i in ids]), up([world[i] for i in ids])
+        sm = up([loops.kf_peaks[i + 1].mask for i in ids])
+        rm = up([loops.kf_peaks[i].mask for i in ids])
+        pair = lambda: cm.pair_moments(sx, sm, rx, rm, 1.0)
+        count = pair()[0]
+        want = cm.pair_moments_reference(sx[:4], sm[:4], rx[:4], rm[:4], 1.0)
+        if not torch.equal(count[:, :4], want[0]):
+            raise AssertionError("coral count differs on the keyframe clouds")
+        live = torch.cat([sm, rm], 1)
+        bound = _pair_bound(sx, sm, rx, rm, count, sm_hz)
+        res = dict(
+            M=m, capacity=int(sm.shape[1]),
+            live_fraction=float(live.float().mean()),
+            neighbours_per_query=float(count.sum(0)[live].mean()),
+            pair_ms=cuda_ms(pair, 20), bound_ms=bound,
+            pair_host_us=host_us(pair))
+        res["share"] = _share("keyframe clouds", bound, res["pair_ms"])
+        res["kernels_us"] = device_us_by_kernel(pair)
+        out[f"M{m}"] = res
+        log(f"[4] pair_moments on keyframe clouds: {json.dumps(res)}")
+    return out
+
+
+def phase_training_cloud(cloud, sm_hz):
+    """The kernel on the online run's last training cloud, as the learner
+    hands it on: 13 shifted copies of it as src against the cloud itself."""
+    from tbv_slam_public_torch.kernels import coral_moments as cm
+
+    n = cloud.mask.shape[-1]
+    xy, mask = cloud.xy.reshape(-1, n, 2)[0], cloud.mask.reshape(-1, n)[0]
+    steps = torch.arange(13, device=xy.device, dtype=xy.dtype)
+    shift = torch.stack([0.1 * steps, -0.05 * steps], -1)
+    sx = xy[None] + shift[:, None]
+    sm = mask[None].expand(13, -1)
+    rx = xy[None].expand(13, -1, -1)
+    pair = lambda: cm.pair_moments(sx, sm, rx, sm, 1.0)
+    got, again = pair(), pair()
+    four = _four(cm, sx, sm, rx, sm, 1.0)
+    want = cm.pair_moments_reference(sx, sm, rx, sm, 1.0)
+    err = _check_moments("training cloud", got, want, again)
+    if not all(torch.equal(g, f) for g, f in zip(got, four)):
+        raise AssertionError("pair_moments differs from four launches on "
+                             "the training cloud")
+    live = int(mask.sum())
+    bound = _pair_bound(sx, sm, rx, sm, got[0], sm_hz)
+    res = dict(M=13, capacity=int(n), live_fraction=live / n,
+               live_first=bool(mask[:live].all()), max_abs_err=err,
+               neighbours_per_query=float(
+                   got[0].sum(0)[torch.cat([sm, sm], 1)].mean()),
+               pair_ms=cuda_ms(pair, 20), bound_ms=bound,
+               pair_host_us=host_us(pair))
+    res["share"] = _share("training cloud", bound, res["pair_ms"])
+    log(f"[7] pair_moments on the last training cloud: {json.dumps(res)}")
+    return res
 
 
 CLI = [sys.executable, "-m", "tbv_slam_public_torch.harness.cli"]
@@ -274,7 +527,7 @@ def phase_slice(n_frames):
                              f"kernel launches ({launches})")
     if not ate1 <= ate0 + 1e-3:
         raise AssertionError(f"PGO made ATE worse: {ate0} -> {ate1}")
-    return launches, seq.images, gt, cfg
+    return launches, seq.images, gt, cfg, slam.loops
 
 
 def _oxford_instance(dev):
@@ -394,7 +647,7 @@ def _tally(obj, name, tally, key):
     setattr(obj, name, wrapped)
 
 
-def phase_online(images, gt, cfg, plain_trajectory):
+def phase_online(images, gt, cfg, plain_trajectory, sm_hz):
     import dataclasses
 
     from tbv_slam_public_torch.eval import trajectory as tj
@@ -440,6 +693,9 @@ def phase_online(images, gt, cfg, plain_trajectory):
         ate_before=ate0, ate_after=s.metrics["ate_rmse"],
         coral_launches=launches,
         coral_launches_training=tally["training"]["launches"],
+        training_cloud_capacity=int(
+            slam.alignment_learner._prev[0].mask.shape[-1]),
+        loop_cloud_capacity=int(slam.loops.kf_peaks[0].mask.shape[-1]),
         coral_launches_loop_closure=tally["loop_closure"]["launches"],
         training_s=tally["training"]["seconds"],
         loop_closure_s=tally["loop_closure"]["seconds"])
@@ -460,6 +716,7 @@ def phase_online(images, gt, cfg, plain_trajectory):
     if res["coral_launches_training"] <= 0 or \
             res["coral_launches_loop_closure"] <= 0:
         raise AssertionError(f"a CorAl route launched no kernel: {res}")
+    training = phase_training_cloud(slam.alignment_learner._prev[0], sm_hz)
 
     with tempfile.TemporaryDirectory() as tmp:
         online = os.path.join(tmp, "online")
@@ -483,7 +740,7 @@ def phase_online(images, gt, cfg, plain_trajectory):
             f"{CHUNK_ATOL:g})")
         if a.shape != b.shape or not err <= CHUNK_ATOL:
             raise AssertionError(f"chunked trajectory differs by {err}")
-    return launches
+    return launches, training
 
 
 def main(argv=None) -> int:
@@ -504,19 +761,24 @@ def main(argv=None) -> int:
     smi, sm_hz = phase_build()
     k = phase_kernels(sm_hz)
     plain_trajectory = phase_cli()
-    launches, images, gt, cfg = phase_slice(args.frames)
+    launches, images, gt, cfg, loops = phase_slice(args.frames)
+    real = phase_real_clouds(loops, sm_hz)
     phase_solvers(phase_pgo())
-    launches += phase_online(images, gt, cfg, plain_trajectory)
+    online_launches, training = phase_online(images, gt, cfg,
+                                             plain_trajectory, sm_hz)
+    launches += online_launches
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "coral_moments", "route": "cuda",
         "source": "tbv_slam_public_torch/csrc/coral_moments.cu",
         "replaces": "tbv_slam_public_tpu/pallas/coral_moments.py:36",
         "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"],
+        "ms": k["times"]["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "library_ms": None,
-        "all_pairs_bound_ms": k["all_pairs_bound_ms"]}]}))
+        "library_ms": None, "share_of_bound": k["times"]["share"],
+        "pair_moments": {m: t for m, t in k["times"].items()
+                         if m.startswith("M")},
+        "keyframe_clouds": real, "training_cloud": training}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,10 +63,13 @@ def library() -> ctypes.CDLL:
         os.replace(tmp, path)
         report = proc.stdout + proc.stderr
     lib = ctypes.CDLL(path)
-    fn = lib.coral_moments_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-        [ctypes.c_float] + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
+    # both entries: 4 clouds/masks, 4 row strides, 3 sizes, r^2, outputs,
+    # scratch and its size, stream
+    for fn in (lib.coral_moments_launch, lib.coral_pair_moments_launch):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + \
+            [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2 + \
+            [ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     BUILD_INFO.update(path=path, seconds=time.perf_counter() - t0,
                       ptxas=report)
     _LIB = lib

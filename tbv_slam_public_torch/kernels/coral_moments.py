@@ -1,22 +1,35 @@
-"""CorAl radius-neighbour moments: CUDA kernel wrapper + plain version.
+"""CorAl radius-neighbour moments: CUDA kernel wrappers + plain versions.
 
 Replaces ``tbv_slam_public_tpu/pallas/coral_moments.py`` (``_moments_kernel``
 launched by ``neighbor_moments``), batched over a leading pair axis M so one
 launch covers a whole loop-verification wave instead of a ``vmap``.  The
-kernel is ``csrc/coral_moments.cu``; its design notes (ALU-bound pairwise
-interaction, shared-memory point tiles, deterministic per-query stores, the
-FMA-free distance gate) are in that file.
+kernel is ``csrc/coral_moments.cu``; its design notes (bound by float32
+operations; live points and live queries only, compacted on the card;
+register-tiled queries, a branch on the radius gate, the FMA-free distance,
+the points of a query block shared among its warps) are in that file.
 
-Dispatch is by tensor device: a CPU tensor takes
-:func:`neighbor_moments_reference`; a CUDA tensor launches the kernel or
-raises.  ``LAUNCHES`` counts kernel launches and nothing else.
+:func:`neighbor_moments` is the TPU kernel's counterpart: one (query cloud,
+point cloud) combination.  :func:`pair_moments` runs the same device code
+over the four combinations that ``coral_quality`` needs of M (src, ref)
+pairs, in one launch.
+
+Dispatch is by tensor device: a CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel launches
+and nothing else.  One launch is one call of a C entry point: the moments
+kernel with, on the same stream, the small kernel that compacts the clouds
+before it, which is not counted again.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-#: number of kernel launches made by :func:`neighbor_moments`
+#: number of kernel launches made by :func:`neighbor_moments` and
+#: :func:`pair_moments`
 LAUNCHES = 0
+
+_MAX_ROWS = 65535  # gridDim.y
 
 
 def neighbor_moments_reference(queries, qmask, points, pmask, radius,
@@ -48,6 +61,18 @@ def neighbor_moments_reference(queries, qmask, points, pmask, radius,
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
+def pair_moments_reference(src_xy, src_mask, ref_xy, ref_mask, radius):
+    """Plain PyTorch version of :func:`pair_moments`: four calls of
+    :func:`neighbor_moments_reference`, laid out as the kernel's outputs."""
+    src, ref = (src_xy, src_mask), (ref_xy, ref_mask)
+    own = zip(neighbor_moments_reference(*src, *src, radius),
+              neighbor_moments_reference(*ref, *ref, radius))
+    other = zip(neighbor_moments_reference(*src, *ref, radius),
+                neighbor_moments_reference(*ref, *src, radius))
+    return tuple(torch.stack([torch.cat(a, 1), torch.cat(b, 1)])
+                 for a, b in zip(own, other))
+
+
 def neighbor_moments(queries, qmask, points, pmask, radius):
     """Per-query radius-neighbourhood moments of (p - q) for a batch of M
     (query cloud, point cloud) pairs; shapes as the plain version."""
@@ -57,43 +82,104 @@ def neighbor_moments(queries, qmask, points, pmask, radius):
                                           radius)
     if dev.type != "cuda":
         raise ValueError(f"coral moments: unsupported device {dev}")
-    return _launch(queries, qmask, points, pmask, float(radius))
+    return _launch("coral_moments_launch", queries, qmask, points, pmask,
+                   float(radius))
 
 
-def _launch(queries, qmask, points, pmask, radius: float):
+def pair_moments(src_xy, src_mask, ref_xy, ref_mask, radius):
+    """The four moment sets CorAl needs of M (src [M, S], ref [M, R]) cloud
+    pairs, in one kernel launch.
+
+    Returns (count [2, M, S + R], sum_rel [2, M, S + R, 2], sum_sq
+    [2, M, S + R, 2, 2]), float32: along the query axis the S src slots, then
+    the R ref slots; index 0 of the leading axis holds a query's moments over
+    the points of its own cloud, index 1 over the other cloud's."""
+    dev = src_xy.device
+    if dev.type == "cpu":
+        return pair_moments_reference(src_xy, src_mask, ref_xy, ref_mask,
+                                      radius)
+    if dev.type != "cuda":
+        raise ValueError(f"coral moments: unsupported device {dev}")
+    return _launch("coral_pair_moments_launch", src_xy, src_mask, ref_xy,
+                   ref_mask, float(radius))
+
+
+def _points(x):
+    """[M, N, 2] float32 with contiguous points, an even row stride and
+    8-byte alignment (the kernel loads float2); converted only if it is not
+    so already.  A row stride of 0 (a broadcast cloud) passes."""
+    if x.dtype != torch.float32:
+        x = x.to(torch.float32)
+    s = x.stride()
+    if s[2] != 1 or s[1] != 2 or s[0] % 2:
+        x = x.contiguous()
+    return x if x.data_ptr() % 8 == 0 else x.clone()
+
+
+def _mask(x):
+    """[M, N] bytes, contiguous along N: a bool mask is viewed, not copied."""
+    if x.dtype == torch.bool:
+        x = x.view(torch.uint8)
+    elif x.dtype != torch.uint8:
+        x = (x != 0).view(torch.uint8)
+    return x if x.stride(1) == 1 else x.contiguous()
+
+
+def _launch(entry, a_xy, a_mask, b_xy, b_mask, radius: float):
+    """``coral_moments_launch``: a = queries, b = points, outputs [M, Qa].
+    ``coral_pair_moments_launch``: a = src, b = ref, outputs
+    [2, M, Sa + Rb]."""
     global LAUNCHES
     from .build import library
 
-    m, q = qmask.shape
-    p = pmask.shape[1]
-    dev = queries.device
-    if queries.shape != (m, q, 2) or points.shape != (m, p, 2):
-        raise ValueError(f"coral moments: bad shapes {tuple(queries.shape)} "
-                         f"{tuple(qmask.shape)} {tuple(points.shape)} "
-                         f"{tuple(pmask.shape)}")
-    for t in (qmask, points, pmask):
+    m, na = a_mask.shape
+    nb = b_mask.shape[1]
+    dev = a_xy.device
+    if a_xy.shape != (m, na, 2) or b_xy.shape != (m, nb, 2) \
+            or b_mask.shape != (m, nb):
+        raise ValueError(f"coral moments: bad shapes {tuple(a_xy.shape)} "
+                         f"{tuple(a_mask.shape)} {tuple(b_xy.shape)} "
+                         f"{tuple(b_mask.shape)}")
+    if m > _MAX_ROWS:
+        raise ValueError(f"coral moments: {m} pair rows, at most {_MAX_ROWS}")
+    for t in (a_mask, b_xy, b_mask):
         if t.device != dev:
             raise ValueError("coral moments: inputs on different devices")
-
-    def prep(x, dtype):
-        x = x.to(dtype).contiguous()
-        return x if x.data_ptr() % 16 == 0 else x.clone()
-
-    qx, px = prep(queries, torch.float32), prep(points, torch.float32)
-    qm, pm = prep(qmask, torch.uint8), prep(pmask, torch.uint8)
-    count = torch.empty((m, q), dtype=torch.float32, device=dev)
-    sum_rel = torch.empty((m, q, 2), dtype=torch.float32, device=dev)
-    sum_sq = torch.empty((m, q, 2, 2), dtype=torch.float32, device=dev)
-    if m == 0 or q == 0:
+    lead = (2, m, na + nb) if entry == "coral_pair_moments_launch" \
+        else (m, na)
+    n = math.prod(lead)
+    # the kernel's scratch: live counts, slots and points of both clouds (the
+    # layout is the kernel's, which checks the size)
+    rows = m * (na + na % 2 + nb + nb % 2)
+    scratch = 2 * m + 3 * rows + 16
+    # one allocation: sum_sq, sum_rel, count (the kernel's layout), scratch
+    at = -(-7 * n // 4) * 4
+    buf = torch.empty(at + scratch, dtype=torch.float32, device=dev)
+    sum_sq = buf.as_strided(lead + (2, 2), _strides(lead + (2, 2)))
+    sum_rel = buf.as_strided(lead + (2,), _strides(lead + (2,)), 4 * n)
+    count = buf.as_strided(lead, _strides(lead), 6 * n)
+    if n == 0:
         return count, sum_rel, sum_sq
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library().coral_moments_launch(
-            qx.data_ptr(), qm.data_ptr(), px.data_ptr(), pm.data_ptr(),
-            m, q, p, radius * radius, count.data_ptr(), sum_rel.data_ptr(),
-            sum_sq.data_ptr(), stream)
+    ax, am, bx, bm = _points(a_xy), _mask(a_mask), _points(b_xy), \
+        _mask(b_mask)
+    with torch.cuda.device(dev):  # the launch goes to the tensors' card
+        err = getattr(library(), entry)(
+            ax.data_ptr(), am.data_ptr(), bx.data_ptr(), bm.data_ptr(),
+            ax.stride(0) // 2, am.stride(0), bx.stride(0) // 2, bm.stride(0),
+            m, na, nb, radius * radius, buf.data_ptr(),
+            buf.data_ptr() + 4 * at, scratch,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"coral_moments kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError("coral_moments kernel launch failed: " + (
+            "scratch too small" if err < 0 else f"CUDA error {err}"))
     LAUNCHES += 1
     return count, sum_rel, sum_sq
+
+
+def _strides(shape):
+    """Contiguous strides of ``shape``."""
+    out, step = [], 1
+    for size in reversed(shape):
+        out.append(step)
+        step *= size
+    return tuple(reversed(out))

@@ -8,7 +8,7 @@ Port of ``tbv_slam_public_tpu.models.verification``:
 - ``AlignmentLearner``: 13-perturbation training data per keyframe pair
   (aligned + 4 small / medium / large offsets), IRLS logistic fit, linear
   alignment score.  The 13 perturbations ride the pair axis, so one keyframe
-  pair costs one set of four CorAl kernel launches at M=13;
+  pair costs one CorAl kernel launch at M=13;
 - ``verification_probability``: sigmoid over [odom-bounds, sc-sim,
   alignment_quality] with the published coefficients as default.
 """

@@ -2,8 +2,9 @@
 
 Port of ``tbv_slam_public_tpu.ops.coral``, batched over a leading pair axis
 M (the reference ``vmap``s ``coral_quality`` over the candidate wave).  The
-radius-neighbour moments come from ``kernels.coral_moments``, which launches
-the CUDA kernel for CUDA tensors and runs its plain version for CPU tensors.
+radius-neighbour moments come from ``kernels.coral_moments.pair_moments``,
+which launches the CUDA kernel once per call for CUDA tensors and runs its
+plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.types import PointCloud
-from ..kernels.coral_moments import neighbor_moments
+from ..kernels.coral_moments import pair_moments
 
 
 class CoralResult(NamedTuple):
@@ -54,40 +55,35 @@ def _kl_divergence_2d(u0, s0, u1, s1):
     return torch.where(finite, score, torch.zeros_like(score)), finite
 
 
-def _side(q_xy, q_mask, oth_xy, oth_mask, radius, eps, mode, is_src):
-    """Per-query (sep, joint, ok) of one cloud against itself and the other."""
-    n_own, s1_own, s2_own = neighbor_moments(q_xy, q_mask, q_xy, q_mask,
-                                             radius)
-    n_oth, s1_oth, s2_oth = neighbor_moments(q_xy, q_mask, oth_xy, oth_mask,
-                                             radius)
-    n_joint = n_own + n_oth
-    s1_joint = s1_own + s1_oth
-    s2_joint = s2_own + s2_oth
-    ok = q_mask & (n_oth >= 1) & (n_own > 2) & (n_joint > 2)
-    if mode == "kl":
-        u_sep, s_sep = _mean_cov_from_moments(n_own, s1_own, s2_own)
-        if is_src:
-            kl, fin = _kl_divergence_2d(u_sep, s_sep, u_sep, s_sep)
-        else:
-            u_j, s_j = _mean_cov_from_moments(n_joint, s1_joint, s2_joint)
-            kl, fin = _kl_divergence_2d(u_sep, s_sep, u_j, s_j)
-        return torch.zeros_like(kl), kl, ok & fin
-    ent_sep, _ = _entropy_from_moments(n_own, s1_own, s2_own, eps)
-    ent_joint, _ = _entropy_from_moments(n_joint, s1_joint, s2_joint, eps)
-    return ent_sep, ent_joint, \
-        ok & torch.isfinite(ent_sep) & torch.isfinite(ent_joint)
-
-
 def coral_quality(src: PointCloud, ref: PointCloud, radius: float = 1.0,
                   eps: float = 1e-8, mode: str = "entropy") -> CoralResult:
-    """CorAl quality of M pairs of WORLD-FRAME peak clouds ([M, P] each)."""
-    es_s, ej_s, ok_s = _side(src.xy, src.mask, ref.xy, ref.mask, radius, eps,
-                             mode, True)
-    es_r, ej_r, ok_r = _side(ref.xy, ref.mask, src.xy, src.mask, radius, eps,
-                             mode, False)
-    ok = torch.cat([ok_s, ok_r], -1)
-    sep = torch.cat([es_s, es_r], -1)
-    joint = torch.cat([ej_s, ej_r], -1)
+    """CorAl quality of M pairs of WORLD-FRAME peak clouds ([M, S] and
+    [M, R]).  One ``pair_moments`` call gives every point's moments over its
+    own and over the other cloud; the per-point terms then run once over the
+    merged query axis (S src slots, then R ref slots)."""
+    n, s1, s2 = pair_moments(src.xy, src.mask, ref.xy, ref.mask, radius)
+    n_own, s1_own, s2_own = n[0], s1[0], s2[0]
+    n_oth = n[1]
+    n_joint = n_own + n_oth
+    s1_joint = s1_own + s1[1]
+    s2_joint = s2_own + s2[1]
+    q_mask = torch.cat([src.mask, ref.mask], -1)
+    ok = q_mask & (n_oth >= 1) & (n_own > 2) & (n_joint > 2)
+    if mode == "kl":
+        # src points: KL(sep || sep); ref points: KL(sep || joint)
+        u_sep, s_sep = _mean_cov_from_moments(n_own, s1_own, s2_own)
+        u_j, s_j = _mean_cov_from_moments(n_joint, s1_joint, s2_joint)
+        is_ref = torch.arange(q_mask.shape[-1],
+                              device=q_mask.device) >= src.mask.shape[-1]
+        joint, fin = _kl_divergence_2d(
+            u_sep, s_sep, torch.where(is_ref[:, None], u_j, u_sep),
+            torch.where(is_ref[:, None, None], s_j, s_sep))
+        sep = torch.zeros_like(joint)
+        ok = ok & fin
+    else:
+        sep, _ = _entropy_from_moments(n_own, s1_own, s2_own, eps)
+        joint, _ = _entropy_from_moments(n_joint, s1_joint, s2_joint, eps)
+        ok = ok & torch.isfinite(sep) & torch.isfinite(joint)
     zero = torch.zeros((), dtype=sep.dtype, device=sep.device)
     count_valid = ok.sum(-1)
     denom = torch.clamp(count_valid.to(sep.dtype), min=1.0)

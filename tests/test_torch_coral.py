@@ -1,5 +1,6 @@
-"""Port parity: CorAl moments (plain version and CUDA kernel), CorAl
-quality and the alignment features, against the JAX package.
+"""Port parity: CorAl moments (the plain versions of ``neighbor_moments`` and
+``pair_moments``), CorAl quality and the alignment features, against the JAX
+package.
 
 The JAX side's Pallas kernel runs in interpret mode, as tests/test_pallas.py
 runs it on the CPU.  The CUDA kernel's own tests, which need a card, are in
@@ -81,11 +82,103 @@ def test_cpu_tensors_take_the_plain_version(rng):
         assert torch.equal(g, w)
 
 
+def _masks(rng, kind, m, n):
+    if kind == "empty":
+        return np.zeros((m, n), bool)
+    if kind == "packed":  # live slots first, as the pipeline's clouds
+        return np.arange(n)[None] < rng.integers(n // 8, n // 2, (m, 1))
+    return rng.uniform(size=(m, n)) < 0.8
+
+
+@pytest.mark.parametrize("s,r,kind", [
+    (70, 50, "scattered"), (128, 200, "scattered"), (96, 160, "packed"),
+    (160, 96, "packed"), (64, 128, "empty")])
+def test_plain_pair_moments_match_pallas_interpret(rng, s, r, kind):
+    """``pair_moments`` on CPU tensors (its plain version) against four calls
+    of the JAX kernel per pair: src and ref of different capacity; index 0
+    holds a query's moments over its own cloud, index 1 over the other's,
+    the src queries before the ref queries."""
+    m = 2
+    sx = rng.uniform(-8, 8, (m, s, 2)).astype(np.float32)
+    rx = rng.uniform(-8, 8, (m, r, 2)).astype(np.float32)
+    sm, rm = _masks(rng, kind, m, s), _masks(rng, kind, m, r)
+    before = tmoments.LAUNCHES
+    got = tmoments.pair_moments(*map(torch.as_tensor, (sx, sm, rx, rm)), 1.5)
+    assert tmoments.LAUNCHES == before
+    assert got[0].shape == (2, m, s + r) and got[1].shape == (2, m, s + r, 2) \
+        and got[2].shape == (2, m, s + r, 2, 2)
+    j = jnp.asarray
+    for i in range(m):
+        src, ref = (j(sx[i]), j(sm[i])), (j(rx[i]), j(rm[i]))
+        for group, cols, q, p in ((0, slice(0, s), src, src),
+                                  (1, slice(0, s), src, ref),
+                                  (0, slice(s, s + r), ref, ref),
+                                  (1, slice(s, s + r), ref, src)):
+            want = jmoments.neighbor_moments(*q, *p, 1.5, interpret=True)
+            np.testing.assert_array_equal(got[0][group, i, cols].numpy(),
+                                          np.asarray(want[0]))
+            for g, w in zip(got[1:], want[1:]):
+                np.testing.assert_allclose(g[group, i, cols].numpy(),
+                                           np.asarray(w), rtol=RTOL,
+                                           atol=ATOL)
+    if kind == "empty":
+        assert all(float(g.abs().sum()) == 0.0 for g in got)
+
+
+@pytest.mark.parametrize("kind,copied", [
+    ("bool", False),  # viewed as bytes
+    ("uint8", False),
+    ("bool, one row for all", False),  # a stride-0 view is read in place
+    ("bool, every other slot", True),
+    ("float", True),
+    ("int64", True)])
+def test_masks_reach_the_kernel_as_bytes(rng, kind, copied):
+    """What the launcher hands the kernel for a mask: bytes, contiguous along
+    the slots, equal to the mask, and a copy only where the layout or the
+    type forces one."""
+    live = torch.as_tensor(rng.uniform(size=(3, 40)) < 0.5)
+    x = {"bool": live, "uint8": live.to(torch.uint8),
+         "bool, one row for all": live[0][None].expand(3, -1),
+         "bool, every other slot": live[:, ::2],
+         "float": live.float() * 2.5, "int64": live.long() * 7}[kind]
+    got = tmoments._mask(x)
+    assert got.dtype == torch.uint8 and got.stride(1) == 1
+    assert torch.equal(got.bool(), x != 0)
+    assert (got.data_ptr() != x.data_ptr()) == copied
+
+
+@pytest.mark.parametrize("kind,copied", [
+    ("float32", False),
+    ("one cloud for all rows", False),  # a stride-0 view is read in place
+    ("rows of a wider tensor", False),
+    ("float64", True),
+    ("x and y apart", True),
+    ("every other point", True)])
+def test_points_reach_the_kernel_as_float2_rows(rng, kind, copied):
+    """What the launcher hands the kernel for a cloud: float32 (x, y) pairs
+    next to each other, contiguous along the slots, 8-byte aligned rows, and
+    a copy only where the layout or the type forces one."""
+    xy = torch.as_tensor(rng.uniform(-5, 5, (3, 40, 2)).astype(np.float32))
+    x = {"float32": xy, "one cloud for all rows": xy[0][None].expand(3, -1, -1),
+         "rows of a wider tensor": xy[:, :30],
+         "float64": xy.double(),
+         "x and y apart": xy.permute(0, 2, 1).contiguous().permute(0, 2, 1),
+         "every other point": xy[:, ::2]}[kind]
+    got = tmoments._points(x)
+    assert got.dtype == torch.float32 and got.stride()[1:] == (2, 1)
+    assert got.stride(0) % 2 == 0 and got.data_ptr() % 8 == 0
+    assert torch.equal(got, x.float())
+    assert (got.data_ptr() != x.data_ptr()) == copied
+
+
 def test_other_devices_raise():
     t = lambda *s: torch.zeros(s, device="meta")
     with pytest.raises(ValueError):
         tmoments.neighbor_moments(t(1, 4, 2), t(1, 4).bool(), t(1, 4, 2),
                                   t(1, 4).bool(), 1.0)
+    with pytest.raises(ValueError):
+        tmoments.pair_moments(t(1, 4, 2), t(1, 4).bool(), t(1, 4, 2),
+                              t(1, 4).bool(), 1.0)
 
 
 def _peak_pair(rng, n=600):
