@@ -9,7 +9,9 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    launches bit-equal, with the times of the kernel, of its plain version
    and of the host around a call;
 3. the port's CLI: ``odometry`` then ``slam`` (default solver, and again
-   with ``--solver cholesky``) on a small simulated sequence;
+   with ``--solver cholesky``) on a small simulated sequence, then
+   ``evaluate-scans`` on that checkpoint (in this process, with its kernel
+   launch count) and ``baseline`` over the two ``slam`` runs;
 4. the offline slice at the sensor's size (400 azimuths x 3768 bins at
    0.0438 m, default config): odometry per frame -> simple_graph save/load
    -> loop closure with CorAl verification -> cholesky PGO, with the kernel
@@ -24,7 +26,18 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    launch counts of the training route and of the per-keyframe loop closure;
    the kernel against its plain version, and its time, on that run's last
    training cloud; then the ``online`` and ``reoptimize`` CLIs and ``odometry --chunk 16``
-   against the unchunked run of phase 3.
+   against the unchunked run of phase 3;
+8. the odometry variants at the sensor's size on phase 4's first 40 images:
+   the default beside P2D, time-continuous, the Ceres-style covariance,
+   CA-CFAR and BFAR, each with its first 5 frames run again on the CPU and
+   held to the card's;
+9. the rest of the slice: ``batched_odometry_step`` at B = 4 (four
+   simulator seeds, each row held to its own B = 1 run, timed against three
+   of those runs, one of them run twice and held bit-equal, kernel launches
+   per step at B = 1 and 4), a max-mode ScanContext retrieval over phase 4's
+   keyframes, the Cen 2018 detector on the card and Cen 2019 on the host,
+   the four quality metrics on phase 4's consecutive keyframe pairs, and
+   ``register_joint`` over its last 5 keyframes.
 
 Prints the card's name and power limit, one JSON line with the kernels, and
 last ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -36,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -51,9 +65,14 @@ SMALL = ["radar.k_strongest=4", "features.cell_capacity=192",
 RTOL, ATOL = 1e-5, 1e-4  # CorAl moments: float sums in another order
 SCHUR_STEP_RTOL = 1e-2  # float32 Woodbury step vs float64 dense, 4470 nodes
 # chunked vs per-frame trajectory file (rotation entries and metres): the
-# same arithmetic, but index_add_ sums with atomics on the card, so two runs
-# of one path already differ in the last bits and an association may flip
+# same arithmetic, two processes
 CHUNK_ATOL = 2e-3
+# the card's odometry against the CPU's on the same frames (phase 8: sin/cos
+# and float sums in another order) and a row of the B = 4 batch against its
+# own B = 1 run (phase 9: reductions and products whose kernels depend on
+# the batch size): a last bit may flip an association, which later frames
+# carry forward
+POSE_ATOL_M, POSE_ATOL_RAD = 1e-2, 1e-3
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, device memory
 PEAK_F32_FLOPS = 67e12
@@ -450,7 +469,8 @@ def run_cli(cmd, tag):
 
 
 def phase_cli():
-    """Returns the text of the unchunked run's trajectory file."""
+    """Returns the text of the unchunked run's trajectory file and the
+    CorAl launches of ``evaluate-scans``."""
     with tempfile.TemporaryDirectory() as tmp:
         slam = CLI + ["slam", "--graph",
                       os.path.join(tmp, "odo", "simple_graph.npz")] + SMALL \
@@ -464,8 +484,55 @@ def phase_cli():
         ]
         for cmd in runs:
             run_cli(cmd, "[3]")
+        launches = phase_evaluate_scans(
+            os.path.join(tmp, "odo", "simple_graph.npz"),
+            os.path.join(tmp, "scans.csv"))
+        # baseline over a tree of two jobs: the two slam runs
+        root = os.path.join(tmp, "sweep")
+        for job, src in (("job_0", "slam"), ("job_1", "slam_chol")):
+            for sub in ("est", "odom"):
+                shutil.copytree(os.path.join(tmp, src, sub),
+                                os.path.join(root, job, sub))
+        proc = subprocess.run(CLI + ["baseline", "--root", root],
+                              capture_output=True, text=True, cwd=ROOT)
+        if proc.returncode != 0 or "== TBV SLAM (est) ==" not in proc.stdout \
+                or "job_1" not in proc.stdout:
+            raise RuntimeError(f"baseline failed:\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        log("[3] baseline ok:\n" + proc.stdout.split("\n\n")[0])
         with open(os.path.join(tmp, "odo", "odom", "00.txt")) as f:
-            return f.read()
+            return f.read(), launches
+
+
+def phase_evaluate_scans(graph, out):
+    """``evaluate-scans --max-pairs 5`` in this process, so that its CorAl
+    launches can be counted: one ``pair_moments`` launch per pair."""
+    import contextlib
+    import io
+
+    from tbv_slam_public_torch.harness import cli
+    from tbv_slam_public_torch.kernels import coral_moments as cm
+
+    buf = io.StringIO()
+    cm.LAUNCHES = 0  # evaluate-scans' launches are counted from here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["evaluate-scans", "--graph", graph, "--output", out,
+                       "--max-pairs", "5"] + SMALL)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = cm.LAUNCHES
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rows = np.loadtxt(out, delimiter=",", skiprows=1, ndmin=2)
+    log(f"[3] evaluate-scans --max-pairs 5 ok in {secs:.1f} s: "
+        f"{json.dumps(res)}, CorAl launches {launches}")
+    if rc != 0 or res["pairs"] != 5 or rows.shape != (res["samples"], 11) \
+            or not np.isfinite(rows).all() or launches != res["pairs"]:
+        raise AssertionError(f"evaluate-scans: rc {rc}, {res}, rows "
+                             f"{rows.shape}, {launches} launches")
+    if rows[:, 4].sum() != res["pairs"]:  # the unperturbed pose once a pair
+        raise AssertionError("evaluate-scans: aligned rows miscounted")
+    return launches
 
 
 def phase_slice(n_frames):
@@ -527,7 +594,282 @@ def phase_slice(n_frames):
                              f"kernel launches ({launches})")
     if not ate1 <= ate0 + 1e-3:
         raise AssertionError(f"PGO made ATE worse: {ate0} -> {ate1}")
-    return launches, seq.images, gt, cfg, slam.loops
+    return launches, seq.images, gt, cfg, slam.loops, \
+        np.asarray(pipe.frame_poses)
+
+
+VARIANTS = [("default", None), ("P2D", "registration.cost=P2D"),
+            ("time-continuous", "odometry.time_continuous=true"),
+            ("ceres", "odometry.cov_source=ceres"),
+            ("cacfar", "radar.filter_type=cacfar"),
+            ("bfar", "radar.filter_type=bfar")]
+VARIANT_FRAMES, CPU_FRAMES = 40, 5
+
+
+def _pose_gap(a, b):
+    """Largest position and heading gap between two [N, 3] trajectories."""
+    d = b[:, 2] - a[:, 2]
+    return (float(np.linalg.norm(a[:, :2] - b[:, :2], axis=1).max()),
+            float(np.abs(np.arctan2(np.sin(d), np.cos(d))).max()))
+
+
+def phase_variants(images, gt, cfg):
+    """Each odometry variant over phase 4's first 40 images on the card, and
+    its first 5 frames again on the CPU."""
+    from tbv_slam_public_torch.core.config import (apply_overrides,
+                                                   parse_cli_overrides)
+    from tbv_slam_public_torch.eval import trajectory as tj
+    from tbv_slam_public_torch.models.odometry import OdometryPipeline
+
+    out = {}
+    for name, override in VARIANTS:
+        vcfg = cfg if override is None else apply_overrides(
+            cfg, parse_cli_overrides([override]))
+        pipe = OdometryPipeline(vcfg, device=torch.device("cuda"))
+        pipe.process(images[0], stamp=0.0, gt_pose=gt[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, VARIANT_FRAMES):
+            pipe.process(images[i], stamp=0.25 * i, gt_pose=gt[i])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        card = np.asarray(pipe.frame_poses)
+        cpu = OdometryPipeline(vcfg, device="cpu")
+        t0 = time.perf_counter()
+        for i in range(CPU_FRAMES):
+            cpu.process(images[i], stamp=0.25 * i)
+        cpu_s = time.perf_counter() - t0
+        cpu_poses = np.asarray(cpu.frame_poses)
+        gap_m, gap_rad = _pose_gap(card[:CPU_FRAMES], cpu_poses)
+        per_frame = np.linalg.norm(card[:CPU_FRAMES, :2] - cpu_poses[:, :2],
+                                   axis=1)
+        covs = np.asarray(pipe.frame_covs[1:])
+        res = dict(variant=name, override=override,
+                   frames_per_s=(VARIANT_FRAMES - 1) / secs,
+                   keyframes=len(pipe.kf_poses),
+                   ate=tj.ate_rmse(card, gt[:VARIANT_FRAMES]),
+                   final_pose=card[-1].tolist(),
+                   mean_cov_diag=np.diagonal(covs, 0, 1, 2).mean(0).tolist(),
+                   cpu_frames_per_s=CPU_FRAMES / cpu_s,
+                   card_vs_cpu_m=gap_m, card_vs_cpu_rad=gap_rad,
+                   card_vs_cpu_m_per_frame=per_frame.tolist())
+        log(f"[8] {json.dumps(res)}")
+        if not np.isfinite(card).all() or not np.isfinite(covs).all():
+            raise AssertionError(f"{name}: poses or covariances not finite")
+        if not (gap_m <= POSE_ATOL_M and gap_rad <= POSE_ATOL_RAD):
+            raise AssertionError(f"{name}: the card's first {CPU_FRAMES} "
+                                 f"poses are {gap_m} m / {gap_rad} rad off "
+                                 f"the CPU's")
+        if len(pipe.kf_poses) < 2:
+            raise AssertionError(f"{name}: no keyframe after the first")
+        out[name] = res
+    return out
+
+
+def _launches_per_call(fn) -> int:
+    """Kernel launches the host makes in one call of ``fn`` (runtime launch
+    calls seen by ``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                            "cuLaunchKernel", "cuLaunchKernelEx"))
+
+
+def phase_batched(images, gt, cfg, single_poses):
+    """``batched_odometry_step`` at B = 4 over four simulator seeds (phase
+    4's sequence and three more, 20 frames each); every row against its own
+    B = 1 run."""
+    from tbv_slam_public_torch.io import simulate
+    from tbv_slam_public_torch.models import odometry as om
+
+    n, b, dev = 20, 4, torch.device("cuda")
+    n_all = len(images)
+    seqs = [images[:n]] + [simulate.make_sequence(
+        num_frames=n, seed=seed, num_azimuths=images.shape[1],
+        num_range_bins=images.shape[2], range_res=cfg.radar.range_res,
+        traj_kwargs=dict(radius=0.11 * n_all, step=0.8, laps=1.25)).images
+        for seed in (11, 12, 13)]
+    frames = torch.as_tensor(np.stack(seqs, 1), device=dev)  # [n, B, A, R]
+
+    def run(rows):
+        st = om.init_batched_state(cfg, len(rows), device=dev)
+        st, out = om.batched_first_frame(st, frames[0, rows], cfg)
+        poses = [out.pose]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(1, n):
+            st, out = om.batched_odometry_step(st, frames[k, rows], cfg)
+            poses.append(out.pose)
+        torch.cuda.synchronize()
+        return torch.stack(poses, 1).cpu().numpy(), \
+            time.perf_counter() - t0, st
+
+    batch, secs, st = run(list(range(b)))
+    alone = [run([r]) for r in range(1, b)]
+    singles = [single_poses[:n]] + [a[0][0] for a in alone]
+    gaps = [_pose_gap(batch[r], singles[r]) for r in range(b)]
+    b1_rate = (n - 1) * len(alone) / sum(a[1] for a in alone)
+    repeat_equal = bool(np.array_equal(run([1])[0][0], singles[1]))
+    step = lambda rows, s: lambda: om.batched_odometry_step(
+        s, frames[n - 1, rows], cfg)
+    res = dict(B=b, frames=n, aggregate_frames_per_s=b * (n - 1) / secs,
+               steps_per_s=(n - 1) / secs, b1_frames_per_s=b1_rate,
+               speedup=b * (n - 1) / secs / b1_rate,
+               launches_per_step_b1=_launches_per_call(
+                   step([0], st.map(lambda x: x[:1]))),
+               launches_per_step_b4=_launches_per_call(step(list(range(b)),
+                                                            st)),
+               b1_runs_bit_equal=repeat_equal,
+               row_vs_single_m=[g[0] for g in gaps],
+               row_vs_single_rad=[g[1] for g in gaps])
+    log(f"[9] batched odometry: {json.dumps(res)}")
+    if not repeat_equal:
+        raise AssertionError("two B = 1 runs of one sequence differ")
+    if not all(m <= POSE_ATOL_M and r <= POSE_ATOL_RAD for m, r in gaps):
+        raise AssertionError(f"a row of the batch is off its B = 1 run: "
+                             f"{gaps}")
+    return res
+
+
+def _world_peaks(loops, ids, dev):
+    """Keyframe peaks clouds [K, P] moved to the odometry frame."""
+    from tbv_slam_public_torch.core import se2
+    from tbv_slam_public_torch.core.types import PointCloud
+
+    up = lambda rows: torch.as_tensor(np.stack(rows), device=dev)
+    return PointCloud(
+        xy=up([se2.apply_np(loops.kf_odom[i], loops.kf_peaks[i].xy)
+               for i in ids]),
+        intensity=up([loops.kf_peaks[i].intensity for i in ids]),
+        mask=up([loops.kf_peaks[i].mask for i in ids]))
+
+
+def _world_cells(loops, ids, dev):
+    from tbv_slam_public_torch.core import se2
+    from tbv_slam_public_torch.core.types import Cells
+
+    up = lambda rows: torch.as_tensor(np.stack(rows), device=dev)
+    cells = Cells(**{f: up([getattr(loops.kf_cells[i], f) for i in ids])
+                     for f in ("mean", "cov", "normal", "nsamples",
+                               "planarity", "avg_intensity", "valid")})
+    pose = up([loops.kf_odom[i] for i in ids])
+    rot = se2.rotmat(pose[:, 2])[:, None]
+    return cells.replace(mean=se2.apply(pose, cells.mean),
+                         cov=rot @ cells.cov @ rot.transpose(-1, -2))
+
+
+def phase_rest(images, cfg, loops):
+    """Max-mode retrieval, the Cen detectors, the quality metrics and joint
+    registration on phase 4's images and keyframes."""
+    import dataclasses
+
+    from tbv_slam_public_torch.core.types import stack_records
+    from tbv_slam_public_torch.models import loopclosure as lp
+    from tbv_slam_public_torch.ops import cen, quality, registration
+
+    dev = torch.device("cuda")
+    out = {}
+    # ScanContext retrieval with max-mode descriptors (and sum mode beside)
+    for mode in ("max", "sum"):
+        mcfg = dataclasses.replace(cfg, scancontext=dataclasses.replace(
+            cfg.scancontext, desc_function=mode))
+        lc = lp.LoopCloser(mcfg, device=dev)
+        for p, c, o in zip(loops.kf_peaks, loops.kf_cells, loops.kf_odom):
+            lc.add_keyframe(p, c, o)
+        n = len(lc.kf_odom)
+        lc._ensure_capacity(n)
+        _, peaks, odom = lc._device_store()
+        q = torch.arange(n, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, r = lp.build_contexts_batched(peaks, odom, q, n, mcfg)
+        lp.db_insert_batch(lc.db, q, d[:, 0], r[:, 0], odom[q])
+        det = lp.detect(lc.db, d, r, q, mcfg)
+        candidates = int(det.valid.sum())
+        ms = (time.perf_counter() - t0) * 1e3
+        occupied = float((d[:, 0] != mcfg.scancontext.no_point).float()
+                         .mean())
+        out[f"retrieval_{mode}"] = dict(keyframes=n, candidates=candidates,
+                                        ms=ms, occupied_bins=occupied)
+        if not torch.isfinite(d).all() or candidates <= 0:
+            raise AssertionError(f"{mode}-mode retrieval: {candidates} "
+                                 f"candidates")
+    log(f"[9] retrieval: {json.dumps({k: v for k, v in out.items()})}")
+
+    # Cen 2018 on the card, Cen 2019 on the host
+    imgs = torch.as_tensor(images[:20], device=dev)
+    cen.cen2018_filter(imgs[0], cfg.radar)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det18 = [int(cen.cen2018_filter(im, cfg.radar).mask.sum()) for im in imgs]
+    torch.cuda.synchronize()
+    ms18 = (time.perf_counter() - t0) * 1e3 / len(imgs)
+    cpu18 = cen.cen2018_filter(torch.as_tensor(images[0]), cfg.radar)
+    t0 = time.perf_counter()
+    det19 = [int(cen.cen2019_filter(images[i], cfg.radar, device=dev)
+                 .mask.sum()) for i in range(3)]
+    ms19 = (time.perf_counter() - t0) * 1e3 / 3
+    out["cen"] = dict(cen2018_ms_per_image=ms18,
+                      cen2018_detections=float(np.mean(det18)),
+                      cen2018_cpu_detections_image0=int(cpu18.mask.sum()),
+                      cen2019_host_ms_per_image=ms19,
+                      cen2019_detections=float(np.mean(det19)))
+    log(f"[9] cen: {json.dumps(out['cen'])}")
+    if min(det18) <= 0 or min(det19) <= 0:
+        raise AssertionError(f"a Cen detector found nothing: {out['cen']}")
+
+    # quality metrics of consecutive keyframe pairs, 8 pairs a call
+    n = len(loops.kf_odom)
+    sums, pairs = {}, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, n - 1, 8):
+        ids = list(range(lo, min(lo + 8, n - 1)))
+        src = _world_peaks(loops, [i + 1 for i in ids], dev)
+        ref = _world_peaks(loops, ids, dev)
+        ref_cells = _world_cells(loops, ids, dev)
+        vals = dict(p2p=quality.p2p_quality(src, ref)[0],
+                    repeatability=quality.keypoint_repeatability(src, ref),
+                    p2d=quality.p2d_quality(src, ref_cells)[0],
+                    cartesian_absdiff=quality.cartesian_absdiff_quality(
+                        src, ref))
+        for k, v in vals.items():
+            sums[k] = sums.get(k, 0.0) + float(v.sum())
+        pairs += len(ids)
+    ms = (time.perf_counter() - t0) * 1e3
+    out["quality"] = dict(pairs=pairs, ms=ms,
+                          **{k: v / pairs for k, v in sums.items()})
+    log(f"[9] quality metrics, mean over consecutive keyframe pairs: "
+        f"{json.dumps(out['quality'])}")
+    if not all(np.isfinite(v) for v in sums.values()) \
+            or not 0.0 < out["quality"]["repeatability"] <= 1.0:
+        raise AssertionError(f"quality metrics: {out['quality']}")
+
+    # joint refinement of the last 5 keyframes (the first held as gauge)
+    ids = list(range(n - 5, n))
+    scans = stack_records([loops.kf_cells[i].map(
+        lambda x: torch.as_tensor(x, device=dev)) for i in ids])
+    poses0 = torch.as_tensor(np.stack([loops.kf_odom[i] for i in ids]),
+                             device=dev)
+    valid = torch.ones(5, dtype=torch.bool, device=dev)
+    joint = lambda: registration.register_joint(
+        scans, poses0, valid, ~valid, cfg.registration)
+    res = joint()
+    ms = cuda_ms(joint, 3, spin=False)
+    change = (res.pose - poses0).abs().cpu().numpy()  # [5, 3]
+    out["joint"] = dict(scans=5, ms=ms, score=float(res.score),
+                        residuals=int(res.num_residuals),
+                        max_change=change.max(0).tolist(),
+                        gauge_moved=float(change[0].max()))
+    log(f"[9] register_joint: {json.dumps(out['joint'])}")
+    if not bool(res.success) or not torch.isfinite(res.pose).all() or \
+            out["joint"]["gauge_moved"] != 0.0:
+        raise AssertionError(f"register_joint: {out['joint']}")
+    return out
 
 
 def _oxford_instance(dev):
@@ -758,15 +1100,33 @@ def main(argv=None) -> int:
     import tbv_slam_public_torch  # noqa: F401  (sets full-f32 matmuls)
 
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def done(tag):
+        marks.append(time.perf_counter())
+        log(f"[{tag}] phase took {marks[-1] - marks[-2]:.1f} s")
+
     smi, sm_hz = phase_build()
     k = phase_kernels(sm_hz)
-    plain_trajectory = phase_cli()
-    launches, images, gt, cfg, loops = phase_slice(args.frames)
+    done("1-2")
+    plain_trajectory, scan_launches = phase_cli()
+    done("3")
+    launches, images, gt, cfg, loops, frame_poses = phase_slice(args.frames)
     real = phase_real_clouds(loops, sm_hz)
+    done("4")
     phase_solvers(phase_pgo())
+    done("5-6")
     online_launches, training = phase_online(images, gt, cfg,
                                              plain_trajectory, sm_hz)
-    launches += online_launches
+    done("7")
+    variants = phase_variants(images, gt, cfg)
+    done("8")
+    batched = phase_batched(images, gt, cfg, frame_poses)
+    rest = phase_rest(images, cfg, loops)
+    done("9")
+    by_path = dict(offline=launches, online=online_launches,
+                   evaluate_scans=scan_launches)
+    launches += online_launches + scan_launches
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "coral_moments", "route": "cuda",
@@ -778,7 +1138,9 @@ def main(argv=None) -> int:
         "library_ms": None, "share_of_bound": k["times"]["share"],
         "pair_moments": {m: t for m, t in k["times"].items()
                          if m.startswith("M")},
-        "keyframe_clouds": real, "training_cloud": training}]}))
+        "launches_by_path": by_path,
+        "keyframe_clouds": real, "training_cloud": training}],
+        "variants": variants, "batched": batched, "rest": rest}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,19 @@
-"""PyTorch + CUDA port of the TBV radar-SLAM offline pipeline.
+"""PyTorch + CUDA port of the TBV radar-SLAM pipeline.
 
 Mirrors the layout of ``tbv_slam_public_tpu`` (the JAX reference):
 
-- ``core``    — config (a copy), timing, SE(2) algebra, tensor dataclasses
-- ``ops``     — radar filtering, CFEAR cells, registration, ScanContext,
-  CorAl, logistic verifier, pose-graph optimization
+- ``core``    — config and SE(3) export (copies), timing, SE(2) algebra,
+  tensor dataclasses
+- ``ops``     — radar detectors (k-strongest, CA-CFAR, BFAR, Cen), CFEAR
+  cells, registration, ScanContext, CorAl, quality metrics, logistic
+  verifier, pose-graph optimization
 - ``kernels`` — hand-written Hopper kernels (``csrc/*.cu``) with their plain
   PyTorch versions; takes the place of ``pallas/``
 - ``models``  — odometry pipeline, loop closure, SLAM facade
 - ``io``      — checkpoints, numpy <-> tensor conversion, the simulator and
   dataset readers (copies of the jax-free reference modules)
-- ``eval``    — KITTI / trajectory / loop metrics (copies)
-- ``harness`` — the ``odometry`` / ``slam`` / ``eval`` CLI
+- ``eval``    — KITTI / trajectory / loop metrics, result tables (copies)
+- ``harness`` — the CLI (every subcommand of the reference but ``sweep``)
 
 Nothing here imports JAX.  The reference forces full-f32 matmuls everywhere
 (LM stalls at a worse optimum in reduced precision), so TF32 is switched off

@@ -6,6 +6,7 @@ The port runs on the card unless the caller asks for the CPU: ``None`` means
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -35,3 +36,19 @@ def constant(values, dtype, device) -> torch.Tensor:
     stream, so inside a frame loop it would be a host synchronisation per
     call.  Callers must not write into the result."""
     return _constant(values, dtype, torch.device(device))
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic CUDA kernels inside the block, the previous
+    setting after it.  ``index_add_`` on a CUDA tensor then sorts its indices
+    and adds each slot's values in index order, as the CPU does, instead of
+    with float atomics in whatever order the threads arrive: the sums, and
+    every decision taken on them, come out the same on every run."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn)

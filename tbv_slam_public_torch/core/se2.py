@@ -21,6 +21,10 @@ def rotmat(theta: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
 
 
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros((3,), dtype=dtype, device=device)
+
+
 def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pose composition ``a * b`` (apply b, then a). Shapes broadcast."""
     ca, sa = torch.cos(a[..., 2]), torch.sin(a[..., 2])
@@ -58,6 +62,24 @@ def rotate(pose: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     s = torch.sin(pose[..., 2])[..., None]
     vx, vy = vecs[..., 0], vecs[..., 1]
     return torch.stack([c * vx - s * vy, s * vx + c * vy], -1)
+
+
+def interpolate(a: torch.Tensor, b: torch.Tensor, factor) -> torch.Tensor:
+    """Linear interpolation from a (factor=0) to b (factor=1): linear in
+    translation, shortest arc in angle (the reference's slerp + lerp for
+    planar motion)."""
+    dt = wrap_angle(b[..., 2] - a[..., 2])
+    x = a[..., 0] + (b[..., 0] - a[..., 0]) * factor
+    y = a[..., 1] + (b[..., 1] - a[..., 1]) * factor
+    t = wrap_angle(a[..., 2] + dt * factor)
+    return torch.stack([x, y, t], -1)
+
+
+def scale(pose: torch.Tensor, factor) -> torch.Tensor:
+    """Scale a relative motion by ``factor`` (translation and angle
+    linearly), as the per-point motion compensation does."""
+    return torch.stack([pose[..., 0] * factor, pose[..., 1] * factor,
+                        pose[..., 2] * factor], -1)
 
 
 # ---- NumPy host-side variants ---------------------------------------------

@@ -17,7 +17,10 @@ import torch
 
 class _Record:
     def map(self, fn: Callable):
-        return type(self)(**{f.name: fn(getattr(self, f.name))
+        """``fn`` applied to every tensor field, nested records included."""
+        def one(x):
+            return x.map(fn) if isinstance(x, _Record) else fn(x)
+        return type(self)(**{f.name: one(getattr(self, f.name))
                              for f in dataclasses.fields(self)})
 
     def replace(self, **kw):
@@ -27,8 +30,11 @@ class _Record:
 def stack_records(recs):
     """One record whose fields are the stacked fields of ``recs`` (the
     counterpart of ``jax.tree.map(jnp.stack)`` over a list of records)."""
+    def one(xs):
+        return stack_records(xs) if isinstance(xs[0], _Record) \
+            else torch.stack(xs)
     return type(recs[0])(**{
-        f.name: torch.stack([getattr(r, f.name) for r in recs])
+        f.name: one([getattr(r, f.name) for r in recs])
         for f in dataclasses.fields(recs[0])})
 
 
@@ -52,6 +58,15 @@ class Cells(_Record):
     planarity: torch.Tensor  # [..., C] log(1 + cond/2)
     avg_intensity: torch.Tensor  # [..., C]
     valid: torch.Tensor  # [..., C] bool
+
+
+@dataclass
+class Scan(_Record):
+    """One processed radar frame: filtered cloud, peaks cloud, features."""
+
+    cloud: PointCloud  # k-strongest filtered cloud
+    peaks: PointCloud  # axial-NMS peaks cloud
+    cells: Cells  # CFEAR features
 
 
 # Constraint type codes for the SoA pose graph.
@@ -84,6 +99,16 @@ class RegistrationResult(_Record):
     iterations: torch.Tensor  # [...] int64 outer iterations used
     success: torch.Tensor  # [...] bool
     cov: torch.Tensor  # [..., 3, 3]
+
+
+def make_point_cloud(capacity: int, device=None,
+                     dtype=torch.float32) -> PointCloud:
+    return PointCloud(xy=torch.zeros((capacity, 2), dtype=dtype,
+                                     device=device),
+                      intensity=torch.zeros((capacity,), dtype=dtype,
+                                            device=device),
+                      mask=torch.zeros((capacity,), dtype=torch.bool,
+                                       device=device))
 
 
 def make_cells(capacity: int, device=None, dtype=torch.float32) -> Cells:

@@ -5,14 +5,16 @@ the ``simple_graph.npz`` checkpoint), ``slam`` (loop closure + PGO from a
 checkpoint), ``online`` (the full per-frame pipeline from images),
 ``reoptimize`` (PGO again on a saved full graph with other ``pgo.*``
 weights), ``constraints`` (dump / re-verify a full graph's loop
-constraints), ``train-alignment``, ``train-loop`` and ``eval``.
+constraints), ``train-alignment``, ``train-loop``, ``evaluate-scans``
+(alignment features of perturbed keyframe pairs to CSV), ``baseline`` (the
+result tables of a tree of runs) and ``eval``.
 
 Same arguments and dotted ``key=value`` config overrides as
-``tbv_slam_public_tpu.harness.cli``, plus ``--device``: the CUDA card when
-the option is absent (an error where there is none), ``--device cpu`` for
-the CPU.  ``--solver`` defaults to ``auto`` (schur on a SLAM graph).  Not
-ported yet: ``evaluate-scans``, ``baseline``, ``sweep`` (see ROADMAP.md).
-Plots are written only where matplotlib is installed.
+``tbv_slam_public_tpu.harness.cli``, plus ``--device`` where tensors are
+computed: the CUDA card when the option is absent (an error where there is
+none), ``--device cpu`` for the CPU.  ``--solver`` defaults to ``auto``
+(schur on a SLAM graph).  Not ported yet: ``sweep`` (see ROADMAP.md).  Plots
+are written only where matplotlib is installed.
 
     python -m tbv_slam_public_torch.harness.cli odometry --dataset sim:60:5 \
         --output out/odo radar.k_strongest=4
@@ -330,6 +332,64 @@ def cmd_train_loop(args, overrides: List[str]) -> int:
     return 0
 
 
+def cmd_evaluate_scans(args, overrides: List[str]) -> int:
+    """Perturbation-sweep scan evaluator (the coral scanEvaluator): alignment
+    features of each consecutive keyframe pair of a checkpoint under a grid
+    of offsets, one CSV row per sample, for separability analysis."""
+    import torch
+
+    from ..io import checkpoint, convert
+    from ..models import verification as verif
+
+    dev = _device(args.device)
+    g = checkpoint.load_simple_graph(args.graph)
+    cfg = _build_cfg(SENSOR, overrides)
+    os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+
+    offsets = np.linspace(-args.range_max, args.range_max, args.range_steps)
+    thetas = np.radians(np.linspace(-args.theta_max_deg, args.theta_max_deg,
+                                    args.theta_steps))
+    perts = np.asarray([[dx, dy, th] for dx in offsets for dy in offsets
+                        for th in thetas], np.float32)
+    perts_t = torch.as_tensor(perts, device=dev)
+
+    def scan(i):
+        take = lambda rec: {f.name: getattr(rec, f.name)[i]
+                            for f in dataclasses.fields(rec)}
+        pose = torch.as_tensor(g.kf_poses[i], dtype=torch.float32,
+                               device=dev)
+        return (convert.cloud_from_numpy(take(g.peaks), dev),
+                convert.cells_from_numpy(take(g.cells), dev), pose)
+
+    rows = []
+    n_pairs = min(g.num_keyframes - 1, args.max_pairs)
+    for i in range(n_pairs):
+        x, y = verif.perturbed_training_features(
+            *scan(i + 1), *scan(i), perts_t, cfg.verification)
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        for k in range(len(perts)):
+            rows.append([i, *perts[k], float(y[k]), *x[k]])
+
+    header = ("pair,dx,dy,dtheta,aligned,"
+              "coral_joint,coral_sep,coral_overlap,"
+              "cfear_score,cfear_nres,cfear_size")
+    np.savetxt(args.output, np.asarray(rows), delimiter=",", header=header,
+               comments="")
+    print(json.dumps(dict(pairs=n_pairs, samples=len(rows))))
+    return 0
+
+
+def cmd_baseline(args, overrides: List[str]) -> int:
+    """Aggregate the ``result.txt`` files of a tree of runs into Tab I/II
+    style tables (1_baseline); host only."""
+    from ..eval import baseline
+
+    report = baseline.write_baseline(
+        args.root, args.output or os.path.join(args.root, "baseline.txt"))
+    print(report)
+    return 0
+
+
 def cmd_reoptimize(args, overrides: List[str]) -> int:
     """Re-run PGO on a saved full graph with overridden weights (the
     debug_optimizer / dynamic_reconfigure analogue): each invocation applies
@@ -517,6 +577,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--output", required=True)
     p.add_argument("--device", default=None, help=DEVICE_HELP)
     p.set_defaults(fn=cmd_train_loop)
+
+    p = sub.add_parser("baseline")
+    p.add_argument("--root", required=True)
+    p.add_argument("--output", default=None)
+    p.set_defaults(fn=cmd_baseline)
+
+    p = sub.add_parser("evaluate-scans")
+    p.add_argument("--graph", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--range-max", type=float, default=1.0)
+    p.add_argument("--range-steps", type=int, default=3)
+    p.add_argument("--theta-max-deg", type=float, default=2.0)
+    p.add_argument("--theta-steps", type=int, default=3)
+    p.add_argument("--max-pairs", type=int, default=50)
+    p.add_argument("--device", default=None, help=DEVICE_HELP)
+    p.set_defaults(fn=cmd_evaluate_scans)
 
     p = sub.add_parser("eval")
     p.add_argument("--gt", required=True)

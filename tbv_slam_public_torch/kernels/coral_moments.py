@@ -32,33 +32,60 @@ LAUNCHES = 0
 _MAX_ROWS = 65535  # gridDim.y
 
 
+def _live_first(mask):
+    """Slot indices [M, L] of each row's live slots in slot order, then dead
+    ones; L is the largest live count of any row."""
+    order = torch.sort(mask.to(torch.uint8), dim=1, descending=True,
+                       stable=True)[1]
+    return order[:, :int(mask.sum(1).max())] if mask.shape[1] else order
+
+
 def neighbor_moments_reference(queries, qmask, points, pmask, radius,
                                chunk_bytes: int = 1 << 28):
     """Plain PyTorch version (``ops/coral._neighbor_moments`` of the reference
-    with the pair axis written out).  Materialises [m, Q, P, 2] relative
-    positions, chunked over M so a chunk stays under ``chunk_bytes``.
+    with the pair axis written out) over live slots only: each row's live
+    queries and live points are gathered first, the [m, Lq, Lp] relative
+    positions are formed on them (chunked over M so a chunk stays under
+    ``chunk_bytes``), and the moments are scattered back into zeros.  Dead
+    slots contribute nothing in the reference either, so only the order of
+    the float32 sums differs from the dense form.
 
     queries [M, Q, 2], qmask [M, Q], points [M, P, 2], pmask [M, P] ->
     (count [M, Q], sum_rel [M, Q, 2], sum_sq [M, Q, 2, 2]), float32."""
     m, q = qmask.shape
-    p = pmask.shape[1]
-    step = max(1, chunk_bytes // max(1, q * p * 2 * 4))
-    outs = []
+    dt, dev = queries.dtype, queries.device
+    count = torch.zeros((m, q), dtype=dt, device=dev)
+    sum_rel = torch.zeros((m, q, 2), dtype=dt, device=dev)
+    sum_sq = torch.zeros((m, q, 2, 2), dtype=dt, device=dev)
+    if m == 0 or q == 0:
+        return count, sum_rel, sum_sq
+    qi, pi = _live_first(qmask), _live_first(pmask)
+    lq, lp = qi.shape[1], pi.shape[1]
+    if lq == 0 or lp == 0:
+        return count, sum_rel, sum_sq
+    qs = torch.gather(queries, 1, qi[..., None].expand(-1, -1, 2))
+    qm = torch.gather(qmask, 1, qi)
+    ps = torch.gather(points, 1, pi[..., None].expand(-1, -1, 2))
+    pm = torch.gather(pmask, 1, pi)
+    step = max(1, chunk_bytes // (lq * lp * 2 * 4))
     for lo in range(0, m, step):
-        qs, qm = queries[lo:lo + step], qmask[lo:lo + step]
-        ps, pm = points[lo:lo + step], pmask[lo:lo + step]
-        rx = ps[:, None, :, 0] - qs[:, :, None, 0]  # [m, Q, P]
-        ry = ps[:, None, :, 1] - qs[:, :, None, 1]
+        sl = slice(lo, lo + step)
+        rx = ps[sl, None, :, 0] - qs[sl, :, None, 0]  # [m, Lq, Lp]
+        ry = ps[sl, None, :, 1] - qs[sl, :, None, 1]
         d2 = rx * rx + ry * ry
-        fm = ((d2 <= radius * radius) & pm[:, None, :]
-              & qm[:, :, None]).to(queries.dtype)
+        fm = ((d2 <= radius * radius) & pm[sl, None, :]
+              & qm[sl, :, None]).to(dt)
         rx, ry = rx * fm, ry * fm
         sxy = (rx * ry).sum(-1)
-        outs.append((fm.sum(-1), torch.stack([rx.sum(-1), ry.sum(-1)], -1),
-                     torch.stack([torch.stack([(rx * rx).sum(-1), sxy], -1),
-                                  torch.stack([sxy, (ry * ry).sum(-1)], -1)],
-                                 -2)))
-    return tuple(torch.cat(x) for x in zip(*outs))
+        idx = qi[sl]
+        count[sl].scatter_(1, idx, fm.sum(-1))
+        sum_rel[sl].scatter_(1, idx[..., None].expand(-1, -1, 2),
+                             torch.stack([rx.sum(-1), ry.sum(-1)], -1))
+        sum_sq[sl].scatter_(
+            1, idx[..., None, None].expand(-1, -1, 2, 2),
+            torch.stack([torch.stack([(rx * rx).sum(-1), sxy], -1),
+                         torch.stack([sxy, (ry * ry).sum(-1)], -1)], -2))
+    return count, sum_rel, sum_sq
 
 
 def pair_moments_reference(src_xy, src_mask, ref_xy, ref_mask, radius):

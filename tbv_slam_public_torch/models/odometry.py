@@ -1,22 +1,27 @@
 """CFEAR radar odometry: the keyframe fuser as one frame step on tensors.
 
-Port of ``tbv_slam_public_tpu.models.odometry`` (``init_state``,
-``first_frame``, ``odometry_step`` and ``OdometryPipeline.process``): motion
-compensation -> features -> window registration -> sanity check ->
-keyframe gate -> window roll, with the keyframe decision applied as a masked
-update so a frame never waits on the device.  The pipeline reads the frame's
-scalars back once per frame; keyframe payloads stay on the device until a
-consumer (checkpoint, loop closer) asks for them.  ``process_chunk`` stands
-for the reference's ``odometry_scan``: K frames go up in one copy, the K steps
-run back to back with no host read between them, and one read brings the K
-frames' scalars back.
+Port of ``tbv_slam_public_tpu.models.odometry``: motion compensation ->
+features -> window registration (P2P/P2L/P2D, or time-continuous) -> sanity
+check -> keyframe gate -> window roll, with the keyframe decision applied as
+a masked update so a frame never waits on the device.  The pipeline reads the
+frame's scalars back once per frame; keyframe payloads stay on the device
+until a consumer (checkpoint, loop closer) asks for them.  ``process_chunk``
+stands for the reference's ``odometry_scan``: K frames go up in one copy, the
+K steps run back to back with no host read between them, and one read brings
+the K frames' scalars back.
+
+``batched_first_frame`` / ``batched_odometry_step`` run B sequences at once
+(the reference ``vmap``s the frame step): each row's detector and features
+run one row at a time, and everything from registration on rides the
+registration's leading batch axis.  ``odometry_step`` is the same code at
+B = 1.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -25,30 +30,37 @@ from ..core import se2
 from ..core.config import TBVConfig
 from ..core.device import constant, resolve
 from ..core.timing import timing
-from ..core.types import Cells, PointCloud, make_cells
+from ..core.types import Cells, PointCloud, _Record, make_cells, \
+    stack_records
 from ..ops import features, radar, registration
 
 
 @dataclass
 class OdometryState:
-    kf_cells: Cells  # [S, C, ...] keyframe window, oldest..newest
-    kf_poses: torch.Tensor  # [S, 3]
-    kf_mask: torch.Tensor  # [S] bool
-    T_prev: torch.Tensor  # [3] pose of the previous frame
-    Tmot: torch.Tensor  # [3] previous frame-to-frame motion (local)
+    kf_cells: Cells  # [(B,) S, C, ...] keyframe window, oldest..newest
+    kf_poses: torch.Tensor  # [(B,) S, 3]
+    kf_mask: torch.Tensor  # [(B,) S] bool
+    T_prev: torch.Tensor  # [(B,) 3] pose of the previous frame
+    Tmot: torch.Tensor  # [(B,) 3] previous frame-to-frame motion (local)
     frame_idx: int
+
+    def map(self, fn: Callable) -> "OdometryState":
+        """``fn`` applied to every tensor of the state."""
+        return OdometryState(self.kf_cells.map(fn), fn(self.kf_poses),
+                             fn(self.kf_mask), fn(self.T_prev),
+                             fn(self.Tmot), self.frame_idx)
 
 
 @dataclass
-class OdometryOutput:
-    pose: torch.Tensor  # [3] current frame pose (world)
-    fused: torch.Tensor  # [] bool, became a keyframe
-    success: torch.Tensor  # [] bool
-    constraint: torch.Tensor  # [3] last keyframe -> current
-    cov: torch.Tensor  # [3, 3]
-    score: torch.Tensor  # []
-    num_residuals: torch.Tensor  # []
-    cells: Cells
+class OdometryOutput(_Record):
+    pose: torch.Tensor  # [(B,) 3] current frame pose (world)
+    fused: torch.Tensor  # [(B,)] bool, became a keyframe
+    success: torch.Tensor  # [(B,)] bool
+    constraint: torch.Tensor  # [(B,) 3] last keyframe -> current
+    cov: torch.Tensor  # [(B,) 3, 3]
+    score: torch.Tensor  # [(B,)]
+    num_residuals: torch.Tensor  # [(B,)]
+    cells: Cells  # keyframe features (velocity-corrected when time-continuous)
     cloud: PointCloud  # filtered cloud (motion compensated)
     peaks: PointCloud  # peaks cloud (motion compensated)
 
@@ -64,112 +76,166 @@ def init_state(cfg: TBVConfig, device=None) -> OdometryState:
         T_prev=z(3), Tmot=z(3), frame_idx=0)
 
 
+def init_batched_state(cfg: TBVConfig, batch: int,
+                       device=None) -> OdometryState:
+    """The state of ``batch`` sequences, on the card unless ``device`` says
+    otherwise."""
+    return init_state(cfg, resolve(device)).map(
+        lambda x: torch.stack([x] * batch))
+
+
 def _push_keyframe(state: OdometryState, cells: Cells, pose: torch.Tensor,
                    fuse: torch.Tensor) -> OdometryState:
-    """Roll the keyframe window where ``fuse`` (a device bool) holds."""
-    roll = lambda buf, new: torch.where(
-        fuse, torch.cat([buf[1:], new[None]]), buf)
+    """Roll each row's keyframe window where ``fuse`` [B] (a device bool)
+    holds."""
+    def roll(buf, new):
+        keep = fuse.reshape(fuse.shape + (1,) * (buf.ndim - 1))
+        return torch.where(keep, torch.cat([buf[:, 1:], new[:, None]], 1),
+                           buf)
     kf_cells = Cells(**{f.name: roll(getattr(state.kf_cells, f.name),
                                      getattr(cells, f.name))
                         for f in dataclasses.fields(Cells)})
     return dataclasses.replace(
         state, kf_cells=kf_cells, kf_poses=roll(state.kf_poses, pose),
-        kf_mask=roll(state.kf_mask, torch.ones((), dtype=torch.bool,
-                                               device=pose.device)))
+        kf_mask=roll(state.kf_mask, torch.ones_like(fuse)))
 
 
-def first_frame(state: OdometryState, image: torch.Tensor, cfg: TBVConfig):
-    """Frame 0 seeds the keyframe window at the origin."""
-    dev = image.device
-    cloud, peaks = radar.filter_scan(image, cfg.radar)
-    cells = features.compute_cells(cloud, cfg.features)
-    zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
-    yes = torch.ones((), dtype=torch.bool, device=dev)
+def _detect(images: torch.Tensor, motion: Optional[torch.Tensor],
+            cfg: TBVConfig):
+    """Detector, motion compensation (where ``motion`` [B, 3] is given) and
+    features of each image [B, A, R], one row at a time -> stacked (cells,
+    cloud, peaks)."""
+    rows = []
+    for b in range(images.shape[0]):
+        cloud, peaks = radar.filter_scan(images[b], cfg.radar)
+        if motion is not None:
+            ccw = cfg.odometry.radar_ccw
+            cloud = radar.motion_compensate(cloud, motion[b], ccw)
+            peaks = radar.motion_compensate(peaks, motion[b], ccw)
+        rows.append((features.compute_cells(cloud, cfg.features), cloud,
+                     peaks))
+    return tuple(stack_records(list(x)) for x in zip(*rows))
+
+
+def batched_first_frame(state: OdometryState, images: torch.Tensor,
+                        cfg: TBVConfig):
+    """Frame 0 of B sequences: seed each keyframe window at the origin."""
+    cells, cloud, peaks = _detect(images, None, cfg)
+    bsz, dev = images.shape[0], images.device
+    zero3 = torch.zeros((bsz, 3), dtype=torch.float32, device=dev)
+    yes = torch.ones(bsz, dtype=torch.bool, device=dev)
     state = _push_keyframe(state, cells, zero3, yes)
     state = dataclasses.replace(state, frame_idx=state.frame_idx + 1)
     out = OdometryOutput(
         pose=zero3, fused=yes, success=yes, constraint=zero3,
-        cov=torch.eye(3, dtype=torch.float32, device=dev),
-        score=torch.zeros((), device=dev),
-        num_residuals=torch.zeros((), dtype=torch.long, device=dev),
+        cov=torch.eye(3, dtype=torch.float32, device=dev).expand(bsz, 3, 3),
+        score=torch.zeros(bsz, device=dev),
+        num_residuals=torch.zeros(bsz, dtype=torch.long, device=dev),
         cells=cells, cloud=cloud, peaks=peaks)
     return state, out
 
 
-def odometry_step(state: OdometryState, image: torch.Tensor, cfg: TBVConfig):
-    """One odometry frame (odometrykeyframefuser.cpp:143-260)."""
+def batched_odometry_step(state: OdometryState, images: torch.Tensor,
+                          cfg: TBVConfig):
+    """One odometry frame of B sequences (odometrykeyframefuser.cpp:
+    143-260); ``images`` [B, A, R]."""
     ocfg = cfg.odometry
-    if ocfg.time_continuous or ocfg.cov_source == "ceres":
-        raise NotImplementedError(
-            "time-continuous registration and ceres covariance are not "
-            "ported yet (see ROADMAP.md)")
-    cloud, peaks = radar.filter_scan(image, cfg.radar)
-    if ocfg.compensate:
-        cloud = radar.motion_compensate(cloud, state.Tmot, ocfg.radar_ccw)
-        peaks = radar.motion_compensate(peaks, state.Tmot, ocfg.radar_ccw)
-    cells = features.compute_cells(cloud, cfg.features)
-    dev = image.device
+    compensate = ocfg.compensate and not ocfg.time_continuous
+    cells, cloud, peaks = _detect(images, state.Tmot if compensate else None,
+                                  cfg)
+    dev = images.device
 
     Tguess = se2.compose(state.T_prev, state.Tmot) if ocfg.use_guess \
         else state.T_prev
     prior = None
     if ocfg.soft_constraint:
         prior = torch.diag(constant((10.0, 10.0, 31.6), torch.float32, dev))
-    batch = lambda x: x[None]
-    res = registration.register_window(
-        cells.map(batch), batch(Tguess), state.kf_cells.map(batch),
-        batch(state.kf_poses), batch(state.kf_mask), cfg.registration,
-        guess=batch(Tguess) if prior is not None else None,
-        guess_sqrt_info=prior)
-    res = res.map(lambda x: x[0])
-    Tcurrent = torch.where(res.success, res.pose, Tguess)
+    window = (state.kf_cells, state.kf_poses, state.kf_mask)
+    guess = Tguess if prior is not None else None
+    if ocfg.time_continuous:
+        # per-cell velocity correction inside the P2P solve, velocity = the
+        # previous motion (RegisterTimeContinuous)
+        res = registration.register_time_continuous(
+            cells, Tguess, *window, cfg.registration, state.Tmot,
+            ccw=ocfg.radar_ccw, guess=guess, guess_sqrt_info=prior)
+    else:
+        res = registration.register_window(
+            cells, Tguess, *window, cfg.registration, guess=guess,
+            guess_sqrt_info=prior)
+    Tcurrent = torch.where(res.success[:, None], res.pose, Tguess)
 
     # velocity / acceleration sanity check (odometrykeyframefuser.cpp:76-94)
     Tmot_curr = se2.relative(state.T_prev, Tcurrent)
     dt = ocfg.sensor_period
-    vel = torch.linalg.norm(Tmot_curr[:2]) / dt
-    acc = torch.linalg.norm(Tmot_curr[:2] - state.Tmot[:2]) / (dt * dt)
+    vel = torch.linalg.norm(Tmot_curr[:, :2], dim=-1) / dt
+    acc = torch.linalg.norm(Tmot_curr[:, :2] - state.Tmot[:, :2],
+                            dim=-1) / (dt * dt)
     sane = (vel <= ocfg.vel_limit) & (acc <= ocfg.acc_limit)
-    Tcurrent = torch.where(sane, Tcurrent, Tguess)
+    Tcurrent = torch.where(sane[:, None], Tcurrent, Tguess)
     Tmot = se2.relative(state.T_prev, Tcurrent)
 
     # keyframe gate against the newest keyframe
-    last_kf = state.kf_poses[-1]
+    last_kf = state.kf_poses[:, -1]
     diff = se2.relative(last_kf, Tcurrent)
     if ocfg.use_keyframe:
-        fuse = (torch.linalg.norm(diff[:2]) > ocfg.min_keyframe_dist) | \
-            (torch.abs(diff[2]) > math.radians(ocfg.min_keyframe_rot_deg))
+        fuse = (torch.linalg.norm(diff[:, :2], dim=-1)
+                > ocfg.min_keyframe_dist) | \
+            (torch.abs(diff[:, 2]) > math.radians(ocfg.min_keyframe_rot_deg))
     else:
-        fuse = torch.ones((), dtype=torch.bool, device=dev)
+        fuse = torch.ones(images.shape[0], dtype=torch.bool, device=dev)
     fuse = fuse & res.success
 
-    kf_cells0, kf_poses0, kf_mask0 = (state.kf_cells, state.kf_poses,
-                                      state.kf_mask)
-    state = _push_keyframe(state, cells, Tcurrent, fuse)
-    state = dataclasses.replace(state, T_prev=Tcurrent, Tmot=Tmot,
-                                frame_idx=state.frame_idx + 1)
+    store_cells = cells
+    if ocfg.time_continuous:
+        # the window keeps the undistorted (velocity-corrected) features
+        store_cells = registration.motion_correct_cells(cells, state.Tmot,
+                                                        ocfg.radar_ccw)
+    new_state = _push_keyframe(state, store_cells, Tcurrent, fuse)
+    new_state = dataclasses.replace(new_state, T_prev=Tcurrent, Tmot=Tmot,
+                                    frame_idx=state.frame_idx + 1)
 
     # constraint covariance rotated into the last keyframe's frame
-    rot = se2.rotmat(-last_kf[2])
     cov = res.cov
+    cov_args = (store_cells, Tcurrent, *window, cfg.registration, res.score,
+                res.num_residuals)
     if ocfg.use_sampled_covariance or ocfg.cov_source == "sampled":
         cov_s, ok = registration.sampled_covariance(
-            cells.map(batch), batch(Tcurrent), kf_cells0.map(batch),
-            batch(kf_poses0), batch(kf_mask0), cfg.registration,
-            batch(res.score), batch(res.num_residuals),
-            xy_range=ocfg.cov_sampling_xy_range,
+            *cov_args, xy_range=ocfg.cov_sampling_xy_range,
             yaw_range=ocfg.cov_sampling_yaw_range,
             steps=ocfg.cov_sampling_samples_per_axis,
             cov_scaler=ocfg.cov_sampling_scaler)
-        cov = torch.where(ok[0], cov_s[0], cov)
+        cov = torch.where(ok[:, None, None], cov_s, cov)
+    elif ocfg.cov_source == "ceres":
+        cov_c, ok = registration.ceres_covariance(*cov_args)
+        cov = torch.where(ok[:, None, None], cov_c, cov)
+    rot = se2.rotmat(-last_kf[:, 2])
     cov_rot = cov.clone()
-    cov_rot[:2, :2] = rot @ cov[:2, :2] @ rot.T
+    cov_rot[:, :2, :2] = rot @ cov[:, :2, :2] @ rot.transpose(-1, -2)
 
     out = OdometryOutput(
         pose=Tcurrent, fused=fuse, success=res.success, constraint=diff,
         cov=cov_rot, score=res.score, num_residuals=res.num_residuals,
-        cells=cells, cloud=cloud, peaks=peaks)
-    return state, out
+        cells=store_cells, cloud=cloud, peaks=peaks)
+    return new_state, out
+
+
+def _as_batch(state: OdometryState, image: torch.Tensor):
+    return state.map(lambda x: x[None]), image[None]
+
+
+def _as_row(state: OdometryState, out: OdometryOutput):
+    return state.map(lambda x: x[0]), out.map(lambda x: x[0])
+
+
+def first_frame(state: OdometryState, image: torch.Tensor, cfg: TBVConfig):
+    """Frame 0 of one sequence seeds its keyframe window at the origin."""
+    return _as_row(*batched_first_frame(*_as_batch(state, image), cfg))
+
+
+def odometry_step(state: OdometryState, image: torch.Tensor, cfg: TBVConfig):
+    """One odometry frame of one sequence: ``batched_odometry_step`` at
+    B = 1."""
+    return _as_row(*batched_odometry_step(*_as_batch(state, image), cfg))
 
 
 def _frame_scalars(out: OdometryOutput) -> torch.Tensor:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.config import FeatureConfig
-from ..core.device import constant
+from ..core.device import constant, deterministic
 from ..core.types import Cells, PointCloud
 
 
@@ -70,8 +70,9 @@ def compute_cells(cloud: PointCloud, cfg: FeatureConfig,
     lin = ij[:, 0] * g + ij[:, 1]
     fmask = mask.to(dt)
     counts = torch.zeros(g * g, dtype=dt, device=dev).index_add_(0, lin, fmask)
-    sums = torch.zeros((g * g, 2), dtype=dt, device=dev).index_add_(
-        0, lin, xy * fmask[:, None])
+    with deterministic():  # float sums in index order on the card too
+        sums = torch.zeros((g * g, 2), dtype=dt, device=dev).index_add_(
+            0, lin, xy * fmask[:, None])
 
     # 2. top-C occupied voxels
     occ = torch.where(counts > 0, counts, torch.full_like(counts, -1.0))

@@ -1,17 +1,20 @@
 """Sliding-window scan registration as batched Levenberg-Marquardt.
 
-Port of ``tbv_slam_public_tpu.ops.registration`` for the P2P (odometry) and
-P2L (loop registration, CFEAR quality) costs with all five robust losses.
-Every function carries a leading batch axis B: the reference ``jax.vmap``s
-over loop-candidate pairs, the port writes that axis out, and odometry runs
-at B = 1.  ``fori_loop``s become Python loops of fixed length whose updates
-are masked, so the iterate trajectory is the reference's and the loop never
-waits on the device.
+Port of ``tbv_slam_public_tpu.ops.registration``: the P2P, P2L and P2D
+costs with all five robust losses, the time-continuous variant (a velocity
+pre-pass over the source cells, then P2P), joint refinement of a whole
+window, and the sampled and Ceres-style covariances.  Every function
+carries a leading batch axis B: the reference ``jax.vmap``s over
+loop-candidate pairs (and over the scans of a joint refinement), the port
+writes that axis out, and odometry runs at B = 1.  ``fori_loop``s become
+Python loops of fixed length whose updates are masked, so the iterate
+trajectory is the reference's and the loop never waits on the device.
 
 Cost convention (Ceres): total cost = 0.5 * sum_i w_i * rho(|r_i|^2).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -45,11 +48,7 @@ _LOSS_CODES = {"none": LOSS_NONE, "huber": LOSS_HUBER, "cauchy": LOSS_CAUCHY,
 
 
 def cost_code(name: str) -> int:
-    code = _COST_CODES[name.upper()]
-    if code == COST_P2D:
-        raise NotImplementedError(
-            "registration.cost=P2D is not ported yet (see ROADMAP.md)")
-    return code
+    return _COST_CODES[name.upper()]
 
 
 def loss_code(name: str) -> int:
@@ -64,12 +63,16 @@ class Associations:
     tgt_normal_w: torch.Tensor  # [B, T, C, 2] world-frame target normal
     weight: torch.Tensor  # [B, T, C] association (similarity) weight
     mask: torch.Tensor  # [B, T, C] bool
+    # [B, T, C, 2, 2] P2D sqrt-information; None for P2P and P2L, whose
+    # residuals are not whitened (the reference stores the identity)
+    tgt_sqrtinfo: Optional[torch.Tensor] = None
 
     def repeat(self, s: int) -> "Associations":
         """Repeat every batch row s times (row b -> rows b*s .. b*s+s-1)."""
-        r = lambda x: x.repeat_interleave(s, dim=0)
+        r = lambda x: None if x is None else x.repeat_interleave(s, dim=0)
         return Associations(r(self.tgt_mean_w), r(self.tgt_normal_w),
-                            r(self.weight), r(self.mask))
+                            r(self.weight), r(self.mask),
+                            r(self.tgt_sqrtinfo))
 
 
 def _similarity(x, y):
@@ -107,15 +110,32 @@ def _rho_and_weight(s: torch.Tensor, loss: int, delta: float):
     return s, torch.ones_like(s)
 
 
+def _chol2x2_inv_sqrt(m: torch.Tensor) -> torch.Tensor:
+    """Upper-triangular U with U^T U = M^{-1}, for batched 2x2 SPD M: the
+    P2D Mahalanobis whitening, r = U e gives r^T r = e^T M^{-1} e."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 1, 1]
+    det = torch.clamp(a * c - b * b, min=1e-20)
+    # M^{-1} = [[c, -b], [-b, a]] / det; its Cholesky factor, upper form
+    ia, ib, ic = c / det, -b / det, a / det
+    u22 = torch.sqrt(torch.clamp(ic, min=1e-20))
+    u12 = ib / u22
+    u11 = torch.sqrt(torch.clamp(ia - u12 * u12, min=1e-20))
+    return torch.stack([torch.stack([u11, u12], -1),
+                        torch.stack([torch.zeros_like(u11), u22], -1)], -2)
+
+
 def associate(src: Cells, src_pose: torch.Tensor, tgt_mean_w: torch.Tensor,
-              tgt_normal_w: torch.Tensor, tgt_nsamples: torch.Tensor,
-              tgt_planarity: torch.Tensor, tgt_valid: torch.Tensor,
-              radius: float, *, weight_option: int,
+              tgt_normal_w: torch.Tensor, tgt_cov_w: Optional[torch.Tensor],
+              tgt_nsamples: torch.Tensor, tgt_planarity: torch.Tensor,
+              tgt_valid: torch.Tensor, radius: float, *, weight_option: int,
+              cost: int, regularization: float, cov_scale: float,
               angle_gate_cos: float) -> Associations:
     """Top-1 NN association of the source cells [B, C] into each target scan
     [B, T, Ct]: nearest valid target cell within ``radius`` whose normal
     agrees within the angle gate; weights from (nsamples, normal direction,
-    planarity) similarities (n_scan_normal.cpp:224-261)."""
+    planarity) similarities (n_scan_normal.cpp:224-261).  For P2D the
+    winner's world-frame covariance ``tgt_cov_w`` [B, T, Ct, 2, 2] gives the
+    whitening of its residual; other costs may pass None."""
     src_mean_w = se2.apply(src_pose, src.mean)  # [B, C, 2]
     src_normal_w = se2.rotate(src_pose, src.normal)
     diff = src_mean_w[:, None, :, None, :] - tgt_mean_w[:, :, None, :, :]
@@ -150,9 +170,15 @@ def associate(src: Cells, src_pose: torch.Tensor, tgt_mean_w: torch.Tensor,
         w = sim_plan
     else:  # combined weights (registration.cpp:73)
         w = sim_n + dir_sim + sim_plan
+    sqrtinfo = None
+    if cost == COST_P2D:
+        eye = constant(((1.0, 0.0), (0.0, 1.0)), nn_mean.dtype,
+                       nn_mean.device)
+        sqrtinfo = _chol2x2_inv_sqrt(
+            (regularization * eye + fetch(tgt_cov_w)) * cov_scale)
     return Associations(tgt_mean_w=nn_mean, tgt_normal_w=nn_normal,
                         weight=torch.where(ok, w, torch.zeros_like(w)),
-                        mask=ok)
+                        mask=ok, tgt_sqrtinfo=sqrtinfo)
 
 
 def _residual_terms(theta: torch.Tensor, src: Cells, assoc: Associations,
@@ -173,12 +199,17 @@ def _residual_terms(theta: torch.Tensor, src: Cells, assoc: Associations,
         J = torch.stack([n[..., 0], n[..., 1],
                          n[..., 0] * dx[:, None] + n[..., 1] * dy[:, None]],
                         -1)[..., None, :]
-    else:  # P2P
+    else:
         ones, zeros = torch.ones_like(dx), torch.zeros_like(dx)
         Jp = torch.stack([torch.stack([ones, zeros, dx], -1),
                           torch.stack([zeros, ones, dy], -1)], -2)
-        r = e
-        J = Jp[:, None].expand(e.shape[:3] + (2, 3))
+        if cost == COST_P2D:  # whitened by the target's sqrt-information
+            u = assoc.tgt_sqrtinfo
+            r = (u * e[..., None, :]).sum(-1)
+            J = u @ Jp[:, None]
+        else:  # P2P
+            r = e
+            J = Jp[:, None].expand(e.shape[:3] + (2, 3))
     return r, J, (r * r).sum(-1)
 
 
@@ -195,8 +226,12 @@ def _cost_grad_hess(theta, src, assoc, *, cost, loss, delta, prior=None):
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
     total = 0.5 * torch.where(assoc.mask, assoc.weight * rho, zero).sum((1, 2))
     w = torch.where(assoc.mask, assoc.weight * w_irls, zero)
-    H = torch.einsum("btc,btcri,btcrj->bij", w, J, J)
-    g = torch.einsum("btc,btcri,btcr->bi", w, J, r)
+    # H and g from one contraction J^T [J | r]: a matrix-vector einsum for g
+    # alone sums in an order that depends on the batch size, and a row of a
+    # batch must equal its own solve
+    Hg = torch.einsum("btc,btcri,btcrj->bij", w, J,
+                      torch.cat([J, r[..., None]], -1))
+    H, g = Hg[..., :3], Hg[..., 3]
     if prior is not None:
         pr, Jp = _prior_terms(theta, prior)
         total = total + 0.5 * (pr * pr).sum(-1)
@@ -270,23 +305,36 @@ def _lm_solve(theta0, src, assoc, *, cost, loss, delta, max_iter, init_lambda,
 
 
 def _world_targets(tgt: Cells, tgt_poses: torch.Tensor,
-                   tgt_scan_mask: torch.Tensor):
-    """Fixed targets [B, T, C] in the world frame, plus their validity."""
+                   tgt_scan_mask: torch.Tensor, cost: int):
+    """Fixed targets [B, T, C] in the world frame: means, normals, for P2D
+    covariances (rot @ cov @ rot^T, else None), and validity."""
     tmw = se2.apply(tgt_poses, tgt.mean)
     tnw = se2.rotate(tgt_poses, tgt.normal)
+    tcw = None
+    if cost == COST_P2D:
+        rot = se2.rotmat(tgt_poses[..., 2])[..., None, :, :]  # [B, T, 1, 2, 2]
+        tcw = rot @ tgt.cov @ rot.transpose(-1, -2)
     tvalid = tgt.valid & tgt_scan_mask[..., None]
-    return tmw, tnw, tvalid
+    return tmw, tnw, tcw, tvalid
 
 
 def _associator(src, tgt, tgt_poses, tgt_scan_mask, cfg: RegistrationConfig):
-    tmw, tnw, tvalid = _world_targets(tgt, tgt_poses, tgt_scan_mask)
+    cost = cost_code(cfg.cost)
+    tmw, tnw, tcw, tvalid = _world_targets(tgt, tgt_poses, tgt_scan_mask,
+                                           cost)
     gate = math.cos(math.radians(cfg.angle_gate_deg))
 
     def make(pose, radius):
-        return associate(src, pose, tmw, tnw, tgt.nsamples, tgt.planarity,
-                         tvalid, radius, weight_option=cfg.weight_option,
-                         angle_gate_cos=gate)
+        return associate(src, pose, tmw, tnw, tcw, tgt.nsamples,
+                         tgt.planarity, tvalid, radius,
+                         weight_option=cfg.weight_option, cost=cost,
+                         regularization=cfg.regularization,
+                         cov_scale=cfg.cov_scale, angle_gate_cos=gate)
     return make
+
+
+def _default_cov(bsz: int, dt, dev) -> torch.Tensor:
+    return torch.diag(constant(DEFAULT_COV_DIAG, dt, dev)).expand(bsz, 3, 3)
 
 
 def register_window(src: Cells, src_pose0: torch.Tensor, tgt: Cells,
@@ -337,9 +385,53 @@ def register_window(src: Cells, src_pose0: torch.Tensor, tgt: Cells,
         n_res = torch.where(run, cnt, n_res)
         active = run & ~regressed & ~converged
 
-    cov = torch.diag(constant(DEFAULT_COV_DIAG, dt, dev)).expand(bsz, 3, 3)
     return RegistrationResult(pose=theta, score=score, num_residuals=n_res,
-                              iterations=used, success=n_res > 1, cov=cov)
+                              iterations=used, success=n_res > 1,
+                              cov=_default_cov(bsz, dt, dev))
+
+
+def cell_rel_timestamps(mean: torch.Tensor, ccw: bool) -> torch.Tensor:
+    """Relative in-sweep time of each cell in [-0.5, 0.5], from the azimuth
+    of its local position (GetRelTimeStamp, utils.h:28-32)."""
+    a = torch.atan2(mean[..., 1], mean[..., 0])
+    d = torch.where(a > 1e-5, a, 2.0 * math.pi + a) / (2.0 * math.pi)
+    return -(d - 0.5) if ccw else d - 0.5
+
+
+def motion_correct_cells(src: Cells, vel: torch.Tensor, ccw: bool) -> Cells:
+    """Per-cell velocity (distortion) correction for time-continuous
+    registration: mean -> R(t_i v_theta) mean + t_i v_xy, the normal rotated
+    by the same rotation (P2PEfficientContinuousCost,
+    n_scan_normal.h:363-404).  ``vel`` [..., 3] is the per-sweep motion of
+    each row, held constant during the solve."""
+    t = cell_rel_timestamps(src.mean, ccw)  # [..., C]
+    ang = t * vel[..., None, 2]
+    c, s = torch.cos(ang), torch.sin(ang)
+    mx, my = src.mean[..., 0], src.mean[..., 1]
+    mean = torch.stack([c * mx - s * my + t * vel[..., None, 0],
+                        s * mx + c * my + t * vel[..., None, 1]], -1)
+    nx, ny = src.normal[..., 0], src.normal[..., 1]
+    normal = torch.stack([c * nx - s * ny, s * nx + c * ny], -1)
+    return src.replace(mean=mean, normal=normal)
+
+
+def register_time_continuous(src: Cells, src_pose0: torch.Tensor, tgt: Cells,
+                             tgt_poses: torch.Tensor,
+                             tgt_scan_mask: torch.Tensor,
+                             cfg: RegistrationConfig, vel: torch.Tensor,
+                             ccw: bool = False,
+                             guess: Optional[torch.Tensor] = None,
+                             guess_sqrt_info: Optional[torch.Tensor] = None
+                             ) -> RegistrationResult:
+    """Time-continuous P2P window registration (RegisterTimeContinuous,
+    n_scan_normal.cpp:67-80).  The velocity block ``vel`` [B, 3] is constant
+    during the solve, so correcting each source cell once up front equals
+    the reference's per-pass correction: a pre-pass, then P2P
+    ``register_window``."""
+    return register_window(
+        motion_correct_cells(src, vel, ccw), src_pose0, tgt, tgt_poses,
+        tgt_scan_mask, dataclasses.replace(cfg, cost="P2P"), guess=guess,
+        guess_sqrt_info=guess_sqrt_info)
 
 
 @functools.lru_cache(maxsize=None)
@@ -410,3 +502,81 @@ def evaluate_cost(src: Cells, src_pose: torch.Tensor, tgt: Cells,
     total = _cost_only(src_pose, src, assoc, cost=cost_code(cfg.cost),
                        loss=loss_code(cfg.loss), delta=cfg.loss_limit)
     return total, assoc.mask.sum((1, 2))
+
+
+def ceres_covariance(src: Cells, theta_opt: torch.Tensor, tgt: Cells,
+                     tgt_poses: torch.Tensor, tgt_scan_mask: torch.Tensor,
+                     cfg: RegistrationConfig, final_score: torch.Tensor,
+                     n_res: torch.Tensor):
+    """Ceres-covariance-style output (GetCovariance, n_scan_normal.cpp:
+    390-431): the inverse Gauss-Newton Hessian at each optimum, scaled by
+    30 * final_cost / (residual dim - 3).  Returns (cov [B, 3, 3], ok [B]);
+    where the Hessian's smallest eigenvalue is <= 1e-9 or the denominator is
+    <= 0, ok is False and cov the default diagonal."""
+    dt, dev = src.mean.dtype, src.mean.device
+    cost = cost_code(cfg.cost)
+    assoc = _associator(src, tgt, tgt_poses, tgt_scan_mask, cfg)(
+        theta_opt, cfg.radius)
+    _, _, h = _cost_grad_hess(theta_opt, src, assoc, cost=cost,
+                              loss=loss_code(cfg.loss), delta=cfg.loss_limit)
+    ok = torch.linalg.eigvalsh(h)[:, 0] > 1e-9
+    denom = ((1 if cost == COST_P2L else 2) * n_res - 3).to(dt)
+    ok = ok & (denom > 0)
+    scale = 30.0 * final_score / torch.clamp(denom, min=1.0)
+    eye = torch.diag(constant((1.0, 1.0, 1.0), dt, dev))
+    cov = scale[:, None, None] * torch.linalg.inv(
+        h + (~ok).to(dt)[:, None, None] * eye)
+    fallback = torch.diag(constant(DEFAULT_COV_DIAG, dt, dev))
+    return torch.where(ok[:, None, None], cov, fallback), ok
+
+
+def register_joint(scans: Cells, poses0: torch.Tensor,
+                   scan_mask: torch.Tensor, fixed: torch.Tensor,
+                   cfg: RegistrationConfig) -> RegistrationResult:
+    """Joint refinement of every scan of a window [T, C]
+    (many_to_many_refinement, n_scan_normal.cpp:360-365).  With the target
+    pose baked into each residual at association time only the source
+    scan's 3 DoF are free, so one outer iteration is T independent 3-DoF LM
+    solves, each scan against all others at their last poses; the batch
+    axis carries the T solves in one call.  Where no valid scan is fixed,
+    the first valid one is held as the gauge.  Returns the poses [T, 3] and
+    the summed score and residual count of the movable scans."""
+    cost = cost_code(cfg.cost)
+    loss = loss_code(cfg.loss)
+    dt, dev = poses0.dtype, poses0.device
+    t = poses0.shape[0]
+    gate = math.cos(math.radians(cfg.angle_gate_deg))
+    rows = torch.arange(t, device=dev)
+    any_fixed = (fixed & scan_mask).any()
+    first_valid = torch.argmax(scan_mask.to(torch.uint8))
+    gauge = torch.where(any_fixed, fixed, rows == first_valid) & scan_mask
+    movable = scan_mask & ~gauge
+    # row j: scan j against every other valid scan of the window
+    tvalid = scans.valid[None] & scan_mask[None, :, None] \
+        & (rows[:, None] != rows[None, :])[..., None]
+    every = lambda x: x[None].expand((t,) + x.shape)
+    nsamples, planarity = every(scans.nsamples), every(scans.planarity)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    poses = poses0
+    score = torch.zeros((), dtype=dt, device=dev)
+    n_res = torch.zeros((), dtype=torch.long, device=dev)
+    n_outer = cfg.max_outer_iterations
+    for itr in range(n_outer):
+        radius = 2.0 * cfg.radius if itr == 0 else cfg.radius
+        tmw, tnw, tcw, _ = _world_targets(scans, poses, scan_mask, cost)
+        assoc = associate(scans, poses, every(tmw), every(tnw),
+                          None if tcw is None else every(tcw), nsamples,
+                          planarity, tvalid, radius,
+                          weight_option=cfg.weight_option, cost=cost,
+                          regularization=cfg.regularization,
+                          cov_scale=cfg.cov_scale, angle_gate_cos=gate)
+        new_poses, scores, _ = _lm_solve(
+            poses, scans, assoc, cost=cost, loss=loss, delta=cfg.loss_limit,
+            max_iter=cfg.max_inner_iterations, init_lambda=cfg.init_lambda)
+        poses = torch.where(movable[:, None], new_poses, poses)
+        score = torch.where(movable, scores, zero).sum()
+        n_res = torch.where(movable, assoc.mask.sum((1, 2)), 0).sum()
+    return RegistrationResult(
+        pose=poses, score=score, num_residuals=n_res,
+        iterations=torch.full((), n_outer, dtype=torch.long, device=dev),
+        success=n_res > 1, cov=_default_cov(1, dt, dev)[0])

@@ -2,7 +2,8 @@
 
 Port of ``tbv_slam_public_tpu.ops.scancontext``: the sum-mode descriptor is
 an ``index_add_`` scatter (the reference's one-hot contractions served the
-TPU), and ``sc_distance`` / ``retrieve`` take any leading batch dimensions
+TPU), the max-mode one a ``scatter_reduce`` with a spill bin, and
+``sc_distance`` / ``retrieve`` take any leading batch dimensions
 where the reference ``vmap``s.  Retrieval's top-k is a stable ascending sort
 (lower database index first on ties, as ``lax.top_k`` of the negated key).
 """
@@ -19,11 +20,9 @@ from ..core.types import PointCloud
 
 def make_descriptor(cloud: PointCloud, cfg: ScanContextConfig) -> torch.Tensor:
     """Point clouds [..., P] -> [..., ring, sector] ScanContext descriptors
-    (MakeRadarCloudContext, sum mode)."""
-    if cfg.desc_function != "sum":
-        raise NotImplementedError(
-            f"desc_function={cfg.desc_function!r} is not ported yet "
-            "(see ROADMAP.md)")
+    (MakeRadarCloudContext): the sum (``desc_function="sum"``) or the
+    maximum (``"max"``) of the intensities in each bin, divided by
+    ``desc_divider``; ``no_point`` where a bin holds no point."""
     xy, inten, mask = cloud.xy, cloud.intensity, cloud.mask
     nr, ns = cfg.num_ring, cfg.num_sector
     lead = mask.shape[:-1]
@@ -38,10 +37,20 @@ def make_descriptor(cloud: PointCloud, cfg: ScanContextConfig) -> torch.Tensor:
     lin = (row[..., None] * nb + (ring * ns + sector).long()).reshape(-1)
     fin = in_range.to(inten.dtype).reshape(-1)
     total = nb * row.numel()
-    desc = torch.zeros(total, dtype=inten.dtype, device=xy.device).index_add_(
-        0, lin, inten.reshape(-1) * fin)
     counts = torch.zeros(total, dtype=inten.dtype,
                          device=xy.device).index_add_(0, lin, fin)
+    if cfg.desc_function == "sum":
+        desc = torch.zeros(total, dtype=inten.dtype,
+                           device=xy.device).index_add_(
+            0, lin, inten.reshape(-1) * fin)
+    elif cfg.desc_function == "max":
+        # points out of range go to a spill bin past the last one
+        spill = torch.where(in_range.reshape(-1), lin, total)
+        desc = torch.zeros(total + 1, dtype=inten.dtype,
+                           device=xy.device).scatter_reduce_(
+            0, spill, inten.reshape(-1), "amax", include_self=False)[:-1]
+    else:
+        raise ValueError(f"unknown desc_function {cfg.desc_function!r}")
     desc = (desc / cfg.desc_divider).reshape(lead + (nr, ns))
     counts = counts.reshape(lead + (nr, ns))
     return torch.where(counts > 0.5, desc, torch.full_like(desc, cfg.no_point))

@@ -55,6 +55,40 @@ def test_plain_moments_match_pallas_interpret(rng, q, p):
                                        rtol=RTOL, atol=ATOL)
 
 
+def _dense_moments(qs, qm, ps, pm, radius):
+    """The moments over every (query, point) slot pair, masked: the form the
+    plain version had before it gathered live slots."""
+    rx = ps[:, None, :, 0] - qs[:, :, None, 0]
+    ry = ps[:, None, :, 1] - qs[:, :, None, 1]
+    fm = ((rx * rx + ry * ry <= radius * radius) & pm[:, None, :]
+          & qm[:, :, None]).to(qs.dtype)
+    rx, ry = rx * fm, ry * fm
+    sxy = (rx * ry).sum(-1)
+    return (fm.sum(-1), torch.stack([rx.sum(-1), ry.sum(-1)], -1),
+            torch.stack([torch.stack([(rx * rx).sum(-1), sxy], -1),
+                         torch.stack([sxy, (ry * ry).sum(-1)], -1)], -2))
+
+
+@pytest.mark.parametrize("m,q,p,frac,chunk", [
+    (3, 300, 500, 0.8, 1 << 28), (13, 480, 480, 0.08, 1 << 28),
+    (4, 200, 260, 0.5, 1 << 12), (2, 64, 64, 0.0, 1 << 28)])
+def test_live_slot_plain_version_equals_the_dense_form(rng, m, q, p, frac,
+                                                       chunk):
+    """Gathering each row's live slots changes nothing but the order of the
+    float32 sums: counts bit-equal, moments within the kernel's tolerance;
+    rows of different live counts, chunks of one row, all dead."""
+    qs, qm, ps, pm = map(torch.as_tensor, _inputs(rng, m, q, p, frac, 15.0))
+    qm[0, : q // 2] = False  # rows with fewer live slots than others
+    got = tmoments.neighbor_moments_reference(qs, qm, ps, pm, 1.5,
+                                              chunk_bytes=chunk)
+    want = _dense_moments(qs, qm, ps, pm, 1.5)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    if frac:
+        assert float(want[0].sum()) > 0
+
+
 def test_plain_moments_empty_masks(rng):
     qs, _, ps, _ = _inputs(rng, 1, 64, 128, extent=5.0)
     z = lambda n: torch.zeros(1, n, dtype=torch.bool)

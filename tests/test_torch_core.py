@@ -20,6 +20,7 @@ from tbv_slam_public_torch.core import se2 as tse2
 from tbv_slam_public_torch.core import timing as ttiming
 from tbv_slam_public_torch.core.types import Cells, make_cells
 from tbv_slam_public_torch.io import convert
+from tbv_slam_public_torch.io import native_loader as port_native
 from tbv_slam_public_torch.ops import logistic as tlog
 
 # The suite runs several worker processes on one machine and these tensors are
@@ -64,6 +65,40 @@ def test_se2_unary_and_points(rng):
         np.asarray(jse2.wrap_angle(jnp.asarray(th))), atol=TRIG_ATOL)
 
 
+def test_se2_interpolate_scale_identity(rng):
+    a, b = _poses(rng, 32), _poses(rng, 32)
+    for f in (0.0, 0.3, 1.0, rng.uniform(size=32).astype(np.float32)):
+        want = np.asarray(jse2.interpolate(jnp.asarray(a), jnp.asarray(b),
+                                           jnp.asarray(f)))
+        got = tse2.interpolate(torch.as_tensor(a), torch.as_tensor(b),
+                               torch.as_tensor(f)).numpy()
+        np.testing.assert_allclose(got[:, :2], want[:, :2], atol=2e-5)
+        d = np.angle(np.exp(1j * (got[:, 2] - want[:, 2])))
+        assert np.abs(d).max() < 10 * TRIG_ATOL
+    np.testing.assert_array_equal(
+        tse2.scale(torch.as_tensor(a), 0.37).numpy(),
+        np.asarray(jse2.scale(jnp.asarray(a), 0.37)))
+    np.testing.assert_array_equal(tse2.identity().numpy(),
+                                  np.asarray(jse2.identity()))
+
+
+def test_point_cloud_and_scan_records():
+    from tbv_slam_public_tpu.core.types import make_point_cloud as jmake
+    from tbv_slam_public_torch.core.types import (Scan, make_point_cloud,
+                                                  stack_records)
+
+    pc, want = make_point_cloud(6), jmake(6)
+    for f in ("xy", "intensity", "mask"):
+        got = getattr(pc, f).numpy()
+        assert got.shape == getattr(want, f).shape
+        assert got.dtype == np.asarray(getattr(want, f)).dtype
+        assert not got.any()
+    scan = Scan(cloud=pc, peaks=make_point_cloud(6), cells=make_cells(3))
+    two = stack_records([scan, scan])  # nested records stack field by field
+    assert two.cells.cov.shape == (2, 3, 2, 2)
+    assert two.map(lambda x: x[1]).peaks.xy.shape == (6, 2)
+
+
 def test_se2_numpy_helpers_identical(rng):
     a, b = _poses(rng, 1)[0], _poses(rng, 1)[0]
     pts = rng.uniform(-9, 9, (7, 2)).astype(np.float32)
@@ -97,10 +132,73 @@ def _code(pkg, rel):
 # (config.py drops the reference's device measurements)
 @pytest.mark.parametrize("rel", [
     "core/config.py", "io/simulate.py", "io/oxford.py", "eval/kitti.py",
-    "eval/trajectory.py", "eval/loops.py", "eval/plots.py"])
+    "eval/trajectory.py", "eval/loops.py", "eval/plots.py", "core/se3.py",
+    "eval/baseline.py", "io/native_loader.py"])
 def test_copies_hold_the_same_code(rel):
     assert _code("tbv_slam_public_torch", rel) == \
         _code("tbv_slam_public_tpu", rel)
+
+
+def _oxford_dir(root, n=4):
+    from PIL import Image
+
+    from tbv_slam_public_torch.io import oxford
+
+    rng = np.random.default_rng(0)
+    os.makedirs(os.path.join(root, "radar"))
+    truth = []
+    for i in range(n):
+        img = rng.integers(0, 255, (16, oxford.OXFORD_META_COLUMNS + 24),
+                           dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(
+            root, "radar", f"{500_000 * (i + 1):016d}.png"))
+        truth.append(img[:, oxford.OXFORD_META_COLUMNS:])
+    return truth
+
+
+@pytest.mark.skipif(not port_native.available(),
+                    reason="native toolchain unavailable")
+def test_oxford_reader_takes_the_native_decoder(tmp_path, monkeypatch):
+    """Where the native loader is available the port's reader decodes
+    through it, as the reference's does; the images are the PIL path's."""
+    from tbv_slam_public_torch.io import oxford
+
+    truth = _oxford_dir(str(tmp_path))
+    opened = []
+
+    class Recording(port_native.NativeSequenceReader):
+        def __init__(self, files, **kw):
+            opened.append(len(files))
+            super().__init__(files, **kw)
+
+    monkeypatch.setattr(port_native, "NativeSequenceReader", Recording)
+    frames = list(oxford.OxfordSequence(str(tmp_path)))
+    assert opened == [4]
+    assert len(frames) == 4
+    for fr, want in zip(frames, truth):
+        np.testing.assert_array_equal(fr.image, want)
+        np.testing.assert_array_equal(
+            oxford.load_oxford_scan(os.path.join(
+                str(tmp_path), "radar", f"{int(fr.stamp * 1e6):016d}.png")),
+            want)
+
+
+@pytest.mark.skipif(not port_native.available(),
+                    reason="native toolchain unavailable")
+@pytest.mark.parametrize("name", ["test_decode_matches_pil",
+                                  "test_prefetching_reader_order",
+                                  "test_reader_survives_missing_file"])
+def test_native_loader_copy_passes_the_reference_tests(tmp_path,
+                                                       monkeypatch, name):
+    """``tests/test_native_loader.py``'s three cases, run against the port's
+    copy of the loader and the port's oxford reader."""
+    import test_native_loader as cases
+
+    from tbv_slam_public_torch.io import oxford
+
+    monkeypatch.setattr(cases, "native_loader", port_native)
+    monkeypatch.setattr(cases, "oxford", oxford)
+    getattr(cases, name)(tmp_path)
 
 
 def test_timing_statistics_match():

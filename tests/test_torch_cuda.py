@@ -200,3 +200,186 @@ def test_coral_kernel_at_online_widths(cuda, m):
     qs, qm = (x[0][None].expand((m,) + x.shape[1:]) for x in (qs, qm))
     _assert_moments(tmoments.neighbor_moments(qs, qm, ps, pm, 1.0),
                     tmoments.neighbor_moments_reference(qs, qm, ps, pm, 1.0))
+
+
+# ---- the single-device ops without a hand kernel: the card against the CPU
+# (the same PyTorch code on both; sin/cos, divisions by a scalar (a multiply
+# by its reciprocal on the card) and the order of float sums differ in the
+# last bits; index_add_ sums with atomics on the card, and an LM accept test
+# may flip on a last bit: poses are held to 1e-3 m and 1e-4 rad)
+POSE_M, POSE_RAD = 1e-3, 1e-4
+
+
+def _radar_image(seed, a=64, r=400):
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 90, (a, r)).astype(np.uint8)
+    for _ in range(300):
+        img[rng.integers(a), rng.integers(r)] = rng.integers(100, 256)
+    return img
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("detector", ["cacfar_filter", "bfar_filter",
+                                      "cen2018_filter"])
+def test_detectors_on_the_card_match_the_cpu(cuda, detector):
+    import dataclasses
+
+    from tbv_slam_public_torch.core.config import RadarConfig
+    from tbv_slam_public_torch.ops import cen, radar
+
+    img = _radar_image(1)
+    cfg = dataclasses.replace(
+        RadarConfig(num_azimuths=64, num_range_bins=400, range_res=0.2),
+        k_strongest=8, cfar_guard_cells=2, cfar_window_size=6,
+        cfar_false_alarm_rate=0.05, min_distance=1.0, z_min=40.0)
+    fn = getattr(radar if hasattr(radar, detector) else cen, detector)
+    got = fn(torch.as_tensor(img, device=cuda), cfg)
+    want = fn(torch.as_tensor(img), cfg)
+    m = want.mask
+    if detector == "cen2018_filter":
+        # the Gaussian filter is a convolution: a score on the threshold
+        # may flip, so the sets agree but for a few bins
+        assert abs(int(got.mask.sum()) - int(m.sum())) <= 2
+        return
+    assert torch.equal(got.mask.cpu(), m) and int(m.sum()) > 50
+    assert torch.equal(got.intensity.cpu()[m], want.intensity[m])
+    torch.testing.assert_close(got.xy.cpu()[m], want.xy[m], rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_max_descriptor_and_quality_on_the_card_match_the_cpu(cuda):
+    import dataclasses
+
+    from tbv_slam_public_torch.core.config import ScanContextConfig
+    from tbv_slam_public_torch.core.types import PointCloud
+    from tbv_slam_public_torch.ops import quality, scancontext
+
+    rng = np.random.default_rng(2)
+    xy = rng.uniform(-60, 60, (3, 800, 2)).astype(np.float32)
+    clouds = [PointCloud(torch.as_tensor(xy + d, device=dev),
+                         torch.full((3, 800), 80.0, device=dev),
+                         torch.ones(3, 800, dtype=torch.bool, device=dev))
+              for d in (0.0, 0.3) for dev in (cuda, torch.device("cpu"))]
+    cfg = dataclasses.replace(ScanContextConfig(), desc_function="max")
+    got = scancontext.make_descriptor(clouds[0], cfg).cpu()
+    want = scancontext.make_descriptor(clouds[1], cfg)
+    assert torch.equal(got == cfg.no_point, want == cfg.no_point)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    for metric in ("p2p_quality", "keypoint_repeatability",
+                   "cartesian_absdiff_quality"):
+        got = getattr(quality, metric)(clouds[2], clouds[0])
+        want = getattr(quality, metric)(clouds[3], clouds[1])
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-6)
+
+
+def _scene(dev):
+    """CFEAR cells of three views of one simulated world, [3, C] on
+    ``dev``, and their true poses."""
+    from tbv_slam_public_torch.core.config import FeatureConfig, RadarConfig
+    from tbv_slam_public_torch.core.types import stack_records
+    from tbv_slam_public_torch.io import simulate
+    from tbv_slam_public_torch.ops import features, radar
+
+    rc = RadarConfig(num_azimuths=200, num_range_bins=256, range_res=0.3,
+                     k_strongest=12, min_distance=1.0, max_distance=75.0)
+    fc = FeatureConfig(resolution=3.0, cell_capacity=256, grid_extent=80.0)
+    world = simulate.make_world(np.random.default_rng(1), num_walls=50,
+                                extent=60.0)
+    poses = np.asarray([[0.0, 0.0, 0.0], [1.2, 0.6, 0.05],
+                        [2.5, 0.9, 0.08]], np.float32)
+    cells = [features.compute_cells(radar.kstrongest_filter(
+        torch.as_tensor(simulate.render_scan(
+            world, p, num_azimuths=200, num_range_bins=256, range_res=0.3,
+            rng=np.random.default_rng(2 + i))), rc)[0], fc)
+        for i, p in enumerate(poses)]  # on the CPU: both devices get these
+    return stack_records(cells).map(lambda x: x.to(dev)), \
+        torch.as_tensor(poses, device=dev)
+
+
+def _assert_poses(got, want):
+    got, want = got.cpu().numpy(), want.numpy()
+    assert np.abs(got[..., :2] - want[..., :2]).max() < POSE_M, (got, want)
+    assert np.abs(got[..., 2] - want[..., 2]).max() < POSE_RAD, (got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["P2D", "time-continuous", "ceres",
+                                     "joint"])
+def test_registration_variants_on_the_card_match_the_cpu(cuda, variant):
+    from tbv_slam_public_torch.core.config import RegistrationConfig
+    from tbv_slam_public_torch.ops import registration as reg
+
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        cells, true = _scene(dev)
+        src = cells.map(lambda x: x[2:3])
+        tgt = cells.map(lambda x: x[None, :2])
+        tposes, tmask = true[None, :2], torch.ones(1, 2, dtype=torch.bool,
+                                                   device=dev)
+        cost = "P2D" if variant == "P2D" else "P2L"
+        cfg = RegistrationConfig(cost=cost, weight_option=4)
+        start = torch.zeros(1, 3, device=dev) + true[1]
+        if variant == "time-continuous":
+            vel = torch.tensor([[0.9, -0.25, 0.04]], device=dev)
+            res = reg.register_time_continuous(src, start, tgt, tposes,
+                                               tmask, cfg, vel)
+            out.append((res.pose,))
+        elif variant == "joint":
+            init = true.clone()
+            init[1:] += torch.tensor([[0.4, -0.3, 0.03], [-0.3, 0.3, -0.03]],
+                                     device=dev)
+            res = reg.register_joint(cells, init, tmask[0].new_ones(3),
+                                     tmask[0].new_zeros(3), cfg)
+            out.append((res.pose,))
+        else:
+            res = reg.register_window(src, start, tgt, tposes, tmask, cfg)
+            if variant == "ceres":
+                cov, ok = reg.ceres_covariance(
+                    src, res.pose, tgt, tposes, tmask, cfg, res.score,
+                    res.num_residuals)
+                assert bool(ok[0])
+                out.append((res.pose, cov))
+            else:
+                out.append((res.pose,))
+    _assert_poses(out[0][0], out[1][0])
+    if variant == "ceres":
+        torch.testing.assert_close(out[0][1].cpu(), out[1][1], rtol=1e-2,
+                                   atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("override", ["registration.cost=P2D",
+                                      "odometry.time_continuous=true"])
+def test_batched_step_rows_on_the_card_equal_single_steps(cuda, override):
+    """One batched frame step at B = 2 from the same state as two B = 1
+    steps: each row equals its own step."""
+    from tbv_slam_public_torch.core.config import (
+        FeatureConfig, RadarConfig, TBVConfig, apply_overrides,
+        parse_cli_overrides)
+    from tbv_slam_public_torch.io import simulate
+    from tbv_slam_public_torch.models import odometry
+
+    cfg = apply_overrides(TBVConfig(
+        radar=RadarConfig(num_azimuths=200, num_range_bins=256,
+                          range_res=0.3, k_strongest=12, min_distance=1.0,
+                          max_distance=75.0),
+        features=FeatureConfig(resolution=3.0, cell_capacity=256,
+                               grid_extent=80.0)),
+        parse_cli_overrides([override]))
+    imgs = torch.as_tensor(np.stack([simulate.make_sequence(
+        num_frames=3, seed=s, num_azimuths=200, num_range_bins=256,
+        range_res=0.3, traj_kwargs=dict(radius=40.0, step=0.7,
+                                        laps=0.12)).images
+        for s in (0, 9)], 1), device=cuda)
+    st = odometry.init_batched_state(cfg, 2, device=cuda)
+    st, _ = odometry.batched_first_frame(st, imgs[0], cfg)
+    st, _ = odometry.batched_odometry_step(st, imgs[1], cfg)
+    _, both = odometry.batched_odometry_step(st, imgs[2], cfg)
+    for r in range(2):
+        row = st.map(lambda x: x[r:r + 1])
+        _, one = odometry.batched_odometry_step(row, imgs[2, r:r + 1], cfg)
+        _assert_poses(both.pose[r:r + 1], one.pose.cpu())
+        assert bool(both.fused[r]) == bool(one.fused[0])

@@ -14,6 +14,7 @@ from tbv_slam_public_torch.harness import cli
 from tbv_slam_public_torch.io import checkpoint
 from tbv_slam_public_torch.models import loopclosure, odometry, slam
 from tbv_slam_public_torch.models import verification
+from tbv_slam_public_torch.ops import cen
 
 # The suite runs several worker processes on one machine and these tensors are
 # small: one intra-op thread per process keeps the workers from
@@ -58,6 +59,9 @@ ENTRY_POINTS = {
     "train_loop_model_from_file": lambda cfg:
         verification.train_loop_model_from_file(
             os.path.join(FIXTURES, "missing.txt")),
+    "init_batched_state": lambda cfg: odometry.init_batched_state(cfg, 2),
+    "cen2019_filter": lambda cfg: cen.cen2019_filter(
+        np.zeros((8, 32), np.uint8), cfg.radar),
 }
 
 
@@ -75,6 +79,7 @@ def test_entry_point_needs_a_card_by_default(monkeypatch, name):
     ["online", "--dataset", "sim:4:1", "--output", "{tmp}/o"],
     ["train-alignment", "--dataset", "sim:4:1", "--output", "{tmp}/o"],
     ["train-loop", "--data", "{tmp}/model.txt", "--output", "{tmp}/c.txt"],
+    ["evaluate-scans", "--graph", "{tmp}/g.npz", "--output", "{tmp}/e.csv"],
 ], ids=lambda a: a[0])
 def test_cli_needs_a_card_by_default(monkeypatch, tmp_path, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
