@@ -37,7 +37,18 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    per step at B = 1 and 4), a max-mode ScanContext retrieval over phase 4's
    keyframes, the Cen 2018 detector on the card and Cen 2019 on the host,
    the four quality metrics on phase 4's consecutive keyframe pairs, and
-   ``register_joint`` over its last 5 keyframes.
+   ``register_joint`` over its last 5 keyframes;
+10. ``parallel/`` over ``torch.distributed``: (a) one NCCL rank in this
+    process: ``run_offline_slam`` with the mesh on phase 4's checkpoint
+    against phase 4's constraints, and ``PoseGraph(mesh)`` with the
+    ``distributed`` solver on phase 5's instance; (b) two gloo ranks on the
+    one card, launched by ``torchrun`` running this script with
+    ``--ranks-worker``: the sharded pair waves of ``LoopCloser(mesh)`` over
+    phase 4's keyframes, sharded retrieval over a 4608-slot database,
+    ``optimize_distributed`` at the ``chain`` and ``chain_sharded``
+    preconditioners and ``alignment_training_step`` on 8 keyframe pairs,
+    each held to the single-process result; (c) the ``sweep`` subcommand,
+    two jobs on the card.
 
 Prints the card's name and power limit, one JSON line with the kernels, and
 last ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -47,6 +58,7 @@ last ``{"ok": true, "device": {...}}``.  Run from the repository root:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -595,7 +607,7 @@ def phase_slice(n_frames):
     if not ate1 <= ate0 + 1e-3:
         raise AssertionError(f"PGO made ATE worse: {ate0} -> {ate1}")
     return launches, seq.images, gt, cfg, slam.loops, \
-        np.asarray(pipe.frame_poses)
+        np.asarray(pipe.frame_poses), g
 
 
 VARIANTS = [("default", None), ("P2D", "registration.cost=P2D"),
@@ -1084,6 +1096,494 @@ def phase_online(images, gt, cfg, plain_trajectory, sm_hz):
             raise AssertionError(f"chunked trajectory differs by {err}")
     return launches, training
 
+# phase 10: a sharded pair wave against one process (the kernels' reductions
+# depend on the batch size, ROADMAP.md section 3), retrieval distances, and
+# the ATE band of distributed PGO against one rank's
+WAVE_TBE_ATOL_M = 1e-2
+RETRIEVAL_DIST_ATOL = 1e-6
+PGO_ATE_BAND_M = 0.1
+RANKS = 2
+DB_SLOTS, DB_QUERIES, TRAIN_PAIRS = 4608, 8, 8
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """``os.environ`` with ``values`` inside the block, as before after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _constraints(cons):
+    """(ids [K, 2], t_be [K, 3]) of a list of LoopConstraint."""
+    return (np.asarray([(c.id_from, c.id_to) for c in cons],
+                       np.int64).reshape(-1, 2),
+            np.asarray([c.t_be for c in cons], np.float32).reshape(-1, 3))
+
+
+def _same_constraints(tag, got, want):
+    """The same accepted (id_from, id_to) and t_be within the wave
+    tolerance; returns the largest t_be gap."""
+    if not np.array_equal(got[0], want[0]):
+        raise AssertionError(f"{tag}: accepted {got[0].tolist()}, one "
+                             f"process {want[0].tolist()}")
+    gap = float(np.abs(got[1] - want[1]).max()) if len(got[1]) else 0.0
+    if not gap <= WAVE_TBE_ATOL_M:
+        raise AssertionError(f"{tag}: t_be {gap} m off one process's")
+    return gap
+
+
+def _oxford_graph(cfg, mesh):
+    """``PoseGraph`` of phase 5's 4470-node instance (its poses as given),
+    on the mesh's device."""
+    from tbv_slam_public_torch.core.types import ODOMETRY
+    from tbv_slam_public_torch.io import simulate
+    from tbv_slam_public_torch.models.loopclosure import LoopConstraint
+    from tbv_slam_public_torch.models.slam import PoseGraph
+
+    z = np.load(os.path.join(ROOT, "tests", "fixtures",
+                             "oxford_10-12-32_real_odometry.npz"))
+    inst = simulate.make_real_odometry_pgo_instance(z["odom"], z["gt"],
+                                                    seed=0)
+    g = PoseGraph(cfg, mesh=mesh)
+    for p, q in zip(inst.poses, inst.gt):
+        g.add_node(p, gt=q)
+    for k in np.flatnonzero(inst.mask):
+        a, b = int(inst.idx[k, 0]), int(inst.idx[k, 1])
+        if inst.etype[k] == ODOMETRY:
+            g.add_odometry_constraint(a, b, inst.meas[k])
+        else:
+            g.add_loop_constraint(LoopConstraint(
+                id_from=a, id_to=b, t_be=inst.meas[k], prob=1.0))
+    g.poses = [np.asarray(p, np.float32) for p in inst.poses]
+    return g
+
+
+def _distributed_pgo(tag, graph, mesh):
+    from tbv_slam_public_torch.eval import trajectory as tj
+
+    gt = graph.gt_array()
+    ate0 = tj.ate_rmse(graph.poses_array(), gt)
+    mesh.all_reduces = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = graph.optimize(solver="distributed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(ate_before=ate0, ate_after=tj.ate_rmse(graph.poses_array(),
+                                                      gt),
+               iterations=int(res.iterations), lm_steps=graph.cfg.pgo.
+               max_iterations, wall_s=wall,
+               s_per_lm_step=wall / graph.cfg.pgo.max_iterations,
+               all_reduces=mesh.all_reduces, cost0=float(res.cost0),
+               cost=float(res.cost))
+    log(f"{tag} {json.dumps(out)}")
+    if not (out["ate_after"] < 0.7 * ate0
+            and out["cost"] < 0.2 * out["cost0"]):
+        raise AssertionError(f"{tag} distributed PGO: {out}")
+    return out
+
+
+def phase_parallel_one(cfg, graph, loops):
+    """10(a): one NCCL rank in this process."""
+    import torch.distributed as dist
+
+    from tbv_slam_public_torch.kernels import coral_moments as cm
+    from tbv_slam_public_torch.models.slam import run_offline_slam
+    from tbv_slam_public_torch.parallel import multihost
+
+    with _env(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+              MASTER_ADDR="localhost", MASTER_PORT=str(_free_port())):
+        multihost.initialize()
+        try:
+            mesh = multihost.global_mesh()
+            if dist.get_backend() != "nccl" or mesh.size != 1:
+                raise AssertionError(f"{dist.get_backend()}, {mesh}")
+            before = cm.LAUNCHES
+            t0 = time.perf_counter()
+            slam = run_offline_slam(cfg, graph, solver="cholesky", mesh=mesh)
+            torch.cuda.synchronize()
+            slam_s = time.perf_counter() - t0
+            launches = cm.LAUNCHES - before
+            gap = _same_constraints("[10a] run_offline_slam(mesh)",
+                                    _constraints(slam.loops.constraints),
+                                    _constraints(loops.constraints))
+            bit_equal = gap == 0.0
+            log(f"[10a] NCCL, 1 rank: run_offline_slam(mesh) in {slam_s:.1f}"
+                f" s, {len(slam.loops.constraints)} loops as phase 4's, t_be "
+                f"{'bit-equal' if bit_equal else f'within {gap:.3g} m'}, "
+                f"CorAl launches {launches}")
+            if launches <= 0:
+                raise AssertionError("[10a] no CorAl launch")
+            pgo = _distributed_pgo("[10a] PoseGraph(mesh) distributed",
+                                   _oxford_graph(cfg, mesh), mesh)
+        finally:
+            dist.destroy_process_group()
+    return dict(backend="nccl", ranks=1, slam_s=slam_s, coral_launches=
+                launches, loops=len(slam.loops.constraints),
+                t_be_bit_equal=bit_equal, t_be_max_gap_m=gap, pgo=pgo)
+
+
+def _config(overrides):
+    from tbv_slam_public_torch.core.config import (TBVConfig, apply_overrides,
+                                                   parse_cli_overrides)
+
+    return apply_overrides(TBVConfig(), parse_cli_overrides(list(overrides)))
+
+
+def _save_keyframes(path, loops, overrides):
+    """Phase 4's keyframe payloads (host records) and its configuration (as
+    overrides of the defaults) as one npz."""
+    import dataclasses
+
+    d = {"odom": np.stack(loops.kf_odom), "cfg": np.asarray(overrides, str)}
+    for key, recs in (("peaks", loops.kf_peaks), ("cells", loops.kf_cells)):
+        for f in dataclasses.fields(recs[0]):
+            d[f"{key}.{f.name}"] = np.stack([getattr(r, f.name)
+                                             for r in recs])
+    np.savez(path, **d)
+
+
+def _retrieval_db(dev):
+    """A seeded 4608-slot database of 40 x 120 descriptors and 8 queries,
+    noisy copies of spread slots."""
+    from tbv_slam_public_torch.core.config import ScanContextConfig
+
+    sc = ScanContextConfig()
+    rng = np.random.default_rng(11)
+    desc = rng.uniform(0, 2, (DB_SLOTS, sc.num_ring, sc.num_sector)).astype(
+        np.float32)
+    slots = np.linspace(5, DB_SLOTS - 1, DB_QUERIES).astype(np.int64)
+    q = desc[slots] + np.float32(0.01)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return sc, dict(desc=t(desc), ring=t(desc.mean(-1)),
+                    mask=t(rng.uniform(size=DB_SLOTS) > 0.2),
+                    osim=t(rng.uniform(size=(DB_QUERIES, DB_SLOTS)).astype(
+                        np.float32)),
+                    qdesc=t(q), qkey=t(q.mean(-1)))
+
+
+def _training_pairs(z, dev):
+    """Keyframes 1..8 against 0..7: (cur peaks, cells, poses, prev ...)."""
+    from tbv_slam_public_torch.core.types import Cells, PointCloud
+
+    def rec(key, cls, lo):
+        return cls(**{n: torch.as_tensor(z[f"{key}.{n}"][lo:lo + TRAIN_PAIRS],
+                                         device=dev)
+                      for n in cls.__dataclass_fields__})
+    odom = torch.as_tensor(z["odom"], device=dev)
+    return (rec("peaks", PointCloud, 1), rec("cells", Cells, 1),
+            odom[1:1 + TRAIN_PAIRS], rec("peaks", PointCloud, 0),
+            rec("cells", Cells, 0), odom[:TRAIN_PAIRS])
+
+
+def ranks_worker(inputs, out_dir) -> int:
+    """One rank of phase 10(b), under ``torchrun``: every case on this
+    rank's share, its results written to ``out_dir/rank<r>.npz``."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from tbv_slam_public_torch.core.types import Cells, PointCloud
+    from tbv_slam_public_torch.kernels import coral_moments as cm
+    from tbv_slam_public_torch.models import loopclosure as lc
+    from tbv_slam_public_torch.ops import coral
+    from tbv_slam_public_torch.parallel import candidates as par_cand
+    from tbv_slam_public_torch.parallel import multihost
+    from tbv_slam_public_torch.parallel import pgo as par_pgo
+    from tbv_slam_public_torch.parallel import retrieval as par_ret
+
+    multihost.initialize(backend="gloo")
+    mesh = multihost.global_mesh()
+    dev = mesh.device
+    out = {}
+    try:
+        # gloo sums CUDA tensors through host copies; that comes first
+        s = multihost.psum(torch.full((4,), mesh.rank + 1.0, device=dev),
+                           mesh)
+        if not bool((s == RANKS * (RANKS + 1) / 2).all()):
+            raise AssertionError(f"gloo all_reduce of a CUDA tensor: {s}")
+        z = dict(np.load(inputs))
+        cfg = _config(z["cfg"].tolist())
+        timed = {}
+
+        def run(key, fn):
+            before, t0 = cm.LAUNCHES, time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            timed[key] = (time.perf_counter() - t0, cm.LAUNCHES - before)
+            return res
+
+        # the inputs of the first pair_moments call at each (M, slots) this
+        # rank's path makes, kept to hold the kernel at those shapes
+        seen = {}
+
+        @contextlib.contextmanager
+        def keep_kernel_inputs():
+            real = coral.pair_moments
+
+            def keep(*a):
+                seen.setdefault(tuple(a[0].shape[:2]), a)
+                return real(*a)
+            coral.pair_moments = keep
+            try:
+                yield
+            finally:
+                coral.pair_moments = real
+
+        def waves():
+            closer = lc.LoopCloser(cfg, mesh=mesh)
+            for i in range(len(z["odom"])):
+                closer.add_keyframe(
+                    PointCloud(**{n: z[f"peaks.{n}"][i]
+                                  for n in PointCloud.__dataclass_fields__}),
+                    Cells(**{n: z[f"cells.{n}"][i]
+                             for n in Cells.__dataclass_fields__}),
+                    z["odom"][i])
+            return _constraints(closer.process_all_batched()), \
+                len(closer.candidate_log)
+
+        # the first run of a fresh process loads its kernels; the second is
+        # timed as the steady state, and the path's launches are counted
+        # from there
+        with keep_kernel_inputs():
+            first = run("waves_first", waves)
+        cm.LAUNCHES = 0
+        (ids, t_be), n_cand = run("waves", waves)
+        if not (np.array_equal(first[0][0], ids)
+                and np.array_equal(first[0][1], t_be)):
+            raise AssertionError("two runs of the sharded waves differ")
+        out.update(waves_ids=ids, waves_t_be=t_be,
+                   waves_candidates=np.asarray(n_cand))
+
+        sc, db = _retrieval_db(dev)
+        sharded = par_ret.shard_db(mesh, lc.LoopDB(
+            desc=db["desc"], ring=db["ring"],
+            odom_pose=torch.zeros(DB_SLOTS, 3, device=dev), mask=db["mask"]))
+        del db["desc"]
+        res = run("retrieval", lambda: par_ret.sharded_retrieve(
+            mesh, db["qdesc"], db["qkey"], sharded.desc, sharded.ring,
+            sharded.mask, db["osim"],
+            num_candidates=sc.num_candidates_from_tree,
+            search_ratio=sc.search_ratio, odometry_coupled=True))
+        out.update({f"ret_{k}": v.cpu().numpy()
+                    for k, v in res._asdict().items()})
+        out["db_rows"] = np.asarray(sharded.desc.shape[0])
+
+        poses, node_mask, edges = _oxford_graph(cfg, mesh)._padded()
+        for pc in ("chain", "chain_sharded"):
+            mesh.all_reduces = 0
+            r = run(pc, lambda: par_pgo.optimize_distributed(
+                mesh, poses, node_mask, edges, cfg.pgo,
+                preconditioner=pc))
+            out.update({f"{pc}_poses": r.poses.cpu().numpy(),
+                        f"{pc}_iterations": np.asarray(int(r.iterations)),
+                        f"{pc}_cost0": np.asarray(float(r.cost0)),
+                        f"{pc}_cost": np.asarray(float(r.cost)),
+                        f"{pc}_all_reduces": np.asarray(mesh.all_reduces)})
+
+        with keep_kernel_inputs():
+            model, x, y = run("training", lambda: par_cand.
+                              alignment_training_step(
+                                  mesh, *_training_pairs(z, dev), cfg))
+        out.update(train_x=x.cpu().numpy(), train_y=y.cpu().numpy(),
+                   train_intercept=model.intercept.cpu().numpy(),
+                   train_coef=model.coef.cpu().numpy())
+        for key, (secs, launches) in timed.items():
+            out[f"{key}_s"] = np.asarray(secs)
+            out[f"{key}_launches"] = np.asarray(launches)
+        out["coral_launches"] = np.asarray(cm.LAUNCHES)
+        # the kernel at this rank's own shapes against its plain version
+        # (after the count: these launches are not the path's)
+        errs = []
+        for (m, slots), args in sorted(seen.items()):
+            got, again = cm.pair_moments(*args), cm.pair_moments(*args)
+            torch.cuda.synchronize()
+            want = cm.pair_moments_reference(*args)
+            errs.append(_check_moments(
+                f"[10b] rank {mesh.rank} pair_moments M={m} S={slots}", got,
+                want, again))
+        out["kernel_shapes"] = np.asarray(sorted(seen), np.int64)
+        out["kernel_max_abs_err"] = np.asarray(max(errs))
+        np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel_ranks(overrides, loops, one, dev):
+    """10(b): two gloo ranks on the one card, each case held to this
+    process's single-rank result; ``overrides`` are phase 4's configuration
+    as overrides of the defaults."""
+    from tbv_slam_public_torch.eval import trajectory as tj
+    from tbv_slam_public_torch.ops import logistic, scancontext
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "keyframes.npz")
+        _save_keyframes(inputs, loops, overrides)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={RANKS}", os.path.abspath(__file__),
+             "--ranks-worker", inputs, tmp], capture_output=True, text=True,
+            cwd=ROOT, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"torchrun failed ({proc.returncode}):\n"
+                               f"{proc.stdout[-6000:]}\n"
+                               f"{proc.stderr[-12000:]}")
+        outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                for r in range(RANKS)]
+    r0 = outs[0]
+    for k in r0:  # every rank returns the whole result
+        if not k.endswith(("_s", "_launches", "kernel_max_abs_err")) and \
+                not np.array_equal(r0[k], outs[1][k]):
+            raise AssertionError(f"[10b] ranks differ in {k}")
+    res = dict(backend="gloo", ranks=RANKS, torchrun_s=wall,
+               coral_launches_per_rank=[int(o["coral_launches"])
+                                        for o in outs])
+    if min(res["coral_launches_per_rank"]) <= 0:
+        raise AssertionError(f"[10b] a rank launched no CorAl kernel: {res}")
+    # (M, slots) of every launch held to the plain version: the first
+    # wave's share (waves of 64 pairs, fewer candidates padded to a multiple
+    # of the ranks) and the training step's share of 13 perturbations a pair
+    shapes = [tuple(int(v) for v in row) for row in r0["kernel_shapes"]]
+    res["kernel_checks"] = dict(
+        shapes=shapes, max_abs_err=max(float(o["kernel_max_abs_err"])
+                                       for o in outs))
+    first_wave = min(64, -(-int(r0["waves_candidates"]) // RANKS) * RANKS)
+    want_m = {first_wave // RANKS, 13 * TRAIN_PAIRS // RANKS}
+    if not want_m <= {m for m, _ in shapes}:
+        raise AssertionError(f"[10b] the kernel was held at {shapes}, not "
+                             f"at every M of {sorted(want_m)}")
+
+    gap = _same_constraints("[10b] LoopCloser(mesh) waves",
+                            (r0["waves_ids"], r0["waves_t_be"]),
+                            _constraints(loops.constraints))
+    res["waves"] = dict(loops=len(r0["waves_ids"]), t_be_max_gap_m=gap,
+                        candidates=int(r0["waves_candidates"]),
+                        s_per_rank=[float(o["waves_s"]) for o in outs],
+                        first_s_per_rank=[float(o["waves_first_s"])
+                                          for o in outs],
+                        launches_per_rank=[int(o["waves_launches"])
+                                           for o in outs])
+
+    sc, db = _retrieval_db(dev)
+    want = scancontext.retrieve(
+        db["qdesc"], db["qkey"], db["desc"], db["ring"], db["mask"],
+        db["osim"], num_candidates=sc.num_candidates_from_tree,
+        search_ratio=sc.search_ratio, odometry_coupled=True)
+    for f in ("index", "shift", "valid"):
+        if not np.array_equal(r0[f"ret_{f}"], getattr(want, f).cpu().numpy()):
+            raise AssertionError(f"[10b] sharded retrieval: {f} differs")
+    dist_gap = float(np.abs(r0["ret_dist"] - want.dist.cpu().numpy())[
+        r0["ret_valid"]].max())
+    if not dist_gap <= RETRIEVAL_DIST_ATOL:
+        raise AssertionError(f"[10b] retrieval dist off by {dist_gap}")
+    res["retrieval"] = dict(slots=DB_SLOTS, rows_per_rank=int(r0["db_rows"]),
+                            queries=DB_QUERIES, dist_max_gap=dist_gap,
+                            ms_per_rank=[1e3 * float(o["retrieval_s"])
+                                         for o in outs])
+
+    inst = _oxford_instance(dev)[0]
+    lm_steps = _config(overrides).pgo.max_iterations
+    ate0 = tj.ate_rmse(inst.poses, inst.gt)
+    for pc in ("chain", "chain_sharded"):
+        ate = tj.ate_rmse(r0[f"{pc}_poses"], inst.gt)
+        out = dict(ate_before=ate0, ate_after=ate,
+                   iterations=int(r0[f"{pc}_iterations"]),
+                   wall_s=float(r0[f"{pc}_s"]),
+                   s_per_lm_step=float(r0[f"{pc}_s"]) / lm_steps,
+                   all_reduces=int(r0[f"{pc}_all_reduces"]),
+                   cost0=float(r0[f"{pc}_cost0"]),
+                   cost=float(r0[f"{pc}_cost"]))
+        res[pc] = out
+        if not (ate < 0.7 * ate0 and out["cost"] < 0.2 * out["cost0"]
+                and abs(ate - one["pgo"]["ate_after"]) < PGO_ATE_BAND_M):
+            raise AssertionError(f"[10b] {pc}: {out}, one rank "
+                                 f"{one['pgo']['ate_after']}")
+
+    x, y = r0["train_x"], r0["train_y"]
+    p = logistic.predict_proba(logistic.LogisticModel(
+        torch.as_tensor(r0["train_intercept"]),
+        torch.as_tensor(r0["train_coef"])), torch.as_tensor(x)).numpy()
+    res["training"] = dict(x_shape=list(x.shape), positives=int(y.sum()),
+                           p_aligned=float(p[y == 1].mean()),
+                           p_perturbed=float(p[y == 0].mean()),
+                           s_per_rank=[float(o["training_s"]) for o in outs])
+    if x.shape != (13 * TRAIN_PAIRS, 6) or not np.isfinite(x).all() or \
+            not res["training"]["p_aligned"] > res["training"]["p_perturbed"]:
+        raise AssertionError(f"[10b] training step: {res['training']}")
+    log(f"[10b] {json.dumps(res)}")
+    return res
+
+
+def phase_sweep():
+    """10(c): ``sweep`` with a two-value parameter row on the card, in this
+    process so that its CorAl launches count."""
+    import io
+
+    from tbv_slam_public_torch.harness import cli
+    from tbv_slam_public_torch.kernels import coral_moments as cm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        par = os.path.join(tmp, "pars.csv")
+        with open(par, "w") as f:
+            f.write("radar.k_strongest,10,12\n")
+        out = os.path.join(tmp, "sweep")
+        before, t0 = cm.LAUNCHES, time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["sweep", "--par-file", par, "--dataset", "sim:20:1",
+                           "--output", out, "--device", "cuda"] + SMALL
+                          + ["verification.model_threshold=0.5"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with open(os.path.join(out, "merged.csv")) as f:
+            rows = f.read().strip().splitlines()
+        with open(os.path.join(out, "sweep_report.json")) as f:
+            report = json.load(f)
+    res = dict(rc=rc, jobs=len(rows) - 1, seconds=secs,
+               coral_launches=cm.LAUNCHES - before,
+               report={k: report[k] for k in ("hosts", "frames",
+                                              "total_jobs")})
+    log(f"[10c] sweep: {json.dumps(res)}")
+    if rc != 0 or res["jobs"] != 2 or report["total_jobs"] != 2:
+        raise AssertionError(f"[10c] sweep: {res}")
+    return res
+
+
+def phase_parallel(cfg, graph, loops, overrides=()):
+    """Phase 10 on phase 4's configuration (``overrides`` of the defaults),
+    checkpoint and loop closer; returns its results and its CorAl launches
+    (this process's and every rank's)."""
+    from tbv_slam_public_torch.kernels import coral_moments as cm
+
+    if _config(overrides) != cfg:
+        raise ValueError("the overrides do not give phase 4's configuration")
+    cm.LAUNCHES = 0  # the parallel path's launches are counted from here
+    one = phase_parallel_one(cfg, graph, loops)
+    ranks = phase_parallel_ranks(overrides, loops, one, torch.device("cuda"))
+    sweep = phase_sweep()
+    launches = cm.LAUNCHES + sum(ranks["coral_launches_per_rank"])
+    return dict(one_rank=one, two_ranks=ranks, sweep=sweep), launches, \
+        ranks["kernel_checks"]["max_abs_err"]
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
@@ -1091,6 +1591,8 @@ def main(argv=None) -> int:
                                  RawDescriptionHelpFormatter)
     ap.add_argument("--frames", type=int, default=200,
                     help="frames of the sensor-size slice (phases 4 and 7)")
+    ap.add_argument("--ranks-worker", nargs=2, metavar=("INPUTS", "OUT_DIR"),
+                    help=argparse.SUPPRESS)  # one rank of phase 10(b)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1098,6 +1600,9 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     import tbv_slam_public_torch  # noqa: F401  (sets full-f32 matmuls)
+
+    if args.ranks_worker:
+        return ranks_worker(*args.ranks_worker)
 
     t_start = time.perf_counter()
     marks = [t_start]
@@ -1111,7 +1616,8 @@ def main(argv=None) -> int:
     done("1-2")
     plain_trajectory, scan_launches = phase_cli()
     done("3")
-    launches, images, gt, cfg, loops, frame_poses = phase_slice(args.frames)
+    launches, images, gt, cfg, loops, frame_poses, graph = phase_slice(
+        args.frames)
     real = phase_real_clouds(loops, sm_hz)
     done("4")
     phase_solvers(phase_pgo())
@@ -1124,15 +1630,19 @@ def main(argv=None) -> int:
     batched = phase_batched(images, gt, cfg, frame_poses)
     rest = phase_rest(images, cfg, loops)
     done("9")
+    parallel, parallel_launches, parallel_err = phase_parallel(cfg, graph,
+                                                               loops)
+    done("10")
     by_path = dict(offline=launches, online=online_launches,
-                   evaluate_scans=scan_launches)
-    launches += online_launches + scan_launches
+                   evaluate_scans=scan_launches, parallel=parallel_launches)
+    launches += online_launches + scan_launches + parallel_launches
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "coral_moments", "route": "cuda",
         "source": "tbv_slam_public_torch/csrc/coral_moments.cu",
         "replaces": "tbv_slam_public_tpu/pallas/coral_moments.py:36",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
+        "launches": launches,
+        "max_abs_err": max(k["max_abs_err"], parallel_err),
         "ms": k["times"]["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None, "share_of_bound": k["times"]["share"],
@@ -1140,7 +1650,8 @@ def main(argv=None) -> int:
                          if m.startswith("M")},
         "launches_by_path": by_path,
         "keyframe_clouds": real, "training_cloud": training}],
-        "variants": variants, "batched": batched, "rest": rest}))
+        "variants": variants, "batched": batched, "rest": rest,
+        "parallel": parallel}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,10 @@ Mirrors the layout of ``tbv_slam_public_tpu`` (the JAX reference):
 - ``io``      — checkpoints, numpy <-> tensor conversion, the simulator and
   dataset readers (copies of the jax-free reference modules)
 - ``eval``    — KITTI / trajectory / loop metrics, result tables (copies)
-- ``harness`` — the CLI (every subcommand of the reference but ``sweep``)
+- ``harness`` — the CLI (every subcommand of the reference) and the sweep
+  job farm
+- ``parallel`` — multi-process paths over ``torch.distributed``: sharded
+  candidate waves and retrieval, distributed PGO, data-parallel training
 
 Nothing here imports JAX.  The reference forces full-f32 matmuls everywhere
 (LM stalls at a worse optimum in reduced precision), so TF32 is switched off

@@ -2,12 +2,15 @@
 
 The port runs on the card unless the caller asks for the CPU: ``None`` means
 ``cuda`` and fails where there is no card, and anything else (``"cpu"``,
-``"cuda:1"``, a ``torch.device``) is taken as given.
+``"cuda:1"``, a ``torch.device``) is taken as given.  Under ``torchrun``
+(``LOCAL_RANK`` set) ``None`` is the card of that local rank, modulo the
+number of cards, so ranks share the cards round robin.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import os
 
 import torch
 
@@ -21,6 +24,9 @@ def resolve(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA card found: the port runs on the card by default; pass "
             "device='cpu' (CLI: --device cpu) to run on the CPU")
+    local = os.environ.get("LOCAL_RANK")
+    if local is not None:
+        return torch.device("cuda", int(local) % torch.cuda.device_count())
     return torch.device("cuda")
 
 

@@ -7,14 +7,16 @@ checkpoint), ``online`` (the full per-frame pipeline from images),
 weights), ``constraints`` (dump / re-verify a full graph's loop
 constraints), ``train-alignment``, ``train-loop``, ``evaluate-scans``
 (alignment features of perturbed keyframe pairs to CSV), ``baseline`` (the
-result tables of a tree of runs) and ``eval``.
+result tables of a tree of runs), ``sweep`` (a parameter file's cartesian
+product of ``online`` or ``odometry`` jobs, merged into one table; under
+``torchrun`` the jobs are split over the processes) and ``eval``.
 
 Same arguments and dotted ``key=value`` config overrides as
 ``tbv_slam_public_tpu.harness.cli``, plus ``--device`` where tensors are
 computed: the CUDA card when the option is absent (an error where there is
 none), ``--device cpu`` for the CPU.  ``--solver`` defaults to ``auto``
-(schur on a SLAM graph).  Not ported yet: ``sweep`` (see ROADMAP.md).  Plots
-are written only where matplotlib is installed.
+(schur on a SLAM graph).  Plots are written only where matplotlib is
+installed.
 
     python -m tbv_slam_public_torch.harness.cli odometry --dataset sim:60:5 \
         --output out/odo radar.k_strongest=4
@@ -511,6 +513,19 @@ def cmd_eval(args, overrides: List[str]) -> int:
     return 0
 
 
+def cmd_sweep(args, overrides: List[str]) -> int:
+    from ..parallel import multihost
+    from .sweep import run_sweep
+
+    multihost.initialize(device=_device(args.device))  # under torchrun only
+    results = run_sweep(args.par_file, args.dataset, args.output,
+                        base_overrides=overrides, workers=args.workers,
+                        max_frames=args.max_frames, mode=args.mode,
+                        device=args.device)
+    print(json.dumps(results))
+    return 0
+
+
 SOLVER_CHOICES = ["auto", "schur", "cholesky", "cg"]
 DEVICE_HELP = "cuda (the default; an error without a card) or cpu"
 
@@ -599,6 +614,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--est", required=True)
     p.add_argument("--output", default=None)
     p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("sweep")
+    p.add_argument("--par-file", required=True)
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--workers", type=int, default=1)
+    p.add_argument("--max-frames", type=int, default=0)
+    p.add_argument("--mode", default="online",
+                   choices=["online", "odometry"])
+    p.add_argument("--device", default=None, help=DEVICE_HELP)
+    p.set_defaults(fn=cmd_sweep)
 
     args, overrides = ap.parse_known_args(argv)
     return args.fn(args, overrides)

@@ -18,6 +18,7 @@ are exactly as large as the work.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -31,17 +32,22 @@ from ..core.timing import timing
 from ..core.types import Cells, PointCloud, stack_records
 from ..ops import logistic, scancontext
 from ..ops import registration as reg_op
+from ..parallel import multihost
+from ..parallel import retrieval as par_ret
 from . import verification as verif
 
 
 @dataclass
 class LoopDB:
-    """Descriptor database + odometry poses, padded to a capacity."""
+    """Descriptor database + odometry poses, padded to a capacity.  A
+    database sharded over a mesh (``parallel.retrieval.shard_db``) holds the
+    descriptor rows of slots ``lo .. lo + desc.shape[0]`` only."""
 
-    desc: torch.Tensor  # [N, R, S]
-    ring: torch.Tensor  # [N, R]
+    desc: torch.Tensor  # [N, R, S] (sharded: [N / D, R, S])
+    ring: torch.Tensor  # [N, R] (sharded: [N / D, R])
     odom_pose: torch.Tensor  # [N, 3] odometry (un-optimized) keyframe poses
     mask: torch.Tensor  # [N] bool
+    lo: int = 0  # global slot of desc[0]
 
 
 def make_db(capacity: int, cfg: TBVConfig, device=None) -> LoopDB:
@@ -53,6 +59,8 @@ def make_db(capacity: int, cfg: TBVConfig, device=None) -> LoopDB:
 
 
 def grow_db(db: LoopDB, new_capacity: int) -> LoopDB:
+    if db.desc.shape[0] != db.mask.shape[0]:
+        raise ValueError("grow the whole database: unshard it first")
     pad = new_capacity - db.mask.shape[0]
     g = lambda x: torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
     return LoopDB(g(db.desc), g(db.ring), g(db.odom_pose), g(db.mask))
@@ -60,19 +68,25 @@ def grow_db(db: LoopDB, new_capacity: int) -> LoopDB:
 
 def db_insert_batch(db: LoopDB, slots: torch.Tensor, descs: torch.Tensor,
                     rings: torch.Tensor, odom: torch.Tensor) -> LoopDB:
-    """Write a batch of keyframe descriptors into the DB (in place)."""
-    db.desc[slots] = descs
-    db.ring[slots] = rings
+    """Write a batch of keyframe descriptors into the DB (in place); a
+    sharded DB keeps the descriptors of its own slots."""
     db.odom_pose[slots] = odom
     db.mask[slots] = True
+    if db.desc.shape[0] != db.mask.shape[0]:
+        own = (slots >= db.lo) & (slots < db.lo + db.desc.shape[0])
+        slots, descs, rings = slots[own] - db.lo, descs[own], rings[own]
+    db.desc[slots] = descs
+    db.ring[slots] = rings
     return db
 
 
 def db_insert(db: LoopDB, slot: int, desc: torch.Tensor, ring: torch.Tensor,
               odom_pose: torch.Tensor) -> LoopDB:
-    """Write one keyframe's descriptor into the DB (in place)."""
-    db.desc[slot] = desc
-    db.ring[slot] = ring
+    """Write one keyframe's descriptor into the DB (in place); a sharded DB
+    keeps the descriptor only if the slot is its own."""
+    if db.lo <= slot < db.lo + db.desc.shape[0]:
+        db.desc[slot - db.lo] = desc
+        db.ring[slot - db.lo] = ring
     db.odom_pose[slot] = odom_pose
     db.mask[slot] = True
     return db
@@ -138,11 +152,17 @@ class DetectResult:
 
 
 def detect(db: LoopDB, descs: torch.Tensor, rings: torch.Tensor,
-           cur_slot: torch.Tensor, cfg: TBVConfig) -> DetectResult:
+           cur_slot: torch.Tensor, cfg: TBVConfig, mesh=None) -> DetectResult:
     """Candidate retrieval for the keyframes at ``cur_slot`` [B]
     (detectLoopClosureID): odometry similarity over history, dynamic
     recent-exclusion, per-augmentation retrieval, merged and deduplicated by
-    database index, best ``n_candidates`` by combined score."""
+    database index, best ``n_candidates`` by combined score.
+
+    ``mesh``: an optional ``parallel.multihost.Mesh`` over which the
+    database's keyframe axis is sharded; with more than one rank retrieval
+    is a local top-k and a gathered merge
+    (``parallel.retrieval.sharded_retrieve``), equal to the single-device
+    result."""
     sc = cfg.scancontext
     dev = descs.device
     n = db.mask.shape[0]
@@ -155,7 +175,10 @@ def detect(db: LoopDB, descs: torch.Tensor, rings: torch.Tensor,
                                             sc.distance_exclude_recent)
     search = hist & (idxs[None] < cur - n_excl[:, None] + 1) & \
         (idxs[None] < cur)
-    r = scancontext.retrieve(
+    retrieve = scancontext.retrieve
+    if mesh is not None and mesh.size > 1:
+        retrieve = functools.partial(par_ret.sharded_retrieve, mesh)
+    r = retrieve(
         descs, rings, db.desc, db.ring, search[:, None], odom_sim[:, None],
         num_candidates=sc.num_candidates_from_tree,
         search_ratio=sc.search_ratio,
@@ -318,19 +341,34 @@ class LoopCloser:
 
     Keeps per-keyframe peaks/cells as host arrays, stacks them on ``device``
     for the waves, and emits accepted LoopConstraint records;
-    ``candidate_log`` records every evaluated candidate (loop.csv)."""
+    ``candidate_log`` records every evaluated candidate (loop.csv).
+
+    ``mesh``: an optional ``parallel.multihost.Mesh``.  With more than one
+    rank the descriptor database is sharded over it, retrieval is the
+    sharded form, and every pair wave (or one query's candidates) is split
+    over its ranks (``parallel.candidates``); rank 0's detection result
+    sets the waves of every rank.  Every rank returns the same constraints.
+    The device defaults to the mesh's."""
 
     def __init__(self, cfg: TBVConfig, device=None,
                  align_model: Optional[logistic.LogisticModel] = None,
-                 loop_model: Optional[logistic.LogisticModel] = None):
+                 loop_model: Optional[logistic.LogisticModel] = None,
+                 mesh: Optional[multihost.Mesh] = None):
         self.cfg = cfg
-        self.device = resolve(device)
+        self.mesh = mesh
+        # the mesh that the sharded paths run over: one of more than a rank
+        self._shard = mesh if mesh is not None and mesh.size > 1 else None
+        self._size = 1 if self._shard is None else self._shard.size
+        self.device = resolve(device if device is not None or mesh is None
+                              else mesh.device)
         self.align_model = (align_model or logistic.from_values(
             cfg.verification.alignment_coefs[0],
             cfg.verification.alignment_coefs[1:])).to(self.device)
         self.loop_model = (loop_model or verif.default_loop_model(
             cfg.verification)).to(self.device)
-        self.db = make_db(cfg.scancontext.db_chunk, cfg, self.device)
+        self.db = make_db(self._db_chunk(), cfg, self.device)
+        if self._shard is not None:
+            self.db = par_ret.shard_db(self._shard, self.db)
         self.kf_peaks: List[PointCloud] = []
         self.kf_cells: List[Cells] = []
         self.kf_odom: List[np.ndarray] = []
@@ -406,11 +444,44 @@ class LoopCloser:
         odom = torch.as_tensor(np.stack(self.kf_odom), device=self.device)
         return self._store[1], self._store[2], odom
 
+    def _db_chunk(self) -> int:
+        """The DB growth quantum, a multiple of the mesh size (sharded
+        retrieval needs capacity % mesh size == 0)."""
+        return -(-self.cfg.scancontext.db_chunk // self._size) * self._size
+
     def _ensure_capacity(self, n: int) -> None:
         cap = self.db.mask.shape[0]
         if n > cap:
-            chunk = self.cfg.scancontext.db_chunk
-            self.db = grow_db(self.db, ((n + chunk - 1) // chunk) * chunk)
+            chunk = self._db_chunk()
+            new_cap = ((n + chunk - 1) // chunk) * chunk
+            if self._shard is None:
+                self.db = grow_db(self.db, new_cap)
+            else:
+                self.db = par_ret.shard_db(self._shard, grow_db(
+                    par_ret.unshard_db(self._shard, self.db), new_cap))
+
+    def _detect(self, descs, rings, q) -> Dict[str, np.ndarray]:
+        """``detect`` as host arrays; on a mesh, rank 0's result, which sets
+        the pair waves of every rank."""
+        det = detect(self.db, descs, rings, q, self.cfg, mesh=self._shard)
+        if self._shard is not None:
+            det = multihost.broadcast_record(det, self._shard)
+        return _fetch(det)
+
+    def _register_verify(self, pairs: bool, *args) -> Dict[str, np.ndarray]:
+        """A pair wave (``pairs``) or one query's candidates through the
+        single-device form, or split over the mesh's ranks, whose row count
+        must divide by the mesh size; host arrays."""
+        if self._shard is None:
+            fn = register_and_verify_pairs if pairs else register_and_verify
+            return _fetch(fn(*args, self.align_model, self.loop_model,
+                             self.cfg))
+        from ..parallel import candidates as par_cand
+
+        fn = par_cand.sharded_register_and_verify_pairs if pairs \
+            else par_cand.sharded_register_and_verify
+        return _fetch(fn(self._shard, *args, self.align_model,
+                         self.loop_model, self.cfg))
 
     def process_all_batched(self, detect_chunk: int = 256,
                             pair_chunk: int = 64) -> List[LoopConstraint]:
@@ -442,8 +513,7 @@ class LoopCloser:
         dets = []
         with timing.timer("loop_wave_detect"):
             for q, d, r in chunks:
-                dets.append(DetectResult(**_fetch(detect(self.db, d, r, q,
-                                                          cfg))))
+                dets.append(DetectResult(**self._detect(d, r, q)))
         det = DetectResult(**{f.name: np.concatenate(
             [getattr(x, f.name) for x in dets])
             for f in dataclasses.fields(DetectResult)})
@@ -452,9 +522,14 @@ class LoopCloser:
                  for k in range(cfg.scancontext.n_candidates)
                  if det.valid[qi, k]]
         results = {}
+        pair_chunk = -(-pair_chunk // self._size) * self._size
         with timing.timer("loop_wave_pairs"):
             for lo in range(0, len(pairs), pair_chunk):
                 sel = pairs[lo:lo + pair_chunk]
+                n_real = len(sel)
+                # on a mesh the last wave is padded to a multiple of its
+                # size with masked copies of its last pair
+                sel = sel + [sel[-1]] * (-n_real % self._size)
                 qi_idx = torch.as_tensor([start + qi for qi, _ in sel],
                                          device=dev)
                 ci_idx = torch.as_tensor([int(det.index[qi, k])
@@ -462,8 +537,8 @@ class LoopCloser:
                 g = lambda rec, idx: rec.map(lambda x: x[idx])
                 f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32),
                                                 device=dev)
-                res = register_and_verify_pairs(
-                    g(store_cells, qi_idx), g(store_peaks, qi_idx),
+                res = self._register_verify(
+                    True, g(store_cells, qi_idx), g(store_peaks, qi_idx),
                     g(store_cells, ci_idx), g(store_peaks, ci_idx),
                     taug_all[torch.as_tensor([int(det.aug[qi, k])
                                               for qi, k in sel],
@@ -472,10 +547,8 @@ class LoopCloser:
                     f32([det.dist_sc[qi, k] + det.dist_odom[qi, k]
                          for qi, k in sel]),
                     f32([det.dist_odom[qi, k] for qi, k in sel]),
-                    torch.ones(len(sel), dtype=torch.bool, device=dev),
-                    self.align_model, self.loop_model, cfg)
-                res = _fetch(res)
-                for i, key in enumerate(sel):
+                    torch.arange(len(sel), device=dev) < n_real)
+                for i, key in enumerate(sel[:n_real]):
                     results[key] = {k: v[i] for k, v in res.items()}
 
         # per-query acceptance in order (ApplyConstratins semantics)
@@ -550,27 +623,31 @@ class LoopCloser:
                       torch.as_tensor(self.kf_odom[q], device=dev))
         with timing.timer("loop_detect"):
             # the one read per keyframe that decides whether to register
-            det = {k: v[0] for k, v in _fetch(detect(
-                self.db, descs, rings, torch.tensor([q], device=dev),
-                cfg)).items()}
+            det = {k: v[0] for k, v in self._detect(
+                descs, rings, torch.tensor([q], device=dev)).items()}
         if not det["valid"].any():
             return []
 
         k = cfg.scancontext.n_candidates
         f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+        # on a mesh the candidates are padded to a multiple of its size with
+        # masked ones
+        pad = -k % self._size
+        det_p = {name: np.concatenate([v, np.zeros(pad, v.dtype)])
+                 for name, v in det.items()}
         with timing.timer("loop_register_verify"):
             cand = [self._payload(int(i))
-                    for i in np.where(det["valid"], det["index"], 0)]
+                    for i in np.where(det_p["valid"], det_p["index"], 0)]
             q_cells, q_peaks = self._payload(q)
-            res = _fetch(register_and_verify(
-                q_cells, q_peaks, stack_records([c for c, _ in cand]),
+            res = self._register_verify(
+                False, q_cells, q_peaks, stack_records([c for c, _ in cand]),
                 stack_records([p for _, p in cand]),
-                augmentation_offsets(cfg, dev)[torch.as_tensor(det["aug"],
+                augmentation_offsets(cfg, dev)[torch.as_tensor(det_p["aug"],
                                                                device=dev)],
-                f32(det["yaw"]), f32(det["dist_sc"] + det["dist_odom"]),
-                f32(det["dist_odom"]),
-                torch.as_tensor(det["valid"], device=dev),
-                self.align_model, self.loop_model, cfg))
+                f32(det_p["yaw"]), f32(det_p["dist_sc"] + det_p["dist_odom"]),
+                f32(det_p["dist_odom"]),
+                torch.as_tensor(det_p["valid"], device=dev))
+            res = {name: v[:k] for name, v in res.items()}
 
         for i in range(k):
             if det["valid"][i]:

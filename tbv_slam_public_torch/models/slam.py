@@ -4,11 +4,13 @@ Port of ``tbv_slam_public_tpu.models.slam``: ``PoseGraph``, ``TBVSLAM`` (the
 online per-frame mode with periodic PGO epochs and in-run alignment
 training) and ``run_offline_slam`` (the checkpoint path, a thin user of
 ``TBVSLAM``).  The graph is a host list of keyframe poses and edge records;
-the optimizer gets exactly-sized tensors (no capacity padding).
-``solver="distributed"`` waits for the port of ``parallel/``.
+the optimizer gets exactly-sized tensors (no capacity padding).  Given a
+``parallel.multihost.Mesh``, loop-candidate waves shard over its ranks and
+the graph gains ``solver="distributed"`` (``parallel.pgo``).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -22,6 +24,7 @@ from ..core.timing import timing
 from ..core.types import LOOP_APPEARANCE, MINI_LOOP, ODOMETRY
 from ..eval import trajectory as traj_eval
 from ..ops import posegraph
+from ..parallel import multihost
 from .loopclosure import LoopCloser, LoopConstraint
 from .odometry import OdometryOutput, OdometryPipeline
 from .strategies import ProximityCloser
@@ -29,11 +32,15 @@ from .verification import AlignmentLearner
 
 
 class PoseGraph:
-    """Host-side SoA pose graph over keyframes (posegraph.h)."""
+    """Host-side SoA pose graph over keyframes (posegraph.h).  ``mesh``
+    enables ``solver="distributed"``; the device defaults to the mesh's."""
 
-    def __init__(self, cfg: TBVConfig, device=None):
+    def __init__(self, cfg: TBVConfig, device=None,
+                 mesh: Optional[multihost.Mesh] = None):
         self.cfg = cfg
-        self.device = resolve(device)
+        self.mesh = mesh
+        self.device = resolve(device if device is not None or mesh is None
+                              else mesh.device)
         self.last_solver: Optional[str] = None  # what "auto" resolved to
         self.poses: List[np.ndarray] = []  # current (optimized) estimate
         self.stamps: List[float] = []
@@ -120,23 +127,30 @@ class PoseGraph:
         ``solver="auto"`` picks the structured chain + Woodbury solver
         (``schur``) when the odometry edges form the keyframe chain and loops
         are sparse, the normal SLAM case, and the dense ``cholesky``
-        otherwise; ``schur``, ``cholesky`` and ``cg`` select one directly."""
+        otherwise; ``schur``, ``cholesky`` and ``cg`` select one directly.
+        ``solver="distributed"`` runs the edge-sharded CG LM over the mesh
+        passed to the constructor (``parallel.pgo.optimize_distributed``)."""
         if solver == "distributed":
-            raise NotImplementedError(
-                "solver='distributed' waits for the port of parallel/ (see "
-                "ROADMAP.md)")
-        n_chain = sum(1 for e in self.edges if e["etype"] == ODOMETRY
-                      and e["idx"][1] == e["idx"][0] + 1)
-        n_other = len(self.edges) - n_chain
-        if solver == "auto":
-            sparse_chain = n_chain >= max(4, len(self.poses) // 2) \
-                and n_other * 6 < 3 * len(self.poses)
-            solver = "schur" if sparse_chain else "cholesky"
-        loop_cap = max(n_other, 1) if solver == "schur" else None
+            if self.mesh is None:
+                raise ValueError("solver='distributed' requires a mesh "
+                                 "(PoseGraph(cfg, mesh=...))")
+            from ..parallel import pgo as par_pgo
+
+            run = functools.partial(par_pgo.optimize_distributed, self.mesh)
+        else:
+            n_chain = sum(1 for e in self.edges if e["etype"] == ODOMETRY
+                          and e["idx"][1] == e["idx"][0] + 1)
+            n_other = len(self.edges) - n_chain
+            if solver == "auto":
+                sparse_chain = n_chain >= max(4, len(self.poses) // 2) \
+                    and n_other * 6 < 3 * len(self.poses)
+                solver = "schur" if sparse_chain else "cholesky"
+            run = functools.partial(
+                posegraph.optimize, solver=solver,
+                loop_cap=max(n_other, 1) if solver == "schur" else None)
         poses, node_mask, edges = self._padded()
         with timing.timer("pose_graph_optimization"):
-            res = posegraph.optimize(poses, node_mask, edges, self.cfg.pgo,
-                                     solver=solver, loop_cap=loop_cap)
+            res = run(poses, node_mask, edges, self.cfg.pgo)
             out = res.poses.cpu().numpy()
         for i in range(len(self.poses)):
             self.poses[i] = out[i]
@@ -178,12 +192,15 @@ class TBVSLAM:
     explicit PGO epochs (tbv_slam_offline / tbv_slam_online)."""
 
     def __init__(self, cfg: TBVConfig, train_alignment: bool = False,
-                 device=None):
+                 device=None, mesh: Optional[multihost.Mesh] = None):
+        # ``mesh``: loop-candidate waves shard over its ranks and the graph
+        # gains solver="distributed"; the device defaults to the mesh's
         self.cfg = cfg
-        self.device = resolve(device)
+        self.device = resolve(device if device is not None or mesh is None
+                              else mesh.device)
         self.odometry = OdometryPipeline(cfg, device=self.device)
-        self.loops = LoopCloser(cfg, device=self.device)
-        self.graph = PoseGraph(cfg, device=self.device)
+        self.loops = LoopCloser(cfg, device=self.device, mesh=mesh)
+        self.graph = PoseGraph(cfg, device=self.device, mesh=mesh)
         self._frames = 0
         self._kf_to_node: List[int] = []
         self._kf_since_opt = 0
@@ -302,13 +319,15 @@ class TBVSLAM:
 
 
 def run_offline_slam(cfg: TBVConfig, simple_graph, solver: str = "cholesky",
-                     batched: bool = True, device=None) -> TBVSLAM:
+                     batched: bool = True, device=None,
+                     mesh: Optional[multihost.Mesh] = None) -> TBVSLAM:
     """SLAM from an odometry-stage checkpoint (tbv_slam_offline): load the
     keyframes, loop closure to exhaustion, one optimization.  ``batched``
     runs loop closure as waves over all keyframes (process_all_batched)
     instead of the per-keyframe loop: the same constraints, far fewer
-    launches.  Read ``.summary`` of the returned object."""
-    slam = TBVSLAM(cfg, device=device)
+    launches.  ``mesh`` goes to ``TBVSLAM``.  Read ``.summary`` of the
+    returned object."""
+    slam = TBVSLAM(cfg, device=device, mesh=mesh)
     g = simple_graph
     for i in range(g.num_keyframes):
         gt = None if g.kf_gt is None else g.kf_gt[i]

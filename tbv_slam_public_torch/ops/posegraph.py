@@ -182,21 +182,13 @@ def _block_diag(n, edges, blocks, gauge_mask):
     return torch.where(gauge_mask[:, None, None], D, eye)
 
 
-def _pcg_solve(b, edges, w, Jb, Je, diag_blocks, gauge_mask, lam, iters, tol):
-    """Block-Jacobi preconditioned CG on (H + lam*diag(H)) x = b.  The trip
-    count is fixed and convergence freezes the state through ``active``, so
-    the loop reads nothing back to the host."""
-    eye = torch.eye(3, dtype=b.dtype, device=b.device)
-    lam_diag = lam * torch.diagonal(diag_blocks, dim1=-2, dim2=-1)  # [N, 3]
-    Minv = torch.linalg.inv(diag_blocks + torch.diag_embed(lam_diag)
-                            + 1e-9 * eye)
-
-    def A(v):
-        return _hvp(v, edges, w, Jb, Je, gauge_mask) + lam_diag * v + 1e-9 * v
-
-    def precond(v):
-        return torch.einsum("nij,nj->ni", Minv, v)
-
+def _pcg(A, precond, b, iters, tol, early_stop=False):
+    """Preconditioned CG on A x = b (``A`` and ``precond`` map [N, 3] to
+    [N, 3]) until the residual falls below ``tol`` of |b| or ``iters``
+    steps.  The trip count is fixed and convergence freezes the state through
+    ``active``, so the loop reads nothing back to the host; ``early_stop``
+    reads ``active`` once a step and leaves the loop when it falls, with the
+    same result."""
     x = torch.zeros_like(b)
     r = b
     p = precond(r)
@@ -219,7 +211,26 @@ def _pcg_solve(b, edges, w, Jb, Je, diag_blocks, gauge_mask, lam, iters, tol):
                    torch.where(active, pn, p))
         rz = torch.where(active, rzn, rz)
         active = active & ~done & (denom > 0)
+        if early_stop and not bool(active):
+            break
     return x
+
+
+def _pcg_solve(b, edges, w, Jb, Je, diag_blocks, gauge_mask, lam, iters, tol):
+    """Block-Jacobi preconditioned CG on (H + lam*diag(H)) x = b, at a fixed
+    trip count."""
+    eye = torch.eye(3, dtype=b.dtype, device=b.device)
+    lam_diag = lam * torch.diagonal(diag_blocks, dim1=-2, dim2=-1)  # [N, 3]
+    Minv = torch.linalg.inv(diag_blocks + torch.diag_embed(lam_diag)
+                            + 1e-9 * eye)
+
+    def A(v):
+        return _hvp(v, edges, w, Jb, Je, gauge_mask) + lam_diag * v + 1e-9 * v
+
+    def precond(v):
+        return torch.einsum("nij,nj->ni", Minv, v)
+
+    return _pcg(A, precond, b, iters, tol)
 
 
 def _ptd_interior(Dr, Orr, f_prev):
@@ -363,13 +374,10 @@ def _chain_blocks(n, edges, wJb, wJe, gauge_mask):
     return D, O
 
 
-def _chain_precond_prepare(D, O, gauge_mask, lam_diag, seg: int = 16):
-    """Factorise T = chain + damping (+ identity at fixed nodes): Jacobi
+def _equilibrated_chain(D, O, gauge_mask, lam_diag):
+    """T = chain + damping (+ identity at fixed nodes) under Jacobi
     equilibration (the chain spans ~4 orders of magnitude between translation
-    and rotation information), identity padding to a multiple of ``seg`` and
-    the partitioned tridiagonal factorisation.  Apply with
-    :func:`_chain_precond_apply`."""
-    n = D.shape[0]
+    and rotation information): (Ds, Os, dscale [N, 3])."""
     eye = torch.eye(3, dtype=D.dtype, device=D.device)
     D = D + torch.diag_embed(lam_diag) + 1e-8 * eye
     D = torch.where(gauge_mask[:, None, None], D, eye)
@@ -381,6 +389,17 @@ def _chain_precond_prepare(D, O, gauge_mask, lam_diag, seg: int = 16):
     Ds = D * dscale[:, :, None] * dscale[:, None, :]
     ds_next = torch.cat([dscale[1:], torch.ones_like(dscale[:1])])
     Os = O * dscale[:, :, None] * ds_next[:, None, :]
+    return Ds, Os, dscale
+
+
+def _chain_precond_prepare(D, O, gauge_mask, lam_diag, seg: int = 16):
+    """Factorise T = chain + damping (+ identity at fixed nodes): Jacobi
+    equilibration, identity padding to a multiple of ``seg`` and the
+    partitioned tridiagonal factorisation.  Apply with
+    :func:`_chain_precond_apply`."""
+    n = D.shape[0]
+    eye = torch.eye(3, dtype=D.dtype, device=D.device)
+    Ds, Os, dscale = _equilibrated_chain(D, O, gauge_mask, lam_diag)
     pad_n = (-n) % seg
     ctx = _partitioned_tridiag_prepare(
         torch.cat([Ds, eye.expand(pad_n, 3, 3)]),

@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from ..core.device import deterministic
 from ..core.types import Cells, PointCloud
 from .features import _fma
 
@@ -101,11 +102,13 @@ def render_cartesian(cloud: PointCloud, extent: float,
         lead + (1,))
     lin = torch.where(inside, row * pix + ij[..., 0] * size + ij[..., 1],
                       math.prod(lead) * pix)  # outside: one spill bin
-    img = torch.zeros(math.prod(lead) * pix + 1, dtype=cloud.intensity.dtype,
-                      device=ij.device).index_add_(
-        0, lin.reshape(-1), torch.where(inside, cloud.intensity,
-                                        torch.zeros_like(cloud.intensity))
-        .reshape(-1))
+    with deterministic():  # float sums in index order on the card too
+        img = torch.zeros(math.prod(lead) * pix + 1,
+                          dtype=cloud.intensity.dtype,
+                          device=ij.device).index_add_(
+            0, lin.reshape(-1), torch.where(inside, cloud.intensity,
+                                            torch.zeros_like(cloud.intensity))
+            .reshape(-1))
     return img[:-1].reshape(lead + (size, size))
 
 

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.config import ScanContextConfig
+from ..core.device import deterministic
 from ..core.types import PointCloud
 
 
@@ -40,9 +41,10 @@ def make_descriptor(cloud: PointCloud, cfg: ScanContextConfig) -> torch.Tensor:
     counts = torch.zeros(total, dtype=inten.dtype,
                          device=xy.device).index_add_(0, lin, fin)
     if cfg.desc_function == "sum":
-        desc = torch.zeros(total, dtype=inten.dtype,
-                           device=xy.device).index_add_(
-            0, lin, inten.reshape(-1) * fin)
+        with deterministic():  # float sums in index order on the card too
+            desc = torch.zeros(total, dtype=inten.dtype,
+                               device=xy.device).index_add_(
+                0, lin, inten.reshape(-1) * fin)
     elif cfg.desc_function == "max":
         # points out of range go to a spill bin past the last one
         spill = torch.where(in_range.reshape(-1), lin, total)

@@ -383,3 +383,70 @@ def test_batched_step_rows_on_the_card_equal_single_steps(cuda, override):
         _, one = odometry.batched_odometry_step(row, imgs[2, r:r + 1], cfg)
         _assert_poses(both.pose[r:r + 1], one.pose.cpu())
         assert bool(both.fused[r]) == bool(one.fused[0])
+
+
+@pytest.mark.cuda
+def test_descriptor_and_image_sums_repeat_on_the_card(cuda):
+    """The sum-mode descriptor and the quality images add in index order on
+    the card (no float atomics): two calls on one cloud are bit-equal."""
+    from tbv_slam_public_torch.core.config import ScanContextConfig
+    from tbv_slam_public_torch.core.types import PointCloud
+    from tbv_slam_public_torch.ops import quality, scancontext
+
+    rng = np.random.default_rng(4)
+    n = 200_000  # many points a bin, in random order
+    cloud = PointCloud(
+        torch.as_tensor(rng.uniform(-70, 70, (2, n, 2)).astype(np.float32),
+                        device=cuda),
+        torch.as_tensor(rng.uniform(60, 255, (2, n)).astype(np.float32),
+                        device=cuda),
+        torch.as_tensor(rng.uniform(size=(2, n)) < 0.9, device=cuda))
+    cfg = ScanContextConfig()
+    for fn in (lambda: scancontext.make_descriptor(cloud, cfg),
+               lambda: quality.render_cartesian(cloud, 80.0)):
+        assert torch.equal(fn(), fn())
+
+
+@pytest.mark.cuda
+def test_parallel_paths_of_one_rank_on_the_card(cuda):
+    """Without a process group (a mesh of size 1) on the card: sharded
+    retrieval equals ``retrieve`` bit for bit, and distributed PGO corrects
+    the Oxford instance's drift as on the CPU."""
+    import dataclasses
+    import os
+
+    from tbv_slam_public_torch.core.config import PGOConfig
+    from tbv_slam_public_torch.eval.trajectory import ate_rmse
+    from tbv_slam_public_torch.io import simulate
+    from tbv_slam_public_torch.ops import posegraph, scancontext
+    from tbv_slam_public_torch.parallel import multihost, pgo, retrieval
+
+    mesh = multihost.make_mesh(cuda)
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    desc = rng.uniform(0, 2, (512, 40, 120)).astype(np.float32)
+    args = (t(desc[[3, 300]] + 0.01), t(desc[[3, 300]].mean(-1) + 0.01),
+            t(desc), t(desc.mean(-1)), t(rng.uniform(size=512) > 0.2),
+            t(rng.uniform(size=(2, 512)).astype(np.float32)))
+    kw = dict(num_candidates=10, search_ratio=0.1, odometry_coupled=True)
+    got = retrieval.sharded_retrieve(mesh, *args, **kw)
+    want = scancontext.retrieve(*args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+    z = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                             "oxford_10-12-32_real_odometry.npz"))
+    inst = simulate.make_real_odometry_pgo_instance(z["odom"], z["gt"],
+                                                    seed=0)
+    cfg = dataclasses.replace(PGOConfig(), max_iterations=8)
+    m = inst.mask
+    et = t(inst.etype[m].astype(np.int64))
+    edges = posegraph.make_edges(inst.idx[m], inst.meas[m],
+                                 posegraph.default_sqrt_info(et, cfg), et,
+                                 m[m], device=cuda)
+    res = pgo.optimize_distributed(
+        mesh, t(inst.poses), torch.ones(len(inst.poses), dtype=torch.bool,
+                                        device=cuda), edges, cfg)
+    ate0 = ate_rmse(inst.poses, inst.gt)
+    assert ate_rmse(res.poses.cpu().numpy(), inst.gt) < 0.7 * ate0
+    assert float(res.cost) < 0.2 * float(res.cost0)

@@ -15,6 +15,7 @@ from tbv_slam_public_torch.io import checkpoint
 from tbv_slam_public_torch.models import loopclosure, odometry, slam
 from tbv_slam_public_torch.models import verification
 from tbv_slam_public_torch.ops import cen
+from tbv_slam_public_torch.parallel import multihost
 
 # The suite runs several worker processes on one machine and these tensors are
 # small: one intra-op thread per process keeps the workers from
@@ -62,6 +63,7 @@ ENTRY_POINTS = {
     "init_batched_state": lambda cfg: odometry.init_batched_state(cfg, 2),
     "cen2019_filter": lambda cfg: cen.cen2019_filter(
         np.zeros((8, 32), np.uint8), cfg.radar),
+    "global_mesh": lambda cfg: multihost.global_mesh(),
 }
 
 
@@ -80,6 +82,8 @@ def test_entry_point_needs_a_card_by_default(monkeypatch, name):
     ["train-alignment", "--dataset", "sim:4:1", "--output", "{tmp}/o"],
     ["train-loop", "--data", "{tmp}/model.txt", "--output", "{tmp}/c.txt"],
     ["evaluate-scans", "--graph", "{tmp}/g.npz", "--output", "{tmp}/e.csv"],
+    ["sweep", "--par-file", "{tmp}/p.csv", "--dataset", "sim:4:1",
+     "--output", "{tmp}/s"],
 ], ids=lambda a: a[0])
 def test_cli_needs_a_card_by_default(monkeypatch, tmp_path, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -256,7 +256,7 @@ def test_pgo_matches(jax_odometry, both_slam):
 def test_solver_choice_is_explicit(jax_odometry, both_slam):
     """Every solver name runs the offline path and lands on the reference's
     ATE (1 cm, cg 5 cm: its steps are truncated); "auto" resolves to schur
-    on this chain-plus-loops graph; what is not ported says so."""
+    on this chain-plus-loops graph; "distributed" needs a mesh."""
     _, _, _, path = jax_odometry
     j, _ = both_slam
     ate_j = j.summary.metrics["ate_rmse"]
@@ -267,7 +267,7 @@ def test_solver_choice_is_explicit(jax_odometry, both_slam):
         assert t.graph.last_solver == ("schur" if solver == "auto"
                                        else solver)
         assert abs(t.summary.metrics["ate_rmse"] - ate_j) < tol, solver
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         t.graph.optimize(solver="distributed")
     with pytest.raises(ValueError, match="unknown solver"):
         t.graph.optimize(solver="qr")
