@@ -18,9 +18,10 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    launch count of that run; then the kernel's time on that run's keyframe
    clouds;
 5. cholesky PGO on the 4470-node Oxford real-odometry instance;
-6. the ``schur`` and ``cg`` solvers on that instance beside ``cholesky``,
-   and one ``_schur_solve`` step against a float64 dense solve of the same
-   damped system;
+6. the ``schur`` and ``cg`` solvers on that instance beside ``cholesky``
+   (``schur`` twice, bit-equal: the edge sums add in index order), and one
+   ``_schur_solve`` step against a float64 dense solve of the same damped
+   system;
 7. the online path at the sensor's size: ``TBVSLAM`` with in-run alignment
    training and periodic PGO epochs over the phase-4 frames, with the kernel
    launch counts of the training route and of the per-keyframe loop closure;
@@ -29,29 +30,37 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    against the unchunked run of phase 3;
 8. the odometry variants at the sensor's size on phase 4's first 40 images:
    the default beside P2D, time-continuous, the Ceres-style covariance,
-   CA-CFAR and BFAR, each with its first 5 frames run again on the CPU and
-   held to the card's;
+   CA-CFAR and BFAR, and the default at MulRan's shapes (3360 bins of
+   0.05952 m, 40 simulator images), each with its first 5 frames run again
+   on the CPU and held to the card's;
 9. the rest of the slice: ``batched_odometry_step`` at B = 4 (four
    simulator seeds, each row held to its own B = 1 run, timed against three
    of those runs, one of them run twice and held bit-equal, kernel launches
-   per step at B = 1 and 4), a max-mode ScanContext retrieval over phase 4's
+   per step at B = 1 and 4; and at B = 2 over the first two, for phase
+   10(b)), a max-mode ScanContext retrieval over phase 4's
    keyframes, the Cen 2018 detector on the card and Cen 2019 on the host,
    the four quality metrics on phase 4's consecutive keyframe pairs, and
    ``register_joint`` over its last 5 keyframes;
 10. ``parallel/`` over ``torch.distributed``: (a) one NCCL rank in this
     process: ``run_offline_slam`` with the mesh on phase 4's checkpoint
-    against phase 4's constraints, and ``PoseGraph(mesh)`` with the
-    ``distributed`` solver on phase 5's instance; (b) two gloo ranks on the
-    one card, launched by ``torchrun`` running this script with
-    ``--ranks-worker``: the sharded pair waves of ``LoopCloser(mesh)`` over
-    phase 4's keyframes, sharded retrieval over a 4608-slot database,
-    ``optimize_distributed`` at the ``chain`` and ``chain_sharded``
-    preconditioners and ``alignment_training_step`` on 8 keyframe pairs,
-    each held to the single-process result; (c) the ``sweep`` subcommand,
-    two jobs on the card.
+    against phase 4's constraints, ``PoseGraph(mesh)`` with the
+    ``distributed`` solver on phase 5's instance, then
+    ``harness/dryrun.py``'s ``entry()`` frame and its multi-rank dry run at
+    mesh size 1; (b) two gloo ranks on the one card, launched by
+    ``torchrun`` running this script with ``--ranks-worker``: the sharded
+    pair waves of ``LoopCloser(mesh)`` over phase 4's keyframes, sharded
+    retrieval over a 4608-slot database, ``optimize_distributed`` at the
+    ``chain`` and ``chain_sharded`` preconditioners and
+    ``alignment_training_step`` on 8 keyframe pairs, each held to the
+    single-process result; batched odometry of phase 9's two sequences, one
+    a rank (``parallel/odometry.py``), held to phase 9's B = 2 run; and the
+    dry run at two ranks, the kernel held to its plain version at the dry
+    run's own shapes; (c) the ``sweep`` subcommand, two jobs on the card.
 
-Prints the card's name and power limit, one JSON line with the kernels, and
-last ``{"ok": true, "device": {...}}``.  Run from the repository root:
+Prints the card's name and power limit, one JSON line with the kernels
+(their launches by path, the dry run's among them) and each phase's
+seconds, and last ``{"ok": true, "device": {...}}``.  Run from the
+repository root:
 
     python3 chip_smoke.py [--frames N]
 """
@@ -614,8 +623,24 @@ VARIANTS = [("default", None), ("P2D", "registration.cost=P2D"),
             ("time-continuous", "odometry.time_continuous=true"),
             ("ceres", "odometry.cov_source=ceres"),
             ("cacfar", "radar.filter_type=cacfar"),
-            ("bfar", "radar.filter_type=bfar")]
+            ("bfar", "radar.filter_type=bfar"),
+            ("mulran", "radar.num_range_bins=3360 radar.range_res=0.05952")]
 VARIANT_FRAMES, CPU_FRAMES = 40, 5
+
+
+def _mulran_images(n_frames):
+    """Simulator images at MulRan's shapes (400 x 3360 bins at 0.05952 m;
+    the card machine may lack PIL, so no PNG is read) along phase 4's
+    circle, and their ground truth from the first pose."""
+    from tbv_slam_public_torch.core import se2
+    from tbv_slam_public_torch.io import simulate
+
+    seq = simulate.make_sequence(
+        num_frames=n_frames, seed=8, num_azimuths=400, num_range_bins=3360,
+        range_res=0.05952, traj_kwargs=dict(radius=22.0, step=0.8,
+                                            laps=0.25))
+    return seq.images, np.stack([se2.relative_np(seq.gt_poses[0], g)
+                                 for g in seq.gt_poses])
 
 
 def _pose_gap(a, b):
@@ -626,17 +651,21 @@ def _pose_gap(a, b):
 
 
 def phase_variants(images, gt, cfg):
-    """Each odometry variant over phase 4's first 40 images on the card, and
-    its first 5 frames again on the CPU."""
+    """Each odometry variant over phase 4's first 40 images on the card (the
+    MulRan row over 40 simulator images at its own shapes), and its first 5
+    frames again on the CPU."""
     from tbv_slam_public_torch.core.config import (apply_overrides,
                                                    parse_cli_overrides)
     from tbv_slam_public_torch.eval import trajectory as tj
     from tbv_slam_public_torch.models.odometry import OdometryPipeline
 
     out = {}
+    phase4 = images, gt
     for name, override in VARIANTS:
         vcfg = cfg if override is None else apply_overrides(
-            cfg, parse_cli_overrides([override]))
+            cfg, parse_cli_overrides(override.split()))
+        images, gt = _mulran_images(VARIANT_FRAMES) if name == "mulran" \
+            else phase4
         pipe = OdometryPipeline(vcfg, device=torch.device("cuda"))
         pipe.process(images[0], stamp=0.0, gt_pose=gt[0])
         torch.cuda.synchronize()
@@ -721,6 +750,8 @@ def phase_batched(images, gt, cfg, single_poses):
             time.perf_counter() - t0, st
 
     batch, secs, st = run(list(range(b)))
+    # B = 2 over the first two sequences: phase 10(b) runs them one a rank
+    pair = dict(images=frames[:, :2].cpu().numpy(), poses=run([0, 1])[0])
     alone = [run([r]) for r in range(1, b)]
     singles = [single_poses[:n]] + [a[0][0] for a in alone]
     gaps = [_pose_gap(batch[r], singles[r]) for r in range(b)]
@@ -744,7 +775,7 @@ def phase_batched(images, gt, cfg, single_poses):
     if not all(m <= POSE_ATOL_M and r <= POSE_ATOL_RAD for m, r in gaps):
         raise AssertionError(f"a row of the batch is off its B = 1 run: "
                              f"{gaps}")
-    return res
+    return res, pair
 
 
 def _world_peaks(loops, ids, dev):
@@ -922,12 +953,12 @@ def _run_solver(tag, solver, inst, cfg, edges, poses, node_mask):
                wall_s=wall, iterations=int(res.iterations),
                cost0=float(res.cost0), cost=float(res.cost))
     log(f"{tag} {json.dumps(out)}")
-    return out
+    return out, res
 
 
 def phase_pgo():
     inst = _oxford_instance(torch.device("cuda"))
-    out = _run_solver("[5]", "cholesky", *inst)
+    out, _ = _run_solver("[5]", "cholesky", *inst)
     if not (6.5 < out["ate_before"] < 8.0 and out["ate_after"] < 4.072):
         raise AssertionError(f"PGO ATE outside its bands: {out}")
     return inst
@@ -939,10 +970,18 @@ def phase_solvers(instance):
     from tbv_slam_public_torch.ops import posegraph as pg
 
     inst, cfg, edges, poses, node_mask = instance
-    out = _run_solver("[6]", "schur", *instance)
+    out, first = _run_solver("[6]", "schur", *instance)
     if not (6.5 < out["ate_before"] < 8.0 and out["ate_after"] < 4.072):
         raise AssertionError(f"schur PGO ATE outside its bands: {out}")
-    out = _run_solver("[6]", "cg", *instance)
+    # the edge-to-node sums add in an order fixed per graph: a second run
+    # is bit-equal
+    again, second = _run_solver("[6] again", "schur", *instance)
+    schur = dict(first_s=out["wall_s"], again_s=again["wall_s"],
+                 bit_equal=bool(torch.equal(first.poses, second.poses)))
+    log(f"[6] two schur runs: {json.dumps(schur)}")
+    if not schur["bit_equal"]:
+        raise AssertionError("two schur runs differ")
+    out, _ = _run_solver("[6]", "cg", *instance)
     if not (out["cost"] < out["cost0"]
             and out["ate_after"] < out["ate_before"]):
         raise AssertionError(f"cg PGO lowered neither cost nor ATE: {out}")
@@ -950,18 +989,19 @@ def phase_solvers(instance):
     n = poses.shape[0]
     dev = poses.device
     gauge = node_mask & (torch.arange(n, device=dev) != 0)
-    _, g, blocks = pg._gradient_and_blocks(poses, edges, cfg)
+    sums = pg._GraphSums(n, edges)
+    _, g, blocks = pg._gradient_and_blocks(poses, edges, cfg, sums)
     gm = torch.where(gauge[:, None], g, torch.zeros_like(g))
     wJb, wJe = blocks
-    hdiag = pg._scatter_nodes(n, edges, torch.einsum("eri,eri->ei", wJb, wJb),
-                              torch.einsum("eri,eri->ei", wJe, wJe))
+    hdiag = sums.nodes(torch.einsum("eri,eri->ei", wJb, wJb),
+                       torch.einsum("eri,eri->ei", wJe, wJe))
     lam_diag = cfg.init_lambda * hdiag
     is_loop = edges.mask & ~pg._is_chain(edges)
     loop_idx = torch.argsort((~is_loop).to(torch.uint8),
                              stable=True)[:int(is_loop.sum())]
     solve = lambda: pg._schur_solve(
         n, edges, blocks, gauge, lam_diag, gm, loop_idx,
-        refine_level=cfg.schur_refine, seg_cap=cfg.schur_seg)
+        refine_level=cfg.schur_refine, seg_cap=cfg.schur_seg, sums=sums)
     step = solve()
     ms = cuda_ms(solve, 5)
     H = pg._dense_hessian(n, edges, (wJb.double(), wJe.double()), gauge)
@@ -979,6 +1019,7 @@ def phase_solvers(instance):
         f"solve (limit {SCHUR_STEP_RTOL:g})")
     if not rel < SCHUR_STEP_RTOL:
         raise AssertionError(f"schur step off the dense solve by {rel}")
+    return schur
 
 
 def _tally(obj, name, tally, key):
@@ -1232,11 +1273,39 @@ def phase_parallel_one(cfg, graph, loops):
                 raise AssertionError("[10a] no CorAl launch")
             pgo = _distributed_pgo("[10a] PoseGraph(mesh) distributed",
                                    _oxford_graph(cfg, mesh), mesh)
+            dry = _entry_and_dryrun("[10a]", mesh)
         finally:
             dist.destroy_process_group()
     return dict(backend="nccl", ranks=1, slam_s=slam_s, coral_launches=
                 launches, loops=len(slam.loops.constraints),
-                t_be_bit_equal=bit_equal, t_be_max_gap_m=gap, pgo=pgo)
+                t_be_bit_equal=bit_equal, t_be_max_gap_m=gap, pgo=pgo,
+                dryrun=dry)
+
+
+def _entry_and_dryrun(tag, mesh):
+    """``entry()``'s frame, then the dry run on ``mesh``; the dry run's
+    CorAl launches are its path's: the count is set to 0 just before it and
+    read just after (and the count around it kept)."""
+    from tbv_slam_public_torch.harness import dryrun
+    from tbv_slam_public_torch.kernels import coral_moments as cm
+
+    fn, args = dryrun.entry()
+    t0 = time.perf_counter()
+    _, out = fn(*args)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    if out.pose.shape != (3,) or not bool(torch.isfinite(out.pose).all()):
+        raise AssertionError(f"{tag} entry(): pose {out.pose}")
+    saved, cm.LAUNCHES = cm.LAUNCHES, 0
+    rec = dryrun.dryrun(mesh)
+    launches, cm.LAUNCHES = cm.LAUNCHES, saved
+    res = dict(entry_s=entry_s, launches=launches,
+               **{k: rec[k] for k in dryrun.STEPS})
+    log(f"{tag} entry() and dryrun at mesh size {mesh.size}: "
+        f"{json.dumps(res)}")
+    if launches <= 0:
+        raise AssertionError(f"{tag} the dry run launched no CorAl kernel")
+    return res
 
 
 def _config(overrides):
@@ -1246,12 +1315,13 @@ def _config(overrides):
     return apply_overrides(TBVConfig(), parse_cli_overrides(list(overrides)))
 
 
-def _save_keyframes(path, loops, overrides):
-    """Phase 4's keyframe payloads (host records) and its configuration (as
-    overrides of the defaults) as one npz."""
+def _save_keyframes(path, loops, overrides, **arrays):
+    """Phase 4's keyframe payloads (host records), its configuration (as
+    overrides of the defaults) and ``arrays`` as one npz."""
     import dataclasses
 
-    d = {"odom": np.stack(loops.kf_odom), "cfg": np.asarray(overrides, str)}
+    d = {"odom": np.stack(loops.kf_odom), "cfg": np.asarray(overrides, str),
+         **arrays}
     for key, recs in (("peaks", loops.kf_peaks), ("cells", loops.kf_cells)):
         for f in dataclasses.fields(recs[0]):
             d[f"{key}.{f.name}"] = np.stack([getattr(r, f.name)
@@ -1300,11 +1370,13 @@ def ranks_worker(inputs, out_dir) -> int:
     import torch.distributed as dist
 
     from tbv_slam_public_torch.core.types import Cells, PointCloud
+    from tbv_slam_public_torch.harness import dryrun
     from tbv_slam_public_torch.kernels import coral_moments as cm
     from tbv_slam_public_torch.models import loopclosure as lc
     from tbv_slam_public_torch.ops import coral
     from tbv_slam_public_torch.parallel import candidates as par_cand
     from tbv_slam_public_torch.parallel import multihost
+    from tbv_slam_public_torch.parallel import odometry as par_odo
     from tbv_slam_public_torch.parallel import pgo as par_pgo
     from tbv_slam_public_torch.parallel import retrieval as par_ret
 
@@ -1404,10 +1476,27 @@ def ranks_worker(inputs, out_dir) -> int:
         out.update(train_x=x.cpu().numpy(), train_y=y.cpu().numpy(),
                    train_intercept=model.intercept.cpu().numpy(),
                    train_coef=model.coef.cpu().numpy())
+        out["coral_launches"] = np.asarray(cm.LAUNCHES)
+
+        # phase 9's first two sequences, one a rank
+        images = torch.as_tensor(z["odo_images"], device=dev)
+        out["odo_poses"] = run("odometry", lambda: par_odo.run_sequences(
+            mesh, images, cfg)[0].cpu().numpy())
+        # the dry run: its launches are its own path's
+        cm.LAUNCHES = 0
+        with keep_kernel_inputs():
+            rec = run("dryrun", lambda: dryrun.dryrun(mesh))
+        out["dryrun_launches"] = np.asarray(cm.LAUNCHES)
+        model, x, _ = rec["out"]["training"]
+        out.update(dryrun_pose=rec["out"]["odometry"].pose.cpu().numpy(),
+                   dryrun_x=x.cpu().numpy(),
+                   dryrun_cov=rec["out"]["pair_wave"].cov.cpu().numpy(),
+                   dryrun_index=rec["out"]["retrieval"].index.cpu().numpy())
+        for step in dryrun.STEPS:
+            timed[f"dryrun_{step}"] = (rec[step]["s"], rec[step]["launches"])
         for key, (secs, launches) in timed.items():
             out[f"{key}_s"] = np.asarray(secs)
             out[f"{key}_launches"] = np.asarray(launches)
-        out["coral_launches"] = np.asarray(cm.LAUNCHES)
         # the kernel at this rank's own shapes against its plain version
         # (after the count: these launches are not the path's)
         errs = []
@@ -1426,16 +1515,17 @@ def ranks_worker(inputs, out_dir) -> int:
     return 0
 
 
-def phase_parallel_ranks(overrides, loops, one, dev):
+def phase_parallel_ranks(overrides, loops, one, dev, pair):
     """10(b): two gloo ranks on the one card, each case held to this
     process's single-rank result; ``overrides`` are phase 4's configuration
-    as overrides of the defaults."""
+    as overrides of the defaults, ``pair`` phase 9's B = 2 run."""
     from tbv_slam_public_torch.eval import trajectory as tj
+    from tbv_slam_public_torch.harness import dryrun
     from tbv_slam_public_torch.ops import logistic, scancontext
 
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "keyframes.npz")
-        _save_keyframes(inputs, loops, overrides)
+        _save_keyframes(inputs, loops, overrides, odo_images=pair["images"])
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -1471,6 +1561,12 @@ def phase_parallel_ranks(overrides, loops, one, dev):
     if not want_m <= {m for m, _ in shapes}:
         raise AssertionError(f"[10b] the kernel was held at {shapes}, not "
                              f"at every M of {sorted(want_m)}")
+    # the dry run's shapes: its training step (13 perturbations of one scan
+    # pair a rank) and its pair wave (one pair a rank), 1024 slots all live
+    peaks = dryrun.dryrun_config().verification.peaks_capacity
+    if not {(13, peaks), (1, peaks)} <= set(shapes):
+        raise AssertionError(f"[10b] the kernel was not held at the dry "
+                             f"run's shapes: {shapes}")
 
     gap = _same_constraints("[10b] LoopCloser(mesh) waves",
                             (r0["waves_ids"], r0["waves_t_be"]),
@@ -1529,6 +1625,28 @@ def phase_parallel_ranks(overrides, loops, one, dev):
     if x.shape != (13 * TRAIN_PAIRS, 6) or not np.isfinite(x).all() or \
             not res["training"]["p_aligned"] > res["training"]["p_perturbed"]:
         raise AssertionError(f"[10b] training step: {res['training']}")
+    # batched odometry, one sequence a rank, against phase 9's B = 2 run in
+    # one process on the same images
+    got = np.swapaxes(r0["odo_poses"], 0, 1)
+    gap_m, gap_rad = max(_pose_gap(got[b], pair["poses"][b])
+                         for b in range(2))
+    res["odometry"] = dict(
+        frames=int(got.shape[1]), bit_equal=bool(np.array_equal(
+            got, pair["poses"])), gap_m=gap_m, gap_rad=gap_rad,
+        frames_per_s=2 * (got.shape[1] - 1) / max(
+            float(o["odometry_s"]) for o in outs))
+    if not (gap_m <= POSE_ATOL_M and gap_rad <= POSE_ATOL_RAD):
+        raise AssertionError(f"[10b] sharded odometry: {res['odometry']}")
+    res["dryrun"] = dict(
+        launches_per_rank=[int(o["dryrun_launches"]) for o in outs],
+        **{step: dict(s_per_rank=[float(o[f"dryrun_{step}_s"])
+                                  for o in outs],
+                      launches_per_rank=[int(o[f"dryrun_{step}_launches"])
+                                         for o in outs])
+           for step in dryrun.STEPS})
+    if r0["dryrun_x"].shape != (13 * RANKS, 6) or \
+            min(res["dryrun"]["launches_per_rank"]) <= 0:
+        raise AssertionError(f"[10b] dry run: {res['dryrun']}")
     log(f"[10b] {json.dumps(res)}")
     return res
 
@@ -1568,20 +1686,24 @@ def phase_sweep():
     return res
 
 
-def phase_parallel(cfg, graph, loops, overrides=()):
+def phase_parallel(cfg, graph, loops, pair, overrides=()):
     """Phase 10 on phase 4's configuration (``overrides`` of the defaults),
-    checkpoint and loop closer; returns its results and its CorAl launches
-    (this process's and every rank's)."""
+    checkpoint and loop closer, and phase 9's B = 2 run ``pair``; returns its
+    results, the CorAl launches of the parallel path and of the dry run
+    (this process's and every rank's), and the kernel checks' error."""
     from tbv_slam_public_torch.kernels import coral_moments as cm
 
     if _config(overrides) != cfg:
         raise ValueError("the overrides do not give phase 4's configuration")
     cm.LAUNCHES = 0  # the parallel path's launches are counted from here
     one = phase_parallel_one(cfg, graph, loops)
-    ranks = phase_parallel_ranks(overrides, loops, one, torch.device("cuda"))
+    ranks = phase_parallel_ranks(overrides, loops, one, torch.device("cuda"),
+                                 pair)
     sweep = phase_sweep()
     launches = cm.LAUNCHES + sum(ranks["coral_launches_per_rank"])
-    return dict(one_rank=one, two_ranks=ranks, sweep=sweep), launches, \
+    dry = one["dryrun"]["launches"] + sum(
+        ranks["dryrun"]["launches_per_rank"])
+    return dict(one_rank=one, two_ranks=ranks, sweep=sweep), launches, dry, \
         ranks["kernel_checks"]["max_abs_err"]
 
 
@@ -1607,9 +1729,12 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     marks = [t_start]
 
+    phase_s = {}
+
     def done(tag):
         marks.append(time.perf_counter())
-        log(f"[{tag}] phase took {marks[-1] - marks[-2]:.1f} s")
+        phase_s[tag] = marks[-1] - marks[-2]
+        log(f"[{tag}] phase took {phase_s[tag]:.1f} s")
 
     smi, sm_hz = phase_build()
     k = phase_kernels(sm_hz)
@@ -1620,22 +1745,24 @@ def main(argv=None) -> int:
         args.frames)
     real = phase_real_clouds(loops, sm_hz)
     done("4")
-    phase_solvers(phase_pgo())
+    schur_twice = phase_solvers(phase_pgo())
     done("5-6")
     online_launches, training = phase_online(images, gt, cfg,
                                              plain_trajectory, sm_hz)
     done("7")
     variants = phase_variants(images, gt, cfg)
     done("8")
-    batched = phase_batched(images, gt, cfg, frame_poses)
+    batched, pair = phase_batched(images, gt, cfg, frame_poses)
     rest = phase_rest(images, cfg, loops)
     done("9")
-    parallel, parallel_launches, parallel_err = phase_parallel(cfg, graph,
-                                                               loops)
+    parallel, parallel_launches, dry_launches, parallel_err = \
+        phase_parallel(cfg, graph, loops, pair)
     done("10")
     by_path = dict(offline=launches, online=online_launches,
-                   evaluate_scans=scan_launches, parallel=parallel_launches)
-    launches += online_launches + scan_launches + parallel_launches
+                   evaluate_scans=scan_launches, parallel=parallel_launches,
+                   dryrun=dry_launches)
+    launches += online_launches + scan_launches + parallel_launches \
+        + dry_launches
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "coral_moments", "route": "cuda",
@@ -1651,7 +1778,8 @@ def main(argv=None) -> int:
         "launches_by_path": by_path,
         "keyframe_clouds": real, "training_cloud": training}],
         "variants": variants, "batched": batched, "rest": rest,
-        "parallel": parallel}))
+        "schur_twice": schur_twice, "parallel": parallel,
+        "phase_s": phase_s}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,26 @@
 """SE(2) pose algebra on tensors ``[..., 3]`` = (x, y, theta).
 
 Port of ``tbv_slam_public_tpu.core.se2``; every function broadcasts over
-leading batch dimensions.  The ``_np`` helpers are host-side NumPy for the
-keyframe bookkeeping loops.
+leading batch dimensions.  Sums of products are rounded as the reference's
+compiled program rounds them: a product that feeds an add is fused into it
+(the first one where both operands are products; ``core.refmath.fma``).
+The ``_np`` helpers are host-side NumPy for the keyframe bookkeeping
+loops.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .refmath import fma
+
 
 def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
-    """Wrap angles to (-pi, pi]."""
-    return torch.atan2(torch.sin(theta), torch.cos(theta))
+    """Wrap angles to (-pi, pi].  The atan2 runs in float64: torch's float32
+    atan2 on the CPU rounds a tensor's vectorised body and its tail
+    differently, so a row's angle would depend on the rows beside it."""
+    return torch.atan2(torch.sin(theta).double(),
+                       torch.cos(theta).double()).to(theta.dtype)
 
 
 def rotmat(theta: torch.Tensor) -> torch.Tensor:
@@ -28,16 +36,16 @@ def identity(dtype=torch.float32, device=None) -> torch.Tensor:
 def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pose composition ``a * b`` (apply b, then a). Shapes broadcast."""
     ca, sa = torch.cos(a[..., 2]), torch.sin(a[..., 2])
-    x = a[..., 0] + ca * b[..., 0] - sa * b[..., 1]
-    y = a[..., 1] + sa * b[..., 0] + ca * b[..., 1]
+    x = fma(-sa, b[..., 1], fma(ca, b[..., 0], a[..., 0]))
+    y = fma(ca, b[..., 1], fma(sa, b[..., 0], a[..., 1]))
     t = wrap_angle(a[..., 2] + b[..., 2])
     return torch.stack([x, y, t], -1)
 
 
 def inverse(a: torch.Tensor) -> torch.Tensor:
     c, s = torch.cos(a[..., 2]), torch.sin(a[..., 2])
-    x = -(c * a[..., 0] + s * a[..., 1])
-    y = -(-s * a[..., 0] + c * a[..., 1])
+    x = -fma(c, a[..., 0], s * a[..., 1])
+    y = -fma(c, a[..., 1], -(s * a[..., 0]))
     return torch.stack([x, y, -a[..., 2]], -1)
 
 
@@ -46,32 +54,36 @@ def relative(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return compose(inverse(a), b)
 
 
+def _rotated(c, s, vx, vy):
+    """(c vx - s vy, s vx + c vy)."""
+    return fma(c, vx, -(s * vy)), fma(s, vx, c * vy)
+
+
 def apply(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Transform points ``[..., N, 2]`` by pose ``[..., 3]``."""
     c = torch.cos(pose[..., 2])[..., None]
     s = torch.sin(pose[..., 2])[..., None]
-    px, py = points[..., 0], points[..., 1]
-    x = c * px - s * py + pose[..., 0][..., None]
-    y = s * px + c * py + pose[..., 1][..., None]
-    return torch.stack([x, y], -1)
+    x, y = _rotated(c, s, points[..., 0], points[..., 1])
+    return torch.stack([x + pose[..., 0][..., None],
+                        y + pose[..., 1][..., None]], -1)
 
 
 def rotate(pose: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     """Rotate direction vectors ``[..., N, 2]`` by a pose's rotation."""
     c = torch.cos(pose[..., 2])[..., None]
     s = torch.sin(pose[..., 2])[..., None]
-    vx, vy = vecs[..., 0], vecs[..., 1]
-    return torch.stack([c * vx - s * vy, s * vx + c * vy], -1)
+    return torch.stack(_rotated(c, s, vecs[..., 0], vecs[..., 1]), -1)
 
 
 def interpolate(a: torch.Tensor, b: torch.Tensor, factor) -> torch.Tensor:
     """Linear interpolation from a (factor=0) to b (factor=1): linear in
     translation, shortest arc in angle (the reference's slerp + lerp for
     planar motion)."""
+    f = torch.as_tensor(factor, dtype=a.dtype, device=a.device)
     dt = wrap_angle(b[..., 2] - a[..., 2])
-    x = a[..., 0] + (b[..., 0] - a[..., 0]) * factor
-    y = a[..., 1] + (b[..., 1] - a[..., 1]) * factor
-    t = wrap_angle(a[..., 2] + dt * factor)
+    x = fma(b[..., 0] - a[..., 0], f, a[..., 0])
+    y = fma(b[..., 1] - a[..., 1], f, a[..., 1])
+    t = wrap_angle(fma(dt, f, a[..., 2]))
     return torch.stack([x, y, t], -1)
 
 

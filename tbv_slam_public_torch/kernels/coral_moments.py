@@ -32,60 +32,105 @@ LAUNCHES = 0
 _MAX_ROWS = 65535  # gridDim.y
 
 
-def _live_first(mask):
-    """Slot indices [M, L] of each row's live slots in slot order, then dead
-    ones; L is the largest live count of any row."""
-    order = torch.sort(mask.to(torch.uint8), dim=1, descending=True,
-                       stable=True)[1]
-    return order[:, :int(mask.sum(1).max())] if mask.shape[1] else order
+#: the reference's compiled CPU program splits every sum over a cloud's
+#: slots into sums over windows of this many slots (the row padded evenly
+#: on both ends to whole windows), then windows of those sums, until at most
+#: this many remain
+_WINDOW = 32
 
 
 def neighbor_moments_reference(queries, qmask, points, pmask, radius,
                                chunk_bytes: int = 1 << 28):
-    """Plain PyTorch version (``ops/coral._neighbor_moments`` of the reference
-    with the pair axis written out) over live slots only: each row's live
-    queries and live points are gathered first, the [m, Lq, Lp] relative
-    positions are formed on them (chunked over M so a chunk stays under
-    ``chunk_bytes``), and the moments are scattered back into zeros.  Dead
-    slots contribute nothing in the reference either, so only the order of
-    the float32 sums differs from the dense form.
+    """Plain PyTorch version of the moments, summed as the reference's
+    compiled CPU program sums them (``ops/coral._neighbor_moments`` of the
+    reference with the pair axis written out).
+
+    One row at a time, over its live slots only: a row's live queries and
+    live points are gathered, the [Lq, Lp] relative positions are formed on
+    them (chunked over the queries so a chunk stays under ``chunk_bytes``),
+    and each query's neighbours are taken in slot order (the other slots'
+    terms are exact zeros in the reference).  Σ(p−q)(p−q)ᵀ is the
+    reference's dot loop: one fused multiply-add a neighbour, in slot
+    order.  Σ(p−q) is its windowed sum (:data:`_WINDOW`): in slot order
+    within a window, then over the windows in order.  So a row's moments
+    depend on nothing but that row, as each pair of the reference's ``vmap``
+    is independent.  The radius gate is the kernel's FMA-free distance, so
+    that the counts stay equal to the kernel's.
 
     queries [M, Q, 2], qmask [M, Q], points [M, P, 2], pmask [M, P] ->
     (count [M, Q], sum_rel [M, Q, 2], sum_sq [M, Q, 2, 2]), float32."""
     m, q = qmask.shape
+    n_slots = pmask.shape[1]
     dt, dev = queries.dtype, queries.device
     count = torch.zeros((m, q), dtype=dt, device=dev)
     sum_rel = torch.zeros((m, q, 2), dtype=dt, device=dev)
     sum_sq = torch.zeros((m, q, 2, 2), dtype=dt, device=dev)
-    if m == 0 or q == 0:
-        return count, sum_rel, sum_sq
-    qi, pi = _live_first(qmask), _live_first(pmask)
-    lq, lp = qi.shape[1], pi.shape[1]
-    if lq == 0 or lp == 0:
-        return count, sum_rel, sum_sq
-    qs = torch.gather(queries, 1, qi[..., None].expand(-1, -1, 2))
-    qm = torch.gather(qmask, 1, qi)
-    ps = torch.gather(points, 1, pi[..., None].expand(-1, -1, 2))
-    pm = torch.gather(pmask, 1, pi)
-    step = max(1, chunk_bytes // (lq * lp * 2 * 4))
-    for lo in range(0, m, step):
-        sl = slice(lo, lo + step)
-        rx = ps[sl, None, :, 0] - qs[sl, :, None, 0]  # [m, Lq, Lp]
-        ry = ps[sl, None, :, 1] - qs[sl, :, None, 1]
-        d2 = rx * rx + ry * ry
-        fm = ((d2 <= radius * radius) & pm[sl, None, :]
-              & qm[sl, :, None]).to(dt)
-        rx, ry = rx * fm, ry * fm
-        sxy = (rx * ry).sum(-1)
-        idx = qi[sl]
-        count[sl].scatter_(1, idx, fm.sum(-1))
-        sum_rel[sl].scatter_(1, idx[..., None].expand(-1, -1, 2),
-                             torch.stack([rx.sum(-1), ry.sum(-1)], -1))
-        sum_sq[sl].scatter_(
-            1, idx[..., None, None].expand(-1, -1, 2, 2),
-            torch.stack([torch.stack([(rx * rx).sum(-1), sxy], -1),
-                         torch.stack([sxy, (ry * ry).sum(-1)], -1)], -2))
+    levels, width = [], n_slots  # each window level's leading padding
+    while width > _WINDOW:
+        nb = -(-width // _WINDOW)
+        levels.append((nb * _WINDOW - width) // 2)
+        width = nb
+    for i in range(m):
+        qi = torch.nonzero(qmask[i]).squeeze(1)
+        pslot = torch.nonzero(pmask[i]).squeeze(1)
+        lq, lp = qi.shape[0], pslot.shape[0]
+        if lq == 0 or lp == 0:
+            continue
+        ps = points[i, pslot]
+        step = max(1, chunk_bytes // (lp * 2 * 4))
+        for lo in range(0, lq, step):
+            idx = qi[lo:lo + step]
+            n, s1, s2 = _ordered_moments(queries[i, idx], ps, pslot, radius,
+                                         levels)
+            count[i, idx], sum_rel[i, idx], sum_sq[i, idx] = n, s1, s2
     return count, sum_rel, sum_sq
+
+
+def _ordered_moments(qs, ps, pslot, radius, levels):
+    """Moments of queries qs [l, 2] over points ps [Lp, 2] (their slots
+    ``pslot``), summed in the reference's order (see
+    :func:`neighbor_moments_reference`)."""
+    l, dt = qs.shape[0], qs.dtype
+    rx = ps[None, :, 0] - qs[:, None, 0]  # [l, Lp]
+    ry = ps[None, :, 1] - qs[:, None, 1]
+    near = rx * rx + ry * ry <= radius * radius
+    count = near.sum(1)
+    k = int(count.max())
+    # each query's neighbours in slot order: [l, K], zero terms past its count
+    row, col = torch.nonzero(near, as_tuple=True)
+    pos = torch.arange(row.shape[0], device=qs.device) \
+        - (torch.cumsum(count, 0) - count)[row]
+    rel = torch.zeros((l, k, 2), dtype=dt, device=qs.device)
+    rel[row, pos] = torch.stack([rx[row, col], ry[row, col]], -1)
+    slot = torch.zeros((l, k), dtype=pslot.dtype, device=qs.device)
+    slot[row, pos] = pslot[col]
+    # Σ(p−q)(p−q)ᵀ: xx, xy, yy, one rounding a step (the float64 products
+    # are exact)
+    prod = rel.double()[..., [0, 0, 1]] * rel.double()[..., [0, 1, 1]]
+    sq = torch.zeros((l, 3), dtype=dt, device=qs.device)
+    for j in range(k):
+        sq = (prod[:, j] + sq).float()
+    # Σ(p−q): acc[0] sums within the current window, acc[v] the sums of
+    # level-v windows; a neighbour in a new window first hands each finished
+    # level's sum up.  window[v] [l, K]: each neighbour's level-v window.
+    window = [slot]
+    for pad in levels:
+        window.append((window[-1] + pad) // _WINDOW)
+    acc = [torch.zeros((l, 2), dtype=dt, device=qs.device)
+           for _ in range(len(levels) + 1)]
+    for j in range(k):
+        if j:
+            for v in range(1, len(levels) + 1):
+                new = (window[v][:, j] != window[v][:, j - 1])[:, None]
+                acc[v] = torch.where(new, acc[v] + acc[v - 1], acc[v])
+                acc[v - 1] = torch.where(new, torch.zeros_like(acc[v - 1]),
+                                         acc[v - 1])
+        acc[0] = acc[0] + rel[:, j]
+    for v in range(1, len(levels) + 1):
+        acc[v] = acc[v] + acc[v - 1]
+    sum_sq = torch.stack([torch.stack([sq[:, 0], sq[:, 1]], -1),
+                          torch.stack([sq[:, 1], sq[:, 2]], -1)], -2)
+    return count.to(dt), acc[-1], sum_sq
 
 
 def pair_moments_reference(src_xy, src_mask, ref_xy, ref_mask, radius):

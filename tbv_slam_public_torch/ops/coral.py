@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.refmath import fma
 from ..core.types import PointCloud
 from ..kernels.coral_moments import pair_moments
 
@@ -24,24 +25,41 @@ class CoralResult(NamedTuple):
     valid: torch.Tensor  # [M] bool, overlap >= 0.1
 
 
+# The reference's compiled program contracts each a*b + c below into one
+# fused multiply-add.  On collinear neighbourhoods (k-strongest peaks on one
+# azimuth ray) the covariance determinant is rounding noise, so two
+# roundings instead of one change its sign and size, and the point passes
+# the entropy gate in one package and not in the other; every such sum is
+# therefore rounded once here, on both devices.
+
+
+def _det2x2(c):
+    """c00 c11 - c01 c10 as fma(c00, c11, -(c01 c10))."""
+    return fma(c[..., 0, 0], c[..., 1, 1], -(c[..., 0, 1] * c[..., 1, 0]))
+
+
 def _mean_cov_from_moments(n, s1, s2):
-    """Sample mean and covariance (1/(n-1)) from query-centred moments."""
+    """Sample mean and covariance (1/(n-1)) from query-centred moments:
+    s2 - n m m^T as fma(-(n m_i), m_j, s2)."""
     mean = s1 / torch.clamp(n, min=1.0)[..., None]
-    centered = s2 - n[..., None, None] * mean[..., :, None] * mean[..., None, :]
+    nm = n[..., None] * mean
+    centered = fma(-nm[..., :, None], mean[..., None, :], s2)
     cov = centered / torch.clamp(n - 1.0, min=1.0)[..., None, None]
     return mean, cov
 
 
 def _entropy_from_moments(n, s1, s2, eps):
     _, cov = _mean_cov_from_moments(n, s1, s2)
-    det = cov[..., 0, 0] * cov[..., 1, 1] - cov[..., 0, 1] * cov[..., 1, 0]
-    return 0.5 * torch.log(2.0 * math.pi * math.e * det + eps), det
+    det = _det2x2(cov)
+    arg = fma(torch.full_like(det, 2.0 * math.pi * math.e), det,
+               torch.full_like(det, eps))
+    return 0.5 * torch.log(arg), det
 
 
 def _kl_divergence_2d(u0, s0, u1, s1):
     """KL((u0, S0) || (u1, S1)) with the reference's k=3 constant."""
-    det0 = s0[..., 0, 0] * s0[..., 1, 1] - s0[..., 0, 1] * s0[..., 1, 0]
-    det1 = s1[..., 0, 0] * s1[..., 1, 1] - s1[..., 0, 1] * s1[..., 1, 0]
+    det0 = _det2x2(s0)
+    det1 = _det2x2(s1)
     inv_det1 = 1.0 / torch.where(det1 == 0.0, torch.ones_like(det1), det1)
     s1i = torch.stack([
         torch.stack([s1[..., 1, 1], -s1[..., 0, 1]], -1),

@@ -5,6 +5,15 @@ Port of ``tbv_slam_public_tpu.ops.features``: voxel binning (here an
 top-C occupied voxels (stable descending sort, lower voxel id first on equal
 counts as ``lax.top_k``), masked radius statistics in coordinates centred on
 each voxel centroid, and the closed-form 2x2 eigen gates.
+
+The float32 arithmetic is rounded as the reference's compiled CPU program
+rounds it (read from its optimized HLO and machine code): the radius gate's
+two-term sums, the weighted mean and second moment (a dot loop that adds one
+point at a time, in point order, by fused multiply-add), and the covariance
+diagonal, the discriminant and the eigenvector norms inside the eigen gates
+(each a*b + c with a single rounding).  What is left is written down in
+ROADMAP.md, section 3: the voxel sums' order, and the reference's own
+log1p.
 """
 from __future__ import annotations
 
@@ -12,22 +21,28 @@ import torch
 
 from ..core.config import FeatureConfig
 from ..core.device import constant, deterministic
+from ..core.refmath import fma
 from ..core.types import Cells, PointCloud
 
 
 def eigh2x2(cov: torch.Tensor):
     """Closed-form eigendecomposition of symmetric 2x2 matrices.
 
-    Returns (lmin, lmax, vmin) with vmin the unit eigenvector of lmin."""
+    Returns (lmin, lmax, vmin) with vmin the unit eigenvector of lmin.  The
+    discriminant 0.25 (a - c)^2 + b^2 and the squared norms of the two
+    candidate eigenvectors are each one fused multiply-add, as the
+    reference's compiled program computes them."""
     a, b, c = cov[..., 0, 0], cov[..., 0, 1], cov[..., 1, 1]
     half_tr = 0.5 * (a + c)
-    disc = torch.sqrt(torch.clamp(0.25 * (a - c) ** 2 + b * b, min=0.0))
+    d = a - c
+    disc = torch.sqrt(torch.clamp(
+        fma(d * d, torch.full_like(d, 0.25), b * b), min=0.0))
     lmin = half_tr - disc
     lmax = half_tr + disc
     v1 = torch.stack([b, lmin - a], -1)
     v2 = torch.stack([lmin - c, b], -1)
-    n1 = (v1 * v1).sum(-1)
-    n2 = (v2 * v2).sum(-1)
+    n1 = _sqnorm(v1)
+    n2 = _sqnorm(v2)
     v = torch.where((n1 > n2)[..., None], v1, v2)
     e0 = constant((1.0, 0.0), cov.dtype, cov.device)
     e1 = constant((0.0, 1.0), cov.dtype, cov.device)
@@ -38,9 +53,23 @@ def eigh2x2(cov: torch.Tensor):
     return lmin, lmax, v
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a*b + c with a single rounding (through float64)."""
-    return (a.double() * b.double() + c.double()).float()
+def _sqnorm(v: torch.Tensor) -> torch.Tensor:
+    """v0^2 + v1^2 of [..., 2] as fma(v1, v1, v0 v0)."""
+    return fma(v[..., 1], v[..., 1], v[..., 0] * v[..., 0])
+
+
+def _dot_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_k a[:, k] * b[:, k] of [C, K, W] operands, added one k at a time
+    from zero, each step a fused multiply-add rounded once to float32: the
+    reference's compiled dot loop over the points, here over each cell's
+    neighbours in point order (the other points' terms are exact zeros).
+    The float64 products are exact."""
+    prod = a.double() * b.double()
+    acc = torch.zeros(prod.shape[:1] + prod.shape[2:], dtype=a.dtype,
+                      device=a.device)
+    for k in range(prod.shape[1]):
+        acc = (prod[:, k] + acc).float()
+    return acc
 
 
 def _gate_sqdist(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -50,9 +79,9 @@ def _gate_sqdist(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     cancellation error, so any other rounding moves points across the
     radius gate and changes the cells."""
     c0, c1, p0, p1 = c[:, 0:1], c[:, 1:2], p[None, :, 0], p[None, :, 1]
-    cc = _fma(c1, c1, c0 * c0)
-    pp = _fma(p1, p1, p0 * p0)
-    dot = _fma(c1, p1, c0 * p0)
+    cc = fma(c1, c1, c0 * c0)
+    pp = fma(p1, p1, p0 * p0)
+    dot = fma(c1, p1, c0 * p0)
     return (cc + pp) - 2.0 * dot
 
 
@@ -92,15 +121,30 @@ def compute_cells(cloud: PointCloud, cfg: FeatureConfig,
     wm = torch.where(nbr, w[None, :], torch.zeros((), dtype=dt, device=dev))
     w_sum = wm.sum(1)
     w_norm = wm / torch.clamp(w_sum, min=1e-12)[:, None]
-    q = xy[None, :, :] - centroid[:, None, :]  # [C, P, 2]
-    mu_local = torch.einsum("cp,cpi->ci", w_norm, q)
-    qq = torch.einsum("cp,cpi,cpj->cij", w_norm, q, q)
+    # each cell's neighbours in point order ([C, K], K the most any cell has;
+    # the slots past a cell's count hold weight 0)
+    k = int(nbr_count.max()) if nbr.shape[0] else 0
+    order = torch.sort(nbr.to(torch.uint8), dim=1, descending=True,
+                       stable=True)[1][:, :k]
+    wk = torch.gather(w_norm, 1, order)
+    q = xy[order] - centroid[:, None, :]  # [C, K, 2]
+    wq = wk[..., None] * q
+    # mu = sum w q and qq = sum (w q_i) q_j, in one loop over k
+    acc = _dot_in_order(torch.stack([wk, wk, wq[..., 0], wq[..., 0],
+                                     wq[..., 1], wq[..., 1]], -1),
+                        q.repeat(1, 1, 3))
+    mu_local, qq = acc[:, :2], acc[:, 2:].reshape(-1, 2, 2)
     cov = qq - mu_local[:, :, None] * mu_local[:, None, :]
     cov = 0.5 * (cov + cov.transpose(-1, -2))
     mean = centroid + mu_local
 
-    # 4. eigen-based normal + gates
-    lmin, lmax, normal = eigh2x2(cov)
+    # 4. eigen-based normal + gates, on the covariance as the reference's
+    # gate computations form it: its diagonal fma(-mu_i, mu_i, qq_ii) (the
+    # product has one use there), the off-diagonal as above
+    diag = fma(-mu_local, mu_local, torch.diagonal(qq, dim1=-2, dim2=-1))
+    cov_g = torch.stack([torch.stack([diag[:, 0], cov[:, 0, 1]], -1),
+                         torch.stack([cov[:, 1, 0], diag[:, 1]], -1)], -2)
+    lmin, lmax, normal = eigh2x2(cov_g)
     cond = torch.abs(lmax / torch.where(torch.abs(lmin) > 1e-20, lmin,
                                         torch.full_like(lmin, 1e-20)))
     det = lmax * lmin
@@ -108,7 +152,8 @@ def compute_cells(cloud: PointCloud, cfg: FeatureConfig,
         (lmax > 0)
     planarity = torch.log1p(cond / 2.0)
     org = constant((float(origin[0]), float(origin[1])), dt, dev)
-    flip = (normal * (org[None, :] - mean)).sum(-1) < 0
+    flip = fma(normal[:, 1], org[1] - mean[:, 1],
+                normal[:, 0] * (org[0] - mean[:, 0])) < 0
     normal = torch.where(flip[:, None], -normal, normal)
 
     valid = sel_occupied & (nbr_count >= cfg.min_neighbors) & cov_ok & \

@@ -16,10 +16,13 @@ linear solvers:
 - ``cg``: matrix-free block-Jacobi preconditioned conjugate gradients with a
   fixed trip count and an ``active`` mask (no host read inside the loop).
 
-Edge-to-node sums are ``index_add_`` (the reference's one-hot products served
-its matrix unit).  The segment interiors keep the reference's explicit
-inverse: it is computed once per LM iteration by ``cholesky_solve`` against
-the identity, and every one of the 4-6 chain solves of that iteration
+Edge-to-node sums (the reference's one-hot products served its matrix unit)
+add each node's values one at a time in index order, as a sequential
+``index_add_`` does, in an order fixed once per graph (``_GraphSums``): the
+card gives the CPU's bits, run after run, where float atomics would make two
+runs differ in the last bits.  The segment interiors keep the reference's
+explicit inverse: it is computed once per LM iteration by ``cholesky_solve``
+against the identity, and every one of the 4-6 chain solves of that iteration
 (batched Woodbury right-hand sides, refinement passes) is then a batched
 matrix product; the float32 error of the explicit inverse is removed by the
 Jacobi equilibration and the refinement passes, as in the reference.  A
@@ -27,7 +30,7 @@ failed factorisation yields NaN steps, whose cost is never accepted.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,9 +53,12 @@ def default_sqrt_info(etype: torch.Tensor, cfg: PGOConfig) -> torch.Tensor:
     base = torch.sqrt(torch.tensor(
         [1.0 / cfg.odom_vxx, 1.0 / cfg.odom_vyy, 1.0 / cfg.odom_vtt],
         dtype=torch.float32, device=etype.device))
+    # 1 / sqrt(loop_scaling) rounded as the reference rounds it: the square
+    # root in float32, then the quotient in float32
+    loop = 1.0 / torch.sqrt(torch.tensor(cfg.loop_scaling, dtype=torch.float32,
+                                         device=etype.device))
     scale = torch.where(etype == ODOMETRY, torch.ones((), device=etype.device),
-                        torch.full((), 1.0 / np.sqrt(cfg.loop_scaling),
-                                   device=etype.device)).float()
+                        loop).float()
     return scale[:, None] * base[None, :]
 
 
@@ -118,19 +124,82 @@ def graph_cost(poses: torch.Tensor, edges: GraphEdges, cfg: PGOConfig):
     return 0.5 * rho.sum()
 
 
-def _gradient_and_blocks(poses, edges, cfg: PGOConfig):
-    """IRLS cost, gradient [N, 3] and the sqrt(w)-weighted Jacobian blocks."""
+class _Sums(NamedTuple):
+    """The order of ``out[idx] += vals`` along axis 0: the distinct targets,
+    ascending, and in column s of ``slots`` [K, S] the entries of target s
+    in index order, padded with E (a zero row appended to the values)."""
+    targets: torch.Tensor  # [S]
+    slots: torch.Tensor  # [K, S]
+
+
+def _sums_plan(idx: torch.Tensor) -> _Sums:
+    """The order of the sum over index ``idx`` [E]: one stable sort and one
+    host read of the largest count."""
+    e = idx.shape[0]
+    key, order = torch.sort(idx, stable=True)
+    targets, counts = torch.unique_consecutive(key, return_counts=True)
+    k = int(counts.max()) if e else 0
+    starts = torch.cumsum(counts, 0) - counts
+    pos = starts[None, :] + torch.arange(k, device=idx.device)[:, None]
+    slots = torch.where(pos < (starts + counts)[None, :],
+                        order[torch.clamp(pos, max=max(e - 1, 0))], e)
+    return _Sums(targets, slots)
+
+
+def _add_in_order(out: torch.Tensor, plan: _Sums,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """out[idx] += vals for the index of ``plan``: each target's values are
+    added one at a time in index order, as a sequential ``index_add_`` adds
+    them: one gather of the [K, S] entries, then K adds, no atomics."""
+    v = torch.cat([vals, vals.new_zeros((1,) + vals.shape[1:])])[plan.slots]
+    acc = out[plan.targets]
+    for k in range(v.shape[0]):
+        acc = acc + v[k]
+    out[plan.targets] = acc
+    return out
+
+
+class _GraphSums:
+    """The edge-to-node sums of one graph of ``n`` nodes, each in an order
+    made on its first use (``_sums_plan``) and kept for the graph's other
+    sums of that kind."""
+
+    def __init__(self, n: int, edges: GraphEdges):
+        self.n, self.edges = n, edges
+        self._plans: Dict[str, _Sums] = {}
+
+    def add(self, name: str, out: torch.Tensor,
+            index: Callable[[], torch.Tensor],
+            vals: torch.Tensor) -> torch.Tensor:
+        """out[index()] += vals; ``name`` keys the index's order."""
+        if name not in self._plans:
+            self._plans[name] = _sums_plan(index())
+        return _add_in_order(out, self._plans[name], vals)
+
+    def nodes(self, vb: torch.Tensor, ve: torch.Tensor) -> torch.Tensor:
+        """Per-node [N, ...] sums of the begin (``vb``) and end (``ve``)
+        node's per-edge values [E, ...]: the begin values first."""
+        idx = self.edges.idx
+        return self.add("nodes", vb.new_zeros((self.n,) + vb.shape[1:]),
+                        lambda: torch.cat([idx[:, 0], idx[:, 1]]),
+                        torch.cat([vb, ve]))
+
+
+def _gradient_and_blocks(poses, edges, cfg: PGOConfig, sums=None):
+    """IRLS cost, gradient [N, 3] and the sqrt(w)-weighted Jacobian blocks;
+    ``sums`` the graph's ``_GraphSums``."""
     r, Jb, Je = _edge_jacobians(poses, edges)
     rho, w = _cauchy_weights(r, edges, cfg)
     wr = w[:, None] * r
-    g = torch.zeros_like(poses)
-    g.index_add_(0, edges.idx[:, 0], torch.einsum("eij,ei->ej", Jb, wr))
-    g.index_add_(0, edges.idx[:, 1], torch.einsum("eij,ei->ej", Je, wr))
+    sums = sums or _GraphSums(poses.shape[0], edges)
+    g = sums.nodes(torch.einsum("eij,ei->ej", Jb, wr),
+                   torch.einsum("eij,ei->ej", Je, wr))
     sw = torch.sqrt(w)[:, None, None]
     return 0.5 * rho.sum(), g, (sw * Jb, sw * Je)
 
 
-def _dense_hessian(n: int, edges: GraphEdges, blocks, gauge_mask):
+def _dense_hessian(n: int, edges: GraphEdges, blocks, gauge_mask,
+                   sums=None):
     """Dense [3N, 3N] H = J^T J from the weighted 3x3 edge blocks, with
     identity rows/cols at fixed nodes (``gauge_mask`` marks FREE nodes)."""
     Jb, Je = blocks
@@ -144,40 +213,32 @@ def _dense_hessian(n: int, edges: GraphEdges, blocks, gauge_mask):
         flat.append((rows * (3 * n) + cols).reshape(-1))
         vals.append((A.transpose(-1, -2) @ B).reshape(-1))
     H = torch.zeros(9 * n * n, dtype=dt, device=dev)
-    H.index_add_(0, torch.cat(flat), torch.cat(vals))
+    sums = sums or _GraphSums(n, edges)
+    sums.add("hessian", H, lambda: torch.cat(flat), torch.cat(vals))
     H = H.reshape(3 * n, 3 * n)
     free = gauge_mask.repeat_interleave(3)
     H = H * (free[:, None] & free[None, :]).to(dt)
     return H + torch.diag((~free).to(dt))
 
 
-def _scatter_nodes(n: int, edges: GraphEdges, vb, ve):
-    """Sum per-edge values of the begin (``vb``) and end (``ve``) node,
-    [E, ...] each, into a per-node tensor [N, ...]."""
-    out = vb.new_zeros((n,) + vb.shape[1:])
-    out.index_add_(0, edges.idx[:, 0], vb)
-    out.index_add_(0, edges.idx[:, 1], ve)
-    return out
-
-
-def _hvp(v, edges, w, Jb, Je, gauge_mask):
+def _hvp(v, edges, w, Jb, Je, gauge_mask, sums=None):
     """Matrix-free H v for the cg path, v [N, 3] -> [N, 3]: edge-wise
     y_e = w (Jb v_b + Je v_e), then Jb^T y and Je^T y summed per node."""
     zero = torch.zeros((), dtype=v.dtype, device=v.device)
     v = torch.where(gauge_mask[:, None], v, zero)
     y = w[:, None] * (torch.einsum("eij,ej->ei", Jb, v[edges.idx[:, 0]])
                       + torch.einsum("eij,ej->ei", Je, v[edges.idx[:, 1]]))
-    out = _scatter_nodes(v.shape[0], edges,
-                         torch.einsum("eij,ei->ej", Jb, y),
-                         torch.einsum("eij,ei->ej", Je, y))
+    sums = sums or _GraphSums(v.shape[0], edges)
+    out = sums.nodes(torch.einsum("eij,ei->ej", Jb, y),
+                     torch.einsum("eij,ei->ej", Je, y))
     return torch.where(gauge_mask[:, None], out, zero)
 
 
-def _block_diag(n, edges, blocks, gauge_mask):
+def _block_diag(n, edges, blocks, gauge_mask, sums=None):
     """3x3 diagonal blocks [N, 3, 3] of H; identity at fixed nodes."""
     wJb, wJe = blocks
-    D = _scatter_nodes(n, edges, wJb.transpose(-1, -2) @ wJb,
-                       wJe.transpose(-1, -2) @ wJe)
+    D = (sums or _GraphSums(n, edges)).nodes(wJb.transpose(-1, -2) @ wJb,
+                                             wJe.transpose(-1, -2) @ wJe)
     eye = torch.eye(3, dtype=D.dtype, device=D.device)
     return torch.where(gauge_mask[:, None, None], D, eye)
 
@@ -216,16 +277,19 @@ def _pcg(A, precond, b, iters, tol, early_stop=False):
     return x
 
 
-def _pcg_solve(b, edges, w, Jb, Je, diag_blocks, gauge_mask, lam, iters, tol):
+def _pcg_solve(b, edges, w, Jb, Je, diag_blocks, gauge_mask, lam, iters, tol,
+               sums=None):
     """Block-Jacobi preconditioned CG on (H + lam*diag(H)) x = b, at a fixed
     trip count."""
+    sums = sums or _GraphSums(b.shape[0], edges)
     eye = torch.eye(3, dtype=b.dtype, device=b.device)
     lam_diag = lam * torch.diagonal(diag_blocks, dim1=-2, dim2=-1)  # [N, 3]
     Minv = torch.linalg.inv(diag_blocks + torch.diag_embed(lam_diag)
                             + 1e-9 * eye)
 
     def A(v):
-        return _hvp(v, edges, w, Jb, Je, gauge_mask) + lam_diag * v + 1e-9 * v
+        return _hvp(v, edges, w, Jb, Je, gauge_mask, sums) + lam_diag * v \
+            + 1e-9 * v
 
     def precond(v):
         return torch.einsum("nij,nj->ni", Minv, v)
@@ -358,7 +422,7 @@ def _is_chain(edges: GraphEdges):
             & (edges.etype == ODOMETRY) & edges.mask)
 
 
-def _chain_blocks(n, edges, wJb, wJe, gauge_mask):
+def _chain_blocks(n, edges, wJb, wJe, gauge_mask, sums=None):
     """Block-tridiagonal (D, O) of the odometry-chain part of H from
     gauge-projected whitened Jacobians: D [N, 3, 3] diagonal blocks, O
     [N, 3, 3] with O[i] coupling (i, i+1).  A node has at most two chain
@@ -366,10 +430,10 @@ def _chain_blocks(n, edges, wJb, wJe, gauge_mask):
     chain = _is_chain(edges)[:, None, None]
     cb = torch.where(chain, wJb, torch.zeros_like(wJb))
     ce = torch.where(chain, wJe, torch.zeros_like(wJe))
-    D = _scatter_nodes(n, edges, cb.transpose(-1, -2) @ cb,
-                       ce.transpose(-1, -2) @ ce)
-    O = D.new_zeros((n, 3, 3))
-    O.index_add_(0, torch.clamp(edges.idx[:, 0], max=n - 1),
+    sums = sums or _GraphSums(n, edges)
+    D = sums.nodes(cb.transpose(-1, -2) @ cb, ce.transpose(-1, -2) @ ce)
+    O = sums.add("begins", D.new_zeros((n, 3, 3)),
+                 lambda: torch.clamp(edges.idx[:, 0], max=n - 1),
                  cb.transpose(-1, -2) @ ce)
     return D, O
 
@@ -430,7 +494,7 @@ def _chain_precond_apply(prep, v, refine: bool = False):
 
 
 def _schur_solve(n, edges, blocks, gauge_mask, lam_diag, g, loop_idx,
-                 refine_level: int = 2, seg_cap: int = 16):
+                 refine_level: int = 2, seg_cap: int = 16, sums=None):
     """Direct solve of (H + damping) x = -g exploiting SLAM structure:
     H = T + U^T U, where T is the block-tridiagonal odometry-chain part
     (+ damping + gauge) and U stacks the whitened loop-edge Jacobian rows.
@@ -438,15 +502,17 @@ def _schur_solve(n, edges, blocks, gauge_mask, lam_diag, g, loop_idx,
     Woodbury: x = T^-1 b - T^-1 U^T (I + U T^-1 U^T)^-1 U T^-1 b, with one
     batched chain solve over the 3L columns of U^T and a dense Cholesky of
     the 3L x 3L capacitance.  ``loop_idx`` [L] indexes the non-chain edges;
-    slots that point at a chain edge contribute nothing."""
+    slots that point at a chain edge contribute nothing.  ``sums``, the
+    graph's ``_GraphSums``, is for one ``loop_idx``."""
     wJb, wJe = blocks
+    sums = sums or _GraphSums(n, edges)
     dt, dev = wJb.dtype, wJb.device
     zero = torch.zeros((), dtype=dt, device=dev)
     # gauge projection: zero Jacobian columns of fixed nodes
     wJb = torch.where(gauge_mask[edges.idx[:, 0]][:, None, None], wJb, zero)
     wJe = torch.where(gauge_mask[edges.idx[:, 1]][:, None, None], wJe, zero)
 
-    D, O = _chain_blocks(n, edges, wJb, wJe, gauge_mask)
+    D, O = _chain_blocks(n, edges, wJb, wJe, gauge_mask, sums)
     # damping over the FULL diagonal (chain + loops) goes into T; the
     # segment size follows the node count up to ``seg_cap``
     seg = min(seg_cap, max(4, 1 << (max(n, 2) - 1).bit_length() - 2))
@@ -466,10 +532,13 @@ def _schur_solve(n, edges, blocks, gauge_mask, lam_diag, g, loop_idx,
     # 3k..3k+2, with wJb^T at node b and wJe^T at node e
     k3 = torch.arange(3, device=dev)
     cols = 3 * torch.arange(l, device=dev)[:, None, None] + k3[None, None, :]
-    ut = torch.zeros(n * 3 * 3 * l, dtype=dt, device=dev)
-    for node, blk in ((bidx, lb), (eidx, le)):
-        flat = (node[:, None, None] * 3 + k3[None, :, None]) * (3 * l) + cols
-        ut.index_add_(0, flat.reshape(-1), blk.transpose(1, 2).reshape(-1))
+    flat = lambda node: ((node[:, None, None] * 3 + k3[None, :, None])
+                         * (3 * l) + cols).reshape(-1)
+    ut = sums.add("loop_columns", torch.zeros(n * 3 * 3 * l, dtype=dt,
+                                              device=dev),
+                  lambda: torch.cat([flat(bidx), flat(eidx)]),
+                  torch.cat([lb.transpose(1, 2).reshape(-1),
+                             le.transpose(1, 2).reshape(-1)]))
     tut = solve_t(ut.reshape(n, 3, 3 * l))  # T^-1 U^T
 
     def apply_u(x):  # x [N, 3, K] -> U x [3L, K]
@@ -487,8 +556,8 @@ def _schur_solve(n, edges, blocks, gauge_mask, lam_diag, g, loop_idx,
         xv = torch.where(gauge_mask[:, None], x, zero)
         y = (torch.einsum("eri,ei->er", wJb, xv[edges.idx[:, 0]])
              + torch.einsum("eri,ei->er", wJe, xv[edges.idx[:, 1]]))
-        out = _scatter_nodes(n, edges, torch.einsum("eri,er->ei", wJb, y),
-                             torch.einsum("eri,er->ei", wJe, y))
+        out = sums.nodes(torch.einsum("eri,er->ei", wJb, y),
+                         torch.einsum("eri,er->ei", wJe, y))
         return torch.where(gauge_mask[:, None], out + lam_diag * xv, xv)
 
     b = -g
@@ -498,30 +567,33 @@ def _schur_solve(n, edges, blocks, gauge_mask, lam_diag, g, loop_idx,
     return torch.where(gauge_mask[:, None], x, zero)
 
 
-def _laplacian_solve(n, edges, free, w, rhs_edge):
+def _laplacian_solve(n, edges, free, w, rhs_edge, sums=None):
     """Solve (D^T W D) x = D^T (w * rhs) over the edge incidence D (end minus
     begin), gauge-fixed at non-free nodes."""
     dev, dt = w.device, w.dtype
     b, e = edges.idx[:, 0], edges.idx[:, 1]
-    lap = torch.zeros(n * n, dtype=dt, device=dev)
-    lap.index_add_(0, torch.cat([b * n + b, e * n + e, b * n + e, e * n + b]),
+    sums = sums or _GraphSums(n, edges)
+    lap = sums.add("laplacian", torch.zeros(n * n, dtype=dt, device=dev),
+                   lambda: torch.cat([b * n + b, e * n + e, b * n + e,
+                                      e * n + b]),
                    torch.cat([w, w, -w, -w]))
     lap = lap.reshape(n, n)
     lap = lap * (free[:, None] * free[None, :]) + torch.diag(1.0 - free)
     wr = w[:, None] * rhs_edge
-    rhs = torch.zeros((n, rhs_edge.shape[1]), dtype=dt, device=dev)
-    rhs.index_add_(0, e, wr)
-    rhs.index_add_(0, b, -wr)
+    rhs = sums.add("incidence", torch.zeros((n, rhs_edge.shape[1]), dtype=dt,
+                                            device=dev),
+                   lambda: torch.cat([e, b]), torch.cat([wr, -wr]))
     rhs = rhs * free[:, None]
     chol, _ = torch.linalg.cholesky_ex(
         lap + 1e-6 * torch.eye(n, dtype=dt, device=dev))
     return torch.cholesky_solve(rhs, chol)
 
 
-def _lago_initialize(poses, gauge_mask, edges: GraphEdges):
+def _lago_initialize(poses, gauge_mask, edges: GraphEdges, sums=None):
     """Two-stage linear initialisation (LAGO-style): orientations from a
     graph-Laplacian solve, then positions given orientations."""
     n = poses.shape[0]
+    sums = sums or _GraphSums(n, edges)
     free = gauge_mask.to(poses.dtype)
     zero = torch.zeros((), dtype=poses.dtype, device=poses.device)
     info_diag = (edges.sqrt_info ** 2).sum(1)  # [E, 3]
@@ -529,7 +601,8 @@ def _lago_initialize(poses, gauge_mask, edges: GraphEdges):
     pb = poses[edges.idx[:, 0]]
     pe = poses[edges.idx[:, 1]]
     r_th = se2.wrap_angle(pe[:, 2] - pb[:, 2] - edges.meas[:, 2])
-    delta = _laplacian_solve(n, edges, free, w_th, -r_th[:, None])[:, 0]
+    delta = _laplacian_solve(n, edges, free, w_th, -r_th[:, None],
+                             sums)[:, 0]
     theta = se2.wrap_angle(poses[:, 2] + delta)
 
     tb = theta[edges.idx[:, 0]]
@@ -541,7 +614,7 @@ def _lago_initialize(poses, gauge_mask, edges: GraphEdges):
     cur = poses[:, :2]
     rhs = torch.stack([dx, dy], -1) - (cur[edges.idx[:, 1]]
                                        - cur[edges.idx[:, 0]])
-    p = cur + _laplacian_solve(n, edges, free, w_xy, rhs)
+    p = cur + _laplacian_solve(n, edges, free, w_xy, rhs, sums)
     out = torch.cat([p, theta[:, None]], 1)
     return torch.where(gauge_mask[:, None], out, poses)
 
@@ -578,10 +651,11 @@ def optimize(poses: torch.Tensor, node_mask: torch.Tensor, edges: GraphEdges,
         loop_idx = torch.argsort((~is_loop).to(torch.uint8),
                                  stable=True)[:loop_cap]
 
+    sums = _GraphSums(n, edges)  # every edge sum's order, made once
     cost0 = graph_cost(poses, edges, cfg)
     cur = cost0
     if cfg.lago_init:
-        cand = _lago_initialize(poses, gauge_mask, edges)
+        cand = _lago_initialize(poses, gauge_mask, edges, sums)
         cand_cost = graph_cost(cand, edges, cfg)
         better = cand_cost < cost0
         poses = torch.where(better, cand, poses)
@@ -594,10 +668,10 @@ def optimize(poses: torch.Tensor, node_mask: torch.Tensor, edges: GraphEdges,
 
     def linearize(p):
         """The normal equations at ``p`` as a function lam -> LM step."""
-        _, g, blocks = _gradient_and_blocks(p, edges, cfg)
+        _, g, blocks = _gradient_and_blocks(p, edges, cfg, sums)
         gm = torch.where(gauge_mask[:, None], g, zero)
         if solver == "cholesky":
-            H = _dense_hessian(n, edges, blocks, gauge_mask)
+            H = _dense_hessian(n, edges, blocks, gauge_mask, sums)
             hdiag = torch.diagonal(H)
             eye = torch.eye(3 * n, dtype=dt, device=dev)
 
@@ -608,24 +682,23 @@ def optimize(poses: torch.Tensor, node_mask: torch.Tensor, edges: GraphEdges,
                                              chol).reshape(n, 3)
         elif solver == "schur":
             wJb, wJe = blocks
-            hdiag = _scatter_nodes(n, edges,
-                                   torch.einsum("eri,eri->ei", wJb, wJb),
-                                   torch.einsum("eri,eri->ei", wJe, wJe))
+            hdiag = sums.nodes(torch.einsum("eri,eri->ei", wJb, wJb),
+                               torch.einsum("eri,eri->ei", wJe, wJe))
 
             def solve(lam):
                 return _schur_solve(n, edges, blocks, gauge_mask, lam * hdiag,
                                     gm, loop_idx,
                                     refine_level=cfg.schur_refine,
-                                    seg_cap=cfg.schur_seg)
+                                    seg_cap=cfg.schur_seg, sums=sums)
         else:
             r, Jb, Je = _edge_jacobians(p, edges)
             _, w = _cauchy_weights(r, edges, cfg)
-            diag_blocks = _block_diag(n, edges, blocks, gauge_mask)
+            diag_blocks = _block_diag(n, edges, blocks, gauge_mask, sums)
 
             def solve(lam):
                 step = -_pcg_solve(gm, edges, w, Jb, Je, diag_blocks,
                                    gauge_mask, lam, cfg.cg_iterations,
-                                   cfg.cg_tol)
+                                   cfg.cg_tol, sums)
                 return torch.where(gauge_mask[:, None], step, zero)
         return solve
 

@@ -5,30 +5,54 @@ Port of ``tbv_slam_public_tpu.ops.radar``.  The reference's ``lax.top_k``
 puts the lower range index first on equal intensities, which are common on
 uint8 images; ``torch.topk`` promises no order, so every selection is a
 stable descending sort cut at k.  The CFAR window sums are differences of a
-row cumsum at clipped indices, as in the reference; the cumsum runs in
-int64, so every window sum is exact (the reference's float32 cumsum is
-exact while a row's sum stays under 2^24).
+row cumsum at clipped indices, as in the reference.  BFAR's row sums of
+uint8 intensities stay under 2^24, where any float32 order is exact, so its
+cumsum runs in int64.  CA-CFAR sums squares, whose rows pass 2^24 (3768
+bins at intensity 67 do), so its float32 cumsum adds in the order of the
+reference's compiled program (:func:`_scan_f32`).
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from ..core.config import RadarConfig
+from ..core.device import constant
 from ..core.types import PointCloud
+
+
+@functools.lru_cache(maxsize=None)
+def _azimuth_steps(num_azimuths: int, range_res: float):
+    """((range_res cos t, range_res sin t) for each azimuth a), float32, with
+    t = (a + 1) * (2 pi / A) in float32: the reference's compiled program
+    folds (a + 1) / A * 2 pi into that form (one ulp of t moves far points
+    by ~5 ulp, enough to flip CFEAR radius gates downstream), takes cos and
+    sin from the C library's ``cosf`` and ``sinf`` (which round otherwise
+    than torch's), and multiplies them by range_res before the range.  t
+    takes A values only, so the table is made once, by the same C
+    functions."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    for fn in (libm.cosf, libm.sinf):
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    theta = (torch.arange(num_azimuths, dtype=torch.float32) + 1.0) \
+        * (2.0 * math.pi / num_azimuths)
+    unit = torch.tensor([(libm.cosf(t), libm.sinf(t))
+                         for t in theta.tolist()], dtype=torch.float32)
+    return tuple(map(tuple, (unit * range_res).tolist()))
 
 
 def polar_to_xy(azimuth_idx: torch.Tensor, range_idx: torch.Tensor,
                 num_azimuths: int, range_res: float) -> torch.Tensor:
-    """Reference bin->point mapping (radar_filters.cpp:316-331)."""
-    # (a + 1) * (2 pi / A): XLA folds the reference's (a + 1) / A * 2 pi into
-    # this form, and the one-ulp difference in theta moves far points by ~5
-    # ulp, enough to flip CFEAR radius gates downstream
-    theta = (azimuth_idx.float() + 1.0) * (2.0 * math.pi / num_azimuths)
-    r = range_res * (range_idx.float() + 0.5)
-    return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], -1)
+    """Reference bin->point mapping (radar_filters.cpp:316-331):
+    (bin + 0.5) * (range_res cos t, range_res sin t)."""
+    step = constant(_azimuth_steps(num_azimuths, float(range_res)),
+                    torch.float32, azimuth_idx.device)
+    return (range_idx.float() + 0.5)[..., None] * step[azimuth_idx]
 
 
 def _axial_nms_peak_mask(image: torch.Tensor, window: int) -> torch.Tensor:
@@ -77,11 +101,45 @@ def kstrongest_filter(image: torch.Tensor, cfg: RadarConfig):
     return cloud, peaks
 
 
+#: XLA rewrites a cumulative sum as sums within blocks of this many
+#: elements, the block totals scanned the same way
+_SCAN_BLOCK = 16
+
+
+def _prefix_f32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along axis 1, added left to right in float32."""
+    cols = [x[:, 0]]
+    for j in range(1, x.shape[1]):
+        cols.append(cols[-1] + x[:, j])
+    return torch.stack(cols, 1)
+
+
+def _scan_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 cumulative sum along axis 1 of [A, N], rounded as the
+    reference's ``jnp.cumsum`` on the CPU: its compiled program pads each
+    row to whole blocks of 16, takes left-to-right prefix sums inside each
+    block, scans the block totals the same way (left to right once at most
+    16 remain), and adds to each block the sum of the blocks before it."""
+    a, n = x.shape
+    if n <= _SCAN_BLOCK:
+        return _prefix_f32(x)
+    nb = -(-n // _SCAN_BLOCK)
+    local = _prefix_f32(F.pad(x, (0, nb * _SCAN_BLOCK - n)).reshape(
+        a * nb, _SCAN_BLOCK)).reshape(a, nb, _SCAN_BLOCK)
+    totals = local[:, :, -1]
+    before = F.pad((_prefix_f32(totals) if nb <= _SCAN_BLOCK
+                    else _scan_f32(totals))[:, :-1], (1, 0))
+    return (local + before[:, :, None]).reshape(a, -1)[:, :n]
+
+
 def _window_sums(values: torch.Tensor, starts: torch.Tensor, size: int):
     """Per-row sums of values[:, s:s+size] for each start s [R], clipped to
-    the row, and the number of bins summed [R]."""
+    the row, and the number of bins summed [R]: differences of a cumsum,
+    float32 in the reference's order for float input, exact for integers."""
     r = values.shape[1]
-    csum = torch.cumsum(F.pad(values.to(torch.int64), (1, 0)), 1)
+    padded = F.pad(values, (1, 0))
+    csum = _scan_f32(padded) if values.dtype.is_floating_point \
+        else torch.cumsum(padded.to(torch.int64), 1)
     lo = torch.clamp(starts, 0, r)
     hi = torch.clamp(starts + size, 0, r)
     return csum[:, hi] - csum[:, lo], hi - lo
@@ -114,12 +172,12 @@ def cacfar_filter(image: torch.Tensor, cfg: RadarConfig) -> PointCloud:
     n = 2 * size
     alpha = n * (cfg.cfar_false_alarm_rate ** (-1.0 / n) - 1.0)
     img = image.float()
-    sq = image.to(torch.int64) ** 2
+    sq = img * img
     rng = torch.arange(r, device=image.device)
     lead, _ = _window_sums(sq, rng - guard - size, size)
     trail, _ = _window_sums(sq, rng + guard + 1, size)
-    noise = (lead.float() + trail.float()) / n
-    detected = (img * img > alpha * noise) & (img >= cfg.z_min)
+    noise = (lead + trail) / n
+    detected = (sq > alpha * noise) & (img >= cfg.z_min)
     return _strongest_detections(img, detected, cfg)
 
 

@@ -220,18 +220,45 @@ def _prior_terms(theta, prior):
     return pr, Jp
 
 
+def _row_sums(x: torch.Tensor) -> torch.Tensor:
+    """Sums over the last axis of [..., N] in one fixed order, pairwise:
+    the row is padded with zeros to a power of two, then each even element
+    is added to the odd one after it, until one value is left.  An
+    elementwise add rounds alike whatever the leading (batch) sizes and the
+    device, so a row of a batch sums as its own solve does, on the card as
+    on the CPU; a library reduction or matrix product picks its blocking
+    from the shape (torch's reduction split, cuBLAS's batched GEMM)."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
 def _cost_grad_hess(theta, src, assoc, *, cost, loss, delta, prior=None):
     r, J, sq = _residual_terms(theta, src, assoc, cost)
     rho, w_irls = _rho_and_weight(sq, loss, delta)
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
-    total = 0.5 * torch.where(assoc.mask, assoc.weight * rho, zero).sum((1, 2))
+    bsz = rho.shape[0]
     w = torch.where(assoc.mask, assoc.weight * w_irls, zero)
-    # H and g from one contraction J^T [J | r]: a matrix-vector einsum for g
-    # alone sums in an order that depends on the batch size, and a row of a
-    # batch must equal its own solve
-    Hg = torch.einsum("btc,btcri,btcrj->bij", w, J,
-                      torch.cat([J, r[..., None]], -1))
-    H, g = Hg[..., :3], Hg[..., 3]
+    # H and g from one contraction J^T [J | r], summed over the residuals
+    # of each row by ``_row_sums``: a row of a batch must equal its own solve
+    Jr = torch.cat([J, r[..., None]], -1)  # [B, T, C, R, 4]
+    terms = (w[..., None, None, None] * J[..., :, None]
+             * Jr[..., None, :])  # [B, T, C, R, 3, 4]
+    # the cost joins the same sum as a 13th row, each association's term at
+    # its first residual and zeros at the others (R <= 2: the first level of
+    # the pairwise tree adds them exactly, so it is the cost's own tree)
+    wrho = torch.where(assoc.mask, assoc.weight * rho, zero)  # [B, T, C]
+    cost_row = torch.nn.functional.pad(wrho[..., None], (0, r.shape[-1] - 1))
+    sums = _row_sums(torch.cat([cost_row.reshape(bsz, 1, -1),
+                                terms.reshape(bsz, -1, 12).transpose(1, 2)],
+                               1))
+    total = 0.5 * sums[:, 0]
+    H, g = sums[:, 1:].reshape(bsz, 3, 4).split([3, 1], -1)
+    g = g[..., 0]
     if prior is not None:
         pr, Jp = _prior_terms(theta, prior)
         total = total + 0.5 * (pr * pr).sum(-1)
@@ -244,7 +271,8 @@ def _cost_only(theta, src, assoc, *, cost, loss, delta, prior=None):
     _, _, sq = _residual_terms(theta, src, assoc, cost)
     rho, _ = _rho_and_weight(sq, loss, delta)
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
-    c = 0.5 * torch.where(assoc.mask, assoc.weight * rho, zero).sum((1, 2))
+    c = 0.5 * _row_sums(torch.where(assoc.mask, assoc.weight * rho,
+                                    zero).reshape(rho.shape[0], -1))
     if prior is not None:
         pr, _ = _prior_terms(theta, prior)
         c = c + 0.5 * (pr * pr).sum(-1)

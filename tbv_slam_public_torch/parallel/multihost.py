@@ -192,23 +192,35 @@ def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]):
     return out
 
 
-def _fields(rec):
-    names = [f.name for f in dataclasses.fields(rec)]
-    return names, [getattr(rec, n) for n in names]
+def _leaves(rec) -> List[torch.Tensor]:
+    """The tensors of a record in field order, nested records flattened."""
+    out = []
+    for f in dataclasses.fields(rec):
+        x = getattr(rec, f.name)
+        out.extend(_leaves(x) if dataclasses.is_dataclass(x) else [x])
+    return out
+
+
+def _rebuild(rec, leaves):
+    """``rec``'s structure with its tensors taken in turn from ``leaves``
+    (an iterator)."""
+    return type(rec)(**{
+        f.name: (_rebuild(x, leaves) if dataclasses.is_dataclass(x)
+                 else next(leaves))
+        for f in dataclasses.fields(rec) for x in [getattr(rec, f.name)]})
 
 
 def gather_record(rec, mesh: Mesh):
-    """A record of [M, ...] tensors from every rank, concatenated in rank
-    order on the leading axis ([size * M, ...]), by one collective."""
-    names, xs = _fields(rec)
+    """A record of [M, ...] tensors (nested records included) from every
+    rank, concatenated in rank order on the leading axis ([size * M, ...]),
+    by one collective."""
+    xs = _leaves(rec)
     got = all_gather(_pack(xs), mesh)
-    return type(rec)(**dict(zip(names, _unpack(got.reshape(
-        -1, got.shape[-1]), xs))))
+    return _rebuild(rec, iter(_unpack(got.reshape(-1, got.shape[-1]), xs)))
 
 
 def broadcast_record(rec, mesh: Mesh, src: int = 0):
     """Rank ``src``'s record of [M, ...] tensors on every rank, by one
     collective."""
-    names, xs = _fields(rec)
-    return type(rec)(**dict(zip(names, _unpack(broadcast(_pack(xs), mesh,
-                                                         src), xs))))
+    xs = _leaves(rec)
+    return _rebuild(rec, iter(_unpack(broadcast(_pack(xs), mesh, src), xs)))

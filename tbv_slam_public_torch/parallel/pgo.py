@@ -129,6 +129,7 @@ def optimize_distributed(
     # the edge split and every collective's shape follow from (N, E)
     agree((n, edges.mask.shape[0]), mesh)
     loc = _edge_shard(edges, mesh)
+    sums = pg._GraphSums(n, loc)  # the order of this rank's edge sums
     seg = int(precond_seg or (4 if preconditioner == "chain_sharded" else 2)
               * cfg.schur_seg)
     gauge = node_mask & (torch.arange(n, device=dev) != 0)
@@ -143,13 +144,13 @@ def optimize_distributed(
     def sum_blocks(p):
         """(g, diag, D, O) of H at ``p``, the local sums joined by one
         collective, and the local terms of the Hessian-vector product."""
-        _, g, blocks = pg._gradient_and_blocks(p, loc, cfg)
-        parts = [g, pg._block_diag(n, loc, blocks, gauge)]
+        _, g, blocks = pg._gradient_and_blocks(p, loc, cfg, sums)
+        parts = [g, pg._block_diag(n, loc, blocks, gauge, sums)]
         if preconditioner != "jacobi":
             wJb, wJe = blocks  # sqrt(w)-weighted whitened Jacobians
             wJb = torch.where(gauge[loc.idx[:, 0]][:, None, None], wJb, zero)
             wJe = torch.where(gauge[loc.idx[:, 1]][:, None, None], wJe, zero)
-            parts += pg._chain_blocks(n, loc, wJb, wJe, gauge)
+            parts += pg._chain_blocks(n, loc, wJb, wJe, gauge, sums)
         flat = psum(torch.cat([x.reshape(-1) for x in parts]), mesh)
         out, lo = [], 0
         for x in parts:
@@ -170,7 +171,7 @@ def optimize_distributed(
         lam_diag = lam * torch.diagonal(diag, dim1=-2, dim2=-1)
 
         def A(v):
-            hv = pg._hvp(v, loc, w, Jb, Je, gauge)
+            hv = pg._hvp(v, loc, w, Jb, Je, gauge, sums)
             return psum(hv, mesh) + lam_diag * v + 1e-9 * v
 
         if preconditioner == "chain_sharded":

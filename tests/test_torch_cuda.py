@@ -450,3 +450,122 @@ def test_parallel_paths_of_one_rank_on_the_card(cuda):
     ate0 = ate_rmse(inst.poses, inst.gt)
     assert ate_rmse(res.poses.cpu().numpy(), inst.gt) < 0.7 * ate0
     assert float(res.cost) < 0.2 * float(res.cost0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [13, 1])
+def test_coral_kernel_at_the_dryrun_shapes(cuda, m):
+    """The multi-rank dry run's launches: its training step (13
+    perturbations of one scan pair a rank) and its pair wave (one pair a
+    rank), clouds of 1024 slots, all live, uniform over 160 m x 160 m as
+    ``harness/dryrun.py`` draws them."""
+    rng = np.random.default_rng(m)
+    cloud = lambda: torch.as_tensor(
+        rng.uniform(-80, 80, (m, 1024, 2)).astype(np.float32), device=cuda)
+    live = torch.ones((m, 1024), dtype=torch.bool, device=cuda)
+    args = (cloud(), live, cloud(), live, 1.0)
+    got = tmoments.pair_moments(*args)
+    _assert_moments(got, tmoments.pair_moments_reference(*args))
+    assert float(got[0][0].sum()) >= m * 2048  # each point finds itself
+
+
+@pytest.mark.cuda
+def test_pgo_runs_repeat_bit_for_bit_on_the_card(cuda):
+    """The edge-to-node sums add in an order fixed once per graph: two runs
+    of the schur solver, and of distributed PGO on a mesh of one, end on
+    the same bits.
+    (A one-rank and a two-rank run still differ, as in the reference: each
+    rank sums its own shard of the edges first.)"""
+    import dataclasses
+    import os
+
+    from tbv_slam_public_torch.core.config import PGOConfig
+    from tbv_slam_public_torch.io import simulate
+    from tbv_slam_public_torch.ops import posegraph
+    from tbv_slam_public_torch.parallel import multihost, pgo
+
+    z = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                             "oxford_10-12-32_real_odometry.npz"))
+    inst = simulate.make_real_odometry_pgo_instance(z["odom"], z["gt"],
+                                                    seed=0)
+    cfg = dataclasses.replace(PGOConfig(), max_iterations=8)
+    m = inst.mask
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    et = t(inst.etype[m].astype(np.int64))
+    edges = posegraph.make_edges(inst.idx[m], inst.meas[m],
+                                 posegraph.default_sqrt_info(et, cfg), et,
+                                 m[m], device=cuda)
+    poses = t(inst.poses)
+    nodes = torch.ones(len(inst.poses), dtype=torch.bool, device=cuda)
+    n_loop = int((edges.mask & ~posegraph._is_chain(edges)).sum())
+    runs = [
+        lambda: posegraph.optimize(poses, nodes, edges, cfg, solver="schur",
+                                   loop_cap=n_loop),
+        lambda: pgo.optimize_distributed(multihost.make_mesh(cuda), poses,
+                                         nodes, edges, cfg)]
+    for run in runs:
+        a, b = run(), run()
+        assert torch.equal(a.poses, b.poses) and float(a.cost) < \
+            float(a.cost0)
+
+
+@pytest.mark.cuda
+def test_graph_sums_on_the_card_equal_the_cpus(cuda):
+    """The fixed-order edge-to-node sums give the card the CPU's bits: the
+    same values summed by ``_GraphSums.nodes`` on the card and by
+    ``index_add_`` (sequential, in index order) on the CPU."""
+    from tbv_slam_public_torch.core.types import GraphEdges
+    from tbv_slam_public_torch.ops import posegraph
+
+    rng = np.random.default_rng(0)
+    n, e = 500, 4000
+    idx = torch.as_tensor(rng.integers(0, n, (e, 2)))
+    vb, ve = (torch.as_tensor(rng.normal(size=(e, 3, 3)).astype(np.float32))
+              for _ in range(2))
+    want = torch.zeros((n, 3, 3)).index_add_(0, idx[:, 0], vb).index_add_(
+        0, idx[:, 1], ve)
+    edges = GraphEdges(idx=idx.to(cuda), meas=None, sqrt_info=None,
+                       etype=None, mask=None)
+    sums = posegraph._GraphSums(n, edges)
+    for _ in range(2):  # the second call reuses the order
+        got = sums.nodes(vb.to(cuda), ve.to(cuda))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_batched_rows_on_the_card_equal_their_own_steps_bit_for_bit(cuda):
+    """At the default configuration each row of a B = 2, 8 and 16 frame
+    step is its own B = 1 step bit for bit: the registration's sums do not
+    depend on the batch size (``ops/registration.py::_row_sums``)."""
+    from tbv_slam_public_torch.core.config import (FeatureConfig, RadarConfig,
+                                                   TBVConfig)
+    from tbv_slam_public_torch.io import simulate
+    from tbv_slam_public_torch.models import odometry
+
+    cfg = TBVConfig(
+        radar=RadarConfig(num_azimuths=200, num_range_bins=256,
+                          range_res=0.3, k_strongest=12, min_distance=1.0,
+                          max_distance=75.0),
+        features=FeatureConfig(resolution=3.0, cell_capacity=256,
+                               grid_extent=80.0))
+    imgs = torch.as_tensor(np.stack([simulate.make_sequence(
+        num_frames=4, seed=s, num_azimuths=200, num_range_bins=256,
+        range_res=0.3, traj_kwargs=dict(radius=40.0, step=0.7,
+                                        laps=0.12)).images
+        for s in (0, 9)], 1), device=cuda)
+
+    def run(rows):
+        st = odometry.init_batched_state(cfg, len(rows), device=cuda)
+        st, out = odometry.batched_first_frame(st, imgs[0, rows], cfg)
+        poses = [out.pose]
+        for k in range(1, imgs.shape[0]):
+            st, out = odometry.batched_odometry_step(st, imgs[k, rows], cfg)
+            poses.append(out.pose)
+        return torch.stack(poses, 1)
+
+    one = [run([r]) for r in range(2)]
+    for b in (2, 8, 16):
+        rows = [i % 2 for i in range(b)]
+        batch = run(rows)
+        for i, r in enumerate(rows):
+            assert torch.equal(batch[i:i + 1], one[r]), (b, i)

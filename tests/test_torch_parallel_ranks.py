@@ -29,12 +29,14 @@ from tbv_slam_public_torch.core.config import (PGOConfig, TBVConfig,
                                                parse_cli_overrides)
 from tbv_slam_public_torch.core.types import Cells, GraphEdges, PointCloud
 from tbv_slam_public_torch.eval.trajectory import ate_rmse
+from tbv_slam_public_torch.harness import dryrun
 from tbv_slam_public_torch.io import simulate
 from tbv_slam_public_torch.models import loopclosure as lc
 from tbv_slam_public_torch.ops import features, logistic, posegraph, radar
 from tbv_slam_public_torch.ops import scancontext
 from tbv_slam_public_torch.parallel import candidates as par_cand
 from tbv_slam_public_torch.parallel import multihost
+from tbv_slam_public_torch.parallel import odometry as par_odo
 from tbv_slam_public_torch.parallel import pgo as par_pgo
 from tbv_slam_public_torch.parallel import retrieval as par_ret
 
@@ -72,6 +74,18 @@ SLAM = ["radar.num_azimuths=120", "radar.num_range_bins=200",
 # the loop closers' database grows in steps of 16 slots: a sharded database
 # is gathered, grown and sharded again
 CLOSER = SLAM + ["scancontext.db_chunk=16"]
+# tests/test_odometry.py's small_config
+ODO = ["radar.num_azimuths=200", "radar.num_range_bins=256",
+       "radar.range_res=0.3", "radar.k_strongest=12",
+       "radar.min_distance=1.0", "radar.max_distance=75.0",
+       "features.resolution=3.0", "features.cell_capacity=256",
+       "features.grid_extent=80.0", "registration.cost=P2L",
+       "registration.weight_option=4", "odometry.submap_scan_size=3",
+       "odometry.compensate=false"]
+# the dry run's configuration (harness/dryrun.py) on the tiny radar
+DRYRUN = TINY + ["registration.cost=P2L", "registration.weight_option=4",
+                 "pgo.max_iterations=2", "pgo.cg_iterations=8"]
+DRYRUN_SIZES = dict(n_nodes=64, n_loops=8, keyframes_per_rank=16)
 
 
 def config(overrides) -> TBVConfig:
@@ -190,18 +204,22 @@ def case_pgo(mesh, z, cfg):
     return out
 
 
-def case_train(mesh, z, cfg):
-    """The data-parallel alignment training step."""
+def case_train(mesh, z, cfg, key="train"):
+    """The data-parallel alignment training step on ``<key>/``."""
     model, x, y = par_cand.alignment_training_step(
-        mesh, get(z, "train/cur_peaks", PointCloud),
-        get(z, "train/cur_cells", Cells),
-        torch.as_tensor(z["train/cur_poses"]),
-        get(z, "train/prev_peaks", PointCloud),
-        get(z, "train/prev_cells", Cells),
-        torch.as_tensor(z["train/prev_poses"]), cfg)
-    return {"train.x": x.numpy(), "train.y": y.numpy(),
-            "train.intercept": model.intercept.numpy(),
-            "train.coef": model.coef.numpy()}
+        mesh, get(z, f"{key}/cur_peaks", PointCloud),
+        get(z, f"{key}/cur_cells", Cells),
+        torch.as_tensor(z[f"{key}/cur_poses"]),
+        get(z, f"{key}/prev_peaks", PointCloud),
+        get(z, f"{key}/prev_cells", Cells),
+        torch.as_tensor(z[f"{key}/prev_poses"]), cfg)
+    return {f"{key}.x": x.numpy(), f"{key}.y": y.numpy(),
+            f"{key}.intercept": model.intercept.numpy(),
+            f"{key}.coef": model.coef.numpy()}
+
+
+def case_street(mesh, z, cfg):
+    return case_train(mesh, z, cfg, "street")
 
 
 def closers(cfg, z, mesh=None):
@@ -233,6 +251,42 @@ def case_closer(mesh, z, cfg):
     return closers(cfg, z, mesh)
 
 
+def sharded_odometry(mesh, images, cfg):
+    """Poses [N, B, 3] and keyframe flags [N, B] of B sequences of N frames
+    ([N, B, A, R] images), split over the mesh's ranks, as arrays."""
+    poses, fused = par_odo.run_sequences(mesh, images, cfg)
+    return poses.numpy(), fused.numpy()
+
+
+def case_odo(mesh, z, cfg):
+    """Batched odometry, one sequence a rank."""
+    poses, fused = sharded_odometry(mesh, torch.as_tensor(z["odo/images"]),
+                                    cfg)
+    return {"odo.poses": poses, "odo.fused": fused}
+
+
+def dryrun_outputs(rec):
+    """The dry run's results as arrays."""
+    out = rec["out"]
+    model, x, y = out["training"]
+    return {"dryrun.pose": out["odometry"].pose.numpy(),
+            "dryrun.x": x.numpy(), "dryrun.y": y.numpy(),
+            "dryrun.coef": model.coef.numpy(),
+            "dryrun.t_be": out["pair_wave"].t_be.numpy(),
+            "dryrun.cov": out["pair_wave"].cov.numpy(),
+            **{f"dryrun.{pc}.{k}": getattr(out[pc], k).numpy()
+               for pc in ("pgo_chain", "pgo_chain_sharded")
+               for k in ("poses", "cost", "cost0")},
+            "dryrun.index": out["retrieval"].index.numpy(),
+            "dryrun.launches": np.asarray([rec[s]["launches"]
+                                           for s in dryrun.STEPS])}
+
+
+def case_dryrun(mesh, z, cfg):
+    """The multi-rank dry run at tiny sizes (it asserts as it goes)."""
+    return dryrun_outputs(dryrun.dryrun(mesh, cfg, **DRYRUN_SIZES))
+
+
 def case_mh(mesh, z, cfg):
     """The multihost helpers across processes."""
     rep = multihost.scaling_report(10 * (mesh.rank + 1), 2.0)
@@ -245,7 +299,9 @@ def case_mh(mesh, z, cfg):
 
 CASES = dict(pairs=case_pairs, cands=case_cands, ret=case_ret,
              detect=case_detect, pgo=case_pgo, train=case_train,
-             closer=case_closer, mh=case_mh)
+             street=case_street,
+             closer=case_closer, mh=case_mh, odo=case_odo,
+             dryrun=case_dryrun)
 
 
 def main(inputs: str, out_dir: str) -> None:
@@ -367,7 +423,7 @@ def ranks(tmp_path_factory):
     (6 pairs and 4 candidates, the last one masked; 4 scan pairs),
     retrieval of 3 queries over 96 slots,
     the Oxford PGO instance at 8 LM iterations, both loop-closer schedules
-    over 64 keyframes (9 loops)."""
+    over 64 keyframes (9 loops), and the dry run at tiny sizes."""
     tiny, slam = config(TINY), config(SLAM)
     d = {}
     wave_inputs(d, "pairs", tiny, np.random.default_rng(2), 6)
@@ -380,6 +436,7 @@ def ranks(tmp_path_factory):
     d["mh/cfg"] = d["pairs/cfg"] = d["cands/cfg"] = d["ret/cfg"] = \
         d["pgo/cfg"] = d["train/cfg"] = np.asarray(TINY)
     d["closer/cfg"] = np.asarray(CLOSER)
+    d["dryrun/cfg"] = np.asarray(DRYRUN)
     return d, run_ranks(d, tmp_path_factory.mktemp("ranks"))
 
 
@@ -468,11 +525,9 @@ def test_distributed_pgo_ranks_against_one_process(ranks, pc):
 def test_alignment_training_step_matches_one_process(ranks):
     """Two ranks' training step: x [13B, 6] in pair order, equal to each
     rank's share run in one process, and the fit on it.  Against the whole
-    batch in one process the CFEAR columns agree to float32 rounding; the
-    CorAl columns of these sparse scans (~75 points) may not: their plain
-    moments sum over the batch's widest live row, so the summation order,
-    and near the determinant gate an entropy, depends on the batch (the
-    kernel's reduction depends on it too: ROADMAP.md, section 3)."""
+    batch in one process the CFEAR columns agree to float32 rounding and
+    the CorAl columns bit for bit: each pair's plain moments are summed over
+    its own live points alone."""
     d, (r0, _) = ranks
     cfg = config(TINY)
     mesh = multihost.make_mesh("cpu")
@@ -497,6 +552,7 @@ def test_alignment_training_step_matches_one_process(ranks):
     np.testing.assert_array_equal(r0["train.y"], y_one.numpy())
     np.testing.assert_allclose(r0["train.x"][:, 3:], x_one[:, 3:].numpy(),
                                rtol=1e-5)
+    np.testing.assert_array_equal(r0["train.x"][:, :3], x_one[:, :3].numpy())
     # the fitted model separates aligned from perturbed pairs
     p = logistic.predict_proba(
         logistic.LogisticModel(torch.as_tensor(r0["train.intercept"]),
@@ -520,6 +576,47 @@ def test_loop_closer_on_two_ranks_accepts_the_same_loops(ranks, mode):
                                   want[f"closer.{mode}.ids"])
     np.testing.assert_allclose(r0[f"closer.{mode}.t_be"],
                                want[f"closer.{mode}.t_be"], atol=PAIR_ATOL)
+
+
+def test_dryrun_on_two_ranks_against_one_process(ranks):
+    """The dry run's five steps at tiny sizes (64 nodes, 8 loops, 16
+    keyframes a rank) ran on both ranks with every assert of the
+    reference's (their results are bit-equal across the ranks,
+    test_ranks_return_the_same_results), one sequence and one scan pair a
+    rank, and on the CPU no CorAl kernel launched.  Against the same dry
+    run in one process (both sequences and pairs, the same inputs): the
+    frame's poses, y and the training step's CorAl columns bit-equal, its
+    CFEAR columns to float32 rounding and its model at the fit's tolerance
+    (test_alignment_training_step_matches_one_process), the pair wave at
+    the sharded wave's tolerances, distributed PGO within 1 cm (each rank
+    sums its own edges first) and the candidates equal."""
+    _, (r0, _) = ranks
+    cfg = config(DRYRUN)
+    assert r0["dryrun.x"].shape == (13 * RANKS, 6)
+    assert r0["dryrun.pose"].shape == (RANKS, 3)
+    assert r0["dryrun.index"].shape == (1, cfg.scancontext.n_candidates)
+    for pc in ("pgo_chain", "pgo_chain_sharded"):
+        assert r0[f"dryrun.{pc}.cost"] < r0[f"dryrun.{pc}.cost0"]
+    assert r0["dryrun.launches"].tolist() == [0] * len(dryrun.STEPS)
+    one = dryrun_outputs(dryrun.dryrun(multihost.make_mesh("cpu"), cfg,
+                                       batch=RANKS, **DRYRUN_SIZES))
+    for k in ("pose", "y", "index"):
+        np.testing.assert_array_equal(r0[f"dryrun.{k}"], one[f"dryrun.{k}"])
+    np.testing.assert_array_equal(r0["dryrun.x"][:, :3],
+                                  one["dryrun.x"][:, :3])
+    np.testing.assert_allclose(r0["dryrun.x"][:, 3:], one["dryrun.x"][:, 3:],
+                               rtol=1e-5)
+    np.testing.assert_allclose(r0["dryrun.coef"], one["dryrun.coef"],
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(r0["dryrun.t_be"], one["dryrun.t_be"],
+                               atol=PAIR_ATOL)
+    np.testing.assert_allclose(r0["dryrun.cov"], one["dryrun.cov"],
+                               rtol=COV_RTOL, atol=COV_ATOL)
+    for pc in ("pgo_chain", "pgo_chain_sharded"):
+        assert one[f"dryrun.{pc}.cost"] < one[f"dryrun.{pc}.cost0"]
+        np.testing.assert_allclose(r0[f"dryrun.{pc}.poses"][:, :2],
+                                   one[f"dryrun.{pc}.poses"][:, :2],
+                                   atol=1e-2)
 
 
 def test_multihost_helpers_across_ranks(ranks):

@@ -10,6 +10,7 @@ from tbv_slam_public_tpu.core.config import PGOConfig
 from tbv_slam_public_tpu.eval import trajectory as tj
 from tbv_slam_public_tpu.io import simulate
 from tbv_slam_public_tpu.ops import posegraph as jpg
+from tbv_slam_public_torch.core.types import GraphEdges
 from tbv_slam_public_torch.ops import posegraph as tpg
 
 # The suite runs several worker processes on one machine and these tensors are
@@ -93,3 +94,25 @@ def test_other_solvers_raise():
     with pytest.raises(ValueError, match="unknown solver"):
         run(solver="auto")
     assert float(run(solver="cg").cost) <= float(run(solver="cg").cost0)
+
+
+def test_graph_sums_add_in_index_order():
+    """``_GraphSums`` adds each node's values one at a time in index order,
+    the begin values first: bit for bit two sequential ``index_add_``, on
+    nodes with many edges, one or none, and again with the order kept."""
+    rng = np.random.default_rng(3)
+    n, e = 40, 300
+    idx = torch.as_tensor(rng.integers(0, n - 5, (e, 2)))  # 5 nodes unused
+    edges = GraphEdges(idx=idx, meas=None, sqrt_info=None, etype=None,
+                       mask=None)
+    sums = tpg._GraphSums(n, edges)
+    for _ in range(2):
+        vb, ve = (torch.as_tensor(rng.normal(size=(e, 3)).astype(np.float32))
+                  for _ in range(2))
+        want = torch.zeros((n, 3)).index_add_(0, idx[:, 0], vb).index_add_(
+            0, idx[:, 1], ve)
+        assert torch.equal(sums.nodes(vb, ve), want)
+    empty = tpg._GraphSums(n, GraphEdges(idx=idx[:0], meas=None,
+                                         sqrt_info=None, etype=None,
+                                         mask=None))
+    assert torch.equal(empty.nodes(vb[:0], ve[:0]), torch.zeros((n, 3)))
