@@ -7,7 +7,15 @@ Needs one CUDA card.  Phases, each of which raises on failure:
 2. every kernel of the main path against its plain PyTorch version on the
    card, at the main path's shapes and at the edges of its tiling, two
    launches bit-equal, with the times of the kernel, of its plain version
-   and of the host around a call;
+   and of the host around a call; the refmath kernel (the reference's exp,
+   log, log1p, sigmoid, sincos, atan2, angle wrap, fma, sqrt, ordered
+   dot and the LM step)
+   bit-equal to its plain version on 2^22 values an op, timed at 1, 4096
+   and 2^19 values beside its plain version and the torch call it
+   replaces; and on every path below that runs in this process (and on
+   each rank of 10(b)), its count set to 0 just before the path and read
+   just after, then the first operands and result of each op and shapes
+   that the path gave it held bit for bit to the plain version;
 3. the port's CLI: ``odometry`` then ``slam`` (default solver, and again
    with ``--solver cholesky``) on a small simulated sequence, then
    ``evaluate-scans`` on that checkpoint (in this process, with its kernel
@@ -399,6 +407,174 @@ def phase_kernels(sm_hz):
     return dict(max_abs_err=worst, plain_ms=plain_ms, times=times, **bound)
 
 
+# float32 operations a value of each refmath op, for the bound (the double
+# ones of sinf/cosf counted at the float32 rate)
+REFMATH_OPS = {"exp": 20, "log": 25, "log1p": 40, "sigmoid": 22,
+               "sincos": 26, "wrap_angle": 60, "atan2": 35, "sqrt": 3}
+# the refmath kernel's launches by path, and the (op, shapes) held there
+REFMATH_LAUNCHES = {}
+REFMATH_HELD = {}
+
+
+@contextlib.contextmanager
+def refmath_inputs():
+    """For each op, operand shapes and options that the refmath kernel is
+    given inside the block, the first call's operands and result, copied on
+    the card (no sync, no launch of the kernel): ``{(op, *shapes, options):
+    (args, outs, options)}``."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    kept, real = {}, rm._call
+
+    def keep(op, *ts, **options):
+        out = real(op, *ts, **options)
+        if ts[0].device.type == "cuda":
+            key = (op,) + tuple(tuple(t.shape) for t in ts) + \
+                tuple(sorted(options.items()))
+            if key not in kept:
+                outs = out if isinstance(out, tuple) else (out,)
+                kept[key] = ([t.detach().clone() for t in ts],
+                             [o.detach().clone() for o in outs], options)
+        return out
+
+    rm._call = keep
+    try:
+        yield kept
+    finally:
+        rm._call = real
+
+
+def hold_refmath(tag, kept) -> int:
+    """Each kept result against the plain version on its operands, bit for
+    bit (NaN payloads aside); returns the number of (op, shapes) held."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.kernels.checks import bits_differ
+
+    for key, (args, outs, options) in kept.items():
+        want = rm._PLAIN[key[0]](*(a.cpu() for a in args), **options)
+        want = want if isinstance(want, tuple) else (want,)
+        bad = sum(bits_differ(o, w) for o, w in zip(outs, want))
+        if bad:
+            raise AssertionError(f"{tag} refmath {key[0]} at shapes "
+                                 f"{key[1:]}: {bad} values differ from the "
+                                 f"plain version")
+    return len(kept)
+
+
+@contextlib.contextmanager
+def refmath_path(path):
+    """One path of the main run: the refmath kernel's count is set to 0 just
+    before the block and read just after (``REFMATH_LAUNCHES[path]``), then
+    the kernel is held to its plain version at every op and shapes the path
+    gave it."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    rm.LAUNCHES = 0
+    rm.LAUNCHES_BY_OP.clear()
+    with refmath_inputs() as kept:
+        yield
+    REFMATH_LAUNCHES[path] = dict(rm.LAUNCHES_BY_OP, total=rm.LAUNCHES)
+    if rm.LAUNCHES <= 0:
+        raise AssertionError(f"the {path} path launched no refmath kernel")
+    REFMATH_HELD[path] = hold_refmath(f"[{path}]", kept)
+    log(f"[refmath] {path}: {rm.LAUNCHES} launches, bit-equal to the plain "
+        f"version at its {REFMATH_HELD[path]} (op, shapes)")
+
+
+def phase_refmath():
+    """The refmath kernel against its plain version, every op on 2^22 values
+    and the special values, bit for bit; ``dot`` at the fits' shapes; then
+    each op's time at the sizes the paths give it, beside the plain version
+    on the card, the torch call it replaces and its bound."""
+    from tbv_slam_public_torch.core import refmath as plain
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.kernels.checks import (REFMATH_RANGES,
+                                                      REFMATH_SPECIAL,
+                                                      bits_differ)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    special = REFMATH_SPECIAL
+    n = 1 << 22
+    for op, (lo, hi) in REFMATH_RANGES.items():
+        x = np.concatenate([rng.uniform(lo, hi, n).astype(np.float32),
+                            special])
+        args = [torch.as_tensor(x)]
+        if op == "atan2":
+            args.insert(0, torch.as_tensor(np.concatenate([
+                rng.uniform(lo, hi, n).astype(np.float32), special[::-1]])))
+        got = getattr(rm, op)(*(a.to(dev) for a in args))
+        want = getattr(plain, op)(*args)
+        torch.cuda.synchronize()
+        pairs = zip(got, want) if op == "sincos" else [(got, want)]
+        bad = sum(bits_differ(g, w) for g, w in pairs)
+        log(f"[2] refmath {op}: {x.size} values, {bad} differ from the plain "
+            f"version")
+        if bad:
+            raise AssertionError(f"refmath {op}: {bad} values differ")
+    # fma, half the products nearly cancelling their addend
+    a, b = (torch.as_tensor((rng.normal(size=n) * np.exp(rng.uniform(
+        -20, 20, n))).astype(np.float32)) for _ in range(2))
+    near = -(a.double() * b.double()).numpy() * (1 + 1e-7 * rng.normal(
+        size=n))
+    c = torch.as_tensor(np.where(rng.uniform(size=n) < 0.5, near,
+                                 rng.normal(size=n)).astype(np.float32))
+    bad = bits_differ(rm.fma(a.to(dev), b.to(dev), c.to(dev)),
+                       plain.fma(a, b, c))
+    log(f"[2] refmath fma: {n} values, {bad} differ from the plain version")
+    if bad:
+        raise AssertionError(f"refmath fma: {bad} values differ")
+    j = rng.normal(size=(1 << 18, 6, 3)).astype(np.float32)
+    a = torch.as_tensor(np.einsum("nki,nkj->nij", j, j).astype(np.float32))
+    b = torch.as_tensor(rng.normal(size=(1 << 18, 3)).astype(np.float32))
+    t = torch.as_tensor(rng.normal(size=(1 << 18, 3)).astype(np.float32))
+    for one in (False, True):
+        bad = bits_differ(rm.lm_update(t.to(dev), a.to(dev), b.to(dev),
+                                       one_system=one),
+                          plain.lm_update(t, a, b, one_system=one))
+        log(f"[2] refmath lm_update (one_system={one}): {1 << 18} systems, "
+            f"{bad} values differ")
+        if bad:
+            raise AssertionError(f"refmath lm_update: {bad} values differ")
+    # dot at the sampled covariance's fit (waves of 64 pairs offline, 12
+    # online) and the logistic fit's (xb @ w, the Hessian over n rows); the
+    # paths' own shapes are held where they run (``refmath_path``)
+    for (m, k), c in (((64, 27), 10), ((12, 27), 10), ((1000, 5), 1),
+                      ((5, 1000), 5)):
+        a = torch.as_tensor(rng.uniform(0, 100, (m, k)).astype(np.float32))
+        b = torch.as_tensor(rng.normal(size=(c, k)).astype(np.float32))
+        bad = bits_differ(rm.dot(a.to(dev), b.to(dev)), plain.dot(a, b))
+        log(f"[2] refmath dot [{m}, {k}] x [{c}, {k}]: {bad} differ")
+        if bad:
+            raise AssertionError(f"refmath dot: {bad} values differ")
+    library = {"exp": torch.exp, "log": torch.log, "log1p": torch.log1p,
+               "sigmoid": torch.sigmoid,
+               "sincos": lambda v: (torch.sin(v), torch.cos(v)),
+               "wrap_angle": lambda v: torch.atan2(torch.sin(v),
+                                                   torch.cos(v)),
+               "atan2": torch.atan2, "sqrt": torch.sqrt}
+    times = {}
+    for op, (lo, hi) in REFMATH_RANGES.items():
+        for size in (1, 4096, 1 << 19):
+            x = torch.empty(size, device=dev).uniform_(lo, hi)
+            args = (x, x.flip(0)) if op == "atan2" else (x,)
+            n_in, n_out = len(args), 2 if op == "sincos" else 1
+            bytes_ = 4 * size * (n_in + n_out)
+            bound = max(bytes_ / PEAK_BYTES_PER_S,
+                        REFMATH_OPS[op] * size / PEAK_F32_FLOPS) * 1e3
+            t = dict(ms=cuda_ms(lambda: getattr(rm, op)(*args), 50),
+                     plain_ms=cuda_ms(lambda: getattr(plain, op)(*args), 10),
+                     library_ms=cuda_ms(lambda: library[op](*args), 50),
+                     bound_ms=bound,
+                     bound_by="bytes" if bytes_ / PEAK_BYTES_PER_S >=
+                     REFMATH_OPS[op] * size / PEAK_F32_FLOPS else "operations")
+            times[f"{op}_n{size}"] = t
+            log(f"[2] refmath {op} at {size} values: {t['ms']:.4f} ms "
+                f"(bound {bound:.6f} ms), plain {t['plain_ms']:.4f} ms, "
+                f"torch {t['library_ms']:.4f} ms")
+    return dict(max_abs_err=0.0, times=times)
+
+
 def phase_real_clouds(loops, sm_hz):
     """The kernel on the offline run's keyframe clouds: consecutive keyframes
     as (src, ref) pairs in the odometry frame, stacked into the widths of a
@@ -537,10 +713,10 @@ def phase_evaluate_scans(graph, out):
     buf = io.StringIO()
     cm.LAUNCHES = 0  # evaluate-scans' launches are counted from here
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with refmath_path("evaluate_scans"), contextlib.redirect_stdout(buf):
         rc = cli.main(["evaluate-scans", "--graph", graph, "--output", out,
                        "--max-pairs", "5"] + SMALL)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = cm.LAUNCHES
     res = json.loads(buf.getvalue().strip().splitlines()[-1])
@@ -579,22 +755,23 @@ def phase_slice(n_frames):
                                       range_res=0.0438))
 
     cm.LAUNCHES = 0  # the offline path's launches are counted from here
-    pipe = OdometryPipeline(cfg, device=dev)
-    pipe.process(seq.images[0], stamp=0.0, gt_pose=gt[0])  # first frame
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(1, n_frames):
-        pipe.process(seq.images[i], stamp=0.25 * i, gt_pose=gt[i])
-    torch.cuda.synchronize()
-    odo_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "simple_graph.npz")
-        checkpoint.save_simple_graph(path, checkpoint.from_odometry(pipe))
-        g = checkpoint.load_simple_graph(path)
-    t0 = time.perf_counter()
-    slam = run_offline_slam(cfg, g, solver="cholesky", device=dev)
-    torch.cuda.synchronize()
-    slam_s = time.perf_counter() - t0
+    with refmath_path("offline"):
+        pipe = OdometryPipeline(cfg, device=dev)
+        pipe.process(seq.images[0], stamp=0.0, gt_pose=gt[0])  # first frame
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, n_frames):
+            pipe.process(seq.images[i], stamp=0.25 * i, gt_pose=gt[i])
+        torch.cuda.synchronize()
+        odo_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "simple_graph.npz")
+            checkpoint.save_simple_graph(path, checkpoint.from_odometry(pipe))
+            g = checkpoint.load_simple_graph(path)
+        t0 = time.perf_counter()
+        slam = run_offline_slam(cfg, g, solver="cholesky", device=dev)
+        torch.cuda.synchronize()
+        slam_s = time.perf_counter() - t0
     launches = cm.LAUNCHES
 
     s = slam.summary
@@ -666,14 +843,15 @@ def phase_variants(images, gt, cfg):
             cfg, parse_cli_overrides(override.split()))
         images, gt = _mulran_images(VARIANT_FRAMES) if name == "mulran" \
             else phase4
-        pipe = OdometryPipeline(vcfg, device=torch.device("cuda"))
-        pipe.process(images[0], stamp=0.0, gt_pose=gt[0])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(1, VARIANT_FRAMES):
-            pipe.process(images[i], stamp=0.25 * i, gt_pose=gt[i])
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        with refmath_path(f"variant_{name}"):
+            pipe = OdometryPipeline(vcfg, device=torch.device("cuda"))
+            pipe.process(images[0], stamp=0.0, gt_pose=gt[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(1, VARIANT_FRAMES):
+                pipe.process(images[i], stamp=0.25 * i, gt_pose=gt[i])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
         card = np.asarray(pipe.frame_poses)
         cpu = OdometryPipeline(vcfg, device="cpu")
         t0 = time.perf_counter()
@@ -749,14 +927,18 @@ def phase_batched(images, gt, cfg, single_poses):
         return torch.stack(poses, 1).cpu().numpy(), \
             time.perf_counter() - t0, st
 
-    batch, secs, st = run(list(range(b)))
-    # B = 2 over the first two sequences: phase 10(b) runs them one a rank
-    pair = dict(images=frames[:, :2].cpu().numpy(), poses=run([0, 1])[0])
-    alone = [run([r]) for r in range(1, b)]
+    with refmath_path("batched"):
+        batch, secs, st = run(list(range(b)))
+        # B = 2 over the first two sequences: phase 10(b) runs them one a
+        # rank
+        pair = dict(images=frames[:, :2].cpu().numpy(),
+                    poses=run([0, 1])[0])
+        alone = [run([r]) for r in range(1, b)]
+        repeat = run([1])[0][0]
     singles = [single_poses[:n]] + [a[0][0] for a in alone]
     gaps = [_pose_gap(batch[r], singles[r]) for r in range(b)]
     b1_rate = (n - 1) * len(alone) / sum(a[1] for a in alone)
-    repeat_equal = bool(np.array_equal(run([1])[0][0], singles[1]))
+    repeat_equal = bool(np.array_equal(repeat, singles[1]))
     step = lambda rows, s: lambda: om.batched_odometry_step(
         s, frames[n - 1, rows], cfg)
     res = dict(B=b, frames=n, aggregate_frames_per_s=b * (n - 1) / secs,
@@ -958,7 +1140,8 @@ def _run_solver(tag, solver, inst, cfg, edges, poses, node_mask):
 
 def phase_pgo():
     inst = _oxford_instance(torch.device("cuda"))
-    out, _ = _run_solver("[5]", "cholesky", *inst)
+    with refmath_path("pgo_cholesky"):
+        out, _ = _run_solver("[5]", "cholesky", *inst)
     if not (6.5 < out["ate_before"] < 8.0 and out["ate_after"] < 4.072):
         raise AssertionError(f"PGO ATE outside its bands: {out}")
     return inst
@@ -970,7 +1153,8 @@ def phase_solvers(instance):
     from tbv_slam_public_torch.ops import posegraph as pg
 
     inst, cfg, edges, poses, node_mask = instance
-    out, first = _run_solver("[6]", "schur", *instance)
+    with refmath_path("pgo_schur"):
+        out, first = _run_solver("[6]", "schur", *instance)
     if not (6.5 < out["ate_before"] < 8.0 and out["ate_after"] < 4.072):
         raise AssertionError(f"schur PGO ATE outside its bands: {out}")
     # the edge-to-node sums add in an order fixed per graph: a second run
@@ -981,7 +1165,8 @@ def phase_solvers(instance):
     log(f"[6] two schur runs: {json.dumps(schur)}")
     if not schur["bit_equal"]:
         raise AssertionError("two schur runs differ")
-    out, _ = _run_solver("[6]", "cg", *instance)
+    with refmath_path("pgo_cg"):
+        out, _ = _run_solver("[6]", "cg", *instance)
     if not (out["cost"] < out["cost0"]
             and out["ate_after"] < out["ate_before"]):
         raise AssertionError(f"cg PGO lowered neither cost nor ATE: {out}")
@@ -1053,27 +1238,30 @@ def phase_online(images, gt, cfg, plain_trajectory, sm_hz):
     cfg = dataclasses.replace(
         cfg, pgo=dataclasses.replace(cfg.pgo, optimize_every=5))
     cm.LAUNCHES = 0  # the online path's launches are counted from here
-    slam = TBVSLAM(cfg, train_alignment=True, device=torch.device("cuda"))
-    tally = {}
-    _tally(slam.alignment_learner, "add_training_pair", tally, "training")
-    _tally(slam.loops, "process_pending", tally, "loop_closure")
-    _tally(slam.loops, "finish", tally, "loop_closure")
-    _tally(slam.graph, "optimize", tally, "pgo")
-    slam.process_frame(images[0], stamp=0.0, gt_pose=gt[0])  # first frame
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(1, n_frames):
-        slam.process_frame(images[i], stamp=0.25 * i, gt_pose=gt[i])
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t0
-    epochs_in_run = dict(tally.get("pgo", dict(calls=0, seconds=0.0)))
-    ate0 = tj.ate_rmse(np.asarray(slam.odometry.kf_poses),
-                       np.stack(slam.odometry.kf_gt))
-    default_model = slam.loops.align_model
-    t0 = time.perf_counter()
-    s = slam.finish(optimize=True, solver="auto")
-    torch.cuda.synchronize()
-    finish_s = time.perf_counter() - t0
+    with refmath_path("online"):
+        slam = TBVSLAM(cfg, train_alignment=True,
+                       device=torch.device("cuda"))
+        tally = {}
+        _tally(slam.alignment_learner, "add_training_pair", tally,
+               "training")
+        _tally(slam.loops, "process_pending", tally, "loop_closure")
+        _tally(slam.loops, "finish", tally, "loop_closure")
+        _tally(slam.graph, "optimize", tally, "pgo")
+        slam.process_frame(images[0], stamp=0.0, gt_pose=gt[0])  # first
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, n_frames):
+            slam.process_frame(images[i], stamp=0.25 * i, gt_pose=gt[i])
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        epochs_in_run = dict(tally.get("pgo", dict(calls=0, seconds=0.0)))
+        ate0 = tj.ate_rmse(np.asarray(slam.odometry.kf_poses),
+                           np.stack(slam.odometry.kf_gt))
+        default_model = slam.loops.align_model
+        t0 = time.perf_counter()
+        s = slam.finish(optimize=True, solver="auto")
+        torch.cuda.synchronize()
+        finish_s = time.perf_counter() - t0
     launches = cm.LAUNCHES
 
     est = slam.graph.poses_array()
@@ -1257,8 +1445,10 @@ def phase_parallel_one(cfg, graph, loops):
                 raise AssertionError(f"{dist.get_backend()}, {mesh}")
             before = cm.LAUNCHES
             t0 = time.perf_counter()
-            slam = run_offline_slam(cfg, graph, solver="cholesky", mesh=mesh)
-            torch.cuda.synchronize()
+            with refmath_path("parallel_offline"):
+                slam = run_offline_slam(cfg, graph, solver="cholesky",
+                                        mesh=mesh)
+                torch.cuda.synchronize()
             slam_s = time.perf_counter() - t0
             launches = cm.LAUNCHES - before
             gap = _same_constraints("[10a] run_offline_slam(mesh)",
@@ -1271,8 +1461,9 @@ def phase_parallel_one(cfg, graph, loops):
                 f"CorAl launches {launches}")
             if launches <= 0:
                 raise AssertionError("[10a] no CorAl launch")
-            pgo = _distributed_pgo("[10a] PoseGraph(mesh) distributed",
-                                   _oxford_graph(cfg, mesh), mesh)
+            with refmath_path("parallel_pgo"):
+                pgo = _distributed_pgo("[10a] PoseGraph(mesh) distributed",
+                                       _oxford_graph(cfg, mesh), mesh)
             dry = _entry_and_dryrun("[10a]", mesh)
         finally:
             dist.destroy_process_group()
@@ -1297,7 +1488,8 @@ def _entry_and_dryrun(tag, mesh):
     if out.pose.shape != (3,) or not bool(torch.isfinite(out.pose).all()):
         raise AssertionError(f"{tag} entry(): pose {out.pose}")
     saved, cm.LAUNCHES = cm.LAUNCHES, 0
-    rec = dryrun.dryrun(mesh)
+    with refmath_path("dryrun"):
+        rec = dryrun.dryrun(mesh)
     launches, cm.LAUNCHES = cm.LAUNCHES, saved
     res = dict(entry_s=entry_s, launches=launches,
                **{k: rec[k] for k in dryrun.STEPS})
@@ -1372,6 +1564,7 @@ def ranks_worker(inputs, out_dir) -> int:
     from tbv_slam_public_torch.core.types import Cells, PointCloud
     from tbv_slam_public_torch.harness import dryrun
     from tbv_slam_public_torch.kernels import coral_moments as cm
+    from tbv_slam_public_torch.kernels import refmath as rm
     from tbv_slam_public_torch.models import loopclosure as lc
     from tbv_slam_public_torch.ops import coral
     from tbv_slam_public_torch.parallel import candidates as par_cand
@@ -1396,9 +1589,11 @@ def ranks_worker(inputs, out_dir) -> int:
 
         def run(key, fn):
             before, t0 = cm.LAUNCHES, time.perf_counter()
+            rm.LAUNCHES = 0  # the case's own refmath launches
             res = fn()
             torch.cuda.synchronize()
             timed[key] = (time.perf_counter() - t0, cm.LAUNCHES - before)
+            out[f"{key}_refmath_launches"] = np.asarray(rm.LAUNCHES)
             return res
 
         # the inputs of the first pair_moments call at each (M, slots) this
@@ -1430,6 +1625,10 @@ def ranks_worker(inputs, out_dir) -> int:
             return _constraints(closer.process_all_batched()), \
                 len(closer.candidate_log)
 
+        # the refmath kernel's first operands and result at each op and
+        # shapes of this rank's cases, held to the plain version at the end
+        refmath_kept = contextlib.ExitStack()
+        kept = refmath_kept.enter_context(refmath_inputs())
         # the first run of a fresh process loads its kernels; the second is
         # timed as the steady state, and the path's launches are counted
         # from there
@@ -1492,6 +1691,7 @@ def ranks_worker(inputs, out_dir) -> int:
                    dryrun_x=x.cpu().numpy(),
                    dryrun_cov=rec["out"]["pair_wave"].cov.cpu().numpy(),
                    dryrun_index=rec["out"]["retrieval"].index.cpu().numpy())
+        refmath_kept.close()
         for step in dryrun.STEPS:
             timed[f"dryrun_{step}"] = (rec[step]["s"], rec[step]["launches"])
         for key, (secs, launches) in timed.items():
@@ -1509,6 +1709,8 @@ def ranks_worker(inputs, out_dir) -> int:
                 want, again))
         out["kernel_shapes"] = np.asarray(sorted(seen), np.int64)
         out["kernel_max_abs_err"] = np.asarray(max(errs))
+        out["refmath_held"] = np.asarray(hold_refmath(
+            f"[10b] rank {mesh.rank}", kept))
         np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
@@ -1541,7 +1743,8 @@ def phase_parallel_ranks(overrides, loops, one, dev, pair):
                 for r in range(RANKS)]
     r0 = outs[0]
     for k in r0:  # every rank returns the whole result
-        if not k.endswith(("_s", "_launches", "kernel_max_abs_err")) and \
+        if not k.endswith(("_s", "_launches", "kernel_max_abs_err",
+                           "refmath_held")) and \
                 not np.array_equal(r0[k], outs[1][k]):
             raise AssertionError(f"[10b] ranks differ in {k}")
     res = dict(backend="gloo", ranks=RANKS, torchrun_s=wall,
@@ -1549,6 +1752,16 @@ def phase_parallel_ranks(overrides, loops, one, dev, pair):
                                         for o in outs])
     if min(res["coral_launches_per_rank"]) <= 0:
         raise AssertionError(f"[10b] a rank launched no CorAl kernel: {res}")
+    # the refmath kernel's launches of each case, a list of the ranks'
+    cases = sorted(k[:-len("_refmath_launches")] for k in r0
+                   if k.endswith("_refmath_launches"))
+    REFMATH_LAUNCHES["ranks"] = {c: [int(o[f"{c}_refmath_launches"])
+                                     for o in outs] for c in cases}
+    REFMATH_HELD["ranks"] = [int(o["refmath_held"]) for o in outs]
+    if min(sum(v[r] for v in REFMATH_LAUNCHES["ranks"].values())
+           for r in range(RANKS)) <= 0:
+        raise AssertionError(f"[10b] a rank launched no refmath kernel: "
+                             f"{REFMATH_LAUNCHES['ranks']}")
     # (M, slots) of every launch held to the plain version: the first
     # wave's share (waves of 64 pairs, fewer candidates padded to a multiple
     # of the ranks) and the training step's share of 13 perturbations a pair
@@ -1738,6 +1951,7 @@ def main(argv=None) -> int:
 
     smi, sm_hz = phase_build()
     k = phase_kernels(sm_hz)
+    refmath_k = phase_refmath()
     done("1-2")
     plain_trajectory, scan_launches = phase_cli()
     done("3")
@@ -1753,7 +1967,8 @@ def main(argv=None) -> int:
     variants = phase_variants(images, gt, cfg)
     done("8")
     batched, pair = phase_batched(images, gt, cfg, frame_poses)
-    rest = phase_rest(images, cfg, loops)
+    with refmath_path("rest"):
+        rest = phase_rest(images, cfg, loops)
     done("9")
     parallel, parallel_launches, dry_launches, parallel_err = \
         phase_parallel(cfg, graph, loops, pair)
@@ -1776,7 +1991,21 @@ def main(argv=None) -> int:
         "pair_moments": {m: t for m, t in k["times"].items()
                          if m.startswith("M")},
         "launches_by_path": by_path,
-        "keyframe_clouds": real, "training_cloud": training}],
+        "keyframe_clouds": real, "training_cloud": training}, {
+        "name": "refmath", "route": "cuda",
+        "source": "tbv_slam_public_torch/csrc/refmath.cu",
+        "replaces": "tbv_slam_public_torch/core/refmath.py:1 (no TPU kernel: "
+                    "XLA's inline exp/log/log1p, glibc's sinf/cosf/atan2f)",
+        "launches": REFMATH_LAUNCHES["offline"]["total"],
+        "max_abs_err": refmath_k["max_abs_err"],
+        "ms": refmath_k["times"]["sincos_n4096"]["ms"],
+        "plain_ms": refmath_k["times"]["sincos_n4096"]["plain_ms"],
+        "bound_ms": refmath_k["times"]["sincos_n4096"]["bound_ms"],
+        "bound_by": refmath_k["times"]["sincos_n4096"]["bound_by"],
+        "library_ms": refmath_k["times"]["sincos_n4096"]["library_ms"],
+        "times": refmath_k["times"],
+        "launches_by_path": REFMATH_LAUNCHES,
+        "shapes_held_by_path": REFMATH_HELD}],
         "variants": variants, "batched": batched, "rest": rest,
         "schur_twice": schur_twice, "parallel": parallel,
         "phase_s": phase_s}))

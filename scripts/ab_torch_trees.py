@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
-"""Trees of the port on one card, in turns: odometry frames/s, ms per
-distributed-PGO LM step and schur seconds.
+"""Trees of the port on one card, in turns: odometry frames/s, kernel
+launches of one odometry step, ms per distributed-PGO LM step and schur
+seconds.
 
 Each run is a fresh process on one tree: 29 timed odometry frames at the
 sensor's size (400 x 3768, default configuration, after two warm-up
-frames), ``optimize_distributed`` on a mesh of one over the 4470-node
+frames), the launches of one more frame (``torch.profiler``),
+``optimize_distributed`` on a mesh of one over the 4470-node
 Oxford instance (64 LM steps, after a 2-step warm-up), and the ``schur``
 solver on it.  The order is the other trees, this tree twice, the other
-trees backwards, so that drift of the card shows.  One JSON line a run,
-then one with all runs and the card's name and power limit:
+trees backwards, so that drift of the card shows; ``--rounds N`` repeats
+that order N times, so that the two trees alternate in repeated pairs.
+One JSON line a run, then one with all runs and the card's name and power
+limit:
 
-    python3 scripts/ab_torch_trees.py <other tree> [<other tree> ...]
+    python3 scripts/ab_torch_trees.py [--rounds N] <other tree> [...]
 """
+import argparse
 import json
 import os
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OTHERS = [os.path.abspath(a) for a in sys.argv[1:]]
+_ap = argparse.ArgumentParser()
+_ap.add_argument("--rounds", type=int, default=1)
+_ap.add_argument("trees", nargs="+")
+_args = _ap.parse_args()
+OTHERS = [os.path.abspath(a) for a in _args.trees]
 
 CHILD = r'''
 import json, os, sys, time, dataclasses
@@ -43,6 +52,12 @@ for im in seq.images[2:]:
     pipe.process(im)
 torch.cuda.synchronize()
 res["odometry_frames_per_s"] = (len(seq.images) - 2) / (time.perf_counter() - t0)
+from torch.profiler import ProfilerActivity, profile
+with profile(activities=[ProfilerActivity.CPU]) as prof:
+    pipe.process(seq.images[-1])
+    torch.cuda.synchronize()
+res["launches_per_step"] = sum(e.count for e in prof.key_averages() if e.key in (
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
 z = np.load(os.path.join(root, "tests", "fixtures", "oxford_10-12-32_real_odometry.npz"))
 inst = simulate.make_real_odometry_pgo_instance(z["odom"], z["gt"], seed=0)
 pc = PGOConfig()
@@ -67,10 +82,8 @@ res["schur_s"] = time.perf_counter() - t0
 print("RESULT " + json.dumps(res))
 '''
 
-if not OTHERS:
-    raise SystemExit("usage: ab_torch_trees.py <other tree> [<other tree> ...]")
 out = []
-for tree in OTHERS + [ROOT, ROOT] + OTHERS[::-1]:
+for tree in (OTHERS + [ROOT, ROOT] + OTHERS[::-1]) * _args.rounds:
     p = subprocess.run([sys.executable, "-c", CHILD, tree],
                        capture_output=True, text=True, timeout=600)
     line = [l for l in p.stdout.splitlines() if l.startswith("RESULT ")]

@@ -1,15 +1,536 @@
-"""float32 arithmetic rounded as the reference's compiled CPU program
-rounds it.
+"""float32 math rounded as the reference's compiled CPU program rounds it.
 
-``fma``: a*b + c with one rounding, the fused multiply-add that the
-reference's compiler makes of a product feeding an add; emulated through
-float64, the same on every device.
+Plain PyTorch versions, for CPU tensors: ``kernels/refmath.py`` dispatches
+by device and launches ``csrc/refmath.cu`` for a CUDA tensor, which runs
+the same operations with every rounding written out.
+
+What the reference computes at each site.  Read from its compiled CPU
+program (jax 0.9.0, x86-64 with AVX-512 and FMA): the optimized HLO, the
+LLVM IR after optimisation and the object code of each kernel
+(``XLA_FLAGS=--xla_dump_to=<dir>``, ``objdump -dr``), on the package's own
+jitted functions (``odometry_step`` default and time-continuous,
+``register_and_verify_pairs``, ``_coral_impl``, ``logistic.fit``); glibc
+2.36's ``libm.so.6`` read with ``objdump -d`` (ifunc resolvers, the
+``__sinf_fma``/``__cosf_fma`` bodies, ``atanf``, ``__atan2f_finite`` and
+their constant tables); then each emulation held bit-equal to the package's
+own functions on the same inputs (``tests/test_torch_refmath.py``).
+
+| Site (port) | What the reference's program does there | How it was read | Port |
+| --- | --- | --- | --- |
+| ``core/se2.py`` (compose, inverse, apply, rotate, rotmat); ``ops/registration.py`` ``_residual_terms``, ``motion_correct_cells``; ``ops/features.py::transform_cells``; ``ops/posegraph.py``; ``ops/radar.py::motion_compensate`` | ``llvm.sin``/``llvm.cos`` of one angle become one ``sincosf`` call in a fusion (``sinf``/``cosf`` in small programs): glibc's, whose ifunc picks ``__sinf_fma`` etc. here; all three give the same bits (300,000 values) | relocations of the kernels' object code; the resolvers and bodies in libm | :func:`sincos` |
+| ``core/se2.py::wrap_angle`` | ``sincosf`` then ``atan2f`` in one fusion | object code (``cosine_atan2_fusion``) | :func:`wrap_angle` |
+| ``ops/registration.py::cell_rel_timestamps``, ``ops/radar.py::motion_compensate``, ``ops/scancontext.py::_descriptor`` | ``atan2f``: fdlibm's float algorithm (the symbol has no ifunc: no FMA); then d / (2 pi) - 0.5 as ``vfmsub`` of d and 1 / (2 pi) | libm's ``atanf``/``__atan2f_finite``; the fusion's HLO and object code | :func:`atan2`, :func:`recip` |
+| ``ops/coral.py`` entropy and KL ``log`` | XLA's inline float32 log (Eigen's ``plog``) | IR of ``wrapped_log`` and of the CorAl fusions | :func:`log` |
+| ``ops/features.py`` planarity, ``ops/registration.py`` Cauchy and combined losses, ``ops/posegraph.py`` loop loss ``log1p`` | XLA's ``xla.log1p.f32``: a rational form below sqrt(2) - 1, else its log of x + 1 | IR of ``wrapped_log-plus-one`` | :func:`log1p` |
+| ``ops/logistic.py`` sigmoid; ``exp`` of ``ops/scancontext.py::odometry_similarity``, ``models/strategies.py``, ``ops/cen.py`` | XLA's inline float32 exp (Eigen's ``pexp``); ``jax.nn.sigmoid`` is 1 / (exp(-z) + 1) in one fusion; a division by a constant is a product by its reciprocal | IR of ``wrapped_exponential`` and ``add_divide_fusion``; HLO | :func:`exp`, :func:`sigmoid`, :func:`recip` |
+| every product feeding an add in the ported arithmetic (se2, CorAl, CFEAR cells, the LM's residuals, Jacobians and 3x3 solve, the motion corrections) | one ``vfmadd``/``vfmsub`` when the product has one use; of two such operands the first is fused; a two-term reduction is ``fma(second, second, first product)`` | object code of the fusions | :func:`fma` (kernel op ``fma`` on the card) |
+| ``ops/registration.py`` LM step, theta - solve(H + damp, g) | the adjugate form of ``_solve3x3``, each difference of products fused, theta_i - s_i * (1 / det) one ``vfnmadd``; of x1's and x2's sums the b1 product is fused in the unbatched odometry step (scalar code), the b0 product in vmapped code, where x1 follows neither (``ROADMAP.md`` section 3) | object code of the step's ``negate_add_fusion``; the body compiled alone for one system (bit-equal, 3,000 systems) and vmapped (B = 2-64: x0 and x2 bit-equal) | :func:`lm_update` |
+| ``ops/registration.py::sampled_covariance`` fit; ``ops/logistic.py`` xb @ w and the Hessian | the runtime's matrix kernel at the offline wave's shape (f32[10, 27] by f32[64, 27]) and at [5, n] by [5, n], and the emitted loop of xb @ w: one fused multiply-add a term in order from zero | HLO (``dot`` not fused), IR of ``dot_general.12_elemental``, the same ops compiled alone | :func:`dot` |
+| ``sqrt`` of data: the P2D whitening, the robust losses, the CFEAR cell eigenvalues, Cen's and ScanContext's norms, the PGO weights | ``llvm.sqrt``: the IEEE square root (``vsqrtps``); torch's vectorised CPU sqrt is not (one ulp off in 0.65 % of values) | IR of the fusions; the reference's output against the float64 square root rounded | :func:`sqrt` |
+| ``ops/registration.py::_rho_and_weight`` Huber and Cauchy | Huber: ``2 delta sqrt(s) - delta^2`` one ``vfmadd`` of sqrt(s) and the constants, ``delta / sqrt(s)`` one division (torch divides a number by a tensor as a reciprocal times the number); Cauchy: ``s / b`` a product by the reciprocal, fused into ``1 + s / b`` | HLO and IR of ``odometry_step``; the losses compiled alone, bit-equal | :func:`fma`, :func:`sqrt`, :func:`recip` |
+| ``ops/registration.py::_chol2x2_inv_sqrt`` | ``a*c - b*b`` as ``fma(a, c, -(b*b))``; ``(-b / det) / u22`` rewritten by XLA to ``-b / (det * u22)``; ``ia - u12*u12`` as ``fma(-u12, u12, ia)`` | HLO of ``odometry_step`` (P2D), its IR; 196,608 matrices bit-equal | :func:`fma`, :func:`sqrt` |
+| subnormal operands and results of the functions above | flushed to zero (the reference's threads run with DAZ and FTZ) | outputs on subnormal inputs | :func:`ftz` |
+
+Fused multiply-adds inside the functions:
+
+- exp: ``fma(x, log2e, 0.5)`` before the floor; ``r - n*C2`` fused (the
+  ``n*C1`` product is exact); Horner steps ``fma(y, r, c)``; then
+  ``fma(y, r*r, r)``; no fusion into the final scale by 2^n (exact).
+- log: Horner steps ``fma(y, x, c)`` in three interleaved chains joined by
+  ``fma(y, x3, y1)``, ``fma(y, x3, y2)``; the last product ``y*x3`` is fused
+  into its add with ``e*C2`` (the first operand), ``x - 0.5*x2`` and
+  ``+ e*C1`` have exact products.
+- log1p's rational form: numerator and denominator Horner steps fused;
+  ``-0.5*x2 + x3*(P/Q)``: the first operand (exact) is fused.
+- ``__sinf_fma``/``__cosf_fma``: the reduction ``x - n*pi/2`` is one
+  ``vfnmadd`` (emulated exactly, :func:`_reduce`); the polynomials are the
+  FMA chains written out in :func:`_sin_poly` and :func:`_cos_poly`.
+- ``atan2f``/``atanf``: float arithmetic, no fusion.
+
+What the reference computes otherwise and the port does not (yet) is in
+``ROADMAP.md`` section 3: the sums over many terms (voxels, the LM's cost,
+gradient and Hessian, the logistic gradient), the logistic 5x5 solve,
+the fit at wave sizes other than 64, the LM solve's x1 in vmapped code,
+and the CFEAR eigen-decomposition's sqrt (bit-equal with :func:`sqrt`, left
+at torch's while the LM's sums are not the reference's).
 """
 from __future__ import annotations
 
+import math
+import struct
+
 import torch
+
+_F32, _F64 = torch.float32, torch.float64
+_MIN_NORM = 1.1754943508222875e-38  # 2^-126
+
+
+def _f(bits: int) -> float:
+    """The float32 with these bits, as a Python float."""
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
+def _d(hexstr: str) -> float:
+    return float.fromhex(hexstr)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The IEEE float32 square root (the reference's ``vsqrtps``), its
+    subnormal operands flushed.  torch's vectorised CPU sqrt is not
+    correctly rounded (AVX-512: 1,274 of 196,608 values in [0.001, 100]
+    one ulp off); the float64 square root of a float32, rounded once to
+    float32, is (53 >= 2 * 24 + 2 bits)."""
+    return ftz(x.to(_F32)).to(_F64).sqrt().to(_F32)
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a*b + c with a single rounding (through float64)."""
-    return (a.double() * b.double() + c.double()).float()
+    """float32 a*b + c with a single rounding.
+
+    The product is exact in float64, so the float64 sum is off the exact
+    value by less than half its ulp and rounds to the same float32 unless
+    it lies on a float32 tie (or in float32's subnormal range).  Those few
+    are rounded to odd first (the exact remainder decides the last bit),
+    which makes the float32 rounding the correctly rounded fused result."""
+    a, b, c = torch.broadcast_tensors(torch.as_tensor(a), torch.as_tensor(b),
+                                      torch.as_tensor(c))
+    p = a.to(_F64) * b.to(_F64)
+    c = c.to(_F64)
+    s = p + c
+    tie = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | \
+        (torch.abs(s) < _MIN_NORM)
+    if bool(tie.any()):
+        bb = s - p
+        err = (p - (s - bb)) + (c - bb)
+        odd = (s.view(torch.int64) & 1) == 1
+        fix = tie & (err != 0) & ~odd
+        toward = torch.where(err > 0, torch.full_like(s, math.inf),
+                             torch.full_like(s, -math.inf))
+        s = torch.where(fix, torch.nextafter(s, toward), s)
+    return s.to(_F32)
+
+
+def fma64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float64 a*b + c with a single rounding, for the finite operands of
+    the C library's polynomials: the product split exactly into two
+    doubles (Veltkamp/Dekker), the sum carried as a double-double."""
+    split = 134217729.0  # 2^27 + 1
+    t = a * split
+    ah = t - (t - a)
+    al = a - ah
+    t = b * split
+    bh = t - (t - b)
+    bl = b - bh
+    p = a * b
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    return s + (err + e)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32)
+
+
+def _from_bits(i: torch.Tensor) -> torch.Tensor:
+    return i.to(torch.int32).view(_F32)
+
+
+def recip(c: float) -> float:
+    """The float32 reciprocal of the float32 constant c: the reference's
+    compiler turns a division by a constant into a multiplication by it
+    (whose product may then be fused into an add)."""
+    return float(torch.tensor(1.0, dtype=_F32) / torch.tensor(c, dtype=_F32))
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """The reference's threads run with denormals-are-zero and
+    flush-to-zero: a subnormal operand or result of its float arithmetic
+    is a signed zero."""
+    return torch.where(torch.abs(x) < _MIN_NORM, x * 0.0, x)
+
+
+# ---- XLA's inline exp (Eigen pexp, float32) --------------------------------
+
+_EXP_LO = _f(0xC2AF999A)  # -87.8000030517578
+_EXP_HI = _f(0x42B1999A)  # 88.8000030517578
+_LOG2E = _f(0x3FB8AA3B)
+_C1 = 0.693359375
+_C2 = _f(0xB95E8083)  # -2.12194440e-4
+_EXP_P = [_f(0x39506967), _f(0x3AB743CE), _f(0x3C088908), _f(0x3D2AA9C1),
+          _f(0x3E2AAAAA)]
+
+
+def _clamp_nan(x, lo, hi):
+    """The compiled min/max: a NaN passes through."""
+    x = torch.where(x >= lo, x, torch.where(torch.isnan(x), x,
+                                            torch.full_like(x, lo)))
+    return torch.where(x <= hi, x, torch.where(torch.isnan(x), x,
+                                               torch.full_like(x, hi)))
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 exp."""
+    x = _clamp_nan(ftz(x.to(_F32)), _EXP_LO, _EXP_HI)
+    one = torch.ones_like(x)
+    fx = torch.floor(fma(x, one * _LOG2E, one * 0.5))
+    fx = _clamp_nan(fx, -127.0, 127.0)
+    r = x - fx * _C1
+    r = fma(-fx, one * _C2, r)
+    y = fma(r, one * _EXP_P[0], one * _EXP_P[1])
+    for c in _EXP_P[2:] + [0.5]:
+        y = fma(y, r, one * c)
+    y = fma(y, r * r, r)
+    y = y + 1.0
+    n = torch.where(torch.isnan(fx), torch.zeros_like(fx), fx)
+    scale = _from_bits((n.to(torch.int32) + 127) << 23)
+    return ftz(y * scale)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as compiled: 1 / (exp(-x) + 1); the exp's last
+    product, fused into the add, is exact."""
+    return ftz(1.0 / (exp(-x.to(_F32)) + 1.0))
+
+
+# ---- XLA's inline log (Eigen plog, float32) --------------------------------
+
+_SQRTHF = _f(0x3F3504F3)
+_LOG_P = [_f(0x3D9021BB), _f(0xBDEBD1B8), _f(0x3DEF251A), _f(0xBDFE5D4F),
+          _f(0x3E11E9BF), _f(0xBE2AAE50), _f(0x3E4CCEAC), _f(0xBE7FFFFC),
+          _f(0x3EAAAAAA)]
+
+
+def _log_core(x: torch.Tensor) -> torch.Tensor:
+    one = torch.ones_like(x)
+    invalid = ~(x > 0)  # x <= 0 or NaN
+    zero = x == 0
+    inf = x == math.inf
+    xc = torch.where(x > _MIN_NORM, x, one * _MIN_NORM)
+    bx = _bits(xc)
+    e = ((bx >> 23) & 0x1FF) - 127
+    m = _from_bits((bx & 0x807FFFFF) | 0x3F000000)
+    e = e.to(_F32) + 1.0
+    small = m < _SQRTHF
+    tmp = torch.where(small, m, torch.zeros_like(m))
+    x1 = m - 1.0
+    e = e - torch.where(small, one, torch.zeros_like(m))
+    x = x1 + tmp
+    x2 = x * x
+    x3 = x2 * x
+    p = _LOG_P
+    y = fma(x, one * p[0], one * p[1])
+    y1 = fma(x, one * p[3], one * p[4])
+    y2 = fma(x, one * p[6], one * p[7])
+    y = fma(y, x, one * p[2])
+    y1 = fma(y1, x, one * p[5])
+    y2 = fma(y2, x, one * p[8])
+    y = fma(y, x3, y1)
+    y = fma(y, x3, y2)
+    y = fma(y, x3, e * _C2)
+    y = (x - 0.5 * x2) + y
+    y = y + e * _C1
+    out = torch.where(invalid, torch.full_like(y, math.nan), y)
+    out = torch.where(zero, torch.full_like(y, -math.inf), out)
+    return torch.where(inf, torch.full_like(y, math.inf), out)
+
+
+def log(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log."""
+    return _log_core(ftz(x.to(_F32)))
+
+
+_L1P_Q = [_f(0x417101AD), _f(0x42A6185B), _f(0x435DC32D), _f(0x439A8CA3),
+          _f(0x43586D8A), _f(0x42707982)]
+_L1P_P = [_f(0x383DE04B), _f(0x3EFF40C5), _f(0x40D284FA), _f(0x41EF4B9C),
+          _f(0x4273CC76), _f(0x426473AD), _f(0x41A05101)]
+_L1P_SMALL = _f(0x3ED413CD)  # sqrt(2) - 1
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log1p: below sqrt(2) - 1 in magnitude
+    x - x^2/2 + x^3 P(x)/Q(x), else its log of x + 1."""
+    x = ftz(x.to(_F32))
+    one = torch.ones_like(x)
+    x2 = x * x
+    z0 = x * 0.0
+    q = z0 + 1.0
+    for c in _L1P_Q:
+        q = fma(q, x, one * c)
+    p = z0 + _L1P_P[0]
+    for c in _L1P_P[1:]:
+        p = fma(p, x, one * c)
+    r = (x * x2) * (p / q)
+    small = x + fma(x2, one * -0.5, r)
+    return torch.where(torch.abs(x) < _L1P_SMALL, small, _log_core(x + 1.0))
+
+
+# ---- the C library's sinf / cosf / sincosf (glibc 2.36, FMA variant) ------
+
+# __sincosf_table[0] of libm.so.6; table[1] negates c0..c4 and s1 is
+# unchanged, as the quadrant's sign needs
+_HPI_INV = _d("0x1.45f306dc9c883p+23")  # 2/pi * 2^24
+_HPI = _d("0x1.921fb54442d18p+0")
+# pi/2 split so that n * _HPI_HI is exact for |n| < 2^8
+_HPI_HI = float.fromhex("0x1.921fb54442dp+0")
+_HPI_LO = _HPI - _HPI_HI
+_COS_C = [1.0, _d("-0x1.ffffffd0c621cp-2"), _d("0x1.55553e1068f19p-5"),
+          _d("-0x1.6c087e89a359dp-10"), _d("0x1.99343027bf8c3p-16")]
+_SIN_S = [_d("-0x1.555545995a603p-3"), _d("0x1.1107605230bc4p-7"),
+          _d("-0x1.994eb3774cf24p-13")]
+_PI63 = _d("0x1.921fb54442d18p-62")
+_INV_PIO4 = [
+    0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44, 0x6e4e4415,
+    0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757, 0xfc2757d1, 0x2757d1f5,
+    0x57d1f534, 0xd1f534dd, 0xf534ddc0, 0x34ddc0db, 0xddc0db62, 0xc0db6295,
+    0xdb629599, 0x6295993c, 0x95993c43, 0x993c4390, 0x3c439041]
+
+
+def _mad(a, b, c):
+    """a*b + c with two roundings: the fast stand-in for fma64."""
+    return a * b + c
+
+
+def _sin_poly(xs, x2, f=fma64):
+    """Odd polynomial of x (quadrant sign applied; the s coefficients are
+    the same in both tables)."""
+    s1, s2, s3 = _SIN_S
+    x3 = x2 * xs
+    p = f(x2, torch.full_like(x2, s3), torch.full_like(x2, s2))
+    x7 = x2 * x3
+    s = f(x3, torch.full_like(x2, s1), xs)
+    return f(p, x7, s)
+
+
+def _cos_poly(x2, neg, f=fma64):
+    """Even polynomial; table 1 (``neg``) has c0..c4 negated."""
+    sg = torch.where(neg, -torch.ones_like(x2), torch.ones_like(x2))
+    c0, c1, c2, c3, c4 = (sg * c for c in _COS_C)
+    x4 = x2 * x2
+    c1p = f(x2, c1, c0)
+    c2p = f(x2, c4, c3)
+    x6 = x2 * x4
+    c = f(x4, c2, c1p)
+    return f(c2p, x6, c)
+
+
+def _to_f32_near_ties(fast, exact):
+    """fast() rounded to float32, where its double result lies too near a
+    float32 rounding tie for the unfused steps to be trusted, exact()
+    instead (both give doubles of one shape).  The fused and unfused
+    polynomials differ by a few double ulps, so only values within 2^10
+    double ulps of a tie can round otherwise: about 4e-6 of them."""
+    d = fast()
+    low = d.view(torch.int64) & 0x1FFFFFFF
+    near = torch.abs(low - 0x10000000) < 1024
+    if bool(near.any()):
+        d = torch.where(near, exact(), d)
+    return d.to(_F32)
+
+
+def _reduce(y: torch.Tensor):
+    """(r, n, sign index) with r = x - n*pi/2 for |x| < 120 (the fused
+    subtraction, exact here: n*_HPI_HI and its subtraction are exact) and
+    the integer reduction by 4/pi's bits above it."""
+    x = y.to(_F64)
+    n_fast = (((x * _HPI_INV).to(torch.int32) + 0x800000) >> 24)
+    nf = n_fast.to(_F64)
+    r_fast = (x - nf * _HPI_HI) - nf * _HPI_LO
+    large = torch.abs(y) >= 120.0
+    if not bool(large.any()):
+        return r_fast, n_fast, n_fast
+    # large: glibc's reduce_large on the float's bits, in wrapping int64
+    xi = _bits(y.to(_F32)).to(torch.int64) & 0xFFFFFFFF
+    tab = torch.tensor(_INV_PIO4, dtype=torch.int64, device=y.device)
+    idx = (xi >> 26) & 15
+    shift = (xi >> 23) & 7
+    m = ((xi & 0xFFFFFF) | 0x800000) << shift
+    res0 = (m * tab[idx]) & 0xFFFFFFFF
+    res1 = m * tab[idx + 4]
+    res2 = m * tab[idx + 8]
+    res0 = ((res2 >> 32) & 0xFFFFFFFF) | (res0 << 32)
+    res0 = res0 + res1
+    n_large = ((res0 + (1 << 61)) >> 62) & 3
+    res0 = res0 - (n_large << 62)
+    r_large = res0.to(_F64) * _PI63
+    sign = (xi >> 31).to(torch.int32)
+    n = torch.where(large, n_large.to(torch.int32), n_fast)
+    r = torch.where(large, r_large, r_fast)
+    q = torch.where(large, n + sign, n)  # sign-table index
+    return r, n, q
+
+
+_TAB_SIGN = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=_F64)
+
+
+def sincos(y: torch.Tensor):
+    """(sinf(y), cosf(y)) of the C library, as its sinf, cosf and sincosf
+    give them."""
+    y = y.to(_F32)
+    x = y.to(_F64)
+    a = torch.abs(y)
+    small = (_bits(a) >> 20) < (0x3F490FDB >> 20)  # |y| < pi/4
+    tiny = (_bits(a) >> 20) < (0x39800000 >> 20)  # |y| < 2^-12
+    finite = torch.isfinite(y)
+    r, n, q = _reduce(y)
+    r = torch.where(small, x, r)
+    n = torch.where(small, torch.zeros_like(n), n)
+    q = torch.where(small, torch.zeros_like(q), q)
+    x2 = r * r
+    sgn = _TAB_SIGN.to(y.device)[q & 3]
+    neg = (q & 2) != 0
+    xs = r * sgn
+    sp = _to_f32_near_ties(lambda: _sin_poly(xs, x2, _mad),
+                           lambda: _sin_poly(xs, x2))
+    cp = _to_f32_near_ties(lambda: _cos_poly(x2, neg, _mad),
+                           lambda: _cos_poly(x2, neg))
+    odd = (n & 1) == 1
+    nan = torch.full_like(y, math.nan)
+    s = torch.where(small & tiny, y, torch.where(odd, cp, sp))
+    c = torch.where(small & tiny, torch.ones_like(y), torch.where(odd, sp, cp))
+    return torch.where(finite, s, nan), torch.where(finite, c, nan)
+
+
+# ---- the C library's atan2f (fdlibm's float algorithm, no FMA) ------------
+
+_ATANHI = [_f(0x3EED6338), _f(0x3F490FDA), _f(0x3F7B985E), _f(0x3FC90FDA)]
+_ATANLO = [_f(0x31AC3769), _f(0x33222168), _f(0x33140FB4), _f(0x33A22168)]
+_AT = [_f(0x3EAAAAAB), _f(0xBE4CCCCD), _f(0x3E124925), _f(0xBDE38E38),
+       _f(0x3DBA2E6E), _f(0xBD9D8795), _f(0x3D886B35), _f(0xBD6EF16B),
+       _f(0x3D4BDA59), _f(0xBD15A221), _f(0x3C8569D7)]
+_PI_O_4 = _f(0x3F490FDB)
+_PI_O_2 = _f(0x3FC90FDB)
+_PI = _f(0x40490FDB)
+_PI_LO = _f(0xB3BBBD2E)
+_TINY = _f(0x0DA24260)  # 1.0e-30
+
+
+def _atanf(x: torch.Tensor) -> torch.Tensor:
+    """glibc's atanf for finite |x| < 2^25 and the |x| >= 2^25 limit."""
+    hx = _bits(x)
+    ix = hx & 0x7FFFFFFF
+    ax = torch.abs(x)
+    one = torch.ones_like(x)
+    t0 = (2.0 * ax - 1.0) / (2.0 + ax)
+    t1 = (ax - 1.0) / (ax + 1.0)
+    t2 = (ax - 1.5) / (1.0 + 1.5 * ax)
+    t3 = -1.0 / ax
+    idv = torch.where(ix < 0x3F300000, 0, torch.where(
+        ix < 0x3F980000, 1, torch.where(ix < 0x401C0000, 2, 3)))
+    red = ix >= 0x3EE00000
+    t = torch.where(idv == 0, t0, torch.where(idv == 1, t1, torch.where(
+        idv == 2, t2, t3)))
+    t = torch.where(red, t, x)
+    z = t * t
+    w = z * z
+    a = _AT
+    s1 = one * a[10]
+    for c in (a[8], a[6], a[4], a[2], a[0]):
+        s1 = c + w * s1
+    s1 = z * s1
+    s2 = one * a[9]
+    for c in (a[7], a[5], a[3], a[1]):
+        s2 = c + w * s2
+    s2 = w * s2
+    hi = torch.tensor(_ATANHI, dtype=_F32, device=x.device)[idv]
+    lo = torch.tensor(_ATANLO, dtype=_F32, device=x.device)[idv]
+    zr = hi - ((t * (s1 + s2) - lo) - t)
+    zr = torch.where(hx < 0, -zr, zr)
+    out = torch.where(red, zr, t - t * (s1 + s2))
+    out = torch.where(ix < 0x31000000, x, out)
+    big = (_ATANHI[3] + _ATANLO[3]) * one
+    out = torch.where(ix >= 0x4C000000, torch.where(hx > 0, big, -big), out)
+    return torch.where(ix > 0x7F800000, x + x, out)
+
+
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The C library's atan2f."""
+    y, x = torch.broadcast_tensors(y.to(_F32), x.to(_F32))
+    hx, hy = _bits(x), _bits(y)
+    ix, iy = hx & 0x7FFFFFFF, hy & 0x7FFFFFFF
+    one = torch.ones_like(x)
+    m = ((hy >> 31) & 1) | ((hx >> 30) & 2)
+    k = (iy - ix) >> 23
+    q = ftz(torch.abs(ftz(y) / ftz(x)))
+    z = _atanf(torch.where(k > 60, one, q))
+    z = torch.where(k > 60, one * (_PI_O_2 + 0.5 * _PI_LO), z)
+    z = torch.where((hx < 0) & (k < -60) & (k <= 60), torch.zeros_like(z), z)
+    zneg = _from_bits(_bits(z) ^ -0x80000000)
+    out = torch.where(m == 0, z, torch.where(
+        m == 1, zneg, torch.where(m == 2, _PI - (z - _PI_LO),
+                                  (z - _PI_LO) - _PI)))
+    # x = 1: atanf(y)
+    out = torch.where(hx == 0x3F800000, _atanf(y), out)
+    # x or y infinite
+    ypi2 = torch.where(hy < 0, one * (-_PI_O_2 - _TINY), one * (_PI_O_2 +
+                                                                _TINY))
+    out = torch.where(iy == 0x7F800000, ypi2, out)
+    xinf_yinf = torch.stack([one * (_PI_O_4 + _TINY), one * (-_PI_O_4 - _TINY),
+                             one * (3.0 * _PI_O_4 + _TINY),
+                             one * (-3.0 * _PI_O_4 - _TINY)])
+    xinf = torch.stack([one * 0.0, one * -0.0, one * (_PI + _TINY),
+                        one * (-_PI - _TINY)])
+    sel = m.long()[None]
+    out = torch.where((ix == 0x7F800000) & (iy == 0x7F800000),
+                      xinf_yinf.gather(0, sel)[0], out)
+    out = torch.where((ix == 0x7F800000) & (iy != 0x7F800000),
+                      xinf.gather(0, sel)[0], out)
+    # x = 0, then y = 0
+    out = torch.where(ix == 0, ypi2, out)
+    yzero = torch.stack([y, y, one * (_PI + _TINY), one * (-_PI - _TINY)])
+    out = torch.where(iy == 0, yzero.gather(0, sel)[0], out)
+    return torch.where((ix > 0x7F800000) | (iy > 0x7F800000), x + y, out)
+
+
+def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
+    """atan2f(sinf(t), cosf(t)), the reference's angle wrap."""
+    s, c = sincos(theta)
+    return atan2(s, c)
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """out[..., c] = sum_k a[..., k] * b[c, k] in float32, one fused
+    multiply-add a term in k order from zero, so every row is rounded alike
+    whatever the number of rows."""
+    out = torch.zeros(a.shape[:-1] + b.shape[:1], dtype=_F32, device=a.device)
+    for k in range(a.shape[-1]):
+        out = fma(a[..., k:k + 1], b[:, k], out)
+    return out
+
+
+def lm_update(theta: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              one_system: bool = False) -> torch.Tensor:
+    """theta - a^{-1} b for [..., 3], [..., 3, 3] and [..., 3] in float32:
+    the LM step of the reference's closed form (adjugate / Cramer,
+    ``_solve3x3``) with its roundings.  Each p q - r t and the determinant's
+    sums fused as written; each theta_i - s_i / det is one fused
+    multiply-add of s_i and the reciprocal; of x1's and x2's sums the b1
+    product is fused where the reference solves one system (its unbatched
+    odometry step, scalar code: ``one_system``), the b0 product where it
+    solves a batch (vectorised code; there x1 is not always its bits)."""
+    a00, a01, a02 = a[..., 0, 0], a[..., 0, 1], a[..., 0, 2]
+    a10, a11, a12 = a[..., 1, 0], a[..., 1, 1], a[..., 1, 2]
+    a20, a21, a22 = a[..., 2, 0], a[..., 2, 1], a[..., 2, 2]
+
+    def cof(p, q, r, t):  # p q - r t
+        return fma(p, q, -(r * t))
+
+    c00, c01, c02 = cof(a11, a22, a12, a21), cof(a12, a20, a10, a22), \
+        cof(a10, a21, a11, a20)
+    det = fma(a02, c02, fma(a00, c00, a01 * c01))
+    tiny = torch.where(det < 0, torch.full_like(det, -1e-30),
+                       torch.full_like(det, 1e-30))
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-30, tiny, det)
+    c10, c11, c12 = cof(a02, a21, a01, a22), cof(a00, a22, a02, a20), \
+        cof(a01, a20, a00, a21)
+    c20, c21, c22 = cof(a01, a12, a02, a11), cof(a02, a10, a00, a12), \
+        cof(a00, a11, a01, a10)
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+
+    def pair(c0, c1):  # c0 b0 + c1 b1, one product fused
+        return fma(c1, b1, c0 * b0) if one_system else fma(c0, b0, c1 * b1)
+
+    s = (fma(c20, b2, fma(c00, b0, c10 * b1)), fma(c21, b2, pair(c01, c11)),
+         fma(c22, b2, pair(c02, c12)))
+    return torch.stack([fma(-inv_det, si, theta[..., i])
+                        for i, si in enumerate(s)], -1)

@@ -3,8 +3,12 @@
 Port of ``tbv_slam_public_tpu.core.se2``; every function broadcasts over
 leading batch dimensions.  Sums of products are rounded as the reference's
 compiled program rounds them: a product that feeds an add is fused into it
-(the first one where both operands are products; ``core.refmath.fma``).
-The ``_np`` helpers are host-side NumPy for the keyframe bookkeeping
+(the first one where both operands are products; ``refmath.fma``), and
+sin, cos and the wrap's atan2 are the C library's, as the reference's
+program calls them (``kernels.refmath``: one launch per call on the card).
+So this core module depends on the kernels layer: the dispatch by device
+(the plain version on the CPU, the kernel on the card) lives there.  The
+``_np`` helpers are host-side NumPy for the keyframe bookkeeping
 loops.
 """
 from __future__ import annotations
@@ -12,20 +16,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .refmath import fma
+from ..kernels import refmath
 
 
 def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
-    """Wrap angles to (-pi, pi].  The atan2 runs in float64: torch's float32
-    atan2 on the CPU rounds a tensor's vectorised body and its tail
-    differently, so a row's angle would depend on the rows beside it."""
-    return torch.atan2(torch.sin(theta).double(),
-                       torch.cos(theta).double()).to(theta.dtype)
+    """Wrap angles to (-pi, pi]: atan2f(sinf(t), cosf(t)), elementwise, so a
+    row's angle depends on nothing beside it."""
+    return refmath.wrap_angle(theta)
 
 
 def rotmat(theta: torch.Tensor) -> torch.Tensor:
     """Rotation matrices ``[..., 2, 2]`` for angles ``[...]``."""
-    c, s = torch.cos(theta), torch.sin(theta)
+    s, c = refmath.sincos(theta)
     return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
 
 
@@ -35,17 +37,17 @@ def identity(dtype=torch.float32, device=None) -> torch.Tensor:
 
 def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pose composition ``a * b`` (apply b, then a). Shapes broadcast."""
-    ca, sa = torch.cos(a[..., 2]), torch.sin(a[..., 2])
-    x = fma(-sa, b[..., 1], fma(ca, b[..., 0], a[..., 0]))
-    y = fma(ca, b[..., 1], fma(sa, b[..., 0], a[..., 1]))
+    sa, ca = refmath.sincos(a[..., 2])
+    x = refmath.fma(-sa, b[..., 1], refmath.fma(ca, b[..., 0], a[..., 0]))
+    y = refmath.fma(ca, b[..., 1], refmath.fma(sa, b[..., 0], a[..., 1]))
     t = wrap_angle(a[..., 2] + b[..., 2])
     return torch.stack([x, y, t], -1)
 
 
 def inverse(a: torch.Tensor) -> torch.Tensor:
-    c, s = torch.cos(a[..., 2]), torch.sin(a[..., 2])
-    x = -fma(c, a[..., 0], s * a[..., 1])
-    y = -fma(c, a[..., 1], -(s * a[..., 0]))
+    s, c = refmath.sincos(a[..., 2])
+    x = -refmath.fma(c, a[..., 0], s * a[..., 1])
+    y = -refmath.fma(c, a[..., 1], -(s * a[..., 0]))
     return torch.stack([x, y, -a[..., 2]], -1)
 
 
@@ -56,13 +58,12 @@ def relative(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _rotated(c, s, vx, vy):
     """(c vx - s vy, s vx + c vy)."""
-    return fma(c, vx, -(s * vy)), fma(s, vx, c * vy)
+    return refmath.fma(c, vx, -(s * vy)), refmath.fma(s, vx, c * vy)
 
 
 def apply(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Transform points ``[..., N, 2]`` by pose ``[..., 3]``."""
-    c = torch.cos(pose[..., 2])[..., None]
-    s = torch.sin(pose[..., 2])[..., None]
+    s, c = refmath.sincos(pose[..., 2][..., None])
     x, y = _rotated(c, s, points[..., 0], points[..., 1])
     return torch.stack([x + pose[..., 0][..., None],
                         y + pose[..., 1][..., None]], -1)
@@ -70,8 +71,7 @@ def apply(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
 
 def rotate(pose: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     """Rotate direction vectors ``[..., N, 2]`` by a pose's rotation."""
-    c = torch.cos(pose[..., 2])[..., None]
-    s = torch.sin(pose[..., 2])[..., None]
+    s, c = refmath.sincos(pose[..., 2][..., None])
     return torch.stack(_rotated(c, s, vecs[..., 0], vecs[..., 1]), -1)
 
 
@@ -81,9 +81,9 @@ def interpolate(a: torch.Tensor, b: torch.Tensor, factor) -> torch.Tensor:
     planar motion)."""
     f = torch.as_tensor(factor, dtype=a.dtype, device=a.device)
     dt = wrap_angle(b[..., 2] - a[..., 2])
-    x = fma(b[..., 0] - a[..., 0], f, a[..., 0])
-    y = fma(b[..., 1] - a[..., 1], f, a[..., 1])
-    t = wrap_angle(fma(dt, f, a[..., 2]))
+    x = refmath.fma(b[..., 0] - a[..., 0], f, a[..., 0])
+    y = refmath.fma(b[..., 1] - a[..., 1], f, a[..., 1])
+    t = wrap_angle(refmath.fma(dt, f, a[..., 2]))
     return torch.stack([x, y, t], -1)
 
 

@@ -7,10 +7,10 @@
 //
 // Bound: float32 operations.  A verification wave is 4 x 64 pairs x 4096 x
 // 4096 (query, point) interactions against a few MB of point lists, and the
-// radius gate of one interaction is 2 sub, 2 mul, 1 add and a compare, none
-// of them fused.  An SM quarter starts one warp instruction per cycle, so the
-// design spends those slots on live interactions only and keeps every SM
-// quarter supplied with warps:
+// radius gate of one interaction is 2 sub, 1 mul, 1 fma and a compare.  An
+// SM quarter starts one warp instruction per cycle, so the design spends
+// those slots on live interactions only and keeps every SM quarter supplied
+// with warps:
 //
 // 1. Live points and live queries only, decided on the card.  A first small
 //    kernel compacts every cloud row once: warp ballots and a running count
@@ -30,9 +30,11 @@
 //    vote on a step is taken under the next step's arithmetic and the shared
 //    load runs one step ahead, so neither chain stalls the warp.  The steady
 //    state is 2 sub, 2 mul, 1 add and 1 min per interaction.
-// 4. Rounding.  d2 is formed with __fmul_rn / __fadd_rn so nvcc cannot
-//    contract dx*dx + dy*dy into an FMA; the gate then rounds exactly as the
-//    plain PyTorch version (rel * rel summed) and counts agree bit for bit.
+// 4. Rounding.  d2 rounds as the reference's compiled program rounds its
+//    two-term sum of squares: fma(dy, dy, dx*dx), written with __fmul_rn /
+//    __fmaf_rn so nvcc cannot choose another contraction.  The vote and the
+//    gate use the same distance, so the counts are the reference's and the
+//    plain PyTorch version's bit for bit.
 //    The |q|^2 + |p|^2 - 2 q.p form would lose the gate to cancellation, so
 //    the tensor cores (wgmma) have no use here; nor has TMA, with megabytes
 //    of input against billions of operations.
@@ -109,7 +111,7 @@ __device__ __forceinline__ void store(const Params& prm, long long o,
 }
 
 __device__ __forceinline__ float distance2(float dx, float dy) {
-  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+  return __fmaf_rn(dy, dy, __fmul_rn(dx, dx));
 }
 
 __device__ __forceinline__ void accumulate(float (&a)[6], float dx, float dy,

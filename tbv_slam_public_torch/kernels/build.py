@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package into one
-shared library with a plain C interface (``-gencode
-arch=compute_90a,code=sm_90a``), placed under ``build/tbv_torch_kernels/`` at
-the repository root and named by a hash of the sources and flags, and loads
-it with ``ctypes``.  A failed build raises; nothing falls back.
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package (one
+process per source, all started together; ``-gencode
+arch=compute_90a,code=sm_90a``) and links them into one shared library with
+a plain C interface, placed under ``build/tbv_torch_kernels/`` at the
+repository root and named by a hash of the sources and flags, and loads it
+with ``ctypes``.  A failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tbv_torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB = None
 #: build record of the library in use: path, seconds, ptxas report
@@ -55,13 +56,25 @@ def library() -> ctypes.CDLL:
     report = ""
     if not os.path.exists(path):
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True)
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        for src, p, out in zip(sources, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):"
+                                   f"\n{out}")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
+        for obj in objs:
+            os.remove(obj)
         os.replace(tmp, path)
-        report = proc.stdout + proc.stderr
+        report = "".join(outs)
     lib = ctypes.CDLL(path)
     # both entries: 4 clouds/masks, 4 row strides, 3 sizes, r^2, outputs,
     # scratch and its size, stream
@@ -70,6 +83,18 @@ def library() -> ctypes.CDLL:
             [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2 + \
             [ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    # op, x, y, z, out0, out1, n, stream
+    lib.refmath_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + \
+        [ctypes.c_longlong, ctypes.c_void_p]
+    lib.refmath_launch.restype = ctypes.c_int
+    # theta, a, b, out, n, one_system, stream
+    lib.refmath_lm_update_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.refmath_lm_update_launch.restype = ctypes.c_int
+    # a, b, out, rows, cols, depth, stream
+    lib.refmath_dot_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.refmath_dot_launch.restype = ctypes.c_int
     BUILD_INFO.update(path=path, seconds=time.perf_counter() - t0,
                       ptxas=report)
     _LIB = lib

@@ -5,7 +5,8 @@ launched by ``neighbor_moments``), batched over a leading pair axis M so one
 launch covers a whole loop-verification wave instead of a ``vmap``.  The
 kernel is ``csrc/coral_moments.cu``; its design notes (bound by float32
 operations; live points and live queries only, compacted on the card;
-register-tiled queries, a branch on the radius gate, the FMA-free distance,
+register-tiled queries, a branch on the radius gate, the reference's fused
+distance,
 the points of a query block shared among its warps) are in that file.
 
 :func:`neighbor_moments` is the TPU kernel's counterpart: one (query cloud,
@@ -24,6 +25,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..core.refmath import fma
 
 #: number of kernel launches made by :func:`neighbor_moments` and
 #: :func:`pair_moments`
@@ -54,8 +57,9 @@ def neighbor_moments_reference(queries, qmask, points, pmask, radius,
     order.  Σ(p−q) is its windowed sum (:data:`_WINDOW`): in slot order
     within a window, then over the windows in order.  So a row's moments
     depend on nothing but that row, as each pair of the reference's ``vmap``
-    is independent.  The radius gate is the kernel's FMA-free distance, so
-    that the counts stay equal to the kernel's.
+    is independent.  The radius gate rounds as the reference's: its
+    two-term sum of squares is one fused multiply-add, fma(dy, dy, dx*dx),
+    as the kernel's.
 
     queries [M, Q, 2], qmask [M, Q], points [M, P, 2], pmask [M, P] ->
     (count [M, Q], sum_rel [M, Q, 2], sum_sq [M, Q, 2, 2]), float32."""
@@ -93,7 +97,7 @@ def _ordered_moments(qs, ps, pslot, radius, levels):
     l, dt = qs.shape[0], qs.dtype
     rx = ps[None, :, 0] - qs[:, None, 0]  # [l, Lp]
     ry = ps[None, :, 1] - qs[:, None, 1]
-    near = rx * rx + ry * ry <= radius * radius
+    near = fma(ry, ry, rx * rx) <= radius * radius
     count = near.sum(1)
     k = int(count.max())
     # each query's neighbours in slot order: [l, K], zero terms past its count

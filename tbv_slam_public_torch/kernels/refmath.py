@@ -1,0 +1,195 @@
+"""The reference's float32 math: CUDA kernel wrapper + plain versions.
+
+The kernel is ``csrc/refmath.cu``: one elementwise launch per call, which
+runs XLA's inline exp / log / log1p, the C library's sinf / cosf / sincosf
+/ atan2f, the IEEE square root and the fused multiply-add with the
+reference's operations and roundings; ``dot``, the small matrix product
+whose terms the reference adds one at a time; and ``lm_update``, the LM
+step theta - H^{-1} g.  The plain versions are ``core/refmath.py``.  What the reference computes at each
+site, and how that was read from its compiled program, is the table in
+``core/refmath.py``.
+
+Dispatch is by tensor device: a CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel launches
+and nothing else; ``LAUNCHES_BY_OP`` splits them by op.
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from ..core import refmath as plain
+
+#: number of kernel launches made by this module's functions
+LAUNCHES = 0
+#: launches by op name
+LAUNCHES_BY_OP: collections.Counter = collections.Counter()
+
+OPS = {"exp": 0, "log": 1, "log1p": 2, "sigmoid": 3, "sincos": 4,
+       "atan2": 5, "wrap_angle": 6, "fma": 7, "sqrt": 8}
+
+_PLAIN = {"exp": plain.exp, "log": plain.log, "log1p": plain.log1p,
+          "sigmoid": plain.sigmoid, "sincos": plain.sincos,
+          "atan2": plain.atan2, "wrap_angle": plain.wrap_angle,
+          "fma": plain.fma, "sqrt": plain.sqrt, "dot": plain.dot,
+          "lm_update": plain.lm_update}
+
+
+_ENTRIES: dict = {}
+
+
+def _entry(name: str):
+    """The library's C entry ``name``, looked up once (the library is built
+    at the first launch)."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        from .build import library
+
+        fn = _ENTRIES[name] = getattr(library(), name)
+    return fn
+
+
+def _launch_on(dev: torch.device, fn, *args) -> int:
+    """fn(*args, stream) on ``dev``'s current stream, with ``dev`` the
+    current card while it launches (switched only when it is not)."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _elementwise(op: str, x: torch.Tensor, *more: torch.Tensor):
+    """(result, C entry, its arguments, values) of op on x (and y for atan2,
+    y and z for fma), broadcast together."""
+    ts = (x,) + more
+    if any(t.shape != x.shape for t in more):
+        ts = torch.broadcast_tensors(*ts)
+    x, *more = (t.contiguous() for t in ts)
+    y = more[0] if more else x
+    z = more[1] if len(more) > 1 else x
+    two = op == "sincos"
+    out = torch.empty((2 if two else 1,) + tuple(x.shape), dtype=x.dtype,
+                      device=x.device)
+    return ((out[0], out[1]) if two else out[0], "refmath_launch",
+            (OPS[op], x.data_ptr(), y.data_ptr(), z.data_ptr(),
+             out[0].data_ptr(), out[-1].data_ptr(), x.numel()), x.numel())
+
+
+def _dot(op: str, a: torch.Tensor, b: torch.Tensor):
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, a.shape[-1]).contiguous()
+    b2 = b.contiguous()
+    if b2.dim() != 2 or b2.shape[1] != a2.shape[1]:
+        raise ValueError(f"refmath.dot: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    out = torch.empty((a2.shape[0], b2.shape[0]), dtype=a.dtype,
+                      device=a.device)
+    return (out.reshape(lead + (b2.shape[0],)), "refmath_dot_launch",
+            (a2.data_ptr(), b2.data_ptr(), out.data_ptr(), a2.shape[0],
+             b2.shape[0], a2.shape[1]), out.numel())
+
+
+def _lm_update(op: str, theta: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor, one_system: bool = False):
+    if a.shape[-2:] != (3, 3) or b.shape != a.shape[:-1] or \
+            theta.shape != b.shape:
+        raise ValueError(f"refmath.lm_update: shapes {tuple(theta.shape)}, "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    t2 = theta.reshape(-1, 3).contiguous()
+    a2 = a.reshape(-1, 9).contiguous()
+    b2 = b.reshape(-1, 3).contiguous()
+    out = torch.empty_like(t2)
+    return (out.reshape(theta.shape), "refmath_lm_update_launch",
+            (t2.data_ptr(), a2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+             t2.shape[0], int(one_system)), out.numel())
+
+
+_KERNEL_ARGS = dict.fromkeys(OPS, _elementwise)
+_KERNEL_ARGS.update(dot=_dot, lm_update=_lm_update)
+
+
+def _call(op: str, *ts: torch.Tensor, **options):
+    """op's plain version on CPU tensors; on CUDA tensors one launch of its
+    kernel, counted; on any other device an error.  ``options`` are the
+    op's non-tensor arguments."""
+    global LAUNCHES
+    dev = ts[0].device
+    if dev.type == "cpu":
+        return _PLAIN[op](*ts, **options)
+    if dev.type != "cuda":
+        raise RuntimeError(f"refmath.{op}: no kernel for device {dev}")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"refmath.{op}: float32 tensors only, got "
+                        f"{[t.dtype for t in ts]}")
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"refmath.{op}: operands on "
+                         f"{[str(t.device) for t in ts]}")
+    result, entry, args, n = _KERNEL_ARGS[op](op, *ts, **options)
+    if n == 0:
+        return result
+    err = _launch_on(dev, _entry(entry), *args)
+    if err != 0:
+        raise RuntimeError(f"{entry}({op}) failed: CUDA error {err}")
+    LAUNCHES += 1
+    LAUNCHES_BY_OP[op] += 1
+    return result
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 exp."""
+    return _call("exp", x)
+
+
+def log(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log."""
+    return _call("log", x)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log1p."""
+    return _call("log1p", x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as compiled: 1 / (exp(-x) + 1)."""
+    return _call("sigmoid", x)
+
+
+def sincos(x: torch.Tensor):
+    """(sinf(x), cosf(x)) of the C library, from one launch."""
+    return _call("sincos", x)
+
+
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The C library's atan2f."""
+    return _call("atan2", y, x)
+
+
+def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
+    """atan2f(sinf(t), cosf(t)) in one launch."""
+    return _call("wrap_angle", theta)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a*b + c with one rounding, the operands broadcast together."""
+    return _call("fma", a, b, c)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The IEEE float32 square root, subnormal operands flushed."""
+    return _call("sqrt", x)
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """out[..., c] = sum_k a[..., k] * b[c, k], one fused multiply-add a
+    term in k order (the reference's small matrix product), one launch."""
+    return _call("dot", a, b)
+
+
+def lm_update(theta: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              one_system: bool = False) -> torch.Tensor:
+    """theta - a^{-1} b for [..., 3], [..., 3, 3], [..., 3], the LM step in
+    the reference's closed form with its roundings (``one_system``: as its
+    unbatched odometry step rounds it), one launch."""
+    return _call("lm_update", theta, a, b, one_system=one_system)

@@ -136,9 +136,10 @@ def batched_first_frame(state: OdometryState, images: torch.Tensor,
 
 
 def batched_odometry_step(state: OdometryState, images: torch.Tensor,
-                          cfg: TBVConfig):
+                          cfg: TBVConfig, one_sequence: bool = False):
     """One odometry frame of B sequences (odometrykeyframefuser.cpp:
-    143-260); ``images`` [B, A, R]."""
+    143-260); ``images`` [B, A, R].  ``one_sequence``: B = 1 standing for
+    the reference's unbatched step (its LM step rounds otherwise)."""
     ocfg = cfg.odometry
     compensate = ocfg.compensate and not ocfg.time_continuous
     cells, cloud, peaks = _detect(images, state.Tmot if compensate else None,
@@ -157,11 +158,12 @@ def batched_odometry_step(state: OdometryState, images: torch.Tensor,
         # previous motion (RegisterTimeContinuous)
         res = registration.register_time_continuous(
             cells, Tguess, *window, cfg.registration, state.Tmot,
-            ccw=ocfg.radar_ccw, guess=guess, guess_sqrt_info=prior)
+            ccw=ocfg.radar_ccw, guess=guess, guess_sqrt_info=prior,
+            one_system=one_sequence)
     else:
         res = registration.register_window(
             cells, Tguess, *window, cfg.registration, guess=guess,
-            guess_sqrt_info=prior)
+            guess_sqrt_info=prior, one_system=one_sequence)
     Tcurrent = torch.where(res.success[:, None], res.pose, Tguess)
 
     # velocity / acceleration sanity check (odometrykeyframefuser.cpp:76-94)
@@ -235,7 +237,8 @@ def first_frame(state: OdometryState, image: torch.Tensor, cfg: TBVConfig):
 def odometry_step(state: OdometryState, image: torch.Tensor, cfg: TBVConfig):
     """One odometry frame of one sequence: ``batched_odometry_step`` at
     B = 1."""
-    return _as_row(*batched_odometry_step(*_as_batch(state, image), cfg))
+    return _as_row(*batched_odometry_step(*_as_batch(state, image), cfg,
+                                          one_sequence=True))
 
 
 def _frame_scalars(out: OdometryOutput) -> torch.Tensor:

@@ -26,8 +26,10 @@ import torch
 
 from ..core import se2
 from ..core.config import TBVConfig
+from ..core.refmath import recip
 from ..core.timing import timing
 from ..core.types import stack_records
+from ..kernels import refmath
 from .loopclosure import (LoopCloser, LoopConstraint, _fetch,
                           register_and_verify_pairs)
 
@@ -68,7 +70,8 @@ def verify_by_odometry(odom_poses: torch.Tensor, travel_cum: torch.Tensor,
     trav = (travel_cum[id_from] - travel_cum[id_to]).abs()
     rel = torch.clamp(est - nearby_margin, min=0.0) / torch.clamp(trav,
                                                                   min=1e-9)
-    return 1.0 - torch.exp(-rel * rel / (2.0 * sigma * sigma))
+    # the division by a constant as the reference's product by its reciprocal
+    return 1.0 - refmath.exp(-rel * rel * recip(2.0 * sigma * sigma))
 
 
 def odometry_travel_cumsum(odom_poses: np.ndarray) -> np.ndarray:

@@ -20,7 +20,9 @@ import torch.nn.functional as F
 
 from ..core.config import RadarConfig
 from ..core.device import resolve
+from ..core.refmath import recip
 from ..core.types import PointCloud
+from ..kernels import refmath
 from .radar import polar_to_xy
 
 
@@ -30,7 +32,8 @@ def _row_gaussian_smooth(q: torch.Tensor, sigma_gauss: int) -> torch.Tensor:
     fsize = sigma_gauss * 3
     mu = fsize // 2
     i = torch.arange(fsize, dtype=torch.float32, device=q.device)
-    filt = torch.exp(-0.5 * (i - mu) ** 2 / float(sigma_gauss * sigma_gauss))
+    filt = refmath.exp(-0.5 * (i - mu) ** 2
+                       * recip(float(sigma_gauss * sigma_gauss)))
     filt = filt / filt.sum()
     qp = F.pad(q, (mu, fsize - 1 - mu), mode="reflect")
     return F.conv1d(qp[:, None, :], filt[None, None, :])[:, 0, :]
@@ -46,11 +49,11 @@ def cen2018_scores(image: torch.Tensor, zq: float = 3.0,
     p = _row_gaussian_smooth(q, sigma_gauss)
     neg = q < 0
     n_neg = neg.sum(1)
-    sig = torch.sqrt(torch.where(neg, 2.0 * q * q, torch.zeros_like(q)).sum(1)
-                     / torch.clamp(n_neg, min=1))
+    sig = refmath.sqrt(torch.where(neg, 2.0 * q * q, torch.zeros_like(q))
+                       .sum(1) / torch.clamp(n_neg, min=1))
     sig = torch.where(n_neg > 0, sig, torch.full_like(sig, 0.034))[:, None]
-    nqp = torch.exp(-0.5 * ((q - p) / sig) ** 2)
-    npp = torch.exp(-0.5 * (p / sig) ** 2)
+    nqp = refmath.exp(-0.5 * ((q - p) / sig) ** 2)
+    npp = refmath.exp(-0.5 * (p / sig) ** 2)
     y = q * (1.0 - nqp) + p * (nqp - npp)
     idx = torch.arange(r, device=img.device)
     thres = zq * sig

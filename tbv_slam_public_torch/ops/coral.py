@@ -13,8 +13,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.refmath import fma
+from ..core.refmath import ftz
 from ..core.types import PointCloud
+from ..kernels import refmath
 from ..kernels.coral_moments import pair_moments
 
 
@@ -34,8 +35,10 @@ class CoralResult(NamedTuple):
 
 
 def _det2x2(c):
-    """c00 c11 - c01 c10 as fma(c00, c11, -(c01 c10))."""
-    return fma(c[..., 0, 0], c[..., 1, 1], -(c[..., 0, 1] * c[..., 1, 0]))
+    """c00 c11 - c01 c10 as fma(c00, c11, -(c01 c10)), a subnormal result
+    flushed to zero as the reference's threads flush it."""
+    return ftz(refmath.fma(c[..., 0, 0], c[..., 1, 1],
+                           -(c[..., 0, 1] * c[..., 1, 0])))
 
 
 def _mean_cov_from_moments(n, s1, s2):
@@ -43,7 +46,7 @@ def _mean_cov_from_moments(n, s1, s2):
     s2 - n m m^T as fma(-(n m_i), m_j, s2)."""
     mean = s1 / torch.clamp(n, min=1.0)[..., None]
     nm = n[..., None] * mean
-    centered = fma(-nm[..., :, None], mean[..., None, :], s2)
+    centered = refmath.fma(-nm[..., :, None], mean[..., None, :], s2)
     cov = centered / torch.clamp(n - 1.0, min=1.0)[..., None, None]
     return mean, cov
 
@@ -51,9 +54,9 @@ def _mean_cov_from_moments(n, s1, s2):
 def _entropy_from_moments(n, s1, s2, eps):
     _, cov = _mean_cov_from_moments(n, s1, s2)
     det = _det2x2(cov)
-    arg = fma(torch.full_like(det, 2.0 * math.pi * math.e), det,
-               torch.full_like(det, eps))
-    return 0.5 * torch.log(arg), det
+    arg = refmath.fma(torch.full_like(det, 2.0 * math.pi * math.e), det,
+                      torch.full_like(det, eps))
+    return 0.5 * refmath.log(arg), det
 
 
 def _kl_divergence_2d(u0, s0, u1, s1):
@@ -68,7 +71,7 @@ def _kl_divergence_2d(u0, s0, u1, s1):
     trace = torch.einsum("...ij,...ji->...", s1i, s0)
     d = u1 - u0
     mahal = torch.einsum("...i,...ij,...j->...", d, s1i, d)
-    score = 0.5 * (trace + mahal - 3.0 + torch.log(det1 / det0))
+    score = 0.5 * (trace + mahal - 3.0 + refmath.log(det1 / det0))
     finite = torch.isfinite(score) & (det1 != 0.0)
     return torch.where(finite, score, torch.zeros_like(score)), finite
 

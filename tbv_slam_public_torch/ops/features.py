@@ -21,8 +21,8 @@ import torch
 
 from ..core.config import FeatureConfig
 from ..core.device import constant, deterministic
-from ..core.refmath import fma
 from ..core.types import Cells, PointCloud
+from ..kernels import refmath
 
 
 def eigh2x2(cov: torch.Tensor):
@@ -36,7 +36,7 @@ def eigh2x2(cov: torch.Tensor):
     half_tr = 0.5 * (a + c)
     d = a - c
     disc = torch.sqrt(torch.clamp(
-        fma(d * d, torch.full_like(d, 0.25), b * b), min=0.0))
+        refmath.fma(d * d, torch.full_like(d, 0.25), b * b), min=0.0))
     lmin = half_tr - disc
     lmax = half_tr + disc
     v1 = torch.stack([b, lmin - a], -1)
@@ -55,7 +55,7 @@ def eigh2x2(cov: torch.Tensor):
 
 def _sqnorm(v: torch.Tensor) -> torch.Tensor:
     """v0^2 + v1^2 of [..., 2] as fma(v1, v1, v0 v0)."""
-    return fma(v[..., 1], v[..., 1], v[..., 0] * v[..., 0])
+    return refmath.fma(v[..., 1], v[..., 1], v[..., 0] * v[..., 0])
 
 
 def _dot_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -79,9 +79,9 @@ def _gate_sqdist(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     cancellation error, so any other rounding moves points across the
     radius gate and changes the cells."""
     c0, c1, p0, p1 = c[:, 0:1], c[:, 1:2], p[None, :, 0], p[None, :, 1]
-    cc = fma(c1, c1, c0 * c0)
-    pp = fma(p1, p1, p0 * p0)
-    dot = fma(c1, p1, c0 * p0)
+    cc = refmath.fma(c1, c1, c0 * c0)
+    pp = refmath.fma(p1, p1, p0 * p0)
+    dot = refmath.fma(c1, p1, c0 * p0)
     return (cc + pp) - 2.0 * dot
 
 
@@ -141,7 +141,8 @@ def compute_cells(cloud: PointCloud, cfg: FeatureConfig,
     # 4. eigen-based normal + gates, on the covariance as the reference's
     # gate computations form it: its diagonal fma(-mu_i, mu_i, qq_ii) (the
     # product has one use there), the off-diagonal as above
-    diag = fma(-mu_local, mu_local, torch.diagonal(qq, dim1=-2, dim2=-1))
+    diag = refmath.fma(-mu_local, mu_local,
+                       torch.diagonal(qq, dim1=-2, dim2=-1))
     cov_g = torch.stack([torch.stack([diag[:, 0], cov[:, 0, 1]], -1),
                          torch.stack([cov[:, 1, 0], diag[:, 1]], -1)], -2)
     lmin, lmax, normal = eigh2x2(cov_g)
@@ -150,10 +151,10 @@ def compute_cells(cloud: PointCloud, cfg: FeatureConfig,
     det = lmax * lmin
     cov_ok = (cond <= cfg.max_cond) & (det > cfg.min_det) & (lmin > 0) & \
         (lmax > 0)
-    planarity = torch.log1p(cond / 2.0)
+    planarity = refmath.log1p(cond / 2.0)
     org = constant((float(origin[0]), float(origin[1])), dt, dev)
-    flip = fma(normal[:, 1], org[1] - mean[:, 1],
-                normal[:, 0] * (org[0] - mean[:, 0])) < 0
+    flip = refmath.fma(normal[:, 1], org[1] - mean[:, 1],
+                       normal[:, 0] * (org[0] - mean[:, 0])) < 0
     normal = torch.where(flip[:, None], -normal, normal)
 
     valid = sel_occupied & (nbr_count >= cfg.min_neighbors) & cov_ok & \
@@ -171,7 +172,7 @@ def compute_cells(cloud: PointCloud, cfg: FeatureConfig,
 
 def transform_cells(cells: Cells, pose: torch.Tensor) -> Cells:
     """Rigid transform of a feature set (cell::TransformCopy)."""
-    c, s = torch.cos(pose[..., 2]), torch.sin(pose[..., 2])
+    s, c = refmath.sincos(pose[..., 2])
     rot = torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
     mean = cells.mean @ rot.T + pose[..., :2]
     normal = cells.normal @ rot.T

@@ -11,6 +11,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import refmath
+
 
 class LogisticModel(NamedTuple):
     intercept: torch.Tensor  # []
@@ -26,7 +28,7 @@ def predict_linear(model: LogisticModel, x: torch.Tensor) -> torch.Tensor:
 
 
 def predict_proba(model: LogisticModel, x: torch.Tensor) -> torch.Tensor:
-    return torch.sigmoid(predict_linear(model, x))
+    return refmath.sigmoid(predict_linear(model, x))
 
 
 def predict(model: LogisticModel, x: torch.Tensor) -> torch.Tensor:
@@ -57,13 +59,21 @@ def fit(x: torch.Tensor, y: torch.Tensor, sample_mask: torch.Tensor = None, *,
     xb = torch.cat([torch.ones((n, 1), dtype=dt, device=dev), x], 1)
     reg = torch.cat([torch.zeros(1, dtype=dt, device=dev),
                      torch.full((d,), 1.0 / c, dtype=dt, device=dev)])
-    ridge = torch.diag(reg) + 1e-8 * torch.eye(d + 1, dtype=dt, device=dev)
+    reg_diag = torch.diag(reg)
+    eps_eye = 1e-8 * torch.eye(d + 1, dtype=dt, device=dev)
     w = torch.zeros(d + 1, dtype=dt, device=dev)
+    xt = xb.T.contiguous()
     for _ in range(iterations):
-        p = torch.sigmoid(xb @ w)
-        g = xb.T @ (sw * (p - y)) + reg * w
+        # rounded as the reference's program: xb @ w and the Hessian's
+        # products one fused multiply-add a term in order (its emitted loop
+        # and its matrix kernel at this shape), its sigmoid's exp, reg * w
+        # fused into the gradient's add, the ridge added in source order.
+        # The gradient's sum (a vectorised loop) and the 5x5 solve (LAPACK
+        # getrf and trsm) stay library calls (ROADMAP.md, section 3).
+        p = refmath.sigmoid(refmath.dot(xb, w[None])[:, 0])
+        g = refmath.fma(reg, w, xt @ (sw * (p - y)))
         r = torch.clamp(sw * p * (1.0 - p), min=1e-8)
-        h = (xb * r[:, None]).T @ xb + ridge
+        h = (refmath.dot((xb * r[:, None]).T, xt) + reg_diag) + eps_eye
         # damped Newton keeps early iterations stable on separable data
         w = w - torch.clamp(torch.linalg.solve(h, g), -10.0, 10.0)
     return LogisticModel(intercept=w[0], coef=w[1:])

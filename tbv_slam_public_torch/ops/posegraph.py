@@ -38,6 +38,7 @@ import torch
 from ..core import se2
 from ..core.config import PGOConfig
 from ..core.types import ODOMETRY, GraphEdges
+from ..kernels import refmath
 
 
 class PGOResult(NamedTuple):
@@ -82,7 +83,7 @@ def _edge_residuals(poses: torch.Tensor, edges: GraphEdges):
     wrap(th_e - th_b - th_be)] and the geometry terms for the Jacobians."""
     pb = poses[edges.idx[:, 0]]
     pe = poses[edges.idx[:, 1]]
-    c, s = torch.cos(pb[:, 2]), torch.sin(pb[:, 2])
+    s, c = refmath.sincos(pb[:, 2])
     dx = pe[:, 0] - pb[:, 0]
     dy = pe[:, 1] - pb[:, 1]
     rx = c * dx + s * dy
@@ -112,7 +113,7 @@ def _cauchy_weights(r: torch.Tensor, edges: GraphEdges, cfg: PGOConfig):
     s = (r * r).sum(-1)
     b = cfg.cauchy_scale * cfg.cauchy_scale
     is_odom = edges.etype == ODOMETRY
-    rho = torch.where(is_odom, s, b * torch.log1p(s / b))
+    rho = torch.where(is_odom, s, b * refmath.log1p(s / b))
     w = torch.where(is_odom, torch.ones_like(s), 1.0 / (1.0 + s / b))
     zero = torch.zeros((), dtype=s.dtype, device=s.device)
     return torch.where(edges.mask, rho, zero), torch.where(edges.mask, w, zero)
@@ -194,7 +195,7 @@ def _gradient_and_blocks(poses, edges, cfg: PGOConfig, sums=None):
     sums = sums or _GraphSums(poses.shape[0], edges)
     g = sums.nodes(torch.einsum("eij,ei->ej", Jb, wr),
                    torch.einsum("eij,ei->ej", Je, wr))
-    sw = torch.sqrt(w)[:, None, None]
+    sw = refmath.sqrt(w)[:, None, None]
     return 0.5 * rho.sum(), g, (sw * Jb, sw * Je)
 
 
@@ -448,7 +449,7 @@ def _equilibrated_chain(D, O, gauge_mask, lam_diag):
     both = torch.cat([gauge_mask[:-1] & gauge_mask[1:],
                       gauge_mask.new_zeros(1)])
     O = torch.where(both[:, None, None], O, torch.zeros_like(O))
-    dscale = 1.0 / torch.sqrt(torch.clamp(
+    dscale = 1.0 / refmath.sqrt(torch.clamp(
         torch.diagonal(D, dim1=-2, dim2=-1), min=1e-20))  # [N, 3]
     Ds = D * dscale[:, :, None] * dscale[:, None, :]
     ds_next = torch.cat([dscale[1:], torch.ones_like(dscale[:1])])
@@ -606,7 +607,7 @@ def _lago_initialize(poses, gauge_mask, edges: GraphEdges, sums=None):
     theta = se2.wrap_angle(poses[:, 2] + delta)
 
     tb = theta[edges.idx[:, 0]]
-    c, s = torch.cos(tb), torch.sin(tb)
+    s, c = refmath.sincos(tb)
     dx = c * edges.meas[:, 0] - s * edges.meas[:, 1]
     dy = s * edges.meas[:, 0] + c * edges.meas[:, 1]
     w_xy = torch.where(edges.mask, 0.5 * (info_diag[:, 0] + info_diag[:, 1]),

@@ -23,8 +23,8 @@ import math
 import torch
 
 from ..core.device import deterministic
-from ..core.refmath import fma
 from ..core.types import Cells, PointCloud
+from ..kernels import refmath
 
 
 def _sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -34,8 +34,8 @@ def _sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     the form cancels to a few ulp of |a|^2, so the rounding shows."""
     a0, a1 = a[..., :, None, 0], a[..., :, None, 1]
     b0, b1 = b[..., None, :, 0], b[..., None, :, 1]
-    return (fma(a1, a1, a0 * a0) + fma(b1, b1, b0 * b0)) \
-        - 2.0 * fma(a1, b1, a0 * b0)
+    return (refmath.fma(a1, a1, a0 * a0) + refmath.fma(b1, b1, b0 * b0)) \
+        - 2.0 * refmath.fma(a1, b1, a0 * b0)
 
 
 def _nn_sq_dists(src: PointCloud, ref: PointCloud) -> torch.Tensor:

@@ -13,17 +13,17 @@ reference's compiled program (:func:`_scan_f32`).
 """
 from __future__ import annotations
 
-import ctypes
-import ctypes.util
 import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from ..core import refmath as plain_refmath
 from ..core.config import RadarConfig
 from ..core.device import constant
 from ..core.types import PointCloud
+from ..kernels import refmath
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,15 +34,13 @@ def _azimuth_steps(num_azimuths: int, range_res: float):
     by ~5 ulp, enough to flip CFEAR radius gates downstream), takes cos and
     sin from the C library's ``cosf`` and ``sinf`` (which round otherwise
     than torch's), and multiplies them by range_res before the range.  t
-    takes A values only, so the table is made once, by the same C
-    functions."""
-    libm = ctypes.CDLL(ctypes.util.find_library("m"))
-    for fn in (libm.cosf, libm.sinf):
-        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    takes A values only, so the table is made once on the host, by the plain
+    version of those functions (``core.refmath.sincos``: the reference's
+    bits whatever the host's C library)."""
     theta = (torch.arange(num_azimuths, dtype=torch.float32) + 1.0) \
         * (2.0 * math.pi / num_azimuths)
-    unit = torch.tensor([(libm.cosf(t), libm.sinf(t))
-                         for t in theta.tolist()], dtype=torch.float32)
+    s, c = plain_refmath.sincos(theta)
+    unit = torch.stack([c, s], -1)
     return tuple(map(tuple, (unit * range_res).tolist()))
 
 
@@ -217,11 +215,15 @@ def motion_compensate(cloud: PointCloud, motion: torch.Tensor,
     """Per-point constant-velocity de-skew (utils.cpp:96-113): each point
     moves by the motion scaled by its azimuth-derived time in [-0.5, 0.5]."""
     x, y = cloud.xy[..., 0], cloud.xy[..., 1]
-    ang = torch.atan2(y, x)
-    d = torch.where(ang > 1e-5, ang, 2.0 * math.pi + ang) / (2.0 * math.pi)
-    factor = -(d - 0.5) if ccw else (d - 0.5)
-    c = torch.cos(motion[2] * factor)
-    s = torch.sin(motion[2] * factor)
-    nx = c * x - s * y + motion[0] * factor
-    ny = s * x + c * y + motion[1] * factor
+    ang = refmath.atan2(y, x)
+    ang = torch.where(ang > 1e-5, ang, 2.0 * math.pi + ang)
+    # rounded as the reference's program: d / (2 pi) - 0.5 one fused
+    # multiply-add by the reciprocal, each sum's first product and the
+    # added motion fused into it
+    factor = refmath.fma(ang, torch.full_like(
+        ang, plain_refmath.recip(2.0 * math.pi)), torch.full_like(ang, -0.5))
+    factor = -factor if ccw else factor
+    s, c = refmath.sincos(motion[2] * factor)
+    nx = refmath.fma(motion[0], factor, refmath.fma(c, x, -(s * y)))
+    ny = refmath.fma(motion[1], factor, refmath.fma(s, x, c * y))
     return cloud.replace(xy=torch.stack([nx, ny], -1))

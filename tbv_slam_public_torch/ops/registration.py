@@ -26,7 +26,9 @@ import torch
 from ..core import se2
 from ..core.config import RegistrationConfig
 from ..core.device import constant
+from ..core.refmath import recip
 from ..core.types import Cells, RegistrationResult
+from ..kernels import refmath
 
 COST_P2L = 0
 COST_P2D = 1
@@ -83,17 +85,27 @@ def _similarity(x, y):
 def _rho_and_weight(s: torch.Tensor, loss: int, delta: float):
     """Robust loss rho(s) on squared residuals and IRLS weight rho'(s)."""
     if loss == LOSS_HUBER:
-        sqrt_s = torch.sqrt(torch.clamp(s, min=1e-20))
+        sqrt_s = refmath.sqrt(torch.clamp(s, min=1e-20))
         inside = s <= delta * delta
-        rho = torch.where(inside, s, 2.0 * delta * sqrt_s - delta * delta)
-        w = torch.where(inside, torch.ones_like(s), delta / sqrt_s)
+        # 2 delta sqrt(s) - delta^2 as one fused multiply-add, as the
+        # reference's program computes it
+        rho = torch.where(inside, s, refmath.fma(
+            sqrt_s, torch.full_like(s, 2.0 * delta),
+            torch.full_like(s, -(delta * delta))))
+        # delta / sqrt(s) divided once (a number over a tensor is its
+        # reciprocal times the number in torch)
+        w = torch.where(inside, torch.ones_like(s),
+                        torch.full_like(s, delta) / sqrt_s)
         return rho, w
     if loss == LOSS_CAUCHY:
+        # s / b is a product by the reciprocal, fused into 1 + s / b
         b = delta * delta
-        return b * torch.log1p(s / b), 1.0 / (1.0 + s / b)
+        s_b = s * recip(b)
+        return b * refmath.log1p(s_b), 1.0 / refmath.fma(
+            s, torch.full_like(s, recip(b)), torch.ones_like(s))
     if loss == LOSS_SOFTLONE:
         b = delta * delta
-        t = torch.sqrt(1.0 + s / b)
+        t = refmath.sqrt(1.0 + s / b)
         return 2.0 * b * (t - 1.0), 1.0 / t
     if loss == LOSS_TUKEY:
         b = delta * delta
@@ -101,9 +113,9 @@ def _rho_and_weight(s: torch.Tensor, loss: int, delta: float):
         return (b / 3.0) * (1.0 - u ** 3), u * u
     if loss == LOSS_COMBINED:
         # Huber(1) o Cauchy(1); IRLS weight by the chain rule
-        g = torch.log1p(s)
+        g = refmath.log1p(s)
         gp = 1.0 / (1.0 + s)
-        sqrt_g = torch.sqrt(torch.clamp(g, min=1e-20))
+        sqrt_g = refmath.sqrt(torch.clamp(g, min=1e-20))
         rho = torch.where(g <= 1.0, g, 2.0 * sqrt_g - 1.0)
         fp = torch.where(g <= 1.0, torch.ones_like(g), 1.0 / sqrt_g)
         return rho, fp * gp
@@ -114,12 +126,14 @@ def _chol2x2_inv_sqrt(m: torch.Tensor) -> torch.Tensor:
     """Upper-triangular U with U^T U = M^{-1}, for batched 2x2 SPD M: the
     P2D Mahalanobis whitening, r = U e gives r^T r = e^T M^{-1} e."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 1, 1]
-    det = torch.clamp(a * c - b * b, min=1e-20)
+    # rounded as the reference's program: a*c - b*b with a*c fused, and
+    # u12 = (-b / det) / u22 rewritten as -b / (det * u22)
+    det = torch.clamp(refmath.fma(a, c, -(b * b)), min=1e-20)
     # M^{-1} = [[c, -b], [-b, a]] / det; its Cholesky factor, upper form
-    ia, ib, ic = c / det, -b / det, a / det
-    u22 = torch.sqrt(torch.clamp(ic, min=1e-20))
-    u12 = ib / u22
-    u11 = torch.sqrt(torch.clamp(ia - u12 * u12, min=1e-20))
+    ia, ic = c / det, a / det
+    u22 = refmath.sqrt(torch.clamp(ic, min=1e-20))
+    u12 = -b / (det * u22)
+    u11 = refmath.sqrt(torch.clamp(refmath.fma(-u12, u12, ia), min=1e-20))
     return torch.stack([torch.stack([u11, u12], -1),
                         torch.stack([torch.zeros_like(u11), u22], -1)], -2)
 
@@ -185,32 +199,36 @@ def _residual_terms(theta: torch.Tensor, src: Cells, assoc: Associations,
                     cost: int):
     """Residuals r [B,T,C,R], jacobians J [B,T,C,R,3] wrt (x, y, theta) and
     squared norms [B,T,C]."""
-    c = torch.cos(theta[:, 2])[:, None]
-    s = torch.sin(theta[:, 2])[:, None]
+    # rounded as the reference's program: each sum's first product fused
+    # into it, a two-term reduction as fma(second, second, first product)
+    s, c = refmath.sincos(theta[:, 2:3])
     ux, uy = src.mean[..., 0], src.mean[..., 1]  # [B, C]
-    wx = c * ux - s * uy + theta[:, 0:1]
-    wy = s * ux + c * uy + theta[:, 1:2]
-    dx = -s * ux - c * uy
-    dy = c * ux - s * uy
+    dy = refmath.fma(c, ux, -(s * uy))  # c ux - s uy
+    wx = dy + theta[:, 0:1]
+    wy = refmath.fma(s, ux, c * uy) + theta[:, 1:2]
+    dx = refmath.fma(-s, ux, -(c * uy))  # -s ux - c uy
     e = torch.stack([wx, wy], -1)[:, None] - assoc.tgt_mean_w  # [B,T,C,2]
     if cost == COST_P2L:
         n = assoc.tgt_normal_w
-        r = (n * e).sum(-1)[..., None]
+        r = refmath.fma(n[..., 1], e[..., 1], n[..., 0] * e[..., 0])[..., None]
         J = torch.stack([n[..., 0], n[..., 1],
-                         n[..., 0] * dx[:, None] + n[..., 1] * dy[:, None]],
+                         refmath.fma(n[..., 0], dx[:, None],
+                                     n[..., 1] * dy[:, None])],
                         -1)[..., None, :]
-    else:
-        ones, zeros = torch.ones_like(dx), torch.zeros_like(dx)
-        Jp = torch.stack([torch.stack([ones, zeros, dx], -1),
-                          torch.stack([zeros, ones, dy], -1)], -2)
-        if cost == COST_P2D:  # whitened by the target's sqrt-information
-            u = assoc.tgt_sqrtinfo
-            r = (u * e[..., None, :]).sum(-1)
-            J = u @ Jp[:, None]
-        else:  # P2P
-            r = e
-            J = Jp[:, None].expand(e.shape[:3] + (2, 3))
-    return r, J, (r * r).sum(-1)
+        return r, J, r[..., 0] * r[..., 0]
+    ones, zeros = torch.ones_like(dx), torch.zeros_like(dx)
+    Jp = torch.stack([torch.stack([ones, zeros, dx], -1),
+                      torch.stack([zeros, ones, dy], -1)], -2)
+    if cost == COST_P2D:  # whitened by the target's sqrt-information
+        u = assoc.tgt_sqrtinfo
+        r = refmath.fma(u[..., 1], e[..., None, 1],
+                        u[..., 0] * e[..., None, 0])
+        J = refmath.fma(u[..., 1:2], Jp[:, None, :, None, 1],
+                        u[..., 0:1] * Jp[:, None, :, None, 0])
+    else:  # P2P
+        r = e
+        J = Jp[:, None].expand(e.shape[:3] + (2, 3))
+    return r, J, refmath.fma(r[..., 1], r[..., 1], r[..., 0] * r[..., 0])
 
 
 def _prior_terms(theta, prior):
@@ -279,45 +297,24 @@ def _cost_only(theta, src, assoc, *, cost, loss, delta, prior=None):
     return c
 
 
-def _solve3x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Closed-form batched 3x3 solve (adjugate / Cramer), as the reference."""
-    a00, a01, a02 = a[..., 0, 0], a[..., 0, 1], a[..., 0, 2]
-    a10, a11, a12 = a[..., 1, 0], a[..., 1, 1], a[..., 1, 2]
-    a20, a21, a22 = a[..., 2, 0], a[..., 2, 1], a[..., 2, 2]
-    c00 = a11 * a22 - a12 * a21
-    c01 = a12 * a20 - a10 * a22
-    c02 = a10 * a21 - a11 * a20
-    det = a00 * c00 + a01 * c01 + a02 * c02
-    tiny = torch.where(det < 0, torch.full_like(det, -1e-30),
-                       torch.full_like(det, 1e-30))
-    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-30, tiny, det)
-    c10 = a02 * a21 - a01 * a22
-    c11 = a00 * a22 - a02 * a20
-    c12 = a01 * a20 - a00 * a21
-    c20 = a01 * a12 - a02 * a11
-    c21 = a02 * a10 - a00 * a12
-    c22 = a00 * a11 - a01 * a10
-    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-    x0 = (c00 * b0 + c10 * b1 + c20 * b2) * inv_det
-    x1 = (c01 * b0 + c11 * b1 + c21 * b2) * inv_det
-    x2 = (c02 * b0 + c12 * b1 + c22 * b2) * inv_det
-    return torch.stack([x0, x1, x2], -1)
-
-
 def _lm_solve(theta0, src, assoc, *, cost, loss, delta, max_iter, init_lambda,
-              prior=None):
+              prior=None, one_system=False):
     """Fixed-iteration 3-DoF LM with accept/reject damping, one residual
-    pass per iteration; returns (theta, cost, last relative decrease)."""
-    eye = torch.eye(3, dtype=theta0.dtype, device=theta0.device)
+    pass per iteration; returns (theta, cost, last relative decrease).
+    ``one_system``: the step rounded as the reference's unbatched odometry
+    step rounds it (``refmath.lm_update``)."""
     kw = dict(cost=cost, loss=loss, delta=delta, prior=prior)
     cur_cost, g, H = _cost_grad_hess(theta0, src, assoc, **kw)
     theta = theta0
     lam = torch.full_like(cur_cost, init_lambda)
     rel_dec = torch.ones_like(cur_cost)
     for _ in range(max_iter):
-        damp = lam[:, None, None] * torch.diag_embed(
-            torch.diagonal(H, dim1=-2, dim2=-1)) + 1e-12 * eye
-        cand = theta - _solve3x3(H + damp, g)
+        # lam diag(H) + 1e-12 I, the product fused into the add as the
+        # reference's program rounds it
+        damp = torch.diag_embed(refmath.fma(
+            lam[:, None], torch.diagonal(H, dim1=-2, dim2=-1),
+            torch.full_like(g, 1e-12)))
+        cand = refmath.lm_update(theta, H + damp, g, one_system=one_system)
         cand_cost, cand_g, cand_H = _cost_grad_hess(cand, src, assoc, **kw)
         acc = cand_cost < cur_cost
         theta = torch.where(acc[:, None], cand, theta)
@@ -369,20 +366,22 @@ def register_window(src: Cells, src_pose0: torch.Tensor, tgt: Cells,
                     tgt_poses: torch.Tensor, tgt_scan_mask: torch.Tensor,
                     cfg: RegistrationConfig,
                     guess: Optional[torch.Tensor] = None,
-                    guess_sqrt_info: Optional[torch.Tensor] = None
-                    ) -> RegistrationResult:
+                    guess_sqrt_info: Optional[torch.Tensor] = None,
+                    one_system: bool = False) -> RegistrationResult:
     """Register each source scan [B, C] against its window of fixed target
     scans [B, T, C] (n_scan_normal_reg::Register, incremental mode): outer
     re-association loop (doubled radius on the first) around LM, with the
     reference's guards (revert on regression after min_itr, stop on relative
-    improvement below score_tolerance) applied per batch row."""
+    improvement below score_tolerance) applied per batch row.
+    ``one_system``: B = 1 from the unbatched odometry step, whose LM step the
+    reference rounds otherwise than its batched code's."""
     cost = cost_code(cfg.cost)
     loss = loss_code(cfg.loss)
     make_assoc = _associator(src, tgt, tgt_poses, tgt_scan_mask, cfg)
     prior = None
     if guess is not None:
-        n_src = torch.sqrt(torch.clamp(src.valid.sum(-1).to(src.mean.dtype),
-                                       min=1.0))
+        n_src = refmath.sqrt(torch.clamp(
+            src.valid.sum(-1).to(src.mean.dtype), min=1.0))
         prior = (guess, guess_sqrt_info, n_src)
 
     dt, dev = src.mean.dtype, src.mean.device
@@ -400,7 +399,7 @@ def register_window(src: Cells, src_pose0: torch.Tensor, tgt: Cells,
         new_theta, new_score, rel_dec = _lm_solve(
             theta, src, assoc, cost=cost, loss=loss, delta=cfg.loss_limit,
             max_iter=cfg.max_inner_iterations, init_lambda=cfg.init_lambda,
-            prior=prior)
+            prior=prior, one_system=one_system)
         past_min = (itr + 1) > cfg.min_outer_iterations
         regressed = past_min & (score < new_score)
         rel_imp = (score - new_score) / torch.clamp(score, min=1e-20)
@@ -421,9 +420,13 @@ def register_window(src: Cells, src_pose0: torch.Tensor, tgt: Cells,
 def cell_rel_timestamps(mean: torch.Tensor, ccw: bool) -> torch.Tensor:
     """Relative in-sweep time of each cell in [-0.5, 0.5], from the azimuth
     of its local position (GetRelTimeStamp, utils.h:28-32)."""
-    a = torch.atan2(mean[..., 1], mean[..., 0])
-    d = torch.where(a > 1e-5, a, 2.0 * math.pi + a) / (2.0 * math.pi)
-    return -(d - 0.5) if ccw else d - 0.5
+    a = refmath.atan2(mean[..., 1], mean[..., 0])
+    a = torch.where(a > 1e-5, a, 2.0 * math.pi + a)
+    # d / (2 pi) - 0.5 as the reference's program computes it: the division
+    # by a constant is a product with its reciprocal, fused into the add
+    t = refmath.fma(a, torch.full_like(a, recip(2.0 * math.pi)),
+                    torch.full_like(a, -0.5))
+    return -t if ccw else t
 
 
 def motion_correct_cells(src: Cells, vel: torch.Tensor, ccw: bool) -> Cells:
@@ -434,12 +437,15 @@ def motion_correct_cells(src: Cells, vel: torch.Tensor, ccw: bool) -> Cells:
     each row, held constant during the solve."""
     t = cell_rel_timestamps(src.mean, ccw)  # [..., C]
     ang = t * vel[..., None, 2]
-    c, s = torch.cos(ang), torch.sin(ang)
+    s, c = refmath.sincos(ang)
+    # rounded as the reference's fused program: each sum's first product
+    # and the added t*v fused into it
     mx, my = src.mean[..., 0], src.mean[..., 1]
-    mean = torch.stack([c * mx - s * my + t * vel[..., None, 0],
-                        s * mx + c * my + t * vel[..., None, 1]], -1)
+    fma = refmath.fma
+    mean = torch.stack([fma(t, vel[..., None, 0], fma(c, mx, -(s * my))),
+                        fma(t, vel[..., None, 1], fma(s, mx, c * my))], -1)
     nx, ny = src.normal[..., 0], src.normal[..., 1]
-    normal = torch.stack([c * nx - s * ny, s * nx + c * ny], -1)
+    normal = torch.stack([fma(c, nx, -(s * ny)), fma(s, nx, c * ny)], -1)
     return src.replace(mean=mean, normal=normal)
 
 
@@ -449,7 +455,8 @@ def register_time_continuous(src: Cells, src_pose0: torch.Tensor, tgt: Cells,
                              cfg: RegistrationConfig, vel: torch.Tensor,
                              ccw: bool = False,
                              guess: Optional[torch.Tensor] = None,
-                             guess_sqrt_info: Optional[torch.Tensor] = None
+                             guess_sqrt_info: Optional[torch.Tensor] = None,
+                             one_system: bool = False
                              ) -> RegistrationResult:
     """Time-continuous P2P window registration (RegisterTimeContinuous,
     n_scan_normal.cpp:67-80).  The velocity block ``vel`` [B, 3] is constant
@@ -459,7 +466,7 @@ def register_time_continuous(src: Cells, src_pose0: torch.Tensor, tgt: Cells,
     return register_window(
         motion_correct_cells(src, vel, ccw), src_pose0, tgt, tgt_poses,
         tgt_scan_mask, dataclasses.replace(cfg, cost="P2P"), guess=guess,
-        guess_sqrt_info=guess_sqrt_info)
+        guess_sqrt_info=guess_sqrt_info, one_system=one_system)
 
 
 @functools.lru_cache(maxsize=None)
@@ -505,7 +512,10 @@ def sampled_covariance(src: Cells, theta_opt: torch.Tensor, tgt: Cells,
     costs = _cost_only(poses, src_s, assoc.repeat(s), cost=cost,
                        loss=loss_code(cfg.loss),
                        delta=cfg.loss_limit).reshape(bsz, s)
-    q = costs @ pinv.T  # [B, 10]
+    # the quadratic fit, each coefficient summed as the reference's: one
+    # fused multiply-add a sample, in order (no library blocking: a row is
+    # the same whatever B)
+    q = refmath.dot(costs, pinv)  # [B, 10]
     h = torch.stack([
         torch.stack([2 * q[:, 0], q[:, 3], q[:, 5]], -1),
         torch.stack([q[:, 3], 2 * q[:, 1], q[:, 4]], -1),

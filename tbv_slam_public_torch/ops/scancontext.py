@@ -16,7 +16,9 @@ import torch
 
 from ..core.config import ScanContextConfig
 from ..core.device import deterministic
+from ..core.refmath import recip
 from ..core.types import PointCloud
+from ..kernels import refmath
 
 
 def make_descriptor(cloud: PointCloud, cfg: ScanContextConfig) -> torch.Tensor:
@@ -28,7 +30,7 @@ def make_descriptor(cloud: PointCloud, cfg: ScanContextConfig) -> torch.Tensor:
     nr, ns = cfg.num_ring, cfg.num_sector
     lead = mask.shape[:-1]
     r = torch.sqrt((xy * xy).sum(-1))
-    ang = torch.rad2deg(torch.remainder(torch.atan2(xy[..., 1], xy[..., 0]),
+    ang = torch.rad2deg(torch.remainder(refmath.atan2(xy[..., 1], xy[..., 0]),
                                         2 * math.pi))
     in_range = mask & (r <= cfg.max_radius)
     ring = torch.clamp(torch.ceil(r / cfg.max_radius * nr), 1, nr) - 1
@@ -174,7 +176,8 @@ def odometry_similarity(positions: torch.Tensor, mask: torch.Tensor,
     d_est = torch.linalg.norm(positions[cur][..., None, :] - positions, dim=-1)
     err = torch.clamp(d_est - 5.0, min=0.0)
     rel = err / torch.clamp(trav, min=1e-9)
-    sim = 1.0 - torch.exp(-rel * rel / (2.0 * sigma * sigma))
+    # the division by a constant as the reference's product by its reciprocal
+    sim = 1.0 - refmath.exp(-rel * rel * recip(2.0 * sigma * sigma))
     idx = torch.arange(positions.shape[0], device=positions.device)
     return torch.where(mask & (idx < (count - 1)[..., None]), sim,
                        torch.ones_like(sim))

@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from tbv_slam_public_torch.kernels import coral_moments as tmoments
+from tbv_slam_public_torch.kernels.checks import (REFMATH_RANGES,
+                                                  REFMATH_SPECIAL,
+                                                  bits_differ, on_gate_clouds)
 
 # The suite runs several worker processes on one machine and these tensors are
 # small: one intra-op thread per process keeps the workers from
@@ -569,3 +572,151 @@ def test_batched_rows_on_the_card_equal_their_own_steps_bit_for_bit(cuda):
         batch = run(rows)
         for i, r in enumerate(rows):
             assert torch.equal(batch[i:i + 1], one[r]), (b, i)
+
+
+def _same(a, b) -> bool:
+    return bits_differ(a, b) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(REFMATH_RANGES))
+def test_refmath_kernel_matches_plain(cuda, op):
+    """Each op of ``csrc/refmath.cu`` on 2^22 values and the special values,
+    bit-equal to its plain version (NaN payloads aside)."""
+    from tbv_slam_public_torch.core import refmath as plain
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    rng = np.random.default_rng(len(op))
+    lo, hi = REFMATH_RANGES[op]
+    special = REFMATH_SPECIAL
+    x = torch.as_tensor(np.concatenate([
+        rng.uniform(lo, hi, 1 << 22).astype(np.float32), special]))
+    args = [x]
+    if op == "atan2":
+        args.insert(0, torch.as_tensor(np.concatenate([
+            rng.uniform(lo, hi, 1 << 22).astype(np.float32), special[::-1]])))
+    before = rm.LAUNCHES
+    got = getattr(rm, op)(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert rm.LAUNCHES == before + 1
+    want = getattr(plain, op)(*args)
+    pairs = zip(got, want) if op == "sincos" else [(got, want)]
+    for g, w in pairs:
+        assert g.device.type == "cuda" and _same(g, w)
+
+
+@pytest.mark.cuda
+def test_refmath_fma_matches_plain(cuda):
+    """The fused multiply-add on 2^22 values, half of them products that
+    nearly cancel their addend, bit-equal to the plain version."""
+    from tbv_slam_public_torch.core import refmath as plain
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    rng = np.random.default_rng(2)
+    n = 1 << 22
+    a, b = (torch.as_tensor((rng.normal(size=n) * np.exp(rng.uniform(
+        -20, 20, n))).astype(np.float32)) for _ in range(2))
+    near = -(a.double() * b.double()).numpy() * (1 + 1e-7 * rng.normal(
+        size=n))
+    c = torch.as_tensor(np.where(rng.uniform(size=n) < 0.5, near,
+                                 rng.normal(size=n)).astype(np.float32))
+    got = rm.fma(a.to(cuda), b.to(cuda), c.to(cuda))
+    assert _same(got, plain.fma(a, b, c))
+    # broadcast operands, as the call sites pass them
+    got = rm.fma(a[:8, None].to(cuda), b[None, :16].to(cuda), c[:16].to(cuda))
+    assert _same(got, plain.fma(a[:8, None], b[None, :16], c[:16]))
+
+
+@pytest.mark.cuda
+def test_refmath_solve3x3_matches_plain(cuda):
+    """The LM step theta - a^{-1} b, a thread a system, bit-equal to the
+    plain version on damped normal matrices, near-singular ones and zeros,
+    in both of its roundings."""
+    from tbv_slam_public_torch.core import refmath as plain
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    rng = np.random.default_rng(3)
+    n = 1 << 18
+    j = rng.normal(size=(n, 6, 3)).astype(np.float32)
+    a = np.einsum("nki,nkj->nij", j, j).astype(np.float32)
+    a[: n // 4, 2] = a[: n // 4, 1] * (1 + 1e-6)
+    a[-8:] = 0.0
+    a = torch.as_tensor(a)
+    b = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    t = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    for one in (False, True):
+        assert _same(rm.lm_update(t.to(cuda), a.to(cuda), b.to(cuda),
+                                  one_system=one),
+                     plain.lm_update(t, a, b, one_system=one))
+
+
+@pytest.mark.cuda
+def test_refmath_dot_matches_plain(cuda):
+    from tbv_slam_public_torch.core import refmath as plain
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    rng = np.random.default_rng(1)
+    for rows in (1, 2, 64, 1000):
+        a = torch.as_tensor(rng.uniform(0, 100, (rows, 27)).astype(np.float32))
+        b = torch.as_tensor(rng.normal(size=(10, 27)).astype(np.float32))
+        assert _same(rm.dot(a.to(cuda), b.to(cuda)), plain.dot(a, b))
+
+
+@pytest.mark.cuda
+def test_sampled_covariance_rows_do_not_depend_on_the_batch(cuda):
+    """Each row of ``sampled_covariance`` at B = 2, 8 and 16 is its own
+    B = 1 call bit for bit: the quadratic fit adds its terms one fused
+    multiply-add at a time (no library product picks the order by B)."""
+    from tbv_slam_public_torch.core.config import (FeatureConfig, RadarConfig,
+                                                   RegistrationConfig)
+    from tbv_slam_public_torch.io import simulate
+    from tbv_slam_public_torch.ops import features, radar, registration
+
+    seq = simulate.make_sequence(
+        num_frames=3, seed=1, num_azimuths=200, num_range_bins=256,
+        range_res=0.3, traj_kwargs=dict(radius=40.0, step=0.7, laps=0.12))
+    rc = RadarConfig(num_azimuths=200, num_range_bins=256, range_res=0.3,
+                     k_strongest=12, min_distance=1.0, max_distance=75.0)
+    fc = FeatureConfig(resolution=3.0, cell_capacity=256, grid_extent=80.0)
+    cells = [features.compute_cells(radar.kstrongest_filter(
+        torch.as_tensor(im, device=cuda), rc)[0], fc) for im in seq.images]
+    cfg = RegistrationConfig(cost="P2L")
+    rng = np.random.default_rng(8)
+    theta = torch.as_tensor(np.stack(
+        [0.7 + rng.uniform(-0.3, 0.3, 16), rng.uniform(-0.3, 0.3, 16),
+         rng.uniform(-0.02, 0.02, 16)], -1).astype(np.float32), device=cuda)
+    score = torch.as_tensor(rng.uniform(1, 50, 16).astype(np.float32),
+                            device=cuda)
+    n_res = torch.as_tensor(rng.integers(20, 200, 16), device=cuda)
+
+    def run(rows):
+        b = len(rows)
+        src = cells[2].map(lambda x: x[None].expand((b,) + x.shape))
+        tgt = cells[1].map(lambda x: x[None, None].expand((b, 1) + x.shape))
+        return registration.sampled_covariance(
+            src, theta[rows], tgt, torch.zeros(b, 1, 3, device=cuda),
+            torch.ones(b, 1, dtype=torch.bool, device=cuda), cfg,
+            score[rows], n_res[rows])
+
+    one = [run([i]) for i in range(16)]
+    for b in (2, 8, 16):
+        cov, ok = run(list(range(b)))
+        for i in range(b):
+            assert torch.equal(cov[i:i + 1], one[i][0]), (b, i)
+            assert torch.equal(ok[i:i + 1], one[i][1]), (b, i)
+
+
+@pytest.mark.cuda
+def test_coral_kernel_on_gate_clouds(cuda):
+    """Neighbours within an ulp of the radius, half of them where the
+    fused and the unfused sum of squares fall on opposite sides of r^2:
+    the kernel's counts are its plain version's bit for bit (its sums add
+    in its own order where a query has several neighbours)."""
+    rng = np.random.default_rng(9)
+    m, n = 4, 256
+    q, p = on_gate_clouds(rng, m, n, 1.0)
+    mask = np.ones((m, n), bool)
+    args = [torch.as_tensor(x) for x in (q, mask, p, mask)]
+    want = tmoments.neighbor_moments_reference(*args, 1.0)
+    got = tmoments.neighbor_moments(*(a.to(cuda) for a in args), 1.0)
+    _assert_moments([g.cpu() for g in got], want)

@@ -5,18 +5,27 @@ multi-sequence step.
 A short simulated sequence at ``tests/test_odometry.py``'s small config goes
 through both packages.  The port's frame step is fed the reference's own
 detector output; from there on the tolerances are: keyframe flags equal,
-trajectory mean < 1 mm and max < 2 mm from JAX (the bound set for the
-default path: one association in a few hundred may cross a gate on a
-last-bit difference); the batched step at B = 2 equal to two B = 1 runs of
-the port within 1e-5 and to the reference's ``batched_odometry_step`` within
-the same 1 mm / 2 mm.
+trajectory mean < 0.2 mm and max < 0.5 mm from JAX; the batched step at
+B = 2 equal to two B = 1 runs of the port's batched step within 1e-5 and
+to the reference's ``batched_odometry_step`` within the same bounds.
 
-With each package's own detector the same bounds hold: the detector's
-points are the reference's bit for bit (``tests/test_torch_parity_faults.py``)
-and the CFEAR cells round as the reference's but for the voxel sums' order
-and log1p.  Measured on this sequence with the own detector: mean 0.028 mm
-/ max 0.112 mm on the default path, 0.273 / 1.981 mm time-continuous (before
-those repairs 0.344 / 2.030 and 2.578 / 7.290 mm, held to 1 cm).
+With each package's own detector the same bounds hold, on both
+sequences: the detector's points are the reference's bit for bit
+(``tests/test_torch_parity_faults.py``) and the CFEAR cells round as the
+reference's but for the voxel sums' order and the eigen-decomposition's
+sqrt.  The registration's per-term arithmetic (sin, cos, sqrt, the fused
+products, the robust loss, the P2D whitening, the LM step) is the
+reference's; its sums over the cells add in another order, and an
+association or an outer-loop guard may flip on such a last-bit
+difference (ROADMAP.md section 3).  Measured (mean / max, sequence 0;
+sequence 1): default 0.014 / 0.074 mm; 0.015 / 0.092, time-continuous
+0.104 / 0.307; 0.034 / 0.113, P2D 0.020 / 0.096; 0.031 / 0.098, CA-CFAR
+0.010 / 0.044; 0.010 / 0.050 (before the sqrt, loss, whitening and LM
+step repairs: 0.003 / 0.025, 0.071 / 0.240, 0.042 / 0.148 and 0.009 /
+0.123 on sequence 0, P2D 0.484 / 1.877 on sequence 1; before the
+reference's math: 0.028 / 0.112 and 0.273 / 1.981 mm, held to 1 mm / 2
+mm; before the detector and cell repairs 0.344 / 2.030 and 2.578 / 7.290
+mm, held to 1 cm).
 """
 import dataclasses
 import functools
@@ -46,7 +55,7 @@ from test_odometry import small_config  # noqa: E402
 torch.set_num_threads(1)
 
 N_FRAMES = 14
-MEAN_TOL, MAX_TOL = 1e-3, 2e-3
+MEAN_TOL, MAX_TOL = 2e-4, 5e-4
 
 VARIANTS = {
     "time_continuous": {"odometry.time_continuous": "true"},
@@ -92,11 +101,11 @@ def same_detector(monkeypatch):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(name):
-    """The reference pipeline's (poses, covariances, keyframe flags) of
-    sequence 0 under a variant."""
+def _reference(name, seq=0):
+    """The reference pipeline's (poses, covariances, keyframe flags) of a
+    sequence under a variant."""
     jc, _ = _configs(VARIANTS.get(name, {}))
-    return _run(jodo.OdometryPipeline(jc), _sequences()[0].images)
+    return _run(jodo.OdometryPipeline(jc), _sequences()[seq].images)
 
 
 def _run(pipe, images):
@@ -141,19 +150,37 @@ def test_variant_with_own_detector(name):
     _assert_trajectory(tpose, jpose)
 
 
+@pytest.mark.parametrize("name", ["default", "time_continuous", "p2d",
+                                  "cacfar"])
+def test_variant_with_own_detector_on_the_second_sequence(name):
+    """As above on sequence 1 (another seed, radius and step), held to the
+    same bounds."""
+    _, tc = _configs(VARIANTS.get(name, {}))
+    jpose, _, jflags = _reference(name, 1)
+    tpose, _, tflags = _run(todo.OdometryPipeline(tc, device="cpu"),
+                            _sequences()[1].images)
+    assert tflags == jflags
+    _assert_trajectory(tpose, jpose)
+
+
 @pytest.mark.parametrize("name", ["default", "time_continuous"])
 def test_batched_step_matches(same_detector, name):
     jc, tc = _configs(VARIANTS.get(name, {}))
     imgs = np.stack([s.images for s in _sequences()], 1)  # [N, 2, A, R]
-    # the port, one sequence at a time and both at once
+    # the port's batched step, one sequence at a time (B = 1) and both at
+    # once (the unbatched step rounds its LM step as the reference's
+    # unbatched program, whose rows differ from its batched ones by up to
+    # 1.2e-4 on these sequences)
     singles = []
     for b in range(2):
-        st = todo.init_state(tc)
-        st, _ = todo.first_frame(st, torch.as_tensor(imgs[0, b]), tc)
+        st = todo.init_batched_state(tc, 1, device="cpu")
+        st, _ = todo.batched_first_frame(st, torch.as_tensor(imgs[0, b:b + 1]),
+                                         tc)
         poses = [np.zeros(3, np.float32)]
         for k in range(1, N_FRAMES):
-            st, out = todo.odometry_step(st, torch.as_tensor(imgs[k, b]), tc)
-            poses.append(out.pose.numpy())
+            st, out = todo.batched_odometry_step(
+                st, torch.as_tensor(imgs[k, b:b + 1]), tc)
+            poses.append(out.pose[0].numpy())
         singles.append(np.stack(poses))
     bst = todo.init_batched_state(tc, 2, device="cpu")
     bst, out = todo.batched_first_frame(bst, torch.as_tensor(imgs[0]), tc)
