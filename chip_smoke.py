@@ -9,13 +9,21 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    launches bit-equal, with the times of the kernel, of its plain version
    and of the host around a call; the refmath kernel (the reference's exp,
    log, log1p, sigmoid, sincos, atan2, angle wrap, fma, sqrt, ordered
-   dot and the LM step)
-   bit-equal to its plain version on 2^22 values an op, timed at 1, 4096
-   and 2^19 values beside its plain version and the torch call it
-   replaces; and on every path below that runs in this process (and on
+   dot, the logistic gradient's loop-ordered sum, the LM step and the
+   logistic fit's solve in LAPACK's order) bit-equal to its plain version
+   on 2^22 values an op (the solve on 3000 systems at each size), timed at
+   1, 4096 and 2^19 values (the solve at one 7 x 7 system) beside its
+   plain version and the torch call it replaces; and on every path below that runs in this process (and on
    each rank of 10(b)), its count set to 0 just before the path and read
    just after, then the first operands and result of each op and shapes
-   that the path gave it held bit for bit to the plain version;
+   that the path gave it held bit for bit to the plain version; the
+   LM-solve kernel (one launch a registration solve) bit-equal to the
+   plain solve on the card over every cost x loss x prior x one_system at
+   the paths' shapes (odometry at B = 1 and 4, a loop wave of 64 pairs,
+   ``register_joint`` over 5 scans, and rows past the kernel's staged
+   size), timed there beside the plain solve and its bound, and on every
+   path below, as refmath, counted and held at
+   each shape the path gave it;
 3. the port's CLI: ``odometry`` then ``slam`` (default solver, and again
    with ``--solver cholesky``) on a small simulated sequence, then
    ``evaluate-scans`` on that checkpoint (in this process, with its kernel
@@ -23,8 +31,9 @@ Needs one CUDA card.  Phases, each of which raises on failure:
 4. the offline slice at the sensor's size (400 azimuths x 3768 bins at
    0.0438 m, default config): odometry per frame -> simple_graph save/load
    -> loop closure with CorAl verification -> cholesky PGO, with the kernel
-   launch count of that run; then the kernel's time on that run's keyframe
-   clouds;
+   launch count of that run; its first 20 frames again with the LM-solve
+   kernel and with the plain solve on the card, bit-equal; then the
+   kernel's time on that run's keyframe clouds;
 5. cholesky PGO on the 4470-node Oxford real-odometry instance;
 6. the ``schur`` and ``cg`` solvers on that instance beside ``cholesky``
    (``schur`` twice, bit-equal: the edge sums add in index order), and one
@@ -60,7 +69,8 @@ Needs one CUDA card.  Phases, each of which raises on failure:
     retrieval over a 4608-slot database, ``optimize_distributed`` at the
     ``chain`` and ``chain_sharded`` preconditioners and
     ``alignment_training_step`` on 8 keyframe pairs, each held to the
-    single-process result; batched odometry of phase 9's two sequences, one
+    single-process result (the training fit bit for bit to this process's
+    CPU fit of the same x and y); batched odometry of phase 9's two sequences, one
     a rank (``parallel/odometry.py``), held to phase 9's B = 2 run; and the
     dry run at two ranks, the kernel held to its plain version at the dry
     run's own shapes; (c) the ``sweep`` subcommand, two jobs on the card.
@@ -461,36 +471,116 @@ def hold_refmath(tag, kept) -> int:
     return len(kept)
 
 
+# the LM-solve kernel's launches by path, and the shapes held there
+LM_LAUNCHES = {}
+LM_HELD = {}
+# the paths that run the registration's LM solve (besides the odometry
+# variants); the PGO paths and evaluate-scans run none
+LM_PATHS = ("offline", "online", "batched", "rest", "parallel_offline",
+            "dryrun")
+
+
 @contextlib.contextmanager
-def refmath_path(path):
-    """One path of the main run: the refmath kernel's count is set to 0 just
-    before the block and read just after (``REFMATH_LAUNCHES[path]``), then
-    the kernel is held to its plain version at every op and shapes the path
-    gave it."""
+def lm_inputs():
+    """For each (B, T, C, cost, loss, inner iterations, prior, one_system)
+    that the LM-solve kernel is given inside the block, the first call's
+    inputs and outputs, copied on the card: ``{key: (tensors, options,
+    outputs)}``."""
+    from tbv_slam_public_torch.kernels import lm_solve as lk
+
+    kept, real = {}, lk.lm_solve
+
+    def clone(x):
+        return None if x is None else x.detach().clone()
+
+    def keep(*ts, **kw):
+        out = real(*ts, **kw)
+        key = tuple(ts[4].shape) + (kw["cost"], kw["loss"], kw["max_iter"],
+                                    kw.get("prior") is not None,
+                                    bool(kw.get("one_system")))
+        if key not in kept:
+            opts = dict(kw)
+            if opts.get("prior") is not None:
+                opts["prior"] = tuple(map(clone, opts["prior"]))
+            kept[key] = ([clone(t) for t in ts], opts,
+                         [o.detach().clone() for o in out])
+        return out
+
+    lk.lm_solve = keep
+    try:
+        yield kept
+    finally:
+        lk.lm_solve = real
+
+
+def plain_lm(ts, opts):
+    """The plain ``_lm_solve`` on the card on the kernel's arguments."""
+    from types import SimpleNamespace
+
+    from tbv_slam_public_torch.kernels import lm_solve as lk
+    from tbv_slam_public_torch.ops import registration as treg
+
+    theta0, src, tm, tn, weight, mask, si = ts
+    with lk.plain_on_card():
+        return treg._lm_solve_reference(
+            theta0, SimpleNamespace(mean=src),
+            treg.Associations(tm, tn, weight, mask, si), **opts)
+
+
+def hold_lm(tag, kept) -> int:
+    """Each kept LM solve against the plain version on its inputs, bit for
+    bit in theta, cost and rel_dec; returns the number of shapes held."""
+    from tbv_slam_public_torch.kernels.checks import bits_differ
+
+    for key, (ts, opts, outs) in kept.items():
+        want = plain_lm(ts, opts)
+        bad = sum(bits_differ(o, w) for o, w in zip(outs, want))
+        if bad:
+            raise AssertionError(f"{tag} lm_solve at {key}: {bad} values "
+                                 f"differ from the plain version")
+    return len(kept)
+
+
+@contextlib.contextmanager
+def kernel_path(path):
+    """One path of the main run: the refmath and LM-solve kernels' counts
+    are set to 0 just before the block and read just after
+    (``REFMATH_LAUNCHES[path]``, ``LM_LAUNCHES[path]``), then each kernel is
+    held to its plain version at every op or shape the path gave it."""
+    from tbv_slam_public_torch.kernels import lm_solve as lk
     from tbv_slam_public_torch.kernels import refmath as rm
 
     rm.LAUNCHES = 0
     rm.LAUNCHES_BY_OP.clear()
-    with refmath_inputs() as kept:
+    lk.LAUNCHES = 0
+    with refmath_inputs() as kept, lm_inputs() as lm_kept:
         yield
     REFMATH_LAUNCHES[path] = dict(rm.LAUNCHES_BY_OP, total=rm.LAUNCHES)
+    LM_LAUNCHES[path] = lk.LAUNCHES
     if rm.LAUNCHES <= 0:
         raise AssertionError(f"the {path} path launched no refmath kernel")
+    if lk.LAUNCHES <= 0 and (path in LM_PATHS or path.startswith("variant")):
+        raise AssertionError(f"the {path} path launched no lm_solve kernel")
     REFMATH_HELD[path] = hold_refmath(f"[{path}]", kept)
-    log(f"[refmath] {path}: {rm.LAUNCHES} launches, bit-equal to the plain "
-        f"version at its {REFMATH_HELD[path]} (op, shapes)")
+    LM_HELD[path] = hold_lm(f"[{path}]", lm_kept)
+    log(f"[refmath] {path}: {REFMATH_LAUNCHES[path]['total']} launches, "
+        f"bit-equal to the plain version at its {REFMATH_HELD[path]} (op, "
+        f"shapes); [lm_solve] {LM_LAUNCHES[path]} launches, bit-equal at its "
+        f"{LM_HELD[path]} shapes")
 
 
 def phase_refmath():
     """The refmath kernel against its plain version, every op on 2^22 values
     and the special values, bit for bit; ``dot`` at the fits' shapes; then
     each op's time at the sizes the paths give it, beside the plain version
-    on the card, the torch call it replaces and its bound."""
+    on the card, the torch call it replaces and its bound; ``lu_solve`` at
+    every size and at the fit's one system."""
     from tbv_slam_public_torch.core import refmath as plain
     from tbv_slam_public_torch.kernels import refmath as rm
     from tbv_slam_public_torch.kernels.checks import (REFMATH_RANGES,
                                                       REFMATH_SPECIAL,
-                                                      bits_differ)
+                                                      bits_differ,
+                                                      lu_systems)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
@@ -547,6 +637,25 @@ def phase_refmath():
         log(f"[2] refmath dot [{m}, {k}] x [{c}, {k}]: {bad} differ")
         if bad:
             raise AssertionError(f"refmath dot: {bad} values differ")
+    # loop_dot (the logistic gradient's sum) at every loop shape: n = 1..128
+    # and 13 rows a training pair up to 120 pairs, 7 outputs
+    for n in list(range(1, 129)) + [130, 260, 520, 1040, 1287, 1560]:
+        x = torch.as_tensor((rng.normal(size=(7, n)) * np.exp(rng.uniform(
+            -4, 4, (1, n)))).astype(np.float32))
+        v = torch.as_tensor(rng.normal(size=n).astype(np.float32))
+        bad = bits_differ(rm.loop_dot(x.to(dev), v.to(dev)),
+                          plain.loop_dot(x, v))
+        if bad:
+            raise AssertionError(f"refmath loop_dot at n={n}: {bad} differ")
+    log("[2] refmath loop_dot: bit-equal at n = 1..128 and 130..1560")
+    # lu_solve (the logistic fit's Newton step) at every size it takes
+    for k in range(1, 8):
+        h, g = (torch.as_tensor(a) for a in lu_systems(rng, 3000, k))
+        bad = bits_differ(rm.lu_solve(h.to(dev), g.to(dev)),
+                          plain.lu_solve(h, g))
+        if bad:
+            raise AssertionError(f"refmath lu_solve at k={k}: {bad} differ")
+    log("[2] refmath lu_solve: bit-equal on 3000 systems at k = 1..7")
     library = {"exp": torch.exp, "log": torch.log, "log1p": torch.log1p,
                "sigmoid": torch.sigmoid,
                "sincos": lambda v: (torch.sin(v), torch.cos(v)),
@@ -572,7 +681,114 @@ def phase_refmath():
             log(f"[2] refmath {op} at {size} values: {t['ms']:.4f} ms "
                 f"(bound {bound:.6f} ms), plain {t['plain_ms']:.4f} ms, "
                 f"torch {t['library_ms']:.4f} ms")
+    # lu_solve at the fit's one 7 x 7 system: 63 values read, 7 written;
+    # about 2 k^3 / 3 + 2 k^2 = 327 operations
+    h, g = (torch.as_tensor(a, device=dev) for a in lu_systems(rng, 3, 7))
+    h, g = h[0], g[0]
+    by_bytes, by_ops = 4 * (49 + 7 + 7) / PEAK_BYTES_PER_S, \
+        327 / PEAK_F32_FLOPS
+    t = dict(ms=cuda_ms(lambda: rm.lu_solve(h, g), 50),
+             plain_ms=cuda_ms(lambda: plain.lu_solve(h, g), 10),
+             library_ms=cuda_ms(lambda: torch.linalg.solve(h, g), 50),
+             bound_ms=max(by_bytes, by_ops) * 1e3,
+             bound_by="bytes" if by_bytes >= by_ops else "operations")
+    times["lu_solve_k7"] = t
+    log(f"[2] refmath lu_solve at one 7 x 7 system: {t['ms']:.4f} ms "
+        f"(bound {t['bound_ms']:.6f} ms), plain {t['plain_ms']:.4f} ms, "
+        f"torch.linalg.solve {t['library_ms']:.4f} ms")
     return dict(max_abs_err=0.0, times=times)
+
+
+# the paths' LM solves: (B, T, C, the path's cost, inner iterations), and
+# one shape past the kernel's staged size
+LM_SHAPES = {"odometry": (1, 4, 512, "P2P", 20),
+             "odometry_b4": (4, 4, 512, "P2P", 20),
+             "loop_wave": (64, 1, 512, "P2L", 10),
+             "joint": (5, 5, 512, "P2P", 20),
+             # a cell_capacity of 2048: P2D's row (312 KB) exceeds the
+             # staged 200 KB and is read from global memory
+             "unstaged_p2d": (2, 4, 2048, "P2D", 20)}
+# float32 operations a leaf an evaluation, counted from csrc/lm_solve.cu's
+# leaf() with the Huber loss, a fused multiply-add as two: the transformed
+# point 16 (P2P; P2L 20, P2D 31), the loss 6, the weights 2, the 15
+# products of J^T [J | r], the 13 sums' adds; for the bound
+LM_OPS_PER_LEAF = {"P2L": 56, "P2P": 52, "P2D": 67}
+
+
+def _lm_bytes(b, t, c, cost, prior):
+    """Bytes the solve must move: each input read once, outputs written
+    once."""
+    per_row = 12 + 8 * c + t * c * (8 + 4 + 1) + 20
+    if cost == "P2L":
+        per_row += 8 * t * c
+    if cost == "P2D":
+        per_row += 16 * t * c
+    return b * per_row + (36 + 16 * b if prior else 0)
+
+
+def phase_lm_solve():
+    """The LM-solve kernel against its plain version on the card, bit for
+    bit in theta, cost and rel_dec, over every cost x loss x prior x
+    one_system at the paths' shapes; then one solve's time at each shape
+    (the path's own cost, Huber, no prior) beside the plain version's and
+    the bound."""
+    from tbv_slam_public_torch.kernels import lm_solve as lk
+    from tbv_slam_public_torch.kernels.checks import bits_differ, lm_problem
+    from tbv_slam_public_torch.ops.registration import cost_code
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    t = lambda x: None if x is None else torch.as_tensor(x, device=dev)
+
+    def args(prob, cost, loss, it, one):
+        theta0, src, tm, tn, weight, mask, si, prior = prob
+        ts = [t(theta0), t(src), t(tm), t(tn), t(weight), t(mask), t(si)]
+        opts = dict(cost=cost, loss=loss, delta=0.1, max_iter=it,
+                    init_lambda=1e-4, one_system=one,
+                    prior=None if prior is None else tuple(map(t, prior)))
+        return ts, opts
+
+    held, times = 0, {}
+    for tag, (b, tt, c, path_cost, it) in LM_SHAPES.items():
+        for name in ("P2L", "P2D", "P2P"):
+            cost = cost_code(name)
+            for with_prior in (False, True):
+                prob = lm_problem(rng, b, tt, c, name, with_prior)
+                for loss in range(6):
+                    for one in (False, True):
+                        ts, opts = args(prob, cost, loss, it, one)
+                        got = lk.lm_solve(*ts, **opts)
+                        want = plain_lm(ts, opts)
+                        bad = sum(bits_differ(g, w)
+                                  for g, w in zip(got, want))
+                        if bad:
+                            raise AssertionError(
+                                f"lm_solve {tag} {name} loss {loss} prior "
+                                f"{with_prior} one_system {one}: {bad} "
+                                f"values differ")
+                        held += 1
+        prob = lm_problem(rng, b, tt, c, path_cost, False)
+        ts, opts = args(prob, cost_code(path_cost), 1, it, b == 1)
+        n = tt * c * (1 if path_cost == "P2L" else 2)
+        ops = b * (it + 1) * n * LM_OPS_PER_LEAF[path_cost]
+        by_bytes = _lm_bytes(b, tt, c, path_cost, False) / PEAK_BYTES_PER_S
+        by_ops = ops / PEAK_F32_FLOPS
+        times[tag] = dict(
+            B=b, T=tt, C=c, cost=path_cost, inner=it,
+            ms=cuda_ms(lambda: lk.lm_solve(*ts, **opts), 20),
+            plain_ms=cuda_ms(lambda: plain_lm(ts, opts), 3),
+            bound_ms=max(by_bytes, by_ops) * 1e3,
+            bound_by="bytes" if by_bytes >= by_ops else "operations",
+            host_us=host_us(lambda: lk.lm_solve(*ts, **opts), 20))
+        log(f"[2b] lm_solve {tag} B={b} T={tt} C={c} {path_cost} {it} "
+            f"inner: {times[tag]['ms']:.4f} ms (bound "
+            f"{times[tag]['bound_ms']:.6f} ms by {times[tag]['bound_by']}), "
+            f"plain {times[tag]['plain_ms']:.2f} ms, host "
+            f"{times[tag]['host_us']:.1f} us a call")
+    log(f"[2b] lm_solve: bit-equal to the plain version in {held} solves "
+        f"(every cost x loss x prior x one_system at {len(LM_SHAPES)} "
+        f"shapes)")
+    return dict(max_abs_err=0.0, held=held, times=times)
 
 
 def phase_real_clouds(loops, sm_hz):
@@ -713,7 +929,7 @@ def phase_evaluate_scans(graph, out):
     buf = io.StringIO()
     cm.LAUNCHES = 0  # evaluate-scans' launches are counted from here
     t0 = time.perf_counter()
-    with refmath_path("evaluate_scans"), contextlib.redirect_stdout(buf):
+    with kernel_path("evaluate_scans"), contextlib.redirect_stdout(buf):
         rc = cli.main(["evaluate-scans", "--graph", graph, "--output", out,
                        "--max-pairs", "5"] + SMALL)
         torch.cuda.synchronize()
@@ -733,29 +949,23 @@ def phase_evaluate_scans(graph, out):
 
 
 def phase_slice(n_frames):
+    import torch_workload as wl
     from tbv_slam_public_torch.core import se2
-    from tbv_slam_public_torch.core.config import RadarConfig, TBVConfig
     from tbv_slam_public_torch.eval import trajectory as tj
-    from tbv_slam_public_torch.io import checkpoint, simulate
     from tbv_slam_public_torch.kernels import coral_moments as cm
     from tbv_slam_public_torch.models.odometry import OdometryPipeline
-    from tbv_slam_public_torch.models.slam import run_offline_slam
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    seq = simulate.make_sequence(
-        num_frames=n_frames, seed=7, num_azimuths=400, num_range_bins=3768,
-        range_res=0.0438,
-        traj_kwargs=dict(radius=0.11 * n_frames, step=0.8, laps=1.25))
+    seq = wl.revisiting_sequence(n_frames)
     gt = np.stack([se2.relative_np(seq.gt_poses[0], g)
                    for g in seq.gt_poses])
     log(f"[4] rendered N={n_frames} frames 400x3768 in "
         f"{time.perf_counter() - t0:.1f} s")
-    cfg = TBVConfig(radar=RadarConfig(num_azimuths=400, num_range_bins=3768,
-                                      range_res=0.0438))
+    cfg = wl.sensor_config()
 
     cm.LAUNCHES = 0  # the offline path's launches are counted from here
-    with refmath_path("offline"):
+    with kernel_path("offline"):
         pipe = OdometryPipeline(cfg, device=dev)
         pipe.process(seq.images[0], stamp=0.0, gt_pose=gt[0])  # first frame
         torch.cuda.synchronize()
@@ -764,15 +974,37 @@ def phase_slice(n_frames):
             pipe.process(seq.images[i], stamp=0.25 * i, gt_pose=gt[i])
         torch.cuda.synchronize()
         odo_s = time.perf_counter() - t0
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "simple_graph.npz")
-            checkpoint.save_simple_graph(path, checkpoint.from_odometry(pipe))
-            g = checkpoint.load_simple_graph(path)
-        t0 = time.perf_counter()
-        slam = run_offline_slam(cfg, g, solver="cholesky", device=dev)
-        torch.cuda.synchronize()
-        slam_s = time.perf_counter() - t0
+        g = wl.checkpoint_graph(pipe)
+        slam_s, slam = wl.loop_stage(cfg, g, dev, warm=False)
     launches = cm.LAUNCHES
+
+    # the first frames again, once with the LM-solve kernel and once with the
+    # plain solve on the card: the trajectories must be bit-equal
+    n_cmp = min(20, n_frames)
+
+    def first_frames(plain):
+        from tbv_slam_public_torch.kernels import lm_solve as lk
+
+        p = OdometryPipeline(cfg, device=dev)
+        with lk.plain_on_card() if plain else contextlib.nullcontext():
+            for i in range(n_cmp):
+                p.process(seq.images[i], stamp=0.25 * i, gt_pose=gt[i])
+        return np.asarray(p.frame_poses)
+
+    t0 = time.perf_counter()
+    kernel_poses = first_frames(False)
+    t1 = time.perf_counter()
+    plain_poses = first_frames(True)
+    t2 = time.perf_counter()
+    if not (np.array_equal(kernel_poses, plain_poses) and np.array_equal(
+            kernel_poses, np.asarray(pipe.frame_poses)[:n_cmp])):
+        raise AssertionError(
+            f"[4] {n_cmp} frames with the LM-solve kernel and with the plain "
+            f"solve differ: max gap "
+            f"{np.abs(kernel_poses - plain_poses).max()}")
+    log(f"[4] {n_cmp} frames bit-equal with the LM-solve kernel "
+        f"({t1 - t0:.2f} s) and the plain solve on the card "
+        f"({t2 - t1:.2f} s)")
 
     s = slam.summary
     ate0 = tj.ate_rmse(g.kf_poses, g.kf_gt)
@@ -783,6 +1015,8 @@ def phase_slice(n_frames):
                keyframes=s.num_keyframes, candidates=n_cand,
                loops_accepted=s.num_loops, ate_before=ate0, ate_after=ate1,
                slam_s=slam_s, coral_launches=launches,
+               plain_lm_frames_bit_equal=n_cmp,
+               plain_lm_frames_s=t2 - t1, kernel_lm_frames_s=t1 - t0,
                frame_ate=tj.ate_rmse(np.asarray(pipe.frame_poses), gt))
     log(f"[4] {json.dumps(res)}")
     if est.shape != (s.num_keyframes, 3) or not np.isfinite(est).all():
@@ -843,7 +1077,7 @@ def phase_variants(images, gt, cfg):
             cfg, parse_cli_overrides(override.split()))
         images, gt = _mulran_images(VARIANT_FRAMES) if name == "mulran" \
             else phase4
-        with refmath_path(f"variant_{name}"):
+        with kernel_path(f"variant_{name}"):
             pipe = OdometryPipeline(vcfg, device=torch.device("cuda"))
             pipe.process(images[0], stamp=0.0, gt_pose=gt[0])
             torch.cuda.synchronize()
@@ -902,16 +1136,12 @@ def phase_batched(images, gt, cfg, single_poses):
     """``batched_odometry_step`` at B = 4 over four simulator seeds (phase
     4's sequence and three more, 20 frames each); every row against its own
     B = 1 run."""
-    from tbv_slam_public_torch.io import simulate
+    import torch_workload as wl
     from tbv_slam_public_torch.models import odometry as om
 
     n, b, dev = 20, 4, torch.device("cuda")
-    n_all = len(images)
-    seqs = [images[:n]] + [simulate.make_sequence(
-        num_frames=n, seed=seed, num_azimuths=images.shape[1],
-        num_range_bins=images.shape[2], range_res=cfg.radar.range_res,
-        traj_kwargs=dict(radius=0.11 * n_all, step=0.8, laps=1.25)).images
-        for seed in (11, 12, 13)]
+    seqs = [images[:n]] + [wl.revisiting_sequence(
+        n, seed, circle_frames=len(images)).images for seed in (11, 12, 13)]
     frames = torch.as_tensor(np.stack(seqs, 1), device=dev)  # [n, B, A, R]
 
     def run(rows):
@@ -927,7 +1157,7 @@ def phase_batched(images, gt, cfg, single_poses):
         return torch.stack(poses, 1).cpu().numpy(), \
             time.perf_counter() - t0, st
 
-    with refmath_path("batched"):
+    with kernel_path("batched"):
         batch, secs, st = run(list(range(b)))
         # B = 2 over the first two sequences: phase 10(b) runs them one a
         # rank
@@ -1140,7 +1370,7 @@ def _run_solver(tag, solver, inst, cfg, edges, poses, node_mask):
 
 def phase_pgo():
     inst = _oxford_instance(torch.device("cuda"))
-    with refmath_path("pgo_cholesky"):
+    with kernel_path("pgo_cholesky"):
         out, _ = _run_solver("[5]", "cholesky", *inst)
     if not (6.5 < out["ate_before"] < 8.0 and out["ate_after"] < 4.072):
         raise AssertionError(f"PGO ATE outside its bands: {out}")
@@ -1153,7 +1383,7 @@ def phase_solvers(instance):
     from tbv_slam_public_torch.ops import posegraph as pg
 
     inst, cfg, edges, poses, node_mask = instance
-    with refmath_path("pgo_schur"):
+    with kernel_path("pgo_schur"):
         out, first = _run_solver("[6]", "schur", *instance)
     if not (6.5 < out["ate_before"] < 8.0 and out["ate_after"] < 4.072):
         raise AssertionError(f"schur PGO ATE outside its bands: {out}")
@@ -1165,7 +1395,7 @@ def phase_solvers(instance):
     log(f"[6] two schur runs: {json.dumps(schur)}")
     if not schur["bit_equal"]:
         raise AssertionError("two schur runs differ")
-    with refmath_path("pgo_cg"):
+    with kernel_path("pgo_cg"):
         out, _ = _run_solver("[6]", "cg", *instance)
     if not (out["cost"] < out["cost0"]
             and out["ate_after"] < out["ate_before"]):
@@ -1238,7 +1468,7 @@ def phase_online(images, gt, cfg, plain_trajectory, sm_hz):
     cfg = dataclasses.replace(
         cfg, pgo=dataclasses.replace(cfg.pgo, optimize_every=5))
     cm.LAUNCHES = 0  # the online path's launches are counted from here
-    with refmath_path("online"):
+    with kernel_path("online"):
         slam = TBVSLAM(cfg, train_alignment=True,
                        device=torch.device("cuda"))
         tally = {}
@@ -1445,7 +1675,7 @@ def phase_parallel_one(cfg, graph, loops):
                 raise AssertionError(f"{dist.get_backend()}, {mesh}")
             before = cm.LAUNCHES
             t0 = time.perf_counter()
-            with refmath_path("parallel_offline"):
+            with kernel_path("parallel_offline"):
                 slam = run_offline_slam(cfg, graph, solver="cholesky",
                                         mesh=mesh)
                 torch.cuda.synchronize()
@@ -1461,7 +1691,7 @@ def phase_parallel_one(cfg, graph, loops):
                 f"CorAl launches {launches}")
             if launches <= 0:
                 raise AssertionError("[10a] no CorAl launch")
-            with refmath_path("parallel_pgo"):
+            with kernel_path("parallel_pgo"):
                 pgo = _distributed_pgo("[10a] PoseGraph(mesh) distributed",
                                        _oxford_graph(cfg, mesh), mesh)
             dry = _entry_and_dryrun("[10a]", mesh)
@@ -1488,7 +1718,7 @@ def _entry_and_dryrun(tag, mesh):
     if out.pose.shape != (3,) or not bool(torch.isfinite(out.pose).all()):
         raise AssertionError(f"{tag} entry(): pose {out.pose}")
     saved, cm.LAUNCHES = cm.LAUNCHES, 0
-    with refmath_path("dryrun"):
+    with kernel_path("dryrun"):
         rec = dryrun.dryrun(mesh)
     launches, cm.LAUNCHES = cm.LAUNCHES, saved
     res = dict(entry_s=entry_s, launches=launches,
@@ -1564,6 +1794,7 @@ def ranks_worker(inputs, out_dir) -> int:
     from tbv_slam_public_torch.core.types import Cells, PointCloud
     from tbv_slam_public_torch.harness import dryrun
     from tbv_slam_public_torch.kernels import coral_moments as cm
+    from tbv_slam_public_torch.kernels import lm_solve as lk
     from tbv_slam_public_torch.kernels import refmath as rm
     from tbv_slam_public_torch.models import loopclosure as lc
     from tbv_slam_public_torch.ops import coral
@@ -1589,11 +1820,13 @@ def ranks_worker(inputs, out_dir) -> int:
 
         def run(key, fn):
             before, t0 = cm.LAUNCHES, time.perf_counter()
-            rm.LAUNCHES = 0  # the case's own refmath launches
+            rm.LAUNCHES = 0  # the case's own refmath and LM launches
+            lk.LAUNCHES = 0
             res = fn()
             torch.cuda.synchronize()
             timed[key] = (time.perf_counter() - t0, cm.LAUNCHES - before)
             out[f"{key}_refmath_launches"] = np.asarray(rm.LAUNCHES)
+            out[f"{key}_lm_launches"] = np.asarray(lk.LAUNCHES)
             return res
 
         # the inputs of the first pair_moments call at each (M, slots) this
@@ -1629,6 +1862,7 @@ def ranks_worker(inputs, out_dir) -> int:
         # shapes of this rank's cases, held to the plain version at the end
         refmath_kept = contextlib.ExitStack()
         kept = refmath_kept.enter_context(refmath_inputs())
+        lm_kept = refmath_kept.enter_context(lm_inputs())
         # the first run of a fresh process loads its kernels; the second is
         # timed as the steady state, and the path's launches are counted
         # from there
@@ -1711,6 +1945,8 @@ def ranks_worker(inputs, out_dir) -> int:
         out["kernel_max_abs_err"] = np.asarray(max(errs))
         out["refmath_held"] = np.asarray(hold_refmath(
             f"[10b] rank {mesh.rank}", kept))
+        out["lm_held"] = np.asarray(hold_lm(f"[10b] rank {mesh.rank}",
+                                            lm_kept))
         np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
@@ -1723,6 +1959,7 @@ def phase_parallel_ranks(overrides, loops, one, dev, pair):
     as overrides of the defaults, ``pair`` phase 9's B = 2 run."""
     from tbv_slam_public_torch.eval import trajectory as tj
     from tbv_slam_public_torch.harness import dryrun
+    from tbv_slam_public_torch.kernels.checks import bits_differ
     from tbv_slam_public_torch.ops import logistic, scancontext
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1744,7 +1981,7 @@ def phase_parallel_ranks(overrides, loops, one, dev, pair):
     r0 = outs[0]
     for k in r0:  # every rank returns the whole result
         if not k.endswith(("_s", "_launches", "kernel_max_abs_err",
-                           "refmath_held")) and \
+                           "refmath_held", "lm_held")) and \
                 not np.array_equal(r0[k], outs[1][k]):
             raise AssertionError(f"[10b] ranks differ in {k}")
     res = dict(backend="gloo", ranks=RANKS, torchrun_s=wall,
@@ -1762,6 +1999,13 @@ def phase_parallel_ranks(overrides, loops, one, dev, pair):
            for r in range(RANKS)) <= 0:
         raise AssertionError(f"[10b] a rank launched no refmath kernel: "
                              f"{REFMATH_LAUNCHES['ranks']}")
+    LM_LAUNCHES["ranks"] = {c: [int(o[f"{c}_lm_launches"]) for o in outs]
+                            for c in cases}
+    LM_HELD["ranks"] = [int(o["lm_held"]) for o in outs]
+    for case in ("waves", "odometry", "dryrun"):
+        if min(LM_LAUNCHES["ranks"][case]) <= 0:
+            raise AssertionError(f"[10b] a rank's {case} launched no "
+                                 f"lm_solve kernel: {LM_LAUNCHES['ranks']}")
     # (M, slots) of every launch held to the plain version: the first
     # wave's share (waves of 64 pairs, fewer candidates padded to a multiple
     # of the ranks) and the training step's share of 13 perturbations a pair
@@ -1828,15 +2072,33 @@ def phase_parallel_ranks(overrides, loops, one, dev, pair):
                                  f"{one['pgo']['ate_after']}")
 
     x, y = r0["train_x"], r0["train_y"]
-    p = logistic.predict_proba(logistic.LogisticModel(
-        torch.as_tensor(r0["train_intercept"]),
-        torch.as_tensor(r0["train_coef"])), torch.as_tensor(x)).numpy()
+    # each rank's fit of the gathered x on the card against the port's own
+    # fit of the same x and y on the CPU, bit for bit: every rounding of
+    # the fit (sigmoid, the ordered products, the gradient's loop order,
+    # the solve's LAPACK order) is the refmath kernel's on the card and the
+    # plain version's on the CPU, and the CPU fit is held bit-equal to the
+    # reference's (tests/test_torch_parity_faults.py).  On these 8 pairs
+    # the IRLS cycles (a near-constant column beside the intercept, as in
+    # the one-street test), so the probabilities and mean linear scores
+    # are reported, not held.
+    cpu = logistic.fit(torch.as_tensor(x), torch.as_tensor(y), balanced=True)
+    want = np.r_[cpu.intercept.numpy(), cpu.coef.numpy()]
+    differ = [bits_differ(np.r_[o["train_intercept"], o["train_coef"]], want)
+              for o in outs]
+    model = logistic.LogisticModel(torch.as_tensor(r0["train_intercept"]),
+                                   torch.as_tensor(r0["train_coef"]))
+    p = logistic.predict_proba(model, torch.as_tensor(x)).numpy()
+    z = logistic.predict_linear(model, torch.as_tensor(x)).double().numpy()
     res["training"] = dict(x_shape=list(x.shape), positives=int(y.sum()),
+                           values_differ_from_cpu_fit=differ,
+                           intercept=float(want[0]),
                            p_aligned=float(p[y == 1].mean()),
                            p_perturbed=float(p[y == 0].mean()),
+                           score_aligned=float(z[y == 1].mean()),
+                           score_perturbed=float(z[y == 0].mean()),
                            s_per_rank=[float(o["training_s"]) for o in outs])
     if x.shape != (13 * TRAIN_PAIRS, 6) or not np.isfinite(x).all() or \
-            not res["training"]["p_aligned"] > res["training"]["p_perturbed"]:
+            any(differ):
         raise AssertionError(f"[10b] training step: {res['training']}")
     # batched odometry, one sequence a rank, against phase 9's B = 2 run in
     # one process on the same images
@@ -1934,6 +2196,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    sys.path.insert(1, os.path.join(ROOT, "scripts"))
     import tbv_slam_public_torch  # noqa: F401  (sets full-f32 matmuls)
 
     if args.ranks_worker:
@@ -1952,6 +2215,7 @@ def main(argv=None) -> int:
     smi, sm_hz = phase_build()
     k = phase_kernels(sm_hz)
     refmath_k = phase_refmath()
+    lm_k = phase_lm_solve()
     done("1-2")
     plain_trajectory, scan_launches = phase_cli()
     done("3")
@@ -1967,7 +2231,7 @@ def main(argv=None) -> int:
     variants = phase_variants(images, gt, cfg)
     done("8")
     batched, pair = phase_batched(images, gt, cfg, frame_poses)
-    with refmath_path("rest"):
+    with kernel_path("rest"):
         rest = phase_rest(images, cfg, loops)
     done("9")
     parallel, parallel_launches, dry_launches, parallel_err = \
@@ -2005,7 +2269,22 @@ def main(argv=None) -> int:
         "library_ms": refmath_k["times"]["sincos_n4096"]["library_ms"],
         "times": refmath_k["times"],
         "launches_by_path": REFMATH_LAUNCHES,
-        "shapes_held_by_path": REFMATH_HELD}],
+        "shapes_held_by_path": REFMATH_HELD}, {
+        "name": "lm_solve", "route": "cuda",
+        "source": "tbv_slam_public_torch/csrc/lm_solve.cu",
+        "replaces": "tbv_slam_public_tpu/ops/registration.py:350 (no TPU "
+                    "kernel: XLA fuses _lm_solve; the port's plain version "
+                    "is ops/registration.py::_lm_solve_reference)",
+        "launches": LM_LAUNCHES["offline"],
+        "max_abs_err": lm_k["max_abs_err"],
+        "ms": lm_k["times"]["odometry"]["ms"],
+        "plain_ms": lm_k["times"]["odometry"]["plain_ms"],
+        "bound_ms": lm_k["times"]["odometry"]["bound_ms"],
+        "bound_by": lm_k["times"]["odometry"]["bound_by"],
+        "library_ms": None, "times": lm_k["times"],
+        "grid_solves_held": lm_k["held"],
+        "launches_by_path": LM_LAUNCHES,
+        "shapes_held_by_path": LM_HELD}],
         "variants": variants, "batched": batched, "rest": rest,
         "schur_twice": schur_twice, "parallel": parallel,
         "phase_s": phase_s}))

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Trees of the port on one card, in turns: odometry frames/s, kernel
-launches of one odometry step, ms per distributed-PGO LM step and schur
-seconds.
+launches of one odometry step, the loop stage's seconds, ms per
+distributed-PGO LM step and schur seconds.
 
 Each run is a fresh process on one tree: 29 timed odometry frames at the
 sensor's size (400 x 3768, default configuration, after two warm-up
-frames), the launches of one more frame (``torch.profiler``),
-``optimize_distributed`` on a mesh of one over the 4470-node
+frames), the launches of one more frame (``torch.profiler``), the
+offline loop stage (``run_offline_slam``: loop closure and cholesky PGO) on
+the checkpoint of a 60-frame sequence that revisits its start (phase 4's
+trajectory of ``chip_smoke.py`` at N = 60), ``optimize_distributed`` on a mesh of one over the 4470-node
 Oxford instance (64 LM steps, after a 2-step warm-up), and the ``schur``
 solver on it.  The order is the other trees, this tree twice, the other
 trees backwards, so that drift of the card shows; ``--rounds N`` repeats
@@ -34,17 +36,18 @@ import json, os, sys, time, dataclasses
 import numpy as np, torch
 root = sys.argv[1]
 sys.path.insert(0, root)
+sys.path.insert(1, sys.argv[2])
+import torch_workload as wl
 import tbv_slam_public_torch
-from tbv_slam_public_torch.core.config import TBVConfig, RadarConfig, PGOConfig
+from tbv_slam_public_torch.core.config import PGOConfig
 from tbv_slam_public_torch.io import simulate
 from tbv_slam_public_torch.models.odometry import OdometryPipeline
 from tbv_slam_public_torch.ops import posegraph
 from tbv_slam_public_torch.parallel import multihost, pgo
 dev = torch.device("cuda")
 res = {"tree": root}
-seq = simulate.make_sequence(num_frames=31, seed=7, num_azimuths=400, num_range_bins=3768, range_res=0.0438,
-                             traj_kwargs=dict(radius=22.0, step=0.8, laps=1.25))
-cfg = TBVConfig(radar=RadarConfig(num_azimuths=400, num_range_bins=3768, range_res=0.0438))
+seq = wl.revisiting_sequence(31, circle_frames=200)
+cfg = wl.sensor_config()
 pipe = OdometryPipeline(cfg, device=dev)
 pipe.process(seq.images[0]); pipe.process(seq.images[1]); torch.cuda.synchronize()
 t0 = time.perf_counter()
@@ -58,6 +61,13 @@ with profile(activities=[ProfilerActivity.CPU]) as prof:
     torch.cuda.synchronize()
 res["launches_per_step"] = sum(e.count for e in prof.key_averages() if e.key in (
     "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"))
+loop_seq = wl.revisiting_sequence(60)
+pipe = OdometryPipeline(cfg, device=dev)
+for i, im in enumerate(loop_seq.images):
+    pipe.process(im, stamp=0.25 * i)
+res["loop_stage_s"], slam = wl.loop_stage(cfg, wl.checkpoint_graph(pipe), dev)
+res["loop_candidates"] = len(slam.loops.candidate_log)
+res["loops"] = int(slam.summary.num_loops)
 z = np.load(os.path.join(root, "tests", "fixtures", "oxford_10-12-32_real_odometry.npz"))
 inst = simulate.make_real_odometry_pgo_instance(z["odom"], z["gt"], seed=0)
 pc = PGOConfig()
@@ -84,7 +94,8 @@ print("RESULT " + json.dumps(res))
 
 out = []
 for tree in (OTHERS + [ROOT, ROOT] + OTHERS[::-1]) * _args.rounds:
-    p = subprocess.run([sys.executable, "-c", CHILD, tree],
+    p = subprocess.run([sys.executable, "-c", CHILD, tree,
+                        os.path.join(ROOT, "scripts")],
                        capture_output=True, text=True, timeout=600)
     line = [l for l in p.stdout.splitlines() if l.startswith("RESULT ")]
     if p.returncode or not line:

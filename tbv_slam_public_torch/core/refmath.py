@@ -29,6 +29,10 @@ own functions on the same inputs (``tests/test_torch_refmath.py``).
 | ``sqrt`` of data: the P2D whitening, the robust losses, the CFEAR cell eigenvalues, Cen's and ScanContext's norms, the PGO weights | ``llvm.sqrt``: the IEEE square root (``vsqrtps``); torch's vectorised CPU sqrt is not (one ulp off in 0.65 % of values) | IR of the fusions; the reference's output against the float64 square root rounded | :func:`sqrt` |
 | ``ops/registration.py::_rho_and_weight`` Huber and Cauchy | Huber: ``2 delta sqrt(s) - delta^2`` one ``vfmadd`` of sqrt(s) and the constants, ``delta / sqrt(s)`` one division (torch divides a number by a tensor as a reciprocal times the number); Cauchy: ``s / b`` a product by the reciprocal, fused into ``1 + s / b`` | HLO and IR of ``odometry_step``; the losses compiled alone, bit-equal | :func:`fma`, :func:`sqrt`, :func:`recip` |
 | ``ops/registration.py::_chol2x2_inv_sqrt`` | ``a*c - b*b`` as ``fma(a, c, -(b*b))``; ``(-b / det) / u22`` rewritten by XLA to ``-b / (det * u22)``; ``ia - u12*u12`` as ``fma(-u12, u12, ia)`` | HLO of ``odometry_step`` (P2D), its IR; 196,608 matrices bit-equal | :func:`fma`, :func:`sqrt` |
+| ``ops/registration.py::_rho_and_weight`` SoftLOne and Tukey | ``s / b`` a product by the float32 reciprocal, fused into ``1 + s / b`` (``vfmadd``) and ``1 - s / b`` (``vfnmadd``); ``u ** 3`` as ``u * (u * u)`` with ``1 - u^3`` one ``vfnmadd``; ``2 b`` and ``b / 3`` folded into constants | optimized HLO and object code of the losses compiled alone; 196,608 values bit-equal at loss limits 0.1, 0.3, 1, 2 | :func:`fma`, :func:`sqrt`, :func:`recip` |
+| ``ops/registration.py::_prior_terms`` | ``sqrt_info @ (theta - guess)``, ``|pr|^2``, ``Jp^T Jp`` and ``Jp^T pr``: one fused multiply-add a term in order | the cost pass with a prior compiled alone, bit-equal on 256 priors | :func:`fma` |
+| ``ops/logistic.py::gradient`` | xb^T (sw (p - y)): XLA's scalar loop with reassociable adds, vectorised by LLVM in an order that depends on n (:func:`loop_dot_shape`) | object code of ``copy_dot_fusion`` at n = 13-1287; the product compiled alone held bit-equal at every n from 1 to 700 and at 13 k up to 1,560 (4 and 7 outputs) | :func:`loop_dot` |
+| ``ops/logistic.py::solve`` | ``jnp.linalg.solve`` of the fit's 4x4 / 7x7 system: jaxlib's ``lapack_sgetrf_ffi`` and two ``lapack_strsm_ffi`` (unit lower, then upper), which call SciPy's OpenBLAS (0.3.30, its SkylakeX kernels here), the right-hand side permuted by the pivots | optimized HLO of ``logistic.fit``; ``objdump -d`` of the library: ``sgetrf_single`` (unblocked below 2 x 4 columns), ``sgetf2_k``, ``sdot_k``, ``sgemv_n`` (its small-n path and its n = 4 remainders), the generic ``trsm_kernel_LT``/``_LN``, ``trsm_iunncopy`` and the ``sgemm_kernel`` update they call (its scalar edge: a fused multiply-add chain in k order, then c + alpha acc once); SciPy's factors and solves bit-equal on 63,000 systems, k = 1-7 (the fit's matrices, general, integer-valued with ties in magnitude, entries over e^+-30, zero pivots) | :func:`lu_solve` |
 | subnormal operands and results of the functions above | flushed to zero (the reference's threads run with DAZ and FTZ) | outputs on subnormal inputs | :func:`ftz` |
 
 Fused multiply-adds inside the functions:
@@ -49,7 +53,7 @@ Fused multiply-adds inside the functions:
 
 What the reference computes otherwise and the port does not (yet) is in
 ``ROADMAP.md`` section 3: the sums over many terms (voxels, the LM's cost,
-gradient and Hessian, the logistic gradient), the logistic 5x5 solve,
+gradient and Hessian),
 the fit at wave sizes other than 64, the LM solve's x1 in vmapped code,
 and the CFEAR eigen-decomposition's sqrt (bit-equal with :func:`sqrt`, left
 at torch's while the LM's sums are not the reference's).
@@ -498,6 +502,99 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def loop_dot_shape(n: int):
+    """(mode, interleave, epilogue width) of the loop in which the
+    reference's program adds the n terms of a row of xb^T v (the logistic
+    gradient's ``copy_dot_fusion``: XLA emits a scalar loop whose adds may
+    be reassociated, LLVM vectorises it), read from its object code and
+    held bit for bit at every n from 1 to 700 (``tests/test_torch_refmath
+    .py``).  n <= 49: the rows are vectorised across the outputs, each row
+    one fused multiply-add a term in order ("in_order").  Above, 8-lane
+    chunks in ``interleave`` accumulators (2 up to n = 64, then 4), each
+    pass taking 8 x interleave terms, (n - 1) // (8 x interleave) passes;
+    up to 10 passes the loop is unrolled and its chunks reassociated into
+    one chain ("unrolled"), above that the accumulators are summed in order
+    after the loop ("loop"); then the 8 lanes in a halving tree, an
+    epilogue loop of ``epilogue``-lane chunks (0: none) seeded with that
+    sum and reduced the same way, and the last terms one at a time."""
+    if n <= 49:
+        return "in_order", 0, 0
+    ic = 2 if n <= 64 else 4
+    passes = (n - 1) // (8 * ic)
+    rem = n - 8 * ic * passes
+    if rem == 8 * ic or rem in (1, 2, 4, 8):
+        vf = 0
+    elif rem < 8:
+        vf = {3: 2, 5: 4, 6: 2, 7: 2}[rem]
+    else:
+        vf = 8 if rem % 8 < 4 else 4
+    return ("unrolled" if passes <= 10 else "loop"), ic, vf
+
+
+def loop_chunk_order(passes: int, ic: int):
+    """The order in which the unrolled loop's 8-lane chunks enter its one
+    chain: the first accumulator's chunks, then each other accumulator's
+    second chunk, its first, and the rest."""
+    order = list(range(0, ic * passes, ic))
+    for j in range(1, ic):
+        seq = [ic * i + j for i in range(passes)]
+        order += seq[1::-1] + seq[2:] if passes >= 2 else seq
+    return order
+
+
+def _lane_tree(a: torch.Tensor) -> torch.Tensor:
+    while a.shape[-1] > 1:
+        h = a.shape[-1] // 2
+        a = a[..., :h] + a[..., h:]
+    return a[..., 0]
+
+
+def loop_dot(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """out[c] = sum_k x[c, k] v[k] for x [K, n], v [n] in float32, added as
+    the reference's vectorised loop adds the terms of the logistic
+    gradient xb^T (sw (p - y)) (:func:`loop_dot_shape`)."""
+    k_rows, n = x.shape
+    mode, ic, vf = loop_dot_shape(n)
+    zeros = lambda w: torch.zeros((k_rows, w), dtype=_F32, device=x.device)
+    if mode == "in_order":
+        acc = zeros(1)[:, 0]
+        for k in range(n):
+            acc = fma(x[:, k], v[k].expand(k_rows), acc)
+        return acc
+    passes = (n - 1) // (8 * ic)
+
+    def chunk(c, width=8, at=0):
+        lo = at + width * c
+        return x[:, lo:lo + width], v[lo:lo + width].expand(k_rows, width)
+
+    if mode == "unrolled":
+        acc = zeros(8)
+        for c in loop_chunk_order(passes, ic):
+            acc = fma(*chunk(c), acc)
+    else:
+        accs = []
+        for j in range(ic):
+            a = zeros(8)
+            for i in range(passes):
+                a = fma(*chunk(ic * i + j), a)
+            accs.append(a)
+        acc = accs[0]
+        for a in accs[1:]:
+            acc = acc + a
+    s = _lane_tree(acc)
+    done = 8 * ic * passes
+    m = (n - done - 1) // vf if vf else 0
+    if m:
+        e = torch.cat([s[:, None], zeros(vf - 1)], 1)
+        for i in range(m):
+            e = fma(*chunk(i, vf, done), e)
+        s = _lane_tree(e)
+        done += vf * m
+    for k in range(done, n):
+        s = fma(x[:, k], v[k].expand(k_rows), s)
+    return s
+
+
 def lm_update(theta: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
               one_system: bool = False) -> torch.Tensor:
     """theta - a^{-1} b for [..., 3], [..., 3, 3] and [..., 3] in float32:
@@ -534,3 +631,120 @@ def lm_update(theta: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
          fma(c22, b2, pair(c02, c12)))
     return torch.stack([fma(-inv_det, si, theta[..., i])
                         for i, si in enumerate(s)], -1)
+
+
+#: the largest system :func:`lu_solve` takes: above it the BLAS kernels
+#: the reference calls switch to blocked paths that are not written out
+LU_SOLVE_MAX_K = 7
+
+
+def _swap(x: torch.Tensor, i: int, p: torch.Tensor) -> torch.Tensor:
+    """x with entries i and p[n] of each row n (x [N, K, ...]) exchanged."""
+    idx = p.view(-1, 1, *([1] * (x.dim() - 2))).expand(-1, 1, *x.shape[2:])
+    xi, xp = x[:, i:i + 1].clone(), x.gather(1, idx)
+    x = x.clone()
+    x[:, i:i + 1] = xp
+    return x.scatter(1, idx, xi)
+
+
+def _strided_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """OpenBLAS's ``sdot`` (SkylakeX kernel) of rows x, y [N, n] with x
+    strided: pairs ``fma(x0, y0, x1 * y1)`` added into a float64
+    accumulator from zero, an odd last product added alone, the sum
+    rounded to float32 once."""
+    n = x.shape[1]
+    acc = torch.zeros(x.shape[0], dtype=_F64, device=x.device)
+    for p in range(0, n - 1, 2):
+        acc = acc + fma(x[:, p], y[:, p], x[:, p + 1] * y[:, p + 1]).to(_F64)
+    if n % 2:
+        acc = acc + (x[:, n - 1] * y[:, n - 1]).to(_F64)
+    return acc.to(_F32)
+
+
+def _chain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """sum_k a[:, r, k] x[:, k] for a [N, R, n], x [N, n]: one fused
+    multiply-add a term in k order from zero (the ``sgemv_n`` and
+    ``sgemm`` kernels at these shapes)."""
+    acc = torch.zeros(a.shape[:2], dtype=_F32, device=a.device)
+    for k in range(a.shape[2]):
+        acc = fma(a[:, :, k], x[:, k:k + 1], acc)
+    return acc
+
+
+def lu_solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """h^{-1} g for float32 h [..., K, K], g [..., K], K <= 7, rounded as
+    the reference's ``jnp.linalg.solve`` on the CPU: jaxlib calls SciPy's
+    OpenBLAS (0.3.30, SkylakeX kernels), ``sgetrf`` then g permuted by its
+    pivots, then ``strsm`` on the unit lower and on the upper factor.  Read
+    from the library's object code: ``sgetrf_single`` takes the unblocked
+    ``sgetf2_k`` at these sizes, a left-looking LU whose column j is
+    brought up to date by ``sdot`` (:func:`_strided_dot`) for rows 1..j-1
+    and ``sgemv_n`` (:func:`_chain`, y - acc rounded once) below; the
+    pivot is the first largest magnitude; a pivot that is zero or below
+    FLT_MIN leaves the rows unswapped and unscaled; the column under the
+    pivot is multiplied by 1 / pivot.  ``strsm`` runs the generic
+    ``trsm_kernel_LT`` / ``_LN``: the rows in blocks of 4, 2, 1 (from the
+    top for the lower factor, of 1, 2, 4 from the bottom for the upper), a
+    block first reduced by the solved rows (:func:`_chain`), then solved
+    row by row, x_i = c_i * (1 / u_ii) and each later c_k - x_i a_ki one
+    fused multiply-add."""
+    k = h.shape[-1]
+    if h.shape[-2:] != (k, k) or g.shape != h.shape[:-1] or \
+            not 1 <= k <= LU_SOLVE_MAX_K:
+        raise ValueError(f"refmath.lu_solve: shapes {tuple(h.shape)}, "
+                         f"{tuple(g.shape)} (K <= {LU_SOLVE_MAX_K})")
+    lead = g.shape[:-1]
+    a = h.reshape(-1, k, k).to(_F32)
+    n = a.shape[0]
+    piv = []
+    one = torch.ones((), dtype=_F32, device=h.device)
+    for j in range(k):
+        col = a[:, :, j]
+        for i in range(j):
+            col = _swap(col, i, piv[i])
+        for i in range(1, j):
+            col = col.clone()
+            col[:, i] = col[:, i] - _strided_dot(a[:, i, :i], col[:, :i])
+        if j:
+            col = torch.cat([col[:, :j], col[:, j:] - _chain(
+                a[:, j:, :j], col[:, :j])], 1)
+        a = a.clone()
+        a[:, :, j] = col
+        p = j + torch.argmax(col[:, j:].abs(), 1)
+        piv.append(p)
+        t = col.gather(1, p[:, None])[:, 0]
+        ok = (t != 0) & (t.abs() >= _MIN_NORM)
+        swapped = _swap(a[:, :, :j + 1], j, p)
+        a = torch.cat([torch.where(ok[:, None, None], swapped,
+                                   a[:, :, :j + 1]), a[:, :, j + 1:]], 2)
+        if j + 1 < k:
+            below = a[:, j + 1:, j]
+            a[:, j + 1:, j] = torch.where(ok[:, None],
+                                          below * (one / t)[:, None], below)
+    x = g.reshape(n, k).to(_F32)
+    for i in range(k):
+        x = _swap(x, i, piv[i])
+    blocks, r0 = [], 0
+    for w in (4, 2, 1):
+        if k & w:
+            blocks.append((r0, r0 + w))
+            r0 += w
+    for s, e in blocks:  # the unit lower factor, from the top
+        if s:
+            x = torch.cat([x[:, :s], x[:, s:e] - _chain(a[:, s:e, :s],
+                                                         x[:, :s]),
+                           x[:, e:]], 1)
+        for i in range(s, e):
+            x = x.clone()
+            x[:, i + 1:e] = fma(-x[:, i:i + 1], a[:, i + 1:e, i],
+                                x[:, i + 1:e])
+    for s, e in blocks[::-1]:  # the upper factor, from the bottom
+        if e < k:
+            x = torch.cat([x[:, :s], x[:, s:e] - _chain(a[:, s:e, e:],
+                                                         x[:, e:]),
+                           x[:, e:]], 1)
+        for i in range(e - 1, s - 1, -1):
+            x = x.clone()
+            x[:, i] = x[:, i] * (one / a[:, i, i])
+            x[:, s:i] = fma(-x[:, i:i + 1], a[:, s:i, i], x[:, s:i])
+    return x.reshape(lead + (k,))

@@ -12,313 +12,29 @@
 // (DAZ and FTZ); daz() reproduces that where it shows in a result.  What
 // the reference does at each site, and how that was read from its compiled
 // program, is the table in tbv_slam_public_torch/core/refmath.py, whose
-// plain PyTorch versions run the same steps on the CPU.
+// plain PyTorch versions run the same steps on the CPU.  The device
+// functions are in refmath.cuh, which the LM-solve kernel (lm_solve.cu)
+// inlines too.
 //
 // One launch per call: an op code, one to three float32 inputs, one or two
 // outputs (sincos writes both).  fma is the fused multiply-add that the
 // reference's compiler makes of a product feeding an add; sqrt is the IEEE
 // square root, which the reference's program computes (torch's CPU sqrt
 // does not: the plain version rounds a float64 root).
-// refmath_lm_update_launch is the LM step theta - H^{-1} g in the
+// refmath_loop_dot_launch is the logistic gradient's sum in the reference's
+// vectorised loop's order; refmath_lu_solve_launch its Newton step's solve
+// as the reference's LAPACK and BLAS routines round it.  refmath_lm_update_launch is the LM step theta - H^{-1} g in the
 // reference's closed form, a thread a system.  refmath_dot_launch is the small matrix
 // product whose terms the reference adds one at a time.  Bound: bytes, 8-16 B a value read and 4-8 B
 // written against 20-60 float or double operations; the call sites pass a
 // few to a few thousand values, so a launch is latency.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "refmath.cuh"
 
 namespace {
 
 enum Op {
   kExp = 0, kLog, kLog1p, kSigmoid, kSinCos, kAtan2, kWrap, kFma, kSqrt
 };
-
-constexpr float kMinNorm = 1.17549435082228750797e-38f;  // 2^-126
-
-__device__ __forceinline__ float daz(float x) {
-  return fabsf(x) < kMinNorm ? __fmul_rn(x, 0.0f) : x;
-}
-
-__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
-  x = (x >= lo || isnan(x)) ? x : lo;
-  return (x <= hi || isnan(x)) ? x : hi;
-}
-
-// ---- XLA's exp (Eigen pexp) ---------------------------------------------
-__device__ float ref_exp(float x) {
-  const float kC1 = 0.693359375f;
-  const float kC2 = __int_as_float(0xB95E8083);
-  x = clamp_nan(daz(x), __int_as_float(0xC2AF999A), __int_as_float(0x42B1999A));
-  float fx = floorf(__fmaf_rn(x, __int_as_float(0x3FB8AA3B), 0.5f));
-  fx = clamp_nan(fx, -127.0f, 127.0f);
-  float r = __fsub_rn(x, __fmul_rn(fx, kC1));
-  r = __fmaf_rn(-fx, kC2, r);
-  float y = __fmaf_rn(r, __int_as_float(0x39506967), __int_as_float(0x3AB743CE));
-  y = __fmaf_rn(y, r, __int_as_float(0x3C088908));
-  y = __fmaf_rn(y, r, __int_as_float(0x3D2AA9C1));
-  y = __fmaf_rn(y, r, __int_as_float(0x3E2AAAAA));
-  y = __fmaf_rn(y, r, 0.5f);
-  y = __fmaf_rn(y, __fmul_rn(r, r), r);
-  y = __fadd_rn(y, 1.0f);
-  int n = isnan(fx) ? 0 : __float2int_rz(fx);
-  return daz(__fmul_rn(y, __int_as_float((n + 127) << 23)));
-}
-
-__device__ float ref_sigmoid(float x) {
-  return daz(__fdiv_rn(1.0f, __fadd_rn(ref_exp(-x), 1.0f)));
-}
-
-// ---- XLA's log (Eigen plog) ---------------------------------------------
-__device__ float log_core(float x) {
-  const float kC1 = 0.693359375f;
-  const float kC2 = __int_as_float(0xB95E8083);
-  bool invalid = !(x > 0.0f), zero = x == 0.0f, inf = x == INFINITY;
-  float xc = x > kMinNorm ? x : kMinNorm;
-  int bx = __float_as_int(xc);
-  float e = __fadd_rn((float)(((bx >> 23) & 0x1FF) - 127), 1.0f);
-  float m = __int_as_float((bx & 0x807FFFFF) | 0x3F000000);
-  bool small = m < __int_as_float(0x3F3504F3);
-  float tmp = small ? m : 0.0f;
-  float x1 = __fsub_rn(m, 1.0f);
-  e = __fsub_rn(e, small ? 1.0f : 0.0f);
-  float v = __fadd_rn(x1, tmp);
-  float x2 = __fmul_rn(v, v);
-  float x3 = __fmul_rn(x2, v);
-  float y = __fmaf_rn(v, __int_as_float(0x3D9021BB), __int_as_float(0xBDEBD1B8));
-  float y1 = __fmaf_rn(v, __int_as_float(0xBDFE5D4F), __int_as_float(0x3E11E9BF));
-  float y2 = __fmaf_rn(v, __int_as_float(0x3E4CCEAC), __int_as_float(0xBE7FFFFC));
-  y = __fmaf_rn(y, v, __int_as_float(0x3DEF251A));
-  y1 = __fmaf_rn(y1, v, __int_as_float(0xBE2AAE50));
-  y2 = __fmaf_rn(y2, v, __int_as_float(0x3EAAAAAA));
-  y = __fmaf_rn(y, x3, y1);
-  y = __fmaf_rn(y, x3, y2);
-  y = __fmaf_rn(y, x3, __fmul_rn(e, kC2));
-  y = __fadd_rn(__fsub_rn(v, __fmul_rn(0.5f, x2)), y);
-  y = __fadd_rn(y, __fmul_rn(e, kC1));
-  if (invalid) y = NAN;
-  if (zero) y = -INFINITY;
-  if (inf) y = INFINITY;
-  return y;
-}
-
-__device__ float ref_log(float x) { return log_core(daz(x)); }
-
-__device__ float ref_log1p(float x) {
-  x = daz(x);
-  if (!(fabsf(x) < __int_as_float(0x3ED413CD)))
-    return log_core(__fadd_rn(x, 1.0f));
-  const int kQ[6] = {0x417101AD, 0x42A6185B, 0x435DC32D, 0x439A8CA3,
-                     0x43586D8A, 0x42707982};
-  const int kP[7] = {0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C,
-                     0x4273CC76, 0x426473AD, 0x41A05101};
-  float x2 = __fmul_rn(x, x);
-  float z0 = __fmul_rn(x, 0.0f);
-  float q = __fadd_rn(z0, 1.0f);
-  for (int i = 0; i < 6; ++i) q = __fmaf_rn(q, x, __int_as_float(kQ[i]));
-  float p = __fadd_rn(z0, __int_as_float(kP[0]));
-  for (int i = 1; i < 7; ++i) p = __fmaf_rn(p, x, __int_as_float(kP[i]));
-  float r = __fmul_rn(__fmul_rn(x, x2), __fdiv_rn(p, q));
-  return __fadd_rn(x, __fmaf_rn(x2, -0.5f, r));
-}
-
-// ---- glibc 2.36 sinf / cosf / sincosf, FMA variant ----------------------
-// __sincosf_table[0]: sign[4], hpi_inv (2/pi * 2^24), hpi, then
-// c0, c1, s1, c2, s2, c3, s3, c4; table[1] negates the c's.
-__constant__ double kSign[4] = {1.0, -1.0, -1.0, 1.0};
-__constant__ uint32_t kInvPio4[24] = {
-    0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44, 0x6e4e4415,
-    0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757, 0xfc2757d1, 0x2757d1f5,
-    0x57d1f534, 0xd1f534dd, 0xf534ddc0, 0x34ddc0db, 0xddc0db62, 0xc0db6295,
-    0xdb629599, 0x6295993c, 0x95993c43, 0x993c4390, 0x3c439041};
-
-__device__ __forceinline__ double hexd(unsigned long long b) {
-  return __longlong_as_double((long long)b);
-}
-
-__device__ float sin_poly(double xs, double x2) {
-  const double s1 = hexd(0xBFC555545995A603ull);  // -0x1.555545995a603p-3
-  const double s2 = hexd(0x3F81107605230BC4ull);  // 0x1.1107605230bc4p-7
-  const double s3 = hexd(0xBF2994EB3774CF24ull);  // -0x1.994eb3774cf24p-13
-  double x3 = __dmul_rn(x2, xs);
-  double p = __fma_rn(x2, s3, s2);
-  double x7 = __dmul_rn(x2, x3);
-  double s = __fma_rn(x3, s1, xs);
-  return __double2float_rn(__fma_rn(p, x7, s));
-}
-
-__device__ float cos_poly(double x2, bool neg) {
-  const unsigned long long s = neg ? 0x8000000000000000ull : 0ull;
-  const double c0 = hexd(0x3FF0000000000000ull ^ s);
-  const double c1 = hexd(0xBFDFFFFFFD0C621Cull ^ s);  // -0x1.ffffffd0c621cp-2
-  const double c2 = hexd(0x3FA55553E1068F19ull ^ s);  // 0x1.55553e1068f19p-5
-  const double c3 = hexd(0xBF56C087E89A359Dull ^ s);  // -0x1.6c087e89a359dp-10
-  const double c4 = hexd(0x3EF99343027BF8C3ull ^ s);  // 0x1.99343027bf8c3p-16
-  double x4 = __dmul_rn(x2, x2);
-  double c1p = __fma_rn(x2, c1, c0);
-  double c2p = __fma_rn(x2, c4, c3);
-  double x6 = __dmul_rn(x2, x4);
-  double c = __fma_rn(x4, c2, c1p);
-  return __double2float_rn(__fma_rn(c2p, x6, c));
-}
-
-// sin and cos of y, as __sinf_fma / __cosf_fma return them.
-__device__ void ref_sincos(float y, float* sp, float* cp) {
-  uint32_t bits = __float_as_uint(y);
-  uint32_t top = (bits >> 20) & 0x7ff;
-  double x = (double)y;
-  if (top < (0x3F490FDBu >> 20)) {  // |y| < pi/4
-    if (top < (0x39800000u >> 20)) {  // |y| < 2^-12
-      *sp = y;
-      *cp = 1.0f;
-      return;
-    }
-    double x2 = __dmul_rn(x, x);
-    *sp = sin_poly(x, x2);
-    *cp = cos_poly(x2, false);
-    return;
-  }
-  if (top >= 0x7f8) {  // inf or nan
-    *sp = *cp = NAN;
-    return;
-  }
-  int n, q;
-  double r;
-  if (top < (0x42F00000u >> 20)) {  // |y| < 120
-    const double hpi_inv = hexd(0x41645F306DC9C883ull);  // 0x1.45f306dc9c883p+23
-    const double hpi = hexd(0x3FF921FB54442D18ull);
-    n = (__double2int_rz(__dmul_rn(x, hpi_inv)) + 0x800000) >> 24;
-    r = __fma_rn(-(double)n, hpi, x);
-    q = n;
-  } else {  // glibc's reduce_large
-    const uint32_t* arr = &kInvPio4[(bits >> 26) & 15];
-    int shift = (bits >> 23) & 7;
-    uint32_t xi = ((bits & 0xffffff) | 0x800000) << shift;
-    uint64_t res0 = xi * arr[0];
-    uint64_t res1 = (uint64_t)xi * arr[4];
-    uint64_t res2 = (uint64_t)xi * arr[8];
-    res0 = (res2 >> 32) | (res0 << 32);
-    res0 += res1;
-    uint64_t nn = (res0 + (1ULL << 61)) >> 62;
-    res0 -= nn << 62;
-    n = (int)nn;
-    r = __dmul_rn(__ll2double_rn((long long)res0),
-                  hexd(0x3C1921FB54442D18ull));  // pi * 2^-63
-    q = n + (int)(bits >> 31);
-  }
-  double x2 = __dmul_rn(r, r);
-  bool neg = (q & 2) != 0;
-  float s = sin_poly(__dmul_rn(r, kSign[q & 3]), x2);
-  float c = cos_poly(x2, neg);
-  bool odd = n & 1;
-  *sp = odd ? c : s;
-  *cp = odd ? s : c;
-}
-
-// ---- glibc atanf / atan2f (fdlibm's float algorithm, no FMA) ------------
-__device__ float ref_atanf(float x) {
-  const int kHi[4] = {0x3EED6338, 0x3F490FDA, 0x3F7B985E, 0x3FC90FDA};
-  const int kLo[4] = {0x31AC3769, 0x33222168, 0x33140FB4, 0x33A22168};
-  int hx = __float_as_int(x);
-  int ix = hx & 0x7fffffff;
-  if (ix >= 0x4c000000) {
-    if (ix > 0x7f800000) return __fadd_rn(x, x);
-    float big = __fadd_rn(__int_as_float(kHi[3]), __int_as_float(kLo[3]));
-    return hx > 0 ? big : -big;
-  }
-  int id;
-  if (ix < 0x3ee00000) {
-    if (ix < 0x31000000) return x;
-    id = -1;
-  } else {
-    x = fabsf(x);
-    if (ix < 0x3f980000) {
-      if (ix < 0x3f300000) {
-        id = 0;
-        x = __fdiv_rn(__fsub_rn(__fadd_rn(x, x), 1.0f), __fadd_rn(2.0f, x));
-      } else {
-        id = 1;
-        x = __fdiv_rn(__fsub_rn(x, 1.0f), __fadd_rn(x, 1.0f));
-      }
-    } else if (ix < 0x401c0000) {
-      id = 2;
-      x = __fdiv_rn(__fsub_rn(x, 1.5f), __fadd_rn(1.0f, __fmul_rn(1.5f, x)));
-    } else {
-      id = 3;
-      x = __fdiv_rn(-1.0f, x);
-    }
-  }
-  float z = __fmul_rn(x, x);
-  float w = __fmul_rn(z, z);
-  float s1 = __int_as_float(0x3C8569D7);
-  s1 = __fadd_rn(__int_as_float(0x3D4BDA59), __fmul_rn(w, s1));
-  s1 = __fadd_rn(__int_as_float(0x3D886B35), __fmul_rn(w, s1));
-  s1 = __fadd_rn(__int_as_float(0x3DBA2E6E), __fmul_rn(w, s1));
-  s1 = __fadd_rn(__int_as_float(0x3E124925), __fmul_rn(w, s1));
-  s1 = __fadd_rn(__int_as_float(0x3EAAAAAB), __fmul_rn(w, s1));
-  s1 = __fmul_rn(z, s1);
-  float s2 = __int_as_float(0xBD15A221);
-  s2 = __fadd_rn(__int_as_float(0xBD6EF16B), __fmul_rn(w, s2));
-  s2 = __fadd_rn(__int_as_float(0xBD9D8795), __fmul_rn(w, s2));
-  s2 = __fadd_rn(__int_as_float(0xBDE38E38), __fmul_rn(w, s2));
-  s2 = __fadd_rn(__int_as_float(0xBE4CCCCD), __fmul_rn(w, s2));
-  s2 = __fmul_rn(w, s2);
-  float t = __fmul_rn(x, __fadd_rn(s1, s2));
-  if (id < 0) return __fsub_rn(x, t);
-  z = __fsub_rn(__int_as_float(kHi[id]),
-                __fsub_rn(__fsub_rn(t, __int_as_float(kLo[id])), x));
-  return hx < 0 ? -z : z;
-}
-
-__device__ float ref_atan2(float y, float x) {
-  const float kTiny = __int_as_float(0x0DA24260);   // 1e-30
-  const float kPio4 = __int_as_float(0x3F490FDB);
-  const float kPio2 = __int_as_float(0x3FC90FDB);
-  const float kPi = __int_as_float(0x40490FDB);
-  const float kPiLo = __int_as_float(0xB3BBBD2E);
-  int hx = __float_as_int(x), hy = __float_as_int(y);
-  int ix = hx & 0x7fffffff, iy = hy & 0x7fffffff;
-  if (ix > 0x7f800000 || iy > 0x7f800000) return __fadd_rn(x, y);
-  if (hx == 0x3f800000) return ref_atanf(y);
-  int m = ((hy >> 31) & 1) | ((hx >> 30) & 2);
-  if (iy == 0) {
-    if (m < 2) return y;
-    return m == 2 ? __fadd_rn(kPi, kTiny) : __fsub_rn(-kPi, kTiny);
-  }
-  if (ix == 0) return hy < 0 ? __fsub_rn(-kPio2, kTiny) : __fadd_rn(kPio2, kTiny);
-  if (ix == 0x7f800000) {
-    if (iy == 0x7f800000) {
-      switch (m) {
-        case 0: return __fadd_rn(kPio4, kTiny);
-        case 1: return __fsub_rn(-kPio4, kTiny);
-        case 2: return __fadd_rn(__fmul_rn(3.0f, kPio4), kTiny);
-        default: return __fsub_rn(__fmul_rn(-3.0f, kPio4), kTiny);
-      }
-    }
-    switch (m) {
-      case 0: return 0.0f;
-      case 1: return -0.0f;
-      case 2: return __fadd_rn(kPi, kTiny);
-      default: return __fsub_rn(-kPi, kTiny);
-    }
-  }
-  if (iy == 0x7f800000) return hy < 0 ? __fsub_rn(-kPio2, kTiny) : __fadd_rn(kPio2, kTiny);
-  int k = (iy - ix) >> 23;
-  float z;
-  if (k > 60) {
-    z = __fadd_rn(kPio2, __fmul_rn(0.5f, kPiLo));
-  } else if (hx < 0 && k < -60) {
-    z = 0.0f;
-  } else {
-    z = ref_atanf(daz(fabsf(__fdiv_rn(daz(y), daz(x)))));
-  }
-  switch (m) {
-    case 0: return z;
-    case 1: return __int_as_float(__float_as_int(z) ^ 0x80000000);
-    case 2: return __fsub_rn(kPi, __fsub_rn(z, kPiLo));
-    default: return __fsub_rn(__fsub_rn(z, kPiLo), kPi);
-  }
-}
 
 __global__ void refmath_kernel(int op, const float* __restrict__ x,
                                const float* __restrict__ y,
@@ -358,55 +74,193 @@ __global__ void refmath_dot_kernel(const float* __restrict__ a,
   }
 }
 
-// theta - a^{-1} b for n systems theta [n, 3], a [n, 3, 3], b [n, 3]: the
-// reference's adjugate form, each p q - r t and the determinant's sums
-// fused as written, theta_i - s_i * (1 / det) one fused multiply-add; of
-// x1's and x2's sums the b1 product is fused for one system (the
-// reference's scalar code), the b0 product for a batch.
-__device__ __forceinline__ float cof(float p, float q, float r, float t) {
-  return __fmaf_rn(p, q, -__fmul_rn(r, t));
-}
-
-__device__ __forceinline__ float pair(float c0, float b0, float c1, float b1,
-                                      bool one_system) {
-  return one_system ? __fmaf_rn(c1, b1, __fmul_rn(c0, b0))
-                    : __fmaf_rn(c0, b0, __fmul_rn(c1, b1));
-}
-
+// theta - a^{-1} b for n systems theta [n, 3], a [n, 3, 3], b [n, 3]
+// (lm_update3), a thread a system.
 __global__ void refmath_lm_update_kernel(const float* __restrict__ theta,
                                          const float* __restrict__ a,
                                          const float* __restrict__ b,
                                          float* __restrict__ out, long long n,
                                          bool one_system) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const float* m = a + 9 * i;
-    const float* v = b + 3 * i;
-    const float* t = theta + 3 * i;
-    const float a00 = m[0], a01 = m[1], a02 = m[2], a10 = m[3], a11 = m[4],
-                a12 = m[5], a20 = m[6], a21 = m[7], a22 = m[8];
-    const float c00 = cof(a11, a22, a12, a21), c01 = cof(a12, a20, a10, a22),
-                c02 = cof(a10, a21, a11, a20);
-    const float det = __fmaf_rn(a02, c02, __fmaf_rn(a00, c00,
-                                                    __fmul_rn(a01, c01)));
-    const float d = fabsf(det) < 1e-30f ? (det < 0.0f ? -1e-30f : 1e-30f)
-                                        : det;
-    const float inv = __fdiv_rn(1.0f, d);
-    const float c10 = cof(a02, a21, a01, a22), c11 = cof(a00, a22, a02, a20),
-                c12 = cof(a01, a20, a00, a21);
-    const float c20 = cof(a01, a12, a02, a11), c21 = cof(a02, a10, a00, a12),
-                c22 = cof(a00, a11, a01, a10);
-    const float b0 = v[0], b1 = v[1], b2 = v[2];
-    const float s0 = __fmaf_rn(c20, b2, __fmaf_rn(c00, b0, __fmul_rn(c10, b1)));
-    const float s1 = __fmaf_rn(c21, b2, pair(c01, b0, c11, b1, one_system));
-    const float s2 = __fmaf_rn(c22, b2, pair(c02, b0, c12, b1, one_system));
-    out[3 * i] = __fmaf_rn(-inv, s0, t[0]);
-    out[3 * i + 1] = __fmaf_rn(-inv, s1, t[1]);
-    out[3 * i + 2] = __fmaf_rn(-inv, s2, t[2]);
+       i += (long long)gridDim.x * blockDim.x)
+    lm_update3(theta + 3 * i, a + 9 * i, b + 3 * i, one_system, out + 3 * i);
+}
+
+// out[c] = sum_k x[c, k] v[k] for x [rows, n], added as the reference's
+// vectorised loop adds the logistic gradient's terms (mode 0: in order;
+// 1: 8-lane chunks of ic accumulators reassociated into one chain; 2: the
+// ic accumulators summed after the loop; then a halving lane tree, an
+// epilogue of vf-lane chunks and the last terms one at a time:
+// core/refmath.py::loop_dot_shape): a thread a row.
+__device__ float lane_tree(float* a, int w) {
+  for (int h = w / 2; h >= 1; h /= 2)
+    for (int l = 0; l < h; ++l) a[l] = __fadd_rn(a[l], a[l + h]);
+  return a[0];
+}
+
+__global__ void refmath_loop_dot_kernel(const float* __restrict__ x,
+                                        const float* __restrict__ v,
+                                        float* __restrict__ out, int rows,
+                                        int n, int mode, int ic, int vf) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= rows) return;
+  const float* xr = x + (long long)c * n;
+  float s = 0.0f;
+  int done = 0;
+  if (mode != 0) {
+    const int passes = (n - 1) / (8 * ic);
+    float acc[8];
+    for (int l = 0; l < 8; ++l) acc[l] = 0.0f;
+    for (int j = 0; j < ic; ++j) {
+      float a[8];
+      for (int l = 0; l < 8; ++l) a[l] = mode == 1 ? acc[l] : 0.0f;
+      for (int t = 0; t < passes; ++t) {
+        // unrolled: the second chunk of each later accumulator first
+        const int i = (mode == 1 && j > 0 && t < 2 && passes >= 2) ? 1 - t
+                                                                   : t;
+        const int at = 8 * (ic * i + j);
+#pragma unroll
+        for (int l = 0; l < 8; ++l)
+          a[l] = __fmaf_rn(xr[at + l], v[at + l], a[l]);
+      }
+      for (int l = 0; l < 8; ++l)
+        acc[l] = (mode == 1 || j == 0) ? a[l] : __fadd_rn(acc[l], a[l]);
+    }
+    s = lane_tree(acc, 8);
+    done = 8 * ic * passes;
+    const int m = vf > 0 && n > done ? (n - done - 1) / vf : 0;
+    if (m > 0) {
+      float e[8];
+      e[0] = s;
+      for (int l = 1; l < 8; ++l) e[l] = 0.0f;
+      for (int i = 0; i < m; ++i)
+        for (int l = 0; l < vf; ++l)
+          e[l] = __fmaf_rn(xr[done + vf * i + l], v[done + vf * i + l], e[l]);
+      s = lane_tree(e, vf);
+      done += vf * m;
+    }
+  }
+  for (int k = done; k < n; ++k) s = __fmaf_rn(xr[k], v[k], s);
+  out[c] = s;
+}
+
+// h^{-1} g for n systems h [n, k, k], g [n, k], k <= 7, rounded as the
+// reference's OpenBLAS sgetrf (unblocked, left-looking) and strsm on the
+// unit lower and the upper factor (core/refmath.py::lu_solve), a thread a
+// system.
+constexpr int kLuMax = 7;
+
+// sdot of x (stride 1 here) and y: pairs fma(x0, y0, x1 * y1) added into a
+// double from zero, an odd last product alone, rounded to float once.
+__device__ float lu_strided_dot(const float* x, const float* y, int n) {
+  double acc = 0.0;
+  int p = 0;
+  for (; p + 1 < n; p += 2)
+    acc = __dadd_rn(acc, (double)__fmaf_rn(x[p], y[p],
+                                           __fmul_rn(x[p + 1], y[p + 1])));
+  if (n & 1) acc = __dadd_rn(acc, (double)__fmul_rn(x[n - 1], y[n - 1]));
+  return __double2float_rn(acc);
+}
+
+// y - sum_c a[c] x[c], the sum one fused multiply-add a term from zero.
+__device__ float lu_chain(float y, const float* a, const float* x, int from,
+                          int to) {
+  float acc = 0.0f;
+  for (int c = from; c < to; ++c) acc = __fmaf_rn(a[c], x[c], acc);
+  return __fsub_rn(y, acc);
+}
+
+__global__ void refmath_lu_solve_kernel(const float* __restrict__ h,
+                                        const float* __restrict__ g,
+                                        float* __restrict__ out, long long n,
+                                        int k) {
+  for (long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x; s < n;
+       s += (long long)gridDim.x * blockDim.x) {
+    float a[kLuMax][kLuMax], col[kLuMax], x[kLuMax];
+    int piv[kLuMax];
+    for (int r = 0; r < k; ++r)
+      for (int c = 0; c < k; ++c) a[r][c] = h[(s * k + r) * k + c];
+    for (int j = 0; j < k; ++j) {
+      for (int r = 0; r < k; ++r) col[r] = a[r][j];
+      for (int q = 0; q < j; ++q) {
+        const float t = col[q];
+        col[q] = col[piv[q]];
+        col[piv[q]] = t;
+      }
+      for (int q = 1; q < j; ++q)
+        col[q] = __fsub_rn(col[q], lu_strided_dot(a[q], col, q));
+      for (int r = j; r < k; ++r) col[r] = lu_chain(col[r], a[r], col, 0, j);
+      for (int r = 0; r < k; ++r) a[r][j] = col[r];
+      // the first largest magnitude (a NaN above every number)
+      int p = j;
+      float best = fabsf(col[j]);
+      for (int r = j + 1; r < k; ++r) {
+        const float v = fabsf(col[r]);
+        if (v > best || (isnan(v) && !isnan(best))) {
+          best = v;
+          p = r;
+        }
+      }
+      piv[j] = p;
+      const float t = col[p];
+      if (t != 0.0f && fabsf(t) >= 1.17549435e-38f) {
+        for (int c = 0; c <= j; ++c) {
+          const float u = a[j][c];
+          a[j][c] = a[p][c];
+          a[p][c] = u;
+        }
+        const float rcp = __fdiv_rn(1.0f, t);
+        for (int q = j + 1; q < k; ++q) a[q][j] = __fmul_rn(a[q][j], rcp);
+      }
+    }
+    for (int q = 0; q < k; ++q) x[q] = g[s * k + q];
+    for (int q = 0; q < k; ++q) {
+      const float t = x[q];
+      x[q] = x[piv[q]];
+      x[piv[q]] = t;
+    }
+    int lo[3], hi[3], nb = 0, r0 = 0;
+    for (int w = 4; w >= 1; w /= 2)
+      if (k & w) {
+        lo[nb] = r0;
+        hi[nb++] = r0 + w;
+        r0 += w;
+      }
+    for (int b = 0; b < nb; ++b) {  // the unit lower factor, from the top
+      for (int r = lo[b]; r < hi[b]; ++r)
+        x[r] = lu_chain(x[r], a[r], x, 0, lo[b]);
+      for (int i = lo[b]; i < hi[b]; ++i)
+        for (int q = i + 1; q < hi[b]; ++q)
+          x[q] = __fmaf_rn(-x[i], a[q][i], x[q]);
+    }
+    for (int b = nb - 1; b >= 0; --b) {  // the upper factor, from the bottom
+      for (int r = lo[b]; r < hi[b]; ++r)
+        x[r] = lu_chain(x[r], a[r], x, hi[b], k);
+      for (int i = hi[b] - 1; i >= lo[b]; --i) {
+        x[i] = __fmul_rn(x[i], __fdiv_rn(1.0f, a[i][i]));
+        for (int q = lo[b]; q < i; ++q)
+          x[q] = __fmaf_rn(-x[i], a[q][i], x[q]);
+      }
+    }
+    for (int q = 0; q < k; ++q) out[s * k + q] = x[q];
   }
 }
 
 }  // namespace
+
+// out [n, k] = h^{-1} g for h [n, k, k], g [n, k], k <= 7, as above.
+extern "C" int refmath_lu_solve_launch(const void* h, const void* g, void* out,
+                                       long long n, int k, void* stream) {
+  if (n <= 0) return 0;
+  if (k < 1 || k > kLuMax) return (int)cudaErrorInvalidValue;
+  const int threads = 64;
+  long long blocks = (n + threads - 1) / threads;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  refmath_lu_solve_kernel<<<(unsigned)blocks, threads, 0,
+                            (cudaStream_t)stream>>>(
+      (const float*)h, (const float*)g, (float*)out, n, k);
+  return (int)cudaGetLastError();
+}
 
 // out [n, 3] = theta - a^{-1} b for theta [n, 3], a [n, 3, 3], b [n, 3], as
 // above.
@@ -421,6 +275,18 @@ extern "C" int refmath_lm_update_launch(const void* theta, const void* a,
                              (cudaStream_t)stream>>>(
       (const float*)theta, (const float*)a, (const float*)b, (float*)out, n,
       one_system != 0);
+  return (int)cudaGetLastError();
+}
+
+// out [rows] = x [rows, n] . v [n] in the reference's loop's order (above).
+extern "C" int refmath_loop_dot_launch(const void* x, const void* v, void* out,
+                                       int rows, int n, int mode, int ic,
+                                       int vf, void* stream) {
+  if (rows <= 0) return 0;
+  const int threads = 64;
+  refmath_loop_dot_kernel<<<(rows + threads - 1) / threads, threads, 0,
+                            (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)v, (float*)out, rows, n, mode, ic, vf);
   return (int)cudaGetLastError();
 }
 

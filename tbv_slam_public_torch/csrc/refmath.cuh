@@ -1,0 +1,349 @@
+// The reference's float32 math as CUDA device functions, shared by the
+// refmath kernel (refmath.cu) and the LM-solve kernel (lm_solve.cu).
+//
+// XLA's inline float32 exp, log and log1p, glibc 2.36's sinf / cosf /
+// sincosf (FMA variant) and atan2f, the IEEE square root and the LM step
+// theta - H^{-1} g in the reference's closed form.  Every multiply, add and
+// fused multiply-add is an explicit __f*_rn / __d*_rn / __fma*_rn
+// intrinsic, so nvcc's contraction (on by default) changes no rounding.
+// The reference's threads flush subnormals (DAZ and FTZ); daz() reproduces
+// that where it shows in a result.  What the reference does at each site,
+// and how that was read from its compiled program, is the table in
+// tbv_slam_public_torch/core/refmath.py, whose plain PyTorch versions run
+// the same steps on the CPU.  Everything here is file-local to each
+// translation unit that includes it (an unnamed namespace).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kMinNorm = 1.17549435082228750797e-38f;  // 2^-126
+
+__device__ __forceinline__ float daz(float x) {
+  return fabsf(x) < kMinNorm ? __fmul_rn(x, 0.0f) : x;
+}
+
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  x = (x >= lo || isnan(x)) ? x : lo;
+  return (x <= hi || isnan(x)) ? x : hi;
+}
+
+// ---- XLA's exp (Eigen pexp) ---------------------------------------------
+__device__ float ref_exp(float x) {
+  const float kC1 = 0.693359375f;
+  const float kC2 = __int_as_float(0xB95E8083);
+  x = clamp_nan(daz(x), __int_as_float(0xC2AF999A), __int_as_float(0x42B1999A));
+  float fx = floorf(__fmaf_rn(x, __int_as_float(0x3FB8AA3B), 0.5f));
+  fx = clamp_nan(fx, -127.0f, 127.0f);
+  float r = __fsub_rn(x, __fmul_rn(fx, kC1));
+  r = __fmaf_rn(-fx, kC2, r);
+  float y = __fmaf_rn(r, __int_as_float(0x39506967), __int_as_float(0x3AB743CE));
+  y = __fmaf_rn(y, r, __int_as_float(0x3C088908));
+  y = __fmaf_rn(y, r, __int_as_float(0x3D2AA9C1));
+  y = __fmaf_rn(y, r, __int_as_float(0x3E2AAAAA));
+  y = __fmaf_rn(y, r, 0.5f);
+  y = __fmaf_rn(y, __fmul_rn(r, r), r);
+  y = __fadd_rn(y, 1.0f);
+  int n = isnan(fx) ? 0 : __float2int_rz(fx);
+  return daz(__fmul_rn(y, __int_as_float((n + 127) << 23)));
+}
+
+__device__ float ref_sigmoid(float x) {
+  return daz(__fdiv_rn(1.0f, __fadd_rn(ref_exp(-x), 1.0f)));
+}
+
+// ---- XLA's log (Eigen plog) ---------------------------------------------
+__device__ float log_core(float x) {
+  const float kC1 = 0.693359375f;
+  const float kC2 = __int_as_float(0xB95E8083);
+  bool invalid = !(x > 0.0f), zero = x == 0.0f, inf = x == INFINITY;
+  float xc = x > kMinNorm ? x : kMinNorm;
+  int bx = __float_as_int(xc);
+  float e = __fadd_rn((float)(((bx >> 23) & 0x1FF) - 127), 1.0f);
+  float m = __int_as_float((bx & 0x807FFFFF) | 0x3F000000);
+  bool small = m < __int_as_float(0x3F3504F3);
+  float tmp = small ? m : 0.0f;
+  float x1 = __fsub_rn(m, 1.0f);
+  e = __fsub_rn(e, small ? 1.0f : 0.0f);
+  float v = __fadd_rn(x1, tmp);
+  float x2 = __fmul_rn(v, v);
+  float x3 = __fmul_rn(x2, v);
+  float y = __fmaf_rn(v, __int_as_float(0x3D9021BB), __int_as_float(0xBDEBD1B8));
+  float y1 = __fmaf_rn(v, __int_as_float(0xBDFE5D4F), __int_as_float(0x3E11E9BF));
+  float y2 = __fmaf_rn(v, __int_as_float(0x3E4CCEAC), __int_as_float(0xBE7FFFFC));
+  y = __fmaf_rn(y, v, __int_as_float(0x3DEF251A));
+  y1 = __fmaf_rn(y1, v, __int_as_float(0xBE2AAE50));
+  y2 = __fmaf_rn(y2, v, __int_as_float(0x3EAAAAAA));
+  y = __fmaf_rn(y, x3, y1);
+  y = __fmaf_rn(y, x3, y2);
+  y = __fmaf_rn(y, x3, __fmul_rn(e, kC2));
+  y = __fadd_rn(__fsub_rn(v, __fmul_rn(0.5f, x2)), y);
+  y = __fadd_rn(y, __fmul_rn(e, kC1));
+  if (invalid) y = NAN;
+  if (zero) y = -INFINITY;
+  if (inf) y = INFINITY;
+  return y;
+}
+
+__device__ float ref_log(float x) { return log_core(daz(x)); }
+
+__device__ float ref_log1p(float x) {
+  x = daz(x);
+  if (!(fabsf(x) < __int_as_float(0x3ED413CD)))
+    return log_core(__fadd_rn(x, 1.0f));
+  const int kQ[6] = {0x417101AD, 0x42A6185B, 0x435DC32D, 0x439A8CA3,
+                     0x43586D8A, 0x42707982};
+  const int kP[7] = {0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C,
+                     0x4273CC76, 0x426473AD, 0x41A05101};
+  float x2 = __fmul_rn(x, x);
+  float z0 = __fmul_rn(x, 0.0f);
+  float q = __fadd_rn(z0, 1.0f);
+  for (int i = 0; i < 6; ++i) q = __fmaf_rn(q, x, __int_as_float(kQ[i]));
+  float p = __fadd_rn(z0, __int_as_float(kP[0]));
+  for (int i = 1; i < 7; ++i) p = __fmaf_rn(p, x, __int_as_float(kP[i]));
+  float r = __fmul_rn(__fmul_rn(x, x2), __fdiv_rn(p, q));
+  return __fadd_rn(x, __fmaf_rn(x2, -0.5f, r));
+}
+
+// ---- glibc 2.36 sinf / cosf / sincosf, FMA variant ----------------------
+// __sincosf_table[0]: sign[4], hpi_inv (2/pi * 2^24), hpi, then
+// c0, c1, s1, c2, s2, c3, s3, c4; table[1] negates the c's.
+__constant__ double kSign[4] = {1.0, -1.0, -1.0, 1.0};
+__constant__ uint32_t kInvPio4[24] = {
+    0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44, 0x6e4e4415,
+    0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757, 0xfc2757d1, 0x2757d1f5,
+    0x57d1f534, 0xd1f534dd, 0xf534ddc0, 0x34ddc0db, 0xddc0db62, 0xc0db6295,
+    0xdb629599, 0x6295993c, 0x95993c43, 0x993c4390, 0x3c439041};
+
+__device__ __forceinline__ double hexd(unsigned long long b) {
+  return __longlong_as_double((long long)b);
+}
+
+__device__ float sin_poly(double xs, double x2) {
+  const double s1 = hexd(0xBFC555545995A603ull);  // -0x1.555545995a603p-3
+  const double s2 = hexd(0x3F81107605230BC4ull);  // 0x1.1107605230bc4p-7
+  const double s3 = hexd(0xBF2994EB3774CF24ull);  // -0x1.994eb3774cf24p-13
+  double x3 = __dmul_rn(x2, xs);
+  double p = __fma_rn(x2, s3, s2);
+  double x7 = __dmul_rn(x2, x3);
+  double s = __fma_rn(x3, s1, xs);
+  return __double2float_rn(__fma_rn(p, x7, s));
+}
+
+__device__ float cos_poly(double x2, bool neg) {
+  const unsigned long long s = neg ? 0x8000000000000000ull : 0ull;
+  const double c0 = hexd(0x3FF0000000000000ull ^ s);
+  const double c1 = hexd(0xBFDFFFFFFD0C621Cull ^ s);  // -0x1.ffffffd0c621cp-2
+  const double c2 = hexd(0x3FA55553E1068F19ull ^ s);  // 0x1.55553e1068f19p-5
+  const double c3 = hexd(0xBF56C087E89A359Dull ^ s);  // -0x1.6c087e89a359dp-10
+  const double c4 = hexd(0x3EF99343027BF8C3ull ^ s);  // 0x1.99343027bf8c3p-16
+  double x4 = __dmul_rn(x2, x2);
+  double c1p = __fma_rn(x2, c1, c0);
+  double c2p = __fma_rn(x2, c4, c3);
+  double x6 = __dmul_rn(x2, x4);
+  double c = __fma_rn(x4, c2, c1p);
+  return __double2float_rn(__fma_rn(c2p, x6, c));
+}
+
+// sin and cos of y, as __sinf_fma / __cosf_fma return them.
+__device__ void ref_sincos(float y, float* sp, float* cp) {
+  uint32_t bits = __float_as_uint(y);
+  uint32_t top = (bits >> 20) & 0x7ff;
+  double x = (double)y;
+  if (top < (0x3F490FDBu >> 20)) {  // |y| < pi/4
+    if (top < (0x39800000u >> 20)) {  // |y| < 2^-12
+      *sp = y;
+      *cp = 1.0f;
+      return;
+    }
+    double x2 = __dmul_rn(x, x);
+    *sp = sin_poly(x, x2);
+    *cp = cos_poly(x2, false);
+    return;
+  }
+  if (top >= 0x7f8) {  // inf or nan
+    *sp = *cp = NAN;
+    return;
+  }
+  int n, q;
+  double r;
+  if (top < (0x42F00000u >> 20)) {  // |y| < 120
+    const double hpi_inv = hexd(0x41645F306DC9C883ull);  // 0x1.45f306dc9c883p+23
+    const double hpi = hexd(0x3FF921FB54442D18ull);
+    n = (__double2int_rz(__dmul_rn(x, hpi_inv)) + 0x800000) >> 24;
+    r = __fma_rn(-(double)n, hpi, x);
+    q = n;
+  } else {  // glibc's reduce_large
+    const uint32_t* arr = &kInvPio4[(bits >> 26) & 15];
+    int shift = (bits >> 23) & 7;
+    uint32_t xi = ((bits & 0xffffff) | 0x800000) << shift;
+    uint64_t res0 = xi * arr[0];
+    uint64_t res1 = (uint64_t)xi * arr[4];
+    uint64_t res2 = (uint64_t)xi * arr[8];
+    res0 = (res2 >> 32) | (res0 << 32);
+    res0 += res1;
+    uint64_t nn = (res0 + (1ULL << 61)) >> 62;
+    res0 -= nn << 62;
+    n = (int)nn;
+    r = __dmul_rn(__ll2double_rn((long long)res0),
+                  hexd(0x3C1921FB54442D18ull));  // pi * 2^-63
+    q = n + (int)(bits >> 31);
+  }
+  double x2 = __dmul_rn(r, r);
+  bool neg = (q & 2) != 0;
+  float s = sin_poly(__dmul_rn(r, kSign[q & 3]), x2);
+  float c = cos_poly(x2, neg);
+  bool odd = n & 1;
+  *sp = odd ? c : s;
+  *cp = odd ? s : c;
+}
+
+// ---- glibc atanf / atan2f (fdlibm's float algorithm, no FMA) ------------
+__device__ float ref_atanf(float x) {
+  const int kHi[4] = {0x3EED6338, 0x3F490FDA, 0x3F7B985E, 0x3FC90FDA};
+  const int kLo[4] = {0x31AC3769, 0x33222168, 0x33140FB4, 0x33A22168};
+  int hx = __float_as_int(x);
+  int ix = hx & 0x7fffffff;
+  if (ix >= 0x4c000000) {
+    if (ix > 0x7f800000) return __fadd_rn(x, x);
+    float big = __fadd_rn(__int_as_float(kHi[3]), __int_as_float(kLo[3]));
+    return hx > 0 ? big : -big;
+  }
+  int id;
+  if (ix < 0x3ee00000) {
+    if (ix < 0x31000000) return x;
+    id = -1;
+  } else {
+    x = fabsf(x);
+    if (ix < 0x3f980000) {
+      if (ix < 0x3f300000) {
+        id = 0;
+        x = __fdiv_rn(__fsub_rn(__fadd_rn(x, x), 1.0f), __fadd_rn(2.0f, x));
+      } else {
+        id = 1;
+        x = __fdiv_rn(__fsub_rn(x, 1.0f), __fadd_rn(x, 1.0f));
+      }
+    } else if (ix < 0x401c0000) {
+      id = 2;
+      x = __fdiv_rn(__fsub_rn(x, 1.5f), __fadd_rn(1.0f, __fmul_rn(1.5f, x)));
+    } else {
+      id = 3;
+      x = __fdiv_rn(-1.0f, x);
+    }
+  }
+  float z = __fmul_rn(x, x);
+  float w = __fmul_rn(z, z);
+  float s1 = __int_as_float(0x3C8569D7);
+  s1 = __fadd_rn(__int_as_float(0x3D4BDA59), __fmul_rn(w, s1));
+  s1 = __fadd_rn(__int_as_float(0x3D886B35), __fmul_rn(w, s1));
+  s1 = __fadd_rn(__int_as_float(0x3DBA2E6E), __fmul_rn(w, s1));
+  s1 = __fadd_rn(__int_as_float(0x3E124925), __fmul_rn(w, s1));
+  s1 = __fadd_rn(__int_as_float(0x3EAAAAAB), __fmul_rn(w, s1));
+  s1 = __fmul_rn(z, s1);
+  float s2 = __int_as_float(0xBD15A221);
+  s2 = __fadd_rn(__int_as_float(0xBD6EF16B), __fmul_rn(w, s2));
+  s2 = __fadd_rn(__int_as_float(0xBD9D8795), __fmul_rn(w, s2));
+  s2 = __fadd_rn(__int_as_float(0xBDE38E38), __fmul_rn(w, s2));
+  s2 = __fadd_rn(__int_as_float(0xBE4CCCCD), __fmul_rn(w, s2));
+  s2 = __fmul_rn(w, s2);
+  float t = __fmul_rn(x, __fadd_rn(s1, s2));
+  if (id < 0) return __fsub_rn(x, t);
+  z = __fsub_rn(__int_as_float(kHi[id]),
+                __fsub_rn(__fsub_rn(t, __int_as_float(kLo[id])), x));
+  return hx < 0 ? -z : z;
+}
+
+__device__ float ref_atan2(float y, float x) {
+  const float kTiny = __int_as_float(0x0DA24260);   // 1e-30
+  const float kPio4 = __int_as_float(0x3F490FDB);
+  const float kPio2 = __int_as_float(0x3FC90FDB);
+  const float kPi = __int_as_float(0x40490FDB);
+  const float kPiLo = __int_as_float(0xB3BBBD2E);
+  int hx = __float_as_int(x), hy = __float_as_int(y);
+  int ix = hx & 0x7fffffff, iy = hy & 0x7fffffff;
+  if (ix > 0x7f800000 || iy > 0x7f800000) return __fadd_rn(x, y);
+  if (hx == 0x3f800000) return ref_atanf(y);
+  int m = ((hy >> 31) & 1) | ((hx >> 30) & 2);
+  if (iy == 0) {
+    if (m < 2) return y;
+    return m == 2 ? __fadd_rn(kPi, kTiny) : __fsub_rn(-kPi, kTiny);
+  }
+  if (ix == 0) return hy < 0 ? __fsub_rn(-kPio2, kTiny) : __fadd_rn(kPio2, kTiny);
+  if (ix == 0x7f800000) {
+    if (iy == 0x7f800000) {
+      switch (m) {
+        case 0: return __fadd_rn(kPio4, kTiny);
+        case 1: return __fsub_rn(-kPio4, kTiny);
+        case 2: return __fadd_rn(__fmul_rn(3.0f, kPio4), kTiny);
+        default: return __fsub_rn(__fmul_rn(-3.0f, kPio4), kTiny);
+      }
+    }
+    switch (m) {
+      case 0: return 0.0f;
+      case 1: return -0.0f;
+      case 2: return __fadd_rn(kPi, kTiny);
+      default: return __fsub_rn(-kPi, kTiny);
+    }
+  }
+  if (iy == 0x7f800000) return hy < 0 ? __fsub_rn(-kPio2, kTiny) : __fadd_rn(kPio2, kTiny);
+  int k = (iy - ix) >> 23;
+  float z;
+  if (k > 60) {
+    z = __fadd_rn(kPio2, __fmul_rn(0.5f, kPiLo));
+  } else if (hx < 0 && k < -60) {
+    z = 0.0f;
+  } else {
+    z = ref_atanf(daz(fabsf(__fdiv_rn(daz(y), daz(x)))));
+  }
+  switch (m) {
+    case 0: return z;
+    case 1: return __int_as_float(__float_as_int(z) ^ 0x80000000);
+    case 2: return __fsub_rn(kPi, __fsub_rn(z, kPiLo));
+    default: return __fsub_rn(__fsub_rn(z, kPiLo), kPi);
+  }
+}
+
+// theta - a^{-1} b for one system (a row-major 3x3): the reference's
+// adjugate form (_solve3x3), each p q - r t and the determinant's sums
+// fused as written, theta_i - s_i * (1 / det) one fused multiply-add; of
+// x1's and x2's sums the b1 product is fused for one system (the
+// reference's scalar code), the b0 product for a batch.
+__device__ __forceinline__ float cof(float p, float q, float r, float t) {
+  return __fmaf_rn(p, q, -__fmul_rn(r, t));
+}
+
+__device__ __forceinline__ float pair(float c0, float b0, float c1, float b1,
+                                      bool one_system) {
+  return one_system ? __fmaf_rn(c1, b1, __fmul_rn(c0, b0))
+                    : __fmaf_rn(c0, b0, __fmul_rn(c1, b1));
+}
+
+__device__ __forceinline__ void lm_update3(const float* t, const float* m,
+                                           const float* v, bool one_system,
+                                           float* out) {
+  const float a00 = m[0], a01 = m[1], a02 = m[2], a10 = m[3], a11 = m[4],
+              a12 = m[5], a20 = m[6], a21 = m[7], a22 = m[8];
+  const float c00 = cof(a11, a22, a12, a21), c01 = cof(a12, a20, a10, a22),
+              c02 = cof(a10, a21, a11, a20);
+  const float det = __fmaf_rn(a02, c02, __fmaf_rn(a00, c00,
+                                                  __fmul_rn(a01, c01)));
+  const float d = fabsf(det) < 1e-30f ? (det < 0.0f ? -1e-30f : 1e-30f)
+                                      : det;
+  const float inv = __fdiv_rn(1.0f, d);
+  const float c10 = cof(a02, a21, a01, a22), c11 = cof(a00, a22, a02, a20),
+              c12 = cof(a01, a20, a00, a21);
+  const float c20 = cof(a01, a12, a02, a11), c21 = cof(a02, a10, a00, a12),
+              c22 = cof(a00, a11, a01, a10);
+  const float b0 = v[0], b1 = v[1], b2 = v[2];
+  const float s0 = __fmaf_rn(c20, b2, __fmaf_rn(c00, b0, __fmul_rn(c10, b1)));
+  const float s1 = __fmaf_rn(c21, b2, pair(c01, b0, c11, b1, one_system));
+  const float s2 = __fmaf_rn(c22, b2, pair(c02, b0, c12, b1, one_system));
+  out[0] = __fmaf_rn(-inv, s0, t[0]);
+  out[1] = __fmaf_rn(-inv, s1, t[1]);
+  out[2] = __fmaf_rn(-inv, s2, t[2]);
+}
+
+}  // namespace

@@ -3,7 +3,8 @@
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package (one
 process per source, all started together; ``-gencode
 arch=compute_90a,code=sm_90a``) and links them into one shared library with
-a plain C interface, placed under ``build/tbv_torch_kernels/`` at the
+a plain C interface (the ``csrc/*.cuh`` headers they include count
+toward its name), placed under ``build/tbv_torch_kernels/`` at the
 repository root and named by a hash of the sources and flags, and loads it
 with ``ctypes``.  A failed build raises; nothing falls back.
 """
@@ -46,8 +47,9 @@ def library() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sources + headers:
         with open(s, "rb") as f:
             h.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -95,6 +97,20 @@ def library() -> ctypes.CDLL:
     lib.refmath_dot_launch.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.refmath_dot_launch.restype = ctypes.c_int
+    # x, v, out, rows, n, mode, interleave, epilogue width, stream
+    lib.refmath_loop_dot_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.refmath_loop_dot_launch.restype = ctypes.c_int
+    # h, g, out, n, k, stream
+    lib.refmath_lu_solve_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.refmath_lu_solve_launch.restype = ctypes.c_int
+    # 10 inputs, 3 outputs, rows, T, C, cost, loss, k0..k3, max_iter,
+    # init_lambda, one_system, stream
+    lib.lm_solve_launch.argtypes = [ctypes.c_void_p] * 13 + \
+        [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [
+            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.lm_solve_launch.restype = ctypes.c_int
     BUILD_INFO.update(path=path, seconds=time.perf_counter() - t0,
                       ptxas=report)
     _LIB = lib

@@ -1,7 +1,8 @@
 """Inputs that hold the hand kernels to their plain versions, shared by
 ``chip_smoke.py`` and the tests: the value ranges of each refmath op, its
-special values, a bit-for-bit comparison, and CorAl clouds whose
-neighbours lie within an ulp of the radius gate.
+special values, a bit-for-bit comparison, CorAl clouds whose neighbours
+lie within an ulp of the radius gate, the logistic fit's Newton systems
+and LM-solve problems.
 """
 from __future__ import annotations
 
@@ -64,3 +65,62 @@ def on_gate_clouds(rng, m: int, n: int, r: float):
     if split.sum() < m * n // 8:
         raise RuntimeError(f"only {split.sum()} of {m * n} slots split")
     return q, p
+
+
+def lu_systems(rng, n: int, k: int):
+    """n float32 systems (h [n, k, k], g [n, k]) for ``refmath.lu_solve``:
+    a third the logistic fit's Newton matrices (xb^T diag(r) xb over 52
+    rows of widely scaled features, plus the ridge and 1e-8 I), a third
+    general matrices that pivot, a third general with a zero column (a
+    zero pivot: the factor stays unswapped and unscaled)."""
+    xb = (rng.normal(size=(n, 52, k)) * np.exp(rng.uniform(-3, 3, (n, 1, k)))
+          ).astype(np.float32)
+    r = np.exp(rng.uniform(-8, 0, (n, 52, 1))).astype(np.float32)
+    h = (np.einsum("nri,nrj->nij", xb * r, xb) + np.diag(
+        np.r_[0.0, np.ones(k - 1)]) + 1e-8 * np.eye(k)).astype(np.float32)
+    general = rng.normal(size=(n, k, k)).astype(np.float32)
+    h[n // 3:] = general[n // 3:]
+    h[2 * n // 3:, :, rng.integers(0, k)] = 0.0
+    g = (10.0 * rng.normal(size=(n, k))).astype(np.float32)
+    return h, g
+
+
+def _rot(a):
+    c, s = np.cos(a), np.sin(a)
+    return np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)
+
+
+def lm_problem(rng, b: int, t: int, c: int, cost: str, with_prior: bool):
+    """B rows of T x C associations for the LM solve, float32 numpy:
+    (theta0 [B, 3], source means [B, C, 2], target means and unit normals
+    [B, T, C, 2], weights [B, T, C] (zero where masked), mask [B, T, C]
+    (85 % set), P2D sqrt-information [B, T, C, 2, 2] or None, prior (guess
+    [B, 3], sqrt_info [3, 3], weight [B]) or None).  The targets are the
+    source cells moved by a pose within 0.3 m and 0.02 rad of theta0, with
+    5 cm of noise."""
+    f32 = np.float32
+    theta0 = np.stack([rng.uniform(-0.5, 0.5, b), rng.uniform(-0.5, 0.5, b),
+                       rng.uniform(-0.05, 0.05, b)], -1).astype(f32)
+    true = theta0 + np.stack([rng.uniform(-0.3, 0.3, b),
+                              rng.uniform(-0.3, 0.3, b),
+                              rng.uniform(-0.02, 0.02, b)], -1)
+    src = rng.uniform(-30, 30, (b, c, 2)).astype(f32)
+    world = np.einsum("bij,bcj->bci", _rot(true[:, 2]), src) + \
+        true[:, None, :2]
+    tm = (world[:, None] + rng.normal(0, 0.05, (b, t, c, 2))).astype(f32)
+    ang = rng.uniform(0, 2 * np.pi, (b, t, c))
+    tn = np.stack([np.cos(ang), np.sin(ang)], -1).astype(f32)
+    mask = rng.uniform(size=(b, t, c)) < 0.85
+    weight = np.where(mask, rng.uniform(0.2, 2.5, (b, t, c)), 0.0).astype(f32)
+    si = None
+    if cost == "P2D":
+        si = np.zeros((b, t, c, 2, 2), f32)
+        si[..., 0, 0] = rng.uniform(0.5, 3.0, (b, t, c))
+        si[..., 1, 1] = rng.uniform(0.5, 3.0, (b, t, c))
+        si[..., 0, 1] = rng.uniform(-0.4, 0.4, (b, t, c))
+    prior = None
+    if with_prior:
+        s = np.diag([10.0, 10.0, 31.6]) + rng.uniform(-1, 1, (3, 3))
+        prior = ((true + rng.normal(0, 0.02, (b, 3))).astype(f32),
+                 s.astype(f32), np.sqrt(mask.sum((1, 2))).astype(f32))
+    return theta0, src, tm, tn, weight, mask, si, prior

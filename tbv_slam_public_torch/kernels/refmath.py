@@ -4,9 +4,13 @@ The kernel is ``csrc/refmath.cu``: one elementwise launch per call, which
 runs XLA's inline exp / log / log1p, the C library's sinf / cosf / sincosf
 / atan2f, the IEEE square root and the fused multiply-add with the
 reference's operations and roundings; ``dot``, the small matrix product
-whose terms the reference adds one at a time; and ``lm_update``, the LM
-step theta - H^{-1} g.  The plain versions are ``core/refmath.py``.  What the reference computes at each
-site, and how that was read from its compiled program, is the table in
+whose terms the reference adds one at a time; ``loop_dot``, the logistic
+gradient's sum in the order of the reference's vectorised loop; and
+``lm_update``, the LM step theta - H^{-1} g; ``lu_solve``, the logistic
+fit's Newton step as the reference's LAPACK and BLAS routines round it.
+The plain versions are
+``core/refmath.py``.  What the reference computes at each site, and how
+that was read from its compiled program, is the table in
 ``core/refmath.py``.
 
 Dispatch is by tensor device: a CPU tensor takes the plain version; a CUDA
@@ -33,7 +37,8 @@ _PLAIN = {"exp": plain.exp, "log": plain.log, "log1p": plain.log1p,
           "sigmoid": plain.sigmoid, "sincos": plain.sincos,
           "atan2": plain.atan2, "wrap_angle": plain.wrap_angle,
           "fma": plain.fma, "sqrt": plain.sqrt, "dot": plain.dot,
-          "lm_update": plain.lm_update}
+          "loop_dot": plain.loop_dot, "lm_update": plain.lm_update,
+          "lu_solve": plain.lu_solve}
 
 
 _ENTRIES: dict = {}
@@ -90,6 +95,22 @@ def _dot(op: str, a: torch.Tensor, b: torch.Tensor):
              b2.shape[0], a2.shape[1]), out.numel())
 
 
+_LOOP_MODES = {"in_order": 0, "unrolled": 1, "loop": 2}
+
+
+def _loop_dot(op: str, x: torch.Tensor, v: torch.Tensor):
+    if x.dim() != 2 or v.shape != x.shape[1:]:
+        raise ValueError(f"refmath.loop_dot: shapes {tuple(x.shape)}, "
+                         f"{tuple(v.shape)}")
+    rows, n = x.shape
+    mode, ic, vf = plain.loop_dot_shape(n)
+    x, v = x.contiguous(), v.contiguous()
+    out = torch.empty(rows, dtype=x.dtype, device=x.device)
+    return (out, "refmath_loop_dot_launch",
+            (x.data_ptr(), v.data_ptr(), out.data_ptr(), rows, n,
+             _LOOP_MODES[mode], ic, vf), rows)
+
+
 def _lm_update(op: str, theta: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor, one_system: bool = False):
     if a.shape[-2:] != (3, 3) or b.shape != a.shape[:-1] or \
@@ -105,8 +126,23 @@ def _lm_update(op: str, theta: torch.Tensor, a: torch.Tensor,
              t2.shape[0], int(one_system)), out.numel())
 
 
+def _lu_solve(op: str, h: torch.Tensor, g: torch.Tensor):
+    k = h.shape[-1]
+    if h.shape[-2:] != (k, k) or g.shape != h.shape[:-1] or \
+            not 1 <= k <= plain.LU_SOLVE_MAX_K:
+        raise ValueError(f"refmath.lu_solve: shapes {tuple(h.shape)}, "
+                         f"{tuple(g.shape)} (K <= {plain.LU_SOLVE_MAX_K})")
+    h2 = h.reshape(-1, k, k).contiguous()
+    g2 = g.reshape(-1, k).contiguous()
+    out = torch.empty_like(g2)
+    return (out.reshape(g.shape), "refmath_lu_solve_launch",
+            (h2.data_ptr(), g2.data_ptr(), out.data_ptr(), g2.shape[0], k),
+            out.numel())
+
+
 _KERNEL_ARGS = dict.fromkeys(OPS, _elementwise)
-_KERNEL_ARGS.update(dot=_dot, lm_update=_lm_update)
+_KERNEL_ARGS.update(dot=_dot, loop_dot=_loop_dot, lm_update=_lm_update,
+                    lu_solve=_lu_solve)
 
 
 def _call(op: str, *ts: torch.Tensor, **options):
@@ -187,9 +223,23 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _call("dot", a, b)
 
 
+def loop_dot(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """out[c] = sum_k x[c, k] v[k] for x [K, n], v [n], added in the order
+    of the reference's vectorised loop (``core/refmath.py::loop_dot``), one
+    launch."""
+    return _call("loop_dot", x, v)
+
+
 def lm_update(theta: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
               one_system: bool = False) -> torch.Tensor:
     """theta - a^{-1} b for [..., 3], [..., 3, 3], [..., 3], the LM step in
     the reference's closed form with its roundings (``one_system``: as its
     unbatched odometry step rounds it), one launch."""
     return _call("lm_update", theta, a, b, one_system=one_system)
+
+
+def lu_solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """h^{-1} g for [..., K, K], [..., K], K <= 7, as the reference's
+    ``sgetrf`` and ``strsm`` round it (``core/refmath.py::lu_solve``), a
+    thread a system, one launch."""
+    return _call("lu_solve", h, g)

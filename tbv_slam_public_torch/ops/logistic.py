@@ -35,6 +35,24 @@ def predict(model: LogisticModel, x: torch.Tensor) -> torch.Tensor:
     return predict_proba(model, x) > 0.5
 
 
+def gradient(xt: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """xb^T r for xt = xb^T [D + 1, N], r [N]: the IRLS gradient's sum, in
+    the order in which the reference's compiled loop adds its N terms
+    (``core/refmath.py::loop_dot_shape``, read for every N the paths give
+    it)."""
+    return refmath.loop_dot(xt, r)
+
+
+def solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """h^{-1} g for float32 h [K, K], g [K], K <= 7, rounded as the
+    reference's ``jnp.linalg.solve``: LAPACK's sgetrf, g permuted by its
+    pivots, BLAS's strsm on the unit lower and the upper factor, with the
+    operation order of the library jaxlib calls
+    (``core/refmath.py::lu_solve``; the refmath kernel op ``lu_solve`` on
+    the card)."""
+    return refmath.lu_solve(h, g)
+
+
 def fit(x: torch.Tensor, y: torch.Tensor, sample_mask: torch.Tensor = None, *,
         c: float = 1.0, iterations: int = 50,
         balanced: bool = True) -> LogisticModel:
@@ -66,16 +84,16 @@ def fit(x: torch.Tensor, y: torch.Tensor, sample_mask: torch.Tensor = None, *,
     for _ in range(iterations):
         # rounded as the reference's program: xb @ w and the Hessian's
         # products one fused multiply-add a term in order (its emitted loop
-        # and its matrix kernel at this shape), its sigmoid's exp, reg * w
-        # fused into the gradient's add, the ridge added in source order.
-        # The gradient's sum (a vectorised loop) and the 5x5 solve (LAPACK
-        # getrf and trsm) stay library calls (ROADMAP.md, section 3).
+        # and its matrix kernel at this shape), its sigmoid's exp, the
+        # gradient's sum in its vectorised loop's order (``gradient``),
+        # reg * w fused into the gradient's add, the ridge added in source
+        # order, the solve by its LAPACK routines (``solve``)
         p = refmath.sigmoid(refmath.dot(xb, w[None])[:, 0])
-        g = refmath.fma(reg, w, xt @ (sw * (p - y)))
+        g = refmath.fma(reg, w, gradient(xt, sw * (p - y)))
         r = torch.clamp(sw * p * (1.0 - p), min=1e-8)
         h = (refmath.dot((xb * r[:, None]).T, xt) + reg_diag) + eps_eye
         # damped Newton keeps early iterations stable on separable data
-        w = w - torch.clamp(torch.linalg.solve(h, g), -10.0, 10.0)
+        w = w - torch.clamp(solve(h, g), -10.0, 10.0)
     return LogisticModel(intercept=w[0], coef=w[1:])
 
 

@@ -28,6 +28,7 @@ from ..core.config import RegistrationConfig
 from ..core.device import constant
 from ..core.refmath import recip
 from ..core.types import Cells, RegistrationResult
+from ..kernels import lm_solve as lm_kernel
 from ..kernels import refmath
 
 COST_P2L = 0
@@ -104,13 +105,21 @@ def _rho_and_weight(s: torch.Tensor, loss: int, delta: float):
         return b * refmath.log1p(s_b), 1.0 / refmath.fma(
             s, torch.full_like(s, recip(b)), torch.ones_like(s))
     if loss == LOSS_SOFTLONE:
+        # s / b a product by the reciprocal, fused into 1 + s / b; 2 b folded
+        # into one constant
         b = delta * delta
-        t = refmath.sqrt(1.0 + s / b)
-        return 2.0 * b * (t - 1.0), 1.0 / t
+        one = torch.ones_like(s)
+        t = refmath.sqrt(refmath.fma(s, torch.full_like(s, recip(b)), one))
+        return (t - 1.0) * (2.0 * b), 1.0 / t
     if loss == LOSS_TUKEY:
+        # 1 - s / b and 1 - u^3 = 1 - u (u u) each one fused multiply-add,
+        # b / 3 folded into one constant
         b = delta * delta
-        u = torch.clamp(1.0 - s / b, min=0.0)
-        return (b / 3.0) * (1.0 - u ** 3), u * u
+        one = torch.ones_like(s)
+        u = torch.clamp(refmath.fma(-s, torch.full_like(s, recip(b)), one),
+                        min=0.0)
+        u2 = u * u
+        return refmath.fma(-u, u2, one) * (b / 3.0), u2
     if loss == LOSS_COMBINED:
         # Huber(1) o Cauchy(1); IRLS weight by the chain rule
         g = refmath.log1p(s)
@@ -232,10 +241,28 @@ def _residual_terms(theta: torch.Tensor, src: Cells, assoc: Associations,
 
 
 def _prior_terms(theta, prior):
+    """The motion prior's (cost, g, H) [B], [B, 3], [B, 3, 3]: pr =
+    sqrt_info (theta - guess) pw, 0.5 |pr|^2, Jp^T pr and Jp^T Jp with Jp =
+    sqrt_info pw, each sum one fused multiply-add a term in order from zero,
+    as the reference's program adds them (not a library product, whose
+    order is the library's)."""
     guess, sqrt_info, pw = prior  # [B,3], [3,3], [B]
-    pr = (theta - guess) @ sqrt_info.T * pw[:, None]
-    Jp = sqrt_info[None] * pw[:, None, None]
-    return pr, Jp
+    fma = refmath.fma
+    d = theta - guess
+    pr = torch.zeros_like(d)
+    for k in range(3):
+        pr = fma(d[:, k:k + 1], sqrt_info[:, k].expand_as(d), pr)
+    pr = pr * pw[:, None]
+    jp = sqrt_info[None] * pw[:, None, None]  # [B, 3, 3]
+    cost = torch.zeros_like(pw)
+    g = torch.zeros_like(d)
+    h = torch.zeros_like(jp)
+    for k in range(3):
+        cost = fma(pr[:, k], pr[:, k], cost)
+        g = fma(jp[:, k], pr[:, k:k + 1].expand_as(d), g)
+        h = fma(jp[:, k, :, None].expand_as(jp), jp[:, k, None, :]
+                .expand_as(jp), h)
+    return 0.5 * cost, g, h
 
 
 def _row_sums(x: torch.Tensor) -> torch.Tensor:
@@ -278,10 +305,8 @@ def _cost_grad_hess(theta, src, assoc, *, cost, loss, delta, prior=None):
     H, g = sums[:, 1:].reshape(bsz, 3, 4).split([3, 1], -1)
     g = g[..., 0]
     if prior is not None:
-        pr, Jp = _prior_terms(theta, prior)
-        total = total + 0.5 * (pr * pr).sum(-1)
-        H = H + Jp.transpose(-1, -2) @ Jp
-        g = g + (Jp.transpose(-1, -2) @ pr[..., None])[..., 0]
+        p_cost, p_g, p_h = _prior_terms(theta, prior)
+        total, g, H = total + p_cost, g + p_g, H + p_h
     return total, g, H
 
 
@@ -292,8 +317,7 @@ def _cost_only(theta, src, assoc, *, cost, loss, delta, prior=None):
     c = 0.5 * _row_sums(torch.where(assoc.mask, assoc.weight * rho,
                                     zero).reshape(rho.shape[0], -1))
     if prior is not None:
-        pr, _ = _prior_terms(theta, prior)
-        c = c + 0.5 * (pr * pr).sum(-1)
+        c = c + _prior_terms(theta, prior)[0]
     return c
 
 
@@ -302,7 +326,27 @@ def _lm_solve(theta0, src, assoc, *, cost, loss, delta, max_iter, init_lambda,
     """Fixed-iteration 3-DoF LM with accept/reject damping, one residual
     pass per iteration; returns (theta, cost, last relative decrease).
     ``one_system``: the step rounded as the reference's unbatched odometry
-    step rounds it (``refmath.lm_update``)."""
+    step rounds it (``refmath.lm_update``).  CPU tensors take the plain
+    version, CUDA tensors one launch of ``csrc/lm_solve.cu``, which is
+    bit-equal to it."""
+    kw = dict(cost=cost, loss=loss, delta=delta, max_iter=max_iter,
+              init_lambda=init_lambda, prior=prior, one_system=one_system)
+    if theta0.device.type == "cpu" or lm_kernel.plain_on_card_enabled():
+        return _lm_solve_reference(theta0, src, assoc, **kw)
+    return lm_kernel.lm_solve(theta0, src.mean, assoc.tgt_mean_w,
+                              assoc.tgt_normal_w, assoc.weight, assoc.mask,
+                              assoc.tgt_sqrtinfo, **kw)
+
+
+def _lm_solve_reference(theta0, src, assoc, *, cost, loss, delta, max_iter,
+                        init_lambda, prior=None, one_system=False):
+    """The plain version of ``_lm_solve`` (and of its kernel): on CPU
+    tensors, or on CUDA tensors inside ``kernels.lm_solve.plain_on_card``
+    only."""
+    if theta0.device.type != "cpu" and \
+            not lm_kernel.plain_on_card_enabled():
+        raise RuntimeError("the plain LM solve runs on the CPU; on "
+                           f"{theta0.device} it is the kernel's")
     kw = dict(cost=cost, loss=loss, delta=delta, prior=prior)
     cur_cost, g, H = _cost_grad_hess(theta0, src, assoc, **kw)
     theta = theta0

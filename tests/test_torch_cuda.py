@@ -651,6 +651,22 @@ def test_refmath_solve3x3_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_refmath_lu_solve_matches_plain(cuda):
+    """The logistic fit's solve, a thread a system, bit-equal to the plain
+    version at every size it takes (the fit's matrices, pivoting ones and
+    zero pivots)."""
+    from tbv_slam_public_torch.core import refmath as plain
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.kernels.checks import lu_systems
+
+    for k in range(1, 8):
+        h, g = (torch.as_tensor(a) for a in lu_systems(
+            np.random.default_rng(k), 3000, k))
+        assert _same(rm.lu_solve(h.to(cuda), g.to(cuda)),
+                     plain.lu_solve(h, g))
+
+
+@pytest.mark.cuda
 def test_refmath_dot_matches_plain(cuda):
     from tbv_slam_public_torch.core import refmath as plain
     from tbv_slam_public_torch.kernels import refmath as rm
@@ -720,3 +736,96 @@ def test_coral_kernel_on_gate_clouds(cuda):
     want = tmoments.neighbor_moments_reference(*args, 1.0)
     got = tmoments.neighbor_moments(*(a.to(cuda) for a in args), 1.0)
     _assert_moments([g.cpu() for g in got], want)
+
+
+def _lm_call(prob, dev, cost, loss, max_iter, one_system):
+    from types import SimpleNamespace
+
+    from tbv_slam_public_torch.ops import registration as treg
+
+    theta0, src, tm, tn, weight, mask, si, prior = prob
+    t = lambda x: None if x is None else torch.as_tensor(x, device=dev)
+    assoc = treg.Associations(t(tm), t(tn), t(weight), t(mask), t(si))
+    return treg._lm_solve(
+        t(theta0), SimpleNamespace(mean=t(src)), assoc, cost=cost, loss=loss,
+        delta=0.3, max_iter=max_iter, init_lambda=1e-4,
+        prior=None if prior is None else tuple(map(t, prior)),
+        one_system=one_system)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,max_iter", [
+    (2, 3, 37, 20),  # fewer than 256 threads hold leaves, N not 2^k
+    (4, 4, 512, 20),  # odometry's window at B = 4 (4096 leaves for P2P)
+    (5, 1, 512, 10),  # a loop wave's rows (512 leaves for P2L)
+    (3, 5, 512, 20),  # register_joint over 5 scans (2 x 2560 leaves)
+    # cell_capacity 2048: P2D's inputs (312 KB a row) exceed the staged
+    # 200 KB and are read from global memory; P2P and P2L stay staged
+    (2, 4, 2048, 20)])
+def test_lm_solve_kernel_bit_equal_to_plain(cuda, b, t, c, max_iter):
+    """The LM-solve kernel (one launch) against the plain version on the
+    card, bit for bit in theta, cost and the last relative decrease, over
+    every cost x loss x prior x one_system."""
+    from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
+    from tbv_slam_public_torch.kernels.checks import lm_problem
+
+    from tbv_slam_public_torch.ops.registration import cost_code
+
+    rng = np.random.default_rng(b * 100 + t)
+    for name in ("P2L", "P2D", "P2P"):
+        cost = cost_code(name)
+        for with_prior in (False, True):
+            prob = lm_problem(rng, b, t, c, name, with_prior)
+            for loss in range(6):
+                for one in (False, True):
+                    before = lm_kernel.LAUNCHES
+                    got = _lm_call(prob, cuda, cost, loss, max_iter, one)
+                    assert lm_kernel.LAUNCHES == before + 1
+                    with lm_kernel.plain_on_card():
+                        want = _lm_call(prob, cuda, cost, loss, max_iter, one)
+                    bad = [bits_differ(g, w) for g, w in zip(got, want)]
+                    assert not any(bad), (name, loss, with_prior, one, bad)
+
+
+@pytest.mark.cuda
+def test_a_cuda_tensor_never_reaches_the_plain_lm_solve(cuda, monkeypatch):
+    """On CUDA tensors ``_lm_solve`` is the kernel: the plain version's
+    cost pass is never called, and the plain entry itself raises outside
+    the test-only ``plain_on_card``."""
+    from types import SimpleNamespace
+
+    from tbv_slam_public_torch.kernels.checks import lm_problem
+    from tbv_slam_public_torch.ops import registration as treg
+
+    prob = lm_problem(np.random.default_rng(1), 2, 2, 64, "P2P", True)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain cost pass ran on a CUDA tensor")
+
+    monkeypatch.setattr(treg, "_cost_grad_hess", refuse)
+    out = _lm_call(prob, cuda, 2, 1, 5, False)
+    assert all(x.is_cuda for x in out)
+    t = lambda x: torch.as_tensor(x, device=cuda)
+    with pytest.raises(RuntimeError, match="plain LM solve"):
+        treg._lm_solve_reference(
+            t(prob[0]), SimpleNamespace(mean=t(prob[1])),
+            treg.Associations(*(t(x) for x in prob[2:6])), cost=2, loss=1,
+            delta=0.1, max_iter=2, init_lambda=1e-4)
+
+
+@pytest.mark.cuda
+def test_refmath_loop_dot_matches_plain(cuda):
+    """``loop_dot`` (the logistic gradient's sum in the reference's loop
+    order) on the card against its plain version, bit for bit, at every
+    loop shape: n = 1..128 and the online learner's and the training
+    step's row counts."""
+    from tbv_slam_public_torch.core import refmath as plain
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    rng = np.random.default_rng(3)
+    for n in list(range(1, 129)) + [260, 353, 1287]:
+        x = torch.as_tensor((rng.normal(size=(7, n)) * np.exp(rng.uniform(
+            -4, 4, (1, n)))).astype(np.float32))
+        v = torch.as_tensor(rng.normal(size=n).astype(np.float32))
+        assert bits_differ(rm.loop_dot(x.to(cuda), v.to(cuda)),
+                           plain.loop_dot(x, v)) == 0, n

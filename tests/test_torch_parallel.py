@@ -453,13 +453,13 @@ def test_two_ranks_alignment_training_step_one_street_matches_jax(two_ranks):
     tot_size column is near constant (234-246 cells), so it and the
     unpenalised intercept are near collinear, and the 50 clipped Newton
     steps of both packages' IRLS (the reference's on its own x too) end in
-    a period-2 cycle that depends on the last bits of each solve: the two
-    packages' fits of one x differ by two clipped steps of the intercept
-    (20 against 40; the gradient's vectorised sum and the LAPACK solve
-    are not the reference's, ROADMAP.md section 3).
-    So the fit is held with that column centred, where it converges: the
-    port's fit of the ranks' x against the reference's, and the ranks'
-    model is the port's fit of their gathered x."""
+    a period-2 cycle that depends on the last bits of each solve.  Since
+    the gradient's sum and the solve round as the reference's, the port's
+    fit of the ranks' uncentred x is the reference's fit of it, bit for bit
+    (before: intercept 20 against 40).  The fit is also held with that
+    column centred, where it converges: the port's fit of the ranks' x
+    against the reference's, and the ranks' model is the port's fit of
+    their gathered x."""
     d, outs = two_ranks
     _, x, y = _jax_training_step(d, "street")
     for out in outs:
@@ -468,6 +468,10 @@ def test_two_ranks_alignment_training_step_one_street_matches_jax(two_ranks):
         own = tlogistic.fit(torch.as_tensor(xt), torch.as_tensor(y),
                             balanced=True)
         np.testing.assert_array_equal(out["street.coef"], own.coef.numpy())
+        ref = jlogistic.fit(jnp.asarray(xt), jnp.asarray(y), balanced=True)
+        np.testing.assert_array_equal(
+            np.r_[own.intercept.numpy(), own.coef.numpy()],
+            np.r_[np.asarray(ref.intercept), np.asarray(ref.coef)])
         xc = np.array(xt)
         xc[:, 5] -= xc[:, 5].mean()
         fit = jlogistic.fit(jnp.asarray(xc), jnp.asarray(y), balanced=True)

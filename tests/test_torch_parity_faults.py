@@ -3,8 +3,9 @@ compiled CPU program rounds or orders float32 work in its own way.
 
 Each case holds one repair: the CorAl covariance determinants and the order
 of the CorAl moment sums, the CFEAR cell arithmetic, the detector's points,
-the row independence of the plain CorAl moments, and the CA-CFAR window
-sums above 2^24.  Run as a program, the file prints the shares of
+the row independence of the plain CorAl moments, the CA-CFAR window
+sums above 2^24, the SoftLOne and Tukey losses at any loss limit, and the
+logistic fit (the gradient's sum, the solve, the whole fit).  Run as a program, the file prints the shares of
 bit-equal results on sensor-size scans (``--frames`` of them) for the
 package on the path, so the same command measures a tree before and after
 a change:
@@ -24,14 +25,18 @@ from tbv_slam_public_tpu.core.config import FeatureConfig as JFeatureConfig
 from tbv_slam_public_tpu.core.config import RadarConfig as JRadarConfig
 from tbv_slam_public_tpu.ops import coral as jcoral
 from tbv_slam_public_tpu.ops import features as jfeatures
+from tbv_slam_public_tpu.ops import logistic as jlogistic
 from tbv_slam_public_tpu.ops import radar as jradar
+from tbv_slam_public_tpu.ops import registration as jreg
 from tbv_slam_public_torch.core.config import FeatureConfig, RadarConfig
 from tbv_slam_public_torch.core.types import PointCloud
 from tbv_slam_public_torch.io import simulate
 from tbv_slam_public_torch.kernels import coral_moments as tmoments
 from tbv_slam_public_torch.ops import coral as tcoral
 from tbv_slam_public_torch.ops import features as tfeatures
+from tbv_slam_public_torch.ops import logistic as tlogistic
 from tbv_slam_public_torch.ops import radar as tradar
+from tbv_slam_public_torch.ops import registration as treg
 
 # The suite runs several worker processes on one machine and these tensors are
 # small: one intra-op thread per process keeps the workers from
@@ -236,6 +241,106 @@ def test_cfar_above_two_to_the_24(bins, kw):
     for f in ("xy", "intensity", "mask"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(want, f)))
+
+
+def _squared_residuals(rng):
+    """196,608 squared residuals over [1e-8, 1e4], log-uniform, and the
+    special values (zeros, subnormals, the range ends, infinities, NaN)."""
+    from tbv_slam_public_torch.kernels.checks import REFMATH_SPECIAL
+
+    s = np.exp(rng.uniform(np.log(1e-8), np.log(1e4), 3 << 16))
+    return np.concatenate([s.astype(np.float32), REFMATH_SPECIAL])
+
+
+@pytest.mark.parametrize("loss", ["softlone", "tukey"])
+@pytest.mark.parametrize("delta", [0.1, 0.3, 1.0, 2.0])
+def test_softlone_and_tukey_round_as_the_reference(loss, delta):
+    """rho and the IRLS weight of ``_rho_and_weight`` bit-equal to the
+    reference's at every tested loss limit.  Its program divides by the
+    constant b = delta^2 as a product by the float32 reciprocal, fuses that
+    product into 1 + s / b (SoftLOne) and 1 - s / b (Tukey), computes u^3 as
+    u (u u) with 1 - u^3 one fused multiply-add, and folds 2 b and b / 3
+    into constants (optimized HLO and object code of the losses compiled
+    alone).  Before: 22,198 (SoftLOne) and 15,268 (Tukey) of these values
+    differed at 0.1."""
+    s = _squared_residuals(np.random.default_rng(3))
+    code = jreg.loss_code(loss)
+    want = jax.jit(lambda v: jreg._rho_and_weight(v, code, delta))(s)
+    got = treg._rho_and_weight(torch.as_tensor(s), code, delta)
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        same = (g.view(np.int32) == w.view(np.int32)) | \
+            (np.isnan(g) & np.isnan(w))
+        assert same.all(), (int((~same).sum()), s[~same][:5])
+
+
+@pytest.mark.parametrize("n", [13, 26, 39, 52, 104, 1287])
+def test_logistic_gradient_rounds_as_the_reference(n):
+    """The IRLS gradient xb^T (sw (p - y)) of ``logistic.fit`` bit-equal to
+    the reference's at the paths' row counts: 13 perturbations a scan pair,
+    so the training step at 1-4 and 8 pairs (52: the four-street and
+    one-street pairs) and the online learner's refit after 99 pairs (1287,
+    ``chip_smoke.py`` phase 7).  The reference sums in a loop that LLVM
+    vectorises (``copy_dot_fusion``; the same object code compiled alone
+    as inside ``fit``), whose order ``core/refmath.py::loop_dot_shape``
+    writes out as a function of n.  Before: a library matrix product."""
+    rng = np.random.default_rng(n)
+    x = np.concatenate([np.ones((n, 1)), rng.normal(size=(n, 6)) * np.exp(
+        rng.uniform(-3, 3, (1, 6)))], 1).astype(np.float32)
+    r = (rng.uniform(0.5, 2.0, n) * (rng.uniform(size=n) - (
+        rng.uniform(size=n) < 0.5))).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a, b: a.T @ b)(x, r))
+    got = tlogistic.gradient(torch.as_tensor(x.T.copy()),
+                             torch.as_tensor(r)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("k", [7, 4])
+def test_logistic_solve_rounds_as_the_reference(k):
+    """The Newton step's solve of ``logistic.fit`` bit-equal to the
+    reference's ``jnp.linalg.solve`` on 600 of the fit's systems (k = 7:
+    the alignment model; 4: the loop model) and on general matrices that
+    pivot: both are LAPACK's sgetrf and BLAS's strsm, SciPy's (jaxlib calls
+    those), with the reference's permutation of the right-hand side.
+    Before: ``torch.linalg.solve``."""
+    rng = np.random.default_rng(k)
+    solve = jax.jit(jnp.linalg.solve)
+    for t in range(600):
+        xb = (rng.normal(size=(52, k)) * np.exp(rng.uniform(-3, 3, (1, k)))
+              ).astype(np.float32)
+        r = np.exp(rng.uniform(-8, 0, 52)).astype(np.float32)
+        h = ((xb * r[:, None]).T @ xb + np.diag(np.r_[0.0, np.ones(k - 1)])
+             + 1e-8 * np.eye(k)).astype(np.float32)
+        if t % 3 == 0:
+            h = rng.normal(size=(k, k)).astype(np.float32)
+        g = (10.0 * rng.normal(size=k)).astype(np.float32)
+        got = tlogistic.solve(torch.as_tensor(h), torch.as_tensor(g)).numpy()
+        want = np.asarray(solve(h, g))
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("n", [13, 52, 104, 260])
+def test_logistic_fit_bit_equal_to_the_reference(n):
+    """With the gradient's sum and the solve the reference's, the whole
+    IRLS fit (50 clipped Newton steps, balanced weights) is bit-equal to
+    the JAX package's on the same x and y, five draws a row count, one of
+    them with a near-constant column beside the intercept (the one-street
+    pairs' case, where both fits cycle)."""
+    rng = np.random.default_rng(n)
+    for t in range(5):
+        x = (rng.normal(size=(n, 6)) * np.exp(rng.uniform(-2, 2, (1, 6)))
+             ).astype(np.float32)
+        if t == 4:
+            x[:, 5] = 470.0 + rng.normal(size=n).astype(np.float32)
+        y = (rng.uniform(size=n) < 0.15).astype(np.float32)
+        y[0] = 1.0
+        want = jlogistic.fit(jnp.asarray(x), jnp.asarray(y), balanced=True)
+        got = tlogistic.fit(torch.as_tensor(x), torch.as_tensor(y),
+                            balanced=True)
+        np.testing.assert_array_equal(
+            np.r_[got.intercept.numpy(), got.coef.numpy()].view(np.int32),
+            np.r_[np.asarray(want.intercept), np.asarray(want.coef)]
+            .view(np.int32))
 
 
 def main(argv=None) -> int:

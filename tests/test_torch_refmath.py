@@ -16,6 +16,7 @@ held).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tbv_slam_public_tpu.core import se2 as jse2
@@ -35,7 +36,7 @@ from tbv_slam_public_torch.core.types import PointCloud as TPointCloud
 from tbv_slam_public_torch.io.convert import cells_from_numpy
 from tbv_slam_public_torch.kernels import coral_moments as tmoments
 from tbv_slam_public_torch.kernels.checks import (REFMATH_SPECIAL,
-                                                  on_gate_clouds)
+                                                  lu_systems, on_gate_clouds)
 from tbv_slam_public_torch.models import strategies as tstrategies
 from tbv_slam_public_torch.ops import coral as tcoral
 from tbv_slam_public_torch.ops import logistic as tlogistic
@@ -156,6 +157,50 @@ def test_lm_update_as_the_odometry_step_computes_it():
     _assert_bits(got[:, 0::2], want[:, 0::2])
     assert (got[:, 1].view(np.int32) != want[:, 1].view(np.int32)).sum() \
         <= 0.09 * n
+
+
+@pytest.mark.parametrize("k", [7, 4])
+def test_loop_dot_as_the_logistic_gradient_adds_it(k):
+    """``loop_dot`` bit-equal to the reference's compiled xb^T v, a row of
+    k = 7 (the alignment model's six features and the intercept) or 4 (the
+    loop model's three) outputs, at every n from 1 to 128 (every remainder
+    class of the 2- and 4-accumulator loops, the unrolled chain) and at 13
+    rows a training pair up to 120 pairs (the unrolled and the rolled
+    loop)."""
+    rng = np.random.default_rng(k)
+    fn = jax.jit(lambda a, b: a.T @ b)
+    ns = list(range(1, 129)) + list(range(13 * 10, 13 * 121, 13 if k == 7
+                                          else 130))
+    for n in ns:
+        x = (rng.normal(size=(n, k)) * np.exp(rng.uniform(-4, 4, (n, 1)))
+             ).astype(np.float32)
+        v = rng.normal(size=n).astype(np.float32)
+        got = refmath.loop_dot(torch.as_tensor(x.T.copy()), torch.as_tensor(v))
+        _assert_bits(got.numpy(), fn(x, v))
+
+
+@pytest.mark.parametrize("k", range(1, 8))
+def test_lu_solve_as_jnp_linalg_solve_computes_it(k):
+    """``lu_solve`` bit-equal to the reference's ``jnp.linalg.solve`` (on
+    the CPU: SciPy's OpenBLAS sgetrf and strsm through jaxlib), a system at
+    a time, on 90 systems of each size up to the alignment model's 7: the
+    fit's Newton matrices, general matrices that pivot, and matrices with a
+    zero column (an unswapped zero pivot: infinities and NaN); the batched
+    call gives each system's own bits."""
+    h, g = lu_systems(np.random.default_rng(100 + k), 90, k)
+    solve = jax.jit(jnp.linalg.solve)
+    want = np.stack([np.asarray(solve(a, b)) for a, b in zip(h, g)])
+    _assert_bits(refmath.lu_solve(torch.as_tensor(h), torch.as_tensor(g))
+                 .numpy(), want)
+    _assert_bits(refmath.lu_solve(torch.as_tensor(h[7]), torch.as_tensor(
+        g[7])).numpy(), want[7])
+
+
+def test_lu_solve_refuses_the_sizes_it_does_not_write_out():
+    with pytest.raises(ValueError):
+        refmath.lu_solve(torch.eye(8), torch.ones(8))
+    with pytest.raises(ValueError):
+        refmath.lu_solve(torch.eye(3), torch.ones(4))
 
 
 def test_exp_as_the_odometry_check_computes_it():
