@@ -17,13 +17,18 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    each rank of 10(b)), its count set to 0 just before the path and read
    just after, then the first operands and result of each op and shapes
    that the path gave it held bit for bit to the plain version; the
-   LM-solve kernel (one launch a registration solve) bit-equal to the
-   plain solve on the card over every cost x loss x prior x one_system at
-   the paths' shapes (odometry at B = 1 and 4, a loop wave of 64 pairs,
-   ``register_joint`` over 5 scans, and rows past the kernel's staged
-   size), timed there beside the plain solve and its bound, and on every
-   path below, as refmath, counted and held at
-   each shape the path gave it;
+   registration kernel (phase 2b): its window entry (``register_window``,
+   one launch a call: association, LM solve and outer guards) bit-equal
+   to the plain ``register_window`` on the card over every cost x loss x
+   prior (one_system and the weight option 0-4 in turn) at the paths'
+   shapes (odometry at B = 1 and 4, an online and an offline loop wave,
+   cell_capacity 2048 with P2D) and at forced cluster sizes 1, 2, 4 and 8,
+   one window launch and the same refmath launches a call at 1 and 8
+   outer iterations, timed in turns against the plain path beside its
+   bound; its solve entry (``register_joint``'s LM solves) bit-equal to the
+   plain solve over every cost x loss x prior x one_system; and on every
+   path below, as refmath, counted and held at each shape the path gave
+   it;
 3. the port's CLI: ``odometry`` then ``slam`` (default solver, and again
    with ``--solver cholesky``) on a small simulated sequence, then
    ``evaluate-scans`` on that checkpoint (in this process, with its kernel
@@ -31,8 +36,9 @@ Needs one CUDA card.  Phases, each of which raises on failure:
 4. the offline slice at the sensor's size (400 azimuths x 3768 bins at
    0.0438 m, default config): odometry per frame -> simple_graph save/load
    -> loop closure with CorAl verification -> cholesky PGO, with the kernel
-   launch count of that run; its first 20 frames again with the LM-solve
-   kernel and with the plain solve on the card, bit-equal; then the
+   launch count of that run; its first 20 frames again with the
+   registration kernel and with the plain registration on the card,
+   bit-equal; then the
    kernel's time on that run's keyframe clouds;
 5. cholesky PGO on the 4470-node Oxford real-odometry instance;
 6. the ``schur`` and ``cg`` solvers on that instance beside ``cholesky``
@@ -87,6 +93,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -471,10 +478,11 @@ def hold_refmath(tag, kept) -> int:
     return len(kept)
 
 
-# the LM-solve kernel's launches by path, and the shapes held there
+# the registration kernel's launches by path (window and solve entries),
+# and the solve entry's shapes held there
 LM_LAUNCHES = {}
 LM_HELD = {}
-# the paths that run the registration's LM solve (besides the odometry
+# the paths that run the registration kernel (besides the odometry
 # variants); the PGO paths and evaluate-scans run none
 LM_PATHS = ("offline", "online", "batched", "rest", "parallel_offline",
             "dryrun")
@@ -483,7 +491,7 @@ LM_PATHS = ("offline", "online", "batched", "rest", "parallel_offline",
 @contextlib.contextmanager
 def lm_inputs():
     """For each (B, T, C, cost, loss, inner iterations, prior, one_system)
-    that the LM-solve kernel is given inside the block, the first call's
+    that the kernel's solve entry is given inside the block, the first call's
     inputs and outputs, copied on the card: ``{key: (tensors, options,
     outputs)}``."""
     from tbv_slam_public_torch.kernels import lm_solve as lk
@@ -541,32 +549,107 @@ def hold_lm(tag, kept) -> int:
     return len(kept)
 
 
+# the window entry's first calls on each path, and the shapes held there
+WINDOW_HELD = {}
+
+
+@contextlib.contextmanager
+def window_inputs():
+    """For each (B, T, C, Ct, cost, loss, inner and outer iterations, prior,
+    one_system, weight option) that ``register_window`` is called with on
+    CUDA tensors inside the block, the first call's arguments and result,
+    copied on the card: ``{key: (args, kwargs, result)}``."""
+    from tbv_slam_public_torch.ops import registration as treg
+
+    kept, real = {}, treg.register_window
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().clone()
+        return x.map(lambda v: v.detach().clone()) if hasattr(x, "map") \
+            else x
+
+    def keep(src, pose0, tgt, tposes, smask, cfg, **kw):
+        out = real(src, pose0, tgt, tposes, smask, cfg, **kw)
+        if pose0.is_cuda:
+            key = tuple(src.valid.shape) + tuple(tgt.valid.shape[1:]) + (
+                cfg.cost, cfg.loss, cfg.max_inner_iterations,
+                cfg.max_outer_iterations, kw.get("guess") is not None,
+                bool(kw.get("one_system")), cfg.weight_option)
+            if key not in kept:
+                kept[key] = ([clone(a) for a in (src, pose0, tgt, tposes,
+                                                 smask)] + [cfg],
+                             {k: clone(v) for k, v in kw.items()},
+                             clone(out))
+        return out
+
+    treg.register_window = keep
+    try:
+        yield kept
+    finally:
+        treg.register_window = real
+
+
+def window_differ(got, want) -> int:
+    """Values of two ``RegistrationResult``s that differ (pose and score in
+    their bits, the counts and the success flag)."""
+    from tbv_slam_public_torch.kernels.checks import bits_differ
+
+    return sum(bits_differ(getattr(got, f), getattr(want, f))
+               for f in ("pose", "score")) + sum(
+        int((getattr(got, f) != getattr(want, f)).sum())
+        for f in ("num_residuals", "iterations", "success"))
+
+
+def hold_window(tag, kept) -> int:
+    """Each kept ``register_window`` call against the plain version on its
+    inputs on the card, bit for bit; returns the number of shapes held."""
+    from tbv_slam_public_torch.kernels import lm_solve as lk
+    from tbv_slam_public_torch.ops import registration as treg
+
+    for key, (args, kw, out) in kept.items():
+        with lk.plain_on_card():
+            want = treg.register_window(*args, **kw)
+        bad = window_differ(out, want)
+        if bad:
+            raise AssertionError(f"{tag} register_window at {key}: {bad} "
+                                 f"values differ from the plain version")
+    return len(kept)
+
+
 @contextlib.contextmanager
 def kernel_path(path):
-    """One path of the main run: the refmath and LM-solve kernels' counts
-    are set to 0 just before the block and read just after
-    (``REFMATH_LAUNCHES[path]``, ``LM_LAUNCHES[path]``), then each kernel is
-    held to its plain version at every op or shape the path gave it."""
+    """One path of the main run: the refmath and registration kernels'
+    counts are set to 0 just before the block and read just after
+    (``REFMATH_LAUNCHES[path]``, ``LM_LAUNCHES[path]``: window and solve
+    launches), then each kernel is held to its plain version at every op
+    or shape the path gave it (``REFMATH_HELD``, ``WINDOW_HELD``,
+    ``LM_HELD``)."""
     from tbv_slam_public_torch.kernels import lm_solve as lk
     from tbv_slam_public_torch.kernels import refmath as rm
 
     rm.LAUNCHES = 0
     rm.LAUNCHES_BY_OP.clear()
     lk.LAUNCHES = 0
-    with refmath_inputs() as kept, lm_inputs() as lm_kept:
+    lk.LAUNCHES_BY_ENTRY.clear()
+    with refmath_inputs() as kept, lm_inputs() as lm_kept, \
+            window_inputs() as win_kept:
         yield
     REFMATH_LAUNCHES[path] = dict(rm.LAUNCHES_BY_OP, total=rm.LAUNCHES)
-    LM_LAUNCHES[path] = lk.LAUNCHES
+    LM_LAUNCHES[path] = dict(lk.LAUNCHES_BY_ENTRY, total=lk.LAUNCHES)
     if rm.LAUNCHES <= 0:
         raise AssertionError(f"the {path} path launched no refmath kernel")
     if lk.LAUNCHES <= 0 and (path in LM_PATHS or path.startswith("variant")):
-        raise AssertionError(f"the {path} path launched no lm_solve kernel")
+        raise AssertionError(f"the {path} path launched no registration "
+                             f"kernel")
     REFMATH_HELD[path] = hold_refmath(f"[{path}]", kept)
+    WINDOW_HELD[path] = hold_window(f"[{path}]", win_kept)
     LM_HELD[path] = hold_lm(f"[{path}]", lm_kept)
     log(f"[refmath] {path}: {REFMATH_LAUNCHES[path]['total']} launches, "
         f"bit-equal to the plain version at its {REFMATH_HELD[path]} (op, "
-        f"shapes); [lm_solve] {LM_LAUNCHES[path]} launches, bit-equal at its "
-        f"{LM_HELD[path]} shapes")
+        f"shapes); [registration] {LM_LAUNCHES[path]} launches, window "
+        f"bit-equal at its {WINDOW_HELD[path]} shapes, solve at its "
+        f"{LM_HELD[path]}")
 
 
 def phase_refmath():
@@ -681,6 +764,23 @@ def phase_refmath():
             log(f"[2] refmath {op} at {size} values: {t['ms']:.4f} ms "
                 f"(bound {bound:.6f} ms), plain {t['plain_ms']:.4f} ms, "
                 f"torch {t['library_ms']:.4f} ms")
+    # fma, beside torch.addcmul (c + a * b) as its library call
+    for size in (1, 4096, 1 << 19):
+        a, b, c = (torch.empty(size, device=dev).uniform_(-10, 10)
+                   for _ in range(3))
+        bytes_ = 4 * size * 4
+        ops = 2 * size
+        t = dict(ms=cuda_ms(lambda: rm.fma(a, b, c), 50),
+                 plain_ms=cuda_ms(lambda: plain.fma(a, b, c), 10),
+                 library_ms=cuda_ms(lambda: torch.addcmul(c, a, b), 50),
+                 bound_ms=max(bytes_ / PEAK_BYTES_PER_S,
+                              ops / PEAK_F32_FLOPS) * 1e3,
+                 bound_by="bytes" if bytes_ / PEAK_BYTES_PER_S >=
+                 ops / PEAK_F32_FLOPS else "operations")
+        times[f"fma_n{size}"] = t
+        log(f"[2] refmath fma at {size} values: {t['ms']:.4f} ms (bound "
+            f"{t['bound_ms']:.6f} ms), plain {t['plain_ms']:.4f} ms, "
+            f"torch.addcmul {t['library_ms']:.4f} ms")
     # lu_solve at the fit's one 7 x 7 system: 63 values read, 7 written;
     # about 2 k^3 / 3 + 2 k^2 = 327 operations
     h, g = (torch.as_tensor(a, device=dev) for a in lu_systems(rng, 3, 7))
@@ -699,20 +799,35 @@ def phase_refmath():
     return dict(max_abs_err=0.0, times=times)
 
 
-# the paths' LM solves: (B, T, C, the path's cost, inner iterations), and
-# one shape past the kernel's staged size
+# the solve entry's shapes: (B, T, C, the path's cost, inner iterations):
+# register_joint's, and the window's at its paths' shapes
 LM_SHAPES = {"odometry": (1, 4, 512, "P2P", 20),
              "odometry_b4": (4, 4, 512, "P2P", 20),
              "loop_wave": (64, 1, 512, "P2L", 10),
              "joint": (5, 5, 512, "P2P", 20),
-             # a cell_capacity of 2048: P2D's row (312 KB) exceeds the
-             # staged 200 KB and is read from global memory
-             "unstaged_p2d": (2, 4, 2048, "P2D", 20)}
+             # a cell_capacity of 2048: P2D's row spread over the cluster
+             "p2d_2048": (2, 4, 2048, "P2D", 20)}
+# the window entry's shapes: (B, T, C = Ct, the path's cost, inner and outer
+# iterations): the odometry step at B = 1 and 4, an online wave of 12
+# candidates, an offline wave of 64 pairs, and cell_capacity 2048 with P2D
+WINDOW_SHAPES = {"odometry": (1, 4, 512, "P2P", 20, 8),
+                 "odometry_b4": (4, 4, 512, "P2P", 20, 8),
+                 "online_wave": (12, 1, 512, "P2L", 10, 8),
+                 "loop_wave": (64, 1, 512, "P2L", 10, 8),
+                 "p2d_2048": (2, 4, 2048, "P2D", 20, 8)}
+# forced cluster sizes, at shapes whose rows fit one CTA
+FORCED_SHAPES = {"odometry": (1, 4, 512, "P2P"), "wave": (3, 1, 512, "P2L"),
+                 "p2d": (2, 3, 256, "P2D")}
 # float32 operations a leaf an evaluation, counted from csrc/lm_solve.cu's
 # leaf() with the Huber loss, a fused multiply-add as two: the transformed
 # point 16 (P2P; P2L 20, P2D 31), the loss 6, the weights 2, the 15
 # products of J^T [J | r], the 13 sums' adds; for the bound
 LM_OPS_PER_LEAF = {"P2L": 56, "P2P": 52, "P2D": 67}
+# float32 operations an association: each (source, target) pair's distance
+# (2 sub, 2 mul, 1 add, 1 compare), and once an association the moved
+# source cell, the gates and the weights (about 40; P2D's whitening 20 more)
+ASSOC_OPS_PER_PAIR = 6
+ASSOC_OPS = {"P2L": 40, "P2P": 40, "P2D": 60}
 
 
 def _lm_bytes(b, t, c, cost, prior):
@@ -726,18 +841,192 @@ def _lm_bytes(b, t, c, cost, prior):
     return b * per_row + (36 + 16 * b if prior else 0)
 
 
-def phase_lm_solve():
-    """The LM-solve kernel against its plain version on the card, bit for
-    bit in theta, cost and rel_dec, over every cost x loss x prior x
-    one_system at the paths' shapes; then one solve's time at each shape
-    (the path's own cost, Huber, no prior) beside the plain version's and
-    the bound."""
+def _window_bound(b, t, c, ct, cost, inner, iterations):
+    """Least time of one window call on these inputs: the larger of its
+    bytes (source cells, world-frame targets and outputs, each once) over
+    the memory rate and its float32 operations over the float32 rate,
+    counted from the outer iterations each row ran (``iterations``) with
+    every solve's 1 + inner evaluations."""
+    n = t * c * (1 if cost == "P2L" else 2)
+    outer = float(iterations.sum())
+    ops = outer * (t * c * ct * ASSOC_OPS_PER_PAIR + t * c * ASSOC_OPS[cost]
+                   + (1 + inner) * n * LM_OPS_PER_LEAF[cost])
+    nbytes = b * (12 + c * (8 + 8 + 4 + 4 + 1)
+                  + t * ct * (8 + 8 + 1 + 4 + 4 + (16 if cost == "P2D"
+                                                    else 0))
+                  + 12 + 4 + 8 + 8)
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return dict(bound_ms=max(by_bytes, by_ops) * 1e3,
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def _window_case(prob, dev, cfg):
+    """``register_window``'s arguments on the card for a window problem."""
+    from tbv_slam_public_torch.core.types import Cells
+
+    t = lambda k: torch.as_tensor(prob[k], device=dev)
+
+    def cells(side):
+        f = lambda k: t(f"{side}_{k}")
+        return Cells(mean=f("mean"), cov=f("cov"), normal=f("normal"),
+                     nsamples=f("nsamples"), planarity=f("planarity"),
+                     avg_intensity=torch.zeros_like(f("nsamples")),
+                     valid=f("valid"))
+
+    kw = dict(guess=t("guess"), guess_sqrt_info=t("sqrt_info")) \
+        if "guess" in prob else {}
+    return (cells("src"), t("pose0"), cells("tgt"), t("tgt_poses"),
+            t("scan_mask"), cfg), kw
+
+
+def phase_registration():
+    """The registration kernel against its plain versions on the card.
+    Window entry: ``register_window`` bit for bit (pose, score, residual
+    count, iterations) over every cost x loss x prior, one_system and the
+    weight option 0-4 in turn, at the paths' shapes; forced cluster sizes
+    1, 2, 4, 8 bit-identical; one window launch a call, no solve launch,
+    and the same refmath launches (``_world_targets``') at 1 and 8 outer
+    iterations; then one call's time at the odometry, B = 4 and loop-wave
+    shapes in turns against the plain path (kernel, plain, plain, kernel)
+    and the kernel's device time from the profiler, beside the bound.  Solve entry: bit for bit in theta, cost and rel_dec
+    over every cost x loss x prior x one_system at its shapes, timed."""
+    from tbv_slam_public_torch.core.config import RegistrationConfig
     from tbv_slam_public_torch.kernels import lm_solve as lk
-    from tbv_slam_public_torch.kernels.checks import bits_differ, lm_problem
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.kernels.checks import (bits_differ,
+                                                      lm_problem,
+                                                      window_problem)
+    from tbv_slam_public_torch.ops import registration as treg
     from tbv_slam_public_torch.ops.registration import cost_code
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(17)
+    losses = ("none", "huber", "cauchy", "softlone", "tukey", "combined")
+    held, times = 0, {}
+    for tag, (b, tt, c, path_cost, inner, outer) in WINDOW_SHAPES.items():
+        probs = [window_problem(rng, b, tt, c, c, with_prior=p)
+                 for p in (False, True)]
+        i = 0
+        for cost in ("P2L", "P2D", "P2P"):
+            for loss in losses:
+                for with_prior in (False, True):
+                    cfg = RegistrationConfig(
+                        cost=cost, loss=loss, weight_option=i % 5,
+                        max_inner_iterations=inner,
+                        max_outer_iterations=outer)
+                    args, kw = _window_case(probs[with_prior], dev, cfg)
+                    one = b == 1 and i % 2 == 0
+                    lk.LAUNCHES_BY_ENTRY.clear()
+                    got = treg.register_window(*args, one_system=one, **kw)
+                    if dict(lk.LAUNCHES_BY_ENTRY) != {"window": 1}:
+                        raise AssertionError(
+                            f"[2b] register_window {tag}: launches "
+                            f"{dict(lk.LAUNCHES_BY_ENTRY)}, not one window")
+                    with lk.plain_on_card():
+                        want = treg.register_window(*args, one_system=one,
+                                                    **kw)
+                    bad = window_differ(got, want)
+                    if bad:
+                        raise AssertionError(
+                            f"[2b] register_window {tag} {cost} {loss} "
+                            f"prior {with_prior} one_system {one} weight "
+                            f"{i % 5}: {bad} values differ")
+                    held += 1
+                    i += 1
+        # refmath launches of a call do not depend on its outer iterations
+        per_call = []
+        for n_outer in (1, 8):
+            cfg = RegistrationConfig(cost=path_cost,
+                                     max_outer_iterations=n_outer)
+            args, kw = _window_case(probs[0], dev, cfg)
+            rm.LAUNCHES = 0
+            lk.LAUNCHES_BY_ENTRY.clear()
+            treg.register_window(*args, **kw)
+            per_call.append((rm.LAUNCHES, dict(lk.LAUNCHES_BY_ENTRY)))
+        if per_call[0] != per_call[1] or per_call[0][1] != {"window": 1}:
+            raise AssertionError(f"[2b] register_window {tag}: launches at "
+                                 f"1 and 8 outer iterations {per_call}")
+        cfg = RegistrationConfig(cost=path_cost, max_inner_iterations=inner,
+                                 max_outer_iterations=outer)
+        args, kw = _window_case(probs[0], dev, cfg)
+        call = lambda: treg.register_window(*args, **kw)
+
+        def plain():
+            with lk.plain_on_card():
+                return call()
+
+        res = call()
+        bound = _window_bound(b, tt, c, c, path_cost, inner,
+                              res.iterations.cpu().numpy())
+        if tag in ("odometry", "odometry_b4", "loop_wave"):
+            # in turns, by CUDA events (a call's host time may exceed its
+            # device time, so these can be paced by the host), and the
+            # kernel's own device time from the profiler
+            k1 = cuda_ms(call, 20)
+            p1 = cuda_ms(plain, 2)
+            p2 = cuda_ms(plain, 2)
+            k2 = cuda_ms(call, 20)
+            kernel_us = [us for name, us in device_us_by_kernel(call).items()
+                         if "registration_kernel" in name]
+            if not kernel_us:
+                raise AssertionError(f"[2b] register_window {tag}: the "
+                                     f"profiler saw no kernel time")
+            times[tag] = dict(
+                B=b, T=tt, C=c, cost=path_cost, inner=inner, outer=outer,
+                K=lk.cluster_size(b, tt, c, c, cost_code(path_cost), True),
+                iterations=res.iterations.tolist(), ms=kernel_us[0] / 1e3,
+                events_ms_turns=[k1, k2], plain_ms=min(p1, p2),
+                plain_ms_turns=[p1, p2], host_us=host_us(call, 20),
+                world_targets_host_us=host_us(lambda: treg._world_targets(
+                    args[2], args[3], args[4], cost_code(path_cost)), 20),
+                refmath_launches_a_call=per_call[0][0], **bound)
+            _share(f"register_window {tag}", bound["bound_ms"],
+                   times[tag]["ms"])
+            log(f"[2b] register_window {tag} B={b} T={tt} C={c} "
+                f"{path_cost} K={times[tag]['K']} iterations "
+                f"{times[tag]['iterations'][:8]}: {times[tag]['ms']:.4f} ms "
+                f"of device time, {k1:.4f} / {k2:.4f} ms by events "
+                f"(bound {bound['bound_ms']:.6f} ms by {bound['bound_by']}),"
+                f" plain {p1:.2f} / {p2:.2f} ms, host "
+                f"{times[tag]['host_us']:.1f} us a call (_world_targets "
+                f"{times[tag]['world_targets_host_us']:.1f}), "
+                f"{per_call[0][0]} refmath launches a call")
+    log(f"[2b] register_window: bit-equal to the plain version in {held} "
+        f"calls ({len(WINDOW_SHAPES)} shapes); one window launch a call")
+    forced = 0
+    for tag, (b, tt, c, cost) in FORCED_SHAPES.items():
+        prob = window_problem(rng, b, tt, c, c, with_prior=True)
+        cfg = RegistrationConfig(cost=cost)
+        (src, pose0, tgt, tposes, smask, _), kw = _window_case(prob, dev, cfg)
+        with lk.plain_on_card():
+            want = treg.register_window(src, pose0, tgt, tposes, smask, cfg,
+                                        **kw)
+        code = cost_code(cost)
+        tmw, tnw, tcw, tvalid = treg._world_targets(tgt, tposes, smask, code)
+        for k in (1, 2, 4, 8):
+            pose, score, n_res, used = lk.register_window(
+                pose0, src.mean, src.normal, src.nsamples, src.planarity,
+                src.valid, tmw, tnw, tcw, tvalid, tgt.nsamples,
+                tgt.planarity, cost=code, loss=treg.loss_code(cfg.loss),
+                delta=cfg.loss_limit, max_inner=cfg.max_inner_iterations,
+                init_lambda=cfg.init_lambda,
+                max_outer=cfg.max_outer_iterations,
+                min_outer=cfg.min_outer_iterations, radius=cfg.radius,
+                angle_gate_cos=math.cos(math.radians(cfg.angle_gate_deg)),
+                weight_option=cfg.weight_option,
+                regularization=cfg.regularization, cov_scale=cfg.cov_scale,
+                score_tolerance=cfg.score_tolerance, guess=kw["guess"],
+                sqrt_info=kw["guess_sqrt_info"], cluster=k)
+            bad = bits_differ(pose, want.pose) + bits_differ(
+                score, want.score) + int((n_res != want.num_residuals).sum()) \
+                + int((used != want.iterations).sum())
+            if bad:
+                raise AssertionError(f"[2b] register_window {tag} at K={k}: "
+                                     f"{bad} values differ")
+            forced += 1
+    log(f"[2b] register_window: bit-identical at cluster sizes 1, 2, 4, 8 "
+        f"({forced} calls)")
+
     t = lambda x: None if x is None else torch.as_tensor(x, device=dev)
 
     def args(prob, cost, loss, it, one):
@@ -748,7 +1037,7 @@ def phase_lm_solve():
                     prior=None if prior is None else tuple(map(t, prior)))
         return ts, opts
 
-    held, times = 0, {}
+    solves, solve_times = 0, {}
     for tag, (b, tt, c, path_cost, it) in LM_SHAPES.items():
         for name in ("P2L", "P2D", "P2P"):
             cost = cost_code(name)
@@ -766,14 +1055,14 @@ def phase_lm_solve():
                                 f"lm_solve {tag} {name} loss {loss} prior "
                                 f"{with_prior} one_system {one}: {bad} "
                                 f"values differ")
-                        held += 1
+                        solves += 1
         prob = lm_problem(rng, b, tt, c, path_cost, False)
         ts, opts = args(prob, cost_code(path_cost), 1, it, b == 1)
         n = tt * c * (1 if path_cost == "P2L" else 2)
         ops = b * (it + 1) * n * LM_OPS_PER_LEAF[path_cost]
         by_bytes = _lm_bytes(b, tt, c, path_cost, False) / PEAK_BYTES_PER_S
         by_ops = ops / PEAK_F32_FLOPS
-        times[tag] = dict(
+        solve_times[tag] = dict(
             B=b, T=tt, C=c, cost=path_cost, inner=it,
             ms=cuda_ms(lambda: lk.lm_solve(*ts, **opts), 20),
             plain_ms=cuda_ms(lambda: plain_lm(ts, opts), 3),
@@ -781,14 +1070,16 @@ def phase_lm_solve():
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             host_us=host_us(lambda: lk.lm_solve(*ts, **opts), 20))
         log(f"[2b] lm_solve {tag} B={b} T={tt} C={c} {path_cost} {it} "
-            f"inner: {times[tag]['ms']:.4f} ms (bound "
-            f"{times[tag]['bound_ms']:.6f} ms by {times[tag]['bound_by']}), "
-            f"plain {times[tag]['plain_ms']:.2f} ms, host "
-            f"{times[tag]['host_us']:.1f} us a call")
-    log(f"[2b] lm_solve: bit-equal to the plain version in {held} solves "
+            f"inner: {solve_times[tag]['ms']:.4f} ms (bound "
+            f"{solve_times[tag]['bound_ms']:.6f} ms by "
+            f"{solve_times[tag]['bound_by']}), plain "
+            f"{solve_times[tag]['plain_ms']:.2f} ms, host "
+            f"{solve_times[tag]['host_us']:.1f} us a call")
+    log(f"[2b] lm_solve: bit-equal to the plain version in {solves} solves "
         f"(every cost x loss x prior x one_system at {len(LM_SHAPES)} "
         f"shapes)")
-    return dict(max_abs_err=0.0, held=held, times=times)
+    return dict(max_abs_err=0.0, held=held, forced=forced, times=times,
+                solves=solves, solve_times=solve_times)
 
 
 def phase_real_clouds(loops, sm_hz):
@@ -978,8 +1269,9 @@ def phase_slice(n_frames):
         slam_s, slam = wl.loop_stage(cfg, g, dev, warm=False)
     launches = cm.LAUNCHES
 
-    # the first frames again, once with the LM-solve kernel and once with the
-    # plain solve on the card: the trajectories must be bit-equal
+    # the first frames again, once with the registration kernel and once
+    # with the plain registration on the card: the trajectories must be
+    # bit-equal
     n_cmp = min(20, n_frames)
 
     def first_frames(plain):
@@ -999,11 +1291,11 @@ def phase_slice(n_frames):
     if not (np.array_equal(kernel_poses, plain_poses) and np.array_equal(
             kernel_poses, np.asarray(pipe.frame_poses)[:n_cmp])):
         raise AssertionError(
-            f"[4] {n_cmp} frames with the LM-solve kernel and with the plain "
-            f"solve differ: max gap "
+            f"[4] {n_cmp} frames with the registration kernel and with the "
+            f"plain registration differ: max gap "
             f"{np.abs(kernel_poses - plain_poses).max()}")
-    log(f"[4] {n_cmp} frames bit-equal with the LM-solve kernel "
-        f"({t1 - t0:.2f} s) and the plain solve on the card "
+    log(f"[4] {n_cmp} frames bit-equal with the registration kernel "
+        f"({t1 - t0:.2f} s) and the plain registration on the card "
         f"({t2 - t1:.2f} s)")
 
     s = slam.summary
@@ -1820,8 +2112,8 @@ def ranks_worker(inputs, out_dir) -> int:
 
         def run(key, fn):
             before, t0 = cm.LAUNCHES, time.perf_counter()
-            rm.LAUNCHES = 0  # the case's own refmath and LM launches
-            lk.LAUNCHES = 0
+            rm.LAUNCHES = 0  # the case's own refmath and registration
+            lk.LAUNCHES = 0  # launches
             res = fn()
             torch.cuda.synchronize()
             timed[key] = (time.perf_counter() - t0, cm.LAUNCHES - before)
@@ -1863,6 +2155,7 @@ def ranks_worker(inputs, out_dir) -> int:
         refmath_kept = contextlib.ExitStack()
         kept = refmath_kept.enter_context(refmath_inputs())
         lm_kept = refmath_kept.enter_context(lm_inputs())
+        win_kept = refmath_kept.enter_context(window_inputs())
         # the first run of a fresh process loads its kernels; the second is
         # timed as the steady state, and the path's launches are counted
         # from there
@@ -1947,6 +2240,8 @@ def ranks_worker(inputs, out_dir) -> int:
             f"[10b] rank {mesh.rank}", kept))
         out["lm_held"] = np.asarray(hold_lm(f"[10b] rank {mesh.rank}",
                                             lm_kept))
+        out["window_held"] = np.asarray(hold_window(
+            f"[10b] rank {mesh.rank}", win_kept))
         np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
@@ -2002,10 +2297,12 @@ def phase_parallel_ranks(overrides, loops, one, dev, pair):
     LM_LAUNCHES["ranks"] = {c: [int(o[f"{c}_lm_launches"]) for o in outs]
                             for c in cases}
     LM_HELD["ranks"] = [int(o["lm_held"]) for o in outs]
+    WINDOW_HELD["ranks"] = [int(o["window_held"]) for o in outs]
     for case in ("waves", "odometry", "dryrun"):
         if min(LM_LAUNCHES["ranks"][case]) <= 0:
             raise AssertionError(f"[10b] a rank's {case} launched no "
-                                 f"lm_solve kernel: {LM_LAUNCHES['ranks']}")
+                                 f"registration kernel: "
+                                 f"{LM_LAUNCHES['ranks']}")
     # (M, slots) of every launch held to the plain version: the first
     # wave's share (waves of 64 pairs, fewer candidates padded to a multiple
     # of the ranks) and the training step's share of 13 perturbations a pair
@@ -2215,7 +2512,7 @@ def main(argv=None) -> int:
     smi, sm_hz = phase_build()
     k = phase_kernels(sm_hz)
     refmath_k = phase_refmath()
-    lm_k = phase_lm_solve()
+    lm_k = phase_registration()
     done("1-2")
     plain_trajectory, scan_launches = phase_cli()
     done("3")
@@ -2270,21 +2567,26 @@ def main(argv=None) -> int:
         "times": refmath_k["times"],
         "launches_by_path": REFMATH_LAUNCHES,
         "shapes_held_by_path": REFMATH_HELD}, {
-        "name": "lm_solve", "route": "cuda",
+        "name": "register_window", "route": "cuda",
         "source": "tbv_slam_public_torch/csrc/lm_solve.cu",
-        "replaces": "tbv_slam_public_tpu/ops/registration.py:350 (no TPU "
-                    "kernel: XLA fuses _lm_solve; the port's plain version "
-                    "is ops/registration.py::_lm_solve_reference)",
-        "launches": LM_LAUNCHES["offline"],
+        "replaces": "tbv_slam_public_tpu/ops/registration.py:395 (no TPU "
+                    "kernel: XLA fuses register_window, associate and "
+                    "_lm_solve; the port's plain version is "
+                    "ops/registration.py::_register_window_reference)",
+        "launches": LM_LAUNCHES["offline"]["total"],
         "max_abs_err": lm_k["max_abs_err"],
         "ms": lm_k["times"]["odometry"]["ms"],
         "plain_ms": lm_k["times"]["odometry"]["plain_ms"],
         "bound_ms": lm_k["times"]["odometry"]["bound_ms"],
         "bound_by": lm_k["times"]["odometry"]["bound_by"],
         "library_ms": None, "times": lm_k["times"],
-        "grid_solves_held": lm_k["held"],
+        "window_calls_held": lm_k["held"],
+        "forced_cluster_calls_held": lm_k["forced"],
+        "solve_entry": {"times": lm_k["solve_times"],
+                        "grid_solves_held": lm_k["solves"]},
         "launches_by_path": LM_LAUNCHES,
-        "shapes_held_by_path": LM_HELD}],
+        "window_shapes_held_by_path": WINDOW_HELD,
+        "solve_shapes_held_by_path": LM_HELD}],
         "variants": variants, "batched": batched, "rest": rest,
         "schur_twice": schur_twice, "parallel": parallel,
         "phase_s": phase_s}))

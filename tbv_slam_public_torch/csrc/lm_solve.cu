@@ -1,77 +1,117 @@
-// The registration's Levenberg-Marquardt solve, one launch per solve, for
-// sm_90a.
+// The registration's window solve (register_window: association, LM solve
+// and outer guards) as one launch per call, and its LM solve alone on given
+// associations (register_joint), for sm_90a.
 //
-// Not a TPU kernel: the JAX package's _lm_solve (ops/registration.py, with
-// _cost_grad_hess, _residual_terms and _rho_and_weight) is left to XLA,
-// which fuses it.  The port's plain version (ops/registration.py::
-// _lm_solve_reference) runs each of its operations as its own launch:
-// about 21 x (a few dozen) launches a solve, each a few microseconds of
-// host dispatch for a few microseconds of device work.  This kernel runs the
-// whole solve (the initial cost, gradient and Hessian, then max_iter
-// iterations of damping, the step, the candidate's residuals, robust loss,
-// weights and sums, accept or reject) in one launch, bit-equal to the plain
-// version: every operation below is the plain version's, each multiply,
-// add and fused multiply-add an explicit __f*_rn / __fma*_rn intrinsic, and
-// refmath.cuh supplies the reference's sincos, log1p, IEEE sqrt and LM step.
+// Not a TPU kernel: the JAX package's register_window, associate and
+// _lm_solve (ops/registration.py) are left to XLA, which fuses them.  The
+// port's plain version (ops/registration.py::_register_window_reference,
+// with _world_targets, associate and _lm_solve_reference) runs each of its
+// operations as its own launch: about 40 launches an association and a few
+// dozen an LM evaluation, 8 outer iterations a call.  This kernel runs all
+// of it after _world_targets in one launch, bit-equal to the plain version:
+// every operation below is the plain version's, each multiply, add and
+// fused multiply-add an explicit __f*_rn / __fma*_rn intrinsic, torch's
+// comparison and NaN rules written out (argmin: the first NaN, else the
+// first minimum), and refmath.cuh supplies the reference's sincos, log1p,
+// IEEE sqrt and LM step.
 //
-// Design.  One CTA (256 threads) a batch row; the row's inputs are staged
-// into shared memory once with asynchronous copies (cp.async) when they fit
-// (about 80 KB at T = 4, C = 512 with P2D's sqrt-information), else read
-// from device memory.  The 13 sums of an evaluation (the cost and the 12
-// entries of J^T [J | r]) follow the plain version's pairwise tree
-// (_row_sums: leaves padded with zeros to a power of two W, each even
-// element added to the odd one after it): thread t holds the aligned run of
-// L = W / min(256, W) leaves from t L, reduces it in registers level by
-// level, then __shfl_xor_sync levels (a + b rounds as b + a) and a tree over
-// the warps' sums in shared memory finish the same tree.  Thread 0 runs the
-// 3x3 step and the accept / reject and hands the candidate to the block
-// through shared memory.
+// Bound: the work is small (at B = 1, T = 4, C = 512: a million masked
+// distances an association, about 50 float32 operations a leaf an LM
+// evaluation over 4,096 leaves) and the bytes smaller; a call is a chain of
+// up to 8 associations and 8 x 21 dependent evaluations, each a reduction
+// over the whole row followed by a 3x3 step.  So its time is that chain's
+// latency.  The design shortens each link and removes the launches between
+// them:
 //
-// Bound: operations by count (about 50 float32 operations a leaf an
-// evaluation, 21 evaluations) and bytes by count (the row's inputs read
-// once) are both well under a microsecond at the paths' shapes; the solve
-// is a chain of max_iter + 1 dependent block-wide reductions and 3x3 steps,
-// so its time is that chain's latency, not either bound.
+// * A thread-block cluster of K CTAs (K a power of two <= 8, chosen by the
+//   wrapper from B and the row's size) per batch row.  CTA k owns the
+//   aligned k-th 1/K of the row's _row_sums leaves and computes, once per
+//   outer iteration, the associations of those leaves into shared memory
+//   (the target scan it needs staged there with cp.async; one at a time
+//   when its leaves span several scans), so the evaluations read only
+//   shared memory.
+// * The 13 sums of an evaluation (the cost and the 12 entries of
+//   J^T [J | r]) follow the plain version's pairwise tree (_row_sums: the
+//   leaves padded with zeros to a power of two W, each even element added
+//   to the odd one after it): each thread reduces its aligned run of leaves
+//   in registers, __shfl_xor_sync levels and a tree over the warps' sums
+//   (one warp, a lane a sum) finish the CTA's subtree, each CTA writes its
+//   root to its shared-memory slot, one cluster.sync(), and every CTA reads
+//   the K roots over distributed shared memory and adds the tree's top
+//   log2 K levels itself.  So the sums do not depend on K.  The slot is
+//   double-buffered on the evaluation's parity: a CTA rewrites a slot only
+//   after every CTA has passed the next evaluation's barrier, so one
+//   barrier an evaluation suffices.
+// * Every CTA then runs the finish, the damping, the step and the
+//   accept / reject itself on identical bits, so nothing is broadcast; the
+//   outer guards likewise, and the cluster leaves the outer loop as soon as
+//   the row is inactive (none of its outputs can change after that).
+#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
 #include "refmath.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxLogLeaves = 7;  // W <= 256 * 128 leaves a row
-constexpr size_t kStageBytes = 200 * 1024;
+constexpr int kMaxLogLeaves = 7;  // at most 128 leaves a thread
+constexpr int kMaxCluster = 8;    // the portable cluster size
+constexpr long long kSmemBytes = 200 * 1024;
+constexpr int kChains = 4;        // independent argmin chains a thread
+constexpr int kMaxDevices = 16;   // launch checks cached per device
 
 enum Cost { kP2L = 0, kP2D = 1, kP2P = 2 };
 enum Loss { kNone = 0, kHuber, kCauchy, kSoftLOne, kTukey, kCombined };
 
 struct Params {
-  const float* theta0;        // [B, 3]
-  const float* src;           // [B, C, 2] source cell means
-  const float* tm;            // [B, T, C, 2] target means (world)
-  const float* tn;            // [B, T, C, 2] target normals (P2L), or null
-  const float* weight;        // [B, T, C]
-  const unsigned char* mask;  // [B, T, C]
-  const float* si;            // [B, T, C, 2, 2] sqrt-information (P2D), or null
-  const float* guess;         // [B, 3] prior mean, or null: no prior
-  const float* sqrt_info;     // [3, 3]
-  const float* pw;            // [B] prior weight
-  float* out_theta;           // [B, 3]
-  float* out_cost;            // [B]
-  float* out_rel;             // [B]
-  int T, C, R, N, nthr, cost, loss, max_iter, one_system, stage;
+  int window;             // 1: register_window; 0: one solve on given associations
+  const float* theta0;    // [B, 3]
+  const float* src;       // [B, C, 2] source cell means
+  // solve: the associations [B, T, C, ...]
+  const float* tm;            // target means (world)
+  const float* tn;            // target normals (P2L), or null
+  const float* weight;        // association weights
+  const unsigned char* mask;  // association mask
+  const float* si;            // [.., 2, 2] sqrt-information (P2D), or null
+  // window: the source cells and the world-frame targets [B, T, Ct, ...]
+  const float* src_normal;         // [B, C, 2]
+  const float* src_ns;             // [B, C] nsamples
+  const float* src_plan;           // [B, C] planarity
+  const unsigned char* src_valid;  // [B, C]
+  const float* tmw;                // [B, T, Ct, 2]
+  const float* tnw;                // [B, T, Ct, 2]
+  const float* tcw;                // [B, T, Ct, 2, 2] (P2D), or null
+  const unsigned char* tvalid;     // [B, T, Ct]
+  const float* t_ns;               // [B, T, Ct]
+  const float* t_plan;             // [B, T, Ct]
+  // the prior: guess [B, 3] (null: none), sqrt_info [3, 3], pw [B] (solve)
+  const float* guess;
+  const float* sqrt_info;
+  const float* pw;
+  float* out_theta;      // [B, 3]
+  float* out_cost;       // [B]: the solve's cost, the window's score
+  float* out_rel;        // [B] (solve)
+  long long* out_nres;   // [B] (window)
+  long long* out_iters;  // [B] (window)
+  int T, C, Ct, R, N, K, Wk, Qk, nthr;
+  int cost, loss, max_iter, one_system;
   float k0, k1, k2, k3;  // the loss's float32 constants (lm_solve.py)
   float init_lambda;
+  int max_outer, min_outer, weight_option;
+  float r2_first, r2, gate, reg, cov_scale, tol;  // float32 as torch rounds them
+  // shared-memory layout: float offsets of the records' arrays and of the
+  // staged target means, byte offsets of the mask and target validity
+  int o_sx, o_sy, o_mx, o_my, o_w, o_nx, o_ny, o_u, o_txy;
+  long long o_mask, o_tv;
 };
 
-struct Row {
-  const float* src;
-  const float* tm;
-  const float* tn;
-  const float* weight;
-  const unsigned char* mask;
-  const float* si;
+// one CTA's associations (records) in shared memory, by local index
+struct Rec {
+  float *sx, *sy, *mx, *my, *w, *nx, *ny, *u;
+  unsigned char* m;
 };
 
 // torch.clamp(x, min=lo) / (x, max=hi): a NaN passes through
@@ -96,7 +136,7 @@ __device__ __forceinline__ void rho_weight(float s, const Params& p,
     }
     case kCauchy: {  // k0 = 1 / b, k1 = b
       *rho = __fmul_rn(p.k1, ref_log1p(__fmul_rn(s, p.k0)));
-      *w = __fdiv_rn(1.0f, __fmaf_rn(s, p.k0, 1.0f));
+      *w = daz(__fdiv_rn(1.0f, __fmaf_rn(s, p.k0, 1.0f)));
       return;
     }
     case kSoftLOne: {  // k0 = 1 / b, k1 = 2 b
@@ -114,11 +154,11 @@ __device__ __forceinline__ void rho_weight(float s, const Params& p,
     }
     case kCombined: {
       const float g = ref_log1p(s);
-      const float gp = __fdiv_rn(1.0f, __fadd_rn(s, 1.0f));
+      const float gp = daz(__fdiv_rn(1.0f, __fadd_rn(s, 1.0f)));
       const float sg = __fsqrt_rn(daz(clamp_min(g, (float)1e-20)));
       const bool in = g <= 1.0f;
       *rho = in ? g : __fsub_rn(__fmul_rn(2.0f, sg), 1.0f);
-      *w = __fmul_rn(in ? 1.0f : __fdiv_rn(1.0f, sg), gp);
+      *w = daz(__fmul_rn(in ? 1.0f : __fdiv_rn(1.0f, sg), gp));
       return;
     }
     default:
@@ -127,35 +167,36 @@ __device__ __forceinline__ void rho_weight(float s, const Params& p,
   }
 }
 
-// The 13 summands of leaf i ((t C + j) R + r): the cost (at r = 0) and
+// The 13 summands of leaf i ((t C + j) R + r) of the row, whose
+// association is record i / R - q0 of this CTA: the cost (at r = 0) and
 // (w J_a) [J | r]_b, as _residual_terms and _cost_grad_hess compute them;
 // zeros past the row's N leaves.
-__device__ __forceinline__ void leaf(const Params& p, const Row& d, int i,
-                                     float th0, float th1, float s, float c,
-                                     float* v) {
+__device__ __forceinline__ void leaf(const Params& p, const Rec& d, int i,
+                                     int q0, float th0, float th1, float s,
+                                     float c, float* v) {
   if (i >= p.N) {
 #pragma unroll
     for (int m = 0; m < 13; ++m) v[m] = 0.0f;
     return;
   }
-  const int q = i / p.R, r = i - q * p.R, j = q % p.C;
-  const float ux = d.src[2 * j], uy = d.src[2 * j + 1];
+  const int q = i / p.R, r = i - q * p.R, l = q - q0;
+  const float ux = d.sx[l], uy = d.sy[l];
   const float dy = __fmaf_rn(c, ux, -__fmul_rn(s, uy));
   const float wx = __fadd_rn(dy, th0);
   const float wy = __fadd_rn(__fmaf_rn(s, ux, __fmul_rn(c, uy)), th1);
   const float dx = __fmaf_rn(-s, ux, -__fmul_rn(c, uy));
-  const float e0 = __fsub_rn(wx, d.tm[2 * q]);
-  const float e1 = __fsub_rn(wy, d.tm[2 * q + 1]);
+  const float e0 = __fsub_rn(wx, d.mx[l]);
+  const float e1 = __fsub_rn(wy, d.my[l]);
   float J[3], res, sq;
   if (p.cost == kP2L) {
-    const float n0 = d.tn[2 * q], n1 = d.tn[2 * q + 1];
+    const float n0 = d.nx[l], n1 = d.ny[l];
     res = __fmaf_rn(n1, e1, __fmul_rn(n0, e0));
     J[0] = n0;
     J[1] = n1;
     J[2] = __fmaf_rn(n0, dx, __fmul_rn(n1, dy));
     sq = __fmul_rn(res, res);
   } else if (p.cost == kP2D) {
-    const float* u = d.si + 4 * q;  // u[row * 2 + col]
+    const float* u = d.u + 4 * l;  // u[row * 2 + col]
     const float r0 = __fmaf_rn(u[1], e1, __fmul_rn(u[0], e0));
     const float r1 = __fmaf_rn(u[3], e1, __fmul_rn(u[2], e0));
     const float a = u[2 * r], b = u[2 * r + 1];
@@ -174,8 +215,8 @@ __device__ __forceinline__ void leaf(const Params& p, const Row& d, int i,
   }
   float rho, wi;
   rho_weight(sq, p, &rho, &wi);
-  const bool m = d.mask[q] != 0;
-  const float wt = d.weight[q];
+  const bool m = d.m[l] != 0;
+  const float wt = d.w[l];
   const float w = m ? __fmul_rn(wt, wi) : 0.0f;
   v[0] = (m && r == 0) ? __fmul_rn(wt, rho) : 0.0f;
 #pragma unroll
@@ -187,23 +228,35 @@ __device__ __forceinline__ void leaf(const Params& p, const Row& d, int i,
   }
 }
 
-// The 13 sums of the row at theta (shared), in _row_sums's pairwise tree;
-// valid in thread 0.
+// Shared state of one CTA.
+struct Shared {
+  float* theta;  // [3] the point of the next evaluation
+  float* red;    // [kWarps * 13] the warps' sums
+  float* slots;  // [2 * 16] this CTA's root: 13 sums and the count
+  float* sums;   // [16] the row's 13 sums and its association count
+  int* flag;
+  int* count;
+};
+
+// The row's 13 sums at sh.theta in _row_sums's pairwise tree, and the sum
+// of the CTAs' association counts (``count`` this CTA's), in sh.sums of
+// warp 0 (valid in thread 0 on return).  ``par`` flips each evaluation.
 template <int LOG_L>
-__device__ void evaluate(const Params& p, const Row& d, const float* theta,
-                         float* red, float* out) {
+__device__ void evaluate(const Params& p, const Rec& d, int leaf0, int q0,
+                         int count, const Shared& sh, int& par,
+                         cg::cluster_group& cluster) {
   constexpr int L = 1 << LOG_L;
-  const int tid = threadIdx.x;
-  const float th0 = theta[0], th1 = theta[1];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float th0 = sh.theta[0], th1 = sh.theta[1];
   float s, c;
-  ref_sincos(theta[2], &s, &c);
+  ref_sincos(sh.theta[2], &s, &c);
   float v[13];
   if (tid < p.nthr) {
     float stack[LOG_L > 0 ? LOG_L : 1][13];
-    const int base = tid * L;
+    const int base = leaf0 + tid * L;
     for (int k = 0; k < L; ++k) {
       float x[13];
-      leaf(p, d, base + k, th0, th1, s, c, x);
+      leaf(p, d, base + k, q0, th0, th1, s, c, x);
       bool carry = true;  // k's low set bits: subtrees that x completes
 #pragma unroll
       for (int lvl = 0; lvl < LOG_L; ++lvl) {
@@ -227,6 +280,7 @@ __device__ void evaluate(const Params& p, const Row& d, const float* theta,
 #pragma unroll
     for (int m = 0; m < 13; ++m) v[m] = 0.0f;
   }
+  // levels past the CTA's subtree would add zeros (a -0.0 turned +0.0)
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     if (o < p.nthr) {
@@ -235,32 +289,59 @@ __device__ void evaluate(const Params& p, const Row& d, const float* theta,
         v[m] = __fadd_rn(v[m], __shfl_xor_sync(0xffffffffu, v[m], o));
     }
   }
-  if (p.nthr > 32) {
-    const int nw = p.nthr >> 5;
-    if ((tid & 31) == 0 && (tid >> 5) < nw) {
+  const int nw = p.nthr > 32 ? p.nthr >> 5 : 1;
+  if (lane == 0 && warp < nw) {
 #pragma unroll
-      for (int m = 0; m < 13; ++m) red[(tid >> 5) * 13 + m] = v[m];
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int w = nw; w > 1; w >>= 1)
-        for (int k = 0; k < w / 2; ++k)
-#pragma unroll
-          for (int m = 0; m < 13; ++m)
-            red[k * 13 + m] = __fadd_rn(red[2 * k * 13 + m],
-                                        red[(2 * k + 1) * 13 + m]);
-#pragma unroll
-      for (int m = 0; m < 13; ++m) out[m] = red[m];
-    }
-  } else if (tid == 0) {
-#pragma unroll
-    for (int m = 0; m < 13; ++m) out[m] = v[m];
+    for (int m = 0; m < 13; ++m) sh.red[warp * 13 + m] = v[m];
   }
+  __syncthreads();
+  float* slot = sh.slots + par * 16;
+  if (warp == 0) {
+    if (lane < 13) {  // a lane a sum: the tree over the warps' sums
+      float x[kWarps];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) x[w] = w < nw ? sh.red[w * 13 + lane] : 0.0f;
+#pragma unroll
+      for (int n = kWarps; n > 1; n >>= 1) {
+        if (n <= nw) {
+#pragma unroll
+          for (int k = 0; k < n / 2; ++k) x[k] = __fadd_rn(x[2 * k], x[2 * k + 1]);
+        }
+      }
+      slot[lane] = x[0];
+    } else if (lane == 13) {
+      slot[13] = __int_as_float(count);
+    }
+  }
+  cluster.sync();
+  if (warp == 0) {
+    if (lane < 13) {  // the tree's top log2 K levels over the CTAs' roots
+      float x[kMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        x[r] = r < p.K ? cluster.map_shared_rank(slot, r)[lane] : 0.0f;
+#pragma unroll
+      for (int n = kMaxCluster; n > 1; n >>= 1) {
+        if (n <= p.K) {
+#pragma unroll
+          for (int k = 0; k < n / 2; ++k) x[k] = __fadd_rn(x[2 * k], x[2 * k + 1]);
+        }
+      }
+      sh.sums[lane] = x[0];
+    } else if (lane == 13) {
+      int total = 0;
+      for (int r = 0; r < p.K; ++r)
+        total += __float_as_int(cluster.map_shared_rank(slot, r)[13]);
+      sh.sums[13] = __int_as_float(total);
+    }
+    __syncwarp();
+  }
+  par ^= 1;
 }
 
 // cost, g and H from the 13 sums at th, plus the prior's terms
 // (_prior_terms: each sum one fused multiply-add a term, in order from 0)
-__device__ void finish(const Params& p, int b, const float* th,
+__device__ void finish(const Params& p, int b, float pw, const float* th,
                        const float* sums, float* cost, float* g, float* H) {
   *cost = __fmul_rn(0.5f, sums[0]);
 #pragma unroll
@@ -271,7 +352,6 @@ __device__ void finish(const Params& p, int b, const float* th,
   }
   if (p.guess == nullptr) return;
   const float* S = p.sqrt_info;
-  const float pw = p.pw[b];
   float d[3], pr[3], jp[9];
 #pragma unroll
   for (int k = 0; k < 3; ++k) d[k] = __fsub_rn(th[k], p.guess[3 * b + k]);
@@ -305,136 +385,448 @@ __device__ void finish(const Params& p, int b, const float* th,
   }
 }
 
-__device__ void stage_async(float* dst, const float* src, long long n) {
-  for (long long i = threadIdx.x; i < n; i += kThreads)
-    __pipeline_memcpy_async(dst + i, src + i, sizeof(float));
+// _lm_solve_reference from sh.theta on this CTA's records: in thread 0,
+// theta (in: the start, out: the solution), *cost and *rel; *total is the
+// row's association count (every thread).  In the window the inner
+// iterations are skipped when the count is <= 1: the outer guard then
+// drops the solve's result.
+template <int LOG_L>
+__device__ void lm_solve(const Params& p, int b, const Rec& d, int leaf0,
+                         int q0, int count, float pw, const Shared& sh,
+                         int& par, cg::cluster_group& cluster, float* theta,
+                         float* cost, float* rel, int* total) {
+  const int tid = threadIdx.x;
+  float g[3], H[9], cur = 0.0f, lam = p.init_lambda, rd = 1.0f;
+  evaluate<LOG_L>(p, d, leaf0, q0, count, sh, par, cluster);
+  if (tid == 0) {
+    finish(p, b, pw, theta, sh.sums, &cur, g, H);
+    *sh.flag = !p.window || __float_as_int(sh.sums[13]) > 1;
+    *sh.count = __float_as_int(sh.sums[13]);
+  }
+  __syncthreads();
+  *total = *sh.count;
+  if (*sh.flag) {
+    for (int it = 0; it < p.max_iter; ++it) {
+      float cand[3];
+      if (tid == 0) {
+        // H + diag(fma(lam, diag H, 1e-12)), zeros added off the diagonal
+        float A[9];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            A[3 * i + k] = __fadd_rn(
+                H[3 * i + k],
+                i == k ? __fmaf_rn(lam, H[4 * i], (float)1e-12) : 0.0f);
+        lm_update3(theta, A, g, p.one_system != 0, cand);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) sh.theta[k] = cand[k];
+      }
+      __syncthreads();
+      evaluate<LOG_L>(p, d, leaf0, q0, count, sh, par, cluster);
+      if (tid == 0) {
+        float cc, cg_[3], cH[9];
+        finish(p, b, pw, cand, sh.sums, &cc, cg_, cH);
+        const bool acc = cc < cur;
+        if (acc) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) theta[k] = cand[k], g[k] = cg_[k];
+#pragma unroll
+          for (int k = 0; k < 9; ++k) H[k] = cH[k];
+          rd = __fdiv_rn(__fsub_rn(cur, cc), clamp_min(cur, (float)1e-20));
+          cur = cc;
+        }
+        lam = acc ? clamp_min(__fmul_rn(lam, 0.5f), (float)1e-9)
+                  : clamp_max(__fmul_rn(lam, 4.0f), (float)1e6);
+      }
+    }
+  }
+  *cost = cur;
+  *rel = rd;
+}
+
+// _similarity: 2 min(x, y) / clamp(x + y, min=1e-12), torch.minimum's NaN
+__device__ __forceinline__ float similarity(float x, float y) {
+  const float mn = (isnan(x) || isnan(y)) ? NAN : (y < x ? y : x);
+  return __fdiv_rn(__fmul_rn(2.0f, mn),
+                   clamp_min(__fadd_rn(x, y), (float)1e-12));
+}
+
+// torch.argmin's order: (d, i) comes before (bd, bi) if d is NaN and bd is
+// not, or both are NaN and i < bi, or neither is NaN and d < bd, or d == bd
+// and i < bi
+__device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
+  if (isnan(d)) return !isnan(bd) || i < bi;
+  if (isnan(bd)) return false;
+  return d < bd || (d == bd && i < bi);
+}
+
+// ``associate`` of this CTA's associations q0 .. q0 + nq - 1 of row b at
+// sh.theta into its records (the target scan t of association q = t C + j
+// staged into txy / tv, one scan at a time), and the CTA's count in
+// *sh.count.
+__device__ void associate(const Params& p, int b, const Rec& d, int q0,
+                          int nq, float r2, bool first, float2* txy,
+                          unsigned char* tv, const Shared& sh) {
+  const int tid = threadIdx.x;
+  const float th0 = sh.theta[0], th1 = sh.theta[1];
+  float s, c;
+  ref_sincos(sh.theta[2], &s, &c);
+  if (tid == 0) *sh.count = 0;
+  __syncthreads();
+  int mine = 0;
+  if (nq > 0) {
+    const int t0 = q0 / p.C, t1 = (q0 + nq - 1) / p.C;
+    for (int t = t0; t <= t1; ++t) {
+      const long long scan = (long long)b * p.T + t;
+      if (t1 > t0 || first) {  // one scan staged for the whole call
+        if (t > t0) __syncthreads();
+        const float2* gxy = reinterpret_cast<const float2*>(p.tmw) + scan * p.Ct;
+        const unsigned char* gv = p.tvalid + scan * p.Ct;
+        for (int k = tid; k < p.Ct; k += kThreads) {
+          __pipeline_memcpy_async(txy + k, gxy + k, sizeof(float2));
+          tv[k] = gv[k];
+        }
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        __syncthreads();
+      }
+      const int lo = max(q0, t * p.C), hi = min(q0 + nq, (t + 1) * p.C);
+      for (int q = lo + tid; q < hi; q += kThreads) {
+        const int j = q - t * p.C;
+        const long long sj = (long long)b * p.C + j;
+        const float ux = p.src[2 * sj], uy = p.src[2 * sj + 1];
+        const float vx = p.src_normal[2 * sj], vy = p.src_normal[2 * sj + 1];
+        // se2.apply / rotate of the source cell
+        const float wx = __fadd_rn(__fmaf_rn(c, ux, -__fmul_rn(s, uy)), th0);
+        const float wy = __fadd_rn(__fmaf_rn(s, ux, __fmul_rn(c, uy)), th1);
+        const float nwx = __fmaf_rn(c, vx, -__fmul_rn(s, vy));
+        const float nwy = __fmaf_rn(s, vx, __fmul_rn(c, vy));
+        // argmin of where(valid, (diff * diff).sum(-1), inf): the first NaN,
+        // else the first minimum.  kChains independent chains (target k in
+        // chain k % kChains) hide the loop's latency; each keeps its own
+        // first NaN or first minimum, and merging them by (NaN first, then
+        // the distance, then the index) gives the same winner
+        float best[kChains];
+        int nn_c[kChains];
+#pragma unroll
+        for (int u = 0; u < kChains; ++u) best[u] = INFINITY, nn_c[u] = -1;
+        for (int k0 = 0; k0 < p.Ct; k0 += kChains) {
+#pragma unroll
+          for (int u = 0; u < kChains; ++u) {
+            const int k = k0 + u;
+            if (k < p.Ct) {
+              const float2 tq = txy[k];
+              const float ex = __fsub_rn(wx, tq.x), ey = __fsub_rn(wy, tq.y);
+              const float d2 = tv[k] ? __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey))
+                                     : INFINITY;
+              if (nn_c[u] < 0 || (!isnan(best[u]) && (isnan(d2) || d2 < best[u]))) {
+                best[u] = d2;
+                nn_c[u] = k;
+              }
+            }
+          }
+        }
+        int nn = nn_c[0];
+        float bd = best[0];
+#pragma unroll
+        for (int u = 1; u < kChains; ++u) {
+          if (nn_c[u] >= 0 && before(best[u], nn_c[u], bd, nn)) {
+            bd = best[u];
+            nn = nn_c[u];
+          }
+        }
+        const long long tk = scan * p.Ct + nn;
+        const float2 mq = txy[nn];
+        const float ex = __fsub_rn(wx, mq.x), ey = __fsub_rn(wy, mq.y);
+        const bool in_radius =
+            __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)) < r2 && tv[nn];
+        const float tnx = p.tnw[2 * tk], tny = p.tnw[2 * tk + 1];
+        const float dir = clamp_min(
+            __fadd_rn(__fmul_rn(nwx, tnx), __fmul_rn(nwy, tny)), 0.0f);
+        const bool ok = in_radius && dir > p.gate && p.src_valid[sj];
+        float w;
+        switch (p.weight_option) {
+          case 0: w = 1.0f; break;
+          case 1: w = similarity(p.src_ns[sj], p.t_ns[tk]); break;
+          case 2: w = dir; break;
+          case 3: w = similarity(p.src_plan[sj], p.t_plan[tk]); break;
+          default:
+            w = __fadd_rn(__fadd_rn(similarity(p.src_ns[sj], p.t_ns[tk]), dir),
+                          similarity(p.src_plan[sj], p.t_plan[tk]));
+        }
+        const int l = q - q0;
+        d.sx[l] = ux;
+        d.sy[l] = uy;
+        d.mx[l] = mq.x;
+        d.my[l] = mq.y;
+        d.w[l] = ok ? w : 0.0f;
+        d.m[l] = ok;
+        if (p.cost == kP2L) {
+          d.nx[l] = tnx;
+          d.ny[l] = tny;
+        } else if (p.cost == kP2D) {
+          // _chol2x2_inv_sqrt((reg * eye + cov) * cov_scale)
+          const float* cv = p.tcw + 4 * tk;
+          const float a = __fmul_rn(__fadd_rn(__fmul_rn(p.reg, 1.0f), cv[0]), p.cov_scale);
+          const float bb = __fmul_rn(__fadd_rn(__fmul_rn(p.reg, 0.0f), cv[1]), p.cov_scale);
+          const float cc = __fmul_rn(__fadd_rn(__fmul_rn(p.reg, 1.0f), cv[3]), p.cov_scale);
+          const float det = clamp_min(__fmaf_rn(a, cc, -__fmul_rn(bb, bb)), (float)1e-20);
+          const float ia = __fdiv_rn(cc, det), ic = __fdiv_rn(a, det);
+          const float u22 = __fsqrt_rn(daz(clamp_min(ic, (float)1e-20)));
+          const float u12 = __fdiv_rn(-bb, __fmul_rn(det, u22));
+          const float u11 = __fsqrt_rn(daz(clamp_min(__fmaf_rn(-u12, u12, ia), (float)1e-20)));
+          float* u = d.u + 4 * l;
+          u[0] = u11;
+          u[1] = u12;
+          u[2] = 0.0f;
+          u[3] = u22;
+        }
+        mine += ok;
+      }
+    }
+  }
+  if (mine) atomicAdd(sh.count, mine);
+  __syncthreads();
 }
 
 template <int LOG_L>
-__global__ void __launch_bounds__(kThreads) lm_solve_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads) registration_kernel(const Params p) {
   extern __shared__ float4 dyn[];
-  __shared__ float sh_theta[3];
-  __shared__ float red[kWarps * 13];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const long long tc = (long long)p.T * p.C;
-  Row d;
-  d.src = p.src + (long long)b * p.C * 2;
-  d.tm = p.tm + b * tc * 2;
-  d.tn = p.tn ? p.tn + b * tc * 2 : nullptr;
-  d.weight = p.weight + b * tc;
-  d.mask = p.mask + b * tc;
-  d.si = p.si ? p.si + b * tc * 4 : nullptr;
-  if (p.stage) {
-    float* s = reinterpret_cast<float*>(dyn);
-    Row st;
-    st.src = s;
-    stage_async(s, d.src, 2LL * p.C);
-    s += 2 * p.C;
-    st.tm = s;
-    stage_async(s, d.tm, 2 * tc);
-    s += 2 * tc;
-    st.tn = nullptr;
-    if (d.tn) {
-      st.tn = s;
-      stage_async(s, d.tn, 2 * tc);
-      s += 2 * tc;
-    }
-    st.si = nullptr;
-    if (d.si) {
-      st.si = s;
-      stage_async(s, d.si, 4 * tc);
-      s += 4 * tc;
-    }
-    st.weight = s;
-    stage_async(s, d.weight, tc);
-    s += tc;
-    __pipeline_commit();
-    unsigned char* mk = reinterpret_cast<unsigned char*>(s);
-    for (long long i = tid; i < tc; i += kThreads) mk[i] = d.mask[i];
-    st.mask = mk;
-    __pipeline_wait_prior(0);
-    d = st;
-  }
-  float theta[3], g[3], H[9], cur = 0.0f, lam = p.init_lambda, rel = 1.0f;
-  float sums[13];
+  __shared__ float s_theta[3];
+  __shared__ float s_red[kWarps * 13];
+  __shared__ float s_slots[2 * 16];
+  __shared__ float s_sums[16];
+  __shared__ int s_flag, s_count;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / p.K, tid = threadIdx.x;
+  const Shared sh = {s_theta, s_red, s_slots, s_sums, &s_flag, &s_count};
+  float* f = reinterpret_cast<float*>(dyn);
+  unsigned char* bytes = reinterpret_cast<unsigned char*>(dyn);
+  Rec d;
+  d.sx = f + p.o_sx;
+  d.sy = f + p.o_sy;
+  d.mx = f + p.o_mx;
+  d.my = f + p.o_my;
+  d.w = f + p.o_w;
+  d.nx = f + p.o_nx;
+  d.ny = f + p.o_ny;
+  d.u = f + p.o_u;
+  d.m = bytes + p.o_mask;
+  const int leaf0 = rank * p.Wk, q0 = rank * p.Qk;
+  const int nq = max(0, min(p.Qk, p.T * p.C - q0));
+  int par = 0;
+  float theta[3], cost, rel;
+  int total;
   if (tid == 0) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) sh_theta[k] = theta[k] = p.theta0[3 * b + k];
+    for (int k = 0; k < 3; ++k) s_theta[k] = theta[k] = p.theta0[3 * b + k];
   }
-  __syncthreads();
-  evaluate<LOG_L>(p, d, sh_theta, red, sums);
-  __syncthreads();
-  if (tid == 0) finish(p, b, theta, sums, &cur, g, H);
-  for (int it = 0; it < p.max_iter; ++it) {
-    float cand[3];
-    if (tid == 0) {
-      // H + diag(fma(lam, diag H, 1e-12)), zeros added off the diagonal
-      float A[9];
+  if (!p.window) {
+    // the given associations of this CTA's leaves
+    const long long row = (long long)b * p.T * p.C;
+    for (int l = tid; l < nq; l += kThreads) {
+      const long long q = row + q0 + l;
+      const int j = (q0 + l) % p.C;
+      d.sx[l] = p.src[2 * ((long long)b * p.C + j)];
+      d.sy[l] = p.src[2 * ((long long)b * p.C + j) + 1];
+      d.mx[l] = p.tm[2 * q];
+      d.my[l] = p.tm[2 * q + 1];
+      d.w[l] = p.weight[q];
+      d.m[l] = p.mask[q];
+      if (p.cost == kP2L) {
+        d.nx[l] = p.tn[2 * q];
+        d.ny[l] = p.tn[2 * q + 1];
+      } else if (p.cost == kP2D) {
 #pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int k = 0; k < 3; ++k)
-          A[3 * i + k] = __fadd_rn(
-              H[3 * i + k],
-              i == k ? __fmaf_rn(lam, H[4 * i], (float)1e-12) : 0.0f);
-      lm_update3(theta, A, g, p.one_system != 0, cand);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) sh_theta[k] = cand[k];
-    }
-    __syncthreads();
-    evaluate<LOG_L>(p, d, sh_theta, red, sums);
-    __syncthreads();
-    if (tid == 0) {
-      float cc, cg[3], cH[9];
-      finish(p, b, cand, sums, &cc, cg, cH);
-      const bool acc = cc < cur;
-      if (acc) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) theta[k] = cand[k], g[k] = cg[k];
-#pragma unroll
-        for (int k = 0; k < 9; ++k) H[k] = cH[k];
-        rel = __fdiv_rn(__fsub_rn(cur, cc), clamp_min(cur, (float)1e-20));
-        cur = cc;
+        for (int k = 0; k < 4; ++k) d.u[4 * l + k] = p.si[4 * q + k];
       }
-      lam = acc ? clamp_min(__fmul_rn(lam, 0.5f), (float)1e-9)
-                : clamp_max(__fmul_rn(lam, 4.0f), (float)1e6);
     }
+    __syncthreads();
+    lm_solve<LOG_L>(p, b, d, leaf0, q0, 0, p.guess ? p.pw[b] : 0.0f, sh, par,
+                    cluster, theta, &cost, &rel, &total);
+    if (rank == 0 && tid == 0) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) p.out_theta[3 * b + k] = theta[k];
+      p.out_cost[b] = cost;
+      p.out_rel[b] = rel;
+    }
+    cluster.sync();  // no CTA leaves while another may read its slots
+    return;
   }
-  if (tid == 0) {
+  // the prior's weight sqrt(max(valid source cells, 1))
+  if (tid == 0) s_count = 0;
+  __syncthreads();
+  int nv = 0;
+  for (int j = tid; j < p.C; j += kThreads) nv += p.src_valid[(long long)b * p.C + j] != 0;
+  if (nv) atomicAdd(&s_count, nv);
+  __syncthreads();
+  const float pw = __fsqrt_rn(clamp_min((float)s_count, 1.0f));
+  float2* txy = reinterpret_cast<float2*>(f + p.o_txy);
+  unsigned char* tv = bytes + p.o_tv;
+  float score = 3.40282347e38f / 4.0f;  // finfo(float32).max / 4
+  long long used = 0, nres = 0;
+  for (int itr = 0; itr < p.max_outer; ++itr) {
+    associate(p, b, d, q0, nq, itr == 0 ? p.r2_first : p.r2, itr == 0, txy,
+              tv, sh);
+    const int count = s_count;
+    float lm_theta[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) lm_theta[k] = theta[k];
+    lm_solve<LOG_L>(p, b, d, leaf0, q0, count, pw, sh, par, cluster,
+                    lm_theta, &cost, &rel, &total);
+    if (tid == 0) {
+      // the guards of register_window; the row is active here
+      const bool run = total > 1;
+      const bool past_min = itr + 1 > p.min_outer;
+      const bool regressed = past_min && score < cost;
+      const float rel_imp =
+          __fdiv_rn(__fsub_rn(score, cost), clamp_min(score, (float)1e-20));
+      const bool converged = past_min && (rel_imp < p.tol || rel < p.tol);
+      if (run && !regressed) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) theta[k] = lm_theta[k];
+        score = cost;
+      }
+      used = itr + 1;
+      if (run) nres = total;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) s_theta[k] = theta[k];
+      s_flag = run && !regressed && !converged;
+    }
+    __syncthreads();
+    if (!s_flag) break;  // inactive: no output changes again
+  }
+  if (rank == 0 && tid == 0) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) p.out_theta[3 * b + k] = theta[k];
-    p.out_cost[b] = cur;
-    p.out_rel[b] = rel;
+    p.out_cost[b] = score;
+    p.out_nres[b] = nres;
+    p.out_iters[b] = used;
   }
+  cluster.sync();  // no CTA leaves while another may read its slots
+}
+
+// The dynamic shared memory of one CTA's records (and, in the window, one
+// staged target scan), its offsets set in p; kernels/lm_solve.py::
+// shared_bytes computes the same.
+long long layout(Params& p) {
+  long long o = 0;
+  const long long q = ((long long)p.Qk + 3) / 4 * 4;  // 16-byte aligned arrays
+  auto take = [&](long long n) { const long long at = o; o += n; return (int)at; };
+  p.o_sx = take(q);
+  p.o_sy = take(q);
+  p.o_mx = take(q);
+  p.o_my = take(q);
+  p.o_w = take(q);
+  p.o_nx = p.o_ny = p.o_u = 0;
+  if (p.cost == kP2L) {
+    p.o_nx = take(q);
+    p.o_ny = take(q);
+  } else if (p.cost == kP2D) {
+    p.o_u = take(4 * q);
+  }
+  p.o_txy = 0;
+  if (p.window) p.o_txy = take(((long long)2 * p.Ct + 3) / 4 * 4);
+  long long b = 4 * o;
+  p.o_mask = b;
+  b += (p.Qk + 15) / 16 * 16;
+  p.o_tv = b;
+  if (p.window) b += (p.Ct + 15) / 16 * 16;
+  return b;
 }
 
 template <int LOG_L>
-int launch(const Params& p, int rows, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        lm_solve_kernel<LOG_L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+int launch(const Params& p, int rows, long long smem, cudaStream_t stream) {
+  auto kernel = registration_kernel<LOG_L>;
+  // the shared-memory attribute and the cluster occupancy, checked once a
+  // device for the largest size asked so far (a smaller size fits too)
+  static long long attr_bytes[kMaxDevices];
+  static long long fits_bytes[kMaxDevices][4];  // by log2 K
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const bool cache = dev < kMaxDevices;
+  const int lk = p.K == 1 ? 0 : p.K == 2 ? 1 : p.K == 4 ? 2 : 3;
+  if (!cache || smem > attr_bytes[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
+    if (cache) attr_bytes[dev] = smem;
   }
-  lm_solve_kernel<LOG_L><<<rows, kThreads, smem, stream>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(rows * p.K));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (!cache || smem + 1 > fits_bytes[dev][lk]) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    if (cache) fits_bytes[dev][lk] = smem + 1;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+int run(Params& p, int rows, int cluster, cudaStream_t stream) {
+  if (rows <= 0) return 0;
+  p.R = p.cost == kP2L ? 1 : 2;
+  const long long n = (long long)p.T * p.C * p.R;
+  long long w = 1;
+  while (w < n) w <<= 1;
+  const int k = cluster;
+  if (k < 1 || k > kMaxCluster || (k & (k - 1)) || w / k < p.R)
+    return (int)cudaErrorInvalidValue;
+  p.N = (int)n;
+  p.K = k;
+  p.Wk = (int)(w / k);
+  p.Qk = p.Wk / p.R;
+  p.nthr = p.Wk < kThreads ? p.Wk : kThreads;
+  int log_l = 0;
+  while ((1LL << log_l) * p.nthr < p.Wk) ++log_l;
+  if (log_l > kMaxLogLeaves) return (int)cudaErrorInvalidValue;
+  const long long smem = layout(p);
+  if (smem > kSmemBytes) return (int)cudaErrorInvalidValue;
+  switch (log_l) {
+    case 0: return launch<0>(p, rows, smem, stream);
+    case 1: return launch<1>(p, rows, smem, stream);
+    case 2: return launch<2>(p, rows, smem, stream);
+    case 3: return launch<3>(p, rows, smem, stream);
+    case 4: return launch<4>(p, rows, smem, stream);
+    case 5: return launch<5>(p, rows, smem, stream);
+    case 6: return launch<6>(p, rows, smem, stream);
+    default: return launch<7>(p, rows, smem, stream);
+  }
 }
 
 }  // namespace
 
 // (theta [B, 3], cost [B], rel_dec [B]) of _lm_solve for B rows of T x C
-// associations; tn, si, guess (with sqrt_info, pw) may be null as the cost
-// and the prior say.  k0..k3 are the loss's float32 constants.  Returns a
-// CUDA error code (cudaErrorInvalidValue past 256 x 2^7 leaves a row).
+// given associations, on clusters of ``cluster`` CTAs a row; tn, si, guess
+// (with sqrt_info, pw) may be null as the cost and the prior say.  k0..k3
+// are the loss's float32 constants.  Returns a CUDA error code
+// (cudaErrorInvalidValue for a cluster size or row the kernel does not
+// take).
 extern "C" int lm_solve_launch(
     const void* theta0, const void* src, const void* tm, const void* tn,
     const void* weight, const void* mask, const void* si, const void* guess,
     const void* sqrt_info, const void* pw, void* out_theta, void* out_cost,
     void* out_rel, int rows, int T, int C, int cost, int loss, float k0,
     float k1, float k2, float k3, int max_iter, float init_lambda,
-    int one_system, void* stream) {
-  if (rows <= 0) return 0;
-  Params p;
+    int one_system, int cluster, void* stream) {
+  Params p = {};
+  p.window = 0;
   p.theta0 = (const float*)theta0;
   p.src = (const float*)src;
   p.tm = (const float*)tm;
@@ -450,7 +842,7 @@ extern "C" int lm_solve_launch(
   p.out_rel = (float*)out_rel;
   p.T = T;
   p.C = C;
-  p.R = cost == kP2L ? 1 : 2;
+  p.Ct = C;
   p.cost = cost;
   p.loss = loss;
   p.k0 = k0;
@@ -460,28 +852,67 @@ extern "C" int lm_solve_launch(
   p.max_iter = max_iter;
   p.init_lambda = init_lambda;
   p.one_system = one_system;
-  const long long n = (long long)T * C * p.R;
-  long long w = 1;
-  while (w < n) w <<= 1;
-  p.N = (int)n;
-  p.nthr = w < kThreads ? (int)w : kThreads;
-  int log_l = 0;
-  while ((1LL << log_l) * p.nthr < w) ++log_l;
-  if (log_l > kMaxLogLeaves) return (int)cudaErrorInvalidValue;
-  const long long tc = (long long)T * C;
-  const size_t bytes = 4 * (2 * (size_t)C +
-                            tc * (2 + (tn ? 2 : 0) + (si ? 4 : 0) + 1)) + tc;
-  p.stage = bytes <= kStageBytes;
-  const size_t smem = p.stage ? (bytes + 15) / 16 * 16 : 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (log_l) {
-    case 0: return launch<0>(p, rows, smem, st);
-    case 1: return launch<1>(p, rows, smem, st);
-    case 2: return launch<2>(p, rows, smem, st);
-    case 3: return launch<3>(p, rows, smem, st);
-    case 4: return launch<4>(p, rows, smem, st);
-    case 5: return launch<5>(p, rows, smem, st);
-    case 6: return launch<6>(p, rows, smem, st);
-    default: return launch<7>(p, rows, smem, st);
-  }
+  return run(p, rows, cluster, (cudaStream_t)stream);
+}
+
+// (pose [B, 3], score [B], num_residuals [B], iterations [B]) of
+// register_window for B source scans of C cells against T target scans of
+// Ct cells each, given in the world frame (_world_targets); tcw and guess
+// (with sqrt_info) may be null as the cost and the prior say.  The radii,
+// gate, regularisation, scale and tolerance are float32 as torch rounds
+// them against a float32 tensor.  Returns a CUDA error code.
+extern "C" int register_window_launch(
+    const void* theta0, const void* src, const void* src_normal,
+    const void* src_ns, const void* src_plan, const void* src_valid,
+    const void* tmw, const void* tnw, const void* tcw, const void* tvalid,
+    const void* t_ns, const void* t_plan, const void* guess,
+    const void* sqrt_info, void* out_theta, void* out_score, void* out_nres,
+    void* out_iters, int rows, int T, int C, int Ct, int cost, int loss,
+    float k0, float k1, float k2, float k3, int max_inner, float init_lambda,
+    int one_system, int max_outer, int min_outer, int weight_option,
+    float r2_first, float r2, float gate, float reg, float cov_scale,
+    float tol, int cluster, void* stream) {
+  Params p = {};
+  p.window = 1;
+  p.theta0 = (const float*)theta0;
+  p.src = (const float*)src;
+  p.src_normal = (const float*)src_normal;
+  p.src_ns = (const float*)src_ns;
+  p.src_plan = (const float*)src_plan;
+  p.src_valid = (const unsigned char*)src_valid;
+  p.tmw = (const float*)tmw;
+  p.tnw = (const float*)tnw;
+  p.tcw = (const float*)tcw;
+  p.tvalid = (const unsigned char*)tvalid;
+  p.t_ns = (const float*)t_ns;
+  p.t_plan = (const float*)t_plan;
+  p.guess = (const float*)guess;
+  p.sqrt_info = (const float*)sqrt_info;
+  p.out_theta = (float*)out_theta;
+  p.out_cost = (float*)out_score;
+  p.out_nres = (long long*)out_nres;
+  p.out_iters = (long long*)out_iters;
+  p.T = T;
+  p.C = C;
+  p.Ct = Ct;
+  p.cost = cost;
+  p.loss = loss;
+  p.k0 = k0;
+  p.k1 = k1;
+  p.k2 = k2;
+  p.k3 = k3;
+  p.max_iter = max_inner;
+  p.init_lambda = init_lambda;
+  p.one_system = one_system;
+  p.max_outer = max_outer;
+  p.min_outer = min_outer;
+  p.weight_option = weight_option;
+  p.r2_first = r2_first;
+  p.r2 = r2;
+  p.gate = gate;
+  p.reg = reg;
+  p.cov_scale = cov_scale;
+  p.tol = tol;
+  if (Ct < 1) return (int)cudaErrorInvalidValue;
+  return run(p, rows, cluster, (cudaStream_t)stream);
 }

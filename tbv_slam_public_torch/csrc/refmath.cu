@@ -13,7 +13,7 @@
 // the reference does at each site, and how that was read from its compiled
 // program, is the table in tbv_slam_public_torch/core/refmath.py, whose
 // plain PyTorch versions run the same steps on the CPU.  The device
-// functions are in refmath.cuh, which the LM-solve kernel (lm_solve.cu)
+// functions are in refmath.cuh, which the registration kernel (lm_solve.cu)
 // inlines too.
 //
 // One launch per call: an op code, one to three float32 inputs, one or two

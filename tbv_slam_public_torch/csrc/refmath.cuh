@@ -1,5 +1,5 @@
 // The reference's float32 math as CUDA device functions, shared by the
-// refmath kernel (refmath.cu) and the LM-solve kernel (lm_solve.cu).
+// refmath kernel (refmath.cu) and the registration kernel (lm_solve.cu).
 //
 // XLA's inline float32 exp, log and log1p, glibc 2.36's sinf / cosf /
 // sincosf (FMA variant) and atan2f, the IEEE square root and the LM step

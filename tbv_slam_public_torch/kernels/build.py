@@ -106,11 +106,20 @@ def library() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.refmath_lu_solve_launch.restype = ctypes.c_int
     # 10 inputs, 3 outputs, rows, T, C, cost, loss, k0..k3, max_iter,
-    # init_lambda, one_system, stream
+    # init_lambda, one_system, cluster, stream
     lib.lm_solve_launch.argtypes = [ctypes.c_void_p] * 13 + \
         [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [
-            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
     lib.lm_solve_launch.restype = ctypes.c_int
+    # 14 inputs, 4 outputs, rows, T, C, Ct, cost, loss, k0..k3, max_inner,
+    # init_lambda, one_system, max_outer, min_outer, weight_option, r2_first,
+    # r2, gate, reg, cov_scale, tol, cluster, stream
+    lib.register_window_launch.argtypes = [ctypes.c_void_p] * 18 + \
+        [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [
+            ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4 + \
+        [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    lib.register_window_launch.restype = ctypes.c_int
     BUILD_INFO.update(path=path, seconds=time.perf_counter() - t0,
                       ptxas=report)
     _LIB = lib

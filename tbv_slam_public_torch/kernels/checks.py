@@ -1,8 +1,8 @@
 """Inputs that hold the hand kernels to their plain versions, shared by
 ``chip_smoke.py`` and the tests: the value ranges of each refmath op, its
 special values, a bit-for-bit comparison, CorAl clouds whose neighbours
-lie within an ulp of the radius gate, the logistic fit's Newton systems
-and LM-solve problems.
+lie within an ulp of the radius gate, the logistic fit's Newton systems,
+LM-solve problems and window registration problems.
 """
 from __future__ import annotations
 
@@ -124,3 +124,69 @@ def lm_problem(rng, b: int, t: int, c: int, cost: str, with_prior: bool):
         prior = ((true + rng.normal(0, 0.02, (b, 3))).astype(f32),
                  s.astype(f32), np.sqrt(mask.sum((1, 2))).astype(f32))
     return theta0, src, tm, tn, weight, mask, si, prior
+
+
+def window_problem(rng, b: int, t: int, c: int, ct: int,
+                   with_prior: bool = False):
+    """B registration windows, float32 / bool numpy: a dict of the source
+    cells ("src_*": mean, cov, normal, nsamples, planarity, valid [B, C]),
+    the target scans ("tgt_*" [B, T, Ct]), their poses "tgt_poses"
+    [B, T, 3] and "scan_mask" [B, T] (a row's last scan masked out in a
+    third of the rows), the start "pose0" [B, 3], and with the prior
+    "guess" [B, 3] and "sqrt_info" [3, 3].  Every cell is a point of one
+    world cloud seen from its scan's pose with 3-20 cm of noise (more in
+    later rows, so rows stop at different outer iterations); 15 % of the
+    cells are invalid (zero mean and normal), a few targets are repeated
+    (a tie in the nearest-neighbour search), and the start is within
+    0.4 m and 0.03 rad of the truth."""
+    f32 = np.float32
+    world = rng.uniform(-40, 40, (b, max(c, ct) * 2, 2))
+    ang = rng.uniform(0, 2 * np.pi, world.shape[:2])
+    wnorm = np.stack([np.cos(ang), np.sin(ang)], -1)
+
+    def scans(poses, n, noise):  # poses [B, S, 3] -> cells [B, S, n]
+        bs, sc = poses.shape[:2]
+        pick = np.stack([rng.choice(world.shape[1], n, replace=False)
+                         for _ in range(bs * sc)]).reshape(bs, sc, n)
+        pw = np.take_along_axis(world[:, None], pick[..., None], 2)
+        nw = np.take_along_axis(wnorm[:, None], pick[..., None], 2)
+        pw = pw + rng.normal(0, 1, pw.shape) * noise[:, None, None, None]
+        rot = _rot(-poses[..., 2])[:, :, None]  # world -> scan frame
+        mean = np.einsum("bsnij,bsnj->bsni", rot, pw - poses[..., None, :2])
+        normal = np.einsum("bsnij,bsnj->bsni", rot, nw)
+        evals = rng.uniform(0.01, 0.5, (bs, sc, n, 2))
+        er = _rot(rng.uniform(0, np.pi, (bs, sc, n)))
+        cov = np.einsum("...ij,...j,...kj->...ik", er, evals, er)
+        valid = rng.uniform(size=(bs, sc, n)) < 0.85
+        mean[~valid] = 0.0
+        normal[~valid] = 0.0
+        return dict(mean=mean.astype(f32), cov=cov.astype(f32),
+                    normal=normal.astype(f32),
+                    nsamples=rng.integers(3, 40, (bs, sc, n)).astype(f32),
+                    planarity=rng.uniform(0.0, 3.0, (bs, sc, n)).astype(f32),
+                    valid=valid)
+
+    noise = np.linspace(0.03, 0.2, b)
+    truth = np.stack([rng.uniform(-2, 2, b), rng.uniform(-2, 2, b),
+                      rng.uniform(-0.2, 0.2, b)], -1)
+    tposes = truth[:, None] + np.stack(
+        [rng.uniform(-3, 3, (b, t)), rng.uniform(-3, 3, (b, t)),
+         rng.uniform(-0.3, 0.3, (b, t))], -1)
+    src = {k: v[:, 0] for k, v in scans(truth[:, None], c, noise).items()}
+    tgt = scans(tposes, ct, noise)
+    copies = len(range(1, ct, 17))
+    for k in tgt:  # repeated targets: ties for the argmin
+        tgt[k][:, :, 1::17] = tgt[k][:, :, 0::17][:, :, :copies]
+    mask = np.ones((b, t), bool)
+    mask[::3, -1] = t == 1
+    out = {f"src_{k}": v for k, v in src.items()}
+    out.update({f"tgt_{k}": v for k, v in tgt.items()})
+    out.update(tgt_poses=tposes.astype(f32), scan_mask=mask,
+               pose0=(truth + np.stack(
+                   [rng.uniform(-0.4, 0.4, b), rng.uniform(-0.4, 0.4, b),
+                    rng.uniform(-0.03, 0.03, b)], -1)).astype(f32))
+    if with_prior:
+        s = np.diag([10.0, 10.0, 31.6]) + rng.uniform(-1, 1, (3, 3))
+        out.update(guess=(truth + rng.normal(0, 0.05, (b, 3))).astype(f32),
+                   sqrt_info=s.astype(f32))
+    return out

@@ -217,6 +217,13 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return _call("sqrt", x)
 
 
+def norm2(v: torch.Tensor) -> torch.Tensor:
+    """The length of [..., 2] vectors as the reference's program computes
+    ``jnp.linalg.norm`` over two values: its two-term reduction fused,
+    fma(y, y, x * x), then the IEEE square root (two launches)."""
+    return sqrt(fma(v[..., 1], v[..., 1], v[..., 0] * v[..., 0]))
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """out[..., c] = sum_k a[..., k] * b[c, k], one fused multiply-add a
     term in k order (the reference's small matrix product), one launch."""

@@ -29,9 +29,11 @@ import torch
 from ..core import se2
 from ..core.config import TBVConfig
 from ..core.device import constant, resolve
+from ..core.refmath import recip
 from ..core.timing import timing
 from ..core.types import Cells, PointCloud, _Record, make_cells, \
     stack_records
+from ..kernels import refmath
 from ..ops import features, radar, registration
 
 
@@ -135,6 +137,16 @@ def batched_first_frame(state: OdometryState, images: torch.Tensor,
     return state, out
 
 
+def motion_rates(tmot: torch.Tensor, tmot_prev: torch.Tensor, dt: float):
+    """(speed, acceleration) [B] of the frame's motion [B, 3] against the
+    previous one, as the reference's program computes its sanity check:
+    each norm ``refmath.norm2``, the divisions by the constants dt and dt^2
+    products by their float32 reciprocals."""
+    vel = refmath.norm2(tmot[:, :2]) * recip(dt)
+    acc = refmath.norm2(tmot[:, :2] - tmot_prev[:, :2]) * recip(dt * dt)
+    return vel, acc
+
+
 def batched_odometry_step(state: OdometryState, images: torch.Tensor,
                           cfg: TBVConfig, one_sequence: bool = False):
     """One odometry frame of B sequences (odometrykeyframefuser.cpp:
@@ -168,10 +180,7 @@ def batched_odometry_step(state: OdometryState, images: torch.Tensor,
 
     # velocity / acceleration sanity check (odometrykeyframefuser.cpp:76-94)
     Tmot_curr = se2.relative(state.T_prev, Tcurrent)
-    dt = ocfg.sensor_period
-    vel = torch.linalg.norm(Tmot_curr[:, :2], dim=-1) / dt
-    acc = torch.linalg.norm(Tmot_curr[:, :2] - state.Tmot[:, :2],
-                            dim=-1) / (dt * dt)
+    vel, acc = motion_rates(Tmot_curr, state.Tmot, ocfg.sensor_period)
     sane = (vel <= ocfg.vel_limit) & (acc <= ocfg.acc_limit)
     Tcurrent = torch.where(sane[:, None], Tcurrent, Tguess)
     Tmot = se2.relative(state.T_prev, Tcurrent)
@@ -180,8 +189,7 @@ def batched_odometry_step(state: OdometryState, images: torch.Tensor,
     last_kf = state.kf_poses[:, -1]
     diff = se2.relative(last_kf, Tcurrent)
     if ocfg.use_keyframe:
-        fuse = (torch.linalg.norm(diff[:, :2], dim=-1)
-                > ocfg.min_keyframe_dist) | \
+        fuse = (refmath.norm2(diff[:, :2]) > ocfg.min_keyframe_dist) | \
             (torch.abs(diff[:, 2]) > math.radians(ocfg.min_keyframe_rot_deg))
     else:
         fuse = torch.ones(images.shape[0], dtype=torch.bool, device=dev)

@@ -26,7 +26,7 @@ import torch
 
 from ..core import se2
 from ..core.config import TBVConfig
-from ..core.refmath import recip
+from ..core.device import constant
 from ..core.timing import timing
 from ..core.types import stack_records
 from ..kernels import refmath
@@ -65,13 +65,18 @@ def verify_by_odometry(odom_poses: torch.Tensor, travel_cum: torch.Tensor,
     """Odometry-consistency dissimilarity (VerifyByOdometry):
     1 - exp(-rel_err^2 / (2 sigma^2)) with
     rel_err = max(|p_from - p_to| - 5, 0) / traveled(from, to)."""
-    est = torch.linalg.norm(odom_poses[id_from, :2] - odom_poses[id_to, :2],
-                            dim=-1)
+    est = refmath.norm2(odom_poses[id_from, :2] - odom_poses[id_to, :2])
     trav = (travel_cum[id_from] - travel_cum[id_to]).abs()
     rel = torch.clamp(est - nearby_margin, min=0.0) / torch.clamp(trav,
                                                                   min=1e-9)
-    # the division by a constant as the reference's product by its reciprocal
-    return 1.0 - refmath.exp(-rel * rel * recip(2.0 * sigma * sigma))
+    # sigma is an operand of the reference's jitted function, not a
+    # constant: 2 sigma sigma in float32 at run time, then a true division
+    # (by a tensor: torch on the card divides by a number as a product by
+    # its reciprocal)
+    f = np.float32
+    den = f(f(2.0 * f(sigma)) * f(sigma))
+    return 1.0 - refmath.exp((-rel * rel) / constant(float(den), rel.dtype,
+                                                     rel.device))
 
 
 def odometry_travel_cumsum(odom_poses: np.ndarray) -> np.ndarray:

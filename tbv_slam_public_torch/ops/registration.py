@@ -26,7 +26,7 @@ import torch
 from ..core import se2
 from ..core.config import RegistrationConfig
 from ..core.device import constant
-from ..core.refmath import recip
+from ..core.refmath import ftz, recip
 from ..core.types import Cells, RegistrationResult
 from ..kernels import lm_solve as lm_kernel
 from ..kernels import refmath
@@ -99,11 +99,13 @@ def _rho_and_weight(s: torch.Tensor, loss: int, delta: float):
                         torch.full_like(s, delta) / sqrt_s)
         return rho, w
     if loss == LOSS_CAUCHY:
-        # s / b is a product by the reciprocal, fused into 1 + s / b
+        # s / b is a product by the reciprocal, fused into 1 + s / b; a
+        # subnormal weight (s near the float32 maximum) is zero, as the
+        # reference's threads flush it
         b = delta * delta
         s_b = s * recip(b)
-        return b * refmath.log1p(s_b), 1.0 / refmath.fma(
-            s, torch.full_like(s, recip(b)), torch.ones_like(s))
+        return b * refmath.log1p(s_b), ftz(1.0 / refmath.fma(
+            s, torch.full_like(s, recip(b)), torch.ones_like(s)))
     if loss == LOSS_SOFTLONE:
         # s / b a product by the reciprocal, fused into 1 + s / b; 2 b folded
         # into one constant
@@ -121,13 +123,14 @@ def _rho_and_weight(s: torch.Tensor, loss: int, delta: float):
         u2 = u * u
         return refmath.fma(-u, u2, one) * (b / 3.0), u2
     if loss == LOSS_COMBINED:
-        # Huber(1) o Cauchy(1); IRLS weight by the chain rule
+        # Huber(1) o Cauchy(1); IRLS weight by the chain rule, its
+        # subnormal factor and product flushed as the reference's threads do
         g = refmath.log1p(s)
-        gp = 1.0 / (1.0 + s)
+        gp = ftz(1.0 / (1.0 + s))
         sqrt_g = refmath.sqrt(torch.clamp(g, min=1e-20))
         rho = torch.where(g <= 1.0, g, 2.0 * sqrt_g - 1.0)
         fp = torch.where(g <= 1.0, torch.ones_like(g), 1.0 / sqrt_g)
-        return rho, fp * gp
+        return rho, ftz(fp * gp)
     return s, torch.ones_like(s)
 
 
@@ -327,8 +330,9 @@ def _lm_solve(theta0, src, assoc, *, cost, loss, delta, max_iter, init_lambda,
     pass per iteration; returns (theta, cost, last relative decrease).
     ``one_system``: the step rounded as the reference's unbatched odometry
     step rounds it (``refmath.lm_update``).  CPU tensors take the plain
-    version, CUDA tensors one launch of ``csrc/lm_solve.cu``, which is
-    bit-equal to it."""
+    version, CUDA tensors one launch of ``csrc/lm_solve.cu``'s solve entry
+    (``register_window``'s device code with association and guards off),
+    which is bit-equal to it."""
     kw = dict(cost=cost, loss=loss, delta=delta, max_iter=max_iter,
               init_lambda=init_lambda, prior=prior, one_system=one_system)
     if theta0.device.type == "cpu" or lm_kernel.plain_on_card_enabled():
@@ -418,7 +422,51 @@ def register_window(src: Cells, src_pose0: torch.Tensor, tgt: Cells,
     reference's guards (revert on regression after min_itr, stop on relative
     improvement below score_tolerance) applied per batch row.
     ``one_system``: B = 1 from the unbatched odometry step, whose LM step the
-    reference rounds otherwise than its batched code's."""
+    reference rounds otherwise than its batched code's.  CPU tensors take
+    the plain version; on CUDA tensors ``_world_targets`` runs eagerly and
+    the rest is one launch of ``csrc/lm_solve.cu``, which is bit-equal to
+    it."""
+    if src.mean.device.type == "cpu" or lm_kernel.plain_on_card_enabled():
+        return _register_window_reference(
+            src, src_pose0, tgt, tgt_poses, tgt_scan_mask, cfg, guess=guess,
+            guess_sqrt_info=guess_sqrt_info, one_system=one_system)
+    cost = cost_code(cfg.cost)
+    tmw, tnw, tcw, tvalid = _world_targets(tgt, tgt_poses, tgt_scan_mask,
+                                           cost)
+    pose, score, n_res, used = lm_kernel.register_window(
+        src_pose0, src.mean, src.normal, src.nsamples, src.planarity,
+        src.valid, tmw, tnw, tcw, tvalid, tgt.nsamples, tgt.planarity,
+        cost=cost, loss=loss_code(cfg.loss), delta=cfg.loss_limit,
+        max_inner=cfg.max_inner_iterations, init_lambda=cfg.init_lambda,
+        max_outer=cfg.max_outer_iterations,
+        min_outer=cfg.min_outer_iterations, radius=cfg.radius,
+        angle_gate_cos=math.cos(math.radians(cfg.angle_gate_deg)),
+        weight_option=cfg.weight_option, regularization=cfg.regularization,
+        cov_scale=cfg.cov_scale, score_tolerance=cfg.score_tolerance,
+        guess=guess, sqrt_info=guess_sqrt_info, one_system=one_system)
+    return RegistrationResult(pose=pose, score=score, num_residuals=n_res,
+                              iterations=used, success=n_res > 1,
+                              cov=_default_cov(pose.shape[0], pose.dtype,
+                                               pose.device))
+
+
+def _register_window_reference(src: Cells, src_pose0: torch.Tensor,
+                               tgt: Cells, tgt_poses: torch.Tensor,
+                               tgt_scan_mask: torch.Tensor,
+                               cfg: RegistrationConfig,
+                               guess: Optional[torch.Tensor] = None,
+                               guess_sqrt_info: Optional[torch.Tensor] = None,
+                               one_system: bool = False
+                               ) -> RegistrationResult:
+    """The plain version of ``register_window`` (and of its kernel): on CPU
+    tensors, or on CUDA tensors inside ``kernels.lm_solve.plain_on_card``
+    only.  Once a row is inactive none of its outputs changes again (every
+    update is gated on ``active`` or ``run``), which lets the kernel leave
+    the loop there."""
+    if src.mean.device.type != "cpu" and \
+            not lm_kernel.plain_on_card_enabled():
+        raise RuntimeError("the plain register_window runs on the CPU; on "
+                           f"{src.mean.device} it is the kernel's")
     cost = cost_code(cfg.cost)
     loss = loss_code(cfg.loss)
     make_assoc = _associator(src, tgt, tgt_poses, tgt_scan_mask, cfg)

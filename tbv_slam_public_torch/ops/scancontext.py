@@ -12,13 +12,21 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.config import ScanContextConfig
-from ..core.device import deterministic
+from ..core.device import constant, deterministic
 from ..core.refmath import recip
 from ..core.types import PointCloud
 from ..kernels import refmath
+
+
+def _sector_scale(ns: int) -> float:
+    """(180 / pi) / 360 * ns as the reference's compiler folds it: one
+    float32 rounding a constant product, the division a reciprocal."""
+    f = np.float32
+    return float(f(f(f(180.0 / math.pi) * f(recip(360.0))) * f(ns)))
 
 
 def make_descriptor(cloud: PointCloud, cfg: ScanContextConfig) -> torch.Tensor:
@@ -29,12 +37,19 @@ def make_descriptor(cloud: PointCloud, cfg: ScanContextConfig) -> torch.Tensor:
     xy, inten, mask = cloud.xy, cloud.intensity, cloud.mask
     nr, ns = cfg.num_ring, cfg.num_sector
     lead = mask.shape[:-1]
-    r = torch.sqrt((xy * xy).sum(-1))
-    ang = torch.rad2deg(torch.remainder(refmath.atan2(xy[..., 1], xy[..., 0]),
-                                        2 * math.pi))
+    # the radius and its ring as the reference's program computes them: the
+    # two-term sum fused, the IEEE square root, and a true division by
+    # max_radius (a runtime operand there; torch on the card would divide
+    # by a number as a product by its reciprocal, so it divides by a tensor)
+    r = refmath.norm2(xy)
     in_range = mask & (r <= cfg.max_radius)
-    ring = torch.clamp(torch.ceil(r / cfg.max_radius * nr), 1, nr) - 1
-    sector = torch.clamp(torch.ceil(ang / 360.0 * ns), 1, ns) - 1
+    ring = torch.clamp(torch.ceil(
+        r / constant(cfg.max_radius, r.dtype, r.device) * nr), 1, nr) - 1
+    # degrees / 360 * ns: the reference's compiler folds the three constant
+    # factors (the last two a division by a constant, so a reciprocal) into
+    # one float32 product
+    ang = torch.remainder(refmath.atan2(xy[..., 1], xy[..., 0]), 2 * math.pi)
+    sector = torch.clamp(torch.ceil(ang * _sector_scale(ns)), 1, ns) - 1
     nb = nr * ns
     row = torch.arange(mask[..., 0].numel(), device=xy.device).reshape(lead)
     lin = (row[..., None] * nb + (ring * ns + sector).long()).reshape(-1)
@@ -158,9 +173,22 @@ def shift_to_yaw(shift: torch.Tensor, num_sector: int) -> torch.Tensor:
     return shift.float() * (2.0 * math.pi / num_sector)
 
 
+def _segment_lengths(d: torch.Tensor) -> torch.Tensor:
+    """|d_i| of [N, 2] steps as the reference's program computes them in
+    ``detect`` (its object code at capacity 256; held at ten capacities
+    from 128 to 4608): a vector loop of 8 steps at a time squares and adds
+    without fusing, sqrt(x*x + y*y); the remainder past the last multiple
+    of 8 is scalar code that fuses, sqrt(fma(y, y, x*x))."""
+    n = d.shape[0]
+    x, y = d[:, 0], d[:, 1]
+    plain = refmath.sqrt(x * x + y * y)
+    vector = torch.arange(n, device=d.device) < n // 8 * 8
+    return torch.where(vector, plain, refmath.norm2(d))
+
+
 def _travel(positions: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
     """[..., N] path length from keyframe i to keyframe ``cur`` [...]."""
-    seg = torch.linalg.norm(positions[1:] - positions[:-1], dim=-1)
+    seg = _segment_lengths(positions[1:] - positions[:-1])
     cum = torch.cumsum(torch.cat([seg.new_zeros(1), seg]), 0)  # [N]
     return cum[cur][..., None] - cum
 
@@ -173,7 +201,7 @@ def odometry_similarity(positions: torch.Tensor, mask: torch.Tensor,
     count = mask.sum(-1)
     cur = torch.clamp(count - 1, min=0)
     trav = _travel(positions, cur)
-    d_est = torch.linalg.norm(positions[cur][..., None, :] - positions, dim=-1)
+    d_est = refmath.norm2(positions[cur][..., None, :] - positions)
     err = torch.clamp(d_est - 5.0, min=0.0)
     rel = err / torch.clamp(trav, min=1e-9)
     # the division by a constant as the reference's product by its reciprocal

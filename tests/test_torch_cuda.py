@@ -759,13 +759,13 @@ def _lm_call(prob, dev, cost, loss, max_iter, one_system):
     (4, 4, 512, 20),  # odometry's window at B = 4 (4096 leaves for P2P)
     (5, 1, 512, 10),  # a loop wave's rows (512 leaves for P2L)
     (3, 5, 512, 20),  # register_joint over 5 scans (2 x 2560 leaves)
-    # cell_capacity 2048: P2D's inputs (312 KB a row) exceed the staged
-    # 200 KB and are read from global memory; P2P and P2L stay staged
+    # cell_capacity 2048: P2D's row (16,384 leaves) spread over the
+    # cluster's CTAs
     (2, 4, 2048, 20)])
 def test_lm_solve_kernel_bit_equal_to_plain(cuda, b, t, c, max_iter):
-    """The LM-solve kernel (one launch) against the plain version on the
-    card, bit for bit in theta, cost and the last relative decrease, over
-    every cost x loss x prior x one_system."""
+    """The LM-solve entry of the registration kernel (one launch) against
+    the plain version on the card, bit for bit in theta, cost and the last
+    relative decrease, over every cost x loss x prior x one_system."""
     from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
     from tbv_slam_public_torch.kernels.checks import lm_problem
 
@@ -811,6 +811,165 @@ def test_a_cuda_tensor_never_reaches_the_plain_lm_solve(cuda, monkeypatch):
             t(prob[0]), SimpleNamespace(mean=t(prob[1])),
             treg.Associations(*(t(x) for x in prob[2:6])), cost=2, loss=1,
             delta=0.1, max_iter=2, init_lambda=1e-4)
+
+
+def _window_args(prob, dev, cfg):
+    from tbv_slam_public_torch.core.types import Cells
+
+    t = lambda k: torch.as_tensor(prob[k], device=dev)
+
+    def cells(side):
+        f = lambda k: t(f"{side}_{k}")
+        return Cells(mean=f("mean"), cov=f("cov"), normal=f("normal"),
+                     nsamples=f("nsamples"), planarity=f("planarity"),
+                     avg_intensity=torch.zeros_like(f("nsamples")),
+                     valid=f("valid"))
+
+    prior = dict(guess=t("guess"), guess_sqrt_info=t("sqrt_info")) \
+        if "guess" in prob else {}
+    return (cells("src"), t("pose0"), cells("tgt"), t("tgt_poses"),
+            t("scan_mask"), cfg), prior
+
+
+def _window_differ(got, want) -> int:
+    """Values of two ``RegistrationResult``s that differ (the pose and
+    score in their bits)."""
+    return sum(bits_differ(getattr(got, f), getattr(want, f))
+               for f in ("pose", "score")) + sum(
+        int((getattr(got, f) != getattr(want, f)).sum())
+        for f in ("num_residuals", "iterations", "success"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,ct", [
+    (2, 3, 37, 41),  # fewer than 256 threads a CTA, N not 2^k, Ct != C
+    (1, 4, 512, 512),  # the odometry step
+    (4, 4, 512, 512),  # batched odometry
+    (12, 1, 512, 512),  # an online loop wave
+    (2, 4, 2048, 2048)])  # cell_capacity 2048
+def test_register_window_kernel_bit_equal_to_plain(cuda, b, t, c, ct):
+    """``register_window`` (one launch of the window kernel) against the
+    plain version on the card, bit for bit in pose, score, residual count
+    and iterations, over every cost x loss, each with a prior or none,
+    one_system or not and a weight option 0-4 in turn."""
+    import itertools
+
+    from tbv_slam_public_torch.core.config import RegistrationConfig
+    from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
+    from tbv_slam_public_torch.kernels.checks import window_problem
+    from tbv_slam_public_torch.ops import registration as treg
+
+    rng = np.random.default_rng(b * 1000 + c)
+    probs = [window_problem(rng, b, t, c, ct, with_prior=p)
+             for p in (False, True)]
+    grid = itertools.product(("P2L", "P2D", "P2P"), ("none", "huber",
+                                                     "cauchy", "softlone",
+                                                     "tukey", "combined"))
+    for i, (cost, loss) in enumerate(grid):
+        cfg = RegistrationConfig(cost=cost, loss=loss, weight_option=i % 5,
+                                 loss_limit=0.3)
+        args, prior = _window_args(probs[i % 2], cuda, cfg)
+        one = b == 1 and i % 3 == 0
+        before = dict(lm_kernel.LAUNCHES_BY_ENTRY)
+        got = treg.register_window(*args, one_system=one, **prior)
+        assert lm_kernel.LAUNCHES_BY_ENTRY["window"] == \
+            before.get("window", 0) + 1
+        assert lm_kernel.LAUNCHES_BY_ENTRY["solve"] == before.get("solve", 0)
+        with lm_kernel.plain_on_card():
+            want = treg.register_window(*args, one_system=one, **prior)
+        assert _window_differ(got, want) == 0, (cost, loss, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,cost", [(1, 4, 512, "P2P"),
+                                        (3, 1, 512, "P2L"),
+                                        (2, 3, 256, "P2D")])
+def test_register_window_bit_identical_at_every_cluster_size(cuda, b, t, c,
+                                                             cost):
+    """The window kernel forced to K = 1, 2, 4 and 8 CTAs a row gives the
+    same bits (its sums follow one pairwise tree whatever K), equal to the
+    plain version's."""
+    from tbv_slam_public_torch.core.config import RegistrationConfig
+    from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
+    from tbv_slam_public_torch.kernels.checks import window_problem
+    from tbv_slam_public_torch.ops import registration as treg
+
+    prob = window_problem(np.random.default_rng(c + b), b, t, c, c,
+                          with_prior=True)
+    cfg = RegistrationConfig(cost=cost)
+    args, prior = _window_args(prob, cuda, cfg)
+    with lm_kernel.plain_on_card():
+        want = treg.register_window(*args, **prior)
+    src, pose0, tgt, tposes, smask, _ = args
+    code = treg.cost_code(cost)
+    tmw, tnw, tcw, tvalid = treg._world_targets(tgt, tposes, smask, code)
+    for k in (1, 2, 4, 8):
+        pose, score, n_res, used = lm_kernel.register_window(
+            pose0, src.mean, src.normal, src.nsamples, src.planarity,
+            src.valid, tmw, tnw, tcw, tvalid, tgt.nsamples, tgt.planarity,
+            cost=code, loss=treg.loss_code(cfg.loss), delta=cfg.loss_limit,
+            max_inner=cfg.max_inner_iterations, init_lambda=cfg.init_lambda,
+            max_outer=cfg.max_outer_iterations,
+            min_outer=cfg.min_outer_iterations, radius=cfg.radius,
+            angle_gate_cos=float(np.cos(np.radians(cfg.angle_gate_deg))),
+            weight_option=cfg.weight_option,
+            regularization=cfg.regularization, cov_scale=cfg.cov_scale,
+            score_tolerance=cfg.score_tolerance, guess=prior["guess"],
+            sqrt_info=prior["guess_sqrt_info"], cluster=k)
+        assert bits_differ(pose, want.pose) == 0, k
+        assert bits_differ(score, want.score) == 0, k
+        assert torch.equal(n_res, want.num_residuals), k
+        assert torch.equal(used, want.iterations), k
+
+
+@pytest.mark.cuda
+def test_register_joint_solves_bit_equal_to_plain(cuda):
+    """``register_joint`` on the card (its LM solves through the kernel's
+    solve entry, one launch an outer iteration) equals its plain version
+    bit for bit."""
+    from tbv_slam_public_torch.core.config import RegistrationConfig
+    from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
+    from tbv_slam_public_torch.kernels.checks import window_problem
+    from tbv_slam_public_torch.ops import registration as treg
+
+    prob = window_problem(np.random.default_rng(8), 1, 5, 256, 256)
+    (_, _, tgt, tposes, _, _), _ = _window_args(prob, cuda,
+                                                RegistrationConfig())
+    scans = tgt.map(lambda x: x[0])
+    mask = torch.ones(5, dtype=torch.bool, device=cuda)
+    fixed = torch.zeros(5, dtype=torch.bool, device=cuda)
+    fixed[0] = True
+    for cost in ("P2P", "P2L", "P2D"):
+        cfg = RegistrationConfig(cost=cost, max_outer_iterations=3)
+        before = lm_kernel.LAUNCHES_BY_ENTRY["solve"]
+        got = treg.register_joint(scans, tposes[0], mask, fixed, cfg)
+        assert lm_kernel.LAUNCHES_BY_ENTRY["solve"] == before + 3
+        with lm_kernel.plain_on_card():
+            want = treg.register_joint(scans, tposes[0], mask, fixed, cfg)
+        assert _window_differ(got, want) == 0, cost
+
+
+@pytest.mark.cuda
+def test_a_cuda_tensor_never_reaches_the_plain_window(cuda, monkeypatch):
+    """On CUDA tensors ``register_window`` is the kernel: neither the plain
+    association nor the plain cost pass is called, and the plain entry
+    itself raises outside the test-only ``plain_on_card``."""
+    from tbv_slam_public_torch.core.config import RegistrationConfig
+    from tbv_slam_public_torch.kernels.checks import window_problem
+    from tbv_slam_public_torch.ops import registration as treg
+
+    prob = window_problem(np.random.default_rng(4), 2, 2, 64, 64, True)
+    args, prior = _window_args(prob, cuda, RegistrationConfig())
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain window ran on a CUDA tensor")
+
+    monkeypatch.setattr(treg, "associate", refuse)
+    monkeypatch.setattr(treg, "_cost_grad_hess", refuse)
+    out = treg.register_window(*args, **prior)
+    assert out.pose.is_cuda and out.iterations.is_cuda
+    with pytest.raises(RuntimeError, match="plain register_window"):
+        treg._register_window_reference(*args, **prior)
 
 
 @pytest.mark.cuda

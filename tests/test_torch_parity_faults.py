@@ -4,8 +4,10 @@ compiled CPU program rounds or orders float32 work in its own way.
 Each case holds one repair: the CorAl covariance determinants and the order
 of the CorAl moment sums, the CFEAR cell arithmetic, the detector's points,
 the row independence of the plain CorAl moments, the CA-CFAR window
-sums above 2^24, the SoftLOne and Tukey losses at any loss limit, and the
-logistic fit (the gradient's sum, the solve, the whole fit).  Run as a program, the file prints the shares of
+sums above 2^24, the SoftLOne and Tukey losses at any loss limit, the
+logistic fit (the gradient's sum, the solve, the whole fit), the
+ScanContext rings and sectors, the two-value norms of the odometry gates
+and the loop search, and the subnormal Cauchy and combined weights.  Run as a program, the file prints the shares of
 bit-equal results on sensor-size scans (``--frames`` of them) for the
 package on the path, so the same command measures a tree before and after
 a change:
@@ -23,20 +25,31 @@ import torch
 
 from tbv_slam_public_tpu.core.config import FeatureConfig as JFeatureConfig
 from tbv_slam_public_tpu.core.config import RadarConfig as JRadarConfig
+from tbv_slam_public_tpu.core.config import \
+    ScanContextConfig as JScanContextConfig
+from tbv_slam_public_tpu.core.types import PointCloud as JPointCloud
+from tbv_slam_public_tpu.models import strategies as jstrategies
 from tbv_slam_public_tpu.ops import coral as jcoral
 from tbv_slam_public_tpu.ops import features as jfeatures
 from tbv_slam_public_tpu.ops import logistic as jlogistic
 from tbv_slam_public_tpu.ops import radar as jradar
 from tbv_slam_public_tpu.ops import registration as jreg
-from tbv_slam_public_torch.core.config import FeatureConfig, RadarConfig
+from tbv_slam_public_tpu.ops import scancontext as jsc
+from tbv_slam_public_torch.core.config import (FeatureConfig, RadarConfig,
+                                               ScanContextConfig)
+from tbv_slam_public_torch.core.refmath import recip
 from tbv_slam_public_torch.core.types import PointCloud
 from tbv_slam_public_torch.io import simulate
 from tbv_slam_public_torch.kernels import coral_moments as tmoments
+from tbv_slam_public_torch.kernels import refmath as trefmath
+from tbv_slam_public_torch.models import odometry as todometry
+from tbv_slam_public_torch.models import strategies as tstrategies
 from tbv_slam_public_torch.ops import coral as tcoral
 from tbv_slam_public_torch.ops import features as tfeatures
 from tbv_slam_public_torch.ops import logistic as tlogistic
 from tbv_slam_public_torch.ops import radar as tradar
 from tbv_slam_public_torch.ops import registration as treg
+from tbv_slam_public_torch.ops import scancontext as tsc
 
 # The suite runs several worker processes on one machine and these tensors are
 # small: one intra-op thread per process keeps the workers from
@@ -343,6 +356,147 @@ def test_logistic_fit_bit_equal_to_the_reference(n):
             .view(np.int32))
 
 
+
+def _same_bits(got, want):
+    """Positions where two float32 arrays differ in their bits (NaNs
+    alike)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return ~((got.view(np.int32) == want.view(np.int32))
+             | (np.isnan(got) & np.isnan(want)))
+
+
+def _boundary_cloud(rng, n, cfg):
+    """n points within 1e-7 (relative) of a ring's outer radius and, half
+    of them, of a sector's edge, with small integer intensities (every bin
+    sum exact, so a descriptor differs only where a point changes bins)."""
+    ring = rng.integers(1, cfg.num_ring + 1, n)
+    r = ring * cfg.max_radius / cfg.num_ring * (1 + rng.normal(size=n) * 1e-7)
+    edge = rng.integers(0, cfg.num_sector, n) * 2 * np.pi / cfg.num_sector
+    th = np.where(rng.uniform(size=n) < 0.5,
+                  edge * (1 + rng.normal(size=n) * 1e-7),
+                  rng.uniform(0, 2 * np.pi, n))
+    xy = np.stack([r * np.cos(th), r * np.sin(th)], -1).astype(np.float32)
+    return (xy, rng.integers(1, 4, n).astype(np.float32), np.ones(n, bool))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_scancontext_rings_and_sectors_round_as_the_reference(seed):
+    """The descriptor of points on ring and sector edges bit-equal to the
+    reference's: its radius is sqrt(fma(y, y, x*x)) with the IEEE root, its
+    ring a true division by max_radius (a runtime operand of its jitted
+    function) times the ring count, its sector the angle times one folded
+    float32 constant (optimized HLO and object code of
+    ``_descriptor_impl``).  Before: 1,606 of 81,920 such points changed ring
+    between torch's rounding and the reference's."""
+    rng = np.random.default_rng(seed)
+    cfg, jcfg = ScanContextConfig(), JScanContextConfig()
+    for _ in range(4):
+        xy, inten, mask = _boundary_cloud(rng, 4096, cfg)
+        want = jsc.make_descriptor(JPointCloud(
+            jnp.asarray(xy), jnp.asarray(inten), jnp.asarray(mask)), jcfg)
+        got = tsc.make_descriptor(PointCloud(
+            torch.as_tensor(xy), torch.as_tensor(inten),
+            torch.as_tensor(mask)), cfg)
+        assert not _same_bits(got.numpy(), want).any()
+
+
+def ring_flips(frames: int):
+    """(points whose ScanContext ring differs between torch's former
+    rounding, sqrt((xy * xy).sum(-1)) / max_radius * num_ring, and the
+    reference's, valid points) over sensor-size k-strongest clouds."""
+    cfg = ScanContextConfig()
+    flips = total = 0
+    for cloud, _ in _sensor_scans(frames)[1]:
+        xy = torch.as_tensor(cloud.xy[cloud.mask])
+        old = torch.ceil(torch.sqrt((xy * xy).sum(-1)) / cfg.max_radius
+                         * cfg.num_ring)
+        new = torch.ceil(trefmath.norm2(xy)
+                         / torch.tensor(cfg.max_radius) * cfg.num_ring)
+        clip = lambda v: torch.clamp(v, 1, cfg.num_ring)
+        flips += int((clip(old) != clip(new)).sum())
+        total += len(xy)
+    return flips, total
+
+
+def _vectors(rng, n):
+    return (rng.normal(size=(n, 3)) * np.exp(rng.uniform(-4, 3, (n, 1)))
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("site", ["speed", "acceleration", "keyframe",
+                                  "segments", "distance", "verify"])
+def test_norm_sites_round_as_the_reference(site):
+    """The two-value norms of the odometry gates and of the loop search
+    bit-equal to the reference's: sqrt(fma(y, y, x*x)) with the IEEE root
+    where its program fuses the reduction (the gates of ``odometry_step``,
+    ``detect``'s distance to the current pose, ``verify_by_odometry``), the
+    divisions of the gates by the constants dt and dt^2 products by their
+    reciprocals, the segment lengths of ``detect`` unfused in its 8-wide
+    vector loop and fused in the scalar remainder, and
+    ``verify_by_odometry``'s division by 2 sigma^2 (sigma an operand there)
+    a true one (optimized HLO and object code of each)."""
+    rng = np.random.default_rng(11)
+    if site in ("speed", "acceleration", "keyframe"):
+        dt = 0.3  # 1 / dt and 1 / dt^2 not exact
+        cur, prev = _vectors(rng, 400), _vectors(rng, 400)
+        ref = {"speed": lambda a, b: jnp.linalg.norm(a[:2]) / dt,
+               "acceleration": lambda a, b: jnp.linalg.norm(a[:2] - b[:2])
+               / (dt * dt),
+               "keyframe": lambda a, b: jnp.linalg.norm(a[:2])}[site]
+        f = jax.jit(ref)
+        want = np.array([np.asarray(f(a, b)) for a, b in zip(cur, prev)])
+        vel, acc = todometry.motion_rates(torch.as_tensor(cur),
+                                          torch.as_tensor(prev), dt)
+        got = {"speed": vel, "acceleration": acc,
+               "keyframe": trefmath.norm2(torch.as_tensor(cur[:, :2]))}[site]
+    elif site == "segments":
+        f = jax.jit(lambda p: jnp.linalg.norm(p[1:, :2] - p[:-1, :2],
+                                              axis=-1))
+        want, got = [], []
+        for n in (128, 1024, 4608):
+            pose = np.cumsum(_vectors(rng, n), 0).astype(np.float32)
+            want.append(np.asarray(f(pose)))
+            got.append(tsc._segment_lengths(torch.as_tensor(
+                pose[1:, :2] - pose[:-1, :2])).numpy())
+        want, got = np.concatenate(want), np.concatenate(got)
+    elif site == "distance":
+        pos = np.cumsum(_vectors(rng, 1024)[:, :2], 0).astype(np.float32)
+        f = jax.jit(lambda p, c: jnp.linalg.norm(p[c][None, :] - p, axis=-1))
+        want = np.concatenate([np.asarray(f(pos, c)) for c in (7, 500)])
+        p = torch.as_tensor(pos)
+        got = torch.cat([trefmath.norm2(p[c][None, :] - p) for c in (7, 500)])
+    else:
+        poses = np.cumsum(_vectors(rng, 512), 0).astype(np.float32)
+        trav = np.cumsum(rng.uniform(0, 3, 512)).astype(np.float32)
+        ids = rng.integers(0, 512, (2, 256))
+        want = jstrategies.verify_by_odometry(
+            jnp.asarray(poses), jnp.asarray(trav), jnp.asarray(ids[0]),
+            jnp.asarray(ids[1]), 3.0)
+        got = tstrategies.verify_by_odometry(
+            torch.as_tensor(poses), torch.as_tensor(trav),
+            torch.as_tensor(ids[0]), torch.as_tensor(ids[1]), 3.0)
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    assert not _same_bits(got, want).any()
+
+
+@pytest.mark.parametrize("loss", ["cauchy", "combined"])
+@pytest.mark.parametrize("delta", [0.1, 1.0])
+def test_subnormal_weights_flush_as_the_reference(loss, delta):
+    """The Cauchy and combined IRLS weights at squared residuals near the
+    float32 maximum: subnormal in torch's arithmetic, zero in the
+    reference's, whose threads flush subnormal results (FTZ).  Before: 1 of
+    the 196,608 values of ``_squared_residuals`` and 6-7 of the large ones
+    differed."""
+    rng = np.random.default_rng(5)
+    s = np.concatenate([_squared_residuals(rng), np.exp(rng.uniform(
+        np.log(1e37), np.log(3.4e38), 4096)).astype(np.float32)])
+    code = jreg.loss_code(loss)
+    want = jax.jit(lambda v: jreg._rho_and_weight(v, code, delta))(s)
+    got = treg._rho_and_weight(torch.as_tensor(s), code, delta)
+    for g, w in zip(got, want):
+        assert not _same_bits(g.numpy(), w).any()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="bit-equal shares against the "
                                 "JAX package, for the port on the path")
@@ -361,6 +515,9 @@ def main(argv=None) -> int:
         same += int((got.xy.numpy()[m] == cloud.xy[m]).all(1).sum())
         total += int(m.sum())
     print(f"detector points bit-equal: {same} of {total}")
+    flips, total = ring_flips(a.frames)
+    print(f"ScanContext rings changed by the reference's rounding: {flips} "
+          f"of {total} points")
     # odometry against the reference over tests/test_torch_odometry_variants.py's
     # two sequences, each package with its own detector
     import test_torch_odometry_variants as variants

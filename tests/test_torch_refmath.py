@@ -206,7 +206,11 @@ def test_lu_solve_refuses_the_sizes_it_does_not_write_out():
 def test_exp_as_the_odometry_check_computes_it():
     """``verify_by_odometry``'s 1 - exp(-rel^2 / (2 sigma^2)), with the
     exponent in [-ln 2, 0] (where 1 - exp is exact, so every bit of the
-    exp shows) and over [-100, 0]."""
+    exp shows) and over [-100, 0].  The reference is called as its
+    pipeline calls it (``models/strategies.py``, from host code): sigma is
+    an operand of its jitted function, so 2 sigma^2 is computed at run time
+    and divided by, not folded into a constant's reciprocal as it is when
+    sigma is a constant of an enclosing trace."""
     rng = np.random.default_rng(3)
     d = np.concatenate([_uniform(rng, 0.0, 1.0), _uniform(rng, 0.0, 20.0),
                         np.array([0.0, 1e-3, 1e3], np.float32)])
@@ -216,8 +220,7 @@ def test_exp_as_the_odometry_check_computes_it():
     travel = np.concatenate([[0.0], np.full(m, 1.0)]).astype(np.float32)
     ids = np.arange(1, m + 1)
     zeros = np.zeros(m, np.int64)
-    want = jax.jit(lambda *a: jstrategies.verify_by_odometry(*a, 0.6))(
-        poses, travel, ids, zeros)
+    want = jstrategies.verify_by_odometry(poses, travel, ids, zeros, 0.6)
     got = tstrategies.verify_by_odometry(
         *map(torch.as_tensor, (poses, travel, ids, zeros)), 0.6)
     _assert_bits(got.numpy(), want)
