@@ -13,10 +13,17 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    logistic fit's solve in LAPACK's order) bit-equal to its plain version
    on 2^22 values an op (the solve on 3000 systems at each size), timed at
    1, 4096 and 2^19 values (the solve at one 7 x 7 system) beside its
-   plain version and the torch call it replaces; and on every path below that runs in this process (and on
+   plain version and the torch call it replaces; its site entries (se2's
+   compose, inverse, relative, apply, rotate, interpolate and rotmat,
+   ``norm2``, registration's world-frame targets, the motion compensation:
+   one launch a site) and ``cumsum`` (``detect``'s travelled distance in
+   the reference's blocked order) bit-equal to their plain versions on the
+   CPU on 2^20 elements a site with special values, each timed at its
+   path's shape beside its op-by-op body on the card and the host's time a
+   call; and on every path below that runs in this process (and on
    each rank of 10(b)), its count set to 0 just before the path and read
-   just after, then the first operands and result of each op and shapes
-   that the path gave it held bit for bit to the plain version; the
+   just after, then the first operands and result of each op, site and
+   shapes that the path gave it held bit for bit to the plain version; the
    registration kernel (phase 2b): its window entry (``register_window``,
    one launch a call: association, LM solve and outer guards) bit-equal
    to the plain ``register_window`` on the card over every cost x loss x
@@ -39,7 +46,16 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    launch count of that run; its first 20 frames again with the
    registration kernel and with the plain registration on the card,
    bit-equal; then the
-   kernel's time on that run's keyframe clouds;
+   kernel's time on that run's keyframe clouds; then (4c) the cell_stats
+   kernel (``compute_cells`` after the top-C selection, one launch a
+   cloud) bit-equal to its plain version on the card on phase 4's
+   k-strongest clouds, the CA-CFAR and BFAR clouds, MulRan's shapes, the
+   cfear3_oxford preset's 16,000-point clouds and clouds with a point
+   within an ulp of each cell's radius, the cells that differ from the
+   CPU's plain version counted on phase 4's clouds, and its time at phase
+   4's and the preset's shapes beside the plain version and its bound; on
+   every path, as refmath,
+   its launches counted and its first call at each shape held;
 5. cholesky PGO on the 4470-node Oxford real-odometry instance;
 6. the ``schur`` and ``cg`` solvers on that instance beside ``cholesky``
    (``schur`` twice, bit-equal: the edge sums add in index order), and one
@@ -442,16 +458,17 @@ def refmath_inputs():
     from tbv_slam_public_torch.kernels import refmath as rm
 
     kept, real = {}, rm._call
+    clone = lambda t: None if t is None else t.detach().clone()
 
     def keep(op, *ts, **options):
         out = real(op, *ts, **options)
         if ts[0].device.type == "cuda":
-            key = (op,) + tuple(tuple(t.shape) for t in ts) + \
-                tuple(sorted(options.items()))
+            key = (op,) + tuple(None if t is None else tuple(t.shape)
+                                for t in ts) + tuple(sorted(options.items()))
             if key not in kept:
                 outs = out if isinstance(out, tuple) else (out,)
-                kept[key] = ([t.detach().clone() for t in ts],
-                             [o.detach().clone() for o in outs], options)
+                kept[key] = ([clone(t) for t in ts], [clone(o) for o in outs],
+                             options)
         return out
 
     rm._call = keep
@@ -468,14 +485,315 @@ def hold_refmath(tag, kept) -> int:
     from tbv_slam_public_torch.kernels.checks import bits_differ
 
     for key, (args, outs, options) in kept.items():
-        want = rm._PLAIN[key[0]](*(a.cpu() for a in args), **options)
+        want = rm._PLAIN[key[0]](*(None if a is None else a.cpu()
+                                   for a in args), **options)
         want = want if isinstance(want, tuple) else (want,)
-        bad = sum(bits_differ(o, w) for o, w in zip(outs, want))
+        if [o is None for o in outs] != [w is None for w in want]:
+            raise AssertionError(f"{tag} refmath {key[0]}: the kernel's and "
+                                 f"the plain version's outputs differ")
+        bad = sum(bits_differ(o, w) for o, w in zip(outs, want)
+                  if o is not None)
         if bad:
             raise AssertionError(f"{tag} refmath {key[0]} at shapes "
                                  f"{key[1:]}: {bad} values differ from the "
                                  f"plain version")
     return len(kept)
+
+
+# float32 operations an element of each refmath site, for the bound (the
+# double ones of sinf/cosf counted at the float32 rate): sincos 26, the
+# angle wrap 60, atan2 35, a fused multiply-add or other operation 1
+SITE_OPS = {"compose": 95, "relative": 125, "inverse": 32, "apply": 32,
+            "rotate": 30, "interpolate": 126, "rotmat": 26, "norm2": 4,
+            "world_targets": 40, "world_targets_p2d": 64,
+            "motion_compensate": 70, "cumsum": 2}
+
+
+def _site_cases(rng, dev, n):
+    """{name: (site, operands, options)} of every refmath site on about n
+    random elements, special values among them (angles, coordinates)."""
+    from tbv_slam_public_torch.kernels.checks import REFMATH_SPECIAL
+
+    sp = REFMATH_SPECIAL
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def poses(m, extent=60.0):
+        p = np.stack([rng.uniform(-extent, extent, m),
+                      rng.uniform(-extent, extent, m),
+                      rng.uniform(-7.0, 7.0, m)], -1).astype(np.float32)
+        p[:len(sp), 2] = sp
+        p[len(sp):2 * len(sp), 0] = sp
+        return p
+
+    k = 1024
+    pts = rng.uniform(-80, 80, (k, n // k, 2)).astype(np.float32)
+    pts[0, :len(sp), 0] = sp
+    b, tt, c = 4, 16, n // 64
+    cov = (rng.normal(size=(b, tt, c, 2, 2)) * np.exp(rng.uniform(
+        -6, 3, (b, tt, c, 1, 1)))).astype(np.float32)
+    cov[:, :, ::9] = 0.0
+    world = (t(poses(b * tt).reshape(b, tt, 3)),
+             t(rng.uniform(-80, 80, (b, tt, c, 2))),
+             t(rng.uniform(-1, 1, (b, tt, c, 2))), t(cov),
+             torch.as_tensor(rng.uniform(size=(b, tt, c)) < 0.8, device=dev),
+             torch.as_tensor(rng.uniform(size=(b, tt)) < 0.7, device=dev))
+    xy = rng.uniform(-80, 80, (n, 2)).astype(np.float32)
+    xy[:len(sp) ** 2] = np.stack(np.meshgrid(sp, sp), -1).reshape(-1, 2)
+    motion = t([0.7, -0.05, 0.02])
+    cases = {"compose": ("compose", (t(poses(n)), t(poses(n, 3.0))), {}),
+             "relative": ("relative", (t(poses(n)), t(poses(n))), {}),
+             "inverse": ("inverse", (t(poses(n)),), {}),
+             "apply": ("apply", (t(poses(k)), t(pts)), {}),
+             "rotate": ("rotate", (t(poses(k)), t(pts)), {}),
+             "interpolate": ("interpolate", (t(poses(n)), t(poses(n)),
+                                             t(rng.uniform(0, 1, n))), {}),
+             "rotmat": ("rotmat", (t(poses(n)[:, 2]),), {}),
+             "norm2": ("norm2", (t(xy),), {}),
+             "world_targets": ("world_targets",
+                               world[:3] + (None,) + world[4:], {}),
+             "world_targets_p2d": ("world_targets", world, {}),
+             "motion_compensate": ("motion_compensate", (t(xy), motion),
+                                   dict(ccw=False)),
+             "motion_compensate_ccw": ("motion_compensate", (t(xy), motion),
+                                       dict(ccw=True))}
+    return cases
+
+
+# each site at the shape its main path gives it: (site, operand shapes,
+# options); the torch call that computes the same function, where one does
+SITE_SHAPES = {
+    "compose": ("compose", ((1, 3), (1, 3)), {}),
+    "relative": ("relative", ((1, 3), (1, 3)), {}),
+    "inverse": ("inverse", ((1, 3),), {}),
+    "apply": ("apply", ((12, 3), (12, 4096, 2)), {}),
+    "rotate": ("rotate", ((1, 3), (1, 512, 2)), {}),
+    "interpolate": ("interpolate", ((1, 3), (1, 3), (1,)), {}),
+    "rotmat": ("rotmat", ((1,),), {}),
+    "norm2": ("norm2", ((4608, 2),), {}),
+    "world_targets": ("world_targets", ((1, 4, 3), (1, 4, 512, 2),
+                                        (1, 4, 512, 2), None, "b(1, 4, 512)",
+                                        "b(1, 4)"), {}),
+    "world_targets_p2d": ("world_targets", ((1, 4, 3), (1, 4, 512, 2),
+                                            (1, 4, 512, 2), (1, 4, 512, 2, 2),
+                                            "b(1, 4, 512)", "b(1, 4)"), {}),
+    "motion_compensate": ("motion_compensate", ((4800, 2), (3,)),
+                          dict(ccw=False)),
+}
+SITE_LIBRARY = {"norm2": lambda v: torch.linalg.vector_norm(v, dim=-1)}
+
+
+def phase_refmath_sites():
+    """The refmath kernel's site entries against their plain versions on
+    the CPU, bit for bit, on 2^20 elements a site with special values, and
+    ``cumsum`` at the paths' capacities; then each site's time at its main
+    path's shape (CUDA events behind the device-side spin) beside its plain
+    version (the op-by-op body on the card, the path before this slice),
+    the host's time a call for both, and its bound."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+    # the sites' owners register them (registration imports core/se2.py)
+    from tbv_slam_public_torch.ops import radar, registration  # noqa: F401
+    from tbv_slam_public_torch.kernels.checks import bits_differ
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    cases = _site_cases(rng, dev, 1 << 20)
+    for name, (site, ts, opts) in cases.items():
+        rm.LAUNCHES_BY_OP.clear()
+        got = rm.site(site, *ts, **opts)
+        if dict(rm.LAUNCHES_BY_OP) != {site: 1}:
+            raise AssertionError(f"[2] site {name}: launches "
+                                 f"{dict(rm.LAUNCHES_BY_OP)}, not one")
+        want = rm._PLAIN[site](*(None if x is None else x.cpu() for x in ts),
+                               **opts)
+        got, want = ((got, want) if isinstance(got, tuple)
+                     else ((got,), (want,)))
+        bad = sum(bits_differ(g, w) for g, w in zip(got, want)
+                  if g is not None)
+        log(f"[2] refmath site {name}: {got[0].numel()} values, {bad} "
+            f"differ from the plain version")
+        if bad:
+            raise AssertionError(f"refmath site {name}: {bad} values differ")
+    for n in (1, 16, 17, 128, 1000, 4608, 1 << 20):
+        x = torch.as_tensor(rng.uniform(0, 3, n).astype(np.float32))
+        bad = bits_differ(rm.cumsum(x.to(dev)), rm._PLAIN["cumsum"](x))
+        if bad:
+            raise AssertionError(f"refmath cumsum at {n}: {bad} differ")
+    log("[2] refmath cumsum: bit-equal at n = 1 .. 2^20")
+
+    def operand(shape):
+        if shape is None:
+            return None
+        if isinstance(shape, str):  # a bool mask
+            return torch.rand(eval(shape[1:]), device=dev) < 0.8
+        x = torch.empty(shape, device=dev).uniform_(-60, 60)
+        if shape[-1] == 3:
+            x[..., 2].uniform_(-3.2, 3.2)
+        return x
+
+    times = {}
+    for name, (site, shapes, opts) in list(SITE_SHAPES.items()) + [
+            ("cumsum", ("cumsum", ((4608,),), {}))]:
+        ts = [operand(sh) for sh in shapes]
+        if name == "cumsum":
+            ts[0].uniform_(0, 3)
+        call = lambda: rm._call(site, *ts, **opts)
+        plain = lambda: rm._PLAIN[site](*ts, **opts)
+        outs = call()
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        nbytes = sum(x.numel() * x.element_size() for x in ts
+                     if x is not None) + sum(
+            o.numel() * o.element_size() for o in outs if o is not None)
+        n = outs[0].shape[:outs[0].dim() - {"norm2": 0, "cumsum": 0,
+                                            "rotmat": 2}.get(site, 1)].numel()
+        ops = SITE_OPS[name] * n
+        t = dict(ms=cuda_ms(call, 50), plain_ms=cuda_ms(plain, 10),
+                 host_us=host_us(call), plain_host_us=host_us(plain, 20),
+                 bound_ms=max(nbytes / PEAK_BYTES_PER_S,
+                              ops / PEAK_F32_FLOPS) * 1e3,
+                 bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >=
+                 ops / PEAK_F32_FLOPS else "operations", elements=n,
+                 library_ms=None)
+        lib = SITE_LIBRARY.get(name) if name != "cumsum" else \
+            (lambda v: torch.cumsum(v, 0))
+        if lib is not None:
+            t["library_ms"] = cuda_ms(lambda: lib(*ts), 50)
+        times[name] = t
+        log(f"[2] refmath site {name} at {n} elements: {t['ms']:.4f} ms "
+            f"(bound {t['bound_ms']:.6f} ms), plain {t['plain_ms']:.4f} ms; "
+            f"host {t['host_us']:.1f} us a call (plain "
+            f"{t['plain_host_us']:.1f}); library {t['library_ms']}")
+    return times
+
+
+# float32 instructions of cell_stats, for the bound: the gate 6 a (cell,
+# unmasked point) pair, 12 a neighbour (weight sum, normalised weight,
+# centred point, six moments), about 80 a cell (covariance, eigen gates,
+# log1p, normal)
+CELL_GATE_OPS, CELL_NEIGHBOUR_OPS, CELL_OPS = 6, 12, 80
+
+
+def _cell_bound(xy, mask, centroid, occupied, cfg):
+    """Least time the card could take for one ``cell_stats`` call on these
+    inputs: the larger of its bytes (inputs read once, outputs written
+    once) over the memory rate and its instructions (counted from these
+    inputs' live pairs and neighbours) over the card's rate for
+    single float32 instructions (half the data sheet's FLOP/s, which counts
+    a fused multiply-add twice)."""
+    from tbv_slam_public_torch.ops import features as tf
+
+    p, c = xy.shape[0], centroid.shape[0]
+    nbytes = p * 13 + c * 9 + c * (8 + 16 + 8 + 12 + 1)
+    r2 = float(np.float32(cfg.resolution * cfg.resolution))
+    nbr = (tf._gate_sqdist(centroid, xy) <= r2) & mask[None] & \
+        occupied[:, None]
+    pairs = float(occupied.sum()) * float(mask.sum())
+    instr = CELL_GATE_OPS * pairs + CELL_NEIGHBOUR_OPS * float(nbr.sum()) \
+        + CELL_OPS * c
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = instr / (PEAK_F32_FLOPS / 2) * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                neighbours=int(nbr.sum()))
+
+
+def phase_cells(images, cfg):
+    """The cell_stats kernel against its plain version on the card, bit for
+    bit: on phase 4's k-strongest clouds, MulRan's shapes, the CA-CFAR and
+    BFAR clouds, the cfear3_oxford preset's 16,000-point clouds, and clouds
+    whose gate points lie within an ulp of the radius; the cells that
+    differ from the CPU's plain version counted on phase 4's clouds; one
+    launch and no host read a call; the time at phase 4's and the preset's
+    shapes beside the plain version and the bound."""
+    from tbv_slam_public_torch.core.config import (PRESETS, apply_overrides,
+                                                   parse_cli_overrides)
+    from tbv_slam_public_torch.core.types import PointCloud
+    from tbv_slam_public_torch.kernels import cells as kc
+    from tbv_slam_public_torch.kernels.checks import cell_gate_cloud
+    from tbv_slam_public_torch.ops import features as tf
+    from tbv_slam_public_torch.ops import radar
+
+    dev = torch.device("cuda")
+    fcfg = cfg.features
+    sets = {}
+
+    def clouds(rcfg, imgs, feat=fcfg):
+        out = []
+        for img in imgs:
+            cloud = radar.filter_scan(torch.as_tensor(img, device=dev),
+                                      rcfg)[0]
+            out.append((cloud,) + tf.select_cells(cloud, feat) + (feat,))
+        return out
+
+    sets["phase4"] = clouds(cfg.radar, images[:8])
+    for name in ("cacfar", "bfar"):
+        sets[name] = clouds(apply_overrides(cfg, parse_cli_overrides(
+            [f"radar.filter_type={name}"])).radar, images[:3])
+    mulran = apply_overrides(cfg, parse_cli_overrides(
+        "radar.num_range_bins=3360 radar.range_res=0.05952".split()))
+    sets["mulran"] = clouds(mulran.radar, _mulran_images(3)[0])
+    # the published presets' clouds: k_strongest 40 at 400 azimuths (16,000
+    # points) and the 3 m radius
+    oxford = PRESETS["cfear3_oxford"]()
+    sets["cfear3_oxford"] = clouds(oxford.radar, images[:3], oxford.features)
+    rng = np.random.default_rng(23)
+    gate = []
+    for _ in range(3):
+        xy, inten, mask, cen, occ = (torch.as_tensor(a, device=dev) for a in
+                                     cell_gate_cloud(rng, 512,
+                                                     fcfg.resolution))
+        gate.append((PointCloud(xy, inten, mask), cen, occ, fcfg))
+    sets["on_gate"] = gate
+    held, cpu_cells, cpu_differ = 0, 0, 0
+    for name, items in sets.items():
+        for cloud, cen, occ, feat in items:
+            args = (cloud.xy, cloud.intensity, cloud.mask, cen, occ, feat)
+            kc.LAUNCHES = 0
+            got = kc.cell_stats(*args)
+            if kc.LAUNCHES != 1:
+                raise AssertionError(f"[4c] {name}: {kc.LAUNCHES} launches")
+            again = kc.cell_stats(*args)
+            with kc.plain_on_card():
+                want = kc.cell_stats(*args)
+            bad = cells_differ(got, want) + cells_differ(got, again)
+            if bad:
+                raise AssertionError(f"[4c] cell_stats {name}: {bad} cells "
+                                     f"differ from the plain version")
+            held += 1
+            if name == "phase4":
+                cpu = tf._cell_stats_reference(*(a.cpu() for a in args[:5]),
+                                               fcfg)
+                cpu_differ += cells_differ(got, cpu)
+                cpu_cells += int(want[-1].sum())
+        log(f"[4c] cell_stats {name}: {len(items)} clouds bit-equal to the "
+            f"plain version on the card")
+    def timed(name):
+        cloud, cen, occ, feat = sets[name][0]
+        args = (cloud.xy, cloud.intensity, cloud.mask, cen, occ, feat)
+        call = lambda: kc.cell_stats(*args)
+
+        def plain():
+            with kc.plain_on_card():
+                return kc.cell_stats(*args)
+
+        t = dict(ms=cuda_ms(call, 50), plain_ms=cuda_ms(plain, 3, spin=False),
+                 host_us=host_us(call), points=cloud.xy.shape[0],
+                 cells=cen.shape[0],
+                 **_cell_bound(cloud.xy, cloud.mask, cen, occ, feat))
+        t["share_of_bound"] = _share(f"[4c] cell_stats {name}", t["bound_ms"],
+                                     t["ms"])
+        log(f"[4c] cell_stats {name} at P={t['points']}, C={t['cells']}: "
+            f"{t['ms']:.4f} ms (bound {t['bound_ms']:.6f} ms, "
+            f"{t['share_of_bound']:.1%}), plain {t['plain_ms']:.2f} ms, host "
+            f"{t['host_us']:.1f} us")
+        return t
+
+    res = timed("phase4")
+    res.update(clouds_held=held, phase4_cells_differing_from_cpu=cpu_differ,
+               phase4_valid_cells=cpu_cells, library_ms=None,
+               cfear3_oxford=timed("cfear3_oxford"))
+    log(f"[4c] {cpu_differ} of phase 4's {cpu_cells} valid cells differ from "
+        f"the CPU's plain version")
+    return res
 
 
 # the registration kernel's launches by path (window and solve entries),
@@ -617,14 +935,80 @@ def hold_window(tag, kept) -> int:
     return len(kept)
 
 
+# the cell_stats kernel's launches by path, the shapes held there, and the
+# paths that compute cells in this process
+CELLS_LAUNCHES = {}
+CELLS_HELD = {}
+CELLS_PATHS = ("offline", "online", "batched", "dryrun")
+
+
+@contextlib.contextmanager
+def cells_inputs():
+    """For each (P, C, configuration) that ``cell_stats`` is given on CUDA
+    tensors inside the block (through ``compute_cells``), the first call's
+    arguments and result, copied on the card: ``{key: (args, kwargs,
+    outs)}``."""
+    from tbv_slam_public_torch.ops import features as tf
+
+    kept, real = {}, tf.cell_stats
+
+    def keep(*args, **kw):
+        out = real(*args, **kw)
+        if args[0].is_cuda:
+            key = (args[0].shape[0], args[3].shape[0], args[5],
+                   tuple(kw.get("origin", args[6] if len(args) > 6 else
+                                (0.0, 0.0))))
+            if key not in kept:
+                kept[key] = ([a.detach().clone() if isinstance(
+                    a, torch.Tensor) else a for a in args], dict(kw),
+                    [o.detach().clone() for o in out])
+        return out
+
+    tf.cell_stats = keep
+    try:
+        yield kept
+    finally:
+        tf.cell_stats = real
+
+
+def cells_differ(got, want) -> int:
+    """Cells (rows) of two ``cell_stats`` results that differ in any
+    field's bits."""
+    rows = None
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if g.dtype == np.float32:
+            g, w = g.view(np.int32), w.view(np.int32)
+        d = (g != w).reshape(g.shape[0], -1).any(1)
+        rows = d if rows is None else rows | d
+    return int(rows.sum())
+
+
+def hold_cells(tag, kept) -> int:
+    """Each kept ``cell_stats`` call against the plain version on its inputs
+    on the card, bit for bit; returns the number of shapes held."""
+    from tbv_slam_public_torch.kernels import cells as kc
+    from tbv_slam_public_torch.ops import features as tf
+
+    for key, (args, kw, outs) in kept.items():
+        with kc.plain_on_card():
+            want = tf._cell_stats_reference(*args, **kw)
+        bad = cells_differ(outs, want)
+        if bad:
+            raise AssertionError(f"{tag} cell_stats at {key[:2]}: {bad} "
+                                 f"cells differ from the plain version")
+    return len(kept)
+
+
 @contextlib.contextmanager
 def kernel_path(path):
-    """One path of the main run: the refmath and registration kernels'
-    counts are set to 0 just before the block and read just after
-    (``REFMATH_LAUNCHES[path]``, ``LM_LAUNCHES[path]``: window and solve
-    launches), then each kernel is held to its plain version at every op
-    or shape the path gave it (``REFMATH_HELD``, ``WINDOW_HELD``,
-    ``LM_HELD``)."""
+    """One path of the main run: the refmath, registration and cell_stats
+    kernels' counts are set to 0 just before the block and read just after
+    (``REFMATH_LAUNCHES[path]``: by op and site, ``LM_LAUNCHES[path]``:
+    window and solve launches, ``CELLS_LAUNCHES[path]``), then each kernel
+    is held to its plain version at every op, site or shape the path gave
+    it (``REFMATH_HELD``, ``WINDOW_HELD``, ``LM_HELD``, ``CELLS_HELD``)."""
+    from tbv_slam_public_torch.kernels import cells as kc
     from tbv_slam_public_torch.kernels import lm_solve as lk
     from tbv_slam_public_torch.kernels import refmath as rm
 
@@ -632,24 +1016,32 @@ def kernel_path(path):
     rm.LAUNCHES_BY_OP.clear()
     lk.LAUNCHES = 0
     lk.LAUNCHES_BY_ENTRY.clear()
+    kc.LAUNCHES = 0
     with refmath_inputs() as kept, lm_inputs() as lm_kept, \
-            window_inputs() as win_kept:
+            window_inputs() as win_kept, cells_inputs() as cells_kept:
         yield
     REFMATH_LAUNCHES[path] = dict(rm.LAUNCHES_BY_OP, total=rm.LAUNCHES)
     LM_LAUNCHES[path] = dict(lk.LAUNCHES_BY_ENTRY, total=lk.LAUNCHES)
+    CELLS_LAUNCHES[path] = kc.LAUNCHES
     if rm.LAUNCHES <= 0:
         raise AssertionError(f"the {path} path launched no refmath kernel")
     if lk.LAUNCHES <= 0 and (path in LM_PATHS or path.startswith("variant")):
         raise AssertionError(f"the {path} path launched no registration "
                              f"kernel")
+    if kc.LAUNCHES <= 0 and (path in CELLS_PATHS or
+                             path.startswith("variant")):
+        raise AssertionError(f"the {path} path launched no cell_stats "
+                             f"kernel")
     REFMATH_HELD[path] = hold_refmath(f"[{path}]", kept)
     WINDOW_HELD[path] = hold_window(f"[{path}]", win_kept)
     LM_HELD[path] = hold_lm(f"[{path}]", lm_kept)
+    CELLS_HELD[path] = hold_cells(f"[{path}]", cells_kept)
     log(f"[refmath] {path}: {REFMATH_LAUNCHES[path]['total']} launches, "
-        f"bit-equal to the plain version at its {REFMATH_HELD[path]} (op, "
-        f"shapes); [registration] {LM_LAUNCHES[path]} launches, window "
+        f"bit-equal to the plain version at its {REFMATH_HELD[path]} (op or "
+        f"site, shapes); [registration] {LM_LAUNCHES[path]} launches, window "
         f"bit-equal at its {WINDOW_HELD[path]} shapes, solve at its "
-        f"{LM_HELD[path]}")
+        f"{LM_HELD[path]}; [cells] {kc.LAUNCHES} launches, bit-equal at its "
+        f"{CELLS_HELD[path]} shapes")
 
 
 def phase_refmath():
@@ -2512,6 +2904,7 @@ def main(argv=None) -> int:
     smi, sm_hz = phase_build()
     k = phase_kernels(sm_hz)
     refmath_k = phase_refmath()
+    sites = phase_refmath_sites()
     lm_k = phase_registration()
     done("1-2")
     plain_trajectory, scan_launches = phase_cli()
@@ -2519,6 +2912,7 @@ def main(argv=None) -> int:
     launches, images, gt, cfg, loops, frame_poses, graph = phase_slice(
         args.frames)
     real = phase_real_clouds(loops, sm_hz)
+    cells_k = phase_cells(images, cfg)
     done("4")
     schur_twice = phase_solvers(phase_pgo())
     done("5-6")
@@ -2564,9 +2958,20 @@ def main(argv=None) -> int:
         "bound_ms": refmath_k["times"]["sincos_n4096"]["bound_ms"],
         "bound_by": refmath_k["times"]["sincos_n4096"]["bound_by"],
         "library_ms": refmath_k["times"]["sincos_n4096"]["library_ms"],
-        "times": refmath_k["times"],
+        "times": refmath_k["times"], "sites": sites,
         "launches_by_path": REFMATH_LAUNCHES,
         "shapes_held_by_path": REFMATH_HELD}, {
+        "name": "cell_stats", "route": "cuda",
+        "source": "tbv_slam_public_torch/csrc/cells.cu",
+        "replaces": "tbv_slam_public_tpu/ops/features.py:97 (no TPU kernel: "
+                    "XLA fuses compute_cells; the port's plain version is "
+                    "ops/features.py::_cell_stats_reference)",
+        "launches": CELLS_LAUNCHES["offline"],
+        "max_abs_err": 0.0, "ms": cells_k["ms"],
+        "plain_ms": cells_k["plain_ms"], "bound_ms": cells_k["bound_ms"],
+        "bound_by": cells_k["bound_by"], "library_ms": None,
+        "times": cells_k, "launches_by_path": CELLS_LAUNCHES,
+        "shapes_held_by_path": CELLS_HELD}, {
         "name": "register_window", "route": "cuda",
         "source": "tbv_slam_public_torch/csrc/lm_solve.cu",
         "replaces": "tbv_slam_public_tpu/ops/registration.py:395 (no TPU "

@@ -33,6 +33,8 @@ own functions on the same inputs (``tests/test_torch_refmath.py``).
 | ``ops/registration.py::_prior_terms`` | ``sqrt_info @ (theta - guess)``, ``|pr|^2``, ``Jp^T Jp`` and ``Jp^T pr``: one fused multiply-add a term in order | the cost pass with a prior compiled alone, bit-equal on 256 priors | :func:`fma` |
 | ``ops/logistic.py::gradient`` | xb^T (sw (p - y)): XLA's scalar loop with reassociable adds, vectorised by LLVM in an order that depends on n (:func:`loop_dot_shape`) | object code of ``copy_dot_fusion`` at n = 13-1287; the product compiled alone held bit-equal at every n from 1 to 700 and at 13 k up to 1,560 (4 and 7 outputs) | :func:`loop_dot` |
 | ``ops/logistic.py::solve`` | ``jnp.linalg.solve`` of the fit's 4x4 / 7x7 system: jaxlib's ``lapack_sgetrf_ffi`` and two ``lapack_strsm_ffi`` (unit lower, then upper), which call SciPy's OpenBLAS (0.3.30, its SkylakeX kernels here), the right-hand side permuted by the pivots | optimized HLO of ``logistic.fit``; ``objdump -d`` of the library: ``sgetrf_single`` (unblocked below 2 x 4 columns), ``sgetf2_k``, ``sdot_k``, ``sgemv_n`` (its small-n path and its n = 4 remainders), the generic ``trsm_kernel_LT``/``_LN``, ``trsm_iunncopy`` and the ``sgemm_kernel`` update they call (its scalar edge: a fused multiply-add chain in k order, then c + alpha acc once); SciPy's factors and solves bit-equal on 63,000 systems, k = 1-7 (the fit's matrices, general, integer-valued with ties in magnitude, entries over e^+-30, zero pivots) | :func:`lu_solve` |
+| ``ops/scancontext.py::_travel`` (``detect``'s travelled distance) | ``jnp.cumsum`` as XLA's reduce-window rewrite: rows of 16 summed in order from zero, the rows' totals scanned the same way (recursively), shifted by one row and added | optimized HLO of ``detect`` at capacities 256, 1000 and 4608 | :func:`blocked_cumsum` (kernel entry ``cumsum``) |
+| ``ops/features.py`` the CFEAR weight sum | ``jnp.sum`` of a long row as XLA's CPU tree reduction: windows of 32 points (half the padding, rounded down, in front) summed in order from zero, recursively | optimized HLO of the masked row sum | ``ops/features.py::_tree_sum`` (``csrc/cells.cu`` on the card) |
 | subnormal operands and results of the functions above | flushed to zero (the reference's threads run with DAZ and FTZ) | outputs on subnormal inputs | :func:`ftz` |
 
 Fused multiply-adds inside the functions:
@@ -51,6 +53,11 @@ Fused multiply-adds inside the functions:
   FMA chains written out in :func:`_sin_poly` and :func:`_cos_poly`.
 - ``atan2f``/``atanf``: float arithmetic, no fusion.
 
+On the card the sites of the main path that combine these functions
+(``core/se2.py``'s pose algebra, :func:`norm2`, registration's world-frame
+targets, the motion compensation) are each one launch of
+``csrc/refmath_sites.cu``, which runs the same operations.
+
 What the reference computes otherwise and the port does not (yet) is in
 ``ROADMAP.md`` section 3: the sums over many terms (voxels, the LM's cost,
 gradient and Hessian),
@@ -60,6 +67,7 @@ at torch's while the LM's sums are not the reference's).
 """
 from __future__ import annotations
 
+import functools
 import math
 import struct
 
@@ -490,6 +498,55 @@ def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
     """atan2f(sinf(t), cosf(t)), the reference's angle wrap."""
     s, c = sincos(theta)
     return atan2(s, c)
+
+
+def norm2(v: torch.Tensor) -> torch.Tensor:
+    """The length of [..., 2] vectors as the reference's program computes
+    ``jnp.linalg.norm`` over two values: sqrt(fma(y, y, x * x)) with the
+    IEEE root (the refmath site ``norm2``)."""
+    return sqrt(fma(v[..., 1], v[..., 1], v[..., 0] * v[..., 0]))
+
+
+@functools.lru_cache(maxsize=None)
+def motion_constants():
+    """The float32 constants of ``ops/radar.py::motion_compensate``: 1 /
+    (2 pi) as the reference's program rounds the division's reciprocal, 2 pi
+    and 1e-5 as torch rounds a Python float against a float32 tensor."""
+    f32 = lambda c: float(torch.tensor(c, dtype=_F32))
+    return recip(2.0 * math.pi), f32(2.0 * math.pi), f32(1e-5)
+
+
+#: row length of the reference's blocked prefix sum
+CUMSUM_BLOCK = 16
+
+
+def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of a float32 vector as the reference's compiled
+    ``jnp.cumsum`` adds them.  Its optimized HLO (jax 0.9.0, CPU; ``detect``
+    at capacities 256, 1000 and 4608) is XLA's reduce-window rewrite: the
+    vector padded with zeros to rows of 16, each row summed in order from
+    zero (a 1 x 16 reduce-window), the rows' totals scanned the same way
+    (recursively while there are more than 16), shifted by one (the sum of
+    the rows before each row, zero for the first) and added to each row's
+    sums; 16 values or fewer are summed in order from zero.  torch.cumsum
+    adds in another order (in float64 on the CPU)."""
+    n = x.shape[0]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if n <= CUMSUM_BLOCK:
+        out, acc = torch.empty_like(x), zero
+        for i in range(n):
+            acc = acc + x[i]
+            out[i] = acc
+        return out
+    rows = -(-n // CUMSUM_BLOCK)
+    xr = torch.cat([x, x.new_zeros(rows * CUMSUM_BLOCK - n)]).reshape(
+        rows, CUMSUM_BLOCK)
+    inner, acc = torch.empty_like(xr), zero.expand(rows)
+    for j in range(CUMSUM_BLOCK):
+        acc = acc + xr[:, j]
+        inner[:, j] = acc
+    before = torch.cat([zero[None], blocked_cumsum(acc)[:-1]])
+    return (inner + before[:, None]).reshape(-1)[:n]
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,10 @@ leading batch dimensions.  Sums of products are rounded as the reference's
 compiled program rounds them: a product that feeds an add is fused into it
 (the first one where both operands are products; ``refmath.fma``), and
 sin, cos and the wrap's atan2 are the C library's, as the reference's
-program calls them (``kernels.refmath``: one launch per call on the card).
-So this core module depends on the kernels layer: the dispatch by device
-(the plain version on the CPU, the kernel on the card) lives there.  The
+program calls them.  Each function is a refmath site (``kernels.refmath``:
+one launch per call on the card, its plain version ``_<name>_plain`` below
+on the CPU), so this core module depends on the kernels layer: the
+dispatch by device lives there.  The
 ``_np`` helpers are host-side NumPy for the keyframe bookkeeping
 loops.
 """
@@ -27,8 +28,7 @@ def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
 
 def rotmat(theta: torch.Tensor) -> torch.Tensor:
     """Rotation matrices ``[..., 2, 2]`` for angles ``[...]``."""
-    s, c = refmath.sincos(theta)
-    return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
+    return refmath.site("rotmat", theta)
 
 
 def identity(dtype=torch.float32, device=None) -> torch.Tensor:
@@ -37,42 +37,27 @@ def identity(dtype=torch.float32, device=None) -> torch.Tensor:
 
 def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pose composition ``a * b`` (apply b, then a). Shapes broadcast."""
-    sa, ca = refmath.sincos(a[..., 2])
-    x = refmath.fma(-sa, b[..., 1], refmath.fma(ca, b[..., 0], a[..., 0]))
-    y = refmath.fma(ca, b[..., 1], refmath.fma(sa, b[..., 0], a[..., 1]))
-    t = wrap_angle(a[..., 2] + b[..., 2])
-    return torch.stack([x, y, t], -1)
+    return refmath.site("compose", a, b)
 
 
 def inverse(a: torch.Tensor) -> torch.Tensor:
-    s, c = refmath.sincos(a[..., 2])
-    x = -refmath.fma(c, a[..., 0], s * a[..., 1])
-    y = -refmath.fma(c, a[..., 1], -(s * a[..., 0]))
-    return torch.stack([x, y, -a[..., 2]], -1)
+    return refmath.site("inverse", a)
 
 
 def relative(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a^-1 * b``: pose of b expressed in frame a."""
-    return compose(inverse(a), b)
-
-
-def _rotated(c, s, vx, vy):
-    """(c vx - s vy, s vx + c vy)."""
-    return refmath.fma(c, vx, -(s * vy)), refmath.fma(s, vx, c * vy)
+    """``a^-1 * b``: pose of b expressed in frame a (one launch on the
+    card)."""
+    return refmath.site("relative", a, b)
 
 
 def apply(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Transform points ``[..., N, 2]`` by pose ``[..., 3]``."""
-    s, c = refmath.sincos(pose[..., 2][..., None])
-    x, y = _rotated(c, s, points[..., 0], points[..., 1])
-    return torch.stack([x + pose[..., 0][..., None],
-                        y + pose[..., 1][..., None]], -1)
+    return refmath.site("apply", pose, points)
 
 
 def rotate(pose: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     """Rotate direction vectors ``[..., N, 2]`` by a pose's rotation."""
-    s, c = refmath.sincos(pose[..., 2][..., None])
-    return torch.stack(_rotated(c, s, vecs[..., 0], vecs[..., 1]), -1)
+    return refmath.site("rotate", pose, vecs)
 
 
 def interpolate(a: torch.Tensor, b: torch.Tensor, factor) -> torch.Tensor:
@@ -80,11 +65,95 @@ def interpolate(a: torch.Tensor, b: torch.Tensor, factor) -> torch.Tensor:
     translation, shortest arc in angle (the reference's slerp + lerp for
     planar motion)."""
     f = torch.as_tensor(factor, dtype=a.dtype, device=a.device)
+    return refmath.site("interpolate", a, b, f)
+
+
+# ---- the sites' plain versions: refmath's ops one at a time (its CPU
+# plain versions; registered below) ----------------------------------------
+
+def _rotmat_plain(theta: torch.Tensor) -> torch.Tensor:
+    s, c = refmath.sincos(theta)
+    return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
+
+
+def _compose_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    sa, ca = refmath.sincos(a[..., 2])
+    x = refmath.fma(-sa, b[..., 1], refmath.fma(ca, b[..., 0], a[..., 0]))
+    y = refmath.fma(ca, b[..., 1], refmath.fma(sa, b[..., 0], a[..., 1]))
+    t = wrap_angle(a[..., 2] + b[..., 2])
+    return torch.stack([x, y, t], -1)
+
+
+def _inverse_plain(a: torch.Tensor) -> torch.Tensor:
+    s, c = refmath.sincos(a[..., 2])
+    x = -refmath.fma(c, a[..., 0], s * a[..., 1])
+    y = -refmath.fma(c, a[..., 1], -(s * a[..., 0]))
+    return torch.stack([x, y, -a[..., 2]], -1)
+
+
+def _relative_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _compose_plain(_inverse_plain(a), b)
+
+
+def _rotated(c, s, vx, vy):
+    """(c vx - s vy, s vx + c vy)."""
+    return refmath.fma(c, vx, -(s * vy)), refmath.fma(s, vx, c * vy)
+
+
+def _apply_plain(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    s, c = refmath.sincos(pose[..., 2][..., None])
+    x, y = _rotated(c, s, points[..., 0], points[..., 1])
+    return torch.stack([x + pose[..., 0][..., None],
+                        y + pose[..., 1][..., None]], -1)
+
+
+def _rotate_plain(pose: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    s, c = refmath.sincos(pose[..., 2][..., None])
+    return torch.stack(_rotated(c, s, vecs[..., 0], vecs[..., 1]), -1)
+
+
+def _interpolate_plain(a: torch.Tensor, b: torch.Tensor,
+                       f: torch.Tensor) -> torch.Tensor:
     dt = wrap_angle(b[..., 2] - a[..., 2])
     x = refmath.fma(b[..., 0] - a[..., 0], f, a[..., 0])
     y = refmath.fma(b[..., 1] - a[..., 1], f, a[..., 1])
     t = wrap_angle(refmath.fma(dt, f, a[..., 2]))
     return torch.stack([x, y, t], -1)
+
+
+# ---- the sites' operand layouts (kernels/refmath.py::register_site) -------
+
+def _poses(*ts):
+    """Poses [..., 3] in, a pose [..., 3] out."""
+    return [(t, (3,), False) for t in ts], [(3,)], 0, ()
+
+
+def _pose_points(pose, pts):
+    """A pose [..., 3] over points [..., N, 2], points out."""
+    return [(pose[..., None, :], (3,), False), (pts, (2,), False)], \
+        [(2,)], 0, ()
+
+
+def _pose_pair_factor(a, b, f):
+    """Two poses [..., 3] and a factor [...], a pose out."""
+    return [(a, (3,), False), (b, (3,), False), (f, (), False)], \
+        [(3,)], 0, ()
+
+
+def _angles(theta):
+    """Angles [...] in, 2x2 matrices out."""
+    return [(theta, (), False)], [(2, 2)], 0, ()
+
+
+for _name, _plain, _layout in (
+        ("compose", _compose_plain, _poses),
+        ("inverse", _inverse_plain, _poses),
+        ("relative", _relative_plain, _poses),
+        ("apply", _apply_plain, _pose_points),
+        ("rotate", _rotate_plain, _pose_points),
+        ("interpolate", _interpolate_plain, _pose_pair_factor),
+        ("rotmat", _rotmat_plain, _angles)):
+    refmath.register_site(_name, _plain, _layout)
 
 
 def scale(pose: torch.Tensor, factor) -> torch.Tensor:

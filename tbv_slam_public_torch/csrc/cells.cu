@@ -1,0 +1,346 @@
+// The CFEAR cells' statistics in one launch, for sm_90a.
+//
+// Not a TPU kernel: the JAX package leaves compute_cells to XLA's fusions
+// (tbv_slam_public_tpu/ops/features.py:97-122 and the eigen gates after).
+// This kernel computes what ops/features.py::compute_cells computes after
+// the top-C voxel selection, bit for bit as its plain version
+// ops/features.py::_cell_stats_reference rounds it: for each cell, the
+// radius gate (|c|^2 + |p|^2 - 2 c.p, each two-term sum a fused
+// multiply-add), the neighbour count, the intensity weights and their sum
+// in the reference's tree order (windows of 32 points summed in order from
+// zero, the windows' sums the same way), the normalised weights (a true
+// division), the six moments added one neighbour at a time in point order
+// (one fused multiply-add a term from zero, w q rounded first), the
+// symmetrised covariance, the eigen gates on the covariance whose diagonal
+// is fma(-mu, mu, qq) (torch's square root, the IEEE one on the card),
+// the condition number, determinant, planarity log1p(cond / 2)
+// (refmath.cuh's XLA log1p), the normal turned toward the origin, the
+// validity and the zeroing of invalid cells.  Every multiply, add and fused multiply-add is an explicit
+// __f*_rn intrinsic, so nvcc's contraction changes nothing.
+//
+// Design: a warp a cell, 4 cells a block, no shared memory.  The lanes
+// read the cloud's points from global memory (x, y and the mask, 9 bytes a
+// point, 144 KB at 16,000 points, held in L1 and L2 for every warp of an
+// SM), so a cloud of any size runs in the one launch.  A warp gates 32
+// points at a time, eight such windows' loads issued together; a ballot
+// keeps the neighbours in point order, and every lane runs the sums'
+// chains on the neighbours' values shuffled from their lanes, so no
+// neighbour list and no host read of the largest count are needed.  The
+// weight sum's tree is folded in registers as its windows close (an open
+// window a level), so no buffer grows with the cloud.  The gate runs twice
+// (the weight sum first, then the moments, which need it).  Bound:
+// operations, about 6 a (cell, live point) pair of the gate and 12 a
+// neighbour; the chains of dependent adds (about 20 neighbours x 6 chains
+// a cell) and the launch set the time, not the bound.
+#include <stdint.h>
+
+#include "refmath.cuh"
+
+namespace {
+
+// the cells a block and the windows whose loads a warp issues together
+// (defines, so scripts/time_cells.py can build variants)
+#ifndef CELLS_WARPS
+#define CELLS_WARPS 4
+#endif
+#ifndef CELLS_BATCH
+#define CELLS_BATCH 8
+#endif
+constexpr int kWarps = CELLS_WARPS;
+constexpr int kBatch = CELLS_BATCH;
+constexpr int kWindow = 32;  // the reference's tree-reduction window
+constexpr int kLevels = 5;   // the tree's levels: clouds of up to 32^5 points
+
+__device__ __forceinline__ float nan_max(float a, float b) {  // torch.maximum
+  if (isnan(a)) return a;
+  if (isnan(b)) return b;
+  return a > b ? a : b;
+}
+
+__device__ __forceinline__ float clamp_min(float x, float lo) {  // torch.clamp
+  return x < lo ? lo : x;
+}
+
+// The weight sum in the reference's tree order (ops/features.py::_tree_sum):
+// level 0 is the points, level k + 1 the sums of level k's windows of 32
+// (e_{k+1} = ceil(e_k / 32) elements, the first window starting lo_k =
+// (32 e_{k+1} - e_k) / 2 padding zeros early), up to the level `top` of at
+// most 32 elements, which are summed in order from zero.  Every window is
+// summed in order from zero; its zeros are exact and are skipped.
+struct Tree {
+  float acc[kLevels];  // the open window's sum at each level
+  int win[kLevels];    // its index (-1: none open)
+  int lo[kLevels];
+  int top;
+  float total;
+};
+
+__device__ __forceinline__ Tree tree_of(int P) {
+  Tree t;
+  int e = P;
+  t.top = kLevels;
+#pragma unroll
+  for (int k = 0; k < kLevels; ++k) {
+    t.acc[k] = 0.0f;
+    t.win[k] = -1;
+    t.lo[k] = 0;
+    if (t.top == kLevels) {
+      if (k >= 1 && e <= kWindow) {
+        t.top = k;
+      } else {
+        const int n = (e + kWindow - 1) / kWindow;
+        t.lo[k] = (kWindow * n - e) / 2;
+        e = n;
+      }
+    }
+  }
+  t.total = 0.0f;
+  return t;
+}
+
+// element idx of level k0 (>= 1), of value v, in order
+__device__ __forceinline__ void tree_add(Tree& t, int k0, int idx, float v) {
+#pragma unroll
+  for (int k = 1; k < kLevels; ++k) {
+    if (k < k0) continue;
+    if (k >= t.top) break;
+    const int w = (idx + t.lo[k]) / kWindow;
+    if (w == t.win[k]) {
+      t.acc[k] = __fadd_rn(t.acc[k], v);
+      return;
+    }
+    const int done = t.win[k];  // a new window: the closed one moves up
+    const float sum = t.acc[k];
+    t.win[k] = w;
+    t.acc[k] = __fadd_rn(0.0f, v);
+    if (done < 0) return;
+    idx = done;
+    v = sum;
+  }
+  t.total = __fadd_rn(t.total, v);
+}
+
+__device__ __forceinline__ float tree_sum(Tree& t) {
+#pragma unroll
+  for (int k = 1; k < kLevels; ++k) {
+    if (k < t.top && t.win[k] >= 0) {
+      const int idx = t.win[k];
+      t.win[k] = -1;
+      tree_add(t, k + 1, idx, t.acc[k]);
+    }
+  }
+  return t.total;
+}
+
+struct Cloud {
+  const float2* xy;
+  const float* intensity;
+  const unsigned char* mask;
+  int p;
+};
+
+// Is point p a neighbour of the cell (c0, c1, cc = |c|^2)?  Its position
+// goes to *q.
+__device__ __forceinline__ bool gate(const Cloud& cl, int p, float c0,
+                                     float c1, float cc, float r2, float2* q) {
+  const bool in = p >= 0 && p < cl.p;
+  const unsigned char m = in ? __ldg(cl.mask + p) : 0;
+  *q = in ? __ldg(cl.xy + p) : make_float2(0.0f, 0.0f);
+  const float pp = __fmaf_rn(q->y, q->y, __fmul_rn(q->x, q->x));
+  const float dot = __fmaf_rn(c1, q->y, __fmul_rn(c0, q->x));
+  const float d2 = __fsub_rn(__fadd_rn(cc, pp), __fmul_rn(2.0f, dot));
+  return m && d2 <= r2;
+}
+
+// the point's intensity weight: max(I - floor, 0), or 1
+__device__ __forceinline__ float weight(const Cloud& cl, int p,
+                                        int weight_intensity, float floor_w) {
+  return weight_intensity
+             ? clamp_min(__fsub_rn(__ldg(cl.intensity + p), floor_w), 0.0f)
+             : 1.0f;
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+    cells_kernel(const float2* __restrict__ xy,
+                 const float* __restrict__ intensity,
+                 const unsigned char* __restrict__ mask,
+                 const float* __restrict__ centroid,
+                 const unsigned char* __restrict__ occupied,
+                 float* __restrict__ mean_out, float* __restrict__ cov_out,
+                 float* __restrict__ normal_out,
+                 float* __restrict__ nsamples_out,
+                 float* __restrict__ planarity_out,
+                 float* __restrict__ avg_out,
+                 unsigned char* __restrict__ valid_out, int P, int C,
+                 float r2, int weight_intensity, float floor_w,
+                 int min_neighbors, float max_cond, float min_det, float ox,
+                 float oy) {
+  const Cloud cl{xy, intensity, mask, P};
+  const Tree shape = tree_of(P);
+  const int windows = (P + kWindow - 1) / kWindow, lo0 = shape.lo[0];
+  const int lane = threadIdx.x & 31;
+  const unsigned all = 0xffffffffu;
+
+  for (int c = blockIdx.x * kWarps + (threadIdx.x >> 5); c < C;
+       c += gridDim.x * kWarps) {
+    const float c0 = centroid[2 * c], c1 = centroid[2 * c + 1];
+    const bool occ = occupied[c] != 0;  // the same for the whole warp
+    const float cc = __fmaf_rn(c1, c1, __fmul_rn(c0, c0));
+
+    // pass 1: the count, and the weight sum's windows of 32 points (lo0
+    // points of padding in front), each window's neighbours added in order
+    Tree tree = shape;
+    int count = 0;
+    for (int j0 = 0; occ && j0 < windows; j0 += kBatch) {
+      bool nb[kBatch];
+      float2 q[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        nb[u] = gate(cl, (j0 + u) * kWindow - lo0 + lane, c0, c1, cc, r2,
+                     &q[u]);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        unsigned bits = __ballot_sync(all, nb[u]);
+        if (!bits) continue;
+        const int p = (j0 + u) * kWindow - lo0 + lane;
+        const float w = nb[u] ? weight(cl, p, weight_intensity, floor_w)
+                              : 0.0f;
+        count += __popc(bits);
+        float s = 0.0f;
+        while (bits) {
+          const int src = __ffs(bits) - 1;
+          bits &= bits - 1;
+          s = __fadd_rn(s, __shfl_sync(all, w, src));
+        }
+        tree_add(tree, 1, j0 + u, s);
+      }
+    }
+    const float wsum = tree_sum(tree);
+
+    // pass 2: the six moments over the neighbours in point order
+    const float wden = clamp_min(wsum, 1e-12f);
+    float mu0 = 0.0f, mu1 = 0.0f, q00 = 0.0f, q01 = 0.0f, q10 = 0.0f,
+          q11 = 0.0f;
+    for (int b0 = 0; count > 0 && b0 < P; b0 += kBatch * 32) {
+      bool nb[kBatch];
+      float2 q[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        nb[u] = gate(cl, b0 + u * 32 + lane, c0, c1, cc, r2, &q[u]);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        unsigned bits = __ballot_sync(all, nb[u]);
+        if (!bits) continue;
+        float wk = 0.0f, qx = 0.0f, qy = 0.0f;
+        if (nb[u]) {
+          wk = __fdiv_rn(weight(cl, b0 + u * 32 + lane, weight_intensity,
+                                floor_w),
+                         wden);
+          qx = __fsub_rn(q[u].x, c0);
+          qy = __fsub_rn(q[u].y, c1);
+        }
+        while (bits) {
+          const int from = __ffs(bits) - 1;
+          bits &= bits - 1;
+          const float w = __shfl_sync(all, wk, from);
+          const float a = __shfl_sync(all, qx, from);
+          const float b = __shfl_sync(all, qy, from);
+          const float wq0 = __fmul_rn(w, a), wq1 = __fmul_rn(w, b);
+          mu0 = __fmaf_rn(w, a, mu0);
+          mu1 = __fmaf_rn(w, b, mu1);
+          q00 = __fmaf_rn(wq0, a, q00);
+          q01 = __fmaf_rn(wq0, b, q01);
+          q10 = __fmaf_rn(wq1, a, q10);
+          q11 = __fmaf_rn(wq1, b, q11);
+        }
+      }
+    }
+    if (lane != 0) continue;
+
+    // covariance qq - mu mu^T, symmetrised; the mean
+    const float k00 = __fsub_rn(q00, __fmul_rn(mu0, mu0));
+    const float k01 = __fsub_rn(q01, __fmul_rn(mu0, mu1));
+    const float k10 = __fsub_rn(q10, __fmul_rn(mu1, mu0));
+    const float k11 = __fsub_rn(q11, __fmul_rn(mu1, mu1));
+    const float s00 = __fmul_rn(0.5f, __fadd_rn(k00, k00));
+    const float s01 = __fmul_rn(0.5f, __fadd_rn(k01, k10));
+    const float s10 = __fmul_rn(0.5f, __fadd_rn(k10, k01));
+    const float s11 = __fmul_rn(0.5f, __fadd_rn(k11, k11));
+    const float mx = __fadd_rn(c0, mu0), my = __fadd_rn(c1, mu1);
+
+    // the eigen gates (ops/features.py::eigh2x2) on the covariance with
+    // the diagonal fma(-mu, mu, qq)
+    const float ea = __fmaf_rn(-mu0, mu0, q00), eb = s01,
+                ec = __fmaf_rn(-mu1, mu1, q11);
+    const float half_tr = __fmul_rn(0.5f, __fadd_rn(ea, ec));
+    const float d = __fsub_rn(ea, ec);
+    const float disc = __fsqrt_rn(
+        clamp_min(__fmaf_rn(__fmul_rn(d, d), 0.25f, __fmul_rn(eb, eb)), 0.0f));
+    const float lmin = __fsub_rn(half_tr, disc);
+    const float lmax = __fadd_rn(half_tr, disc);
+    const float v1y = __fsub_rn(lmin, ea), v2x = __fsub_rn(lmin, ec);
+    const float n1 = __fmaf_rn(v1y, v1y, __fmul_rn(eb, eb));
+    const float n2 = __fmaf_rn(eb, eb, __fmul_rn(v2x, v2x));
+    float vx = n1 > n2 ? eb : v2x, vy = n1 > n2 ? v1y : eb;
+    const float norm = __fsqrt_rn(nan_max(n1, n2));
+    if (norm > 1e-20f) {
+      vx = __fdiv_rn(vx, norm);
+      vy = __fdiv_rn(vy, norm);
+    } else {
+      vx = ea <= ec ? 1.0f : 0.0f;
+      vy = ea <= ec ? 0.0f : 1.0f;
+    }
+    const float cond =
+        fabsf(__fdiv_rn(lmax, fabsf(lmin) > 1e-20f ? lmin : 1e-20f));
+    const float det = __fmul_rn(lmax, lmin);
+    const bool cov_ok =
+        cond <= max_cond && det > min_det && lmin > 0.0f && lmax > 0.0f;
+    const float planarity = ref_log1p(__fdiv_rn(cond, 2.0f));
+    if (__fmaf_rn(vy, __fsub_rn(oy, my), __fmul_rn(vx, __fsub_rn(ox, mx))) <
+        0.0f) {
+      vx = -vx;
+      vy = -vy;
+    }
+    const bool valid = occ && count >= min_neighbors && cov_ok &&
+                       wsum > 1e-9f;
+    const float avg = __fdiv_rn(wsum, (float)(count > 1 ? count : 1));
+
+    const float z = 0.0f;
+    mean_out[2 * c] = valid ? mx : z;
+    mean_out[2 * c + 1] = valid ? my : z;
+    cov_out[4 * c] = valid ? s00 : z;
+    cov_out[4 * c + 1] = valid ? s01 : z;
+    cov_out[4 * c + 2] = valid ? s10 : z;
+    cov_out[4 * c + 3] = valid ? s11 : z;
+    normal_out[2 * c] = valid ? vx : z;
+    normal_out[2 * c + 1] = valid ? vy : z;
+    nsamples_out[c] = valid ? (float)count : z;
+    planarity_out[c] = valid ? planarity : z;
+    avg_out[c] = valid ? avg : z;
+    valid_out[c] = valid;
+  }
+}
+
+}  // namespace
+
+// The cells' fields of C selected voxels over a cloud of P points (see
+// above); xy must be 8-byte aligned (kernels/cells.py).
+extern "C" int cells_launch(const void* xy, const void* intensity,
+                            const void* mask, const void* centroid,
+                            const void* occupied, void* mean, void* cov,
+                            void* normal, void* nsamples, void* planarity,
+                            void* avg, void* valid, int P, int C, float r2,
+                            int weight_intensity, float floor_w,
+                            int min_neighbors, float max_cond, float min_det,
+                            float ox, float oy, void* stream) {
+  if (C <= 0) return 0;
+  if (P < 0 || ((uintptr_t)xy & 7)) return (int)cudaErrorInvalidValue;
+  const int blocks = (C + kWarps - 1) / kWarps;
+  cells_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
+      (const float2*)xy, (const float*)intensity, (const unsigned char*)mask,
+      (const float*)centroid, (const unsigned char*)occupied, (float*)mean,
+      (float*)cov, (float*)normal, (float*)nsamples, (float*)planarity,
+      (float*)avg, (unsigned char*)valid, P, C, r2, weight_intensity, floor_w,
+      min_neighbors, max_cond, min_det, ox, oy);
+  return (int)cudaGetLastError();
+}

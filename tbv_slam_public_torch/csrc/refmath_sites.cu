@@ -1,0 +1,322 @@
+// The refmath kernel's site entries: one launch computes one whole site of
+// the main path (a pose composition, a relative pose, points moved by a
+// pose, a scan's world-frame targets, a cloud's motion compensation, a
+// two-value norm), instead of one launch for each of the site's refmath ops
+// and more for the torch glue between them.
+//
+// Not a TPU kernel: the JAX package leaves these sites to XLA's fusions.
+// Each site's plain version is the port's eager body of that site
+// (core/se2.py::_compose_plain and its neighbours,
+// ops/registration.py::_world_targets_plain,
+// ops/radar.py::_motion_compensate_plain, core/refmath.py::norm2), whose
+// refmath ops take their CPU plain versions; the kernel runs the same
+// operations with every rounding written out: __fmaf_rn exactly where the
+// plain version fuses, __fmul_rn / __fadd_rn / __fsub_rn where it rounds a
+// product or a sum on its own, so nvcc's contraction changes nothing.  The
+// reference's math (sincosf, atan2f, the IEEE root) is refmath.cuh's.
+//
+// One thread an element of the site's broadcast batch (a pose, a point, a
+// cell); each operand is read through its own strides, so a broadcast
+// operand (one pose for a scan's cells, one motion for a cloud) is read by
+// index and never materialised.  Bound: bytes (12-40 B an element read and
+// 8-32 B written) against 30-120 float operations, but the sites pass 1 to
+// a few thousand elements, so a launch is latency; the design removes the
+// launches, not the arithmetic.
+//
+// refmath_cumsum_launch is detect's travelled distance: inclusive prefix
+// sums in the order of the reference's compiled program (XLA's
+// reduce-window rewriter: rows of 16 summed in order from zero, the rows'
+// totals scanned the same way, recursively, and added back), one block.
+#include "refmath.cuh"
+
+constexpr int kDims = 4;     // batch dimensions an operand may have
+constexpr int kInputs = 6;   // float or bool operands a site reads
+constexpr int kOutputs = 4;  // outputs a site writes
+
+// The launch's description, filled by kernels/refmath.py (its ctypes
+// mirror is kernels/build.py::SiteArgs).  Input k's element (index i,
+// components j0, j1) lies at in[k] + sum_d coord_d(i) stride[k][d] +
+// j0 stride[k][4] + j1 stride[k][5]; outputs are contiguous.
+struct SiteArgs {
+  int site;
+  int flags;
+  long long n;
+  long long shape[kDims];
+  const void* in[kInputs];
+  long long stride[kInputs][kDims + 2];
+  void* out[kOutputs];
+  float c[4];
+};
+
+namespace {
+
+enum Site {
+  kCompose = 0, kInverse, kRelative, kApply, kRotate, kInterpolate, kRotmat,
+  kNorm2, kWorldTargets, kMotionCompensate
+};
+
+struct Element {
+  long long off[kInputs];
+};
+
+__device__ __forceinline__ Element locate(const SiteArgs& a, long long i) {
+  Element e;
+  long long coord[kDims];
+  for (int d = kDims - 1; d >= 0; --d) {
+    coord[d] = i % a.shape[d];
+    i /= a.shape[d];
+  }
+  for (int k = 0; k < kInputs; ++k) {
+    long long o = 0;
+    for (int d = 0; d < kDims; ++d) o += coord[d] * a.stride[k][d];
+    e.off[k] = o;
+  }
+  return e;
+}
+
+__device__ __forceinline__ float in_f(const SiteArgs& a, const Element& e,
+                                      int k, int j0 = 0, int j1 = 0) {
+  return static_cast<const float*>(a.in[k])[
+      e.off[k] + j0 * a.stride[k][kDims] + j1 * a.stride[k][kDims + 1]];
+}
+
+__device__ __forceinline__ bool in_b(const SiteArgs& a, const Element& e,
+                                     int k) {
+  return static_cast<const unsigned char*>(a.in[k])[e.off[k]] != 0;
+}
+
+__device__ __forceinline__ float ref_wrap(float t) {
+  float s, c;
+  ref_sincos(t, &s, &c);
+  return ref_atan2(s, c);
+}
+
+// a * b (core/se2.py::_compose_plain)
+__device__ __forceinline__ void compose3(const float* a, const float* b,
+                                         float* o) {
+  float sa, ca;
+  ref_sincos(a[2], &sa, &ca);
+  o[0] = __fmaf_rn(-sa, b[1], __fmaf_rn(ca, b[0], a[0]));
+  o[1] = __fmaf_rn(ca, b[1], __fmaf_rn(sa, b[0], a[1]));
+  o[2] = ref_wrap(__fadd_rn(a[2], b[2]));
+}
+
+// a^-1 (_inverse_plain)
+__device__ __forceinline__ void inverse3(const float* a, float* o) {
+  float s, c;
+  ref_sincos(a[2], &s, &c);
+  o[0] = -__fmaf_rn(c, a[0], __fmul_rn(s, a[1]));
+  o[1] = -__fmaf_rn(c, a[1], -__fmul_rn(s, a[0]));
+  o[2] = -a[2];
+}
+
+// (c vx - s vy, s vx + c vy) (se2._rotated)
+__device__ __forceinline__ void rotated(float c, float s, float vx, float vy,
+                                        float* o) {
+  o[0] = __fmaf_rn(c, vx, -__fmul_rn(s, vy));
+  o[1] = __fmaf_rn(s, vx, __fmul_rn(c, vy));
+}
+
+// (0 + a0 b0) + a1 b1: torch's CPU matrix product of 2 x 2 operands (its
+// small-size loop, from zero, unfused)
+__device__ __forceinline__ float mm2(float a0, float b0, float a1, float b1) {
+  return __fadd_rn(__fadd_rn(0.0f, __fmul_rn(a0, b0)), __fmul_rn(a1, b1));
+}
+
+__global__ void refmath_site_kernel(const SiteArgs a) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < a.n; i += (long long)gridDim.x * blockDim.x) {
+    const Element e = locate(a, i);
+    float* o0 = static_cast<float*>(a.out[0]);
+    switch (a.site) {
+      case kCompose:
+      case kRelative: {
+        float p[3], q[3], r[3];
+        for (int j = 0; j < 3; ++j) {
+          p[j] = in_f(a, e, 0, j);
+          q[j] = in_f(a, e, 1, j);
+        }
+        if (a.site == kRelative) {
+          inverse3(p, r);
+          compose3(r, q, o0 + 3 * i);
+        } else {
+          compose3(p, q, o0 + 3 * i);
+        }
+        break;
+      }
+      case kInverse: {
+        float p[3];
+        for (int j = 0; j < 3; ++j) p[j] = in_f(a, e, 0, j);
+        inverse3(p, o0 + 3 * i);
+        break;
+      }
+      case kApply:
+      case kRotate: {
+        float s, c;
+        ref_sincos(in_f(a, e, 0, 2), &s, &c);
+        float v[2];
+        rotated(c, s, in_f(a, e, 1, 0), in_f(a, e, 1, 1), v);
+        if (a.site == kApply) {
+          v[0] = __fadd_rn(v[0], in_f(a, e, 0, 0));
+          v[1] = __fadd_rn(v[1], in_f(a, e, 0, 1));
+        }
+        o0[2 * i] = v[0];
+        o0[2 * i + 1] = v[1];
+        break;
+      }
+      case kInterpolate: {
+        const float f = in_f(a, e, 2);
+        const float a0 = in_f(a, e, 0, 0), a1 = in_f(a, e, 0, 1),
+                    a2 = in_f(a, e, 0, 2);
+        const float dt = ref_wrap(__fsub_rn(in_f(a, e, 1, 2), a2));
+        o0[3 * i] = __fmaf_rn(__fsub_rn(in_f(a, e, 1, 0), a0), f, a0);
+        o0[3 * i + 1] = __fmaf_rn(__fsub_rn(in_f(a, e, 1, 1), a1), f, a1);
+        o0[3 * i + 2] = ref_wrap(__fmaf_rn(dt, f, a2));
+        break;
+      }
+      case kRotmat: {
+        float s, c;
+        ref_sincos(in_f(a, e, 0), &s, &c);
+        o0[4 * i] = c;
+        o0[4 * i + 1] = -s;
+        o0[4 * i + 2] = s;
+        o0[4 * i + 3] = c;
+        break;
+      }
+      case kNorm2: {
+        const float x = in_f(a, e, 0, 0), y = in_f(a, e, 0, 1);
+        o0[i] = __fsqrt_rn(daz(__fmaf_rn(y, y, __fmul_rn(x, x))));
+        break;
+      }
+      case kWorldTargets: {
+        // inputs: pose [3], mean [2], normal [2], cov [2, 2] (P2D), valid,
+        // scan mask; outputs: mean, normal, cov (P2D), valid
+        float s, c;
+        ref_sincos(in_f(a, e, 0, 2), &s, &c);
+        float* o1 = static_cast<float*>(a.out[1]);
+        float v[2];
+        rotated(c, s, in_f(a, e, 1, 0), in_f(a, e, 1, 1), v);
+        o0[2 * i] = __fadd_rn(v[0], in_f(a, e, 0, 0));
+        o0[2 * i + 1] = __fadd_rn(v[1], in_f(a, e, 0, 1));
+        rotated(c, s, in_f(a, e, 2, 0), in_f(a, e, 2, 1), o1 + 2 * i);
+        if (a.in[3] != nullptr) {  // rot @ cov @ rot^T
+          const float r[2][2] = {{c, -s}, {s, c}};
+          float m[2][2];
+          for (int p = 0; p < 2; ++p)
+            for (int q = 0; q < 2; ++q)
+              m[p][q] = mm2(r[p][0], in_f(a, e, 3, 0, q), r[p][1],
+                            in_f(a, e, 3, 1, q));
+          float* o2 = static_cast<float*>(a.out[2]) + 4 * i;
+          for (int p = 0; p < 2; ++p)
+            for (int q = 0; q < 2; ++q)
+              o2[2 * p + q] = mm2(m[p][0], r[q][0], m[p][1], r[q][1]);
+        }
+        static_cast<unsigned char*>(a.out[3])[i] =
+            in_b(a, e, 4) && in_b(a, e, 5);
+        break;
+      }
+      case kMotionCompensate: {
+        // inputs: points [2], motion [3]; c: 1 / (2 pi), 2 pi, 1e-5 as
+        // float32; flags: ccw
+        const float x = in_f(a, e, 0, 0), y = in_f(a, e, 0, 1);
+        float ang = ref_atan2(y, x);
+        ang = ang > a.c[2] ? ang : __fadd_rn(a.c[1], ang);
+        float factor = __fmaf_rn(ang, a.c[0], -0.5f);
+        if (a.flags & 1) factor = -factor;
+        float s, c;
+        ref_sincos(__fmul_rn(in_f(a, e, 1, 2), factor), &s, &c);
+        o0[2 * i] = __fmaf_rn(in_f(a, e, 1, 0), factor,
+                              __fmaf_rn(c, x, -__fmul_rn(s, y)));
+        o0[2 * i + 1] = __fmaf_rn(in_f(a, e, 1, 1), factor,
+                                  __fmaf_rn(s, x, __fmul_rn(c, y)));
+        break;
+      }
+    }
+  }
+}
+
+constexpr int kScanBlock = 16;   // the rewriter's row length
+constexpr int kScanLevels = 8;   // rows of rows: up to 16^8 values
+
+// Inclusive prefix sums of x [n] into out, in the blocked order above; one
+// block.  scratch holds each level's row totals after the first.
+__global__ void refmath_cumsum_kernel(const float* __restrict__ x,
+                                      float* __restrict__ out,
+                                      float* __restrict__ scratch,
+                                      long long n) {
+  long long len[kScanLevels + 1];
+  float* buf[kScanLevels + 1];
+  int levels = 0;
+  len[0] = n;
+  buf[0] = out;
+  long long at = 0;
+  while (len[levels] > kScanBlock && levels < kScanLevels) {
+    const long long rows = (len[levels] + kScanBlock - 1) / kScanBlock;
+    buf[levels + 1] = scratch + at;
+    at += rows;
+    len[++levels] = rows;
+  }
+  // up: each row summed in order from zero (the padding adds zeros), its
+  // total the next level's value
+  for (int l = 0; l < levels; ++l) {
+    const float* src = l == 0 ? x : buf[l];
+    const long long rows = len[l + 1];
+    for (long long r = threadIdx.x; r < rows; r += blockDim.x) {
+      float acc = 0.0f;
+      for (int j = 0; j < kScanBlock; ++j) {
+        const long long k = r * kScanBlock + j;
+        acc = __fadd_rn(acc, k < len[l] ? src[k] : 0.0f);
+        if (k < len[l]) buf[l][k] = acc;
+      }
+      buf[l + 1][r] = acc;
+    }
+    __syncthreads();
+  }
+  // the last level (at most 16 values) in order from zero
+  if (threadIdx.x == 0) {
+    const float* src = levels == 0 ? x : buf[levels];
+    float acc = 0.0f;
+    for (long long k = 0; k < len[levels]; ++k) {
+      acc = __fadd_rn(acc, src[k]);
+      buf[levels][k] = acc;
+    }
+  }
+  __syncthreads();
+  // down: each value plus the sum of the rows before its own
+  for (int l = levels - 1; l >= 0; --l) {
+    for (long long k = threadIdx.x; k < len[l]; k += blockDim.x) {
+      const long long r = k / kScanBlock;
+      buf[l][k] = __fadd_rn(buf[l][k], r == 0 ? 0.0f : buf[l + 1][r - 1]);
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+extern "C" int refmath_site_launch(const SiteArgs* args, void* stream) {
+  if (args->n <= 0) return 0;
+  if (args->site < kCompose || args->site > kMotionCompensate)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  long long blocks = (args->n + threads - 1) / threads;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  refmath_site_kernel<<<(unsigned)blocks, threads, 0,
+                        (cudaStream_t)stream>>>(*args);
+  return (int)cudaGetLastError();
+}
+
+// out [n] = the blocked inclusive prefix sums of x [n]; scratch holds at
+// least refmath_cumsum_scratch(n) floats.
+extern "C" int refmath_cumsum_launch(const void* x, void* out, void* scratch,
+                                     long long n, void* stream) {
+  if (n <= 0) return 0;
+  long long len = n;
+  for (int l = 0; len > kScanBlock; ++l) {
+    if (l == kScanLevels) return (int)cudaErrorInvalidValue;
+    len = (len + kScanBlock - 1) / kScanBlock;
+  }
+  refmath_cumsum_kernel<<<1, 512, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, (float*)scratch, n);
+  return (int)cudaGetLastError();
+}

@@ -89,6 +89,20 @@ def library() -> ctypes.CDLL:
     lib.refmath_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + \
         [ctypes.c_longlong, ctypes.c_void_p]
     lib.refmath_launch.restype = ctypes.c_int
+    # the site's description (kernels/refmath.py::SITE_ARGS), stream
+    lib.refmath_site_launch.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    lib.refmath_site_launch.restype = ctypes.c_int
+    # x, out, scratch, n, stream
+    lib.refmath_cumsum_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_void_p]
+    lib.refmath_cumsum_launch.restype = ctypes.c_int
+    # 5 inputs, 7 outputs, P, C, r2, weight_intensity, floor, min_neighbors,
+    # max_cond, min_det, origin x, y, stream
+    lib.cells_launch.argtypes = [ctypes.c_void_p] * 12 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int] + [ctypes.c_float] * 4 + [
+        ctypes.c_void_p]
+    lib.cells_launch.restype = ctypes.c_int
     # theta, a, b, out, n, one_system, stream
     lib.refmath_lm_update_launch.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]

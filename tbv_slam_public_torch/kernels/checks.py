@@ -25,12 +25,42 @@ REFMATH_SPECIAL = np.array(
 
 def bits_differ(a, b) -> int:
     """Values of two float32 arrays or tensors whose bits differ (a NaN
-    equals any NaN: its payload is not held); a shape mismatch raises."""
+    equals any NaN: its payload is not held), or of two bool or integer
+    arrays that differ; a shape mismatch raises."""
     a, b = (np.asarray(x.cpu() if hasattr(x, "cpu") else x) for x in (a, b))
     if a.shape != b.shape or a.dtype != b.dtype:
         raise ValueError(f"{a.shape} {a.dtype} against {b.shape} {b.dtype}")
+    if a.dtype != np.float32:
+        return int((a != b).sum())
     same = (a.view(np.int32) == b.view(np.int32)) | (np.isnan(a) & np.isnan(b))
     return int((~same).sum())
+
+
+def cell_gate_cloud(rng, c: int, r: float):
+    """A cloud and the centroids of c cells for ``cell_stats`` (xy [P, 2],
+    intensity [P], mask [P], centroid [C, 2], occupied [C], float32 and
+    bool numpy) in which each cell has 8 neighbours within r / 2 and one
+    point within a few ulp of its radius r (``on_gate_clouds``: in half the
+    cells the fused and the unfused sum of squares fall on opposite sides of
+    r^2), so the gate's rounding decides each cell's statistics; a tenth of
+    the points masked out, a few cells unoccupied."""
+    q, edge = on_gate_clouds(rng, 1, c, r)
+    q, edge = q[0].astype(np.float64), edge[0]
+    unset = (q == 0).all(-1)  # slots the search left empty: off the line
+    q[unset] = np.stack([3.0 * np.flatnonzero(unset),
+                         np.full(unset.sum(), 5.0 * r)], -1)
+    edge[unset] = q[unset] + [0.75 * r, 0.0]
+    ang = rng.uniform(0, 2 * np.pi, (c, 8))
+    rad = rng.uniform(0.05, 0.5, (c, 8)) * r
+    inner = q[:, None] + rad[..., None] * np.stack([np.cos(ang),
+                                                     np.sin(ang)], -1)
+    xy = np.concatenate([inner.reshape(-1, 2), edge]).astype(np.float32)
+    p = len(xy)
+    intensity = rng.integers(61, 200, p).astype(np.float32)
+    mask = rng.uniform(size=p) > 0.1
+    mask[8 * c:] = True
+    occupied = rng.uniform(size=c) > 0.05
+    return xy, intensity, mask, q.astype(np.float32), occupied
 
 
 def on_gate_clouds(rng, m: int, n: int, r: float):

@@ -13,6 +13,16 @@ The plain versions are
 that was read from its compiled program, is the table in
 ``core/refmath.py``.
 
+The site entries (``csrc/refmath_sites.cu``, :data:`SITES`) compute one
+whole site of the main path in one launch: ``se2``'s compose, inverse,
+relative, apply, rotate, interpolate and rotmat, ``norm2``, registration's
+world-frame targets and the radar's motion compensation, a thread an
+element, broadcast operands read through their strides.  The module that
+owns a site registers it where it defines it (:func:`register_site`): its
+plain version, the port's eager body of that site kept under a ``_plain``
+name, and its operands' layout.  ``cumsum`` is ``detect``'s travelled
+distance in the reference's blocked order.
+
 Dispatch is by tensor device: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel launches
 and nothing else; ``LAUNCHES_BY_OP`` splits them by op.
@@ -20,6 +30,8 @@ and nothing else; ``LAUNCHES_BY_OP`` splits them by op.
 from __future__ import annotations
 
 import collections
+import functools
+import struct
 
 import torch
 
@@ -33,12 +45,16 @@ LAUNCHES_BY_OP: collections.Counter = collections.Counter()
 OPS = {"exp": 0, "log": 1, "log1p": 2, "sigmoid": 3, "sincos": 4,
        "atan2": 5, "wrap_angle": 6, "fma": 7, "sqrt": 8}
 
-_PLAIN = {"exp": plain.exp, "log": plain.log, "log1p": plain.log1p,
-          "sigmoid": plain.sigmoid, "sincos": plain.sincos,
-          "atan2": plain.atan2, "wrap_angle": plain.wrap_angle,
-          "fma": plain.fma, "sqrt": plain.sqrt, "dot": plain.dot,
-          "loop_dot": plain.loop_dot, "lm_update": plain.lm_update,
-          "lu_solve": plain.lu_solve}
+#: site entries of ``csrc/refmath_sites.cu``: name -> site code
+SITES = {"compose": 0, "inverse": 1, "relative": 2, "apply": 3,
+         "rotate": 4, "interpolate": 5, "rotmat": 6, "norm2": 7,
+         "world_targets": 8, "motion_compensate": 9}
+_PLAIN = dict(
+    exp=plain.exp, log=plain.log, log1p=plain.log1p, sigmoid=plain.sigmoid,
+    sincos=plain.sincos, atan2=plain.atan2, wrap_angle=plain.wrap_angle,
+    fma=plain.fma, sqrt=plain.sqrt, dot=plain.dot, loop_dot=plain.loop_dot,
+    lm_update=plain.lm_update, lu_solve=plain.lu_solve,
+    cumsum=plain.blocked_cumsum)
 
 
 _ENTRIES: dict = {}
@@ -140,9 +156,117 @@ def _lu_solve(op: str, h: torch.Tensor, g: torch.Tensor):
             out.numel())
 
 
+def _cumsum(op: str, x: torch.Tensor):
+    if x.dim() != 1:
+        raise ValueError(f"refmath.cumsum: a vector, got {tuple(x.shape)}")
+    x = x.contiguous()
+    n, rows, levels = x.numel(), 0, x.numel()
+    while levels > plain.CUMSUM_BLOCK:
+        levels = -(-levels // plain.CUMSUM_BLOCK)
+        rows += levels
+    out = torch.empty_like(x)
+    scratch = torch.empty(max(rows, 1), dtype=x.dtype, device=x.device)
+    return (out, "refmath_cumsum_launch",
+            (x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n), n)
+
+
+#: batch dimensions a site's operand may have (csrc/refmath_sites.cu kDims)
+SITE_DIMS = 4
+#: ``csrc/refmath_sites.cu``'s ``SiteArgs``: site, flags, elements, the
+#: batch shape (left-padded with 1), 6 operand pointers, their strides (4
+#: batch, 2 component each), 4 output pointers, 4 float32 constants
+SITE_ARGS = struct.Struct("<2iq4q6Q36q4Q4f")
+
+
+def _broadcast(shapes) -> tuple:
+    """The broadcast of several shapes (torch's rule, without its cost)."""
+    nd = max(len(sh) for sh in shapes)
+    out = [1] * nd
+    for sh in shapes:
+        for i, d in enumerate(sh, nd - len(sh)):
+            if d != 1:
+                if out[i] not in (1, d):
+                    raise ValueError(f"shapes {shapes} do not broadcast")
+                out[i] = d
+    return tuple(out)
+
+
+def _site(layout, op: str, *ts, **options):
+    """One launch of site ``op`` over the operands' broadcast batch: the
+    launch's description (``csrc/refmath_sites.cu``'s ``SiteArgs``) packed
+    by :data:`SITE_ARGS`, from the site's registered ``layout``."""
+    operands, outs, flags, consts = layout(*ts, **options)
+    live = [(t, comp) for t, comp, is_bool in operands if t is not None]
+    for t, comp, is_bool in operands:
+        if t is None:
+            continue
+        if t.dtype != (torch.bool if is_bool else torch.float32):
+            raise TypeError(f"refmath.{op}: float32 operands and bool "
+                            f"masks, got {t.dtype}")
+        if t.dim() < len(comp) or tuple(t.shape[t.dim() - len(comp):]) \
+                != comp:
+            raise ValueError(f"refmath.{op}: an operand of shape "
+                             f"{tuple(t.shape)}, expected [..., "
+                             f"{', '.join(map(str, comp))}]")
+    batch = _broadcast([tuple(t.shape[:t.dim() - len(comp)])
+                        for t, comp in live])
+    if len(batch) > SITE_DIMS:
+        raise ValueError(f"refmath.{op}: batch {batch} has more than "
+                         f"{SITE_DIMS} dimensions")
+    n = 1
+    for d in batch:
+        n *= d
+    ptrs, strides = [0] * 6, [0] * 36
+    for k, (t, comp, _) in enumerate(operands):
+        if t is None:
+            continue
+        shape, stride = t.shape, t.stride()
+        nb = t.dim() - len(comp)
+        row = strides[6 * k:6 * k + 6]
+        for j in range(nb):  # right-aligned with the batch, in 4 dims
+            if shape[j] != 1:
+                row[SITE_DIMS - nb + j] = stride[j]
+        row[SITE_DIMS:SITE_DIMS + len(comp)] = stride[nb:]
+        strides[6 * k:6 * k + 6] = row
+        ptrs[k] = t.data_ptr()
+    results, out_ptrs = [], [0] * 4
+    dev = ts[0].device
+    for k, shape in enumerate(outs):
+        if shape is None:
+            results.append(None)
+            continue
+        out = torch.empty(batch + (() if shape == "bool" else shape),
+                          dtype=torch.bool if shape == "bool" else
+                          torch.float32, device=dev)
+        out_ptrs[k] = out.data_ptr()
+        results.append(out)
+    args = SITE_ARGS.pack(SITES[op], flags, n,
+                          *((1,) * (SITE_DIMS - len(batch)) + batch), *ptrs,
+                          *strides, *out_ptrs,
+                          *(tuple(consts) + (0.0,) * (4 - len(consts))))
+    result = tuple(results) if len(results) > 1 else results[0]
+    return result, "refmath_site_launch", (args,), n
+
+
 _KERNEL_ARGS = dict.fromkeys(OPS, _elementwise)
 _KERNEL_ARGS.update(dot=_dot, loop_dot=_loop_dot, lm_update=_lm_update,
-                    lu_solve=_lu_solve)
+                    lu_solve=_lu_solve, cumsum=_cumsum)
+
+
+def register_site(name: str, plain_fn, layout) -> None:
+    """Register site ``name`` of :data:`SITES`: ``plain_fn(*ts, **options)``
+    is its plain version, and ``layout(*ts, **options)`` gives its launch's
+    operands, as (operands: a list of (tensor or None, its component shape,
+    whether it is a bool mask), the outputs' component shapes (None: not
+    written; "bool": a bool per element), flags, float32 constants)."""
+    if name not in SITES:
+        raise ValueError(f"refmath: no site entry {name!r}")
+    _PLAIN[name] = plain_fn
+    _KERNEL_ARGS[name] = functools.partial(_site, layout)
+
+
+register_site("norm2", plain.norm2,
+              lambda v: ([(v, (2,), False)], [()], 0, ()))
 
 
 def _call(op: str, *ts: torch.Tensor, **options):
@@ -151,16 +275,19 @@ def _call(op: str, *ts: torch.Tensor, **options):
     op's non-tensor arguments."""
     global LAUNCHES
     dev = ts[0].device
+    if op in SITES and op not in _PLAIN:
+        raise ValueError(f"refmath: site {op!r} is not registered (its "
+                         f"module registers it when imported)")
     if dev.type == "cpu":
         return _PLAIN[op](*ts, **options)
     if dev.type != "cuda":
         raise RuntimeError(f"refmath.{op}: no kernel for device {dev}")
-    if any(t.dtype != torch.float32 for t in ts):
+    if op not in SITES and any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"refmath.{op}: float32 tensors only, got "
                         f"{[t.dtype for t in ts]}")
-    if any(t.device != dev for t in ts):
+    if any(t is not None and t.device != dev for t in ts):
         raise ValueError(f"refmath.{op}: operands on "
-                         f"{[str(t.device) for t in ts]}")
+                         f"{[str(t.device) for t in ts if t is not None]}")
     result, entry, args, n = _KERNEL_ARGS[op](op, *ts, **options)
     if n == 0:
         return result
@@ -220,8 +347,21 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
 def norm2(v: torch.Tensor) -> torch.Tensor:
     """The length of [..., 2] vectors as the reference's program computes
     ``jnp.linalg.norm`` over two values: its two-term reduction fused,
-    fma(y, y, x * x), then the IEEE square root (two launches)."""
-    return sqrt(fma(v[..., 1], v[..., 1], v[..., 0] * v[..., 0]))
+    fma(y, y, x * x), then the IEEE square root (one launch, a site)."""
+    return _call("norm2", v)
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of a vector in the order of the reference's
+    compiled ``jnp.cumsum`` (``core/refmath.py::blocked_cumsum``), one
+    launch."""
+    return _call("cumsum", x)
+
+
+def site(name: str, *ts, **options):
+    """Site ``name`` of :data:`SITES` on its operands: the plain version on
+    CPU tensors, one launch of ``csrc/refmath_sites.cu`` on CUDA tensors."""
+    return _call(name, *ts, **options)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -8,12 +8,15 @@ each voxel centroid, and the closed-form 2x2 eigen gates.
 
 The float32 arithmetic is rounded as the reference's compiled CPU program
 rounds it (read from its optimized HLO and machine code): the radius gate's
-two-term sums, the weighted mean and second moment (a dot loop that adds one
-point at a time, in point order, by fused multiply-add), and the covariance
-diagonal, the discriminant and the eigenvector norms inside the eigen gates
-(each a*b + c with a single rounding).  What is left is written down in
-ROADMAP.md, section 3: the voxel sums' order, and the reference's own
-log1p.
+two-term sums, the weight sum (a tree of in-order windows of 32 points), the
+weighted mean and second moment (a dot loop that adds one point at a time,
+in point order, by fused multiply-add), and the covariance diagonal, the
+discriminant and the eigenvector norms inside the eigen gates (each a*b + c
+with a single rounding).  Steps 3-4 (each cell's
+statistics) are one ``cell_stats`` launch on the card
+(``kernels/cells.py``, ``csrc/cells.cu``), whose plain version is
+:func:`_cell_stats_reference`.  What is left is written down in ROADMAP.md,
+section 3: the voxel sums' order.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ import torch
 from ..core.config import FeatureConfig
 from ..core.device import constant, deterministic
 from ..core.types import Cells, PointCloud
+from ..kernels import cells as cells_kernel
 from ..kernels import refmath
+from ..kernels.cells import cell_stats
 
 
 def eigh2x2(cov: torch.Tensor):
@@ -31,7 +36,11 @@ def eigh2x2(cov: torch.Tensor):
     Returns (lmin, lmax, vmin) with vmin the unit eigenvector of lmin.  The
     discriminant 0.25 (a - c)^2 + b^2 and the squared norms of the two
     candidate eigenvectors are each one fused multiply-add, as the
-    reference's compiled program computes them."""
+    reference's compiled program computes them.  The two square roots are
+    torch's (the reference's are the IEEE root, ``refmath.sqrt``: with it,
+    trajectories of ``tests/test_torch_odometry_variants.py`` move past
+    their tolerances, ROADMAP.md section 3 item 2); on the card torch's
+    root is the IEEE one, which ``csrc/cells.cu`` computes."""
     a, b, c = cov[..., 0, 0], cov[..., 0, 1], cov[..., 1, 1]
     half_tr = 0.5 * (a + c)
     d = a - c
@@ -60,16 +69,42 @@ def _sqnorm(v: torch.Tensor) -> torch.Tensor:
 
 def _dot_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum_k a[:, k] * b[:, k] of [C, K, W] operands, added one k at a time
-    from zero, each step a fused multiply-add rounded once to float32: the
-    reference's compiled dot loop over the points, here over each cell's
-    neighbours in point order (the other points' terms are exact zeros).
-    The float64 products are exact."""
-    prod = a.double() * b.double()
-    acc = torch.zeros(prod.shape[:1] + prod.shape[2:], dtype=a.dtype,
+    from zero, each step a fused multiply-add: the reference's compiled dot
+    loop over the points, here over each cell's neighbours in point order
+    (the other points' terms are exact zeros)."""
+    acc = torch.zeros(a.shape[:1] + a.shape[2:], dtype=a.dtype,
                       device=a.device)
-    for k in range(prod.shape[1]):
-        acc = (prod[:, k] + acc).float()
+    for k in range(a.shape[1]):
+        acc = refmath.fma(a[:, k], b[:, k], acc)
     return acc
+
+
+#: window of the reference's tree reduction (XLA's CPU tree-reduction
+#: rewrite of a long row sum)
+TREE_WINDOW = 32
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """sum over the last axis as the reference's compiled ``jnp.sum`` of a
+    long row adds (its optimized HLO, jax 0.9.0 CPU: reduce-windows of 32
+    with stride 32, the row padded with zeros to a multiple of 32, half the
+    padding (rounded down) in front, each window summed in order from zero,
+    the windows' sums reduced the same way until at most 32 are left, which
+    are summed in order from zero)."""
+    n = x.shape[-1]
+    if n <= TREE_WINDOW:
+        acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for k in range(n):
+            acc = acc + x[..., k]
+        return acc
+    m = -(-n // TREE_WINDOW)
+    pad = m * TREE_WINDOW - n
+    xp = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).reshape(
+        x.shape[:-1] + (m, TREE_WINDOW))
+    acc = torch.zeros(xp.shape[:-1], dtype=x.dtype, device=x.device)
+    for k in range(TREE_WINDOW):
+        acc = acc + xp[..., k]
+    return _tree_sum(acc)
 
 
 def _gate_sqdist(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -87,11 +122,20 @@ def _gate_sqdist(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 def compute_cells(cloud: PointCloud, cfg: FeatureConfig,
                   origin=(0.0, 0.0)) -> Cells:
-    """Point cloud [P] -> CFEAR cells [cell_capacity]."""
-    xy, intensity, mask = cloud.xy, cloud.intensity, cloud.mask
+    """Point cloud [P] -> CFEAR cells [cell_capacity]: the voxel binning
+    and top-C selection (:func:`select_cells`), then the cells' statistics,
+    one ``cell_stats`` launch on the card (``kernels/cells.py``)."""
+    centroid, occupied = select_cells(cloud, cfg)
+    return Cells(*cell_stats(cloud.xy, cloud.intensity, cloud.mask, centroid,
+                             occupied, cfg, origin))
+
+
+def select_cells(cloud: PointCloud, cfg: FeatureConfig):
+    """Steps 1-2 of ``compute_cells``: (centroid [C, 2], occupied [C]) of
+    the cell_capacity most occupied voxels."""
+    xy, mask = cloud.xy, cloud.mask
     dev, dt = xy.device, xy.dtype
     leaf = cfg.resolution / cfg.downsample_factor
-    radius = cfg.resolution
     g = int(2 * cfg.grid_extent / leaf) + 2
 
     # 1. voxel binning
@@ -109,7 +153,26 @@ def compute_cells(cloud: PointCloud, cfg: FeatureConfig,
     sel_count = counts[sel]
     sel_occupied = sel_count > 0
     centroid = sums[sel] / torch.clamp(sel_count, min=1.0)[:, None]
+    return centroid, sel_occupied
 
+
+def _cell_stats_reference(xy: torch.Tensor, intensity: torch.Tensor,
+                          mask: torch.Tensor, centroid: torch.Tensor,
+                          sel_occupied: torch.Tensor, cfg: FeatureConfig,
+                          origin=(0.0, 0.0)):
+    """Steps 3-4 of ``compute_cells``, the plain version of the
+    ``cell_stats`` kernel: each cell's neighbours within the radius of its
+    centroid, their intensity weights, weighted mean and covariance, the
+    eigen gates, normal and planarity.  Returns Cells' fields (mean, cov,
+    normal, nsamples, planarity, avg_intensity, valid), zero where
+    invalid.  Runs on CPU tensors, or on CUDA tensors inside
+    ``kernels.cells.plain_on_card`` only."""
+    if xy.device.type != "cpu" and not cells_kernel.plain_on_card_enabled():
+        raise RuntimeError("the plain cell_stats runs on the CPU; on the "
+                           "card it runs inside kernels.cells.plain_on_card "
+                           "only")
+    dev, dt = xy.device, xy.dtype
+    radius = cfg.resolution
     # 3. masked neighbourhood stats, centred on the voxel centroid
     nbr = (_gate_sqdist(centroid, xy) <= radius * radius) & mask[None, :] \
         & sel_occupied[:, None]
@@ -119,7 +182,7 @@ def compute_cells(cloud: PointCloud, cfg: FeatureConfig,
     else:
         w = torch.ones_like(intensity)
     wm = torch.where(nbr, w[None, :], torch.zeros((), dtype=dt, device=dev))
-    w_sum = wm.sum(1)
+    w_sum = _tree_sum(wm)
     w_norm = wm / torch.clamp(w_sum, min=1e-12)[:, None]
     # each cell's neighbours in point order ([C, K], K the most any cell has;
     # the slots past a cell's count hold weight 0)
@@ -165,9 +228,8 @@ def compute_cells(cloud: PointCloud, cfg: FeatureConfig,
         m = valid.reshape(valid.shape + (1,) * (x.ndim - 1))
         return torch.where(m, x, torch.zeros((), dtype=x.dtype, device=dev))
 
-    return Cells(mean=z(mean), cov=z(cov), normal=z(normal),
-                 nsamples=z(nbr_count.to(dt)), planarity=z(planarity),
-                 avg_intensity=z(avg_intensity), valid=valid)
+    return (z(mean), z(cov), z(normal), z(nbr_count.to(dt)), z(planarity),
+            z(avg_intensity), valid)
 
 
 def transform_cells(cells: Cells, pose: torch.Tensor) -> Cells:

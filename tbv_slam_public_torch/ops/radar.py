@@ -213,8 +213,16 @@ def filter_scan(image: torch.Tensor, cfg: RadarConfig):
 def motion_compensate(cloud: PointCloud, motion: torch.Tensor,
                       ccw: bool) -> PointCloud:
     """Per-point constant-velocity de-skew (utils.cpp:96-113): each point
-    moves by the motion scaled by its azimuth-derived time in [-0.5, 0.5]."""
-    x, y = cloud.xy[..., 0], cloud.xy[..., 1]
+    moves by the motion scaled by its azimuth-derived time in [-0.5, 0.5].
+    One refmath site (one launch on the card)."""
+    return cloud.replace(xy=refmath.site("motion_compensate", cloud.xy,
+                                         motion, ccw=ccw))
+
+
+def _motion_compensate_plain(xy: torch.Tensor, motion: torch.Tensor,
+                             ccw: bool = False) -> torch.Tensor:
+    """The site's plain version: points [..., 2] under the motion [3]."""
+    x, y = xy[..., 0], xy[..., 1]
     ang = refmath.atan2(y, x)
     ang = torch.where(ang > 1e-5, ang, 2.0 * math.pi + ang)
     # rounded as the reference's program: d / (2 pi) - 0.5 one fused
@@ -226,4 +234,15 @@ def motion_compensate(cloud: PointCloud, motion: torch.Tensor,
     s, c = refmath.sincos(motion[2] * factor)
     nx = refmath.fma(motion[0], factor, refmath.fma(c, x, -(s * y)))
     ny = refmath.fma(motion[1], factor, refmath.fma(s, x, c * y))
-    return cloud.replace(xy=torch.stack([nx, ny], -1))
+    return torch.stack([nx, ny], -1)
+
+
+def _motion_compensate_layout(xy, motion, ccw=False):
+    """The site's operands: points [..., 2] under the motion [3]; the ccw
+    flag and the body's float32 constants."""
+    return [(xy, (2,), False), (motion, (3,), False)], [(2,)], \
+        int(bool(ccw)), plain_refmath.motion_constants()
+
+
+refmath.register_site("motion_compensate", _motion_compensate_plain,
+                      _motion_compensate_layout)

@@ -380,15 +380,49 @@ def _lm_solve_reference(theta0, src, assoc, *, cost, loss, delta, max_iter,
 def _world_targets(tgt: Cells, tgt_poses: torch.Tensor,
                    tgt_scan_mask: torch.Tensor, cost: int):
     """Fixed targets [B, T, C] in the world frame: means, normals, for P2D
-    covariances (rot @ cov @ rot^T, else None), and validity."""
-    tmw = se2.apply(tgt_poses, tgt.mean)
-    tnw = se2.rotate(tgt_poses, tgt.normal)
+    covariances (rot @ cov @ rot^T, else None), and validity; one refmath
+    site (one launch on the card)."""
+    return refmath.site("world_targets", tgt_poses, tgt.mean, tgt.normal,
+                        tgt.cov if cost == COST_P2D else None, tgt.valid,
+                        tgt_scan_mask)
+
+
+def _mm2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of [..., 2, 2] operands as torch's CPU matrix product rounds
+    them at this size (its small-size loop): each entry (0 + a_i0 b_0j) +
+    a_i1 b_1j, unfused."""
+    return torch.stack([torch.stack([
+        (0.0 + a[..., i, 0] * b[..., 0, j]) + a[..., i, 1] * b[..., 1, j]
+        for j in range(2)], -1) for i in range(2)], -2)
+
+
+def _world_targets_plain(tgt_poses: torch.Tensor, mean: torch.Tensor,
+                         normal: torch.Tensor, cov: Optional[torch.Tensor],
+                         valid: torch.Tensor, scan_mask: torch.Tensor):
+    """The site's plain version: se2's apply, rotate and rotmat, and for
+    P2D rot @ cov @ rot^T with the matrix products' rounding written out
+    (``_mm2``)."""
+    tmw = se2._apply_plain(tgt_poses, mean)
+    tnw = se2._rotate_plain(tgt_poses, normal)
     tcw = None
-    if cost == COST_P2D:
-        rot = se2.rotmat(tgt_poses[..., 2])[..., None, :, :]  # [B, T, 1, 2, 2]
-        tcw = rot @ tgt.cov @ rot.transpose(-1, -2)
-    tvalid = tgt.valid & tgt_scan_mask[..., None]
-    return tmw, tnw, tcw, tvalid
+    if cov is not None:
+        rot = se2._rotmat_plain(tgt_poses[..., 2])[..., None, :, :]
+        tcw = _mm2(_mm2(rot, cov), rot.transpose(-1, -2))
+    return tmw, tnw, tcw, valid & scan_mask[..., None]
+
+
+def _world_targets_layout(tgt_poses, mean, normal, cov, valid, scan_mask):
+    """The site's operands: poses [B, T, 3] over the cells [B, T, C] and
+    the scan mask [B, T]; outputs the means, normals, covariances (when
+    given) and validity."""
+    return [(tgt_poses[..., None, :], (3,), False), (mean, (2,), False),
+            (normal, (2,), False), (cov, (2, 2), False), (valid, (), True),
+            (scan_mask[..., None], (), True)], \
+        [(2,), (2,), None if cov is None else (2, 2), "bool"], 0, ()
+
+
+refmath.register_site("world_targets", _world_targets_plain,
+                      _world_targets_layout)
 
 
 def _associator(src, tgt, tgt_poses, tgt_scan_mask, cfg: RegistrationConfig):

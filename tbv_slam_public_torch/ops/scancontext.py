@@ -187,9 +187,10 @@ def _segment_lengths(d: torch.Tensor) -> torch.Tensor:
 
 
 def _travel(positions: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
-    """[..., N] path length from keyframe i to keyframe ``cur`` [...]."""
+    """[..., N] path length from keyframe i to keyframe ``cur`` [...]; the
+    cumulative sum in the reference's blocked order (``refmath.cumsum``)."""
     seg = _segment_lengths(positions[1:] - positions[:-1])
-    cum = torch.cumsum(torch.cat([seg.new_zeros(1), seg]), 0)  # [N]
+    cum = refmath.cumsum(torch.cat([seg.new_zeros(1), seg]))  # [N]
     return cum[cur][..., None] - cum
 
 

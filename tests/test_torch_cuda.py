@@ -988,3 +988,169 @@ def test_refmath_loop_dot_matches_plain(cuda):
         v = torch.as_tensor(rng.normal(size=n).astype(np.float32))
         assert bits_differ(rm.loop_dot(x.to(cuda), v.to(cuda)),
                            plain.loop_dot(x, v)) == 0, n
+
+
+def _site_operands(site, dev, rng):
+    """Operands of one refmath site at a path's shape (a few special angles
+    and coordinates among them)."""
+    # the sites' owners register them (registration imports core/se2.py)
+    from tbv_slam_public_torch.ops import radar, registration  # noqa: F401
+
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def poses(*shape):
+        p = np.stack([rng.uniform(-60, 60, shape), rng.uniform(-60, 60, shape),
+                      rng.uniform(-7, 7, shape)], -1).astype(np.float32)
+        flat = p.reshape(-1, 3)
+        k = min(len(flat), len(REFMATH_SPECIAL))
+        flat[:k, 2] = REFMATH_SPECIAL[:k]
+        return t(p)
+
+    pts = lambda *shape: t(rng.uniform(-80, 80, shape + (2,)))
+    if site in ("compose", "relative"):
+        return (poses(300), poses(1)), {}
+    if site == "inverse":
+        return (poses(4, 50),), {}
+    if site in ("apply", "rotate"):
+        return (poses(12), pts(12, 4096)), {}
+    if site == "interpolate":
+        return (poses(200), poses(200), t(rng.uniform(0, 1, 200))), {}
+    if site == "rotmat":
+        return (poses(500)[:, 2],), {}
+    if site == "norm2":
+        return (pts(4608),), {}
+    if site == "world_targets":
+        b, tt, c = 2, 4, 512
+        cov = rng.normal(size=(b, tt, c, 2, 2)).astype(np.float32)
+        cov[:, :, ::7] = 0.0
+        return (poses(b, tt), pts(b, tt, c), pts(b, tt, c), t(cov),
+                torch.as_tensor(rng.uniform(size=(b, tt, c)) < 0.8,
+                                device=dev),
+                torch.as_tensor(rng.uniform(size=(b, tt)) < 0.7,
+                                device=dev)), {}
+    return (pts(4800), t([0.7, -0.05, 0.02])), dict(ccw=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["compose", "relative", "inverse", "apply",
+                                  "rotate", "interpolate", "rotmat", "norm2",
+                                  "world_targets", "motion_compensate"])
+def test_refmath_site_matches_plain(cuda, site):
+    """Each refmath site: one launch on the card, bit-equal to its plain
+    version (the op-by-op body) on the CPU; world_targets with and without
+    the covariances."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    ts, opts = _site_operands(site, cuda, np.random.default_rng(9))
+    variants = [ts] + ([ts[:3] + (None,) + ts[4:]]
+                       if site == "world_targets" else [])
+    for args in variants:
+        rm.LAUNCHES_BY_OP.clear()
+        got = rm.site(site, *args, **opts)
+        assert dict(rm.LAUNCHES_BY_OP) == {site: 1}
+        want = rm._PLAIN[site](*(None if a is None else a.cpu()
+                                 for a in args), **opts)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,),
+                                                                (want,))
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert g.is_cuda and bits_differ(g, w) == 0
+
+
+@pytest.mark.cuda
+def test_refmath_cumsum_matches_plain(cuda):
+    """``detect``'s travelled distance in the reference's blocked order on
+    the card, bit for bit, at the capacities the loop stage uses."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    rng = np.random.default_rng(10)
+    for n in (1, 16, 17, 128, 1000, 1152, 4608, 70000):
+        x = torch.as_tensor(rng.uniform(0, 3, n).astype(np.float32))
+        assert bits_differ(rm.cumsum(x.to(cuda)), rm._PLAIN["cumsum"](x)) \
+            == 0, n
+
+
+@pytest.mark.cuda
+def test_a_cuda_tensor_never_reaches_a_plain_site(cuda, monkeypatch):
+    """On CUDA tensors every site is its kernel: no plain version runs."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain site ran on a CUDA tensor")
+
+    rng = np.random.default_rng(11)
+    for site in rm.SITES:
+        ts, opts = _site_operands(site, cuda, rng)
+        monkeypatch.setitem(rm._PLAIN, site, refuse)
+        out = rm.site(site, *ts, **opts)
+        out = out if isinstance(out, tuple) else (out,)
+        assert all(o.is_cuda for o in out if o is not None)
+
+
+def _cell_inputs(dev, seed, case="random"):
+    """A cloud and its selected cells: ``random`` (4,800 points in 24
+    clusters, the default configuration), ``on_gate`` (points within an ulp
+    of the radius) or ``cfear3_oxford`` (16,000 points, the preset's
+    k_strongest 40 at 400 azimuths and its 3 m radius)."""
+    from tbv_slam_public_torch.core.config import FeatureConfig, cfear3_oxford
+    from tbv_slam_public_torch.core.types import PointCloud
+    from tbv_slam_public_torch.kernels.checks import cell_gate_cloud
+    from tbv_slam_public_torch.ops import features as tf
+
+    rng = np.random.default_rng(seed)
+    cfg = cfear3_oxford().features if case == "cfear3_oxford" else \
+        FeatureConfig()
+    if case == "on_gate":
+        return tuple(torch.as_tensor(a, device=dev) for a in cell_gate_cloud(
+            rng, 512, cfg.resolution)) + (cfg,)
+    p = 16000 if case == "cfear3_oxford" else 4800
+    xy = rng.uniform(-60, 60, (24, 2))[rng.integers(0, 24, p)] + \
+        rng.normal(0, 1.0, (p, 2))
+    cloud = PointCloud(torch.as_tensor(xy.astype(np.float32), device=dev),
+                       torch.as_tensor(rng.uniform(40, 200, p).astype(
+                           np.float32), device=dev),
+                       torch.as_tensor(rng.uniform(size=p) < 0.9, device=dev))
+    return (cloud.xy, cloud.intensity, cloud.mask) + \
+        tf.select_cells(cloud, cfg) + (cfg,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "on_gate", "cfear3_oxford"])
+def test_cell_stats_kernel_bit_equal_to_plain(cuda, case):
+    """``cell_stats`` on the card against its plain version on the card,
+    bit for bit (fractional intensities: the weight sum's order shows), one
+    launch a call, two launches the same bits; at the default's 4,800
+    points and at the cfear3_oxford preset's 16,000."""
+    from tbv_slam_public_torch.kernels import cells as kc
+
+    args = _cell_inputs(cuda, 12, case)
+    kc.LAUNCHES = 0
+    got = kc.cell_stats(*args)
+    again = kc.cell_stats(*args)
+    assert kc.LAUNCHES == 2
+    with kc.plain_on_card():
+        want = kc.cell_stats(*args)
+    assert int(want[-1].sum()) > 50
+    for g, a, w in zip(got, again, want):
+        assert g.is_cuda and bits_differ(g, w) == 0 and \
+            bits_differ(g, a) == 0
+
+
+@pytest.mark.cuda
+def test_a_cuda_tensor_never_reaches_the_plain_cell_stats(cuda, monkeypatch):
+    """On CUDA tensors ``compute_cells`` runs the kernel: the plain version
+    is never called, and it raises outside ``plain_on_card``."""
+    from tbv_slam_public_torch.core.types import PointCloud
+    from tbv_slam_public_torch.ops import features as tf
+
+    xy, inten, mask, cen, occ, cfg = _cell_inputs(cuda, 13)
+    with pytest.raises(RuntimeError, match="plain cell_stats"):
+        tf._cell_stats_reference(xy, inten, mask, cen, occ, cfg)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain cell_stats ran on a CUDA tensor")
+
+    monkeypatch.setattr(tf, "_cell_stats_reference", refuse)
+    cells = tf.compute_cells(PointCloud(xy, inten, mask), cfg)
+    assert cells.mean.is_cuda and cells.valid.is_cuda

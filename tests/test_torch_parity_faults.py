@@ -479,6 +479,35 @@ def test_norm_sites_round_as_the_reference(site):
     assert not _same_bits(got, want).any()
 
 
+@pytest.mark.parametrize("capacity", [128, 256, 512, 1000, 1152, 4608])
+def test_detect_travel_sums_as_the_reference(capacity):
+    """``detect``'s travelled distance: ``odometry_similarity`` bit-equal
+    and ``num_exclude_recent`` equal to the reference's on a random
+    trajectory, the exclusion distance set to one of the reference's own
+    travelled distances so that an ulp moves the count.  The reference's
+    ``jnp.cumsum`` is XLA's blocked reduce-window (rows of 16, the rows'
+    totals scanned recursively), not torch's order."""
+    rng = np.random.default_rng(capacity)
+    pos = np.cumsum(rng.normal(size=(capacity, 2)) * rng.uniform(
+        0.1, 3.0, (capacity, 1)), 0).astype(np.float32)
+    mask = np.arange(capacity) < rng.integers(capacity // 2, capacity + 1)
+    want = np.asarray(jax.jit(jsc.odometry_similarity, static_argnums=2)(
+        pos, mask, 3.0))
+    got = tsc.odometry_similarity(torch.as_tensor(pos), torch.as_tensor(mask),
+                                  3.0).numpy()
+    assert not _same_bits(got, want).any()
+    cur = int(mask.sum()) - 1
+    seg = np.asarray(jax.jit(lambda p: jnp.cumsum(jnp.concatenate([
+        jnp.zeros(1), jnp.linalg.norm(p[1:] - p[:-1], axis=-1)])))(pos))
+    for i in (cur // 3, cur // 2, cur - 5):
+        dist = float(seg[cur] - seg[i])
+        want = int(jax.jit(jsc.num_exclude_recent, static_argnums=2)(
+            pos, mask, dist))
+        got = int(tsc.num_exclude_recent(torch.as_tensor(pos),
+                                         torch.as_tensor(mask), dist))
+        assert got == want, (i, got, want)
+
+
 @pytest.mark.parametrize("loss", ["cauchy", "combined"])
 @pytest.mark.parametrize("delta", [0.1, 1.0])
 def test_subnormal_weights_flush_as_the_reference(loss, delta):
