@@ -33,7 +33,14 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    one window launch and the same refmath launches a call at 1 and 8
    outer iterations, timed in turns against the plain path beside its
    bound; its solve entry (``register_joint``'s LM solves) bit-equal to the
-   plain solve over every cost x loss x prior x one_system; and on every
+   plain solve over every cost x loss x prior x one_system; its evaluation
+   entry (``evaluate_cost`` and ``sampled_covariance``, one launch a call:
+   one association, the cost at S poses over it, the sampled covariance's
+   fit) bit-equal to the plain versions over every cost x loss, the CFEAR
+   feature's and the loop registration's configurations at the paths'
+   shapes (an offline and an online loop wave, a training pair, an
+   evaluate-scans pair, the odometry window) and at forced cluster sizes,
+   timed in turns against the plain path beside its bound; and on every
    path below, as refmath, counted and held at each shape the path gave
    it;
 3. the port's CLI: ``odometry`` then ``slam`` (default solver, and again
@@ -443,7 +450,8 @@ def phase_kernels(sm_hz):
 # float32 operations a value of each refmath op, for the bound (the double
 # ones of sinf/cosf counted at the float32 rate)
 REFMATH_OPS = {"exp": 20, "log": 25, "log1p": 40, "sigmoid": 22,
-               "sincos": 26, "wrap_angle": 60, "atan2": 35, "sqrt": 3}
+               "sincos": 26, "wrap_angle": 60, "atan2": 35, "sqrt": 3,
+               "ftz": 2}
 # the refmath kernel's launches by path, and the (op, shapes) held there
 REFMATH_LAUNCHES = {}
 REFMATH_HELD = {}
@@ -580,6 +588,12 @@ SITE_SHAPES = {
                           dict(ccw=False)),
 }
 SITE_LIBRARY = {"norm2": lambda v: torch.linalg.vector_norm(v, dim=-1)}
+# cumsum: the lengths held bit for bit (every level count of the one-block
+# path, its switch to the device-memory path at 16,384, 2^20), and the
+# keyframe capacities detect gives it, timed
+CUMSUM_HELD = (1, 15, 16, 17, 128, 1000, 4608, 16 ** 3 + 1, 16384, 16385,
+               1 << 20)
+CUMSUM_CAPACITIES = (128, 256, 1152, 4608)
 
 
 def phase_refmath_sites():
@@ -613,12 +627,12 @@ def phase_refmath_sites():
             f"differ from the plain version")
         if bad:
             raise AssertionError(f"refmath site {name}: {bad} values differ")
-    for n in (1, 16, 17, 128, 1000, 4608, 1 << 20):
+    for n in CUMSUM_HELD:
         x = torch.as_tensor(rng.uniform(0, 3, n).astype(np.float32))
         bad = bits_differ(rm.cumsum(x.to(dev)), rm._PLAIN["cumsum"](x))
         if bad:
             raise AssertionError(f"refmath cumsum at {n}: {bad} differ")
-    log("[2] refmath cumsum: bit-equal at n = 1 .. 2^20")
+    log(f"[2] refmath cumsum: bit-equal at n = {CUMSUM_HELD}")
 
     def operand(shape):
         if shape is None:
@@ -662,6 +676,27 @@ def phase_refmath_sites():
             f"(bound {t['bound_ms']:.6f} ms), plain {t['plain_ms']:.4f} ms; "
             f"host {t['host_us']:.1f} us a call (plain "
             f"{t['plain_host_us']:.1f}); library {t['library_ms']}")
+    # cumsum at the capacities detect gives it, in turns against
+    # torch.cumsum (which adds in another order)
+    for n in CUMSUM_CAPACITIES:
+        x = torch.empty(n, device=dev).uniform_(0, 3)
+        call = lambda: rm.cumsum(x)
+        lib = lambda: torch.cumsum(x, 0)
+        k1, l1, l2, k2 = (cuda_ms(call, 50), cuda_ms(lib, 50),
+                          cuda_ms(lib, 50), cuda_ms(call, 50))
+        by_bytes, by_ops = 8 * n / PEAK_BYTES_PER_S, \
+            2 * n / PEAK_F32_FLOPS  # an add a value, its row's shift
+        t = dict(ms=min(k1, k2), ms_turns=[k1, k2], library_ms=min(l1, l2),
+                 library_ms_turns=[l1, l2],
+                 plain_ms=cuda_ms(lambda: rm._PLAIN["cumsum"](x), 5),
+                 host_us=host_us(call), bound_ms=max(by_bytes, by_ops) * 1e3,
+                 bound_by="bytes" if by_bytes >= by_ops else "operations",
+                 elements=n)
+        times[f"cumsum_n{n}"] = t
+        log(f"[2] refmath cumsum at {n} values: {k1:.4f} / {k2:.4f} ms "
+            f"(bound {t['bound_ms']:.6f} ms), torch.cumsum {l1:.4f} / "
+            f"{l2:.4f} ms, plain {t['plain_ms']:.4f} ms, host "
+            f"{t['host_us']:.1f} us a call")
     return times
 
 
@@ -935,6 +970,75 @@ def hold_window(tag, kept) -> int:
     return len(kept)
 
 
+# the evaluation entry's first calls on each path (evaluate_cost and
+# sampled_covariance), the shapes held there, and the paths that must
+# launch it
+EVAL_HELD = {}
+EVAL_PATHS = ("offline", "online", "evaluate_scans", "parallel_offline",
+              "dryrun")
+
+
+@contextlib.contextmanager
+def evaluate_inputs():
+    """For each (function, M, T, C, Ct, cost, loss, weight option) that
+    ``evaluate_cost`` or ``sampled_covariance`` is called with on CUDA
+    tensors inside the block, the first call's arguments and result,
+    copied on the card: ``{key: (function name, args, kwargs, result)}``."""
+    from tbv_slam_public_torch.ops import registration as treg
+
+    kept = {}
+    real = {n: getattr(treg, n) for n in ("evaluate_cost",
+                                          "sampled_covariance")}
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().clone()
+        if isinstance(x, tuple):
+            return tuple(clone(v) for v in x)
+        return x.map(lambda v: v.detach().clone()) if hasattr(x, "map") \
+            else x
+
+    def wrap(name):
+        def keep(src, pose, tgt, tposes, smask, cfg, *rest, **kw):
+            out = real[name](src, pose, tgt, tposes, smask, cfg, *rest, **kw)
+            if pose.is_cuda:
+                key = (name,) + tuple(src.valid.shape) + \
+                    tuple(tgt.valid.shape[1:]) + (cfg.cost, cfg.loss,
+                                                  cfg.weight_option)
+                if key not in kept:
+                    kept[key] = (name, [clone(a) for a in (
+                        src, pose, tgt, tposes, smask)] + [cfg] + [
+                        clone(a) for a in rest],
+                        {k: clone(v) for k, v in kw.items()}, clone(out))
+            return out
+        return keep
+
+    for name in real:
+        setattr(treg, name, wrap(name))
+    try:
+        yield kept
+    finally:
+        for name, fn in real.items():
+            setattr(treg, name, fn)
+
+
+def hold_evaluate(tag, kept) -> int:
+    """Each kept evaluation call against the plain version on its inputs on
+    the card, bit for bit; returns the number of shapes held."""
+    from tbv_slam_public_torch.kernels import lm_solve as lk
+    from tbv_slam_public_torch.kernels.checks import bits_differ
+    from tbv_slam_public_torch.ops import registration as treg
+
+    for key, (name, args, kw, out) in kept.items():
+        with lk.plain_on_card():
+            want = getattr(treg, name)(*args, **kw)
+        bad = sum(bits_differ(g, w) for g, w in zip(out, want))
+        if bad:
+            raise AssertionError(f"{tag} {name} at {key[1:]}: {bad} values "
+                                 f"differ from the plain version")
+    return len(kept)
+
+
 # the cell_stats kernel's launches by path, the shapes held there, and the
 # paths that compute cells in this process
 CELLS_LAUNCHES = {}
@@ -1005,9 +1109,10 @@ def kernel_path(path):
     """One path of the main run: the refmath, registration and cell_stats
     kernels' counts are set to 0 just before the block and read just after
     (``REFMATH_LAUNCHES[path]``: by op and site, ``LM_LAUNCHES[path]``:
-    window and solve launches, ``CELLS_LAUNCHES[path]``), then each kernel
-    is held to its plain version at every op, site or shape the path gave
-    it (``REFMATH_HELD``, ``WINDOW_HELD``, ``LM_HELD``, ``CELLS_HELD``)."""
+    window, solve and evaluate launches, ``CELLS_LAUNCHES[path]``), then
+    each kernel is held to its plain version at every op, site or shape the
+    path gave it (``REFMATH_HELD``, ``WINDOW_HELD``, ``LM_HELD``,
+    ``EVAL_HELD``, ``CELLS_HELD``)."""
     from tbv_slam_public_torch.kernels import cells as kc
     from tbv_slam_public_torch.kernels import lm_solve as lk
     from tbv_slam_public_torch.kernels import refmath as rm
@@ -1018,7 +1123,8 @@ def kernel_path(path):
     lk.LAUNCHES_BY_ENTRY.clear()
     kc.LAUNCHES = 0
     with refmath_inputs() as kept, lm_inputs() as lm_kept, \
-            window_inputs() as win_kept, cells_inputs() as cells_kept:
+            window_inputs() as win_kept, cells_inputs() as cells_kept, \
+            evaluate_inputs() as eval_kept:
         yield
     REFMATH_LAUNCHES[path] = dict(rm.LAUNCHES_BY_OP, total=rm.LAUNCHES)
     LM_LAUNCHES[path] = dict(lk.LAUNCHES_BY_ENTRY, total=lk.LAUNCHES)
@@ -1032,16 +1138,21 @@ def kernel_path(path):
                              path.startswith("variant")):
         raise AssertionError(f"the {path} path launched no cell_stats "
                              f"kernel")
+    if LM_LAUNCHES[path].get("evaluate", 0) <= 0 and path in EVAL_PATHS:
+        raise AssertionError(f"the {path} path launched no evaluation "
+                             f"entry")
     REFMATH_HELD[path] = hold_refmath(f"[{path}]", kept)
     WINDOW_HELD[path] = hold_window(f"[{path}]", win_kept)
     LM_HELD[path] = hold_lm(f"[{path}]", lm_kept)
     CELLS_HELD[path] = hold_cells(f"[{path}]", cells_kept)
+    EVAL_HELD[path] = hold_evaluate(f"[{path}]", eval_kept)
     log(f"[refmath] {path}: {REFMATH_LAUNCHES[path]['total']} launches, "
         f"bit-equal to the plain version at its {REFMATH_HELD[path]} (op or "
         f"site, shapes); [registration] {LM_LAUNCHES[path]} launches, window "
         f"bit-equal at its {WINDOW_HELD[path]} shapes, solve at its "
-        f"{LM_HELD[path]}; [cells] {kc.LAUNCHES} launches, bit-equal at its "
-        f"{CELLS_HELD[path]} shapes")
+        f"{LM_HELD[path]}, evaluate at its {EVAL_HELD[path]}; [cells] "
+        f"{kc.LAUNCHES} launches, bit-equal at its {CELLS_HELD[path]} "
+        f"shapes")
 
 
 def phase_refmath():
@@ -1055,6 +1166,7 @@ def phase_refmath():
     from tbv_slam_public_torch.kernels.checks import (REFMATH_RANGES,
                                                       REFMATH_SPECIAL,
                                                       bits_differ,
+                                                      lu_subnormal_systems,
                                                       lu_systems)
 
     dev = torch.device("cuda")
@@ -1125,12 +1237,15 @@ def phase_refmath():
     log("[2] refmath loop_dot: bit-equal at n = 1..128 and 130..1560")
     # lu_solve (the logistic fit's Newton step) at every size it takes
     for k in range(1, 8):
-        h, g = (torch.as_tensor(a) for a in lu_systems(rng, 3000, k))
-        bad = bits_differ(rm.lu_solve(h.to(dev), g.to(dev)),
-                          plain.lu_solve(h, g))
-        if bad:
-            raise AssertionError(f"refmath lu_solve at k={k}: {bad} differ")
-    log("[2] refmath lu_solve: bit-equal on 3000 systems at k = 1..7")
+        for make in (lu_systems, lu_subnormal_systems):
+            h, g = (torch.as_tensor(a) for a in make(rng, 3000, k))
+            bad = bits_differ(rm.lu_solve(h.to(dev), g.to(dev)),
+                              plain.lu_solve(h, g))
+            if bad:
+                raise AssertionError(f"refmath lu_solve at k={k} "
+                                     f"({make.__name__}): {bad} differ")
+    log("[2] refmath lu_solve: bit-equal on 3000 systems and 3000 that "
+        "reach the subnormal range at k = 1..7")
     library = {"exp": torch.exp, "log": torch.log, "log1p": torch.log1p,
                "sigmoid": torch.sigmoid,
                "sincos": lambda v: (torch.sin(v), torch.cos(v)),
@@ -1148,14 +1263,15 @@ def phase_refmath():
                         REFMATH_OPS[op] * size / PEAK_F32_FLOPS) * 1e3
             t = dict(ms=cuda_ms(lambda: getattr(rm, op)(*args), 50),
                      plain_ms=cuda_ms(lambda: getattr(plain, op)(*args), 10),
-                     library_ms=cuda_ms(lambda: library[op](*args), 50),
+                     library_ms=cuda_ms(lambda: library[op](*args), 50)
+                     if op in library else None,
                      bound_ms=bound,
                      bound_by="bytes" if bytes_ / PEAK_BYTES_PER_S >=
                      REFMATH_OPS[op] * size / PEAK_F32_FLOPS else "operations")
             times[f"{op}_n{size}"] = t
             log(f"[2] refmath {op} at {size} values: {t['ms']:.4f} ms "
                 f"(bound {bound:.6f} ms), plain {t['plain_ms']:.4f} ms, "
-                f"torch {t['library_ms']:.4f} ms")
+                f"torch {t['library_ms']} ms")
     # fma, beside torch.addcmul (c + a * b) as its library call
     for size in (1, 4096, 1 << 19):
         a, b, c = (torch.empty(size, device=dev).uniform_(-10, 10)
@@ -1207,6 +1323,8 @@ WINDOW_SHAPES = {"odometry": (1, 4, 512, "P2P", 20, 8),
                  "online_wave": (12, 1, 512, "P2L", 10, 8),
                  "loop_wave": (64, 1, 512, "P2L", 10, 8),
                  "p2d_2048": (2, 4, 2048, "P2D", 20, 8)}
+# the sampled covariance's grid (``sampled_covariance``'s defaults)
+EVAL_GRID = (0.4, 0.0043625, 3)
 # forced cluster sizes, at shapes whose rows fit one CTA
 FORCED_SHAPES = {"odometry": (1, 4, 512, "P2P"), "wave": (3, 1, 512, "P2L"),
                  "p2d": (2, 3, 256, "P2D")}
@@ -1472,6 +1590,181 @@ def phase_registration():
         f"shapes)")
     return dict(max_abs_err=0.0, held=held, forced=forced, times=times,
                 solves=solves, solve_times=solve_times)
+
+
+# the evaluation entry's shapes: (M rows, T, C = Ct, the path's
+# configuration): an offline loop wave's sampled covariance and CFEAR
+# features (64 pairs), an online loop closure's candidates (12), a training
+# pair's perturbations (13), an evaluate-scans pair's at SMALL's 192 cells,
+# and the odometry's sampled covariance (one row against its window)
+EVAL_SHAPES = {"loop_wave": (64, 1, 512, "loop"),
+               "online_wave": (12, 1, 512, "loop"),
+               "training": (13, 1, 512, "cfear"),
+               "scan_pairs": (13, 1, 192, "cfear"),
+               "odometry": (1, 4, 512, "odometry")}
+# float32 operations a leaf of a cost-only pass, counted from
+# csrc/lm_solve.cu's leaf() with the Huber loss (a fused multiply-add as
+# two): the transformed point 16 (P2P; P2L 20, P2D 31), the loss 6, the
+# weight 1, the sum's add 1; for the bound
+EVAL_OPS_PER_LEAF = {"P2L": 28, "P2P": 24, "P2D": 39}
+
+
+def _evaluate_bound(b, t, c, ct, cost, s):
+    """Least time of one evaluation call: the larger of its bytes (the
+    source cells, the world-frame targets, the offsets and the fit's
+    pseudo-inverse read once, the costs, counts and fit written once) over
+    the memory rate and its float32 operations (one association, S
+    cost-only passes, the fit's 10 fused multiply-adds a sample) over the
+    float32 rate."""
+    n = t * c * (1 if cost == "P2L" else 2)
+    fit = s > 1
+    ops = b * (t * c * ct * ASSOC_OPS_PER_PAIR + t * c * ASSOC_OPS[cost]
+               + s * n * EVAL_OPS_PER_LEAF[cost] + (20 * s if fit else 0))
+    nbytes = b * (12 + c * (8 + 8 + 4 + 4 + 1)
+                  + t * ct * (8 + 8 + 1 + 4 + 4 + (16 if cost == "P2D"
+                                                    else 0))
+                  + 4 * s + 8 + (40 if fit else 0)) \
+        + (12 * s + 40 * s if fit else 0)
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return dict(bound_ms=max(by_bytes, by_ops) * 1e3,
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def _eval_cfg(kind):
+    """The path's registration configuration for an EVAL_SHAPES row."""
+    from tbv_slam_public_torch.core.config import TBVConfig
+    from tbv_slam_public_torch.models import loopclosure, verification
+
+    tbv = TBVConfig()
+    if kind == "loop":
+        return loopclosure._loop_registration_cfg(tbv)
+    if kind == "cfear":
+        return verification._cfear_eval_cfg(tbv.verification)
+    return tbv.registration
+
+
+def phase_evaluation():
+    """The registration kernel's evaluation entry against its plain
+    versions on the card.  ``evaluate_cost`` (the cost and the residual
+    count) and ``sampled_covariance`` (its 27 costs and their fit from the
+    entry, the covariance and its convexity) bit for bit over every cost x
+    loss with the weight option 0-4 in turn, the CFEAR feature's and the
+    loop registration's configurations, at the paths' shapes; one evaluate
+    launch and one ``world_targets`` site launch a call, no other
+    registration launch; forced cluster sizes 1, 2, 4, 8 bit-identical;
+    then a call's time at each shape in turns against the plain path
+    (kernel, plain, plain, kernel: CUDA events behind the device-side
+    spin), the kernel's device time from the profiler, the bound and the
+    host's us a call."""
+    from tbv_slam_public_torch.kernels import lm_solve as lk
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.kernels.checks import (bits_differ,
+                                                      evaluation_configs,
+                                                      window_problem)
+    from tbv_slam_public_torch.ops import registration as treg
+    from tbv_slam_public_torch.ops.registration import cost_code
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    pinv, offs = treg._quad_fit_pinv(*EVAL_GRID, dev)
+    held, times = 0, {}
+    for tag, (b, tt, c, kind) in EVAL_SHAPES.items():
+        prob = window_problem(rng, b, tt, c, c)
+        for cfg in evaluation_configs() + [_eval_cfg(kind)]:
+            args = _window_case(prob, dev, cfg)[0][:5]
+            lk.LAUNCHES_BY_ENTRY.clear()
+            rm.LAUNCHES_BY_OP.clear()
+            cost, n_res = treg.evaluate_cost(*args, cfg)
+            cov, convex = treg.sampled_covariance(*args, cfg, cost, n_res)
+            costs, count, q = treg._evaluate_on_card(*args, cfg, offsets=offs,
+                                                     pinv=pinv)
+            if dict(lk.LAUNCHES_BY_ENTRY) != {"evaluate": 3} or \
+                    dict(rm.LAUNCHES_BY_OP) != {"world_targets": 3}:
+                raise AssertionError(
+                    f"[2b] evaluate {tag}: launches "
+                    f"{dict(lk.LAUNCHES_BY_ENTRY)}, refmath "
+                    f"{dict(rm.LAUNCHES_BY_OP)}, not one of each a call")
+            with lk.plain_on_card():
+                want = treg.evaluate_cost(*args, cfg) + \
+                    treg.sampled_covariance(*args, cfg, cost, n_res) + \
+                    treg._sampled_fit_reference(*args, cfg, *EVAL_GRID)
+            got = (cost, n_res, cov, convex, costs, q)
+            bad = sum(bits_differ(g, w) for g, w in zip(got, want)) + \
+                bits_differ(count, want[1])
+            if bad:
+                raise AssertionError(
+                    f"[2b] evaluate {tag} {cfg.cost} {cfg.loss} weight "
+                    f"{cfg.weight_option}: {bad} values differ")
+            held += 1
+        cfg = _eval_cfg(kind)
+        args = _window_case(prob, dev, cfg)[0][:5]
+        code = cost_code(cfg.cost)
+        if tag in ("loop_wave", "training"):  # forced cluster sizes
+            with lk.plain_on_card():
+                want_costs, want_q = treg._sampled_fit_reference(
+                    *args, cfg, *EVAL_GRID)
+            tmw, tnw, tcw, tvalid = treg._world_targets(args[2], args[3],
+                                                        args[4], code)
+            for k in (1, 2, 4, 8):
+                costs, _, q = lk.evaluate(
+                    args[1], args[0].mean, args[0].normal,
+                    args[0].nsamples, args[0].planarity, args[0].valid, tmw,
+                    tnw, tcw, tvalid, args[2].nsamples, args[2].planarity,
+                    cost=code, loss=treg.loss_code(cfg.loss),
+                    delta=cfg.loss_limit, radius=cfg.radius,
+                    angle_gate_cos=math.cos(math.radians(
+                        cfg.angle_gate_deg)),
+                    weight_option=cfg.weight_option,
+                    regularization=cfg.regularization,
+                    cov_scale=cfg.cov_scale, offsets=offs, pinv=pinv,
+                    cluster=k)
+                bad = bits_differ(costs, want_costs) + bits_differ(q, want_q)
+                if bad:
+                    raise AssertionError(f"[2b] evaluate {tag} at K={k}: "
+                                         f"{bad} values differ")
+                held += 1
+        cost, n_res = treg.evaluate_cost(*args, cfg)
+        score = cost.clone()
+        sampled = lambda: treg.sampled_covariance(*args, cfg, score, n_res)
+        single = lambda: treg.evaluate_cost(*args, cfg)
+        entry = {}
+        for name, call, s in (("sampled_covariance", sampled, 27),
+                              ("evaluate_cost", single, 1)):
+            def plain(call=call):
+                with lk.plain_on_card():
+                    return call()
+
+            k1 = cuda_ms(call, 20)
+            p1 = cuda_ms(plain, 2)
+            p2 = cuda_ms(plain, 2)
+            k2 = cuda_ms(call, 20)
+            kernel_us = [us for kname, us in
+                         device_us_by_kernel(call).items()
+                         if "registration_kernel" in kname]
+            if not kernel_us:
+                raise AssertionError(f"[2b] evaluate {tag} {name}: the "
+                                     f"profiler saw no kernel time")
+            bound = _evaluate_bound(b, tt, c, c, cfg.cost, s)
+            entry[name] = dict(
+                ms=kernel_us[0] / 1e3, events_ms_turns=[k1, k2],
+                plain_ms=min(p1, p2), plain_ms_turns=[p1, p2],
+                host_us=host_us(call, 20), plain_host_us=host_us(plain, 3),
+                **bound)
+            _share(f"evaluate {tag} {name}", bound["bound_ms"],
+                   entry[name]["ms"])
+            log(f"[2b] evaluate {tag} M={b} T={tt} C={c} {cfg.cost} "
+                f"{cfg.loss} K={lk.cluster_size(b, tt, c, c, code, True)} "
+                f"{name}: {entry[name]['ms']:.4f} ms of device time, "
+                f"{k1:.4f} / {k2:.4f} ms by events (bound "
+                f"{bound['bound_ms']:.6f} ms by {bound['bound_by']}), plain "
+                f"{p1:.2f} / {p2:.2f} ms, host {entry[name]['host_us']:.1f} "
+                f"us a call (plain {entry[name]['plain_host_us']:.1f})")
+        times[tag] = dict(M=b, T=tt, C=c, cost=cfg.cost, loss=cfg.loss,
+                          K=lk.cluster_size(b, tt, c, c, code, True), **entry)
+    log(f"[2b] evaluate: bit-equal to the plain version in {held} calls "
+        f"({len(EVAL_SHAPES)} shapes, forced cluster sizes included); one "
+        f"evaluate launch a call")
+    return dict(max_abs_err=0.0, held=held, times=times)
 
 
 def phase_real_clouds(loops, sm_hz):
@@ -2506,11 +2799,14 @@ def ranks_worker(inputs, out_dir) -> int:
             before, t0 = cm.LAUNCHES, time.perf_counter()
             rm.LAUNCHES = 0  # the case's own refmath and registration
             lk.LAUNCHES = 0  # launches
+            lk.LAUNCHES_BY_ENTRY.clear()
             res = fn()
             torch.cuda.synchronize()
             timed[key] = (time.perf_counter() - t0, cm.LAUNCHES - before)
             out[f"{key}_refmath_launches"] = np.asarray(rm.LAUNCHES)
             out[f"{key}_lm_launches"] = np.asarray(lk.LAUNCHES)
+            out[f"{key}_evaluate_launches"] = np.asarray(
+                lk.LAUNCHES_BY_ENTRY["evaluate"])
             return res
 
         # the inputs of the first pair_moments call at each (M, slots) this
@@ -2548,6 +2844,7 @@ def ranks_worker(inputs, out_dir) -> int:
         kept = refmath_kept.enter_context(refmath_inputs())
         lm_kept = refmath_kept.enter_context(lm_inputs())
         win_kept = refmath_kept.enter_context(window_inputs())
+        eval_kept = refmath_kept.enter_context(evaluate_inputs())
         # the first run of a fresh process loads its kernels; the second is
         # timed as the steady state, and the path's launches are counted
         # from there
@@ -2634,6 +2931,8 @@ def ranks_worker(inputs, out_dir) -> int:
                                             lm_kept))
         out["window_held"] = np.asarray(hold_window(
             f"[10b] rank {mesh.rank}", win_kept))
+        out["evaluate_held"] = np.asarray(hold_evaluate(
+            f"[10b] rank {mesh.rank}", eval_kept))
         np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
@@ -2668,7 +2967,8 @@ def phase_parallel_ranks(overrides, loops, one, dev, pair):
     r0 = outs[0]
     for k in r0:  # every rank returns the whole result
         if not k.endswith(("_s", "_launches", "kernel_max_abs_err",
-                           "refmath_held", "lm_held")) and \
+                           "refmath_held", "lm_held", "window_held",
+                           "evaluate_held")) and \
                 not np.array_equal(r0[k], outs[1][k]):
             raise AssertionError(f"[10b] ranks differ in {k}")
     res = dict(backend="gloo", ranks=RANKS, torchrun_s=wall,
@@ -2690,11 +2990,19 @@ def phase_parallel_ranks(overrides, loops, one, dev, pair):
                             for c in cases}
     LM_HELD["ranks"] = [int(o["lm_held"]) for o in outs]
     WINDOW_HELD["ranks"] = [int(o["window_held"]) for o in outs]
+    EVAL_HELD["ranks"] = [int(o["evaluate_held"]) for o in outs]
+    LM_LAUNCHES["ranks_evaluate"] = {
+        c: [int(o[f"{c}_evaluate_launches"]) for o in outs] for c in cases}
     for case in ("waves", "odometry", "dryrun"):
         if min(LM_LAUNCHES["ranks"][case]) <= 0:
             raise AssertionError(f"[10b] a rank's {case} launched no "
                                  f"registration kernel: "
                                  f"{LM_LAUNCHES['ranks']}")
+    for case in ("waves", "training", "dryrun"):
+        if min(LM_LAUNCHES["ranks_evaluate"][case]) <= 0:
+            raise AssertionError(f"[10b] a rank's {case} launched no "
+                                 f"evaluation entry: "
+                                 f"{LM_LAUNCHES['ranks_evaluate']}")
     # (M, slots) of every launch held to the plain version: the first
     # wave's share (waves of 64 pairs, fewer candidates padded to a multiple
     # of the ranks) and the training step's share of 13 perturbations a pair
@@ -2906,6 +3214,7 @@ def main(argv=None) -> int:
     refmath_k = phase_refmath()
     sites = phase_refmath_sites()
     lm_k = phase_registration()
+    eval_k = phase_evaluation()
     done("1-2")
     plain_trajectory, scan_launches = phase_cli()
     done("3")
@@ -2991,7 +3300,30 @@ def main(argv=None) -> int:
                         "grid_solves_held": lm_k["solves"]},
         "launches_by_path": LM_LAUNCHES,
         "window_shapes_held_by_path": WINDOW_HELD,
-        "solve_shapes_held_by_path": LM_HELD}],
+        "solve_shapes_held_by_path": LM_HELD}, {
+        "name": "evaluate", "route": "cuda",
+        "source": "tbv_slam_public_torch/csrc/lm_solve.cu",
+        "replaces": "tbv_slam_public_tpu/ops/registration.py:658 (no TPU "
+                    "kernel: XLA fuses evaluate_cost and the vmapped "
+                    "sampled_covariance at :577; the port's plain versions "
+                    "are ops/registration.py::_evaluate_cost_reference and "
+                    "_sampled_covariance_reference)",
+        "launches": LM_LAUNCHES["offline"].get("evaluate", 0),
+        "max_abs_err": eval_k["max_abs_err"],
+        "ms": eval_k["times"]["loop_wave"]["sampled_covariance"]["ms"],
+        "plain_ms":
+            eval_k["times"]["loop_wave"]["sampled_covariance"]["plain_ms"],
+        "bound_ms":
+            eval_k["times"]["loop_wave"]["sampled_covariance"]["bound_ms"],
+        "bound_by":
+            eval_k["times"]["loop_wave"]["sampled_covariance"]["bound_by"],
+        "library_ms": None, "times": eval_k["times"],
+        "calls_held": eval_k["held"],
+        "launches_by_path": {p: v.get("evaluate", 0)
+                             for p, v in LM_LAUNCHES.items()
+                             if not p.startswith("ranks")},
+        "ranks_launches": LM_LAUNCHES.get("ranks_evaluate"),
+        "shapes_held_by_path": EVAL_HELD}],
         "variants": variants, "batched": batched, "rest": rest,
         "schur_twice": schur_twice, "parallel": parallel,
         "phase_s": phase_s}))

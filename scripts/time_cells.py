@@ -1,10 +1,18 @@
 #!/usr/bin/env python3
-"""The ``cell_stats`` kernel of several trees or build variants on one card,
-in turns: its time by CUDA events behind a device-side spin, at phase 4's
-clouds of ``chip_smoke.py`` (400 x 3768 bins, default configuration, 4,800
-points, 512 cells) and at the cfear3_oxford preset's (k_strongest 40:
-16,000 points, 3 m radius), each held bit for bit against the plain version
-on the card.
+"""The ``cell_stats`` kernel and the registration kernel's window entry of
+several trees or build variants on one card, in turns.
+
+``cell_stats``: its time by CUDA events behind a device-side spin and the
+host's microseconds a call, at phase 4's clouds of ``chip_smoke.py``
+(400 x 3768 bins, default configuration, 4,800 points, 512 cells) and at
+the cfear3_oxford preset's (k_strongest 40: 16,000 points, 3 m radius),
+each held bit for bit against the plain version on the card.  ``window``:
+``register_window`` at the odometry's shape (B = 1, T = 4, C = 512, P2P,
+8 outer x 20 inner iterations, ``kernels/checks.py::window_problem`` from
+seed 17), the kernel's device time a launch from ``torch.profiler``, the
+call's time by CUDA events behind a spin long enough for the host to
+enqueue every call, and the host's microseconds a call; its outputs'
+digest shows whether two trees compute the same bits.
 
 A run is a fresh process on one tree (its package first on ``sys.path``)
 with optional ``nvcc`` defines (``csrc/cells.cu`` reads ``CELLS_WARPS``,
@@ -15,7 +23,8 @@ order is the variants, then backwards, so that drift of the card shows.
 One JSON line a run, then one with all runs and the card's name and power
 limit:
 
-    python3 scripts/time_cells.py [--sets phase4,cfear3_oxford] VARIANT ...
+    python3 scripts/time_cells.py [--sets phase4,cfear3_oxford,window] \
+        VARIANT ...
 """
 import argparse
 import hashlib
@@ -23,62 +32,150 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean microseconds the host spends inside one call, each call made on
+    an idle device."""
+    import torch
+
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / reps * 1e6
+
+
+def events_ms(fn, reps: int, spin_cycles: int) -> float:
+    """Mean milliseconds a call by CUDA events, the calls enqueued while
+    the device spins."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(spin_cycles)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def cloud_set(name, reps, dev):
+    """``cell_stats`` on the first four clouds of the set's configuration."""
+    import numpy as np
+    import torch
+
+    import torch_workload as wl
+    from tbv_slam_public_torch.core.config import PRESETS
+    from tbv_slam_public_torch.kernels import cells as kc
+    from tbv_slam_public_torch.ops import features as tf
+    from tbv_slam_public_torch.ops import radar
+
+    images = wl.revisiting_sequence(8, circle_frames=200).images
+    if name == "phase4":
+        base = wl.sensor_config()
+        rcfg, fcfg = base.radar, base.features
+    else:
+        preset = PRESETS[name]()
+        rcfg, fcfg = preset.radar, preset.features
+    times, hosts, digest = [], [], hashlib.sha256()
+    for img in images[:4]:
+        cloud = radar.filter_scan(torch.as_tensor(img, device=dev), rcfg)[0]
+        cen, occ = tf.select_cells(cloud, fcfg)
+        args = (cloud.xy, cloud.intensity, cloud.mask, cen, occ, fcfg)
+        got = kc.cell_stats(*args)
+        with kc.plain_on_card():
+            want = kc.cell_stats(*args)
+        for g, w in zip(got, want):
+            if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+                raise AssertionError(f"{name}: the kernel differs from the "
+                                     f"plain version")
+            digest.update(g.cpu().numpy().tobytes())
+        times.append(events_ms(lambda: kc.cell_stats(*args), reps,
+                               50_000_000))
+        hosts.append(host_us(lambda: kc.cell_stats(*args), 50))
+    return dict(ms=float(np.mean(times)), ms_by_cloud=times,
+                host_us=float(np.mean(hosts)),
+                points=int(cloud.xy.shape[0]), cells=int(cen.shape[0]),
+                digest=digest.hexdigest()[:16])
+
+
+def window_set(reps, dev):
+    """``register_window`` at the odometry's shape."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tbv_slam_public_torch.core.config import RegistrationConfig
+    from tbv_slam_public_torch.core.types import Cells
+    from tbv_slam_public_torch.kernels import lm_solve as lk
+    from tbv_slam_public_torch.kernels.checks import window_problem
+    from tbv_slam_public_torch.ops import registration as treg
+
+    prob = window_problem(np.random.default_rng(17), 1, 4, 512, 512)
+    t = lambda k: torch.as_tensor(prob[k], device=dev)
+
+    def cells(side):
+        f = lambda k: t(f"{side}_{k}")
+        return Cells(mean=f("mean"), cov=f("cov"), normal=f("normal"),
+                     nsamples=f("nsamples"), planarity=f("planarity"),
+                     avg_intensity=torch.zeros_like(f("nsamples")),
+                     valid=f("valid"))
+
+    cfg = RegistrationConfig(cost="P2P", max_inner_iterations=20,
+                             max_outer_iterations=8)
+    args = (cells("src"), t("pose0"), cells("tgt"), t("tgt_poses"),
+            t("scan_mask"), cfg)
+    call = lambda: treg.register_window(*args)
+    res = call()
+    lk.LAUNCHES_BY_ENTRY.clear()
+    call()
+    if dict(lk.LAUNCHES_BY_ENTRY) != {"window": 1}:
+        raise AssertionError(f"window: launches "
+                             f"{dict(lk.LAUNCHES_BY_ENTRY)}, not one window")
+    digest = hashlib.sha256()
+    for v in (res.pose, res.score, res.num_residuals, res.iterations):
+        digest.update(v.cpu().numpy().tobytes())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    kernel = [e for e in prof.key_averages()
+              if "registration_kernel" in e.key and e.device_time_total > 0]
+    if not kernel:
+        raise AssertionError("window: the profiler saw no kernel time")
+    return dict(ms=kernel[0].device_time_total / kernel[0].count / 1e3,
+                events_ms=events_ms(call, reps, 400_000_000),
+                host_us=host_us(call, 50),
+                iterations=res.iterations.tolist(),
+                digest=digest.hexdigest()[:16])
 
 
 def run(tree: str, defines: list, sets: list, reps: int) -> dict:
     """One variant, in this process."""
     sys.path.insert(0, os.path.abspath(tree))
     sys.path.insert(1, os.path.join(ROOT, "scripts"))
-    import numpy as np
     import torch
 
-    import torch_workload as wl
-    from tbv_slam_public_torch.core.config import PRESETS
     from tbv_slam_public_torch.kernels import build
-    from tbv_slam_public_torch.kernels import cells as kc
-    from tbv_slam_public_torch.ops import features as tf
-    from tbv_slam_public_torch.ops import radar
 
     build.NVCC_FLAGS = build.NVCC_FLAGS + [f"-D{d}" for d in defines]
     build.library()
     dev = torch.device("cuda")
-    images = wl.revisiting_sequence(8, circle_frames=200).images
-    base = wl.sensor_config()
-    oxford = PRESETS["cfear3_oxford"]()
-    cfgs = {"phase4": (base.radar, base.features),
-            "cfear3_oxford": (oxford.radar, oxford.features)}
     out = dict(tree=tree, defines=defines)
     for name in sets:
-        rcfg, fcfg = cfgs[name]
-        times, digest = [], hashlib.sha256()
-        for img in images[:4]:
-            cloud = radar.filter_scan(torch.as_tensor(img, device=dev),
-                                      rcfg)[0]
-            cen, occ = tf.select_cells(cloud, fcfg)
-            args = (cloud.xy, cloud.intensity, cloud.mask, cen, occ, fcfg)
-            got = kc.cell_stats(*args)
-            with kc.plain_on_card():
-                want = kc.cell_stats(*args)
-            for g, w in zip(got, want):
-                if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
-                    raise AssertionError(f"{name}: the kernel differs from "
-                                         f"the plain version")
-                digest.update(g.cpu().numpy().tobytes())
-            torch.cuda.synchronize()
-            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            torch.cuda._sleep(50_000_000)
-            t0.record()
-            for _ in range(reps):
-                kc.cell_stats(*args)
-            t1.record()
-            torch.cuda.synchronize()
-            times.append(t0.elapsed_time(t1) / reps)
-        out[name] = dict(ms=float(np.mean(times)), ms_by_cloud=times,
-                         points=int(cloud.xy.shape[0]),
-                         cells=int(cen.shape[0]),
-                         digest=digest.hexdigest()[:16])
+        out[name] = (window_set(reps, dev) if name == "window"
+                     else cloud_set(name, reps, dev))
     return out
 
 

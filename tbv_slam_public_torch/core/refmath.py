@@ -35,7 +35,7 @@ own functions on the same inputs (``tests/test_torch_refmath.py``).
 | ``ops/logistic.py::solve`` | ``jnp.linalg.solve`` of the fit's 4x4 / 7x7 system: jaxlib's ``lapack_sgetrf_ffi`` and two ``lapack_strsm_ffi`` (unit lower, then upper), which call SciPy's OpenBLAS (0.3.30, its SkylakeX kernels here), the right-hand side permuted by the pivots | optimized HLO of ``logistic.fit``; ``objdump -d`` of the library: ``sgetrf_single`` (unblocked below 2 x 4 columns), ``sgetf2_k``, ``sdot_k``, ``sgemv_n`` (its small-n path and its n = 4 remainders), the generic ``trsm_kernel_LT``/``_LN``, ``trsm_iunncopy`` and the ``sgemm_kernel`` update they call (its scalar edge: a fused multiply-add chain in k order, then c + alpha acc once); SciPy's factors and solves bit-equal on 63,000 systems, k = 1-7 (the fit's matrices, general, integer-valued with ties in magnitude, entries over e^+-30, zero pivots) | :func:`lu_solve` |
 | ``ops/scancontext.py::_travel`` (``detect``'s travelled distance) | ``jnp.cumsum`` as XLA's reduce-window rewrite: rows of 16 summed in order from zero, the rows' totals scanned the same way (recursively), shifted by one row and added | optimized HLO of ``detect`` at capacities 256, 1000 and 4608 | :func:`blocked_cumsum` (kernel entry ``cumsum``) |
 | ``ops/features.py`` the CFEAR weight sum | ``jnp.sum`` of a long row as XLA's CPU tree reduction: windows of 32 points (half the padding, rounded down, in front) summed in order from zero, recursively | optimized HLO of the masked row sum | ``ops/features.py::_tree_sum`` (``csrc/cells.cu`` on the card) |
-| subnormal operands and results of the functions above | flushed to zero (the reference's threads run with DAZ and FTZ) | outputs on subnormal inputs | :func:`ftz` |
+| subnormal operands and results of the functions above, of :func:`dot`, :func:`loop_dot` and :func:`lu_solve` (jaxlib runs the LAPACK on the same thread), and at the audited sites (CorAl's covariance and KL inverse, the eigen gates and the cells' covariance, the registration residuals, PGO's residuals, Jacobian blocks, weights, gradient and Hessian blocks, the logistic fit's coefficients) | flushed to zero (the reference's threads run with DAZ and FTZ) | outputs on inputs driven into the subnormal range, against the package's own functions (``tests/test_torch_parity_faults.py``, the ``flush`` cases) | :func:`ftz` (kernel op ``ftz`` on the card) |
 
 Fused multiply-adds inside the functions:
 
@@ -158,8 +158,10 @@ def recip(c: float) -> float:
 def ftz(x: torch.Tensor) -> torch.Tensor:
     """The reference's threads run with denormals-are-zero and
     flush-to-zero: a subnormal operand or result of its float arithmetic
-    is a signed zero."""
-    return torch.where(torch.abs(x) < _MIN_NORM, x * 0.0, x)
+    is a signed zero (x times 0, which keeps a NaN).  The mask is written
+    as 0 / 1 into |x|'s own buffer, so x is multiplied by its own dtype."""
+    keep = torch.abs(x)
+    return x * torch.ge(keep, _MIN_NORM, out=keep)
 
 
 # ---- XLA's inline exp (Eigen pexp, float32) --------------------------------
@@ -552,10 +554,12 @@ def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """out[..., c] = sum_k a[..., k] * b[c, k] in float32, one fused
     multiply-add a term in k order from zero, so every row is rounded alike
-    whatever the number of rows."""
+    whatever the number of rows; subnormal operands and each step's
+    subnormal result flushed, as the reference's threads flush them."""
+    a, b = ftz(a), ftz(b)
     out = torch.zeros(a.shape[:-1] + b.shape[:1], dtype=_F32, device=a.device)
     for k in range(a.shape[-1]):
-        out = fma(a[..., k:k + 1], b[:, k], out)
+        out = ftz(fma(a[..., k:k + 1], b[:, k], out))
     return out
 
 
@@ -602,21 +606,23 @@ def loop_chunk_order(passes: int, ic: int):
 def _lane_tree(a: torch.Tensor) -> torch.Tensor:
     while a.shape[-1] > 1:
         h = a.shape[-1] // 2
-        a = a[..., :h] + a[..., h:]
+        a = ftz(a[..., :h] + a[..., h:])
     return a[..., 0]
 
 
 def loop_dot(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """out[c] = sum_k x[c, k] v[k] for x [K, n], v [n] in float32, added as
     the reference's vectorised loop adds the terms of the logistic
-    gradient xb^T (sw (p - y)) (:func:`loop_dot_shape`)."""
+    gradient xb^T (sw (p - y)) (:func:`loop_dot_shape`), subnormal
+    operands and results flushed."""
+    x, v = ftz(x), ftz(v)
     k_rows, n = x.shape
     mode, ic, vf = loop_dot_shape(n)
     zeros = lambda w: torch.zeros((k_rows, w), dtype=_F32, device=x.device)
     if mode == "in_order":
         acc = zeros(1)[:, 0]
         for k in range(n):
-            acc = fma(x[:, k], v[k].expand(k_rows), acc)
+            acc = ftz(fma(x[:, k], v[k].expand(k_rows), acc))
         return acc
     passes = (n - 1) // (8 * ic)
 
@@ -627,28 +633,28 @@ def loop_dot(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if mode == "unrolled":
         acc = zeros(8)
         for c in loop_chunk_order(passes, ic):
-            acc = fma(*chunk(c), acc)
+            acc = ftz(fma(*chunk(c), acc))
     else:
         accs = []
         for j in range(ic):
             a = zeros(8)
             for i in range(passes):
-                a = fma(*chunk(ic * i + j), a)
+                a = ftz(fma(*chunk(ic * i + j), a))
             accs.append(a)
         acc = accs[0]
         for a in accs[1:]:
-            acc = acc + a
+            acc = ftz(acc + a)
     s = _lane_tree(acc)
     done = 8 * ic * passes
     m = (n - done - 1) // vf if vf else 0
     if m:
         e = torch.cat([s[:, None], zeros(vf - 1)], 1)
         for i in range(m):
-            e = fma(*chunk(i, vf, done), e)
+            e = ftz(fma(*chunk(i, vf, done), e))
         s = _lane_tree(e)
         done += vf * m
     for k in range(done, n):
-        s = fma(x[:, k], v[k].expand(k_rows), s)
+        s = ftz(fma(x[:, k], v[k].expand(k_rows), s))
     return s
 
 
@@ -708,23 +714,24 @@ def _strided_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """OpenBLAS's ``sdot`` (SkylakeX kernel) of rows x, y [N, n] with x
     strided: pairs ``fma(x0, y0, x1 * y1)`` added into a float64
     accumulator from zero, an odd last product added alone, the sum
-    rounded to float32 once."""
+    rounded to float32 once; each float32 result flushed (FTZ)."""
     n = x.shape[1]
     acc = torch.zeros(x.shape[0], dtype=_F64, device=x.device)
     for p in range(0, n - 1, 2):
-        acc = acc + fma(x[:, p], y[:, p], x[:, p + 1] * y[:, p + 1]).to(_F64)
+        acc = acc + ftz(fma(x[:, p], y[:, p],
+                            ftz(x[:, p + 1] * y[:, p + 1]))).to(_F64)
     if n % 2:
-        acc = acc + (x[:, n - 1] * y[:, n - 1]).to(_F64)
-    return acc.to(_F32)
+        acc = acc + ftz(x[:, n - 1] * y[:, n - 1]).to(_F64)
+    return ftz(acc.to(_F32))
 
 
 def _chain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """sum_k a[:, r, k] x[:, k] for a [N, R, n], x [N, n]: one fused
     multiply-add a term in k order from zero (the ``sgemv_n`` and
-    ``sgemm`` kernels at these shapes)."""
+    ``sgemm`` kernels at these shapes), each result flushed (FTZ)."""
     acc = torch.zeros(a.shape[:2], dtype=_F32, device=a.device)
     for k in range(a.shape[2]):
-        acc = fma(a[:, :, k], x[:, k:k + 1], acc)
+        acc = ftz(fma(a[:, :, k], x[:, k:k + 1], acc))
     return acc
 
 
@@ -744,14 +751,17 @@ def lu_solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     top for the lower factor, of 1, 2, 4 from the bottom for the upper), a
     block first reduced by the solved rows (:func:`_chain`), then solved
     row by row, x_i = c_i * (1 / u_ii) and each later c_k - x_i a_ki one
-    fused multiply-add."""
+    fused multiply-add.  jaxlib calls the library on the thread that runs
+    the reference's program, whose subnormals are flushed (DAZ and FTZ): a
+    subnormal entry of h or g is zero to every comparison and operation
+    (the pivot search included), and every subnormal result is zero."""
     k = h.shape[-1]
     if h.shape[-2:] != (k, k) or g.shape != h.shape[:-1] or \
             not 1 <= k <= LU_SOLVE_MAX_K:
         raise ValueError(f"refmath.lu_solve: shapes {tuple(h.shape)}, "
                          f"{tuple(g.shape)} (K <= {LU_SOLVE_MAX_K})")
     lead = g.shape[:-1]
-    a = h.reshape(-1, k, k).to(_F32)
+    a = ftz(h.reshape(-1, k, k).to(_F32))
     n = a.shape[0]
     piv = []
     one = torch.ones((), dtype=_F32, device=h.device)
@@ -761,10 +771,11 @@ def lu_solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             col = _swap(col, i, piv[i])
         for i in range(1, j):
             col = col.clone()
-            col[:, i] = col[:, i] - _strided_dot(a[:, i, :i], col[:, :i])
+            col[:, i] = ftz(col[:, i] - _strided_dot(a[:, i, :i],
+                                                      col[:, :i]))
         if j:
-            col = torch.cat([col[:, :j], col[:, j:] - _chain(
-                a[:, j:, :j], col[:, :j])], 1)
+            col = torch.cat([col[:, :j], ftz(col[:, j:] - _chain(
+                a[:, j:, :j], col[:, :j]))], 1)
         a = a.clone()
         a[:, :, j] = col
         p = j + torch.argmax(col[:, j:].abs(), 1)
@@ -776,9 +787,9 @@ def lu_solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                                    a[:, :, :j + 1]), a[:, :, j + 1:]], 2)
         if j + 1 < k:
             below = a[:, j + 1:, j]
-            a[:, j + 1:, j] = torch.where(ok[:, None],
-                                          below * (one / t)[:, None], below)
-    x = g.reshape(n, k).to(_F32)
+            a[:, j + 1:, j] = torch.where(
+                ok[:, None], ftz(below * ftz(one / t)[:, None]), below)
+    x = ftz(g.reshape(n, k).to(_F32))
     for i in range(k):
         x = _swap(x, i, piv[i])
     blocks, r0 = [], 0
@@ -788,20 +799,20 @@ def lu_solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             r0 += w
     for s, e in blocks:  # the unit lower factor, from the top
         if s:
-            x = torch.cat([x[:, :s], x[:, s:e] - _chain(a[:, s:e, :s],
-                                                         x[:, :s]),
+            x = torch.cat([x[:, :s], ftz(x[:, s:e] - _chain(a[:, s:e, :s],
+                                                             x[:, :s])),
                            x[:, e:]], 1)
         for i in range(s, e):
             x = x.clone()
-            x[:, i + 1:e] = fma(-x[:, i:i + 1], a[:, i + 1:e, i],
-                                x[:, i + 1:e])
+            x[:, i + 1:e] = ftz(fma(-x[:, i:i + 1], a[:, i + 1:e, i],
+                                    x[:, i + 1:e]))
     for s, e in blocks[::-1]:  # the upper factor, from the bottom
         if e < k:
-            x = torch.cat([x[:, :s], x[:, s:e] - _chain(a[:, s:e, e:],
-                                                         x[:, e:]),
+            x = torch.cat([x[:, :s], ftz(x[:, s:e] - _chain(a[:, s:e, e:],
+                                                             x[:, e:])),
                            x[:, e:]], 1)
         for i in range(e - 1, s - 1, -1):
             x = x.clone()
-            x[:, i] = x[:, i] * (one / a[:, i, i])
-            x[:, s:i] = fma(-x[:, i:i + 1], a[:, s:i, i], x[:, s:i])
+            x[:, i] = ftz(x[:, i] * ftz(one / a[:, i, i]))
+            x[:, s:i] = ftz(fma(-x[:, i:i + 1], a[:, s:i, i], x[:, s:i]))
     return x.reshape(lead + (k,))

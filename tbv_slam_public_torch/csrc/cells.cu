@@ -257,53 +257,55 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     if (lane != 0) continue;
 
-    // covariance qq - mu mu^T, symmetrised; the mean
-    const float k00 = __fsub_rn(q00, __fmul_rn(mu0, mu0));
-    const float k01 = __fsub_rn(q01, __fmul_rn(mu0, mu1));
-    const float k10 = __fsub_rn(q10, __fmul_rn(mu1, mu0));
-    const float k11 = __fsub_rn(q11, __fmul_rn(mu1, mu1));
-    const float s00 = __fmul_rn(0.5f, __fadd_rn(k00, k00));
-    const float s01 = __fmul_rn(0.5f, __fadd_rn(k01, k10));
-    const float s10 = __fmul_rn(0.5f, __fadd_rn(k10, k01));
-    const float s11 = __fmul_rn(0.5f, __fadd_rn(k11, k11));
-    const float mx = __fadd_rn(c0, mu0), my = __fadd_rn(c1, mu1);
+    // covariance qq - mu mu^T, symmetrised; the mean; from here on every
+    // subnormal result is flushed (daz), as the plain version flushes it
+    const float k00 = daz(__fsub_rn(q00, daz(__fmul_rn(mu0, mu0))));
+    const float k01 = daz(__fsub_rn(q01, daz(__fmul_rn(mu0, mu1))));
+    const float k10 = daz(__fsub_rn(q10, daz(__fmul_rn(mu1, mu0))));
+    const float k11 = daz(__fsub_rn(q11, daz(__fmul_rn(mu1, mu1))));
+    const float s00 = daz(__fmul_rn(0.5f, daz(__fadd_rn(k00, k00))));
+    const float s01 = daz(__fmul_rn(0.5f, daz(__fadd_rn(k01, k10))));
+    const float s10 = daz(__fmul_rn(0.5f, daz(__fadd_rn(k10, k01))));
+    const float s11 = daz(__fmul_rn(0.5f, daz(__fadd_rn(k11, k11))));
+    const float mx = daz(__fadd_rn(c0, mu0)), my = daz(__fadd_rn(c1, mu1));
 
     // the eigen gates (ops/features.py::eigh2x2) on the covariance with
     // the diagonal fma(-mu, mu, qq)
-    const float ea = __fmaf_rn(-mu0, mu0, q00), eb = s01,
-                ec = __fmaf_rn(-mu1, mu1, q11);
-    const float half_tr = __fmul_rn(0.5f, __fadd_rn(ea, ec));
-    const float d = __fsub_rn(ea, ec);
-    const float disc = __fsqrt_rn(
-        clamp_min(__fmaf_rn(__fmul_rn(d, d), 0.25f, __fmul_rn(eb, eb)), 0.0f));
-    const float lmin = __fsub_rn(half_tr, disc);
-    const float lmax = __fadd_rn(half_tr, disc);
-    const float v1y = __fsub_rn(lmin, ea), v2x = __fsub_rn(lmin, ec);
-    const float n1 = __fmaf_rn(v1y, v1y, __fmul_rn(eb, eb));
-    const float n2 = __fmaf_rn(eb, eb, __fmul_rn(v2x, v2x));
+    const float ea = daz(__fmaf_rn(-mu0, mu0, q00)), eb = s01,
+                ec = daz(__fmaf_rn(-mu1, mu1, q11));
+    const float half_tr = daz(__fmul_rn(0.5f, daz(__fadd_rn(ea, ec))));
+    const float d = daz(__fsub_rn(ea, ec));
+    const float disc = __fsqrt_rn(clamp_min(
+        daz(__fmaf_rn(daz(__fmul_rn(d, d)), 0.25f, daz(__fmul_rn(eb, eb)))),
+        0.0f));
+    const float lmin = daz(__fsub_rn(half_tr, disc));
+    const float lmax = daz(__fadd_rn(half_tr, disc));
+    const float v1y = daz(__fsub_rn(lmin, ea)), v2x = daz(__fsub_rn(lmin, ec));
+    const float n1 = daz(__fmaf_rn(v1y, v1y, daz(__fmul_rn(eb, eb))));
+    const float n2 = daz(__fmaf_rn(eb, eb, daz(__fmul_rn(v2x, v2x))));
     float vx = n1 > n2 ? eb : v2x, vy = n1 > n2 ? v1y : eb;
     const float norm = __fsqrt_rn(nan_max(n1, n2));
     if (norm > 1e-20f) {
-      vx = __fdiv_rn(vx, norm);
-      vy = __fdiv_rn(vy, norm);
+      vx = daz(__fdiv_rn(vx, norm));
+      vy = daz(__fdiv_rn(vy, norm));
     } else {
       vx = ea <= ec ? 1.0f : 0.0f;
       vy = ea <= ec ? 0.0f : 1.0f;
     }
     const float cond =
-        fabsf(__fdiv_rn(lmax, fabsf(lmin) > 1e-20f ? lmin : 1e-20f));
-    const float det = __fmul_rn(lmax, lmin);
+        daz(fabsf(__fdiv_rn(lmax, fabsf(lmin) > 1e-20f ? lmin : 1e-20f)));
+    const float det = daz(__fmul_rn(lmax, lmin));
     const bool cov_ok =
         cond <= max_cond && det > min_det && lmin > 0.0f && lmax > 0.0f;
-    const float planarity = ref_log1p(__fdiv_rn(cond, 2.0f));
-    if (__fmaf_rn(vy, __fsub_rn(oy, my), __fmul_rn(vx, __fsub_rn(ox, mx))) <
-        0.0f) {
+    const float planarity = ref_log1p(daz(__fdiv_rn(cond, 2.0f)));
+    if (daz(__fmaf_rn(vy, daz(__fsub_rn(oy, my)),
+                      daz(__fmul_rn(vx, daz(__fsub_rn(ox, mx)))))) < 0.0f) {
       vx = -vx;
       vy = -vy;
     }
     const bool valid = occ && count >= min_neighbors && cov_ok &&
                        wsum > 1e-9f;
-    const float avg = __fdiv_rn(wsum, (float)(count > 1 ? count : 1));
+    const float avg = daz(__fdiv_rn(wsum, (float)(count > 1 ? count : 1)));
 
     const float z = 0.0f;
     mean_out[2 * c] = valid ? mx : z;

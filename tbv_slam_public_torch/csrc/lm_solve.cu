@@ -1,27 +1,32 @@
-// The registration's window solve (register_window: association, LM solve
-// and outer guards) as one launch per call, and its LM solve alone on given
-// associations (register_joint), for sm_90a.
+// The registration kernel, three entries over one device code for sm_90a:
+// the window solve (register_window: association, LM solve and outer
+// guards) as one launch a call, the LM solve alone on given associations
+// (register_joint), and the cost evaluation (evaluate_cost and
+// sampled_covariance: one association, then the cost at S poses over it).
 //
-// Not a TPU kernel: the JAX package's register_window, associate and
-// _lm_solve (ops/registration.py) are left to XLA, which fuses them.  The
-// port's plain version (ops/registration.py::_register_window_reference,
-// with _world_targets, associate and _lm_solve_reference) runs each of its
-// operations as its own launch: about 40 launches an association and a few
-// dozen an LM evaluation, 8 outer iterations a call.  This kernel runs all
-// of it after _world_targets in one launch, bit-equal to the plain version:
-// every operation below is the plain version's, each multiply, add and
-// fused multiply-add an explicit __f*_rn / __fma*_rn intrinsic, torch's
-// comparison and NaN rules written out (argmin: the first NaN, else the
-// first minimum), and refmath.cuh supplies the reference's sincos, log1p,
-// IEEE sqrt and LM step.
+// Not a TPU kernel: the JAX package's register_window, associate,
+// _lm_solve, evaluate_cost and the vmapped sampled_covariance
+// (ops/registration.py) are left to XLA, which fuses them.  The port's
+// plain version (ops/registration.py::_register_window_reference, with
+// _world_targets, associate and _lm_solve_reference;
+// _evaluate_cost_reference and _sampled_covariance_reference) runs each of
+// its operations as its own launch: about 40 launches an association and a
+// few dozen an LM or cost evaluation, 8 outer iterations a window call.
+// This kernel runs all of it after _world_targets in one launch, bit-equal
+// to the plain version: every operation below is the plain version's, each
+// multiply, add and fused multiply-add an explicit __f*_rn / __fma*_rn
+// intrinsic, torch's comparison and NaN rules written out (argmin: the
+// first NaN, else the first minimum), and refmath.cuh supplies the
+// reference's sincos, log1p, IEEE sqrt and LM step.
 //
 // Bound: the work is small (at B = 1, T = 4, C = 512: a million masked
 // distances an association, about 50 float32 operations a leaf an LM
 // evaluation over 4,096 leaves) and the bytes smaller; a call is a chain of
 // up to 8 associations and 8 x 21 dependent evaluations, each a reduction
-// over the whole row followed by a 3x3 step.  So its time is that chain's
-// latency.  The design shortens each link and removes the launches between
-// them:
+// over the whole row followed by a 3x3 step (the evaluation entry: one
+// association and S dependent cost reductions, S = 27 for the sampled
+// covariance).  So its time is that chain's latency.  The design shortens
+// each link and removes the launches between them:
 //
 // * A thread-block cluster of K CTAs (K a power of two <= 8, chosen by the
 //   wrapper from B and the row's size) per batch row.  CTA k owns the
@@ -46,6 +51,17 @@
 //   accept / reject itself on identical bits, so nothing is broadcast; the
 //   outer guards likewise, and the cluster leaves the outer loop as soon as
 //   the row is inactive (none of its outputs can change after that).
+// * The evaluation entry associates once at the row's pose, then walks its
+//   S poses (pose + offset_s) one after another over the same records in
+//   shared memory, each a cost-only pass (the tree of the cost's sum alone:
+//   with R = 2 residuals a cell the cost's leaves are its cells' terms with
+//   a zero after each, whose first level adds them exactly, so it is
+//   _cost_only's own tree over the cells); thread 0 of CTA 0 writes each
+//   cost and, given the fit's pseudo-inverse, folds it into the fit's 10
+//   sums, one fused multiply-add a sample in sample order (refmath.dot).
+//   So S costs no shared memory, and the plain path's S-fold copies of the
+//   sources and associations and its dense [B, T, C, Ct] differences are
+//   never made.
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
@@ -67,7 +83,8 @@ enum Cost { kP2L = 0, kP2D = 1, kP2P = 2 };
 enum Loss { kNone = 0, kHuber, kCauchy, kSoftLOne, kTukey, kCombined };
 
 struct Params {
-  int window;             // 1: register_window; 0: one solve on given associations
+  int window;             // 1: associate in the kernel (window, evaluation); 0: one solve on given associations
+  int evaluate;           // 1: the evaluation entry (cost at S poses), no LM
   const float* theta0;    // [B, 3]
   const float* src;       // [B, C, 2] source cell means
   // solve: the associations [B, T, C, ...]
@@ -91,12 +108,17 @@ struct Params {
   const float* guess;
   const float* sqrt_info;
   const float* pw;
+  // evaluation: S offsets [S, 3] (null: S = 1 at the pose itself) and the
+  // fit's pseudo-inverse [10, S] (null: no fit)
+  const float* offs;
+  const float* pinv;
   float* out_theta;      // [B, 3]
-  float* out_cost;       // [B]: the solve's cost, the window's score
+  float* out_cost;       // [B]: the solve's cost, the window's score; [B, S] the costs
   float* out_rel;        // [B] (solve)
-  long long* out_nres;   // [B] (window)
+  float* out_q;          // [B, 10] the fit (evaluation with pinv)
+  long long* out_nres;   // [B] (window, evaluation: the association count)
   long long* out_iters;  // [B] (window)
-  int T, C, Ct, R, N, K, Wk, Qk, nthr;
+  int T, C, Ct, R, N, K, Wk, Qk, nthr, S;
   int cost, loss, max_iter, one_system;
   float k0, k1, k2, k3;  // the loss's float32 constants (lm_solve.py)
   float init_lambda;
@@ -167,51 +189,56 @@ __device__ __forceinline__ void rho_weight(float s, const Params& p,
   }
 }
 
-// The 13 summands of leaf i ((t C + j) R + r) of the row, whose
-// association is record i / R - q0 of this CTA: the cost (at r = 0) and
-// (w J_a) [J | r]_b, as _residual_terms and _cost_grad_hess compute them;
-// zeros past the row's N leaves.
+// The NS summands of leaf i ((t C + j) R + r) of the row, whose
+// association is record i / R - q0 of this CTA: the cost (at r = 0) and,
+// with NS = 13, (w J_a) [J | r]_b, as _residual_terms and _cost_grad_hess
+// compute them; zeros past the row's N leaves.
+template <int NS>
 __device__ __forceinline__ void leaf(const Params& p, const Rec& d, int i,
                                      int q0, float th0, float th1, float s,
                                      float c, float* v) {
   if (i >= p.N) {
 #pragma unroll
-    for (int m = 0; m < 13; ++m) v[m] = 0.0f;
+    for (int m = 0; m < NS; ++m) v[m] = 0.0f;
     return;
   }
   const int q = i / p.R, r = i - q * p.R, l = q - q0;
-  const float ux = d.sx[l], uy = d.sy[l];
-  const float dy = __fmaf_rn(c, ux, -__fmul_rn(s, uy));
-  const float wx = __fadd_rn(dy, th0);
-  const float wy = __fadd_rn(__fmaf_rn(s, ux, __fmul_rn(c, uy)), th1);
-  const float dx = __fmaf_rn(-s, ux, -__fmul_rn(c, uy));
-  const float e0 = __fsub_rn(wx, d.mx[l]);
-  const float e1 = __fsub_rn(wy, d.my[l]);
+  // subnormal operands and every subnormal product and sum flushed (daz),
+  // as _residual_terms flushes them
+  const float ux = daz(d.sx[l]), uy = daz(d.sy[l]);
+  const float dy = daz(__fmaf_rn(c, ux, -daz(__fmul_rn(s, uy))));
+  const float wx = daz(__fadd_rn(dy, th0));
+  const float wy =
+      daz(__fadd_rn(daz(__fmaf_rn(s, ux, daz(__fmul_rn(c, uy)))), th1));
+  const float dx = daz(__fmaf_rn(-s, ux, -daz(__fmul_rn(c, uy))));
+  const float e0 = daz(__fsub_rn(wx, daz(d.mx[l])));
+  const float e1 = daz(__fsub_rn(wy, daz(d.my[l])));
   float J[3], res, sq;
   if (p.cost == kP2L) {
-    const float n0 = d.nx[l], n1 = d.ny[l];
-    res = __fmaf_rn(n1, e1, __fmul_rn(n0, e0));
+    const float n0 = daz(d.nx[l]), n1 = daz(d.ny[l]);
+    res = daz(__fmaf_rn(n1, e1, daz(__fmul_rn(n0, e0))));
     J[0] = n0;
     J[1] = n1;
-    J[2] = __fmaf_rn(n0, dx, __fmul_rn(n1, dy));
-    sq = __fmul_rn(res, res);
+    J[2] = daz(__fmaf_rn(n0, dx, daz(__fmul_rn(n1, dy))));
+    sq = daz(__fmul_rn(res, res));
   } else if (p.cost == kP2D) {
-    const float* u = d.u + 4 * l;  // u[row * 2 + col]
-    const float r0 = __fmaf_rn(u[1], e1, __fmul_rn(u[0], e0));
-    const float r1 = __fmaf_rn(u[3], e1, __fmul_rn(u[2], e0));
+    const float* uu = d.u + 4 * l;  // u[row * 2 + col]
+    const float u[4] = {daz(uu[0]), daz(uu[1]), daz(uu[2]), daz(uu[3])};
+    const float r0 = daz(__fmaf_rn(u[1], e1, daz(__fmul_rn(u[0], e0))));
+    const float r1 = daz(__fmaf_rn(u[3], e1, daz(__fmul_rn(u[2], e0))));
     const float a = u[2 * r], b = u[2 * r + 1];
     // row r of u [[1, 0, dx], [0, 1, dy]]
-    J[0] = __fmaf_rn(b, 0.0f, __fmul_rn(a, 1.0f));
-    J[1] = __fmaf_rn(b, 1.0f, __fmul_rn(a, 0.0f));
-    J[2] = __fmaf_rn(b, dy, __fmul_rn(a, dx));
+    J[0] = daz(__fmaf_rn(b, 0.0f, daz(__fmul_rn(a, 1.0f))));
+    J[1] = daz(__fmaf_rn(b, 1.0f, daz(__fmul_rn(a, 0.0f))));
+    J[2] = daz(__fmaf_rn(b, dy, daz(__fmul_rn(a, dx))));
     res = r == 0 ? r0 : r1;
-    sq = __fmaf_rn(r1, r1, __fmul_rn(r0, r0));
+    sq = daz(__fmaf_rn(r1, r1, daz(__fmul_rn(r0, r0))));
   } else {  // P2P
     res = r == 0 ? e0 : e1;
     J[0] = r == 0 ? 1.0f : 0.0f;
     J[1] = r == 0 ? 0.0f : 1.0f;
     J[2] = r == 0 ? dx : dy;
-    sq = __fmaf_rn(e1, e1, __fmul_rn(e0, e0));
+    sq = daz(__fmaf_rn(e1, e1, daz(__fmul_rn(e0, e0))));
   }
   float rho, wi;
   rho_weight(sq, p, &rho, &wi);
@@ -219,12 +246,14 @@ __device__ __forceinline__ void leaf(const Params& p, const Rec& d, int i,
   const float wt = d.w[l];
   const float w = m ? __fmul_rn(wt, wi) : 0.0f;
   v[0] = (m && r == 0) ? __fmul_rn(wt, rho) : 0.0f;
+  if constexpr (NS > 1) {
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float wa = __fmul_rn(w, J[a]);
+    for (int a = 0; a < 3; ++a) {
+      const float wa = __fmul_rn(w, J[a]);
 #pragma unroll
-    for (int b = 0; b < 3; ++b) v[1 + 4 * a + b] = __fmul_rn(wa, J[b]);
-    v[4 + 4 * a] = __fmul_rn(wa, res);
+      for (int b = 0; b < 3; ++b) v[1 + 4 * a + b] = __fmul_rn(wa, J[b]);
+      v[4 + 4 * a] = __fmul_rn(wa, res);
+    }
   }
 }
 
@@ -238,10 +267,11 @@ struct Shared {
   int* count;
 };
 
-// The row's 13 sums at sh.theta in _row_sums's pairwise tree, and the sum
-// of the CTAs' association counts (``count`` this CTA's), in sh.sums of
-// warp 0 (valid in thread 0 on return).  ``par`` flips each evaluation.
-template <int LOG_L>
+// The row's NS sums (13; 1: the cost alone) at sh.theta in _row_sums's
+// pairwise tree, and the sum of the CTAs' association counts (``count``
+// this CTA's), in sh.sums of warp 0 (valid in thread 0 on return).
+// ``par`` flips each evaluation.
+template <int LOG_L, int NS = 13>
 __device__ void evaluate(const Params& p, const Rec& d, int leaf0, int q0,
                          int count, const Shared& sh, int& par,
                          cg::cluster_group& cluster) {
@@ -250,54 +280,54 @@ __device__ void evaluate(const Params& p, const Rec& d, int leaf0, int q0,
   const float th0 = sh.theta[0], th1 = sh.theta[1];
   float s, c;
   ref_sincos(sh.theta[2], &s, &c);
-  float v[13];
+  float v[NS];
   if (tid < p.nthr) {
-    float stack[LOG_L > 0 ? LOG_L : 1][13];
+    float stack[LOG_L > 0 ? LOG_L : 1][NS];
     const int base = leaf0 + tid * L;
     for (int k = 0; k < L; ++k) {
-      float x[13];
-      leaf(p, d, base + k, q0, th0, th1, s, c, x);
+      float x[NS];
+      leaf<NS>(p, d, base + k, q0, th0, th1, s, c, x);
       bool carry = true;  // k's low set bits: subtrees that x completes
 #pragma unroll
       for (int lvl = 0; lvl < LOG_L; ++lvl) {
         if (carry) {
           if ((k >> lvl) & 1) {
 #pragma unroll
-            for (int m = 0; m < 13; ++m) x[m] = __fadd_rn(stack[lvl][m], x[m]);
+            for (int m = 0; m < NS; ++m) x[m] = __fadd_rn(stack[lvl][m], x[m]);
           } else {
 #pragma unroll
-            for (int m = 0; m < 13; ++m) stack[lvl][m] = x[m];
+            for (int m = 0; m < NS; ++m) stack[lvl][m] = x[m];
             carry = false;
           }
         }
       }
       if (carry) {  // k = L - 1: the run's root
 #pragma unroll
-        for (int m = 0; m < 13; ++m) v[m] = x[m];
+        for (int m = 0; m < NS; ++m) v[m] = x[m];
       }
     }
   } else {
 #pragma unroll
-    for (int m = 0; m < 13; ++m) v[m] = 0.0f;
+    for (int m = 0; m < NS; ++m) v[m] = 0.0f;
   }
   // levels past the CTA's subtree would add zeros (a -0.0 turned +0.0)
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     if (o < p.nthr) {
 #pragma unroll
-      for (int m = 0; m < 13; ++m)
+      for (int m = 0; m < NS; ++m)
         v[m] = __fadd_rn(v[m], __shfl_xor_sync(0xffffffffu, v[m], o));
     }
   }
   const int nw = p.nthr > 32 ? p.nthr >> 5 : 1;
   if (lane == 0 && warp < nw) {
 #pragma unroll
-    for (int m = 0; m < 13; ++m) sh.red[warp * 13 + m] = v[m];
+    for (int m = 0; m < NS; ++m) sh.red[warp * 13 + m] = v[m];
   }
   __syncthreads();
   float* slot = sh.slots + par * 16;
   if (warp == 0) {
-    if (lane < 13) {  // a lane a sum: the tree over the warps' sums
+    if (lane < NS) {  // a lane a sum: the tree over the warps' sums
       float x[kWarps];
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) x[w] = w < nw ? sh.red[w * 13 + lane] : 0.0f;
@@ -315,7 +345,7 @@ __device__ void evaluate(const Params& p, const Rec& d, int leaf0, int q0,
   }
   cluster.sync();
   if (warp == 0) {
-    if (lane < 13) {  // the tree's top log2 K levels over the CTAs' roots
+    if (lane < NS) {  // the tree's top log2 K levels over the CTAs' roots
       float x[kMaxCluster];
 #pragma unroll
       for (int r = 0; r < kMaxCluster; ++r)
@@ -655,6 +685,45 @@ __global__ void __launch_bounds__(kThreads) registration_kernel(const Params p) 
     cluster.sync();  // no CTA leaves while another may read its slots
     return;
   }
+  float2* txy = reinterpret_cast<float2*>(f + p.o_txy);
+  unsigned char* tv = bytes + p.o_tv;
+  if (p.evaluate) {
+    // one association at the row's pose (s_theta), then the cost at each of
+    // the S poses over it: _evaluate_cost_reference (S = 1, the pose
+    // itself) and _sampled_covariance_reference (pose + offset_s, then the
+    // fit q = dot(costs, pinv))
+    __syncthreads();
+    associate(p, b, d, q0, nq, p.r2, true, txy, tv, sh);
+    const int count = s_count;
+    float q[10];
+#pragma unroll
+    for (int k = 0; k < 10; ++k) q[k] = 0.0f;
+    for (int si = 0; si < p.S; ++si) {
+      if (tid == 0 && p.offs != nullptr) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          s_theta[k] = __fadd_rn(theta[k], p.offs[3 * si + k]);
+      }
+      __syncthreads();
+      evaluate<LOG_L, 1>(p, d, leaf0, q0, count, sh, par, cluster);
+      if (rank == 0 && tid == 0) {
+        const float c = __fmul_rn(0.5f, s_sums[0]);
+        p.out_cost[(long long)b * p.S + si] = c;
+        if (si == 0) p.out_nres[b] = __float_as_int(s_sums[13]);
+        if (p.pinv != nullptr) {
+#pragma unroll
+          for (int k = 0; k < 10; ++k)  // refmath.dot: operands and steps flushed
+            q[k] = daz(__fmaf_rn(daz(c), daz(p.pinv[k * p.S + si]), q[k]));
+        }
+      }
+    }
+    if (rank == 0 && tid == 0 && p.pinv != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 10; ++k) p.out_q[10 * b + k] = q[k];
+    }
+    cluster.sync();  // no CTA leaves while another may read its slots
+    return;
+  }
   // the prior's weight sqrt(max(valid source cells, 1))
   if (tid == 0) s_count = 0;
   __syncthreads();
@@ -663,8 +732,6 @@ __global__ void __launch_bounds__(kThreads) registration_kernel(const Params p) 
   if (nv) atomicAdd(&s_count, nv);
   __syncthreads();
   const float pw = __fsqrt_rn(clamp_min((float)s_count, 1.0f));
-  float2* txy = reinterpret_cast<float2*>(f + p.o_txy);
-  unsigned char* tv = bytes + p.o_tv;
   float score = 3.40282347e38f / 4.0f;  // finfo(float32).max / 4
   long long used = 0, nres = 0;
   for (int itr = 0; itr < p.max_outer; ++itr) {
@@ -914,5 +981,61 @@ extern "C" int register_window_launch(
   p.cov_scale = cov_scale;
   p.tol = tol;
   if (Ct < 1) return (int)cudaErrorInvalidValue;
+  return run(p, rows, cluster, (cudaStream_t)stream);
+}
+
+// (costs [B, S], association counts [B], fit q [B, 10]) of the cost
+// evaluation for B source scans of C cells against T world-frame target
+// scans of Ct cells each (_world_targets): one association at each row's
+// pose, then the cost-only pass at pose + offs[s] for s < S (offs null: S
+// is 1 and the pose is used as it is); with pinv [10, S], q = the fit's
+// sums (refmath.dot's order), else out_q is not written.  Returns a CUDA
+// error code.
+extern "C" int evaluate_cost_launch(
+    const void* pose, const void* src, const void* src_normal,
+    const void* src_ns, const void* src_plan, const void* src_valid,
+    const void* tmw, const void* tnw, const void* tcw, const void* tvalid,
+    const void* t_ns, const void* t_plan, const void* offs, const void* pinv,
+    void* out_costs, void* out_count, void* out_q, int rows, int T, int C,
+    int Ct, int S, int cost, int loss, float k0, float k1, float k2,
+    float k3, int weight_option, float r2, float gate, float reg,
+    float cov_scale, int cluster, void* stream) {
+  Params p = {};
+  p.window = 1;
+  p.evaluate = 1;
+  p.theta0 = (const float*)pose;
+  p.src = (const float*)src;
+  p.src_normal = (const float*)src_normal;
+  p.src_ns = (const float*)src_ns;
+  p.src_plan = (const float*)src_plan;
+  p.src_valid = (const unsigned char*)src_valid;
+  p.tmw = (const float*)tmw;
+  p.tnw = (const float*)tnw;
+  p.tcw = (const float*)tcw;
+  p.tvalid = (const unsigned char*)tvalid;
+  p.t_ns = (const float*)t_ns;
+  p.t_plan = (const float*)t_plan;
+  p.offs = (const float*)offs;
+  p.pinv = (const float*)pinv;
+  p.out_cost = (float*)out_costs;
+  p.out_nres = (long long*)out_count;
+  p.out_q = (float*)out_q;
+  p.T = T;
+  p.C = C;
+  p.Ct = Ct;
+  p.S = S;
+  p.cost = cost;
+  p.loss = loss;
+  p.k0 = k0;
+  p.k1 = k1;
+  p.k2 = k2;
+  p.k3 = k3;
+  p.weight_option = weight_option;
+  p.r2 = r2;
+  p.gate = gate;
+  p.reg = reg;
+  p.cov_scale = cov_scale;
+  if (Ct < 1 || S < 1 || (offs == nullptr && S != 1))
+    return (int)cudaErrorInvalidValue;
   return run(p, rows, cluster, (cudaStream_t)stream);
 }

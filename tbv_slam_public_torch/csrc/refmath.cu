@@ -33,7 +33,7 @@
 namespace {
 
 enum Op {
-  kExp = 0, kLog, kLog1p, kSigmoid, kSinCos, kAtan2, kWrap, kFma, kSqrt
+  kExp = 0, kLog, kLog1p, kSigmoid, kSinCos, kAtan2, kWrap, kFma, kSqrt, kFtz
 };
 
 __global__ void refmath_kernel(int op, const float* __restrict__ x,
@@ -54,12 +54,14 @@ __global__ void refmath_kernel(int op, const float* __restrict__ x,
       case kWrap: ref_sincos(v, &s, &c); out0[i] = ref_atan2(s, c); break;
       case kFma: out0[i] = __fmaf_rn(v, y[i], z[i]); break;
       case kSqrt: out0[i] = __fsqrt_rn(daz(v)); break;
+      case kFtz: out0[i] = daz(v); break;
     }
   }
 }
 
 // out[r, c] = sum_k a[r, k] * b[c, k], one fused multiply-add a term in k
-// order from zero: a thread an output.
+// order from zero, subnormal operands and results flushed: a thread an
+// output.
 __global__ void refmath_dot_kernel(const float* __restrict__ a,
                                    const float* __restrict__ b,
                                    float* __restrict__ out, long long rows,
@@ -69,7 +71,8 @@ __global__ void refmath_dot_kernel(const float* __restrict__ a,
     const float* ar = a + (i / cols) * depth;
     const float* bc = b + (i % cols) * (long long)depth;
     float acc = 0.0f;
-    for (int k = 0; k < depth; ++k) acc = __fmaf_rn(ar[k], bc[k], acc);
+    for (int k = 0; k < depth; ++k)
+      acc = daz(__fmaf_rn(daz(ar[k]), daz(bc[k]), acc));
     out[i] = acc;
   }
 }
@@ -91,10 +94,11 @@ __global__ void refmath_lm_update_kernel(const float* __restrict__ theta,
 // 1: 8-lane chunks of ic accumulators reassociated into one chain; 2: the
 // ic accumulators summed after the loop; then a halving lane tree, an
 // epilogue of vf-lane chunks and the last terms one at a time:
-// core/refmath.py::loop_dot_shape): a thread a row.
+// core/refmath.py::loop_dot_shape), subnormal operands and results
+// flushed: a thread a row.
 __device__ float lane_tree(float* a, int w) {
   for (int h = w / 2; h >= 1; h /= 2)
-    for (int l = 0; l < h; ++l) a[l] = __fadd_rn(a[l], a[l + h]);
+    for (int l = 0; l < h; ++l) a[l] = daz(__fadd_rn(a[l], a[l + h]));
   return a[0];
 }
 
@@ -121,10 +125,10 @@ __global__ void refmath_loop_dot_kernel(const float* __restrict__ x,
         const int at = 8 * (ic * i + j);
 #pragma unroll
         for (int l = 0; l < 8; ++l)
-          a[l] = __fmaf_rn(xr[at + l], v[at + l], a[l]);
+          a[l] = daz(__fmaf_rn(daz(xr[at + l]), daz(v[at + l]), a[l]));
       }
       for (int l = 0; l < 8; ++l)
-        acc[l] = (mode == 1 || j == 0) ? a[l] : __fadd_rn(acc[l], a[l]);
+        acc[l] = (mode == 1 || j == 0) ? a[l] : daz(__fadd_rn(acc[l], a[l]));
     }
     s = lane_tree(acc, 8);
     done = 8 * ic * passes;
@@ -135,12 +139,13 @@ __global__ void refmath_loop_dot_kernel(const float* __restrict__ x,
       for (int l = 1; l < 8; ++l) e[l] = 0.0f;
       for (int i = 0; i < m; ++i)
         for (int l = 0; l < vf; ++l)
-          e[l] = __fmaf_rn(xr[done + vf * i + l], v[done + vf * i + l], e[l]);
+          e[l] = daz(__fmaf_rn(daz(xr[done + vf * i + l]),
+                               daz(v[done + vf * i + l]), e[l]));
       s = lane_tree(e, vf);
       done += vf * m;
     }
   }
-  for (int k = done; k < n; ++k) s = __fmaf_rn(xr[k], v[k], s);
+  for (int k = done; k < n; ++k) s = daz(__fmaf_rn(daz(xr[k]), daz(v[k]), s));
   out[c] = s;
 }
 
@@ -150,24 +155,27 @@ __global__ void refmath_loop_dot_kernel(const float* __restrict__ x,
 // system.
 constexpr int kLuMax = 7;
 
+// The library runs on the reference's thread, which flushes subnormals
+// (DAZ and FTZ): the operands are flushed once as they are read, and every
+// float result below is flushed (daz).
 // sdot of x (stride 1 here) and y: pairs fma(x0, y0, x1 * y1) added into a
 // double from zero, an odd last product alone, rounded to float once.
 __device__ float lu_strided_dot(const float* x, const float* y, int n) {
   double acc = 0.0;
   int p = 0;
   for (; p + 1 < n; p += 2)
-    acc = __dadd_rn(acc, (double)__fmaf_rn(x[p], y[p],
-                                           __fmul_rn(x[p + 1], y[p + 1])));
-  if (n & 1) acc = __dadd_rn(acc, (double)__fmul_rn(x[n - 1], y[n - 1]));
-  return __double2float_rn(acc);
+    acc = __dadd_rn(acc, (double)daz(__fmaf_rn(
+                             x[p], y[p], daz(__fmul_rn(x[p + 1], y[p + 1])))));
+  if (n & 1) acc = __dadd_rn(acc, (double)daz(__fmul_rn(x[n - 1], y[n - 1])));
+  return daz(__double2float_rn(acc));
 }
 
 // y - sum_c a[c] x[c], the sum one fused multiply-add a term from zero.
 __device__ float lu_chain(float y, const float* a, const float* x, int from,
                           int to) {
   float acc = 0.0f;
-  for (int c = from; c < to; ++c) acc = __fmaf_rn(a[c], x[c], acc);
-  return __fsub_rn(y, acc);
+  for (int c = from; c < to; ++c) acc = daz(__fmaf_rn(a[c], x[c], acc));
+  return daz(__fsub_rn(y, acc));
 }
 
 __global__ void refmath_lu_solve_kernel(const float* __restrict__ h,
@@ -179,7 +187,7 @@ __global__ void refmath_lu_solve_kernel(const float* __restrict__ h,
     float a[kLuMax][kLuMax], col[kLuMax], x[kLuMax];
     int piv[kLuMax];
     for (int r = 0; r < k; ++r)
-      for (int c = 0; c < k; ++c) a[r][c] = h[(s * k + r) * k + c];
+      for (int c = 0; c < k; ++c) a[r][c] = daz(h[(s * k + r) * k + c]);
     for (int j = 0; j < k; ++j) {
       for (int r = 0; r < k; ++r) col[r] = a[r][j];
       for (int q = 0; q < j; ++q) {
@@ -188,7 +196,7 @@ __global__ void refmath_lu_solve_kernel(const float* __restrict__ h,
         col[piv[q]] = t;
       }
       for (int q = 1; q < j; ++q)
-        col[q] = __fsub_rn(col[q], lu_strided_dot(a[q], col, q));
+        col[q] = daz(__fsub_rn(col[q], lu_strided_dot(a[q], col, q)));
       for (int r = j; r < k; ++r) col[r] = lu_chain(col[r], a[r], col, 0, j);
       for (int r = 0; r < k; ++r) a[r][j] = col[r];
       // the first largest magnitude (a NaN above every number)
@@ -209,11 +217,11 @@ __global__ void refmath_lu_solve_kernel(const float* __restrict__ h,
           a[j][c] = a[p][c];
           a[p][c] = u;
         }
-        const float rcp = __fdiv_rn(1.0f, t);
-        for (int q = j + 1; q < k; ++q) a[q][j] = __fmul_rn(a[q][j], rcp);
+        const float rcp = daz(__fdiv_rn(1.0f, t));
+        for (int q = j + 1; q < k; ++q) a[q][j] = daz(__fmul_rn(a[q][j], rcp));
       }
     }
-    for (int q = 0; q < k; ++q) x[q] = g[s * k + q];
+    for (int q = 0; q < k; ++q) x[q] = daz(g[s * k + q]);
     for (int q = 0; q < k; ++q) {
       const float t = x[q];
       x[q] = x[piv[q]];
@@ -231,15 +239,15 @@ __global__ void refmath_lu_solve_kernel(const float* __restrict__ h,
         x[r] = lu_chain(x[r], a[r], x, 0, lo[b]);
       for (int i = lo[b]; i < hi[b]; ++i)
         for (int q = i + 1; q < hi[b]; ++q)
-          x[q] = __fmaf_rn(-x[i], a[q][i], x[q]);
+          x[q] = daz(__fmaf_rn(-x[i], a[q][i], x[q]));
     }
     for (int b = nb - 1; b >= 0; --b) {  // the upper factor, from the bottom
       for (int r = lo[b]; r < hi[b]; ++r)
         x[r] = lu_chain(x[r], a[r], x, hi[b], k);
       for (int i = hi[b] - 1; i >= lo[b]; --i) {
-        x[i] = __fmul_rn(x[i], __fdiv_rn(1.0f, a[i][i]));
+        x[i] = daz(__fmul_rn(x[i], daz(__fdiv_rn(1.0f, a[i][i]))));
         for (int q = lo[b]; q < i; ++q)
-          x[q] = __fmaf_rn(-x[i], a[q][i], x[q]);
+          x[q] = daz(__fmaf_rn(-x[i], a[q][i], x[q]));
       }
     }
     for (int q = 0; q < k; ++q) out[s * k + q] = x[q];

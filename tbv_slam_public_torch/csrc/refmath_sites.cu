@@ -26,7 +26,20 @@
 // refmath_cumsum_launch is detect's travelled distance: inclusive prefix
 // sums in the order of the reference's compiled program (XLA's
 // reduce-window rewriter: rows of 16 summed in order from zero, the rows'
-// totals scanned the same way, recursively, and added back), one block.
+// totals scanned the same way, recursively, and added back).  It replaces
+// no TPU kernel: the JAX package's jnp.cumsum is that XLA rewrite.  Bound:
+// 4 bytes read and 4 written a value and one add, at detect's 128-4,608
+// values a few kB, so a launch is latency: the chain of levels (three up
+// and two down at 4,608 values), each a row of 16 dependent adds, with a
+// barrier between levels.  The design (refmath_cumsum_block_kernel) keeps
+// that chain short: one block, a thread a row of the first level holding
+// its 16 values and their prefix sums in registers (read from and written
+// to device memory once each, as float4 where aligned), the levels above
+// it staged in shared memory (at most 1,104 floats), one thread a row at
+// every level, the last level (at most 16 values) a lane a prefix in one
+// warp, and one barrier a level.  Above 16,384 values (1,024 rows, one a
+// thread of the block) refmath_cumsum_kernel keeps every level in device
+// memory, one block of 512 threads, correct at any length up to 16^8.
 #include "refmath.cuh"
 
 constexpr int kDims = 4;     // batch dimensions an operand may have
@@ -238,8 +251,127 @@ __global__ void refmath_site_kernel(const SiteArgs a) {
 constexpr int kScanBlock = 16;   // the rewriter's row length
 constexpr int kScanLevels = 8;   // rows of rows: up to 16^8 values
 
+constexpr int kScanRowsMax = 1024;          // first-level rows: a thread each
+constexpr int kScanShared = 1024 + 64 + 16;  // the levels above it, padded to 16
+
+// in-order inclusive prefix sums of 16 values from zero
+__device__ __forceinline__ void scan16(float* v) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kScanBlock; ++j) v[j] = acc = __fadd_rn(acc, v[j]);
+}
+
+__device__ __forceinline__ int round16(int k) { return (k + 15) / 16 * 16; }
+
+// Inclusive prefix sums of x [n], n <= 16 * kScanRowsMax, into out, in the
+// blocked order above; one block of at least max(32, rows) threads.
+__global__ void __launch_bounds__(kScanRowsMax)
+    refmath_cumsum_block_kernel(const float* __restrict__ x,
+                                float* __restrict__ out, int n) {
+  __shared__ __align__(16) float up[kScanShared];
+  const int tid = threadIdx.x;
+  if (n <= kScanBlock) {  // lane k: the first k + 1 values in order from zero
+    if (tid < n) {
+      float acc = 0.0f;
+      for (int j = 0; j <= tid; ++j) acc = __fadd_rn(acc, x[j]);
+      out[tid] = acc;
+    }
+    return;
+  }
+  // level l's values (l >= 1: the row totals of level l - 1) at up + off[l]
+  int len[5], off[5], levels = 0;
+  len[0] = n;
+  off[1] = 0;
+  while (len[levels] > kScanBlock) {
+    len[levels + 1] = (len[levels] + kScanBlock - 1) / kScanBlock;
+    if (levels >= 1) off[levels + 1] = off[levels] + round16(len[levels]);
+    ++levels;
+  }
+  // level 0: thread r's row in registers, zeros past n
+  const int rows0 = len[1];
+  const bool vec = ((reinterpret_cast<unsigned long long>(x) |
+                     reinterpret_cast<unsigned long long>(out)) & 15) == 0;
+  const int base = kScanBlock * tid;
+  float v[kScanBlock];
+  if (tid < rows0) {
+    if (vec && base + kScanBlock <= n) {
+      const float4* x4 = reinterpret_cast<const float4*>(x + base);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 q = x4[j];
+        v[4 * j] = q.x, v[4 * j + 1] = q.y, v[4 * j + 2] = q.z, v[4 * j + 3] = q.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kScanBlock; ++j) v[j] = base + j < n ? x[base + j] : 0.0f;
+    }
+    scan16(v);
+    up[tid] = v[kScanBlock - 1];
+  } else if (tid < round16(rows0)) {
+    up[tid] = 0.0f;
+  }
+  __syncthreads();
+  // the levels above, up to the last: thread r's row scanned in place, its
+  // total (and the next level's padding) written one level up
+  for (int l = 1; l < levels; ++l) {
+    const int rows = len[l + 1];
+    if (tid < rows) {
+      float4* row = reinterpret_cast<float4*>(up + off[l] + kScanBlock * tid);
+      float w[kScanBlock];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 q = row[j];
+        w[4 * j] = q.x, w[4 * j + 1] = q.y, w[4 * j + 2] = q.z, w[4 * j + 3] = q.w;
+      }
+      scan16(w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        row[j] = make_float4(w[4 * j], w[4 * j + 1], w[4 * j + 2], w[4 * j + 3]);
+      up[off[l + 1] + tid] = w[kScanBlock - 1];
+    } else if (tid < round16(rows)) {
+      up[off[l + 1] + tid] = 0.0f;
+    }
+    __syncthreads();
+  }
+  // the last level (at most 16 values): lane k the first k + 1 in order
+  if (tid < 32) {
+    const int m = len[levels];
+    float* top = up + off[levels];
+    float acc = 0.0f;
+    for (int j = 0; j <= tid && j < m; ++j) acc = __fadd_rn(acc, top[j]);
+    __syncwarp();
+    if (tid < m) top[tid] = acc;
+  }
+  __syncthreads();
+  // down: each value of a level plus the sum of the rows before its own
+  for (int l = levels - 1; l >= 1; --l) {
+    for (int k = tid; k < len[l]; k += blockDim.x) {
+      const int r = k / kScanBlock;
+      up[off[l] + k] = __fadd_rn(up[off[l] + k],
+                                 r == 0 ? 0.0f : up[off[l + 1] + r - 1]);
+    }
+    __syncthreads();
+  }
+  if (tid < rows0) {
+    const float before = tid == 0 ? 0.0f : up[tid - 1];
+#pragma unroll
+    for (int j = 0; j < kScanBlock; ++j) v[j] = __fadd_rn(v[j], before);
+    if (vec && base + kScanBlock <= n) {
+      float4* o4 = reinterpret_cast<float4*>(out + base);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        o4[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kScanBlock; ++j)
+        if (base + j < n) out[base + j] = v[j];
+    }
+  }
+}
+
 // Inclusive prefix sums of x [n] into out, in the blocked order above; one
-// block.  scratch holds each level's row totals after the first.
+// block, every level in device memory (the path above 16 kScanRowsMax
+// values).  scratch holds each level's row totals after the first.
 __global__ void refmath_cumsum_kernel(const float* __restrict__ x,
                                       float* __restrict__ out,
                                       float* __restrict__ scratch,
@@ -306,11 +438,20 @@ extern "C" int refmath_site_launch(const SiteArgs* args, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// out [n] = the blocked inclusive prefix sums of x [n]; scratch holds at
-// least refmath_cumsum_scratch(n) floats.
+// out [n] = the blocked inclusive prefix sums of x [n]; above 16,384
+// values scratch holds every level's row totals after the first (the sum
+// of ceil(len / 16) over the levels), below it scratch is not read.
 extern "C" int refmath_cumsum_launch(const void* x, void* out, void* scratch,
                                      long long n, void* stream) {
   if (n <= 0) return 0;
+  if (n <= (long long)kScanBlock * kScanRowsMax) {
+    const int rows = (int)((n + kScanBlock - 1) / kScanBlock);
+    const int threads = rows <= 32 ? 32 : (rows + 31) / 32 * 32;
+    refmath_cumsum_block_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)x, (float*)out, (int)n);
+    return (int)cudaGetLastError();
+  }
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
   long long len = n;
   for (int l = 0; len > kScanBlock; ++l) {
     if (l == kScanLevels) return (int)cudaErrorInvalidValue;

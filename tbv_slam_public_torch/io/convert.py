@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..core.types import Cells, GraphEdges, PointCloud
+from ..kernels import refmath
 from ..ops.logistic import LogisticModel, from_values
 
 
@@ -38,9 +39,11 @@ def cells_from_numpy(d: Mapping, device=None) -> Cells:
 
 
 def edges_from_numpy(d: Mapping, device=None) -> GraphEdges:
+    """Edges from arrays, the whitening's subnormal entries flushed as
+    ``ops/posegraph.py::make_edges`` flushes them."""
     return GraphEdges(idx=_t(d["idx"], device, torch.long),
                       meas=_t(d["meas"], device),
-                      sqrt_info=_t(d["sqrt_info"], device),
+                      sqrt_info=refmath.ftz(_t(d["sqrt_info"], device)),
                       etype=_t(d["etype"], device, torch.long),
                       mask=_t(d["mask"], device, torch.bool))
 

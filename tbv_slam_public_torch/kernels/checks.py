@@ -2,7 +2,8 @@
 ``chip_smoke.py`` and the tests: the value ranges of each refmath op, its
 special values, a bit-for-bit comparison, CorAl clouds whose neighbours
 lie within an ulp of the radius gate, the logistic fit's Newton systems,
-LM-solve problems and window registration problems.
+LM-solve problems, window registration problems and the registration
+configurations that the cost evaluation is held at.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import numpy as np
 REFMATH_RANGES = {"exp": (-90.0, 90.0), "log": (1e-3, 1e3),
                   "log1p": (-0.99, 10.0), "sigmoid": (-90.0, 90.0),
                   "sincos": (-200.0, 200.0), "wrap_angle": (-10.0, 10.0),
-                  "atan2": (-80.0, 80.0), "sqrt": (0.0, 1e4)}
+                  "atan2": (-80.0, 80.0), "sqrt": (0.0, 1e4),
+                  "ftz": (-3e-38, 3e-38)}
 
 #: zeros, subnormals (the reference flushes them), the range reductions'
 #: boundaries, large values, infinities and NaN
@@ -113,6 +115,28 @@ def lu_systems(rng, n: int, k: int):
     h[2 * n // 3:, :, rng.integers(0, k)] = 0.0
     g = (10.0 * rng.normal(size=(n, k))).astype(np.float32)
     return h, g
+
+
+def lu_subnormal_systems(rng, n: int, k: int):
+    """n float32 systems (h [n, k, k], g [n, k]) for ``refmath.lu_solve``
+    that reach the subnormal range, a fifth of each kind: subnormal entries
+    in h; subnormal entries in g; h and g scaled by 1e-19 and 1e-20 (the
+    products and the solution subnormal); a first column of subnormals (a
+    pivot that a DAZ thread sees as zero); entries spread over e^+-40."""
+    h = rng.normal(size=(n, k, k))
+    g = rng.normal(size=(n, k))
+    kind = np.arange(n) % 5
+    tiny = lambda shape: rng.uniform(-1, 1, shape) * 1e-39
+    m = (rng.uniform(size=(n, k, k)) < 0.3) & (kind == 0)[:, None, None]
+    h[m] = tiny(m.sum())
+    m = (rng.uniform(size=(n, k)) < 0.5) & (kind == 1)[:, None]
+    g[m] = tiny(m.sum())
+    h[kind == 2] *= 1e-19
+    g[kind == 2] *= 1e-20
+    h[kind == 3, :, 0] = tiny(((kind == 3).sum(), k))
+    h[kind == 4] *= np.exp(rng.uniform(-40, 40, ((kind == 4).sum(), k, k)))
+    g[kind == 4] *= np.exp(rng.uniform(-40, 40, ((kind == 4).sum(), k)))
+    return h.astype(np.float32), g.astype(np.float32)
 
 
 def _rot(a):
@@ -220,3 +244,25 @@ def window_problem(rng, b: int, t: int, c: int, ct: int,
         out.update(guess=(truth + rng.normal(0, 0.05, (b, 3))).astype(f32),
                    sqrt_info=s.astype(f32))
     return out
+
+
+def evaluation_configs():
+    """The ``RegistrationConfig``s at which the registration kernel's
+    evaluation entry is held to its plain version: every cost x loss, the
+    weight option 0-4 in turn, then the CFEAR feature's configuration
+    (``models/verification.py::_cfear_eval_cfg``) and the loop
+    registration's (``models/loopclosure.py::_loop_registration_cfg``)."""
+    import itertools
+
+    from ..core.config import RegistrationConfig, TBVConfig
+    from ..models import loopclosure, verification
+
+    grid = itertools.product(("P2L", "P2D", "P2P"), ("none", "huber",
+                                                     "cauchy", "softlone",
+                                                     "tukey", "combined"))
+    tbv = TBVConfig()
+    return [RegistrationConfig(cost=cost, loss=loss, weight_option=i % 5,
+                               loss_limit=0.3)
+            for i, (cost, loss) in enumerate(grid)] + [
+        verification._cfear_eval_cfg(tbv.verification),
+        loopclosure._loop_registration_cfg(tbv)]

@@ -1,6 +1,7 @@
-"""The registration's window solve and LM solve as CUDA kernel launches.
+"""The registration's window solve, LM solve and cost evaluation as CUDA
+kernel launches.
 
-The kernel is ``csrc/lm_solve.cu``, with two entries over the same device
+The kernel is ``csrc/lm_solve.cu``, with three entries over the same device
 code:
 
 * ``register_window``: ``ops/registration.py::register_window`` after
@@ -11,7 +12,12 @@ code:
   sums and the accept / reject) and the outer guards, bit-equal to the plain
   version ``ops/registration.py::_register_window_reference``;
 * ``lm_solve``: ``_lm_solve`` alone on given associations (``register_joint``),
-  one launch a solve, bit-equal to ``_lm_solve_reference``.
+  one launch a solve, bit-equal to ``_lm_solve_reference``;
+* ``evaluate``: ``evaluate_cost`` and ``sampled_covariance`` after
+  ``_world_targets`` in one launch a call: the association at each row's
+  pose, then the cost-only pass at each of S poses over it (and the sampled
+  covariance's quadratic fit), bit-equal to ``_evaluate_cost_reference`` and
+  to ``_sampled_covariance_reference``'s costs and fit.
 
 A batch row runs on a thread-block cluster of K CTAs (``cluster_size``),
 each owning an aligned 1/K of the row's ``_row_sums`` leaves; the sums do
@@ -38,7 +44,7 @@ from .refmath import _entry, _launch_on
 
 #: number of kernel launches made by ``register_window`` and ``lm_solve``
 LAUNCHES = 0
-#: launches by entry ("window", "solve")
+#: launches by entry ("window", "solve", "evaluate")
 LAUNCHES_BY_ENTRY: collections.Counter = collections.Counter()
 
 _PLAIN_ON_CARD = False
@@ -124,8 +130,9 @@ def cluster_size(rows: int, t: int, c: int, ct: int, cost: int,
 
 @contextlib.contextmanager
 def plain_on_card():
-    """Inside the block ``register_window`` and ``_lm_solve`` run their
-    plain versions on CUDA tensors too (the kernel's yardstick in tests and
+    """Inside the block ``register_window``, ``_lm_solve``,
+    ``evaluate_cost`` and ``sampled_covariance`` run their plain versions
+    on CUDA tensors too (the kernel's yardstick in tests and
     ``chip_smoke.py``)."""
     global _PLAIN_ON_CARD
     was, _PLAIN_ON_CARD = _PLAIN_ON_CARD, True
@@ -301,3 +308,85 @@ def register_window(theta0: torch.Tensor, src_mean: torch.Tensor,
                            f"K={k})")
     _count("window")
     return out_theta, out_score, out_nres, out_iters
+
+
+def evaluate(pose: torch.Tensor, src_mean: torch.Tensor,
+             src_normal: torch.Tensor, src_nsamples: torch.Tensor,
+             src_planarity: torch.Tensor, src_valid: torch.Tensor,
+             tgt_mean_w: torch.Tensor, tgt_normal_w: torch.Tensor,
+             tgt_cov_w: Optional[torch.Tensor], tgt_valid: torch.Tensor,
+             tgt_nsamples: torch.Tensor, tgt_planarity: torch.Tensor, *,
+             cost: int, loss: int, delta: float, radius: float,
+             angle_gate_cos: float, weight_option: int,
+             regularization: float, cov_scale: float,
+             offsets: Optional[torch.Tensor] = None,
+             pinv: Optional[torch.Tensor] = None,
+             cluster: Optional[int] = None):
+    """(costs [B, S], association counts [B], fit [B, 10] or None) of B
+    source scans of C cells at their poses ``pose`` [B, 3] against T
+    world-frame target scans of Ct cells (``_world_targets``' outputs, with
+    the targets' nsamples and planarity), one launch on CUDA tensors: one
+    association at each row's pose within ``radius``, then the cost-only
+    pass at ``pose + offsets[s]`` for each of the S offsets [S, 3] (none: S
+    = 1 at the pose itself); with ``pinv`` [10, S] also the sampled
+    covariance's fit, one fused multiply-add a sample in order.
+    ``cluster`` forces the CTAs a row (default ``cluster_size``)."""
+    dev = pose.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"evaluate: no kernel for device {dev}")
+    bsz, c = src_valid.shape
+    t, ct = tgt_valid.shape[1:]
+    s = 1 if offsets is None else offsets.shape[0]
+    floats = [pose, src_mean, src_normal, src_nsamples, src_planarity,
+              tgt_mean_w, tgt_normal_w, tgt_nsamples, tgt_planarity]
+    shapes = {"pose": (pose, (bsz, 3)),
+              "src_mean": (src_mean, (bsz, c, 2)),
+              "src_normal": (src_normal, (bsz, c, 2)),
+              "src_nsamples": (src_nsamples, (bsz, c)),
+              "src_planarity": (src_planarity, (bsz, c)),
+              "tgt_mean_w": (tgt_mean_w, (bsz, t, ct, 2)),
+              "tgt_normal_w": (tgt_normal_w, (bsz, t, ct, 2)),
+              "tgt_valid": (tgt_valid, (bsz, t, ct)),
+              "tgt_nsamples": (tgt_nsamples, (bsz, t, ct)),
+              "tgt_planarity": (tgt_planarity, (bsz, t, ct))}
+    if cost == _P2D:
+        floats.append(tgt_cov_w)
+        if tgt_cov_w is not None:
+            shapes["tgt_cov_w"] = (tgt_cov_w, (bsz, t, ct, 2, 2))
+    if offsets is not None:
+        floats.append(offsets)
+        shapes["offsets"] = (offsets, (s, 3))
+    if pinv is not None:
+        floats.append(pinv)
+        shapes["pinv"] = (pinv, (10, s))
+    _check("evaluate", dev, floats, [src_valid, tgt_valid], shapes)
+    if s < 1:
+        raise ValueError("evaluate: no pose to evaluate (S = 0)")
+    if ct < 1:
+        raise ValueError("evaluate: the target scans hold no cell")
+    out_costs = torch.empty((bsz, s), dtype=torch.float32, device=dev)
+    out_count = torch.empty((bsz,), dtype=torch.long, device=dev)
+    out_q = None if pinv is None else torch.empty(
+        (bsz, 10), dtype=torch.float32, device=dev)
+    if bsz == 0:
+        return out_costs, out_count, out_q
+    k = cluster or cluster_size(bsz, t, c, ct, cost, True)
+    ins = [x.contiguous() for x in (
+        pose, src_mean, src_normal, src_nsamples, src_planarity, src_valid,
+        tgt_mean_w, tgt_normal_w)]
+    tcw = tgt_cov_w.contiguous() if cost == _P2D else None
+    more = [x.contiguous() for x in (tgt_valid, tgt_nsamples, tgt_planarity)]
+    fit = [None if x is None else x.contiguous() for x in (offsets, pinv)]
+    err = _launch_on(
+        dev, _entry("evaluate_cost_launch"), *map(_ptr, ins), _ptr(tcw),
+        *map(_ptr, more), *map(_ptr, fit), out_costs.data_ptr(),
+        out_count.data_ptr(), _ptr(out_q), bsz, t, c, ct, s, cost, loss,
+        *loss_constants(loss, delta), weight_option,
+        _f32(radius * radius), _f32(angle_gate_cos), _f32(regularization),
+        _f32(cov_scale), k)
+    if err != 0:
+        raise RuntimeError(f"evaluate_cost_launch failed: CUDA error {err} "
+                           f"(B={bsz}, T={t}, C={c}, Ct={ct}, S={s}, "
+                           f"cost={cost}, K={k})")
+    _count("evaluate")
+    return out_costs, out_count, out_q

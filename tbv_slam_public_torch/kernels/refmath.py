@@ -2,10 +2,11 @@
 
 The kernel is ``csrc/refmath.cu``: one elementwise launch per call, which
 runs XLA's inline exp / log / log1p, the C library's sinf / cosf / sincosf
-/ atan2f, the IEEE square root and the fused multiply-add with the
-reference's operations and roundings; ``dot``, the small matrix product
-whose terms the reference adds one at a time; ``loop_dot``, the logistic
-gradient's sum in the order of the reference's vectorised loop; and
+/ atan2f, the IEEE square root, the fused multiply-add and the flush of
+subnormal values with the reference's operations and roundings; ``dot``,
+the small matrix product whose terms the reference adds one at a time;
+``loop_dot``, the logistic gradient's sum in the order of the reference's
+vectorised loop; and
 ``lm_update``, the LM step theta - H^{-1} g; ``lu_solve``, the logistic
 fit's Newton step as the reference's LAPACK and BLAS routines round it.
 The plain versions are
@@ -43,7 +44,7 @@ LAUNCHES = 0
 LAUNCHES_BY_OP: collections.Counter = collections.Counter()
 
 OPS = {"exp": 0, "log": 1, "log1p": 2, "sigmoid": 3, "sincos": 4,
-       "atan2": 5, "wrap_angle": 6, "fma": 7, "sqrt": 8}
+       "atan2": 5, "wrap_angle": 6, "fma": 7, "sqrt": 8, "ftz": 9}
 
 #: site entries of ``csrc/refmath_sites.cu``: name -> site code
 SITES = {"compose": 0, "inverse": 1, "relative": 2, "apply": 3,
@@ -52,9 +53,9 @@ SITES = {"compose": 0, "inverse": 1, "relative": 2, "apply": 3,
 _PLAIN = dict(
     exp=plain.exp, log=plain.log, log1p=plain.log1p, sigmoid=plain.sigmoid,
     sincos=plain.sincos, atan2=plain.atan2, wrap_angle=plain.wrap_angle,
-    fma=plain.fma, sqrt=plain.sqrt, dot=plain.dot, loop_dot=plain.loop_dot,
-    lm_update=plain.lm_update, lu_solve=plain.lu_solve,
-    cumsum=plain.blocked_cumsum)
+    fma=plain.fma, sqrt=plain.sqrt, ftz=plain.ftz, dot=plain.dot,
+    loop_dot=plain.loop_dot, lm_update=plain.lm_update,
+    lu_solve=plain.lu_solve, cumsum=plain.blocked_cumsum)
 
 
 _ENTRIES: dict = {}
@@ -156,18 +157,27 @@ def _lu_solve(op: str, h: torch.Tensor, g: torch.Tensor):
             out.numel())
 
 
+#: the longest vector ``cumsum`` scans in one block's registers and shared
+#: memory (``csrc/refmath_sites.cu``: 1,024 rows of 16); longer ones keep
+#: their levels in a scratch buffer in device memory
+CUMSUM_BLOCK_MAX = 16 * 1024
+
+
 def _cumsum(op: str, x: torch.Tensor):
     if x.dim() != 1:
         raise ValueError(f"refmath.cumsum: a vector, got {tuple(x.shape)}")
     x = x.contiguous()
     n, rows, levels = x.numel(), 0, x.numel()
-    while levels > plain.CUMSUM_BLOCK:
-        levels = -(-levels // plain.CUMSUM_BLOCK)
-        rows += levels
     out = torch.empty_like(x)
-    scratch = torch.empty(max(rows, 1), dtype=x.dtype, device=x.device)
+    scratch = None
+    if n > CUMSUM_BLOCK_MAX:
+        while levels > plain.CUMSUM_BLOCK:
+            levels = -(-levels // plain.CUMSUM_BLOCK)
+            rows += levels
+        scratch = torch.empty(rows, dtype=x.dtype, device=x.device)
     return (out, "refmath_cumsum_launch",
-            (x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n), n)
+            (x.data_ptr(), out.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), n), n)
 
 
 #: batch dimensions a site's operand may have (csrc/refmath_sites.cu kDims)
@@ -342,6 +352,13 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """The IEEE float32 square root, subnormal operands flushed."""
     return _call("sqrt", x)
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """x with its subnormal values flushed to signed zeros, as the
+    reference's threads flush a subnormal result (FTZ) or operand (DAZ),
+    one launch."""
+    return _call("ftz", x)
 
 
 def norm2(v: torch.Tensor) -> torch.Tensor:

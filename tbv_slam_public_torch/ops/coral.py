@@ -13,7 +13,6 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.refmath import ftz
 from ..core.types import PointCloud
 from ..kernels import refmath
 from ..kernels.coral_moments import pair_moments
@@ -35,19 +34,26 @@ class CoralResult(NamedTuple):
 
 
 def _det2x2(c):
-    """c00 c11 - c01 c10 as fma(c00, c11, -(c01 c10)), a subnormal result
-    flushed to zero as the reference's threads flush it."""
-    return ftz(refmath.fma(c[..., 0, 0], c[..., 1, 1],
-                           -(c[..., 0, 1] * c[..., 1, 0])))
+    """c00 c11 - c01 c10 as fma(c00, c11, -(c01 c10)), the product c01 c10
+    (an operation of its own) and the result flushed to zero where they are
+    subnormal, as the reference's threads flush them."""
+    return refmath.ftz(refmath.fma(c[..., 0, 0], c[..., 1, 1],
+                                   -refmath.ftz(c[..., 0, 1] * c[..., 1, 0])))
 
 
 def _mean_cov_from_moments(n, s1, s2):
     """Sample mean and covariance (1/(n-1)) from query-centred moments:
-    s2 - n m m^T as fma(-(n m_i), m_j, s2)."""
-    mean = s1 / torch.clamp(n, min=1.0)[..., None]
+    s2 - n m m^T as fma(-(n m_i), m_j, s2).  Subnormal values are flushed
+    as the reference's threads flush them: s2 as an operand (DAZ), the mean
+    and the covariance as results (FTZ).  A subnormal s1 or centred sum
+    gives a subnormal mean or covariance (n >= 1 divides them), and n m is
+    normal where m is, so these three flushes cover every operation."""
+    mean = refmath.ftz(s1 / torch.clamp(n, min=1.0)[..., None])
     nm = n[..., None] * mean
-    centered = refmath.fma(-nm[..., :, None], mean[..., None, :], s2)
-    cov = centered / torch.clamp(n - 1.0, min=1.0)[..., None, None]
+    centered = refmath.fma(-nm[..., :, None], mean[..., None, :],
+                           refmath.ftz(s2))
+    cov = refmath.ftz(centered / torch.clamp(n - 1.0, min=1.0)[..., None,
+                                                               None])
     return mean, cov
 
 
@@ -63,11 +69,14 @@ def _kl_divergence_2d(u0, s0, u1, s1):
     """KL((u0, S0) || (u1, S1)) with the reference's k=3 constant."""
     det0 = _det2x2(s0)
     det1 = _det2x2(s1)
-    inv_det1 = 1.0 / torch.where(det1 == 0.0, torch.ones_like(det1), det1)
-    s1i = torch.stack([
+    # the inverse determinant and the inverse's entries flushed (FTZ): the
+    # inverse of a determinant above 2^126 is subnormal
+    inv_det1 = refmath.ftz(1.0 / torch.where(det1 == 0.0,
+                                             torch.ones_like(det1), det1))
+    s1i = refmath.ftz(torch.stack([
         torch.stack([s1[..., 1, 1], -s1[..., 0, 1]], -1),
-        torch.stack([-s1[..., 1, 0], s1[..., 0, 0]], -1)], -2) \
-        * inv_det1[..., None, None]
+        torch.stack([-s1[..., 1, 0], s1[..., 0, 0]], -1)], -2)
+        * inv_det1[..., None, None])
     trace = torch.einsum("...ij,...ji->...", s1i, s0)
     d = u1 - u0
     mahal = torch.einsum("...i,...ij,...j->...", d, s1i, d)

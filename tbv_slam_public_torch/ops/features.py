@@ -28,6 +28,7 @@ from ..core.types import Cells, PointCloud
 from ..kernels import cells as cells_kernel
 from ..kernels import refmath
 from ..kernels.cells import cell_stats
+from ..kernels.refmath import ftz
 
 
 def eigh2x2(cov: torch.Tensor):
@@ -40,16 +41,19 @@ def eigh2x2(cov: torch.Tensor):
     torch's (the reference's are the IEEE root, ``refmath.sqrt``: with it,
     trajectories of ``tests/test_torch_odometry_variants.py`` move past
     their tolerances, ROADMAP.md section 3 item 2); on the card torch's
-    root is the IEEE one, which ``csrc/cells.cu`` computes."""
+    root is the IEEE one, which ``csrc/cells.cu`` computes.  Subnormal
+    operands and every subnormal result are flushed (``ftz``), as the
+    reference's threads flush them (DAZ and FTZ)."""
+    cov = ftz(cov)
     a, b, c = cov[..., 0, 0], cov[..., 0, 1], cov[..., 1, 1]
-    half_tr = 0.5 * (a + c)
-    d = a - c
-    disc = torch.sqrt(torch.clamp(
-        refmath.fma(d * d, torch.full_like(d, 0.25), b * b), min=0.0))
-    lmin = half_tr - disc
-    lmax = half_tr + disc
-    v1 = torch.stack([b, lmin - a], -1)
-    v2 = torch.stack([lmin - c, b], -1)
+    half_tr = ftz(0.5 * ftz(a + c))
+    d = ftz(a - c)
+    disc = torch.sqrt(torch.clamp(ftz(refmath.fma(
+        ftz(d * d), torch.full_like(d, 0.25), ftz(b * b))), min=0.0))
+    lmin = ftz(half_tr - disc)
+    lmax = ftz(half_tr + disc)
+    v1 = torch.stack([b, ftz(lmin - a)], -1)
+    v2 = torch.stack([ftz(lmin - c), b], -1)
     n1 = _sqnorm(v1)
     n2 = _sqnorm(v2)
     v = torch.where((n1 > n2)[..., None], v1, v2)
@@ -58,13 +62,14 @@ def eigh2x2(cov: torch.Tensor):
     axis = torch.where((a <= c)[..., None], e0, e1)
     norm = torch.sqrt(torch.maximum(n1, n2))
     v = torch.where((norm > 1e-20)[..., None],
-                    v / torch.clamp(norm, min=1e-20)[..., None], axis)
+                    ftz(v / torch.clamp(norm, min=1e-20)[..., None]), axis)
     return lmin, lmax, v
 
 
 def _sqnorm(v: torch.Tensor) -> torch.Tensor:
-    """v0^2 + v1^2 of [..., 2] as fma(v1, v1, v0 v0)."""
-    return refmath.fma(v[..., 1], v[..., 1], v[..., 0] * v[..., 0])
+    """v0^2 + v1^2 of [..., 2] as fma(v1, v1, v0 v0), the product and the
+    sum flushed."""
+    return ftz(refmath.fma(v[..., 1], v[..., 1], ftz(v[..., 0] * v[..., 0])))
 
 
 def _dot_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -197,32 +202,34 @@ def _cell_stats_reference(xy: torch.Tensor, intensity: torch.Tensor,
                                      wq[..., 1], wq[..., 1]], -1),
                         q.repeat(1, 1, 3))
     mu_local, qq = acc[:, :2], acc[:, 2:].reshape(-1, 2, 2)
-    cov = qq - mu_local[:, :, None] * mu_local[:, None, :]
-    cov = 0.5 * (cov + cov.transpose(-1, -2))
-    mean = centroid + mu_local
+    # from here on every subnormal result is flushed (ftz), as the
+    # reference's threads flush it
+    cov = ftz(qq - ftz(mu_local[:, :, None] * mu_local[:, None, :]))
+    cov = ftz(0.5 * ftz(cov + cov.transpose(-1, -2)))
+    mean = ftz(centroid + mu_local)
 
     # 4. eigen-based normal + gates, on the covariance as the reference's
     # gate computations form it: its diagonal fma(-mu_i, mu_i, qq_ii) (the
     # product has one use there), the off-diagonal as above
-    diag = refmath.fma(-mu_local, mu_local,
-                       torch.diagonal(qq, dim1=-2, dim2=-1))
+    diag = ftz(refmath.fma(-mu_local, mu_local,
+                           torch.diagonal(qq, dim1=-2, dim2=-1)))
     cov_g = torch.stack([torch.stack([diag[:, 0], cov[:, 0, 1]], -1),
                          torch.stack([cov[:, 1, 0], diag[:, 1]], -1)], -2)
     lmin, lmax, normal = eigh2x2(cov_g)
-    cond = torch.abs(lmax / torch.where(torch.abs(lmin) > 1e-20, lmin,
-                                        torch.full_like(lmin, 1e-20)))
-    det = lmax * lmin
+    cond = ftz(torch.abs(lmax / torch.where(torch.abs(lmin) > 1e-20, lmin,
+                                            torch.full_like(lmin, 1e-20))))
+    det = ftz(lmax * lmin)
     cov_ok = (cond <= cfg.max_cond) & (det > cfg.min_det) & (lmin > 0) & \
         (lmax > 0)
-    planarity = refmath.log1p(cond / 2.0)
+    planarity = refmath.log1p(ftz(cond / 2.0))
     org = constant((float(origin[0]), float(origin[1])), dt, dev)
-    flip = refmath.fma(normal[:, 1], org[1] - mean[:, 1],
-                       normal[:, 0] * (org[0] - mean[:, 0])) < 0
+    flip = ftz(refmath.fma(normal[:, 1], ftz(org[1] - mean[:, 1]), ftz(
+        normal[:, 0] * ftz(org[0] - mean[:, 0])))) < 0
     normal = torch.where(flip[:, None], -normal, normal)
 
     valid = sel_occupied & (nbr_count >= cfg.min_neighbors) & cov_ok & \
         (w_sum > 1e-9)
-    avg_intensity = w_sum / torch.clamp(nbr_count, min=1)
+    avg_intensity = ftz(w_sum / torch.clamp(nbr_count, min=1))
 
     def z(x):
         m = valid.reshape(valid.shape + (1,) * (x.ndim - 1))

@@ -88,12 +88,15 @@ def fit(x: torch.Tensor, y: torch.Tensor, sample_mask: torch.Tensor = None, *,
         # gradient's sum in its vectorised loop's order (``gradient``),
         # reg * w fused into the gradient's add, the ridge added in source
         # order, the solve by its LAPACK routines (``solve``)
+        # subnormal results flushed as the reference's threads flush them:
+        # ``dot``, ``loop_dot`` and ``lu_solve`` flush their operands (DAZ),
+        # which covers sw (p - y), xb r, g and h; w is flushed here
         p = refmath.sigmoid(refmath.dot(xb, w[None])[:, 0])
         g = refmath.fma(reg, w, gradient(xt, sw * (p - y)))
         r = torch.clamp(sw * p * (1.0 - p), min=1e-8)
         h = (refmath.dot((xb * r[:, None]).T, xt) + reg_diag) + eps_eye
         # damped Newton keeps early iterations stable on separable data
-        w = w - torch.clamp(solve(h, g), -10.0, 10.0)
+        w = refmath.ftz(w - torch.clamp(solve(h, g), -10.0, 10.0))
     return LogisticModel(intercept=w[0], coef=w[1:])
 
 

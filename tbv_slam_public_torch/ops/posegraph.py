@@ -90,7 +90,10 @@ def _edge_residuals(poses: torch.Tensor, edges: GraphEdges):
     ry = -s * dx + c * dy
     rt = se2.wrap_angle(pe[:, 2] - pb[:, 2] - edges.meas[:, 2])
     raw = torch.stack([rx - edges.meas[:, 0], ry - edges.meas[:, 1], rt], -1)
-    r = torch.einsum("eij,ej->ei", edges.sqrt_info, raw)
+    # subnormal residuals flushed, as the reference's threads flush a result
+    # (FTZ); the whitening's subnormal entries were flushed when the edges
+    # were made (``make_edges``: DAZ)
+    r = refmath.ftz(torch.einsum("eij,ej->ei", edges.sqrt_info, raw))
     return r, (c, s, dx, dy)
 
 
@@ -105,16 +108,20 @@ def _edge_jacobians(poses: torch.Tensor, edges: GraphEdges):
                       torch.stack([-s, c, z], -1),
                       torch.stack([z, z, o], -1)], -2)
     S = edges.sqrt_info
-    return r, S @ Jb, S @ Je
+    return r, refmath.ftz(S @ Jb), refmath.ftz(S @ Je)
 
 
 def _cauchy_weights(r: torch.Tensor, edges: GraphEdges, cfg: PGOConfig):
     """Per-edge (rho(s), IRLS weight): Cauchy on loops, none on odometry."""
-    s = (r * r).sum(-1)
+    # the squares and the weight flushed where subnormal (the weight of a
+    # residual above about 1e18), as the reference's threads flush them;
+    # a sum of squares that are zero or normal is zero or normal
+    s = refmath.ftz(r * r).sum(-1)
     b = cfg.cauchy_scale * cfg.cauchy_scale
     is_odom = edges.etype == ODOMETRY
     rho = torch.where(is_odom, s, b * refmath.log1p(s / b))
-    w = torch.where(is_odom, torch.ones_like(s), 1.0 / (1.0 + s / b))
+    w = torch.where(is_odom, torch.ones_like(s),
+                    refmath.ftz(1.0 / (1.0 + s / b)))
     zero = torch.zeros((), dtype=s.dtype, device=s.device)
     return torch.where(edges.mask, rho, zero), torch.where(edges.mask, w, zero)
 
@@ -191,10 +198,10 @@ def _gradient_and_blocks(poses, edges, cfg: PGOConfig, sums=None):
     ``sums`` the graph's ``_GraphSums``."""
     r, Jb, Je = _edge_jacobians(poses, edges)
     rho, w = _cauchy_weights(r, edges, cfg)
-    wr = w[:, None] * r
+    wr = refmath.ftz(w[:, None] * r)
     sums = sums or _GraphSums(poses.shape[0], edges)
-    g = sums.nodes(torch.einsum("eij,ei->ej", Jb, wr),
-                   torch.einsum("eij,ei->ej", Je, wr))
+    g = refmath.ftz(sums.nodes(torch.einsum("eij,ei->ej", Jb, wr),
+                               torch.einsum("eij,ei->ej", Je, wr)))
     sw = refmath.sqrt(w)[:, None, None]
     return 0.5 * rho.sum(), g, (sw * Jb, sw * Je)
 
@@ -215,7 +222,10 @@ def _dense_hessian(n: int, edges: GraphEdges, blocks, gauge_mask,
         vals.append((A.transpose(-1, -2) @ B).reshape(-1))
     H = torch.zeros(9 * n * n, dtype=dt, device=dev)
     sums = sums or _GraphSums(n, edges)
-    sums.add("hessian", H, lambda: torch.cat(flat), torch.cat(vals))
+    vals = torch.cat(vals)
+    if vals.dtype == torch.float32:  # flushed as the reference's products
+        vals = refmath.ftz(vals)
+    sums.add("hessian", H, lambda: torch.cat(flat), vals)
     H = H.reshape(3 * n, 3 * n)
     free = gauge_mask.repeat_interleave(3)
     H = H * (free[:, None] & free[None, :]).to(dt)
@@ -753,7 +763,9 @@ def make_edges(idx, meas, sqrt_info, etype, mask, device=None) -> GraphEdges:
     """Edges from arrays or tensors; ``sqrt_info`` may be per-edge diagonal
     [E, 3] or full [E, 3, 3]."""
     t = lambda x, dt: torch.as_tensor(x, dtype=dt, device=device)
-    s = t(sqrt_info, torch.float32)
+    # subnormal whitening entries flushed once here: the reference's
+    # threads treat them as zeros in every operation (DAZ)
+    s = refmath.ftz(t(sqrt_info, torch.float32))
     if s.ndim == 2:
         s = torch.diag_embed(s)
     return GraphEdges(idx=t(idx, torch.long), meas=t(meas, torch.float32),

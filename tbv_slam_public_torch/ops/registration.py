@@ -26,10 +26,11 @@ import torch
 from ..core import se2
 from ..core.config import RegistrationConfig
 from ..core.device import constant
-from ..core.refmath import ftz, recip
+from ..core.refmath import recip
 from ..core.types import Cells, RegistrationResult
 from ..kernels import lm_solve as lm_kernel
 from ..kernels import refmath
+from ..kernels.refmath import ftz
 
 COST_P2L = 0
 COST_P2D = 1
@@ -212,35 +213,40 @@ def _residual_terms(theta: torch.Tensor, src: Cells, assoc: Associations,
     """Residuals r [B,T,C,R], jacobians J [B,T,C,R,3] wrt (x, y, theta) and
     squared norms [B,T,C]."""
     # rounded as the reference's program: each sum's first product fused
-    # into it, a two-term reduction as fma(second, second, first product)
+    # into it, a two-term reduction as fma(second, second, first product);
+    # subnormal operands and every subnormal product and sum flushed
+    # (ftz), as the reference's threads flush them (DAZ and FTZ)
+    fma = refmath.fma
     s, c = refmath.sincos(theta[:, 2:3])
-    ux, uy = src.mean[..., 0], src.mean[..., 1]  # [B, C]
-    dy = refmath.fma(c, ux, -(s * uy))  # c ux - s uy
-    wx = dy + theta[:, 0:1]
-    wy = refmath.fma(s, ux, c * uy) + theta[:, 1:2]
-    dx = refmath.fma(-s, ux, -(c * uy))  # -s ux - c uy
-    e = torch.stack([wx, wy], -1)[:, None] - assoc.tgt_mean_w  # [B,T,C,2]
+    ux, uy = ftz(src.mean[..., 0]), ftz(src.mean[..., 1])  # [B, C]
+    dy = ftz(fma(c, ux, -ftz(s * uy)))  # c ux - s uy
+    wx = ftz(dy + theta[:, 0:1])
+    wy = ftz(ftz(fma(s, ux, ftz(c * uy))) + theta[:, 1:2])
+    dx = ftz(fma(-s, ux, -ftz(c * uy)))  # -s ux - c uy
+    e = ftz(torch.stack([wx, wy], -1)[:, None]
+            - ftz(assoc.tgt_mean_w))  # [B,T,C,2]
     if cost == COST_P2L:
-        n = assoc.tgt_normal_w
-        r = refmath.fma(n[..., 1], e[..., 1], n[..., 0] * e[..., 0])[..., None]
+        n = ftz(assoc.tgt_normal_w)
+        r = ftz(fma(n[..., 1], e[..., 1], ftz(n[..., 0] * e[..., 0])))[
+            ..., None]
         J = torch.stack([n[..., 0], n[..., 1],
-                         refmath.fma(n[..., 0], dx[:, None],
-                                     n[..., 1] * dy[:, None])],
+                         ftz(fma(n[..., 0], dx[:, None],
+                                 ftz(n[..., 1] * dy[:, None])))],
                         -1)[..., None, :]
-        return r, J, r[..., 0] * r[..., 0]
+        return r, J, ftz(r[..., 0] * r[..., 0])
     ones, zeros = torch.ones_like(dx), torch.zeros_like(dx)
     Jp = torch.stack([torch.stack([ones, zeros, dx], -1),
                       torch.stack([zeros, ones, dy], -1)], -2)
     if cost == COST_P2D:  # whitened by the target's sqrt-information
-        u = assoc.tgt_sqrtinfo
-        r = refmath.fma(u[..., 1], e[..., None, 1],
-                        u[..., 0] * e[..., None, 0])
-        J = refmath.fma(u[..., 1:2], Jp[:, None, :, None, 1],
-                        u[..., 0:1] * Jp[:, None, :, None, 0])
+        u = ftz(assoc.tgt_sqrtinfo)
+        r = ftz(fma(u[..., 1], e[..., None, 1],
+                    ftz(u[..., 0] * e[..., None, 0])))
+        J = ftz(fma(u[..., 1:2], Jp[:, None, :, None, 1],
+                    ftz(u[..., 0:1] * Jp[:, None, :, None, 0])))
     else:  # P2P
         r = e
         J = Jp[:, None].expand(e.shape[:3] + (2, 3))
-    return r, J, refmath.fma(r[..., 1], r[..., 1], r[..., 0] * r[..., 0])
+    return r, J, ftz(fma(r[..., 1], r[..., 1], ftz(r[..., 0] * r[..., 0])))
 
 
 def _prior_terms(theta, prior):
@@ -625,23 +631,76 @@ def sampled_covariance(src: Cells, theta_opt: torch.Tensor, tgt: Cells,
     """Grid-sampled covariance: cost on a steps^3 grid around each optimum
     (one association at the optimum, as the reference's default), quadratic
     least-squares fit, inverse Hessian with Censi scaling.  Returns
-    (cov [B, 3, 3], convex [B])."""
-    dt, dev = src.mean.dtype, src.mean.device
-    pinv, offs = _quad_fit_pinv(xy_range, yaw_range, steps, dev)
+    (cov [B, 3, 3], convex [B]).  CPU tensors take the plain version; on
+    CUDA tensors ``_world_targets`` runs eagerly, the association, the
+    steps^3 costs and the fit are one launch of ``csrc/lm_solve.cu``'s
+    evaluation entry (bit-equal to the plain version's), and the 3 x 3
+    Hessian's eigenvalues and inverse are the library's, as in the plain
+    version."""
+    if src.mean.device.type == "cpu" or lm_kernel.plain_on_card_enabled():
+        return _sampled_covariance_reference(
+            src, theta_opt, tgt, tgt_poses, tgt_scan_mask, cfg, final_score,
+            n_res, xy_range, yaw_range, steps, cov_scaler)
+    pinv, offs = _quad_fit_pinv(xy_range, yaw_range, steps, src.mean.device)
+    _, _, q = _evaluate_on_card(src, theta_opt, tgt, tgt_poses,
+                                tgt_scan_mask, cfg, offsets=offs, pinv=pinv)
+    return _covariance_from_fit(q, cost_code(cfg.cost), final_score, n_res,
+                                cov_scaler)
+
+
+def _sampled_covariance_reference(src: Cells, theta_opt: torch.Tensor,
+                                  tgt: Cells, tgt_poses: torch.Tensor,
+                                  tgt_scan_mask: torch.Tensor,
+                                  cfg: RegistrationConfig,
+                                  final_score: torch.Tensor,
+                                  n_res: torch.Tensor, xy_range: float = 0.4,
+                                  yaw_range: float = 0.0043625,
+                                  steps: int = 3, cov_scaler: float = 4.0):
+    """The plain version of ``sampled_covariance`` (and of the evaluation
+    entry's costs and fit): on CPU tensors, or on CUDA tensors inside
+    ``kernels.lm_solve.plain_on_card`` only.  The steps^3 poses of a row
+    are one batch of rows over repeated copies of its sources and
+    associations; each equals the same pose's cost pass over the one
+    association set, which is the order the kernel runs."""
+    _, q = _sampled_fit_reference(src, theta_opt, tgt, tgt_poses,
+                                  tgt_scan_mask, cfg, xy_range, yaw_range,
+                                  steps)
+    return _covariance_from_fit(q, cost_code(cfg.cost), final_score, n_res,
+                                cov_scaler)
+
+
+def _sampled_fit_reference(src: Cells, theta_opt: torch.Tensor, tgt: Cells,
+                           tgt_poses: torch.Tensor,
+                           tgt_scan_mask: torch.Tensor,
+                           cfg: RegistrationConfig, xy_range: float,
+                           yaw_range: float, steps: int):
+    """The plain sampled costs [B, steps^3] and their quadratic fit
+    [B, 10] (the evaluation entry's outputs in ``sampled_covariance``)."""
+    _plain_device("sampled_covariance", src.mean.device)
+    pinv, offs = _quad_fit_pinv(xy_range, yaw_range, steps, src.mean.device)
     s = offs.shape[0]
     bsz = theta_opt.shape[0]
-    cost = cost_code(cfg.cost)
     assoc = _associator(src, tgt, tgt_poses, tgt_scan_mask, cfg)(
         theta_opt, cfg.radius)
     poses = (theta_opt[:, None, :] + offs[None]).reshape(bsz * s, 3)
     src_s = src.map(lambda x: x.repeat_interleave(s, dim=0))
-    costs = _cost_only(poses, src_s, assoc.repeat(s), cost=cost,
-                       loss=loss_code(cfg.loss),
+    costs = _cost_only(poses, src_s, assoc.repeat(s),
+                       cost=cost_code(cfg.cost), loss=loss_code(cfg.loss),
                        delta=cfg.loss_limit).reshape(bsz, s)
     # the quadratic fit, each coefficient summed as the reference's: one
     # fused multiply-add a sample, in order (no library blocking: a row is
     # the same whatever B)
-    q = refmath.dot(costs, pinv)  # [B, 10]
+    return costs, refmath.dot(costs, pinv)  # [B, 10]
+
+
+def _covariance_from_fit(q: torch.Tensor, cost: int,
+                         final_score: torch.Tensor, n_res: torch.Tensor,
+                         cov_scaler: float):
+    """(cov [B, 3, 3], convex [B]) from the quadratic fit q [B, 10]: its
+    Hessian, convex where every eigenvalue is positive, the inverse scaled
+    by 2 final_score / (residual dim - 3) and ``cov_scaler``, else the
+    default diagonal."""
+    dt, dev = q.dtype, q.device
     h = torch.stack([
         torch.stack([2 * q[:, 0], q[:, 3], q[:, 5]], -1),
         torch.stack([q[:, 3], 2 * q[:, 1], q[:, 4]], -1),
@@ -660,12 +719,56 @@ def evaluate_cost(src: Cells, src_pose: torch.Tensor, tgt: Cells,
                   tgt_poses: torch.Tensor, tgt_scan_mask: torch.Tensor,
                   cfg: RegistrationConfig):
     """One association + cost pass without solving (GetCost); returns
-    (total_cost [B], num_residuals [B])."""
+    (total_cost [B], num_residuals [B]).  CPU tensors take the plain
+    version; on CUDA tensors ``_world_targets`` runs eagerly and the rest
+    is one launch of ``csrc/lm_solve.cu``'s evaluation entry, which is
+    bit-equal to it."""
+    if src.mean.device.type == "cpu" or lm_kernel.plain_on_card_enabled():
+        return _evaluate_cost_reference(src, src_pose, tgt, tgt_poses,
+                                        tgt_scan_mask, cfg)
+    costs, count, _ = _evaluate_on_card(src, src_pose, tgt, tgt_poses,
+                                        tgt_scan_mask, cfg)
+    return costs[:, 0], count
+
+
+def _evaluate_cost_reference(src: Cells, src_pose: torch.Tensor, tgt: Cells,
+                             tgt_poses: torch.Tensor,
+                             tgt_scan_mask: torch.Tensor,
+                             cfg: RegistrationConfig):
+    """The plain version of ``evaluate_cost`` (and of the evaluation
+    entry): on CPU tensors, or on CUDA tensors inside
+    ``kernels.lm_solve.plain_on_card`` only."""
+    _plain_device("evaluate_cost", src.mean.device)
     assoc = _associator(src, tgt, tgt_poses, tgt_scan_mask, cfg)(
         src_pose, cfg.radius)
     total = _cost_only(src_pose, src, assoc, cost=cost_code(cfg.cost),
                        loss=loss_code(cfg.loss), delta=cfg.loss_limit)
     return total, assoc.mask.sum((1, 2))
+
+
+def _plain_device(name: str, dev: torch.device) -> None:
+    """A plain registration function runs on the CPU, and on the card only
+    inside ``kernels.lm_solve.plain_on_card``."""
+    if dev.type != "cpu" and not lm_kernel.plain_on_card_enabled():
+        raise RuntimeError(f"the plain {name} runs on the CPU; on {dev} it "
+                           "is the kernel's")
+
+
+def _evaluate_on_card(src: Cells, pose: torch.Tensor, tgt: Cells,
+                      tgt_poses: torch.Tensor, tgt_scan_mask: torch.Tensor,
+                      cfg: RegistrationConfig, offsets=None, pinv=None):
+    """The evaluation entry after the eager ``_world_targets``: (costs
+    [B, S], association counts [B], fit [B, 10] or None)."""
+    cost = cost_code(cfg.cost)
+    tmw, tnw, tcw, tvalid = _world_targets(tgt, tgt_poses, tgt_scan_mask,
+                                           cost)
+    return lm_kernel.evaluate(
+        pose, src.mean, src.normal, src.nsamples, src.planarity, src.valid,
+        tmw, tnw, tcw, tvalid, tgt.nsamples, tgt.planarity, cost=cost,
+        loss=loss_code(cfg.loss), delta=cfg.loss_limit, radius=cfg.radius,
+        angle_gate_cos=math.cos(math.radians(cfg.angle_gate_deg)),
+        weight_option=cfg.weight_option, regularization=cfg.regularization,
+        cov_scale=cfg.cov_scale, offsets=offsets, pinv=pinv)
 
 
 def ceres_covariance(src: Cells, theta_opt: torch.Tensor, tgt: Cells,

@@ -654,16 +654,19 @@ def test_refmath_solve3x3_matches_plain(cuda):
 def test_refmath_lu_solve_matches_plain(cuda):
     """The logistic fit's solve, a thread a system, bit-equal to the plain
     version at every size it takes (the fit's matrices, pivoting ones and
-    zero pivots)."""
+    zero pivots, and systems whose operands, pivots and results reach the
+    subnormal range, flushed as the reference's thread flushes them)."""
     from tbv_slam_public_torch.core import refmath as plain
     from tbv_slam_public_torch.kernels import refmath as rm
-    from tbv_slam_public_torch.kernels.checks import lu_systems
+    from tbv_slam_public_torch.kernels.checks import (lu_subnormal_systems,
+                                                      lu_systems)
 
     for k in range(1, 8):
-        h, g = (torch.as_tensor(a) for a in lu_systems(
-            np.random.default_rng(k), 3000, k))
-        assert _same(rm.lu_solve(h.to(cuda), g.to(cuda)),
-                     plain.lu_solve(h, g))
+        for make in (lu_systems, lu_subnormal_systems):
+            h, g = (torch.as_tensor(a) for a in make(
+                np.random.default_rng(k), 3000, k))
+            assert _same(rm.lu_solve(h.to(cuda), g.to(cuda)),
+                         plain.lu_solve(h, g)), (k, make.__name__)
 
 
 @pytest.mark.cuda
@@ -972,6 +975,128 @@ def test_a_cuda_tensor_never_reaches_the_plain_window(cuda, monkeypatch):
         treg._register_window_reference(*args, **prior)
 
 
+# the sampled covariance's grid (``sampled_covariance``'s defaults)
+GRID = (0.4, 0.0043625, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,ct", [
+    (2, 3, 37, 41),  # fewer than 256 threads a CTA, N not 2^k, Ct != C
+    (64, 1, 512, 512),  # an offline loop wave
+    (12, 1, 512, 512),  # an online loop closure's candidates
+    (13, 1, 512, 512),  # a training pair's perturbations
+    (13, 1, 192, 192),  # an evaluate-scans pair's, at chip_smoke.py's cells
+    (1, 4, 512, 512)])  # odometry's sampled covariance
+def test_evaluation_entry_bit_equal_to_plain(cuda, b, t, c, ct):
+    """``evaluate_cost`` and ``sampled_covariance`` (one launch of the
+    registration kernel's evaluation entry each, beside ``_world_targets``'
+    site launch) against their plain versions on the card, bit for bit:
+    the cost and the residual count, the 27 sampled costs and their fit,
+    the covariance and its convexity."""
+    from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.kernels.checks import (evaluation_configs,
+                                                      window_problem)
+    from tbv_slam_public_torch.ops import registration as treg
+
+    prob = window_problem(np.random.default_rng(b * 100 + c), b, t, c, ct)
+    pinv, offs = treg._quad_fit_pinv(*GRID, cuda)
+    for cfg in evaluation_configs():
+        args, _ = _window_args(prob, cuda, cfg)
+        args = args[:5]
+        before = dict(lm_kernel.LAUNCHES_BY_ENTRY)
+        sites = rm.LAUNCHES_BY_OP["world_targets"]
+        cost, n_res = treg.evaluate_cost(*args, cfg)
+        cov, convex = treg.sampled_covariance(*args, cfg, cost, n_res)
+        assert dict(lm_kernel.LAUNCHES_BY_ENTRY) == dict(
+            before, evaluate=before.get("evaluate", 0) + 2)
+        assert rm.LAUNCHES_BY_OP["world_targets"] == sites + 2
+        costs, count, q = treg._evaluate_on_card(*args, cfg, offsets=offs,
+                                                 pinv=pinv)
+        with lm_kernel.plain_on_card():
+            want_cost, want_n = treg.evaluate_cost(*args, cfg)
+            want_cov, want_convex = treg.sampled_covariance(
+                *args, cfg, cost, n_res)
+            want_costs, want_q = treg._sampled_fit_reference(*args, cfg,
+                                                             *GRID)
+        tag = (cfg.cost, cfg.loss, cfg.weight_option)
+        assert bits_differ(cost, want_cost) == 0, tag
+        assert torch.equal(n_res, want_n) and torch.equal(count, want_n), tag
+        assert bits_differ(costs, want_costs) == 0, tag
+        assert bits_differ(q, want_q) == 0, tag
+        assert bits_differ(cov, want_cov) == 0, tag
+        assert torch.equal(convex, want_convex), tag
+        assert (want_n > 1).any(), tag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,cost", [(64, 1, 512, "P2L"),
+                                        (3, 1, 512, "P2D"),
+                                        (1, 4, 512, "P2P")])
+def test_evaluation_entry_bit_identical_at_every_cluster_size(cuda, b, t, c,
+                                                              cost):
+    """The evaluation entry forced to K = 1, 2, 4 and 8 CTAs a row gives
+    the same costs, counts and fit (its cost sum follows one pairwise tree
+    whatever K), equal to the plain version's."""
+    from tbv_slam_public_torch.core.config import RegistrationConfig
+    from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
+    from tbv_slam_public_torch.kernels.checks import window_problem
+    from tbv_slam_public_torch.ops import registration as treg
+
+    prob = window_problem(np.random.default_rng(c + b + 1), b, t, c, c)
+    cfg = RegistrationConfig(cost=cost, loss="cauchy", weight_option=4)
+    args, _ = _window_args(prob, cuda, cfg)
+    src, pose, tgt, tposes, smask = args[:5]
+    with lm_kernel.plain_on_card():
+        want_costs, want_q = treg._sampled_fit_reference(
+            src, pose, tgt, tposes, smask, cfg, *GRID)
+        _, want_n = treg.evaluate_cost(src, pose, tgt, tposes, smask, cfg)
+    code = treg.cost_code(cost)
+    tmw, tnw, tcw, tvalid = treg._world_targets(tgt, tposes, smask, code)
+    pinv, offs = treg._quad_fit_pinv(*GRID, cuda)
+    for k in (1, 2, 4, 8):
+        costs, count, q = lm_kernel.evaluate(
+            pose, src.mean, src.normal, src.nsamples, src.planarity,
+            src.valid, tmw, tnw, tcw, tvalid, tgt.nsamples, tgt.planarity,
+            cost=code, loss=treg.loss_code(cfg.loss), delta=cfg.loss_limit,
+            radius=cfg.radius,
+            angle_gate_cos=float(np.cos(np.radians(cfg.angle_gate_deg))),
+            weight_option=cfg.weight_option,
+            regularization=cfg.regularization, cov_scale=cfg.cov_scale,
+            offsets=offs, pinv=pinv, cluster=k)
+        assert bits_differ(costs, want_costs) == 0, k
+        assert bits_differ(q, want_q) == 0, k
+        assert torch.equal(count, want_n), k
+
+
+@pytest.mark.cuda
+def test_a_cuda_tensor_never_reaches_the_plain_evaluation(cuda, monkeypatch):
+    """On CUDA tensors ``evaluate_cost`` and ``sampled_covariance`` are the
+    evaluation entry: neither the plain association nor the plain cost pass
+    is called, and the plain versions raise outside the test-only
+    ``plain_on_card``."""
+    from tbv_slam_public_torch.core.config import RegistrationConfig
+    from tbv_slam_public_torch.kernels.checks import window_problem
+    from tbv_slam_public_torch.ops import registration as treg
+
+    prob = window_problem(np.random.default_rng(6), 2, 1, 64, 64)
+    cfg = RegistrationConfig(cost="P2L")
+    args = _window_args(prob, cuda, cfg)[0][:5]
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain evaluation ran on a CUDA tensor")
+
+    monkeypatch.setattr(treg, "associate", refuse)
+    monkeypatch.setattr(treg, "_cost_only", refuse)
+    cost, n = treg.evaluate_cost(*args, cfg)
+    cov, convex = treg.sampled_covariance(*args, cfg, cost, n)
+    assert cost.is_cuda and n.is_cuda and cov.is_cuda and convex.is_cuda
+    with pytest.raises(RuntimeError, match="plain evaluate_cost"):
+        treg._evaluate_cost_reference(*args, cfg)
+    with pytest.raises(RuntimeError, match="plain sampled_covariance"):
+        treg._sampled_covariance_reference(*args, cfg, cost, n)
+
+
 @pytest.mark.cuda
 def test_refmath_loop_dot_matches_plain(cuda):
     """``loop_dot`` (the logistic gradient's sum in the reference's loop
@@ -1061,14 +1186,22 @@ def test_refmath_site_matches_plain(cuda, site):
 @pytest.mark.cuda
 def test_refmath_cumsum_matches_plain(cuda):
     """``detect``'s travelled distance in the reference's blocked order on
-    the card, bit for bit, at the capacities the loop stage uses."""
+    the card, bit for bit, at the capacities the loop stage uses, at every
+    level count of the one-block path, across its switch to the path that
+    keeps the levels in device memory (16,384 values), and up to 2^20."""
     from tbv_slam_public_torch.kernels import refmath as rm
 
     rng = np.random.default_rng(10)
-    for n in (1, 16, 17, 128, 1000, 1152, 4608, 70000):
+    for n in (1, 15, 16, 17, 128, 1000, 1152, 4608, 16 ** 3 + 1, 16384,
+              16385, 70000, 2 ** 20):
         x = torch.as_tensor(rng.uniform(0, 3, n).astype(np.float32))
         assert bits_differ(rm.cumsum(x.to(cuda)), rm._PLAIN["cumsum"](x)) \
             == 0, n
+    # a vector that is not 16-byte aligned, signed values and zeros
+    x = torch.as_tensor(rng.uniform(-3, 3, 4609).astype(np.float32))
+    x[::7] = 0.0
+    assert bits_differ(rm.cumsum(x.to(cuda)[1:]), rm._PLAIN["cumsum"](x[1:])) \
+        == 0
 
 
 @pytest.mark.cuda

@@ -7,7 +7,11 @@ the row independence of the plain CorAl moments, the CA-CFAR window
 sums above 2^24, the SoftLOne and Tukey losses at any loss limit, the
 logistic fit (the gradient's sum, the solve, the whole fit), the
 ScanContext rings and sectors, the two-value norms of the odometry gates
-and the loop search, and the subnormal Cauchy and combined weights.  Run as a program, the file prints the shares of
+and the loop search, the subnormal Cauchy and combined weights, and the
+subnormal flushing of the logistic solve and fit, the CorAl covariances,
+the eigen gates, the registration residuals and PGO's weights and
+information products (and the P2D whitening, which needs none).  Run as
+a program, the file prints the shares of
 bit-equal results on sensor-size scans (``--frames`` of them) for the
 package on the path, so the same command measures a tree before and after
 a change:
@@ -524,6 +528,291 @@ def test_subnormal_weights_flush_as_the_reference(loss, delta):
     got = treg._rho_and_weight(torch.as_tensor(s), code, delta)
     for g, w in zip(got, want):
         assert not _same_bits(g.numpy(), w).any()
+
+
+# ---- subnormal flushing (the reference's threads run with DAZ and FTZ) --
+#
+# Each site's inputs are driven into the subnormal range; where the site is
+# held bit for bit elsewhere it is held bit for bit here, elsewhere what a
+# flush changes is compared: zero against non-zero, a subnormal in the
+# port's output, a gate that flips.
+
+_MIN_NORMAL = np.float32(1.1754943508222875e-38)
+
+
+def _subnormals(x) -> int:
+    x = np.asarray(x, np.float32)
+    return int(((np.abs(x) < _MIN_NORMAL) & (x != 0)).sum())
+
+
+def _zero_pattern_differs(got, want) -> int:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return int(((got == 0) != (want == 0)).sum())
+
+
+def _spd(rng, n, lo, hi):
+    """n float32 SPD 2 x 2 matrices scaled by e^U(log lo, log hi)."""
+    a = rng.normal(size=(n, 2, 2))
+    c = a @ a.transpose(0, 2, 1) + 0.1 * np.eye(2)
+    return (c * np.exp(rng.uniform(np.log(lo), np.log(hi), n))[:, None, None]
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7])
+def test_lu_solve_flushes_subnormals_as_the_reference(k):
+    """The logistic fit's solve on systems whose entries, right-hand sides,
+    pivots and solutions reach the subnormal range (``checks.
+    lu_subnormal_systems``), bit-equal to the reference's
+    ``jnp.linalg.solve``: its LAPACK runs on the reference's thread, which
+    treats a subnormal operand as zero (a subnormal pivot too) and flushes
+    every subnormal result.  Before: 442 of 2,800 such systems differed
+    (subnormal solutions where the reference has zeros)."""
+    from tbv_slam_public_torch.kernels.checks import lu_subnormal_systems
+
+    h, g = lu_subnormal_systems(np.random.default_rng(200 + k), 100, k)
+    solve = jax.jit(jnp.linalg.solve)
+    want = np.stack([np.asarray(solve(h[i], g[i])) for i in range(len(h))])
+    got = tlogistic.solve(torch.as_tensor(h), torch.as_tensor(g)).numpy()
+    assert not _same_bits(got, want).any()
+    assert _subnormals(got) == 0
+
+
+def test_logistic_fit_flushes_subnormals_as_the_reference():
+    """The whole IRLS fit with features whose products with the IRLS
+    weights are subnormal (a column at 1e-36) or saturate the sigmoid,
+    bit-equal to the JAX package's: the ordered products (``dot``,
+    ``loop_dot``) and the solve flush their subnormal operands and results
+    as the reference's threads do.  Before: both fits with the 1e-36
+    column differed in a coefficient (the other two are guards)."""
+    for n, t in ((13, 0), (13, 1), (13, 2), (52, 2)):
+        rng = np.random.default_rng((2, n, t))
+        x = (rng.normal(size=(n, 6)) * np.exp(rng.uniform(-2, 2, (1, 6)))
+             ).astype(np.float32)
+        if t == 0:
+            x[:, 0] *= np.float32(60.0)  # saturated sigmoids
+        elif t == 1:
+            x[:, 1:3] = (x[:, 1:3] * 1e-19).astype(np.float32)
+        else:
+            x[:, 2] = (rng.normal(size=n) * 1e-36).astype(np.float32)
+        y = (rng.uniform(size=n) < 0.3).astype(np.float32)
+        y[0] = 1.0
+        want = jlogistic.fit(jnp.asarray(x), jnp.asarray(y), balanced=True)
+        got = tlogistic.fit(torch.as_tensor(x), torch.as_tensor(y),
+                            balanced=True)
+        assert not _same_bits(
+            np.r_[got.intercept.numpy(), got.coef.numpy()],
+            np.r_[np.asarray(want.intercept), np.asarray(want.coef)]
+        ).any(), (n, t)
+
+
+def test_coral_covariances_flush_subnormals_as_the_reference():
+    """CorAl's moments-to-covariance step on neighbourhoods of 3-5 points
+    spread over 1e-22 to 1e-17 m (second moments and covariances in the
+    subnormal range): the mean, the covariance, its determinant (the
+    product c01 c10, an operation of its own, flushed before the fused
+    subtraction) and the entropy bit-equal to the reference's; the KL
+    branch on such covariances keeps the reference's finite flags and
+    zeros (its inverse determinant and inverse entries flushed; its sums
+    are einsums, not held bit for bit).  Before: 10,194 of 16,000
+    covariance entries subnormal where the reference has zeros, 195 of
+    4,000 determinants and 11 of 4,000 KL flags differed."""
+    rng = np.random.default_rng(0)
+    m = 4000
+    n = rng.integers(3, 6, m).astype(np.float32)
+    scale = np.exp(rng.uniform(np.log(1e-22), np.log(1e-17), m))
+    pts = rng.normal(size=(m, 5, 2)) * scale[:, None, None]
+    live = (np.arange(5)[None] < n[:, None])[..., None]
+    d = (pts - pts[:, :1]) * live
+    s1 = d.sum(1).astype(np.float32)
+    s2 = np.einsum("nki,nkj->nij", d, d).astype(np.float32)
+    want_m, want_c = jax.jit(jcoral._mean_cov_from_moments)(n, s1, s2)
+    want_e = jax.jit(lambda *a: jcoral._entropy_from_moments(*a, 1e-8))(
+        n, s1, s2)
+    t = [torch.as_tensor(a) for a in (n, s1, s2)]
+    got_m, got_c = tcoral._mean_cov_from_moments(*t)
+    got_e = tcoral._entropy_from_moments(*t, 1e-8)
+    for g, w in ((got_m, want_m), (got_c, want_c), (got_e[0], want_e[0]),
+                 (got_e[1], want_e[1])):
+        assert not _same_bits(g.numpy(), w).any()
+    assert _subnormals(got_c.numpy()) == 0
+    # the KL branch: a tiny covariance beside a moderate one, both ways
+    ftz = trefmath.ftz
+    s_tiny = ftz(torch.as_tensor(_spd(rng, m, 1e-40, 1e-15)))
+    s_mid = ftz(torch.as_tensor(_spd(rng, m, 1e-25, 1e2)))
+    u0 = ftz(torch.as_tensor((rng.normal(size=(m, 2)) * 1e-20)
+                             .astype(np.float32)))
+    u1 = ftz(torch.as_tensor((rng.normal(size=(m, 2)) * np.exp(
+        rng.uniform(-50, 0, (m, 1)))).astype(np.float32)))
+    for s0, s1k in ((s_tiny, s_mid), (s_mid, s_tiny)):
+        want_s, want_f = jax.jit(jcoral._kl_divergence_2d)(
+            *(a.numpy() for a in (u0, s0, u1, s1k)))
+        got_s, got_f = tcoral._kl_divergence_2d(u0, s0, u1, s1k)
+        np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
+        assert _zero_pattern_differs(got_s.numpy(), want_s) == 0
+        assert _subnormals(got_s.numpy()) == 0
+
+
+def test_eigen_gates_flush_subnormals_as_the_reference():
+    """The CFEAR eigen gates (``eigh2x2``) on covariances of 1e-44 to 1e-15
+    (a third with a subnormal off-diagonal): no subnormal eigenvalue or
+    normal, and the reference's zeros, where before 794 eigenvalues were
+    subnormal and 1,106 normal entries were zero in one package only.  The
+    values are not held: near the subnormal range the products' last bits
+    are most of their value, and the function compiled alone fuses
+    otherwise than inside ``compute_cells``, whose form the port follows.
+    Then ``compute_cells`` on clouds with a cluster spread over 1e-21 to
+    1e-16 m at the origin: the same valid cells, with no subnormal field.
+    ``csrc/cells.cu`` runs the same flushes."""
+    rng = np.random.default_rng(1)
+    cov = _spd(rng, 4000, 1e-44, 1e-15)
+    off = (rng.normal(size=cov[::3, 0, 1].shape) * 1e-40).astype(np.float32)
+    cov[::3, 0, 1] = cov[::3, 1, 0] = off
+    want = jax.jit(jfeatures.eigh2x2)(cov)
+    got = tfeatures.eigh2x2(torch.as_tensor(cov))
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        assert _subnormals(g) == 0
+        assert _zero_pattern_differs(g, w) == 0
+    for seed in range(3):
+        r = np.random.default_rng(10 + seed)
+        tiny = r.normal(size=(300, 2)) * np.exp(r.uniform(np.log(1e-21),
+                                                          np.log(1e-16)))
+        xy = np.concatenate([tiny, r.uniform(-40, 40, (300, 2))]
+                            ).astype(np.float32)
+        inten = r.integers(61, 200, 600).astype(np.float32)
+        mask = r.uniform(size=600) > 0.05
+        want = jfeatures.compute_cells(
+            JPointCloud(xy=jnp.asarray(xy), intensity=jnp.asarray(inten),
+                        mask=jnp.asarray(mask)), JFeatureConfig())
+        got = tfeatures.compute_cells(
+            PointCloud(xy=torch.as_tensor(xy), intensity=torch.as_tensor(
+                inten), mask=torch.as_tensor(mask)), FeatureConfig())
+        np.testing.assert_array_equal(got.valid.numpy(),
+                                      np.asarray(want.valid))
+        for f in ("mean", "cov", "normal", "planarity"):
+            assert _subnormals(getattr(got, f).numpy()) == 0, f
+
+
+@pytest.mark.parametrize("cost", [jreg.COST_P2L, jreg.COST_P2D,
+                                  jreg.COST_P2P])
+def test_residual_terms_flush_subnormals_as_the_reference(cost):
+    """The registration's residuals, Jacobians and squared norms with cell
+    means, targets and P2D whitening at 1e-20 to 1e-17 (their products
+    subnormal), against the reference's ``_residual_terms``: J and the
+    squared norms bit for bit, the residuals too (P2D's agree in their
+    zeros and to 1e-6: the function compiled alone rounds its whitening
+    product otherwise than the odometry step the port follows).  Before:
+    up to 4,000 of 4,000 squared norms subnormal where the reference has
+    zeros.  The registration kernel runs the same flushes (``csrc/
+    lm_solve.cu::leaf``)."""
+    from tbv_slam_public_tpu.core.types import Cells as JCells
+    from tbv_slam_public_torch.core.types import Cells
+
+    rng = np.random.default_rng(cost)
+    c = 4000
+    for sc in (1e-20, 1e-18):
+        mean = (rng.normal(size=(1, c, 2)) * sc).astype(np.float32)
+        tm = (rng.normal(size=(1, 1, c, 2)) * sc).astype(np.float32)
+        tn = rng.normal(size=(1, 1, c, 2))
+        tn = (tn / np.linalg.norm(tn, axis=-1, keepdims=True) * np.exp(
+            rng.uniform(np.log(1e-25), 0, (1, 1, c, 1)))).astype(np.float32)
+        si = np.zeros((1, 1, c, 2, 2), np.float32)
+        si[..., 0, 0] = rng.uniform(1e-19, 1e-17, (1, 1, c))
+        si[..., 1, 1] = rng.uniform(1e-19, 1.0, (1, 1, c))
+        si[..., 0, 1] = rng.uniform(-1e-19, 1e-19, (1, 1, c))
+        theta = np.array([[sc, -sc, 1e-3]], np.float32)
+        w = np.ones((1, 1, c), np.float32)
+        mask = np.ones((1, 1, c), bool)
+        want = jax.jit(lambda th, m, a: jreg._residual_terms(
+            th, JCells(m, None, None, None, None, None, None), a, cost))(
+            theta[0], mean[0], jreg.Associations(tm[0], tn[0], si[0], w[0],
+                                                 mask[0]))
+        got = treg._residual_terms(
+            torch.as_tensor(theta),
+            Cells(torch.as_tensor(mean), None, None, None, None, None, None),
+            treg.Associations(torch.as_tensor(tm), torch.as_tensor(tn),
+                              torch.as_tensor(w), torch.as_tensor(mask),
+                              torch.as_tensor(si)
+                              if cost == jreg.COST_P2D else None), cost)
+        for i, (g, wv) in enumerate(zip(got, want)):
+            g = g[0].numpy()
+            wv = np.asarray(wv).reshape(g.shape)
+            assert _subnormals(g) == 0
+            if cost == jreg.COST_P2D and i == 0:
+                assert _zero_pattern_differs(g, wv) == 0
+                np.testing.assert_allclose(g, wv, rtol=1e-6, atol=0)
+            else:
+                assert not _same_bits(g, wv).any(), (sc, i)
+
+
+def test_chol2x2_whitening_needs_no_flush():
+    """Audited with no fault: the P2D whitening ``_chol2x2_inv_sqrt`` on
+    SPD matrices from 1e-25 to 1e-15 and from 1e15 to 1e25 is bit-equal to
+    the reference's (its clamps at 1e-20 keep every operand normal)."""
+    rng = np.random.default_rng(6)
+    for lo, hi in ((1e-25, 1e-15), (1e15, 1e25)):
+        m = _spd(rng, 4000, lo, hi)
+        want = jax.jit(jreg._chol2x2_inv_sqrt)(m)
+        got = treg._chol2x2_inv_sqrt(torch.as_tensor(m))
+        assert not _same_bits(got.numpy(), want).any()
+
+
+def test_pgo_weights_and_information_products_flush_as_the_reference():
+    """PGO with whitening entries from 1e-40 to 1e-15 (information
+    products subnormal) and loop residuals up to 1e19 (Cauchy weights
+    subnormal): the whitened residuals, Jacobian blocks, weights, gradient
+    and dense Hessian have the reference's zeros and no subnormal entry,
+    and agree with it to 1e-4 (its einsums and sums are not held bit for
+    bit).  Before: 138 of 1,200 residuals, 332 and 245 of 3,600 Jacobian
+    entries, 212 of 4,000 weights and 1,150 of 22,500 Hessian entries were
+    subnormal where the reference has zeros."""
+    from tbv_slam_public_tpu.core.config import PGOConfig as JPGOConfig
+    from tbv_slam_public_tpu.ops import posegraph as jpgo
+    from tbv_slam_public_torch.core.config import PGOConfig
+    from tbv_slam_public_torch.ops import posegraph as tpgo
+
+    rng = np.random.default_rng(3)
+    n, e = 50, 400
+    poses = np.cumsum(rng.normal(size=(n, 3)) * [1, 1, 0.1], 0).astype(
+        np.float32)
+    idx = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)], 1)
+    meas = rng.normal(size=(e, 3)).astype(np.float32)
+    si = np.zeros((e, 3, 3), np.float32)
+    for k in range(3):
+        si[:, k, k] = np.exp(rng.uniform(np.log(1e-40), np.log(1e-15), e))
+    si[:, 0, 1] = rng.normal(size=e) * 1e-39
+    etype = np.where(rng.uniform(size=e) < 0.5, 0, 1)
+    mask = np.ones(e, bool)
+    jed = jpgo.make_edges(idx.astype(np.int32), meas, si, etype, mask)
+    ted = tpgo.make_edges(idx, meas, si, etype, mask)
+    want = jax.jit(lambda p: jpgo._gradient_and_blocks(p, jed, JPGOConfig()))(
+        poses)
+    got = tpgo._gradient_and_blocks(torch.as_tensor(poses), ted, PGOConfig())
+    gauge = np.ones(n, bool)
+    gauge[0] = False
+    want_h = jax.jit(lambda b: jpgo._dense_hessian(n, jed, b, jnp.asarray(
+        gauge)))(want[2])
+    got_h = tpgo._dense_hessian(n, ted, got[2], torch.as_tensor(gauge))
+    want_r = jax.jit(lambda p: jpgo._edge_jacobians(p, jed))(poses)
+    got_r = tpgo._edge_jacobians(torch.as_tensor(poses), ted)
+    r = (rng.normal(size=(4000, 3)) * np.exp(rng.uniform(
+        np.log(1e15), np.log(1e19), (4000, 1)))).astype(np.float32)
+    et = np.where(np.arange(4000) % 4 == 0, 0, 1)
+    ones = np.ones((4000, 3), np.float32)
+    zeros = np.zeros((4000, 2), np.int32)
+    wj = jax.jit(lambda v: jpgo._cauchy_weights(v, jpgo.make_edges(
+        zeros, ones, ones, et, np.ones(4000, bool)), JPGOConfig()))(r)[1]
+    wt = tpgo._cauchy_weights(torch.as_tensor(r), tpgo.make_edges(
+        zeros, ones, ones, et, np.ones(4000, bool)), PGOConfig())[1]
+    pairs = list(zip(got_r, want_r)) + [(got[1], want[1]),
+                                        (got[2][0], want[2][0]),
+                                        (got_h, want_h), (wt, wj)]
+    for g, w in pairs:
+        g, w = g.numpy(), np.asarray(w)
+        assert _subnormals(g) == 0
+        assert _zero_pattern_differs(g, w) == 0
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=1e-6 * np.abs(w).max())
 
 
 def main(argv=None) -> int:
