@@ -35,14 +35,21 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    bound; its solve entry (``register_joint``'s LM solves) bit-equal to the
    plain solve over every cost x loss x prior x one_system; its evaluation
    entry (``evaluate_cost`` and ``sampled_covariance``, one launch a call:
-   one association, the cost at S poses over it, the sampled covariance's
-   fit) bit-equal to the plain versions over every cost x loss, the CFEAR
-   feature's and the loop registration's configurations at the paths'
-   shapes (an offline and an online loop wave, a training pair, an
-   evaluate-scans pair, the odometry window) and at forced cluster sizes,
-   timed in turns against the plain path beside its bound; and on every
-   path below, as refmath, counted and held at each shape the path gave
-   it;
+   one association, the cost at all S poses over it in one pass, the
+   sampled covariance's fit, its 3 x 3 covariance and convexity) bit-equal
+   to the plain versions over every cost x loss, the CFEAR feature's and
+   the loop registration's configurations at the paths' shapes (an offline
+   and an online loop wave, a training pair, an evaluate-scans pair, the
+   odometry window) and at forced cluster sizes, a sampled covariance
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+   synchronisation, no launch but the entry's and the world_targets
+   site's), timed in turns against the plain path beside its bound;
+   ``coral_tail`` (phase 2c: CorAl's per-point terms and the pairs' sums
+   after the moments, one launch a ``coral_quality``) bit-equal to its
+   plain version given the same moments in both modes at the paths'
+   shapes, timed in turns against the plain tail beside its bound; and on
+   every path below, as refmath, counted and held at each shape the path
+   gave it;
 3. the port's CLI: ``odometry`` then ``slam`` (default solver, and again
    with ``--solver cholesky``) on a small simulated sequence, then
    ``evaluate-scans`` on that checkpoint (in this process, with its kernel
@@ -1039,6 +1046,57 @@ def hold_evaluate(tag, kept) -> int:
     return len(kept)
 
 
+# coral_tail's launches by path, the shapes held there, and the paths that
+# verify pairs with CorAl in this process
+TAIL_LAUNCHES = {}
+TAIL_HELD = {}
+TAIL_PATHS = ("offline", "online", "evaluate_scans", "parallel_offline",
+              "dryrun")
+
+
+@contextlib.contextmanager
+def tail_inputs():
+    """For each (M, S, R, mode) that ``ops/coral.py::coral_tail`` is called
+    with on CUDA tensors inside the block, the first call's moments, masks
+    and result, copied on the card: ``{key: (args, eps, mode, result)}``."""
+    from tbv_slam_public_torch.ops import coral
+
+    kept = {}
+    real = coral.coral_tail
+
+    def keep(n, s1, s2, src_mask, ref_mask, eps=1e-8, mode="entropy"):
+        out = real(n, s1, s2, src_mask, ref_mask, eps, mode)
+        if n.is_cuda:
+            key = (src_mask.shape[0], src_mask.shape[1], ref_mask.shape[1],
+                   mode)
+            if key not in kept:
+                kept[key] = ([x.detach().clone() for x in
+                              (n, s1, s2, src_mask, ref_mask)], eps, mode,
+                             tuple(x.clone() for x in out))
+        return out
+
+    coral.coral_tail = keep
+    try:
+        yield kept
+    finally:
+        coral.coral_tail = real
+
+
+def hold_tail(tag, kept) -> int:
+    """Each kept ``coral_tail`` call against the plain version on its
+    moments on the card, bit for bit; returns the number of shapes held."""
+    from tbv_slam_public_torch.kernels.checks import bits_differ
+    from tbv_slam_public_torch.ops import coral
+
+    for key, (args, eps, mode, out) in kept.items():
+        want = coral.coral_tail_reference(*args, eps, mode)
+        bad = sum(bits_differ(g, w) for g, w in zip(out, want))
+        if bad:
+            raise AssertionError(f"{tag} coral_tail at {key}: {bad} values "
+                                 f"differ from the plain version")
+    return len(kept)
+
+
 # the cell_stats kernel's launches by path, the shapes held there, and the
 # paths that compute cells in this process
 CELLS_LAUNCHES = {}
@@ -1106,14 +1164,16 @@ def hold_cells(tag, kept) -> int:
 
 @contextlib.contextmanager
 def kernel_path(path):
-    """One path of the main run: the refmath, registration and cell_stats
-    kernels' counts are set to 0 just before the block and read just after
-    (``REFMATH_LAUNCHES[path]``: by op and site, ``LM_LAUNCHES[path]``:
-    window, solve and evaluate launches, ``CELLS_LAUNCHES[path]``), then
-    each kernel is held to its plain version at every op, site or shape the
-    path gave it (``REFMATH_HELD``, ``WINDOW_HELD``, ``LM_HELD``,
-    ``EVAL_HELD``, ``CELLS_HELD``)."""
+    """One path of the main run: the refmath, registration, cell_stats and
+    coral_tail kernels' counts are set to 0 just before the block and read
+    just after (``REFMATH_LAUNCHES[path]``: by op and site,
+    ``LM_LAUNCHES[path]``: window, solve and evaluate launches,
+    ``CELLS_LAUNCHES[path]``, ``TAIL_LAUNCHES[path]``), then each kernel is
+    held to its plain version at every op, site or shape the path gave it
+    (``REFMATH_HELD``, ``WINDOW_HELD``, ``LM_HELD``, ``EVAL_HELD``,
+    ``CELLS_HELD``, ``TAIL_HELD``)."""
     from tbv_slam_public_torch.kernels import cells as kc
+    from tbv_slam_public_torch.kernels import coral_moments as cm
     from tbv_slam_public_torch.kernels import lm_solve as lk
     from tbv_slam_public_torch.kernels import refmath as rm
 
@@ -1122,13 +1182,17 @@ def kernel_path(path):
     lk.LAUNCHES = 0
     lk.LAUNCHES_BY_ENTRY.clear()
     kc.LAUNCHES = 0
+    cm.TAIL_LAUNCHES = 0
     with refmath_inputs() as kept, lm_inputs() as lm_kept, \
             window_inputs() as win_kept, cells_inputs() as cells_kept, \
-            evaluate_inputs() as eval_kept:
+            evaluate_inputs() as eval_kept, tail_inputs() as tail_kept:
         yield
     REFMATH_LAUNCHES[path] = dict(rm.LAUNCHES_BY_OP, total=rm.LAUNCHES)
     LM_LAUNCHES[path] = dict(lk.LAUNCHES_BY_ENTRY, total=lk.LAUNCHES)
     CELLS_LAUNCHES[path] = kc.LAUNCHES
+    TAIL_LAUNCHES[path] = cm.TAIL_LAUNCHES
+    if cm.TAIL_LAUNCHES <= 0 and path in TAIL_PATHS:
+        raise AssertionError(f"the {path} path launched no coral_tail")
     if rm.LAUNCHES <= 0:
         raise AssertionError(f"the {path} path launched no refmath kernel")
     if lk.LAUNCHES <= 0 and (path in LM_PATHS or path.startswith("variant")):
@@ -1146,6 +1210,9 @@ def kernel_path(path):
     LM_HELD[path] = hold_lm(f"[{path}]", lm_kept)
     CELLS_HELD[path] = hold_cells(f"[{path}]", cells_kept)
     EVAL_HELD[path] = hold_evaluate(f"[{path}]", eval_kept)
+    TAIL_HELD[path] = hold_tail(f"[{path}]", tail_kept)
+    log(f"[coral_tail] {path}: {TAIL_LAUNCHES[path]} launches, bit-equal to "
+        f"the plain version at its {TAIL_HELD[path]} shapes")
     log(f"[refmath] {path}: {REFMATH_LAUNCHES[path]['total']} launches, "
         f"bit-equal to the plain version at its {REFMATH_HELD[path]} (op or "
         f"site, shapes); [registration] {LM_LAUNCHES[path]} launches, window "
@@ -1612,9 +1679,11 @@ EVAL_OPS_PER_LEAF = {"P2L": 28, "P2P": 24, "P2D": 39}
 def _evaluate_bound(b, t, c, ct, cost, s):
     """Least time of one evaluation call: the larger of its bytes (the
     source cells, the world-frame targets, the offsets and the fit's
-    pseudo-inverse read once, the costs, counts and fit written once) over
-    the memory rate and its float32 operations (one association, S
-    cost-only passes, the fit's 10 fused multiply-adds a sample) over the
+    pseudo-inverse read once, with the fit the score and residual count
+    read and the covariance and its flag written; the costs, counts and fit
+    written once) over the memory rate and its float32 operations (one
+    association, S cost-only passes, the fit's 10 fused multiply-adds a
+    sample; the 3 x 3 covariance's few hundred are left out) over the
     float32 rate."""
     n = t * c * (1 if cost == "P2L" else 2)
     fit = s > 1
@@ -1623,7 +1692,7 @@ def _evaluate_bound(b, t, c, ct, cost, s):
     nbytes = b * (12 + c * (8 + 8 + 4 + 4 + 1)
                   + t * ct * (8 + 8 + 1 + 4 + 4 + (16 if cost == "P2D"
                                                     else 0))
-                  + 4 * s + 8 + (40 if fit else 0)) \
+                  + 4 * s + 8 + (40 + 12 + 36 + 1 if fit else 0)) \
         + (12 * s + 40 * s if fit else 0)
     by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
     return dict(bound_ms=max(by_bytes, by_ops) * 1e3,
@@ -1646,12 +1715,14 @@ def _eval_cfg(kind):
 def phase_evaluation():
     """The registration kernel's evaluation entry against its plain
     versions on the card.  ``evaluate_cost`` (the cost and the residual
-    count) and ``sampled_covariance`` (its 27 costs and their fit from the
-    entry, the covariance and its convexity) bit for bit over every cost x
-    loss with the weight option 0-4 in turn, the CFEAR feature's and the
-    loop registration's configurations, at the paths' shapes; one evaluate
-    launch and one ``world_targets`` site launch a call, no other
-    registration launch; forced cluster sizes 1, 2, 4, 8 bit-identical;
+    count) and ``sampled_covariance`` (its 27 costs, their fit, the
+    covariance and its convexity, all from the one launch) bit for bit over
+    every cost x loss with the weight option 0-4 in turn, the CFEAR
+    feature's and the loop registration's configurations, at the paths'
+    shapes; one evaluate launch and one ``world_targets`` site launch a
+    call, no other launch, and a sampled covariance run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
+    forced cluster sizes 1, 2, 4, 8 bit-identical (the covariance too);
     then a call's time at each shape in turns against the plain path
     (kernel, plain, plain, kernel: CUDA events behind the device-side
     spin), the kernel's device time from the profiler, the bound and the
@@ -1676,8 +1747,8 @@ def phase_evaluation():
             rm.LAUNCHES_BY_OP.clear()
             cost, n_res = treg.evaluate_cost(*args, cfg)
             cov, convex = treg.sampled_covariance(*args, cfg, cost, n_res)
-            costs, count, q = treg._evaluate_on_card(*args, cfg, offsets=offs,
-                                                     pinv=pinv)
+            costs, count, q, _, _ = treg._evaluate_on_card(
+                *args, cfg, offsets=offs, pinv=pinv)
             if dict(lk.LAUNCHES_BY_ENTRY) != {"evaluate": 3} or \
                     dict(rm.LAUNCHES_BY_OP) != {"world_targets": 3}:
                 raise AssertionError(
@@ -1703,10 +1774,13 @@ def phase_evaluation():
             with lk.plain_on_card():
                 want_costs, want_q = treg._sampled_fit_reference(
                     *args, cfg, *EVAL_GRID)
+                score, n_res = treg.evaluate_cost(*args, cfg)
+                want_cov = treg._covariance_from_fit(want_q, code, score,
+                                                     n_res, 4.0)
             tmw, tnw, tcw, tvalid = treg._world_targets(args[2], args[3],
                                                         args[4], code)
             for k in (1, 2, 4, 8):
-                costs, _, q = lk.evaluate(
+                costs, _, q, cov, convex = lk.evaluate(
                     args[1], args[0].mean, args[0].normal,
                     args[0].nsamples, args[0].planarity, args[0].valid, tmw,
                     tnw, tcw, tvalid, args[2].nsamples, args[2].planarity,
@@ -1717,8 +1791,11 @@ def phase_evaluation():
                     weight_option=cfg.weight_option,
                     regularization=cfg.regularization,
                     cov_scale=cfg.cov_scale, offsets=offs, pinv=pinv,
+                    covariance=(score, n_res, 4.0, treg.DEFAULT_COV_DIAG),
                     cluster=k)
-                bad = bits_differ(costs, want_costs) + bits_differ(q, want_q)
+                bad = bits_differ(costs, want_costs) + bits_differ(
+                    q, want_q) + bits_differ(cov, want_cov[0]) + \
+                    bits_differ(convex, want_cov[1])
                 if bad:
                     raise AssertionError(f"[2b] evaluate {tag} at K={k}: "
                                          f"{bad} values differ")
@@ -1726,6 +1803,24 @@ def phase_evaluation():
         cost, n_res = treg.evaluate_cost(*args, cfg)
         score = cost.clone()
         sampled = lambda: treg.sampled_covariance(*args, cfg, score, n_res)
+        # a sampled covariance is one evaluate launch and one world_targets
+        # site launch, and never waits on the card
+        sampled()
+        torch.cuda.synchronize()
+        lk.LAUNCHES_BY_ENTRY.clear()
+        rm.LAUNCHES_BY_OP.clear()
+        rm_total, lk_total = rm.LAUNCHES, lk.LAUNCHES
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sampled()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if dict(lk.LAUNCHES_BY_ENTRY) != {"evaluate": 1} or \
+                dict(rm.LAUNCHES_BY_OP) != {"world_targets": 1} or \
+                rm.LAUNCHES != rm_total + 1 or lk.LAUNCHES != lk_total + 1:
+            raise AssertionError(
+                f"[2b] evaluate {tag}: a sampled covariance made "
+                f"{dict(lk.LAUNCHES_BY_ENTRY)} {dict(rm.LAUNCHES_BY_OP)}")
         single = lambda: treg.evaluate_cost(*args, cfg)
         entry = {}
         for name, call, s in (("sampled_covariance", sampled, 27),
@@ -1740,7 +1835,7 @@ def phase_evaluation():
             k2 = cuda_ms(call, 20)
             kernel_us = [us for kname, us in
                          device_us_by_kernel(call).items()
-                         if "registration_kernel" in kname]
+                         if "evaluation_kernel" in kname]
             if not kernel_us:
                 raise AssertionError(f"[2b] evaluate {tag} {name}: the "
                                      f"profiler saw no kernel time")
@@ -1763,7 +1858,91 @@ def phase_evaluation():
                           K=lk.cluster_size(b, tt, c, c, code, True), **entry)
     log(f"[2b] evaluate: bit-equal to the plain version in {held} calls "
         f"({len(EVAL_SHAPES)} shapes, forced cluster sizes included); one "
-        f"evaluate launch a call")
+        f"evaluate launch a call; a sampled covariance made no host "
+        f"synchronisation (sync debug mode \"error\")")
+    return dict(max_abs_err=0.0, held=held, times=times)
+
+
+# coral_tail's shapes on the paths: (M, slots a cloud, live share, live
+# slots first): an offline loop wave (64 pairs of 4,096-peak clouds), an
+# online loop closure's 12 candidates, a training pair's 13 perturbations
+# of the default 4,800-slot clouds (10 % live, live first) and an
+# evaluate-scans pair's 13 at SMALL's 1,600 slots (k_strongest = 4)
+TAIL_SHAPES = {"loop_wave": (64, 4096, 0.8, False),
+               "online_loop": (12, 4096, 0.8, False),
+               "training": (13, 4800, 0.1, True),
+               "scan_pairs": (13, 1600, 0.8, False)}
+# float32 operations a live query, counted from coral_tail_kernel in the
+# entropy mode (a fused multiply-add as two, ref_log's 32): the joint sums
+# 6, two means and covariances 2 x 26, two determinants 2 x 4, two
+# entropies 2 x 35, the window's two adds 2
+TAIL_OPS_PER_QUERY = 138
+
+
+def _tail_bound(sm, rm):
+    """Least time of one ``coral_tail`` launch: the larger of its bytes
+    (each live query's 14 moment floats and every mask byte read once, 13
+    bytes of outputs a pair written once) over the memory rate and its
+    float32 operations over the float32 rate."""
+    live = float(sm.sum() + rm.sum())
+    nbytes = 56.0 * live + sm.numel() + rm.numel() + 13.0 * sm.shape[0]
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = TAIL_OPS_PER_QUERY * live / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_coral_tail():
+    """(2c) ``coral_tail`` against its plain version on the card, given the
+    same moments (the pair kernel's on random clouds), bit for bit, in both
+    modes at the paths' shapes, one launch a call; then its time in turns
+    with the plain tail (kernel, plain, plain, kernel: CUDA events behind
+    the device-side spin), its bound and the host's us a call."""
+    from tbv_slam_public_torch.kernels import coral_moments as cm
+    from tbv_slam_public_torch.kernels.checks import bits_differ
+    from tbv_slam_public_torch.ops import coral
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(29)
+    held, times = 0, {}
+    for tag, (m, n, live, packed) in TAIL_SHAPES.items():
+        sx, sm, rx, rm = _moment_inputs(rng, m, n, n, dev, live, 15.0,
+                                        packed)
+        moments = cm.pair_moments(sx, sm, rx, rm, 1.0)
+        for mode in ("entropy", "kl"):
+            before = cm.TAIL_LAUNCHES
+            got = coral.coral_tail(*moments, sm, rm, 1e-8, mode)
+            if cm.TAIL_LAUNCHES != before + 1:
+                raise AssertionError(f"[2c] coral_tail {tag}: "
+                                     f"{cm.TAIL_LAUNCHES - before} launches")
+            want = coral.coral_tail_reference(*moments, sm, rm, 1e-8, mode)
+            bad = sum(bits_differ(g, w) for g, w in zip(got, want))
+            if bad or not bool(got.overlap.max() > 0):
+                raise AssertionError(f"[2c] coral_tail {tag} {mode}: {bad} "
+                                     f"values differ (or no overlap)")
+            held += 1
+        call = lambda: coral.coral_tail(*moments, sm, rm, 1e-8, "entropy")
+        plain = lambda: coral.coral_tail_reference(*moments, sm, rm, 1e-8,
+                                                   "entropy")
+        k1 = cuda_ms(call, 20)
+        p1 = cuda_ms(plain, 2)
+        p2 = cuda_ms(plain, 2)
+        k2 = cuda_ms(call, 20)
+        bound = _tail_bound(sm, rm)
+        ms = min(k1, k2)
+        times[tag] = dict(M=m, slots=2 * n, live=live, ms=ms,
+                          ms_turns=[k1, k2], plain_ms=min(p1, p2),
+                          plain_ms_turns=[p1, p2], host_us=host_us(call, 20),
+                          plain_host_us=host_us(plain, 3),
+                          share=_share(f"coral_tail {tag}",
+                                       bound["bound_ms"], ms), **bound)
+        log(f"[2c] coral_tail {tag} M={m} Q=2x{n} {live:.0%} live: "
+            f"{k1:.4f} / {k2:.4f} ms (bound {bound['bound_ms']:.6f} ms by "
+            f"{bound['bound_by']}, {100 * times[tag]['share']:.1f} %), plain "
+            f"{p1:.3f} / {p2:.3f} ms, host {times[tag]['host_us']:.1f} us a "
+            f"call (plain {times[tag]['plain_host_us']:.1f})")
+    log(f"[2c] coral_tail: bit-equal to the plain version in {held} calls "
+        f"({len(TAIL_SHAPES)} shapes x 2 modes), one launch a call")
     return dict(max_abs_err=0.0, held=held, times=times)
 
 
@@ -3215,6 +3394,7 @@ def main(argv=None) -> int:
     sites = phase_refmath_sites()
     lm_k = phase_registration()
     eval_k = phase_evaluation()
+    tail_k = phase_coral_tail()
     done("1-2")
     plain_trajectory, scan_launches = phase_cli()
     done("3")
@@ -3323,7 +3503,25 @@ def main(argv=None) -> int:
                              for p, v in LM_LAUNCHES.items()
                              if not p.startswith("ranks")},
         "ranks_launches": LM_LAUNCHES.get("ranks_evaluate"),
-        "shapes_held_by_path": EVAL_HELD}],
+        "shapes_held_by_path": EVAL_HELD,
+        "design": "all S poses in one pass over the records, the 3 x 3 "
+                  "covariance in the launch (no library call, no host "
+                  "synchronisation)"}, {
+        "name": "coral_tail", "route": "cuda",
+        "source": "tbv_slam_public_torch/csrc/coral_moments.cu",
+        "replaces": "tbv_slam_public_tpu/ops/coral.py:118 (no TPU kernel: "
+                    "XLA fuses _coral_impl's tail around the Pallas call; "
+                    "the port's plain version is ops/coral.py::"
+                    "coral_tail_reference)",
+        "launches": TAIL_LAUNCHES["offline"],
+        "max_abs_err": tail_k["max_abs_err"],
+        "ms": tail_k["times"]["loop_wave"]["ms"],
+        "plain_ms": tail_k["times"]["loop_wave"]["plain_ms"],
+        "bound_ms": tail_k["times"]["loop_wave"]["bound_ms"],
+        "bound_by": tail_k["times"]["loop_wave"]["bound_by"],
+        "library_ms": None, "times": tail_k["times"],
+        "calls_held": tail_k["held"], "launches_by_path": TAIL_LAUNCHES,
+        "shapes_held_by_path": TAIL_HELD}],
         "variants": variants, "batched": batched, "rest": rest,
         "schur_twice": schur_twice, "parallel": parallel,
         "phase_s": phase_s}))

@@ -12,7 +12,12 @@ each held bit for bit against the plain version on the card.  ``window``:
 seed 17), the kernel's device time a launch from ``torch.profiler``, the
 call's time by CUDA events behind a spin long enough for the host to
 enqueue every call, and the host's microseconds a call; its outputs'
-digest shows whether two trees compute the same bits.
+digest shows whether two trees compute the same bits.  ``moments``: the
+CorAl ``pair_moments`` kernel at an offline loop wave's shape (M = 64,
+4,096-slot clouds, 80 % live), by events, with a digest.  ``evaluate``:
+``sampled_covariance`` at an offline loop wave's shape (64 pairs, P2L),
+the evaluation kernel's device time, the call's time by events and the
+host's microseconds, with a digest of the covariances.
 
 A run is a fresh process on one tree (its package first on ``sys.path``)
 with optional ``nvcc`` defines (``csrc/cells.cu`` reads ``CELLS_WARPS``,
@@ -23,8 +28,8 @@ order is the variants, then backwards, so that drift of the card shows.
 One JSON line a run, then one with all runs and the card's name and power
 limit:
 
-    python3 scripts/time_cells.py [--sets phase4,cfear3_oxford,window] \
-        VARIANT ...
+    python3 scripts/time_cells.py \
+        [--sets phase4,cfear3_oxford,window,moments,evaluate] VARIANT ...
 """
 import argparse
 import hashlib
@@ -161,6 +166,81 @@ def window_set(reps, dev):
                 digest=digest.hexdigest()[:16])
 
 
+def moments_set(reps, dev):
+    """``pair_moments`` (the CorAl moments kernel) at an offline loop
+    wave's shape: M = 64 pairs of 4,096-slot clouds, 80 % live (as
+    ``chip_smoke.py``'s phase 2, seed 19)."""
+    import numpy as np
+    import torch
+
+    from tbv_slam_public_torch.kernels import coral_moments as cm
+
+    rng = np.random.default_rng(19)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    args = [t(rng.uniform(-60, 60, (64, 4096, 2)).astype(np.float32)),
+            t(rng.uniform(size=(64, 4096)) < 0.8),
+            t(rng.uniform(-60, 60, (64, 4096, 2)).astype(np.float32)),
+            t(rng.uniform(size=(64, 4096)) < 0.8)]
+    call = lambda: cm.pair_moments(*args, 1.0)
+    digest = hashlib.sha256()
+    for v in call():
+        digest.update(v.cpu().numpy().tobytes())
+    return dict(ms=events_ms(call, reps, 200_000_000),
+                host_us=host_us(call, 50), digest=digest.hexdigest()[:16])
+
+
+def evaluate_set(reps, dev):
+    """``sampled_covariance`` at an offline loop wave's shape (64 pairs of
+    512 cells against one target scan, P2L, the loop registration's
+    configuration): the evaluation kernel's device time a launch from
+    ``torch.profiler``, the call's time by CUDA events and the host's
+    microseconds a call (a tree whose covariance reads back to the host
+    waits there)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tbv_slam_public_torch.core.config import TBVConfig
+    from tbv_slam_public_torch.core.types import Cells
+    from tbv_slam_public_torch.kernels.checks import window_problem
+    from tbv_slam_public_torch.models import loopclosure
+    from tbv_slam_public_torch.ops import registration as treg
+
+    prob = window_problem(np.random.default_rng(23), 64, 1, 512, 512)
+    t = lambda k: torch.as_tensor(prob[k], device=dev)
+
+    def cells(side):
+        f = lambda k: t(f"{side}_{k}")
+        return Cells(mean=f("mean"), cov=f("cov"), normal=f("normal"),
+                     nsamples=f("nsamples"), planarity=f("planarity"),
+                     avg_intensity=torch.zeros_like(f("nsamples")),
+                     valid=f("valid"))
+
+    cfg = loopclosure._loop_registration_cfg(TBVConfig())
+    args = (cells("src"), t("pose0"), cells("tgt"), t("tgt_poses"),
+            t("scan_mask"), cfg)
+    score, n_res = treg.evaluate_cost(*args)
+    call = lambda: treg.sampled_covariance(*args, score, n_res)
+    cov, convex = call()
+    digest = hashlib.sha256()
+    for v in (cov, convex):
+        digest.update(v.cpu().numpy().tobytes())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    kernel = [e for e in prof.key_averages() if e.device_time_total > 0 and (
+        "registration_kernel" in e.key or "evaluation_kernel" in e.key)]
+    if not kernel:
+        raise AssertionError("evaluate: the profiler saw no kernel time")
+    return dict(ms=kernel[0].device_time_total / kernel[0].count / 1e3,
+                events_ms=events_ms(call, reps, 400_000_000),
+                host_us=host_us(call, 50), convex=int(convex.sum()),
+                digest=digest.hexdigest()[:16])
+
+
 def run(tree: str, defines: list, sets: list, reps: int) -> dict:
     """One variant, in this process."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -173,8 +253,10 @@ def run(tree: str, defines: list, sets: list, reps: int) -> dict:
     build.library()
     dev = torch.device("cuda")
     out = dict(tree=tree, defines=defines)
+    named = dict(window=window_set, moments=moments_set,
+                 evaluate=evaluate_set)
     for name in sets:
-        out[name] = (window_set(reps, dev) if name == "window"
+        out[name] = (named[name](reps, dev) if name in named
                      else cloud_set(name, reps, dev))
     return out
 

@@ -34,8 +34,11 @@ own functions on the same inputs (``tests/test_torch_refmath.py``).
 | ``ops/logistic.py::gradient`` | xb^T (sw (p - y)): XLA's scalar loop with reassociable adds, vectorised by LLVM in an order that depends on n (:func:`loop_dot_shape`) | object code of ``copy_dot_fusion`` at n = 13-1287; the product compiled alone held bit-equal at every n from 1 to 700 and at 13 k up to 1,560 (4 and 7 outputs) | :func:`loop_dot` |
 | ``ops/logistic.py::solve`` | ``jnp.linalg.solve`` of the fit's 4x4 / 7x7 system: jaxlib's ``lapack_sgetrf_ffi`` and two ``lapack_strsm_ffi`` (unit lower, then upper), which call SciPy's OpenBLAS (0.3.30, its SkylakeX kernels here), the right-hand side permuted by the pivots | optimized HLO of ``logistic.fit``; ``objdump -d`` of the library: ``sgetrf_single`` (unblocked below 2 x 4 columns), ``sgetf2_k``, ``sdot_k``, ``sgemv_n`` (its small-n path and its n = 4 remainders), the generic ``trsm_kernel_LT``/``_LN``, ``trsm_iunncopy`` and the ``sgemm_kernel`` update they call (its scalar edge: a fused multiply-add chain in k order, then c + alpha acc once); SciPy's factors and solves bit-equal on 63,000 systems, k = 1-7 (the fit's matrices, general, integer-valued with ties in magnitude, entries over e^+-30, zero pivots) | :func:`lu_solve` |
 | ``ops/scancontext.py::_travel`` (``detect``'s travelled distance) | ``jnp.cumsum`` as XLA's reduce-window rewrite: rows of 16 summed in order from zero, the rows' totals scanned the same way (recursively), shifted by one row and added | optimized HLO of ``detect`` at capacities 256, 1000 and 4608 | :func:`blocked_cumsum` (kernel entry ``cumsum``) |
-| ``ops/features.py`` the CFEAR weight sum | ``jnp.sum`` of a long row as XLA's CPU tree reduction: windows of 32 points (half the padding, rounded down, in front) summed in order from zero, recursively | optimized HLO of the masked row sum | ``ops/features.py::_tree_sum`` (``csrc/cells.cu`` on the card) |
-| subnormal operands and results of the functions above, of :func:`dot`, :func:`loop_dot` and :func:`lu_solve` (jaxlib runs the LAPACK on the same thread), and at the audited sites (CorAl's covariance and KL inverse, the eigen gates and the cells' covariance, the registration residuals, PGO's residuals, Jacobian blocks, weights, gradient and Hessian blocks, the logistic fit's coefficients) | flushed to zero (the reference's threads run with DAZ and FTZ) | outputs on inputs driven into the subnormal range, against the package's own functions (``tests/test_torch_parity_faults.py``, the ``flush`` cases) | :func:`ftz` (kernel op ``ftz`` on the card) |
+| ``ops/features.py`` the CFEAR weight sum | ``jnp.sum`` of a long row as XLA's CPU tree reduction: windows of 32 points (half the padding, rounded down, in front) summed in order from zero, recursively | optimized HLO of the masked row sum (and of ``_coral_impl``'s masked sums over the merged query slots) | :func:`tree_sum` (``csrc/cells.cu`` and ``csrc/coral_moments.cu``'s ``coral_tail`` on the card) |
+| ``ops/registration.py::_covariance_from_fit`` | ``jnp.linalg.eigvalsh`` of the 3 x 3 Hessian: jaxlib's ``lapack_ssyevd_ffi`` with vectors (``ssytd2``'s reflector, then ``ssteqr``: implicit QL / QR, ``slartg``, ``slaev2``); the guarded ``jnp.linalg.inv``: ``sgetrf``, then ``strsm`` against the permuted identity | optimized HLO of the function; ``objdump -d`` of ``ssyevd_``, ``ssytd2_``, ``ssteqr_``, ``slartg_``, ``slae2_``/``slaev2_``, ``slapy2_`` (no fused multiply-add in the LAPACK) and the SkylakeX ``ssymv``/``sdot``/``saxpy``/``ssyr2`` kernels they call (fused); eigenvalues bit-equal on 20,000 symmetric matrices (convex, indefinite, near-singular, any scale), inverses on 20,000 | :func:`eigvalsh3`, :func:`inv3` (``csrc/refmath.cuh``'s ``la_eigvalsh3``, ``lu_factor``, ``lu_apply`` in the evaluation entry) |
+| ``ops/registration.py::associate`` squared distances (argmin and radius gate) | fma(dy, dy, dx*dx) (the argmin's fusion), the offsets, product and sum flushed; the winner's attributes read through a one-hot product (a subnormal attribute is zero) | object code of the argmin fusion; the jitted ``associate`` on a radius between the two roundings | ``associate``, ``csrc/lm_solve.cu``'s ``sqdist`` |
+| ``ops/coral.py::_kl_divergence_2d`` | tr(S1^-1 S0) a ``dot`` of the four products in order, each rounded; the Mahalanobis term two dots of fused multiply-adds from zero | optimized HLO of the function; its einsums compiled alone, bit-equal | written out (``csrc/coral_moments.cu``'s ``coral_tail`` alike) |
+| subnormal operands and results of the functions above, of :func:`dot`, :func:`loop_dot`, :func:`lu_solve` and :func:`fma` (``vfmadd`` flushes; jaxlib runs the LAPACK on the same thread), and at the audited sites (CorAl's moment sums, covariance and KL inverse, the eigen gates and the cells' covariance, the association's distances and attributes, the registration residuals and the LM's products w J [J | r], PGO's residuals, Jacobian blocks, weights, gradient and Hessian blocks, the logistic fit's coefficients) | flushed to zero (the reference's threads run with DAZ and FTZ) | outputs on inputs driven into the subnormal range, against the package's own functions (``tests/test_torch_parity_faults.py``, the ``flush`` cases) | :func:`ftz` (kernel op ``ftz`` on the card; ``daz``/``ref_fma`` in the kernels) |
 
 Fused multiply-adds inside the functions:
 
@@ -62,8 +65,11 @@ What the reference computes otherwise and the port does not (yet) is in
 ``ROADMAP.md`` section 3: the sums over many terms (voxels, the LM's cost,
 gradient and Hessian),
 the fit at wave sizes other than 64, the LM solve's x1 in vmapped code,
-and the CFEAR eigen-decomposition's sqrt (bit-equal with :func:`sqrt`, left
-at torch's while the LM's sums are not the reference's).
+the CFEAR eigen-decomposition's sqrt (bit-equal with :func:`sqrt`, left
+at torch's while the LM's sums are not the reference's) and the
+association's normal-direction sum (fused by the reference's ``associate``
+compiled alone; left as two roundings while the LM's sums are not the
+reference's).
 """
 from __future__ import annotations
 
@@ -95,18 +101,15 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return ftz(x.to(_F32)).to(_F64).sqrt().to(_F32)
 
 
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a*b + c with a single rounding.
+def _fused(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 of p + c for float64 p (an exact float32 product) and c
+    (a float32), rounded once.
 
-    The product is exact in float64, so the float64 sum is off the exact
-    value by less than half its ulp and rounds to the same float32 unless
-    it lies on a float32 tie (or in float32's subnormal range).  Those few
-    are rounded to odd first (the exact remainder decides the last bit),
-    which makes the float32 rounding the correctly rounded fused result."""
-    a, b, c = torch.broadcast_tensors(torch.as_tensor(a), torch.as_tensor(b),
-                                      torch.as_tensor(c))
-    p = a.to(_F64) * b.to(_F64)
-    c = c.to(_F64)
+    The float64 sum is off the exact value by less than half its ulp and
+    rounds to the same float32 unless it lies on a float32 tie (or in
+    float32's subnormal range).  Those few are rounded to odd first (the
+    exact remainder decides the last bit), which makes the float32 rounding
+    the correctly rounded fused result."""
     s = p + c
     tie = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | \
         (torch.abs(s) < _MIN_NORM)
@@ -119,6 +122,32 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
                              torch.full_like(s, -math.inf))
         s = torch.where(fix, torch.nextafter(s, toward), s)
     return s.to(_F32)
+
+
+def _fma_normal(a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor) -> torch.Tensor:
+    """float32 a*b + c with a single rounding and no flush: the polynomial
+    steps of :func:`exp`, :func:`log` and :func:`log1p`, whose operands
+    and results are normal (their input flushed first), and the LM step
+    :func:`lm_update`, as ``refmath.cuh`` computes them."""
+    a, b, c = torch.broadcast_tensors(torch.as_tensor(a), torch.as_tensor(b),
+                                      torch.as_tensor(c))
+    return _fused(a.to(_F64) * b.to(_F64), c.to(_F64))
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a*b + c with a single rounding (:func:`_fused`), subnormal
+    operands counted as zero and a subnormal result zero (the reference's
+    threads run with DAZ and FTZ): ``vfmadd`` itself flushes, so every
+    fused multiply-add of the reference's program does."""
+    a, b, c = torch.broadcast_tensors(torch.as_tensor(a), torch.as_tensor(b),
+                                      torch.as_tensor(c))
+    a, b, c = a.to(_F32), b.to(_F32), c.to(_F32)
+    # a subnormal operand is zero: the product times 0 where either factor
+    # is below FLT_MIN (a zero or NaN stays itself, with its sign)
+    p = a.to(_F64) * b.to(_F64) * torch.ge(
+        torch.minimum(a.abs(), b.abs()), _MIN_NORM)
+    return ftz(_fused(p, c.to(_F64) * torch.ge(c.abs(), _MIN_NORM)))
 
 
 def fma64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -155,6 +184,13 @@ def recip(c: float) -> float:
     return float(torch.tensor(1.0, dtype=_F32) / torch.tensor(c, dtype=_F32))
 
 
+def f32_ftz(x: float) -> float:
+    """The float32 nearest x, zero where that is subnormal: a constant as
+    the reference's threads read it (DAZ)."""
+    v = float(torch.tensor(x, dtype=_F32))
+    return v if abs(v) >= _MIN_NORM else 0.0 * v
+
+
 def ftz(x: torch.Tensor) -> torch.Tensor:
     """The reference's threads run with denormals-are-zero and
     flush-to-zero: a subnormal operand or result of its float arithmetic
@@ -187,14 +223,14 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 exp."""
     x = _clamp_nan(ftz(x.to(_F32)), _EXP_LO, _EXP_HI)
     one = torch.ones_like(x)
-    fx = torch.floor(fma(x, one * _LOG2E, one * 0.5))
+    fx = torch.floor(_fma_normal(x, one * _LOG2E, one * 0.5))
     fx = _clamp_nan(fx, -127.0, 127.0)
     r = x - fx * _C1
-    r = fma(-fx, one * _C2, r)
-    y = fma(r, one * _EXP_P[0], one * _EXP_P[1])
+    r = _fma_normal(-fx, one * _C2, r)
+    y = _fma_normal(r, one * _EXP_P[0], one * _EXP_P[1])
     for c in _EXP_P[2:] + [0.5]:
-        y = fma(y, r, one * c)
-    y = fma(y, r * r, r)
+        y = _fma_normal(y, r, one * c)
+    y = _fma_normal(y, r * r, r)
     y = y + 1.0
     n = torch.where(torch.isnan(fx), torch.zeros_like(fx), fx)
     scale = _from_bits((n.to(torch.int32) + 127) << 23)
@@ -233,15 +269,15 @@ def _log_core(x: torch.Tensor) -> torch.Tensor:
     x2 = x * x
     x3 = x2 * x
     p = _LOG_P
-    y = fma(x, one * p[0], one * p[1])
-    y1 = fma(x, one * p[3], one * p[4])
-    y2 = fma(x, one * p[6], one * p[7])
-    y = fma(y, x, one * p[2])
-    y1 = fma(y1, x, one * p[5])
-    y2 = fma(y2, x, one * p[8])
-    y = fma(y, x3, y1)
-    y = fma(y, x3, y2)
-    y = fma(y, x3, e * _C2)
+    y = _fma_normal(x, one * p[0], one * p[1])
+    y1 = _fma_normal(x, one * p[3], one * p[4])
+    y2 = _fma_normal(x, one * p[6], one * p[7])
+    y = _fma_normal(y, x, one * p[2])
+    y1 = _fma_normal(y1, x, one * p[5])
+    y2 = _fma_normal(y2, x, one * p[8])
+    y = _fma_normal(y, x3, y1)
+    y = _fma_normal(y, x3, y2)
+    y = _fma_normal(y, x3, e * _C2)
     y = (x - 0.5 * x2) + y
     y = y + e * _C1
     out = torch.where(invalid, torch.full_like(y, math.nan), y)
@@ -270,12 +306,12 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
     z0 = x * 0.0
     q = z0 + 1.0
     for c in _L1P_Q:
-        q = fma(q, x, one * c)
+        q = _fma_normal(q, x, one * c)
     p = z0 + _L1P_P[0]
     for c in _L1P_P[1:]:
-        p = fma(p, x, one * c)
+        p = _fma_normal(p, x, one * c)
     r = (x * x2) * (p / q)
-    small = x + fma(x2, one * -0.5, r)
+    small = x + _fma_normal(x2, one * -0.5, r)
     return torch.where(torch.abs(x) < _L1P_SMALL, small, _log_core(x + 1.0))
 
 
@@ -551,6 +587,35 @@ def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
     return (inner + before[:, None]).reshape(-1)[:n]
 
 
+#: window of the reference's tree reduction (XLA's CPU tree-reduction
+#: rewrite of a long row sum)
+TREE_WINDOW = 32
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """sum over the last axis as the reference's compiled ``jnp.sum`` of a
+    long row adds (its optimized HLO, jax 0.9.0 CPU: reduce-windows of 32
+    with stride 32, the row padded with zeros to a multiple of 32, half the
+    padding (rounded down) in front, each window summed in order from zero,
+    the windows' sums reduced the same way until at most 32 are left, which
+    are summed in order from zero): the CFEAR weight sum and CorAl's masked
+    entropy sums over a pair's merged query slots."""
+    n = x.shape[-1]
+    if n <= TREE_WINDOW:
+        acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for k in range(n):
+            acc = acc + x[..., k]
+        return acc
+    m = -(-n // TREE_WINDOW)
+    pad = m * TREE_WINDOW - n
+    xp = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).reshape(
+        x.shape[:-1] + (m, TREE_WINDOW))
+    acc = torch.zeros(xp.shape[:-1], dtype=x.dtype, device=x.device)
+    for k in range(TREE_WINDOW):
+        acc = acc + xp[..., k]
+    return tree_sum(acc)
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """out[..., c] = sum_k a[..., k] * b[c, k] in float32, one fused
     multiply-add a term in k order from zero, so every row is rounded alike
@@ -559,7 +624,7 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = ftz(a), ftz(b)
     out = torch.zeros(a.shape[:-1] + b.shape[:1], dtype=_F32, device=a.device)
     for k in range(a.shape[-1]):
-        out = ftz(fma(a[..., k:k + 1], b[:, k], out))
+        out = fma(a[..., k:k + 1], b[:, k], out)
     return out
 
 
@@ -622,7 +687,7 @@ def loop_dot(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if mode == "in_order":
         acc = zeros(1)[:, 0]
         for k in range(n):
-            acc = ftz(fma(x[:, k], v[k].expand(k_rows), acc))
+            acc = fma(x[:, k], v[k].expand(k_rows), acc)
         return acc
     passes = (n - 1) // (8 * ic)
 
@@ -633,13 +698,13 @@ def loop_dot(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if mode == "unrolled":
         acc = zeros(8)
         for c in loop_chunk_order(passes, ic):
-            acc = ftz(fma(*chunk(c), acc))
+            acc = fma(*chunk(c), acc)
     else:
         accs = []
         for j in range(ic):
             a = zeros(8)
             for i in range(passes):
-                a = ftz(fma(*chunk(ic * i + j), a))
+                a = fma(*chunk(ic * i + j), a)
             accs.append(a)
         acc = accs[0]
         for a in accs[1:]:
@@ -650,11 +715,11 @@ def loop_dot(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if m:
         e = torch.cat([s[:, None], zeros(vf - 1)], 1)
         for i in range(m):
-            e = ftz(fma(*chunk(i, vf, done), e))
+            e = fma(*chunk(i, vf, done), e)
         s = _lane_tree(e)
         done += vf * m
     for k in range(done, n):
-        s = ftz(fma(x[:, k], v[k].expand(k_rows), s))
+        s = fma(x[:, k], v[k].expand(k_rows), s)
     return s
 
 
@@ -668,6 +733,9 @@ def lm_update(theta: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     product is fused where the reference solves one system (its unbatched
     odometry step, scalar code: ``one_system``), the b0 product where it
     solves a batch (vectorised code; there x1 is not always its bits)."""
+    # not flushed: its inputs are sums of normal products (csrc's lm_update3
+    # alike)
+    fma = _fma_normal
     a00, a01, a02 = a[..., 0, 0], a[..., 0, 1], a[..., 0, 2]
     a10, a11, a12 = a[..., 1, 0], a[..., 1, 1], a[..., 1, 2]
     a20, a21, a22 = a[..., 2, 0], a[..., 2, 1], a[..., 2, 2]
@@ -718,8 +786,7 @@ def _strided_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     n = x.shape[1]
     acc = torch.zeros(x.shape[0], dtype=_F64, device=x.device)
     for p in range(0, n - 1, 2):
-        acc = acc + ftz(fma(x[:, p], y[:, p],
-                            ftz(x[:, p + 1] * y[:, p + 1]))).to(_F64)
+        acc = acc + fma(x[:, p], y[:, p], x[:, p + 1] * y[:, p + 1]).to(_F64)
     if n % 2:
         acc = acc + ftz(x[:, n - 1] * y[:, n - 1]).to(_F64)
     return ftz(acc.to(_F32))
@@ -731,7 +798,7 @@ def _chain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     ``sgemm`` kernels at these shapes), each result flushed (FTZ)."""
     acc = torch.zeros(a.shape[:2], dtype=_F32, device=a.device)
     for k in range(a.shape[2]):
-        acc = ftz(fma(a[:, :, k], x[:, k:k + 1], acc))
+        acc = fma(a[:, :, k], x[:, k:k + 1], acc)
     return acc
 
 
@@ -804,8 +871,8 @@ def lu_solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                            x[:, e:]], 1)
         for i in range(s, e):
             x = x.clone()
-            x[:, i + 1:e] = ftz(fma(-x[:, i:i + 1], a[:, i + 1:e, i],
-                                    x[:, i + 1:e]))
+            x[:, i + 1:e] = fma(-x[:, i:i + 1], a[:, i + 1:e, i],
+                                x[:, i + 1:e])
     for s, e in blocks[::-1]:  # the upper factor, from the bottom
         if e < k:
             x = torch.cat([x[:, :s], ftz(x[:, s:e] - _chain(a[:, s:e, e:],
@@ -814,5 +881,300 @@ def lu_solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         for i in range(e - 1, s - 1, -1):
             x = x.clone()
             x[:, i] = ftz(x[:, i] * ftz(one / a[:, i, i]))
-            x[:, s:i] = ftz(fma(-x[:, i:i + 1], a[:, s:i, i], x[:, s:i]))
+            x[:, s:i] = fma(-x[:, i:i + 1], a[:, s:i, i], x[:, s:i])
     return x.reshape(lead + (k,))
+
+
+# ---- the 3 x 3 symmetric eigenvalues and inverse of jaxlib's LAPACK -------
+#
+# ``sampled_covariance``'s convexity is ``jnp.all(jnp.linalg.eigvalsh(h) >
+# 0)`` and its guarded inverse ``jnp.linalg.inv``.  On the CPU jaxlib calls
+# SciPy's OpenBLAS 0.3.30 (LAPACK 3.12, SkylakeX kernels) for both, on the
+# reference's thread (DAZ and FTZ): ``lapack_ssyevd_ffi`` with eigenvectors
+# (eigvalsh is eigh's values), and ``lapack_sgetrf_ffi`` then two
+# ``lapack_strsm_ffi`` against the permuted identity (:func:`lu_solve`, a
+# right-hand side a column).  At n = 3 ``ssyevd`` runs ``ssytrd``'s
+# unblocked ``ssytd2`` (one Householder reflector) and, through ``sstedc``
+# (n below its divide size), ``ssteqr``: implicit QL or QR with
+# ``slartg`` rotations, ``slaev2`` on 2 x 2 blocks.  Read from the
+# library's object code (``objdump -d``): the LAPACK routines are compiled
+# without fused multiply-adds and evaluate in source order; the BLAS calls
+# of ``ssytd2`` are the SkylakeX C kernels, whose loops fuse
+# (``ssymv_L``'s y += temp1 a and temp2 += a x, ``saxpy``'s y += da x and
+# ``ssyr2``'s two ``saxpy`` a column); ``sdot`` of the two-vector is
+# fma(y0, x0, y1 x1).  Every operation's subnormal result is flushed.
+# Held bit for bit against ``jnp.linalg.eigvalsh`` and ``jnp.linalg.inv``
+# (``tests/test_torch_evaluate.py``).
+
+_LA_EPS = 2.0 ** -24            # slamch('E')
+_LA_EPS2 = 2.0 ** -48
+_LA_SAFMIN = 2.0 ** -126        # slamch('S')
+_LA_SAFMAX = 2.0 ** 126
+_LA_SSFMAX = float(torch.tensor(2.0 ** 63, dtype=_F32) / 3.0)
+_LA_SSFMIN = 2.0 ** -15         # sqrt(safmin) / eps^2
+_LA_RTMIN = 2.0 ** -63          # slartg's sqrt(safmin)
+_LA_RTMAX = float(torch.tensor(2.0 ** 125, dtype=_F64).sqrt().to(_F32))
+_LA_RMIN = float(torch.tensor(2.0 ** -103, dtype=_F64).sqrt().to(_F32))
+_LA_RMAX = float(torch.tensor(2.0 ** 103, dtype=_F64).sqrt().to(_F32))
+_LA_FLTMAX = float(torch.finfo(_F32).max)
+_LA_SQRT2 = float(torch.tensor(2.0, dtype=_F64).sqrt().to(_F32))
+
+
+def _mul(a, b):
+    return ftz(a * b)
+
+
+def _div(a, b):
+    return ftz(a / b)
+
+
+def _add(a, b):
+    return ftz(a + b)
+
+
+def _sub(a, b):
+    return ftz(a - b)
+
+
+def _slapy2(x, y):
+    """sqrt(x^2 + y^2) as ``slapy2``: max * sqrt(1 + (min / max)^2), the
+    larger magnitude where the smaller is 0 (or the larger overflows); a
+    NaN passes (y's first)."""
+    ax, ay = x.abs(), y.abs()
+    w, z = torch.maximum(ax, ay), torch.minimum(ax, ay)
+    q = _div(z, w)
+    r = torch.where((z == 0) | (w > _LA_FLTMAX), w,
+                    _mul(w, sqrt(_add(1.0, _mul(q, q)))))
+    return torch.where(torch.isnan(y), y, torch.where(torch.isnan(x), x, r))
+
+
+def _slae2(a, b, c):
+    """The eigenvalues (rt1, rt2) of [[a, b], [b, c]] as ``slae2`` (and
+    ``slaev2``, whose values are the same operations)."""
+    sm, df = _add(a, c), _sub(a, c)
+    adf, ab = df.abs(), _add(b, b).abs()
+    big = a.abs() > c.abs()
+    acmx, acmn = torch.where(big, a, c), torch.where(big, c, a)
+    qa, qb = _div(ab, adf), _div(adf, ab)
+    rt = torch.where(adf > ab, _mul(adf, sqrt(_add(1.0, _mul(qa, qa)))),
+                     torch.where(adf < ab,
+                                 _mul(ab, sqrt(_add(1.0, _mul(qb, qb)))),
+                                 _mul(ab, torch.full_like(ab, _LA_SQRT2))))
+    rt1 = torch.where(sm < 0, _mul(0.5, _sub(sm, rt)),
+                      torch.where(sm > 0, _mul(0.5, _add(sm, rt)),
+                                  _mul(0.5, rt)))
+    rt2 = torch.where((sm < 0) | (sm > 0), _sub(_mul(_div(acmx, rt1), acmn),
+                                    _mul(_div(b, rt1), b)),
+                      _mul(-0.5, rt))
+    return rt1, rt2
+
+
+def _slartg(f, g):
+    """The plane rotation (c, s, r) of ``slartg`` (LAPACK 3.12)."""
+    f1, g1 = f.abs(), g.abs()
+    one, zero = torch.ones_like(f), torch.zeros_like(f)
+    safe = (f1 > _LA_RTMIN) & (f1 < _LA_RTMAX) & (g1 > _LA_RTMIN) & \
+        (g1 < _LA_RTMAX)
+    d = sqrt(_add(_mul(f, f), _mul(g, g)))
+    u = torch.clamp(torch.maximum(torch.clamp(f1, min=_LA_SAFMIN), g1),
+                    max=_LA_SAFMAX)
+    fs, gs = _div(f, u), _div(g, u)
+    du = sqrt(_add(_mul(fs, fs), _mul(gs, gs)))
+    rs, ru = torch.copysign(d, f), torch.copysign(du, f)
+    c = torch.where(safe, _div(f1, d), _div(fs.abs(), du))
+    s = torch.where(safe, _div(g, rs), _div(gs, ru))
+    r = torch.where(safe, rs, _mul(ru, u))
+    gz, fz = g == 0, f == 0
+    c = torch.where(gz, one, torch.where(fz, zero, c))
+    s = torch.where(gz, zero, torch.where(fz, torch.copysign(one, g), s))
+    r = torch.where(gz, f, torch.where(fz, g1, r))
+    return c, s, r
+
+
+def _scale_to(anorm):
+    """``ssteqr``'s scaling of a block by its largest magnitude: (1 above
+    ssfmax, 2 below ssfmin, else 0; ``slascl``'s factor to and from)."""
+    code = torch.where(anorm > _LA_SSFMAX, 1, torch.where(
+        anorm < _LA_SSFMIN, 2, 0))
+    to = torch.where(code == 1, _LA_SSFMAX, _LA_SSFMIN)
+    return code, _div(to, anorm), _div(anorm, to)
+
+
+def _qr_block2(a, c, b):
+    """The eigenvalues of the 2 x 2 block [[a, b], [b, c]] that ``ssteqr``
+    splits off: scaled, a small b's deflation test, else ``slaev2``."""
+    anorm = torch.maximum(torch.maximum(c.abs(), a.abs()), b.abs())
+    code, down, up = _scale_to(anorm)
+    sc = code != 0
+    a, c, b = (torch.where(sc, _mul(x, down), x) for x in (a, c, b))
+    flip = c.abs() < a.abs()  # QR: the block read backwards
+    a, c = torch.where(flip, c, a), torch.where(flip, a, c)
+    small = _mul(b.abs(), b.abs()) <= _add(_mul(_mul(_LA_EPS2, a.abs()),
+                                                c.abs()), _LA_SAFMIN)
+    rt1, rt2 = _slae2(a, b, c)
+    x, y = torch.where(small, a, rt1), torch.where(small, c, rt2)
+    x, y = (torch.where(sc, _mul(v, up), v) for v in (x, y))
+    keep = anorm == 0
+    return torch.where(keep, a, x), torch.where(keep, c, y)
+
+
+def _qr_block3(d0, d1, d2, e0, e1):
+    """The eigenvalues of the unreduced 3 x 3 tridiagonal block: ``ssteqr``
+    scaled, its implicit QL (QR where |d2| < |d0|: the same steps on the
+    block read backwards) sweeps until an off-diagonal deflates, then the
+    last 2 x 2 by ``slaev2``; NaN where 90 sweeps do not converge."""
+    anorm = torch.maximum(torch.maximum(torch.maximum(torch.maximum(
+        d2.abs(), d0.abs()), e0.abs()), d1.abs()), e1.abs())
+    code, down, up = _scale_to(anorm)
+    sc = code != 0
+    d0, d1, d2, e0, e1 = (torch.where(sc, _mul(x, down), x)
+                          for x in (d0, d1, d2, e0, e1))
+    flip = d2.abs() < d0.abs()
+    d0, d2 = torch.where(flip, d2, d0), torch.where(flip, d0, d2)
+    e0, e1 = torch.where(flip, e1, e0), torch.where(flip, e0, e1)
+    active = anorm != 0
+    failed = torch.zeros_like(active)
+    two = torch.full_like(d0, 2.0)
+
+    def small(e, a, b):
+        return _mul(e.abs(), e.abs()) <= _add(_mul(_mul(_LA_EPS2, a.abs()),
+                                                  b.abs()), _LA_SAFMIN)
+
+    for sweep in range(91):
+        if not bool(active.any()):
+            break
+        t0, t1 = small(e0, d0, d1), small(e1, d1, d2)
+        top = active & t0             # d0 found, then the (d1, d2) block
+        mid = active & ~t0 & t1       # the (d0, d1) block, d2 found
+        go = active & ~t0 & ~t1
+        r1, r2 = _slae2(d1, e1, d2)
+        last = top & ~t1
+        d1, d2 = torch.where(last, r1, d1), torch.where(last, r2, d2)
+        r1, r2 = _slae2(d0, e0, d1)
+        d0, d1 = torch.where(mid, r1, d0), torch.where(mid, r2, d1)
+        failed = failed | (go & (sweep == 90))
+        go = go & (sweep < 90)
+        active = go
+        # one implicit QL sweep with the Wilkinson-like shift (M = 2, L = 0)
+        p = d0
+        g = _div(_sub(d1, p), _mul(two, e0))
+        r = _slapy2(g, torch.ones_like(g))
+        g = _add(_sub(d2, p), _div(e0, _add(g, torch.copysign(r, g))))
+        s, c = torch.ones_like(g), torch.ones_like(g)
+        p = torch.zeros_like(g)
+        f, b = _mul(s, e1), _mul(c, e1)
+        c, s, r = _slartg(g, f)
+        g = _sub(d2, p)
+        r = _add(_mul(_sub(d1, g), s), _mul(_mul(two, c), b))
+        p = _mul(s, r)
+        n2 = _add(g, p)
+        g = _sub(_mul(c, r), b)
+        f, b = _mul(s, e0), _mul(c, e0)
+        c, s, r = _slartg(g, f)
+        n_e1 = r
+        g = _sub(d1, p)
+        r = _add(_mul(_sub(d0, g), s), _mul(_mul(two, c), b))
+        p = _mul(s, r)
+        n1 = _add(g, p)
+        g = _sub(_mul(c, r), b)
+        n0, n_e0 = _sub(d0, p), g
+        d0, d1, d2 = (torch.where(go, n, o) for n, o in
+                      ((n0, d0), (n1, d1), (n2, d2)))
+        e0, e1 = torch.where(go, n_e0, e0), torch.where(go, n_e1, e1)
+    d0, d1, d2 = (torch.where(sc, _mul(x, up), x) for x in (d0, d1, d2))
+    nan = torch.full_like(d0, math.nan)
+    return tuple(torch.where(failed, nan, x) for x in (d0, d1, d2))
+
+
+def eigvalsh3(h: torch.Tensor) -> torch.Tensor:
+    """The ascending eigenvalues [..., 3] of symmetric float32 h
+    [..., 3, 3] as the reference's ``jnp.linalg.eigvalsh`` computes them on
+    the CPU (the table above this function): (h + h^T) / 2, ``ssyevd``'s
+    scaling into [sqrt(smlnum), sqrt(bignum)], ``ssytd2``'s reflector,
+    ``ssteqr``; NaN rows where the library reports no convergence (or h is
+    not finite)."""
+    lead = h.shape[:-2]
+    h = ftz(h.reshape(-1, 3, 3).to(_F32))
+    h = _mul(_add(h, h.transpose(1, 2)), 0.5)
+    low = [h[:, i, j] for i in range(3) for j in range(i + 1)]
+    anrm = low[0].abs()
+    for v in low[1:]:
+        anrm = torch.maximum(anrm, v.abs())
+    up = anrm > _LA_RMAX
+    scale = ((anrm > 0) & (anrm < _LA_RMIN)) | up
+    sigma = _div(torch.where(up, _LA_RMAX, _LA_RMIN), anrm)
+    h = torch.where(scale[:, None, None], _mul(h, sigma[:, None, None]), h)
+    a11, a21, a31 = h[:, 0, 0], h[:, 1, 0], h[:, 2, 0]
+    a22, a32, a33 = h[:, 1, 1], h[:, 2, 1], h[:, 2, 2]
+    # ssytd2, i = 1: slarfg(2, a21, a31), its rescaling of a tiny beta
+    one = torch.ones_like(a11)
+    alpha, x = a21, a31
+    reflect = x.abs() != 0
+    beta = -torch.copysign(_slapy2(alpha, x.abs()), alpha)
+    knt = torch.zeros_like(a11)
+    safmin, rsafmn = 2.0 ** -102, 2.0 ** 102
+    tiny = reflect & (beta.abs() < safmin)
+    again = tiny.clone()
+    for _ in range(20):
+        if not bool(again.any()):
+            break
+        x = torch.where(again, _mul(x, rsafmn), x)
+        beta = torch.where(again, _mul(beta, rsafmn), beta)
+        alpha = torch.where(again, _mul(alpha, rsafmn), alpha)
+        knt = knt + again.to(_F32)
+        again = again & (beta.abs() < safmin) & (knt < 20)
+    beta = torch.where(tiny, -torch.copysign(_slapy2(alpha, x.abs()), alpha),
+                       beta)
+    tau = _div(_sub(beta, alpha), beta)
+    v2 = _mul(x, _div(one, _sub(alpha, beta)))
+    for k in range(20):
+        beta = torch.where(knt > k, _mul(beta, safmin), beta)
+    # ssymv(L, 2, tau, A22, v = (1, v2)) into y = 0
+    y0 = fma(tau, a22, torch.zeros_like(tau))
+    y1 = fma(tau, a32, torch.zeros_like(tau))
+    y0 = fma(tau, fma(a32, v2, torch.zeros_like(tau)), y0)
+    y1 = fma(_mul(tau, v2), a33, y1)
+    # alpha = -tau / 2 sdot(y, v), w = y + alpha v
+    dt = fma(y0, one, _mul(y1, v2))
+    al = _mul(_mul(-0.5, tau), dt)
+    w0, w1 = fma(al, one, y0), fma(al, v2, y1)
+    # ssyr2(L, 2, -1, v, w, A22): a column at a time, two saxpy each
+    b22 = fma(-one, w0, a22)
+    b32 = fma(-one, w1, a32)
+    b22 = fma(-w0, one, b22)
+    b32 = fma(-w0, v2, b32)
+    b33 = fma(-v2, w1, a33)
+    b33 = fma(-w1, v2, b33)
+    d = (a11, torch.where(reflect, b22, a22), torch.where(reflect, b33, a33))
+    e = (torch.where(reflect, beta, a21), torch.where(reflect, b32, a32))
+
+    def split(ek, da, db):
+        t = ek.abs()
+        return (t == 0) | (t <= _mul(_mul(sqrt(da.abs()), sqrt(db.abs())),
+                                     _LA_EPS))
+
+    s0, s1 = split(e[0], d[0], d[1]), split(e[1], d[1], d[2])
+    lo0, lo1 = _qr_block2(d[0], d[1], e[0])
+    hi1, hi2 = _qr_block2(d[1], d[2], e[1])
+    w3 = _qr_block3(*d, *e)
+    w = torch.stack([
+        torch.where(s0, d[0], torch.where(s1, lo0, w3[0])),
+        torch.where(s0, torch.where(s1, d[1], hi1), torch.where(s1, lo1,
+                                                                 w3[1])),
+        torch.where(s0, torch.where(s1, d[2], hi2), torch.where(s1, d[2],
+                                                                 w3[2]))],
+        -1)
+    w = torch.where(scale[:, None], _mul(w, _div(one, sigma)[:, None]), w)
+    bad = torch.isnan(w).any(-1) | ~torch.isfinite(h).all(-1).all(-1)
+    w = torch.where(bad[:, None], torch.full_like(w, math.nan), w)
+    return torch.sort(w, -1)[0].reshape(lead + (3,))
+
+
+def inv3(h: torch.Tensor) -> torch.Tensor:
+    """h^{-1} of float32 h [B, 3, 3] as the reference's ``jnp.linalg.inv``
+    on the CPU: ``sgetrf`` and ``strsm`` against each column of the
+    identity (:func:`lu_solve`, a column a right-hand side)."""
+    n = h.shape[0]
+    eye = torch.eye(3, dtype=_F32, device=h.device)
+    cols = lu_solve(h.repeat_interleave(3, 0), eye.repeat(n, 1))
+    return cols.reshape(n, 3, 3).transpose(1, 2)

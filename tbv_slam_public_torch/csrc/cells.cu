@@ -61,7 +61,7 @@ __device__ __forceinline__ float clamp_min(float x, float lo) {  // torch.clamp
   return x < lo ? lo : x;
 }
 
-// The weight sum in the reference's tree order (ops/features.py::_tree_sum):
+// The weight sum in the reference's tree order (core/refmath.py::tree_sum):
 // level 0 is the points, level k + 1 the sums of level k's windows of 32
 // (e_{k+1} = ceil(e_k / 32) elements, the first window starting lo_k =
 // (32 e_{k+1} - e_k) / 2 padding zeros early), up to the level `top` of at
@@ -146,8 +146,8 @@ __device__ __forceinline__ bool gate(const Cloud& cl, int p, float c0,
   const bool in = p >= 0 && p < cl.p;
   const unsigned char m = in ? __ldg(cl.mask + p) : 0;
   *q = in ? __ldg(cl.xy + p) : make_float2(0.0f, 0.0f);
-  const float pp = __fmaf_rn(q->y, q->y, __fmul_rn(q->x, q->x));
-  const float dot = __fmaf_rn(c1, q->y, __fmul_rn(c0, q->x));
+  const float pp = ref_fma(q->y, q->y, __fmul_rn(q->x, q->x));
+  const float dot = ref_fma(c1, q->y, __fmul_rn(c0, q->x));
   const float d2 = __fsub_rn(__fadd_rn(cc, pp), __fmul_rn(2.0f, dot));
   return m && d2 <= r2;
 }
@@ -185,7 +185,7 @@ __global__ void __launch_bounds__(kWarps * 32)
        c += gridDim.x * kWarps) {
     const float c0 = centroid[2 * c], c1 = centroid[2 * c + 1];
     const bool occ = occupied[c] != 0;  // the same for the whole warp
-    const float cc = __fmaf_rn(c1, c1, __fmul_rn(c0, c0));
+    const float cc = ref_fma(c1, c1, __fmul_rn(c0, c0));
 
     // pass 1: the count, and the weight sum's windows of 32 points (lo0
     // points of padding in front), each window's neighbours added in order
@@ -246,12 +246,12 @@ __global__ void __launch_bounds__(kWarps * 32)
           const float a = __shfl_sync(all, qx, from);
           const float b = __shfl_sync(all, qy, from);
           const float wq0 = __fmul_rn(w, a), wq1 = __fmul_rn(w, b);
-          mu0 = __fmaf_rn(w, a, mu0);
-          mu1 = __fmaf_rn(w, b, mu1);
-          q00 = __fmaf_rn(wq0, a, q00);
-          q01 = __fmaf_rn(wq0, b, q01);
-          q10 = __fmaf_rn(wq1, a, q10);
-          q11 = __fmaf_rn(wq1, b, q11);
+          mu0 = ref_fma(w, a, mu0);  // refmath.fma: subnormals flushed
+          mu1 = ref_fma(w, b, mu1);
+          q00 = ref_fma(wq0, a, q00);
+          q01 = ref_fma(wq0, b, q01);
+          q10 = ref_fma(wq1, a, q10);
+          q11 = ref_fma(wq1, b, q11);
         }
       }
     }

@@ -53,9 +53,15 @@
 //
 // Pair rows are addressed through a row stride, so a cloud broadcast over the
 // batch (stride 0) is read in place.
+//
+// coral_tail (ops/coral.py::coral_tail) is a second kernel in this file:
+// CorAl's per-point terms and the pairs' sums after the moments, described
+// above coral_tail_kernel.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "refmath.cuh"
 
 namespace {
 
@@ -114,15 +120,19 @@ __device__ __forceinline__ float distance2(float dx, float dy) {
   return __fmaf_rn(dy, dy, __fmul_rn(dx, dx));
 }
 
+// The reference's threads flush subnormals (DAZ and FTZ): a subnormal
+// offset counts as zero and a subnormal sum is zero (refmath.cuh's .ftz
+// forms).  Only the sums need it: the gate's own flushes change no
+// decision at a normal radius.
 __device__ __forceinline__ void accumulate(float (&a)[6], float dx, float dy,
                                            float r2) {
-  if (distance2(dx, dy) <= r2) {
+  if (distance2(dx, dy) <= r2) {  // the .ftz forms flush dx, dy too
     a[0] += 1.f;
-    a[1] += dx;
-    a[2] += dy;
-    a[3] += dx * dx;
-    a[4] += dx * dy;
-    a[5] += dy * dy;
+    a[1] = add_ftz(a[1], dx);
+    a[2] = add_ftz(a[2], dy);
+    a[3] = fma_ftz(dx, dx, a[3]);
+    a[4] = fma_ftz(dx, dy, a[4]);
+    a[5] = fma_ftz(dy, dy, a[5]);
   }
 }
 
@@ -337,7 +347,8 @@ coral_moments_kernel(const __grid_constant__ Params prm) {
     for (int j = 0; j < kR; ++j) {
 #pragma unroll
       for (int k = 0; k < 6; ++k)
-        acc[j][k] += shared[((w * kR + j) * 6 + k) * 32 + lane];
+        acc[j][k] = add_ftz(acc[j][k],
+                            shared[((w * kR + j) * 6 + k) * 32 + lane]);
     }
   }
 
@@ -403,6 +414,242 @@ void set_cloud(Cloud& cl, const void* xy, const void* mask, long long xy_row,
   cl.column = column;
 }
 
+// ---- coral_tail: CorAl's per-point terms and the pairs' sums ------------
+//
+// ops/coral.py::coral_tail_reference after pair_moments, for M pairs in one
+// launch: each live query's joint moments, gates, mean and covariance
+// (s2 - n m m^T fused), determinant, entropy 0.5 log(2 pi e det + eps) of
+// its own and its joint neighbourhood (or, in KL mode, the KL divergence of
+// its own neighbourhood against its joint one; a src point's against its
+// own), the finiteness gates; then, over a pair's Q = S + R query slots,
+// the count of valid queries, the two masked sums in the reference's order
+// (core/refmath.py::tree_sum: windows of 32 slots, half the padding in
+// front, each summed in order from zero, then windows of those sums), the
+// means, the overlap and valid = overlap >= 0.1.  Every operation is the
+// plain version's, each rounding written out (__f*_rn, ref_fma, refmath.cuh's
+// ref_log), subnormals flushed (daz), so the outputs are the plain
+// version's bit for bit given the same moments.
+//
+// Not a TPU kernel: the JAX package's _coral_impl leaves this tail to XLA,
+// which fuses it around the Pallas call.  The port's plain version runs it
+// as about 70 launches a call.  Bound: bytes, 56 a live query (its 14
+// moment floats), about 9 us for a 64-pair wave of 8,192 live slots each.
+// Design: a block of 1,024 threads a pair.  A thread a slot computes the
+// slot's terms (a dead slot's moments are never read), 4,096 slots a pass,
+// into shared memory; then a thread a window adds its 32 in the window's
+// order; the windows' sums stay in shared memory, one barrier a level of
+// the tree, the last level in one thread.  (A first design gave each
+// thread a whole window, whose 32 slots' dependent loads then ran one after
+// another: 0.056 ms a launch at any M.)
+constexpr int kTailThreads = 1024;
+constexpr int kTreeWindow = 32;
+constexpr int kTailChunk = 4096;  // padded slots a pass (128 windows)
+
+struct TailParams {
+  const float* count;     // [2, M, Q]
+  const float2* sum_rel;  // [2, M, Q]
+  const float4* sum_sq;   // [2, M, Q]: (xx, xy, yx, yy)
+  const uint8_t* smask;   // [M, S], row stride smask_row
+  const uint8_t* rmask;   // [M, R], row stride rmask_row
+  long long smask_row, rmask_row;
+  int M, S, R, kl;
+  float eps, two_pi_e;
+  float* joint;
+  float* sep;
+  float* overlap;
+  uint8_t* valid;
+};
+
+// _mean_cov_from_moments: the mean and the covariance [c00, c01, c10, c11]
+__device__ __forceinline__ void tail_mean_cov(float n, float2 s1, float4 s2,
+                                              float* mean, float* cov) {
+  const float nc = n < 1.0f ? 1.0f : n;
+  mean[0] = daz(__fdiv_rn(s1.x, nc));
+  mean[1] = daz(__fdiv_rn(s1.y, nc));
+  const float nm[2] = {__fmul_rn(n, mean[0]), __fmul_rn(n, mean[1])};
+  const float sq[4] = {s2.x, s2.y, s2.z, s2.w};
+  float nd = __fsub_rn(n, 1.0f);
+  nd = nd < 1.0f ? 1.0f : nd;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      cov[2 * i + j] = daz(__fdiv_rn(ref_fma(-nm[i], mean[j], daz(sq[2 * i + j])), nd));
+}
+
+__device__ __forceinline__ float tail_det(const float* c) {
+  return daz(ref_fma(c[0], c[3], -daz(__fmul_rn(c[1], c[2]))));
+}
+
+// _entropy_from_moments
+__device__ __forceinline__ float tail_entropy(const TailParams& p, float n,
+                                              float2 s1, float4 s2) {
+  float mean[2], cov[4];
+  tail_mean_cov(n, s1, s2, mean, cov);
+  return __fmul_rn(0.5f, ref_log(ref_fma(p.two_pi_e, tail_det(cov), p.eps)));
+}
+
+// _kl_divergence_2d(u0, s0, u1, s1); *finite its flag
+__device__ float tail_kl(const float* u0, const float* s0, const float* u1,
+                         const float* s1, bool* finite) {
+  const float det0 = tail_det(s0), det1 = tail_det(s1);
+  const float inv = daz(__fdiv_rn(1.0f, det1 == 0.0f ? 1.0f : det1));
+  const float s1i[4] = {daz(__fmul_rn(s1[3], inv)), daz(__fmul_rn(-s1[1], inv)),
+                        daz(__fmul_rn(-s1[2], inv)), daz(__fmul_rn(s1[0], inv))};
+  // tr(S1^-1 S0): the four products in order, each rounded
+  float trace = daz(__fmul_rn(s1i[0], s0[0]));
+  trace = daz(__fadd_rn(trace, daz(__fmul_rn(s1i[1], s0[2]))));
+  trace = daz(__fadd_rn(trace, daz(__fmul_rn(s1i[2], s0[1]))));
+  trace = daz(__fadd_rn(trace, daz(__fmul_rn(s1i[3], s0[3]))));
+  const float d0 = daz(__fsub_rn(u1[0], u0[0])), d1 = daz(__fsub_rn(u1[1], u0[1]));
+  const float t0 = ref_fma(d1, s1i[2], __fmul_rn(d0, s1i[0]));
+  const float t1 = ref_fma(d1, s1i[3], __fmul_rn(d0, s1i[1]));
+  const float mahal = ref_fma(d1, t1, __fmul_rn(d0, t0));
+  const float score = daz(__fmul_rn(
+      0.5f, daz(__fadd_rn(daz(__fsub_rn(daz(__fadd_rn(trace, mahal)), 3.0f)),
+                          ref_log(daz(__fdiv_rn(det1, det0)))))));
+  *finite = isfinite(score) && det1 != 0.0f;
+  return *finite ? score : 0.0f;
+}
+
+// query q of pair m: its masked (sep, joint) terms and validity; *live its
+// mask
+__device__ void tail_query(const TailParams& p, int m, int q, float* vs,
+                           float* vj, int* ok, int* live) {
+  const bool is_ref = q >= p.S;
+  const int Q = p.S + p.R;
+  *vs = 0.0f, *vj = 0.0f, *ok = 0;
+  *live = is_ref ? p.rmask[m * p.rmask_row + (q - p.S)] != 0
+                 : p.smask[m * p.smask_row + q] != 0;
+  if (!*live) return;
+  const long long own = (long long)m * Q + q, oth = own + (long long)p.M * Q;
+  const float n_own = p.count[own], n_oth = p.count[oth];
+  const float n_joint = __fadd_rn(n_own, n_oth);
+  if (!(n_oth >= 1.0f && n_own > 2.0f && n_joint > 2.0f)) return;
+  const float2 r_own = p.sum_rel[own], r_oth = p.sum_rel[oth];
+  const float4 q_own = p.sum_sq[own], q_oth = p.sum_sq[oth];
+  const float2 r_joint = make_float2(daz(__fadd_rn(r_own.x, r_oth.x)),
+                                     daz(__fadd_rn(r_own.y, r_oth.y)));
+  const float4 q_joint = make_float4(
+      daz(__fadd_rn(q_own.x, q_oth.x)), daz(__fadd_rn(q_own.y, q_oth.y)),
+      daz(__fadd_rn(q_own.z, q_oth.z)), daz(__fadd_rn(q_own.w, q_oth.w)));
+  if (p.kl) {
+    float u0[2], s0[4], u1[2], s1[4];
+    tail_mean_cov(n_own, r_own, q_own, u0, s0);
+    if (is_ref) {
+      tail_mean_cov(n_joint, r_joint, q_joint, u1, s1);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) u1[k] = u0[k];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s1[k] = s0[k];
+    }
+    bool finite;
+    const float score = tail_kl(u0, s0, u1, s1, &finite);
+    if (finite) *vj = score, *ok = 1;
+    return;
+  }
+  const float sep = tail_entropy(p, n_own, r_own, q_own);
+  const float joint = tail_entropy(p, n_joint, r_joint, q_joint);
+  if (isfinite(sep) && isfinite(joint)) *vs = sep, *vj = joint, *ok = 1;
+}
+
+__global__ void __launch_bounds__(kTailThreads)
+    coral_tail_kernel(const TailParams p) {
+  extern __shared__ float tail_smem[];
+  __shared__ int s_live;
+  const int m = blockIdx.x, tid = threadIdx.x, Q = p.S + p.R;
+  const int n1 = (Q + kTreeWindow - 1) / kTreeWindow;
+  // two buffers of the windows' (sep, joint) sums and counts, ping-pong
+  float* buf[2][2] = {{tail_smem, tail_smem + n1},
+                      {tail_smem + 2 * n1, tail_smem + 3 * n1}};
+  int* cnt = reinterpret_cast<int*>(tail_smem + 4 * n1);
+  // a pass's slot values (sep, joint, valid), a pad after every 32 so the
+  // window sums below read them without bank conflicts
+  float* val_s = tail_smem + 5 * n1;
+  float* val_j = val_s + kTailChunk / 32 * 33;
+  uint8_t* val_ok = reinterpret_cast<uint8_t*>(val_j + kTailChunk / 32 * 33);
+  if (tid == 0) s_live = 0;
+  // level 1: windows of 32 slots (all of them in one window when Q <= 32,
+  // which then is the whole sum), a pass of kTailChunk padded slots at a
+  // time: a thread a slot computes its terms, then a thread a window adds
+  // the window's 32 in order from zero
+  const int width = Q <= kTreeWindow ? Q : kTreeWindow;
+  const int front = Q <= kTreeWindow ? 0 : (n1 * kTreeWindow - Q) / 2;
+  const int padded = Q <= kTreeWindow ? Q : n1 * kTreeWindow;
+  int lives = 0;
+  for (int c0 = 0; c0 < padded; c0 += kTailChunk) {
+    const int len = min(kTailChunk, padded - c0);
+    for (int j = tid; j < len; j += kTailThreads) {
+      const int q = c0 + j - front;
+      float vs = 0.0f, vj = 0.0f;
+      int ok = 0, live = 0;
+      if (q >= 0 && q < Q) tail_query(p, m, q, &vs, &vj, &ok, &live);
+      const int at = j + j / 32;
+      val_s[at] = vs;
+      val_j[at] = vj;
+      val_ok[at] = (uint8_t)ok;
+      lives += live;
+    }
+    __syncthreads();
+    for (int w = tid; w * kTreeWindow < len; w += kTailThreads) {
+      float as = 0.0f, aj = 0.0f;
+      int ac = 0;
+      for (int k = 0; k < width; ++k) {
+        const int at = w * (kTreeWindow + 1) + k;
+        as = __fadd_rn(as, val_s[at]);
+        aj = __fadd_rn(aj, val_j[at]);
+        ac += val_ok[at];
+      }
+      const int win = c0 / kTreeWindow + w;
+      buf[0][0][win] = as;
+      buf[0][1][win] = aj;
+      cnt[win] = ac;
+    }
+    __syncthreads();
+  }
+  if (lives) atomicAdd(&s_live, lives);
+  __syncthreads();
+  // the windows' sums, windows of 32 again until at most 32 are left
+  int len = n1, cur = 0;
+  while (len > kTreeWindow) {
+    const int n2 = (len + kTreeWindow - 1) / kTreeWindow;
+    const int f2 = (n2 * kTreeWindow - len) / 2;
+    for (int w = tid; w < n2; w += kTailThreads) {
+      float as = 0.0f, aj = 0.0f;
+      for (int k = 0; k < kTreeWindow; ++k) {
+        const int i = w * kTreeWindow + k - f2;
+        const bool in = i >= 0 && i < len;
+        as = __fadd_rn(as, in ? buf[cur][0][i] : 0.0f);
+        aj = __fadd_rn(aj, in ? buf[cur][1][i] : 0.0f);
+      }
+      buf[cur ^ 1][0][w] = as;
+      buf[cur ^ 1][1][w] = aj;
+    }
+    cur ^= 1;
+    len = n2;
+    __syncthreads();
+  }
+  if (tid == 0) {
+    float as = buf[cur][0][0], aj = buf[cur][1][0];  // Q <= 32: level 1 is all
+    int count = 0;
+    if (Q > kTreeWindow) {
+      as = 0.0f, aj = 0.0f;
+      for (int i = 0; i < len; ++i) {
+        as = __fadd_rn(as, buf[cur][0][i]);
+        aj = __fadd_rn(aj, buf[cur][1][i]);
+      }
+    }
+    for (int w = 0; w < n1; ++w) count += cnt[w];
+    const float denom = count < 1 ? 1.0f : (float)count;
+    p.sep[m] = __fdiv_rn(as, denom);
+    p.joint[m] = __fdiv_rn(aj, denom);
+    const float ov = __fdiv_rn((float)count, (float)(s_live < 1 ? 1 : s_live));
+    p.overlap[m] = ov;
+    p.valid[m] = ov >= 0.1f;
+  }
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Both launch on ``stream`` and
@@ -449,4 +696,53 @@ extern "C" int coral_pair_moments_launch(const void* src, const void* smask,
   prm.width = (long long)S + R;
   return launch(prm, kCombos, 2, M, r2, (float*)out, (float*)scratch,
                 scratch_words, (cudaStream_t)stream);
+}
+
+// CorAl's quality of M pairs from their moments (count [2, M, Q], sum_rel
+// [2, M, Q, 2], sum_sq [2, M, Q, 2, 2], contiguous, Q = S + R) and masks
+// (src [M, S], ref [M, R] bytes, row strides in bytes): joint, sep, overlap
+// [M] float32 and valid [M] bytes, entropy mode or (kl != 0) KL mode; eps
+// and 2 pi e as float32.  Returns a CUDA error code.
+extern "C" int coral_tail_launch(const void* count, const void* sum_rel,
+                                 const void* sum_sq, const void* smask,
+                                 const void* rmask, long long smask_row,
+                                 long long rmask_row, int M, int S, int R,
+                                 int kl, float eps, float two_pi_e,
+                                 void* joint, void* sep, void* overlap,
+                                 void* valid, void* stream) {
+  if (M <= 0) return 0;
+  if (S < 0 || R < 0 || M > 2147483647 / 2) return (int)cudaErrorInvalidValue;
+  TailParams p;
+  p.count = (const float*)count;
+  p.sum_rel = (const float2*)sum_rel;
+  p.sum_sq = (const float4*)sum_sq;
+  p.smask = (const uint8_t*)smask;
+  p.rmask = (const uint8_t*)rmask;
+  p.smask_row = smask_row;
+  p.rmask_row = rmask_row;
+  p.M = M;
+  p.S = S;
+  p.R = R;
+  p.kl = kl;
+  p.eps = eps;
+  p.two_pi_e = two_pi_e;
+  p.joint = (float*)joint;
+  p.sep = (float*)sep;
+  p.overlap = (float*)overlap;
+  p.valid = (uint8_t*)valid;
+  const long long n1 = ((long long)S + R + kTreeWindow - 1) / kTreeWindow;
+  // the tree's buffers and counts, then a pass's values (two padded float
+  // arrays and their flags)
+  const long long smem = 5 * (n1 > 0 ? n1 : 1) * 4 +
+                         2 * (kTailChunk / 32 * 33) * 4 + kTailChunk / 32 * 33;
+  if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {  // clouds of more than about 6,000 slots each
+    const cudaError_t e = cudaFuncSetAttribute(
+        coral_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  coral_tail_kernel<<<(unsigned)M, kTailThreads, (size_t)smem,
+                      (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }

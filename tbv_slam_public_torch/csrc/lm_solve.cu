@@ -51,17 +51,38 @@
 //   accept / reject itself on identical bits, so nothing is broadcast; the
 //   outer guards likewise, and the cluster leaves the outer loop as soon as
 //   the row is inactive (none of its outputs can change after that).
-// * The evaluation entry associates once at the row's pose, then walks its
-//   S poses (pose + offset_s) one after another over the same records in
-//   shared memory, each a cost-only pass (the tree of the cost's sum alone:
-//   with R = 2 residuals a cell the cost's leaves are its cells' terms with
-//   a zero after each, whose first level adds them exactly, so it is
-//   _cost_only's own tree over the cells); thread 0 of CTA 0 writes each
-//   cost and, given the fit's pseudo-inverse, folds it into the fit's 10
-//   sums, one fused multiply-add a sample in sample order (refmath.dot).
-//   So S costs no shared memory, and the plain path's S-fold copies of the
-//   sources and associations and its dense [B, T, C, Ct] differences are
-//   never made.
+// * The evaluation entry (evaluation_kernel) associates once at the row's
+//   pose, then evaluates the cost at all S poses (pose + offset_s) in one
+//   pass over the records.  Its first design (the window entry's solve
+//   loop reused) walked the S poses one after another: a thread wrote the
+//   pose, each pass re-read every record, recomputed the sine and cosine
+//   and ended at a __syncthreads and a cluster.sync, and thread 0 of CTA 0
+//   folded each cost into the fit alone (0.103 ms at a 64-pair wave, most
+//   of it 27 barrier-bound passes).  Now the S poses' sines and cosines are
+//   computed once a launch into shared memory; a team of warps takes a
+//   pose (the whole CTA at S = 1, a warp from S = 5), its lanes each an
+//   aligned run of leaves, and holds kPoseGroup poses' partial sums at
+//   once, so a record is read once a group.  The costs' trees are
+//   _row_sums's (R = 2: each cell's term then a zero, which the first level
+//   adds exactly, so _cost_only's tree over the cells), whatever K.  Besides
+//   the barrier that publishes the pose table and the association's own,
+//   there remain one warp-shuffle stage, one __syncthreads (the team's
+//   warps' roots), one cluster.sync (the CTAs' roots) and the closing
+//   cluster.sync, for all S poses together.
+//   CTA 0 then adds the trees' top levels, a lane a pose; the fit's 10
+//   sums take a lane each (refmath.dot's order: one flushed fused
+//   multiply-add a sample, in sample order); and one thread forms the
+//   sampled covariance from the fit (covariance(): the Hessian, the
+//   convexity decision and the guarded inverse as jaxlib's LAPACK computes
+//   them, refmath.cuh's la_eigvalsh3, lu_factor, lu_apply; the Censi
+//   scaling from final_score and n_res read on the card), so a
+//   sampled_covariance is this launch and the world_targets site, with no
+//   library call and no host read.  Bound: one association, then the
+//   latency of the passes' dependent adds; the S-fold barriers are gone.
+//   The plain path's S-fold copies of the sources and associations and its
+//   dense [B, T, C, Ct] differences are never made.  No TPU kernel is
+//   replaced: XLA fused sampled_covariance's vmap and handed its 3 x 3
+//   algebra to LAPACK on the host.
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
@@ -78,6 +99,9 @@ constexpr int kMaxCluster = 8;    // the portable cluster size
 constexpr long long kSmemBytes = 200 * 1024;
 constexpr int kChains = 4;        // independent argmin chains a thread
 constexpr int kMaxDevices = 16;   // launch checks cached per device
+constexpr int kMaxPoses = 64;     // the evaluation's S (steps^3 <= 64)
+constexpr int kPoseGroup = 4;     // a team's poses in flight at once
+constexpr int kMaxLogRun = 10;    // at most 1024 leaves a lane a pose
 
 enum Cost { kP2L = 0, kP2D = 1, kP2P = 2 };
 enum Loss { kNone = 0, kHuber, kCauchy, kSoftLOne, kTukey, kCombined };
@@ -116,9 +140,18 @@ struct Params {
   float* out_cost;       // [B]: the solve's cost, the window's score; [B, S] the costs
   float* out_rel;        // [B] (solve)
   float* out_q;          // [B, 10] the fit (evaluation with pinv)
+  // evaluation with the covariance: final_score [B], n_res [B] in, cov
+  // [B, 3, 3] and convex [B] out (null: no covariance)
+  const float* final_score;
+  const long long* n_res;
+  float* out_cov;
+  unsigned char* out_convex;
+  float cov_scaler;
+  float fallback[3];  // the default covariance's diagonal
   long long* out_nres;   // [B] (window, evaluation: the association count)
   long long* out_iters;  // [B] (window)
   int T, C, Ct, R, N, K, Wk, Qk, nthr, S;
+  int team_warps, team_lanes;  // evaluation: warps a pose, lanes a tree
   int cost, loss, max_iter, one_system;
   float k0, k1, k2, k3;  // the loss's float32 constants (lm_solve.py)
   float init_lambda;
@@ -244,15 +277,17 @@ __device__ __forceinline__ void leaf(const Params& p, const Rec& d, int i,
   rho_weight(sq, p, &rho, &wi);
   const bool m = d.m[l] != 0;
   const float wt = d.w[l];
-  const float w = m ? __fmul_rn(wt, wi) : 0.0f;
-  v[0] = (m && r == 0) ? __fmul_rn(wt, rho) : 0.0f;
-  if constexpr (NS > 1) {
+  // the products w J [J | r] and the weights', operands and results
+  // flushed where subnormal, as _cost_grad_hess flushes them
+  const float w = m ? mul_ftz(wt, wi) : 0.0f;
+  v[0] = (m && r == 0) ? mul_ftz(wt, rho) : 0.0f;
+  if constexpr (NS > 1) {  // w, J and res are flushed: mul_ftz is daz(w J)
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const float wa = __fmul_rn(w, J[a]);
+      const float wa = mul_ftz(w, J[a]);
 #pragma unroll
-      for (int b = 0; b < 3; ++b) v[1 + 4 * a + b] = __fmul_rn(wa, J[b]);
-      v[4 + 4 * a] = __fmul_rn(wa, res);
+      for (int b = 0; b < 3; ++b) v[1 + 4 * a + b] = mul_ftz(wa, J[b]);
+      v[4 + 4 * a] = mul_ftz(wa, res);
     }
   }
 }
@@ -373,7 +408,7 @@ __device__ void evaluate(const Params& p, const Rec& d, int leaf0, int q0,
 // (_prior_terms: each sum one fused multiply-add a term, in order from 0)
 __device__ void finish(const Params& p, int b, float pw, const float* th,
                        const float* sums, float* cost, float* g, float* H) {
-  *cost = __fmul_rn(0.5f, sums[0]);
+  *cost = daz(__fmul_rn(0.5f, sums[0]));
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
 #pragma unroll
@@ -491,6 +526,14 @@ __device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
   return d < bd || (d == bd && i < bi);
 }
 
+// |(ex, ey)|^2 as the reference's program rounds it: fma(ey, ey, ex * ex),
+// the product and the sum flushed where subnormal (an offset whose square
+// is below FLT_MIN adds nothing either way), so two subnormal distances tie
+// at zero and the argmin keeps the first.
+__device__ __forceinline__ float sqdist(float ex, float ey) {
+  return fma_ftz(ey, ey, mul_ftz(ex, ex));
+}
+
 // ``associate`` of this CTA's associations q0 .. q0 + nq - 1 of row b at
 // sh.theta into its records (the target scan t of association q = t C + j
 // staged into txy / tv, one scan at a time), and the CTA's count in
@@ -528,10 +571,10 @@ __device__ void associate(const Params& p, int b, const Rec& d, int q0,
         const float ux = p.src[2 * sj], uy = p.src[2 * sj + 1];
         const float vx = p.src_normal[2 * sj], vy = p.src_normal[2 * sj + 1];
         // se2.apply / rotate of the source cell
-        const float wx = __fadd_rn(__fmaf_rn(c, ux, -__fmul_rn(s, uy)), th0);
-        const float wy = __fadd_rn(__fmaf_rn(s, ux, __fmul_rn(c, uy)), th1);
-        const float nwx = __fmaf_rn(c, vx, -__fmul_rn(s, vy));
-        const float nwy = __fmaf_rn(s, vx, __fmul_rn(c, vy));
+        const float wx = __fadd_rn(ref_fma(c, ux, -__fmul_rn(s, uy)), th0);
+        const float wy = __fadd_rn(ref_fma(s, ux, __fmul_rn(c, uy)), th1);
+        const float nwx = daz(ref_fma(c, vx, -__fmul_rn(s, vy)));
+        const float nwy = daz(ref_fma(s, vx, __fmul_rn(c, vy)));
         // argmin of where(valid, (diff * diff).sum(-1), inf): the first NaN,
         // else the first minimum.  kChains independent chains (target k in
         // chain k % kChains) hide the loop's latency; each keeps its own
@@ -548,8 +591,7 @@ __device__ void associate(const Params& p, int b, const Rec& d, int q0,
             if (k < p.Ct) {
               const float2 tq = txy[k];
               const float ex = __fsub_rn(wx, tq.x), ey = __fsub_rn(wy, tq.y);
-              const float d2 = tv[k] ? __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey))
-                                     : INFINITY;
+              const float d2 = tv[k] ? sqdist(ex, ey) : INFINITY;
               if (nn_c[u] < 0 || (!isnan(best[u]) && (isnan(d2) || d2 < best[u]))) {
                 best[u] = d2;
                 nn_c[u] = k;
@@ -567,13 +609,15 @@ __device__ void associate(const Params& p, int b, const Rec& d, int q0,
           }
         }
         const long long tk = scan * p.Ct + nn;
-        const float2 mq = txy[nn];
-        const float ex = __fsub_rn(wx, mq.x), ey = __fsub_rn(wy, mq.y);
+        // the winner's attributes as the reference's one-hot product reads
+        // them: a subnormal value is zero
+        const float2 mq = make_float2(daz(txy[nn].x), daz(txy[nn].y));
         const bool in_radius =
-            __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)) < r2 && tv[nn];
-        const float tnx = p.tnw[2 * tk], tny = p.tnw[2 * tk + 1];
+            sqdist(__fsub_rn(wx, mq.x), __fsub_rn(wy, mq.y)) < r2 && tv[nn];
+        const float tnx = daz(p.tnw[2 * tk]), tny = daz(p.tnw[2 * tk + 1]);
         const float dir = clamp_min(
-            __fadd_rn(__fmul_rn(nwx, tnx), __fmul_rn(nwy, tny)), 0.0f);
+            daz(__fadd_rn(daz(__fmul_rn(nwx, tnx)), daz(__fmul_rn(nwy, tny)))),
+            0.0f);
         const bool ok = in_radius && dir > p.gate && p.src_valid[sj];
         float w;
         switch (p.weight_option) {
@@ -620,6 +664,22 @@ __device__ void associate(const Params& p, int b, const Rec& d, int q0,
   __syncthreads();
 }
 
+// one CTA's records in its dynamic shared memory (layout() sets the offsets)
+__device__ __forceinline__ Rec records(const Params& p, float* f,
+                                       unsigned char* bytes) {
+  Rec d;
+  d.sx = f + p.o_sx;
+  d.sy = f + p.o_sy;
+  d.mx = f + p.o_mx;
+  d.my = f + p.o_my;
+  d.w = f + p.o_w;
+  d.nx = f + p.o_nx;
+  d.ny = f + p.o_ny;
+  d.u = f + p.o_u;
+  d.m = bytes + p.o_mask;
+  return d;
+}
+
 template <int LOG_L>
 __global__ void __launch_bounds__(kThreads) registration_kernel(const Params p) {
   extern __shared__ float4 dyn[];
@@ -634,16 +694,7 @@ __global__ void __launch_bounds__(kThreads) registration_kernel(const Params p) 
   const Shared sh = {s_theta, s_red, s_slots, s_sums, &s_flag, &s_count};
   float* f = reinterpret_cast<float*>(dyn);
   unsigned char* bytes = reinterpret_cast<unsigned char*>(dyn);
-  Rec d;
-  d.sx = f + p.o_sx;
-  d.sy = f + p.o_sy;
-  d.mx = f + p.o_mx;
-  d.my = f + p.o_my;
-  d.w = f + p.o_w;
-  d.nx = f + p.o_nx;
-  d.ny = f + p.o_ny;
-  d.u = f + p.o_u;
-  d.m = bytes + p.o_mask;
+  const Rec d = records(p, f, bytes);
   const int leaf0 = rank * p.Wk, q0 = rank * p.Qk;
   const int nq = max(0, min(p.Qk, p.T * p.C - q0));
   int par = 0;
@@ -687,43 +738,6 @@ __global__ void __launch_bounds__(kThreads) registration_kernel(const Params p) 
   }
   float2* txy = reinterpret_cast<float2*>(f + p.o_txy);
   unsigned char* tv = bytes + p.o_tv;
-  if (p.evaluate) {
-    // one association at the row's pose (s_theta), then the cost at each of
-    // the S poses over it: _evaluate_cost_reference (S = 1, the pose
-    // itself) and _sampled_covariance_reference (pose + offset_s, then the
-    // fit q = dot(costs, pinv))
-    __syncthreads();
-    associate(p, b, d, q0, nq, p.r2, true, txy, tv, sh);
-    const int count = s_count;
-    float q[10];
-#pragma unroll
-    for (int k = 0; k < 10; ++k) q[k] = 0.0f;
-    for (int si = 0; si < p.S; ++si) {
-      if (tid == 0 && p.offs != nullptr) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k)
-          s_theta[k] = __fadd_rn(theta[k], p.offs[3 * si + k]);
-      }
-      __syncthreads();
-      evaluate<LOG_L, 1>(p, d, leaf0, q0, count, sh, par, cluster);
-      if (rank == 0 && tid == 0) {
-        const float c = __fmul_rn(0.5f, s_sums[0]);
-        p.out_cost[(long long)b * p.S + si] = c;
-        if (si == 0) p.out_nres[b] = __float_as_int(s_sums[13]);
-        if (p.pinv != nullptr) {
-#pragma unroll
-          for (int k = 0; k < 10; ++k)  // refmath.dot: operands and steps flushed
-            q[k] = daz(__fmaf_rn(daz(c), daz(p.pinv[k * p.S + si]), q[k]));
-        }
-      }
-    }
-    if (rank == 0 && tid == 0 && p.pinv != nullptr) {
-#pragma unroll
-      for (int k = 0; k < 10; ++k) p.out_q[10 * b + k] = q[k];
-    }
-    cluster.sync();  // no CTA leaves while another may read its slots
-    return;
-  }
   // the prior's weight sqrt(max(valid source cells, 1))
   if (tid == 0) s_count = 0;
   __syncthreads();
@@ -775,6 +789,200 @@ __global__ void __launch_bounds__(kThreads) registration_kernel(const Params p) 
   cluster.sync();  // no CTA leaves while another may read its slots
 }
 
+// The sampled covariance's 3 x 3 algebra from the fit q (flushed), in one
+// thread, as ops/registration.py::_covariance_from_fit: the Hessian, its
+// convexity (every eigenvalue of la_eigvalsh3 positive), the guarded
+// inverse (lu_factor, then lu_apply against each column of the identity),
+// 2 final_score / max(resid_dim - 3, 1) cov_scaler, or the default
+// diagonal where the Hessian is not convex.
+__device__ void covariance(const Params& p, int b, const float* q) {
+  const float h[9] = {daz(__fmul_rn(2.0f, q[0])), q[3], q[5],
+                      q[3], daz(__fmul_rn(2.0f, q[1])), q[4],
+                      q[5], q[4], daz(__fmul_rn(2.0f, q[2]))};
+  float w[3];
+  la_eigvalsh3(h, w);
+  const bool convex = w[0] > 0.0f && w[1] > 0.0f && w[2] > 0.0f;
+  float a[kLuMax][kLuMax];
+  int piv[kLuMax];
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c)
+      a[r][c] = daz(__fadd_rn(h[3 * r + c], r == c && !convex ? 1.0f : 0.0f));
+  lu_factor(3, a, piv);
+  const long long rd = (p.cost == kP2L ? 1LL : 2LL) * p.n_res[b];
+  const float scale =
+      daz(__fdiv_rn(p.final_score[b], (float)(rd - 3 > 1 ? rd - 3 : 1)));
+  float* out = p.out_cov + 9LL * b;
+  for (int j = 0; j < 3; ++j) {
+    float x[kLuMax] = {j == 0 ? 1.0f : 0.0f, j == 1 ? 1.0f : 0.0f,
+                       j == 2 ? 1.0f : 0.0f};
+    lu_apply(3, a, piv, x);
+    for (int r = 0; r < 3; ++r) {
+      const float c2 = daz(__fmul_rn(2.0f, x[r]));
+      out[3 * r + j] = convex ? daz(__fmul_rn(daz(__fmul_rn(c2, scale)),
+                                              p.cov_scaler))
+                              : (r == j ? p.fallback[r] : 0.0f);
+    }
+  }
+  p.out_convex[b] = convex;
+}
+
+// The evaluation entry: one association at the row's pose, then the cost at
+// each of its S poses over it in ONE pass over the records, the S trees'
+// reductions side by side, then (rank 0) the top of the trees, the fit and
+// the covariance.  A team of team_warps warps a pose (8 at S = 1, 1 from
+// S = 5), its team_lanes lanes each an aligned run of E = 2^LOG_E leaves,
+// so each pose's sum is _row_sums's pairwise tree whatever K; kPoseGroup
+// poses of a team in flight at once, so each record is read once a group.
+template <int LOG_E>
+__global__ void __launch_bounds__(kThreads) evaluation_kernel(const Params p) {
+  extern __shared__ float4 dyn[];
+  __shared__ float s_theta[3];
+  __shared__ float4 s_pose[kMaxPoses];           // x, y, sin, cos
+  __shared__ float s_warp[kMaxPoses * kWarps];  // the warps' roots
+  __shared__ float s_root[kMaxPoses + 1];        // the CTA's roots, its count
+  __shared__ float s_cost[kMaxPoses];
+  __shared__ float s_q[10];
+  __shared__ int s_count;
+  constexpr int E = 1 << LOG_E;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / p.K, tid = threadIdx.x, lane = tid & 31,
+            warp = tid >> 5;
+  const Shared sh = {s_theta, nullptr, nullptr, nullptr, nullptr, &s_count};
+  float* f = reinterpret_cast<float*>(dyn);
+  unsigned char* bytes = reinterpret_cast<unsigned char*>(dyn);
+  const Rec d = records(p, f, bytes);
+  float2* txy = reinterpret_cast<float2*>(f + p.o_txy);
+  unsigned char* tv = bytes + p.o_tv;
+  const int leaf0 = rank * p.Wk, q0 = rank * p.Qk;
+  const int nq = max(0, min(p.Qk, p.T * p.C - q0));
+  // the pose table, once a launch: pose + offset_s and its sine and cosine
+  if (tid < 3) s_theta[tid] = p.theta0[3 * b + tid];
+  if (tid < p.S) {
+    float th[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      th[k] = p.offs == nullptr ? p.theta0[3 * b + k]
+                                : __fadd_rn(p.theta0[3 * b + k], p.offs[3 * tid + k]);
+    float sn, cs;
+    ref_sincos(th[2], &sn, &cs);
+    s_pose[tid] = make_float4(th[0], th[1], sn, cs);
+  }
+  __syncthreads();  // associate reads s_theta before its own first barrier
+  associate(p, b, d, q0, nq, p.r2, true, txy, tv, sh);
+  const int count = s_count;
+  const int tw = p.team_warps, teams = kWarps / tw, team = warp / tw,
+            wt = warp - team * tw, tl = wt * 32 + lane;
+  const int span = p.team_lanes < 32 ? p.team_lanes : 32;
+  const int base = leaf0 + tl * E;
+  for (int g0 = team; g0 < p.S; g0 += teams * kPoseGroup) {
+    int ps[kPoseGroup];
+    float4 pose[kPoseGroup];
+    float v[kPoseGroup];
+#pragma unroll
+    for (int g = 0; g < kPoseGroup; ++g) {
+      ps[g] = g0 + g * teams;
+      pose[g] = ps[g] < p.S ? s_pose[ps[g]] : make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+      v[g] = 0.0f;
+    }
+    if (tl < p.team_lanes) {
+      float stack[LOG_E > 0 ? LOG_E : 1][kPoseGroup];
+      for (int k = 0; k < E; ++k) {
+        float x[kPoseGroup];
+#pragma unroll
+        for (int g = 0; g < kPoseGroup; ++g)
+          leaf<1>(p, d, base + k, q0, pose[g].x, pose[g].y, pose[g].z,
+                  pose[g].w, &x[g]);
+        bool carry = true;  // k's low set bits: subtrees that x completes
+#pragma unroll
+        for (int lvl = 0; lvl < LOG_E; ++lvl) {
+          if (carry) {
+            if ((k >> lvl) & 1) {
+#pragma unroll
+              for (int g = 0; g < kPoseGroup; ++g)
+                x[g] = __fadd_rn(stack[lvl][g], x[g]);
+            } else {
+#pragma unroll
+              for (int g = 0; g < kPoseGroup; ++g) stack[lvl][g] = x[g];
+              carry = false;
+            }
+          }
+        }
+        if (carry) {
+#pragma unroll
+          for (int g = 0; g < kPoseGroup; ++g) v[g] = x[g];
+        }
+      }
+    }
+    // levels past the tree's leaves would add zeros (a -0.0 turned +0.0)
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      if (o < span) {
+#pragma unroll
+        for (int g = 0; g < kPoseGroup; ++g)
+          v[g] = __fadd_rn(v[g], __shfl_xor_sync(0xffffffffu, v[g], o));
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < kPoseGroup; ++g)
+        if (ps[g] < p.S) s_warp[ps[g] * kWarps + wt] = v[g];
+    }
+  }
+  if (tid == 0) s_root[p.S] = __int_as_float(count);
+  __syncthreads();
+  if (tid < p.S) {  // a thread a pose: the tree over its team's warps
+    const int nw = p.team_lanes > 32 ? p.team_lanes >> 5 : 1;
+    float x[kWarps];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) x[w] = w < nw ? s_warp[tid * kWarps + w] : 0.0f;
+#pragma unroll
+    for (int n = kWarps; n > 1; n >>= 1) {
+      if (n <= nw) {
+#pragma unroll
+        for (int k = 0; k < n / 2; ++k) x[k] = __fadd_rn(x[2 * k], x[2 * k + 1]);
+      }
+    }
+    s_root[tid] = x[0];
+  }
+  cluster.sync();
+  if (rank == 0 && warp == 0) {
+    for (int si = lane; si < p.S; si += 32) {  // the top log2 K levels
+      float x[kMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        x[r] = r < p.K ? cluster.map_shared_rank(s_root, r)[si] : 0.0f;
+#pragma unroll
+      for (int n = kMaxCluster; n > 1; n >>= 1) {
+        if (n <= p.K) {
+#pragma unroll
+          for (int k = 0; k < n / 2; ++k) x[k] = __fadd_rn(x[2 * k], x[2 * k + 1]);
+        }
+      }
+      const float c = daz(__fmul_rn(0.5f, x[0]));
+      p.out_cost[(long long)b * p.S + si] = c;
+      s_cost[si] = c;
+    }
+    if (lane == 0) {
+      int total = 0;
+      for (int r = 0; r < p.K; ++r)
+        total += __float_as_int(cluster.map_shared_rank(s_root, r)[p.S]);
+      p.out_nres[b] = total;
+    }
+    __syncwarp();
+    if (p.pinv != nullptr && lane < 10) {  // a lane a coefficient
+      float qk = 0.0f;  // refmath.dot: operands and steps flushed
+      for (int si = 0; si < p.S; ++si)
+        qk = daz(__fmaf_rn(daz(s_cost[si]), daz(p.pinv[lane * p.S + si]), qk));
+      p.out_q[10 * b + lane] = qk;
+      s_q[lane] = qk;
+    }
+    __syncwarp();
+    if (p.out_cov != nullptr && lane == 0) covariance(p, b, s_q);
+  }
+  cluster.sync();  // no CTA leaves while rank 0 may read its roots
+}
+
 // The dynamic shared memory of one CTA's records (and, in the window, one
 // staged target scan), its offsets set in p; kernels/lm_solve.py::
 // shared_bytes computes the same.
@@ -804,9 +1012,12 @@ long long layout(Params& p) {
   return b;
 }
 
-template <int LOG_L>
+template <int LOG_L, bool EVAL>
 int launch(const Params& p, int rows, long long smem, cudaStream_t stream) {
-  auto kernel = registration_kernel<LOG_L>;
+  auto kernel = [] {
+    if constexpr (EVAL) return evaluation_kernel<LOG_L>;
+    else return registration_kernel<LOG_L>;
+  }();
   // the shared-memory attribute and the cluster occupancy, checked once a
   // device for the largest size asked so far (a smaller size fits too)
   static long long attr_bytes[kMaxDevices];
@@ -865,15 +1076,36 @@ int run(Params& p, int rows, int cluster, cudaStream_t stream) {
   if (log_l > kMaxLogLeaves) return (int)cudaErrorInvalidValue;
   const long long smem = layout(p);
   if (smem > kSmemBytes) return (int)cudaErrorInvalidValue;
+  if (p.evaluate) {
+    if (p.S < 1 || p.S > kMaxPoses) return (int)cudaErrorInvalidValue;
+    p.team_warps = p.S == 1 ? 8 : p.S == 2 ? 4 : p.S <= 4 ? 2 : 1;
+    p.team_lanes = p.Wk < 32 * p.team_warps ? p.Wk : 32 * p.team_warps;
+    int log_e = 0;
+    while ((1LL << log_e) * p.team_lanes < p.Wk) ++log_e;
+    if (log_e > kMaxLogRun) return (int)cudaErrorInvalidValue;
+    switch (log_e) {
+      case 0: return launch<0, true>(p, rows, smem, stream);
+      case 1: return launch<1, true>(p, rows, smem, stream);
+      case 2: return launch<2, true>(p, rows, smem, stream);
+      case 3: return launch<3, true>(p, rows, smem, stream);
+      case 4: return launch<4, true>(p, rows, smem, stream);
+      case 5: return launch<5, true>(p, rows, smem, stream);
+      case 6: return launch<6, true>(p, rows, smem, stream);
+      case 7: return launch<7, true>(p, rows, smem, stream);
+      case 8: return launch<8, true>(p, rows, smem, stream);
+      case 9: return launch<9, true>(p, rows, smem, stream);
+      default: return launch<10, true>(p, rows, smem, stream);
+    }
+  }
   switch (log_l) {
-    case 0: return launch<0>(p, rows, smem, stream);
-    case 1: return launch<1>(p, rows, smem, stream);
-    case 2: return launch<2>(p, rows, smem, stream);
-    case 3: return launch<3>(p, rows, smem, stream);
-    case 4: return launch<4>(p, rows, smem, stream);
-    case 5: return launch<5>(p, rows, smem, stream);
-    case 6: return launch<6>(p, rows, smem, stream);
-    default: return launch<7>(p, rows, smem, stream);
+    case 0: return launch<0, false>(p, rows, smem, stream);
+    case 1: return launch<1, false>(p, rows, smem, stream);
+    case 2: return launch<2, false>(p, rows, smem, stream);
+    case 3: return launch<3, false>(p, rows, smem, stream);
+    case 4: return launch<4, false>(p, rows, smem, stream);
+    case 5: return launch<5, false>(p, rows, smem, stream);
+    case 6: return launch<6, false>(p, rows, smem, stream);
+    default: return launch<7, false>(p, rows, smem, stream);
   }
 }
 
@@ -984,22 +1216,27 @@ extern "C" int register_window_launch(
   return run(p, rows, cluster, (cudaStream_t)stream);
 }
 
-// (costs [B, S], association counts [B], fit q [B, 10]) of the cost
-// evaluation for B source scans of C cells against T world-frame target
-// scans of Ct cells each (_world_targets): one association at each row's
-// pose, then the cost-only pass at pose + offs[s] for s < S (offs null: S
-// is 1 and the pose is used as it is); with pinv [10, S], q = the fit's
-// sums (refmath.dot's order), else out_q is not written.  Returns a CUDA
-// error code.
+// (costs [B, S], association counts [B], fit q [B, 10], cov [B, 3, 3],
+// convex [B]) of the cost evaluation for B source scans of C cells against
+// T world-frame target scans of Ct cells each (_world_targets): one
+// association at each row's pose, then the cost-only pass at pose +
+// offs[s] for s < S <= 64 (offs null: S is 1 and the pose is used as it
+// is); with pinv [10, S], q = the fit's sums (refmath.dot's order), else
+// out_q is not written; with out_cov (and pinv, final_score [B], n_res [B]
+// int64, out_convex), the sampled covariance of the fit
+// (_covariance_from_fit; the default diagonal diag0..2 where not convex).
+// Returns a CUDA error code.
 extern "C" int evaluate_cost_launch(
     const void* pose, const void* src, const void* src_normal,
     const void* src_ns, const void* src_plan, const void* src_valid,
     const void* tmw, const void* tnw, const void* tcw, const void* tvalid,
     const void* t_ns, const void* t_plan, const void* offs, const void* pinv,
-    void* out_costs, void* out_count, void* out_q, int rows, int T, int C,
-    int Ct, int S, int cost, int loss, float k0, float k1, float k2,
-    float k3, int weight_option, float r2, float gate, float reg,
-    float cov_scale, int cluster, void* stream) {
+    const void* final_score, const void* n_res, void* out_costs,
+    void* out_count, void* out_q, void* out_cov, void* out_convex, int rows,
+    int T, int C, int Ct, int S, int cost, int loss, float k0, float k1,
+    float k2, float k3, int weight_option, float r2, float gate, float reg,
+    float cov_scale, float cov_scaler, float diag0, float diag1,
+    float diag2, int cluster, void* stream) {
   Params p = {};
   p.window = 1;
   p.evaluate = 1;
@@ -1020,6 +1257,14 @@ extern "C" int evaluate_cost_launch(
   p.out_cost = (float*)out_costs;
   p.out_nres = (long long*)out_count;
   p.out_q = (float*)out_q;
+  p.final_score = (const float*)final_score;
+  p.n_res = (const long long*)n_res;
+  p.out_cov = (float*)out_cov;
+  p.out_convex = (unsigned char*)out_convex;
+  p.cov_scaler = cov_scaler;
+  p.fallback[0] = diag0;
+  p.fallback[1] = diag1;
+  p.fallback[2] = diag2;
   p.T = T;
   p.C = C;
   p.Ct = Ct;
@@ -1035,7 +1280,9 @@ extern "C" int evaluate_cost_launch(
   p.gate = gate;
   p.reg = reg;
   p.cov_scale = cov_scale;
-  if (Ct < 1 || S < 1 || (offs == nullptr && S != 1))
+  if (Ct < 1 || S < 1 || S > kMaxPoses || (offs == nullptr && S != 1) ||
+      (out_cov != nullptr && (pinv == nullptr || final_score == nullptr ||
+                              n_res == nullptr || out_convex == nullptr)))
     return (int)cudaErrorInvalidValue;
   return run(p, rows, cluster, (cudaStream_t)stream);
 }

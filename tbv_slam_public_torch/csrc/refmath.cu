@@ -18,7 +18,9 @@
 //
 // One launch per call: an op code, one to three float32 inputs, one or two
 // outputs (sincos writes both).  fma is the fused multiply-add that the
-// reference's compiler makes of a product feeding an add; sqrt is the IEEE
+// reference's compiler makes of a product feeding an add, its subnormal
+// operands and result flushed as vfmadd flushes them on the reference's
+// threads (DAZ and FTZ); sqrt is the IEEE
 // square root, which the reference's program computes (torch's CPU sqrt
 // does not: the plain version rounds a float64 root).
 // refmath_loop_dot_launch is the logistic gradient's sum in the reference's
@@ -52,7 +54,7 @@ __global__ void refmath_kernel(int op, const float* __restrict__ x,
       case kSinCos: ref_sincos(v, &s, &c); out0[i] = s; out1[i] = c; break;
       case kAtan2: out0[i] = ref_atan2(v, y[i]); break;
       case kWrap: ref_sincos(v, &s, &c); out0[i] = ref_atan2(s, c); break;
-      case kFma: out0[i] = __fmaf_rn(v, y[i], z[i]); break;
+      case kFma: out0[i] = ref_fma(v, y[i], z[i]); break;
       case kSqrt: out0[i] = __fsqrt_rn(daz(v)); break;
       case kFtz: out0[i] = daz(v); break;
     }
@@ -151,105 +153,21 @@ __global__ void refmath_loop_dot_kernel(const float* __restrict__ x,
 
 // h^{-1} g for n systems h [n, k, k], g [n, k], k <= 7, rounded as the
 // reference's OpenBLAS sgetrf (unblocked, left-looking) and strsm on the
-// unit lower and the upper factor (core/refmath.py::lu_solve), a thread a
-// system.
-constexpr int kLuMax = 7;
-
-// The library runs on the reference's thread, which flushes subnormals
-// (DAZ and FTZ): the operands are flushed once as they are read, and every
-// float result below is flushed (daz).
-// sdot of x (stride 1 here) and y: pairs fma(x0, y0, x1 * y1) added into a
-// double from zero, an odd last product alone, rounded to float once.
-__device__ float lu_strided_dot(const float* x, const float* y, int n) {
-  double acc = 0.0;
-  int p = 0;
-  for (; p + 1 < n; p += 2)
-    acc = __dadd_rn(acc, (double)daz(__fmaf_rn(
-                             x[p], y[p], daz(__fmul_rn(x[p + 1], y[p + 1])))));
-  if (n & 1) acc = __dadd_rn(acc, (double)daz(__fmul_rn(x[n - 1], y[n - 1])));
-  return daz(__double2float_rn(acc));
-}
-
-// y - sum_c a[c] x[c], the sum one fused multiply-add a term from zero.
-__device__ float lu_chain(float y, const float* a, const float* x, int from,
-                          int to) {
-  float acc = 0.0f;
-  for (int c = from; c < to; ++c) acc = daz(__fmaf_rn(a[c], x[c], acc));
-  return daz(__fsub_rn(y, acc));
-}
-
+// unit lower and the upper factor (core/refmath.py::lu_solve; lu_factor
+// and lu_apply in refmath.cuh), a thread a system.
 __global__ void refmath_lu_solve_kernel(const float* __restrict__ h,
                                         const float* __restrict__ g,
                                         float* __restrict__ out, long long n,
                                         int k) {
   for (long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x; s < n;
        s += (long long)gridDim.x * blockDim.x) {
-    float a[kLuMax][kLuMax], col[kLuMax], x[kLuMax];
+    float a[kLuMax][kLuMax], x[kLuMax];
     int piv[kLuMax];
     for (int r = 0; r < k; ++r)
       for (int c = 0; c < k; ++c) a[r][c] = daz(h[(s * k + r) * k + c]);
-    for (int j = 0; j < k; ++j) {
-      for (int r = 0; r < k; ++r) col[r] = a[r][j];
-      for (int q = 0; q < j; ++q) {
-        const float t = col[q];
-        col[q] = col[piv[q]];
-        col[piv[q]] = t;
-      }
-      for (int q = 1; q < j; ++q)
-        col[q] = daz(__fsub_rn(col[q], lu_strided_dot(a[q], col, q)));
-      for (int r = j; r < k; ++r) col[r] = lu_chain(col[r], a[r], col, 0, j);
-      for (int r = 0; r < k; ++r) a[r][j] = col[r];
-      // the first largest magnitude (a NaN above every number)
-      int p = j;
-      float best = fabsf(col[j]);
-      for (int r = j + 1; r < k; ++r) {
-        const float v = fabsf(col[r]);
-        if (v > best || (isnan(v) && !isnan(best))) {
-          best = v;
-          p = r;
-        }
-      }
-      piv[j] = p;
-      const float t = col[p];
-      if (t != 0.0f && fabsf(t) >= 1.17549435e-38f) {
-        for (int c = 0; c <= j; ++c) {
-          const float u = a[j][c];
-          a[j][c] = a[p][c];
-          a[p][c] = u;
-        }
-        const float rcp = daz(__fdiv_rn(1.0f, t));
-        for (int q = j + 1; q < k; ++q) a[q][j] = daz(__fmul_rn(a[q][j], rcp));
-      }
-    }
+    lu_factor(k, a, piv);
     for (int q = 0; q < k; ++q) x[q] = daz(g[s * k + q]);
-    for (int q = 0; q < k; ++q) {
-      const float t = x[q];
-      x[q] = x[piv[q]];
-      x[piv[q]] = t;
-    }
-    int lo[3], hi[3], nb = 0, r0 = 0;
-    for (int w = 4; w >= 1; w /= 2)
-      if (k & w) {
-        lo[nb] = r0;
-        hi[nb++] = r0 + w;
-        r0 += w;
-      }
-    for (int b = 0; b < nb; ++b) {  // the unit lower factor, from the top
-      for (int r = lo[b]; r < hi[b]; ++r)
-        x[r] = lu_chain(x[r], a[r], x, 0, lo[b]);
-      for (int i = lo[b]; i < hi[b]; ++i)
-        for (int q = i + 1; q < hi[b]; ++q)
-          x[q] = daz(__fmaf_rn(-x[i], a[q][i], x[q]));
-    }
-    for (int b = nb - 1; b >= 0; --b) {  // the upper factor, from the bottom
-      for (int r = lo[b]; r < hi[b]; ++r)
-        x[r] = lu_chain(x[r], a[r], x, hi[b], k);
-      for (int i = hi[b] - 1; i >= lo[b]; --i) {
-        x[i] = daz(__fmul_rn(x[i], daz(__fdiv_rn(1.0f, a[i][i]))));
-        for (int q = lo[b]; q < i; ++q)
-          x[q] = daz(__fmaf_rn(-x[i], a[q][i], x[q]));
-      }
-    }
+    lu_apply(k, a, piv, x);
     for (int q = 0; q < k; ++q) out[s * k + q] = x[q];
   }
 }

@@ -26,6 +26,39 @@ __device__ __forceinline__ float daz(float x) {
   return fabsf(x) < kMinNorm ? __fmul_rn(x, 0.0f) : x;
 }
 
+// a * b, a * b + c and a + b rounded once, their subnormal operands and
+// result flushed, each one instruction (.ftz).  The card flushes a result
+// whose rounding with an unbounded exponent is below 2^-126, as the
+// reference's x86 FTZ does (a product just below 2^-126 that rounds to it
+// is kept, one on the tie 2^-126 - 2^-150 flushed: scripts/probe_ftz.py),
+// so with operands that are normal or zero each equals daz() of the plain
+// operation (but on that tie, which daz() keeps) and costs nothing more.
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float r;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
+  float r;
+  asm("fma.rn.ftz.f32 %0, %1, %2, %3;" : "=f"(r) : "f"(a), "f"(b), "f"(c));
+  return r;
+}
+
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  float r;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// refmath.fma: a * b + c rounded once, its subnormal operands and result
+// flushed, as the reference's vfmadd on its DAZ / FTZ threads (the plain
+// core/refmath.py::fma); the kernels use it wherever their plain version
+// calls refmath.fma.
+__device__ __forceinline__ float ref_fma(float a, float b, float c) {
+  return fma_ftz(a, b, c);
+}
+
 __device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
   x = (x >= lo || isnan(x)) ? x : lo;
   return (x <= hi || isnan(x)) ? x : hi;
@@ -344,6 +377,353 @@ __device__ __forceinline__ void lm_update3(const float* t, const float* m,
   out[0] = __fmaf_rn(-inv, s0, t[0]);
   out[1] = __fmaf_rn(-inv, s1, t[1]);
   out[2] = __fmaf_rn(-inv, s2, t[2]);
+}
+
+// ---- the logistic solve's and the guarded inverse's LU (OpenBLAS) --------
+// sgetrf (unblocked, left-looking sgetf2) and strsm on the unit lower and
+// the upper factor, as core/refmath.py::lu_solve; the library runs on the
+// reference's thread, which flushes subnormals (DAZ and FTZ): the operands
+// are flushed as they are read, and every float result is flushed.
+constexpr int kLuMax = 7;
+
+// sdot of x (stride 1 here) and y: pairs fma(x0, y0, x1 * y1) added into a
+// double from zero, an odd last product alone, rounded to float once.
+__device__ float lu_strided_dot(const float* x, const float* y, int n) {
+  double acc = 0.0;
+  int p = 0;
+  for (; p + 1 < n; p += 2)
+    acc = __dadd_rn(acc, (double)daz(__fmaf_rn(
+                             x[p], y[p], daz(__fmul_rn(x[p + 1], y[p + 1])))));
+  if (n & 1) acc = __dadd_rn(acc, (double)daz(__fmul_rn(x[n - 1], y[n - 1])));
+  return daz(__double2float_rn(acc));
+}
+
+// y - sum_c a[c] x[c], the sum one fused multiply-add a term from zero.
+__device__ float lu_chain(float y, const float* a, const float* x, int from,
+                          int to) {
+  float acc = 0.0f;
+  for (int c = from; c < to; ++c) acc = daz(__fmaf_rn(a[c], x[c], acc));
+  return daz(__fsub_rn(y, acc));
+}
+
+// sgetrf of a [k][k] (flushed operands) in place, its pivots in piv.
+__device__ void lu_factor(int k, float (*a)[kLuMax], int* piv) {
+  float col[kLuMax];
+  for (int j = 0; j < k; ++j) {
+    for (int r = 0; r < k; ++r) col[r] = a[r][j];
+    for (int q = 0; q < j; ++q) {
+      const float t = col[q];
+      col[q] = col[piv[q]];
+      col[piv[q]] = t;
+    }
+    for (int q = 1; q < j; ++q)
+      col[q] = daz(__fsub_rn(col[q], lu_strided_dot(a[q], col, q)));
+    for (int r = j; r < k; ++r) col[r] = lu_chain(col[r], a[r], col, 0, j);
+    for (int r = 0; r < k; ++r) a[r][j] = col[r];
+    // the first largest magnitude (a NaN above every number)
+    int p = j;
+    float best = fabsf(col[j]);
+    for (int r = j + 1; r < k; ++r) {
+      const float v = fabsf(col[r]);
+      if (v > best || (isnan(v) && !isnan(best))) {
+        best = v;
+        p = r;
+      }
+    }
+    piv[j] = p;
+    const float t = col[p];
+    if (t != 0.0f && fabsf(t) >= kMinNorm) {
+      for (int c = 0; c <= j; ++c) {
+        const float u = a[j][c];
+        a[j][c] = a[p][c];
+        a[p][c] = u;
+      }
+      const float rcp = daz(__fdiv_rn(1.0f, t));
+      for (int q = j + 1; q < k; ++q) a[q][j] = daz(__fmul_rn(a[q][j], rcp));
+    }
+  }
+}
+
+// x (in: the right-hand side, flushed; out: the solution) by strsm on the
+// factors of lu_factor: the rows in blocks of 4, 2, 1.
+__device__ void lu_apply(int k, float (*a)[kLuMax], const int* piv, float* x) {
+  for (int q = 0; q < k; ++q) {
+    const float t = x[q];
+    x[q] = x[piv[q]];
+    x[piv[q]] = t;
+  }
+  int lo[3], hi[3], nb = 0, r0 = 0;
+  for (int w = 4; w >= 1; w /= 2)
+    if (k & w) {
+      lo[nb] = r0;
+      hi[nb++] = r0 + w;
+      r0 += w;
+    }
+  for (int b = 0; b < nb; ++b) {  // the unit lower factor, from the top
+    for (int r = lo[b]; r < hi[b]; ++r) x[r] = lu_chain(x[r], a[r], x, 0, lo[b]);
+    for (int i = lo[b]; i < hi[b]; ++i)
+      for (int q = i + 1; q < hi[b]; ++q)
+        x[q] = daz(__fmaf_rn(-x[i], a[q][i], x[q]));
+  }
+  for (int b = nb - 1; b >= 0; --b) {  // the upper factor, from the bottom
+    for (int r = lo[b]; r < hi[b]; ++r) x[r] = lu_chain(x[r], a[r], x, hi[b], k);
+    for (int i = hi[b] - 1; i >= lo[b]; --i) {
+      x[i] = daz(__fmul_rn(x[i], daz(__fdiv_rn(1.0f, a[i][i]))));
+      for (int q = lo[b]; q < i; ++q) x[q] = daz(__fmaf_rn(-x[i], a[q][i], x[q]));
+    }
+  }
+}
+
+// ---- the 3 x 3 symmetric eigenvalues of jaxlib's LAPACK ------------------
+// jnp.linalg.eigvalsh on the CPU: ssyevd's scaling, ssytd2's reflector
+// (the SkylakeX ssymv / sdot / saxpy / ssyr2 kernels' fused multiply-adds),
+// ssteqr's implicit QL / QR with slartg rotations and slaev2 on 2 x 2
+// blocks, every result flushed; core/refmath.py::eigvalsh3 (whose table
+// says how it was read) runs the same steps elementwise.
+__device__ __forceinline__ float la_mul(float a, float b) { return daz(__fmul_rn(a, b)); }
+__device__ __forceinline__ float la_div(float a, float b) { return daz(__fdiv_rn(a, b)); }
+__device__ __forceinline__ float la_add(float a, float b) { return daz(__fadd_rn(a, b)); }
+__device__ __forceinline__ float la_sub(float a, float b) { return daz(__fsub_rn(a, b)); }
+__device__ __forceinline__ float la_sqrt(float a) { return __fsqrt_rn(daz(a)); }
+// torch.maximum's NaN rule
+__device__ __forceinline__ float la_max(float a, float b) {
+  return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
+}
+
+constexpr float kLaEps = 0x1p-24f;
+constexpr float kLaEps2 = 0x1p-48f;
+constexpr float kLaSafmin = 0x1p-126f;
+constexpr float kLaSafmax = 0x1p126f;
+constexpr float kLaSsfmin = 0x1p-15f;  // sqrt(safmin) / eps^2
+constexpr float kLaSsfmax = 0x1.555556p61f;  // sqrt(safmax) / 3
+
+__device__ float la_slapy2(float x, float y) {
+  if (isnan(y)) return y;
+  if (isnan(x)) return x;
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float w = fmaxf(ax, ay), z = fminf(ax, ay);
+  if (z == 0.0f || w > 3.40282347e38f) return w;
+  const float q = la_div(z, w);
+  return la_mul(w, la_sqrt(la_add(1.0f, la_mul(q, q))));
+}
+
+__device__ void la_slae2(float a, float b, float c, float* rt1, float* rt2) {
+  const float sm = la_add(a, c), adf = fabsf(la_sub(a, c));
+  const float ab = fabsf(la_add(b, b));
+  const bool big = fabsf(a) > fabsf(c);
+  const float acmx = big ? a : c, acmn = big ? c : a;
+  float rt;
+  if (adf > ab) {
+    const float q = la_div(ab, adf);
+    rt = la_mul(adf, la_sqrt(la_add(1.0f, la_mul(q, q))));
+  } else if (adf < ab) {
+    const float q = la_div(adf, ab);
+    rt = la_mul(ab, la_sqrt(la_add(1.0f, la_mul(q, q))));
+  } else {
+    rt = la_mul(ab, 0x1.6a09e6p0f);  // sqrt(2) in float32
+  }
+  if (sm < 0.0f || sm > 0.0f) {
+    *rt1 = la_mul(0.5f, sm < 0.0f ? la_sub(sm, rt) : la_add(sm, rt));
+    *rt2 = la_sub(la_mul(la_div(acmx, *rt1), acmn), la_mul(la_div(b, *rt1), b));
+  } else {
+    *rt1 = la_mul(0.5f, rt);
+    *rt2 = la_mul(-0.5f, rt);
+  }
+}
+
+__device__ void la_slartg(float f, float g, float* c, float* s, float* r) {
+  const float f1 = fabsf(f), g1 = fabsf(g);
+  const float rtmin = 0x1p-63f, rtmax = 0x1.6a09e6p62f;  // sqrt(safmin), sqrt(safmax / 2)
+  if (g == 0.0f) {
+    *c = 1.0f, *s = 0.0f, *r = f;
+  } else if (f == 0.0f) {
+    *c = 0.0f, *s = copysignf(1.0f, g), *r = g1;
+  } else if (f1 > rtmin && f1 < rtmax && g1 > rtmin && g1 < rtmax) {
+    const float d = la_sqrt(la_add(la_mul(f, f), la_mul(g, g)));
+    *c = la_div(f1, d);
+    *r = copysignf(d, f);
+    *s = la_div(g, *r);
+  } else {
+    const float u = fminf(kLaSafmax, la_max(fmaxf(f1, kLaSafmin), g1));
+    const float fs = la_div(f, u), gs = la_div(g, u);
+    const float d = la_sqrt(la_add(la_mul(fs, fs), la_mul(gs, gs)));
+    *c = la_div(fabsf(fs), d);
+    const float rr = copysignf(d, f);
+    *s = la_div(gs, rr);
+    *r = la_mul(rr, u);
+  }
+}
+
+// ssteqr's scaling of a block by its largest magnitude anorm
+__device__ __forceinline__ int la_scale(float anorm, float* down, float* up) {
+  const int code = anorm > kLaSsfmax ? 1 : anorm < kLaSsfmin ? 2 : 0;
+  const float to = code == 1 ? kLaSsfmax : kLaSsfmin;
+  *down = la_div(to, anorm);
+  *up = la_div(anorm, to);
+  return code;
+}
+
+__device__ __forceinline__ bool la_small(float e, float a, float b) {
+  return la_mul(fabsf(e), fabsf(e)) <=
+         la_add(la_mul(la_mul(kLaEps2, fabsf(a)), fabsf(b)), kLaSafmin);
+}
+
+// the eigenvalues of a 2 x 2 block [[a, b], [b, c]] split off by ssteqr
+__device__ void la_block2(float a, float c, float b, float* x, float* y) {
+  const float anorm = la_max(la_max(fabsf(c), fabsf(a)), fabsf(b));
+  if (anorm == 0.0f) {
+    *x = a, *y = c;
+    return;
+  }
+  float down, up;
+  const int code = la_scale(anorm, &down, &up);
+  if (code) a = la_mul(a, down), c = la_mul(c, down), b = la_mul(b, down);
+  if (fabsf(c) < fabsf(a)) {
+    const float t = a;
+    a = c, c = t;
+  }
+  if (la_small(b, a, c)) {
+    *x = a, *y = c;
+  } else {
+    la_slae2(a, b, c, x, y);
+  }
+  if (code) *x = la_mul(*x, up), *y = la_mul(*y, up);
+}
+
+// the eigenvalues of the unreduced 3 x 3 block; false where 90 sweeps do
+// not converge
+__device__ bool la_block3(float* d, float* e) {
+  const float anorm = la_max(la_max(la_max(la_max(fabsf(d[2]), fabsf(d[0])),
+                                           fabsf(e[0])), fabsf(d[1])),
+                             fabsf(e[1]));
+  if (anorm == 0.0f) return true;
+  float down, up;
+  const int code = la_scale(anorm, &down, &up);
+  if (code) {
+    for (int i = 0; i < 3; ++i) d[i] = la_mul(d[i], down);
+    for (int i = 0; i < 2; ++i) e[i] = la_mul(e[i], down);
+  }
+  if (fabsf(d[2]) < fabsf(d[0])) {  // QR: the block read backwards
+    float t = d[0];
+    d[0] = d[2], d[2] = t;
+    t = e[0];
+    e[0] = e[1], e[1] = t;
+  }
+  bool ok = true;
+  for (int sweep = 0;; ++sweep) {
+    const bool t0 = la_small(e[0], d[0], d[1]), t1 = la_small(e[1], d[1], d[2]);
+    if (t0) {
+      if (!t1) la_slae2(d[1], e[1], d[2], &d[1], &d[2]);
+      break;
+    }
+    if (t1) {
+      la_slae2(d[0], e[0], d[1], &d[0], &d[1]);
+      break;
+    }
+    if (sweep == 90) {
+      ok = false;
+      break;
+    }
+    float p = d[0];
+    float g = la_div(la_sub(d[1], p), la_mul(2.0f, e[0]));
+    float r = la_slapy2(g, 1.0f);
+    g = la_add(la_sub(d[2], p), la_div(e[0], la_add(g, copysignf(r, g))));
+    float s = 1.0f, c = 1.0f;
+    p = 0.0f;
+    float f = la_mul(s, e[1]), bb = la_mul(c, e[1]);
+    la_slartg(g, f, &c, &s, &r);
+    g = la_sub(d[2], p);
+    r = la_add(la_mul(la_sub(d[1], g), s), la_mul(la_mul(2.0f, c), bb));
+    p = la_mul(s, r);
+    const float n2 = la_add(g, p);
+    g = la_sub(la_mul(c, r), bb);
+    f = la_mul(s, e[0]), bb = la_mul(c, e[0]);
+    la_slartg(g, f, &c, &s, &r);
+    const float ne1 = r;
+    g = la_sub(d[1], p);
+    r = la_add(la_mul(la_sub(d[0], g), s), la_mul(la_mul(2.0f, c), bb));
+    p = la_mul(s, r);
+    const float n1 = la_add(g, p);
+    g = la_sub(la_mul(c, r), bb);
+    d[0] = la_sub(d[0], p), d[1] = n1, d[2] = n2;
+    e[0] = g, e[1] = ne1;
+  }
+  if (code)
+    for (int i = 0; i < 3; ++i) d[i] = la_mul(d[i], up);
+  return ok;
+}
+
+// the eigenvalues w (in no order) of symmetric h (row-major 3 x 3) as
+// jnp.linalg.eigvalsh; NaN where the library reports no convergence or h
+// is not finite
+__device__ void la_eigvalsh3(const float* hin, float* w) {
+  float h[9];
+  bool finite = true;
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      const float x = la_mul(la_add(daz(hin[3 * i + j]), daz(hin[3 * j + i])), 0.5f);
+      h[3 * i + j] = x;
+      finite = finite && isfinite(x);
+    }
+  float anrm = fabsf(h[0]);
+  const int low[5] = {3, 4, 6, 7, 8};
+  for (int k = 0; k < 5; ++k) anrm = la_max(anrm, fabsf(h[low[k]]));
+  const float rmin = 0x1.6a09e6p-52f, rmax = 0x1.6a09e6p51f;  // sqrt(smlnum), sqrt(bignum)
+  const bool up = anrm > rmax;
+  const bool scale = (anrm > 0.0f && anrm < rmin) || up;
+  const float sigma = la_div(up ? rmax : rmin, anrm);
+  if (scale)
+    for (int k = 0; k < 9; ++k) h[k] = la_mul(h[k], sigma);
+  const float a11 = h[0], a22 = h[4], a32 = h[7], a33 = h[8];
+  float alpha = h[3], x = h[6];
+  float d[3] = {a11, a22, a33}, e[2] = {alpha, a32};
+  if (fabsf(x) != 0.0f) {  // ssytd2, i = 1: slarfg(2, a21, a31)
+    float beta = -copysignf(la_slapy2(alpha, fabsf(x)), alpha);
+    int knt = 0;
+    if (fabsf(beta) < 0x1p-102f) {  // slarfg's safmin / eps
+      do {
+        x = la_mul(x, 0x1p102f);
+        beta = la_mul(beta, 0x1p102f);
+        alpha = la_mul(alpha, 0x1p102f);
+        ++knt;
+      } while (fabsf(beta) < 0x1p-102f && knt < 20);
+      beta = -copysignf(la_slapy2(alpha, fabsf(x)), alpha);
+    }
+    const float tau = la_div(la_sub(beta, alpha), beta);
+    const float v2 = la_mul(x, la_div(1.0f, la_sub(alpha, beta)));
+    for (int k = 0; k < knt; ++k) beta = la_mul(beta, 0x1p-102f);
+    float y0 = ref_fma(tau, a22, 0.0f), y1 = ref_fma(tau, a32, 0.0f);
+    y0 = ref_fma(tau, ref_fma(a32, v2, 0.0f), y0);
+    y1 = ref_fma(la_mul(tau, v2), a33, y1);
+    const float al = la_mul(la_mul(-0.5f, tau), ref_fma(y0, 1.0f, la_mul(y1, v2)));
+    const float w0 = ref_fma(al, 1.0f, y0), w1 = ref_fma(al, v2, y1);
+    float b22 = ref_fma(-1.0f, w0, a22), b32 = ref_fma(-1.0f, w1, a32);
+    b22 = ref_fma(-w0, 1.0f, b22);
+    b32 = ref_fma(-w0, v2, b32);
+    float b33 = ref_fma(-v2, w1, a33);
+    b33 = ref_fma(-w1, v2, b33);
+    d[1] = b22, d[2] = b33, e[0] = beta, e[1] = b32;
+  }
+  auto split = [&](float ek, float da, float db) {
+    const float t = fabsf(ek);
+    return t == 0.0f ||
+           t <= la_mul(la_mul(la_sqrt(fabsf(da)), la_sqrt(fabsf(db))), kLaEps);
+  };
+  const bool s0 = split(e[0], d[0], d[1]), s1 = split(e[1], d[1], d[2]);
+  bool ok = true;
+  if (s0 && !s1) {
+    la_block2(d[1], d[2], e[1], &d[1], &d[2]);
+  } else if (!s0 && s1) {
+    la_block2(d[0], d[1], e[0], &d[0], &d[1]);
+  } else if (!s0 && !s1) {
+    ok = la_block3(d, e);
+  }
+  const float rs = la_div(1.0f, sigma);
+  for (int i = 0; i < 3; ++i) {
+    w[i] = scale ? la_mul(d[i], rs) : d[i];
+    if (!ok || !finite) w[i] = NAN;
+  }
+  if (isnan(w[0]) || isnan(w[1]) || isnan(w[2])) w[0] = w[1] = w[2] = NAN;
 }
 
 }  // namespace

@@ -10,8 +10,9 @@
 // ops/registration.py::_world_targets_plain,
 // ops/radar.py::_motion_compensate_plain, core/refmath.py::norm2), whose
 // refmath ops take their CPU plain versions; the kernel runs the same
-// operations with every rounding written out: __fmaf_rn exactly where the
-// plain version fuses, __fmul_rn / __fadd_rn / __fsub_rn where it rounds a
+// operations with every rounding written out: ref_fma (a fused
+// multiply-add, subnormals flushed as refmath.fma flushes them) exactly
+// where the plain version fuses, __fmul_rn / __fadd_rn / __fsub_rn where it rounds a
 // product or a sum on its own, so nvcc's contraction changes nothing.  The
 // reference's math (sincosf, atan2f, the IEEE root) is refmath.cuh's.
 //
@@ -109,8 +110,8 @@ __device__ __forceinline__ void compose3(const float* a, const float* b,
                                          float* o) {
   float sa, ca;
   ref_sincos(a[2], &sa, &ca);
-  o[0] = __fmaf_rn(-sa, b[1], __fmaf_rn(ca, b[0], a[0]));
-  o[1] = __fmaf_rn(ca, b[1], __fmaf_rn(sa, b[0], a[1]));
+  o[0] = ref_fma(-sa, b[1], ref_fma(ca, b[0], a[0]));
+  o[1] = ref_fma(ca, b[1], ref_fma(sa, b[0], a[1]));
   o[2] = ref_wrap(__fadd_rn(a[2], b[2]));
 }
 
@@ -118,16 +119,16 @@ __device__ __forceinline__ void compose3(const float* a, const float* b,
 __device__ __forceinline__ void inverse3(const float* a, float* o) {
   float s, c;
   ref_sincos(a[2], &s, &c);
-  o[0] = -__fmaf_rn(c, a[0], __fmul_rn(s, a[1]));
-  o[1] = -__fmaf_rn(c, a[1], -__fmul_rn(s, a[0]));
+  o[0] = -ref_fma(c, a[0], __fmul_rn(s, a[1]));
+  o[1] = -ref_fma(c, a[1], -__fmul_rn(s, a[0]));
   o[2] = -a[2];
 }
 
 // (c vx - s vy, s vx + c vy) (se2._rotated)
 __device__ __forceinline__ void rotated(float c, float s, float vx, float vy,
                                         float* o) {
-  o[0] = __fmaf_rn(c, vx, -__fmul_rn(s, vy));
-  o[1] = __fmaf_rn(s, vx, __fmul_rn(c, vy));
+  o[0] = ref_fma(c, vx, -__fmul_rn(s, vy));
+  o[1] = ref_fma(s, vx, __fmul_rn(c, vy));
 }
 
 // (0 + a0 b0) + a1 b1: torch's CPU matrix product of 2 x 2 operands (its
@@ -182,9 +183,9 @@ __global__ void refmath_site_kernel(const SiteArgs a) {
         const float a0 = in_f(a, e, 0, 0), a1 = in_f(a, e, 0, 1),
                     a2 = in_f(a, e, 0, 2);
         const float dt = ref_wrap(__fsub_rn(in_f(a, e, 1, 2), a2));
-        o0[3 * i] = __fmaf_rn(__fsub_rn(in_f(a, e, 1, 0), a0), f, a0);
-        o0[3 * i + 1] = __fmaf_rn(__fsub_rn(in_f(a, e, 1, 1), a1), f, a1);
-        o0[3 * i + 2] = ref_wrap(__fmaf_rn(dt, f, a2));
+        o0[3 * i] = ref_fma(__fsub_rn(in_f(a, e, 1, 0), a0), f, a0);
+        o0[3 * i + 1] = ref_fma(__fsub_rn(in_f(a, e, 1, 1), a1), f, a1);
+        o0[3 * i + 2] = ref_wrap(ref_fma(dt, f, a2));
         break;
       }
       case kRotmat: {
@@ -198,7 +199,7 @@ __global__ void refmath_site_kernel(const SiteArgs a) {
       }
       case kNorm2: {
         const float x = in_f(a, e, 0, 0), y = in_f(a, e, 0, 1);
-        o0[i] = __fsqrt_rn(daz(__fmaf_rn(y, y, __fmul_rn(x, x))));
+        o0[i] = __fsqrt_rn(daz(ref_fma(y, y, __fmul_rn(x, x))));
         break;
       }
       case kWorldTargets: {
@@ -234,14 +235,14 @@ __global__ void refmath_site_kernel(const SiteArgs a) {
         const float x = in_f(a, e, 0, 0), y = in_f(a, e, 0, 1);
         float ang = ref_atan2(y, x);
         ang = ang > a.c[2] ? ang : __fadd_rn(a.c[1], ang);
-        float factor = __fmaf_rn(ang, a.c[0], -0.5f);
+        float factor = ref_fma(ang, a.c[0], -0.5f);
         if (a.flags & 1) factor = -factor;
         float s, c;
         ref_sincos(__fmul_rn(in_f(a, e, 1, 2), factor), &s, &c);
-        o0[2 * i] = __fmaf_rn(in_f(a, e, 1, 0), factor,
-                              __fmaf_rn(c, x, -__fmul_rn(s, y)));
-        o0[2 * i + 1] = __fmaf_rn(in_f(a, e, 1, 1), factor,
-                                  __fmaf_rn(s, x, __fmul_rn(c, y)));
+        o0[2 * i] = ref_fma(in_f(a, e, 1, 0), factor,
+                              ref_fma(c, x, -__fmul_rn(s, y)));
+        o0[2 * i + 1] = ref_fma(in_f(a, e, 1, 1), factor,
+                                  ref_fma(s, x, __fmul_rn(c, y)));
         break;
       }
     }

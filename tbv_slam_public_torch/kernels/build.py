@@ -134,12 +134,19 @@ def library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4 + \
         [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
     lib.register_window_launch.restype = ctypes.c_int
-    # 14 inputs, 3 outputs, rows, T, C, Ct, S, cost, loss, k0..k3,
-    # weight_option, r2, gate, reg, cov_scale, cluster, stream
-    lib.evaluate_cost_launch.argtypes = [ctypes.c_void_p] * 17 + \
+    # 16 inputs, 5 outputs, rows, T, C, Ct, S, cost, loss, k0..k3,
+    # weight_option, r2, gate, reg, cov_scale, cov_scaler, diag0..2,
+    # cluster, stream
+    lib.evaluate_cost_launch.argtypes = [ctypes.c_void_p] * 21 + \
         [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_int] + \
-        [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_float] * 8 + [ctypes.c_int, ctypes.c_void_p]
     lib.evaluate_cost_launch.restype = ctypes.c_int
+    # count, sum_rel, sum_sq, masks, mask row strides, M, S, R, kl, eps,
+    # 2 pi e, joint, sep, overlap, valid, stream
+    lib.coral_tail_launch.argtypes = [ctypes.c_void_p] * 5 + \
+        [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + \
+        [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5
+    lib.coral_tail_launch.restype = ctypes.c_int
     BUILD_INFO.update(path=path, seconds=time.perf_counter() - t0,
                       ptxas=report)
     _LIB = lib

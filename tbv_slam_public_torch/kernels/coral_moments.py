@@ -19,6 +19,11 @@ tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel launches
 and nothing else.  One launch is one call of a C entry point: the moments
 kernel with, on the same stream, the small kernel that compacts the clouds
 before it, which is not counted again.
+
+:func:`coral_tail` launches the same file's ``coral_tail_kernel``: CorAl's
+per-point terms and the pairs' sums after the moments (the CUDA side of
+``ops/coral.py::coral_tail``, whose plain version is
+``coral_tail_reference``); ``TAIL_LAUNCHES`` counts its launches.
 """
 from __future__ import annotations
 
@@ -26,11 +31,13 @@ import math
 
 import torch
 
-from ..core.refmath import fma
+from ..core.refmath import fma, ftz
 
 #: number of kernel launches made by :func:`neighbor_moments` and
 #: :func:`pair_moments`
 LAUNCHES = 0
+#: number of launches of the ``coral_tail`` kernel (:func:`coral_tail`)
+TAIL_LAUNCHES = 0
 
 _MAX_ROWS = 65535  # gridDim.y
 
@@ -95,8 +102,10 @@ def _ordered_moments(qs, ps, pslot, radius, levels):
     ``pslot``), summed in the reference's order (see
     :func:`neighbor_moments_reference`)."""
     l, dt = qs.shape[0], qs.dtype
-    rx = ps[None, :, 0] - qs[:, None, 0]  # [l, Lp]
-    ry = ps[None, :, 1] - qs[:, None, 1]
+    # subnormal offsets, products and sums flushed (the reference's threads
+    # run with DAZ and FTZ)
+    rx = ftz(ps[None, :, 0] - qs[:, None, 0])  # [l, Lp]
+    ry = ftz(ps[None, :, 1] - qs[:, None, 1])
     near = fma(ry, ry, rx * rx) <= radius * radius
     count = near.sum(1)
     k = int(count.max())
@@ -113,7 +122,7 @@ def _ordered_moments(qs, ps, pslot, radius, levels):
     prod = rel.double()[..., [0, 0, 1]] * rel.double()[..., [0, 1, 1]]
     sq = torch.zeros((l, 3), dtype=dt, device=qs.device)
     for j in range(k):
-        sq = (prod[:, j] + sq).float()
+        sq = ftz((prod[:, j] + sq).float())
     # Σ(p−q): acc[0] sums within the current window, acc[v] the sums of
     # level-v windows; a neighbour in a new window first hands each finished
     # level's sum up.  window[v] [l, K]: each neighbour's level-v window.
@@ -126,12 +135,12 @@ def _ordered_moments(qs, ps, pslot, radius, levels):
         if j:
             for v in range(1, len(levels) + 1):
                 new = (window[v][:, j] != window[v][:, j - 1])[:, None]
-                acc[v] = torch.where(new, acc[v] + acc[v - 1], acc[v])
+                acc[v] = torch.where(new, ftz(acc[v] + acc[v - 1]), acc[v])
                 acc[v - 1] = torch.where(new, torch.zeros_like(acc[v - 1]),
                                          acc[v - 1])
-        acc[0] = acc[0] + rel[:, j]
+        acc[0] = ftz(acc[0] + rel[:, j])
     for v in range(1, len(levels) + 1):
-        acc[v] = acc[v] + acc[v - 1]
+        acc[v] = ftz(acc[v] + acc[v - 1])
     sum_sq = torch.stack([torch.stack([sq[:, 0], sq[:, 1]], -1),
                           torch.stack([sq[:, 1], sq[:, 2]], -1)], -2)
     return count.to(dt), acc[-1], sum_sq
@@ -259,3 +268,53 @@ def _strides(shape):
         out.append(step)
         step *= size
     return tuple(reversed(out))
+
+
+def coral_tail(n, s1, s2, src_mask, ref_mask, eps: float, mode: str):
+    """(joint, sep, overlap [M] float32, valid [M] bool) of CorAl from M
+    pairs' moments (``pair_moments``' outputs: n [2, M, Q], s1
+    [2, M, Q, 2], s2 [2, M, Q, 2, 2], Q = S + R) and masks (src [M, S],
+    ref [M, R]), one launch of ``csrc/coral_moments.cu``'s
+    ``coral_tail_kernel`` on CUDA tensors (``ops/coral.py::coral_tail``;
+    its plain version ``coral_tail_reference``)."""
+    global TAIL_LAUNCHES
+    from .build import library
+
+    dev = n.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"coral_tail: no kernel for device {dev}")
+    if mode not in ("entropy", "kl"):
+        raise ValueError(f"coral_tail: unknown mode {mode!r}")
+    m, s = src_mask.shape
+    r = ref_mask.shape[1]
+    q = s + r
+    want = {"n": (n, (2, m, q)), "s1": (s1, (2, m, q, 2)),
+            "s2": (s2, (2, m, q, 2, 2)), "ref_mask": (ref_mask, (m, r))}
+    for what, (x, shape) in want.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"coral_tail: {what} has shape "
+                             f"{tuple(x.shape)}, expected {shape}")
+    if any(x.dtype != torch.float32 or x.device != dev for x in (n, s1, s2)) \
+            or any(x.device != dev for x in (src_mask, ref_mask)):
+        raise TypeError(f"coral_tail: float32 moments and masks on {dev}")
+    n, s1, s2 = (x.contiguous() for x in (n, s1, s2))
+    s1 = s1 if s1.data_ptr() % 8 == 0 else s1.clone()
+    s2 = s2 if s2.data_ptr() % 16 == 0 else s2.clone()
+    sm, rm = _mask(src_mask), _mask(ref_mask)
+    out = torch.empty((3, m), dtype=torch.float32, device=dev)
+    valid = torch.empty((m,), dtype=torch.bool, device=dev)
+    if m == 0:
+        return out[0], out[1], out[2], valid
+    with torch.cuda.device(dev):
+        err = library().coral_tail_launch(
+            n.data_ptr(), s1.data_ptr(), s2.data_ptr(), sm.data_ptr(),
+            rm.data_ptr(), sm.stride(0), rm.stride(0), m, s, r,
+            int(mode == "kl"), *(float(torch.tensor(x, dtype=torch.float32))
+                                 for x in (eps, 2.0 * math.pi * math.e)),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            valid.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"coral_tail_launch failed: CUDA error {err} "
+                           f"(M={m}, S={s}, R={r}, mode={mode})")
+    TAIL_LAUNCHES += 1
+    return out[0], out[1], out[2], valid

@@ -15,9 +15,10 @@ code:
   one launch a solve, bit-equal to ``_lm_solve_reference``;
 * ``evaluate``: ``evaluate_cost`` and ``sampled_covariance`` after
   ``_world_targets`` in one launch a call: the association at each row's
-  pose, then the cost-only pass at each of S poses over it (and the sampled
-  covariance's quadratic fit), bit-equal to ``_evaluate_cost_reference`` and
-  to ``_sampled_covariance_reference``'s costs and fit.
+  pose, then the cost-only pass at all S poses over it in one pass (and the
+  sampled covariance's quadratic fit and its 3 x 3 covariance and
+  convexity, with nothing read on the host), bit-equal to
+  ``_evaluate_cost_reference`` and ``_sampled_covariance_reference``.
 
 A batch row runs on a thread-block cluster of K CTAs (``cluster_size``),
 each owning an aligned 1/K of the row's ``_row_sums`` leaves; the sums do
@@ -39,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.refmath import recip
+from ..core.refmath import f32_ftz, recip
 from .refmath import _entry, _launch_on
 
 #: number of kernel launches made by ``register_window`` and ``lm_solve``
@@ -60,6 +61,8 @@ MAX_CLUSTER = 8
 THREADS = 256
 MAX_LEAVES_PER_THREAD = 128
 SHARED_BYTES = 200 * 1024
+#: the evaluation entry's most poses S (steps^3 <= 64)
+MAX_POSES = 64
 
 
 def _f32(x: float) -> float:
@@ -299,7 +302,7 @@ def register_window(theta0: torch.Tensor, src_mean: torch.Tensor,
         out_score.data_ptr(), out_nres.data_ptr(), out_iters.data_ptr(), bsz,
         t, c, ct, cost, loss, *loss_constants(loss, delta), max_inner,
         _f32(init_lambda), int(one_system), max_outer, min_outer,
-        weight_option, _f32(r0 * r0), _f32(radius * radius),
+        weight_option, f32_ftz(r0 * r0), f32_ftz(radius * radius),
         _f32(angle_gate_cos), _f32(regularization), _f32(cov_scale),
         _f32(score_tolerance), k)
     if err != 0:
@@ -321,15 +324,20 @@ def evaluate(pose: torch.Tensor, src_mean: torch.Tensor,
              regularization: float, cov_scale: float,
              offsets: Optional[torch.Tensor] = None,
              pinv: Optional[torch.Tensor] = None,
+             covariance=None,
              cluster: Optional[int] = None):
-    """(costs [B, S], association counts [B], fit [B, 10] or None) of B
-    source scans of C cells at their poses ``pose`` [B, 3] against T
-    world-frame target scans of Ct cells (``_world_targets``' outputs, with
-    the targets' nsamples and planarity), one launch on CUDA tensors: one
-    association at each row's pose within ``radius``, then the cost-only
-    pass at ``pose + offsets[s]`` for each of the S offsets [S, 3] (none: S
-    = 1 at the pose itself); with ``pinv`` [10, S] also the sampled
-    covariance's fit, one fused multiply-add a sample in order.
+    """(costs [B, S], association counts [B], fit [B, 10] or None, cov
+    [B, 3, 3] or None, convex [B] or None) of B source scans of C cells at
+    their poses ``pose`` [B, 3] against T world-frame target scans of Ct
+    cells (``_world_targets``' outputs, with the targets' nsamples and
+    planarity), one launch on CUDA tensors: one association at each row's
+    pose within ``radius``, then the cost-only pass at ``pose +
+    offsets[s]`` for each of the S <= 64 offsets [S, 3] (none: S = 1 at the
+    pose itself), all S in one pass; with ``pinv`` [10, S] also the sampled
+    covariance's fit, one fused multiply-add a sample in order; with
+    ``covariance`` = (final_score [B] float32, n_res [B] int64, cov_scaler,
+    default diagonal (3 floats)) also the covariance of the fit and its
+    convexity (``_covariance_from_fit``), read from nothing on the host.
     ``cluster`` forces the CTAs a row (default ``cluster_size``)."""
     dev = pose.device
     if dev.type != "cuda":
@@ -359,17 +367,33 @@ def evaluate(pose: torch.Tensor, src_mean: torch.Tensor,
     if pinv is not None:
         floats.append(pinv)
         shapes["pinv"] = (pinv, (10, s))
+    if covariance is not None:
+        final_score, n_res = covariance[:2]
+        if pinv is None:
+            raise ValueError("evaluate: the covariance needs the fit (pinv)")
+        floats.append(final_score)
+        shapes["final_score"] = (final_score, (bsz,))
+        shapes["n_res"] = (n_res, (bsz,))
+        if n_res.dtype != torch.long or n_res.device != dev:
+            raise TypeError(f"evaluate: n_res must be int64 on {dev}")
     _check("evaluate", dev, floats, [src_valid, tgt_valid], shapes)
-    if s < 1:
-        raise ValueError("evaluate: no pose to evaluate (S = 0)")
+    if not 1 <= s <= MAX_POSES:
+        raise ValueError(f"evaluate: S = {s} poses (1 to {MAX_POSES})")
     if ct < 1:
         raise ValueError("evaluate: the target scans hold no cell")
     out_costs = torch.empty((bsz, s), dtype=torch.float32, device=dev)
     out_count = torch.empty((bsz,), dtype=torch.long, device=dev)
     out_q = None if pinv is None else torch.empty(
         (bsz, 10), dtype=torch.float32, device=dev)
+    out_cov = out_convex = None
+    cov_in, scaler, diag = [None, None], 0.0, (0.0, 0.0, 0.0)
+    if covariance is not None:
+        out_cov = torch.empty((bsz, 3, 3), dtype=torch.float32, device=dev)
+        out_convex = torch.empty((bsz,), dtype=torch.bool, device=dev)
+        cov_in = [x.contiguous() for x in covariance[:2]]
+        scaler, diag = _f32(covariance[2]), tuple(map(_f32, covariance[3]))
     if bsz == 0:
-        return out_costs, out_count, out_q
+        return out_costs, out_count, out_q, out_cov, out_convex
     k = cluster or cluster_size(bsz, t, c, ct, cost, True)
     ins = [x.contiguous() for x in (
         pose, src_mean, src_normal, src_nsamples, src_planarity, src_valid,
@@ -379,14 +403,15 @@ def evaluate(pose: torch.Tensor, src_mean: torch.Tensor,
     fit = [None if x is None else x.contiguous() for x in (offsets, pinv)]
     err = _launch_on(
         dev, _entry("evaluate_cost_launch"), *map(_ptr, ins), _ptr(tcw),
-        *map(_ptr, more), *map(_ptr, fit), out_costs.data_ptr(),
-        out_count.data_ptr(), _ptr(out_q), bsz, t, c, ct, s, cost, loss,
+        *map(_ptr, more), *map(_ptr, fit), *map(_ptr, cov_in),
+        out_costs.data_ptr(), out_count.data_ptr(), _ptr(out_q),
+        _ptr(out_cov), _ptr(out_convex), bsz, t, c, ct, s, cost, loss,
         *loss_constants(loss, delta), weight_option,
-        _f32(radius * radius), _f32(angle_gate_cos), _f32(regularization),
-        _f32(cov_scale), k)
+        f32_ftz(radius * radius), _f32(angle_gate_cos), _f32(regularization),
+        _f32(cov_scale), scaler, *diag, k)
     if err != 0:
         raise RuntimeError(f"evaluate_cost_launch failed: CUDA error {err} "
                            f"(B={bsz}, T={t}, C={c}, Ct={ct}, S={s}, "
                            f"cost={cost}, K={k})")
     _count("evaluate")
-    return out_costs, out_count, out_q
+    return out_costs, out_count, out_q, out_cov, out_convex

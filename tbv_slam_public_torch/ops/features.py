@@ -24,6 +24,7 @@ import torch
 
 from ..core.config import FeatureConfig
 from ..core.device import constant, deterministic
+from ..core.refmath import tree_sum
 from ..core.types import Cells, PointCloud
 from ..kernels import cells as cells_kernel
 from ..kernels import refmath
@@ -48,8 +49,8 @@ def eigh2x2(cov: torch.Tensor):
     a, b, c = cov[..., 0, 0], cov[..., 0, 1], cov[..., 1, 1]
     half_tr = ftz(0.5 * ftz(a + c))
     d = ftz(a - c)
-    disc = torch.sqrt(torch.clamp(ftz(refmath.fma(
-        ftz(d * d), torch.full_like(d, 0.25), ftz(b * b))), min=0.0))
+    disc = torch.sqrt(torch.clamp(refmath.fma(
+        ftz(d * d), torch.full_like(d, 0.25), ftz(b * b)), min=0.0))
     lmin = ftz(half_tr - disc)
     lmax = ftz(half_tr + disc)
     v1 = torch.stack([b, ftz(lmin - a)], -1)
@@ -69,7 +70,7 @@ def eigh2x2(cov: torch.Tensor):
 def _sqnorm(v: torch.Tensor) -> torch.Tensor:
     """v0^2 + v1^2 of [..., 2] as fma(v1, v1, v0 v0), the product and the
     sum flushed."""
-    return ftz(refmath.fma(v[..., 1], v[..., 1], ftz(v[..., 0] * v[..., 0])))
+    return refmath.fma(v[..., 1], v[..., 1], ftz(v[..., 0] * v[..., 0]))
 
 
 def _dot_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -82,34 +83,6 @@ def _dot_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for k in range(a.shape[1]):
         acc = refmath.fma(a[:, k], b[:, k], acc)
     return acc
-
-
-#: window of the reference's tree reduction (XLA's CPU tree-reduction
-#: rewrite of a long row sum)
-TREE_WINDOW = 32
-
-
-def _tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """sum over the last axis as the reference's compiled ``jnp.sum`` of a
-    long row adds (its optimized HLO, jax 0.9.0 CPU: reduce-windows of 32
-    with stride 32, the row padded with zeros to a multiple of 32, half the
-    padding (rounded down) in front, each window summed in order from zero,
-    the windows' sums reduced the same way until at most 32 are left, which
-    are summed in order from zero)."""
-    n = x.shape[-1]
-    if n <= TREE_WINDOW:
-        acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-        for k in range(n):
-            acc = acc + x[..., k]
-        return acc
-    m = -(-n // TREE_WINDOW)
-    pad = m * TREE_WINDOW - n
-    xp = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).reshape(
-        x.shape[:-1] + (m, TREE_WINDOW))
-    acc = torch.zeros(xp.shape[:-1], dtype=x.dtype, device=x.device)
-    for k in range(TREE_WINDOW):
-        acc = acc + xp[..., k]
-    return _tree_sum(acc)
 
 
 def _gate_sqdist(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -187,7 +160,7 @@ def _cell_stats_reference(xy: torch.Tensor, intensity: torch.Tensor,
     else:
         w = torch.ones_like(intensity)
     wm = torch.where(nbr, w[None, :], torch.zeros((), dtype=dt, device=dev))
-    w_sum = _tree_sum(wm)
+    w_sum = tree_sum(wm)
     w_norm = wm / torch.clamp(w_sum, min=1e-12)[:, None]
     # each cell's neighbours in point order ([C, K], K the most any cell has;
     # the slots past a cell's count hold weight 0)
@@ -211,8 +184,8 @@ def _cell_stats_reference(xy: torch.Tensor, intensity: torch.Tensor,
     # 4. eigen-based normal + gates, on the covariance as the reference's
     # gate computations form it: its diagonal fma(-mu_i, mu_i, qq_ii) (the
     # product has one use there), the off-diagonal as above
-    diag = ftz(refmath.fma(-mu_local, mu_local,
-                           torch.diagonal(qq, dim1=-2, dim2=-1)))
+    diag = refmath.fma(-mu_local, mu_local,
+                       torch.diagonal(qq, dim1=-2, dim2=-1))
     cov_g = torch.stack([torch.stack([diag[:, 0], cov[:, 0, 1]], -1),
                          torch.stack([cov[:, 1, 0], diag[:, 1]], -1)], -2)
     lmin, lmax, normal = eigh2x2(cov_g)
@@ -223,8 +196,8 @@ def _cell_stats_reference(xy: torch.Tensor, intensity: torch.Tensor,
         (lmax > 0)
     planarity = refmath.log1p(ftz(cond / 2.0))
     org = constant((float(origin[0]), float(origin[1])), dt, dev)
-    flip = ftz(refmath.fma(normal[:, 1], ftz(org[1] - mean[:, 1]), ftz(
-        normal[:, 0] * ftz(org[0] - mean[:, 0])))) < 0
+    flip = refmath.fma(normal[:, 1], ftz(org[1] - mean[:, 1]), ftz(
+        normal[:, 0] * ftz(org[0] - mean[:, 0]))) < 0
     normal = torch.where(flip[:, None], -normal, normal)
 
     valid = sel_occupied & (nbr_count >= cfg.min_neighbors) & cov_ok & \

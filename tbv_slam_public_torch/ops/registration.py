@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import refmath as plain
 from ..core import se2
 from ..core.config import RegistrationConfig
 from ..core.device import constant
@@ -165,8 +166,17 @@ def associate(src: Cells, src_pose: torch.Tensor, tgt_mean_w: torch.Tensor,
     whitening of its residual; other costs may pass None."""
     src_mean_w = se2.apply(src_pose, src.mean)  # [B, C, 2]
     src_normal_w = se2.rotate(src_pose, src.normal)
-    diff = src_mean_w[:, None, :, None, :] - tgt_mean_w[:, :, None, :, :]
-    d2 = (diff * diff).sum(-1)  # [B, T, C, Ct]
+
+    def sqdist(d):
+        # rounded as the reference's program: a two-term sum of squares is
+        # fma(dy, dy, dx * dx), its operands (a subnormal offset's square
+        # is below them) and its result flushed where subnormal (its
+        # threads run with DAZ and FTZ), so two subnormal distances tie at
+        # zero and the first target wins
+        return refmath.fma(d[..., 1], d[..., 1], d[..., 0] * d[..., 0])
+
+    d2 = sqdist(src_mean_w[:, None, :, None, :]
+                - tgt_mean_w[:, :, None, :, :])  # [B, T, C, Ct]
     d2 = torch.where(tgt_valid[:, :, None, :], d2,
                      torch.full((), math.inf, device=d2.device))
     nn = torch.argmin(d2, dim=-1)  # [B, T, C]
@@ -175,15 +185,22 @@ def associate(src: Cells, src_pose: torch.Tensor, tgt_mean_w: torch.Tensor,
         idx = nn.reshape(nn.shape + (1,) * (x.ndim - 3))
         return torch.gather(x, 2, idx.expand(nn.shape + x.shape[3:]))
 
-    nn_mean = fetch(tgt_mean_w)
-    nn_normal = fetch(tgt_normal_w)
+    # the reference fetches the winner's attributes with a one-hot product,
+    # which reads a subnormal attribute as zero
+    nn_mean = ftz(fetch(tgt_mean_w))
+    nn_normal = ftz(fetch(tgt_normal_w))
     n_tgt = fetch(tgt_nsamples)
     plan_tgt = fetch(tgt_planarity)
     nn_valid = fetch(tgt_valid)
-    e = src_mean_w[:, None] - nn_mean
-    in_radius = ((e * e).sum(-1) < radius * radius) & nn_valid
-    dir_sim = torch.clamp((src_normal_w[:, None] * nn_normal).sum(-1),
-                          min=0.0)
+    in_radius = (sqdist(src_mean_w[:, None] - nn_mean)
+                 < plain.f32_ftz(radius * radius)) & nn_valid
+    # the normals' agreement as two rounded products and their sum, each
+    # flushed where subnormal (the reference's associate compiled alone
+    # fuses this sum too; fused here it moves a P2D trajectory past its
+    # held bound through a guard flip, so it waits for the LM sums' order,
+    # ROADMAP.md section 3)
+    prod = ftz(src_normal_w[:, None] * nn_normal)
+    dir_sim = torch.clamp(ftz(prod[..., 0] + prod[..., 1]), min=0.0)
     ok = in_radius & (dir_sim > angle_gate_cos) & src.valid[:, None]
     sim_n = _similarity(src.nsamples[:, None], n_tgt)
     sim_plan = _similarity(src.planarity[:, None], plan_tgt)
@@ -214,24 +231,24 @@ def _residual_terms(theta: torch.Tensor, src: Cells, assoc: Associations,
     squared norms [B,T,C]."""
     # rounded as the reference's program: each sum's first product fused
     # into it, a two-term reduction as fma(second, second, first product);
-    # subnormal operands and every subnormal product and sum flushed
-    # (ftz), as the reference's threads flush them (DAZ and FTZ)
+    # subnormal operands and every subnormal product and sum flushed, as
+    # the reference's threads flush them (DAZ and FTZ: refmath.fma flushes
+    # its operands and result, ftz the rest)
     fma = refmath.fma
     s, c = refmath.sincos(theta[:, 2:3])
     ux, uy = ftz(src.mean[..., 0]), ftz(src.mean[..., 1])  # [B, C]
-    dy = ftz(fma(c, ux, -ftz(s * uy)))  # c ux - s uy
+    dy = fma(c, ux, -(s * uy))  # c ux - s uy
     wx = ftz(dy + theta[:, 0:1])
-    wy = ftz(ftz(fma(s, ux, ftz(c * uy))) + theta[:, 1:2])
-    dx = ftz(fma(-s, ux, -ftz(c * uy)))  # -s ux - c uy
+    wy = ftz(fma(s, ux, c * uy) + theta[:, 1:2])
+    dx = fma(-s, ux, -(c * uy))  # -s ux - c uy
     e = ftz(torch.stack([wx, wy], -1)[:, None]
             - ftz(assoc.tgt_mean_w))  # [B,T,C,2]
     if cost == COST_P2L:
         n = ftz(assoc.tgt_normal_w)
-        r = ftz(fma(n[..., 1], e[..., 1], ftz(n[..., 0] * e[..., 0])))[
+        r = fma(n[..., 1], e[..., 1], n[..., 0] * e[..., 0])[
             ..., None]
         J = torch.stack([n[..., 0], n[..., 1],
-                         ftz(fma(n[..., 0], dx[:, None],
-                                 ftz(n[..., 1] * dy[:, None])))],
+                         fma(n[..., 0], dx[:, None], n[..., 1] * dy[:, None])],
                         -1)[..., None, :]
         return r, J, ftz(r[..., 0] * r[..., 0])
     ones, zeros = torch.ones_like(dx), torch.zeros_like(dx)
@@ -239,14 +256,13 @@ def _residual_terms(theta: torch.Tensor, src: Cells, assoc: Associations,
                       torch.stack([zeros, ones, dy], -1)], -2)
     if cost == COST_P2D:  # whitened by the target's sqrt-information
         u = ftz(assoc.tgt_sqrtinfo)
-        r = ftz(fma(u[..., 1], e[..., None, 1],
-                    ftz(u[..., 0] * e[..., None, 0])))
-        J = ftz(fma(u[..., 1:2], Jp[:, None, :, None, 1],
-                    ftz(u[..., 0:1] * Jp[:, None, :, None, 0])))
+        r = fma(u[..., 1], e[..., None, 1], u[..., 0] * e[..., None, 0])
+        J = fma(u[..., 1:2], Jp[:, None, :, None, 1],
+                u[..., 0:1] * Jp[:, None, :, None, 0])
     else:  # P2P
         r = e
         J = Jp[:, None].expand(e.shape[:3] + (2, 3))
-    return r, J, ftz(fma(r[..., 1], r[..., 1], ftz(r[..., 0] * r[..., 0])))
+    return r, J, fma(r[..., 1], r[..., 1], r[..., 0] * r[..., 0])
 
 
 def _prior_terms(theta, prior):
@@ -296,21 +312,24 @@ def _cost_grad_hess(theta, src, assoc, *, cost, loss, delta, prior=None):
     rho, w_irls = _rho_and_weight(sq, loss, delta)
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
     bsz = rho.shape[0]
-    w = torch.where(assoc.mask, assoc.weight * w_irls, zero)
+    wt = ftz(assoc.weight)
+    w = torch.where(assoc.mask, ftz(wt * ftz(w_irls)), zero)
     # H and g from one contraction J^T [J | r], summed over the residuals
-    # of each row by ``_row_sums``: a row of a batch must equal its own solve
+    # of each row by ``_row_sums``: a row of a batch must equal its own solve;
+    # each product's subnormal result flushed, as the reference's threads
+    # flush it (DAZ and FTZ)
     Jr = torch.cat([J, r[..., None]], -1)  # [B, T, C, R, 4]
-    terms = (w[..., None, None, None] * J[..., :, None]
-             * Jr[..., None, :])  # [B, T, C, R, 3, 4]
+    terms = ftz(ftz(w[..., None, None, None] * J[..., :, None])
+                * Jr[..., None, :])  # [B, T, C, R, 3, 4]
     # the cost joins the same sum as a 13th row, each association's term at
     # its first residual and zeros at the others (R <= 2: the first level of
     # the pairwise tree adds them exactly, so it is the cost's own tree)
-    wrho = torch.where(assoc.mask, assoc.weight * rho, zero)  # [B, T, C]
+    wrho = torch.where(assoc.mask, ftz(wt * ftz(rho)), zero)  # [B, T, C]
     cost_row = torch.nn.functional.pad(wrho[..., None], (0, r.shape[-1] - 1))
     sums = _row_sums(torch.cat([cost_row.reshape(bsz, 1, -1),
                                 terms.reshape(bsz, -1, 12).transpose(1, 2)],
                                1))
-    total = 0.5 * sums[:, 0]
+    total = ftz(0.5 * sums[:, 0])
     H, g = sums[:, 1:].reshape(bsz, 3, 4).split([3, 1], -1)
     g = g[..., 0]
     if prior is not None:
@@ -323,8 +342,9 @@ def _cost_only(theta, src, assoc, *, cost, loss, delta, prior=None):
     _, _, sq = _residual_terms(theta, src, assoc, cost)
     rho, _ = _rho_and_weight(sq, loss, delta)
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
-    c = 0.5 * _row_sums(torch.where(assoc.mask, assoc.weight * rho,
-                                    zero).reshape(rho.shape[0], -1))
+    c = ftz(0.5 * _row_sums(torch.where(
+        assoc.mask, ftz(ftz(assoc.weight) * ftz(rho)),
+        zero).reshape(rho.shape[0], -1)))
     if prior is not None:
         c = c + _prior_terms(theta, prior)[0]
     return c
@@ -632,20 +652,20 @@ def sampled_covariance(src: Cells, theta_opt: torch.Tensor, tgt: Cells,
     (one association at the optimum, as the reference's default), quadratic
     least-squares fit, inverse Hessian with Censi scaling.  Returns
     (cov [B, 3, 3], convex [B]).  CPU tensors take the plain version; on
-    CUDA tensors ``_world_targets`` runs eagerly, the association, the
-    steps^3 costs and the fit are one launch of ``csrc/lm_solve.cu``'s
-    evaluation entry (bit-equal to the plain version's), and the 3 x 3
-    Hessian's eigenvalues and inverse are the library's, as in the plain
-    version."""
+    CUDA tensors ``_world_targets`` runs eagerly and the rest (the
+    association, the steps^3 costs, the fit and the 3 x 3 covariance) is
+    one launch of ``csrc/lm_solve.cu``'s evaluation entry, bit-equal to the
+    plain version, with no host synchronisation."""
     if src.mean.device.type == "cpu" or lm_kernel.plain_on_card_enabled():
         return _sampled_covariance_reference(
             src, theta_opt, tgt, tgt_poses, tgt_scan_mask, cfg, final_score,
             n_res, xy_range, yaw_range, steps, cov_scaler)
     pinv, offs = _quad_fit_pinv(xy_range, yaw_range, steps, src.mean.device)
-    _, _, q = _evaluate_on_card(src, theta_opt, tgt, tgt_poses,
-                                tgt_scan_mask, cfg, offsets=offs, pinv=pinv)
-    return _covariance_from_fit(q, cost_code(cfg.cost), final_score, n_res,
-                                cov_scaler)
+    *_, cov, convex = _evaluate_on_card(
+        src, theta_opt, tgt, tgt_poses, tgt_scan_mask, cfg, offsets=offs,
+        pinv=pinv, covariance=(final_score.float(), n_res.long(), cov_scaler,
+                               DEFAULT_COV_DIAG))
+    return cov, convex
 
 
 def _sampled_covariance_reference(src: Cells, theta_opt: torch.Tensor,
@@ -699,19 +719,26 @@ def _covariance_from_fit(q: torch.Tensor, cost: int,
     """(cov [B, 3, 3], convex [B]) from the quadratic fit q [B, 10]: its
     Hessian, convex where every eigenvalue is positive, the inverse scaled
     by 2 final_score / (residual dim - 3) and ``cov_scaler``, else the
-    default diagonal."""
-    dt, dev = q.dtype, q.device
+    default diagonal.  Elementwise torch on either device, rounded as the
+    reference's program on the CPU: the eigenvalues and the inverse as the
+    library jaxlib calls computes them (``core/refmath.py::eigvalsh3``,
+    ``inv3``), every subnormal operand and result flushed.  The evaluation
+    entry's covariance (``csrc/lm_solve.cu``) runs the same steps."""
+    q = plain.ftz(q)
+    two = lambda x: plain.ftz(2.0 * x)
     h = torch.stack([
-        torch.stack([2 * q[:, 0], q[:, 3], q[:, 5]], -1),
-        torch.stack([q[:, 3], 2 * q[:, 1], q[:, 4]], -1),
-        torch.stack([q[:, 5], q[:, 4], 2 * q[:, 2]], -1)], -2)
-    convex = (torch.linalg.eigvalsh(h) > 0).all(-1)
+        torch.stack([two(q[:, 0]), q[:, 3], q[:, 5]], -1),
+        torch.stack([q[:, 3], two(q[:, 1]), q[:, 4]], -1),
+        torch.stack([q[:, 5], q[:, 4], two(q[:, 2])], -1)], -2)
+    convex = (plain.eigvalsh3(h) > 0).all(-1)
     resid_dim = (1 if cost == COST_P2L else 2) * n_res
-    denom = torch.clamp(resid_dim - 3, min=1).to(dt)
-    eye = torch.eye(3, dtype=dt, device=dev)
-    hinv = torch.linalg.inv(h + (~convex).to(dt)[:, None, None] * eye)
-    cov = 2.0 * hinv * (final_score / denom)[:, None, None] * cov_scaler
-    fallback = torch.diag(constant(DEFAULT_COV_DIAG, dt, dev))
+    denom = torch.clamp(resid_dim - 3, min=1).to(q.dtype)
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    hinv = plain.inv3(plain.ftz(h + (~convex).to(q.dtype)[:, None, None]
+                                * eye))
+    scale = plain.ftz(final_score / denom)[:, None, None]
+    cov = plain.ftz(plain.ftz(two(hinv) * scale) * cov_scaler)
+    fallback = torch.diag(constant(DEFAULT_COV_DIAG, q.dtype, q.device))
     return torch.where(convex[:, None, None], cov, fallback), convex
 
 
@@ -726,8 +753,8 @@ def evaluate_cost(src: Cells, src_pose: torch.Tensor, tgt: Cells,
     if src.mean.device.type == "cpu" or lm_kernel.plain_on_card_enabled():
         return _evaluate_cost_reference(src, src_pose, tgt, tgt_poses,
                                         tgt_scan_mask, cfg)
-    costs, count, _ = _evaluate_on_card(src, src_pose, tgt, tgt_poses,
-                                        tgt_scan_mask, cfg)
+    costs, count, *_ = _evaluate_on_card(src, src_pose, tgt, tgt_poses,
+                                         tgt_scan_mask, cfg)
     return costs[:, 0], count
 
 
@@ -756,9 +783,11 @@ def _plain_device(name: str, dev: torch.device) -> None:
 
 def _evaluate_on_card(src: Cells, pose: torch.Tensor, tgt: Cells,
                       tgt_poses: torch.Tensor, tgt_scan_mask: torch.Tensor,
-                      cfg: RegistrationConfig, offsets=None, pinv=None):
+                      cfg: RegistrationConfig, offsets=None, pinv=None,
+                      covariance=None):
     """The evaluation entry after the eager ``_world_targets``: (costs
-    [B, S], association counts [B], fit [B, 10] or None)."""
+    [B, S], association counts [B], fit [B, 10], cov [B, 3, 3] and convex
+    [B], each None unless asked for)."""
     cost = cost_code(cfg.cost)
     tmw, tnw, tcw, tvalid = _world_targets(tgt, tgt_poses, tgt_scan_mask,
                                            cost)
@@ -768,7 +797,8 @@ def _evaluate_on_card(src: Cells, pose: torch.Tensor, tgt: Cells,
         loss=loss_code(cfg.loss), delta=cfg.loss_limit, radius=cfg.radius,
         angle_gate_cos=math.cos(math.radians(cfg.angle_gate_deg)),
         weight_option=cfg.weight_option, regularization=cfg.regularization,
-        cov_scale=cfg.cov_scale, offsets=offsets, pinv=pinv)
+        cov_scale=cfg.cov_scale, offsets=offsets, pinv=pinv,
+        covariance=covariance)
 
 
 def ceres_covariance(src: Cells, theta_opt: torch.Tensor, tgt: Cells,

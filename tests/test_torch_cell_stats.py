@@ -9,7 +9,7 @@ version ``ops/features.py::_cell_stats_reference``) on the CPU:
   are torch's (an ulp off the reference's IEEE root in about 0.65 % of
   values on this CPU; ROADMAP.md section 3 item 2(b)), held within 4
   ulp;
-- the weight sum's written-out order (``_tree_sum``) bit-equal to the
+- the weight sum's written-out order (``refmath.tree_sum``) bit-equal to the
   reference's compiled ``jnp.sum`` of the masked weights at several point
   counts;
 - the dispatch: a CUDA tensor never reaches the plain version unless asked
@@ -27,6 +27,7 @@ import torch
 from tbv_slam_public_tpu.core.config import FeatureConfig as JFeatureConfig
 from tbv_slam_public_tpu.core.types import PointCloud as JPointCloud
 from tbv_slam_public_tpu.ops import features as jfeatures
+from tbv_slam_public_torch.core import refmath
 from tbv_slam_public_torch.core.config import FeatureConfig
 from tbv_slam_public_torch.core.types import PointCloud
 from tbv_slam_public_torch.kernels import cells as kcells
@@ -86,17 +87,18 @@ def test_compute_cells_against_the_reference(fractional, p, live,
 @pytest.mark.parametrize("p", [20, 33, 100, 1023, 3360, 4800, 4801, 16000,
                                40000])
 def test_weight_sum_in_the_reference_order(p):
-    """``_tree_sum`` of masked fractional weights bit-equal to the
-    reference's ``jnp.sum(jnp.where(nbr, w, 0), axis=1)`` (XLA's tree
-    reduction: windows of 32, half the padding in front)."""
+    """``refmath.tree_sum`` (the cells' weight sum) of masked fractional
+    weights bit-equal to the reference's ``jnp.sum(jnp.where(nbr, w, 0),
+    axis=1)`` (XLA's tree reduction: windows of 32, half the padding in
+    front)."""
     rng = np.random.default_rng(p)
     w = rng.uniform(0, 150, p).astype(np.float32)
     nbr = rng.uniform(size=(64, p)) < 0.3
     want = jax.jit(lambda n, v: jnp.sum(jnp.where(n, v[None, :], 0.0),
                                         axis=1))(nbr, w)
-    got = tfeatures._tree_sum(torch.where(torch.as_tensor(nbr),
-                                          torch.as_tensor(w)[None, :],
-                                          torch.zeros(())))
+    got = refmath.tree_sum(torch.where(torch.as_tensor(nbr),
+                                       torch.as_tensor(w)[None, :],
+                                       torch.zeros(())))
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   np.asarray(want).view(np.int32))
 

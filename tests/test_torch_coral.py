@@ -286,3 +286,91 @@ def test_alignment_features_match():
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=1e-3,
                                atol=1e-3)
     assert float(want[4]) > 10  # CFEAR residuals present
+
+
+def _wave(rng, m, s, r, live):
+    """M pairs of ray-like peak clouds of S and R slots, ``live`` of them
+    masked in, the ref cloud moved by 0.2 m."""
+    a = rng.uniform(-15, 15, (m, s, 2)).astype(np.float32)
+    b = (rng.uniform(-15, 15, (m, r, 2)) + 0.2).astype(np.float32)
+    b[:, : min(s, r) // 2] = a[:, : min(s, r) // 2] + rng.normal(
+        0, 0.1, (m, min(s, r) // 2, 2)).astype(np.float32)
+    return a, rng.uniform(size=(m, s)) < live, b, \
+        rng.uniform(size=(m, r)) < live
+
+
+@pytest.mark.parametrize("mode", ["entropy", "kl"])
+@pytest.mark.parametrize("m,s,r,live", [(3, 300, 333, 0.9), (2, 20, 9, 1.0),
+                                        (2, 1100, 900, 0.3)])
+def test_coral_tail_bit_equal_to_the_reference(mode, m, s, r, live):
+    """``coral_quality`` (the plain moments, then ``coral_tail``'s plain
+    version: the per-point terms as the reference rounds and flushes them,
+    its masked sums in the reference's windowed order) against the JAX
+    package's ``coral_quality`` vmapped over M pairs, in both modes: joint,
+    sep and overlap bit for bit, the same valid flags (tighter than the
+    single-pair test's 1e-5)."""
+    import jax
+
+    rng = np.random.default_rng(s + r)
+    a, am, b, bm = _wave(rng, m, s, r, live)
+    want = jax.jit(jax.vmap(lambda *x: jcoral.coral_quality(
+        JCloud(x[0], jnp.zeros(s), x[1]), JCloud(x[2], jnp.zeros(r), x[3]),
+        radius=1.0, mode=mode)))(a, am, b, bm)
+    t = torch.as_tensor
+    got = tcoral.coral_quality(TCloud(t(a), torch.zeros(m, s), t(am)),
+                               TCloud(t(b), torch.zeros(m, r), t(bm)),
+                               radius=1.0, mode=mode)
+    for f in ("joint", "sep", "overlap"):
+        g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32),
+                                      err_msg=f)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+
+
+def _kernel_tree(v):
+    """``csrc/coral_moments.cu``'s ``coral_tail_kernel`` order for the sum
+    of one pair's Q terms, in NumPy: each window of 32 slots (half the
+    padding in front) added in order from zero, the windows' sums in
+    windows of 32 again, level by level through shared memory, the last at
+    most 32 in order from zero (Q <= 32: the one window is the sum)."""
+    q = len(v)
+    f = np.float32
+    if q <= 32:
+        acc = f(0)
+        for x in v:
+            acc = f(acc + x)
+        return acc
+
+    def level(x):
+        n = -(-len(x) // 32)
+        front = (n * 32 - len(x)) // 2
+        out = []
+        for w in range(n):
+            acc = f(0)
+            for k in range(32):
+                i = w * 32 + k - front
+                acc = f(acc + (x[i] if 0 <= i < len(x) else f(0)))
+            out.append(acc)
+        return out
+
+    x = level(list(v))
+    while len(x) > 32:
+        x = level(x)
+    acc = f(0)
+    for y in x:
+        acc = f(acc + y)
+    return acc
+
+
+@pytest.mark.parametrize("q", [1, 29, 32, 33, 100, 1025, 8192, 9600])
+def test_coral_tail_kernel_sums_in_the_tree_order(q):
+    """The kernel's reduction (emulated in NumPy) is ``refmath.tree_sum``
+    bit for bit, at the paths' query counts (an online loop closure's and a
+    wave's 2 x 4,096, training's 2 x 4,800) and at the window edges."""
+    from tbv_slam_public_torch.core import refmath as plain
+
+    rng = np.random.default_rng(q)
+    v = (rng.normal(size=q) * np.exp(rng.uniform(-8, 8, q))).astype(
+        np.float32)
+    want = plain.tree_sum(torch.as_tensor(v)[None])[0].numpy()
+    assert _kernel_tree(v).view(np.int32) == want.view(np.int32)

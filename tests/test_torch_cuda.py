@@ -175,18 +175,20 @@ def test_coral_quality_launch_sets(cuda, route, m):
     """The two routes the online path adds, at their widths: the 13
     perturbations of one keyframe pair, and one query broadcast over its 12
     candidates (a stride-0 view, as ``register_and_verify`` hands it on).
-    Either is one launch for the four moment sets, and agrees with the plain
-    version on the CPU: overlap exactly up to two boundary points, entropies
-    to 1e-3."""
+    Either is one launch for the four moment sets and one ``coral_tail``
+    launch (no refmath op), and agrees with the plain version on the CPU:
+    overlap exactly up to two boundary points, entropies to 1e-3."""
+    from tbv_slam_public_torch.kernels import refmath as rm
     from tbv_slam_public_torch.ops import coral
 
     src, ref = _clouds(3, m, 4096, cuda)
     if route == "online":
         src = src.map(lambda x: x[0][None].expand((m,) + x.shape[1:]))
-    before = tmoments.LAUNCHES
+    before, tails, ops = tmoments.LAUNCHES, tmoments.TAIL_LAUNCHES, rm.LAUNCHES
     got = coral.coral_quality(src, ref, radius=1.0)
     torch.cuda.synchronize()
     assert tmoments.LAUNCHES == before + 1
+    assert tmoments.TAIL_LAUNCHES == tails + 1 and rm.LAUNCHES == ops
     cpu = lambda c: c.map(lambda x: x.cpu())
     want = coral.coral_quality(cpu(src), cpu(ref), radius=1.0)
     merged = (src.mask.sum(-1) + ref.mask.sum(-1)).cpu()
@@ -194,6 +196,36 @@ def test_coral_quality_launch_sets(cuda, route, m):
     torch.testing.assert_close(got.joint.cpu(), want.joint, rtol=1e-3,
                                atol=1e-3)
     torch.testing.assert_close(got.sep.cpu(), want.sep, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["entropy", "kl"])
+@pytest.mark.parametrize("m,n,live", [
+    (64, 4096, 0.8),  # an offline loop wave
+    (12, 4096, 0.8),  # an online loop closure's candidates
+    (13, 4800, 0.1),  # a training pair's perturbations, 10 % live
+    (13, 700, 0.9),   # an evaluate-scans pair's (chip_smoke.py's clouds)
+    (3, 20, 0.9)])    # Q <= 32: one window
+def test_coral_tail_bit_equal_to_plain(cuda, mode, m, n, live):
+    """``coral_tail`` (one launch) against its plain version on the card,
+    given the same moments (the pair kernel's): joint, sep, overlap and
+    valid bit for bit, in both modes, at the paths' shapes."""
+    from tbv_slam_public_torch.ops import coral
+
+    rng = np.random.default_rng(m + n)
+    xy = rng.uniform(-15, 15, (m, n, 2)).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    sm = t(np.arange(n)[None] < rng.uniform(0.8, 1.2, (m, 1)) * live * n)
+    rm = t(rng.uniform(size=(m, n)) < live)
+    moments = tmoments.pair_moments(t(xy), sm, t(xy + rng.normal(
+        0, 0.2, xy.shape).astype(np.float32)), rm, 1.0)
+    before = tmoments.TAIL_LAUNCHES
+    got = coral.coral_tail(*moments, sm, rm, 1e-8, mode)
+    assert tmoments.TAIL_LAUNCHES == before + 1
+    want = coral.coral_tail_reference(*moments, sm, rm, 1e-8, mode)
+    for g, w in zip(got[:3], want[:3]):
+        assert bits_differ(g, w) == 0, mode
+    assert torch.equal(got.valid, want.valid)
 
 
 @pytest.mark.cuda
@@ -1011,8 +1043,8 @@ def test_evaluation_entry_bit_equal_to_plain(cuda, b, t, c, ct):
         assert dict(lm_kernel.LAUNCHES_BY_ENTRY) == dict(
             before, evaluate=before.get("evaluate", 0) + 2)
         assert rm.LAUNCHES_BY_OP["world_targets"] == sites + 2
-        costs, count, q = treg._evaluate_on_card(*args, cfg, offsets=offs,
-                                                 pinv=pinv)
+        costs, count, q, _, _ = treg._evaluate_on_card(
+            *args, cfg, offsets=offs, pinv=pinv)
         with lm_kernel.plain_on_card():
             want_cost, want_n = treg.evaluate_cost(*args, cfg)
             want_cov, want_convex = treg.sampled_covariance(
@@ -1036,8 +1068,8 @@ def test_evaluation_entry_bit_equal_to_plain(cuda, b, t, c, ct):
 def test_evaluation_entry_bit_identical_at_every_cluster_size(cuda, b, t, c,
                                                               cost):
     """The evaluation entry forced to K = 1, 2, 4 and 8 CTAs a row gives
-    the same costs, counts and fit (its cost sum follows one pairwise tree
-    whatever K), equal to the plain version's."""
+    the same costs, counts, fit, covariance and convexity (its cost sums
+    follow one pairwise tree whatever K), equal to the plain version's."""
     from tbv_slam_public_torch.core.config import RegistrationConfig
     from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
     from tbv_slam_public_torch.kernels.checks import window_problem
@@ -1050,12 +1082,15 @@ def test_evaluation_entry_bit_identical_at_every_cluster_size(cuda, b, t, c,
     with lm_kernel.plain_on_card():
         want_costs, want_q = treg._sampled_fit_reference(
             src, pose, tgt, tposes, smask, cfg, *GRID)
-        _, want_n = treg.evaluate_cost(src, pose, tgt, tposes, smask, cfg)
+        score, want_n = treg.evaluate_cost(src, pose, tgt, tposes, smask,
+                                           cfg)
+        want_cov, want_convex = treg._covariance_from_fit(
+            want_q, treg.cost_code(cost), score, want_n, 4.0)
     code = treg.cost_code(cost)
     tmw, tnw, tcw, tvalid = treg._world_targets(tgt, tposes, smask, code)
     pinv, offs = treg._quad_fit_pinv(*GRID, cuda)
     for k in (1, 2, 4, 8):
-        costs, count, q = lm_kernel.evaluate(
+        costs, count, q, cov, convex = lm_kernel.evaluate(
             pose, src.mean, src.normal, src.nsamples, src.planarity,
             src.valid, tmw, tnw, tcw, tvalid, tgt.nsamples, tgt.planarity,
             cost=code, loss=treg.loss_code(cfg.loss), delta=cfg.loss_limit,
@@ -1063,10 +1098,45 @@ def test_evaluation_entry_bit_identical_at_every_cluster_size(cuda, b, t, c,
             angle_gate_cos=float(np.cos(np.radians(cfg.angle_gate_deg))),
             weight_option=cfg.weight_option,
             regularization=cfg.regularization, cov_scale=cfg.cov_scale,
-            offsets=offs, pinv=pinv, cluster=k)
+            offsets=offs, pinv=pinv, cluster=k,
+            covariance=(score, want_n, 4.0, treg.DEFAULT_COV_DIAG))
         assert bits_differ(costs, want_costs) == 0, k
         assert bits_differ(q, want_q) == 0, k
         assert torch.equal(count, want_n), k
+        assert bits_differ(cov, want_cov) == 0, k
+        assert torch.equal(convex, want_convex), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c", [(64, 1, 512), (12, 1, 512), (1, 4, 512)])
+def test_sampled_covariance_is_one_launch_without_a_host_sync(cuda, b, t, c):
+    """On CUDA tensors ``sampled_covariance`` is the ``world_targets`` site
+    and one evaluation launch, nothing else (no refmath op, no library
+    call), and never waits on the card: it runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from tbv_slam_public_torch.core.config import RegistrationConfig
+    from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.kernels.checks import window_problem
+    from tbv_slam_public_torch.ops import registration as treg
+
+    prob = window_problem(np.random.default_rng(b + c), b, t, c, c)
+    cfg = RegistrationConfig(cost="P2L")
+    args = _window_args(prob, cuda, cfg)[0][:5]
+    cost, n = treg.evaluate_cost(*args, cfg)
+    treg.sampled_covariance(*args, cfg, cost, n)  # uploads the grid once
+    torch.cuda.synchronize()
+    entries, ops = dict(lm_kernel.LAUNCHES_BY_ENTRY), dict(rm.LAUNCHES_BY_OP)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cov, convex = treg.sampled_covariance(*args, cfg, cost, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dict(lm_kernel.LAUNCHES_BY_ENTRY) == dict(
+        entries, evaluate=entries.get("evaluate", 0) + 1)
+    assert dict(rm.LAUNCHES_BY_OP) == dict(
+        ops, world_targets=ops.get("world_targets", 0) + 1)
+    assert cov.shape == (b, 3, 3) and convex.shape == (b,)
 
 
 @pytest.mark.cuda

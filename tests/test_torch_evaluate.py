@@ -169,3 +169,132 @@ def test_a_cpu_tensor_never_reaches_the_evaluation_entry(monkeypatch):
             tgt.planarity, cost=treg.COST_P2L, loss=treg.LOSS_HUBER,
             delta=0.1, radius=2.0, angle_gate_cos=0.8, weight_option=0,
             regularization=0.01, cov_scale=1.0)
+
+
+def _jax_covariance(q, final_score, n_res, p2l, cov_scaler):
+    """``tbv_slam_public_tpu/ops/registration.py``'s sampled covariance
+    after its fit (``sampled_covariance``'s last lines), for one row."""
+    h = jnp.asarray([[2 * q[0], q[3], q[5]], [q[3], 2 * q[1], q[4]],
+                     [q[5], q[4], 2 * q[2]]])
+    convex = jnp.all(jnp.linalg.eigvalsh(h) > 0)
+    resid_dim = jnp.where(p2l, 1, 2) * n_res
+    denom = jnp.maximum(resid_dim - 3, 1).astype(final_score.dtype)
+    hinv = jnp.linalg.inv(h + (~convex) * jnp.eye(3))
+    cov = 2.0 * hinv * (final_score / denom) * cov_scaler
+    fallback = jnp.diag(jnp.asarray([0.1 ** 2, 0.1 ** 2, 0.01 ** 2],
+                                    cov.dtype))
+    return jnp.where(convex, cov, fallback), convex
+
+
+def seeded_hessian_fits(rng, n):
+    """Fits q [n, 10] whose Hessians are convex, indefinite, near-singular
+    (the smallest eigenvalue within 1e-6 or 1e-7 of the largest's scale, of
+    either sign) and general symmetric matrices of any scale (1e-40 to
+    1e30, some subnormal entries)."""
+    kind = np.arange(n) % 6
+    rot = np.linalg.qr(rng.normal(size=(n, 3, 3)))[0]
+    s = 10.0 ** rng.uniform(-3, 9, n)
+    ev = s[:, None] * rng.uniform(0.01, 1.0, (n, 3))
+    ev[kind == 1, 2] *= -1
+    for k, eps in ((2, 1e-6), (3, 1e-7)):
+        ev[kind == k, 2] = s[kind == k] * rng.uniform(-eps, eps,
+                                                      (kind == k).sum())
+    h = np.einsum("nij,nj,nkj->nik", rot, ev, rot)
+    g = kind >= 4
+    h[g] = rng.normal(size=(g.sum(), 3, 3)) * 10.0 ** rng.uniform(
+        -40, 30, (g.sum(), 1, 1))
+    h = ((h + h.transpose(0, 2, 1)) / 2).astype(np.float32)
+    q = rng.normal(size=(n, 10)).astype(np.float32)
+    q[:, 0], q[:, 1], q[:, 2] = h[:, 0, 0] / 2, h[:, 1, 1] / 2, h[:, 2, 2] / 2
+    q[:, 3], q[:, 4], q[:, 5] = h[:, 0, 1], h[:, 1, 2], h[:, 0, 2]
+    return q
+
+
+def _hold_covariance(q, score, n_res, cost):
+    """The port's ``_covariance_from_fit`` against the reference's
+    expression on the same fits: covariances bit-equal, flags equal."""
+    p2l = cost == treg.COST_P2L
+    want = jax.jit(jax.vmap(lambda a, b, c: _jax_covariance(a, b, c, p2l,
+                                                           np.float32(4.0))))(
+        q, score, n_res)
+    got = treg._covariance_from_fit(torch.as_tensor(q), cost,
+                                    torch.as_tensor(score),
+                                    torch.as_tensor(n_res).long(), 4.0)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    g, w = got[0].numpy(), np.asarray(want[0])
+    same = (g.view(np.int32) == w.view(np.int32)) | (np.isnan(g)
+                                                     & np.isnan(w))
+    assert same.all(), np.argwhere(~same.all((1, 2)))[:5].ravel()
+    return got[1].numpy()
+
+
+@pytest.mark.parametrize("cost", [treg.COST_P2L, treg.COST_P2P])
+def test_covariance_from_fit_rounds_as_the_reference(cost):
+    """``_covariance_from_fit`` (the eigenvalue decision and the guarded
+    inverse written out as jaxlib's LAPACK computes them) against the
+    reference's expression on the same fits: 10,000 seeded Hessians,
+    convex, indefinite, near-singular and general; the covariances bit for
+    bit and the convexity flags equal.  The eigenvalues themselves equal
+    ``jnp.linalg.eigvalsh``'s, and the inverse ``jnp.linalg.inv``'s."""
+    rng = np.random.default_rng(40 + cost)
+    n = 10000
+    q = seeded_hessian_fits(rng, n)
+    score = rng.uniform(0.0, 100.0, n).astype(np.float32)
+    n_res = rng.integers(0, 400, n).astype(np.int32)
+    flags = _hold_covariance(q, score, n_res, cost)
+    assert 0.2 < flags.mean() < 0.8
+    hs = np.stack([np.stack([2 * q[:, 0], q[:, 3], q[:, 5]], -1),
+                   np.stack([q[:, 3], 2 * q[:, 1], q[:, 4]], -1),
+                   np.stack([q[:, 5], q[:, 4], 2 * q[:, 2]], -1)], -2)
+    want = np.asarray(jax.jit(jax.vmap(jnp.linalg.eigvalsh))(hs))
+    got = plain.eigvalsh3(torch.as_tensor(hs)).numpy()
+    same = (got.view(np.int32) == want.view(np.int32)) | (
+        (got == 0) & (want == 0)) | (np.isnan(got) & np.isnan(want))
+    assert same.all()
+    want = np.asarray(jax.jit(jax.vmap(jnp.linalg.inv))(hs))
+    got = plain.inv3(torch.as_tensor(hs)).numpy()
+    assert ((got.view(np.int32) == want.view(np.int32))
+            | (np.isnan(got) & np.isnan(want))).all()
+
+
+def test_covariance_of_the_held_wave_rounds_as_the_reference():
+    """The fits of ``tests/test_torch_refmath.py``'s held wave (64 loop
+    pairs of simulated keyframes, P2L, the plain sampled costs and fit):
+    their covariances bit-equal to the reference's expression on the same
+    fits, and the same convexity flags."""
+    from tbv_slam_public_tpu.core.config import FeatureConfig as JFC
+    from tbv_slam_public_tpu.core.config import RadarConfig as JRC
+    from tbv_slam_public_tpu.io import simulate
+    from tbv_slam_public_tpu.ops import features as jfeat
+    from tbv_slam_public_tpu.ops import radar as jradar
+    from tbv_slam_public_torch.io.convert import cells_from_numpy
+
+    seq = simulate.make_sequence(
+        num_frames=3, seed=1, num_azimuths=200, num_range_bins=256,
+        range_res=0.3, traj_kwargs=dict(radius=40.0, step=0.7, laps=0.12))
+    rc = JRC(num_azimuths=200, num_range_bins=256, range_res=0.3,
+             k_strongest=12, min_distance=1.0, max_distance=75.0)
+    fc = JFC(resolution=3.0, cell_capacity=256, grid_extent=80.0)
+    jc = [jfeat.compute_cells(jradar.kstrongest_filter(jnp.asarray(im),
+                                                       rc)[0], fc)
+          for im in seq.images[1:]]
+    rng = np.random.default_rng(8)
+    b = 64
+    theta = np.stack([0.7 + rng.uniform(-0.3, 0.3, b),
+                      rng.uniform(-0.3, 0.3, b),
+                      0.01 + rng.uniform(-0.02, 0.02, b)],
+                     -1).astype(np.float32)
+    score = rng.uniform(1.0, 50.0, b).astype(np.float32)
+    n_res = rng.integers(20, 200, b).astype(np.int32)
+    fields = ("mean", "cov", "normal", "nsamples", "planarity",
+              "avg_intensity", "valid")
+    to_t = lambda c: cells_from_numpy({f: np.array(getattr(c, f))
+                                       for f in fields})
+    ts = to_t(jc[1]).map(lambda x: x[None].expand((b,) + x.shape))
+    tt = to_t(jc[0]).map(lambda x: x[None, None].expand((b, 1) + x.shape))
+    _, q = treg._sampled_fit_reference(
+        ts, torch.as_tensor(theta), tt, torch.zeros(b, 1, 3),
+        torch.ones(b, 1, dtype=torch.bool), RegistrationConfig(cost="P2L"),
+        *GRID)
+    flags = _hold_covariance(q.numpy(), score, n_res, treg.COST_P2L)
+    assert flags.any()

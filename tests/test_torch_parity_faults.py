@@ -815,6 +815,185 @@ def test_pgo_weights_and_information_products_flush_as_the_reference():
                                    atol=1e-6 * np.abs(w).max())
 
 
+@pytest.mark.parametrize("scale", [1e-20, 1e-18])
+def test_coral_moment_sums_flush_subnormals_as_the_reference(scale):
+    """The plain CorAl moments of a cloud whose offsets are at ``scale``
+    metres (their products and partial sums subnormal), against the
+    reference's: count, Σ(p−q) and Σ(p−q)(p−q)ᵀ bit-equal, with no
+    subnormal entry.  Before: Σ(p−q)(p−q)ᵀ differed (subnormal sums where
+    the reference has zeros) at both scales.  ``csrc/coral_moments.cu``
+    flushes the same sums."""
+    rng = np.random.default_rng(int(-np.log10(scale)))
+    n = 64
+    ps = (rng.normal(size=(n, 2)) * scale).astype(np.float32)
+    pm = rng.uniform(size=n) < 0.9
+    want = jax.jit(jcoral._neighbor_moments)(ps, pm, ps, pm, np.float32(1.0))
+    got = tmoments.neighbor_moments_reference(
+        *(torch.as_tensor(x)[None] for x in (ps, pm, ps, pm)), 1.0)
+    for g, w in zip(got, want):
+        g, w = g[0].numpy(), np.asarray(w)
+        # zeros of either sign alike: the reference's loop also adds the
+        # other slots' zero terms, which only ever change a zero's sign
+        assert not (_same_bits(g, w) & ~((g == 0) & (w == 0))).any()
+        assert _subnormals(g) == 0
+
+
+def test_cell_moment_sums_need_no_further_flush():
+    """Audited with no fault: ``compute_cells`` on clouds with a cluster
+    spread over 1e-21 to 1e-16 m at the origin (its neighbour chain's
+    products and sums subnormal) is bit-equal to the reference's in every
+    field; its chain flushes as ``refmath.fma`` does (``csrc/cells.cu``
+    alike)."""
+    for seed in range(2):
+        r = np.random.default_rng(20 + seed)
+        tiny = r.normal(size=(300, 2)) * np.exp(r.uniform(np.log(1e-21),
+                                                          np.log(1e-16)))
+        xy = np.concatenate([tiny, r.uniform(-40, 40, (300, 2))]
+                            ).astype(np.float32)
+        inten = r.integers(61, 200, 600).astype(np.float32)
+        mask = r.uniform(size=600) > 0.05
+        want = jfeatures.compute_cells(
+            JPointCloud(xy=jnp.asarray(xy), intensity=jnp.asarray(inten),
+                        mask=jnp.asarray(mask)), JFeatureConfig())
+        got = tfeatures.compute_cells(
+            PointCloud(xy=torch.as_tensor(xy), intensity=torch.as_tensor(
+                inten), mask=torch.as_tensor(mask)), FeatureConfig())
+        for f in ("mean", "cov", "normal", "planarity", "valid"):
+            g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+            if f == "valid":
+                np.testing.assert_array_equal(g, w)
+            else:
+                assert not _same_bits(g, w).any(), f
+
+
+def _associate_both(mean, normal, tm, tn, radius, gate, weight_option=2):
+    """The reference's jitted ``associate`` and the port's on one source
+    scan of C cells against one target scan (unit nsamples and
+    planarity): (winner means, mask, weight) of each."""
+    from tbv_slam_public_tpu.core.types import Cells as JCells
+    from tbv_slam_public_torch.core.types import Cells
+
+    c, ct = mean.shape[0], tm.shape[1]
+    ns, pl = np.full(c, 5, np.float32), np.ones(c, np.float32)
+    tns, tpl = np.full((1, ct), 5, np.float32), np.ones((1, ct), np.float32)
+    valid, tv = np.ones(c, bool), np.ones((1, ct), bool)
+    cov = np.broadcast_to(np.eye(2, dtype=np.float32), (1, ct, 2, 2)).copy()
+    pose = np.zeros(3, np.float32)
+    kw = dict(weight_option=weight_option, regularization=0.0, cov_scale=1.0,
+              angle_gate_cos=gate)
+    want = jax.jit(lambda *a: jreg.associate(
+        JCells(a[0], None, a[1], a[2], a[3], None, a[4]), *a[5:], radius,
+        cost=jreg.COST_P2P, **kw))(mean, normal, ns, pl, valid, pose, tm, tn,
+                                   cov, tns, tpl, tv)
+    t = lambda x: torch.as_tensor(x)[None]
+    got = treg.associate(
+        Cells(t(mean), None, t(normal), t(ns), t(pl), None, t(valid)),
+        t(pose), t(tm), t(tn), t(cov), t(tns), t(tpl), t(tv), radius,
+        cost=treg.COST_P2P, **kw)
+    return ((got.tgt_mean_w[0].numpy(), got.mask[0].numpy(),
+             got.weight[0].numpy()),
+            (np.asarray(want.tgt_mean_w), np.asarray(want.mask),
+             np.asarray(want.weight)))
+
+
+def test_association_distances_round_and_flush_as_the_reference():
+    """The association against the reference's compiled ``associate``:
+    (1) cells at 1e-19 and 1e-21 m (squared distances subnormal: the
+    reference's tie at zero, the first target wins) with their winners,
+    masks and weights bit-equal; (2) the radius gate placed between the
+    two roundings of the squared distance, which the reference fuses
+    (fma(dy, dy, dx dx)): the same masks.  Before: every winner differed at
+    1e-19 and 1e-21 m, and every gate case.  ``csrc/lm_solve.cu``'s
+    association rounds and flushes the same."""
+    rng = np.random.default_rng(31)
+    c, ct = 128, 48
+    normal = np.tile(np.array([[1.0, 0.0]], np.float32), (c, 1))
+    tn = np.tile(np.array([[[1.0, 0.0]]], np.float32), (1, ct, 1))
+    for sc in (1e-19, 1e-21):
+        mean = (rng.normal(size=(c, 2)) * sc).astype(np.float32)
+        tm = (rng.normal(size=(1, ct, 2)) * sc).astype(np.float32)
+        got, want = _associate_both(mean, normal, tm, tn, float(sc * 10), 0.5)
+        for g, w in zip(got, want):
+            assert not _same_bits(np.asarray(g, np.float32),
+                                  np.asarray(w, np.float32)).any(), sc
+    # the radius gate: a target at offset d whose fused |d|^2 lies below
+    # its two roundings, the radius at the two-rounding value
+    from fractions import Fraction
+
+    pts = []
+    while len(pts) < 12:
+        d = (rng.normal(size=2) * 2.0).astype(np.float32)
+        p0 = np.float32(d[0] * d[0])
+        two = np.float32(p0 + np.float32(d[1] * d[1]))
+        fused = np.float32(Fraction(float(p0)) + Fraction(float(d[1])) ** 2)
+        r = float(np.sqrt(np.float64(two)))
+        if fused < two and np.float32(r * r) == two:
+            pts.append((d, r))
+    for d, r in pts:
+        got, want = _associate_both(np.zeros((1, 2), np.float32), normal[:1],
+                                    d[None, None].astype(np.float32),
+                                    tn[:, :1], r, 0.5)
+        assert bool(want[1][0, 0]) and bool(got[1][0, 0])
+
+
+def test_lm_products_flush_subnormals_as_the_reference():
+    """``_cost_grad_hess`` on rows of one P2L association (unit weight, no
+    loss: the reference's w (J^T J) and the port's (w J_a) J_b are then the
+    same products) whose Jacobian and residual entries are 1e-21 to 1e-18
+    (their products subnormal): H, g and the cost bit-equal to the
+    reference's, with no subnormal entry.  Before: the subnormal products
+    were kept where the reference has zeros.  ``csrc/lm_solve.cu``'s
+    ``leaf`` flushes the same products."""
+    from tbv_slam_public_tpu.core.types import Cells as JCells
+    from tbv_slam_public_torch.core.types import Cells
+
+    rng = np.random.default_rng(44)
+    b = 2000
+    mean = (rng.normal(size=(b, 1, 2)) * np.exp(rng.uniform(
+        np.log(1e-20), np.log(1e-18), (b, 1, 1)))).astype(np.float32)
+    tm = (rng.normal(size=(b, 1, 1, 2)) * 1e-19).astype(np.float32)
+    tn = rng.normal(size=(b, 1, 1, 2))
+    tn = (tn / np.linalg.norm(tn, axis=-1, keepdims=True)).astype(np.float32)
+    theta = np.zeros((b, 3), np.float32)
+    theta[:, 2] = rng.uniform(-1e-3, 1e-3, b)
+    w = np.ones((b, 1, 1), np.float32)
+    m = np.ones((b, 1, 1), bool)
+    kw = dict(cost=jreg.COST_P2L, loss=jreg.LOSS_NONE, delta=1.0)
+    want = jax.jit(jax.vmap(lambda th, mu, a, n_: jreg._cost_grad_hess(
+        th, JCells(mu, None, None, None, None, None, None),
+        jreg.Associations(a, n_, jnp.broadcast_to(jnp.eye(2), (1, 1, 2, 2)),
+                          jnp.ones((1, 1)), jnp.ones((1, 1), bool)), **kw)))(
+        theta, mean, tm, tn)
+    got = treg._cost_grad_hess(
+        torch.as_tensor(theta),
+        Cells(torch.as_tensor(mean), None, None, None, None, None, None),
+        treg.Associations(torch.as_tensor(tm), torch.as_tensor(tn),
+                          torch.as_tensor(w), torch.as_tensor(m)), **kw)
+    for g, wv in zip(got, want):
+        g, wv = g.numpy(), np.asarray(wv)
+        assert _subnormals(g) == 0
+        assert not _same_bits(g, wv).any()
+
+
+def test_refmath_fma_flushes_as_the_reference():
+    """``refmath.fma`` on operands and results in the subnormal range
+    against the reference's fused a * b + c (one ``vfmadd`` on its DAZ and
+    FTZ threads): bit-equal.  Before: 4,118 of 10,000 results differed
+    (3,460 subnormal where the reference has zeros)."""
+    rng = np.random.default_rng(12)
+    n = 10000
+    a = (rng.normal(size=n) * np.exp(rng.uniform(-100, 0, n))).astype(
+        np.float32)
+    b = (rng.normal(size=n) * np.exp(rng.uniform(-100, 0, n))).astype(
+        np.float32)
+    c = (rng.normal(size=n) * np.exp(rng.uniform(-95, -80, n))).astype(
+        np.float32)
+    want = jax.jit(lambda a, b, c: a * b + c)(a, b, c)
+    got = trefmath.fma(*(torch.as_tensor(x) for x in (a, b, c)))
+    assert not _same_bits(got.numpy(), want).any()
+    assert _subnormals(got.numpy()) == 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="bit-equal shares against the "
                                 "JAX package, for the port on the path")

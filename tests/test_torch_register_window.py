@@ -119,9 +119,11 @@ def kernel_associate(prob, theta, radius, k, cfg):
     source cell moved by theta (``se2.apply`` / ``rotate``: refmath's
     sincos and fused multiply-adds), a loop over the target cells in 4
     chains (target k in chain k % 4), each keeping the first NaN, else the
-    first minimum, of where(valid, dx*dx + dy*dy, inf), the chains merged
-    by (NaN first, the distance, the index), then the gates and weights of
-    the winner.  Returns the records
+    first minimum, of where(valid, fma(dy, dy, dx*dx), inf) (the product
+    and the sum flushed where subnormal), the chains merged by (NaN first,
+    the distance, the index), then the gates and weights of the winner
+    (its attributes, products and sums flushed where subnormal)).
+    Returns the records
     [B, T, C] (target mean and normal, weight, mask, P2D sqrt-information)
     and which CTA computed each."""
     fma = lambda a, b, c: plain.fma(torch.as_tensor(a), torch.as_tensor(b),
@@ -139,7 +141,9 @@ def kernel_associate(prob, theta, radius, k, cfg):
                                                  torch.as_tensor(
                                                      prob["scan_mask"]),
                                                  cost))
-    r2 = F32(radius * radius)
+    r2 = F32(plain.f32_ftz(radius * radius))
+    ftz = lambda x: plain.ftz(torch.as_tensor(np.asarray(x, F32))).numpy()
+    sqd = lambda ex, ey: fma(ey, ey, ftz(ex * ex))
     gate = F32(math.cos(math.radians(cfg.angle_gate_deg)))
     out = dict(mean=np.zeros((b, t, c, 2), F32), normal=np.zeros(
         (b, t, c, 2), F32), weight=np.zeros((b, t, c), F32),
@@ -167,7 +171,7 @@ def kernel_associate(prob, theta, radius, k, cfg):
                     u = kk % CHAINS
                     ex = (wx - tmw[row, scan, kk, 0]).astype(F32)
                     ey = (wy - tmw[row, scan, kk, 1]).astype(F32)
-                    d2 = ((ex * ex).astype(F32) + (ey * ey).astype(F32))
+                    d2 = sqd(ex, ey)
                     d2 = np.where(tvalid[row, scan, kk], d2.astype(F32),
                                   F32(np.inf))
                     take = (nn_c[u] < 0) | (~np.isnan(best[u]) & (
@@ -181,14 +185,13 @@ def kernel_associate(prob, theta, radius, k, cfg):
                                      ~np.isnan(bd) & ((d < bd) | (
                                          (d == bd) & (i < nn))))
                     bd, nn = np.where(first, d, bd), np.where(first, i, nn)
-                mq = tmw[row, scan, nn]
+                mq = ftz(tmw[row, scan, nn])
                 ex, ey = (wx - mq[:, 0]).astype(F32), (wy - mq[:, 1]).astype(
                     F32)
-                inr = (((ex * ex).astype(F32) + (ey * ey).astype(F32)) < r2) \
-                    & tvalid[row, scan, nn]
-                tn = tnw[row, scan, nn]
-                dirs = ((nwx * tn[:, 0]).astype(F32)
-                        + (nwy * tn[:, 1]).astype(F32)).astype(F32)
+                inr = (sqd(ex, ey) < r2) & tvalid[row, scan, nn]
+                tn = ftz(tnw[row, scan, nn])
+                dirs = ftz(ftz((nwx * tn[:, 0]).astype(F32))
+                           + ftz((nwy * tn[:, 1]).astype(F32)))
                 dirs = np.where(dirs < 0, F32(0), dirs)
                 ok = inr & (dirs > gate) & prob["src_valid"][row, j]
                 sn = _similarity(prob["src_nsamples"][row, j],
