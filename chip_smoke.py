@@ -20,10 +20,18 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    the reference's blocked order) bit-equal to their plain versions on the
    CPU on 2^20 elements a site with special values, each timed at its
    path's shape beside its op-by-op body on the card and the host's time a
-   call; and on every path below that runs in this process (and on
+   call; its chains (the odometry frame's pose tail, the frame's two motion
+   compensations, the loop pairs' guess, the local map's relative pose and
+   apply, the verification pairs' two applies: one launch a chain of
+   sites) bit-equal to their plain versions on the CPU on about 2^18
+   elements a chain with special values, one launch a call, each timed at
+   its path's shape in turns against its sites one launch each, with the
+   host's time a call for both, its plain version on the card and its
+   bound; and on every path below that runs in this process (and on
    each rank of 10(b)), its count set to 0 just before the path and read
    just after, then the first operands and result of each op, site and
-   shapes that the path gave it held bit for bit to the plain version; the
+   shapes that the path gave it held bit for bit to the plain version (a
+   chain at each shape and stride); the
    registration kernel (phase 2b): its window entry (``register_window``,
    one launch a call: association, LM solve and outer guards) bit-equal
    to the plain ``register_window`` on the card over every cost x loss x
@@ -64,10 +72,12 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    kernel (``compute_cells`` after the top-C selection, one launch a
    cloud) bit-equal to its plain version on the card on phase 4's
    k-strongest clouds, the CA-CFAR and BFAR clouds, MulRan's shapes, the
-   cfear3_oxford preset's 16,000-point clouds and clouds with a point
-   within an ulp of each cell's radius, the cells that differ from the
-   CPU's plain version counted on phase 4's clouds, and its time at phase
-   4's and the preset's shapes beside the plain version and its bound; on
+   cfear3_oxford preset's 16,000-point clouds, clouds of 32,000 points
+   (beyond the staged design's shared memory: the global-memory design)
+   and clouds with a point within an ulp of each cell's radius, the cells
+   that differ from the CPU's plain version counted on phase 4's clouds,
+   and its time at phase 4's, the preset's and the large clouds' shapes
+   beside the plain version and its bound; on
    every path, as refmath,
    its launches counted and its first call at each shape held;
 5. cholesky PGO on the 4470-node Oxford real-odometry instance;
@@ -85,7 +95,10 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    the default beside P2D, time-continuous, the Ceres-style covariance,
    CA-CFAR and BFAR, and the default at MulRan's shapes (3360 bins of
    0.05952 m, 40 simulator images), each with its first 5 frames run again
-   on the CPU and held to the card's;
+   on the CPU and held to the card's; the Ceres-style covariance of the
+   run's newest keyframe again under ``torch.cuda.set_sync_debug_mode(
+   "error")`` (no library call, no host synchronisation), its flag held
+   to the CPU's;
 9. the rest of the slice: ``batched_odometry_step`` at B = 4 (four
    simulator seeds, each row held to its own B = 1 run, timed against three
    of those runs, one of them run twice and held bit-equal, kernel launches
@@ -216,22 +229,29 @@ def phase_build():
     return smi, float(clock) * 1e6
 
 
-def device_us_by_kernel(fn, reps: int = 10) -> dict:
+def device_us_by_kernel(fn, reps: int = 10, tries: int = 3,
+                        want: str = "") -> dict:
     """Mean device microseconds per launch of each kernel that ``fn``
     launches, from ``torch.profiler``; empty if the profiler saw no device
-    time."""
+    time (of a kernel whose name holds ``want``) in ``tries`` profiled
+    windows (a window now and then comes back without the device activity
+    on the card's machine)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     name = lambda key: key.replace("(anonymous namespace)::", "").split("(")[0]
-    return {name(e.key): e.device_time_total / e.count
-            for e in prof.key_averages() if e.device_time_total > 0}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {name(e.key): e.device_time_total / e.count
+               for e in prof.key_averages() if e.device_time_total > 0}
+        if any(want in k for k in out):
+            return out
+    return {}
 
 
 def _moment_bound(args, count, sm_hz):
@@ -472,25 +492,29 @@ def refmath_inputs():
     (args, outs, options)}``."""
     from tbv_slam_public_torch.kernels import refmath as rm
 
-    kept, real = {}, rm._call
+    kept, real, real_chain = {}, rm._call, rm.chain
     clone = lambda t: None if t is None else t.detach().clone()
 
-    def keep(op, *ts, **options):
-        out = real(op, *ts, **options)
-        if ts[0].device.type == "cuda":
-            key = (op,) + tuple(None if t is None else tuple(t.shape)
-                                for t in ts) + tuple(sorted(options.items()))
-            if key not in kept:
-                outs = out if isinstance(out, tuple) else (out,)
-                kept[key] = ([clone(t) for t in ts], [clone(o) for o in outs],
-                             options)
-        return out
+    def keeper(fn, tag):
+        def keep(op, *ts, **options):
+            out = fn(op, *ts, **options)
+            if ts[0].device.type == "cuda":
+                key = (tag, op) + tuple(
+                    None if t is None else tuple(t.shape) if tag == "op"
+                    else (tuple(t.shape), t.stride())
+                    for t in ts) + tuple(sorted(options.items()))
+                if key not in kept:
+                    outs = out if isinstance(out, tuple) else (out,)
+                    kept[key] = ([clone(t) for t in ts],
+                                 [clone(o) for o in outs], options)
+            return out
+        return keep
 
-    rm._call = keep
+    rm._call, rm.chain = keeper(real, "op"), keeper(real_chain, "chain")
     try:
         yield kept
     finally:
-        rm._call = real
+        rm._call, rm.chain = real, real_chain
 
 
 def hold_refmath(tag, kept) -> int:
@@ -500,17 +524,19 @@ def hold_refmath(tag, kept) -> int:
     from tbv_slam_public_torch.kernels.checks import bits_differ
 
     for key, (args, outs, options) in kept.items():
-        want = rm._PLAIN[key[0]](*(None if a is None else a.cpu()
-                                   for a in args), **options)
+        plain = rm.chain_plain if key[0] == "chain" else \
+            (lambda op, *a, **o: rm._PLAIN[op](*a, **o))
+        want = plain(key[1], *(None if a is None else a.cpu()
+                               for a in args), **options)
         want = want if isinstance(want, tuple) else (want,)
         if [o is None for o in outs] != [w is None for w in want]:
-            raise AssertionError(f"{tag} refmath {key[0]}: the kernel's and "
+            raise AssertionError(f"{tag} refmath {key[1]}: the kernel's and "
                                  f"the plain version's outputs differ")
         bad = sum(bits_differ(o, w) for o, w in zip(outs, want)
                   if o is not None)
         if bad:
-            raise AssertionError(f"{tag} refmath {key[0]} at shapes "
-                                 f"{key[1:]}: {bad} values differ from the "
+            raise AssertionError(f"{tag} refmath {key[1]} at shapes "
+                                 f"{key[2:]}: {bad} values differ from the "
                                  f"plain version")
     return len(kept)
 
@@ -707,6 +733,213 @@ def phase_refmath_sites():
     return times
 
 
+# float32 operations an element of each chain (its sites' SITE_OPS and
+# about one a glue operation), and the elements that carry them: the pose
+# tail's 3 relative poses, 3 norms, the rotation and 20 gates, selections
+# and products; the local map's relative pose counted once a keyframe (the
+# kernel recomputes it for each point), its apply once a point
+CHAIN_NAMES = ("odometry_pose_tail", "motion_compensate_pair", "loop_guess",
+               "local_map", "alignment_apply")
+CHAIN_OPS = {"odometry_pose_tail": 3 * 125 + 3 * 4 + 26 + 20,
+             "motion_compensate_pair": 70, "loop_guess": 32 + 95 + 3,
+             "alignment_apply": 32}
+
+
+def _chain_shapes(cfg):
+    """Each chain at the shape its main path gives it: (operand shapes, a
+    bool operand as "b(shape)", options)."""
+    from tbv_slam_public_torch.models.odometry import pose_tail_options
+
+    k = 2 * cfg.loopclosure.n_aggregate + 1
+    cloud = cfg.radar.num_azimuths * cfg.radar.k_strongest
+    peaks = cfg.verification.peaks_capacity
+    return {
+        "odometry_pose_tail": (((1, 3), "b(1,)", (1, 3), (1, 3), (1, 3),
+                                (1, 3)), pose_tail_options(cfg.odometry)),
+        "motion_compensate_pair": (((cloud, 2), (cloud, 2), (3,)),
+                                   dict(ccw=cfg.odometry.radar_ccw)),
+        "loop_guess": (((64, 3), (64,)), {}),
+        "local_map": (((1, 1, 1, 3), (1, k, 1, 3), (1, k, cloud, 2)), {}),
+        "alignment_apply": (((12, 1, 3), (12, peaks, 2), (12, 1, 3),
+                             (12, peaks, 2)), {}),
+    }
+
+
+def _chain_sites(name, ts, opts, cfg):
+    """The chain's work as the path ran it before this slice: its sites one
+    launch each, the glue between them torch's ops."""
+    from tbv_slam_public_torch.core import se2
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.models import odometry
+    from tbv_slam_public_torch.ops import radar
+
+    if name == "odometry_pose_tail":
+        pose, success, guess, t_prev, tmot_prev, last_kf = ts
+        oc = cfg.odometry
+        tcur = torch.where(success[:, None], pose, guess)
+        vel, acc = odometry.motion_rates(se2.relative(t_prev, tcur),
+                                         tmot_prev, oc.sensor_period)
+        sane = (vel <= oc.vel_limit) & (acc <= oc.acc_limit)
+        tcur = torch.where(sane[:, None], tcur, guess)
+        diff = se2.relative(last_kf, tcur)
+        fuse = ((rm.norm2(diff[:, :2]) > oc.min_keyframe_dist)
+                | (torch.abs(diff[:, 2])
+                   > math.radians(oc.min_keyframe_rot_deg))) & success
+        return (tcur, se2.relative(t_prev, tcur), diff, fuse,
+                se2.rotmat(-last_kf[:, 2]))
+    if name == "motion_compensate_pair":
+        xy, pxy, motion = ts
+        return (rm.site("motion_compensate", xy, motion, **opts),
+                rm.site("motion_compensate", pxy, motion, **opts))
+    if name == "loop_guess":
+        taug, yaw = ts
+        rot = torch.stack([torch.zeros_like(yaw), torch.zeros_like(yaw),
+                           yaw], -1)
+        return se2.compose(se2.inverse(taug), rot)
+    if name == "local_map":
+        q, kf, xy = ts
+        return se2.apply(se2.relative(q[:, :, 0], kf[:, :, 0]), xy)
+    sp, sxy, rp, rxy = ts
+    return se2.apply(sp[:, 0], sxy), se2.apply(rp[:, 0], rxy)
+
+
+def _chain_cases(rng, dev, n):
+    """{chain: (operands, options)} on about n elements each, special
+    values among their coordinates and angles, poses at and around +-pi."""
+    from tbv_slam_public_torch.kernels.checks import REFMATH_SPECIAL
+    from tbv_slam_public_torch.models.odometry import pose_tail_options
+    from tbv_slam_public_torch.core.config import OdometryConfig
+
+    sp = REFMATH_SPECIAL
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def poses(m, extent=60.0):
+        p = np.stack([rng.uniform(-extent, extent, m),
+                      rng.uniform(-extent, extent, m),
+                      rng.uniform(-3.3, 3.3, m)], -1).astype(np.float32)
+        p[:len(sp), 2] = sp
+        p[len(sp):2 * len(sp), 0] = sp
+        p[-len(sp):, 2] = np.float32(np.pi) - np.abs(sp[::-1]) * 1e-7
+        return p
+
+    def points(*shape):
+        x = rng.uniform(-80, 80, shape + (2,)).astype(np.float32)
+        x.reshape(-1, 2)[:len(sp) ** 2] = np.stack(np.meshgrid(sp, sp),
+                                                   -1).reshape(-1, 2)
+        return x
+
+    b = n // 64
+    succ = torch.as_tensor(rng.uniform(size=n) < 0.8, device=dev)
+    near = t(poses(n, 0.5))
+    base = t(poses(n))
+    window = t(poses(4 * n)).reshape(n, 4, 3)
+    return {
+        "odometry_pose_tail": ((base + near, succ, base + near * 0.5, base,
+                                near, window[:, -1]),
+                               pose_tail_options(OdometryConfig())),
+        "motion_compensate_pair": ((t(points(n)), t(points(n // 3)),
+                                    t([0.7, -0.05, 0.02])), dict(ccw=True)),
+        "loop_guess": ((t(poses(n)), t(poses(n)[:, 2])), {}),
+        "local_map": ((t(poses(b)).reshape(b, 1, 1, 3),
+                       t(poses(3 * b)).reshape(b, 3, 1, 3),
+                       t(points(b, 3, 64))), {}),
+        "alignment_apply": ((t(poses(b)).reshape(b, 1, 3), t(points(b, 64)),
+                             t(poses(b)).reshape(b, 1, 3), t(points(b, 64))),
+                            {}),
+    }
+
+
+def phase_chains(cfg):
+    """The refmath chains (one launch runs an ordered list of sites and
+    their glue) against their plain versions on the CPU, bit for bit, on
+    about 2^18 elements a chain with special values, one launch a call;
+    then each chain at its main path's shape timed by CUDA events in turns
+    against its sites one launch each (the path before this slice: chain,
+    sites, sites, chain), with the host's time a call for both, its plain
+    version on the card (op by op) and its bound."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.kernels.checks import bits_differ
+    # the chains' owners register them
+    from tbv_slam_public_torch.models import (loopclosure, odometry,  # noqa
+                                              verification)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(29)
+    for name, (ts, opts) in _chain_cases(rng, dev, 1 << 18).items():
+        rm.LAUNCHES_BY_OP.clear()
+        got = rm.chain(name, *ts, **opts)
+        if dict(rm.LAUNCHES_BY_OP) != {name: 1}:
+            raise AssertionError(f"[2] chain {name}: launches "
+                                 f"{dict(rm.LAUNCHES_BY_OP)}, not one")
+        again = rm.chain(name, *ts, **opts)
+        want = rm.chain_plain(name, *(x.cpu() for x in ts), **opts)
+        got, again, want = ((x,) if isinstance(x, torch.Tensor) else x
+                            for x in (got, again, want))
+        bad = sum(bits_differ(g, w) for g, w in zip(got, want)) + sum(
+            bits_differ(g, w) for g, w in zip(got, again))
+        log(f"[2] refmath chain {name}: {got[0].numel()} values, {bad} "
+            f"differ from the plain version")
+        if bad:
+            raise AssertionError(f"refmath chain {name}: {bad} values differ")
+
+    def operand(shape):
+        if isinstance(shape, str):  # a bool
+            return torch.rand(eval(shape[1:]), device=dev) < 0.8
+        x = torch.empty(shape, device=dev).uniform_(-60, 60)
+        if shape[-1] == 3:
+            x[..., 2].uniform_(-3.2, 3.2)
+        return x
+
+    times = {}
+    for name, (shapes, opts) in _chain_shapes(cfg).items():
+        ts = [operand(sh) for sh in shapes]
+        if name == "odometry_pose_tail":  # motions of a frame
+            ts[1].fill_(True)
+            ts[2].copy_(ts[0] + 0.05)
+            ts[3].copy_(ts[0] - 0.8)
+            ts[4].uniform_(-1, 1)
+        call = lambda: rm.chain(name, *ts, **opts)
+        sites = lambda: _chain_sites(name, ts, opts, cfg)
+        got = call()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = sites()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        bad = sum(bits_differ(g, w) for g, w in zip(got, ref))
+        if bad:
+            raise AssertionError(f"[2] chain {name}: {bad} values differ "
+                                 f"from its sites one by one")
+        rm.LAUNCHES = 0
+        sites()
+        site_launches = rm.LAUNCHES
+        k1, s1, s2, k2 = (cuda_ms(call, 50), cuda_ms(sites, 50),
+                          cuda_ms(sites, 50), cuda_ms(call, 50))
+        nbytes = sum(x.numel() * x.element_size() for x in ts) + sum(
+            o.numel() * o.element_size() for o in got)
+        if name == "local_map":  # a relative pose a keyframe, apply a point
+            ops = 125 * ts[1].shape[:2].numel() + 32 * ts[2].shape[:-1].numel()
+        else:
+            ops = CHAIN_OPS[name] * sum(
+                o.shape[:1 if name == "odometry_pose_tail" else -1].numel()
+                for o in got[:1 if name == "odometry_pose_tail" else None])
+        t = dict(ms=min(k1, k2), ms_turns=[k1, k2], sites_ms=min(s1, s2),
+                 sites_ms_turns=[s1, s2], site_launches=site_launches,
+                 plain_ms=cuda_ms(lambda: rm.chain_plain(name, *ts, **opts),
+                                  10),
+                 host_us=host_us(call), sites_host_us=host_us(sites),
+                 bound_ms=max(nbytes / PEAK_BYTES_PER_S,
+                              ops / PEAK_F32_FLOPS) * 1e3,
+                 bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >=
+                 ops / PEAK_F32_FLOPS else "operations",
+                 shapes=[list(x.shape) for x in ts], library_ms=None)
+        times[name] = t
+        log(f"[2] refmath chain {name}: {k1:.4f} / {k2:.4f} ms (bound "
+            f"{t['bound_ms']:.6f} ms) against its {site_launches} sites' "
+            f"launches {s1:.4f} / {s2:.4f} ms, plain {t['plain_ms']:.4f} ms; "
+            f"host {t['host_us']:.1f} us a call against "
+            f"{t['sites_host_us']:.1f}")
+    return times
+
+
 # float32 instructions of cell_stats, for the bound: the gate 6 a (cell,
 # unmasked point) pair, 12 a neighbour (weight sum, normalised weight,
 # centred point, six moments), about 80 a cell (covariance, eigen gates,
@@ -736,6 +969,15 @@ def _cell_bound(xy, mask, centroid, occupied, cfg):
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations",
                 neighbours=int(nbr.sum()))
+
+
+CELLS_DESIGN = ("up to 24,000 points: a block of 8 warps takes 4 cells, "
+                "stages the cloud's positions (cp.async) and mask in shared "
+                "memory, "
+                "gates them once into a bitmap a cell (ballots, point "
+                "order) and walks each bitmap in order for the weight sum's "
+                "tree and the moments (a warp a cell); above it a warp a "
+                "cell, the cloud read from global memory, the gate twice")
 
 
 def phase_cells(images, cfg):
@@ -777,6 +1019,13 @@ def phase_cells(images, cfg):
     # points) and the 3 m radius
     oxford = PRESETS["cfear3_oxford"]()
     sets["cfear3_oxford"] = clouds(oxford.radar, images[:3], oxford.features)
+    # clouds beyond the staged design's shared memory (kStageMax points):
+    # the global-memory design
+    big = apply_overrides(oxford, parse_cli_overrides(
+        [f"radar.k_strongest={kc.STAGE_MAX // 400 + 20}"]))
+    sets["beyond_stage"] = clouds(big.radar, images[:2], big.features)
+    if sets["beyond_stage"][0][0].xy.shape[0] <= kc.STAGE_MAX:
+        raise AssertionError("[4c] the large clouds fit the staged design")
     rng = np.random.default_rng(23)
     gate = []
     for _ in range(3):
@@ -832,7 +1081,9 @@ def phase_cells(images, cfg):
     res = timed("phase4")
     res.update(clouds_held=held, phase4_cells_differing_from_cpu=cpu_differ,
                phase4_valid_cells=cpu_cells, library_ms=None,
-               cfear3_oxford=timed("cfear3_oxford"))
+               cfear3_oxford=timed("cfear3_oxford"),
+               beyond_stage=timed("beyond_stage"),
+               design=CELLS_DESIGN)
     log(f"[4c] {cpu_differ} of phase 4's {cpu_cells} valid cells differ from "
         f"the CPU's plain version")
     return res
@@ -1543,7 +1794,8 @@ def phase_registration():
             p1 = cuda_ms(plain, 2)
             p2 = cuda_ms(plain, 2)
             k2 = cuda_ms(call, 20)
-            kernel_us = [us for name, us in device_us_by_kernel(call).items()
+            kernel_us = [us for name, us in device_us_by_kernel(
+                             call, want="registration_kernel").items()
                          if "registration_kernel" in name]
             if not kernel_us:
                 raise AssertionError(f"[2b] register_window {tag}: the "
@@ -1833,8 +2085,8 @@ def phase_evaluation():
             p1 = cuda_ms(plain, 2)
             p2 = cuda_ms(plain, 2)
             k2 = cuda_ms(call, 20)
-            kernel_us = [us for kname, us in
-                         device_us_by_kernel(call).items()
+            kernel_us = [us for kname, us in device_us_by_kernel(
+                             call, want="evaluation_kernel").items()
                          if "evaluation_kernel" in kname]
             if not kernel_us:
                 raise AssertionError(f"[2b] evaluate {tag} {name}: the "
@@ -2271,8 +2523,49 @@ def phase_variants(images, gt, cfg):
                                  f"the CPU's")
         if len(pipe.kf_poses) < 2:
             raise AssertionError(f"{name}: no keyframe after the first")
+        if name == "ceres":
+            res["ceres_sync_free"] = _ceres_sync_free(pipe, vcfg)
         out[name] = res
     return out
+
+
+def _ceres_sync_free(pipe, cfg) -> dict:
+    """``ceres_covariance`` on the run's newest keyframe against the rest of
+    its window, on the card: no library call and no host synchronisation
+    (run under ``torch.cuda.set_sync_debug_mode("error")`` after a warm-up
+    call), and its covariance and flag held to the same call on the CPU."""
+    from tbv_slam_public_torch.kernels.checks import bits_differ
+    from tbv_slam_public_torch.ops import registration as treg
+
+    st = pipe.state
+    src = st.kf_cells.map(lambda x: x[-1:])
+    tgt = st.kf_cells.map(lambda x: x[None, :-1])
+    theta = st.kf_poses[-1:]
+    args = (src, theta, tgt, st.kf_poses[None, :-1], st.kf_mask[None, :-1],
+            cfg.registration, torch.ones(1, device=theta.device),
+            torch.full((1,), 300, device=theta.device))
+    call = lambda: treg.ceres_covariance(*args)
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        cov, ok = call()
+        host_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = treg.ceres_covariance(*(a.map(lambda x: x.cpu()) if hasattr(
+        a, "map") else a.cpu() if isinstance(a, torch.Tensor) else a
+        for a in args))
+    res = dict(ok=bool(ok[0]), host_ms=host_s * 1e3,
+               card_vs_cpu_differ=bits_differ(cov, want[0])
+               + bits_differ(ok, want[1]))
+    log(f"[8] ceres_covariance on the card under sync debug mode "
+        f"\"error\": {res}")
+    if bool(ok[0]) != bool(want[1][0]):
+        raise AssertionError("[8] ceres_covariance: the card's flag is not "
+                             "the CPU's")
+    return res
 
 
 def _launches_per_call(fn) -> int:
@@ -3392,6 +3685,8 @@ def main(argv=None) -> int:
     k = phase_kernels(sm_hz)
     refmath_k = phase_refmath()
     sites = phase_refmath_sites()
+    import torch_workload as wl
+    chains = phase_chains(wl.sensor_config())
     lm_k = phase_registration()
     eval_k = phase_evaluation()
     tail_k = phase_coral_tail()
@@ -3460,7 +3755,28 @@ def main(argv=None) -> int:
         "plain_ms": cells_k["plain_ms"], "bound_ms": cells_k["bound_ms"],
         "bound_by": cells_k["bound_by"], "library_ms": None,
         "times": cells_k, "launches_by_path": CELLS_LAUNCHES,
-        "shapes_held_by_path": CELLS_HELD}, {
+        "shapes_held_by_path": CELLS_HELD, "design": CELLS_DESIGN}, {
+        "name": "refmath_chains", "route": "cuda",
+        "source": "tbv_slam_public_torch/csrc/refmath_sites.cu",
+        "replaces": "tbv_slam_public_torch/kernels/refmath.py (no TPU "
+                    "kernel: XLA fuses the odometry step's pose tail, the "
+                    "motion compensation and the loop closure's pose "
+                    "algebra; each chain's plain version is its body on "
+                    "tensors, kernels/refmath.py::chain_plain)",
+        "launches": sum(v for p, v in REFMATH_LAUNCHES["offline"].items()
+                        if p in CHAIN_NAMES),
+        "max_abs_err": 0.0,
+        "ms": chains["odometry_pose_tail"]["ms"],
+        "plain_ms": chains["odometry_pose_tail"]["plain_ms"],
+        "bound_ms": chains["odometry_pose_tail"]["bound_ms"],
+        "bound_by": chains["odometry_pose_tail"]["bound_by"],
+        "library_ms": None, "chains": chains,
+        "launches_by_path": {
+            p: {c: v[c] for c in CHAIN_NAMES if c in v}
+            for p, v in REFMATH_LAUNCHES.items()},
+        "design": "one launch runs an ordered list of sites and their glue "
+                  "from a description built once per chain and shape and "
+                  "kept on the card; a launch passes 144 bytes"}, {
         "name": "register_window", "route": "cuda",
         "source": "tbv_slam_public_torch/csrc/lm_solve.cu",
         "replaces": "tbv_slam_public_tpu/ops/registration.py:395 (no TPU "

@@ -20,9 +20,10 @@ the evaluation kernel's device time, the call's time by events and the
 host's microseconds, with a digest of the covariances.
 
 A run is a fresh process on one tree (its package first on ``sys.path``)
-with optional ``nvcc`` defines (``csrc/cells.cu`` reads ``CELLS_WARPS``,
-the cells a block, and ``CELLS_BATCH``, the windows whose loads a warp
-issues together).  A variant is ``TREE[:NAME=VALUE,...][@SET,...]`` (a
+with optional ``nvcc`` defines (``csrc/cells.cu`` reads ``CELLS_WARPS``
+and ``CELLS_CELLS``, the staged design's warps and cells a block, and
+``CELLS_BATCH``, the windows whose loads a warp of the global-memory
+design issues together).  A variant is ``TREE[:NAME=VALUE,...][@SET,...]`` (a
 tree whose kernel takes only phase 4's clouds runs with ``@phase4``); the
 order is the variants, then backwards, so that drift of the card shows.
 One JSON line a run, then one with all runs and the card's name and power

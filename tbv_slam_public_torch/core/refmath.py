@@ -38,7 +38,7 @@ own functions on the same inputs (``tests/test_torch_refmath.py``).
 | ``ops/registration.py::_covariance_from_fit`` | ``jnp.linalg.eigvalsh`` of the 3 x 3 Hessian: jaxlib's ``lapack_ssyevd_ffi`` with vectors (``ssytd2``'s reflector, then ``ssteqr``: implicit QL / QR, ``slartg``, ``slaev2``); the guarded ``jnp.linalg.inv``: ``sgetrf``, then ``strsm`` against the permuted identity | optimized HLO of the function; ``objdump -d`` of ``ssyevd_``, ``ssytd2_``, ``ssteqr_``, ``slartg_``, ``slae2_``/``slaev2_``, ``slapy2_`` (no fused multiply-add in the LAPACK) and the SkylakeX ``ssymv``/``sdot``/``saxpy``/``ssyr2`` kernels they call (fused); eigenvalues bit-equal on 20,000 symmetric matrices (convex, indefinite, near-singular, any scale), inverses on 20,000 | :func:`eigvalsh3`, :func:`inv3` (``csrc/refmath.cuh``'s ``la_eigvalsh3``, ``lu_factor``, ``lu_apply`` in the evaluation entry) |
 | ``ops/registration.py::associate`` squared distances (argmin and radius gate) | fma(dy, dy, dx*dx) (the argmin's fusion), the offsets, product and sum flushed; the winner's attributes read through a one-hot product (a subnormal attribute is zero) | object code of the argmin fusion; the jitted ``associate`` on a radius between the two roundings | ``associate``, ``csrc/lm_solve.cu``'s ``sqdist`` |
 | ``ops/coral.py::_kl_divergence_2d`` | tr(S1^-1 S0) a ``dot`` of the four products in order, each rounded; the Mahalanobis term two dots of fused multiply-adds from zero | optimized HLO of the function; its einsums compiled alone, bit-equal | written out (``csrc/coral_moments.cu``'s ``coral_tail`` alike) |
-| subnormal operands and results of the functions above, of :func:`dot`, :func:`loop_dot`, :func:`lu_solve` and :func:`fma` (``vfmadd`` flushes; jaxlib runs the LAPACK on the same thread), and at the audited sites (CorAl's moment sums, covariance and KL inverse, the eigen gates and the cells' covariance, the association's distances and attributes, the registration residuals and the LM's products w J [J | r], PGO's residuals, Jacobian blocks, weights, gradient and Hessian blocks, the logistic fit's coefficients) | flushed to zero (the reference's threads run with DAZ and FTZ) | outputs on inputs driven into the subnormal range, against the package's own functions (``tests/test_torch_parity_faults.py``, the ``flush`` cases) | :func:`ftz` (kernel op ``ftz`` on the card; ``daz``/``ref_fma`` in the kernels) |
+| subnormal operands and results of the functions above, of :func:`dot`, :func:`loop_dot`, :func:`lu_solve` and :func:`fma` (``vfmadd`` flushes; jaxlib runs the LAPACK on the same thread), and at the audited sites (CorAl's moment sums, covariance and KL inverse, the eigen gates and the cells' covariance, the association's distances and attributes, the registration residuals and the LM's products w J [J | r], PGO's residuals, Jacobian blocks, weights, gradient and Hessian blocks, the logistic fit's coefficients) | flushed to zero (the reference's threads run with DAZ and FTZ), a result where its rounding with an unbounded exponent is below 2^-126 (x86 detects tininess after rounding: an exact result in [2^-126 - 2^-150, 2^-126 - 2^-151), which gradual underflow rounds up to 2^-126, is flushed) | outputs on inputs driven into the subnormal range, against the package's own functions (``tests/test_torch_parity_faults.py``, the ``flush`` cases; the tie: ``tests/test_torch_parity_repairs.py``) | :func:`ftz`; products and fused multiply-adds by their exact result (:func:`_flush`: :func:`mul_ftz`, :func:`sum_ftz`, :func:`fma`) (kernel op ``ftz`` on the card; ``.ftz`` instructions ``mul_ftz``/``fma_ftz``/``ref_fma`` and ``daz`` in the kernels) |
 
 Fused multiply-adds inside the functions:
 
@@ -101,6 +101,14 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return ftz(x.to(_F32)).to(_F64).sqrt().to(_F32)
 
 
+def _two_sum(p: torch.Tensor, c: torch.Tensor):
+    """(s, err) of float64 p + c: the rounded sum and its exact remainder,
+    p + c = s + err exactly."""
+    s = p + c
+    bb = s - p
+    return s, (p - (s - bb)) + (c - bb)
+
+
 def _fused(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 of p + c for float64 p (an exact float32 product) and c
     (a float32), rounded once.
@@ -109,19 +117,75 @@ def _fused(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     rounds to the same float32 unless it lies on a float32 tie (or in
     float32's subnormal range).  Those few are rounded to odd first (the
     exact remainder decides the last bit), which makes the float32 rounding
-    the correctly rounded fused result."""
+    the correctly rounded fused result.  Off the CPU the repair is computed
+    whether or not a tie is present: asking would be a host sync."""
     s = p + c
     tie = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | \
         (torch.abs(s) < _MIN_NORM)
-    if bool(tie.any()):
-        bb = s - p
-        err = (p - (s - bb)) + (c - bb)
+    if s.device.type != "cpu" or bool(tie.any()):
+        _, err = _two_sum(p, c)
         odd = (s.view(torch.int64) & 1) == 1
         fix = tie & (err != 0) & ~odd
         toward = torch.where(err > 0, torch.full_like(s, math.inf),
                              torch.full_like(s, -math.inf))
         s = torch.where(fix, torch.nextafter(s, toward), s)
     return s.to(_F32)
+
+
+#: the exact results whose float32 rounding with an unbounded exponent is
+#: below 2^-126 but whose rounding with gradual underflow is 2^-126: those
+#: in [2^-126 - 2^-150, 2^-126 - 2^-151)
+_TIE = 2.0 ** -126 - 2.0 ** -151
+
+
+def _flush(r: torch.Tensor, exact) -> torch.Tensor:
+    """The float32 result r of one operation (rounded with gradual
+    underflow), flushed as the reference's FTZ threads and the card's
+    ``.ftz`` instructions flush it: where the exact result rounded with an
+    unbounded exponent is below 2^-126.  That differs from :func:`ftz` of r
+    only where |r| = 2^-126 and |exact| < 2^-126 - 2^-151 (a product or a
+    fused multiply-add; the exact sum of two float32 values is a multiple
+    of 2^-149, never in that interval).  ``exact()`` gives (s, err), float64
+    with s + err the exact result; on the CPU it is called only where some
+    |r| = 2^-126, off the CPU always (asking would be a host sync)."""
+    mag = torch.abs(r)
+    if r.device.type == "cpu" and not _reaches_min_norm(mag):
+        return r * torch.ge(mag, _MIN_NORM, out=mag)
+    s, err = exact()
+    a = torch.abs(s)
+    below = (a < _TIE) | ((a == _TIE) & (err * s < 0))
+    return ftz(torch.where((mag == _MIN_NORM) & below, r * 0.0, r))
+
+
+def _reaches_min_norm(mag: torch.Tensor) -> bool:
+    """Whether some of the magnitudes ``mag`` is 2^-126: the least
+    |mag - 2^-126| is 0 (arithmetic and a reduction, cheaper on the CPU
+    than a comparison over the tensor; a NaN among them asks exactly)."""
+    if mag.numel() == 0:
+        return False
+    z = float(torch.abs(mag - _MIN_NORM).amin())
+    return z == 0.0 or (z != z and bool(torch.eq(mag, _MIN_NORM).any()))
+
+
+def _as64(x):
+    return x.to(_F64) if isinstance(x, torch.Tensor) else x
+
+
+def mul_ftz(a, b) -> torch.Tensor:
+    """float32 a * b, its subnormal result flushed as the reference's FTZ
+    threads (and ``refmath.cuh::mul_ftz``) flush it (:func:`_flush`); the
+    operands are taken as given (flushed by the caller where the reference
+    flushes them)."""
+    return _flush(a * b, lambda: (_as64(a) * _as64(b), 0.0))
+
+
+def sum_ftz(p64: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """float32 of the float64 p64 (an exact product) plus the float32 acc,
+    rounded from the float64 sum and flushed by the exact result
+    (:func:`_flush`): a step of the CorAl moments' ordered sum of squares
+    (``csrc/coral_moments.cu``'s ``fma_ftz``)."""
+    a64 = acc.to(_F64)
+    return _flush((p64 + a64).to(_F32), lambda: _two_sum(p64, a64))
 
 
 def _fma_normal(a: torch.Tensor, b: torch.Tensor,
@@ -137,9 +201,10 @@ def _fma_normal(a: torch.Tensor, b: torch.Tensor,
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 a*b + c with a single rounding (:func:`_fused`), subnormal
-    operands counted as zero and a subnormal result zero (the reference's
-    threads run with DAZ and FTZ): ``vfmadd`` itself flushes, so every
-    fused multiply-add of the reference's program does."""
+    operands counted as zero and a result below 2^-126 zero (the
+    reference's threads run with DAZ and FTZ; :func:`_flush`): ``vfmadd``
+    itself flushes, so every fused multiply-add of the reference's program
+    does."""
     a, b, c = torch.broadcast_tensors(torch.as_tensor(a), torch.as_tensor(b),
                                       torch.as_tensor(c))
     a, b, c = a.to(_F32), b.to(_F32), c.to(_F32)
@@ -147,7 +212,8 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     # is below FLT_MIN (a zero or NaN stays itself, with its sign)
     p = a.to(_F64) * b.to(_F64) * torch.ge(
         torch.minimum(a.abs(), b.abs()), _MIN_NORM)
-    return ftz(_fused(p, c.to(_F64) * torch.ge(c.abs(), _MIN_NORM)))
+    c = c.to(_F64) * torch.ge(c.abs(), _MIN_NORM)
+    return _flush(_fused(p, c), lambda: _two_sum(p, c))
 
 
 def fma64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -1034,6 +1100,9 @@ def _qr_block3(d0, d1, d2, e0, e1):
     e0, e1 = torch.where(flip, e1, e0), torch.where(flip, e0, e1)
     active = anorm != 0
     failed = torch.zeros_like(active)
+    # off the CPU every sweep runs (a row once converged stays as it is):
+    # asking whether any row is left would be a host sync
+    on_cpu = d0.device.type == "cpu"
     two = torch.full_like(d0, 2.0)
 
     def small(e, a, b):
@@ -1041,7 +1110,7 @@ def _qr_block3(d0, d1, d2, e0, e1):
                                                   b.abs()), _LA_SAFMIN)
 
     for sweep in range(91):
-        if not bool(active.any()):
+        if on_cpu and not bool(active.any()):
             break
         t0, t1 = small(e0, d0, d1), small(e1, d1, d2)
         top = active & t0             # d0 found, then the (d1, d2) block
@@ -1116,7 +1185,7 @@ def eigvalsh3(h: torch.Tensor) -> torch.Tensor:
     tiny = reflect & (beta.abs() < safmin)
     again = tiny.clone()
     for _ in range(20):
-        if not bool(again.any()):
+        if h.device.type == "cpu" and not bool(again.any()):
             break
         x = torch.where(again, _mul(x, rsafmn), x)
         beta = torch.where(again, _mul(beta, rsafmn), beta)

@@ -100,16 +100,26 @@ def _rotated(c, s, vx, vy):
     return refmath.fma(c, vx, -(s * vy)), refmath.fma(s, vx, c * vy)
 
 
+def _apply_elem(pose: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
+    """Points [..., 2] moved by poses [..., 3] of the same rank (broadcast
+    element by element): the arithmetic of ``apply``."""
+    s, c = refmath.sincos(pose[..., 2])
+    x, y = _rotated(c, s, point[..., 0], point[..., 1])
+    return torch.stack([x + pose[..., 0], y + pose[..., 1]], -1)
+
+
+def _rotate_elem(pose: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+    """Vectors [..., 2] rotated by poses [..., 3] of the same rank."""
+    s, c = refmath.sincos(pose[..., 2])
+    return torch.stack(_rotated(c, s, vec[..., 0], vec[..., 1]), -1)
+
+
 def _apply_plain(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    s, c = refmath.sincos(pose[..., 2][..., None])
-    x, y = _rotated(c, s, points[..., 0], points[..., 1])
-    return torch.stack([x + pose[..., 0][..., None],
-                        y + pose[..., 1][..., None]], -1)
+    return _apply_elem(pose[..., None, :], points)
 
 
 def _rotate_plain(pose: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
-    s, c = refmath.sincos(pose[..., 2][..., None])
-    return torch.stack(_rotated(c, s, vecs[..., 0], vecs[..., 1]), -1)
+    return _rotate_elem(pose[..., None, :], vecs)
 
 
 def _interpolate_plain(a: torch.Tensor, b: torch.Tensor,
@@ -145,15 +155,15 @@ def _angles(theta):
     return [(theta, (), False)], [(2, 2)], 0, ()
 
 
-for _name, _plain, _layout in (
-        ("compose", _compose_plain, _poses),
-        ("inverse", _inverse_plain, _poses),
-        ("relative", _relative_plain, _poses),
-        ("apply", _apply_plain, _pose_points),
-        ("rotate", _rotate_plain, _pose_points),
-        ("interpolate", _interpolate_plain, _pose_pair_factor),
-        ("rotmat", _rotmat_plain, _angles)):
-    refmath.register_site(_name, _plain, _layout)
+for _name, _plain, _layout, _elem in (
+        ("compose", _compose_plain, _poses, None),
+        ("inverse", _inverse_plain, _poses, None),
+        ("relative", _relative_plain, _poses, None),
+        ("apply", _apply_plain, _pose_points, _apply_elem),
+        ("rotate", _rotate_plain, _pose_points, _rotate_elem),
+        ("interpolate", _interpolate_plain, _pose_pair_factor, None),
+        ("rotmat", _rotmat_plain, _angles, None)):
+    refmath.register_site(_name, _plain, _layout, _elem)
 
 
 def scale(pose: torch.Tensor, factor) -> torch.Tensor:

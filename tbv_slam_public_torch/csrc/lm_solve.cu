@@ -195,7 +195,7 @@ __device__ __forceinline__ void rho_weight(float s, const Params& p,
       return;
     }
     case kSoftLOne: {  // k0 = 1 / b, k1 = 2 b
-      const float t = __fsqrt_rn(daz(__fmaf_rn(s, p.k0, 1.0f)));
+      const float t = __fsqrt_rn(fma_ftz(s, p.k0, 1.0f));
       *rho = __fmul_rn(__fsub_rn(t, 1.0f), p.k1);
       *w = __fdiv_rn(1.0f, t);
       return;
@@ -239,39 +239,39 @@ __device__ __forceinline__ void leaf(const Params& p, const Rec& d, int i,
   // subnormal operands and every subnormal product and sum flushed (daz),
   // as _residual_terms flushes them
   const float ux = daz(d.sx[l]), uy = daz(d.sy[l]);
-  const float dy = daz(__fmaf_rn(c, ux, -daz(__fmul_rn(s, uy))));
+  const float dy = fma_ftz(c, ux, -daz(__fmul_rn(s, uy)));
   const float wx = daz(__fadd_rn(dy, th0));
   const float wy =
-      daz(__fadd_rn(daz(__fmaf_rn(s, ux, daz(__fmul_rn(c, uy)))), th1));
-  const float dx = daz(__fmaf_rn(-s, ux, -daz(__fmul_rn(c, uy))));
+      daz(__fadd_rn(fma_ftz(s, ux, daz(__fmul_rn(c, uy))), th1));
+  const float dx = fma_ftz(-s, ux, -daz(__fmul_rn(c, uy)));
   const float e0 = daz(__fsub_rn(wx, daz(d.mx[l])));
   const float e1 = daz(__fsub_rn(wy, daz(d.my[l])));
   float J[3], res, sq;
   if (p.cost == kP2L) {
     const float n0 = daz(d.nx[l]), n1 = daz(d.ny[l]);
-    res = daz(__fmaf_rn(n1, e1, daz(__fmul_rn(n0, e0))));
+    res = fma_ftz(n1, e1, daz(__fmul_rn(n0, e0)));
     J[0] = n0;
     J[1] = n1;
-    J[2] = daz(__fmaf_rn(n0, dx, daz(__fmul_rn(n1, dy))));
+    J[2] = fma_ftz(n0, dx, daz(__fmul_rn(n1, dy)));
     sq = daz(__fmul_rn(res, res));
   } else if (p.cost == kP2D) {
     const float* uu = d.u + 4 * l;  // u[row * 2 + col]
     const float u[4] = {daz(uu[0]), daz(uu[1]), daz(uu[2]), daz(uu[3])};
-    const float r0 = daz(__fmaf_rn(u[1], e1, daz(__fmul_rn(u[0], e0))));
-    const float r1 = daz(__fmaf_rn(u[3], e1, daz(__fmul_rn(u[2], e0))));
+    const float r0 = fma_ftz(u[1], e1, daz(__fmul_rn(u[0], e0)));
+    const float r1 = fma_ftz(u[3], e1, daz(__fmul_rn(u[2], e0)));
     const float a = u[2 * r], b = u[2 * r + 1];
     // row r of u [[1, 0, dx], [0, 1, dy]]
-    J[0] = daz(__fmaf_rn(b, 0.0f, daz(__fmul_rn(a, 1.0f))));
-    J[1] = daz(__fmaf_rn(b, 1.0f, daz(__fmul_rn(a, 0.0f))));
-    J[2] = daz(__fmaf_rn(b, dy, daz(__fmul_rn(a, dx))));
+    J[0] = fma_ftz(b, 0.0f, daz(__fmul_rn(a, 1.0f)));
+    J[1] = fma_ftz(b, 1.0f, daz(__fmul_rn(a, 0.0f)));
+    J[2] = fma_ftz(b, dy, daz(__fmul_rn(a, dx)));
     res = r == 0 ? r0 : r1;
-    sq = daz(__fmaf_rn(r1, r1, daz(__fmul_rn(r0, r0))));
+    sq = fma_ftz(r1, r1, daz(__fmul_rn(r0, r0)));
   } else {  // P2P
     res = r == 0 ? e0 : e1;
     J[0] = r == 0 ? 1.0f : 0.0f;
     J[1] = r == 0 ? 0.0f : 1.0f;
     J[2] = r == 0 ? dx : dy;
-    sq = daz(__fmaf_rn(e1, e1, daz(__fmul_rn(e0, e0))));
+    sq = fma_ftz(e1, e1, daz(__fmul_rn(e0, e0)));
   }
   float rho, wi;
   rho_weight(sq, p, &rho, &wi);
@@ -408,7 +408,7 @@ __device__ void evaluate(const Params& p, const Rec& d, int leaf0, int q0,
 // (_prior_terms: each sum one fused multiply-add a term, in order from 0)
 __device__ void finish(const Params& p, int b, float pw, const float* th,
                        const float* sums, float* cost, float* g, float* H) {
-  *cost = daz(__fmul_rn(0.5f, sums[0]));
+  *cost = mul_ftz(0.5f, sums[0]);
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
 #pragma unroll
@@ -959,7 +959,7 @@ __global__ void __launch_bounds__(kThreads) evaluation_kernel(const Params p) {
           for (int k = 0; k < n / 2; ++k) x[k] = __fadd_rn(x[2 * k], x[2 * k + 1]);
         }
       }
-      const float c = daz(__fmul_rn(0.5f, x[0]));
+      const float c = mul_ftz(0.5f, x[0]);
       p.out_cost[(long long)b * p.S + si] = c;
       s_cost[si] = c;
     }
@@ -973,7 +973,7 @@ __global__ void __launch_bounds__(kThreads) evaluation_kernel(const Params p) {
     if (p.pinv != nullptr && lane < 10) {  // a lane a coefficient
       float qk = 0.0f;  // refmath.dot: operands and steps flushed
       for (int si = 0; si < p.S; ++si)
-        qk = daz(__fmaf_rn(daz(s_cost[si]), daz(p.pinv[lane * p.S + si]), qk));
+        qk = fma_ftz(daz(s_cost[si]), daz(p.pinv[lane * p.S + si]), qk);
       p.out_q[10 * b + lane] = qk;
       s_q[lane] = qk;
     }

@@ -74,7 +74,7 @@ __global__ void refmath_dot_kernel(const float* __restrict__ a,
     const float* bc = b + (i % cols) * (long long)depth;
     float acc = 0.0f;
     for (int k = 0; k < depth; ++k)
-      acc = daz(__fmaf_rn(daz(ar[k]), daz(bc[k]), acc));
+      acc = fma_ftz(daz(ar[k]), daz(bc[k]), acc);
     out[i] = acc;
   }
 }
@@ -127,7 +127,7 @@ __global__ void refmath_loop_dot_kernel(const float* __restrict__ x,
         const int at = 8 * (ic * i + j);
 #pragma unroll
         for (int l = 0; l < 8; ++l)
-          a[l] = daz(__fmaf_rn(daz(xr[at + l]), daz(v[at + l]), a[l]));
+          a[l] = fma_ftz(daz(xr[at + l]), daz(v[at + l]), a[l]);
       }
       for (int l = 0; l < 8; ++l)
         acc[l] = (mode == 1 || j == 0) ? a[l] : daz(__fadd_rn(acc[l], a[l]));
@@ -141,13 +141,13 @@ __global__ void refmath_loop_dot_kernel(const float* __restrict__ x,
       for (int l = 1; l < 8; ++l) e[l] = 0.0f;
       for (int i = 0; i < m; ++i)
         for (int l = 0; l < vf; ++l)
-          e[l] = daz(__fmaf_rn(daz(xr[done + vf * i + l]),
-                               daz(v[done + vf * i + l]), e[l]));
+          e[l] = fma_ftz(daz(xr[done + vf * i + l]),
+                               daz(v[done + vf * i + l]), e[l]);
       s = lane_tree(e, vf);
       done += vf * m;
     }
   }
-  for (int k = done; k < n; ++k) s = daz(__fmaf_rn(daz(xr[k]), daz(v[k]), s));
+  for (int k = done; k < n; ++k) s = fma_ftz(daz(xr[k]), daz(v[k]), s);
   out[c] = s;
 }
 

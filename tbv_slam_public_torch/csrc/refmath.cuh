@@ -32,7 +32,10 @@ __device__ __forceinline__ float daz(float x) {
 // reference's x86 FTZ does (a product just below 2^-126 that rounds to it
 // is kept, one on the tie 2^-126 - 2^-150 flushed: scripts/probe_ftz.py),
 // so with operands that are normal or zero each equals daz() of the plain
-// operation (but on that tie, which daz() keeps) and costs nothing more.
+// operation but on that tie, which daz() keeps and they flush, as the
+// plain versions do (core/refmath.py::_flush: mul_ftz, sum_ftz, fma), and
+// costs nothing more.  Wherever a plain version calls refmath.fma, its
+// kernel calls fma_ftz (ref_fma).
 __device__ __forceinline__ float mul_ftz(float a, float b) {
   float r;
   asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
@@ -392,8 +395,8 @@ __device__ float lu_strided_dot(const float* x, const float* y, int n) {
   double acc = 0.0;
   int p = 0;
   for (; p + 1 < n; p += 2)
-    acc = __dadd_rn(acc, (double)daz(__fmaf_rn(
-                             x[p], y[p], daz(__fmul_rn(x[p + 1], y[p + 1])))));
+    acc = __dadd_rn(acc, (double)fma_ftz(
+                             x[p], y[p], daz(__fmul_rn(x[p + 1], y[p + 1]))));
   if (n & 1) acc = __dadd_rn(acc, (double)daz(__fmul_rn(x[n - 1], y[n - 1])));
   return daz(__double2float_rn(acc));
 }
@@ -402,7 +405,7 @@ __device__ float lu_strided_dot(const float* x, const float* y, int n) {
 __device__ float lu_chain(float y, const float* a, const float* x, int from,
                           int to) {
   float acc = 0.0f;
-  for (int c = from; c < to; ++c) acc = daz(__fmaf_rn(a[c], x[c], acc));
+  for (int c = from; c < to; ++c) acc = fma_ftz(a[c], x[c], acc);
   return daz(__fsub_rn(y, acc));
 }
 
@@ -463,13 +466,13 @@ __device__ void lu_apply(int k, float (*a)[kLuMax], const int* piv, float* x) {
     for (int r = lo[b]; r < hi[b]; ++r) x[r] = lu_chain(x[r], a[r], x, 0, lo[b]);
     for (int i = lo[b]; i < hi[b]; ++i)
       for (int q = i + 1; q < hi[b]; ++q)
-        x[q] = daz(__fmaf_rn(-x[i], a[q][i], x[q]));
+        x[q] = fma_ftz(-x[i], a[q][i], x[q]);
   }
   for (int b = nb - 1; b >= 0; --b) {  // the upper factor, from the bottom
     for (int r = lo[b]; r < hi[b]; ++r) x[r] = lu_chain(x[r], a[r], x, hi[b], k);
     for (int i = hi[b] - 1; i >= lo[b]; --i) {
       x[i] = daz(__fmul_rn(x[i], daz(__fdiv_rn(1.0f, a[i][i]))));
-      for (int q = lo[b]; q < i; ++q) x[q] = daz(__fmaf_rn(-x[i], a[q][i], x[q]));
+      for (int q = lo[b]; q < i; ++q) x[q] = fma_ftz(-x[i], a[q][i], x[q]);
     }
   }
 }

@@ -137,6 +137,37 @@ __device__ __forceinline__ float mm2(float a0, float b0, float a1, float b1) {
   return __fadd_rn(__fadd_rn(0.0f, __fmul_rn(a0, b0)), __fmul_rn(a1, b1));
 }
 
+// |(x, y)| as the reference's program: sqrt(fma(y, y, x * x)), IEEE root
+// (core/refmath.py::norm2)
+__device__ __forceinline__ float norm2f(float x, float y) {
+  return __fsqrt_rn(daz(ref_fma(y, y, __fmul_rn(x, x))));
+}
+
+// pose a [3] applied to the point (or direction, without the
+// translation) (vx, vy) (core/se2.py::_apply_elem, _rotate_elem)
+__device__ __forceinline__ void apply2(const float* a, float vx, float vy,
+                                       bool translate, float* o) {
+  float s, c, v[2];
+  ref_sincos(a[2], &s, &c);
+  rotated(c, s, vx, vy, v);
+  o[0] = translate ? __fadd_rn(v[0], a[0]) : v[0];
+  o[1] = translate ? __fadd_rn(v[1], a[1]) : v[1];
+}
+
+// the point (x, y) de-skewed by the motion m [3] (ops/radar.py::
+// _motion_compensate_plain); k: 1 / (2 pi), 2 pi, 1e-5 as float32
+__device__ __forceinline__ void motion2(float x, float y, const float* m,
+                                        const float* k, bool ccw, float* o) {
+  float ang = ref_atan2(y, x);
+  ang = ang > k[2] ? ang : __fadd_rn(k[1], ang);
+  float factor = ref_fma(ang, k[0], -0.5f);
+  if (ccw) factor = -factor;
+  float s, c;
+  ref_sincos(__fmul_rn(m[2], factor), &s, &c);
+  o[0] = ref_fma(m[0], factor, ref_fma(c, x, -__fmul_rn(s, y)));
+  o[1] = ref_fma(m[1], factor, ref_fma(s, x, __fmul_rn(c, y)));
+}
+
 __global__ void refmath_site_kernel(const SiteArgs a) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < a.n; i += (long long)gridDim.x * blockDim.x) {
@@ -166,16 +197,10 @@ __global__ void refmath_site_kernel(const SiteArgs a) {
       }
       case kApply:
       case kRotate: {
-        float s, c;
-        ref_sincos(in_f(a, e, 0, 2), &s, &c);
-        float v[2];
-        rotated(c, s, in_f(a, e, 1, 0), in_f(a, e, 1, 1), v);
-        if (a.site == kApply) {
-          v[0] = __fadd_rn(v[0], in_f(a, e, 0, 0));
-          v[1] = __fadd_rn(v[1], in_f(a, e, 0, 1));
-        }
-        o0[2 * i] = v[0];
-        o0[2 * i + 1] = v[1];
+        const float p[3] = {in_f(a, e, 0, 0), in_f(a, e, 0, 1),
+                            in_f(a, e, 0, 2)};
+        apply2(p, in_f(a, e, 1, 0), in_f(a, e, 1, 1), a.site == kApply,
+               o0 + 2 * i);
         break;
       }
       case kInterpolate: {
@@ -197,11 +222,9 @@ __global__ void refmath_site_kernel(const SiteArgs a) {
         o0[4 * i + 3] = c;
         break;
       }
-      case kNorm2: {
-        const float x = in_f(a, e, 0, 0), y = in_f(a, e, 0, 1);
-        o0[i] = __fsqrt_rn(daz(ref_fma(y, y, __fmul_rn(x, x))));
+      case kNorm2:
+        o0[i] = norm2f(in_f(a, e, 0, 0), in_f(a, e, 0, 1));
         break;
-      }
       case kWorldTargets: {
         // inputs: pose [3], mean [2], normal [2], cov [2, 2] (P2D), valid,
         // scan mask; outputs: mean, normal, cov (P2D), valid
@@ -232,18 +255,173 @@ __global__ void refmath_site_kernel(const SiteArgs a) {
       case kMotionCompensate: {
         // inputs: points [2], motion [3]; c: 1 / (2 pi), 2 pi, 1e-5 as
         // float32; flags: ccw
-        const float x = in_f(a, e, 0, 0), y = in_f(a, e, 0, 1);
-        float ang = ref_atan2(y, x);
-        ang = ang > a.c[2] ? ang : __fadd_rn(a.c[1], ang);
-        float factor = ref_fma(ang, a.c[0], -0.5f);
-        if (a.flags & 1) factor = -factor;
-        float s, c;
-        ref_sincos(__fmul_rn(in_f(a, e, 1, 2), factor), &s, &c);
-        o0[2 * i] = ref_fma(in_f(a, e, 1, 0), factor,
-                              ref_fma(c, x, -__fmul_rn(s, y)));
-        o0[2 * i + 1] = ref_fma(in_f(a, e, 1, 1), factor,
-                                  ref_fma(s, x, __fmul_rn(c, y)));
+        const float m[3] = {in_f(a, e, 1, 0), in_f(a, e, 1, 1),
+                            in_f(a, e, 1, 2)};
+        motion2(in_f(a, e, 0, 0), in_f(a, e, 0, 1), m, a.c, a.flags & 1,
+                o0 + 2 * i);
         break;
+      }
+    }
+  }
+}
+
+// ---- site chains ---------------------------------------------------------
+//
+// A chain runs an ordered list of sites, and the elementwise glue between
+// them, in one launch: each later site reads the earlier sites' results for
+// its own element from registers.  Its description (ChainDesc: the steps of
+// each segment, the operands' strides, the float32 constants) is built by
+// kernels/refmath.py once per chain and shape and kept in device memory; a
+// launch passes only that pointer, the element count and the data pointers
+// (ChainArgs, 144 bytes against a site's 432).  A chain has one or two
+// segments, each its own index space (the two clouds of a frame's motion
+// compensation); a thread takes an element of one segment.  Where a site
+// runs over a coarser index space than a later one (a relative pose of
+// [B, K] keyframes feeding the [B, K, P] points it moves), each thread
+// recomputes it for its own element: the same device function on the same
+// inputs, so the same bits.  The sites are the device functions above;
+// the glue rounds as torch's CPU elementwise ops (one rounding an op); a
+// bool is 1.0f or 0.0f in a register.  Its plain version is the chain's
+// body run by kernels/refmath.py on tensors, its sites' plain versions in
+// order.  Bound: a few hundred bytes and operations an element on 1 to a
+// few hundred thousand elements, so a launch is latency; the design removes
+// launches and host work.
+}  // namespace
+
+constexpr int kChainSegs = 2;     // index spaces of one launch
+constexpr int kChainIn = 10;      // operand slots (an operand a segment)
+constexpr int kChainOut = 6;      // outputs over all segments
+constexpr int kChainRegs = 96;    // float registers of an element
+constexpr int kChainSteps = 80;   // steps over all segments
+constexpr int kChainConsts = 16;  // float32 constants
+
+enum ChainOp {
+  kLoad = 0, kLoadBool, kConst, kStore, kStoreBool, kMul, kSub, kNeg, kAbs,
+  kLe, kLt, kAnd, kOr, kWhere,
+  kOpCompose = 32, kOpInverse, kOpRelative, kOpApply, kOpRotmat, kOpNorm2,
+  kOpMotion
+};
+
+// op; dst, a, b, c registers; k an operand slot, output or constant index;
+// j a component; n an output's components an element
+struct ChainStep {
+  unsigned char op, dst, a, b, c, k, j, n;
+};
+
+// kernels/refmath.py::CHAIN_DESC packs it; operand slot k's element (index
+// li of its segment, component j) lies at in[k] + sum_d coord_d(li)
+// stride[k][d] + j stride[k][4]; output k's at out[k] + li n + j.
+struct ChainDesc {
+  long long start[kChainSegs + 1];         // the segments' first elements
+  long long shape[kChainSegs][kDims];      // each segment's batch shape
+  long long stride[kChainIn][kDims + 1];
+  int first[kChainSegs + 1];               // segment s: steps first[s] ..
+  int segs;
+  int pad;
+  float c[kChainConsts];
+  ChainStep step[kChainSteps];
+};
+static_assert(sizeof(ChainDesc) == 1216, "kernels/refmath.py::CHAIN_DESC");
+
+struct ChainArgs {
+  const ChainDesc* desc;
+  long long n;
+  const void* in[kChainIn];
+  void* out[kChainOut];
+};
+static_assert(sizeof(ChainArgs) == 144, "kernels/refmath.py::CHAIN_ARGS");
+
+namespace {
+
+__global__ void __launch_bounds__(128)
+    refmath_chain_kernel(const ChainArgs a) {
+  // the description staged in shared memory by the whole block, one
+  // parallel read, so that a thread's steps read it at shared-memory
+  // latency (a launch of one element reads it once)
+  __shared__ __align__(16) ChainDesc sd;
+  {
+    const long long* src = reinterpret_cast<const long long*>(a.desc);
+    long long* dst = reinterpret_cast<long long*>(&sd);
+    for (int w = threadIdx.x; w < (int)(sizeof(ChainDesc) / 8);
+         w += blockDim.x)
+      dst[w] = src[w];
+  }
+  __syncthreads();
+  const ChainDesc* d = &sd;
+  // element counts are below 2^31 (kernels/refmath.py): 32-bit index
+  // arithmetic
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < (int)a.n;
+       i += gridDim.x * blockDim.x) {
+    int sg = 0;
+    while (sg + 1 < d->segs && i >= d->start[sg + 1]) ++sg;
+    const int li = i - (int)d->start[sg];
+    long long coord[kDims];
+    unsigned rest = (unsigned)li;
+    for (int q = kDims - 1; q >= 0; --q) {
+      const unsigned m = (unsigned)d->shape[sg][q];
+      coord[q] = rest % m;
+      rest /= m;
+    }
+    float r[kChainRegs];
+    for (int t = d->first[sg]; t < d->first[sg + 1]; ++t) {
+      const ChainStep st = d->step[t];
+      switch (st.op) {
+        case kLoad:
+        case kLoadBool: {
+          long long o = st.j * d->stride[st.k][kDims];
+          for (int q = 0; q < kDims; ++q) o += coord[q] * d->stride[st.k][q];
+          r[st.dst] = st.op == kLoad
+                          ? static_cast<const float*>(a.in[st.k])[o]
+                          : (static_cast<const unsigned char*>(a.in[st.k])[o]
+                                 ? 1.0f : 0.0f);
+          break;
+        }
+        case kConst: r[st.dst] = d->c[st.k]; break;
+        case kStore:
+          static_cast<float*>(a.out[st.k])[(long long)li * st.n + st.j] =
+              r[st.a];
+          break;
+        case kStoreBool:
+          static_cast<unsigned char*>(a.out[st.k])[li] = r[st.a] != 0.0f;
+          break;
+        case kMul: r[st.dst] = __fmul_rn(r[st.a], r[st.b]); break;
+        case kSub: r[st.dst] = __fsub_rn(r[st.a], r[st.b]); break;
+        case kNeg: r[st.dst] = -r[st.a]; break;
+        case kAbs: r[st.dst] = fabsf(r[st.a]); break;
+        case kLe: r[st.dst] = r[st.a] <= r[st.b] ? 1.0f : 0.0f; break;
+        case kLt: r[st.dst] = r[st.a] < r[st.b] ? 1.0f : 0.0f; break;
+        case kAnd:
+          r[st.dst] = (r[st.a] != 0.0f && r[st.b] != 0.0f) ? 1.0f : 0.0f;
+          break;
+        case kOr:
+          r[st.dst] = (r[st.a] != 0.0f || r[st.b] != 0.0f) ? 1.0f : 0.0f;
+          break;
+        case kWhere: r[st.dst] = r[st.c] != 0.0f ? r[st.a] : r[st.b]; break;
+        case kOpCompose: compose3(r + st.a, r + st.b, r + st.dst); break;
+        case kOpInverse: inverse3(r + st.a, r + st.dst); break;
+        case kOpRelative: {
+          float inv[3];
+          inverse3(r + st.a, inv);
+          compose3(inv, r + st.b, r + st.dst);
+          break;
+        }
+        case kOpApply:
+          apply2(r + st.a, r[st.b], r[st.b + 1], true, r + st.dst);
+          break;
+        case kOpRotmat: {
+          float sn, cs;
+          ref_sincos(r[st.a], &sn, &cs);
+          r[st.dst] = cs;
+          r[st.dst + 1] = -sn;
+          r[st.dst + 2] = sn;
+          r[st.dst + 3] = cs;
+          break;
+        }
+        case kOpNorm2: r[st.dst] = norm2f(r[st.a], r[st.a + 1]); break;
+        case kOpMotion:
+          motion2(r[st.a], r[st.a + 1], r + st.b, d->c + st.k, st.j != 0,
+                  r + st.dst);
+          break;
       }
     }
   }
@@ -436,6 +614,18 @@ extern "C" int refmath_site_launch(const SiteArgs* args, void* stream) {
   if (blocks > 132 * 16) blocks = 132 * 16;
   refmath_site_kernel<<<(unsigned)blocks, threads, 0,
                         (cudaStream_t)stream>>>(*args);
+  return (int)cudaGetLastError();
+}
+
+// One launch of the chain that args->desc describes over args->n elements.
+extern "C" int refmath_chain_launch(const ChainArgs* args, void* stream) {
+  if (args->n <= 0) return 0;
+  if (args->desc == nullptr) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  long long blocks = (args->n + threads - 1) / threads;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  refmath_chain_kernel<<<(unsigned)blocks, threads, 0,
+                         (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
 

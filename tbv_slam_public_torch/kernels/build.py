@@ -92,6 +92,10 @@ def library() -> ctypes.CDLL:
     # the site's description (kernels/refmath.py::SITE_ARGS), stream
     lib.refmath_site_launch.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
     lib.refmath_site_launch.restype = ctypes.c_int
+    # the launch's pointers and sizes (kernels/refmath.py::CHAIN_ARGS),
+    # stream
+    lib.refmath_chain_launch.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    lib.refmath_chain_launch.restype = ctypes.c_int
     # x, out, scratch, n, stream
     lib.refmath_cumsum_launch.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_void_p]

@@ -1,8 +1,12 @@
 """The CFEAR cells' statistics: CUDA kernel wrapper.
 
 The kernel is ``csrc/cells.cu``: ``compute_cells`` after the top-C voxel
-selection (``ops/features.py``, steps 3-4) in one launch, a warp a cell,
-the cloud's points read from global memory, so a cloud of any size runs.
+selection (``ops/features.py``, steps 3-4) in one launch.  Up to
+:data:`STAGE_MAX` points a block of 8 warps takes 4 cells: it stages the
+cloud's positions and mask in shared memory, gates them once into a
+bitmap a cell and walks each bitmap in point order (a warp a cell); above
+it a warp a cell reads the points from global memory, so a cloud of any
+size runs.
 Its plain version is ``ops/features.py::_cell_stats_reference``.  Dispatch is by tensor device:
 a CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises (inside :func:`plain_on_card` it runs the plain version, the
@@ -26,6 +30,8 @@ _PLAIN_ON_CARD = False
 #: the largest cloud the kernel's weight-sum tree holds (csrc/cells.cu
 #: kLevels: 32^5 points)
 MAX_POINTS = 32 ** 5
+#: the largest cloud the staged design takes (csrc/cells.cu kStageMax)
+STAGE_MAX = 24000
 
 
 @contextlib.contextmanager

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from ..core.refmath import fma, ftz
+from ..core.refmath import fma, ftz, sum_ftz
 
 #: number of kernel launches made by :func:`neighbor_moments` and
 #: :func:`pair_moments`
@@ -118,11 +118,11 @@ def _ordered_moments(qs, ps, pslot, radius, levels):
     slot = torch.zeros((l, k), dtype=pslot.dtype, device=qs.device)
     slot[row, pos] = pslot[col]
     # Σ(p−q)(p−q)ᵀ: xx, xy, yy, one rounding a step (the float64 products
-    # are exact)
+    # are exact), flushed by the exact sum as the kernel's fma.rn.ftz
     prod = rel.double()[..., [0, 0, 1]] * rel.double()[..., [0, 1, 1]]
     sq = torch.zeros((l, 3), dtype=dt, device=qs.device)
     for j in range(k):
-        sq = ftz((prod[:, j] + sq).float())
+        sq = sum_ftz(prod[:, j], sq)
     # Σ(p−q): acc[0] sums within the current window, acc[v] the sums of
     # level-v windows; a neighbour in a new window first hands each finished
     # level's sum up.  window[v] [l, K]: each neighbour's level-v window.

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import math
 import struct
 
 import torch
@@ -263,16 +264,359 @@ _KERNEL_ARGS.update(dot=_dot, loop_dot=_loop_dot, lm_update=_lm_update,
                     lu_solve=_lu_solve, cumsum=_cumsum)
 
 
-def register_site(name: str, plain_fn, layout) -> None:
+def register_site(name: str, plain_fn, layout, element=None) -> None:
     """Register site ``name`` of :data:`SITES`: ``plain_fn(*ts, **options)``
     is its plain version, and ``layout(*ts, **options)`` gives its launch's
     operands, as (operands: a list of (tensor or None, its component shape,
     whether it is a bool mask), the outputs' component shapes (None: not
-    written; "bool": a bool per element), flags, float32 constants)."""
+    written; "bool": a bool per element), flags, float32 constants).
+    ``element`` (default ``plain_fn``) is the same arithmetic on operands of
+    equal rank broadcast element by element, as a chain's plain version
+    calls it."""
     if name not in SITES:
         raise ValueError(f"refmath: no site entry {name!r}")
     _PLAIN[name] = plain_fn
+    if name in CHAIN_SITES:
+        _ELEMENT_PLAIN[name] = element or plain_fn
     _KERNEL_ARGS[name] = functools.partial(_site, layout)
+
+
+# ---- site chains (csrc/refmath_sites.cu's refmath_chain_kernel) -----------
+
+#: ``csrc/refmath_sites.cu``'s ``ChainDesc``: segment starts, their batch
+#: shapes, the operand slots' strides, the segments' first steps, the
+#: segment count, float32 constants, steps of 8 bytes
+CHAIN_SEGS, CHAIN_IN, CHAIN_OUT, CHAIN_REGS, CHAIN_STEPS, CHAIN_CONSTS = \
+    2, 10, 6, 96, 80, 16
+CHAIN_DESC = struct.Struct("<3q8q50q3iii16f640s4x")
+#: ``ChainArgs``: the description's device pointer, elements, operand and
+#: output pointers
+CHAIN_ARGS = struct.Struct("<Qq10Q6Q")
+_OPCODE = dict(load=0, load_bool=1, const=2, store=3, store_bool=4, mul=5,
+               sub=6, neg=7, abs=8, le=9, lt=10, and_=11, or_=12, where=13,
+               compose=32, inverse=33, relative=34, apply=35, rotmat=36,
+               norm2=37, motion_compensate=38)
+#: the sites a chain may run: name -> (operand widths, result shape)
+CHAIN_SITES = {"compose": ((3, 3), (3,)), "inverse": ((3,), (3,)),
+               "relative": ((3, 3), (3,)), "apply": ((3, 2), (2,)),
+               "rotmat": ((1,), (2, 2)),
+               "norm2": ((2,), ()), "motion_compensate": ((2, 3), (2,))}
+#: chain name -> (segments: [(body, operand indices)], operand component
+#: shapes)
+CHAINS: dict = {}
+#: per-element plain versions of the sites a chain runs (operands of equal
+#: rank, broadcast together): each site's plain arithmetic
+_ELEMENT_PLAIN: dict = {}
+
+
+class _Eager:
+    """A chain body's operations on tensors: its plain version."""
+
+    @staticmethod
+    def site(name, *ts, **options):
+        return _ELEMENT_PLAIN[name](*ts, **options)
+
+    @staticmethod
+    def norm2(v):
+        return _ELEMENT_PLAIN["norm2"](v)
+
+    @staticmethod
+    def where(cond, a, b):
+        if isinstance(a, torch.Tensor) and a.dim() > cond.dim():
+            cond = cond[..., None]
+        return torch.where(cond, a, b)
+
+    @staticmethod
+    def stack(values):
+        return torch.stack(values, -1)
+
+    @staticmethod
+    def zeros_like(x):
+        return torch.zeros_like(x)
+
+
+class _Value:
+    """A value of a chain being recorded: its registers (a component each,
+    row-major over ``shape``), ``shape`` the component shape."""
+    __slots__ = ("rec", "regs", "shape", "is_bool")
+
+    def __init__(self, rec, regs, shape, is_bool=False):
+        self.rec, self.regs, self.shape, self.is_bool = \
+            rec, tuple(regs), tuple(shape), is_bool
+
+    def __getitem__(self, idx):
+        if not (isinstance(idx, tuple) and len(idx) == 2 and
+                idx[0] is Ellipsis and len(self.shape) == 1):
+            raise IndexError("a chain value is indexed as v[..., j]")
+        sel = self.regs[idx[1]]
+        if isinstance(idx[1], slice):
+            return _Value(self.rec, sel, (len(sel),), self.is_bool)
+        return _Value(self.rec, (sel,), (), self.is_bool)
+
+    def _binary(self, other, op, is_bool=False, swap=False):
+        other = self.rec.operand(other)
+        a, b = (other, self) if swap else (self, other)
+        n = max(len(a.regs), len(b.regs))
+        if {len(a.regs), len(b.regs)} - {1, n}:
+            raise ValueError("chain values of different widths")
+        pick = lambda v, i: v.regs[i if len(v.regs) == n else 0]
+        out = [self.rec.emit(op, a=pick(a, i), b=pick(b, i))
+               for i in range(n)]
+        return _Value(self.rec, out, a.shape if len(a.regs) == n else b.shape,
+                      is_bool)
+
+    def _unary(self, op, is_bool=False):
+        return _Value(self.rec, [self.rec.emit(op, a=r) for r in self.regs],
+                      self.shape, is_bool)
+
+    def __mul__(self, o): return self._binary(o, "mul")
+    def __sub__(self, o): return self._binary(o, "sub")
+    def __le__(self, o): return self._binary(o, "le", True)
+    def __gt__(self, o): return self._binary(o, "lt", True, swap=True)
+    def __and__(self, o): return self._binary(o, "and_", True)
+    def __or__(self, o): return self._binary(o, "or_", True)
+    def __neg__(self): return self._unary("neg")
+    def __abs__(self): return self._unary("abs")
+
+
+class _Recorder:
+    """A chain body's operations recorded as ``csrc/refmath_sites.cu``
+    steps, for one segment: registers allocated in order, never reused (an
+    element's registers are its own; a site never writes over its
+    operands)."""
+
+    def __init__(self, consts):
+        self.steps, self.consts, self.nregs = [], consts, 0
+
+    def _reg(self, n=1):
+        r = self.nregs
+        self.nregs += n
+        if self.nregs > CHAIN_REGS:
+            raise ValueError(f"refmath chain: more than {CHAIN_REGS} "
+                             "registers")
+        return r
+
+    def emit(self, op, a=0, b=0, c=0, k=0, j=0, n=0, width=1):
+        dst = self._reg(width) if op not in ("store", "store_bool") else 0
+        self.steps.append((_OPCODE[op], dst, a, b, c, k, j, n))
+        return dst
+
+    def const(self, x: float) -> int:
+        """A register holding the float32 nearest x (as torch rounds a
+        Python number against a float32 tensor)."""
+        v = float(torch.tensor(float(x), dtype=torch.float32))
+        if v not in self.consts:
+            if len(self.consts) == CHAIN_CONSTS:
+                raise ValueError("refmath chain: too many constants")
+            self.consts.append(v)
+        return self.emit("const", k=self.consts.index(v))
+
+    def operand(self, x) -> _Value:
+        if isinstance(x, _Value):
+            return x
+        if isinstance(x, bool):
+            return _Value(self, [self.const(float(x))], (), True)
+        return _Value(self, [self.const(x)], ())
+
+    # the body's operations
+    def site(self, name, *vals, **options):
+        widths, shape = CHAIN_SITES[name]
+        vals = [self.operand(v) for v in vals]
+        if tuple(len(v.regs) for v in vals) != widths:
+            raise ValueError(f"refmath chain: {name} of operands of widths "
+                             f"{[len(v.regs) for v in vals]}")
+        vals = [self._contiguous(v) for v in vals]
+        width = max(1, math.prod(shape))
+        a = vals[0].regs[0]
+        b = vals[1].regs[0] if len(vals) > 1 else 0
+        k = j = 0
+        if name == "motion_compensate":
+            k = len(self.consts)
+            if k + 3 > CHAIN_CONSTS:
+                raise ValueError("refmath chain: too many constants")
+            self.consts.extend(plain.motion_constants())
+            j = int(bool(options.get("ccw", False)))
+        dst = self.emit(name, a=a, b=b, k=k, j=j, width=width)
+        return _Value(self, range(dst, dst + width), shape)
+
+    def norm2(self, v):
+        return self.site("norm2", v)
+
+    def _contiguous(self, v: _Value) -> _Value:
+        """v's registers in consecutive order (a site reads an operand from
+        its first register on): each copied as x * 1, which rounds to x."""
+        regs = list(v.regs)
+        if regs == list(range(regs[0], regs[0] + len(regs))):
+            return v
+        one = self.const(1.0)
+        first = self.nregs
+        for r in regs:
+            self.emit("mul", a=r, b=one)
+        return _Value(self, range(first, first + len(regs)), v.shape,
+                      v.is_bool)
+
+    def where(self, cond, a, b):
+        cond, a, b = (self.operand(v) for v in (cond, a, b))
+        n = max(len(a.regs), len(b.regs))
+        pick = lambda v, i: v.regs[i if len(v.regs) == n else 0]
+        out = [self.emit("where", a=pick(a, i), b=pick(b, i),
+                         c=cond.regs[0]) for i in range(n)]
+        return _Value(self, out, a.shape if len(a.regs) == n else b.shape,
+                      a.is_bool and b.is_bool)
+
+    def stack(self, values):
+        values = [self.operand(v) for v in values]
+        return _Value(self, [v.regs[0] for v in values], (len(values),))
+
+    def zeros_like(self, v):
+        return _Value(self, [self.const(0.0)] * len(v.regs), v.shape)
+
+
+def register_chain(name: str, segments, operand_shapes) -> None:
+    """Register chain ``name``: ``segments`` a list of (body, operand
+    indices), each body ``body(k, *operands, **options)`` written once for
+    both runs (``k`` is the plain version's tensor operations or the
+    kernel's recorder) returning its outputs; ``operand_shapes`` each
+    operand's component shape ((3,) a pose, (2,) a point, () a scalar or
+    bool)."""
+    if len(segments) > CHAIN_SEGS or any(len(s) > 1 for s in operand_shapes):
+        raise ValueError(f"refmath chain {name}: more than {CHAIN_SEGS} "
+                         "segments, or an operand of more than one "
+                         "component dimension")
+    CHAINS[name] = (tuple(segments), tuple(tuple(s) for s in operand_shapes))
+
+
+_CHAIN_CACHE: dict = {}
+
+
+def _chain_plan(name, ts, options):
+    """The chain's description for these operands' shapes, strides and
+    types: (``CHAIN_DESC``'s bytes, element count, the operand of each
+    slot, each output's (shape, is_bool))."""
+    segments, shapes = CHAINS[name]
+    consts, steps, firsts, starts, seg_shapes = [], [], [], [0], []
+    slots, strides, outputs = [], [], []
+    for body, idx in segments:
+        rec = _Recorder(consts)
+        vals, batch = [], []
+        for i in idx:
+            t, comp = ts[i], shapes[i]
+            batch.append(tuple(t.shape[:t.dim() - len(comp)]))
+        bshape = _broadcast(batch)
+        if len(bshape) > SITE_DIMS:
+            raise ValueError(f"refmath chain {name}: batch {bshape}")
+        for i in idx:
+            t, comp = ts[i], shapes[i]
+            nb = t.dim() - len(comp)
+            row = [0] * (SITE_DIMS + 1)
+            for q in range(nb):
+                if t.shape[q] != 1:
+                    row[SITE_DIMS - nb + q] = t.stride(q)
+            if comp:
+                row[SITE_DIMS] = t.stride(-1)
+            k = len(slots)
+            if k == CHAIN_IN:
+                raise ValueError(f"refmath chain {name}: too many operands")
+            slots.append(i)
+            strides.extend(row)
+            is_bool = t.dtype == torch.bool
+            width = max(1, math.prod(comp))
+            regs = [rec.emit("load_bool" if is_bool else "load", k=k, j=j)
+                    for j in range(width)]
+            vals.append(_Value(rec, regs, comp, is_bool))
+        outs = body(rec, *vals, **options)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        for v in outs:
+            k = len(outputs)
+            if k == CHAIN_OUT or (v.is_bool and v.shape):
+                raise ValueError(f"refmath chain {name}: more than "
+                                 f"{CHAIN_OUT} outputs, or a bool one "
+                                 "with components")
+            outputs.append((bshape + v.shape, v.is_bool))
+            for j, r in enumerate(v.regs):
+                rec.emit("store_bool" if v.is_bool else "store", a=r, k=k,
+                         j=j, n=len(v.regs))
+        firsts.append(len(steps))
+        steps.extend(rec.steps)
+        n = math.prod(bshape)
+        starts.append(starts[-1] + n)
+        seg_shapes.append((1,) * (SITE_DIMS - len(bshape)) + bshape)
+    if len(steps) > CHAIN_STEPS or starts[-1] >= 2 ** 31:
+        raise ValueError(f"refmath chain {name}: {len(steps)} steps (at "
+                         f"most {CHAIN_STEPS}) over {starts[-1]} elements "
+                         "(fewer than 2^31)")
+    firsts.append(len(steps))
+    nseg = len(segments)
+    seg_shapes += [(1,) * SITE_DIMS] * (CHAIN_SEGS - nseg)
+    starts += [starts[-1]] * (CHAIN_SEGS + 1 - len(starts))
+    firsts += [firsts[-1]] * (CHAIN_SEGS + 1 - len(firsts))
+    strides += [0] * ((SITE_DIMS + 1) * CHAIN_IN - len(strides))
+    blob = CHAIN_DESC.pack(
+        *starts, *(d for sh in seg_shapes for d in sh), *strides, *firsts,
+        nseg, 0, *(consts + [0.0] * (CHAIN_CONSTS - len(consts))),
+        b"".join(bytes(st) for st in steps))
+    return blob, starts[nseg], slots, outputs
+
+
+def _chain_key(name, ts, options):
+    return (name, tuple(sorted(options.items())),
+            tuple((t.shape, t.stride(), t.dtype) for t in ts))
+
+
+def chain_plain(name: str, *ts: torch.Tensor, **options):
+    """Chain ``name``'s plain version: each segment's body on the tensors,
+    its sites' per-element plain versions in order (their refmath ops one
+    launch each on CUDA tensors)."""
+    outs = []
+    for body, idx in CHAINS[name][0]:
+        r = body(_Eager, *(ts[i] for i in idx), **options)
+        outs.extend(r if isinstance(r, tuple) else (r,))
+    return tuple(outs) if len(outs) > 1 else outs[0]
+
+
+def chain(name: str, *ts: torch.Tensor, **options):
+    """Chain ``name`` of :data:`CHAINS` on its operands: on CPU tensors its
+    plain version (each segment's body on the tensors, its sites' plain
+    versions in order), on CUDA tensors one launch of
+    ``csrc/refmath_sites.cu``'s chain kernel, counted under the chain's
+    name.  Returns the outputs of every segment in order (a tuple, or the
+    one output)."""
+    global LAUNCHES
+    dev = ts[0].device
+    if dev.type == "cpu":
+        return chain_plain(name, *ts, **options)
+    if dev.type != "cuda":
+        raise RuntimeError(f"refmath.{name}: no kernel for device {dev}")
+    key = _chain_key(name, ts, options)
+    plan = _CHAIN_CACHE.get(key)
+    if plan is None:
+        if any(t.device != dev for t in ts) or any(
+                t.dtype not in (torch.float32, torch.bool) for t in ts):
+            raise TypeError(f"refmath.{name}: float32 operands and bool "
+                            f"masks on {dev}")
+        blob, n, slots, outputs = _chain_plan(name, ts, options)
+        host = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+        if torch.cuda.is_available():
+            host = host.pin_memory()
+        desc = host.to(dev, non_blocking=True)
+        plan = _CHAIN_CACHE[key] = (desc, host, n, tuple(slots),
+                                    tuple(outputs), desc.data_ptr())
+    desc, _, n, slots, outputs, desc_ptr = plan
+    outs = [torch.empty(shape, dtype=torch.bool if is_bool else
+                        torch.float32, device=dev)
+            for shape, is_bool in outputs]
+    if n:
+        ptrs = [ts[i].data_ptr() for i in slots]
+        args = CHAIN_ARGS.pack(
+            desc_ptr, n, *ptrs, *([0] * (CHAIN_IN - len(ptrs))),
+            *(o.data_ptr() for o in outs), *([0] * (CHAIN_OUT - len(outs))))
+        err = _launch_on(dev, _entry("refmath_chain_launch"), args)
+        if err != 0:
+            raise RuntimeError(f"refmath_chain_launch({name}) failed: CUDA "
+                               f"error {err}")
+        LAUNCHES += 1
+        LAUNCHES_BY_OP[name] += 1
+    return tuple(outs) if len(outs) > 1 else outs[0]
 
 
 register_site("norm2", plain.norm2,

@@ -30,6 +30,7 @@ from ..core.config import TBVConfig
 from ..core.device import resolve
 from ..core.timing import timing
 from ..core.types import Cells, PointCloud, stack_records
+from ..kernels import refmath
 from ..ops import logistic, scancontext
 from ..ops import registration as reg_op
 from ..parallel import multihost
@@ -112,6 +113,25 @@ def context_descriptors(local_map: PointCloud, cfg: TBVConfig):
     return d, scancontext.ring_key(d)
 
 
+def _local_map(k, query, pose, xy):
+    """A window keyframe's peak moved into the query keyframe's frame:
+    se2.relative(query, pose), then se2.apply (recomputed for each point on
+    the card: the same arithmetic, so the same bits)."""
+    return k.site("apply", k.site("relative", query, pose), xy)
+
+
+def _loop_guess(k, taug, yaw):
+    """The loop registration's guess Taug^-1 * R(yaw) (ScanContext's
+    alignment)."""
+    rot = k.stack([k.zeros_like(yaw), k.zeros_like(yaw), yaw])
+    return k.site("compose", k.site("inverse", taug), rot)
+
+
+refmath.register_chain("local_map", [(_local_map, range(3))],
+                       ((3,), (3,), (2,)))
+refmath.register_chain("loop_guess", [(_loop_guess, range(2))], ((3,), ()))
+
+
 def build_contexts_batched(store_peaks: PointCloud, store_odom: torch.Tensor,
                            q_idx: torch.Tensor, n_total: int,
                            cfg: TBVConfig):
@@ -126,9 +146,12 @@ def build_contexts_batched(store_peaks: PointCloud, store_odom: torch.Tensor,
     idxs = q_idx[:, None] + torch.arange(-n_agg, n_agg + 1, device=dev)
     kf_ok = (idxs >= 0) & (idxs < n_total)
     idxs = torch.clamp(idxs, 0, n_total - 1)
-    rel = se2.relative(store_odom[q_idx][:, None], store_odom[idxs])
     bsz = q_idx.shape[0]
-    xy = se2.apply(rel, store_peaks.xy[idxs]).reshape(bsz, -1, 2)
+    # each window keyframe's pose in the query's frame and its peaks moved
+    # by it, one chain (one launch on the card)
+    xy = refmath.chain("local_map", store_odom[q_idx][:, None, None],
+                       store_odom[idxs][:, :, None],
+                       store_peaks.xy[idxs]).reshape(bsz, -1, 2)
     inten = store_peaks.intensity[idxs].reshape(bsz, -1)
     mask = (store_peaks.mask[idxs] & kf_ok[..., None]).reshape(bsz, -1)
     score = torch.where(mask, inten, torch.full_like(inten, -1.0))
@@ -246,8 +269,7 @@ def _pair_register_verify(q_cells, q_peaks, c_cells, c_peaks, taug, yaw,
     m = yaw.shape[0]
     dev = yaw.device
     zeros = torch.zeros((m, 3), dtype=torch.float32, device=dev)
-    rot = torch.stack([torch.zeros_like(yaw), torch.zeros_like(yaw), yaw], -1)
-    guess = se2.compose(se2.inverse(taug), rot)
+    guess = refmath.chain("loop_guess", taug, yaw)
     tgt = c_cells.map(lambda x: x[:, None])
     one = torch.ones((m, 1), dtype=torch.bool, device=dev)
     res = reg_op.register_window(q_cells, zeros, tgt, guess[:, None], one,

@@ -111,9 +111,8 @@ def _detect(images: torch.Tensor, motion: Optional[torch.Tensor],
     for b in range(images.shape[0]):
         cloud, peaks = radar.filter_scan(images[b], cfg.radar)
         if motion is not None:
-            ccw = cfg.odometry.radar_ccw
-            cloud = radar.motion_compensate(cloud, motion[b], ccw)
-            peaks = radar.motion_compensate(peaks, motion[b], ccw)
+            cloud, peaks = radar.motion_compensate_pair(
+                cloud, peaks, motion[b], cfg.odometry.radar_ccw)
         rows.append((features.compute_cells(cloud, cfg.features), cloud,
                      peaks))
     return tuple(stack_records(list(x)) for x in zip(*rows))
@@ -142,9 +141,48 @@ def motion_rates(tmot: torch.Tensor, tmot_prev: torch.Tensor, dt: float):
     previous one, as the reference's program computes its sanity check:
     each norm ``refmath.norm2``, the divisions by the constants dt and dt^2
     products by their float32 reciprocals."""
-    vel = refmath.norm2(tmot[:, :2]) * recip(dt)
-    acc = refmath.norm2(tmot[:, :2] - tmot_prev[:, :2]) * recip(dt * dt)
+    return _rates(refmath, tmot, tmot_prev, recip(dt), recip(dt * dt))
+
+
+def _rates(k, tmot, tmot_prev, rdt, rdt2):
+    """The rates' arithmetic, ``k`` the refmath module or a chain body's
+    operations."""
+    vel = k.norm2(tmot[..., :2]) * rdt
+    acc = k.norm2(tmot[..., :2] - tmot_prev[..., :2]) * rdt2
     return vel, acc
+
+
+def _pose_tail(k, pose, success, guess, t_prev, tmot_prev, last_kf, *, rdt,
+               rdt2, vel_limit, acc_limit, kf_dist, kf_rot):
+    """The frame's pose tail after registration
+    (odometrykeyframefuser.cpp:76-94 and the keyframe gate), one chain:
+    the registered pose where it succeeded, the velocity / acceleration
+    sanity check, the motion, the constraint to the newest keyframe and
+    its gate, the keyframe's rotation -> (Tcurrent, Tmot, diff, fuse,
+    rot)."""
+    tcur = k.where(success, pose, guess)
+    vel, acc = _rates(k, k.site("relative", t_prev, tcur), tmot_prev, rdt,
+                      rdt2)
+    sane = (vel <= vel_limit) & (acc <= acc_limit)
+    tcur = k.where(sane, tcur, guess)
+    tmot = k.site("relative", t_prev, tcur)
+    diff = k.site("relative", last_kf, tcur)
+    fuse = ((k.site("norm2", diff[..., :2]) > kf_dist)
+            | (abs(diff[..., 2]) > kf_rot)) & success
+    return tcur, tmot, diff, fuse, k.site("rotmat", -last_kf[..., 2])
+
+
+refmath.register_chain("odometry_pose_tail", [(_pose_tail, range(6))],
+                       ((3,), (), (3,), (3,), (3,), (3,)))
+
+
+def pose_tail_options(ocfg) -> dict:
+    """The pose tail's constants from the odometry configuration: the
+    reciprocals of dt and dt^2, the sanity limits and the keyframe gate."""
+    dt = ocfg.sensor_period
+    return dict(rdt=recip(dt), rdt2=recip(dt * dt), vel_limit=ocfg.vel_limit,
+                acc_limit=ocfg.acc_limit, kf_dist=ocfg.min_keyframe_dist,
+                kf_rot=math.radians(ocfg.min_keyframe_rot_deg))
 
 
 def batched_odometry_step(state: OdometryState, images: torch.Tensor,
@@ -176,24 +214,25 @@ def batched_odometry_step(state: OdometryState, images: torch.Tensor,
         res = registration.register_window(
             cells, Tguess, *window, cfg.registration, guess=guess,
             guess_sqrt_info=prior, one_system=one_sequence)
-    Tcurrent = torch.where(res.success[:, None], res.pose, Tguess)
-
-    # velocity / acceleration sanity check (odometrykeyframefuser.cpp:76-94)
-    Tmot_curr = se2.relative(state.T_prev, Tcurrent)
-    vel, acc = motion_rates(Tmot_curr, state.Tmot, ocfg.sensor_period)
-    sane = (vel <= ocfg.vel_limit) & (acc <= ocfg.acc_limit)
-    Tcurrent = torch.where(sane[:, None], Tcurrent, Tguess)
-    Tmot = se2.relative(state.T_prev, Tcurrent)
-
-    # keyframe gate against the newest keyframe
     last_kf = state.kf_poses[:, -1]
-    diff = se2.relative(last_kf, Tcurrent)
     if ocfg.use_keyframe:
-        fuse = (refmath.norm2(diff[:, :2]) > ocfg.min_keyframe_dist) | \
-            (torch.abs(diff[:, 2]) > math.radians(ocfg.min_keyframe_rot_deg))
+        # the pose tail as one chain (one launch on the card)
+        Tcurrent, Tmot, diff, fuse, rot = refmath.chain(
+            "odometry_pose_tail", res.pose, res.success, Tguess,
+            state.T_prev, state.Tmot, last_kf, **pose_tail_options(ocfg))
     else:
+        Tcurrent = torch.where(res.success[:, None], res.pose, Tguess)
+        # velocity / acceleration sanity check
+        # (odometrykeyframefuser.cpp:76-94)
+        Tmot_curr = se2.relative(state.T_prev, Tcurrent)
+        vel, acc = motion_rates(Tmot_curr, state.Tmot, ocfg.sensor_period)
+        sane = (vel <= ocfg.vel_limit) & (acc <= ocfg.acc_limit)
+        Tcurrent = torch.where(sane[:, None], Tcurrent, Tguess)
+        Tmot = se2.relative(state.T_prev, Tcurrent)
+        diff = se2.relative(last_kf, Tcurrent)
         fuse = torch.ones(images.shape[0], dtype=torch.bool, device=dev)
-    fuse = fuse & res.success
+        fuse = fuse & res.success
+        rot = se2.rotmat(-last_kf[:, 2])
 
     store_cells = cells
     if ocfg.time_continuous:
@@ -218,7 +257,6 @@ def batched_odometry_step(state: OdometryState, images: torch.Tensor,
     elif ocfg.cov_source == "ceres":
         cov_c, ok = registration.ceres_covariance(*cov_args)
         cov = torch.where(ok[:, None, None], cov_c, cov)
-    rot = se2.rotmat(-last_kf[:, 2])
     cov_rot = cov.clone()
     cov_rot[:, :2, :2] = rot @ cov[:, :2, :2] @ rot.transpose(-1, -2)
 

@@ -24,7 +24,17 @@ from ..core import se2
 from ..core.config import RegistrationConfig, VerificationConfig
 from ..core.device import resolve
 from ..core.types import Cells, PointCloud
+from ..kernels import refmath
 from ..ops import coral, logistic, registration
+
+
+def _apply(k, pose, xy):
+    """A cloud moved by its pair's pose (``se2.apply``)."""
+    return k.site("apply", pose, xy)
+
+
+refmath.register_chain("alignment_apply", [(_apply, (0, 1)), (_apply, (2, 3))],
+                       ((3,), (2,), (3,), (2,)))
 
 
 def _cfear_eval_cfg(cfg: VerificationConfig) -> RegistrationConfig:
@@ -39,8 +49,12 @@ def alignment_features(src_peaks: PointCloud, src_cells: Cells,
                        cfg: VerificationConfig) -> torch.Tensor:
     """[M, 6] feature vectors X_CorAl ++ X_CFEAR for M scan pairs; ``src``
     is the moved (current) scan, ``ref`` the fixed one."""
-    src_w = src_peaks.replace(xy=se2.apply(src_pose, src_peaks.xy))
-    ref_w = ref_peaks.replace(xy=se2.apply(ref_pose, ref_peaks.xy))
+    # both clouds moved into the world frame, one chain of two segments
+    # (one launch on the card)
+    src_xy, ref_xy = refmath.chain("alignment_apply", src_pose[:, None],
+                                   src_peaks.xy, ref_pose[:, None],
+                                   ref_peaks.xy)
+    src_w, ref_w = src_peaks.replace(xy=src_xy), ref_peaks.replace(xy=ref_xy)
     cres = coral.coral_quality(src_w, ref_w, radius=cfg.coral_radius,
                                eps=cfg.coral_entropy_eps, mode=cfg.coral_mode)
     m = src_pose.shape[0]

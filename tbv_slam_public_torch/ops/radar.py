@@ -219,9 +219,23 @@ def motion_compensate(cloud: PointCloud, motion: torch.Tensor,
                                          motion, ccw=ccw))
 
 
+def motion_compensate_pair(cloud: PointCloud, peaks: PointCloud,
+                           motion: torch.Tensor, ccw: bool):
+    """``motion_compensate`` of a frame's cloud and peaks under one motion
+    [3], one chain of two segments (one launch on the card)."""
+    xy, pxy = refmath.chain("motion_compensate_pair", cloud.xy, peaks.xy,
+                            motion, ccw=ccw)
+    return cloud.replace(xy=xy), peaks.replace(xy=pxy)
+
+
+def _compensate(k, xy, motion, *, ccw):
+    return k.site("motion_compensate", xy, motion, ccw=ccw)
+
+
 def _motion_compensate_plain(xy: torch.Tensor, motion: torch.Tensor,
                              ccw: bool = False) -> torch.Tensor:
-    """The site's plain version: points [..., 2] under the motion [3]."""
+    """The site's plain version: points [..., 2] under the motion [3] (or
+    motions [..., 3] broadcast against them, as a chain calls it)."""
     x, y = xy[..., 0], xy[..., 1]
     ang = refmath.atan2(y, x)
     ang = torch.where(ang > 1e-5, ang, 2.0 * math.pi + ang)
@@ -231,9 +245,9 @@ def _motion_compensate_plain(xy: torch.Tensor, motion: torch.Tensor,
     factor = refmath.fma(ang, torch.full_like(
         ang, plain_refmath.recip(2.0 * math.pi)), torch.full_like(ang, -0.5))
     factor = -factor if ccw else factor
-    s, c = refmath.sincos(motion[2] * factor)
-    nx = refmath.fma(motion[0], factor, refmath.fma(c, x, -(s * y)))
-    ny = refmath.fma(motion[1], factor, refmath.fma(s, x, c * y))
+    s, c = refmath.sincos(motion[..., 2] * factor)
+    nx = refmath.fma(motion[..., 0], factor, refmath.fma(c, x, -(s * y)))
+    ny = refmath.fma(motion[..., 1], factor, refmath.fma(s, x, c * y))
     return torch.stack([nx, ny], -1)
 
 
@@ -246,3 +260,6 @@ def _motion_compensate_layout(xy, motion, ccw=False):
 
 refmath.register_site("motion_compensate", _motion_compensate_plain,
                       _motion_compensate_layout)
+refmath.register_chain("motion_compensate_pair",
+                       [(_compensate, (0, 2)), (_compensate, (1, 2))],
+                       ((2,), (2,), (3,)))

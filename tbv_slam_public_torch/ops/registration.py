@@ -27,7 +27,7 @@ from ..core import refmath as plain
 from ..core import se2
 from ..core.config import RegistrationConfig
 from ..core.device import constant
-from ..core.refmath import recip
+from ..core.refmath import mul_ftz, recip
 from ..core.types import Cells, RegistrationResult
 from ..kernels import lm_solve as lm_kernel
 from ..kernels import refmath
@@ -313,23 +313,24 @@ def _cost_grad_hess(theta, src, assoc, *, cost, loss, delta, prior=None):
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
     bsz = rho.shape[0]
     wt = ftz(assoc.weight)
-    w = torch.where(assoc.mask, ftz(wt * ftz(w_irls)), zero)
+    w = torch.where(assoc.mask, mul_ftz(wt, ftz(w_irls)), zero)
     # H and g from one contraction J^T [J | r], summed over the residuals
     # of each row by ``_row_sums``: a row of a batch must equal its own solve;
-    # each product's subnormal result flushed, as the reference's threads
-    # flush it (DAZ and FTZ)
+    # each product flushed where its exact value rounded with an unbounded
+    # exponent is below 2^-126, as the reference's threads (DAZ and FTZ)
+    # and the kernel's .ftz products flush it (``mul_ftz``)
     Jr = torch.cat([J, r[..., None]], -1)  # [B, T, C, R, 4]
-    terms = ftz(ftz(w[..., None, None, None] * J[..., :, None])
-                * Jr[..., None, :])  # [B, T, C, R, 3, 4]
+    terms = mul_ftz(mul_ftz(w[..., None, None, None], J[..., :, None]),
+                    Jr[..., None, :])  # [B, T, C, R, 3, 4]
     # the cost joins the same sum as a 13th row, each association's term at
     # its first residual and zeros at the others (R <= 2: the first level of
     # the pairwise tree adds them exactly, so it is the cost's own tree)
-    wrho = torch.where(assoc.mask, ftz(wt * ftz(rho)), zero)  # [B, T, C]
+    wrho = torch.where(assoc.mask, mul_ftz(wt, ftz(rho)), zero)  # [B, T, C]
     cost_row = torch.nn.functional.pad(wrho[..., None], (0, r.shape[-1] - 1))
     sums = _row_sums(torch.cat([cost_row.reshape(bsz, 1, -1),
                                 terms.reshape(bsz, -1, 12).transpose(1, 2)],
                                1))
-    total = ftz(0.5 * sums[:, 0])
+    total = mul_ftz(0.5, sums[:, 0])
     H, g = sums[:, 1:].reshape(bsz, 3, 4).split([3, 1], -1)
     g = g[..., 0]
     if prior is not None:
@@ -342,8 +343,8 @@ def _cost_only(theta, src, assoc, *, cost, loss, delta, prior=None):
     _, _, sq = _residual_terms(theta, src, assoc, cost)
     rho, _ = _rho_and_weight(sq, loss, delta)
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
-    c = ftz(0.5 * _row_sums(torch.where(
-        assoc.mask, ftz(ftz(assoc.weight) * ftz(rho)),
+    c = mul_ftz(0.5, _row_sums(torch.where(
+        assoc.mask, mul_ftz(ftz(assoc.weight), ftz(rho)),
         zero).reshape(rho.shape[0], -1)))
     if prior is not None:
         c = c + _prior_terms(theta, prior)[0]
@@ -816,13 +817,29 @@ def ceres_covariance(src: Cells, theta_opt: torch.Tensor, tgt: Cells,
         theta_opt, cfg.radius)
     _, _, h = _cost_grad_hess(theta_opt, src, assoc, cost=cost,
                               loss=loss_code(cfg.loss), delta=cfg.loss_limit)
-    ok = torch.linalg.eigvalsh(h)[:, 0] > 1e-9
+    return _ceres_from_hessian(h, final_score, n_res, cost)
+
+
+def _ceres_from_hessian(h: torch.Tensor, final_score: torch.Tensor,
+                        n_res: torch.Tensor, cost: int):
+    """(cov [B, 3, 3], ok [B]) of ``ceres_covariance`` from its Hessian h
+    [B, 3, 3]: elementwise torch on either device, rounded as the
+    reference's program on the CPU (its ``lapack_ssyevd_ffi``,
+    ``lapack_sgetrf_ffi`` and two ``lapack_strsm_ffi`` calls, written out
+    as ``core/refmath.py::eigvalsh3`` and ``inv3``; the scale
+    (30 final_score) / max(denominator, 1)), every subnormal operand and
+    result flushed, as ``_covariance_from_fit``.  No library call and, on
+    the card, no host sync."""
+    dt, dev = h.dtype, h.device
+    h = plain.ftz(h)
+    ok = plain.eigvalsh3(h)[:, 0] > plain.f32_ftz(1e-9)
     denom = ((1 if cost == COST_P2L else 2) * n_res - 3).to(dt)
     ok = ok & (denom > 0)
-    scale = 30.0 * final_score / torch.clamp(denom, min=1.0)
+    scale = plain.ftz(plain.ftz(30.0 * final_score)
+                      / torch.clamp(denom, min=1.0))
     eye = torch.diag(constant((1.0, 1.0, 1.0), dt, dev))
-    cov = scale[:, None, None] * torch.linalg.inv(
-        h + (~ok).to(dt)[:, None, None] * eye)
+    hinv = plain.inv3(plain.ftz(h + (~ok).to(dt)[:, None, None] * eye))
+    cov = plain.ftz(scale[:, None, None] * hinv)
     fallback = torch.diag(constant(DEFAULT_COV_DIAG, dt, dev))
     return torch.where(ok[:, None, None], cov, fallback), ok
 

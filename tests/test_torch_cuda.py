@@ -1294,20 +1294,23 @@ def test_a_cuda_tensor_never_reaches_a_plain_site(cuda, monkeypatch):
 def _cell_inputs(dev, seed, case="random"):
     """A cloud and its selected cells: ``random`` (4,800 points in 24
     clusters, the default configuration), ``on_gate`` (points within an ulp
-    of the radius) or ``cfear3_oxford`` (16,000 points, the preset's
-    k_strongest 40 at 400 azimuths and its 3 m radius)."""
+    of the radius), ``cfear3_oxford`` (16,000 points, the preset's
+    k_strongest 40 at 400 azimuths and its 3 m radius) or ``beyond_stage``
+    (30,000 points, more than the staged design's shared memory holds, at
+    the preset's radius)."""
     from tbv_slam_public_torch.core.config import FeatureConfig, cfear3_oxford
     from tbv_slam_public_torch.core.types import PointCloud
     from tbv_slam_public_torch.kernels.checks import cell_gate_cloud
     from tbv_slam_public_torch.ops import features as tf
 
     rng = np.random.default_rng(seed)
-    cfg = cfear3_oxford().features if case == "cfear3_oxford" else \
+    cfg = cfear3_oxford().features if case in ("cfear3_oxford",
+                                               "beyond_stage") else \
         FeatureConfig()
     if case == "on_gate":
         return tuple(torch.as_tensor(a, device=dev) for a in cell_gate_cloud(
             rng, 512, cfg.resolution)) + (cfg,)
-    p = 16000 if case == "cfear3_oxford" else 4800
+    p = {"cfear3_oxford": 16000, "beyond_stage": 30000}.get(case, 4800)
     xy = rng.uniform(-60, 60, (24, 2))[rng.integers(0, 24, p)] + \
         rng.normal(0, 1.0, (p, 2))
     cloud = PointCloud(torch.as_tensor(xy.astype(np.float32), device=dev),
@@ -1319,12 +1322,14 @@ def _cell_inputs(dev, seed, case="random"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["random", "on_gate", "cfear3_oxford"])
+@pytest.mark.parametrize("case", ["random", "on_gate", "cfear3_oxford",
+                                  "beyond_stage"])
 def test_cell_stats_kernel_bit_equal_to_plain(cuda, case):
     """``cell_stats`` on the card against its plain version on the card,
     bit for bit (fractional intensities: the weight sum's order shows), one
     launch a call, two launches the same bits; at the default's 4,800
-    points and at the cfear3_oxford preset's 16,000."""
+    points and at the cfear3_oxford preset's 16,000 (the staged design),
+    and at 30,000 (the global-memory design)."""
     from tbv_slam_public_torch.kernels import cells as kc
 
     args = _cell_inputs(cuda, 12, case)
@@ -1357,3 +1362,114 @@ def test_a_cuda_tensor_never_reaches_the_plain_cell_stats(cuda, monkeypatch):
     monkeypatch.setattr(tf, "_cell_stats_reference", refuse)
     cells = tf.compute_cells(PointCloud(xy, inten, mask), cfg)
     assert cells.mean.is_cuda and cells.valid.is_cuda
+
+
+def _chain_operands(name, dev, rng):
+    """Operands of one refmath chain at about its path's shape, special
+    angles and coordinates among them, the newest keyframe a strided view
+    of its window."""
+    from tbv_slam_public_torch.core.config import OdometryConfig
+    from tbv_slam_public_torch.models import (loopclosure, odometry,  # noqa
+                                              verification)
+    from tbv_slam_public_torch.ops import radar  # noqa: F401
+
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def poses(*shape, extent=60.0):
+        p = np.stack([rng.uniform(-extent, extent, shape),
+                      rng.uniform(-extent, extent, shape),
+                      rng.uniform(-3.3, 3.3, shape)], -1).astype(np.float32)
+        flat = p.reshape(-1, 3)
+        k = min(len(flat), len(REFMATH_SPECIAL))
+        flat[:k, 2] = REFMATH_SPECIAL[:k]
+        flat[-1, 2] = np.float32(np.pi)
+        return t(p)
+
+    pts = lambda *shape: t(rng.uniform(-80, 80, shape + (2,)))
+    if name == "odometry_pose_tail":
+        n = 300
+        base = poses(n)
+        window = poses(n, 4)
+        return (base + poses(n, extent=1.0) * 0.5,
+                torch.as_tensor(rng.uniform(size=n) < 0.8, device=dev),
+                base + 0.05, base - poses(n, extent=1.0), poses(n, extent=1.0),
+                window[:, -1]), odometry.pose_tail_options(OdometryConfig())
+    if name == "motion_compensate_pair":
+        return (pts(4800), pts(4800), t([0.7, -0.05, 0.02])), dict(ccw=True)
+    if name == "loop_guess":
+        return (poses(64), poses(64)[:, 2]), {}
+    if name == "local_map":
+        return (poses(2, 1, 1), poses(2, 3, 1), pts(2, 3, 4800)), {}
+    return (poses(12, 1), pts(12, 4096), poses(12, 1), pts(12, 4096)), {}
+
+
+CHAINS = ["odometry_pose_tail", "motion_compensate_pair", "loop_guess",
+          "local_map", "alignment_apply"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CHAINS)
+def test_refmath_chain_matches_plain(cuda, name):
+    """Each refmath chain: one launch on the card, counted under its name,
+    bit-equal to its plain version on the CPU, two launches the same bits."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    ts, opts = _chain_operands(name, cuda, np.random.default_rng(14))
+    rm.LAUNCHES_BY_OP.clear()
+    got = rm.chain(name, *ts, **opts)
+    again = rm.chain(name, *ts, **opts)
+    assert dict(rm.LAUNCHES_BY_OP) == {name: 2}
+    want = rm.chain(name, *(a.cpu() for a in ts), **opts)
+    got, again, want = ((x,) if isinstance(x, torch.Tensor) else x
+                        for x in (got, again, want))
+    for g, a, w in zip(got, again, want):
+        assert g.is_cuda and bits_differ(g, w) == 0 and bits_differ(g, a) == 0
+
+
+@pytest.mark.cuda
+def test_a_cuda_tensor_never_reaches_a_plain_chain(cuda, monkeypatch):
+    """On CUDA tensors every chain is its kernel: no site's plain version
+    runs."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain site ran on a CUDA tensor")
+
+    rng = np.random.default_rng(15)
+    for name in CHAINS:
+        ts, opts = _chain_operands(name, cuda, rng)
+        for site in list(rm._ELEMENT_PLAIN):
+            monkeypatch.setitem(rm._ELEMENT_PLAIN, site, refuse)
+        out = rm.chain(name, *ts, **opts)
+        out = out if isinstance(out, tuple) else (out,)
+        assert all(o.is_cuda for o in out)
+
+
+@pytest.mark.cuda
+def test_ceres_covariance_runs_without_a_host_sync(cuda):
+    """``ceres_covariance``'s 3 x 3 algebra is elementwise torch on the
+    card: no library call and no host synchronisation (under
+    ``torch.cuda.set_sync_debug_mode("error")`` after a warm-up call), its
+    flags and covariances the CPU's on the same Hessians (rank-deficient
+    ones among them, whose rounded smallest eigenvalue may pass the gate
+    and whose inverse then holds infinities, in both packages alike)."""
+    from tbv_slam_public_torch.ops import registration as treg
+
+    rng = np.random.default_rng(16)
+    j = rng.normal(size=(64, 40, 3))
+    h = np.einsum("bki,bkj->bij", j, j).astype(np.float32)
+    h[::4, 2] = h[::4, 1]  # singular
+    h[::4, :, 2] = h[::4, :, 1]
+    args = (torch.as_tensor(h), torch.full((64,), 2.5),
+            torch.as_tensor(rng.integers(0, 200, 64)), treg.COST_P2L)
+    card = (args[0].to(cuda), args[1].to(cuda), args[2].to(cuda), args[3])
+    treg._ceres_from_hessian(*card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cov, ok = treg._ceres_from_hessian(*card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want_cov, want_ok = treg._ceres_from_hessian(*args)
+    assert bits_differ(ok, want_ok) == 0 and 0 < int(want_ok.sum()) < 64
+    assert bits_differ(cov, want_cov) == 0
