@@ -13,7 +13,12 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    logistic fit's solve in LAPACK's order) bit-equal to its plain version
    on 2^22 values an op (the solve on 3000 systems at each size), timed at
    1, 4096 and 2^19 values (the solve at one 7 x 7 system) beside its
-   plain version and the torch call it replaces; its site entries (se2's
+   plain version and the torch call it replaces; ``ceres_covariance``
+   (the Ceres-style covariance after its Hessian: the reference's 3 x 3
+   eigenvalues and guarded inverse, a thread a row) bit-equal to its plain
+   version on the CPU on 2^16 Hessians of every kind with no host
+   synchronisation, timed at 1 and 4,096 rows beside its plain version and
+   the ``torch.linalg`` path it replaced; its site entries (se2's
    compose, inverse, relative, apply, rotate, interpolate and rotmat,
    ``norm2``, registration's world-frame targets, the motion compensation:
    one launch a site) and ``cumsum`` (``detect``'s travelled distance in
@@ -97,8 +102,10 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    0.05952 m, 40 simulator images), each with its first 5 frames run again
    on the CPU and held to the card's; the Ceres-style covariance of the
    run's newest keyframe again under ``torch.cuda.set_sync_debug_mode(
-   "error")`` (no library call, no host synchronisation), its flag held
-   to the CPU's;
+   "error")`` (one ``ceres_covariance`` launch for its tail, no library
+   call, no host synchronisation), its covariance and flag held bit for
+   bit to the CPU's, and the variant's frames/s at least ``CERES_PACE`` of
+   the default variant's;
 9. the rest of the slice: ``batched_odometry_step`` at B = 4 (four
    simulator seeds, each row held to its own B = 1 run, timed against three
    of those runs, one of them run twice and held bit-equal, kernel launches
@@ -230,18 +237,20 @@ def phase_build():
 
 
 def device_us_by_kernel(fn, reps: int = 10, tries: int = 3,
-                        want: str = "") -> dict:
-    """Mean device microseconds per launch of each kernel that ``fn``
-    launches, from ``torch.profiler``; empty if the profiler saw no device
-    time (of a kernel whose name holds ``want``) in ``tries`` profiled
-    windows (a window now and then comes back without the device activity
-    on the card's machine)."""
+                        want: str = ""):
+    """(mean device microseconds per launch of each kernel that ``fn``
+    launches, from ``torch.profiler``; the profiled windows it took):
+    a window that shows no device time (of a kernel whose name holds
+    ``want``) is taken again, up to ``tries`` windows, and each such window
+    is logged; the times are empty if every window was.  On the card's
+    machine a window now and then comes back without the device activity
+    (``scripts/probe_profiler.py`` counts how often)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     name = lambda key: key.replace("(anonymous namespace)::", "").split("(")[0]
-    for _ in range(tries):
+    for k in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -249,9 +258,11 @@ def device_us_by_kernel(fn, reps: int = 10, tries: int = 3,
             torch.cuda.synchronize()
         out = {name(e.key): e.device_time_total / e.count
                for e in prof.key_averages() if e.device_time_total > 0}
-        if any(want in k for k in out):
-            return out
-    return {}
+        if any(want in key for key in out):
+            return out, k
+        log(f"[profiler] window {k} of {tries} showed no device time of "
+            f"{want or 'any kernel'} ({len(out)} kernels seen)")
+    return {}, tries
 
 
 def _moment_bound(args, count, sm_hz):
@@ -455,7 +466,8 @@ def phase_kernels(sm_hz):
             f"{_share('pair', b4, t['pair_ms']):.1%}) against four "
             f"launches {t['four_ms']:.4f} ms; host per call "
             f"{t['pair_host_us']:.1f} us against {t['four_host_us']:.1f} us")
-        t["pair_kernels_us"] = device_us_by_kernel(pair)
+        t["pair_kernels_us"], t["profiler_windows"] = \
+            device_us_by_kernel(pair)
         log(f"[2] at M={m}: device us of a pair_moments call by kernel "
             f"{json.dumps(t['pair_kernels_us'])}")
         times[f"M{m}"] = t
@@ -1622,7 +1634,94 @@ def phase_refmath():
     log(f"[2] refmath lu_solve at one 7 x 7 system: {t['ms']:.4f} ms "
         f"(bound {t['bound_ms']:.6f} ms), plain {t['plain_ms']:.4f} ms, "
         f"torch.linalg.solve {t['library_ms']:.4f} ms")
-    return dict(max_abs_err=0.0, times=times)
+    return dict(max_abs_err=0.0, times=times, ceres=phase_ceres(rng))
+
+
+# float32 operations a row of ceres_covariance, for the bound: the
+# symmetrisation 18, ssytd2's reflector about 40, ssteqr's sweeps about 30
+# each (3 a row counted), the LU factor about 30, three columns' solves about
+# 20 each, the scale and products 12
+CERES_OPS = 250
+# ceres_covariance's bytes a row: h, the score and the count read, the
+# covariance and the flag written
+CERES_BYTES = 36 + 4 + 8 + 36 + 1
+
+
+def phase_ceres(rng):
+    """``refmath.ceres_covariance`` (``ceres_covariance``'s tail after its
+    Hessian) against its plain version on the CPU on 2^16 Hessians of
+    every kind (``kernels/checks.py::ceres_hessians``) for both residual
+    dimensions, bit for bit (NaN payloads aside), one launch a call and no
+    host synchronisation; then its time at the odometry step's one row and
+    at 4,096 rows beside its plain version on the card (elementwise torch,
+    every eigen sweep run), the ``torch.linalg`` path it replaced
+    (``eigvalsh``, ``inv``, ``where``) and its bound."""
+    from tbv_slam_public_torch.core import refmath as plain
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.kernels.checks import (bits_differ,
+                                                      ceres_hessians)
+
+    dev = torch.device("cuda")
+    h, score, n_res = (torch.as_tensor(a) for a in ceres_hessians(
+        rng, 1 << 16))
+    card = (h.to(dev), score.to(dev), n_res.to(dev))
+    for p2l in (True, False):
+        rm.LAUNCHES_BY_OP.clear()
+        rm.ceres_covariance(*card, p2l=p2l)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = rm.ceres_covariance(*card, p2l=p2l)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = plain.ceres_covariance(h, score, n_res, p2l=p2l)
+        bad = bits_differ(got[0], want[0]) + bits_differ(got[1], want[1])
+        log(f"[2] refmath ceres_covariance (p2l={p2l}): {h.shape[0]} "
+            f"Hessians, {bad} values differ from the plain version, "
+            f"{int(want[1].sum())} ok; launches {dict(rm.LAUNCHES_BY_OP)}")
+        if bad or dict(rm.LAUNCHES_BY_OP) != {"ceres_covariance": 2}:
+            raise AssertionError(f"refmath ceres_covariance: {bad} values "
+                                 f"differ, launches "
+                                 f"{dict(rm.LAUNCHES_BY_OP)}")
+
+    def linalg(hh, ss, nn):
+        ok = torch.linalg.eigvalsh(hh)[:, 0] > 1e-9
+        denom = (nn - 3).to(hh.dtype)
+        ok = ok & (denom > 0)
+        hinv = torch.linalg.inv(hh + (~ok).to(hh.dtype)[:, None, None]
+                                * torch.eye(3, device=hh.device))
+        cov = (30.0 * ss / torch.clamp(denom, min=1.0))[:, None, None] * hinv
+        return torch.where(ok[:, None, None], cov, hh.new_tensor(
+            (0.01, 0.01, 0.0001)).diag()), ok
+
+    # timed on the finite convex, indefinite and near-singular Hessians
+    # (cuSOLVER raises on a NaN row)
+    kind = torch.arange(h.shape[0]) % 5
+    finite = (torch.isfinite(h).all(-1).all(-1) & (kind < 3)).nonzero()[
+        :, 0].to(dev)
+    times = {}
+    for rows in (1, 4096):
+        args = tuple(a[finite[:rows]] for a in card)
+        by_bytes = CERES_BYTES * rows / PEAK_BYTES_PER_S
+        by_ops = CERES_OPS * rows / PEAK_F32_FLOPS
+        k1 = cuda_ms(lambda: rm.ceres_covariance(*args), 50)
+        p1 = cuda_ms(lambda: plain.ceres_covariance(*args), 2, spin=False)
+        k2 = cuda_ms(lambda: rm.ceres_covariance(*args), 50)
+        t = dict(ms=min(k1, k2), ms_turns=[k1, k2], plain_ms=p1,
+                 library_ms=None,
+                 linalg_ms=cuda_ms(lambda: linalg(*args), 20, spin=False),
+                 host_us=host_us(lambda: rm.ceres_covariance(*args)),
+                 plain_host_us=host_us(lambda: plain.ceres_covariance(*args),
+                                       2),
+                 bound_ms=max(by_bytes, by_ops) * 1e3,
+                 bound_by="bytes" if by_bytes >= by_ops else "operations")
+        times[f"rows{rows}"] = t
+        log(f"[2] refmath ceres_covariance at {rows} rows: {k1:.4f} / "
+            f"{k2:.4f} ms (bound {t['bound_ms']:.7f} ms by "
+            f"{t['bound_by']}), plain on the card {p1:.2f} ms, torch.linalg "
+            f"{t['linalg_ms']:.4f} ms, host {t['host_us']:.1f} us a call "
+            f"(plain {t['plain_host_us']:.0f})")
+    return dict(max_abs_err=0.0, held=2 * h.shape[0], times=times)
 
 
 # the solve entry's shapes: (B, T, C, the path's cost, inner iterations):
@@ -1794,8 +1893,9 @@ def phase_registration():
             p1 = cuda_ms(plain, 2)
             p2 = cuda_ms(plain, 2)
             k2 = cuda_ms(call, 20)
-            kernel_us = [us for name, us in device_us_by_kernel(
-                             call, want="registration_kernel").items()
+            prof_us, windows = device_us_by_kernel(
+                call, want="registration_kernel")
+            kernel_us = [us for name, us in prof_us.items()
                          if "registration_kernel" in name]
             if not kernel_us:
                 raise AssertionError(f"[2b] register_window {tag}: the "
@@ -1804,6 +1904,7 @@ def phase_registration():
                 B=b, T=tt, C=c, cost=path_cost, inner=inner, outer=outer,
                 K=lk.cluster_size(b, tt, c, c, cost_code(path_cost), True),
                 iterations=res.iterations.tolist(), ms=kernel_us[0] / 1e3,
+                profiler_windows=windows,
                 events_ms_turns=[k1, k2], plain_ms=min(p1, p2),
                 plain_ms_turns=[p1, p2], host_us=host_us(call, 20),
                 world_targets_host_us=host_us(lambda: treg._world_targets(
@@ -2085,15 +2186,17 @@ def phase_evaluation():
             p1 = cuda_ms(plain, 2)
             p2 = cuda_ms(plain, 2)
             k2 = cuda_ms(call, 20)
-            kernel_us = [us for kname, us in device_us_by_kernel(
-                             call, want="evaluation_kernel").items()
+            prof_us, windows = device_us_by_kernel(
+                call, want="evaluation_kernel")
+            kernel_us = [us for kname, us in prof_us.items()
                          if "evaluation_kernel" in kname]
             if not kernel_us:
                 raise AssertionError(f"[2b] evaluate {tag} {name}: the "
                                      f"profiler saw no kernel time")
             bound = _evaluate_bound(b, tt, c, c, cfg.cost, s)
             entry[name] = dict(
-                ms=kernel_us[0] / 1e3, events_ms_turns=[k1, k2],
+                ms=kernel_us[0] / 1e3, profiler_windows=windows,
+                events_ms_turns=[k1, k2],
                 plain_ms=min(p1, p2), plain_ms_turns=[p1, p2],
                 host_us=host_us(call, 20), plain_host_us=host_us(plain, 3),
                 **bound)
@@ -2229,7 +2332,8 @@ def phase_real_clouds(loops, sm_hz):
             pair_ms=cuda_ms(pair, 20), bound_ms=bound,
             pair_host_us=host_us(pair))
         res["share"] = _share("keyframe clouds", bound, res["pair_ms"])
-        res["kernels_us"] = device_us_by_kernel(pair)
+        res["kernels_us"], res["profiler_windows"] = \
+            device_us_by_kernel(pair)
         out[f"M{m}"] = res
         log(f"[4] pair_moments on keyframe clouds: {json.dumps(res)}")
     return out
@@ -2445,6 +2549,9 @@ VARIANTS = [("default", None), ("P2D", "registration.cost=P2D"),
             ("bfar", "radar.filter_type=bfar"),
             ("mulran", "radar.num_range_bins=3360 radar.range_res=0.05952")]
 VARIANT_FRAMES, CPU_FRAMES = 40, 5
+# the ceres variant's frames/s, at least this share of the default's in the
+# same run
+CERES_PACE = 0.2
 
 
 def _mulran_images(n_frames):
@@ -2525,15 +2632,30 @@ def phase_variants(images, gt, cfg):
             raise AssertionError(f"{name}: no keyframe after the first")
         if name == "ceres":
             res["ceres_sync_free"] = _ceres_sync_free(pipe, vcfg)
+            tail = REFMATH_LAUNCHES["variant_ceres"].get("ceres_covariance", 0)
+            if tail <= 0:
+                raise AssertionError("ceres: the path launched no "
+                                     "ceres_covariance")
+            # a keyframe's covariance is a few launches more than a frame's
+            # registration: the variant keeps pace with the default one
+            share = res["frames_per_s"] / out["default"]["frames_per_s"]
+            res["frames_per_s_share_of_default"] = share
+            if share < CERES_PACE:
+                raise AssertionError(f"ceres: {res['frames_per_s']:.2f} "
+                                     f"frames/s, {share:.1%} of the default "
+                                     f"variant's (at least {CERES_PACE:.0%})")
         out[name] = res
     return out
 
 
 def _ceres_sync_free(pipe, cfg) -> dict:
     """``ceres_covariance`` on the run's newest keyframe against the rest of
-    its window, on the card: no library call and no host synchronisation
-    (run under ``torch.cuda.set_sync_debug_mode("error")`` after a warm-up
-    call), and its covariance and flag held to the same call on the CPU."""
+    its window, on the card: the tail one ``ceres_covariance`` launch, no
+    library call and no host synchronisation (run under
+    ``torch.cuda.set_sync_debug_mode("error")`` after a warm-up call), and
+    its covariance and flag equal to the same call's on the CPU, bit for
+    bit; the host's time a call."""
+    from tbv_slam_public_torch.kernels import refmath as rm
     from tbv_slam_public_torch.kernels.checks import bits_differ
     from tbv_slam_public_torch.ops import registration as treg
 
@@ -2547,6 +2669,7 @@ def _ceres_sync_free(pipe, cfg) -> dict:
     call = lambda: treg.ceres_covariance(*args)
     call()
     torch.cuda.synchronize()
+    rm.LAUNCHES_BY_OP.clear()
     torch.cuda.set_sync_debug_mode("error")
     try:
         t0 = time.perf_counter()
@@ -2554,17 +2677,21 @@ def _ceres_sync_free(pipe, cfg) -> dict:
         host_s = time.perf_counter() - t0
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    tail_launches = rm.LAUNCHES_BY_OP["ceres_covariance"]
     want = treg.ceres_covariance(*(a.map(lambda x: x.cpu()) if hasattr(
         a, "map") else a.cpu() if isinstance(a, torch.Tensor) else a
         for a in args))
     res = dict(ok=bool(ok[0]), host_ms=host_s * 1e3,
+               host_ms_mean=host_us(call, 20) / 1e3,
+               tail_launches=tail_launches,
                card_vs_cpu_differ=bits_differ(cov, want[0])
                + bits_differ(ok, want[1]))
     log(f"[8] ceres_covariance on the card under sync debug mode "
         f"\"error\": {res}")
-    if bool(ok[0]) != bool(want[1][0]):
-        raise AssertionError("[8] ceres_covariance: the card's flag is not "
-                             "the CPU's")
+    if res["card_vs_cpu_differ"] or tail_launches != 1:
+        raise AssertionError(f"[8] ceres_covariance: {res['card_vs_cpu_differ']}"
+                             f" values differ from the CPU's, "
+                             f"{tail_launches} tail launches")
     return res
 
 
@@ -3745,6 +3872,25 @@ def main(argv=None) -> int:
         "times": refmath_k["times"], "sites": sites,
         "launches_by_path": REFMATH_LAUNCHES,
         "shapes_held_by_path": REFMATH_HELD}, {
+        "name": "ceres_covariance", "route": "cuda",
+        "source": "tbv_slam_public_torch/csrc/refmath.cu",
+        "replaces": "tbv_slam_public_tpu/ops/registration.py:808 (no TPU "
+                    "kernel: jaxlib's LAPACK ssyevd, sgetrf and strsm on "
+                    "the CPU; the port's plain version is "
+                    "core/refmath.py::ceres_covariance)",
+        "launches": REFMATH_LAUNCHES["variant_ceres"].get(
+            "ceres_covariance", 0),
+        "max_abs_err": refmath_k["ceres"]["max_abs_err"],
+        "ms": refmath_k["ceres"]["times"]["rows1"]["ms"],
+        "plain_ms": refmath_k["ceres"]["times"]["rows1"]["plain_ms"],
+        "bound_ms": refmath_k["ceres"]["times"]["rows1"]["bound_ms"],
+        "bound_by": refmath_k["ceres"]["times"]["rows1"]["bound_by"],
+        "library_ms": None, "times": refmath_k["ceres"]["times"],
+        "rows_held": refmath_k["ceres"]["held"],
+        "launches_by_path": {p: v["ceres_covariance"]
+                             for p, v in REFMATH_LAUNCHES.items()
+                             if "ceres_covariance" in v},
+        "path": "variant_ceres (phase 8, odometry.cov_source=ceres)"}, {
         "name": "cell_stats", "route": "cuda",
         "source": "tbv_slam_public_torch/csrc/cells.cu",
         "replaces": "tbv_slam_public_tpu/ops/features.py:97 (no TPU kernel: "
@@ -3789,8 +3935,9 @@ def main(argv=None) -> int:
         "plain_ms": lm_k["times"]["odometry"]["plain_ms"],
         "bound_ms": lm_k["times"]["odometry"]["bound_ms"],
         "bound_by": lm_k["times"]["odometry"]["bound_by"],
-        "library_ms": None, "times": lm_k["times"],
-        "window_calls_held": lm_k["held"],
+        "library_ms": None,
+        "profiler_windows": lm_k["times"]["odometry"]["profiler_windows"],
+        "times": lm_k["times"], "window_calls_held": lm_k["held"],
         "forced_cluster_calls_held": lm_k["forced"],
         "solve_entry": {"times": lm_k["solve_times"],
                         "grid_solves_held": lm_k["solves"]},
@@ -3813,8 +3960,10 @@ def main(argv=None) -> int:
             eval_k["times"]["loop_wave"]["sampled_covariance"]["bound_ms"],
         "bound_by":
             eval_k["times"]["loop_wave"]["sampled_covariance"]["bound_by"],
-        "library_ms": None, "times": eval_k["times"],
-        "calls_held": eval_k["held"],
+        "library_ms": None, "profiler_windows":
+            eval_k["times"]["loop_wave"]["sampled_covariance"][
+                "profiler_windows"],
+        "times": eval_k["times"], "calls_held": eval_k["held"],
         "launches_by_path": {p: v.get("evaluate", 0)
                              for p, v in LM_LAUNCHES.items()
                              if not p.startswith("ranks")},

@@ -20,8 +20,8 @@ the evaluation kernel's device time, the call's time by events and the
 host's microseconds, with a digest of the covariances.
 
 A run is a fresh process on one tree (its package first on ``sys.path``)
-with optional ``nvcc`` defines (``csrc/cells.cu`` reads ``CELLS_WARPS``
-and ``CELLS_CELLS``, the staged design's warps and cells a block, and
+with optional ``nvcc`` defines (``csrc/cells.cu`` reads ``CELLS_WARPS``,
+the staged design's warps a block, and
 ``CELLS_BATCH``, the windows whose loads a warp of the global-memory
 design issues together).  A variant is ``TREE[:NAME=VALUE,...][@SET,...]`` (a
 tree whose kernel takes only phase 4's clouds runs with ``@phase4``); the

@@ -117,12 +117,11 @@ def _fused(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     rounds to the same float32 unless it lies on a float32 tie (or in
     float32's subnormal range).  Those few are rounded to odd first (the
     exact remainder decides the last bit), which makes the float32 rounding
-    the correctly rounded fused result.  Off the CPU the repair is computed
-    whether or not a tie is present: asking would be a host sync."""
+    the correctly rounded fused result."""
     s = p + c
     tie = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | \
         (torch.abs(s) < _MIN_NORM)
-    if s.device.type != "cpu" or bool(tie.any()):
+    if bool(tie.any()):
         _, err = _two_sum(p, c)
         odd = (s.view(torch.int64) & 1) == 1
         fix = tie & (err != 0) & ~odd
@@ -1100,9 +1099,6 @@ def _qr_block3(d0, d1, d2, e0, e1):
     e0, e1 = torch.where(flip, e1, e0), torch.where(flip, e0, e1)
     active = anorm != 0
     failed = torch.zeros_like(active)
-    # off the CPU every sweep runs (a row once converged stays as it is):
-    # asking whether any row is left would be a host sync
-    on_cpu = d0.device.type == "cpu"
     two = torch.full_like(d0, 2.0)
 
     def small(e, a, b):
@@ -1110,7 +1106,7 @@ def _qr_block3(d0, d1, d2, e0, e1):
                                                   b.abs()), _LA_SAFMIN)
 
     for sweep in range(91):
-        if on_cpu and not bool(active.any()):
+        if not bool(active.any()):
             break
         t0, t1 = small(e0, d0, d1), small(e1, d1, d2)
         top = active & t0             # d0 found, then the (d1, d2) block
@@ -1185,7 +1181,7 @@ def eigvalsh3(h: torch.Tensor) -> torch.Tensor:
     tiny = reflect & (beta.abs() < safmin)
     again = tiny.clone()
     for _ in range(20):
-        if h.device.type == "cpu" and not bool(again.any()):
+        if not bool(again.any()):
             break
         x = torch.where(again, _mul(x, rsafmn), x)
         beta = torch.where(again, _mul(beta, rsafmn), beta)
@@ -1247,3 +1243,30 @@ def inv3(h: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(3, dtype=_F32, device=h.device)
     cols = lu_solve(h.repeat_interleave(3, 0), eye.repeat(n, 1))
     return cols.reshape(n, 3, 3).transpose(1, 2)
+
+
+def ceres_covariance(h: torch.Tensor, final_score: torch.Tensor,
+                     n_res: torch.Tensor, p2l: bool = True,
+                     fallback=(0.1 ** 2, 0.1 ** 2, 0.01 ** 2)):
+    """(cov [B, 3, 3], ok [B]) of ``ops/registration.py::ceres_covariance``
+    from its Hessian h [B, 3, 3], final_score [B] and the residual counts
+    n_res [B] (integers; residual dimension 1 a residual with ``p2l``, else
+    2), rounded as the reference's program on the CPU: its
+    ``lapack_ssyevd_ffi``, ``lapack_sgetrf_ffi`` and two
+    ``lapack_strsm_ffi`` calls (:func:`eigvalsh3`, :func:`inv3`), ok where
+    the smallest eigenvalue is above 1e-9 and the residual dimension less 3
+    is positive, the scale (30 final_score) / max(denominator, 1), every
+    subnormal operand and result flushed; the diagonal ``fallback`` where
+    not ok.  ``csrc/refmath.cu``'s ``refmath_ceres_covariance_kernel``
+    runs the same steps, a thread a row."""
+    dt, dev = h.dtype, h.device
+    h = ftz(h)
+    ok = eigvalsh3(h)[:, 0] > f32_ftz(1e-9)
+    denom = ((1 if p2l else 2) * n_res.long() - 3).to(dt)
+    ok = ok & (denom > 0)
+    scale = ftz(ftz(30.0 * final_score) / torch.clamp(denom, min=1.0))
+    eye = torch.eye(3, dtype=dt, device=dev)
+    hinv = inv3(ftz(h + (~ok).to(dt)[:, None, None] * eye))
+    cov = ftz(scale[:, None, None] * hinv)
+    diag = torch.diag(torch.tensor(fallback, dtype=dt, device=dev))
+    return torch.where(ok[:, None, None], cov, diag), ok

@@ -19,7 +19,7 @@
 // __f*_rn intrinsic, so nvcc's contraction changes nothing.
 //
 // Design (clouds of up to kStageMax points, every preset's): a block of
-// CELLS_WARPS warps takes CELLS_CELLS cells, so C = 512 cells are 128
+// CELLS_WARPS warps takes kStagedCells = 4 cells, so C = 512 cells are 128
 // blocks, one an SM.  The block first stages the cloud's positions and
 // mask in shared memory (cp.async for the positions, 9 bytes a point: 43
 // KB at phase 4's 4,800 points, 144 KB at the presets' 16,000), then
@@ -47,13 +47,11 @@
 
 namespace {
 
-// the cells a block and the windows whose loads a warp issues together
-// (defines, so scripts/time_cells.py can build variants)
+// the staged design's warps a block and the global-memory design's windows
+// whose loads a warp issues together (defines, so scripts/time_cells.py can
+// build variants)
 #ifndef CELLS_WARPS
 #define CELLS_WARPS 8
-#endif
-#ifndef CELLS_CELLS
-#define CELLS_CELLS 4
 #endif
 #ifndef CELLS_BATCH
 #define CELLS_BATCH 8
@@ -61,7 +59,7 @@ namespace {
 constexpr int kWarps = 4;  // the global-memory design: cells (warps) a block
 constexpr int kBatch = CELLS_BATCH;
 constexpr int kStagedWarps = CELLS_WARPS;  // the staged design's warps
-constexpr int kStagedCells = CELLS_CELLS;  // and cells a block
+constexpr int kStagedCells = 4;  // and cells a block
 constexpr int kStageMax = 24000;  // the largest cloud staged in shared memory
 constexpr int kWindow = 32;  // the reference's tree-reduction window
 constexpr int kLevels = 5;   // the tree's levels: clouds of up to 32^5 points
@@ -375,18 +373,24 @@ __device__ __forceinline__ bool gate_at(float2 q, float pp, bool m, float c0,
 
 // the staged design's dynamic shared memory: the positions, the mask,
 // then a bitmap a cell (a word a window)
-__host__ __device__ __forceinline__ size_t staged_xy_bytes(int P) {
+__host__ __device__ constexpr size_t staged_xy_bytes(int P) {
   return ((size_t)P * 8 + 15) / 16 * 16;
 }
 
-__host__ __device__ __forceinline__ size_t staged_mask_bytes(int P) {
+__host__ __device__ constexpr size_t staged_mask_bytes(int P) {
   return ((size_t)P + 15) / 16 * 16;
 }
 
-__host__ __device__ __forceinline__ size_t staged_bytes(int P) {
+__host__ __device__ constexpr size_t staged_bytes(int P) {
   return staged_xy_bytes(P) + staged_mask_bytes(P) +
          (size_t)kStagedCells * ((P + kWindow - 1) / kWindow) * 4;
 }
+
+// the largest staged cloud's dynamic shared memory and the kernel's static
+// s_cell and s_occ fit the 227 KB a block may hold
+static_assert(staged_bytes(kStageMax) + kStagedCells * (3 * 4 + 1) <=
+                  227 * 1024,
+              "the staged design's shared memory exceeds 227 KB at kStageMax");
 
 __global__ void __launch_bounds__(kStagedWarps * 32)
     cells_staged_kernel(const float2* __restrict__ xy,

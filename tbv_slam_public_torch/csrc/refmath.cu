@@ -25,7 +25,9 @@
 // does not: the plain version rounds a float64 root).
 // refmath_loop_dot_launch is the logistic gradient's sum in the reference's
 // vectorised loop's order; refmath_lu_solve_launch its Newton step's solve
-// as the reference's LAPACK and BLAS routines round it.  refmath_lm_update_launch is the LM step theta - H^{-1} g in the
+// as the reference's LAPACK and BLAS routines round it;
+// refmath_ceres_covariance_launch ceres_covariance's tail after its
+// Hessian.  refmath_lm_update_launch is the LM step theta - H^{-1} g in the
 // reference's closed form, a thread a system.  refmath_dot_launch is the small matrix
 // product whose terms the reference adds one at a time.  Bound: bytes, 8-16 B a value read and 4-8 B
 // written against 20-60 float or double operations; the call sites pass a
@@ -172,6 +174,49 @@ __global__ void refmath_lu_solve_kernel(const float* __restrict__ h,
   }
 }
 
+// ops/registration.py::ceres_covariance after its Hessian, a thread a row,
+// as core/refmath.py::ceres_covariance: h flushed, ok where the smallest
+// eigenvalue (la_eigvalsh3, jaxlib's ssyevd) is above 1e-9 and the
+// residual dimension less 3 is positive, the scale (30 final_score) /
+// max(denominator, 1), the inverse of h (plus the identity where not ok)
+// by lu_factor and lu_apply against each column of the identity (sgetrf,
+// strsm), every result flushed; the default diagonal where not ok.
+__global__ void refmath_ceres_covariance_kernel(
+    const float* __restrict__ h, const float* __restrict__ final_score,
+    const long long* __restrict__ n_res, float* __restrict__ cov,
+    bool* __restrict__ ok_out, long long n, int p2l, float f0, float f1,
+    float f2) {
+  for (long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x; s < n;
+       s += (long long)gridDim.x * blockDim.x) {
+    float hs[9];
+    for (int k = 0; k < 9; ++k) hs[k] = daz(h[9 * s + k]);
+    float w[3];
+    la_eigvalsh3(hs, w);
+    const float tiny = 1e-9f;
+    const float denom = __ll2float_rn((p2l ? 1LL : 2LL) * n_res[s] - 3LL);
+    const bool ok = w[0] > tiny && w[1] > tiny && w[2] > tiny && denom > 0.0f;
+    const float scale = daz(__fdiv_rn(daz(__fmul_rn(30.0f, final_score[s])),
+                                      fmaxf(denom, 1.0f)));
+    float a[kLuMax][kLuMax];
+    int piv[kLuMax];
+    for (int r = 0; r < 3; ++r)
+      for (int c = 0; c < 3; ++c)
+        a[r][c] = daz(__fadd_rn(hs[3 * r + c], r == c && !ok ? 1.0f : 0.0f));
+    lu_factor(3, a, piv);
+    const float fallback[3] = {f0, f1, f2};
+    float* out = cov + 9 * s;
+    for (int j = 0; j < 3; ++j) {
+      float x[kLuMax] = {j == 0 ? 1.0f : 0.0f, j == 1 ? 1.0f : 0.0f,
+                         j == 2 ? 1.0f : 0.0f};
+      lu_apply(3, a, piv, x);
+      for (int r = 0; r < 3; ++r)
+        out[3 * r + j] = ok ? daz(__fmul_rn(scale, x[r]))
+                            : (r == j ? fallback[r] : 0.0f);
+    }
+    ok_out[s] = ok;
+  }
+}
+
 }  // namespace
 
 // out [n, k] = h^{-1} g for h [n, k, k], g [n, k], k <= 7, as above.
@@ -185,6 +230,24 @@ extern "C" int refmath_lu_solve_launch(const void* h, const void* g, void* out,
   refmath_lu_solve_kernel<<<(unsigned)blocks, threads, 0,
                             (cudaStream_t)stream>>>(
       (const float*)h, (const float*)g, (float*)out, n, k);
+  return (int)cudaGetLastError();
+}
+
+// cov [n, 3, 3] and ok [n] of ceres_covariance from h [n, 3, 3],
+// final_score [n], n_res [n] (int64), as above; f0..f2 the default
+// covariance's diagonal.
+extern "C" int refmath_ceres_covariance_launch(
+    const void* h, const void* final_score, const void* n_res, void* cov,
+    void* ok, long long n, int p2l, float f0, float f1, float f2,
+    void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 64;
+  long long blocks = (n + threads - 1) / threads;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  refmath_ceres_covariance_kernel<<<(unsigned)blocks, threads, 0,
+                                    (cudaStream_t)stream>>>(
+      (const float*)h, (const float*)final_score, (const long long*)n_res,
+      (float*)cov, (bool*)ok, n, p2l, f0, f1, f2);
   return (int)cudaGetLastError();
 }
 

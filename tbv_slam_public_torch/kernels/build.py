@@ -123,6 +123,11 @@ def library() -> ctypes.CDLL:
     lib.refmath_lu_solve_launch.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.refmath_lu_solve_launch.restype = ctypes.c_int
+    # h, final_score, n_res, cov, ok, n, p2l, fallback diagonal, stream
+    lib.refmath_ceres_covariance_launch.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int] + [ctypes.c_float] * 3 + [
+        ctypes.c_void_p]
+    lib.refmath_ceres_covariance_launch.restype = ctypes.c_int
     # 10 inputs, 3 outputs, rows, T, C, cost, loss, k0..k3, max_iter,
     # init_lambda, one_system, cluster, stream
     lib.lm_solve_launch.argtypes = [ctypes.c_void_p] * 13 + \

@@ -139,6 +139,40 @@ def lu_subnormal_systems(rng, n: int, k: int):
     return h.astype(np.float32), g.astype(np.float32)
 
 
+def ceres_hessians(rng, n: int):
+    """Inputs of ``refmath.ceres_covariance`` (h [n, 3, 3], final_score
+    [n], n_res [n] int64): symmetric Hessians a fifth each convex (J^T J of
+    2-400 residuals), indefinite, near-singular (a rank-2 J^T J plus a
+    third eigenvalue of 1e-12, 1e-9, 1.01e-9, 0 or -1e-10), singular (two
+    equal columns) and scaled by 1e-36 (subnormal entries), every kind at
+    scales 1e-6 to 1e6, with a few NaN and infinite entries; scores with a
+    few subnormal ones, residual counts 0-300 (the gate's denominator
+    non-positive below 2)."""
+    kind = np.arange(n) % 5
+    q, _ = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    ev = rng.normal(size=(n, 3)) * 10
+    near = np.stack([np.abs(rng.normal(size=n)) * 100,
+                     np.abs(rng.normal(size=n)),
+                     rng.choice([1e-12, 1e-9, 1.01e-9, 0.0, -1e-10], n)], -1)
+    ev = np.where((kind == 2)[:, None], near, ev)
+    h = np.einsum("nij,nj,nkj->nik", q, ev, q)
+    m = rng.integers(2, 400, n)
+    j = rng.normal(size=(n, 400, 3)) * (np.arange(400)[None, :, None]
+                                        < m[:, None, None])
+    jtj = np.einsum("nki,nkj->nij", j, j)
+    h = np.where(np.isin(kind, (0, 3, 4))[:, None, None], jtj, h)
+    h[kind == 3, 2] = h[kind == 3, 1]
+    h[kind == 3, :, 2] = h[kind == 3, :, 1]
+    h = (h + h.transpose(0, 2, 1)) / 2 * 10.0 ** rng.uniform(-6, 6, (n, 1, 1))
+    h[kind == 4] *= 1e-36
+    h = h.astype(np.float32)
+    h[5::101, 0, 0] = np.nan
+    h[7::103, 1, 2] = np.inf
+    score = rng.uniform(0.01, 50.0, n).astype(np.float32)
+    score[::50] = np.float32(1e-39)
+    return h, score, rng.integers(0, 300, n).astype(np.int64)
+
+
 def _rot(a):
     c, s = np.cos(a), np.sin(a)
     return np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)

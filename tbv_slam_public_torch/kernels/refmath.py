@@ -8,7 +8,9 @@ the small matrix product whose terms the reference adds one at a time;
 ``loop_dot``, the logistic gradient's sum in the order of the reference's
 vectorised loop; and
 ``lm_update``, the LM step theta - H^{-1} g; ``lu_solve``, the logistic
-fit's Newton step as the reference's LAPACK and BLAS routines round it.
+fit's Newton step as the reference's LAPACK and BLAS routines round it;
+``ceres_covariance``, ``ops/registration.py::ceres_covariance`` after its
+Hessian (eigenvalues, guarded inverse, scale) a thread a row.
 The plain versions are
 ``core/refmath.py``.  What the reference computes at each site, and how
 that was read from its compiled program, is the table in
@@ -56,7 +58,8 @@ _PLAIN = dict(
     sincos=plain.sincos, atan2=plain.atan2, wrap_angle=plain.wrap_angle,
     fma=plain.fma, sqrt=plain.sqrt, ftz=plain.ftz, dot=plain.dot,
     loop_dot=plain.loop_dot, lm_update=plain.lm_update,
-    lu_solve=plain.lu_solve, cumsum=plain.blocked_cumsum)
+    lu_solve=plain.lu_solve, cumsum=plain.blocked_cumsum,
+    ceres_covariance=plain.ceres_covariance)
 
 
 _ENTRIES: dict = {}
@@ -156,6 +159,29 @@ def _lu_solve(op: str, h: torch.Tensor, g: torch.Tensor):
     return (out.reshape(g.shape), "refmath_lu_solve_launch",
             (h2.data_ptr(), g2.data_ptr(), out.data_ptr(), g2.shape[0], k),
             out.numel())
+
+
+def _ceres_covariance(op: str, h: torch.Tensor, final_score: torch.Tensor,
+                      n_res: torch.Tensor, p2l: bool = True,
+                      fallback=(0.1 ** 2, 0.1 ** 2, 0.01 ** 2)):
+    b = h.shape[0]
+    if h.shape != (b, 3, 3) or final_score.shape != (b,) or \
+            n_res.shape != (b,):
+        raise ValueError(f"refmath.ceres_covariance: shapes "
+                         f"{tuple(h.shape)}, {tuple(final_score.shape)}, "
+                         f"{tuple(n_res.shape)}")
+    if h.dtype != torch.float32 or final_score.dtype != torch.float32 or \
+            n_res.dtype.is_floating_point or n_res.dtype == torch.bool:
+        raise TypeError(f"refmath.ceres_covariance: float32 h and scores, "
+                        f"integer counts, got {h.dtype}, "
+                        f"{final_score.dtype}, {n_res.dtype}")
+    h, final_score = h.contiguous(), final_score.contiguous()
+    n_res = n_res.to(torch.int64).contiguous()
+    cov = torch.empty_like(h)
+    ok = torch.empty(b, dtype=torch.bool, device=h.device)
+    return ((cov, ok), "refmath_ceres_covariance_launch",
+            (h.data_ptr(), final_score.data_ptr(), n_res.data_ptr(),
+             cov.data_ptr(), ok.data_ptr(), b, int(p2l), *fallback), b)
 
 
 #: the longest vector ``cumsum`` scans in one block's registers and shared
@@ -261,7 +287,8 @@ def _site(layout, op: str, *ts, **options):
 
 _KERNEL_ARGS = dict.fromkeys(OPS, _elementwise)
 _KERNEL_ARGS.update(dot=_dot, loop_dot=_loop_dot, lm_update=_lm_update,
-                    lu_solve=_lu_solve, cumsum=_cumsum)
+                    lu_solve=_lu_solve, cumsum=_cumsum,
+                    ceres_covariance=_ceres_covariance)
 
 
 def register_site(name: str, plain_fn, layout, element=None) -> None:
@@ -559,7 +586,10 @@ def _chain_plan(name, ts, options):
 
 
 def _chain_key(name, ts, options):
-    return (name, tuple(sorted(options.items())),
+    """The key of a chain's description: the chain, its options, the card
+    (the description lives in that card's memory) and each operand's shape,
+    strides and dtype."""
+    return (name, tuple(sorted(options.items())), ts[0].device.index,
             tuple((t.shape, t.stride(), t.dtype) for t in ts))
 
 
@@ -636,7 +666,8 @@ def _call(op: str, *ts: torch.Tensor, **options):
         return _PLAIN[op](*ts, **options)
     if dev.type != "cuda":
         raise RuntimeError(f"refmath.{op}: no kernel for device {dev}")
-    if op not in SITES and any(t.dtype != torch.float32 for t in ts):
+    if op not in SITES and op != "ceres_covariance" and any(
+            t.dtype != torch.float32 for t in ts):
         raise TypeError(f"refmath.{op}: float32 tensors only, got "
                         f"{[t.dtype for t in ts]}")
     if any(t is not None and t.device != dev for t in ts):
@@ -751,3 +782,14 @@ def lu_solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     ``sgetrf`` and ``strsm`` round it (``core/refmath.py::lu_solve``), a
     thread a system, one launch."""
     return _call("lu_solve", h, g)
+
+
+def ceres_covariance(h: torch.Tensor, final_score: torch.Tensor,
+                     n_res: torch.Tensor, p2l: bool = True,
+                     fallback=(0.1 ** 2, 0.1 ** 2, 0.01 ** 2)):
+    """(cov [B, 3, 3], ok [B]) of ``ops/registration.py::ceres_covariance``
+    from its Hessian h [B, 3, 3], final_score [B] and residual counts n_res
+    [B] (``core/refmath.py::ceres_covariance``): the reference's 3 x 3
+    eigenvalues and guarded inverse, a thread a row, one launch."""
+    return _call("ceres_covariance", h, final_score, n_res, p2l=p2l,
+                 fallback=tuple(fallback))

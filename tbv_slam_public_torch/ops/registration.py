@@ -823,25 +823,15 @@ def ceres_covariance(src: Cells, theta_opt: torch.Tensor, tgt: Cells,
 def _ceres_from_hessian(h: torch.Tensor, final_score: torch.Tensor,
                         n_res: torch.Tensor, cost: int):
     """(cov [B, 3, 3], ok [B]) of ``ceres_covariance`` from its Hessian h
-    [B, 3, 3]: elementwise torch on either device, rounded as the
-    reference's program on the CPU (its ``lapack_ssyevd_ffi``,
-    ``lapack_sgetrf_ffi`` and two ``lapack_strsm_ffi`` calls, written out
-    as ``core/refmath.py::eigvalsh3`` and ``inv3``; the scale
-    (30 final_score) / max(denominator, 1)), every subnormal operand and
-    result flushed, as ``_covariance_from_fit``.  No library call and, on
-    the card, no host sync."""
-    dt, dev = h.dtype, h.device
-    h = plain.ftz(h)
-    ok = plain.eigvalsh3(h)[:, 0] > plain.f32_ftz(1e-9)
-    denom = ((1 if cost == COST_P2L else 2) * n_res - 3).to(dt)
-    ok = ok & (denom > 0)
-    scale = plain.ftz(plain.ftz(30.0 * final_score)
-                      / torch.clamp(denom, min=1.0))
-    eye = torch.diag(constant((1.0, 1.0, 1.0), dt, dev))
-    hinv = plain.inv3(plain.ftz(h + (~ok).to(dt)[:, None, None] * eye))
-    cov = plain.ftz(scale[:, None, None] * hinv)
-    fallback = torch.diag(constant(DEFAULT_COV_DIAG, dt, dev))
-    return torch.where(ok[:, None, None], cov, fallback), ok
+    [B, 3, 3], rounded as the reference's program on the CPU (its
+    ``lapack_ssyevd_ffi``, ``lapack_sgetrf_ffi`` and two
+    ``lapack_strsm_ffi`` calls, written out): the refmath op
+    ``ceres_covariance``, its plain version on the CPU
+    (``core/refmath.py::ceres_covariance``: ``eigvalsh3``, ``inv3``) and
+    one launch with no host sync on the card."""
+    return refmath.ceres_covariance(h, final_score, n_res,
+                                    p2l=cost == COST_P2L,
+                                    fallback=DEFAULT_COV_DIAG)
 
 
 def register_joint(scans: Cells, poses0: torch.Tensor,

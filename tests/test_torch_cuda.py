@@ -1447,12 +1447,17 @@ def test_a_cuda_tensor_never_reaches_a_plain_chain(cuda, monkeypatch):
 
 @pytest.mark.cuda
 def test_ceres_covariance_runs_without_a_host_sync(cuda):
-    """``ceres_covariance``'s 3 x 3 algebra is elementwise torch on the
-    card: no library call and no host synchronisation (under
-    ``torch.cuda.set_sync_debug_mode("error")`` after a warm-up call), its
-    flags and covariances the CPU's on the same Hessians (rank-deficient
-    ones among them, whose rounded smallest eigenvalue may pass the gate
-    and whose inverse then holds infinities, in both packages alike)."""
+    """``ceres_covariance``'s tail after its Hessian is one launch of the
+    refmath op ``ceres_covariance``: no library call and no host
+    synchronisation (under ``torch.cuda.set_sync_debug_mode("error")``
+    after a warm-up call), its flags and covariances the CPU plain
+    version's on the same Hessians (rank-deficient ones among them, whose
+    rounded smallest eigenvalue may pass the gate and whose inverse then
+    holds infinities, in both packages alike), and on 2^14 Hessians of
+    every kind (``kernels/checks.py::ceres_hessians``)."""
+    from tbv_slam_public_torch.core import refmath as plain
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.kernels.checks import ceres_hessians
     from tbv_slam_public_torch.ops import registration as treg
 
     rng = np.random.default_rng(16)
@@ -1465,11 +1470,21 @@ def test_ceres_covariance_runs_without_a_host_sync(cuda):
     card = (args[0].to(cuda), args[1].to(cuda), args[2].to(cuda), args[3])
     treg._ceres_from_hessian(*card)
     torch.cuda.synchronize()
+    rm.LAUNCHES_BY_OP.clear()
     torch.cuda.set_sync_debug_mode("error")
     try:
         cov, ok = treg._ceres_from_hessian(*card)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    assert dict(rm.LAUNCHES_BY_OP) == {"ceres_covariance": 1}
     want_cov, want_ok = treg._ceres_from_hessian(*args)
     assert bits_differ(ok, want_ok) == 0 and 0 < int(want_ok.sum()) < 64
     assert bits_differ(cov, want_cov) == 0
+    hh, score, n_res = (torch.as_tensor(a)
+                        for a in ceres_hessians(rng, 1 << 14))
+    for p2l in (True, False):
+        got = rm.ceres_covariance(hh.to(cuda), score.to(cuda),
+                                  n_res.to(cuda), p2l=p2l)
+        want = plain.ceres_covariance(hh, score, n_res, p2l=p2l)
+        assert bits_differ(got[1], want[1]) == 0
+        assert bits_differ(got[0], want[0]) == 0

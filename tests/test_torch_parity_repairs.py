@@ -120,6 +120,30 @@ def test_ceres_covariance_calls_no_linalg(monkeypatch):
     assert cov.shape == (6, 3, 3) and ok.shape == (6,)
 
 
+@pytest.mark.parametrize("cost", [jreg.COST_P2L, jreg.COST_P2P])
+def test_ceres_covariance_op_on_every_kind(cost):
+    """The refmath op ``ceres_covariance`` (the kernel's plain version on
+    the CPU) on the shared card inputs (``kernels/checks.py::
+    ceres_hessians``: convex, indefinite, near-singular, singular,
+    subnormal, non-finite entries, subnormal scores) against the
+    reference's tail: flags equal, covariances bit-equal (NaN payloads
+    aside)."""
+    from tbv_slam_public_torch.kernels.checks import (bits_differ,
+                                                      ceres_hessians)
+
+    h, score, n_res = ceres_hessians(np.random.default_rng(1310 + cost),
+                                     2000)
+    want_cov, want_ok = jax.jit(jax.vmap(
+        lambda a, s, k: _reference_tail(a, s, k, cost)))(
+            h, score, n_res.astype(np.int32))
+    got_cov, got_ok = trefmath.ceres_covariance(
+        torch.as_tensor(h), torch.as_tensor(score), torch.as_tensor(n_res),
+        p2l=cost == jreg.COST_P2L, fallback=treg.DEFAULT_COV_DIAG)
+    np.testing.assert_array_equal(got_ok.numpy(), np.asarray(want_ok))
+    assert 0 < int(np.sum(want_ok)) < len(h)
+    assert bits_differ(got_cov, np.asarray(want_cov)) == 0
+
+
 # ---- the flush tie ---------------------------------------------------------
 
 _LO = Fraction(2) ** -126 - Fraction(2) ** -150
