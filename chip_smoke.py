@@ -486,14 +486,32 @@ def phase_kernels(sm_hz):
     return dict(max_abs_err=worst, plain_ms=plain_ms, times=times, **bound)
 
 
-# float32 operations a value of each refmath op, for the bound (the double
-# ones of sinf/cosf counted at the float32 rate)
-REFMATH_OPS = {"exp": 20, "log": 25, "log1p": 40, "sigmoid": 22,
-               "sincos": 26, "wrap_angle": 60, "atan2": 35, "sqrt": 3,
-               "ftz": 2}
-# the refmath kernel's launches by path, and the (op, shapes) held there
+# float32 operations a value of each refmath op, for the bound, counted from
+# refmath.cuh (a fused multiply-add as two; an IEEE division as 10, its
+# reciprocal, Newton steps and fix-up; a double operation as two, the
+# card's float64 rate being half its float32 rate): sincos's reduction,
+# sin_poly and cos_poly are 19 double operations (9 of them fused) and 8
+# float32 ones; atan2's three divisions, atanf's two polynomials (19
+# products and adds) and about 13 more; wrap_angle is both
+REFMATH_FLOPS = {"exp": 20, "log": 25, "log1p": 40, "sigmoid": 32,
+                 "sincos": 64, "wrap_angle": 126, "atan2": 62, "sqrt": 12,
+                 "ftz": 2, "fma": 2, "mul": 2}
+# the torch call that computes the same function as each op (None: none)
+REFMATH_LIBRARY = {
+    "exp": torch.exp, "log": torch.log, "log1p": torch.log1p,
+    "sigmoid": torch.sigmoid, "sincos": lambda v: (torch.sin(v),
+                                                   torch.cos(v)),
+    "wrap_angle": lambda v: torch.atan2(torch.sin(v), torch.cos(v)),
+    "atan2": torch.atan2, "sqrt": torch.sqrt, "ftz": None,
+    "fma": lambda a, b, c: torch.addcmul(c, a, b), "mul": torch.mul}
+# the refmath kernels' launches by path, and the (op, shapes) held there
 REFMATH_LAUNCHES = {}
 REFMATH_HELD = {}
+# operands of op calls that took the strided path, by path and op
+REFMATH_STRIDED = {}
+# the paths that run PGO, whose weighted residual is one refmath mul a
+# Gauss-Newton step
+MUL_PATHS = ("offline", "online")
 
 
 @contextlib.contextmanager
@@ -504,7 +522,7 @@ def refmath_inputs():
     (args, outs, options)}``."""
     from tbv_slam_public_torch.kernels import refmath as rm
 
-    kept, real, real_chain = {}, rm._call, rm.chain
+    kept, real, real_op, real_chain = {}, rm._call, rm._op, rm.chain
     clone = lambda t: None if t is None else t.detach().clone()
 
     def keeper(fn, tag):
@@ -512,8 +530,7 @@ def refmath_inputs():
             out = fn(op, *ts, **options)
             if ts[0].device.type == "cuda":
                 key = (tag, op) + tuple(
-                    None if t is None else tuple(t.shape) if tag == "op"
-                    else (tuple(t.shape), t.stride())
+                    None if t is None else (tuple(t.shape), t.stride())
                     for t in ts) + tuple(sorted(options.items()))
                 if key not in kept:
                     outs = out if isinstance(out, tuple) else (out,)
@@ -522,11 +539,12 @@ def refmath_inputs():
             return out
         return keep
 
-    rm._call, rm.chain = keeper(real, "op"), keeper(real_chain, "chain")
+    rm._call, rm._op, rm.chain = keeper(real, "op"), keeper(real_op, "op"), \
+        keeper(real_chain, "chain")
     try:
         yield kept
     finally:
-        rm._call, rm.chain = real, real_chain
+        rm._call, rm._op, rm.chain = real, real_op, real_chain
 
 
 def hold_refmath(tag, kept) -> int:
@@ -1442,6 +1460,7 @@ def kernel_path(path):
 
     rm.LAUNCHES = 0
     rm.LAUNCHES_BY_OP.clear()
+    rm.STRIDED_OPERANDS.clear()
     lk.LAUNCHES = 0
     lk.LAUNCHES_BY_ENTRY.clear()
     kc.LAUNCHES = 0
@@ -1451,6 +1470,9 @@ def kernel_path(path):
             evaluate_inputs() as eval_kept, tail_inputs() as tail_kept:
         yield
     REFMATH_LAUNCHES[path] = dict(rm.LAUNCHES_BY_OP, total=rm.LAUNCHES)
+    REFMATH_STRIDED[path] = dict(rm.STRIDED_OPERANDS)
+    if path in MUL_PATHS and rm.LAUNCHES_BY_OP.get("mul", 0) <= 0:
+        raise AssertionError(f"the {path} path launched no refmath mul")
     LM_LAUNCHES[path] = dict(lk.LAUNCHES_BY_ENTRY, total=lk.LAUNCHES)
     CELLS_LAUNCHES[path] = kc.LAUNCHES
     TAIL_LAUNCHES[path] = cm.TAIL_LAUNCHES
@@ -1476,7 +1498,9 @@ def kernel_path(path):
     TAIL_HELD[path] = hold_tail(f"[{path}]", tail_kept)
     log(f"[coral_tail] {path}: {TAIL_LAUNCHES[path]} launches, bit-equal to "
         f"the plain version at its {TAIL_HELD[path]} shapes")
-    log(f"[refmath] {path}: {REFMATH_LAUNCHES[path]['total']} launches, "
+    log(f"[refmath] {path}: {REFMATH_LAUNCHES[path]} launches, strided "
+        f"operands (read in place; a copy each where operands are made "
+        f"contiguous) {REFMATH_STRIDED[path]}, "
         f"bit-equal to the plain version at its {REFMATH_HELD[path]} (op or "
         f"site, shapes); [registration] {LM_LAUNCHES[path]} launches, window "
         f"bit-equal at its {WINDOW_HELD[path]} shapes, solve at its "
@@ -1485,52 +1509,95 @@ def kernel_path(path):
         f"shapes")
 
 
+def _op_call(rm, op, args):
+    return getattr(rm, op)(*args)
+
+
 def phase_refmath():
-    """The refmath kernel against its plain version, every op on 2^22 values
-    and the special values, bit for bit; ``dot`` at the fits' shapes; then
-    each op's time at the sizes the paths give it, beside the plain version
-    on the card, the torch call it replaces and its bound; ``lu_solve`` at
-    every size and at the fit's one system."""
+    """The refmath op kernels against their plain versions: every op (and
+    ``mul``) on 2^22 values with the special values, then on offset,
+    strided and broadcast operands (2^18 + 3), bit for bit, one launch a call;
+    ``mul`` on products at the flush tie; each kernel's registers and
+    occupancy; ``dot`` at the fits' shapes; then each op's time at 1, 4,096
+    and 2^19 values beside its plain version on the card, the torch call
+    for the same function, its bound and the host's us a call of both;
+    ``lu_solve`` at every size and at the fit's one system."""
     from tbv_slam_public_torch.core import refmath as plain
     from tbv_slam_public_torch.kernels import refmath as rm
-    from tbv_slam_public_torch.kernels.checks import (REFMATH_RANGES,
-                                                      REFMATH_SPECIAL,
+    from tbv_slam_public_torch.kernels.checks import (REFMATH_ARITY,
+                                                      REFMATH_LAYOUTS,
+                                                      REFMATH_OPS,
                                                       bits_differ,
                                                       lu_subnormal_systems,
-                                                      lu_systems)
+                                                      lu_systems,
+                                                      op_operands,
+                                                      tie_products)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
-    special = REFMATH_SPECIAL
-    n = 1 << 22
-    for op, (lo, hi) in REFMATH_RANGES.items():
-        x = np.concatenate([rng.uniform(lo, hi, n).astype(np.float32),
-                            special])
-        args = [torch.as_tensor(x)]
-        if op == "atan2":
-            args.insert(0, torch.as_tensor(np.concatenate([
-                rng.uniform(lo, hi, n).astype(np.float32), special[::-1]])))
-        got = getattr(rm, op)(*(a.to(dev) for a in args))
-        want = getattr(plain, op)(*args)
+
+    def held(op, args, card, tag):
+        before = rm.LAUNCHES
+        got = _op_call(rm, op, card)
         torch.cuda.synchronize()
+        if rm.LAUNCHES != before + 1:
+            raise AssertionError(f"refmath {op} {tag}: "
+                                 f"{rm.LAUNCHES - before} launches")
+        want = _op_call(plain, op, args)
         pairs = zip(got, want) if op == "sincos" else [(got, want)]
         bad = sum(bits_differ(g, w) for g, w in pairs)
-        log(f"[2] refmath {op}: {x.size} values, {bad} differ from the plain "
-            f"version")
         if bad:
-            raise AssertionError(f"refmath {op}: {bad} values differ")
+            raise AssertionError(f"refmath {op} {tag}: {bad} values differ "
+                                 f"from the plain version")
+
+    for op in REFMATH_OPS:
+        args = op_operands(rng, op, 1 << 22, "contiguous")
+        held(op, args, [a.to(dev) for a in args], "2^22 values")
+        n = (1 << 18) + 3
+        for layout in REFMATH_LAYOUTS[1:]:
+            args = op_operands(rng, op, n, layout)
+            if layout == "offset":
+                card = [torch.empty(n + 1, device=dev)[1:].copy_(a)
+                        for a in args]
+            elif layout == "strided":
+                card = [torch.empty(2 * n, device=dev)[::2].copy_(a)
+                        for a in args]
+            elif len(args) == 1:
+                card = [args[0][:1].to(dev).expand(n)]
+            else:
+                card = [a.to(dev) for a in args]
+            held(op, args, card, f"{layout} operands")
+        log(f"[2] refmath {op}: 2^22 contiguous values with the special "
+            f"values, 2^18 + 3 offset, strided and broadcast: bit-equal to "
+            f"the plain version, one launch a call")
     # fma, half the products nearly cancelling their addend
+    n = 1 << 22
     a, b = (torch.as_tensor((rng.normal(size=n) * np.exp(rng.uniform(
         -20, 20, n))).astype(np.float32)) for _ in range(2))
     near = -(a.double() * b.double()).numpy() * (1 + 1e-7 * rng.normal(
         size=n))
     c = torch.as_tensor(np.where(rng.uniform(size=n) < 0.5, near,
                                  rng.normal(size=n)).astype(np.float32))
-    bad = bits_differ(rm.fma(a.to(dev), b.to(dev), c.to(dev)),
-                       plain.fma(a, b, c))
-    log(f"[2] refmath fma: {n} values, {bad} differ from the plain version")
-    if bad:
-        raise AssertionError(f"refmath fma: {bad} values differ")
+    held("fma", [a, b, c], [a.to(dev), b.to(dev), c.to(dev)],
+         "products nearly cancelling their addend")
+    a, b = tie_products(rng, 512)
+    sign = np.where(rng.uniform(size=512) < 0.5, -1.0, 1.0).astype(np.float32)
+    args = [torch.as_tensor(a * sign), torch.as_tensor(b)]
+    held("mul", args, [t.to(dev) for t in args], "tie products")
+    if bool(plain.mul(*args).ne(0).any()):
+        raise AssertionError("refmath mul: a tie product was not flushed")
+    log("[2] refmath mul: 512 products at the flush tie flushed, bit-equal "
+        "to the plain version")
+    kernels = {}
+    for op in rm.OPS:
+        for path in rm.OP_PATHS:
+            regs, blocks = rm.op_info(op, path)
+            kernels[f"{op}_{path}"] = dict(registers=regs,
+                                           blocks_per_sm=blocks)
+    log("[2] refmath op kernels (registers, blocks of 256 a "
+        "multiprocessor): " + ", ".join(
+            f"{k} {v['registers']}/{v['blocks_per_sm']}"
+            for k, v in kernels.items()))
     j = rng.normal(size=(1 << 18, 6, 3)).astype(np.float32)
     a = torch.as_tensor(np.einsum("nki,nkj->nij", j, j).astype(np.float32))
     b = torch.as_tensor(rng.normal(size=(1 << 18, 3)).astype(np.float32))
@@ -1576,49 +1643,39 @@ def phase_refmath():
                                      f"({make.__name__}): {bad} differ")
     log("[2] refmath lu_solve: bit-equal on 3000 systems and 3000 that "
         "reach the subnormal range at k = 1..7")
-    library = {"exp": torch.exp, "log": torch.log, "log1p": torch.log1p,
-               "sigmoid": torch.sigmoid,
-               "sincos": lambda v: (torch.sin(v), torch.cos(v)),
-               "wrap_angle": lambda v: torch.atan2(torch.sin(v),
-                                                   torch.cos(v)),
-               "atan2": torch.atan2, "sqrt": torch.sqrt}
     times = {}
-    for op, (lo, hi) in REFMATH_RANGES.items():
+    for op in REFMATH_OPS:
+        k = REFMATH_ARITY.get(op, 1)
+        n_out = 2 if op == "sincos" else 1
         for size in (1, 4096, 1 << 19):
-            x = torch.empty(size, device=dev).uniform_(lo, hi)
-            args = (x, x.flip(0)) if op == "atan2" else (x,)
-            n_in, n_out = len(args), 2 if op == "sincos" else 1
-            bytes_ = 4 * size * (n_in + n_out)
-            bound = max(bytes_ / PEAK_BYTES_PER_S,
-                        REFMATH_OPS[op] * size / PEAK_F32_FLOPS) * 1e3
-            t = dict(ms=cuda_ms(lambda: getattr(rm, op)(*args), 50),
-                     plain_ms=cuda_ms(lambda: getattr(plain, op)(*args), 10),
-                     library_ms=cuda_ms(lambda: library[op](*args), 50)
-                     if op in library else None,
-                     bound_ms=bound,
-                     bound_by="bytes" if bytes_ / PEAK_BYTES_PER_S >=
-                     REFMATH_OPS[op] * size / PEAK_F32_FLOPS else "operations")
+            args = [t.to(dev) for t in op_operands(rng, op, size,
+                                                   "contiguous")]
+            bytes_ = 4 * size * (k + n_out)
+            t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+            t_ops = REFMATH_FLOPS[op] * size / PEAK_F32_FLOPS * 1e3
+            lib = REFMATH_LIBRARY[op]
+            call = lambda: _op_call(rm, op, args)
+            t = dict(ms=cuda_ms(call, 50),
+                     plain_ms=cuda_ms(lambda: _op_call(plain, op, args), 10),
+                     library_ms=cuda_ms(lambda: lib(*args), 50)
+                     if lib else None,
+                     bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+            if size == 4096:
+                t["host_us"] = host_us(call, 200)
+                t["library_host_us"] = host_us(lambda: lib(*args), 200) \
+                    if lib else None
+                wide = [args[0]] + [a[:1] for a in args[1:]] if k > 1 \
+                    else [args[0][:1].expand(size)]
+                t["broadcast_ms"] = cuda_ms(lambda: _op_call(rm, op, wide),
+                                            50)
             times[f"{op}_n{size}"] = t
             log(f"[2] refmath {op} at {size} values: {t['ms']:.4f} ms "
-                f"(bound {bound:.6f} ms), plain {t['plain_ms']:.4f} ms, "
-                f"torch {t['library_ms']} ms")
-    # fma, beside torch.addcmul (c + a * b) as its library call
-    for size in (1, 4096, 1 << 19):
-        a, b, c = (torch.empty(size, device=dev).uniform_(-10, 10)
-                   for _ in range(3))
-        bytes_ = 4 * size * 4
-        ops = 2 * size
-        t = dict(ms=cuda_ms(lambda: rm.fma(a, b, c), 50),
-                 plain_ms=cuda_ms(lambda: plain.fma(a, b, c), 10),
-                 library_ms=cuda_ms(lambda: torch.addcmul(c, a, b), 50),
-                 bound_ms=max(bytes_ / PEAK_BYTES_PER_S,
-                              ops / PEAK_F32_FLOPS) * 1e3,
-                 bound_by="bytes" if bytes_ / PEAK_BYTES_PER_S >=
-                 ops / PEAK_F32_FLOPS else "operations")
-        times[f"fma_n{size}"] = t
-        log(f"[2] refmath fma at {size} values: {t['ms']:.4f} ms (bound "
-            f"{t['bound_ms']:.6f} ms), plain {t['plain_ms']:.4f} ms, "
-            f"torch.addcmul {t['library_ms']:.4f} ms")
+                f"(bound {t['bound_ms']:.6f} ms by {t['bound_by']}), plain "
+                f"{t['plain_ms']:.4f} ms, torch {t['library_ms']} ms"
+                + (f"; host {t['host_us']:.1f} us a call (torch "
+                   f"{t['library_host_us']}), a broadcast operand "
+                   f"{t['broadcast_ms']:.4f} ms" if size == 4096 else ""))
     # lu_solve at the fit's one 7 x 7 system: 63 values read, 7 written;
     # about 2 k^3 / 3 + 2 k^2 = 327 operations
     h, g = (torch.as_tensor(a, device=dev) for a in lu_systems(rng, 3, 7))
@@ -1634,7 +1691,8 @@ def phase_refmath():
     log(f"[2] refmath lu_solve at one 7 x 7 system: {t['ms']:.4f} ms "
         f"(bound {t['bound_ms']:.6f} ms), plain {t['plain_ms']:.4f} ms, "
         f"torch.linalg.solve {t['library_ms']:.4f} ms")
-    return dict(max_abs_err=0.0, times=times, ceres=phase_ceres(rng))
+    return dict(max_abs_err=0.0, times=times, kernels=kernels,
+                ceres=phase_ceres(rng))
 
 
 # float32 operations a row of ceres_covariance, for the bound: the
@@ -2250,9 +2308,11 @@ def _tail_bound(sm, rm):
 def phase_coral_tail():
     """(2c) ``coral_tail`` against its plain version on the card, given the
     same moments (the pair kernel's on random clouds), bit for bit, in both
-    modes at the paths' shapes, one launch a call; then its time in turns
+    modes at the paths' shapes, one launch a call, at the cluster size the
+    launch chooses and at 1, 2, 4 and 8 CTAs a pair; then its time in turns
     with the plain tail (kernel, plain, plain, kernel: CUDA events behind
-    the device-side spin), its bound and the host's us a call."""
+    the device-side spin), its bound, its cluster size and the host's us a
+    call."""
     from tbv_slam_public_torch.kernels import coral_moments as cm
     from tbv_slam_public_torch.kernels.checks import bits_differ
     from tbv_slam_public_torch.ops import coral
@@ -2265,39 +2325,45 @@ def phase_coral_tail():
                                         packed)
         moments = cm.pair_moments(sx, sm, rx, rm, 1.0)
         for mode in ("entropy", "kl"):
-            before = cm.TAIL_LAUNCHES
-            got = coral.coral_tail(*moments, sm, rm, 1e-8, mode)
-            if cm.TAIL_LAUNCHES != before + 1:
-                raise AssertionError(f"[2c] coral_tail {tag}: "
-                                     f"{cm.TAIL_LAUNCHES - before} launches")
             want = coral.coral_tail_reference(*moments, sm, rm, 1e-8, mode)
-            bad = sum(bits_differ(g, w) for g, w in zip(got, want))
-            if bad or not bool(got.overlap.max() > 0):
-                raise AssertionError(f"[2c] coral_tail {tag} {mode}: {bad} "
-                                     f"values differ (or no overlap)")
-            held += 1
+            for forced in (0, 1, 2, 4, 8):
+                before = cm.TAIL_LAUNCHES
+                got = coral.CoralResult(*cm.coral_tail(
+                    *moments, sm, rm, 1e-8, mode, cluster=forced))
+                if cm.TAIL_LAUNCHES != before + 1:
+                    raise AssertionError(
+                        f"[2c] coral_tail {tag}: "
+                        f"{cm.TAIL_LAUNCHES - before} launches")
+                bad = sum(bits_differ(g, w) for g, w in zip(got, want))
+                if bad or not bool(got.overlap.max() > 0):
+                    raise AssertionError(
+                        f"[2c] coral_tail {tag} {mode} cluster {forced}: "
+                        f"{bad} values differ (or no overlap)")
+                held += 1
         call = lambda: coral.coral_tail(*moments, sm, rm, 1e-8, "entropy")
         plain = lambda: coral.coral_tail_reference(*moments, sm, rm, 1e-8,
                                                    "entropy")
         k1 = cuda_ms(call, 20)
+        cluster = cm.TAIL_CLUSTER
         p1 = cuda_ms(plain, 2)
         p2 = cuda_ms(plain, 2)
         k2 = cuda_ms(call, 20)
         bound = _tail_bound(sm, rm)
         ms = min(k1, k2)
-        times[tag] = dict(M=m, slots=2 * n, live=live, ms=ms,
+        times[tag] = dict(M=m, slots=2 * n, live=live, ms=ms, cluster=cluster,
                           ms_turns=[k1, k2], plain_ms=min(p1, p2),
                           plain_ms_turns=[p1, p2], host_us=host_us(call, 20),
                           plain_host_us=host_us(plain, 3),
                           share=_share(f"coral_tail {tag}",
                                        bound["bound_ms"], ms), **bound)
-        log(f"[2c] coral_tail {tag} M={m} Q=2x{n} {live:.0%} live: "
-            f"{k1:.4f} / {k2:.4f} ms (bound {bound['bound_ms']:.6f} ms by "
+        log(f"[2c] coral_tail {tag} M={m} Q=2x{n} {live:.0%} live, "
+            f"{cluster} CTAs a pair: {k1:.4f} / {k2:.4f} ms (bound {bound['bound_ms']:.6f} ms by "
             f"{bound['bound_by']}, {100 * times[tag]['share']:.1f} %), plain "
             f"{p1:.3f} / {p2:.3f} ms, host {times[tag]['host_us']:.1f} us a "
             f"call (plain {times[tag]['plain_host_us']:.1f})")
     log(f"[2c] coral_tail: bit-equal to the plain version in {held} calls "
-        f"({len(TAIL_SHAPES)} shapes x 2 modes), one launch a call")
+        f"({len(TAIL_SHAPES)} shapes x 2 modes x 5 cluster sizes), one "
+        f"launch a call")
     return dict(max_abs_err=0.0, held=held, times=times)
 
 
@@ -3870,8 +3936,27 @@ def main(argv=None) -> int:
         "bound_by": refmath_k["times"]["sincos_n4096"]["bound_by"],
         "library_ms": refmath_k["times"]["sincos_n4096"]["library_ms"],
         "times": refmath_k["times"], "sites": sites,
+        "op_kernels": refmath_k["kernels"],
         "launches_by_path": REFMATH_LAUNCHES,
+        "strided_operands_by_path": REFMATH_STRIDED,
         "shapes_held_by_path": REFMATH_HELD}, {
+        "name": "mul", "route": "cuda",
+        "source": "tbv_slam_public_torch/csrc/refmath.cu",
+        "replaces": "tbv_slam_public_torch/core/refmath.py::mul (no TPU "
+                    "kernel: a lone product on the reference's DAZ / FTZ "
+                    "threads, PGO's weighted residual at "
+                    "tbv_slam_public_tpu/ops/posegraph.py:190)",
+        "launches": REFMATH_LAUNCHES["offline"].get("mul", 0),
+        "max_abs_err": refmath_k["max_abs_err"],
+        "ms": refmath_k["times"]["mul_n4096"]["ms"],
+        "plain_ms": refmath_k["times"]["mul_n4096"]["plain_ms"],
+        "bound_ms": refmath_k["times"]["mul_n4096"]["bound_ms"],
+        "bound_by": refmath_k["times"]["mul_n4096"]["bound_by"],
+        "library_ms": refmath_k["times"]["mul_n4096"]["library_ms"],
+        "times": {k: v for k, v in refmath_k["times"].items()
+                  if k.startswith("mul_")},
+        "launches_by_path": {p: v.get("mul", 0)
+                             for p, v in REFMATH_LAUNCHES.items()}}, {
         "name": "ceres_covariance", "route": "cuda",
         "source": "tbv_slam_public_torch/csrc/refmath.cu",
         "replaces": "tbv_slam_public_tpu/ops/registration.py:808 (no TPU "

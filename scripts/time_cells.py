@@ -17,7 +17,13 @@ CorAl ``pair_moments`` kernel at an offline loop wave's shape (M = 64,
 4,096-slot clouds, 80 % live), by events, with a digest.  ``evaluate``:
 ``sampled_covariance`` at an offline loop wave's shape (64 pairs, P2L),
 the evaluation kernel's device time, the call's time by events and the
-host's microseconds, with a digest of the covariances.
+host's microseconds, with a digest of the covariances.  ``tail``:
+``coral_tail`` at ``chip_smoke.py``'s four shapes (a 64-pair wave, an
+online loop closure, a training pair, ``evaluate-scans`` pairs), by events,
+the host's microseconds and the cluster size (and, where the tree takes
+it, the time at 1, 2, 4 and 8 CTAs a pair), with digests.  ``ops``: each
+refmath op at 1, 4,096 and 2^19 values and with a broadcast operand, by
+events, the host's microseconds at 4,096, with digests.
 
 A run is a fresh process on one tree (its package first on ``sys.path``)
 with optional ``nvcc`` defines (``csrc/cells.cu`` reads ``CELLS_WARPS``,
@@ -30,7 +36,8 @@ One JSON line a run, then one with all runs and the card's name and power
 limit:
 
     python3 scripts/time_cells.py \
-        [--sets phase4,cfear3_oxford,window,moments,evaluate] VARIANT ...
+        [--sets phase4,cfear3_oxford,window,moments,evaluate,tail,ops] \
+        VARIANT ...
 """
 import argparse
 import hashlib
@@ -242,6 +249,106 @@ def evaluate_set(reps, dev):
                 digest=digest.hexdigest()[:16])
 
 
+#: coral_tail's shapes: (M, slots a cloud, live share, live slots first),
+#: as chip_smoke.py's TAIL_SHAPES
+TAIL_SHAPES = {"loop_wave": (64, 4096, 0.8, False),
+               "online_loop": (12, 4096, 0.8, False),
+               "training": (13, 4800, 0.1, True),
+               "scan_pairs": (13, 1600, 0.8, False)}
+
+
+def tail_set(reps, dev):
+    """``coral_tail`` at each of :data:`TAIL_SHAPES` on the pair moments of
+    seeded clouds (entropy mode): its time by events behind a spin, the
+    host's microseconds a call and a digest of its outputs."""
+    import numpy as np
+    import torch
+
+    from tbv_slam_public_torch.kernels import coral_moments as cm
+    from tbv_slam_public_torch.ops import coral
+
+    out = {}
+    for tag, (m, n, live, packed) in TAIL_SHAPES.items():
+        rng = np.random.default_rng(31)
+        t = lambda a: torch.as_tensor(a, device=dev)
+        if packed:
+            k = rng.integers(int(0.5 * live * n), int(1.5 * live * n) + 1,
+                             (m, 1))
+            sm, rm = (t(np.arange(n)[None] < k) for _ in range(2))
+        else:
+            sm, rm = (t(rng.uniform(size=(m, n)) < live) for _ in range(2))
+        xy = rng.uniform(-15, 15, (m, n, 2)).astype(np.float32)
+        moments = cm.pair_moments(t(xy), sm, t(xy + rng.normal(
+            0, 0.2, xy.shape).astype(np.float32)), rm, 1.0)
+        call = lambda: coral.coral_tail(*moments, sm, rm, 1e-8, "entropy")
+        digest = hashlib.sha256()
+        for v in call():
+            digest.update(v.cpu().numpy().tobytes())
+        out[tag] = dict(ms=events_ms(call, reps, 100_000_000),
+                        host_us=host_us(call, 50),
+                        cluster=getattr(cm, "TAIL_CLUSTER", None),
+                        digest=digest.hexdigest()[:16])
+        if hasattr(cm, "TAIL_CLUSTER"):  # the CTAs a pair, forced
+            out[tag]["ms_by_cluster"] = {
+                g: events_ms(lambda: cm.coral_tail(
+                    *moments, sm, rm, 1e-8, "entropy", cluster=g), reps,
+                    100_000_000) for g in (1, 2, 4, 8)}
+    return out
+
+
+def ops_set(reps, dev):
+    """Each refmath op at 1, 4,096 and 2^19 contiguous values, and at 4,096
+    with a broadcast operand (a [1] second operand, or one value
+    expanded), by events behind a spin, the host's microseconds a call at
+    4,096, with a digest of the 2^19-value results (``mul`` only where the
+    tree has it)."""
+    import numpy as np
+    import torch
+
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.kernels.checks import REFMATH_RANGES
+
+    ops = dict(REFMATH_RANGES, fma=(-10.0, 10.0), mul=(-10.0, 10.0))
+    arity = dict(atan2=2, fma=3, mul=2)
+    library = dict(exp=torch.exp, log=torch.log, log1p=torch.log1p,
+                   sigmoid=torch.sigmoid, sqrt=torch.sqrt, atan2=torch.atan2,
+                   sincos=lambda v: (torch.sin(v), torch.cos(v)),
+                   wrap_angle=lambda v: torch.atan2(torch.sin(v),
+                                                    torch.cos(v)),
+                   fma=lambda a, b, c: torch.addcmul(c, a, b), mul=torch.mul)
+    out = {}
+    for op, (lo, hi) in ops.items():
+        if not hasattr(rm, op):
+            continue
+        fn = getattr(rm, op)
+        k = arity.get(op, 1)
+        rng = np.random.default_rng(37)
+        res = {}
+        fn(torch.zeros(4, device=dev), *(torch.zeros(4, device=dev)
+                                         for _ in range(k - 1)))
+        for size in (1, 4096, 1 << 19):
+            args = [torch.as_tensor(rng.uniform(lo, hi, size).astype(
+                np.float32), device=dev) for _ in range(k)]
+            call = lambda: fn(*args)
+            res[f"n{size}"] = events_ms(call, reps, 20_000_000)
+            if op in library and size > 1:
+                res[f"torch_n{size}"] = events_ms(
+                    lambda: library[op](*args), reps, 20_000_000)
+            if size == 4096:
+                res["host_us"] = host_us(call, 200)
+                wide = [args[0]] + [a[:1] for a in args[1:]] if k > 1 \
+                    else [args[0][:1].expand(size)]
+                res["broadcast_n4096"] = events_ms(lambda: fn(*wide), reps,
+                                                   20_000_000)
+        digest = hashlib.sha256()
+        got = call()
+        for v in got if isinstance(got, tuple) else (got,):
+            digest.update(v.cpu().numpy().tobytes())
+        res["digest"] = digest.hexdigest()[:16]
+        out[op] = res
+    return out
+
+
 def run(tree: str, defines: list, sets: list, reps: int) -> dict:
     """One variant, in this process."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -255,7 +362,7 @@ def run(tree: str, defines: list, sets: list, reps: int) -> dict:
     dev = torch.device("cuda")
     out = dict(tree=tree, defines=defines)
     named = dict(window=window_set, moments=moments_set,
-                 evaluate=evaluate_set)
+                 evaluate=evaluate_set, tail=tail_set, ops=ops_set)
     for name in sets:
         out[name] = (named[name](reps, dev) if name in named
                      else cloud_set(name, reps, dev))

@@ -39,6 +39,41 @@ own functions on the same inputs (``tests/test_torch_refmath.py``).
 | ``ops/registration.py::associate`` squared distances (argmin and radius gate) | fma(dy, dy, dx*dx) (the argmin's fusion), the offsets, product and sum flushed; the winner's attributes read through a one-hot product (a subnormal attribute is zero) | object code of the argmin fusion; the jitted ``associate`` on a radius between the two roundings | ``associate``, ``csrc/lm_solve.cu``'s ``sqdist`` |
 | ``ops/coral.py::_kl_divergence_2d`` | tr(S1^-1 S0) a ``dot`` of the four products in order, each rounded; the Mahalanobis term two dots of fused multiply-adds from zero | optimized HLO of the function; its einsums compiled alone, bit-equal | written out (``csrc/coral_moments.cu``'s ``coral_tail`` alike) |
 | subnormal operands and results of the functions above, of :func:`dot`, :func:`loop_dot`, :func:`lu_solve` and :func:`fma` (``vfmadd`` flushes; jaxlib runs the LAPACK on the same thread), and at the audited sites (CorAl's moment sums, covariance and KL inverse, the eigen gates and the cells' covariance, the association's distances and attributes, the registration residuals and the LM's products w J [J | r], PGO's residuals, Jacobian blocks, weights, gradient and Hessian blocks, the logistic fit's coefficients) | flushed to zero (the reference's threads run with DAZ and FTZ), a result where its rounding with an unbounded exponent is below 2^-126 (x86 detects tininess after rounding: an exact result in [2^-126 - 2^-150, 2^-126 - 2^-151), which gradual underflow rounds up to 2^-126, is flushed) | outputs on inputs driven into the subnormal range, against the package's own functions (``tests/test_torch_parity_faults.py``, the ``flush`` cases; the tie: ``tests/test_torch_parity_repairs.py``) | :func:`ftz`; products and fused multiply-adds by their exact result (:func:`_flush`: :func:`mul_ftz`, :func:`sum_ftz`, :func:`fma`) (kernel op ``ftz`` on the card; ``.ftz`` instructions ``mul_ftz``/``fma_ftz``/``ref_fma`` and ``daz`` in the kernels) |
+| lone products (a multiply not fused into an add): PGO's weighted residual w r; the CFEAR cells' mu_0 mu_1, the eigen gate's lmax lmin and the normal's orientation n_0 (o - mean)_0; CorAl's c01 c10, the KL inverse's entries, its trace products and its Mahalanobis first products; the residuals' first products (s u_y, c u_y, n_0 e_0, n_1 dy, u_0 e_0, u_r0 dx) | ``vmulps`` on the FTZ / DAZ threads: the product flushed by its exact value (a product in the tie interval is 0, not 2^-126); a subnormal sine (``sinf`` returns a subnormal theta unchanged) read as zero | object code of the fusions; each driven into the tie against the package's functions (``tests/test_torch_parity_repairs.py``: ``test_flush_tie_in_lone_products``, ``test_flush_tie_in_residual_products``, the sine's case) | :func:`mul_ftz` (the refmath op :func:`mul` where PGO runs on the card: one launch); ``refmath.cuh``'s ``mul_ftz`` (mul.rn.ftz) in ``csrc/cells.cu``, ``coral_moments.cu``'s ``tail_det``/``tail_kl`` and ``lm_solve.cu``'s ``leaf`` |
+
+The flush tie, product by product.  The products the port still writes
+as ``ftz(a * b)`` (plain) or ``daz(__fmul_rn(a, b))`` (kernels) round
+with gradual underflow and flush after: on the tie they give 2^-126 where
+the reference gives 0.  None of them is on the tie in these cases:
+
+- squares (PGO's r r, the cells' mu_i mu_i, d d, b b and v_0 v_0, the
+  residuals' r_0 r_0, the gates' radius^2): no float32 square lies in the
+  interval (with x = m 2^e, x^2 = 2^-126 (1 - d) needs m^2 in [2^48 -
+  2^24, 2^48 - 2^23), and (2^24 - 1)^2 = 2^48 - 2^25 + 1 is under it;
+  ``test_association_distances_never_reach_the_tie``);
+- products by 2^k, k >= 0 (``2.0 * x`` of the sampled covariance's
+  Hessian and inverse), by 1 or by 0 (P2D's Jacobian rows): exact, and a
+  normal operand gives 2^-126 or more;
+- XLA exp's scale y 2^n (a negative power: the tie needs y 2^n = 2^-126 -
+  2^-150 exactly): every float32 x in [-88, -87] gives the reference's
+  bits (``test_exp_scale_never_reaches_the_tie``);
+- the KL score's half 0.5 (t + log(det1 / det0)): t = (trace + mahal) - 3
+  is 0 or a multiple of 2^-23 at least, the log of a float32 ratio 0 or
+  2^-25 at least, so their sum is never 2^-125 - 2^-149.
+
+These could meet the tie, no case is built for them, and each keeps the
+gradual rounding in plain and kernel alike (``ROADMAP.md`` section 3):
+the halves of sums (the cells' 0.5 (k01 + k10) and the eigen gate's half
+trace, reached only where the sum is +-(2^-125 - 2^-149)); the combined
+loss's weight f' g' (a residual above about 1e18); jaxlib's LAPACK
+products (``la_mul``, :func:`_mul`, :func:`lu_solve`'s scaled rows and
+dot remainders, ``ceres_covariance``'s 30 x score and scale x inverse,
+the sampled covariance's scale products), reached only with entries near
+2^-63; the association's normal-direction products, whose fused sum waits
+for the LM's sums (``ROADMAP.md`` section 3 item 1); and the bare first
+products of se2's sites and of the association's world transform
+(``csrc/refmath_sites.cu``, ``lm_solve.cu``'s association), written
+without a flush in both.
 
 Fused multiply-adds inside the functions:
 
@@ -176,6 +211,14 @@ def mul_ftz(a, b) -> torch.Tensor:
     operands are taken as given (flushed by the caller where the reference
     flushes them)."""
     return _flush(a * b, lambda: (_as64(a) * _as64(b), 0.0))
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The refmath op ``mul``: a lone float32 product a * b as the
+    reference's threads compute it (DAZ and FTZ) and the card's mul.rn.ftz:
+    subnormal operands read as zero, the result flushed by its exact value
+    (:func:`mul_ftz`); the operands broadcast together."""
+    return mul_ftz(ftz(a), ftz(b))
 
 
 def sum_ftz(p64: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:

@@ -193,10 +193,12 @@ __device__ void finish_cell(const CellOut& o, int c, bool occ, int count,
                             float mu1, float q00, float q01, float q10,
                             float q11) {
   // covariance qq - mu mu^T, symmetrised; the mean; from here on every
-  // subnormal result is flushed (daz), as the plain version flushes it
+  // subnormal result is flushed (daz), as the plain version flushes it,
+  // the lone products mu_i mu_j by their exact value (mul_ftz; the squares
+  // never reach the flush tie)
   const float k00 = daz(__fsub_rn(q00, daz(__fmul_rn(mu0, mu0))));
-  const float k01 = daz(__fsub_rn(q01, daz(__fmul_rn(mu0, mu1))));
-  const float k10 = daz(__fsub_rn(q10, daz(__fmul_rn(mu1, mu0))));
+  const float k01 = daz(__fsub_rn(q01, mul_ftz(mu0, mu1)));
+  const float k10 = daz(__fsub_rn(q10, mul_ftz(mu1, mu0)));
   const float k11 = daz(__fsub_rn(q11, daz(__fmul_rn(mu1, mu1))));
   const float s00 = daz(__fmul_rn(0.5f, daz(__fadd_rn(k00, k00))));
   const float s01 = daz(__fmul_rn(0.5f, daz(__fadd_rn(k01, k10))));
@@ -229,12 +231,12 @@ __device__ void finish_cell(const CellOut& o, int c, bool occ, int count,
   }
   const float cond =
       daz(fabsf(__fdiv_rn(lmax, fabsf(lmin) > 1e-20f ? lmin : 1e-20f)));
-  const float det = daz(__fmul_rn(lmax, lmin));
+  const float det = mul_ftz(lmax, lmin);
   const bool cov_ok =
       cond <= o.max_cond && det > o.min_det && lmin > 0.0f && lmax > 0.0f;
   const float planarity = ref_log1p(daz(__fdiv_rn(cond, 2.0f)));
   if (fma_ftz(vy, daz(__fsub_rn(o.oy, my)),
-                    daz(__fmul_rn(vx, daz(__fsub_rn(o.ox, mx))))) < 0.0f) {
+              mul_ftz(vx, daz(__fsub_rn(o.ox, mx)))) < 0.0f) {
     vx = -vx;
     vy = -vy;
   }

@@ -57,11 +57,15 @@
 // coral_tail (ops/coral.py::coral_tail) is a second kernel in this file:
 // CorAl's per-point terms and the pairs' sums after the moments, described
 // above coral_tail_kernel.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "refmath.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -434,17 +438,31 @@ void set_cloud(Cloud& cl, const void* xy, const void* mask, long long xy_row,
 // which fuses it around the Pallas call.  The port's plain version runs it
 // as about 70 launches a call.  Bound: bytes, 56 a live query (its 14
 // moment floats), about 9 us for a 64-pair wave of 8,192 live slots each.
-// Design: a block of 1,024 threads a pair.  A thread a slot computes the
-// slot's terms (a dead slot's moments are never read), 4,096 slots a pass,
-// into shared memory; then a thread a window adds its 32 in the window's
-// order; the windows' sums stay in shared memory, one barrier a level of
-// the tree, the last level in one thread.  (A first design gave each
-// thread a whole window, whose 32 slots' dependent loads then ran one after
-// another: 0.056 ms a launch at any M.)
-constexpr int kTailThreads = 1024;
+// Design: a thread-block cluster of G CTAs a pair (G <= 8, chosen by the
+// host from M and the pair's windows so that M x G fills the SMs), each CTA
+// a contiguous run of the level-1 windows (32 slots of the padded slot
+// space, half the padding in front), a warp a window (two windows at a
+// time, their loads in flight together): its lanes read the window's 32
+// mask bytes (one coalesced 32-byte load) and vote; a window
+// with no live slot adds to +0.0 with a count of 0 and reads no moment;
+// else a lane computes its slot's terms, the lanes store them in the
+// warp's shared-memory row, and lanes 0 and 1 add the 32 sep and the 32
+// joint values in order from zero (8 float4 loads each; no block barrier
+// between slots and windows).  Lanes 0 and 1 write the window's two sums,
+// its valid count and its live count into the cluster leader's shared
+// memory (distributed shared memory); after one cluster.sync the leader
+// adds the levels of 32 (a warp a window, a chain of shuffles) and the
+// counts, and writes joint, sep, overlap and valid.  Adding +0.0 to a sum that starts at +0.0
+// changes no bit, so padding is a matter of which slots share a window.
+// (A block of 1,024 threads a pair, a thread a slot, with a barrier after
+// each pass of 4,096 slots and between levels, fills only 12-13 of the
+// 132 SMs at the online shapes.)
+constexpr int kTailWarps = 32;
+constexpr int kTailThreads = 32 * kTailWarps;
 constexpr int kTreeWindow = 32;
-constexpr int kTailChunk = 4096;  // padded slots a pass (128 windows)
+constexpr int kTailMaxCluster = 8;  // the portable cluster size
 
+// (kernels/coral_moments.py::TAIL_PARAMS packs it: 112 bytes)
 struct TailParams {
   const float* count;     // [2, M, Q]
   const float2* sum_rel;  // [2, M, Q]
@@ -478,7 +496,7 @@ __device__ __forceinline__ void tail_mean_cov(float n, float2 s1, float4 s2,
 }
 
 __device__ __forceinline__ float tail_det(const float* c) {
-  return daz(ref_fma(c[0], c[3], -daz(__fmul_rn(c[1], c[2]))));
+  return daz(ref_fma(c[0], c[3], -mul_ftz(c[1], c[2])));
 }
 
 // _entropy_from_moments
@@ -494,17 +512,19 @@ __device__ float tail_kl(const float* u0, const float* s0, const float* u1,
                          const float* s1, bool* finite) {
   const float det0 = tail_det(s0), det1 = tail_det(s1);
   const float inv = daz(__fdiv_rn(1.0f, det1 == 0.0f ? 1.0f : det1));
-  const float s1i[4] = {daz(__fmul_rn(s1[3], inv)), daz(__fmul_rn(-s1[1], inv)),
-                        daz(__fmul_rn(-s1[2], inv)), daz(__fmul_rn(s1[0], inv))};
+  // every lone product flushed by its exact value (mul_ftz), as the
+  // reference's FTZ threads and the plain version flush it
+  const float s1i[4] = {mul_ftz(s1[3], inv), mul_ftz(-s1[1], inv),
+                        mul_ftz(-s1[2], inv), mul_ftz(s1[0], inv)};
   // tr(S1^-1 S0): the four products in order, each rounded
-  float trace = daz(__fmul_rn(s1i[0], s0[0]));
-  trace = daz(__fadd_rn(trace, daz(__fmul_rn(s1i[1], s0[2]))));
-  trace = daz(__fadd_rn(trace, daz(__fmul_rn(s1i[2], s0[1]))));
-  trace = daz(__fadd_rn(trace, daz(__fmul_rn(s1i[3], s0[3]))));
+  float trace = mul_ftz(s1i[0], s0[0]);
+  trace = daz(__fadd_rn(trace, mul_ftz(s1i[1], s0[2])));
+  trace = daz(__fadd_rn(trace, mul_ftz(s1i[2], s0[1])));
+  trace = daz(__fadd_rn(trace, mul_ftz(s1i[3], s0[3])));
   const float d0 = daz(__fsub_rn(u1[0], u0[0])), d1 = daz(__fsub_rn(u1[1], u0[1]));
-  const float t0 = ref_fma(d1, s1i[2], __fmul_rn(d0, s1i[0]));
-  const float t1 = ref_fma(d1, s1i[3], __fmul_rn(d0, s1i[1]));
-  const float mahal = ref_fma(d1, t1, __fmul_rn(d0, t0));
+  const float t0 = ref_fma(d1, s1i[2], mul_ftz(d0, s1i[0]));
+  const float t1 = ref_fma(d1, s1i[3], mul_ftz(d0, s1i[1]));
+  const float mahal = ref_fma(d1, t1, mul_ftz(d0, t0));
   const float score = daz(__fmul_rn(
       0.5f, daz(__fadd_rn(daz(__fsub_rn(daz(__fadd_rn(trace, mahal)), 3.0f)),
                           ref_log(daz(__fdiv_rn(det1, det0)))))));
@@ -512,22 +532,33 @@ __device__ float tail_kl(const float* u0, const float* s0, const float* u1,
   return *finite ? score : 0.0f;
 }
 
-// query q of pair m: its masked (sep, joint) terms and validity; *live its
-// mask
-__device__ void tail_query(const TailParams& p, int m, int q, float* vs,
-                           float* vj, int* ok, int* live) {
-  const bool is_ref = q >= p.S;
+// a query's moments over its own cloud and over the other
+struct TailMoments {
+  float n_own, n_oth;
+  float2 r_own, r_oth;
+  float4 q_own, q_oth;
+};
+
+// query q of pair m's moments: six loads, issued together
+__device__ __forceinline__ TailMoments tail_load(const TailParams& p, int m,
+                                                 int q) {
   const int Q = p.S + p.R;
-  *vs = 0.0f, *vj = 0.0f, *ok = 0;
-  *live = is_ref ? p.rmask[m * p.rmask_row + (q - p.S)] != 0
-                 : p.smask[m * p.smask_row + q] != 0;
-  if (!*live) return;
   const long long own = (long long)m * Q + q, oth = own + (long long)p.M * Q;
-  const float n_own = p.count[own], n_oth = p.count[oth];
+  return {__ldg(p.count + own), __ldg(p.count + oth),
+          __ldg(p.sum_rel + own), __ldg(p.sum_rel + oth),
+          __ldg(p.sum_sq + own), __ldg(p.sum_sq + oth)};
+}
+
+// live query q's (sep, joint) terms and validity from its moments
+__device__ void tail_terms(const TailParams& p, int q, const TailMoments& t,
+                           float* vs, float* vj, int* ok) {
+  const bool is_ref = q >= p.S;
+  *vs = 0.0f, *vj = 0.0f, *ok = 0;
+  const float n_own = t.n_own, n_oth = t.n_oth;
+  const float2 r_own = t.r_own, r_oth = t.r_oth;
+  const float4 q_own = t.q_own, q_oth = t.q_oth;
   const float n_joint = __fadd_rn(n_own, n_oth);
   if (!(n_oth >= 1.0f && n_own > 2.0f && n_joint > 2.0f)) return;
-  const float2 r_own = p.sum_rel[own], r_oth = p.sum_rel[oth];
-  const float4 q_own = p.sum_sq[own], q_oth = p.sum_sq[oth];
   const float2 r_joint = make_float2(daz(__fadd_rn(r_own.x, r_oth.x)),
                                      daz(__fadd_rn(r_own.y, r_oth.y)));
   const float4 q_joint = make_float4(
@@ -554,99 +585,155 @@ __device__ void tail_query(const TailParams& p, int m, int q, float* vs,
   if (isfinite(sep) && isfinite(joint)) *vs = sep, *vj = joint, *ok = 1;
 }
 
+// the in-order sum from zero of the 32 lanes' v (lane 0's first), in
+// every lane
+__device__ __forceinline__ float lanes_in_order(float v) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kTreeWindow; ++k)
+    acc = __fadd_rn(acc, __shfl_sync(kFull, v, k));
+  return acc;
+}
+
+// The in-order sums from zero of the 32 lanes' a (in lane 0) and b (in
+// lane 1), through the warp's 64 floats of shared memory: two stores a
+// lane, then 8 float4 loads and 32 adds in the two lanes.
+__device__ __forceinline__ float window_sums(float a, float b, float* row) {
+  const int lane = threadIdx.x & 31;
+  row[lane] = a;
+  row[kTreeWindow + lane] = b;
+  __syncwarp();
+  float acc = 0.0f;
+  if (lane < 2) {
+    const float4* v = reinterpret_cast<const float4*>(row + lane * kTreeWindow);
+#pragma unroll
+    for (int k = 0; k < kTreeWindow / 4; ++k) {
+      const float4 x = v[k];
+      acc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(acc, x.x), x.y), x.z),
+                      x.w);
+    }
+  }
+  __syncwarp();
+  return acc;
+}
+
+// the sum of the 32 lanes' v (integers: any order)
+__device__ __forceinline__ int lanes_total(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// The leader's level-1 arrays: the windows' sep and joint sums, valid and
+// live counts ([n1] each, in dynamic shared memory).
+struct TailLevels {
+  float* sep;
+  float* joint;
+  int* valid;
+  int* live;
+};
+
+__device__ __forceinline__ TailLevels tail_levels(float* base, int n1) {
+  return {base, base + n1, reinterpret_cast<int*>(base + 2 * n1),
+          reinterpret_cast<int*>(base + 3 * n1)};
+}
+
 __global__ void __launch_bounds__(kTailThreads)
     coral_tail_kernel(const TailParams p) {
   extern __shared__ float tail_smem[];
-  __shared__ int s_live;
-  const int m = blockIdx.x, tid = threadIdx.x, Q = p.S + p.R;
+  // a warp's window values (sep, joint) for window_sums
+  __shared__ __align__(16) float rows[kTailWarps][2 * kTreeWindow];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int m = blockIdx.x / G, Q = p.S + p.R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n1 = (Q + kTreeWindow - 1) / kTreeWindow;
-  // two buffers of the windows' (sep, joint) sums and counts, ping-pong
-  float* buf[2][2] = {{tail_smem, tail_smem + n1},
-                      {tail_smem + 2 * n1, tail_smem + 3 * n1}};
-  int* cnt = reinterpret_cast<int*>(tail_smem + 4 * n1);
-  // a pass's slot values (sep, joint, valid), a pad after every 32 so the
-  // window sums below read them without bank conflicts
-  float* val_s = tail_smem + 5 * n1;
-  float* val_j = val_s + kTailChunk / 32 * 33;
-  uint8_t* val_ok = reinterpret_cast<uint8_t*>(val_j + kTailChunk / 32 * 33);
-  if (tid == 0) s_live = 0;
-  // level 1: windows of 32 slots (all of them in one window when Q <= 32,
-  // which then is the whole sum), a pass of kTailChunk padded slots at a
-  // time: a thread a slot computes its terms, then a thread a window adds
-  // the window's 32 in order from zero
-  const int width = Q <= kTreeWindow ? Q : kTreeWindow;
+  // Q <= 32: one window of the Q slots (the whole sum); else windows of 32
+  // in the padded slot space, half the padding in front
   const int front = Q <= kTreeWindow ? 0 : (n1 * kTreeWindow - Q) / 2;
-  const int padded = Q <= kTreeWindow ? Q : n1 * kTreeWindow;
-  int lives = 0;
-  for (int c0 = 0; c0 < padded; c0 += kTailChunk) {
-    const int len = min(kTailChunk, padded - c0);
-    for (int j = tid; j < len; j += kTailThreads) {
-      const int q = c0 + j - front;
-      float vs = 0.0f, vj = 0.0f;
-      int ok = 0, live = 0;
-      if (q >= 0 && q < Q) tail_query(p, m, q, &vs, &vj, &ok, &live);
-      const int at = j + j / 32;
-      val_s[at] = vs;
-      val_j[at] = vj;
-      val_ok[at] = (uint8_t)ok;
-      lives += live;
+  const TailLevels leader = tail_levels(
+      cluster.map_shared_rank(tail_smem, 0), n1);
+  // level 1: this CTA's run of windows, a warp a window, two windows of a
+  // warp at a time (their mask and moment loads in flight together)
+  const int per = (n1 + G - 1) / G;
+  const int w_end = min(n1, (rank + 1) * per);
+  for (int w0 = rank * per + warp; w0 < w_end; w0 += 2 * kTailWarps) {
+    int q[2];
+    bool live[2];
+    unsigned lives[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int w = w0 + k * kTailWarps;
+      q[k] = w * kTreeWindow + lane - front;
+      live[k] = w < w_end && q[k] >= 0 && q[k] < Q &&
+                (q[k] < p.S ? p.smask[m * p.smask_row + q[k]]
+                            : p.rmask[m * p.rmask_row + (q[k] - p.S)]) != 0;
+      lives[k] = __ballot_sync(kFull, live[k]);
     }
-    __syncthreads();
-    for (int w = tid; w * kTreeWindow < len; w += kTailThreads) {
-      float as = 0.0f, aj = 0.0f;
-      int ac = 0;
-      for (int k = 0; k < width; ++k) {
-        const int at = w * (kTreeWindow + 1) + k;
-        as = __fadd_rn(as, val_s[at]);
-        aj = __fadd_rn(aj, val_j[at]);
-        ac += val_ok[at];
+    TailMoments mo[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (live[k]) mo[k] = tail_load(p, m, q[k]);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int w = w0 + k * kTailWarps;
+      float sum = 0.0f;  // lane 0: the window's sep sum, lane 1: joint
+      int valid = 0;
+      if (lives[k]) {  // uniform in the warp
+        float vs = 0.0f, vj = 0.0f;
+        int ok = 0;
+        if (live[k]) tail_terms(p, q[k], mo[k], &vs, &vj, &ok);
+        sum = window_sums(vs, vj, rows[warp]);
+        valid = __popc(__ballot_sync(kFull, ok != 0));
       }
-      const int win = c0 / kTreeWindow + w;
-      buf[0][0][win] = as;
-      buf[0][1][win] = aj;
-      cnt[win] = ac;
+      if (w < w_end) {
+        if (lane == 0) {
+          leader.sep[w] = sum;
+          leader.valid[w] = valid;
+          leader.live[w] = __popc(lives[k]);
+        } else if (lane == 1) {
+          leader.joint[w] = sum;
+        }
+      }
     }
-    __syncthreads();
   }
-  if (lives) atomicAdd(&s_live, lives);
-  __syncthreads();
-  // the windows' sums, windows of 32 again until at most 32 are left
+  cluster.sync();  // every window's sums are in the leader
+  if (rank != 0) return;
+  // the windows' sums, windows of 32 again (half the padding in front)
+  // until at most 32 are left, a warp a window; then the counts
+  float* buf[2] = {leader.sep, tail_smem + 4 * n1};
+  float* bufj[2] = {leader.joint, tail_smem + 4 * n1 + (n1 + 31) / 32};
   int len = n1, cur = 0;
   while (len > kTreeWindow) {
     const int n2 = (len + kTreeWindow - 1) / kTreeWindow;
     const int f2 = (n2 * kTreeWindow - len) / 2;
-    for (int w = tid; w < n2; w += kTailThreads) {
-      float as = 0.0f, aj = 0.0f;
-      for (int k = 0; k < kTreeWindow; ++k) {
-        const int i = w * kTreeWindow + k - f2;
-        const bool in = i >= 0 && i < len;
-        as = __fadd_rn(as, in ? buf[cur][0][i] : 0.0f);
-        aj = __fadd_rn(aj, in ? buf[cur][1][i] : 0.0f);
-      }
-      buf[cur ^ 1][0][w] = as;
-      buf[cur ^ 1][1][w] = aj;
+    for (int w = warp; w < n2; w += kTailWarps) {
+      const int i = w * kTreeWindow + lane - f2;
+      const bool in = i >= 0 && i < len;
+      const float as = lanes_in_order(in ? buf[cur][i] : 0.0f);
+      const float aj = lanes_in_order(in ? bufj[cur][i] : 0.0f);
+      if (lane == 0) buf[cur ^ 1][w] = as, bufj[cur ^ 1][w] = aj;
     }
     cur ^= 1;
     len = n2;
     __syncthreads();
   }
-  if (tid == 0) {
-    float as = buf[cur][0][0], aj = buf[cur][1][0];  // Q <= 32: level 1 is all
-    int count = 0;
-    if (Q > kTreeWindow) {
-      as = 0.0f, aj = 0.0f;
-      for (int i = 0; i < len; ++i) {
-        as = __fadd_rn(as, buf[cur][0][i]);
-        aj = __fadd_rn(aj, buf[cur][1][i]);
-      }
+  if (warp == 0) {  // the last level (at most 32 sums) in order from zero
+    const float as = lanes_in_order(lane < len ? buf[cur][lane] : 0.0f);
+    const float aj = lanes_in_order(lane < len ? bufj[cur][lane] : 0.0f);
+    int count = 0, lives = 0;
+    for (int w = lane; w < n1; w += 32)
+      count += leader.valid[w], lives += leader.live[w];
+    count = lanes_total(count);
+    lives = lanes_total(lives);
+    if (lane == 0) {
+      const float denom = count < 1 ? 1.0f : (float)count;
+      p.sep[m] = __fdiv_rn(as, denom);
+      p.joint[m] = __fdiv_rn(aj, denom);
+      const float ov = __fdiv_rn((float)count, (float)(lives < 1 ? 1 : lives));
+      p.overlap[m] = ov;
+      p.valid[m] = ov >= 0.1f;
     }
-    for (int w = 0; w < n1; ++w) count += cnt[w];
-    const float denom = count < 1 ? 1.0f : (float)count;
-    p.sep[m] = __fdiv_rn(as, denom);
-    p.joint[m] = __fdiv_rn(aj, denom);
-    const float ov = __fdiv_rn((float)count, (float)(s_live < 1 ? 1 : s_live));
-    p.overlap[m] = ov;
-    p.valid[m] = ov >= 0.1f;
   }
 }
 
@@ -702,47 +789,52 @@ extern "C" int coral_pair_moments_launch(const void* src, const void* smask,
 // [2, M, Q, 2], sum_sq [2, M, Q, 2, 2], contiguous, Q = S + R) and masks
 // (src [M, S], ref [M, R] bytes, row strides in bytes): joint, sep, overlap
 // [M] float32 and valid [M] bytes, entropy mode or (kl != 0) KL mode; eps
-// and 2 pi e as float32.  Returns a CUDA error code.
-extern "C" int coral_tail_launch(const void* count, const void* sum_rel,
-                                 const void* sum_sq, const void* smask,
-                                 const void* rmask, long long smask_row,
-                                 long long rmask_row, int M, int S, int R,
-                                 int kl, float eps, float two_pi_e,
-                                 void* joint, void* sep, void* overlap,
-                                 void* valid, void* stream) {
+// and 2 pi e as float32.  ``params`` is the TailParams the wrapper packs
+// (kernels/coral_moments.py::TAIL_PARAMS); cluster: the CTAs a pair (0:
+// chosen from M and the windows), the size used written to *cluster_out.
+// Returns a CUDA error code.
+extern "C" int coral_tail_launch(const void* params, int cluster,
+                                 int* cluster_out, void* stream) {
+  TailParams p;
+  memcpy(&p, params, sizeof(TailParams));
+  const int M = p.M, S = p.S, R = p.R;
   if (M <= 0) return 0;
   if (S < 0 || R < 0 || M > 2147483647 / 2) return (int)cudaErrorInvalidValue;
-  TailParams p;
-  p.count = (const float*)count;
-  p.sum_rel = (const float2*)sum_rel;
-  p.sum_sq = (const float4*)sum_sq;
-  p.smask = (const uint8_t*)smask;
-  p.rmask = (const uint8_t*)rmask;
-  p.smask_row = smask_row;
-  p.rmask_row = rmask_row;
-  p.M = M;
-  p.S = S;
-  p.R = R;
-  p.kl = kl;
-  p.eps = eps;
-  p.two_pi_e = two_pi_e;
-  p.joint = (float*)joint;
-  p.sep = (float*)sep;
-  p.overlap = (float*)overlap;
-  p.valid = (uint8_t*)valid;
   const long long n1 = ((long long)S + R + kTreeWindow - 1) / kTreeWindow;
-  // the tree's buffers and counts, then a pass's values (two padded float
-  // arrays and their flags)
-  const long long smem = 5 * (n1 > 0 ? n1 : 1) * 4 +
-                         2 * (kTailChunk / 32 * 33) * 4 + kTailChunk / 32 * 33;
+  if (n1 == 0) return (int)cudaErrorInvalidValue;
+  // cluster size G: M x G CTAs fill the 132 SMs where the windows allow
+  int G = cluster;
+  if (G <= 0) {
+    G = 132 / M;
+    G = G < 1 ? 1 : G > kTailMaxCluster ? kTailMaxCluster : G;
+    if (G > n1) G = (int)n1;
+  }
+  if (G < 1 || G > kTailMaxCluster) return (int)cudaErrorInvalidValue;
+  // the level-1 arrays (4 x n1) and the second level's two (n1 / 32 each),
+  // in every CTA (only the leader's are used)
+  const long long smem = (4 * n1 + 2 * ((n1 + 31) / 32)) * 4;
   if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {  // clouds of more than about 6,000 slots each
+  if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         coral_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  coral_tail_kernel<<<(unsigned)M, kTailThreads, (size_t)smem,
-                      (cudaStream_t)stream>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)M * (unsigned)G);
+  cfg.blockDim = dim3(kTailThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cluster_out) *cluster_out = G;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, coral_tail_kernel, p);
+  static_assert(sizeof(TailParams) == 112, "TAIL_PARAMS");
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

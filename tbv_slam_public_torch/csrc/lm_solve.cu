@@ -237,33 +237,36 @@ __device__ __forceinline__ void leaf(const Params& p, const Rec& d, int i,
   }
   const int q = i / p.R, r = i - q * p.R, l = q - q0;
   // subnormal operands and every subnormal product and sum flushed (daz),
-  // as _residual_terms flushes them
+  // as _residual_terms flushes them; the sine of a subnormal theta (sinf
+  // returns it unchanged) is an operand read as zero
+  s = daz(s);
+  // the first products of the fused sums flushed by their exact value
+  // (mul_ftz), as the reference's FTZ threads flush a lone product
   const float ux = daz(d.sx[l]), uy = daz(d.sy[l]);
-  const float dy = fma_ftz(c, ux, -daz(__fmul_rn(s, uy)));
+  const float dy = fma_ftz(c, ux, -mul_ftz(s, uy));
   const float wx = daz(__fadd_rn(dy, th0));
-  const float wy =
-      daz(__fadd_rn(fma_ftz(s, ux, daz(__fmul_rn(c, uy))), th1));
-  const float dx = fma_ftz(-s, ux, -daz(__fmul_rn(c, uy)));
+  const float wy = daz(__fadd_rn(fma_ftz(s, ux, mul_ftz(c, uy)), th1));
+  const float dx = fma_ftz(-s, ux, -mul_ftz(c, uy));
   const float e0 = daz(__fsub_rn(wx, daz(d.mx[l])));
   const float e1 = daz(__fsub_rn(wy, daz(d.my[l])));
   float J[3], res, sq;
   if (p.cost == kP2L) {
     const float n0 = daz(d.nx[l]), n1 = daz(d.ny[l]);
-    res = fma_ftz(n1, e1, daz(__fmul_rn(n0, e0)));
+    res = fma_ftz(n1, e1, mul_ftz(n0, e0));
     J[0] = n0;
     J[1] = n1;
-    J[2] = fma_ftz(n0, dx, daz(__fmul_rn(n1, dy)));
+    J[2] = fma_ftz(n0, dx, mul_ftz(n1, dy));
     sq = daz(__fmul_rn(res, res));
   } else if (p.cost == kP2D) {
     const float* uu = d.u + 4 * l;  // u[row * 2 + col]
     const float u[4] = {daz(uu[0]), daz(uu[1]), daz(uu[2]), daz(uu[3])};
-    const float r0 = fma_ftz(u[1], e1, daz(__fmul_rn(u[0], e0)));
-    const float r1 = fma_ftz(u[3], e1, daz(__fmul_rn(u[2], e0)));
+    const float r0 = fma_ftz(u[1], e1, mul_ftz(u[0], e0));
+    const float r1 = fma_ftz(u[3], e1, mul_ftz(u[2], e0));
     const float a = u[2 * r], b = u[2 * r + 1];
     // row r of u [[1, 0, dx], [0, 1, dy]]
     J[0] = fma_ftz(b, 0.0f, daz(__fmul_rn(a, 1.0f)));
     J[1] = fma_ftz(b, 1.0f, daz(__fmul_rn(a, 0.0f)));
-    J[2] = fma_ftz(b, dy, daz(__fmul_rn(a, dx)));
+    J[2] = fma_ftz(b, dy, mul_ftz(a, dx));
     res = r == 0 ? r0 : r1;
     sq = fma_ftz(r1, r1, daz(__fmul_rn(r0, r0)));
   } else {  // P2P

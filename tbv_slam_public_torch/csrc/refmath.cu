@@ -16,51 +16,238 @@
 // functions are in refmath.cuh, which the registration kernel (lm_solve.cu)
 // inlines too.
 //
-// One launch per call: an op code, one to three float32 inputs, one or two
-// outputs (sincos writes both).  fma is the fused multiply-add that the
+// The elementwise ops, one kernel an op (a template on the op, so each has
+// its own register count and occupancy): exp, log, log1p, sigmoid, sincos
+// (two outputs), atan2, wrap_angle, fma (the fused multiply-add that the
 // reference's compiler makes of a product feeding an add, its subnormal
 // operands and result flushed as vfmadd flushes them on the reference's
-// threads (DAZ and FTZ); sqrt is the IEEE
-// square root, which the reference's program computes (torch's CPU sqrt
-// does not: the plain version rounds a float64 root).
-// refmath_loop_dot_launch is the logistic gradient's sum in the reference's
-// vectorised loop's order; refmath_lu_solve_launch its Newton step's solve
-// as the reference's LAPACK and BLAS routines round it;
-// refmath_ceres_covariance_launch ceres_covariance's tail after its
-// Hessian.  refmath_lm_update_launch is the LM step theta - H^{-1} g in the
-// reference's closed form, a thread a system.  refmath_dot_launch is the small matrix
-// product whose terms the reference adds one at a time.  Bound: bytes, 8-16 B a value read and 4-8 B
-// written against 20-60 float or double operations; the call sites pass a
-// few to a few thousand values, so a launch is latency.
+// DAZ / FTZ threads), sqrt (the IEEE square root, which the reference's
+// program computes; torch's CPU sqrt does not: the plain version rounds a
+// float64 root), ftz (the flush) and mul (a lone product, mul.rn.ftz: its
+// operands and its result flushed as the reference's threads flush them,
+// the result by its exact value).  Each op has three kernels.  Operands
+// contiguous, of the output's shape and 16-byte aligned take float4 loads
+// and stores (the vector kernel), 4 values a thread (two vectors in flight
+// where the grid is full), the last n % 4 values one a thread; the heavy
+// ops (sigmoid, sincos, atan2, wrap_angle), and every op at up to 4,096
+// values, take a value a thread instead (the flat kernel: their time is a
+// thread's latency); any other operand (offset, strided, broadcast) is
+// read through its strides, up to 6 dimensions, a value a thread, into a
+// contiguous output (the strided kernel).  Grid-stride loops over at most
+// 4 waves of the blocks the multiprocessors hold at the op's occupancy.
+// Bound: bytes (4-12 B read and 4-8 B written a value); the operation
+// counts of atan2 and wrap_angle (glibc's reduction, polynomials and IEEE
+// divisions, partly in double; chip_smoke.py's REFMATH_FLOPS) come within
+// a factor of two of it.
+//
 #include "refmath.cuh"
 
 namespace {
 
 enum Op {
-  kExp = 0, kLog, kLog1p, kSigmoid, kSinCos, kAtan2, kWrap, kFma, kSqrt, kFtz
+  kExp = 0, kLog, kLog1p, kSigmoid, kSinCos, kAtan2, kWrap, kFma, kSqrt, kFtz,
+  kMul, kOps
 };
 
-__global__ void refmath_kernel(int op, const float* __restrict__ x,
-                               const float* __restrict__ y,
-                               const float* __restrict__ z,
-                               float* __restrict__ out0,
-                               float* __restrict__ out1, long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float v = x[i], s, c;
-    switch (op) {
-      case kExp: out0[i] = ref_exp(v); break;
-      case kLog: out0[i] = ref_log(v); break;
-      case kLog1p: out0[i] = ref_log1p(v); break;
-      case kSigmoid: out0[i] = ref_sigmoid(v); break;
-      case kSinCos: ref_sincos(v, &s, &c); out0[i] = s; out1[i] = c; break;
-      case kAtan2: out0[i] = ref_atan2(v, y[i]); break;
-      case kWrap: ref_sincos(v, &s, &c); out0[i] = ref_atan2(s, c); break;
-      case kFma: out0[i] = ref_fma(v, y[i], z[i]); break;
-      case kSqrt: out0[i] = __fsqrt_rn(daz(v)); break;
-      case kFtz: out0[i] = daz(v); break;
-    }
+__host__ __device__ constexpr int op_inputs(int op) {
+  return op == kFma ? 3 : (op == kAtan2 || op == kMul) ? 2 : 1;
+}
+
+constexpr int kOpThreads = 256;
+constexpr int kOpDims = 6;
+
+// refmath_op_launch's description of a call (kernels/refmath.py OP_ARGS):
+// the inputs, the outputs, the values, the output's shape (6 dimensions,
+// left-padded with 1) and each input's strides in elements (0 where it is
+// broadcast); shape and strides are read by the strided path only.
+struct OpArgs {
+  const float* in[3];
+  float* out[2];
+  long long n;
+  long long shape[kOpDims];
+  long long stride[3][kOpDims];
+};
+
+// op on one value (x, y, z its inputs); sincos writes *o1 too.
+template <int OP>
+__device__ __forceinline__ float op_value(float x, float y, float z,
+                                          float* o1) {
+  if constexpr (OP == kExp) return ref_exp(x);
+  if constexpr (OP == kLog) return ref_log(x);
+  if constexpr (OP == kLog1p) return ref_log1p(x);
+  if constexpr (OP == kSigmoid) return ref_sigmoid(x);
+  if constexpr (OP == kSinCos) {
+    float s, c;
+    ref_sincos(x, &s, &c);
+    *o1 = c;
+    return s;
   }
+  if constexpr (OP == kAtan2) return ref_atan2(x, y);
+  if constexpr (OP == kWrap) {
+    float s, c;
+    ref_sincos(x, &s, &c);
+    return ref_atan2(s, c);
+  }
+  if constexpr (OP == kFma) return ref_fma(x, y, z);
+  if constexpr (OP == kSqrt) return __fsqrt_rn(daz(x));
+  if constexpr (OP == kFtz) return daz(x);
+  if constexpr (OP == kMul) return mul_ftz(x, y);
+  return 0.0f;
+}
+
+// the 4 values of input k's vector i (contiguous path)
+template <int OP>
+__device__ __forceinline__ void load_vec(const OpArgs& a, long long i,
+                                         float4* v) {
+#pragma unroll
+  for (int k = 0; k < op_inputs(OP); ++k)
+    v[k] = __ldg(reinterpret_cast<const float4*>(a.in[k]) + i);
+}
+
+template <int OP>
+__device__ __forceinline__ void op_vec(const OpArgs& a, long long i,
+                                       const float4* v) {
+  const float4 x = v[0];
+  const float4 y = op_inputs(OP) > 1 ? v[1] : x;
+  const float4 z = op_inputs(OP) > 2 ? v[2] : x;
+  float4 r, c;
+  r.x = op_value<OP>(x.x, y.x, z.x, &c.x);
+  r.y = op_value<OP>(x.y, y.y, z.y, &c.y);
+  r.z = op_value<OP>(x.z, y.z, z.z, &c.z);
+  r.w = op_value<OP>(x.w, y.w, z.w, &c.w);
+  reinterpret_cast<float4*>(a.out[0])[i] = r;
+  if constexpr (OP == kSinCos) reinterpret_cast<float4*>(a.out[1])[i] = c;
+}
+
+template <int OP>
+__device__ __forceinline__ void op_scalar(const OpArgs& a, long long i,
+                                          long long ox, long long oy,
+                                          long long oz) {
+  const float x = __ldg(a.in[0] + ox);
+  const float y = op_inputs(OP) > 1 ? __ldg(a.in[1] + oy) : x;
+  const float z = op_inputs(OP) > 2 ? __ldg(a.in[2] + oz) : x;
+  float c;
+  a.out[0][i] = op_value<OP>(x, y, z, &c);
+  if constexpr (OP == kSinCos) a.out[1][i] = c;
+}
+
+// Contiguous, aligned operands: float4 vectors in a grid-stride loop, two
+// in flight a thread, then the last n % 4 values one a thread.
+template <int OP>
+__global__ void __launch_bounds__(kOpThreads)
+    refmath_op_vec_kernel(const OpArgs a) {
+  const long long nv = a.n >> 2;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  long long i = tid;
+  for (; i + stride < nv; i += 2 * stride) {
+    float4 v0[3], v1[3];
+    load_vec<OP>(a, i, v0);
+    load_vec<OP>(a, i + stride, v1);
+    op_vec<OP>(a, i, v0);
+    op_vec<OP>(a, i + stride, v1);
+  }
+  if (i < nv) {
+    float4 v[3];
+    load_vec<OP>(a, i, v);
+    op_vec<OP>(a, i, v);
+  }
+  const long long t = 4 * nv + tid;
+  if (t < a.n) op_scalar<OP>(a, t, t, t, t);
+}
+
+// Contiguous operands, a value a thread (the heavy ops, and every op at up
+// to 4,096 values, where a thread's latency is the launch's).
+template <int OP>
+__global__ void __launch_bounds__(kOpThreads)
+    refmath_op_flat_kernel(const OpArgs a) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < a.n; i += (long long)gridDim.x * blockDim.x)
+    op_scalar<OP>(a, i, i, i, i);
+}
+
+// Any other operands: value i of the contiguous output reads each input at
+// the offset its strides give i's index (stride 0 where broadcast).
+template <int OP>
+__global__ void __launch_bounds__(kOpThreads)
+    refmath_op_strided_kernel(const OpArgs a) {
+  constexpr int NI = op_inputs(OP);
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < a.n; i += (long long)gridDim.x * blockDim.x) {
+    long long off[3] = {0, 0, 0}, r = i;
+#pragma unroll
+    for (int d = kOpDims - 1; d >= 0; --d) {
+      const long long size = a.shape[d];
+      if (size == 1) continue;
+      const long long q = r / size, k = r - q * size;
+      r = q;
+#pragma unroll
+      for (int j = 0; j < NI; ++j) off[j] += k * a.stride[j][d];
+    }
+    op_scalar<OP>(a, i, off[0], off[1], off[2]);
+  }
+}
+
+typedef void (*OpKernel)(const OpArgs);
+
+// the three kernels of an op
+enum OpPath { kVector = 0, kFlat = 1, kStrided = 2 };
+
+// the ops whose arithmetic, not their bytes, sets their time (glibc's
+// sincos and atan2 with their branches and IEEE divisions, sigmoid's exp
+// and division): a value a thread at every size
+constexpr bool op_heavy(int op) {
+  return op == kSigmoid || op == kSinCos || op == kAtan2 || op == kWrap;
+}
+
+template <int OP>
+OpKernel op_kernel(int path) {
+  return path == kStrided ? refmath_op_strided_kernel<OP>
+         : path == kFlat  ? refmath_op_flat_kernel<OP>
+                          : refmath_op_vec_kernel<OP>;
+}
+
+OpKernel op_kernel_of(int op, int path) {
+  switch (op) {
+    case kExp: return op_kernel<kExp>(path);
+    case kLog: return op_kernel<kLog>(path);
+    case kLog1p: return op_kernel<kLog1p>(path);
+    case kSigmoid: return op_kernel<kSigmoid>(path);
+    case kSinCos: return op_kernel<kSinCos>(path);
+    case kAtan2: return op_kernel<kAtan2>(path);
+    case kWrap: return op_kernel<kWrap>(path);
+    case kFma: return op_kernel<kFma>(path);
+    case kSqrt: return op_kernel<kSqrt>(path);
+    case kFtz: return op_kernel<kFtz>(path);
+    case kMul: return op_kernel<kMul>(path);
+  }
+  return nullptr;
+}
+
+// the multiprocessors and, per op and path, the blocks of kOpThreads one
+// holds (queried once, on the first card that launches)
+int g_sms = 0;
+int g_blocks_per_sm[kOps][3];
+
+int blocks_per_sm(int op, int path) {
+  int& b = g_blocks_per_sm[op][path];
+  if (b == 0) {
+    int v = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &v, op_kernel_of(op, path), kOpThreads, 0) != cudaSuccess ||
+        v < 1)
+      v = 1;
+    b = v;
+  }
+  if (g_sms == 0) {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || v < 1)
+      v = 132;
+    g_sms = v;
+  }
+  return b;
 }
 
 // out[r, c] = sum_k a[r, k] * b[c, k], one fused multiply-add a term in k
@@ -293,17 +480,42 @@ extern "C" int refmath_dot_launch(const void* a, const void* b, void* out,
   return (int)cudaGetLastError();
 }
 
-// out0 = f(x) (atan2: f(x, y); fma: x * y + z with one rounding); sincos
-// also writes out1 = cos(x).
-extern "C" int refmath_launch(int op, const void* x, const void* y,
-                              const void* z, void* out0, void* out1,
-                              long long n, void* stream) {
+// Op ``op`` (enum Op) over args->n values as above; ``strided`` selects
+// the path that reads the inputs through their strides.  Contiguous
+// operands take the vector kernel above 4,096 values unless the op is
+// heavy, else the flat one.  Blocks of 256 threads, a thread a value (flat,
+// strided) or a vector of 4 (vector; two in flight where the grid is
+// full), up to 4 waves of the blocks the multiprocessors hold.
+extern "C" int refmath_op_launch(int op, int strided, const void* desc,
+                                 void* stream) {
+  const OpArgs* args = static_cast<const OpArgs*>(desc);
+  const long long n = args->n;
   if (n <= 0) return 0;
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  refmath_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      op, (const float*)x, (const float*)y, (const float*)z, (float*)out0,
-      (float*)out1, n);
+  if (op < 0 || op >= kOps) return (int)cudaErrorInvalidValue;
+  const int path = strided ? kStrided
+                   : (n <= 4096 || op_heavy(op)) ? kFlat : kVector;
+  const OpKernel kernel = op_kernel_of(op, path);
+  const int threads = kOpThreads;
+  const long long per_thread = path == kVector ? 4 : 1;
+  long long blocks = (n + per_thread * threads - 1) / (per_thread * threads);
+  if (blocks > 132) {
+    const long long per_sm = blocks_per_sm(op, path);  // sets g_sms
+    const long long most = 4 * per_sm * g_sms;
+    if (blocks > most) blocks = most;
+  }
+  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
+}
+
+// The registers a thread and the blocks a multiprocessor holds of op's
+// kernel on ``path`` (0 vector, 1 flat, 2 strided), for the reports.
+extern "C" int refmath_op_info(int op, int path, int* regs, int* blocks) {
+  if (op < 0 || op >= kOps || path < 0 || path > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, op_kernel_of(op, path));
+  if (e != cudaSuccess) return (int)e;
+  *regs = attr.numRegs;
+  *blocks = blocks_per_sm(op, path);
+  return 0;
 }

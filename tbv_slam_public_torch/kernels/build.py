@@ -64,10 +64,11 @@ def library() -> ctypes.CDLL:
                                   stderr=subprocess.STDOUT, text=True)
                  for src, obj in zip(sources, objs)]
         outs = [p.communicate()[0] for p in procs]
-        for src, p, out in zip(sources, procs, outs):
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):"
-                                   f"\n{out}")
+        failed = [f"nvcc failed on {src} ({p.returncode}):\n{out}"
+                  for src, p, out in zip(sources, procs, outs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("\n".join(failed))
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", tmp,
                                *objs], capture_output=True, text=True)
         if proc.returncode != 0:
@@ -85,10 +86,17 @@ def library() -> ctypes.CDLL:
             [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2 + \
             [ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    # op, x, y, z, out0, out1, n, stream
-    lib.refmath_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + \
-        [ctypes.c_longlong, ctypes.c_void_p]
-    lib.refmath_launch.restype = ctypes.c_int
+    # op, strided, the call's description (kernels/refmath.py::OP_ARGS),
+    # stream
+    lib.refmath_op_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_char_p, ctypes.c_void_p]
+    lib.refmath_op_launch.restype = ctypes.c_int
+    # op, kernel (vector, flat, strided), registers out, blocks a
+    # multiprocessor out
+    lib.refmath_op_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int),
+                                    ctypes.POINTER(ctypes.c_int)]
+    lib.refmath_op_info.restype = ctypes.c_int
     # the site's description (kernels/refmath.py::SITE_ARGS), stream
     lib.refmath_site_launch.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
     lib.refmath_site_launch.restype = ctypes.c_int
@@ -150,11 +158,11 @@ def library() -> ctypes.CDLL:
         [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_int] + \
         [ctypes.c_float] * 8 + [ctypes.c_int, ctypes.c_void_p]
     lib.evaluate_cost_launch.restype = ctypes.c_int
-    # count, sum_rel, sum_sq, masks, mask row strides, M, S, R, kl, eps,
-    # 2 pi e, joint, sep, overlap, valid, stream
-    lib.coral_tail_launch.argtypes = [ctypes.c_void_p] * 5 + \
-        [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5
+    # the launch's TailParams (kernels/coral_moments.py::TAIL_PARAMS),
+    # cluster, cluster used out, stream
+    lib.coral_tail_launch.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_void_p]
     lib.coral_tail_launch.restype = ctypes.c_int
     BUILD_INFO.update(path=path, seconds=time.perf_counter() - t0,
                       ptxas=report)

@@ -15,6 +15,17 @@ REFMATH_RANGES = {"exp": (-90.0, 90.0), "log": (1e-3, 1e3),
                   "sincos": (-200.0, 200.0), "wrap_angle": (-10.0, 10.0),
                   "atan2": (-80.0, 80.0), "sqrt": (0.0, 1e4),
                   "ftz": (-3e-38, 3e-38)}
+#: the operands of each op (1 where not listed)
+REFMATH_ARITY = {"atan2": 2, "fma": 3, "mul": 2}
+#: the ops whose operands span magnitudes 2^-60 to 2^60 (products that
+#: overflow, reach the subnormal range or nearly cancel)
+REFMATH_SPREAD = ("fma", "mul")
+#: every elementwise op of ``csrc/refmath.cu``
+REFMATH_OPS = tuple(sorted(REFMATH_RANGES)) + REFMATH_SPREAD
+#: operand layouts an op is held at: contiguous and aligned (the vector
+#: path), offset by one value (not 16-byte aligned), every second value,
+#: and broadcast (a [1] operand against [n], or one value expanded)
+REFMATH_LAYOUTS = ("contiguous", "offset", "strided", "broadcast")
 
 #: zeros, subnormals (the reference flushes them), the range reductions'
 #: boundaries, large values, infinities and NaN
@@ -23,6 +34,62 @@ REFMATH_SPECIAL = np.array(
      2.0 ** -12, -(2.0 ** -12), 0.78539813, 0.78539819, -0.78539819,
      119.99999, 120.0, -120.0, 1e10, -1e10, 3.4e38, np.inf, -np.inf, np.nan],
     np.float32)
+
+
+def op_values(rng, op: str, n: int) -> np.ndarray:
+    """n float32 values in op's range (or spread over magnitudes), every
+    97th a special value."""
+    if op in REFMATH_SPREAD:
+        v = rng.normal(size=n) * np.exp(rng.uniform(-42.0, 42.0, n))
+    else:
+        v = rng.uniform(*REFMATH_RANGES[op], n)
+    v = v.astype(np.float32)
+    k = len(v[::97])
+    v[::97] = np.resize(REFMATH_SPECIAL, k)
+    return v
+
+
+def op_operands(rng, op: str, n: int, layout: str):
+    """The operands (CPU float32 tensors) of one call of op at n values in
+    ``layout`` (:data:`REFMATH_LAYOUTS`)."""
+    import torch
+
+    k = REFMATH_ARITY.get(op, 1)
+    if layout == "contiguous":
+        return [torch.as_tensor(op_values(rng, op, n)) for _ in range(k)]
+    if layout == "offset":
+        return [torch.as_tensor(op_values(rng, op, n + 1))[1:]
+                for _ in range(k)]
+    if layout == "strided":
+        return [torch.as_tensor(op_values(rng, op, 2 * n))[::2]
+                for _ in range(k)]
+    if layout != "broadcast":
+        raise ValueError(f"unknown layout {layout!r}")
+    if k == 1:
+        return [torch.as_tensor(op_values(rng, op, 1)).expand(n)]
+    return [torch.as_tensor(op_values(rng, op, n))] + [
+        torch.as_tensor(op_values(rng, op, 1)) for _ in range(k - 1)]
+
+
+def tie_products(rng, n: int):
+    """n float32 pairs (a, b), both positive and near 2^-63, whose exact
+    product lies strictly inside [2^-126 - 2^-150, 2^-126 - 2^-151): the
+    products that the reference's FTZ threads (and mul.rn.ftz) flush and
+    gradual underflow rounds up to 2^-126."""
+    from fractions import Fraction
+
+    lo = Fraction(2) ** -126 - Fraction(2) ** -150
+    hi = Fraction(2) ** -126 - Fraction(2) ** -151
+    out = []
+    while len(out) < n:
+        b = np.float32(np.ldexp(rng.uniform(1.0, 2.0), -63))
+        a0 = np.float32(float((lo + hi) / 2 / Fraction(float(b))))
+        for a in (a0, np.nextafter(a0, np.float32(0)),
+                  np.nextafter(a0, np.float32(1))):
+            if lo < Fraction(float(a)) * Fraction(float(b)) < hi:
+                out.append((a, b))
+                break
+    return tuple(np.asarray(x, np.float32) for x in zip(*out))
 
 
 def bits_differ(a, b) -> int:

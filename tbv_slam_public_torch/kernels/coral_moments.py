@@ -27,11 +27,15 @@ per-point terms and the pairs' sums after the moments (the CUDA side of
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+import struct
 
 import torch
 
 from ..core.refmath import fma, ftz, sum_ftz
+from .refmath import _launch_on
 
 #: number of kernel launches made by :func:`neighbor_moments` and
 #: :func:`pair_moments`
@@ -270,51 +274,99 @@ def _strides(shape):
     return tuple(reversed(out))
 
 
-def coral_tail(n, s1, s2, src_mask, ref_mask, eps: float, mode: str):
+#: the CTAs a pair (the thread-block cluster) of the last ``coral_tail``
+#: launch
+TAIL_CLUSTER = 0
+#: ``csrc/coral_moments.cu``'s ``TailParams``: the moments' and masks'
+#: pointers, the masks' row strides, M, S, R, kl, eps, 2 pi e and the four
+#: outputs' pointers
+TAIL_PARAMS = struct.Struct("<5Q2q4i2f4Q")
+
+
+@functools.lru_cache(maxsize=64)
+def _tail_constants(eps: float):
+    """(eps, 2 pi e) rounded to float32, as the plain version's float32
+    tensors hold them."""
+    f32 = lambda x: struct.unpack("<f", struct.pack("<f", x))[0]
+    return f32(eps), f32(2.0 * math.pi * math.e)
+
+
+def coral_tail(n, s1, s2, src_mask, ref_mask, eps: float, mode: str,
+               cluster: int = 0):
     """(joint, sep, overlap [M] float32, valid [M] bool) of CorAl from M
     pairs' moments (``pair_moments``' outputs: n [2, M, Q], s1
     [2, M, Q, 2], s2 [2, M, Q, 2, 2], Q = S + R) and masks (src [M, S],
     ref [M, R]), one launch of ``csrc/coral_moments.cu``'s
     ``coral_tail_kernel`` on CUDA tensors (``ops/coral.py::coral_tail``;
-    its plain version ``coral_tail_reference``)."""
-    global TAIL_LAUNCHES
-    from .build import library
-
-    dev = n.device
-    if dev.type != "cuda":
-        raise RuntimeError(f"coral_tail: no kernel for device {dev}")
-    if mode not in ("entropy", "kl"):
+    its plain version ``coral_tail_reference``).  ``cluster``: the CTAs a
+    pair (1-8; 0 lets the launch choose from M and Q)."""
+    global TAIL_LAUNCHES, TAIL_CLUSTER
+    if not n.is_cuda:
+        raise RuntimeError(f"coral_tail: no kernel for device {n.device}")
+    if mode != "entropy" and mode != "kl":
         raise ValueError(f"coral_tail: unknown mode {mode!r}")
     m, s = src_mask.shape
     r = ref_mask.shape[1]
-    q = s + r
-    want = {"n": (n, (2, m, q)), "s1": (s1, (2, m, q, 2)),
-            "s2": (s2, (2, m, q, 2, 2)), "ref_mask": (ref_mask, (m, r))}
-    for what, (x, shape) in want.items():
-        if tuple(x.shape) != shape:
-            raise ValueError(f"coral_tail: {what} has shape "
-                             f"{tuple(x.shape)}, expected {shape}")
-    if any(x.dtype != torch.float32 or x.device != dev for x in (n, s1, s2)) \
-            or any(x.device != dev for x in (src_mask, ref_mask)):
-        raise TypeError(f"coral_tail: float32 moments and masks on {dev}")
-    n, s1, s2 = (x.contiguous() for x in (n, s1, s2))
-    s1 = s1 if s1.data_ptr() % 8 == 0 else s1.clone()
-    s2 = s2 if s2.data_ptr() % 16 == 0 else s2.clone()
+    shapes = (n.shape, s1.shape, s2.shape, ref_mask.shape[0])
+    if shapes != _tail_shapes(m, s, r):
+        raise ValueError(f"coral_tail: moments {tuple(n.shape)}, "
+                         f"{tuple(s1.shape)}, {tuple(s2.shape)} and masks "
+                         f"{tuple(src_mask.shape)}, {tuple(ref_mask.shape)}"
+                         f" (expected [2, M, Q] ... with Q = S + R)")
+    idx = n.get_device()
+    if n.dtype is not torch.float32 or s1.dtype is not torch.float32 or \
+            s2.dtype is not torch.float32 or s1.get_device() != idx or \
+            s2.get_device() != idx or src_mask.get_device() != idx or \
+            ref_mask.get_device() != idx:
+        raise TypeError(f"coral_tail: float32 moments and masks on "
+                        f"{n.device}")
+    dev = n.device
+    # pair_moments' outputs are contiguous and aligned (float2, float4
+    # loads); anything else is copied
+    if not n.is_contiguous():
+        n = n.contiguous()
+    if not s1.is_contiguous() or s1.data_ptr() % 8:
+        s1 = s1.clone(memory_format=torch.contiguous_format)
+    if not s2.is_contiguous() or s2.data_ptr() % 16:
+        s2 = s2.clone(memory_format=torch.contiguous_format)
     sm, rm = _mask(src_mask), _mask(ref_mask)
-    out = torch.empty((3, m), dtype=torch.float32, device=dev)
+    out = n.new_empty((3, m))
     valid = torch.empty((m,), dtype=torch.bool, device=dev)
     if m == 0:
-        return out[0], out[1], out[2], valid
-    with torch.cuda.device(dev):
-        err = library().coral_tail_launch(
-            n.data_ptr(), s1.data_ptr(), s2.data_ptr(), sm.data_ptr(),
-            rm.data_ptr(), sm.stride(0), rm.stride(0), m, s, r,
-            int(mode == "kl"), *(float(torch.tensor(x, dtype=torch.float32))
-                                 for x in (eps, 2.0 * math.pi * math.e)),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            valid.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        return (*out.unbind(0), valid)
+    used = ctypes.c_int(0)
+    p = out.data_ptr()
+    params = TAIL_PARAMS.pack(
+        n.data_ptr(), s1.data_ptr(), s2.data_ptr(), sm.data_ptr(),
+        rm.data_ptr(), sm.stride(0), rm.stride(0), m, s, r,
+        int(mode == "kl"), *_tail_constants(float(eps)), p, p + 4 * m,
+        p + 8 * m, valid.data_ptr())
+    err = _launch_on(dev, _tail_entry(), params, int(cluster),
+                     ctypes.byref(used))
     if err != 0:
         raise RuntimeError(f"coral_tail_launch failed: CUDA error {err} "
-                           f"(M={m}, S={s}, R={r}, mode={mode})")
+                           f"(M={m}, S={s}, R={r}, mode={mode}, "
+                           f"cluster={cluster})")
     TAIL_LAUNCHES += 1
-    return out[0], out[1], out[2], valid
+    TAIL_CLUSTER = used.value
+    return (*out.unbind(0), valid)
+
+
+@functools.lru_cache(maxsize=256)
+def _tail_shapes(m: int, s: int, r: int):
+    """The moments' shapes and the ref mask's rows ``coral_tail`` takes for
+    M pairs of S src and R ref slots."""
+    q = s + r
+    return (torch.Size((2, m, q)), torch.Size((2, m, q, 2)),
+            torch.Size((2, m, q, 2, 2)), m)
+
+
+_TAIL_ENTRY = []
+
+
+def _tail_entry():
+    if not _TAIL_ENTRY:
+        from .build import library
+
+        _TAIL_ENTRY.append(library().coral_tail_launch)
+    return _TAIL_ENTRY[0]

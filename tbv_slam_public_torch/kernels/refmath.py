@@ -1,9 +1,12 @@
 """The reference's float32 math: CUDA kernel wrapper + plain versions.
 
-The kernel is ``csrc/refmath.cu``: one elementwise launch per call, which
-runs XLA's inline exp / log / log1p, the C library's sinf / cosf / sincosf
-/ atan2f, the IEEE square root, the fused multiply-add and the flush of
-subnormal values with the reference's operations and roundings; ``dot``,
+The kernels are ``csrc/refmath.cu``'s: one launch per call of one kernel
+an op (:data:`OPS`), which runs XLA's inline exp / log / log1p, the C
+library's sinf / cosf / sincosf / atan2f, the IEEE square root, the fused
+multiply-add, a lone product (``mul``) and the flush of subnormal values
+with the reference's operations and roundings, its operands read as float4
+vectors where they are contiguous and aligned, else through their strides
+(broadcast operands included: no copy before the launch); ``dot``,
 the small matrix product whose terms the reference adds one at a time;
 ``loop_dot``, the logistic gradient's sum in the order of the reference's
 vectorised loop; and
@@ -47,7 +50,12 @@ LAUNCHES = 0
 LAUNCHES_BY_OP: collections.Counter = collections.Counter()
 
 OPS = {"exp": 0, "log": 1, "log1p": 2, "sigmoid": 3, "sincos": 4,
-       "atan2": 5, "wrap_angle": 6, "fma": 7, "sqrt": 8, "ftz": 9}
+       "atan2": 5, "wrap_angle": 6, "fma": 7, "sqrt": 8, "ftz": 9,
+       "mul": 10}
+#: operands of op calls that took the strided path on the card, by op:
+#: each was a copy kernel before the op while the wrapper made every
+#: operand contiguous (a broadcast or non-contiguous operand)
+STRIDED_OPERANDS: collections.Counter = collections.Counter()
 
 #: site entries of ``csrc/refmath_sites.cu``: name -> site code
 SITES = {"compose": 0, "inverse": 1, "relative": 2, "apply": 3,
@@ -56,7 +64,8 @@ SITES = {"compose": 0, "inverse": 1, "relative": 2, "apply": 3,
 _PLAIN = dict(
     exp=plain.exp, log=plain.log, log1p=plain.log1p, sigmoid=plain.sigmoid,
     sincos=plain.sincos, atan2=plain.atan2, wrap_angle=plain.wrap_angle,
-    fma=plain.fma, sqrt=plain.sqrt, ftz=plain.ftz, dot=plain.dot,
+    fma=plain.fma, sqrt=plain.sqrt, ftz=plain.ftz, mul=plain.mul,
+    dot=plain.dot,
     loop_dot=plain.loop_dot, lm_update=plain.lm_update,
     lu_solve=plain.lu_solve, cumsum=plain.blocked_cumsum,
     ceres_covariance=plain.ceres_covariance)
@@ -76,30 +85,164 @@ def _entry(name: str):
     return fn
 
 
+# the current card and its current stream's handle, without the Python
+# layers of torch.cuda (the same calls they make)
+_CURRENT_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(dev: torch.device) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _launch_on(dev: torch.device, fn, *args) -> int:
     """fn(*args, stream) on ``dev``'s current stream, with ``dev`` the
     current card while it launches (switched only when it is not)."""
-    if dev.index == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    current = _CURRENT_DEVICE() if _CURRENT_DEVICE is not None else \
+        torch.cuda.current_device()
+    if dev.index == current:
+        return fn(*args, _stream(dev))
     with torch.cuda.device(dev):
-        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        return fn(*args, _stream(dev))
 
 
-def _elementwise(op: str, x: torch.Tensor, *more: torch.Tensor):
-    """(result, C entry, its arguments, values) of op on x (and y for atan2,
-    y and z for fma), broadcast together."""
-    ts = (x,) + more
-    if any(t.shape != x.shape for t in more):
-        ts = torch.broadcast_tensors(*ts)
-    x, *more = (t.contiguous() for t in ts)
-    y = more[0] if more else x
-    z = more[1] if len(more) > 1 else x
-    two = op == "sincos"
-    out = torch.empty((2 if two else 1,) + tuple(x.shape), dtype=x.dtype,
-                      device=x.device)
-    return ((out[0], out[1]) if two else out[0], "refmath_launch",
-            (OPS[op], x.data_ptr(), y.data_ptr(), z.data_ptr(),
-             out[0].data_ptr(), out[-1].data_ptr(), x.numel()), x.numel())
+#: dimensions an op's strided path reads (csrc/refmath.cu kOpDims)
+OP_DIMS = 6
+#: ``csrc/refmath.cu``'s ``OpArgs``: 3 input and 2 output pointers, the
+#: values, the output's shape (6 dimensions) and each input's strides
+OP_ARGS = struct.Struct("<3Q2Qq6q18q")
+_OP_PACK = OP_ARGS.pack
+_F32 = torch.float32
+#: (operand shapes and strides) -> (result shape, every operand dense, the
+#: operands that are not, the strided layout): a call's host work is then a
+#: lookup, an allocation, a pack and the launch
+_OP_PLANS: dict = {}
+
+
+def _op_layout(shape, ts) -> tuple:
+    """The output's shape and each input's strides in elements (0 where it
+    is broadcast), dimensions of one dropped and neighbours that every
+    input walks as one merged, left-padded to :data:`OP_DIMS`."""
+    nd = len(shape)
+    dims = [int(d) for d in shape]
+    rows = []
+    for t in ts:
+        row = [0] * nd
+        for j, (d, st) in enumerate(zip(t.shape, t.stride()),
+                                    nd - t.dim()):
+            row[j] = st if d != 1 else 0
+        rows.append(row)
+    keep = [j for j in range(nd) if dims[j] != 1]
+    dims = [dims[j] for j in keep]
+    rows = [[r[j] for j in keep] for r in rows]
+    j = len(dims) - 2
+    while j >= 0:  # merge j into j + 1 where every input allows it
+        if all(r[j] == r[j + 1] * dims[j + 1] for r in rows):
+            dims[j + 1] *= dims[j]
+            del dims[j]
+            for r in rows:
+                del r[j]
+        j -= 1
+    if len(dims) > OP_DIMS:
+        raise ValueError(f"refmath: operands of shapes "
+                         f"{[tuple(t.shape) for t in ts]} need more than "
+                         f"{OP_DIMS} strided dimensions")
+    pad = OP_DIMS - len(dims)
+    strides = []
+    for k in range(3):
+        strides += [0] * pad + rows[k] if k < len(rows) else \
+            [0] * OP_DIMS
+    return (1,) * pad + tuple(dims) + tuple(strides)
+
+
+def _op_plan(ts) -> tuple:
+    """(result shape, all operands dense, the count that are not, strided
+    layout) of operands ``ts``, from the cache where they were seen."""
+    key = tuple((t.shape, t.stride()) for t in ts)
+    plan = _OP_PLANS.get(key)
+    if plan is None:
+        shape = ts[0].shape
+        if any(t.shape != shape for t in ts):
+            shape = torch.Size(_broadcast([tuple(t.shape) for t in ts]))
+        dense = [t.shape == shape and t.is_contiguous() for t in ts]
+        plan = (shape, all(dense), dense.count(False),
+                _op_layout(shape, ts))
+        if len(_OP_PLANS) < 4096:
+            _OP_PLANS[key] = plan
+    return plan
+
+
+def _op(op: str, *ts: torch.Tensor):
+    """Elementwise op ``op`` of :data:`OPS` on its operands, broadcast
+    together: the plain version on CPU tensors; on CUDA tensors one launch
+    of the op's kernel, its vector path where every operand is contiguous,
+    of the result's shape and 16-byte aligned, else its strided path (no
+    copy), counted; on any other device an error."""
+    global LAUNCHES
+    x = ts[0]
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return _PLAIN[op](*ts)
+        raise RuntimeError(f"refmath.{op}: no kernel for device {x.device}")
+    idx = x.get_device()
+    for t in ts:
+        if t.dtype is not _F32 or t.get_device() != idx:
+            raise TypeError(f"refmath.{op}: float32 operands on one card, "
+                            f"got {[(t.dtype, str(t.device)) for t in ts]}")
+    shape, dense, n_strided, layout = _op_plan(ts)
+    out0 = x.new_empty(shape)
+    out1 = x.new_empty(shape) if op == "sincos" else None
+    n = out0.numel()
+    if n == 0:
+        return (out0, out1) if out1 is not None else out0
+    ptrs = [t.data_ptr() for t in ts]
+    if dense and not any(p & 15 for p in ptrs):
+        strided = 0
+    else:
+        strided = 1
+        if n_strided:
+            STRIDED_OPERANDS[op] += n_strided
+    ptrs += [0] * (3 - len(ts))
+    desc = _OP_PACK(*ptrs, out0.data_ptr(),
+                    0 if out1 is None else out1.data_ptr(), n, *layout)
+    launch = _OP_ENTRY[0] if _OP_ENTRY else _op_entry()
+    if _RAW_STREAM is not None and _CURRENT_DEVICE() == idx:
+        err = launch(OPS[op], strided, desc, _RAW_STREAM(idx))
+    else:
+        err = _launch_on(x.device, launch, OPS[op], strided, desc)
+    if err != 0:
+        raise RuntimeError(f"refmath_op_launch({op}) failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+    LAUNCHES_BY_OP[op] += 1
+    return (out0, out1) if out1 is not None else out0
+
+
+_OP_ENTRY: list = []
+
+
+def _op_entry():
+    _OP_ENTRY.append(_entry("refmath_op_launch"))
+    return _OP_ENTRY[0]
+
+
+#: an op's kernels (``csrc/refmath.cu``'s ``OpPath``)
+OP_PATHS = ("vector", "flat", "strided")
+
+
+def op_info(op: str, path: str = "vector"):
+    """(registers a thread, blocks of 256 a multiprocessor holds) of op's
+    kernel ``path`` (:data:`OP_PATHS`) on the current card."""
+    import ctypes
+
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    err = _entry("refmath_op_info")(OPS[op], OP_PATHS.index(path),
+                                    ctypes.byref(regs), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"refmath_op_info({op}) failed: CUDA error {err}")
+    return regs.value, blocks.value
 
 
 def _dot(op: str, a: torch.Tensor, b: torch.Tensor):
@@ -285,8 +428,7 @@ def _site(layout, op: str, *ts, **options):
     return result, "refmath_site_launch", (args,), n
 
 
-_KERNEL_ARGS = dict.fromkeys(OPS, _elementwise)
-_KERNEL_ARGS.update(dot=_dot, loop_dot=_loop_dot, lm_update=_lm_update,
+_KERNEL_ARGS = dict(dot=_dot, loop_dot=_loop_dot, lm_update=_lm_update,
                     lu_solve=_lu_solve, cumsum=_cumsum,
                     ceres_covariance=_ceres_covariance)
 
@@ -686,54 +828,67 @@ def _call(op: str, *ts: torch.Tensor, **options):
 
 def exp(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 exp."""
-    return _call("exp", x)
+    return _op("exp", x)
 
 
 def log(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 log."""
-    return _call("log", x)
+    return _op("log", x)
 
 
 def log1p(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 log1p."""
-    return _call("log1p", x)
+    return _op("log1p", x)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` as compiled: 1 / (exp(-x) + 1)."""
-    return _call("sigmoid", x)
+    return _op("sigmoid", x)
 
 
 def sincos(x: torch.Tensor):
     """(sinf(x), cosf(x)) of the C library, from one launch."""
-    return _call("sincos", x)
+    return _op("sincos", x)
 
 
 def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The C library's atan2f."""
-    return _call("atan2", y, x)
+    return _op("atan2", y, x)
 
 
 def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
     """atan2f(sinf(t), cosf(t)) in one launch."""
-    return _call("wrap_angle", theta)
+    return _op("wrap_angle", theta)
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 a*b + c with one rounding, the operands broadcast together."""
-    return _call("fma", a, b, c)
+    return _op("fma", a, b, c)
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A lone float32 product a * b of operands that are normal or zero
+    (flushed by the caller, as the reference's DAZ threads read them), its
+    result flushed by its exact value as its FTZ threads flush it: on the
+    CPU ``core/refmath.py::mul_ftz`` (the op's plain version,
+    ``core/refmath.py::mul``, flushes the operands again: the same result
+    for such operands), on the card one launch of the op ``mul``; the
+    operands broadcast together."""
+    if a.device.type == "cpu":
+        return plain.mul_ftz(a, b)
+    return _op("mul", a, b)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """The IEEE float32 square root, subnormal operands flushed."""
-    return _call("sqrt", x)
+    return _op("sqrt", x)
 
 
 def ftz(x: torch.Tensor) -> torch.Tensor:
     """x with its subnormal values flushed to signed zeros, as the
     reference's threads flush a subnormal result (FTZ) or operand (DAZ),
     one launch."""
-    return _call("ftz", x)
+    return _op("ftz", x)
 
 
 def norm2(v: torch.Tensor) -> torch.Tensor:

@@ -41,10 +41,10 @@ class CoralResult(NamedTuple):
 
 def _det2x2(c):
     """c00 c11 - c01 c10 as fma(c00, c11, -(c01 c10)), the product c01 c10
-    (an operation of its own) and the result flushed to zero where they are
-    subnormal, as the reference's threads flush them."""
+    (an operation of its own) and the result flushed as the reference's
+    threads flush them (the product by its exact value, ``mul_ftz``)."""
     return plain.ftz(plain.fma(c[..., 0, 0], c[..., 1, 1],
-                               -plain.ftz(c[..., 0, 1] * c[..., 1, 0])))
+                               -plain.mul_ftz(c[..., 0, 1], c[..., 1, 0])))
 
 
 def _mean_cov_from_moments(n, s1, s2):
@@ -81,19 +81,21 @@ def _kl_divergence_2d(u0, s0, u1, s1):
     det0 = _det2x2(s0)
     det1 = _det2x2(s1)
     # the inverse determinant and the inverse's entries flushed (FTZ): the
-    # inverse of a determinant above 2^126 is subnormal
+    # inverse of a determinant above 2^126 is subnormal; every lone product
+    # flushed by its exact value (mul_ftz)
     inv_det1 = f(1.0 / torch.where(det1 == 0.0, torch.ones_like(det1), det1))
-    s1i = f(torch.stack([
+    mul = plain.mul_ftz
+    s1i = mul(torch.stack([
         torch.stack([s1[..., 1, 1], -s1[..., 0, 1]], -1),
-        torch.stack([-s1[..., 1, 0], s1[..., 0, 0]], -1)], -2)
-        * inv_det1[..., None, None])
-    trace = f(s1i[..., 0, 0] * s0[..., 0, 0])
+        torch.stack([-s1[..., 1, 0], s1[..., 0, 0]], -1)], -2),
+        inv_det1[..., None, None])
+    trace = mul(s1i[..., 0, 0], s0[..., 0, 0])
     for i, j in ((0, 1), (1, 0), (1, 1)):
-        trace = f(trace + f(s1i[..., i, j] * s0[..., j, i]))
+        trace = f(trace + mul(s1i[..., i, j], s0[..., j, i]))
     d = f(u1 - u0)
-    t = [plain.fma(d[..., 1], s1i[..., 1, k], d[..., 0] * s1i[..., 0, k])
+    t = [plain.fma(d[..., 1], s1i[..., 1, k], mul(d[..., 0], s1i[..., 0, k]))
          for k in range(2)]
-    mahal = plain.fma(d[..., 1], t[1], d[..., 0] * t[0])
+    mahal = plain.fma(d[..., 1], t[1], mul(d[..., 0], t[0]))
     score = f(0.5 * f(f(f(trace + mahal) - 3.0) + plain.log(f(det1 / det0))))
     finite = torch.isfinite(score) & (det1 != 0.0)
     return torch.where(finite, score, torch.zeros_like(score)), finite

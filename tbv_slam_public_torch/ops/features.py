@@ -24,7 +24,7 @@ import torch
 
 from ..core.config import FeatureConfig
 from ..core.device import constant, deterministic
-from ..core.refmath import tree_sum
+from ..core.refmath import mul_ftz, tree_sum
 from ..core.types import Cells, PointCloud
 from ..kernels import cells as cells_kernel
 from ..kernels import refmath
@@ -177,7 +177,7 @@ def _cell_stats_reference(xy: torch.Tensor, intensity: torch.Tensor,
     mu_local, qq = acc[:, :2], acc[:, 2:].reshape(-1, 2, 2)
     # from here on every subnormal result is flushed (ftz), as the
     # reference's threads flush it
-    cov = ftz(qq - ftz(mu_local[:, :, None] * mu_local[:, None, :]))
+    cov = ftz(qq - mul_ftz(mu_local[:, :, None], mu_local[:, None, :]))
     cov = ftz(0.5 * ftz(cov + cov.transpose(-1, -2)))
     mean = ftz(centroid + mu_local)
 
@@ -191,13 +191,13 @@ def _cell_stats_reference(xy: torch.Tensor, intensity: torch.Tensor,
     lmin, lmax, normal = eigh2x2(cov_g)
     cond = ftz(torch.abs(lmax / torch.where(torch.abs(lmin) > 1e-20, lmin,
                                             torch.full_like(lmin, 1e-20))))
-    det = ftz(lmax * lmin)
+    det = mul_ftz(lmax, lmin)
     cov_ok = (cond <= cfg.max_cond) & (det > cfg.min_det) & (lmin > 0) & \
         (lmax > 0)
     planarity = refmath.log1p(ftz(cond / 2.0))
     org = constant((float(origin[0]), float(origin[1])), dt, dev)
-    flip = refmath.fma(normal[:, 1], ftz(org[1] - mean[:, 1]), ftz(
-        normal[:, 0] * ftz(org[0] - mean[:, 0]))) < 0
+    flip = refmath.fma(normal[:, 1], ftz(org[1] - mean[:, 1]), mul_ftz(
+        normal[:, 0], ftz(org[0] - mean[:, 0]))) < 0
     normal = torch.where(flip[:, None], -normal, normal)
 
     valid = sel_occupied & (nbr_count >= cfg.min_neighbors) & cov_ok & \

@@ -198,7 +198,9 @@ def _gradient_and_blocks(poses, edges, cfg: PGOConfig, sums=None):
     ``sums`` the graph's ``_GraphSums``."""
     r, Jb, Je = _edge_jacobians(poses, edges)
     rho, w = _cauchy_weights(r, edges, cfg)
-    wr = refmath.ftz(w[:, None] * r)
+    # a lone product of the reference, flushed by its exact value (the
+    # refmath op mul: one launch on the card)
+    wr = refmath.mul(w[:, None], r)
     sums = sums or _GraphSums(poses.shape[0], edges)
     g = refmath.ftz(sums.nodes(torch.einsum("eij,ei->ej", Jb, wr),
                                torch.einsum("eij,ei->ej", Je, wr)))

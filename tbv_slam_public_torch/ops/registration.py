@@ -233,22 +233,28 @@ def _residual_terms(theta: torch.Tensor, src: Cells, assoc: Associations,
     # into it, a two-term reduction as fma(second, second, first product);
     # subnormal operands and every subnormal product and sum flushed, as
     # the reference's threads flush them (DAZ and FTZ: refmath.fma flushes
-    # its operands and result, ftz the rest)
+    # its operands and result, the first products are flushed by their
+    # exact value (mul), ftz the rest)
     fma = refmath.fma
+    mul = refmath.mul  # a lone product of flushed operands
     s, c = refmath.sincos(theta[:, 2:3])
+    # sinf returns a subnormal theta unchanged; every product reads it as
+    # zero (DAZ)
+    s = ftz(s)
     ux, uy = ftz(src.mean[..., 0]), ftz(src.mean[..., 1])  # [B, C]
-    dy = fma(c, ux, -(s * uy))  # c ux - s uy
+    dy = fma(c, ux, -mul(s, uy))  # c ux - s uy
     wx = ftz(dy + theta[:, 0:1])
-    wy = ftz(fma(s, ux, c * uy) + theta[:, 1:2])
-    dx = fma(-s, ux, -(c * uy))  # -s ux - c uy
+    wy = ftz(fma(s, ux, mul(c, uy)) + theta[:, 1:2])
+    dx = fma(-s, ux, -mul(c, uy))  # -s ux - c uy
     e = ftz(torch.stack([wx, wy], -1)[:, None]
             - ftz(assoc.tgt_mean_w))  # [B,T,C,2]
     if cost == COST_P2L:
         n = ftz(assoc.tgt_normal_w)
-        r = fma(n[..., 1], e[..., 1], n[..., 0] * e[..., 0])[
+        r = fma(n[..., 1], e[..., 1], mul(n[..., 0], e[..., 0]))[
             ..., None]
         J = torch.stack([n[..., 0], n[..., 1],
-                         fma(n[..., 0], dx[:, None], n[..., 1] * dy[:, None])],
+                         fma(n[..., 0], dx[:, None],
+                             mul(n[..., 1], dy[:, None]))],
                         -1)[..., None, :]
         return r, J, ftz(r[..., 0] * r[..., 0])
     ones, zeros = torch.ones_like(dx), torch.zeros_like(dx)
@@ -256,9 +262,9 @@ def _residual_terms(theta: torch.Tensor, src: Cells, assoc: Associations,
                       torch.stack([zeros, ones, dy], -1)], -2)
     if cost == COST_P2D:  # whitened by the target's sqrt-information
         u = ftz(assoc.tgt_sqrtinfo)
-        r = fma(u[..., 1], e[..., None, 1], u[..., 0] * e[..., None, 0])
+        r = fma(u[..., 1], e[..., None, 1], mul(u[..., 0], e[..., None, 0]))
         J = fma(u[..., 1:2], Jp[:, None, :, None, 1],
-                u[..., 0:1] * Jp[:, None, :, None, 0])
+                mul(u[..., 0:1], Jp[:, None, :, None, 0]))
     else:  # P2P
         r = e
         J = Jp[:, None].expand(e.shape[:3] + (2, 3))
@@ -313,19 +319,21 @@ def _cost_grad_hess(theta, src, assoc, *, cost, loss, delta, prior=None):
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
     bsz = rho.shape[0]
     wt = ftz(assoc.weight)
-    w = torch.where(assoc.mask, mul_ftz(wt, ftz(w_irls)), zero)
     # H and g from one contraction J^T [J | r], summed over the residuals
     # of each row by ``_row_sums``: a row of a batch must equal its own solve;
     # each product flushed where its exact value rounded with an unbounded
     # exponent is below 2^-126, as the reference's threads (DAZ and FTZ)
-    # and the kernel's .ftz products flush it (``mul_ftz``)
+    # and the kernel's .ftz products flush it (``mul_ftz``; the refmath op
+    # ``mul`` on the card: its operands here are flushed already)
+    mul = refmath.mul
+    w = torch.where(assoc.mask, mul(wt, ftz(w_irls)), zero)
     Jr = torch.cat([J, r[..., None]], -1)  # [B, T, C, R, 4]
-    terms = mul_ftz(mul_ftz(w[..., None, None, None], J[..., :, None]),
-                    Jr[..., None, :])  # [B, T, C, R, 3, 4]
+    terms = mul(mul(w[..., None, None, None], J[..., :, None]),
+                Jr[..., None, :])  # [B, T, C, R, 3, 4]
     # the cost joins the same sum as a 13th row, each association's term at
     # its first residual and zeros at the others (R <= 2: the first level of
     # the pairwise tree adds them exactly, so it is the cost's own tree)
-    wrho = torch.where(assoc.mask, mul_ftz(wt, ftz(rho)), zero)  # [B, T, C]
+    wrho = torch.where(assoc.mask, mul(wt, ftz(rho)), zero)  # [B, T, C]
     cost_row = torch.nn.functional.pad(wrho[..., None], (0, r.shape[-1] - 1))
     sums = _row_sums(torch.cat([cost_row.reshape(bsz, 1, -1),
                                 terms.reshape(bsz, -1, 12).transpose(1, 2)],
@@ -344,7 +352,7 @@ def _cost_only(theta, src, assoc, *, cost, loss, delta, prior=None):
     rho, _ = _rho_and_weight(sq, loss, delta)
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
     c = mul_ftz(0.5, _row_sums(torch.where(
-        assoc.mask, mul_ftz(ftz(assoc.weight), ftz(rho)),
+        assoc.mask, refmath.mul(ftz(assoc.weight), ftz(rho)),
         zero).reshape(rho.shape[0], -1)))
     if prior is not None:
         c = c + _prior_terms(theta, prior)[0]

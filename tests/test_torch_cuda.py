@@ -11,9 +11,12 @@ import pytest
 import torch
 
 from tbv_slam_public_torch.kernels import coral_moments as tmoments
-from tbv_slam_public_torch.kernels.checks import (REFMATH_RANGES,
+from tbv_slam_public_torch.kernels.checks import (REFMATH_LAYOUTS,
+                                                  REFMATH_OPS,
+                                                  REFMATH_RANGES,
                                                   REFMATH_SPECIAL,
-                                                  bits_differ, on_gate_clouds)
+                                                  bits_differ, on_gate_clouds,
+                                                  op_operands)
 
 # The suite runs several worker processes on one machine and these tensors are
 # small: one intra-op thread per process keeps the workers from
@@ -205,7 +208,10 @@ def test_coral_quality_launch_sets(cuda, route, m):
     (12, 4096, 0.8),  # an online loop closure's candidates
     (13, 4800, 0.1),  # a training pair's perturbations, 10 % live
     (13, 700, 0.9),   # an evaluate-scans pair's (chip_smoke.py's clouds)
-    (3, 20, 0.9)])    # Q <= 32: one window
+    (3, 20, 0.9),     # Q = 40: two windows, Q not a multiple of 32
+    (2, 10, 0.9),     # Q <= 32: one window
+    (1, 4096, 0.8),   # one pair: a cluster of 8
+    (4, 1000, 0.0)])  # every pair dead
 def test_coral_tail_bit_equal_to_plain(cuda, mode, m, n, live):
     """``coral_tail`` (one launch) against its plain version on the card,
     given the same moments (the pair kernel's): joint, sep, overlap and
@@ -219,13 +225,17 @@ def test_coral_tail_bit_equal_to_plain(cuda, mode, m, n, live):
     rm = t(rng.uniform(size=(m, n)) < live)
     moments = tmoments.pair_moments(t(xy), sm, t(xy + rng.normal(
         0, 0.2, xy.shape).astype(np.float32)), rm, 1.0)
-    before = tmoments.TAIL_LAUNCHES
-    got = coral.coral_tail(*moments, sm, rm, 1e-8, mode)
-    assert tmoments.TAIL_LAUNCHES == before + 1
     want = coral.coral_tail_reference(*moments, sm, rm, 1e-8, mode)
-    for g, w in zip(got[:3], want[:3]):
-        assert bits_differ(g, w) == 0, mode
-    assert torch.equal(got.valid, want.valid)
+    for cluster in (0, 1, 2, 3, 8):  # chosen, then forced
+        before = tmoments.TAIL_LAUNCHES
+        got = coral.CoralResult(*tmoments.coral_tail(
+            *moments, sm, rm, 1e-8, mode, cluster=cluster))
+        assert tmoments.TAIL_LAUNCHES == before + 1
+        assert tmoments.TAIL_CLUSTER == (
+            cluster or min(8, max(1, 132 // m), -(-2 * n // 32)))
+        for g, w in zip(got[:3], want[:3]):
+            assert bits_differ(g, w) == 0, (mode, cluster)
+        assert torch.equal(got.valid, want.valid)
 
 
 @pytest.mark.cuda
@@ -635,6 +645,42 @@ def test_refmath_kernel_matches_plain(cuda, op):
     pairs = zip(got, want) if op == "sincos" else [(got, want)]
     for g, w in pairs:
         assert g.device.type == "cuda" and _same(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", REFMATH_LAYOUTS)
+@pytest.mark.parametrize("op", REFMATH_OPS)
+def test_refmath_op_layouts_bit_equal_to_plain(cuda, op, layout):
+    """Each op kernel (and ``mul``) on contiguous, offset (not 16-byte
+    aligned), strided and broadcast operands at 1, 3, 4, 4,097 and 2^19 + 3
+    values: one launch a call, bit-equal to its plain version on the same
+    operands on the CPU; the strided path makes no copy (every operand that
+    is not the output's shape or contiguous is counted, none is made
+    contiguous)."""
+    from tbv_slam_public_torch.core import refmath as plain
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    rng = np.random.default_rng(len(op) + 7 * len(layout))
+    for n in (1, 3, 4, 4097, (1 << 19) + 3):
+        args = op_operands(rng, op, n, layout)
+        card = [a.to(cuda) if layout != "offset" else
+                torch.empty(n + 1, device=cuda)[1:].copy_(a) for a in args]
+        if layout == "strided":
+            card = [torch.empty(2 * n, device=cuda)[::2].copy_(a)
+                    for a in args]
+        elif layout == "broadcast" and len(args) == 1:
+            card = [args[0][:1].to(cuda).expand(n)]
+        before, strided = rm.LAUNCHES, sum(rm.STRIDED_OPERANDS.values())
+        got = getattr(rm, op)(*card)
+        assert rm.LAUNCHES == before + 1, (op, layout, n)
+        made = sum(rm.STRIDED_OPERANDS.values()) - strided
+        assert made == sum(not (a.shape == (n,) and a.is_contiguous())
+                           for a in card), (op, layout, n, made)
+        want = getattr(plain, op)(*args)
+        pairs = zip(got, want) if op == "sincos" else [(got, want)]
+        for g, w in pairs:
+            assert g.is_contiguous() and g.shape == w.shape
+            assert _same(g, w), (op, layout, n)
 
 
 @pytest.mark.cuda

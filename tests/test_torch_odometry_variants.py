@@ -10,7 +10,8 @@ B = 2 equal to two B = 1 runs of the port's batched step within 1e-5 and
 to the reference's ``batched_odometry_step`` within the same bounds.
 
 With each package's own detector the same bounds hold, on both
-sequences: the detector's points are the reference's bit for bit
+sequences (``tests/test_torch_odometry_variants_own_detector.py``, a file
+of its own so that the test runner can place it on another worker): the detector's points are the reference's bit for bit
 (``tests/test_torch_parity_faults.py``) and the CFEAR cells round as the
 reference's but for the voxel sums' order and the eigen-decomposition's
 sqrt.  The registration's per-term arithmetic (sin, cos, sqrt, the fused
@@ -137,30 +138,6 @@ def test_variant_matches(same_detector, name):
         assert not np.allclose(jcov[1:], np.eye(3)), "no covariance computed"
         np.testing.assert_allclose(tcov, jcov, rtol=0,
                                    atol=1e-2 * np.abs(jcov).max())
-
-
-@pytest.mark.parametrize("name", ["default", "time_continuous", "p2d",
-                                  "cacfar"])
-def test_variant_with_own_detector(name):
-    _, tc = _configs(VARIANTS.get(name, {}))
-    jpose, _, jflags = _reference(name)
-    tpose, _, tflags = _run(todo.OdometryPipeline(tc, device="cpu"),
-                            _sequences()[0].images)
-    assert tflags == jflags
-    _assert_trajectory(tpose, jpose)
-
-
-@pytest.mark.parametrize("name", ["default", "time_continuous", "p2d",
-                                  "cacfar"])
-def test_variant_with_own_detector_on_the_second_sequence(name):
-    """As above on sequence 1 (another seed, radius and step), held to the
-    same bounds."""
-    _, tc = _configs(VARIANTS.get(name, {}))
-    jpose, _, jflags = _reference(name, 1)
-    tpose, _, tflags = _run(todo.OdometryPipeline(tc, device="cpu"),
-                            _sequences()[1].images)
-    assert tflags == jflags
-    _assert_trajectory(tpose, jpose)
 
 
 @pytest.mark.parametrize("name", ["default", "time_continuous"])

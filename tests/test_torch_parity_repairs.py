@@ -28,8 +28,10 @@ from tbv_slam_public_tpu.ops import coral as jcoral
 from tbv_slam_public_tpu.ops import registration as jreg
 from tbv_slam_public_torch.core import refmath as plain
 from tbv_slam_public_torch.core.types import Cells
+from tbv_slam_public_torch.kernels.checks import tie_products
 from tbv_slam_public_torch.kernels import coral_moments as tmoments
 from tbv_slam_public_torch.kernels import refmath as trefmath
+from tbv_slam_public_torch.ops import coral as tcoral
 from tbv_slam_public_torch.ops import registration as treg
 
 # one intra-op thread per test worker (the suite runs several on one host)
@@ -297,3 +299,336 @@ def test_association_distances_never_reach_the_tie():
                         .astype(np.float32))
     np.testing.assert_array_equal(plain.mul_ftz(x, x).numpy(),
                                   plain.ftz(x * x).numpy())
+
+
+# ---- the flush tie in the lone products ------------------------------------
+
+def _tie_factor(b, rng):
+    """A float32 a with the exact a * b strictly inside the tie interval
+    (b > 0 fixed; None when none of the three nearest floats is)."""
+    a0 = _f32(float((_LO + _HI) / 2 / Fraction(float(b))))
+    for a in (a0, np.nextafter(a0, _f32(0)), np.nextafter(a0, _f32(1))):
+        if _LO < Fraction(float(a)) * Fraction(float(b)) < _HI:
+            return a
+    return None
+
+
+def _with_tie_factor(v):
+    """(v', a): the first float32 v' from v upwards that has a tie factor a
+    (:func:`_tie_factor`)."""
+    v = _f32(v)
+    while _tie_factor(v, None) is None:
+        v = np.nextafter(v, _f32(np.inf))
+    return v, _tie_factor(v, None)
+
+
+def _pgo_weighted_residual(rng):
+    """PGO's gradient w r (``ops/posegraph.py::_gradient_and_blocks``): loop
+    edges whose residual (x, y, 0) has a Cauchy weight w(x), the same in
+    both packages, and w y in the tie interval; with theta 0 the gradient's
+    y entries are -w y and w y."""
+    from tbv_slam_public_tpu.core.config import PGOConfig as JPGOConfig
+    from tbv_slam_public_tpu.ops import posegraph as jpgo
+    from tbv_slam_public_torch.core.config import PGOConfig
+    from tbv_slam_public_torch.ops import posegraph as tpgo
+
+    rows = []
+    one = np.eye(3, dtype=np.float32)[None]
+    edge = (np.zeros((1, 2), np.int32), np.zeros((1, 3), np.float32), one,
+            np.ones(1, np.int32), np.ones(1, bool))
+    weight = jax.jit(lambda r: jpgo._cauchy_weights(
+        r, jpgo.make_edges(*edge), JPGOConfig())[1])
+    while len(rows) < 12:
+        x = _f32(rng.uniform(0.02, 0.3))
+        r = np.float32([[x, 0.0, 0.0]])
+        w = tpgo._cauchy_weights(torch.as_tensor(r), tpgo.make_edges(*edge),
+                                 PGOConfig())[1].numpy()
+        y = _tie_factor(w[0], rng)
+        if y is not None and _bits(w) == _bits(weight(r)):
+            rows.append((x, y))
+    e = len(rows)
+    poses = np.zeros((2 * e, 3), np.float32)
+    poses[1::2, :2] = rows
+    args = (np.stack([np.arange(0, 2 * e, 2), np.arange(1, 2 * e, 2)], 1),
+            np.zeros((e, 3), np.float32), np.tile(one, (e, 1, 1)),
+            np.ones(e, np.int64), np.ones(e, bool))
+    jed = jpgo.make_edges(args[0].astype(np.int32), *args[1:])
+    want = jax.jit(lambda p: jpgo._gradient_and_blocks(p, jed, JPGOConfig()))(
+        poses)[1]
+    got = tpgo._gradient_and_blocks(torch.as_tensor(poses),
+                                    tpgo.make_edges(*args), PGOConfig())[1]
+    return got, want
+
+
+def _cells_both(xy, **cfg):
+    """compute_cells of both packages on one cloud (equal intensities)."""
+    from tbv_slam_public_tpu.core.config import FeatureConfig as JFeatureConfig
+    from tbv_slam_public_tpu.core.types import PointCloud as JPointCloud
+    from tbv_slam_public_tpu.ops import features as jfeatures
+    from tbv_slam_public_torch.core.config import FeatureConfig
+    from tbv_slam_public_torch.core.types import PointCloud
+    from tbv_slam_public_torch.ops import features as tfeatures
+
+    inten = np.full(len(xy), 100.0, np.float32)
+    mask = np.ones(len(xy), bool)
+    want = jfeatures.compute_cells(JPointCloud(
+        xy=jnp.asarray(xy), intensity=jnp.asarray(inten),
+        mask=jnp.asarray(mask)), JFeatureConfig(**cfg))
+    got = tfeatures.compute_cells(PointCloud(
+        xy=torch.as_tensor(xy), intensity=torch.as_tensor(inten),
+        mask=torch.as_tensor(mask)), FeatureConfig(**cfg))
+    return got, want
+
+
+def _axis_cloud(u, v):
+    """Six points at the origin (its cell's centroid is exactly 0) and (-u,
+    0), (0, -v) in other voxels: that cell's neighbours have weights 1/8,
+    mean (-u/8, -v/8), qq = diag(u^2, v^2) / 8 and no off-diagonal term."""
+    return np.float32([(0.0, 0.0)] * 6 + [(-u, 0.0), (0.0, -v)])
+
+
+def _cells_covariance(rng):
+    """The CFEAR cells' covariance qq - mu mu^T (``ops/features.py``,
+    ``csrc/cells.cu``'s ``finish_cell``): mu0 mu1 = uv / 64 in the tie
+    interval, so the origin cell's off-diagonal is 0 in the reference and
+    -2^-126 before (min_det -1 keeps the tiny cell valid)."""
+    a, b = tie_products(rng, 4)
+    got, want = zip(*(_cells_both(_axis_cloud(8 * x, 8 * y), min_det=-1.0)
+                      for x, y in zip(a, b)))
+    assert all(np.asarray(w.valid).sum() == 3 for w in want)
+    return (torch.stack([g.cov for g in got]),
+            np.stack([np.asarray(w.cov) for w in want]))
+
+
+# (u, v) of _axis_cloud whose origin cell's eigenvalues multiply exactly
+# into the tie interval (found by a search over the port's arithmetic)
+_DET_TIES = [(4.8264885e-09, 2.0537982e-10), (5.5467746e-09, 1.7870891e-10),
+             (3.7497334e-09, 2.6435676e-10), (6.6410184e-09, 1.4926298e-10)]
+
+
+def _cells_determinant(rng):
+    """The eigen gate's determinant lmax lmin (``ops/features.py``,
+    ``finish_cell``) in the tie interval, with min_det 0: the reference's
+    flushed determinant fails the gate det > 0, 2^-126 passed it before."""
+    got, want = zip(*(_cells_both(_axis_cloud(_f32(u), _f32(v)), min_det=0.0)
+                      for u, v in _DET_TIES))
+    return (torch.stack([g.valid for g in got]),
+            np.stack([np.asarray(w.valid) for w in want]))
+
+
+def _cells_normal_direction(rng):
+    """The normal's orientation toward the origin, n . (o - mean) as
+    fma(n1, d1, n0 d0) (``ops/features.py``, ``finish_cell``): a cross of
+    points at +-(2, 1) and +-(-0.95, 2), two at the origin and one at (-u,
+    0) with leaf 1.5, so the origin cell has weights 1/8, d0 = u / 8, d1 = 0
+    and |n0| d0 in the tie interval.  The reference flushes n0 d0 and keeps
+    the eigenvector; 2^-126 of the sign of n0 < 0 flipped it before."""
+    c = float(_f32(0.95))
+    u = _f32(8.0) * _tie_factor(_f32(0.8479982), rng)  # |n0| of this cell
+    xy = np.float32([(2.0, 1.0), (-2.0, -1.0), (-c, 2.0), (c, -2.0),
+                     (0.0, 0.0), (0.0, 0.0), (-u, 0.0), (0.0, 0.0)])
+    got, want = _cells_both(xy, downsample_factor=2.0)
+    assert np.asarray(want.valid)[0]
+    return got.normal, np.asarray(want.normal)
+
+
+def _coral_determinant(rng):
+    """CorAl's determinant fma(c00, c11, -(c01 c10)) (``ops/coral.py::
+    _det2x2``, ``csrc/coral_moments.cu``'s ``tail_det``): c00 = 0 and c01
+    c10 in the tie interval, from n = 2 and zero means (cov = s2)."""
+    a, b = _tie_pairs(rng, 16)
+    s2 = np.zeros((16, 2, 2), np.float32)
+    s2[:, 0, 1], s2[:, 1, 0], s2[:, 1, 1] = a, b, 1.0
+    n, s1 = np.full(16, 2.0, np.float32), np.zeros((16, 2), np.float32)
+    want = jax.jit(lambda *x: jcoral._entropy_from_moments(*x, 1e-8))(
+        n, s1, s2)[1]
+    got = tcoral._entropy_from_moments(
+        *(torch.as_tensor(x) for x in (n, s1, s2)), 1e-8)[1]
+    return got, want
+
+
+def _coral_kl_inverse(rng):
+    """The KL divergence's inverse entries s1i = adj(S1) / det1
+    (``_kl_divergence_2d``, ``tail_kl``): S1 = [[1, a], [0, y]] with
+    fl(1 / y) = b and a b in the tie interval, so s1i[0, 1] is 0 in the
+    reference (and -2^-126 before), and S0 = [[1, 0], [1e38, 1]] carries it
+    into the trace."""
+    rows = []
+    while len(rows) < 12:
+        b = _f32(np.ldexp(rng.uniform(1.0, 2.0), -63))
+        y = _f32(1.0) / b
+        inv = _f32(1.0) / y
+        a = _tie_factor(inv, rng)
+        if a is not None:
+            rows.append((a, y))
+    m = len(rows)
+    s1 = np.tile(np.eye(2, dtype=np.float32), (m, 1, 1))
+    s1[:, 0, 1] = [a for a, _ in rows]
+    s1[:, 1, 1] = [y for _, y in rows]
+    s0 = np.tile(np.float32([[1.0, 0.0], [1e38, 1.0]]), (m, 1, 1))
+    u = np.zeros((m, 2), np.float32)
+    want = jax.jit(jcoral._kl_divergence_2d)(u, s0, u, s1)[0]
+    got = tcoral._kl_divergence_2d(*(torch.as_tensor(x)
+                                     for x in (u, s0, u, s1)))[0]
+    return got, want
+
+
+_TIE_SITES = {"pgo_weighted_residual": _pgo_weighted_residual,
+              "cells_covariance": _cells_covariance,
+              "cells_determinant": _cells_determinant,
+              "cells_normal_direction": _cells_normal_direction,
+              "coral_determinant": _coral_determinant,
+              "coral_kl_inverse": _coral_kl_inverse}
+
+
+@pytest.mark.parametrize("site", sorted(_TIE_SITES))
+def test_flush_tie_in_lone_products(site):
+    """A lone product of the reference (a multiply not fused into an add)
+    whose exact value lies in the tie interval, at each repaired site:
+    flushed as the reference's FTZ threads flush it (``mul_ftz``; the
+    refmath op ``mul`` where PGO runs on the card; ``mul_ftz``, one
+    mul.rn.ftz, in the kernels), the site's outputs bit-equal to the JAX
+    function's.  Before: 2^-126 kept, as ``ftz(a * b)`` and
+    ``daz(__fmul_rn(a, b))`` keep it."""
+    got, want = _TIE_SITES[site](np.random.default_rng(1400))
+    got, want = got.numpy(), np.asarray(want)
+    if got.dtype == bool:
+        np.testing.assert_array_equal(got, want)
+        assert not want.all()
+        return
+    same = (_bits(got) == _bits(want)) | ((got == 0) & (want == 0))
+    assert same.all(), f"{(~same).sum()} of {same.size} differ"
+
+
+def test_mul_op_flushes_as_the_reference():
+    """The refmath op ``mul``'s plain version (``core/refmath.py::mul``)
+    against the reference's product a * b on its FTZ / DAZ threads: tie
+    products flushed, every other product, subnormal operands (flushed, as
+    DAZ flushes them) and specials bit-equal; operands broadcast together;
+    ``kernels/refmath.py::mul`` on normal operands the same."""
+    rng = np.random.default_rng(1401)
+    a, b = _tie_pairs(rng, 64)
+    x = np.concatenate([a, rng.normal(size=4096).astype(np.float32)
+                        * np.exp(rng.uniform(-85, 85, 4096)).astype(
+                            np.float32),
+                        np.float32([0.0, -0.0, np.inf, -np.inf, np.nan,
+                                    1e-40, -3e-39, 2.0 ** -126])])
+    y = np.concatenate([b, rng.normal(size=4096).astype(np.float32)
+                        * np.exp(rng.uniform(-85, 85, 4096)).astype(
+                            np.float32),
+                        np.float32([np.inf, 5.0, 0.0, -2.0, 1.0, 1e30,
+                                    -1e38, 0.5])])
+    want = np.asarray(jax.jit(lambda p, q: p * q)(x, y))
+    got = plain.mul(torch.as_tensor(x), torch.as_tensor(y)).numpy()
+    assert (want[:64] == 0).all()
+    same = (_bits(got) == _bits(want)) | (np.isnan(got) & np.isnan(want))
+    assert same.all(), f"{(~same).sum()} differ"
+    normal = np.abs(x) >= MIN_NORM
+    normal &= np.abs(y) >= MIN_NORM
+    np.testing.assert_array_equal(_bits(trefmath.mul(torch.as_tensor(
+        x[normal]), torch.as_tensor(y[normal])).numpy()), _bits(got[normal]))
+    col = plain.mul(torch.as_tensor(x[:8, None]), torch.as_tensor(y[:3]))
+    np.testing.assert_array_equal(col.numpy(), np.asarray(jax.jit(
+        lambda p, q: p * q)(x[:8, None], y[:3])))
+
+
+def test_exp_scale_never_reaches_the_tie():
+    """Audited, nothing to repair: XLA's exp scales its polynomial y by 2^n
+    (``core/refmath.py::exp``'s ftz(y 2^n); ``refmath.cuh``'s ``ref_exp``),
+    a product by a power of two that is at the tie only for y 2^n =
+    2^-126 - 2^-150 exactly.  Every float32 x in [-88, -87] (where the
+    result crosses 2^-126) gives the reference's bits."""
+    x = np.arange(np.float32(-88.0).view(np.int32),
+                  np.float32(-87.0).view(np.int32) - 1, -1,
+                  dtype=np.int32).view(np.float32)
+    want = np.asarray(jax.jit(jnp.exp)(x))
+    got = plain.exp(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("cost", [jreg.COST_P2L, jreg.COST_P2P,
+                                  jreg.COST_P2D])
+def test_residual_terms_flush_the_sine_of_a_subnormal_theta(cost):
+    """The sine of a subnormal theta: glibc's sinf returns a tiny argument
+    unchanged, and the reference's DAZ threads then read it as zero in
+    every product (``_residual_terms`` and ``csrc/lm_solve.cu``'s ``leaf``
+    flush it).  Cells at (0, 1000) and (3, -700), theta 1e-40 and -3e-39:
+    residuals, Jacobians and squared norms bit-equal to the JAX function's.
+    Before: s uy kept as a normal -1e-37 in the residual and Jacobian."""
+    mean = np.float32([[0.0, 1000.0], [3.0, -700.0]])
+    tm = np.float32([[[0.5, -2.0], [1.0, 4.0]]])
+    tn = np.tile(np.float32([0.6, 0.8]), (1, 2, 1))
+    si = np.tile(np.float32([[2.0, 0.5], [0.0, 1.5]]), (1, 2, 1, 1))
+    w, m = np.ones((1, 2), np.float32), np.ones((1, 2), bool)
+    jc = JCells(mean, None, None, None, None, None, None)
+    for t in (1e-40, -3e-39):
+        th = np.float32([0.25, -1.0, t])
+        want = jax.jit(lambda v: jreg._residual_terms(
+            v, jc, jreg.Associations(tm, tn, si, w, m), cost))(th)
+        got = treg._residual_terms(
+            torch.as_tensor(th)[None],
+            Cells(torch.as_tensor(mean)[None], None, None, None, None, None,
+                  None),
+            treg.Associations(torch.as_tensor(tm)[None],
+                              torch.as_tensor(tn)[None],
+                              torch.as_tensor(w)[None],
+                              torch.as_tensor(m)[None],
+                              tgt_sqrtinfo=torch.as_tensor(si)[None]), cost)
+        for g, v in zip(got, want):
+            g, v = g[0].numpy(), np.asarray(v)
+            same = (_bits(g) == _bits(v)) | ((g == 0) & (v == 0))
+            assert same.all(), (t, g, v)
+
+
+def _residuals_both(theta, mean, tm, tn, si, cost):
+    """``_residual_terms`` of both packages for one row of theta [3], cells
+    mean [C, 2], one target scan (tm, tn [1, C, 2], si [1, C, 2, 2])."""
+    w, m = np.ones(tm.shape[:2], np.float32), np.ones(tm.shape[:2], bool)
+    jc = JCells(mean, None, None, None, None, None, None)
+    want = jax.jit(lambda v: jreg._residual_terms(
+        v, jc, jreg.Associations(tm, tn, si, w, m), cost))(theta)
+    got = treg._residual_terms(
+        torch.as_tensor(theta)[None],
+        Cells(torch.as_tensor(mean)[None], None, None, None, None, None,
+              None),
+        treg.Associations(torch.as_tensor(tm)[None],
+                          torch.as_tensor(tn)[None],
+                          torch.as_tensor(w)[None], torch.as_tensor(m)[None],
+                          tgt_sqrtinfo=torch.as_tensor(si)[None]), cost)
+    return [(g[0].numpy(), np.asarray(v)) for g, v in zip(got, want)]
+
+
+@pytest.mark.parametrize("cost", [jreg.COST_P2L, jreg.COST_P2P,
+                                  jreg.COST_P2D])
+def test_flush_tie_in_residual_products(cost):
+    """The first products of the residuals' fused sums (``_residual_terms``;
+    ``csrc/lm_solve.cu``'s ``leaf``: mul.rn.ftz), each a lone product of the
+    reference, driven into the tie interval with the sum's other term zero:
+    P2L's n0 e0 (residual) and n1 dy (Jacobian), P2D's u0 e0 (residual) and
+    u_r0 dx (Jacobian), the rotation's c uy and s uy (P2P at theta 0.3).
+    Residuals, Jacobians and squared norms bit-equal to the JAX function's
+    (zeros of either sign alike).  Before: 2^-126 where the reference has
+    0."""
+    (n0, a0), (n1, a1), (u0, b0) = (_with_tie_factor(v)
+                                    for v in (0.6, 0.8, 0.7))
+    si = np.tile(np.float32([[u0, 0.25], [0.75, 1.25]]), (1, 2, 1, 1))
+    tm = np.zeros((1, 2, 2), np.float32)
+    tn = np.tile(np.float32([n0, n1]), (1, 2, 1))
+    theta = np.zeros(3, np.float32)
+    if cost == jreg.COST_P2L:  # ux n0 and ux n1 at theta 0: e0 = dy = ux
+        mean = np.float32([[a0, 0.0], [a1, 0.0]])
+    elif cost == jreg.COST_P2D:  # ux u0 (e0 = ux), then -uy u0 (dx = -uy)
+        mean = np.float32([[b0, 0.0], [0.0, b0]])
+    else:  # ux = 0: e1 = wy = c uy, e0 = dy = -(s uy)
+        t = _f32(0.3)
+        while True:
+            s, c = (_f32(float(v)) for v in trefmath.sincos(torch.tensor([t])))
+            fc, fs = _tie_factor(c, None), _tie_factor(s, None)
+            if fc is not None and fs is not None:
+                break
+            t = np.nextafter(t, _f32(1))
+        theta[2] = t
+        mean = np.float32([[0.0, fc], [0.0, fs]])
+    for g, w in _residuals_both(theta, mean, tm, tn, si, cost):
+        same = (_bits(g) == _bits(w)) | ((g == 0) & (w == 0))
+        assert same.all(), (g, w)

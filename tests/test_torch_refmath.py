@@ -377,3 +377,62 @@ def test_coral_gate_rounds_as_the_reference_on_the_gate():
         for g, w in zip(got[1:], want[1:]):
             np.testing.assert_array_equal(g[0].numpy(), np.asarray(w))
         assert (two_roundings[i] != np.asarray(want[0])).any()
+
+
+def _kernel_gather(layout, ts, n):
+    """The values csrc/refmath.cu's strided path reads for each operand:
+    value i's index in the 4-d output shape, each input's offset from its
+    strides, read from the input's storage."""
+    from tbv_slam_public_torch.kernels.refmath import OP_DIMS
+
+    shape = layout[:OP_DIMS]
+    out = []
+    for k, t in enumerate(ts):
+        stride = layout[OP_DIMS * (k + 1):OP_DIMS * (k + 2)]
+        i = np.arange(n, dtype=np.int64)
+        off = np.zeros(n, np.int64)
+        for d in range(OP_DIMS - 1, -1, -1):
+            if shape[d] == 1:
+                continue
+            off += (i % shape[d]) * stride[d]
+            i //= shape[d]
+        flat = t.as_strided((t.untyped_storage().nbytes() // 4,), (1,), 0)
+        out.append(flat.numpy()[t.storage_offset() + off])
+    return out
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_op_layout_reads_every_operand_as_broadcast(case):
+    """The strided path's description (``kernels/refmath.py::_op_layout``:
+    dimensions of one dropped, neighbours merged, broadcast strides 0),
+    emulated as the kernel indexes it, reads each operand's values as
+    ``torch.broadcast_to`` gives them: transposed, sliced, expanded and
+    offset operands of up to 7 dimensions."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    rng = np.random.default_rng(case)
+    nd = int(rng.integers(1, 8))
+    shape = tuple(int(d) for d in rng.integers(1, 5, nd))
+    ts = []
+    for k in range(int(rng.integers(1, 4))):
+        full = torch.as_tensor(rng.normal(size=tuple(
+            2 * d + 1 for d in shape)).astype(np.float32))
+        t = full[tuple(slice(1, 1 + 2 * d, 2) for d in shape)]
+        if k > 0 and nd > 1:  # drop and size-1 some leading dimensions
+            keep = int(rng.integers(0, nd))
+            t = t[(0,) * keep]
+            t = t[tuple(slice(0, 1) if rng.uniform() < 0.4 else slice(None)
+                        for _ in range(t.dim()))]
+        if t.dim() > 1 and rng.uniform() < 0.5:
+            t = t.transpose(0, -1).contiguous().transpose(0, -1)
+        ts.append(t)
+    out = torch.broadcast_shapes(*(t.shape for t in ts))
+    try:
+        layout = rm._op_layout(out, ts)
+    except ValueError:  # more strided dimensions than the kernel reads
+        assert nd > rm.OP_DIMS
+        return
+    n = int(np.prod(out))
+    for t, got in zip(ts, _kernel_gather(layout, ts, n)):
+        np.testing.assert_array_equal(
+            got, torch.broadcast_to(t, out).reshape(-1).numpy())
