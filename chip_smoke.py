@@ -42,11 +42,17 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    to the plain ``register_window`` on the card over every cost x loss x
    prior (one_system and the weight option 0-4 in turn) at the paths'
    shapes (odometry at B = 1 and 4, an online and an offline loop wave,
-   cell_capacity 2048 with P2D) and at forced cluster sizes 1, 2, 4 and 8,
-   one window launch and the same refmath launches a call at 1 and 8
-   outer iterations, timed in turns against the plain path beside its
-   bound; its solve entry (``register_joint``'s LM solves) bit-equal to the
-   plain solve over every cost x loss x prior x one_system; its evaluation
+   cell_capacity 2048 with P2D), at forced cluster sizes 1, 2, 4 and 8 and
+   forced candidates a pass 1-4 (a run of LM rejections evaluated in one
+   pass), 10 and 20 inner iterations, a row of NaN costs among them, one
+   window launch and no refmath launch a call at 1 and 8 outer iterations
+   (the targets placed in the world inside it), its passes over the
+   records against the serial loop's, timed in turns against the plain
+   path beside its bound; its solve entry (``register_joint``'s LM solves)
+   bit-equal to the plain solve over every cost x loss x prior x
+   one_system, and on rows that stress the schedule (every candidate
+   rejected, accepts at a pass's last slot, NaN costs; 7, 10 and 20
+   iterations, 1-4 candidates a pass); its evaluation
    entry (``evaluate_cost`` and ``sampled_covariance``, one launch a call:
    one association, the cost at all S poses over it in one pass, the
    sampled covariance's fit, its 3 x 3 covariance and convexity) bit-equal
@@ -55,8 +61,9 @@ Needs one CUDA card.  Phases, each of which raises on failure:
    and an online loop wave, a training pair, an evaluate-scans pair, the
    odometry window) and at forced cluster sizes, a sampled covariance
    under ``torch.cuda.set_sync_debug_mode("error")`` (no host
-   synchronisation, no launch but the entry's and the world_targets
-   site's), timed in turns against the plain path beside its bound;
+   synchronisation, no launch but the entry's), timed in turns against the
+   plain path beside its bound; no ``world_targets`` site launch on the
+   paths whose registration is these entries';
    ``coral_tail`` (phase 2c: CorAl's per-point terms and the pairs' sums
    after the moments, one launch a ``coral_quality``) bit-equal to its
    plain version given the same moments in both modes at the paths'
@@ -141,6 +148,7 @@ repository root:
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -263,6 +271,19 @@ def device_us_by_kernel(fn, reps: int = 10, tries: int = 3,
         log(f"[profiler] window {k} of {tries} showed no device time of "
             f"{want or 'any kernel'} ({len(out)} kernels seen)")
     return {}, tries
+
+
+def _kernel_ms(prof_us, want, k1, k2, tag):
+    """(ms, source) of a call that is one launch of the kernel ``want``:
+    its device time from the profiler, or, where every profiled window
+    came back without device activity, the lower of the call's two times
+    by CUDA events behind the spin (the call launches nothing else)."""
+    kernel_us = [us for name, us in prof_us.items() if want in name]
+    if kernel_us:
+        return kernel_us[0] / 1e3, "profiler"
+    log(f"[profiler] {tag}: no window showed device time; the call's time "
+        f"by CUDA events stands in ({min(k1, k2):.4f} ms)")
+    return min(k1, k2), "events"
 
 
 def _moment_bound(args, count, sm_hz):
@@ -1264,6 +1285,11 @@ def hold_window(tag, kept) -> int:
 EVAL_HELD = {}
 EVAL_PATHS = ("offline", "online", "evaluate_scans", "parallel_offline",
               "dryrun")
+# paths whose registration runs only through the window and evaluation
+# entries, which place their targets in the world inside the launch: no
+# world_targets site launch there
+WORLD_FREE_PATHS = ("offline", "online", "evaluate_scans", "batched",
+                    "parallel_offline", "dryrun")
 
 
 @contextlib.contextmanager
@@ -1490,6 +1516,11 @@ def kernel_path(path):
     if LM_LAUNCHES[path].get("evaluate", 0) <= 0 and path in EVAL_PATHS:
         raise AssertionError(f"the {path} path launched no evaluation "
                              f"entry")
+    if path in WORLD_FREE_PATHS and \
+            rm.LAUNCHES_BY_OP.get("world_targets", 0) != 0:
+        raise AssertionError(f"the {path} path launched the world_targets "
+                             f"site {rm.LAUNCHES_BY_OP['world_targets']} "
+                             f"times")
     REFMATH_HELD[path] = hold_refmath(f"[{path}]", kept)
     WINDOW_HELD[path] = hold_window(f"[{path}]", win_kept)
     LM_HELD[path] = hold_lm(f"[{path}]", lm_kept)
@@ -1869,12 +1900,20 @@ def phase_registration():
     Window entry: ``register_window`` bit for bit (pose, score, residual
     count, iterations) over every cost x loss x prior, one_system and the
     weight option 0-4 in turn, at the paths' shapes; forced cluster sizes
-    1, 2, 4, 8 bit-identical; one window launch a call, no solve launch,
-    and the same refmath launches (``_world_targets``') at 1 and 8 outer
-    iterations; then one call's time at the odometry, B = 4 and loop-wave
-    shapes in turns against the plain path (kernel, plain, plain, kernel)
-    and the kernel's device time from the profiler, beside the bound.  Solve entry: bit for bit in theta, cost and rel_dec
-    over every cost x loss x prior x one_system at its shapes, timed."""
+    1, 2, 4, 8 and forced candidates a pass 1-4 bit-identical; one window
+    launch a call, no solve launch and no refmath launch (the targets are
+    placed in the world inside it) at 1 and 8 outer iterations; the passes
+    over the records a call against the serial loop's 1 + max_inner an
+    outer iteration; then one call's time at the odometry, B = 4 and
+    loop-wave shapes in turns against the plain path (kernel, plain, plain,
+    kernel), the kernel's device time from the profiler, beside the bound,
+    and the host's microseconds a call.  Solve entry: bit for bit in
+    theta, cost and rel_dec over every cost x loss x prior x one_system at
+    its shapes, timed; and on rows that stress its schedule
+    (``kernels/checks.py::schedule_problem``: rows that accept then reject,
+    reject for long runs, or have every cost NaN) at 7, 10 and 20
+    iterations and 1-4 candidates a pass, their serial accept / reject
+    strings read from the plain version."""
     from tbv_slam_public_torch.core.config import RegistrationConfig
     from tbv_slam_public_torch.kernels import lm_solve as lk
     from tbv_slam_public_torch.kernels import refmath as rm
@@ -1918,7 +1957,9 @@ def phase_registration():
                             f"{i % 5}: {bad} values differ")
                     held += 1
                     i += 1
-        # refmath launches of a call do not depend on its outer iterations
+        # a call launches the window entry and nothing else, whatever its
+        # outer iterations (no world_targets site: the targets are placed
+        # inside the launch)
         per_call = []
         for n_outer in (1, 8):
             cfg = RegistrationConfig(cost=path_cost,
@@ -1928,7 +1969,7 @@ def phase_registration():
             lk.LAUNCHES_BY_ENTRY.clear()
             treg.register_window(*args, **kw)
             per_call.append((rm.LAUNCHES, dict(lk.LAUNCHES_BY_ENTRY)))
-        if per_call[0] != per_call[1] or per_call[0][1] != {"window": 1}:
+        if any(c != (0, {"window": 1}) for c in per_call):
             raise AssertionError(f"[2b] register_window {tag}: launches at "
                                  f"1 and 8 outer iterations {per_call}")
         cfg = RegistrationConfig(cost=path_cost, max_inner_iterations=inner,
@@ -1943,6 +1984,17 @@ def phase_registration():
         res = call()
         bound = _window_bound(b, tt, c, c, path_cost, inner,
                               res.iterations.cpu().numpy())
+        # passes over the records: the kernel's, and the serial loop's
+        # 1 + max_inner an outer iteration (1 where a row's count is <= 1)
+        passes = torch.zeros(b, dtype=torch.int32, device=dev)
+        _window_kernel(args, kw, passes=passes)
+        ran = (res.num_residuals > 1).cpu()
+        serial = int(torch.where(ran, res.iterations.cpu() * (1 + inner),
+                                 res.iterations.cpu()).sum())
+        WINDOW_PASSES[tag] = dict(passes=int(passes.sum()), serial=serial,
+                                  rows=b)
+        log(f"[2b] register_window {tag}: {int(passes.sum())} passes over "
+            f"the records for {b} rows against the serial loop's {serial}")
         if tag in ("odometry", "odometry_b4", "loop_wave"):
             # in turns, by CUDA events (a call's host time may exceed its
             # device time, so these can be paced by the host), and the
@@ -1953,21 +2005,17 @@ def phase_registration():
             k2 = cuda_ms(call, 20)
             prof_us, windows = device_us_by_kernel(
                 call, want="registration_kernel")
-            kernel_us = [us for name, us in prof_us.items()
-                         if "registration_kernel" in name]
-            if not kernel_us:
-                raise AssertionError(f"[2b] register_window {tag}: the "
-                                     f"profiler saw no kernel time")
+            ms, source = _kernel_ms(prof_us, "registration_kernel", k1, k2,
+                                    f"register_window {tag}")
             times[tag] = dict(
                 B=b, T=tt, C=c, cost=path_cost, inner=inner, outer=outer,
                 K=lk.cluster_size(b, tt, c, c, cost_code(path_cost), True),
-                iterations=res.iterations.tolist(), ms=kernel_us[0] / 1e3,
+                iterations=res.iterations.tolist(), ms=ms, ms_source=source,
                 profiler_windows=windows,
                 events_ms_turns=[k1, k2], plain_ms=min(p1, p2),
                 plain_ms_turns=[p1, p2], host_us=host_us(call, 20),
-                world_targets_host_us=host_us(lambda: treg._world_targets(
-                    args[2], args[3], args[4], cost_code(path_cost)), 20),
-                refmath_launches_a_call=per_call[0][0], **bound)
+                refmath_launches_a_call=per_call[0][0],
+                passes=WINDOW_PASSES[tag], **bound)
             _share(f"register_window {tag}", bound["bound_ms"],
                    times[tag]["ms"])
             log(f"[2b] register_window {tag} B={b} T={tt} C={c} "
@@ -1976,44 +2024,36 @@ def phase_registration():
                 f"of device time, {k1:.4f} / {k2:.4f} ms by events "
                 f"(bound {bound['bound_ms']:.6f} ms by {bound['bound_by']}),"
                 f" plain {p1:.2f} / {p2:.2f} ms, host "
-                f"{times[tag]['host_us']:.1f} us a call (_world_targets "
-                f"{times[tag]['world_targets_host_us']:.1f}), "
+                f"{times[tag]['host_us']:.1f} us a call, "
                 f"{per_call[0][0]} refmath launches a call")
     log(f"[2b] register_window: bit-equal to the plain version in {held} "
         f"calls ({len(WINDOW_SHAPES)} shapes); one window launch a call")
     forced = 0
     for tag, (b, tt, c, cost) in FORCED_SHAPES.items():
         prob = window_problem(rng, b, tt, c, c, with_prior=True)
-        cfg = RegistrationConfig(cost=cost)
-        (src, pose0, tgt, tposes, smask, _), kw = _window_case(prob, dev, cfg)
-        with lk.plain_on_card():
-            want = treg.register_window(src, pose0, tgt, tposes, smask, cfg,
-                                        **kw)
-        code = cost_code(cost)
-        tmw, tnw, tcw, tvalid = treg._world_targets(tgt, tposes, smask, code)
-        for k in (1, 2, 4, 8):
-            pose, score, n_res, used = lk.register_window(
-                pose0, src.mean, src.normal, src.nsamples, src.planarity,
-                src.valid, tmw, tnw, tcw, tvalid, tgt.nsamples,
-                tgt.planarity, cost=code, loss=treg.loss_code(cfg.loss),
-                delta=cfg.loss_limit, max_inner=cfg.max_inner_iterations,
-                init_lambda=cfg.init_lambda,
-                max_outer=cfg.max_outer_iterations,
-                min_outer=cfg.min_outer_iterations, radius=cfg.radius,
-                angle_gate_cos=math.cos(math.radians(cfg.angle_gate_deg)),
-                weight_option=cfg.weight_option,
-                regularization=cfg.regularization, cov_scale=cfg.cov_scale,
-                score_tolerance=cfg.score_tolerance, guess=kw["guess"],
-                sqrt_info=kw["guess_sqrt_info"], cluster=k)
-            bad = bits_differ(pose, want.pose) + bits_differ(
-                score, want.score) + int((n_res != want.num_residuals).sum()) \
-                + int((used != want.iterations).sum())
-            if bad:
-                raise AssertionError(f"[2b] register_window {tag} at K={k}: "
-                                     f"{bad} values differ")
-            forced += 1
+        prob["src_nsamples"][-1] = np.nan  # weight option 1: NaN costs
+        for inner in (10, 20):
+            cfg = RegistrationConfig(cost=cost, weight_option=1,
+                                     max_inner_iterations=inner)
+            args, kw = _window_case(prob, dev, cfg)
+            with lk.plain_on_card():
+                want = treg.register_window(*args, **kw)
+            runs = [dict(cluster=k) for k in (1, 2, 4, 8)] + [
+                dict(batch=n) for n in (1, 2, 3, 4)]
+            for extra in runs:
+                pose, score, n_res, used = _window_kernel(args, kw, **extra)
+                bad = bits_differ(pose, want.pose) + bits_differ(
+                    score, want.score) + int(
+                    (n_res != want.num_residuals).sum()) + int(
+                    (used != want.iterations).sum())
+                if bad:
+                    raise AssertionError(f"[2b] register_window {tag} "
+                                         f"{inner} inner at {extra}: {bad} "
+                                         f"values differ")
+                forced += 1
     log(f"[2b] register_window: bit-identical at cluster sizes 1, 2, 4, 8 "
-        f"({forced} calls)")
+        f"and 1-4 candidates a pass, 10 and 20 inner iterations, a row of "
+        f"NaN costs in each ({forced} calls)")
 
     t = lambda x: None if x is None else torch.as_tensor(x, device=dev)
 
@@ -2066,8 +2106,125 @@ def phase_registration():
     log(f"[2b] lm_solve: bit-equal to the plain version in {solves} solves "
         f"(every cost x loss x prior x one_system at {len(LM_SHAPES)} "
         f"shapes)")
+    schedule = _schedule_cases(rng, dev, args)
     return dict(max_abs_err=0.0, held=held, forced=forced, times=times,
-                solves=solves, solve_times=solve_times)
+                solves=solves, solve_times=solve_times, schedule=schedule,
+                passes=WINDOW_PASSES)
+
+
+# the window entry's passes over the records a call at each shape
+WINDOW_PASSES = {}
+
+
+def _window_kernel(args, kw, **extra):
+    """``kernels/lm_solve.py::register_window`` on ``register_window``'s
+    arguments (``extra``: cluster, batch, passes)."""
+    from tbv_slam_public_torch.kernels import lm_solve as lk
+    from tbv_slam_public_torch.ops import registration as treg
+
+    src, pose0, tgt, tposes, smask, cfg = args
+    return lk.register_window(
+        pose0, src.mean, src.normal, src.nsamples, src.planarity, src.valid,
+        tposes, tgt.mean, tgt.normal, tgt.cov, tgt.valid, smask,
+        tgt.nsamples, tgt.planarity, cost=treg.cost_code(cfg.cost),
+        loss=treg.loss_code(cfg.loss), delta=cfg.loss_limit,
+        max_inner=cfg.max_inner_iterations, init_lambda=cfg.init_lambda,
+        max_outer=cfg.max_outer_iterations,
+        min_outer=cfg.min_outer_iterations, radius=cfg.radius,
+        angle_gate_cos=math.cos(math.radians(cfg.angle_gate_deg)),
+        weight_option=cfg.weight_option, regularization=cfg.regularization,
+        cov_scale=cfg.cov_scale, score_tolerance=cfg.score_tolerance,
+        guess=kw.get("guess"), sqrt_info=kw.get("guess_sqrt_info"),
+        one_system=kw.get("one_system", False), **extra)
+
+
+def _serial_patterns(ts, opts):
+    """Each row's accept / reject string of the plain serial LM solve on
+    the card ("A" accepted, "r" rejected, "n" a NaN candidate cost)."""
+    from types import SimpleNamespace
+
+    from tbv_slam_public_torch.kernels import lm_solve as lk
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.ops import registration as treg
+
+    theta, src, tm, tn, weight, mask, si = ts
+    src = SimpleNamespace(mean=src)
+    assoc = treg.Associations(tm, tn, weight, mask, si)
+    kw = dict(cost=opts["cost"], loss=opts["loss"], delta=opts["delta"])
+    out = [""] * theta.shape[0]
+    with lk.plain_on_card():
+        cur, g, h = treg._cost_grad_hess(theta, src, assoc, **kw)
+        lam = torch.full_like(cur, opts["init_lambda"])
+        for _ in range(opts["max_iter"]):
+            damp = torch.diag_embed(rm.fma(lam[:, None], torch.diagonal(
+                h, dim1=-2, dim2=-1), torch.full_like(g, 1e-12)))
+            cand = rm.lm_update(theta, h + damp, g,
+                                one_system=opts["one_system"])
+            cc, cg, ch = treg._cost_grad_hess(cand, src, assoc, **kw)
+            acc = cc < cur
+            for r, (a, nan) in enumerate(zip(acc.tolist(),
+                                             torch.isnan(cc).tolist())):
+                out[r] += "A" if a else "n" if nan else "r"
+            theta = torch.where(acc[:, None], cand, theta)
+            g = torch.where(acc[:, None], cg, g)
+            h = torch.where(acc[:, None, None], ch, h)
+            lam = torch.where(acc, torch.clamp(lam * 0.5, min=1e-9),
+                              torch.clamp(lam * 4.0, max=1e6))
+            cur = torch.where(acc, cc, cur)
+    return out
+
+
+def _schedule_cases(rng, dev, args):
+    """The solve entry on rows that stress its schedule
+    (``kernels/checks.py::schedule_problem``) at the odometry's and a loop
+    wave's shapes, three losses and starting lambdas, 7, 10 and 20
+    iterations, the kernel's default and 1-4 candidates a pass, bit for bit
+    against the plain version; the rows' serial accept / reject strings
+    give the passes each pass size takes and where they accepted."""
+    from tbv_slam_public_torch.kernels import lm_solve as lk
+    from tbv_slam_public_torch.kernels.checks import (bits_differ,
+                                                      pass_slots,
+                                                      schedule_problem)
+    from tbv_slam_public_torch.ops.registration import cost_code
+
+    held, slots, rejected, nan = 0, collections.Counter(), 0, 0
+    for b, tt, c, cost, base in ((8, 4, 512, "P2P", 20),
+                                 (8, 1, 512, "P2L", 10)):
+        prob = schedule_problem(rng, b, tt, c, cost)
+        for loss, lam0 in ((1, 1e-4), (4, 1e-9), (2, 1e5)):
+            for it in sorted({base, 7, 10}):
+                ts, opts = args(prob + (None,), cost_code(cost), loss, it,
+                                False)
+                opts["init_lambda"] = lam0
+                want = plain_lm(ts, opts)
+                for n in (None, 1, 2, 3, 4):
+                    got = lk.lm_solve(*ts, batch=n, **opts)
+                    bad = sum(bits_differ(g, w) for g, w in zip(got, want))
+                    if bad:
+                        raise AssertionError(
+                            f"[2b] lm_solve schedule {cost} loss {loss} "
+                            f"lambda {lam0} {it} iterations batch {n}: "
+                            f"{bad} values differ")
+                    held += 1
+                pats = _serial_patterns(ts, opts)
+                rejected += sum("A" not in pt for pt in pats)
+                nan += sum("n" in pt for pt in pats)
+                for k in (2, 3, 4):
+                    for pt in pats:
+                        for nb, j in pass_slots(pt, k):
+                            if j is not None:
+                                slots[(k, nb, j)] += 1
+    last = {k: sum(v for (kk, nb, j), v in slots.items()
+                   if kk == k and nb == k and j == k - 1) for k in (2, 3, 4)}
+    log(f"[2b] lm_solve schedule: bit-equal in {held} solves; over the "
+        f"rows' serial strings {rejected} rows rejected every candidate, "
+        f"{nan} met a NaN cost, accepts at a full pass's last slot by "
+        f"candidates a pass {last}")
+    if not rejected or not nan or not any(last.values()):
+        raise AssertionError(f"[2b] lm_solve schedule: a stress case did "
+                             f"not occur ({rejected}, {nan}, {last})")
+    return dict(held=held, all_rejected_rows=rejected, nan_rows=nan,
+                last_slot_accepts=last)
 
 
 # the evaluation entry's shapes: (M rows, T, C = Ct, the path's
@@ -2130,8 +2287,9 @@ def phase_evaluation():
     covariance and its convexity, all from the one launch) bit for bit over
     every cost x loss with the weight option 0-4 in turn, the CFEAR
     feature's and the loop registration's configurations, at the paths'
-    shapes; one evaluate launch and one ``world_targets`` site launch a
-    call, no other launch, and a sampled covariance run under
+    shapes; one evaluate launch a call (the targets placed in the world
+    inside it: no ``world_targets`` site launch), no other launch, and a
+    sampled covariance run under
     ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
     forced cluster sizes 1, 2, 4, 8 bit-identical (the covariance too);
     then a call's time at each shape in turns against the plain path
@@ -2161,11 +2319,12 @@ def phase_evaluation():
             costs, count, q, _, _ = treg._evaluate_on_card(
                 *args, cfg, offsets=offs, pinv=pinv)
             if dict(lk.LAUNCHES_BY_ENTRY) != {"evaluate": 3} or \
-                    dict(rm.LAUNCHES_BY_OP) != {"world_targets": 3}:
+                    dict(rm.LAUNCHES_BY_OP):
                 raise AssertionError(
                     f"[2b] evaluate {tag}: launches "
                     f"{dict(lk.LAUNCHES_BY_ENTRY)}, refmath "
-                    f"{dict(rm.LAUNCHES_BY_OP)}, not one of each a call")
+                    f"{dict(rm.LAUNCHES_BY_OP)}, not one evaluate launch "
+                    f"a call and nothing else")
             with lk.plain_on_card():
                 want = treg.evaluate_cost(*args, cfg) + \
                     treg.sampled_covariance(*args, cfg, cost, n_res) + \
@@ -2188,14 +2347,13 @@ def phase_evaluation():
                 score, n_res = treg.evaluate_cost(*args, cfg)
                 want_cov = treg._covariance_from_fit(want_q, code, score,
                                                      n_res, 4.0)
-            tmw, tnw, tcw, tvalid = treg._world_targets(args[2], args[3],
-                                                        args[4], code)
             for k in (1, 2, 4, 8):
                 costs, _, q, cov, convex = lk.evaluate(
                     args[1], args[0].mean, args[0].normal,
-                    args[0].nsamples, args[0].planarity, args[0].valid, tmw,
-                    tnw, tcw, tvalid, args[2].nsamples, args[2].planarity,
-                    cost=code, loss=treg.loss_code(cfg.loss),
+                    args[0].nsamples, args[0].planarity, args[0].valid,
+                    args[3], args[2].mean, args[2].normal, args[2].cov,
+                    args[2].valid, args[4], args[2].nsamples,
+                    args[2].planarity, cost=code, loss=treg.loss_code(cfg.loss),
                     delta=cfg.loss_limit, radius=cfg.radius,
                     angle_gate_cos=math.cos(math.radians(
                         cfg.angle_gate_deg)),
@@ -2214,8 +2372,8 @@ def phase_evaluation():
         cost, n_res = treg.evaluate_cost(*args, cfg)
         score = cost.clone()
         sampled = lambda: treg.sampled_covariance(*args, cfg, score, n_res)
-        # a sampled covariance is one evaluate launch and one world_targets
-        # site launch, and never waits on the card
+        # a sampled covariance is one evaluate launch and nothing else, and
+        # never waits on the card
         sampled()
         torch.cuda.synchronize()
         lk.LAUNCHES_BY_ENTRY.clear()
@@ -2227,8 +2385,8 @@ def phase_evaluation():
         finally:
             torch.cuda.set_sync_debug_mode(0)
         if dict(lk.LAUNCHES_BY_ENTRY) != {"evaluate": 1} or \
-                dict(rm.LAUNCHES_BY_OP) != {"world_targets": 1} or \
-                rm.LAUNCHES != rm_total + 1 or lk.LAUNCHES != lk_total + 1:
+                dict(rm.LAUNCHES_BY_OP) or \
+                rm.LAUNCHES != rm_total or lk.LAUNCHES != lk_total + 1:
             raise AssertionError(
                 f"[2b] evaluate {tag}: a sampled covariance made "
                 f"{dict(lk.LAUNCHES_BY_ENTRY)} {dict(rm.LAUNCHES_BY_OP)}")
@@ -2246,14 +2404,11 @@ def phase_evaluation():
             k2 = cuda_ms(call, 20)
             prof_us, windows = device_us_by_kernel(
                 call, want="evaluation_kernel")
-            kernel_us = [us for kname, us in prof_us.items()
-                         if "evaluation_kernel" in kname]
-            if not kernel_us:
-                raise AssertionError(f"[2b] evaluate {tag} {name}: the "
-                                     f"profiler saw no kernel time")
+            ms, source = _kernel_ms(prof_us, "evaluation_kernel", k1, k2,
+                                    f"evaluate {tag} {name}")
             bound = _evaluate_bound(b, tt, c, c, cfg.cost, s)
             entry[name] = dict(
-                ms=kernel_us[0] / 1e3, profiler_windows=windows,
+                ms=ms, ms_source=source, profiler_windows=windows,
                 events_ms_turns=[k1, k2],
                 plain_ms=min(p1, p2), plain_ms_turns=[p1, p2],
                 host_us=host_us(call, 20), plain_host_us=host_us(plain, 3),
@@ -4023,10 +4178,15 @@ def main(argv=None) -> int:
         "library_ms": None,
         "profiler_windows": lm_k["times"]["odometry"]["profiler_windows"],
         "times": lm_k["times"], "window_calls_held": lm_k["held"],
-        "forced_cluster_calls_held": lm_k["forced"],
+        "forced_cluster_and_batch_calls_held": lm_k["forced"],
+        "passes_against_serial": lm_k["passes"],
         "solve_entry": {"times": lm_k["solve_times"],
-                        "grid_solves_held": lm_k["solves"]},
+                        "grid_solves_held": lm_k["solves"],
+                        "schedule": lm_k["schedule"]},
         "launches_by_path": LM_LAUNCHES,
+        "world_targets_launches_by_path": {
+            p: v.get("world_targets", 0)
+            for p, v in REFMATH_LAUNCHES.items()},
         "window_shapes_held_by_path": WINDOW_HELD,
         "solve_shapes_held_by_path": LM_HELD}, {
         "name": "evaluate", "route": "cuda",

@@ -7,12 +7,14 @@ host's microseconds a call, at phase 4's clouds of ``chip_smoke.py``
 (400 x 3768 bins, default configuration, 4,800 points, 512 cells) and at
 the cfear3_oxford preset's (k_strongest 40: 16,000 points, 3 m radius),
 each held bit for bit against the plain version on the card.  ``window``:
-``register_window`` at the odometry's shape (B = 1, T = 4, C = 512, P2P,
-8 outer x 20 inner iterations, ``kernels/checks.py::window_problem`` from
-seed 17), the kernel's device time a launch from ``torch.profiler``, the
-call's time by CUDA events behind a spin long enough for the host to
-enqueue every call, and the host's microseconds a call; its outputs'
-digest shows whether two trees compute the same bits.  ``moments``: the
+``register_window`` at the odometry's shapes (B = 1 and 4, T = 4, C = 512,
+P2P, 8 outer x 20 inner iterations), at an offline loop wave's (B = 64,
+T = 1, P2L, 10 inner) and at B = 1 with 4 and 8 CTAs a row forced
+(``kernels/checks.py::window_problem`` from seed 17): the kernel's device
+time a launch from ``torch.profiler``, the call's time by CUDA events
+behind a spin long enough for the host to enqueue every call, the host's
+microseconds a call and the ``world_targets`` site launches a call; its
+outputs' digest shows whether two trees compute the same bits.  ``moments``: the
 CorAl ``pair_moments`` kernel at an offline loop wave's shape (M = 64,
 4,096-slot clouds, 80 % live), by events, with a digest.  ``evaluate``:
 ``sampled_covariance`` at an offline loop wave's shape (64 pairs, P2L),
@@ -32,8 +34,9 @@ the staged design's warps a block, and
 design issues together).  A variant is ``TREE[:NAME=VALUE,...][@SET,...]`` (a
 tree whose kernel takes only phase 4's clouds runs with ``@phase4``); the
 order is the variants, then backwards, so that drift of the card shows.
-One JSON line a run, then one with all runs and the card's name and power
-limit:
+One JSON line a run, then one with all runs, whether each set's (and
+shape's) outputs have the same digest in every run (``same_digests``) and
+the card's name and power limit:
 
     python3 scripts/time_cells.py \
         [--sets phase4,cfear3_oxford,window,moments,evaluate,tail,ops] \
@@ -121,8 +124,18 @@ def cloud_set(name, reps, dev):
                 digest=digest.hexdigest()[:16])
 
 
+#: the window entry's shapes: (B, T, C, cost, inner iterations): the
+#: odometry step at B = 1 and 4 and an offline loop wave of 64 pairs
+WINDOW_SHAPES = {"odometry": (1, 4, 512, "P2P", 20),
+                 "odometry_b4": (4, 4, 512, "P2P", 20),
+                 "loop_wave": (64, 1, 512, "P2L", 10)}
+
+
 def window_set(reps, dev):
-    """``register_window`` at the odometry's shape."""
+    """``register_window`` at the odometry's and a loop wave's shapes
+    (``WINDOW_SHAPES``, 8 outer iterations, ``kernels/checks.py::
+    window_problem`` from seed 17), and at B = 1 with the cluster forced
+    to 4 and 8 CTAs."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -130,48 +143,67 @@ def window_set(reps, dev):
     from tbv_slam_public_torch.core.config import RegistrationConfig
     from tbv_slam_public_torch.core.types import Cells
     from tbv_slam_public_torch.kernels import lm_solve as lk
+    from tbv_slam_public_torch.kernels import refmath as rm
     from tbv_slam_public_torch.kernels.checks import window_problem
     from tbv_slam_public_torch.ops import registration as treg
 
-    prob = window_problem(np.random.default_rng(17), 1, 4, 512, 512)
-    t = lambda k: torch.as_tensor(prob[k], device=dev)
+    chooser = lk.cluster_size
+    out = {}
+    cases = [(name, shape, None) for name, shape in WINDOW_SHAPES.items()]
+    cases += [(f"odometry_k{k}", WINDOW_SHAPES["odometry"], k)
+              for k in (4, 8)]
+    for name, (b, t, c, cost, inner), forced in cases:
+        prob = window_problem(np.random.default_rng(17), b, t, c, c)
+        f = lambda k: torch.as_tensor(prob[k], device=dev)
 
-    def cells(side):
-        f = lambda k: t(f"{side}_{k}")
-        return Cells(mean=f("mean"), cov=f("cov"), normal=f("normal"),
-                     nsamples=f("nsamples"), planarity=f("planarity"),
-                     avg_intensity=torch.zeros_like(f("nsamples")),
-                     valid=f("valid"))
+        def cells(side):
+            g = lambda k: f(f"{side}_{k}")
+            return Cells(mean=g("mean"), cov=g("cov"), normal=g("normal"),
+                         nsamples=g("nsamples"), planarity=g("planarity"),
+                         avg_intensity=torch.zeros_like(g("nsamples")),
+                         valid=g("valid"))
 
-    cfg = RegistrationConfig(cost="P2P", max_inner_iterations=20,
-                             max_outer_iterations=8)
-    args = (cells("src"), t("pose0"), cells("tgt"), t("tgt_poses"),
-            t("scan_mask"), cfg)
-    call = lambda: treg.register_window(*args)
-    res = call()
-    lk.LAUNCHES_BY_ENTRY.clear()
-    call()
-    if dict(lk.LAUNCHES_BY_ENTRY) != {"window": 1}:
-        raise AssertionError(f"window: launches "
-                             f"{dict(lk.LAUNCHES_BY_ENTRY)}, not one window")
-    digest = hashlib.sha256()
-    for v in (res.pose, res.score, res.num_residuals, res.iterations):
-        digest.update(v.cpu().numpy().tobytes())
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            call()
+        cfg = RegistrationConfig(cost=cost, max_inner_iterations=inner,
+                                 max_outer_iterations=8)
+        args = (cells("src"), f("pose0"), cells("tgt"), f("tgt_poses"),
+                f("scan_mask"), cfg)
+        lk.cluster_size = (lambda *a, **kw: forced) if forced else chooser
+        getattr(lk, "_PLANS", {}).clear()
+        call = lambda: treg.register_window(*args)
+        res = call()
+        lk.LAUNCHES_BY_ENTRY.clear()
+        sites = dict(rm.LAUNCHES_BY_OP)
+        call()
+        if dict(lk.LAUNCHES_BY_ENTRY) != {"window": 1}:
+            raise AssertionError(f"window: launches "
+                                 f"{dict(lk.LAUNCHES_BY_ENTRY)}, not one "
+                                 f"window")
+        world = rm.LAUNCHES_BY_OP.get("world_targets", 0) - sites.get(
+            "world_targets", 0)
+        digest = hashlib.sha256()
+        for v in (res.pose, res.score, res.num_residuals, res.iterations):
+            digest.update(v.cpu().numpy().tobytes())
         torch.cuda.synchronize()
-    kernel = [e for e in prof.key_averages()
-              if "registration_kernel" in e.key and e.device_time_total > 0]
-    if not kernel:
-        raise AssertionError("window: the profiler saw no kernel time")
-    return dict(ms=kernel[0].device_time_total / kernel[0].count / 1e3,
-                events_ms=events_ms(call, reps, 400_000_000),
-                host_us=host_us(call, 50),
-                iterations=res.iterations.tolist(),
-                digest=digest.hexdigest()[:16])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+        kernel = [e for e in prof.key_averages()
+                  if "registration_kernel" in e.key
+                  and e.device_time_total > 0]
+        if not kernel:
+            raise AssertionError("window: the profiler saw no kernel time")
+        out[name] = dict(
+            B=b, cluster=forced, ms=kernel[0].device_time_total
+            / kernel[0].count / 1e3,
+            events_ms=events_ms(call, reps, 400_000_000),
+            host_us=host_us(call, 50), world_targets_launches=world,
+            iterations=res.iterations.tolist()[:8],
+            digest=digest.hexdigest()[:16])
+    lk.cluster_size = chooser
+    getattr(lk, "_PLANS", {}).clear()
+    return out
 
 
 def moments_set(reps, dev):
@@ -400,7 +432,29 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    print(json.dumps({"card": card, "runs": runs}))
+    print(json.dumps({"card": card, "same_digests": same_digests(runs),
+                      "runs": runs}))
+
+
+def same_digests(runs):
+    """For each measured set (and shape) that reports a digest, whether
+    every run that measured it gave the same one: the trees and variants
+    compute the same bits there."""
+    seen = {}
+
+    def walk(key, value):
+        if isinstance(value, dict):
+            if "digest" in value:
+                seen.setdefault(key, set()).add(value["digest"])
+            for k, v in value.items():
+                if isinstance(v, dict):
+                    walk(f"{key}/{k}", v)
+
+    for r in runs:
+        for name, value in r.items():
+            if isinstance(value, dict):
+                walk(name, value)
+    return {k: len(v) == 1 for k, v in seen.items()}
 
 
 if __name__ == "__main__":

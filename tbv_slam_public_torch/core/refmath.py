@@ -69,11 +69,12 @@ loss's weight f' g' (a residual above about 1e18); jaxlib's LAPACK
 products (``la_mul``, :func:`_mul`, :func:`lu_solve`'s scaled rows and
 dot remainders, ``ceres_covariance``'s 30 x score and scale x inverse,
 the sampled covariance's scale products), reached only with entries near
-2^-63; the association's normal-direction products, whose fused sum waits
-for the LM's sums (``ROADMAP.md`` section 3 item 1); and the bare first
-products of se2's sites and of the association's world transform
-(``csrc/refmath_sites.cu``, ``lm_solve.cu``'s association), written
-without a flush in both.
+2^-63; and the association's normal-direction products, whose fused
+sum waits for the LM's sums (``ROADMAP.md`` section 3 item 1).  The lone
+products of se2's sites and of the association's world transform flush
+by their exact value (``core/se2.py::_mul``, :func:`mul`;
+``refmath.cuh::se2_rotated``, mul.rn.ftz), their sums flush their
+operands and result (``core/se2.py::_add``, add.rn.ftz).
 
 Fused multiply-adds inside the functions:
 

@@ -70,6 +70,24 @@ def interpolate(a: torch.Tensor, b: torch.Tensor, factor) -> torch.Tensor:
 
 # ---- the sites' plain versions: refmath's ops one at a time (its CPU
 # plain versions; registered below) ----------------------------------------
+#
+# The reference's threads read a subnormal operand as zero (DAZ) and flush a
+# subnormal result (FTZ): a lone product or a sum of these sites reads a
+# subnormal sine, coordinate or angle as zero and flushes its result
+# (:func:`_mul`, :func:`_add`), as refmath.fma does its own.  Negation and
+# sinf / cosf of a subnormal angle (the angle itself, and 1) keep it.
+
+def _mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A lone product: operands and result flushed (``refmath.mul``)."""
+    return refmath.mul(refmath.ftz(a), refmath.ftz(b))
+
+
+def _add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b, operands and result flushed (the exact sum of two float32
+    values is a multiple of 2^-149: rounding never reaches the flush
+    tie)."""
+    return refmath.ftz(refmath.ftz(a) + refmath.ftz(b))
+
 
 def _rotmat_plain(theta: torch.Tensor) -> torch.Tensor:
     s, c = refmath.sincos(theta)
@@ -80,14 +98,14 @@ def _compose_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     sa, ca = refmath.sincos(a[..., 2])
     x = refmath.fma(-sa, b[..., 1], refmath.fma(ca, b[..., 0], a[..., 0]))
     y = refmath.fma(ca, b[..., 1], refmath.fma(sa, b[..., 0], a[..., 1]))
-    t = wrap_angle(a[..., 2] + b[..., 2])
+    t = wrap_angle(_add(a[..., 2], b[..., 2]))
     return torch.stack([x, y, t], -1)
 
 
 def _inverse_plain(a: torch.Tensor) -> torch.Tensor:
     s, c = refmath.sincos(a[..., 2])
-    x = -refmath.fma(c, a[..., 0], s * a[..., 1])
-    y = -refmath.fma(c, a[..., 1], -(s * a[..., 0]))
+    x = -refmath.fma(c, a[..., 0], _mul(s, a[..., 1]))
+    y = -refmath.fma(c, a[..., 1], -_mul(s, a[..., 0]))
     return torch.stack([x, y, -a[..., 2]], -1)
 
 
@@ -97,7 +115,7 @@ def _relative_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _rotated(c, s, vx, vy):
     """(c vx - s vy, s vx + c vy)."""
-    return refmath.fma(c, vx, -(s * vy)), refmath.fma(s, vx, c * vy)
+    return refmath.fma(c, vx, -_mul(s, vy)), refmath.fma(s, vx, _mul(c, vy))
 
 
 def _apply_elem(pose: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
@@ -105,7 +123,7 @@ def _apply_elem(pose: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
     element by element): the arithmetic of ``apply``."""
     s, c = refmath.sincos(pose[..., 2])
     x, y = _rotated(c, s, point[..., 0], point[..., 1])
-    return torch.stack([x + pose[..., 0], y + pose[..., 1]], -1)
+    return torch.stack([_add(x, pose[..., 0]), _add(y, pose[..., 1])], -1)
 
 
 def _rotate_elem(pose: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
@@ -124,9 +142,9 @@ def _rotate_plain(pose: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
 
 def _interpolate_plain(a: torch.Tensor, b: torch.Tensor,
                        f: torch.Tensor) -> torch.Tensor:
-    dt = wrap_angle(b[..., 2] - a[..., 2])
-    x = refmath.fma(b[..., 0] - a[..., 0], f, a[..., 0])
-    y = refmath.fma(b[..., 1] - a[..., 1], f, a[..., 1])
+    dt = wrap_angle(_add(b[..., 2], -a[..., 2]))
+    x = refmath.fma(_add(b[..., 0], -a[..., 0]), f, a[..., 0])
+    y = refmath.fma(_add(b[..., 1], -a[..., 1]), f, a[..., 1])
     t = wrap_angle(refmath.fma(dt, f, a[..., 2]))
     return torch.stack([x, y, t], -1)
 

@@ -62,6 +62,35 @@ __device__ __forceinline__ float ref_fma(float a, float b, float c) {
   return fma_ftz(a, b, c);
 }
 
+// ---- se2 (core/se2.py's plain versions) ----------------------------------
+// The lone products and sums read a subnormal sine, coordinate or angle as
+// zero and flush a subnormal result (mul_ftz, add_ftz: one .ftz instruction
+// each), as core/se2.py::_mul, _add and the reference's DAZ / FTZ threads;
+// sinf of a subnormal angle and a negation keep it.  The site kernels
+// (refmath_sites.cu) and the registration kernel's placement of its targets
+// (lm_solve.cu) share these.
+
+// (c vx - s vy, s vx + c vy) (se2._rotated)
+__device__ __forceinline__ float2 se2_rotated(float c, float s, float vx,
+                                              float vy) {
+  return make_float2(fma_ftz(c, vx, -mul_ftz(s, vy)),
+                     fma_ftz(s, vx, mul_ftz(c, vy)));
+}
+
+// (vx, vy) moved by the pose (px, py, angle) whose sine and cosine are s
+// and c (se2._apply_elem)
+__device__ __forceinline__ float2 se2_applied(float c, float s, float px,
+                                              float py, float vx, float vy) {
+  const float2 v = se2_rotated(c, s, vx, vy);
+  return make_float2(add_ftz(v.x, px), add_ftz(v.y, py));
+}
+
+// (0 + a0 b0) + a1 b1: torch's CPU matrix product of 2 x 2 operands (its
+// small-size loop, from zero, unfused; ops/registration.py::_mm2)
+__device__ __forceinline__ float mm2(float a0, float b0, float a1, float b1) {
+  return __fadd_rn(__fadd_rn(0.0f, __fmul_rn(a0, b0)), __fmul_rn(a1, b1));
+}
+
 __device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
   x = (x >= lo || isnan(x)) ? x : lo;
   return (x <= hi || isnan(x)) ? x : hi;

@@ -105,6 +105,8 @@ __device__ __forceinline__ float ref_wrap(float t) {
   return ref_atan2(s, c);
 }
 
+// se2's lone products and sums flush as refmath.cuh's se2 functions do.
+
 // a * b (core/se2.py::_compose_plain)
 __device__ __forceinline__ void compose3(const float* a, const float* b,
                                          float* o) {
@@ -112,29 +114,24 @@ __device__ __forceinline__ void compose3(const float* a, const float* b,
   ref_sincos(a[2], &sa, &ca);
   o[0] = ref_fma(-sa, b[1], ref_fma(ca, b[0], a[0]));
   o[1] = ref_fma(ca, b[1], ref_fma(sa, b[0], a[1]));
-  o[2] = ref_wrap(__fadd_rn(a[2], b[2]));
+  o[2] = ref_wrap(add_ftz(a[2], b[2]));
 }
 
 // a^-1 (_inverse_plain)
 __device__ __forceinline__ void inverse3(const float* a, float* o) {
   float s, c;
   ref_sincos(a[2], &s, &c);
-  o[0] = -ref_fma(c, a[0], __fmul_rn(s, a[1]));
-  o[1] = -ref_fma(c, a[1], -__fmul_rn(s, a[0]));
+  o[0] = -ref_fma(c, a[0], mul_ftz(s, a[1]));
+  o[1] = -ref_fma(c, a[1], -mul_ftz(s, a[0]));
   o[2] = -a[2];
 }
 
 // (c vx - s vy, s vx + c vy) (se2._rotated)
 __device__ __forceinline__ void rotated(float c, float s, float vx, float vy,
                                         float* o) {
-  o[0] = ref_fma(c, vx, -__fmul_rn(s, vy));
-  o[1] = ref_fma(s, vx, __fmul_rn(c, vy));
-}
-
-// (0 + a0 b0) + a1 b1: torch's CPU matrix product of 2 x 2 operands (its
-// small-size loop, from zero, unfused)
-__device__ __forceinline__ float mm2(float a0, float b0, float a1, float b1) {
-  return __fadd_rn(__fadd_rn(0.0f, __fmul_rn(a0, b0)), __fmul_rn(a1, b1));
+  const float2 v = se2_rotated(c, s, vx, vy);
+  o[0] = v.x;
+  o[1] = v.y;
 }
 
 // |(x, y)| as the reference's program: sqrt(fma(y, y, x * x)), IEEE root
@@ -147,11 +144,12 @@ __device__ __forceinline__ float norm2f(float x, float y) {
 // translation) (vx, vy) (core/se2.py::_apply_elem, _rotate_elem)
 __device__ __forceinline__ void apply2(const float* a, float vx, float vy,
                                        bool translate, float* o) {
-  float s, c, v[2];
+  float s, c;
   ref_sincos(a[2], &s, &c);
-  rotated(c, s, vx, vy, v);
-  o[0] = translate ? __fadd_rn(v[0], a[0]) : v[0];
-  o[1] = translate ? __fadd_rn(v[1], a[1]) : v[1];
+  const float2 v = translate ? se2_applied(c, s, a[0], a[1], vx, vy)
+                             : se2_rotated(c, s, vx, vy);
+  o[0] = v.x;
+  o[1] = v.y;
 }
 
 // the point (x, y) de-skewed by the motion m [3] (ops/radar.py::
@@ -207,9 +205,9 @@ __global__ void refmath_site_kernel(const SiteArgs a) {
         const float f = in_f(a, e, 2);
         const float a0 = in_f(a, e, 0, 0), a1 = in_f(a, e, 0, 1),
                     a2 = in_f(a, e, 0, 2);
-        const float dt = ref_wrap(__fsub_rn(in_f(a, e, 1, 2), a2));
-        o0[3 * i] = ref_fma(__fsub_rn(in_f(a, e, 1, 0), a0), f, a0);
-        o0[3 * i + 1] = ref_fma(__fsub_rn(in_f(a, e, 1, 1), a1), f, a1);
+        const float dt = ref_wrap(add_ftz(in_f(a, e, 1, 2), -a2));
+        o0[3 * i] = ref_fma(add_ftz(in_f(a, e, 1, 0), -a0), f, a0);
+        o0[3 * i + 1] = ref_fma(add_ftz(in_f(a, e, 1, 1), -a1), f, a1);
         o0[3 * i + 2] = ref_wrap(ref_fma(dt, f, a2));
         break;
       }
@@ -231,10 +229,10 @@ __global__ void refmath_site_kernel(const SiteArgs a) {
         float s, c;
         ref_sincos(in_f(a, e, 0, 2), &s, &c);
         float* o1 = static_cast<float*>(a.out[1]);
-        float v[2];
-        rotated(c, s, in_f(a, e, 1, 0), in_f(a, e, 1, 1), v);
-        o0[2 * i] = __fadd_rn(v[0], in_f(a, e, 0, 0));
-        o0[2 * i + 1] = __fadd_rn(v[1], in_f(a, e, 0, 1));
+        const float2 v = se2_applied(c, s, in_f(a, e, 0, 0), in_f(a, e, 0, 1),
+                                     in_f(a, e, 1, 0), in_f(a, e, 1, 1));
+        o0[2 * i] = v.x;
+        o0[2 * i + 1] = v.y;
         rotated(c, s, in_f(a, e, 2, 0), in_f(a, e, 2, 1), o1 + 2 * i);
         if (a.in[3] != nullptr) {  // rot @ cov @ rot^T
           const float r[2][2] = {{c, -s}, {s, c}};

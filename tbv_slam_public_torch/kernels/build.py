@@ -137,27 +137,16 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p]
     lib.refmath_ceres_covariance_launch.restype = ctypes.c_int
     # 10 inputs, 3 outputs, rows, T, C, cost, loss, k0..k3, max_iter,
-    # init_lambda, one_system, cluster, stream
+    # init_lambda, one_system, batch, cluster, stream
     lib.lm_solve_launch.argtypes = [ctypes.c_void_p] * 13 + \
         [ctypes.c_int] * 5 + [ctypes.c_float] * 4 + [
             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p]
     lib.lm_solve_launch.restype = ctypes.c_int
-    # 14 inputs, 4 outputs, rows, T, C, Ct, cost, loss, k0..k3, max_inner,
-    # init_lambda, one_system, max_outer, min_outer, weight_option, r2_first,
-    # r2, gate, reg, cov_scale, tol, cluster, stream
-    lib.register_window_launch.argtypes = [ctypes.c_void_p] * 18 + \
-        [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [
-            ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4 + \
-        [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
-    lib.register_window_launch.restype = ctypes.c_int
-    # 16 inputs, 5 outputs, rows, T, C, Ct, S, cost, loss, k0..k3,
-    # weight_option, r2, gate, reg, cov_scale, cov_scaler, diag0..2,
-    # cluster, stream
-    lib.evaluate_cost_launch.argtypes = [ctypes.c_void_p] * 21 + \
-        [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_int] + \
-        [ctypes.c_float] * 8 + [ctypes.c_int, ctypes.c_void_p]
-    lib.evaluate_cost_launch.restype = ctypes.c_int
+    # the launch's EntryArgs (kernels/lm_solve.py::ENTRY_ARGS), stream
+    for fn in (lib.register_window_launch, lib.evaluate_cost_launch):
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     # the launch's TailParams (kernels/coral_moments.py::TAIL_PARAMS),
     # cluster, cluster used out, stream
     lib.coral_tail_launch.argtypes = [

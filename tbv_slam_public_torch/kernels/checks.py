@@ -2,8 +2,9 @@
 ``chip_smoke.py`` and the tests: the value ranges of each refmath op, its
 special values, a bit-for-bit comparison, CorAl clouds whose neighbours
 lie within an ulp of the radius gate, the logistic fit's Newton systems,
-LM-solve problems, window registration problems and the registration
-configurations that the cost evaluation is held at.
+LM-solve problems (and ones that stress the solve's schedule), window
+registration problems and the registration configurations that the cost
+evaluation is held at.
 """
 from __future__ import annotations
 
@@ -279,6 +280,35 @@ def lm_problem(rng, b: int, t: int, c: int, cost: str, with_prior: bool):
         prior = ((true + rng.normal(0, 0.02, (b, 3))).astype(f32),
                  s.astype(f32), np.sqrt(mask.sum((1, 2))).astype(f32))
     return theta0, src, tm, tn, weight, mask, si, prior
+
+
+def schedule_problem(rng, b: int, t: int, c: int, cost: str):
+    """``lm_problem`` rows (no prior) that stress the LM solve's schedule:
+    the starts moved off by 0.3 to 10 times the problem's spread, so that
+    rows accept then reject, reject for long runs and accept after them,
+    and the last row with a NaN weight where its mask holds (every cost
+    NaN: every candidate rejected)."""
+    theta0, src, tm, tn, weight, mask, si, _ = lm_problem(rng, b, t, c,
+                                                          cost, False)
+    spread = np.geomspace(0.3, 10.0, b)[:, None]
+    theta0 = (theta0 + spread * rng.normal(0, 0.3, theta0.shape)
+              * np.float32([1.0, 1.0, 0.1])).astype(np.float32)
+    weight[-1][mask[-1]] = np.nan
+    return theta0, src, tm, tn, weight, mask, si
+
+
+def pass_slots(pattern: str, k: int):
+    """The passes that a serial accept / reject string ("A" accepted, "r"
+    rejected, "n" a NaN cost) takes with k candidates a pass: (candidates,
+    accepted slot or None) for each pass after the first."""
+    out, it = [], 0
+    while it < len(pattern):
+        nb = min(k, len(pattern) - it)
+        run = pattern[it:it + nb]
+        j = run.find("A")
+        out.append((nb, None if j < 0 else j))
+        it += nb if j < 0 else j + 1
+    return out
 
 
 def window_problem(rng, b: int, t: int, c: int, ct: int,

@@ -4,19 +4,21 @@ kernel launches.
 The kernel is ``csrc/lm_solve.cu``, with three entries over the same device
 code:
 
-* ``register_window``: ``ops/registration.py::register_window`` after
-  ``_world_targets``, whole, in one launch a call: every outer iteration's
-  association of the source cells into the target scans, the LM solve (the
-  initial cost, gradient and Hessian, then ``max_iter`` damped steps, each
-  with the candidate's residuals, robust loss, weights, the 13 pairwise row
-  sums and the accept / reject) and the outer guards, bit-equal to the plain
-  version ``ops/registration.py::_register_window_reference``;
+* ``register_window``: ``ops/registration.py::register_window``, whole,
+  in one launch a call: the target scans placed in the world (the
+  ``world_targets`` site's arithmetic), every outer iteration's
+  association of the source cells into them, the LM solve (the initial
+  cost, gradient and Hessian, then ``max_iter`` damped steps, a run of
+  rejections evaluated in one pass: the candidates' residuals, robust
+  loss, weights, pairwise row sums and the accept / reject) and the outer
+  guards, bit-equal to the plain version
+  ``ops/registration.py::_register_window_reference``;
 * ``lm_solve``: ``_lm_solve`` alone on given associations (``register_joint``),
   one launch a solve, bit-equal to ``_lm_solve_reference``;
-* ``evaluate``: ``evaluate_cost`` and ``sampled_covariance`` after
-  ``_world_targets`` in one launch a call: the association at each row's
-  pose, then the cost-only pass at all S poses over it in one pass (and the
-  sampled covariance's quadratic fit and its 3 x 3 covariance and
+* ``evaluate``: ``evaluate_cost`` and ``sampled_covariance`` in one launch
+  a call: the targets placed as the window's, the association at each
+  row's pose, then the cost-only pass at all S poses over it in one pass
+  (and the sampled covariance's quadratic fit and its 3 x 3 covariance and
   convexity, with nothing read on the host), bit-equal to
   ``_evaluate_cost_reference`` and ``_sampled_covariance_reference``.
 
@@ -26,7 +28,10 @@ not depend on K.  Neither entry has a Pallas counterpart: the JAX package
 leaves the registration to XLA's fusions.
 
 Dispatch is in ``ops/registration.py``: a CPU tensor takes the plain
-version, a CUDA tensor launches this kernel or raises.  ``LAUNCHES`` counts
+version, a CUDA tensor launches this kernel or raises.  A window or
+evaluation call's launch description (``ENTRY_ARGS``) is planned once per
+shapes, strides and options (``_PLANS``), so a call's host work is a
+lookup, the outputs' allocation, a pack and the launch.  ``LAUNCHES`` counts
 kernel launches and nothing else (``LAUNCHES_BY_ENTRY`` splits them).
 ``plain_on_card`` lets a test or ``chip_smoke.py`` run the plain versions on
 CUDA tensors, to hold the kernel to them; nothing else uses it.
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import struct
 from typing import Optional
 
 import numpy as np
@@ -103,8 +109,8 @@ def shared_bytes(k: int, t: int, c: int, ct: int, cost: int,
     qk = w // k // r
     q = -(-qk // 4) * 4
     floats = 5 * q + (2 * q if cost == _P2L else 4 * q if cost == _P2D else 0)
-    if window:
-        floats += -(-2 * ct // 4) * 4
+    if window:  # the staged scan, padded to a multiple of 4 targets
+        floats += 2 * (-(-ct // 4) * 4)
     return 4 * floats + -(-qk // 16) * 16 + (-(-ct // 16) * 16 if window
                                              else 0)
 
@@ -178,11 +184,14 @@ def lm_solve(theta0: torch.Tensor, src_mean: torch.Tensor,
              weight: torch.Tensor, mask: torch.Tensor,
              tgt_sqrtinfo: Optional[torch.Tensor], *, cost: int, loss: int,
              delta: float, max_iter: int, init_lambda: float, prior=None,
-             one_system: bool = False, cluster: Optional[int] = None):
+             one_system: bool = False, batch: Optional[int] = None,
+             cluster: Optional[int] = None):
     """(theta [B, 3], cost [B], rel_dec [B]) of the LM solve of B rows of
     [T, C] associations, one launch on CUDA tensors (float32; ``mask``
     bool).  ``prior`` is (guess [B, 3], sqrt_info [3, 3], pw [B]) or None;
-    ``cluster`` forces the CTAs a row (default ``cluster_size``)."""
+    ``batch`` forces the candidates a pass along a run of rejections
+    (default: the kernel's), ``cluster`` the CTAs a row (default
+    ``cluster_size``)."""
     dev = theta0.device
     if dev.type != "cuda":
         raise RuntimeError(f"lm_solve: no kernel for device {dev}")
@@ -224,7 +233,7 @@ def lm_solve(theta0: torch.Tensor, src_mean: torch.Tensor,
                      _ptr(pw), out_theta.data_ptr(), out_cost.data_ptr(),
                      out_rel.data_ptr(), bsz, t, c, cost, loss,
                      *loss_constants(loss, delta), max_iter,
-                     _f32(init_lambda), int(one_system), k)
+                     _f32(init_lambda), int(one_system), batch or 0, k)
     if err != 0:
         raise RuntimeError(f"lm_solve_launch failed: CUDA error {err} "
                            f"(B={bsz}, T={t}, C={c}, cost={cost}, K={k})")
@@ -232,92 +241,205 @@ def lm_solve(theta0: torch.Tensor, src_mean: torch.Tensor,
     return out_theta, out_cost, out_rel
 
 
+#: ``csrc/lm_solve.cu``'s ``EntryArgs``: 24 pointers, 16 ints, 16 floats,
+#: 16 batch strides
+ENTRY_ARGS = struct.Struct("<24Q16i16f16q")
+_PACK = ENTRY_ARGS.pack
+#: (entry, each tensor's shape, strides, type and device, the options) ->
+#: the launch's plan (the ints and floats packed after the pointers, which
+#: inputs need a dense copy, the outputs' shapes and types): a call's host
+#: work is then a lookup, the outputs' allocation, a pack and the launch
+_PLANS: dict = {}
+
+
+def _row_dense(x: torch.Tensor) -> bool:
+    """Whether each row x[b] is dense (its batch stride may be anything,
+    0 where one row is broadcast over the batch)."""
+    want = 1
+    for size, stride in zip(reversed(x.shape[1:]), reversed(x.stride()[1:])):
+        if size != 1 and stride != want:
+            return False
+        want *= size
+    return True
+
+
+class _Plan:
+    __slots__ = ("copy", "outs", "ints", "floats", "strides", "dev", "fn",
+                 "what")
+
+    def __init__(self, ins, outs, ints, floats, dev, entry, what):
+        # inputs 1-13 (the cells and scans) are read by row with their
+        # batch strides, so a row broadcast over the batch is not copied;
+        # any other input must be dense
+        # (the target means' rows read as float2: an even batch stride)
+        self.copy = tuple(
+            x is not None and not (
+                _row_dense(x) and (i != 7 or x.stride(0) % 2 == 0)
+                if 1 <= i <= 13 else x.is_contiguous())
+            for i, x in enumerate(ins))
+        self.strides = [0 if x is None else
+                        (x[0].numel() if c else x.stride(0))
+                        for x, c in zip(ins[1:14], self.copy[1:14])]
+        self.strides += [0] * (16 - len(self.strides))
+        self.outs = outs
+        self.ints = list(ints) + [0] * (16 - len(ints))
+        self.floats = list(floats) + [0.0] * (16 - len(floats))
+        self.dev = dev
+        self.fn = entry
+        self.what = what
+
+
+def _key(entry, ins, options):
+    return (entry, options) + tuple(
+        None if x is None else (x.shape, x.stride(), x.dtype, x.device)
+        for x in ins)
+
+
+def _run(plan: _Plan, ins, entry: str, more=()):
+    """One launch of ``entry`` on the plan's inputs (``more``: pointers
+    after the outputs'); returns the outputs."""
+    ins = [x.contiguous() if c else x for x, c in zip(ins, plan.copy)]
+    # the target means are read as float2: 8-byte aligned
+    if ins[7].data_ptr() & 7:
+        ins[7] = ins[7].clone()
+    outs = [torch.empty(shape, dtype=dt, device=plan.dev)
+            for shape, dt in plan.outs]
+    ptrs = [0 if x is None else x.data_ptr() for x in ins] + [
+        o.data_ptr() for o in outs] + list(more)
+    ptrs += [0] * (24 - len(ptrs))
+    err = _launch_on(plan.dev, plan.fn, _PACK(*ptrs, *plan.ints,
+                                              *plan.floats, *plan.strides))
+    if err != 0:
+        raise RuntimeError(f"{entry}_launch failed: CUDA error {err} "
+                           f"({plan.what})")
+    _count(entry)
+    return outs
+
+
+def _target_shapes(bsz, c, t, ct, cost):
+    return {"src_mean": (bsz, c, 2), "src_normal": (bsz, c, 2),
+            "src_nsamples": (bsz, c), "src_planarity": (bsz, c),
+            "tgt_poses": (bsz, t, 3), "tgt_mean": (bsz, t, ct, 2),
+            "tgt_normal": (bsz, t, ct, 2), "tgt_valid": (bsz, t, ct),
+            "tgt_scan_mask": (bsz, t), "tgt_nsamples": (bsz, t, ct),
+            "tgt_planarity": (bsz, t, ct),
+            **({"tgt_cov": (bsz, t, ct, 2, 2)} if cost == _P2D else {})}
+
+
+_TARGET_NAMES = ("src_mean", "src_normal", "src_nsamples", "src_planarity",
+                 "src_valid", "tgt_poses", "tgt_mean", "tgt_normal",
+                 "tgt_cov", "tgt_valid", "tgt_scan_mask", "tgt_nsamples",
+                 "tgt_planarity")
+
+
+def _check_targets(name, dev, first, ins, cost, extra_floats, extra_shapes):
+    """Device, type and shape checks of an entry's first 14 inputs (the
+    pose or start [B, 3], the source cells, the target scans in their own
+    frames) and of its extra float inputs."""
+    bsz, c = ins[5].shape
+    t, ct = ins[10].shape[1:]
+    named = dict(zip(_TARGET_NAMES, ins[1:]))
+    if cost != _P2D:
+        named.pop("tgt_cov")
+    want = _target_shapes(bsz, c, t, ct, cost)
+    shapes = {k: (named[k], v) for k, v in want.items()}
+    shapes[first] = (ins[0], (bsz, 3))
+    shapes.update(extra_shapes)
+    floats = [ins[0]] + [named[k] for k in want
+                         if k not in ("tgt_valid", "tgt_scan_mask")] + \
+        extra_floats
+    _check(name, dev, floats, [ins[5], ins[10], ins[11]], shapes)
+    if ct < 1:
+        raise ValueError(f"{name}: the target scans hold no cell")
+    return bsz, c, t, ct
+
+
 def register_window(theta0: torch.Tensor, src_mean: torch.Tensor,
                     src_normal: torch.Tensor, src_nsamples: torch.Tensor,
                     src_planarity: torch.Tensor, src_valid: torch.Tensor,
-                    tgt_mean_w: torch.Tensor, tgt_normal_w: torch.Tensor,
-                    tgt_cov_w: Optional[torch.Tensor],
-                    tgt_valid: torch.Tensor, tgt_nsamples: torch.Tensor,
-                    tgt_planarity: torch.Tensor, *, cost: int, loss: int,
-                    delta: float, max_inner: int, init_lambda: float,
-                    max_outer: int, min_outer: int, radius: float,
-                    angle_gate_cos: float, weight_option: int,
+                    tgt_poses: torch.Tensor, tgt_mean: torch.Tensor,
+                    tgt_normal: torch.Tensor,
+                    tgt_cov: Optional[torch.Tensor],
+                    tgt_valid: torch.Tensor, tgt_scan_mask: torch.Tensor,
+                    tgt_nsamples: torch.Tensor, tgt_planarity: torch.Tensor,
+                    *, cost: int, loss: int, delta: float, max_inner: int,
+                    init_lambda: float, max_outer: int, min_outer: int,
+                    radius: float, angle_gate_cos: float, weight_option: int,
                     regularization: float, cov_scale: float,
                     score_tolerance: float, guess=None, sqrt_info=None,
-                    one_system: bool = False,
-                    cluster: Optional[int] = None):
+                    one_system: bool = False, batch: Optional[int] = None,
+                    cluster: Optional[int] = None,
+                    passes: Optional[torch.Tensor] = None):
     """(pose [B, 3], score [B], num_residuals [B], iterations [B]) of
-    ``register_window`` for B source scans of C cells against T world-frame
-    target scans of Ct cells (``_world_targets``' outputs, with the targets'
-    nsamples and planarity), one launch on CUDA tensors.  ``guess`` [B, 3]
-    with ``sqrt_info`` [3, 3] is the motion prior (its weight, the root of
-    each row's valid source cells, is computed in the kernel);
-    ``cluster`` forces the CTAs a row (default ``cluster_size``)."""
+    ``register_window`` for B source scans of C cells against T target
+    scans of Ct cells given in their own frames (``Cells`` fields), their
+    poses ``tgt_poses`` [B, T, 3] and the scan mask [B, T], one launch on
+    CUDA tensors; the kernel places the targets in the world as
+    ``_world_targets`` does.  ``guess`` [B, 3] with ``sqrt_info`` [3, 3] is
+    the motion prior (its weight, the root of each row's valid source
+    cells, is computed in the kernel); ``batch`` forces the candidates a
+    pass along a run of rejections (default: the kernel's), ``cluster`` the
+    CTAs a row (default ``cluster_size``); into ``passes`` (int32 [B] on the
+    card), when given, the kernel writes each row's passes over its
+    records (the serial loop makes 1 + max_inner an outer iteration)."""
     dev = theta0.device
     if dev.type != "cuda":
         raise RuntimeError(f"register_window: no kernel for device {dev}")
-    bsz, c = src_valid.shape
-    t, ct = tgt_valid.shape[1:]
-    floats = [theta0, src_mean, src_normal, src_nsamples, src_planarity,
-              tgt_mean_w, tgt_normal_w, tgt_nsamples, tgt_planarity]
-    shapes = {"theta0": (theta0, (bsz, 3)),
-              "src_mean": (src_mean, (bsz, c, 2)),
-              "src_normal": (src_normal, (bsz, c, 2)),
-              "src_nsamples": (src_nsamples, (bsz, c)),
-              "src_planarity": (src_planarity, (bsz, c)),
-              "tgt_mean_w": (tgt_mean_w, (bsz, t, ct, 2)),
-              "tgt_normal_w": (tgt_normal_w, (bsz, t, ct, 2)),
-              "tgt_valid": (tgt_valid, (bsz, t, ct)),
-              "tgt_nsamples": (tgt_nsamples, (bsz, t, ct)),
-              "tgt_planarity": (tgt_planarity, (bsz, t, ct))}
-    if cost == _P2D:
-        floats.append(tgt_cov_w)
-        if tgt_cov_w is not None:
-            shapes["tgt_cov_w"] = (tgt_cov_w, (bsz, t, ct, 2, 2))
-    if guess is not None:
-        floats.extend([guess, sqrt_info])
-        shapes.update(guess=(guess, (bsz, 3)),
-                      sqrt_info=(sqrt_info, (3, 3)))
-    _check("register_window", dev, floats, [src_valid, tgt_valid], shapes)
-    if ct < 1:
-        raise ValueError("register_window: the target scans hold no cell")
-    out_theta = torch.empty((bsz, 3), dtype=torch.float32, device=dev)
-    out_score = torch.empty((bsz,), dtype=torch.float32, device=dev)
-    out_nres = torch.empty((bsz,), dtype=torch.long, device=dev)
-    out_iters = torch.empty((bsz,), dtype=torch.long, device=dev)
-    if bsz == 0:
-        return out_theta, out_score, out_nres, out_iters
-    k = cluster or cluster_size(bsz, t, c, ct, cost, True)
-    ins = [x.contiguous() for x in (
-        theta0, src_mean, src_normal, src_nsamples, src_planarity, src_valid,
-        tgt_mean_w, tgt_normal_w)]
-    tcw = tgt_cov_w.contiguous() if cost == _P2D else None
-    more = [x.contiguous() for x in (tgt_valid, tgt_nsamples, tgt_planarity)]
-    pr = [None, None] if guess is None else [guess.contiguous(),
-                                             sqrt_info.contiguous()]
-    r0 = 2.0 * radius  # the first outer iteration's doubled radius
-    err = _launch_on(
-        dev, _entry("register_window_launch"), *map(_ptr, ins), _ptr(tcw),
-        *map(_ptr, more), *map(_ptr, pr), out_theta.data_ptr(),
-        out_score.data_ptr(), out_nres.data_ptr(), out_iters.data_ptr(), bsz,
-        t, c, ct, cost, loss, *loss_constants(loss, delta), max_inner,
-        _f32(init_lambda), int(one_system), max_outer, min_outer,
-        weight_option, f32_ftz(r0 * r0), f32_ftz(radius * radius),
-        _f32(angle_gate_cos), _f32(regularization), _f32(cov_scale),
-        _f32(score_tolerance), k)
-    if err != 0:
-        raise RuntimeError(f"register_window_launch failed: CUDA error {err} "
-                           f"(B={bsz}, T={t}, C={c}, Ct={ct}, cost={cost}, "
-                           f"K={k})")
-    _count("window")
-    return out_theta, out_score, out_nres, out_iters
+    ins = [theta0, src_mean, src_normal, src_nsamples, src_planarity,
+           src_valid, tgt_poses, tgt_mean, tgt_normal,
+           tgt_cov if cost == _P2D else None, tgt_valid, tgt_scan_mask,
+           tgt_nsamples, tgt_planarity, guess, sqrt_info]
+    options = (cost, loss, delta, max_inner, init_lambda, max_outer,
+               min_outer, radius, angle_gate_cos, weight_option,
+               regularization, cov_scale, score_tolerance, bool(one_system),
+               batch, cluster)
+    key = _key("window", ins, options)
+    plan = _PLANS.get(key)
+    if plan is None:
+        if cost == _P2D and tgt_cov is None:
+            raise ValueError("register_window: the cost's target "
+                             "covariances (P2D) are missing")
+        bsz = src_valid.shape[0]
+        extra, extra_shapes = [], {}
+        if guess is not None:
+            extra = [guess, sqrt_info]
+            extra_shapes = dict(guess=(guess, (bsz, 3)),
+                                sqrt_info=(sqrt_info, (3, 3)))
+        bsz, c, t, ct = _check_targets("register_window", dev, "theta0", ins,
+                                       cost, extra, extra_shapes)
+        k = cluster or (cluster_size(bsz, t, c, ct, cost, True) if bsz
+                        else 1)
+        r0 = 2.0 * radius  # the first outer iteration's doubled radius
+        plan = _Plan(
+            ins, [((bsz, 3), torch.float32), ((bsz,), torch.float32),
+                  ((bsz,), torch.long), ((bsz,), torch.long)],
+            [bsz, t, c, ct, cost, loss, max_inner, int(one_system),
+             max_outer, min_outer, weight_option, k, batch or 0],
+            [*loss_constants(loss, delta), _f32(init_lambda),
+             f32_ftz(r0 * r0), f32_ftz(radius * radius),
+             _f32(angle_gate_cos), _f32(regularization), _f32(cov_scale),
+             _f32(score_tolerance)],
+            dev, _entry("register_window_launch"),
+            f"B={bsz}, T={t}, C={c}, Ct={ct}, cost={cost}, K={k}")
+        _PLANS[key] = plan
+    if plan.ints[0] == 0:
+        return tuple(torch.empty(shape, dtype=dt, device=dev)
+                     for shape, dt in plan.outs)
+    if passes is not None and (passes.dtype != torch.int32 or
+                               passes.device != dev or
+                               tuple(passes.shape) != (plan.ints[0],)):
+        raise ValueError("register_window: passes must be int32 [B] on "
+                         f"{dev}")
+    return tuple(_run(plan, ins, "window",
+                      () if passes is None else (passes.data_ptr(),)))
 
 
 def evaluate(pose: torch.Tensor, src_mean: torch.Tensor,
              src_normal: torch.Tensor, src_nsamples: torch.Tensor,
              src_planarity: torch.Tensor, src_valid: torch.Tensor,
-             tgt_mean_w: torch.Tensor, tgt_normal_w: torch.Tensor,
-             tgt_cov_w: Optional[torch.Tensor], tgt_valid: torch.Tensor,
+             tgt_poses: torch.Tensor, tgt_mean: torch.Tensor,
+             tgt_normal: torch.Tensor, tgt_cov: Optional[torch.Tensor],
+             tgt_valid: torch.Tensor, tgt_scan_mask: torch.Tensor,
              tgt_nsamples: torch.Tensor, tgt_planarity: torch.Tensor, *,
              cost: int, loss: int, delta: float, radius: float,
              angle_gate_cos: float, weight_option: int,
@@ -328,10 +450,11 @@ def evaluate(pose: torch.Tensor, src_mean: torch.Tensor,
              cluster: Optional[int] = None):
     """(costs [B, S], association counts [B], fit [B, 10] or None, cov
     [B, 3, 3] or None, convex [B] or None) of B source scans of C cells at
-    their poses ``pose`` [B, 3] against T world-frame target scans of Ct
-    cells (``_world_targets``' outputs, with the targets' nsamples and
-    planarity), one launch on CUDA tensors: one association at each row's
-    pose within ``radius``, then the cost-only pass at ``pose +
+    their poses ``pose`` [B, 3] against T target scans of Ct cells given
+    in their own frames with their poses [B, T, 3] and the scan mask
+    [B, T] (placed in the world in the launch, as ``_world_targets``
+    places them), one launch on CUDA tensors: one association at each
+    row's pose within ``radius``, then the cost-only pass at ``pose +
     offsets[s]`` for each of the S <= 64 offsets [S, 3] (none: S = 1 at the
     pose itself), all S in one pass; with ``pinv`` [10, S] also the sampled
     covariance's fit, one fused multiply-add a sample in order; with
@@ -342,76 +465,69 @@ def evaluate(pose: torch.Tensor, src_mean: torch.Tensor,
     dev = pose.device
     if dev.type != "cuda":
         raise RuntimeError(f"evaluate: no kernel for device {dev}")
-    bsz, c = src_valid.shape
-    t, ct = tgt_valid.shape[1:]
-    s = 1 if offsets is None else offsets.shape[0]
-    floats = [pose, src_mean, src_normal, src_nsamples, src_planarity,
-              tgt_mean_w, tgt_normal_w, tgt_nsamples, tgt_planarity]
-    shapes = {"pose": (pose, (bsz, 3)),
-              "src_mean": (src_mean, (bsz, c, 2)),
-              "src_normal": (src_normal, (bsz, c, 2)),
-              "src_nsamples": (src_nsamples, (bsz, c)),
-              "src_planarity": (src_planarity, (bsz, c)),
-              "tgt_mean_w": (tgt_mean_w, (bsz, t, ct, 2)),
-              "tgt_normal_w": (tgt_normal_w, (bsz, t, ct, 2)),
-              "tgt_valid": (tgt_valid, (bsz, t, ct)),
-              "tgt_nsamples": (tgt_nsamples, (bsz, t, ct)),
-              "tgt_planarity": (tgt_planarity, (bsz, t, ct))}
-    if cost == _P2D:
-        floats.append(tgt_cov_w)
-        if tgt_cov_w is not None:
-            shapes["tgt_cov_w"] = (tgt_cov_w, (bsz, t, ct, 2, 2))
-    if offsets is not None:
-        floats.append(offsets)
-        shapes["offsets"] = (offsets, (s, 3))
-    if pinv is not None:
-        floats.append(pinv)
-        shapes["pinv"] = (pinv, (10, s))
-    if covariance is not None:
-        final_score, n_res = covariance[:2]
-        if pinv is None:
-            raise ValueError("evaluate: the covariance needs the fit (pinv)")
-        floats.append(final_score)
-        shapes["final_score"] = (final_score, (bsz,))
-        shapes["n_res"] = (n_res, (bsz,))
-        if n_res.dtype != torch.long or n_res.device != dev:
-            raise TypeError(f"evaluate: n_res must be int64 on {dev}")
-    _check("evaluate", dev, floats, [src_valid, tgt_valid], shapes)
-    if not 1 <= s <= MAX_POSES:
-        raise ValueError(f"evaluate: S = {s} poses (1 to {MAX_POSES})")
-    if ct < 1:
-        raise ValueError("evaluate: the target scans hold no cell")
-    out_costs = torch.empty((bsz, s), dtype=torch.float32, device=dev)
-    out_count = torch.empty((bsz,), dtype=torch.long, device=dev)
-    out_q = None if pinv is None else torch.empty(
-        (bsz, 10), dtype=torch.float32, device=dev)
-    out_cov = out_convex = None
-    cov_in, scaler, diag = [None, None], 0.0, (0.0, 0.0, 0.0)
-    if covariance is not None:
-        out_cov = torch.empty((bsz, 3, 3), dtype=torch.float32, device=dev)
-        out_convex = torch.empty((bsz,), dtype=torch.bool, device=dev)
-        cov_in = [x.contiguous() for x in covariance[:2]]
-        scaler, diag = _f32(covariance[2]), tuple(map(_f32, covariance[3]))
-    if bsz == 0:
-        return out_costs, out_count, out_q, out_cov, out_convex
-    k = cluster or cluster_size(bsz, t, c, ct, cost, True)
-    ins = [x.contiguous() for x in (
-        pose, src_mean, src_normal, src_nsamples, src_planarity, src_valid,
-        tgt_mean_w, tgt_normal_w)]
-    tcw = tgt_cov_w.contiguous() if cost == _P2D else None
-    more = [x.contiguous() for x in (tgt_valid, tgt_nsamples, tgt_planarity)]
-    fit = [None if x is None else x.contiguous() for x in (offsets, pinv)]
-    err = _launch_on(
-        dev, _entry("evaluate_cost_launch"), *map(_ptr, ins), _ptr(tcw),
-        *map(_ptr, more), *map(_ptr, fit), *map(_ptr, cov_in),
-        out_costs.data_ptr(), out_count.data_ptr(), _ptr(out_q),
-        _ptr(out_cov), _ptr(out_convex), bsz, t, c, ct, s, cost, loss,
-        *loss_constants(loss, delta), weight_option,
-        f32_ftz(radius * radius), _f32(angle_gate_cos), _f32(regularization),
-        _f32(cov_scale), scaler, *diag, k)
-    if err != 0:
-        raise RuntimeError(f"evaluate_cost_launch failed: CUDA error {err} "
-                           f"(B={bsz}, T={t}, C={c}, Ct={ct}, S={s}, "
-                           f"cost={cost}, K={k})")
-    _count("evaluate")
-    return out_costs, out_count, out_q, out_cov, out_convex
+    final_score, n_res = (None, None) if covariance is None else \
+        covariance[:2]
+    ins = [pose, src_mean, src_normal, src_nsamples, src_planarity,
+           src_valid, tgt_poses, tgt_mean, tgt_normal,
+           tgt_cov if cost == _P2D else None, tgt_valid, tgt_scan_mask,
+           tgt_nsamples, tgt_planarity, offsets, pinv, final_score, n_res]
+    options = (cost, loss, delta, radius, angle_gate_cos, weight_option,
+               regularization, cov_scale, cluster,
+               None if covariance is None else (
+                   covariance[2], tuple(covariance[3])))
+    key = _key("evaluate", ins, options)
+    plan = _PLANS.get(key)
+    if plan is None:
+        if cost == _P2D and tgt_cov is None:
+            raise ValueError("evaluate: the cost's target covariances "
+                             "(P2D) are missing")
+        s = 1 if offsets is None else offsets.shape[0]
+        bsz = src_valid.shape[0]
+        extra, extra_shapes = [], {}
+        if offsets is not None:
+            extra.append(offsets)
+            extra_shapes["offsets"] = (offsets, (s, 3))
+        if pinv is not None:
+            extra.append(pinv)
+            extra_shapes["pinv"] = (pinv, (10, s))
+        scaler, diag = 0.0, (0.0, 0.0, 0.0)
+        if covariance is not None:
+            if pinv is None:
+                raise ValueError("evaluate: the covariance needs the fit "
+                                 "(pinv)")
+            extra.append(final_score)
+            extra_shapes["final_score"] = (final_score, (bsz,))
+            extra_shapes["n_res"] = (n_res, (bsz,))
+            if n_res.dtype != torch.long or n_res.device != dev:
+                raise TypeError(f"evaluate: n_res must be int64 on {dev}")
+            scaler, diag = _f32(covariance[2]), tuple(map(_f32,
+                                                          covariance[3]))
+        bsz, c, t, ct = _check_targets("evaluate", dev, "pose", ins, cost,
+                                       extra, extra_shapes)
+        if not 1 <= s <= MAX_POSES:
+            raise ValueError(f"evaluate: S = {s} poses (1 to {MAX_POSES})")
+        k = cluster or (cluster_size(bsz, t, c, ct, cost, True) if bsz
+                        else 1)
+        outs = [((bsz, s), torch.float32), ((bsz,), torch.long)]
+        if pinv is not None:
+            outs.append(((bsz, 10), torch.float32))
+        if covariance is not None:
+            outs += [((bsz, 3, 3), torch.float32), ((bsz,), torch.bool)]
+        plan = _Plan(
+            ins, outs, [bsz, t, c, ct, cost, loss, s, weight_option, 0, 0,
+                        0, k],
+            [*loss_constants(loss, delta), 0.0, 0.0,
+             f32_ftz(radius * radius), _f32(angle_gate_cos),
+             _f32(regularization), _f32(cov_scale), 0.0, 0.0, scaler,
+             *diag], dev, _entry("evaluate_cost_launch"),
+            f"B={bsz}, T={t}, C={c}, Ct={ct}, S={s}, cost={cost}, K={k}")
+        _PLANS[key] = plan
+    if plan.ints[0] == 0:
+        outs = [torch.empty(shape, dtype=dt, device=dev)
+                for shape, dt in plan.outs]
+    else:
+        outs = _run(plan, ins, "evaluate")
+    costs, count = outs[:2]
+    q = outs[2] if pinv is not None else None
+    cov, convex = outs[-2:] if covariance is not None else (None, None)
+    return costs, count, q, cov, convex

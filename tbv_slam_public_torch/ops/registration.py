@@ -492,20 +492,18 @@ def register_window(src: Cells, src_pose0: torch.Tensor, tgt: Cells,
     improvement below score_tolerance) applied per batch row.
     ``one_system``: B = 1 from the unbatched odometry step, whose LM step the
     reference rounds otherwise than its batched code's.  CPU tensors take
-    the plain version; on CUDA tensors ``_world_targets`` runs eagerly and
-    the rest is one launch of ``csrc/lm_solve.cu``, which is bit-equal to
-    it."""
+    the plain version; on CUDA tensors the whole call, ``_world_targets``'
+    placement of the targets included, is one launch of
+    ``csrc/lm_solve.cu``, which is bit-equal to it."""
     if src.mean.device.type == "cpu" or lm_kernel.plain_on_card_enabled():
         return _register_window_reference(
             src, src_pose0, tgt, tgt_poses, tgt_scan_mask, cfg, guess=guess,
             guess_sqrt_info=guess_sqrt_info, one_system=one_system)
     cost = cost_code(cfg.cost)
-    tmw, tnw, tcw, tvalid = _world_targets(tgt, tgt_poses, tgt_scan_mask,
-                                           cost)
     pose, score, n_res, used = lm_kernel.register_window(
         src_pose0, src.mean, src.normal, src.nsamples, src.planarity,
-        src.valid, tmw, tnw, tcw, tvalid, tgt.nsamples, tgt.planarity,
-        cost=cost, loss=loss_code(cfg.loss), delta=cfg.loss_limit,
+        src.valid, tgt_poses, tgt.mean, tgt.normal, tgt.cov, tgt.valid,
+        tgt_scan_mask, tgt.nsamples, tgt.planarity, cost=cost, loss=loss_code(cfg.loss), delta=cfg.loss_limit,
         max_inner=cfg.max_inner_iterations, init_lambda=cfg.init_lambda,
         max_outer=cfg.max_outer_iterations,
         min_outer=cfg.min_outer_iterations, radius=cfg.radius,
@@ -661,10 +659,10 @@ def sampled_covariance(src: Cells, theta_opt: torch.Tensor, tgt: Cells,
     (one association at the optimum, as the reference's default), quadratic
     least-squares fit, inverse Hessian with Censi scaling.  Returns
     (cov [B, 3, 3], convex [B]).  CPU tensors take the plain version; on
-    CUDA tensors ``_world_targets`` runs eagerly and the rest (the
-    association, the steps^3 costs, the fit and the 3 x 3 covariance) is
-    one launch of ``csrc/lm_solve.cu``'s evaluation entry, bit-equal to the
-    plain version, with no host synchronisation."""
+    CUDA tensors the whole call (the targets' placement, the association,
+    the steps^3 costs, the fit and the 3 x 3 covariance) is one launch of
+    ``csrc/lm_solve.cu``'s evaluation entry, bit-equal to the plain
+    version, with no host synchronisation."""
     if src.mean.device.type == "cpu" or lm_kernel.plain_on_card_enabled():
         return _sampled_covariance_reference(
             src, theta_opt, tgt, tgt_poses, tgt_scan_mask, cfg, final_score,
@@ -756,8 +754,8 @@ def evaluate_cost(src: Cells, src_pose: torch.Tensor, tgt: Cells,
                   cfg: RegistrationConfig):
     """One association + cost pass without solving (GetCost); returns
     (total_cost [B], num_residuals [B]).  CPU tensors take the plain
-    version; on CUDA tensors ``_world_targets`` runs eagerly and the rest
-    is one launch of ``csrc/lm_solve.cu``'s evaluation entry, which is
+    version; on CUDA tensors it is one launch of ``csrc/lm_solve.cu``'s
+    evaluation entry (the targets placed in the world inside it), which is
     bit-equal to it."""
     if src.mean.device.type == "cpu" or lm_kernel.plain_on_card_enabled():
         return _evaluate_cost_reference(src, src_pose, tgt, tgt_poses,
@@ -794,15 +792,14 @@ def _evaluate_on_card(src: Cells, pose: torch.Tensor, tgt: Cells,
                       tgt_poses: torch.Tensor, tgt_scan_mask: torch.Tensor,
                       cfg: RegistrationConfig, offsets=None, pinv=None,
                       covariance=None):
-    """The evaluation entry after the eager ``_world_targets``: (costs
-    [B, S], association counts [B], fit [B, 10], cov [B, 3, 3] and convex
-    [B], each None unless asked for)."""
+    """The evaluation entry, the targets placed in the world inside it:
+    (costs [B, S], association counts [B], fit [B, 10], cov [B, 3, 3] and
+    convex [B], each None unless asked for)."""
     cost = cost_code(cfg.cost)
-    tmw, tnw, tcw, tvalid = _world_targets(tgt, tgt_poses, tgt_scan_mask,
-                                           cost)
     return lm_kernel.evaluate(
         pose, src.mean, src.normal, src.nsamples, src.planarity, src.valid,
-        tmw, tnw, tcw, tvalid, tgt.nsamples, tgt.planarity, cost=cost,
+        tgt_poses, tgt.mean, tgt.normal, tgt.cov, tgt.valid, tgt_scan_mask,
+        tgt.nsamples, tgt.planarity, cost=cost,
         loss=loss_code(cfg.loss), delta=cfg.loss_limit, radius=cfg.radius,
         angle_gate_cos=math.cos(math.radians(cfg.angle_gate_deg)),
         weight_option=cfg.weight_option, regularization=cfg.regularization,

@@ -983,12 +983,11 @@ def test_register_window_bit_identical_at_every_cluster_size(cuda, b, t, c,
         want = treg.register_window(*args, **prior)
     src, pose0, tgt, tposes, smask, _ = args
     code = treg.cost_code(cost)
-    tmw, tnw, tcw, tvalid = treg._world_targets(tgt, tposes, smask, code)
     for k in (1, 2, 4, 8):
         pose, score, n_res, used = lm_kernel.register_window(
             pose0, src.mean, src.normal, src.nsamples, src.planarity,
-            src.valid, tmw, tnw, tcw, tvalid, tgt.nsamples, tgt.planarity,
-            cost=code, loss=treg.loss_code(cfg.loss), delta=cfg.loss_limit,
+            src.valid, tposes, tgt.mean, tgt.normal, tgt.cov, tgt.valid,
+            smask, tgt.nsamples, tgt.planarity, cost=code, loss=treg.loss_code(cfg.loss), delta=cfg.loss_limit,
             max_inner=cfg.max_inner_iterations, init_lambda=cfg.init_lambda,
             max_outer=cfg.max_outer_iterations,
             min_outer=cfg.min_outer_iterations, radius=cfg.radius,
@@ -1001,6 +1000,95 @@ def test_register_window_bit_identical_at_every_cluster_size(cuda, b, t, c,
         assert bits_differ(score, want.score) == 0, k
         assert torch.equal(n_res, want.num_residuals), k
         assert torch.equal(used, want.iterations), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,cost,inner", [(1, 4, 512, "P2P", 20),
+                                              (12, 1, 512, "P2L", 10),
+                                              (2, 3, 256, "P2D", 20),
+                                              (3, 2, 64, "P2L", 7)])
+def test_register_window_bit_identical_at_every_batch(cuda, b, t, c, cost,
+                                                      inner):
+    """The window kernel forced to 1, 2, 3 and 4 candidates a pass along a
+    run of rejections gives the same bits as the plain version; one
+    candidate a pass makes the serial loop's 1 + max_inner passes an outer
+    iteration, more make no more; on rows that accept then reject, and on
+    a row whose every cost is NaN (a NaN source weight: every candidate
+    rejected, lambda up to 1e6)."""
+    from tbv_slam_public_torch.core.config import RegistrationConfig
+    from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
+    from tbv_slam_public_torch.kernels.checks import window_problem
+    from tbv_slam_public_torch.ops import registration as treg
+
+    prob = window_problem(np.random.default_rng(c + b + 7), b, t, c, c,
+                          with_prior=True)
+    prob["src_nsamples"][-1] = np.nan  # weight option 1: a NaN cost
+    cfg = RegistrationConfig(cost=cost, weight_option=1,
+                             max_inner_iterations=inner, init_lambda=1e-9)
+    args, prior = _window_args(prob, cuda, cfg)
+    with lm_kernel.plain_on_card():
+        want = treg.register_window(*args, **prior)
+    src, pose0, tgt, tposes, smask, _ = args
+    code = treg.cost_code(cost)
+    serial = None
+    for batch in (1, 2, 3, 4):
+        passes = torch.zeros(b, dtype=torch.int32, device=cuda)
+        pose, score, n_res, used = lm_kernel.register_window(
+            pose0, src.mean, src.normal, src.nsamples, src.planarity,
+            src.valid, tposes, tgt.mean, tgt.normal, tgt.cov, tgt.valid,
+            smask, tgt.nsamples, tgt.planarity, cost=code,
+            loss=treg.loss_code(cfg.loss), delta=cfg.loss_limit,
+            max_inner=inner, init_lambda=cfg.init_lambda,
+            max_outer=cfg.max_outer_iterations,
+            min_outer=cfg.min_outer_iterations, radius=cfg.radius,
+            angle_gate_cos=float(np.cos(np.radians(cfg.angle_gate_deg))),
+            weight_option=cfg.weight_option,
+            regularization=cfg.regularization, cov_scale=cfg.cov_scale,
+            score_tolerance=cfg.score_tolerance, guess=prior["guess"],
+            sqrt_info=prior["guess_sqrt_info"], batch=batch, passes=passes)
+        assert bits_differ(pose, want.pose) == 0, batch
+        assert bits_differ(score, want.score) == 0, batch
+        assert torch.equal(n_res, want.num_residuals), batch
+        assert torch.equal(used, want.iterations), batch
+        if batch == 1:
+            serial = passes.clone()
+            ran = want.num_residuals > 1
+            assert torch.equal(serial[ran], (used * (1 + inner)).to(
+                torch.int32)[ran]), (serial, used)
+        assert (passes <= serial).all(), (batch, passes, serial)
+    assert torch.isnan(want.score[-1])
+
+
+@pytest.mark.cuda
+def test_window_and_evaluation_read_broadcast_rows(cuda):
+    """One query's cells broadcast over 12 candidates (a stride-0 batch,
+    the online loop closure's form), the targets a view with a unit scan
+    axis: the window, ``evaluate_cost`` and ``sampled_covariance`` read
+    them in place through their batch strides, bit-equal to the plain
+    versions on the same views."""
+    from tbv_slam_public_torch.core.config import RegistrationConfig
+    from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
+    from tbv_slam_public_torch.kernels.checks import window_problem
+    from tbv_slam_public_torch.ops import registration as treg
+
+    prob = window_problem(np.random.default_rng(21), 12, 1, 512, 512)
+    cfg = RegistrationConfig(cost="P2L", max_inner_iterations=10)
+    (src, pose0, tgt, tposes, smask, _), _ = _window_args(prob, cuda, cfg)
+    src = src.map(lambda x: x[:1].expand(x.shape))
+    tgt = tgt.map(lambda x: x[:, 0][:, None])
+    args = (src, pose0, tgt, tposes, smask, cfg)
+    got = treg.register_window(*args)
+    cost, n = treg.evaluate_cost(*args[:5], cfg)
+    cov, convex = treg.sampled_covariance(*args[:5], cfg, cost, n)
+    with lm_kernel.plain_on_card():
+        want = treg.register_window(*args)
+        want_cost, want_n = treg.evaluate_cost(*args[:5], cfg)
+        want_cov, want_convex = treg.sampled_covariance(*args[:5], cfg,
+                                                        cost, n)
+    assert _window_differ(got, want) == 0
+    assert bits_differ(cost, want_cost) == 0 and torch.equal(n, want_n)
+    assert bits_differ(cov, want_cov) == 0
+    assert torch.equal(convex, want_convex)
 
 
 @pytest.mark.cuda
@@ -1067,8 +1155,9 @@ GRID = (0.4, 0.0043625, 3)
     (1, 4, 512, 512)])  # odometry's sampled covariance
 def test_evaluation_entry_bit_equal_to_plain(cuda, b, t, c, ct):
     """``evaluate_cost`` and ``sampled_covariance`` (one launch of the
-    registration kernel's evaluation entry each, beside ``_world_targets``'
-    site launch) against their plain versions on the card, bit for bit:
+    registration kernel's evaluation entry each, the targets placed in the
+    world inside it: no ``world_targets`` site launch) against their plain
+    versions on the card, bit for bit:
     the cost and the residual count, the 27 sampled costs and their fit,
     the covariance and its convexity."""
     from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
@@ -1088,7 +1177,7 @@ def test_evaluation_entry_bit_equal_to_plain(cuda, b, t, c, ct):
         cov, convex = treg.sampled_covariance(*args, cfg, cost, n_res)
         assert dict(lm_kernel.LAUNCHES_BY_ENTRY) == dict(
             before, evaluate=before.get("evaluate", 0) + 2)
-        assert rm.LAUNCHES_BY_OP["world_targets"] == sites + 2
+        assert rm.LAUNCHES_BY_OP["world_targets"] == sites
         costs, count, q, _, _ = treg._evaluate_on_card(
             *args, cfg, offsets=offs, pinv=pinv)
         with lm_kernel.plain_on_card():
@@ -1133,13 +1222,12 @@ def test_evaluation_entry_bit_identical_at_every_cluster_size(cuda, b, t, c,
         want_cov, want_convex = treg._covariance_from_fit(
             want_q, treg.cost_code(cost), score, want_n, 4.0)
     code = treg.cost_code(cost)
-    tmw, tnw, tcw, tvalid = treg._world_targets(tgt, tposes, smask, code)
     pinv, offs = treg._quad_fit_pinv(*GRID, cuda)
     for k in (1, 2, 4, 8):
         costs, count, q, cov, convex = lm_kernel.evaluate(
             pose, src.mean, src.normal, src.nsamples, src.planarity,
-            src.valid, tmw, tnw, tcw, tvalid, tgt.nsamples, tgt.planarity,
-            cost=code, loss=treg.loss_code(cfg.loss), delta=cfg.loss_limit,
+            src.valid, tposes, tgt.mean, tgt.normal, tgt.cov, tgt.valid,
+            smask, tgt.nsamples, tgt.planarity, cost=code, loss=treg.loss_code(cfg.loss), delta=cfg.loss_limit,
             radius=cfg.radius,
             angle_gate_cos=float(np.cos(np.radians(cfg.angle_gate_deg))),
             weight_option=cfg.weight_option,
@@ -1156,9 +1244,9 @@ def test_evaluation_entry_bit_identical_at_every_cluster_size(cuda, b, t, c,
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,c", [(64, 1, 512), (12, 1, 512), (1, 4, 512)])
 def test_sampled_covariance_is_one_launch_without_a_host_sync(cuda, b, t, c):
-    """On CUDA tensors ``sampled_covariance`` is the ``world_targets`` site
-    and one evaluation launch, nothing else (no refmath op, no library
-    call), and never waits on the card: it runs under
+    """On CUDA tensors ``sampled_covariance`` is one evaluation launch,
+    nothing else (no refmath op or site, no library call), and never waits
+    on the card: it runs under
     ``torch.cuda.set_sync_debug_mode("error")``."""
     from tbv_slam_public_torch.core.config import RegistrationConfig
     from tbv_slam_public_torch.kernels import lm_solve as lm_kernel
@@ -1180,8 +1268,7 @@ def test_sampled_covariance_is_one_launch_without_a_host_sync(cuda, b, t, c):
         torch.cuda.set_sync_debug_mode(0)
     assert dict(lm_kernel.LAUNCHES_BY_ENTRY) == dict(
         entries, evaluate=entries.get("evaluate", 0) + 1)
-    assert dict(rm.LAUNCHES_BY_OP) == dict(
-        ops, world_targets=ops.get("world_targets", 0) + 1)
+    assert dict(rm.LAUNCHES_BY_OP) == ops
     assert cov.shape == (b, 3, 3) and convex.shape == (b,)
 
 

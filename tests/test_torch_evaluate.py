@@ -165,8 +165,9 @@ def test_a_cpu_tensor_never_reaches_the_evaluation_entry(monkeypatch):
     with pytest.raises(RuntimeError, match="no kernel"):
         lm_kernel.evaluate(
             pose, src.mean, src.normal, src.nsamples, src.planarity,
-            src.valid, tgt.mean, tgt.normal, None, tgt.valid, tgt.nsamples,
-            tgt.planarity, cost=treg.COST_P2L, loss=treg.LOSS_HUBER,
+            src.valid, tposes, tgt.mean, tgt.normal, None, tgt.valid, smask,
+            tgt.nsamples, tgt.planarity, cost=treg.COST_P2L,
+            loss=treg.LOSS_HUBER,
             delta=0.1, radius=2.0, angle_gate_cos=0.8, weight_option=0,
             regularization=0.01, cov_scale=1.0)
 

@@ -632,3 +632,52 @@ def test_flush_tie_in_residual_products(cost):
     for g, w in _residuals_both(theta, mean, tm, tn, si, cost):
         same = (_bits(g) == _bits(w)) | ((g == 0) & (w == 0))
         assert same.all(), (g, w)
+
+
+# ---- se2: a subnormal angle, sine or coordinate ----------------------------
+
+_SE2_POSES = np.float32([[0.0, 0.0, 1e-40], [0.0, 0.0, -3e-39],
+                         [1000.0, 0.0, 1e-40], [1e-40, -2e-39, 0.0],
+                         [1.5e-38, 2e-38, 1e-40], [3e-39, 0.0, 3.0]])
+_SE2_POINTS = np.float32([[1000.0, 0.0], [0.0, 1000.0], [MIN_NORM, 0.0],
+                          [1e-40, -1e-39]])
+_SE2_OTHERS = np.float32([[1000.0, 0.0, 0.0], [0.0, 0.0, 1e-40],
+                          [1.2e-38, 0.0, -2e-39], [0.0, 0.0, -3.0]])
+
+
+def _se2_cases(fn):
+    """(JAX function, port function, operands) of ``fn`` over the poses,
+    points and second poses above (both orders of a pair)."""
+    from tbv_slam_public_tpu.core import se2 as jse2
+    from tbv_slam_public_torch.core import se2 as tse2
+    j, t = getattr(jse2, fn), getattr(tse2, fn)
+    p = _SE2_POSES
+    if fn in ("apply", "rotate"):
+        return j, t, [(p[:, None, :], _SE2_POINTS[None].repeat(len(p), 0))]
+    if fn == "inverse":
+        return j, t, [(p,)]
+    a = np.repeat(p, len(_SE2_OTHERS), 0)
+    b = np.tile(_SE2_OTHERS, (len(p), 1))
+    pairs = [(a, b), (b, a)]
+    if fn == "interpolate":
+        return j, t, [pr + (np.float32(f),) for pr in pairs
+                      for f in (0.5, 1e-40)]
+    return j, t, pairs
+
+
+@pytest.mark.parametrize("fn", ["apply", "rotate", "compose", "inverse",
+                                "relative", "interpolate"])
+def test_se2_flushes_subnormal_angles_and_coordinates(fn):
+    """se2 at theta 1e-40 and -3e-39 and at subnormal translations and
+    points: the reference's DAZ / FTZ threads read a subnormal sine,
+    coordinate or angle as zero in a lone product or a sum and flush a
+    subnormal result (``core/se2.py::_mul``, ``_add``; the site kernels'
+    mul_ftz / add_ftz).  Bit-equal to the jitted JAX function.  Before:
+    s u kept as a normal product (-9.9999461e-38 where the reference has 0),
+    a subnormal angle sum or translation kept (theta 1e-40 after compose
+    where the reference has 0)."""
+    j, t, cases = _se2_cases(fn)
+    for ops in cases:
+        want = np.asarray(jax.jit(j)(*ops))
+        got = t(*(torch.as_tensor(x) for x in ops)).numpy()
+        np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=fn)

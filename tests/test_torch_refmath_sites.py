@@ -50,31 +50,41 @@ def _same(got, want):
 
 
 # ---- the sites' bodies before they were one launch each ------------------
+# (with se2's flushes of a subnormal sine, coordinate or angle in its lone
+# products and sums, as the reference's DAZ / FTZ threads compute them)
+
+def _mul(a, b):
+    return refmath.mul(refmath.ftz(a), refmath.ftz(b))
+
+
+def _add(a, b):
+    return refmath.ftz(refmath.ftz(a) + refmath.ftz(b))
+
 
 def _before_compose(a, b):
     sa, ca = refmath.sincos(a[..., 2])
     x = refmath.fma(-sa, b[..., 1], refmath.fma(ca, b[..., 0], a[..., 0]))
     y = refmath.fma(ca, b[..., 1], refmath.fma(sa, b[..., 0], a[..., 1]))
-    t = refmath.wrap_angle(a[..., 2] + b[..., 2])
+    t = refmath.wrap_angle(_add(a[..., 2], b[..., 2]))
     return torch.stack([x, y, t], -1)
 
 
 def _before_inverse(a):
     s, c = refmath.sincos(a[..., 2])
-    x = -refmath.fma(c, a[..., 0], s * a[..., 1])
-    y = -refmath.fma(c, a[..., 1], -(s * a[..., 0]))
+    x = -refmath.fma(c, a[..., 0], _mul(s, a[..., 1]))
+    y = -refmath.fma(c, a[..., 1], -_mul(s, a[..., 0]))
     return torch.stack([x, y, -a[..., 2]], -1)
 
 
 def _before_rotated(c, s, vx, vy):
-    return refmath.fma(c, vx, -(s * vy)), refmath.fma(s, vx, c * vy)
+    return refmath.fma(c, vx, -_mul(s, vy)), refmath.fma(s, vx, _mul(c, vy))
 
 
 def _before_apply(pose, points):
     s, c = refmath.sincos(pose[..., 2][..., None])
     x, y = _before_rotated(c, s, points[..., 0], points[..., 1])
-    return torch.stack([x + pose[..., 0][..., None],
-                        y + pose[..., 1][..., None]], -1)
+    return torch.stack([_add(x, pose[..., 0][..., None]),
+                        _add(y, pose[..., 1][..., None])], -1)
 
 
 def _before_rotate(pose, vecs):
@@ -84,9 +94,9 @@ def _before_rotate(pose, vecs):
 
 def _before_interpolate(a, b, factor):
     f = torch.as_tensor(factor, dtype=a.dtype)
-    dt = refmath.wrap_angle(b[..., 2] - a[..., 2])
-    x = refmath.fma(b[..., 0] - a[..., 0], f, a[..., 0])
-    y = refmath.fma(b[..., 1] - a[..., 1], f, a[..., 1])
+    dt = refmath.wrap_angle(_add(b[..., 2], -a[..., 2]))
+    x = refmath.fma(_add(b[..., 0], -a[..., 0]), f, a[..., 0])
+    y = refmath.fma(_add(b[..., 1], -a[..., 1]), f, a[..., 1])
     t = refmath.wrap_angle(refmath.fma(dt, f, a[..., 2]))
     return torch.stack([x, y, t], -1)
 

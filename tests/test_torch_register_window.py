@@ -97,6 +97,72 @@ def test_cluster_reduction_tree_is_the_row_sums_tree(k):
                                       err_msg=f"N={n}")
 
 
+def warp_scatter(v: np.ndarray, nthr: int) -> np.ndarray:
+    """``csrc/lm_solve.cu``'s ``scatter_level`` on a warp's float32 values
+    v [32 lanes, NP sums], NP a power of two <= 32: at lane offset o = 1,
+    2, 4, .. a lane keeps half of its sums (the upper half where its bit o
+    is set), each its own plus lane ^ o's (or, at o >= nthr, passed on
+    unadded), until one is left, which the remaining levels add across the
+    lanes.  Returns each lane's one sum [32]."""
+    v = v.copy()
+    lanes = np.arange(32)
+    n, o = v.shape[1], 1
+    while n > 1:
+        h = n // 2
+        up = ((lanes & o) != 0)[:, None]
+        mine = np.where(up, v[:, h:n], v[:, :h])
+        other = np.where(up, v[:, :h], v[:, h:n])[lanes ^ o]
+        v[:, :h] = (mine + other).astype(F32) if o < nthr else \
+            np.where(up, other, mine)
+        n, o = h, o << 1
+    while o < 32:
+        if o < nthr:
+            v[:, 0] = (v[:, 0] + v[lanes ^ o, 0]).astype(F32)
+        o <<= 1
+    return v[:, 0]
+
+
+def scatter_index(lane: int, npad: int) -> int:
+    """The sum lane ends with in ``warp_scatter``."""
+    idx, h, o = 0, npad // 2, 1
+    while h >= 1:
+        idx += h if lane & o else 0
+        h, o = h // 2, o << 1
+    return idx
+
+
+@pytest.mark.parametrize("npad", [16, 32])
+def test_warp_scatter_sums_are_the_butterfly(npad):
+    """The scattered warp reduction gives lane l the sum scatter_index(l)
+    as the former butterfly (every sum over __shfl_xor_sync levels 1, 2,
+    .., 16 below the thread count) gives it to lane 0, bit for bit, at
+    every thread count, signed zeros included: the lanes' pairs are the
+    tree's and each add is commutative."""
+    rng = np.random.default_rng(npad)
+    lanes = np.arange(32)
+    for nthr in (1, 2, 4, 8, 16, 32, 64, 256):
+        for kind in ("random", "zeros"):
+            v = (rng.normal(0, 1, (32, npad)) * 10.0 ** rng.integers(
+                -30, 30, (32, npad))).astype(F32)
+            if kind == "zeros":
+                v = np.where(rng.uniform(size=v.shape) < 0.5, F32(-0.0),
+                             F32(0.0))
+            v[min(nthr, 32):] = 0.0  # lanes past the CTA's threads
+            want = v.copy()
+            o = 1
+            while o < 32:
+                if o < nthr:
+                    want = (want + want[lanes ^ o]).astype(F32)
+                o <<= 1
+            got = warp_scatter(v, nthr)
+            for lane in range(npad):
+                i = scatter_index(lane, npad)
+                assert got[lane].view(np.int32) == \
+                    want[0, i].view(np.int32), (nthr, kind, lane)
+            assert sorted(scatter_index(l, npad) for l in range(npad)) == \
+                list(range(npad))
+
+
 def _cells(prob, side):
     t = lambda k: torch.as_tensor(prob[f"{side}_{k}"])
     return Cells(mean=t("mean"), cov=t("cov"), normal=t("normal"),
@@ -112,13 +178,117 @@ def _similarity(x, y):
     return ((F32(2.0) * mn).astype(F32) / den).astype(F32)
 
 
+def _fma(a, b, c):
+    return plain.fma(torch.as_tensor(a), torch.as_tensor(b),
+                     torch.as_tensor(c)).numpy()
+
+
+def _mul(a, b):
+    """refmath.cuh's mul_ftz of flushed operands (core/se2.py::_mul)."""
+    return plain.mul(torch.as_tensor(np.asarray(a, F32)),
+                     torch.as_tensor(np.asarray(b, F32))).numpy()
+
+
+def _add(a, b):
+    """refmath.cuh's add_ftz (core/se2.py::_add)."""
+    f = lambda x: plain.ftz(torch.as_tensor(np.asarray(x, F32)))
+    return plain.ftz(f(a) + f(b)).numpy()
+
+
+def se2_rotated(c, s, vx, vy):
+    """refmath.cuh's se2_rotated."""
+    return _fma(c, vx, -_mul(s, vy)), _fma(s, vx, _mul(c, vy))
+
+
+def se2_applied(c, s, px, py, vx, vy):
+    """refmath.cuh's se2_applied."""
+    x, y = se2_rotated(c, s, vx, vy)
+    return _add(x, px), _add(y, py)
+
+
+def mm2(a0, b0, a1, b1):
+    """refmath.cuh's mm2: (0 + a0 b0) + a1 b1, unfused."""
+    return ((F32(0) + (a0 * b0).astype(F32)).astype(F32)
+            + (a1 * b1).astype(F32)).astype(F32)
+
+
+def kernel_placement(prob, cost):
+    """The target scans placed in the world as ``csrc/lm_solve.cu``'s
+    ``associate`` places them inside the launch, in NumPy float32: each
+    scan's pose's sine and cosine once, each mean moved (``se2_applied``)
+    and its validity and the scan mask as it stages the scan, and for a
+    winner its normal rotated and, for P2D, rot cov rot^T's entries 00, 01,
+    11 in the kernel's order of ``mm2`` calls.  Here for every cell:
+    (means, normals, covariances or None, validity), as
+    ``_world_targets_plain`` returns them."""
+    poses = prob["tgt_poses"]
+    s, c = (x.numpy()[..., None] for x in plain.sincos(
+        torch.as_tensor(poses[..., 2])))
+    px, py = poses[..., 0:1], poses[..., 1:2]
+    mean, normal = prob["tgt_mean"], prob["tgt_normal"]
+    mx, my = se2_applied(c, s, px, py, mean[..., 0], mean[..., 1])
+    nx, ny = se2_rotated(c, s, normal[..., 0], normal[..., 1])
+    valid = prob["tgt_valid"] & prob["scan_mask"][..., None]
+    cov = None
+    if cost == treg.COST_P2D:
+        cv = prob["tgt_cov"].reshape(mean.shape[:-1] + (4,))
+        r = [[c, -s], [s, c]]
+        m = [[mm2(r[i][0], cv[..., k], r[i][1], cv[..., 2 + k])
+              for k in range(2)] for i in range(2)]
+        w00 = mm2(m[0][0], r[0][0], m[0][1], r[0][1])
+        w01 = mm2(m[0][0], r[1][0], m[0][1], r[1][1])
+        w11 = mm2(m[1][0], r[1][0], m[1][1], r[1][1])
+        cov = np.stack([np.stack([w00, w01], -1), np.stack([w01, w11], -1)],
+                       -2)
+    return (np.stack([mx, my], -1), np.stack([nx, ny], -1), cov, valid)
+
+
+@pytest.mark.parametrize("cost", ["P2L", "P2P", "P2D"])
+def test_kernel_target_placement_is_world_targets(cost):
+    """The kernel's placement of the target scans in the world
+    (``kernel_placement``) equals ``_world_targets_plain`` (the
+    ``world_targets`` site's plain version) bit for bit: means, normals,
+    validity with the scan mask and, for P2D, the covariance's entries 00,
+    01 and 11 (the ones the association reads; 10 is 01 by symmetry of the
+    plain product here), on scans with subnormal angles, translations,
+    means, normals and covariance entries and with masked-out scans."""
+    code = treg.cost_code(cost)
+    prob = window_problem(np.random.default_rng(31 + code), 3, 4, 24, 20)
+    prob["tgt_poses"][0, 1, 2] = F32(1e-40)
+    prob["tgt_poses"][1, 2] = F32([3e-39, -1e-40, -3e-39])
+    prob["tgt_mean"][2, 0, :4] = F32([[1e-39, 0.0], [0.0, -2e-40],
+                                      [2.0 ** -126, 1e-38], [5e3, -1e-40]])
+    prob["tgt_normal"][0, 3, :2] = F32([[1e-40, 1.0], [-1.0, 3e-39]])
+    prob["tgt_cov"][1, 1, :2] = F32([[[1e-39, 2e-40], [2e-40, 0.5]],
+                                     [[0.25, 1e-38], [1e-38, 3e-39]]])
+    got = kernel_placement(prob, code)
+    t = lambda k: torch.as_tensor(prob[k])
+    want = treg._world_targets_plain(
+        t("tgt_poses"), t("tgt_mean"), t("tgt_normal"),
+        t("tgt_cov") if code == treg.COST_P2D else None, t("tgt_valid"),
+        t("scan_mask"))
+    for name, g, w in zip(("mean", "normal", "cov"), got[:3], want[:3]):
+        if w is None:
+            assert g is None
+            continue
+        w = w.numpy()
+        if name == "cov":  # the entries the kernel computes
+            g, w = g[..., [0, 0, 1], [0, 1, 1]], w[..., [0, 0, 1], [0, 1, 1]]
+        np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32),
+                                      err_msg=name)
+    np.testing.assert_array_equal(got[3], want[3].numpy())
+    assert (~got[3]).any() and got[3].any()
+
+
 def kernel_associate(prob, theta, radius, k, cfg):
     """``associate`` as the kernel computes it, in NumPy float32: CTA r of
     the k CTAs of a row computes the associations q = t C + j of its leaves
-    (q in [r Q, r Q + Q), Q = W / k / R), a target scan at a time; each
-    source cell moved by theta (``se2.apply`` / ``rotate``: refmath's
-    sincos and fused multiply-adds), a loop over the target cells in 4
-    chains (target k in chain k % 4), each keeping the first NaN, else the
+    (q in [r Q, r Q + Q), Q = W / k / R), a target scan at a time (padded
+    to a multiple of 4 invalid targets at the origin); each
+    source cell moved by theta (``se2_applied`` / ``se2_rotated``), the
+    target scans placed in the world (``kernel_placement``), a loop over
+    the target cells in 4 chains (target k in chain k % 4), each keeping
+    the first NaN, else the
     first minimum, of where(valid, fma(dy, dy, dx*dx), inf) (the product
     and the sum flushed where subnormal), the chains merged by (NaN first,
     the distance, the index), then the gates and weights of the winner
@@ -135,12 +305,12 @@ def kernel_associate(prob, theta, radius, k, cfg):
     c = prob["src_valid"].shape[1]
     _, w, r = lm_kernel.row_leaves(t, c, cost)
     qk = w // k // r
-    tp = torch.as_tensor(prob["tgt_poses"])
-    tmw, tnw, tcw, tvalid = (None if x is None else x.numpy() for x in
-                             treg._world_targets(_cells(prob, "tgt"), tp,
-                                                 torch.as_tensor(
-                                                     prob["scan_mask"]),
-                                                 cost))
+    tmw, tnw, tcw, tvalid = kernel_placement(prob, cost)
+    # the staged scan padded to a multiple of 4 targets: invalid, at the
+    # origin
+    ct4 = -(-ct // CHAINS) * CHAINS
+    tmw = np.concatenate([tmw, np.zeros((b, t, ct4 - ct, 2), F32)], 2)
+    tvalid = np.concatenate([tvalid, np.zeros((b, t, ct4 - ct), bool)], 2)
     r2 = F32(plain.f32_ftz(radius * radius))
     ftz = lambda x: plain.ftz(torch.as_tensor(np.asarray(x, F32))).numpy()
     sqd = lambda ex, ey: fma(ey, ey, ftz(ex * ex))
@@ -162,12 +332,12 @@ def kernel_associate(prob, theta, radius, k, cfg):
                 j = q - scan * c
                 ux, uy = (prob["src_mean"][row, j, i] for i in (0, 1))
                 vx, vy = (prob["src_normal"][row, j, i] for i in (0, 1))
-                wx = (fma(co, ux, -(s * uy)) + theta[row, 0]).astype(F32)
-                wy = (fma(s, ux, co * uy) + theta[row, 1]).astype(F32)
-                nwx, nwy = fma(co, vx, -(s * vy)), fma(s, vx, co * vy)
+                wx, wy = se2_applied(co, s, theta[row, 0], theta[row, 1], ux,
+                                     uy)
+                nwx, nwy = se2_rotated(co, s, vx, vy)
                 best = np.full((CHAINS, len(q)), np.inf, F32)
                 nn_c = np.full((CHAINS, len(q)), -1)
-                for kk in range(ct):
+                for kk in range(ct4):
                     u = kk % CHAINS
                     ex = (wx - tmw[row, scan, kk, 0]).astype(F32)
                     ey = (wy - tmw[row, scan, kk, 1]).astype(F32)
@@ -235,9 +405,10 @@ def test_kernel_association_is_the_plain_association(cost, weight_option,
     for bit, with every association computed by exactly one CTA; on scans
     with repeated targets (ties), masked-out scans, invalid cells, a
     source cell at NaN and a valid target at NaN (the argmin's first NaN),
-    at both radii of the outer loop."""
+    42 targets a scan (the kernel pads them to 44), at both radii of the
+    outer loop."""
     rng = np.random.default_rng(weight_option + 10 * k)
-    prob = window_problem(rng, 3, 3, 48, 40)
+    prob = window_problem(rng, 3, 3, 48, 42)
     prob["src_mean"][0, 5] = np.nan
     prob["tgt_mean"][2, 1, 7] = np.nan
     prob["tgt_valid"][2, 1, 7] = True
@@ -341,8 +512,8 @@ def test_a_cuda_tensor_never_reaches_the_plain_window():
     with pytest.raises(RuntimeError, match="no kernel"):
         lm_kernel.register_window(
             t("pose0"), src.mean, src.normal, src.nsamples, src.planarity,
-            src.valid, tgt.mean, tgt.normal, None, tgt.valid, tgt.nsamples,
-            tgt.planarity, cost=treg.COST_P2P, loss=treg.LOSS_HUBER,
+            src.valid, t("tgt_poses"), tgt.mean, tgt.normal, None, tgt.valid,
+            t("scan_mask"), tgt.nsamples, tgt.planarity, cost=treg.COST_P2P, loss=treg.LOSS_HUBER,
             delta=0.1, max_inner=2, init_lambda=1e-4, max_outer=2,
             min_outer=1, radius=2.0, angle_gate_cos=0.8, weight_option=4,
             regularization=0.01, cov_scale=1.0, score_tolerance=1e-5)
@@ -351,3 +522,25 @@ def test_a_cuda_tensor_never_reaches_the_plain_window():
                                t("scan_mask"), cfg)
     assert got.pose.shape == (1, 3) and torch.isfinite(got.pose).all()
     assert isinstance(got.iterations, torch.Tensor)
+
+
+def test_launch_plan_reads_broadcast_rows_in_place():
+    """The window and evaluation entries' launch plan: the cells' and
+    scans' inputs (1-13) are read by row through their batch strides, so a
+    row broadcast over the batch (stride 0, the online loop closure's query)
+    or a dense row of a wider tensor is passed as it is; a row that is not
+    dense, target means whose batch stride is odd (read as float2) and any
+    other input that is not contiguous are copied, with the copy's
+    stride."""
+    rng = np.random.default_rng(9)
+    t = lambda *shape: torch.as_tensor(rng.normal(size=shape).astype(F32))
+    src = t(1, 16, 2).expand(5, 16, 2)  # one query for 5 candidates
+    wide = t(5, 40)[:, 4:36].reshape(5, 16, 2)  # dense rows, stride 40
+    tmean_odd = t(5, 1 * 8 * 2 + 1)[:, :16].reshape(5, 1, 8, 2)
+    ins = [t(5, 3), src, wide, t(16, 5).t(), None, None, None, tmean_odd,
+           t(5, 1, 8, 2), None, None, None, None, t(3, 5).t(), None]
+    plan = lm_kernel._Plan(ins, [], [], [], torch.device("cpu"), None, "")
+    assert plan.copy[:4] == (False, False, False, True)
+    assert plan.copy[7] and not plan.copy[8] and plan.copy[13]
+    assert plan.strides[:3] == [0, 40, 16]  # src, normal, nsamples (copy)
+    assert plan.strides[6] == 16 and plan.strides[7] == 16
