@@ -153,6 +153,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -241,7 +242,60 @@ def phase_build():
     for line in build.BUILD_INFO.get("ptxas", "").splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"[1] ptxas: {line.strip()}")
+    report = build.BUILD_INFO.get("ptxas", "")
+    if "stack frame" not in report:  # a library built earlier: compile the
+        report = ptxas_report(build)  # frameless kernels' sources again
+    frames = stack_frames(report)
+    held = {k: v for k, v in frames.items() if any(
+        tag in k for tag in FRAMELESS)}
+    bad = {k: v for k, v in held.items() if any(v)}
+    log(f"[1] stack frame and spills of the {len(held)} site, chain and "
+        f"ScanContext kernels: {'none' if not bad else bad}")
+    if not held or bad:
+        raise AssertionError(f"[1] site, chain or ScanContext kernels with a "
+                             f"stack frame or spills (or none reported): "
+                             f"{bad or held}")
+    STACK_FRAMES.update(held)
     return smi, float(clock) * 1e6
+
+
+# the kernels that must keep every value in registers: ptxas reports no
+# stack frame and no spill for them (mangled names contain these)
+FRAMELESS = ("site_kernel", "chain_", "sc_key_kernel",
+             "sc_ring_distance_kernel", "sc_distance_kernel")
+STACK_FRAMES = {}
+
+
+def ptxas_report(build) -> str:
+    """nvcc's ``-Xptxas -v`` report of the sources that hold the frameless
+    kernels, compiled again into a temporary directory (one process a
+    source, started together)."""
+    srcs = [os.path.join(build.CSRC, f) for f in (
+        "refmath_sites.cu", "refmath_chains.cu", "scancontext.cu",
+        "refmath.cu")]
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-c", "-o",
+             os.path.join(tmp, f"{i}.o"), src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i, src in enumerate(srcs)]
+        return "".join(p.communicate()[0] for p in procs)
+
+
+def stack_frames(report: str) -> dict:
+    """{kernel: (stack frame, spill stores, spill loads) bytes} from nvcc's
+    ``-Xptxas -v`` report."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = tuple(int(g) for g in m.groups())
+            name = None
+    return out
 
 
 def device_us_by_kernel(fn, reps: int = 10, tries: int = 3,
@@ -592,6 +646,50 @@ def hold_refmath(tag, kept) -> int:
     return len(kept)
 
 
+def abs_err(got, want) -> float:
+    """Largest |got - want| over two arrays' values, as measured: NaN
+    against NaN and equal infinities count 0, a NaN or an infinity against
+    any other value inf."""
+    g, w = (torch.as_tensor(np.asarray(x.cpu() if hasattr(x, "cpu") else x))
+            .double() for x in (got, want))
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    d = torch.nan_to_num(torch.where(same, torch.zeros_like(g),
+                                     (g - w).abs()), nan=math.inf)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def path_operands(shapes, dev, seed):
+    """Operands of the shapes a site or chain is given on its main path
+    (``SITE_SHAPES``, ``_chain_shapes``), made from ``seed``: None stays
+    None, a bool operand "b(shape)" is 80 % true, a float one uniform in
+    [-60, 60), its angle (the last of 3) in [-3.2, 3.2).  The timings here
+    and ``scripts/time_cells.py``'s ``sites`` and ``chains`` sets take
+    their operands from it."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = []
+    for sh in shapes:
+        if sh is None:
+            out.append(None)
+        elif isinstance(sh, str):
+            out.append((torch.rand(eval(sh[1:]), generator=g) < 0.8).to(dev))
+        else:
+            x = torch.rand(sh, generator=g) * 120 - 60
+            if sh[-1] == 3:
+                x[..., 2] = torch.rand(sh[:-1], generator=g) * 6.4 - 3.2
+            out.append(x.to(dev))
+    return out
+
+
+def frame_motions(ts):
+    """The pose tail's operands (``_chain_shapes``) set to a frame's: a
+    registration that succeeded, its guess near the pose, the last pose
+    0.8 behind, the last motion within 1."""
+    ts[1].fill_(True)
+    ts[2].copy_(ts[0] + 0.05)
+    ts[3].copy_(ts[0] - 0.8)
+    ts[4].uniform_(-1, 1)
+
+
 # float32 operations an element of each refmath site, for the bound (the
 # double ones of sinf/cosf counted at the float32 rate): sincos 26, the
 # angle wrap 60, atan2 35, a fused multiply-add or other operation 1
@@ -695,6 +793,7 @@ def phase_refmath_sites():
     dev = torch.device("cuda")
     rng = np.random.default_rng(21)
     cases = _site_cases(rng, dev, 1 << 20)
+    errs = {}
     for name, (site, ts, opts) in cases.items():
         rm.LAUNCHES_BY_OP.clear()
         got = rm.site(site, *ts, **opts)
@@ -707,31 +806,25 @@ def phase_refmath_sites():
                      else ((got,), (want,)))
         bad = sum(bits_differ(g, w) for g, w in zip(got, want)
                   if g is not None)
+        errs[site] = max([errs.get(site, 0.0)] + [
+            abs_err(g, w) for g, w in zip(got, want) if g is not None])
         log(f"[2] refmath site {name}: {got[0].numel()} values, {bad} "
             f"differ from the plain version")
         if bad:
             raise AssertionError(f"refmath site {name}: {bad} values differ")
     for n in CUMSUM_HELD:
         x = torch.as_tensor(rng.uniform(0, 3, n).astype(np.float32))
-        bad = bits_differ(rm.cumsum(x.to(dev)), rm._PLAIN["cumsum"](x))
+        got, want = rm.cumsum(x.to(dev)), rm._PLAIN["cumsum"](x)
+        bad = bits_differ(got, want)
+        errs["cumsum"] = max(errs.get("cumsum", 0.0), abs_err(got, want))
         if bad:
             raise AssertionError(f"refmath cumsum at {n}: {bad} differ")
     log(f"[2] refmath cumsum: bit-equal at n = {CUMSUM_HELD}")
 
-    def operand(shape):
-        if shape is None:
-            return None
-        if isinstance(shape, str):  # a bool mask
-            return torch.rand(eval(shape[1:]), device=dev) < 0.8
-        x = torch.empty(shape, device=dev).uniform_(-60, 60)
-        if shape[-1] == 3:
-            x[..., 2].uniform_(-3.2, 3.2)
-        return x
-
     times = {}
     for name, (site, shapes, opts) in list(SITE_SHAPES.items()) + [
             ("cumsum", ("cumsum", ((4608,),), {}))]:
-        ts = [operand(sh) for sh in shapes]
+        ts = path_operands(shapes, dev, 5)
         if name == "cumsum":
             ts[0].uniform_(0, 3)
         call = lambda: rm._call(site, *ts, **opts)
@@ -750,7 +843,7 @@ def phase_refmath_sites():
                               ops / PEAK_F32_FLOPS) * 1e3,
                  bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >=
                  ops / PEAK_F32_FLOPS else "operations", elements=n,
-                 library_ms=None)
+                 library_ms=None, max_abs_err=errs[site])
         lib = SITE_LIBRARY.get(name) if name != "cumsum" else \
             (lambda v: torch.cumsum(v, 0))
         if lib is not None:
@@ -916,6 +1009,7 @@ def phase_chains(cfg):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(29)
+    errs = {}
     for name, (ts, opts) in _chain_cases(rng, dev, 1 << 18).items():
         rm.LAUNCHES_BY_OP.clear()
         got = rm.chain(name, *ts, **opts)
@@ -928,27 +1022,17 @@ def phase_chains(cfg):
                             for x in (got, again, want))
         bad = sum(bits_differ(g, w) for g, w in zip(got, want)) + sum(
             bits_differ(g, w) for g, w in zip(got, again))
+        errs[name] = max(abs_err(g, w) for g, w in zip(got, want))
         log(f"[2] refmath chain {name}: {got[0].numel()} values, {bad} "
             f"differ from the plain version")
         if bad:
             raise AssertionError(f"refmath chain {name}: {bad} values differ")
 
-    def operand(shape):
-        if isinstance(shape, str):  # a bool
-            return torch.rand(eval(shape[1:]), device=dev) < 0.8
-        x = torch.empty(shape, device=dev).uniform_(-60, 60)
-        if shape[-1] == 3:
-            x[..., 2].uniform_(-3.2, 3.2)
-        return x
-
     times = {}
     for name, (shapes, opts) in _chain_shapes(cfg).items():
-        ts = [operand(sh) for sh in shapes]
-        if name == "odometry_pose_tail":  # motions of a frame
-            ts[1].fill_(True)
-            ts[2].copy_(ts[0] + 0.05)
-            ts[3].copy_(ts[0] - 0.8)
-            ts[4].uniform_(-1, 1)
+        ts = path_operands(shapes, dev, 7)
+        if name == "odometry_pose_tail":
+            frame_motions(ts)
         call = lambda: rm.chain(name, *ts, **opts)
         sites = lambda: _chain_sites(name, ts, opts, cfg)
         got = call()
@@ -981,7 +1065,8 @@ def phase_chains(cfg):
                               ops / PEAK_F32_FLOPS) * 1e3,
                  bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >=
                  ops / PEAK_F32_FLOPS else "operations",
-                 shapes=[list(x.shape) for x in ts], library_ms=None)
+                 shapes=[list(x.shape) for x in ts], library_ms=None,
+                 max_abs_err=errs[name])
         times[name] = t
         log(f"[2] refmath chain {name}: {k1:.4f} / {k2:.4f} ms (bound "
             f"{t['bound_ms']:.6f} ms) against its {site_launches} sites' "
@@ -2522,6 +2607,240 @@ def phase_coral_tail():
     return dict(max_abs_err=0.0, held=held, times=times)
 
 
+def _sc_distance_torch(query, candidate, search_ratio=0.1):
+    """``sc_distance`` as the port computed it before its sums were written
+    out: torch's matmul for the Gram matrix, ``torch.linalg.norm`` for the
+    column norms, torch's means and sums (the path the ScanContext kernel
+    replaced; timed beside it, never used)."""
+    s = query.shape[-1]
+    dev = query.device
+    vq, vc = query.mean(-2), candidate.mean(-2)
+    cols = torch.arange(s, device=dev)
+    src = torch.remainder(cols[None, :] - cols[:, None], s)
+    center = torch.argmin(((vq[..., None, :] - vc[..., src]) ** 2).sum(-1), -1)
+    g = query.transpose(-1, -2) @ candidate
+    dot = g[..., cols[None, :], src]
+    qn = torch.linalg.norm(query, dim=-2)
+    cn = torch.linalg.norm(candidate, dim=-2)[..., src]
+    eff = (qn[..., None, :] > 0) & (cn > 0)
+    sim = torch.where(eff, dot / torch.clamp(qn[..., None, :] * cn,
+                                             min=1e-20),
+                      torch.zeros((), dtype=dot.dtype, device=dev))
+    dists = 1.0 - sim.sum(-1) / torch.clamp(eff.sum(-1), min=1)
+    radius = int(round(0.5 * search_ratio * s))
+    c = center[..., None]
+    circ = torch.minimum(torch.remainder(cols - c, s),
+                         torch.remainder(c - cols, s))
+    masked = torch.where(circ <= radius, dists,
+                         torch.full((), math.inf, device=dev))
+    best = torch.argmin(masked, -1)
+    return torch.gather(masked, -1, best[..., None])[..., 0], best
+
+
+# the ScanContext kernels' shapes on the main paths: retrieve's pairs
+# [B, A, K] online (B = 1) and in an offline wave (B = 64)
+SC_WAVES = (1, 64)
+
+
+def phase_scancontext(loops, pose_graph):
+    """ScanContext's kernels (``csrc/scancontext.cu``) on phase 4's
+    keyframes against their plain versions on the CPU, bit for bit: both
+    keys of every descriptor, the coupled ring-key distance of every
+    keyframe to the ones before it, and the distance of each keyframe's
+    descriptor to its 10 nearest by ring key (retrieve's pairs); then each
+    kernel's time at the main path's shapes (CUDA events) beside its plain
+    version on the card and the torch path it replaced (matmul,
+    ``torch.linalg.norm``), and its bound.  Last, phase 4's pose graph
+    optimised with its measured covariances
+    (``pgo.replace_cov_by_identity=false``): ``measured_sqrt_info``'s
+    kernel once, its output there and on those covariances with singular,
+    zero, negative definite, asymmetric and non-finite rows added held to
+    its plain version bit for bit, and timed on the path's inputs."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.kernels.checks import bits_differ
+    from tbv_slam_public_torch.ops import scancontext
+
+    db = loops.db
+    n = int(db.mask.sum())
+    desc, keys = db.desc[:n], db.ring[:n]
+    sc = loops.cfg.scancontext
+    dev = desc.device
+    bad, errs = {}, {"sc_key": 0.0}
+    for ring in (True, False):
+        got = rm.sc_key(desc, ring=ring)
+        want = rm._PLAIN["sc_key"](desc.cpu(), ring=ring)
+        bad[f"key_{'ring' if ring else 'sector'}"] = bits_differ(got, want)
+        errs["sc_key"] = max(errs["sc_key"], abs_err(got, want))
+    hist = torch.ones(n, n, dtype=torch.bool, device=dev).tril(-1)
+    odom = scancontext.odometry_similarity(db.odom_pose[:n, :2], hist,
+                                           sc.odom_sigma_error)
+    d2 = rm.sc_ring_distance(keys, keys, hist, odom)
+    want = rm._PLAIN["sc_ring_distance"](keys.cpu(), keys.cpu(), hist.cpu(),
+                                         odom.cpu())
+    bad["ring_distance"] = bits_differ(d2, want)
+    errs["sc_ring_distance"] = abs_err(d2, want)
+    k = min(sc.num_candidates_from_tree, n)
+    idx = torch.sort(want, dim=-1, stable=True)[1][:, :k]
+    cands = desc[idx.to(dev)][:, None]  # [n, 1, K, R, S]
+    dist, shift = rm.sc_distance(desc[:, None, None], cands,
+                                 search_ratio=sc.search_ratio)
+    wd, ws = rm._PLAIN["sc_distance"](desc[:, None, None].cpu(), cands.cpu(),
+                                      search_ratio=sc.search_ratio)
+    bad["distance"] = bits_differ(dist, wd) + int((shift.cpu() != ws).sum())
+    errs["sc_distance"] = max(abs_err(dist, wd), abs_err(shift, ws))
+    log(f"[4s] ScanContext on phase 4's {n} keyframes: values differing "
+        f"from the plain version {bad}")
+    if any(bad.values()):
+        raise AssertionError(f"[4s] ScanContext kernels differ: {bad}")
+
+    r_, s_ = desc.shape[-2:]
+    times = {}
+    rng = torch.Generator(device="cpu").manual_seed(43)
+    for b in SC_WAVES:
+        a = 1 + (len(sc.augment_offsets) if sc.augment_sc else 0)
+        q = desc[torch.randint(0, n, (b, a), generator=rng).to(dev)]
+        c = desc[torch.randint(0, n, (b, a, k), generator=rng).to(dev)]
+        qq = q[:, :, None]
+        call = lambda: rm.sc_distance(qq, c, search_ratio=sc.search_ratio)
+        plain = lambda: rm._PLAIN["sc_distance"](qq, c,
+                                                 search_ratio=sc.search_ratio)
+        old = lambda: _sc_distance_torch(qq, c, sc.search_ratio)
+        k1, o1, o2, k2 = (cuda_ms(call, 50), cuda_ms(old, 20),
+                          cuda_ms(old, 20), cuda_ms(call, 50))
+        pairs = b * a * k
+        width = min(2 * int(round(0.5 * sc.search_ratio * s_)) + 1, s_)
+        nbytes = 4 * r_ * s_ * (b * a + pairs) + 12 * pairs
+        # Gram entries at the reached shifts, the alignment's squares and
+        # sums, the norms, sums and keys
+        ops = pairs * (2 * r_ * s_ * width + 4 * s_ * s_ + 8 * r_ * s_
+                       + 6 * width * s_)
+        times[f"sc_distance_b{b}"] = dict(
+            ms=min(k1, k2), ms_turns=[k1, k2], torch_path_ms=min(o1, o2),
+            torch_path_ms_turns=[o1, o2], plain_ms=cuda_ms(plain, 3),
+            host_us=host_us(call), pairs=pairs,
+            bound_ms=max(nbytes / PEAK_BYTES_PER_S,
+                         ops / PEAK_F32_FLOPS) * 1e3,
+            bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >=
+            ops / PEAK_F32_FLOPS else "operations", library_ms=None,
+            max_abs_err=errs["sc_distance"])
+        log(f"[4s] sc_distance at [{b}, {a}, {k}] pairs: {k1:.4f} / "
+            f"{k2:.4f} ms (bound {times[f'sc_distance_b{b}']['bound_ms']:.6f}"
+            f" ms), the torch path it replaced {o1:.4f} / {o2:.4f} ms")
+        qk = keys[torch.randint(0, n, (b, a), generator=rng).to(dev)]
+        m = hist[torch.randint(0, n, (b, 1), generator=rng).to(dev)]
+        o = odom[torch.randint(0, n, (b, 1), generator=rng).to(dev)]
+        ring = lambda: rm.sc_ring_distance(qk, keys, m, o)
+        old_ring = lambda: torch.where(
+            m, ((keys - qk[..., None, :]) ** 2).sum(-1) + (10.0 * o) ** 2,
+            torch.full((), math.inf, device=dev))
+        # the keys, the similarity and the distances at 4 bytes, the bool
+        # mask at 1
+        nb = 4 * (b * a * r_ + n * r_ + b * n + b * a * n) + b * n
+        times[f"sc_ring_distance_b{b}"] = dict(
+            ms=cuda_ms(ring, 50), torch_path_ms=cuda_ms(old_ring, 50),
+            plain_ms=cuda_ms(lambda: rm._PLAIN["sc_ring_distance"](
+                qk, keys, m, o), 5), host_us=host_us(ring),
+            bound_ms=max(nb / PEAK_BYTES_PER_S,
+                         3 * r_ * b * a * n / PEAK_F32_FLOPS) * 1e3,
+            bound_by="bytes" if nb / PEAK_BYTES_PER_S >= 3 * r_ * b * a * n
+            / PEAK_F32_FLOPS else "operations", library_ms=None,
+            max_abs_err=errs["sc_ring_distance"])
+        qd = desc[torch.randint(0, n, (b, a), generator=rng).to(dev)]
+        key = lambda: rm.sc_key(qd, ring=True)
+        nb = 4 * (b * a * r_ * s_ + b * a * r_)
+        times[f"sc_key_b{b}"] = dict(
+            ms=cuda_ms(key, 50), torch_path_ms=cuda_ms(lambda: qd.mean(-1),
+                                                       50),
+            plain_ms=cuda_ms(lambda: rm._PLAIN["sc_key"](qd), 5),
+            host_us=host_us(key),
+            bound_ms=max(nb / PEAK_BYTES_PER_S,
+                         b * a * r_ * s_ / PEAK_F32_FLOPS) * 1e3,
+            bound_by="bytes", library_ms=cuda_ms(lambda: qd.mean(-1), 50),
+            max_abs_err=errs["sc_key"])
+        log(f"[4s] sc_ring_distance at [{b}, {a}, {n}]: "
+            f"{times[f'sc_ring_distance_b{b}']['ms']:.4f} ms (torch path "
+            f"{times[f'sc_ring_distance_b{b}']['torch_path_ms']:.4f}); "
+            f"sc_key at [{b}, {a}]: {times[f'sc_key_b{b}']['ms']:.4f} ms "
+            f"(torch mean {times[f'sc_key_b{b}']['torch_path_ms']:.4f})")
+
+    # phase 4's graph with its measured covariances: measured_sqrt_info
+    import copy
+    import dataclasses
+
+    g = copy.copy(pose_graph)
+    g.cfg = dataclasses.replace(g.cfg, pgo=dataclasses.replace(
+        g.cfg.pgo, replace_cov_by_identity=False))
+    seen, real = [], rm.measured_sqrt_info
+
+    def spy(*ts):  # the path's own inputs and output
+        out = real(*ts)
+        seen.append([t.clone() for t in ts + (out,)])
+        return out
+
+    rm.measured_sqrt_info = spy
+    try:
+        with kernel_path("measured_cov"):
+            res = g.optimize()
+    finally:
+        rm.measured_sqrt_info = real
+    sqrt_launches = REFMATH_LAUNCHES["measured_cov"].get(
+        "measured_sqrt_info", 0)
+    if sqrt_launches != 1 or len(seen) != 1:
+        raise AssertionError(f"[4s] the measured-covariance PGO launched "
+                             f"measured_sqrt_info {sqrt_launches} times")
+    cov, scale, fb, out = seen[0]
+    e = cov.shape[0]
+    want = rm._PLAIN["measured_sqrt_info"](cov.cpu(), scale.cpu(), fb.cpu())
+    sqrt_bad = dict(path=bits_differ(out, want))
+    sqrt_err = abs_err(out, want)
+    # the path's rows and degenerate ones after them: rank 2, zero, negative
+    # definite, indefinite, asymmetric, NaN and inf entries, rank 1
+    rows = np.tile(np.eye(3, dtype=np.float32) * 1e-3, (8, 1, 1))
+    rows[0, 2, 2] = 0.0
+    rows[1] = 0.0
+    rows[2] *= -1.0
+    rows[3] = -np.diag([1e-3, 1e-3, -1e-3])
+    rows[4, 0, 1] = 5e-3
+    rows[5, 1, 1] = np.nan
+    rows[6, 0, 0] = np.inf
+    rows[7] = np.outer([1, 2, 3], [1, 2, 3]) * 1e-4
+    cov_x = torch.cat([cov, torch.as_tensor(rows, device=dev)])
+    scale_x = torch.cat([scale, scale[:1].expand(8)])
+    fb_x = torch.cat([fb, fb[:1].expand(8, 3, 3)])
+    got = rm.measured_sqrt_info(cov_x, scale_x, fb_x)
+    want = rm._PLAIN["measured_sqrt_info"](cov_x.cpu(), scale_x.cpu(),
+                                           fb_x.cpu())
+    sqrt_bad["with_degenerate"] = bits_differ(got, want)
+    sqrt_err = max(sqrt_err, abs_err(got, want))
+    fallen = [2, 3, 5, 6]  # negative definite, indefinite, non-finite
+    if any(sqrt_bad.values()) or not torch.equal(want[e:][fallen],
+                                                 fb_x.cpu()[e:][fallen]):
+        raise AssertionError(f"[4s] measured_sqrt_info differs from its "
+                             f"plain version {sqrt_bad} (max abs err "
+                             f"{sqrt_err}), or a degenerate row kept no "
+                             f"fallback")
+    call = lambda: rm.measured_sqrt_info(cov, scale, fb)
+    t = dict(ms=cuda_ms(call, 50), max_abs_err=sqrt_err, held=sqrt_bad,
+             plain_ms=cuda_ms(lambda: rm._PLAIN["measured_sqrt_info"](
+                 cov, scale, fb), 3),
+             library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(
+                 torch.linalg.inv(cov))[0], 20),
+             edges=e, launches=sqrt_launches,
+             final_cost=float(res.cost))
+    nb = 4 * e * (9 + 1 + 9 + 9)
+    t.update(bound_ms=max(nb / PEAK_BYTES_PER_S,
+                          250 * e / PEAK_F32_FLOPS) * 1e3,
+             bound_by="bytes" if nb / PEAK_BYTES_PER_S >= 250 * e /
+             PEAK_F32_FLOPS else "operations")
+    times["measured_sqrt_info"] = t
+    log(f"[4s] measured_sqrt_info: one launch in the measured-covariance "
+        f"PGO ({e} edges, final cost {t['final_cost']:.6g}), values "
+        f"differing from the plain version {sqrt_bad}, "
+        f"{t['ms']:.4f} ms against the torch.linalg path "
+        f"{t['library_ms']:.4f} ms")
+    return dict(times=times, keyframes=n, held=bad)
+
+
 def phase_real_clouds(loops, sm_hz):
     """The kernel on the offline run's keyframe clouds: consecutive keyframes
     as (src, ref) pairs in the odometry frame, stacked into the widths of a
@@ -2760,7 +3079,7 @@ def phase_slice(n_frames):
     if not ate1 <= ate0 + 1e-3:
         raise AssertionError(f"PGO made ATE worse: {ate0} -> {ate1}")
     return launches, seq.images, gt, cfg, slam.loops, \
-        np.asarray(pipe.frame_poses), g
+        np.asarray(pipe.frame_poses), g, slam.graph
 
 
 VARIANTS = [("default", None), ("P2D", "registration.cost=P2D"),
@@ -3999,6 +4318,88 @@ def phase_parallel(cfg, graph, loops, pair, overrides=()):
         ranks["kernel_checks"]["max_abs_err"]
 
 
+SITE_SOURCE = "tbv_slam_public_torch/csrc/refmath_sites.cu"
+CHAIN_SOURCE = "tbv_slam_public_torch/csrc/refmath_chains.cu"
+SC_SOURCE = "tbv_slam_public_torch/csrc/scancontext.cu"
+# what each site, chain and ScanContext kernel computes in the reference
+SITE_REPLACES = {
+    "compose": "tbv_slam_public_tpu/core/se2.py (compose)",
+    "inverse": "tbv_slam_public_tpu/core/se2.py (inverse)",
+    "relative": "tbv_slam_public_tpu/core/se2.py (relative)",
+    "apply": "tbv_slam_public_tpu/core/se2.py (apply)",
+    "rotate": "tbv_slam_public_tpu/core/se2.py (rotate)",
+    "interpolate": "tbv_slam_public_tpu/core/se2.py (interpolate)",
+    "rotmat": "tbv_slam_public_tpu/core/se2.py (rotmat)",
+    "norm2": "tbv_slam_public_torch/core/refmath.py::norm2",
+    "world_targets": "tbv_slam_public_tpu/ops/registration.py "
+                     "(the window's world-frame targets)",
+    "motion_compensate": "tbv_slam_public_tpu/ops/radar.py "
+                         "(motion_compensate)",
+    "odometry_pose_tail": "tbv_slam_public_tpu/models/odometry.py "
+                          "(the pose tail after registration)",
+    "motion_compensate_pair": "tbv_slam_public_tpu/ops/radar.py "
+                              "(motion_compensate of a frame's two clouds)",
+    "loop_guess": "tbv_slam_public_tpu/models/loopclosure.py "
+                  "(Taug^-1 R(yaw))",
+    "local_map": "tbv_slam_public_tpu/models/loopclosure.py "
+                 "(the local map's keyframes moved into the query's frame)",
+    "alignment_apply": "tbv_slam_public_tpu/models/verification.py "
+                       "(the pair's clouds moved by its pose)",
+    "sc_key": "tbv_slam_public_tpu/ops/scancontext.py:84 (ring_key, "
+              "sector_key)",
+    "sc_ring_distance": "tbv_slam_public_tpu/ops/scancontext.py:198 "
+                        "(retrieve's ring-key distance)",
+    "sc_distance": "tbv_slam_public_tpu/ops/scancontext.py:123 "
+                   "(sc_distance under retrieve's vmap)",
+    "measured_sqrt_info": "tbv_slam_public_tpu/ops/posegraph.py:80 "
+                          "(jnp.linalg.inv and cholesky on jaxlib's LAPACK)"}
+NO_TPU = " (no TPU kernel: XLA's fusions on the CPU; the port's plain " \
+    "version runs on a CPU tensor)"
+
+
+def refmath_entries(sites, chains, sc_k):
+    """The kernels line's entries of the per-site, per-chain and ScanContext
+    kernels and ``measured_sqrt_info`` that some path launches: launches on
+    the offline path, or on the path that launches it most where the
+    offline path does not; then the names of those no path launches on
+    its own (sites whose arithmetic the chains run; their times are the
+    ``refmath`` entry's ``sites``)."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    def entry(name, source, t, op, frames):
+        by = {p: v.get(op, 0) for p, v in REFMATH_LAUNCHES.items()}
+        path = "offline" if by.get("offline") else max(by, key=by.get)
+        if not by[path]:
+            return None
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": SITE_REPLACES[op] + NO_TPU,
+                "launches": by[path], "path": path,
+                "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t.get("library_ms"), "times": t,
+                "stack_frame_spills": {k: v for k, v in STACK_FRAMES.items()
+                                       if frames in k},
+                "launches_by_path": {p: v for p, v in by.items() if v}}
+
+    sc = sc_k["times"]
+    cases = [(f"site_{s}", SITE_SOURCE, sites[s], s,
+              f"site_kernelILi{i}E") for s, i in rm.SITES.items()]
+    cases += [(f"chain_{c}", CHAIN_SOURCE, chains[c], c, f"chain_{c}E")
+              for c in rm.CHAIN_KERNELS]
+    cases += [("sc_key", SC_SOURCE, sc["sc_key_b1"], "sc_key",
+               "sc_key_kernel"),
+              ("sc_ring_distance", SC_SOURCE, sc["sc_ring_distance_b1"],
+               "sc_ring_distance", "sc_ring_distance_kernel"),
+              ("sc_distance", SC_SOURCE, sc["sc_distance_b1"], "sc_distance",
+               "18sc_distance_kernel"),
+              ("measured_sqrt_info", "tbv_slam_public_torch/csrc/refmath.cu",
+               sc["measured_sqrt_info"], "measured_sqrt_info",
+               "sqrt_info_kernel")]
+    out = [entry(*c) for c in cases]
+    return [e for e in out if e], [c[0] for c, e in zip(cases, out) if not e]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.
@@ -4041,8 +4442,9 @@ def main(argv=None) -> int:
     done("1-2")
     plain_trajectory, scan_launches = phase_cli()
     done("3")
-    launches, images, gt, cfg, loops, frame_poses, graph = phase_slice(
-        args.frames)
+    launches, images, gt, cfg, loops, frame_poses, graph, pose_graph = \
+        phase_slice(args.frames)
+    sc_k = phase_scancontext(loops, pose_graph)
     real = phase_real_clouds(loops, sm_hz)
     cells_k = phase_cells(images, cfg)
     done("4")
@@ -4065,6 +4467,7 @@ def main(argv=None) -> int:
                    dryrun=dry_launches)
     launches += online_launches + scan_launches + parallel_launches \
         + dry_launches
+    per_kernel, on_no_path = refmath_entries(sites, chains, sc_k)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "coral_moments", "route": "cuda",
@@ -4091,6 +4494,7 @@ def main(argv=None) -> int:
         "bound_by": refmath_k["times"]["sincos_n4096"]["bound_by"],
         "library_ms": refmath_k["times"]["sincos_n4096"]["library_ms"],
         "times": refmath_k["times"], "sites": sites,
+        "kernels_on_no_path": on_no_path,
         "op_kernels": refmath_k["kernels"],
         "launches_by_path": REFMATH_LAUNCHES,
         "strided_operands_by_path": REFMATH_STRIDED,
@@ -4142,27 +4546,6 @@ def main(argv=None) -> int:
         "bound_by": cells_k["bound_by"], "library_ms": None,
         "times": cells_k, "launches_by_path": CELLS_LAUNCHES,
         "shapes_held_by_path": CELLS_HELD, "design": CELLS_DESIGN}, {
-        "name": "refmath_chains", "route": "cuda",
-        "source": "tbv_slam_public_torch/csrc/refmath_sites.cu",
-        "replaces": "tbv_slam_public_torch/kernels/refmath.py (no TPU "
-                    "kernel: XLA fuses the odometry step's pose tail, the "
-                    "motion compensation and the loop closure's pose "
-                    "algebra; each chain's plain version is its body on "
-                    "tensors, kernels/refmath.py::chain_plain)",
-        "launches": sum(v for p, v in REFMATH_LAUNCHES["offline"].items()
-                        if p in CHAIN_NAMES),
-        "max_abs_err": 0.0,
-        "ms": chains["odometry_pose_tail"]["ms"],
-        "plain_ms": chains["odometry_pose_tail"]["plain_ms"],
-        "bound_ms": chains["odometry_pose_tail"]["bound_ms"],
-        "bound_by": chains["odometry_pose_tail"]["bound_by"],
-        "library_ms": None, "chains": chains,
-        "launches_by_path": {
-            p: {c: v[c] for c in CHAIN_NAMES if c in v}
-            for p, v in REFMATH_LAUNCHES.items()},
-        "design": "one launch runs an ordered list of sites and their glue "
-                  "from a description built once per chain and shape and "
-                  "kept on the card; a launch passes 144 bytes"}, {
         "name": "register_window", "route": "cuda",
         "source": "tbv_slam_public_torch/csrc/lm_solve.cu",
         "replaces": "tbv_slam_public_tpu/ops/registration.py:395 (no TPU "
@@ -4231,7 +4614,7 @@ def main(argv=None) -> int:
         "bound_by": tail_k["times"]["loop_wave"]["bound_by"],
         "library_ms": None, "times": tail_k["times"],
         "calls_held": tail_k["held"], "launches_by_path": TAIL_LAUNCHES,
-        "shapes_held_by_path": TAIL_HELD}],
+        "shapes_held_by_path": TAIL_HELD}] + per_kernel,
         "variants": variants, "batched": batched, "rest": rest,
         "schur_twice": schur_twice, "parallel": parallel,
         "phase_s": phase_s}))

@@ -25,7 +25,12 @@ online loop closure, a training pair, ``evaluate-scans`` pairs), by events,
 the host's microseconds and the cluster size (and, where the tree takes
 it, the time at 1, 2, 4 and 8 CTAs a pair), with digests.  ``ops``: each
 refmath op at 1, 4,096 and 2^19 values and with a broadcast operand, by
-events, the host's microseconds at 4,096, with digests.
+events, the host's microseconds at 4,096, with digests.  ``sites``: each
+refmath site at its path's shape (``norm2`` beside
+``torch.linalg.vector_norm``); ``chains``: each chain at its path's shape;
+``scancontext``: ``retrieve`` (and its pairs' ``sc_distance`` and the ring
+keys) at B = 1 and 64 against 256 keyframes, with the device kernels a
+call runs; each by events, the host's microseconds, with digests.
 
 A run is a fresh process on one tree (its package first on ``sys.path``)
 with optional ``nvcc`` defines (``csrc/cells.cu`` reads ``CELLS_WARPS``,
@@ -39,7 +44,8 @@ shape's) outputs have the same digest in every run (``same_digests``) and
 the card's name and power limit:
 
     python3 scripts/time_cells.py \
-        [--sets phase4,cfear3_oxford,window,moments,evaluate,tail,ops] \
+        [--sets phase4,cfear3_oxford,window,moments,evaluate,tail,ops,\
+                sites,chains,scancontext] \
         VARIANT ...
 """
 import argparse
@@ -69,10 +75,12 @@ def host_us(fn, reps: int) -> float:
 
 
 def events_ms(fn, reps: int, spin_cycles: int) -> float:
-    """Mean milliseconds a call by CUDA events, the calls enqueued while
-    the device spins."""
+    """Mean milliseconds a call by CUDA events, after one warm-up call (a
+    library kernel's first call loads its module), the calls enqueued
+    while the device spins."""
     import torch
 
+    fn()
     torch.cuda.synchronize()
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda._sleep(spin_cycles)
@@ -381,6 +389,146 @@ def ops_set(reps, dev):
     return out
 
 
+def _smoke():
+    """This tree's ``chip_smoke.py``, loaded from its path (a timed tree's
+    own copy may be older): the sites' and chains' main-path shapes
+    (``SITE_SHAPES``, ``_chain_shapes``) and their operands
+    (``path_operands``, ``frame_motions``) come from it, so that the
+    timings here measure what it checks."""
+    import importlib.util
+
+    if "_tbv_chip_smoke" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "_tbv_chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules["_tbv_chip_smoke"]
+
+
+def _digest(outs, digest):
+    for v in outs if isinstance(outs, tuple) else (outs,):
+        if v is not None:
+            digest.update(v.cpu().numpy().tobytes())
+
+
+def sites_set(reps, dev):
+    """Each refmath site at its path's shape by events behind a spin, the
+    host's microseconds a call, ``torch.linalg.vector_norm`` beside
+    ``norm2``, with digests."""
+    import torch
+
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.ops import radar, registration  # noqa: F401
+
+    cs = _smoke()
+    out = {}
+    # norm2 also at one value
+    for name, (site, shapes, opts) in dict(
+            cs.SITE_SHAPES, norm2_n1=("norm2", ((1, 2),), {})).items():
+        ts = cs.path_operands(shapes, dev, 5)
+        call = lambda: rm.site(site, *ts, **opts)
+        call()
+        res = dict(ms=events_ms(call, reps, 20_000_000),
+                   host_us=host_us(call, 200))
+        if site == "norm2":
+            lib = lambda: torch.linalg.vector_norm(ts[0], dim=-1)
+            res["library_ms"] = events_ms(lib, reps, 20_000_000)
+        digest = hashlib.sha256()
+        _digest(call(), digest)
+        res["digest"] = digest.hexdigest()[:16]
+        out[name] = res
+    return out
+
+
+def chains_set(reps, dev):
+    """Each refmath chain at its path's shape (the sensor-size
+    configuration's) by events behind a spin, the host's microseconds a
+    call, with digests (the pose tail's motions those of a frame)."""
+    import torch_workload as wl
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.models import (loopclosure, odometry,  # noqa
+                                              verification)
+    from tbv_slam_public_torch.ops import radar  # noqa: F401
+
+    cs = _smoke()
+    out = {}
+    for name, (shapes, opts) in cs._chain_shapes(wl.sensor_config()).items():
+        ts = cs.path_operands(shapes, dev, 7)
+        if name == "odometry_pose_tail":
+            cs.frame_motions(ts)
+        call = lambda: rm.chain(name, *ts, **opts)
+        call()
+        res = dict(ms=events_ms(call, reps, 20_000_000),
+                   host_us=host_us(call, 200))
+        digest = hashlib.sha256()
+        _digest(call(), digest)
+        res["digest"] = digest.hexdigest()[:16]
+        out[name] = res
+    return out
+
+
+def _launches(fn):
+    """The device kernels one call of fn runs, by torch.profiler (None
+    where the profiler shows no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def scancontext_set(reps, dev):
+    """ScanContext's retrieval at the online shape (B = 1) and an offline
+    wave's (B = 64) against a 256-keyframe database of descriptor-like
+    values (A = 5 augmentations, K = 10 candidates): ``retrieve`` whole,
+    ``sc_distance`` on its pairs and the ring keys, by events, the host's
+    microseconds, the device kernels a ``retrieve`` call runs (profiler),
+    with digests."""
+    import torch
+
+    from tbv_slam_public_torch.ops import scancontext as sc
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+
+    def desc(*shape):
+        x = torch.randint(60, 255, shape, generator=g) * torch.randint(
+            0, 6, shape, generator=g) / 1000.0
+        return torch.where(torch.rand(shape, generator=g) < 0.6,
+                           torch.zeros(()), x).float().to(dev)
+
+    n, a, k = 256, 5, 10
+    db = desc(n, 40, 120)
+    keys = sc.ring_key(db)
+    out = {}
+    for b in (1, 64):
+        q = desc(b, a, 40, 120)
+        qk = sc.ring_key(q)
+        mask = (torch.rand(b, 1, n, generator=g) < 0.9).to(dev)
+        odom = torch.rand(b, 1, n, generator=g).to(dev)
+        ret = lambda: sc.retrieve(q, qk, db, keys, mask, odom,
+                                  num_candidates=k, search_ratio=0.1)
+        r = ret()
+        cands = db[r.index]
+        pair = lambda: sc.sc_distance(q[..., None, :, :], cands)
+        key = lambda: sc.ring_key(q)
+        res = dict(retrieve_ms=events_ms(ret, reps, 20_000_000),
+                   retrieve_host_us=host_us(ret, 50),
+                   retrieve_launches=_launches(ret),
+                   sc_distance_ms=events_ms(pair, reps, 20_000_000),
+                   ring_key_ms=events_ms(key, reps, 20_000_000))
+        digest = hashlib.sha256()
+        _digest((r.dist, r.index, r.shift, *pair(), key()), digest)
+        res["digest"] = digest.hexdigest()[:16]
+        out[f"b{b}"] = res
+    return out
+
+
 def run(tree: str, defines: list, sets: list, reps: int) -> dict:
     """One variant, in this process."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -394,7 +542,9 @@ def run(tree: str, defines: list, sets: list, reps: int) -> dict:
     dev = torch.device("cuda")
     out = dict(tree=tree, defines=defines)
     named = dict(window=window_set, moments=moments_set,
-                 evaluate=evaluate_set, tail=tail_set, ops=ops_set)
+                 evaluate=evaluate_set, tail=tail_set, ops=ops_set,
+                 sites=sites_set, chains=chains_set,
+                 scancontext=scancontext_set)
     for name in sets:
         out[name] = (named[name](reps, dev) if name in named
                      else cloud_set(name, reps, dev))

@@ -38,6 +38,10 @@ own functions on the same inputs (``tests/test_torch_refmath.py``).
 | ``ops/registration.py::_covariance_from_fit`` | ``jnp.linalg.eigvalsh`` of the 3 x 3 Hessian: jaxlib's ``lapack_ssyevd_ffi`` with vectors (``ssytd2``'s reflector, then ``ssteqr``: implicit QL / QR, ``slartg``, ``slaev2``); the guarded ``jnp.linalg.inv``: ``sgetrf``, then ``strsm`` against the permuted identity | optimized HLO of the function; ``objdump -d`` of ``ssyevd_``, ``ssytd2_``, ``ssteqr_``, ``slartg_``, ``slae2_``/``slaev2_``, ``slapy2_`` (no fused multiply-add in the LAPACK) and the SkylakeX ``ssymv``/``sdot``/``saxpy``/``ssyr2`` kernels they call (fused); eigenvalues bit-equal on 20,000 symmetric matrices (convex, indefinite, near-singular, any scale), inverses on 20,000 | :func:`eigvalsh3`, :func:`inv3` (``csrc/refmath.cuh``'s ``la_eigvalsh3``, ``lu_factor``, ``lu_apply`` in the evaluation entry) |
 | ``ops/registration.py::associate`` squared distances (argmin and radius gate) | fma(dy, dy, dx*dx) (the argmin's fusion), the offsets, product and sum flushed; the winner's attributes read through a one-hot product (a subnormal attribute is zero) | object code of the argmin fusion; the jitted ``associate`` on a radius between the two roundings | ``associate``, ``csrc/lm_solve.cu``'s ``sqdist`` |
 | ``ops/coral.py::_kl_divergence_2d`` | tr(S1^-1 S0) a ``dot`` of the four products in order, each rounded; the Mahalanobis term two dots of fused multiply-adds from zero | optimized HLO of the function; its einsums compiled alone, bit-equal | written out (``csrc/coral_moments.cu``'s ``coral_tail`` alike) |
+| ``ops/scancontext.py`` ring and sector keys (``context_descriptors``'s descriptors, ``detect``'s sector keys) | ``jnp.mean`` as XLA's tree reduction (windows of 32; the 40 rings padded 12 / 12, the 120 sectors 4 / 4), the sum times the float32 reciprocal of the count | optimized HLO of ``context_descriptors`` and ``detect``; 16,000 keys bit-equal | :func:`sc_key` (``csrc/scancontext.cu``'s ``sc_key_kernel``) |
+| ``ops/scancontext.py::retrieve`` ring-key distance | each difference and square rounded and stored, the tree sum of the 40, then the odometry term fused: fma(10 sim, 10 sim, sum) | optimized HLO and object code of ``detect`` (``select_negate_fusion``: one ``vfmadd213ps``) | :func:`sc_ring_distance` (``sc_ring_distance_kernel``) |
+| ``ops/scancontext.py::sc_distance`` (vmapped in ``retrieve``) | the sector keys' difference fma(vq_sum, 1 / R, -vc) (``vfmsub231ps``), its square rounded, the tree sum; the Gram matrix the runtime's matrix product, one fused multiply-add a ring in order from zero; the norms the IEEE root of the tree sum of rounded squares; the similarity a true division by max(qn cn, 1e-20), its tree sum divided by the effective count as a float | optimized HLO and object code of ``detect`` (``subtract_multiply_fusion``, ``divide_select_fusion``, ``broadcast_select_fusion.1``); the dot compiled alone at [5, 40, 120] x [5, 40, 1200], 720,000 entries bit-equal | :func:`sc_distance` (``sc_distance_kernel``, a block a pair) |
+| ``ops/posegraph.py::measured_sqrt_info`` (eager calls) | 0.5 (cov + cov^T) + 1e-9 I; ``jnp.linalg.inv`` (``sgetrf``, ``strsm``, :func:`inv3`); the scale; ``jnp.linalg.cholesky``: the input symmetrised, jaxlib's ``lapack_spotrf_ffi`` (OpenBLAS's unblocked ``spotf2_L`` at n = 3: a_jj - ``sdot``, its root, the column a_ij - ``sgemv`` times 1 / l_jj), NaN where a pivot is not above zero | the calls' custom calls; OpenBLAS's ``potf2_L`` loop held bit-equal on 12,000 covariances (SPD at scales e^-12 to e^2, random-rank, singular, zero, negative definite, asymmetric) | :func:`measured_sqrt_info`, :func:`chol3` (``refmath.cu``'s ``refmath_sqrt_info_kernel``, ``refmath.cuh::chol3``) |
 | subnormal operands and results of the functions above, of :func:`dot`, :func:`loop_dot`, :func:`lu_solve` and :func:`fma` (``vfmadd`` flushes; jaxlib runs the LAPACK on the same thread), and at the audited sites (CorAl's moment sums, covariance and KL inverse, the eigen gates and the cells' covariance, the association's distances and attributes, the registration residuals and the LM's products w J [J | r], PGO's residuals, Jacobian blocks, weights, gradient and Hessian blocks, the logistic fit's coefficients) | flushed to zero (the reference's threads run with DAZ and FTZ), a result where its rounding with an unbounded exponent is below 2^-126 (x86 detects tininess after rounding: an exact result in [2^-126 - 2^-150, 2^-126 - 2^-151), which gradual underflow rounds up to 2^-126, is flushed) | outputs on inputs driven into the subnormal range, against the package's own functions (``tests/test_torch_parity_faults.py``, the ``flush`` cases; the tie: ``tests/test_torch_parity_repairs.py``) | :func:`ftz`; products and fused multiply-adds by their exact result (:func:`_flush`: :func:`mul_ftz`, :func:`sum_ftz`, :func:`fma`) (kernel op ``ftz`` on the card; ``.ftz`` instructions ``mul_ftz``/``fma_ftz``/``ref_fma`` and ``daz`` in the kernels) |
 | lone products (a multiply not fused into an add): PGO's weighted residual w r; the CFEAR cells' mu_0 mu_1, the eigen gate's lmax lmin and the normal's orientation n_0 (o - mean)_0; CorAl's c01 c10, the KL inverse's entries, its trace products and its Mahalanobis first products; the residuals' first products (s u_y, c u_y, n_0 e_0, n_1 dy, u_0 e_0, u_r0 dx) | ``vmulps`` on the FTZ / DAZ threads: the product flushed by its exact value (a product in the tie interval is 0, not 2^-126); a subnormal sine (``sinf`` returns a subnormal theta unchanged) read as zero | object code of the fusions; each driven into the tie against the package's functions (``tests/test_torch_parity_repairs.py``: ``test_flush_tie_in_lone_products``, ``test_flush_tie_in_residual_products``, the sine's case) | :func:`mul_ftz` (the refmath op :func:`mul` where PGO runs on the card: one launch); ``refmath.cuh``'s ``mul_ftz`` (mul.rn.ftz) in ``csrc/cells.cu``, ``coral_moments.cu``'s ``tail_det``/``tail_kl`` and ``lm_solve.cu``'s ``leaf`` |
 
@@ -153,10 +157,13 @@ def _fused(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     rounds to the same float32 unless it lies on a float32 tie (or in
     float32's subnormal range).  Those few are rounded to odd first (the
     exact remainder decides the last bit), which makes the float32 rounding
-    the correctly rounded fused result."""
+    the correctly rounded fused result.  A zero float64 sum is exact (a
+    nonzero exact sum is a multiple of 2^-298, which float64 holds), so it
+    is no tie."""
     s = p + c
+    a = torch.abs(s)
     tie = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | \
-        (torch.abs(s) < _MIN_NORM)
+        ((a < _MIN_NORM) & (a != 0))
     if bool(tie.any()):
         _, err = _two_sum(p, c)
         odd = (s.view(torch.int64) & 1) == 1
@@ -1314,3 +1321,218 @@ def ceres_covariance(h: torch.Tensor, final_score: torch.Tensor,
     cov = ftz(scale[:, None, None] * hinv)
     diag = torch.diag(torch.tensor(fallback, dtype=dt, device=dev))
     return torch.where(ok[:, None, None], cov, diag), ok
+
+
+# ---- ScanContext's keys and distance ---------------------------------------
+#
+# Read from the reference's compiled CPU program (jax 0.9.0, optimized HLO
+# and object code of ``context_descriptors``, ``detect`` and its vmapped
+# form; the Gram matrix held bit for bit against the same dot compiled
+# alone): every mean, norm and sum over the descriptor is XLA's tree
+# reduction (:func:`tree_sum`: reduce-windows of 32, the ring axis of 40
+# padded 12 / 12, the sector axis of 120 padded 4 / 4), its squares and
+# differences rounded and stored before the sum; a mean is the sum times
+# the float32 reciprocal of the count; the Gram matrix is the runtime's
+# matrix product, one fused multiply-add a ring in order from zero; the
+# sector keys' difference fuses the query's product, fma(vq_sum, 1 / R,
+# -vc); the ring-key distance fuses the odometry term, fma(m, m, sum) with
+# m = 10 sim; the similarity a true division by max(|q| |c|, 1e-20), its
+# sum divided by the effective count as a float.  The reference's threads
+# flush subnormal operands and results (DAZ / FTZ): every step here does.
+
+
+def _tree_sum_ftz(x: torch.Tensor) -> torch.Tensor:
+    """:func:`tree_sum` of x (flushed) over the last axis, each sum
+    flushed (add.rn.ftz on the card).  Sums of flushed values of one sign
+    are zero or normal, so there the flushes change nothing and are
+    skipped; only mixed signs can cancel to a subnormal sum."""
+    if bool((x >= 0).all()) or bool((x <= 0).all()):
+        return tree_sum(x)
+    n = x.shape[-1]
+    if n <= TREE_WINDOW:
+        acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for k in range(n):
+            acc = ftz(acc + x[..., k])
+        return acc
+    m = -(-n // TREE_WINDOW)
+    pad = m * TREE_WINDOW - n
+    xp = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).reshape(
+        x.shape[:-1] + (m, TREE_WINDOW))
+    acc = torch.zeros(xp.shape[:-1], dtype=x.dtype, device=x.device)
+    for k in range(TREE_WINDOW):
+        acc = ftz(acc + xp[..., k])
+    return _tree_sum_ftz(acc)
+
+
+#: the longest axis a ScanContext sum reduces in two levels of windows
+SC_AXIS_MAX = TREE_WINDOW * TREE_WINDOW
+
+
+def sc_key(desc: torch.Tensor, ring: bool = True) -> torch.Tensor:
+    """ScanContext's ring key (``ring``: the mean of each ring over its
+    sectors, [..., R]) or sector key (the mean of each sector over the
+    rings, [..., S]) of descriptors [..., R, S]: the tree sum times the
+    float32 reciprocal of the count, as ``jnp.mean`` is compiled."""
+    x = ftz(desc) if ring else ftz(desc).transpose(-1, -2)
+    return mul_ftz(_tree_sum_ftz(x), recip(x.shape[-1]))
+
+
+def sc_ring_distance(query_key: torch.Tensor, db_key: torch.Tensor,
+                     db_mask: torch.Tensor,
+                     odom: "torch.Tensor | None") -> torch.Tensor:
+    """``retrieve``'s squared ring-key distance [..., N] of query keys
+    [..., R] to the database's keys [N, R]: sum_r (db - q)^2 (each
+    difference and square rounded, the tree sum), plus (10 odom)^2 fused
+    into it where ``odom`` [..., N] is given (the odometry-coupled search
+    key), +inf where ``db_mask`` [..., N] is false."""
+    d = ftz(ftz(db_key) - ftz(query_key)[..., None, :])
+    s = _tree_sum_ftz(mul_ftz(d, d))
+    if odom is not None:
+        m = mul_ftz(ftz(odom), 10.0)
+        s = fma(m, m, s)
+    return torch.where(db_mask, s, torch.full_like(s, math.inf))
+
+
+def _fused_ftz(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 of p + c, rounded once and flushed, for float64 p (an exact
+    product of flushed float32 values) and c (a flushed float32 value):
+    :func:`fma` without its operands' flushes.  Where the float64 sum lies
+    on no float32 tie and its rounding is not at or below 2^-126 (nearly
+    everywhere), its float32 rounding is the result; the few others take
+    :func:`_fused` and :func:`_flush`."""
+    s = p + c
+    r = s.to(_F32)
+    a = torch.abs(r)
+    bad = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | \
+        ((a <= _MIN_NORM) & (a != 0))
+    if bool(bad.any()):
+        idx = bad.nonzero(as_tuple=True)
+        ps, cs = p.expand_as(s)[idx], c.expand_as(s)[idx]
+        r[idx] = _flush(_fused(ps, cs), lambda: _two_sum(ps, cs))
+    return r
+
+
+#: (query, candidate) pairs the plain ``sc_distance`` takes at a time (its
+#: [pairs, S, S] alignment terms in a few MB)
+SC_PAIRS_CHUNK = 64
+
+
+def sc_distance(query: torch.Tensor, candidate: torch.Tensor,
+                search_ratio: float = 0.1):
+    """(min distance, argmin shift) between ScanContext descriptors [..., R,
+    S] (broadcast together) as the reference's program computes
+    ``sc_distance``: the sector keys' aligning shift (the first least
+    sum of squared differences), then the column-wise cosine distance at
+    the shifts within round(0.5 ratio S) of it (the others are +inf and
+    never win, so only those are computed), the first least of them.  A
+    Gram entry is sum_r q[r, col] c[r, col - shift], one fused
+    multiply-add a ring from zero; a norm the IEEE root of the tree sum of
+    rounded squares.  The pairs are independent: taken
+    :data:`SC_PAIRS_CHUNK` at a time."""
+    r_, s_ = query.shape[-2:]
+    if max(r_, s_) > SC_AXIS_MAX:
+        raise ValueError(f"sc_distance: descriptors of {r_} x {s_} (each "
+                         f"axis at most {SC_AXIS_MAX})")
+    lead = torch.broadcast_shapes(query.shape[:-2], candidate.shape[:-2])
+    q = ftz(query.expand(lead + (r_, s_)).reshape(-1, r_, s_))
+    c = ftz(candidate.expand(lead + (r_, s_)).reshape(-1, r_, s_))
+    radius = int(round(0.5 * search_ratio * s_))
+    parts = [_sc_distance_pairs(q[i:i + SC_PAIRS_CHUNK],
+                                c[i:i + SC_PAIRS_CHUNK], radius)
+             for i in range(0, q.shape[0], SC_PAIRS_CHUNK)]
+    if not parts:
+        return (torch.zeros(lead, dtype=_F32, device=q.device),
+                torch.zeros(lead, dtype=torch.int64, device=q.device))
+    return (torch.cat([d for d, _ in parts]).reshape(lead),
+            torch.cat([b for _, b in parts]).reshape(lead))
+
+
+def _sc_distance_pairs(q: torch.Tensor, c: torch.Tensor, radius: int):
+    """:func:`sc_distance` of flushed pairs q, c [P, R, S]."""
+    p_, r_, s_ = q.shape
+    dev = q.device
+    inv_r = recip(r_)
+    cols = torch.arange(s_, device=dev)
+    src = torch.remainder(cols[None, :] - cols[:, None], s_)  # [shift, col]
+    # the sector keys' alignment: fma(vq_sum, 1 / R, -vc[col - shift])
+    vq_sum = _tree_sum_ftz(q.transpose(-1, -2))  # [P, S]
+    vc = mul_ftz(_tree_sum_ftz(c.transpose(-1, -2)), inv_r)
+    diff = _fused_ftz(vq_sum[:, None, :].to(_F64) * inv_r,
+                      -vc[:, src].to(_F64))  # [P, shift, col]
+    center = torch.argmin(_tree_sum_ftz(mul_ftz(diff, diff)), -1)
+    # the shifts the search reaches
+    if 2 * radius + 1 >= s_:
+        shifts = cols.expand(p_, s_)
+    else:
+        shifts = torch.remainder(
+            center[:, None] + torch.arange(-radius, radius + 1, device=dev),
+            s_)
+    w = shifts.shape[-1]
+    csrc = torch.remainder(cols - shifts[..., None], s_)  # [P, W, S]
+    # the Gram entries at (shift, col), a ring at a time from zero
+    q64 = q.to(_F64)
+    dot = torch.zeros((p_, w, s_), dtype=_F32, device=dev)
+    for r in range(r_):
+        cr = torch.gather(c[:, r, None, :].expand(p_, w, s_), -1, csrc)
+        dot = _fused_ftz(q64[:, r, None, :] * cr.to(_F64), dot.to(_F64))
+    qn = sqrt(_tree_sum_ftz(mul_ftz(q, q).transpose(-1, -2)))  # [P, S]
+    cn = sqrt(_tree_sum_ftz(mul_ftz(c, c).transpose(-1, -2)))
+    cn = torch.gather(cn[:, None, :].expand(p_, w, s_), -1, csrc)
+    eff = (qn[:, None, :] > 0) & (cn > 0)
+    den = torch.clamp(mul_ftz(qn[:, None, :], cn), min=1e-20)
+    sim = torch.where(eff, ftz(dot / den), torch.zeros_like(dot))
+    count = torch.clamp(eff.sum(-1), min=1).to(_F32)
+    dists = ftz(1.0 - ftz(_tree_sum_ftz(sim) / count))  # [P, W]
+    masked = torch.full((p_, s_), math.inf, dtype=_F32, device=dev)
+    masked = masked.scatter(-1, shifts, dists)
+    best = torch.argmin(masked, -1)
+    return torch.gather(masked, -1, best[:, None])[:, 0], best
+
+
+# ---- the measured covariances' whitening -----------------------------------
+
+
+def chol3(a: torch.Tensor):
+    """(L, ok) of the lower Cholesky factor of symmetric a [B, 3, 3] as the
+    reference's ``jnp.linalg.cholesky`` computes it on the CPU: jaxlib's
+    ``lapack_spotrf_ffi``, SciPy's OpenBLAS ``spotf2_L`` at this size: for
+    column j, a_jj - sdot(row j) (:func:`_strided_dot`) and its IEEE root,
+    the entries below it a_ij - sgemv (:func:`_chain`) times the float32
+    1 / l_jj; a pivot that is not above zero stops it (ok false, and
+    jax fills the factor with NaN), every subnormal flushed."""
+    a = ftz(a)
+    n = a.shape[0]
+    lo = torch.zeros_like(a)
+    ok = torch.ones(n, dtype=torch.bool, device=a.device)
+    one = torch.ones((), dtype=_F32, device=a.device)
+    for j in range(3):
+        ajj = a[:, j, j]
+        if j:
+            ajj = ftz(ajj - _strided_dot(lo[:, j, :j], lo[:, j, :j]))
+        ok = ok & ~(ajj <= 0)
+        ljj = sqrt(torch.where(ajj > 0, ajj, torch.ones_like(ajj)))
+        lo[:, j, j] = torch.where(ajj > 0, ljj, ajj)
+        if j < 2:
+            below = a[:, j + 1:, j]
+            if j:
+                below = ftz(below - _chain(lo[:, j + 1:, :j], lo[:, j, :j]))
+            lo[:, j + 1:, j] = ftz(below * ftz(one / ljj)[:, None])
+    return lo, ok
+
+
+def measured_sqrt_info(cov: torch.Tensor, scale: torch.Tensor,
+                       fallback: torch.Tensor) -> torch.Tensor:
+    """``ops/posegraph.py::measured_sqrt_info`` written out as the
+    reference's eager calls round it on the CPU: 0.5 (cov + cov^T) +
+    1e-9 I, its inverse (:func:`inv3`), the product by the edge's scale
+    [E], the Cholesky input symmetrised, (a + a^T) / 2, and its factor
+    (:func:`chol3`); where the factor failed or is not finite the
+    ``fallback`` [E, 3, 3]."""
+    c = ftz(cov.to(_F32))
+    eye = torch.eye(3, dtype=_F32, device=c.device)
+    covs = ftz(ftz(0.5 * ftz(c + c.transpose(-1, -2))) + f32_ftz(1e-9) * eye)
+    info = mul_ftz(inv3(covs), scale[:, None, None])
+    sym = ftz(ftz(info + info.transpose(-1, -2)) * 0.5)
+    lo, ok = chol3(sym)
+    ok = ok & torch.isfinite(lo.reshape(lo.shape[0], -1)).all(-1)
+    return torch.where(ok[:, None, None], lo, fallback)

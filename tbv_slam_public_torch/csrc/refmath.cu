@@ -404,6 +404,49 @@ __global__ void refmath_ceres_covariance_kernel(
   }
 }
 
+// ops/posegraph.py::measured_sqrt_info, a thread an edge, as
+// core/refmath.py::measured_sqrt_info: 0.5 (cov + cov^T) + 1e-9 I, its
+// inverse by lu_factor and lu_apply against each column of the identity
+// (jnp.linalg.inv), the product by the edge's scale, the symmetrised
+// (a + a^T) / 2 and its Cholesky factor (chol3), every result flushed;
+// the fallback where the factor failed or is not finite.
+__global__ void refmath_sqrt_info_kernel(const float* __restrict__ cov,
+                                         const float* __restrict__ scale,
+                                         const float* __restrict__ fallback,
+                                         float* __restrict__ out,
+                                         long long n) {
+  for (long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x; s < n;
+       s += (long long)gridDim.x * blockDim.x) {
+    float c[9];
+    for (int k = 0; k < 9; ++k) c[k] = daz(cov[9 * s + k]);
+    float a[kLuMax][kLuMax];
+    int piv[kLuMax];
+    for (int r = 0; r < 3; ++r)
+      for (int q = 0; q < 3; ++q) {
+        const float half =
+            daz(__fmul_rn(0.5f, daz(__fadd_rn(c[3 * r + q], c[3 * q + r]))));
+        a[r][q] = daz(__fadd_rn(half, r == q ? 1e-9f : 0.0f));
+      }
+    lu_factor(3, a, piv);
+    float info[9];
+    const float sc = scale[s];
+    for (int j = 0; j < 3; ++j) {
+      float x[kLuMax] = {j == 0 ? 1.0f : 0.0f, j == 1 ? 1.0f : 0.0f,
+                         j == 2 ? 1.0f : 0.0f};
+      lu_apply(3, a, piv, x);
+      for (int r = 0; r < 3; ++r) info[3 * r + j] = mul_ftz(x[r], sc);
+    }
+    float sym[9], lo[9];
+    for (int r = 0; r < 3; ++r)
+      for (int q = 0; q < 3; ++q)
+        sym[3 * r + q] = daz(__fmul_rn(
+            daz(__fadd_rn(info[3 * r + q], info[3 * q + r])), 0.5f));
+    bool ok = chol3(sym, lo);
+    for (int k = 0; k < 9; ++k) ok = ok && isfinite(lo[k]);
+    for (int k = 0; k < 9; ++k) out[9 * s + k] = ok ? lo[k] : fallback[9 * s + k];
+  }
+}
+
 }  // namespace
 
 // out [n, k] = h^{-1} g for h [n, k, k], g [n, k], k <= 7, as above.
@@ -518,4 +561,20 @@ extern "C" int refmath_op_info(int op, int path, int* regs, int* blocks) {
   *regs = attr.numRegs;
   *blocks = blocks_per_sm(op, path);
   return 0;
+}
+
+// out [n, 3, 3] = measured_sqrt_info of cov [n, 3, 3], scale [n] and the
+// fallback [n, 3, 3], as above.
+extern "C" int refmath_sqrt_info_launch(const void* cov, const void* scale,
+                                        const void* fallback, void* out,
+                                        long long n, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 64;
+  long long blocks = (n + threads - 1) / threads;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  refmath_sqrt_info_kernel<<<(unsigned)blocks, threads, 0,
+                             (cudaStream_t)stream>>>(
+      (const float*)cov, (const float*)scale, (const float*)fallback,
+      (float*)out, n);
+  return (int)cudaGetLastError();
 }

@@ -213,25 +213,21 @@ __device__ float cos_poly(double x2, bool neg) {
   return __double2float_rn(__fma_rn(c2p, x6, c));
 }
 
-// sin and cos of y, as __sinf_fma / __cosf_fma return them.
-__device__ void ref_sincos(float y, float* sp, float* cp) {
+// (sin y, cos y) as __sinf_fma / __cosf_fma return them, by value (a call
+// that is not inlined passes them in registers).
+__device__ float2 sincos_value(float y) {
   uint32_t bits = __float_as_uint(y);
   uint32_t top = (bits >> 20) & 0x7ff;
   double x = (double)y;
   if (top < (0x3F490FDBu >> 20)) {  // |y| < pi/4
     if (top < (0x39800000u >> 20)) {  // |y| < 2^-12
-      *sp = y;
-      *cp = 1.0f;
-      return;
+      return make_float2(y, 1.0f);
     }
     double x2 = __dmul_rn(x, x);
-    *sp = sin_poly(x, x2);
-    *cp = cos_poly(x2, false);
-    return;
+    return make_float2(sin_poly(x, x2), cos_poly(x2, false));
   }
   if (top >= 0x7f8) {  // inf or nan
-    *sp = *cp = NAN;
-    return;
+    return make_float2(NAN, NAN);
   }
   int n, q;
   double r;
@@ -262,8 +258,14 @@ __device__ void ref_sincos(float y, float* sp, float* cp) {
   float s = sin_poly(__dmul_rn(r, kSign[q & 3]), x2);
   float c = cos_poly(x2, neg);
   bool odd = n & 1;
-  *sp = odd ? c : s;
-  *cp = odd ? s : c;
+  return odd ? make_float2(c, s) : make_float2(s, c);
+}
+
+// sin and cos of y (sincos_value) into *sp and *cp.
+__device__ __forceinline__ void ref_sincos(float y, float* sp, float* cp) {
+  const float2 v = sincos_value(y);
+  *sp = v.x;
+  *cp = v.y;
 }
 
 // ---- glibc atanf / atan2f (fdlibm's float algorithm, no FMA) ------------
@@ -504,6 +506,33 @@ __device__ void lu_apply(int k, float (*a)[kLuMax], const int* piv, float* x) {
       for (int q = lo[b]; q < i; ++q) x[q] = fma_ftz(-x[i], a[q][i], x[q]);
     }
   }
+}
+
+// jnp.linalg.cholesky's lower factor lo [3][3] (row-major, zero above the
+// diagonal) of symmetric a [3][3] (flushed) as jaxlib's lapack_spotrf_ffi
+// computes it (SciPy's OpenBLAS spotf2_L; core/refmath.py::chol3): column
+// j's pivot a_jj - sdot of row j and its IEEE root, the entries below it
+// a_ij - the sgemv chain times the float32 1 / l_jj; false where a pivot
+// is not above zero (jax then fills the factor with NaN).
+__device__ bool chol3(const float* a, float* lo) {
+  bool ok = true;
+  for (int k = 0; k < 9; ++k) lo[k] = 0.0f;
+  for (int j = 0; j < 3; ++j) {
+    float ajj = a[4 * j];
+    if (j) ajj = daz(__fsub_rn(ajj, lu_strided_dot(lo + 3 * j, lo + 3 * j, j)));
+    ok = ok && !(ajj <= 0.0f);
+    const float ljj = __fsqrt_rn(ajj > 0.0f ? ajj : 1.0f);
+    lo[4 * j] = ajj > 0.0f ? ljj : ajj;
+    if (j < 2) {
+      const float rcp = daz(__fdiv_rn(1.0f, ljj));
+      for (int i = j + 1; i < 3; ++i) {
+        float b = a[3 * i + j];
+        if (j) b = lu_chain(b, lo + 3 * i, lo + 3 * j, 0, j);
+        lo[3 * i + j] = daz(__fmul_rn(b, rcp));
+      }
+    }
+  }
+  return ok;
 }
 
 // ---- the 3 x 3 symmetric eigenvalues of jaxlib's LAPACK ------------------

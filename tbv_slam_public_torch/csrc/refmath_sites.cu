@@ -10,19 +10,24 @@
 // ops/registration.py::_world_targets_plain,
 // ops/radar.py::_motion_compensate_plain, core/refmath.py::norm2), whose
 // refmath ops take their CPU plain versions; the kernel runs the same
-// operations with every rounding written out: ref_fma (a fused
-// multiply-add, subnormals flushed as refmath.fma flushes them) exactly
-// where the plain version fuses, __fmul_rn / __fadd_rn / __fsub_rn where it rounds a
-// product or a sum on its own, so nvcc's contraction changes nothing.  The
-// reference's math (sincosf, atan2f, the IEEE root) is refmath.cuh's.
+// operations through refmath_sites.cuh's device functions, every rounding
+// written out.
 //
-// One thread an element of the site's broadcast batch (a pose, a point, a
-// cell); each operand is read through its own strides, so a broadcast
-// operand (one pose for a scan's cells, one motion for a cloud) is read by
-// index and never materialised.  Bound: bytes (12-40 B an element read and
-// 8-32 B written) against 30-120 float operations, but the sites pass 1 to
-// a few thousand elements, so a launch is latency; the design removes the
-// launches, not the arithmetic.
+// One kernel a site (site_kernel<Site>, a template on the site: no
+// run-time switch), one thread an element of the site's broadcast batch (a
+// pose, a point, a cell).  A launch passes only the site's own operand and
+// output pointers, its batch shape and each operand's strides (32-bit
+// element counts: kernels/refmath.py::SITE_ARG_SIZES, 72-256 bytes against
+// the single kernel's 432);
+// the host merges the batch dimensions that every operand walks as one, so
+// where all operands are contiguous an element's offsets are its index
+// times the component size, with no division, and otherwise one 32-bit
+// division a merged dimension locates it.  A broadcast operand (one pose
+// for a scan's cells, one motion for a cloud) is read by index and never
+// materialised.  Bound: bytes (12-40 B an element read and 8-32 B written)
+// against 30-120 float operations, but the sites pass 1 to a few thousand
+// elements, so a launch is latency; the design keeps the launch's host
+// work and argument small and the kernel free of 64-bit index arithmetic.
 //
 // refmath_cumsum_launch is detect's travelled distance: inclusive prefix
 // sums in the order of the reference's compiled program (XLA's
@@ -41,26 +46,9 @@
 // warp, and one barrier a level.  Above 16,384 values (1,024 rows, one a
 // thread of the block) refmath_cumsum_kernel keeps every level in device
 // memory, one block of 512 threads, correct at any length up to 16^8.
-#include "refmath.cuh"
+#include "refmath_sites.cuh"
 
-constexpr int kDims = 4;     // batch dimensions an operand may have
-constexpr int kInputs = 6;   // float or bool operands a site reads
-constexpr int kOutputs = 4;  // outputs a site writes
-
-// The launch's description, filled by kernels/refmath.py (its ctypes
-// mirror is kernels/build.py::SiteArgs).  Input k's element (index i,
-// components j0, j1) lies at in[k] + sum_d coord_d(i) stride[k][d] +
-// j0 stride[k][4] + j1 stride[k][5]; outputs are contiguous.
-struct SiteArgs {
-  int site;
-  int flags;
-  long long n;
-  long long shape[kDims];
-  const void* in[kInputs];
-  long long stride[kInputs][kDims + 2];
-  void* out[kOutputs];
-  float c[4];
-};
+constexpr int kDims = 4;  // batch dimensions after merging
 
 namespace {
 
@@ -69,360 +57,180 @@ enum Site {
   kNorm2, kWorldTargets, kMotionCompensate
 };
 
-struct Element {
-  long long off[kInputs];
+// operands, outputs and float32 constants of each site
+template <int S> struct SiteIO;
+template <> struct SiteIO<kCompose> { enum { in = 2, out = 1, consts = 0 }; };
+template <> struct SiteIO<kInverse> { enum { in = 1, out = 1, consts = 0 }; };
+template <> struct SiteIO<kRelative> { enum { in = 2, out = 1, consts = 0 }; };
+template <> struct SiteIO<kApply> { enum { in = 2, out = 1, consts = 0 }; };
+template <> struct SiteIO<kRotate> { enum { in = 2, out = 1, consts = 0 }; };
+template <> struct SiteIO<kInterpolate> {
+  enum { in = 3, out = 1, consts = 0 };
+};
+template <> struct SiteIO<kRotmat> { enum { in = 1, out = 1, consts = 0 }; };
+template <> struct SiteIO<kNorm2> { enum { in = 1, out = 1, consts = 0 }; };
+// inputs: pose [3], mean [2], normal [2], cov [2, 2] (P2D, else null),
+// valid, scan mask; outputs: mean, normal, cov (P2D), valid
+template <> struct SiteIO<kWorldTargets> {
+  enum { in = 6, out = 4, consts = 0 };
+};
+// inputs: points [2], motion [3]; constants 1 / (2 pi), 2 pi, 1e-5 as
+// float32; flags: ccw
+template <> struct SiteIO<kMotionCompensate> {
+  enum { in = 2, out = 1, consts = 3 };
 };
 
-__device__ __forceinline__ Element locate(const SiteArgs& a, long long i) {
-  Element e;
-  long long coord[kDims];
+// A launch's arguments (kernels/refmath.py::site_args packs them): input
+// k's element (batch index i, components j0, j1) lies at in[k] +
+// sum_d coord_d(i) stride[k][d] + j0 stride[k][4] + j1 stride[k][5], the
+// coordinates over shape[4 - ndim .. 3] (innermost last); outputs are
+// contiguous.
+template <int S>
+struct SiteArgs {
+  const void* in[SiteIO<S>::in];
+  void* out[SiteIO<S>::out];
+  int n;
+  int ndim;
+  int flags;
+  int shape[kDims];
+  int stride[SiteIO<S>::in][kDims + 2];
+  float c[SiteIO<S>::consts > 0 ? SiteIO<S>::consts : 1];
+};
+
+// each input's element offset of batch index i: the merged dimensions'
+// coordinates by 32-bit division, innermost first; the outermost is what
+// is left (no division at all where the batch merged into one dimension)
+template <int S>
+__device__ __forceinline__ void offsets(const SiteArgs<S>& a, int i,
+                                        int* off) {
+  constexpr int ni = SiteIO<S>::in;
+#pragma unroll
+  for (int k = 0; k < ni; ++k) off[k] = 0;
+  unsigned rest = (unsigned)i;
+  const int outer = kDims - a.ndim;
+  // unrolled: every index into the arguments a constant, so they are read
+  // where they lie and never copied to local memory
+#pragma unroll
   for (int d = kDims - 1; d >= 0; --d) {
-    coord[d] = i % a.shape[d];
-    i /= a.shape[d];
+    if (d > outer) {
+      const unsigned m = (unsigned)a.shape[d];
+      const int c = (int)(rest % m);
+      rest /= m;
+#pragma unroll
+      for (int k = 0; k < ni; ++k) off[k] += c * a.stride[k][d];
+    } else if (d == outer) {
+#pragma unroll
+      for (int k = 0; k < ni; ++k) off[k] += (int)rest * a.stride[k][d];
+    }
   }
-  for (int k = 0; k < kInputs; ++k) {
-    long long o = 0;
-    for (int d = 0; d < kDims; ++d) o += coord[d] * a.stride[k][d];
-    e.off[k] = o;
-  }
-  return e;
 }
 
-__device__ __forceinline__ float in_f(const SiteArgs& a, const Element& e,
+template <int S>
+__device__ __forceinline__ float in_f(const SiteArgs<S>& a, const int* off,
                                       int k, int j0 = 0, int j1 = 0) {
   return static_cast<const float*>(a.in[k])[
-      e.off[k] + j0 * a.stride[k][kDims] + j1 * a.stride[k][kDims + 1]];
+      off[k] + j0 * a.stride[k][kDims] + j1 * a.stride[k][kDims + 1]];
 }
 
-__device__ __forceinline__ bool in_b(const SiteArgs& a, const Element& e,
+template <int S>
+__device__ __forceinline__ bool in_b(const SiteArgs<S>& a, const int* off,
                                      int k) {
-  return static_cast<const unsigned char*>(a.in[k])[e.off[k]] != 0;
+  return static_cast<const unsigned char*>(a.in[k])[off[k]] != 0;
 }
 
-__device__ __forceinline__ float ref_wrap(float t) {
-  float s, c;
-  ref_sincos(t, &s, &c);
-  return ref_atan2(s, c);
-}
-
-// se2's lone products and sums flush as refmath.cuh's se2 functions do.
-
-// a * b (core/se2.py::_compose_plain)
-__device__ __forceinline__ void compose3(const float* a, const float* b,
-                                         float* o) {
-  float sa, ca;
-  ref_sincos(a[2], &sa, &ca);
-  o[0] = ref_fma(-sa, b[1], ref_fma(ca, b[0], a[0]));
-  o[1] = ref_fma(ca, b[1], ref_fma(sa, b[0], a[1]));
-  o[2] = ref_wrap(add_ftz(a[2], b[2]));
-}
-
-// a^-1 (_inverse_plain)
-__device__ __forceinline__ void inverse3(const float* a, float* o) {
-  float s, c;
-  ref_sincos(a[2], &s, &c);
-  o[0] = -ref_fma(c, a[0], mul_ftz(s, a[1]));
-  o[1] = -ref_fma(c, a[1], -mul_ftz(s, a[0]));
-  o[2] = -a[2];
-}
-
-// (c vx - s vy, s vx + c vy) (se2._rotated)
-__device__ __forceinline__ void rotated(float c, float s, float vx, float vy,
-                                        float* o) {
-  const float2 v = se2_rotated(c, s, vx, vy);
-  o[0] = v.x;
-  o[1] = v.y;
-}
-
-// |(x, y)| as the reference's program: sqrt(fma(y, y, x * x)), IEEE root
-// (core/refmath.py::norm2)
-__device__ __forceinline__ float norm2f(float x, float y) {
-  return __fsqrt_rn(daz(ref_fma(y, y, __fmul_rn(x, x))));
-}
-
-// pose a [3] applied to the point (or direction, without the
-// translation) (vx, vy) (core/se2.py::_apply_elem, _rotate_elem)
-__device__ __forceinline__ void apply2(const float* a, float vx, float vy,
-                                       bool translate, float* o) {
-  float s, c;
-  ref_sincos(a[2], &s, &c);
-  const float2 v = translate ? se2_applied(c, s, a[0], a[1], vx, vy)
-                             : se2_rotated(c, s, vx, vy);
-  o[0] = v.x;
-  o[1] = v.y;
-}
-
-// the point (x, y) de-skewed by the motion m [3] (ops/radar.py::
-// _motion_compensate_plain); k: 1 / (2 pi), 2 pi, 1e-5 as float32
-__device__ __forceinline__ void motion2(float x, float y, const float* m,
-                                        const float* k, bool ccw, float* o) {
-  float ang = ref_atan2(y, x);
-  ang = ang > k[2] ? ang : __fadd_rn(k[1], ang);
-  float factor = ref_fma(ang, k[0], -0.5f);
-  if (ccw) factor = -factor;
-  float s, c;
-  ref_sincos(__fmul_rn(m[2], factor), &s, &c);
-  o[0] = ref_fma(m[0], factor, ref_fma(c, x, -__fmul_rn(s, y)));
-  o[1] = ref_fma(m[1], factor, ref_fma(s, x, __fmul_rn(c, y)));
-}
-
-__global__ void refmath_site_kernel(const SiteArgs a) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < a.n; i += (long long)gridDim.x * blockDim.x) {
-    const Element e = locate(a, i);
-    float* o0 = static_cast<float*>(a.out[0]);
-    switch (a.site) {
-      case kCompose:
-      case kRelative: {
-        float p[3], q[3], r[3];
-        for (int j = 0; j < 3; ++j) {
-          p[j] = in_f(a, e, 0, j);
-          q[j] = in_f(a, e, 1, j);
-        }
-        if (a.site == kRelative) {
-          inverse3(p, r);
-          compose3(r, q, o0 + 3 * i);
-        } else {
-          compose3(p, q, o0 + 3 * i);
-        }
-        break;
-      }
-      case kInverse: {
-        float p[3];
-        for (int j = 0; j < 3; ++j) p[j] = in_f(a, e, 0, j);
-        inverse3(p, o0 + 3 * i);
-        break;
-      }
-      case kApply:
-      case kRotate: {
-        const float p[3] = {in_f(a, e, 0, 0), in_f(a, e, 0, 1),
-                            in_f(a, e, 0, 2)};
-        apply2(p, in_f(a, e, 1, 0), in_f(a, e, 1, 1), a.site == kApply,
-               o0 + 2 * i);
-        break;
-      }
-      case kInterpolate: {
-        const float f = in_f(a, e, 2);
-        const float a0 = in_f(a, e, 0, 0), a1 = in_f(a, e, 0, 1),
-                    a2 = in_f(a, e, 0, 2);
-        const float dt = ref_wrap(add_ftz(in_f(a, e, 1, 2), -a2));
-        o0[3 * i] = ref_fma(add_ftz(in_f(a, e, 1, 0), -a0), f, a0);
-        o0[3 * i + 1] = ref_fma(add_ftz(in_f(a, e, 1, 1), -a1), f, a1);
-        o0[3 * i + 2] = ref_wrap(ref_fma(dt, f, a2));
-        break;
-      }
-      case kRotmat: {
-        float s, c;
-        ref_sincos(in_f(a, e, 0), &s, &c);
-        o0[4 * i] = c;
-        o0[4 * i + 1] = -s;
-        o0[4 * i + 2] = s;
-        o0[4 * i + 3] = c;
-        break;
-      }
-      case kNorm2:
-        o0[i] = norm2f(in_f(a, e, 0, 0), in_f(a, e, 0, 1));
-        break;
-      case kWorldTargets: {
-        // inputs: pose [3], mean [2], normal [2], cov [2, 2] (P2D), valid,
-        // scan mask; outputs: mean, normal, cov (P2D), valid
-        float s, c;
-        ref_sincos(in_f(a, e, 0, 2), &s, &c);
-        float* o1 = static_cast<float*>(a.out[1]);
-        const float2 v = se2_applied(c, s, in_f(a, e, 0, 0), in_f(a, e, 0, 1),
-                                     in_f(a, e, 1, 0), in_f(a, e, 1, 1));
-        o0[2 * i] = v.x;
-        o0[2 * i + 1] = v.y;
-        rotated(c, s, in_f(a, e, 2, 0), in_f(a, e, 2, 1), o1 + 2 * i);
-        if (a.in[3] != nullptr) {  // rot @ cov @ rot^T
-          const float r[2][2] = {{c, -s}, {s, c}};
-          float m[2][2];
-          for (int p = 0; p < 2; ++p)
-            for (int q = 0; q < 2; ++q)
-              m[p][q] = mm2(r[p][0], in_f(a, e, 3, 0, q), r[p][1],
-                            in_f(a, e, 3, 1, q));
-          float* o2 = static_cast<float*>(a.out[2]) + 4 * i;
-          for (int p = 0; p < 2; ++p)
-            for (int q = 0; q < 2; ++q)
-              o2[2 * p + q] = mm2(m[p][0], r[q][0], m[p][1], r[q][1]);
-        }
-        static_cast<unsigned char*>(a.out[3])[i] =
-            in_b(a, e, 4) && in_b(a, e, 5);
-        break;
-      }
-      case kMotionCompensate: {
-        // inputs: points [2], motion [3]; c: 1 / (2 pi), 2 pi, 1e-5 as
-        // float32; flags: ccw
-        const float m[3] = {in_f(a, e, 1, 0), in_f(a, e, 1, 1),
-                            in_f(a, e, 1, 2)};
-        motion2(in_f(a, e, 0, 0), in_f(a, e, 0, 1), m, a.c, a.flags & 1,
-                o0 + 2 * i);
-        break;
-      }
+template <int S>
+__device__ __forceinline__ void site_element(const SiteArgs<S>& a, int i) {
+  int off[SiteIO<S>::in];
+  offsets(a, i, off);
+  float* o0 = static_cast<float*>(a.out[0]);
+  if constexpr (S == kCompose || S == kRelative) {
+    float p[3], q[3], r[3];
+    for (int j = 0; j < 3; ++j) {
+      p[j] = in_f(a, off, 0, j);
+      q[j] = in_f(a, off, 1, j);
     }
+    if constexpr (S == kRelative) {
+      inverse3(p, r);
+      compose3(r, q, o0 + 3 * i);
+    } else {
+      compose3(p, q, o0 + 3 * i);
+    }
+  } else if constexpr (S == kInverse) {
+    float p[3];
+    for (int j = 0; j < 3; ++j) p[j] = in_f(a, off, 0, j);
+    inverse3(p, o0 + 3 * i);
+  } else if constexpr (S == kApply || S == kRotate) {
+    const float p[3] = {in_f(a, off, 0, 0), in_f(a, off, 0, 1),
+                        in_f(a, off, 0, 2)};
+    apply2(p, in_f(a, off, 1, 0), in_f(a, off, 1, 1), S == kApply,
+           o0 + 2 * i);
+  } else if constexpr (S == kInterpolate) {
+    const float f = in_f(a, off, 2);
+    const float a0 = in_f(a, off, 0, 0), a1 = in_f(a, off, 0, 1),
+                a2 = in_f(a, off, 0, 2);
+    const float dt = ref_wrap(add_ftz(in_f(a, off, 1, 2), -a2));
+    o0[3 * i] = ref_fma(add_ftz(in_f(a, off, 1, 0), -a0), f, a0);
+    o0[3 * i + 1] = ref_fma(add_ftz(in_f(a, off, 1, 1), -a1), f, a1);
+    o0[3 * i + 2] = ref_wrap(ref_fma(dt, f, a2));
+  } else if constexpr (S == kRotmat) {
+    float s, c;
+    ref_sincos(in_f(a, off, 0), &s, &c);
+    o0[4 * i] = c;
+    o0[4 * i + 1] = -s;
+    o0[4 * i + 2] = s;
+    o0[4 * i + 3] = c;
+  } else if constexpr (S == kNorm2) {
+    o0[i] = norm2f(in_f(a, off, 0, 0), in_f(a, off, 0, 1));
+  } else if constexpr (S == kWorldTargets) {
+    float s, c;
+    ref_sincos(in_f(a, off, 0, 2), &s, &c);
+    float* o1 = static_cast<float*>(a.out[1]);
+    const float2 v = se2_applied(c, s, in_f(a, off, 0, 0),
+                                 in_f(a, off, 0, 1), in_f(a, off, 1, 0),
+                                 in_f(a, off, 1, 1));
+    o0[2 * i] = v.x;
+    o0[2 * i + 1] = v.y;
+    rotated(c, s, in_f(a, off, 2, 0), in_f(a, off, 2, 1), o1 + 2 * i);
+    if (a.in[3] != nullptr) {  // rot @ cov @ rot^T
+      const float r[2][2] = {{c, -s}, {s, c}};
+      float m[2][2];
+      for (int p = 0; p < 2; ++p)
+        for (int q = 0; q < 2; ++q)
+          m[p][q] = mm2(r[p][0], in_f(a, off, 3, 0, q), r[p][1],
+                        in_f(a, off, 3, 1, q));
+      float* o2 = static_cast<float*>(a.out[2]) + 4 * i;
+      for (int p = 0; p < 2; ++p)
+        for (int q = 0; q < 2; ++q)
+          o2[2 * p + q] = mm2(m[p][0], r[q][0], m[p][1], r[q][1]);
+    }
+    static_cast<unsigned char*>(a.out[3])[i] =
+        in_b(a, off, 4) && in_b(a, off, 5);
+  } else if constexpr (S == kMotionCompensate) {
+    const float m[3] = {in_f(a, off, 1, 0), in_f(a, off, 1, 1),
+                        in_f(a, off, 1, 2)};
+    const float k[3] = {a.c[0], a.c[1], a.c[2]};
+    motion2(in_f(a, off, 0, 0), in_f(a, off, 0, 1), m, k, a.flags & 1,
+            o0 + 2 * i);
   }
 }
 
-// ---- site chains ---------------------------------------------------------
-//
-// A chain runs an ordered list of sites, and the elementwise glue between
-// them, in one launch: each later site reads the earlier sites' results for
-// its own element from registers.  Its description (ChainDesc: the steps of
-// each segment, the operands' strides, the float32 constants) is built by
-// kernels/refmath.py once per chain and shape and kept in device memory; a
-// launch passes only that pointer, the element count and the data pointers
-// (ChainArgs, 144 bytes against a site's 432).  A chain has one or two
-// segments, each its own index space (the two clouds of a frame's motion
-// compensation); a thread takes an element of one segment.  Where a site
-// runs over a coarser index space than a later one (a relative pose of
-// [B, K] keyframes feeding the [B, K, P] points it moves), each thread
-// recomputes it for its own element: the same device function on the same
-// inputs, so the same bits.  The sites are the device functions above;
-// the glue rounds as torch's CPU elementwise ops (one rounding an op); a
-// bool is 1.0f or 0.0f in a register.  Its plain version is the chain's
-// body run by kernels/refmath.py on tensors, its sites' plain versions in
-// order.  Bound: a few hundred bytes and operations an element on 1 to a
-// few hundred thousand elements, so a launch is latency; the design removes
-// launches and host work.
-}  // namespace
+template <int S>
+__global__ void __launch_bounds__(128) site_kernel(const SiteArgs<S> a) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n;
+       i += gridDim.x * blockDim.x)
+    site_element(a, i);
+}
 
-constexpr int kChainSegs = 2;     // index spaces of one launch
-constexpr int kChainIn = 10;      // operand slots (an operand a segment)
-constexpr int kChainOut = 6;      // outputs over all segments
-constexpr int kChainRegs = 96;    // float registers of an element
-constexpr int kChainSteps = 80;   // steps over all segments
-constexpr int kChainConsts = 16;  // float32 constants
-
-enum ChainOp {
-  kLoad = 0, kLoadBool, kConst, kStore, kStoreBool, kMul, kSub, kNeg, kAbs,
-  kLe, kLt, kAnd, kOr, kWhere,
-  kOpCompose = 32, kOpInverse, kOpRelative, kOpApply, kOpRotmat, kOpNorm2,
-  kOpMotion
-};
-
-// op; dst, a, b, c registers; k an operand slot, output or constant index;
-// j a component; n an output's components an element
-struct ChainStep {
-  unsigned char op, dst, a, b, c, k, j, n;
-};
-
-// kernels/refmath.py::CHAIN_DESC packs it; operand slot k's element (index
-// li of its segment, component j) lies at in[k] + sum_d coord_d(li)
-// stride[k][d] + j stride[k][4]; output k's at out[k] + li n + j.
-struct ChainDesc {
-  long long start[kChainSegs + 1];         // the segments' first elements
-  long long shape[kChainSegs][kDims];      // each segment's batch shape
-  long long stride[kChainIn][kDims + 1];
-  int first[kChainSegs + 1];               // segment s: steps first[s] ..
-  int segs;
-  int pad;
-  float c[kChainConsts];
-  ChainStep step[kChainSteps];
-};
-static_assert(sizeof(ChainDesc) == 1216, "kernels/refmath.py::CHAIN_DESC");
-
-struct ChainArgs {
-  const ChainDesc* desc;
-  long long n;
-  const void* in[kChainIn];
-  void* out[kChainOut];
-};
-static_assert(sizeof(ChainArgs) == 144, "kernels/refmath.py::CHAIN_ARGS");
-
-namespace {
-
-__global__ void __launch_bounds__(128)
-    refmath_chain_kernel(const ChainArgs a) {
-  // the description staged in shared memory by the whole block, one
-  // parallel read, so that a thread's steps read it at shared-memory
-  // latency (a launch of one element reads it once)
-  __shared__ __align__(16) ChainDesc sd;
-  {
-    const long long* src = reinterpret_cast<const long long*>(a.desc);
-    long long* dst = reinterpret_cast<long long*>(&sd);
-    for (int w = threadIdx.x; w < (int)(sizeof(ChainDesc) / 8);
-         w += blockDim.x)
-      dst[w] = src[w];
-  }
-  __syncthreads();
-  const ChainDesc* d = &sd;
-  // element counts are below 2^31 (kernels/refmath.py): 32-bit index
-  // arithmetic
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < (int)a.n;
-       i += gridDim.x * blockDim.x) {
-    int sg = 0;
-    while (sg + 1 < d->segs && i >= d->start[sg + 1]) ++sg;
-    const int li = i - (int)d->start[sg];
-    long long coord[kDims];
-    unsigned rest = (unsigned)li;
-    for (int q = kDims - 1; q >= 0; --q) {
-      const unsigned m = (unsigned)d->shape[sg][q];
-      coord[q] = rest % m;
-      rest /= m;
-    }
-    float r[kChainRegs];
-    for (int t = d->first[sg]; t < d->first[sg + 1]; ++t) {
-      const ChainStep st = d->step[t];
-      switch (st.op) {
-        case kLoad:
-        case kLoadBool: {
-          long long o = st.j * d->stride[st.k][kDims];
-          for (int q = 0; q < kDims; ++q) o += coord[q] * d->stride[st.k][q];
-          r[st.dst] = st.op == kLoad
-                          ? static_cast<const float*>(a.in[st.k])[o]
-                          : (static_cast<const unsigned char*>(a.in[st.k])[o]
-                                 ? 1.0f : 0.0f);
-          break;
-        }
-        case kConst: r[st.dst] = d->c[st.k]; break;
-        case kStore:
-          static_cast<float*>(a.out[st.k])[(long long)li * st.n + st.j] =
-              r[st.a];
-          break;
-        case kStoreBool:
-          static_cast<unsigned char*>(a.out[st.k])[li] = r[st.a] != 0.0f;
-          break;
-        case kMul: r[st.dst] = __fmul_rn(r[st.a], r[st.b]); break;
-        case kSub: r[st.dst] = __fsub_rn(r[st.a], r[st.b]); break;
-        case kNeg: r[st.dst] = -r[st.a]; break;
-        case kAbs: r[st.dst] = fabsf(r[st.a]); break;
-        case kLe: r[st.dst] = r[st.a] <= r[st.b] ? 1.0f : 0.0f; break;
-        case kLt: r[st.dst] = r[st.a] < r[st.b] ? 1.0f : 0.0f; break;
-        case kAnd:
-          r[st.dst] = (r[st.a] != 0.0f && r[st.b] != 0.0f) ? 1.0f : 0.0f;
-          break;
-        case kOr:
-          r[st.dst] = (r[st.a] != 0.0f || r[st.b] != 0.0f) ? 1.0f : 0.0f;
-          break;
-        case kWhere: r[st.dst] = r[st.c] != 0.0f ? r[st.a] : r[st.b]; break;
-        case kOpCompose: compose3(r + st.a, r + st.b, r + st.dst); break;
-        case kOpInverse: inverse3(r + st.a, r + st.dst); break;
-        case kOpRelative: {
-          float inv[3];
-          inverse3(r + st.a, inv);
-          compose3(inv, r + st.b, r + st.dst);
-          break;
-        }
-        case kOpApply:
-          apply2(r + st.a, r[st.b], r[st.b + 1], true, r + st.dst);
-          break;
-        case kOpRotmat: {
-          float sn, cs;
-          ref_sincos(r[st.a], &sn, &cs);
-          r[st.dst] = cs;
-          r[st.dst + 1] = -sn;
-          r[st.dst + 2] = sn;
-          r[st.dst + 3] = cs;
-          break;
-        }
-        case kOpNorm2: r[st.dst] = norm2f(r[st.a], r[st.a + 1]); break;
-        case kOpMotion:
-          motion2(r[st.a], r[st.a + 1], r + st.b, d->c + st.k, st.j != 0,
-                  r + st.dst);
-          break;
-      }
-    }
-  }
+template <int S>
+int launch_site(const void* args, void* stream) {
+  const SiteArgs<S>& a = *static_cast<const SiteArgs<S>*>(args);
+  if (a.n <= 0) return 0;
+  if (a.ndim < 1 || a.ndim > kDims) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  int blocks = (a.n + threads - 1) / threads;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  site_kernel<S><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 constexpr int kScanBlock = 16;   // the rewriter's row length
@@ -601,30 +409,33 @@ __global__ void refmath_cumsum_kernel(const float* __restrict__ x,
   }
 }
 
+
+// kernels/refmath.py::SITE_ARG_SIZES holds the same sizes
+static_assert(sizeof(SiteArgs<kCompose>) == 104, "SITE_ARG_SIZES");
+static_assert(sizeof(SiteArgs<kInverse>) == 72, "SITE_ARG_SIZES");
+static_assert(sizeof(SiteArgs<kInterpolate>) == 136, "SITE_ARG_SIZES");
+static_assert(sizeof(SiteArgs<kWorldTargets>) == 256, "SITE_ARG_SIZES");
+static_assert(sizeof(SiteArgs<kMotionCompensate>) == 112, "SITE_ARG_SIZES");
+
 }  // namespace
 
-extern "C" int refmath_site_launch(const SiteArgs* args, void* stream) {
-  if (args->n <= 0) return 0;
-  if (args->site < kCompose || args->site > kMotionCompensate)
-    return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  long long blocks = (args->n + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  refmath_site_kernel<<<(unsigned)blocks, threads, 0,
-                        (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
-}
-
-// One launch of the chain that args->desc describes over args->n elements.
-extern "C" int refmath_chain_launch(const ChainArgs* args, void* stream) {
-  if (args->n <= 0) return 0;
-  if (args->desc == nullptr) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  long long blocks = (args->n + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  refmath_chain_kernel<<<(unsigned)blocks, threads, 0,
-                         (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
+// One launch of site `site` (kernels/refmath.py::SITES) whose arguments
+// (that site's SiteArgs) args points to.
+extern "C" int refmath_site_launch(int site, const void* args, void* stream) {
+  switch (site) {
+    case kCompose: return launch_site<kCompose>(args, stream);
+    case kInverse: return launch_site<kInverse>(args, stream);
+    case kRelative: return launch_site<kRelative>(args, stream);
+    case kApply: return launch_site<kApply>(args, stream);
+    case kRotate: return launch_site<kRotate>(args, stream);
+    case kInterpolate: return launch_site<kInterpolate>(args, stream);
+    case kRotmat: return launch_site<kRotmat>(args, stream);
+    case kNorm2: return launch_site<kNorm2>(args, stream);
+    case kWorldTargets: return launch_site<kWorldTargets>(args, stream);
+    case kMotionCompensate:
+      return launch_site<kMotionCompensate>(args, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // out [n] = the blocked inclusive prefix sums of x [n]; above 16,384

@@ -97,12 +97,14 @@ def library() -> ctypes.CDLL:
                                     ctypes.POINTER(ctypes.c_int),
                                     ctypes.POINTER(ctypes.c_int)]
     lib.refmath_op_info.restype = ctypes.c_int
-    # the site's description (kernels/refmath.py::SITE_ARGS), stream
-    lib.refmath_site_launch.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    # site, the site's SiteArgs (kernels/refmath.py::SITE_ARGS), stream
+    lib.refmath_site_launch.argtypes = [ctypes.c_int, ctypes.c_char_p,
+                                        ctypes.c_void_p]
     lib.refmath_site_launch.restype = ctypes.c_int
-    # the launch's pointers and sizes (kernels/refmath.py::CHAIN_ARGS),
-    # stream
-    lib.refmath_chain_launch.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    # chain (kernels/refmath.py::CHAIN_KERNELS), its ChainArgs
+    # (kernels/refmath.py::chain_struct), stream
+    lib.refmath_chain_launch.argtypes = [ctypes.c_int, ctypes.c_char_p,
+                                         ctypes.c_void_p]
     lib.refmath_chain_launch.restype = ctypes.c_int
     # x, out, scratch, n, stream
     lib.refmath_cumsum_launch.argtypes = [ctypes.c_void_p] * 3 + [
@@ -153,6 +155,19 @@ def library() -> ctypes.CDLL:
         ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ctypes.c_void_p]
     lib.coral_tail_launch.restype = ctypes.c_int
+    # cov, scale, fallback, out, n, stream
+    lib.refmath_sqrt_info_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_void_p]
+    lib.refmath_sqrt_info_launch.restype = ctypes.c_int
+    # desc, out, rows, R, S, ring, 1 / count, stream
+    lib.sc_key_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    lib.sc_key_launch.restype = ctypes.c_int
+    # the launch's RingArgs / PairArgs (kernels/refmath.py::SC_RING_ARGS,
+    # SC_PAIR_ARGS), stream
+    for fn in (lib.sc_ring_distance_launch, lib.sc_distance_launch):
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     BUILD_INFO.update(path=path, seconds=time.perf_counter() - t0,
                       ptxas=report)
     _LIB = lib

@@ -173,7 +173,7 @@ def _pose_tail(k, pose, success, guess, t_prev, tmot_prev, last_kf, *, rdt,
 
 
 refmath.register_chain("odometry_pose_tail", [(_pose_tail, range(6))],
-                       ((3,), (), (3,), (3,), (3,), (3,)))
+                       ((3,), (), (3,), (3,), (3,), (3,)), bools=(1,))
 
 
 def pose_tail_options(ocfg) -> dict:

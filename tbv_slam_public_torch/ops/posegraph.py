@@ -66,16 +66,12 @@ def default_sqrt_info(etype: torch.Tensor, cfg: PGOConfig) -> torch.Tensor:
 def measured_sqrt_info(cov: torch.Tensor, etype: torch.Tensor,
                        cfg: PGOConfig) -> torch.Tensor:
     """Full-matrix whitening chol(cov^-1 * scale) from measured covariances
-    [E, 3, 3]; degenerate covariances fall back to the default diagonal."""
-    cov = cov.float()
-    eye = torch.eye(3, dtype=torch.float32, device=cov.device)
-    covs = 0.5 * (cov + cov.transpose(-1, -2)) + 1e-9 * eye
-    info = torch.linalg.inv(covs)
+    [E, 3, 3]; degenerate covariances fall back to the default diagonal.
+    The inverse and the factor as the reference's LAPACK calls round them
+    (``core/refmath.py::measured_sqrt_info``; one launch on the card)."""
     scale = torch.where(etype == ODOMETRY, 1.0, 1.0 / cfg.loop_scaling).float()
-    s, _ = torch.linalg.cholesky_ex(info * scale[:, None, None])
-    ok = torch.isfinite(s.reshape(s.shape[0], -1)).all(-1)
     fallback = torch.diag_embed(default_sqrt_info(etype, cfg))
-    return torch.where(ok[:, None, None], torch.nan_to_num(s), fallback)
+    return refmath.measured_sqrt_info(cov.float(), scale, fallback)
 
 
 def _edge_residuals(poses: torch.Tensor, edges: GraphEdges):

@@ -4,7 +4,10 @@ Port of ``tbv_slam_public_tpu.ops.scancontext``: the sum-mode descriptor is
 an ``index_add_`` scatter (the reference's one-hot contractions served the
 TPU), the max-mode one a ``scatter_reduce`` with a spill bin, and
 ``sc_distance`` / ``retrieve`` take any leading batch dimensions
-where the reference ``vmap``s.  Retrieval's top-k is a stable ascending sort
+where the reference ``vmap``s.  The keys, the ring-key distance and
+``sc_distance`` are ``kernels/refmath.py``'s ScanContext ops: plain
+versions in ``core/refmath.py`` (the reference's order of every sum),
+``csrc/scancontext.cu`` on the card.  Retrieval's top-k is a stable ascending sort
 (lower database index first on ties, as ``lax.top_k`` of the negated key).
 """
 from __future__ import annotations
@@ -76,13 +79,15 @@ def make_descriptor(cloud: PointCloud, cfg: ScanContextConfig) -> torch.Tensor:
 
 
 def ring_key(desc: torch.Tensor) -> torch.Tensor:
-    """Row-wise mean (rotation-invariant key)."""
-    return desc.mean(-1)
+    """Row-wise mean (rotation-invariant key), summed and scaled as the
+    reference's program (``core/refmath.py::sc_key``; one launch on the
+    card)."""
+    return refmath.sc_key(desc, ring=True)
 
 
 def sector_key(desc: torch.Tensor) -> torch.Tensor:
-    """Column-wise mean."""
-    return desc.mean(-2)
+    """Column-wise mean (``core/refmath.py::sc_key``)."""
+    return refmath.sc_key(desc, ring=False)
 
 
 def all_column_shifts(desc: torch.Tensor) -> torch.Tensor:
@@ -99,34 +104,10 @@ def sc_distance(query: torch.Tensor, candidate: torch.Tensor,
     """(min distance, argmin shift) between descriptors [..., R, S]
     (distanceBtnScanContext): sector-key alignment picks a centre shift, and
     the column-wise cosine distance is taken over +-round(0.5*ratio*S)
-    shifts around it, all from one [S, S] Gram matrix per pair."""
-    s = query.shape[-1]
-    dev = query.device
-    vq = sector_key(query)
-    vc = sector_key(candidate)
-    cols = torch.arange(s, device=dev)
-    src = torch.remainder(cols[None, :] - cols[:, None], s)  # [shift, col]
-    vdiff2 = ((vq[..., None, :] - vc[..., src]) ** 2).sum(-1)  # [..., shift]
-    center = torch.argmin(vdiff2, -1)
-
-    g = query.transpose(-1, -2) @ candidate  # [..., S(q col), S(c col)]
-    dot = g[..., cols[None, :], src]  # [..., shift, col]
-    qn = torch.linalg.norm(query, dim=-2)  # [..., S]
-    cn = torch.linalg.norm(candidate, dim=-2)[..., src]  # [..., shift, col]
-    eff = (qn[..., None, :] > 0) & (cn > 0)
-    sim = torch.where(eff, dot / torch.clamp(qn[..., None, :] * cn,
-                                             min=1e-20),
-                      torch.zeros((), dtype=dot.dtype, device=dev))
-    num_eff = torch.clamp(eff.sum(-1), min=1)
-    dists = 1.0 - sim.sum(-1) / num_eff  # [..., shift]
-    radius = int(round(0.5 * search_ratio * s))
-    c = center[..., None]
-    circ = torch.minimum(torch.remainder(cols - c, s),
-                         torch.remainder(c - cols, s))
-    masked = torch.where(circ <= radius, dists,
-                         torch.full((), math.inf, device=dev))
-    best = torch.argmin(masked, -1)
-    return torch.gather(masked, -1, best[..., None])[..., 0], best
+    shifts around it, every sum in the reference's order
+    (``core/refmath.py::sc_distance``; one launch on the card, a block a
+    pair)."""
+    return refmath.sc_distance(query, candidate, search_ratio=search_ratio)
 
 
 class RetrievalResult(NamedTuple):
@@ -147,10 +128,9 @@ def retrieve(query_desc: torch.Tensor, query_key: torch.Tensor,
 
     query_desc [..., R, S], query_key [..., R], db_desc [N, R, S],
     db_key [N, R]; db_mask and odom_similarity [..., N] (per query)."""
-    d2 = ((db_key - query_key[..., None, :]) ** 2).sum(-1)  # [..., N]
-    if odometry_coupled:
-        d2 = d2 + (10.0 * odom_similarity) ** 2
-    d2 = torch.where(db_mask, d2, torch.full((), math.inf, device=d2.device))
+    d2 = refmath.sc_ring_distance(  # [..., N], +inf off the mask
+        query_key, db_key, db_mask,
+        odom_similarity if odometry_coupled else None)
     srt, idx = torch.sort(d2, dim=-1, stable=True)
     idx = idx[..., :num_candidates]
     valid = torch.isfinite(srt[..., :num_candidates])

@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from ..kernels import refmath
 from ..ops import scancontext
 from ..ops.scancontext import RetrievalResult
 from .multihost import Mesh, _pack, _unpack, all_gather, make_mesh, rows
@@ -69,10 +70,8 @@ def sharded_retrieve(
     mask, osim = db_mask[..., lo:hi], odom_similarity[..., lo:hi]
     inf = torch.full((), math.inf, device=db_key.device)
 
-    d2 = ((db_key - query_key[..., None, :]) ** 2).sum(-1)  # [..., N / D]
-    if odometry_coupled:
-        d2 = d2 + (10.0 * osim) ** 2
-    d2 = torch.where(mask, d2, inf)
+    d2 = refmath.sc_ring_distance(  # [..., N / D], +inf off the mask
+        query_key, db_key, mask, osim if odometry_coupled else None)
     srt, lidx = torch.sort(d2, dim=-1, stable=True)
     srt, lidx = srt[..., :num_candidates], lidx[..., :num_candidates]
     # score the local winners only: the descriptors stay on their rank

@@ -11,6 +11,7 @@ thresholds (the sanity check's speed and acceleration limits, the keyframe
 distance and angle) and angles near +-pi.
 """
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -270,34 +271,43 @@ _NAMES = {v: k for k, v in refmath._OPCODE.items()}
 
 
 def _emulate(name, ts, options):
-    """The chain kernel's work on CPU tensors, step by step from the
-    packed description (``csrc/refmath_sites.cu``'s ``ChainDesc``), each
-    site step its per-element plain version, each glue step one float32
+    """The chain kernel's work on CPU tensors, step by step from its
+    recorded program and its launch's packed arguments (``csrc/
+    refmath_chains.cu``'s ``ChainArgs`` and ``chain_offsets``), each site
+    step its per-element plain version, each glue step one float32
     operation."""
-    blob, n, slots, outputs = refmath._chain_plan(name, ts, options)
-    f = refmath.CHAIN_DESC.unpack(blob)
-    segs, din = refmath.CHAIN_SEGS, refmath.SITE_DIMS + 1
-    start = f[:segs + 1]
-    shape = [f[segs + 1 + 4 * s:segs + 5 + 4 * s] for s in range(segs)]
-    at = segs + 1 + 4 * segs
-    stride = [f[at + din * k:at + din * (k + 1)]
-              for k in range(refmath.CHAIN_IN)]
-    at += din * refmath.CHAIN_IN
-    first = f[at:at + segs + 1]
-    nseg = f[at + segs + 1]
-    consts = f[at + segs + 3:at + segs + 3 + refmath.CHAIN_CONSTS]
-    raw = f[-1]
-    steps = [raw[8 * i:8 * i + 8] for i in range(len(raw) // 8)]
+    fields, n, outputs = refmath._chain_plan(name, ts, options)
+    segs, _, _ = refmath._record(name, options)
+    n_in = sum(len(idx) for idx, _, _ in segs)
+    dims = refmath.SITE_DIMS
+    total, start1, flags = fields[:3]
+    ndim = fields[3:3 + refmath.CHAIN_SEGS]
+    at = 3 + refmath.CHAIN_SEGS
+    shape = [fields[at + dims * g:at + dims * (g + 1)]
+             for g in range(refmath.CHAIN_SEGS)]
+    at += dims * refmath.CHAIN_SEGS
+    stride = [fields[at + (dims + 1) * k:at + (dims + 1) * (k + 1)]
+              for k in range(n_in)]
+    consts = fields[at + (dims + 1) * n_in:]
+    slots = [i for idx, _, _ in segs for i in idx]
     outs = [torch.zeros(math.prod(sh), dtype=torch.bool if b else
                         torch.float32) for sh, b in outputs]
     el = refmath._ELEMENT_PLAIN
-    for s in range(nseg):
-        m = start[s + 1] - start[s]
+    first = 0
+    for s, (idx, steps, _) in enumerate(segs):
+        lo, hi = (0, start1) if s == 0 else (start1, total)
+        m = hi - lo
         li = torch.arange(m)
-        coord, rest = [], li.clone()
-        for d in reversed(shape[s]):
-            coord.insert(0, rest % d)
-            rest = rest // d
+        outer = dims - ndim[s]
+        rest = li.clone()
+        off = [torch.zeros(m, dtype=torch.long) for _ in idx]
+        for d in range(dims - 1, outer, -1):
+            c = rest % shape[s][d]
+            rest = rest // shape[s][d]
+            for q in range(len(idx)):
+                off[q] += c * stride[first + q][d]
+        for q in range(len(idx)):
+            off[q] += rest * stride[first + q][outer]
         r = {}
 
         def vec(a, w):
@@ -307,14 +317,13 @@ def _emulate(name, ts, options):
             v = v.reshape(m, -1)
             for i in range(v.shape[1]):
                 r[dst + i] = v[:, i]
-        for op, dst, a, b, c, k, j, nc in steps[first[s]:first[s + 1]]:
+        for op, dst, a, b, c, k, j, nc in steps:
             name_ = _NAMES[op]
             if name_ in ("load", "load_bool"):
                 t = ts[slots[k]]
-                off = j * stride[k][4] + sum(
-                    coord[q] * stride[k][q] for q in range(4))
-                flat = torch.as_strided(t, (int(off.max()) + 1,), (1,))
-                v = flat[off]
+                o = off[k - first] + j * stride[k][dims]
+                flat = torch.as_strided(t, (int(o.max()) + 1,), (1,))
+                v = flat[o]
                 r[dst] = v.float() if name_ == "load_bool" else v
             elif name_ == "const":
                 r[dst] = torch.full((m,), consts[k], dtype=torch.float32)
@@ -348,9 +357,10 @@ def _emulate(name, ts, options):
                 put(dst, el[name_](vec(a, 2)))
             elif name_ == "motion_compensate":
                 assert tuple(consts[k:k + 3]) == plain.motion_constants()
-                put(dst, el[name_](vec(a, 2), vec(b, 3), ccw=bool(j)))
+                put(dst, el[name_](vec(a, 2), vec(b, 3), ccw=bool(flags & 1)))
             else:
                 raise AssertionError(name_)
+        first += len(idx)
     return tuple(o.view(sh) for o, (sh, _) in zip(outs, outputs))
 
 
@@ -395,8 +405,31 @@ def test_recorded_program_equals_the_plain_chain(case):
 
 
 def test_chain_launch_arguments_are_small():
-    """A launch passes 144 bytes (the description's pointer, the element
-    count and the data pointers) against a site's 432; the description
-    (1,216 bytes) is built once per chain and shape."""
-    assert refmath.CHAIN_ARGS.size == 144 and refmath.SITE_ARGS.size == 432
-    assert refmath.CHAIN_DESC.size == 1216
+    """A launch passes its pointers, 32-bit shapes and strides and the
+    body's constants, 128-288 bytes (a chain) and 72-256 bytes (a site)
+    against the single site kernel's 432; no description lives on the
+    card."""
+    sizes = {n: refmath.chain_struct(n).size for n in refmath.CHAIN_KERNELS}
+    assert sizes == {"alignment_apply": 184, "local_map": 152,
+                     "loop_guess": 128, "motion_compensate_pair": 208,
+                     "odometry_pose_tail": 288}
+    assert refmath.SITE_ARG_SIZES["compose"] == 104
+    assert max(refmath.SITE_ARG_SIZES.values()) == 256
+    assert min(refmath.SITE_ARG_SIZES.values()) == 72
+
+
+def _committed_chains() -> str:
+    with open(os.path.join(os.path.dirname(refmath.__file__), os.pardir,
+                           "csrc", "refmath_chains.cu")) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", refmath.CHAIN_KERNELS)
+def test_chain_source_is_current(name):
+    """``csrc/refmath_chains.cu`` holds each chain's kernel as its body
+    records it now (``scripts/gen_refmath_chains.py`` writes it), and the
+    whole file is what the generator makes."""
+    text = _committed_chains()
+    assert refmath.chain_source(name) in text
+    if name == refmath.CHAIN_KERNELS[-1]:
+        assert text == refmath.chains_source()

@@ -1621,3 +1621,178 @@ def test_ceres_covariance_runs_without_a_host_sync(cuda):
         want = plain.ceres_covariance(hh, score, n_res, p2l=p2l)
         assert bits_differ(got[1], want[1]) == 0
         assert bits_differ(got[0], want[0]) == 0
+
+
+# ---- the per-site and per-chain kernels, ScanContext, the sqrt information -
+
+def _layouts(dev):
+    """Site operands the path does not give in this form: strided and offset
+    views, broadcast poses, a transposed cloud, poses near +-pi."""
+    g = torch.Generator().manual_seed(23)
+    r = lambda *s: (torch.randn(*s, generator=g) * 20).to(dev)
+    big = r(6, 40, 5)
+    near = r(64, 3)
+    near[:, 2] = torch.tensor(np.float32(np.pi)) - torch.rand(
+        64, generator=g).to(dev) * 1e-6
+    near[::2, 2] *= -1
+    return [
+        ("compose", (r(1, 3), near), {}),
+        ("relative", (big[:, :3, 0], big[:, 1:4, 2]), {}),
+        ("inverse", (r(3, 4, 3)[:, 1:],), {}),
+        ("apply", (near[:12], r(12, 33, 2)), {}),
+        ("rotate", (r(3), r(2, 50).t()), {}),
+        ("interpolate", (near[:8], near[8:16].flip(0), r(8).abs() / 40), {}),
+        ("rotmat", (near[::2, 2],), {}),
+        ("norm2", (r(2, 30, 2).transpose(0, 1),), {}),
+        ("world_targets", (r(2, 4, 3), r(2, 4, 9, 2), r(2, 4, 9, 2),
+                           r(2, 4, 9, 2, 2).transpose(-1, -2),
+                           r(2, 4, 9) > 0, r(2, 4) > 0), {}),
+        ("motion_compensate", (r(2, 40).t(), r(3)), dict(ccw=False)),
+    ]
+
+
+@pytest.mark.cuda
+def test_site_kernels_on_strided_and_broadcast_operands(cuda):
+    """Every site's kernel on operands read through their strides (views,
+    transposes, offsets) and broadcast, angles near +-pi: bit-equal to the
+    plain version on the CPU, one launch each."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.ops import radar, registration  # noqa: F401
+
+    for site, ts, opts in _layouts(cuda):
+        rm.LAUNCHES_BY_OP.clear()
+        got = rm.site(site, *ts, **opts)
+        assert dict(rm.LAUNCHES_BY_OP) == {site: 1}, site
+        want = rm._PLAIN[site](*(None if t is None else t.cpu() for t in ts),
+                               **opts)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,),
+                                                                (want,))
+        for a, b in zip(got, want):
+            if a is not None:
+                assert bits_differ(a, b) == 0, site
+
+
+@pytest.mark.cuda
+def test_pose_tail_gates_on_both_sides(cuda):
+    """The pose tail's kernel where the sanity gate and the keyframe gate
+    fall on each side (motions at, just under and just over their limits,
+    registrations that failed), angles near +-pi, the newest keyframe a
+    strided view: bit-equal to its plain version."""
+    from tbv_slam_public_torch.core.config import OdometryConfig
+    from tbv_slam_public_torch.kernels import refmath as rm
+    from tbv_slam_public_torch.models import odometry
+
+    oc = OdometryConfig()
+    opts = odometry.pose_tail_options(oc)
+    n = 600
+    rng = np.random.default_rng(31)
+    base = np.zeros((n, 3), np.float32)
+    base[:, 2] = np.float32(np.pi) - rng.uniform(0, 1e-5, n).astype(
+        np.float32)
+    base[1::2, 2] *= -1
+    step = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    # speeds around the limit, keyframe distances around the gate
+    scale = np.float32(oc.vel_limit * oc.sensor_period) * rng.choice(
+        [0.5, 0.999999, 1.0, 1.000001, 2.0], n).astype(np.float32)
+    step[:, :2] *= scale[:, None] / np.linalg.norm(step[:, :2], axis=1,
+                                                   keepdims=True)
+    step[:, 2] *= 0.01
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    window = t(np.repeat(base[:, None], 4, 1) - rng.uniform(
+        0, 2 * oc.min_keyframe_dist, (n, 4, 1)).astype(np.float32))
+    ts = (t(base + step), torch.as_tensor(rng.uniform(size=n) < 0.8,
+                                          device=cuda),
+          t(base + step * 0.9), t(base), t(step * 1.0001), window[:, -1])
+    got = rm.chain("odometry_pose_tail", *ts, **opts)
+    want = rm.chain_plain("odometry_pose_tail", *(x.cpu() for x in ts),
+                          **opts)
+    fuse = want[3]
+    assert 0 < int(fuse.sum()) < n  # the gate falls on both sides
+    for a, b in zip(got, want):
+        assert bits_differ(a, b) == 0
+
+
+@pytest.mark.cuda
+def test_scancontext_kernels_match_plain(cuda):
+    """The keys, the ring-key distance (coupled and not, a mask broadcast
+    over the augmentations) and the pairwise distance at retrieve's [B, A,
+    K] (a rolled copy, zero columns, an empty descriptor, the query
+    broadcast over the candidates): bit-equal to the plain versions on the
+    CPU, one launch each."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    rng = np.random.default_rng(37)
+
+    def desc(*shape):
+        x = (rng.integers(60, 255, shape) * rng.integers(0, 6, shape)
+             / 1000.0).astype(np.float32)
+        x[rng.uniform(size=shape) < 0.6] = 0.0
+        return x
+
+    b, a, k, n = 3, 5, 10, 200
+    q = desc(b, a, 40, 120)
+    db = desc(n, 40, 120)
+    db[7] = np.roll(q[0, 0], 11, axis=1)
+    db[8][:, :60] = 0.0
+    db[9] = 0.0
+    t = lambda x: torch.as_tensor(x, device=cuda)
+    for ring in (True, False):
+        got = rm.sc_key(t(q), ring=ring)
+        assert bits_differ(got, rm._PLAIN["sc_key"](torch.as_tensor(q),
+                                                    ring=ring)) == 0
+    keys = rm._PLAIN["sc_key"](torch.as_tensor(db))
+    qk = rm._PLAIN["sc_key"](torch.as_tensor(q))
+    mask = torch.as_tensor(rng.uniform(size=(b, 1, n)) < 0.9)
+    odom = torch.as_tensor(rng.uniform(0, 1, (b, 1, n)).astype(np.float32))
+    for o in (odom, None):
+        got = rm.sc_ring_distance(qk.to(cuda), keys.to(cuda), mask.to(cuda),
+                                  None if o is None else o.to(cuda))
+        want = rm._PLAIN["sc_ring_distance"](qk, keys, mask, o)
+        assert bits_differ(got, want) == 0
+    idx = torch.as_tensor(rng.integers(0, n, (b, a, k)))
+    idx[0, 0, :3] = torch.tensor([7, 8, 9])
+    cands = torch.as_tensor(db)[idx]
+    rm.LAUNCHES_BY_OP.clear()
+    dist, shift = rm.sc_distance(t(q)[..., None, :, :], cands.to(cuda))
+    assert dict(rm.LAUNCHES_BY_OP) == {"sc_distance": 1}
+    wd, ws = rm._PLAIN["sc_distance"](torch.as_tensor(q)[..., None, :, :],
+                                      cands)
+    assert bits_differ(dist, wd) == 0 and torch.equal(shift.cpu(), ws)
+    assert int(shift[0, 0, 0]) == 109  # the roll found
+    # the ring-key distance reads float32 keys and similarity: any other
+    # float type raises rather than being read as float32
+    for i, dtype in ((0, torch.float64), (1, torch.float16),
+                     (3, torch.float64)):
+        args = [qk.to(cuda), keys.to(cuda), mask.to(cuda), odom.to(cuda)]
+        args[i] = args[i].to(dtype)
+        with pytest.raises(TypeError):
+            rm.sc_ring_distance(*args)
+
+
+@pytest.mark.cuda
+def test_measured_sqrt_info_matches_plain(cuda):
+    """``measured_sqrt_info``'s kernel (inverse, scale, Cholesky factor,
+    fallback) bit-equal to its plain version on SPD, singular, zero,
+    negative definite and asymmetric covariances, one launch."""
+    from tbv_slam_public_torch.kernels import refmath as rm
+
+    rng = np.random.default_rng(41)
+    e = 4096
+    m = rng.normal(size=(e, 3, 3)).astype(np.float32)
+    cov = ((m @ m.transpose(0, 2, 1) + 0.3 * np.eye(3)) * np.exp(
+        rng.uniform(-12, 2, (e, 1, 1)))).astype(np.float32)
+    cov[:20, 2] = 0.0
+    cov[:20, :, 2] = 0.0
+    cov[20] = 0.0
+    cov[21:60] *= -1.0
+    cov[60:100, 0, 1] += 1.0
+    scale = torch.as_tensor(rng.choice([1.0, 1e-3], e).astype(np.float32))
+    fb = torch.diag_embed(torch.as_tensor(rng.uniform(1, 9, (e, 3)).astype(
+        np.float32)))
+    rm.LAUNCHES_BY_OP.clear()
+    got = rm.measured_sqrt_info(torch.as_tensor(cov, device=cuda),
+                                scale.to(cuda), fb.to(cuda))
+    assert dict(rm.LAUNCHES_BY_OP) == {"measured_sqrt_info": 1}
+    want = rm._PLAIN["measured_sqrt_info"](torch.as_tensor(cov), scale, fb)
+    assert bits_differ(got, want) == 0
+    assert torch.equal(want[21:60], fb[21:60])

@@ -681,3 +681,155 @@ def test_se2_flushes_subnormal_angles_and_coordinates(fn):
         want = np.asarray(jax.jit(j)(*ops))
         got = t(*(torch.as_tensor(x) for x in ops)).numpy()
         np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=fn)
+
+
+# ---- ScanContext's keys and distance ---------------------------------------
+#
+# ``core/refmath.py::sc_key``, ``sc_ring_distance`` and ``sc_distance``
+# against the JAX functions compiled as the main path compiles them: the
+# keys in ``context_descriptors`` (vmapped over the augmentations) and
+# jitted alone, the distance vmapped over the candidates as ``retrieve``
+# calls it, ``retrieve`` jitted whole.
+
+from tbv_slam_public_tpu.core.config import PGOConfig, TBVConfig  # noqa: E402
+from tbv_slam_public_tpu.core.types import PointCloud as JCloud  # noqa: E402
+from tbv_slam_public_tpu.models import loopclosure as jlc  # noqa: E402
+from tbv_slam_public_tpu.ops import posegraph as jpg  # noqa: E402
+from tbv_slam_public_tpu.ops import scancontext as jsc  # noqa: E402
+from tbv_slam_public_torch.ops import posegraph as tpg  # noqa: E402
+from tbv_slam_public_torch.ops import scancontext as tsc  # noqa: E402
+
+_SC = TBVConfig().scancontext
+
+
+def _descs(rng, shape):
+    """Descriptor-like values: sums of byte intensities / 1000, 60 % empty
+    bins."""
+    x = (rng.integers(60, 255, shape) * rng.integers(0, 6, shape)
+         / 1000.0).astype(np.float32)
+    x[rng.uniform(size=shape) < 0.6] = 0.0
+    return x
+
+
+def _same_bits(got, want):
+    np.testing.assert_array_equal(np.asarray(got).view(np.int32),
+                                  np.asarray(want).view(np.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sc_keys_bit_equal(seed):
+    rng = np.random.default_rng(seed)
+    p = 3000
+    cloud = JCloud(xy=jnp.asarray(rng.uniform(-80, 80, (p, 2)), jnp.float32),
+                   intensity=jnp.asarray(rng.integers(60, 255, p),
+                                         jnp.float32),
+                   mask=jnp.asarray(rng.uniform(size=p) < 0.9))
+    d, rings, _ = jlc.context_descriptors(cloud, TBVConfig())
+    _same_bits(tsc.ring_key(torch.as_tensor(np.asarray(d))), rings)
+    x = _descs(rng, (16, _SC.num_ring, _SC.num_sector))
+    x[0] = 0.0
+    x[1, :, :7] = 0.0
+    t = torch.as_tensor(x)
+    _same_bits(tsc.ring_key(t), jax.jit(jsc.ring_key)(x))
+    _same_bits(tsc.sector_key(t), jax.jit(jsc.sector_key)(x))
+
+
+@pytest.mark.parametrize("n", [7, 40, 120, 1000])
+def test_sc_tree_sum_flushes_mixed_signs(n):
+    """Mixed-sign rows of normals near 2^-126 whose partial sums cancel to
+    subnormals: the flushed tree sum (``core/refmath.py::_tree_sum_ftz``)
+    equals the jitted ``jnp.sum``, where the unflushed one does not; and
+    the keys of such descriptors equal the JAX functions'."""
+    from tbv_slam_public_torch.kernels.checks import bits_differ
+
+    rng = np.random.default_rng(n)
+    tiny = np.float32(2.0 ** -126)
+    x = (rng.integers(1, 4, (64, n)) * tiny
+         * rng.choice([-1, 1], (64, n))).astype(np.float32)
+    x[:, ::5] = rng.uniform(1, 1.5, x[:, ::5].shape) * tiny
+    x[0] = rng.normal(size=n)
+    want = jax.jit(lambda v: jnp.sum(v, -1))(x)
+    _same_bits(plain._tree_sum_ftz(torch.as_tensor(x)), want)
+    assert bits_differ(plain.tree_sum(torch.as_tensor(x)), want) > 0
+    d = (rng.integers(1, 4, (4, _SC.num_ring, _SC.num_sector)) * tiny
+         * rng.choice([-1, 1], (4, _SC.num_ring, _SC.num_sector))).astype(
+        np.float32)
+    d[0] = rng.normal(size=d.shape[1:])
+    _same_bits(tsc.ring_key(torch.as_tensor(d)), jax.jit(jsc.ring_key)(d))
+    _same_bits(tsc.sector_key(torch.as_tensor(d)),
+               jax.jit(jsc.sector_key)(d))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sc_distance_bit_equal(seed):
+    """Distance and shift of a query against candidates: random ones, a
+    rolled copy (the shift), ones with zero columns and an empty one (the
+    effective-column gate), at the default 40 x 120."""
+    rng = np.random.default_rng(seed)
+    q = _descs(rng, (_SC.num_ring, _SC.num_sector))
+    c = _descs(rng, (10, _SC.num_ring, _SC.num_sector))
+    c[1] = np.roll(q, 7 + seed, axis=1)
+    c[2][:, :50] = 0.0
+    c[3] = 0.0
+    c[4][:, ::3] = 0.0
+    f = jax.jit(jax.vmap(jsc.sc_distance, in_axes=(None, 0)))
+    wd, ws = f(q, c)
+    gd, gs = tsc.sc_distance(torch.as_tensor(q), torch.as_tensor(c))
+    _same_bits(gd, wd)
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+    assert int(gs[1]) == -(7 + seed) % _SC.num_sector  # the roll found
+
+
+@pytest.mark.parametrize("coupled", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_retrieve_bit_equal(seed, coupled):
+    rng = np.random.default_rng(seed)
+    n = 96
+    db = _descs(rng, (n, _SC.num_ring, _SC.num_sector))
+    db[5] = np.roll(db[0], 3, axis=1)
+    keys = np.asarray(jax.jit(jsc.ring_key)(db))
+    mask = rng.uniform(size=n) < 0.9
+    odom = rng.uniform(0, 1, n).astype(np.float32)
+    opts = dict(num_candidates=10, search_ratio=_SC.search_ratio,
+                odometry_coupled=coupled)
+    want = jsc.retrieve(db[0], keys[0], db, keys, mask, odom, **opts)
+    got = tsc.retrieve(*(torch.as_tensor(x) for x in
+                         (db[0], keys[0], db, keys, mask, odom)), **opts)
+    for f in ("dist", "dist_sc", "dist_odom", "index", "shift", "valid"):
+        _same_bits(getattr(got, f).numpy().astype(np.float32)
+                   if f in ("dist", "dist_sc", "dist_odom")
+                   else getattr(got, f).numpy().astype(np.int32),
+                   np.asarray(getattr(want, f)).astype(
+                       np.float32 if f in ("dist", "dist_sc", "dist_odom")
+                       else np.int32))
+
+
+# ---- measured_sqrt_info ----------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_measured_sqrt_info_bit_equal(seed):
+    """jaxlib's inverse and Cholesky factor written out: SPD covariances at
+    scales 1e-5 to 10, random-rank, singular, zero, negative definite and
+    asymmetric ones (the degenerate ones take the default diagonal)."""
+    rng = np.random.default_rng(seed)
+    e = 600
+    a = rng.normal(size=(e, 3, 3)).astype(np.float32)
+    scale = np.exp(rng.uniform(-12, 2, (e, 1, 1))).astype(np.float32)
+    cov = ((a @ a.transpose(0, 2, 1) + 0.3 * np.eye(3)) * scale).astype(
+        np.float32)
+    cov[:40] = (a[:40, :, :2] @ a[:40, :, :2].transpose(0, 2, 1)) * 1e-4
+    cov[40:60, 2] = 0.0
+    cov[40:60, :, 2] = 0.0
+    cov[60] = 0.0
+    cov[61:80] *= -1.0
+    cov[80:120, 0, 1] += rng.normal(size=40).astype(np.float32)
+    et = rng.integers(0, 2, e).astype(np.int32)
+    cfg = PGOConfig()
+    want = jpg.measured_sqrt_info(jnp.asarray(cov), jnp.asarray(et), cfg)
+    got = tpg.measured_sqrt_info(torch.as_tensor(cov), torch.as_tensor(et),
+                                 cfg)
+    _same_bits(got, want)
+    fallback = np.asarray(jax.vmap(jnp.diag)(jpg.default_sqrt_info(
+        jnp.asarray(et), cfg)))
+    # the negative definite ones fail the factor and take the fallback
+    assert (np.asarray(want)[61:80] == fallback[61:80]).all()

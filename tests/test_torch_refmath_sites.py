@@ -300,3 +300,82 @@ def test_blocked_cumsum_as_jnp_cumsum():
     for n in (1, 15, 16, 17, 255, 256, 257, 1000, 4097):
         x = rng.uniform(0.0, 3.0, n).astype(np.float32)
         _same(refmath.cumsum(torch.as_tensor(x)), f(x))
+
+
+# ---- the site kernels' launch layout -----------------------------------------
+
+def _layout_cases():
+    g = torch.Generator().manual_seed(5)
+    r = lambda *s: torch.randn(*s, generator=g)
+    big = r(6, 40, 5)
+    return [
+        ("compose", (r(7, 3), r(7, 3)), {}),
+        ("compose", (r(1, 3), r(5, 3)), {}),           # a broadcast pose
+        ("relative", (big[:, :3, 0], big[:, 1:4, 2]), {}),  # strided views
+        ("inverse", (r(3, 4, 3)[:, 1:],), {}),         # an offset view
+        ("apply", (r(12, 3), r(12, 33, 2)), {}),       # one pose a cloud
+        ("rotate", (r(3), r(50, 2)), {}),
+        ("interpolate", (r(4, 3), r(4, 3), r(4)), {}),
+        ("rotmat", (r(9)[::2],), {}),
+        ("norm2", (r(2, 30, 2).transpose(0, 1),), {}),
+        ("world_targets", (r(2, 4, 3), r(2, 4, 9, 2), r(2, 4, 9, 2),
+                           r(2, 4, 9, 2, 2), r(2, 4, 9) > 0, r(2, 4) > 0),
+         {}),
+        ("world_targets", (r(1, 4, 3), r(1, 4, 9, 2), r(1, 4, 9, 2), None,
+                           r(1, 4, 9) > 0, r(1, 4) > 0), {}),
+        ("motion_compensate", (r(40, 2), r(3)), dict(ccw=True)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(12))
+def test_site_launch_layout_reads_every_operand(case):
+    """A site's packed launch (``csrc/refmath_sites.cu``'s ``SiteArgs``:
+    the merged batch shape and 32-bit strides), its offsets computed as
+    the kernel computes them, reads each operand's element at every batch
+    index: the operand broadcast over the batch, element by element; the
+    packed bytes are the site's struct size."""
+    op, ts, opts = _layout_cases()[case]
+    # the sites' owners register their layouts
+    from tbv_slam_public_torch.ops import radar, registration  # noqa: F401
+    layout = refmath._KERNEL_ARGS[op].args[0]
+    operands, outs, flags, consts = layout(*ts, **opts)
+    batch, n, fields, out_shapes = refmath._site_plan(op, operands, outs,
+                                                      flags, consts)
+    n_in = refmath.SITE_IO[op][0]
+    dims = refmath.SITE_DIMS
+    assert fields[0] == n and fields[2] == flags
+    ndim, shape = fields[1], fields[3:3 + dims]
+    stride = [fields[3 + dims + 6 * k:3 + dims + 6 * (k + 1)]
+              for k in range(n_in)]
+    i = torch.arange(n)
+    outer = dims - ndim
+    rest, off = i.clone(), [torch.zeros(n, dtype=torch.long)
+                            for _ in range(n_in)]
+    for d in range(dims - 1, outer, -1):
+        c = rest % shape[d]
+        rest = rest // shape[d]
+        for k in range(n_in):
+            off[k] += c * stride[k][d]
+    for k in range(n_in):
+        off[k] += rest * stride[k][outer]
+    if all(t is None or t.is_contiguous() for t, _, _ in operands) and \
+            all(t is None or t.shape[:t.dim() - len(c)] == batch
+                for t, c, _ in operands):
+        assert ndim == 1  # dense operands: no division
+    for k, (t, comp, _) in enumerate(operands):
+        if t is None:
+            continue
+        want = t.expand(batch + comp).reshape((n,) + comp)
+        idx = off[k]
+        for q, d in enumerate(comp):
+            idx = idx[..., None] + torch.arange(d) * stride[k][dims + q]
+        base = t.as_strided((t.untyped_storage().nbytes()
+                             // t.element_size() - t.storage_offset(),),
+                            (1,))
+        assert torch.equal(base[idx], want), (op, k)
+    args = refmath.SITE_ARGS[op].pack(*([0] * len(operands)),
+                                      *([0] * len(outs)), *fields)
+    assert len(args) == refmath.SITE_ARG_SIZES[op]
+    assert [None if s is None else s[0] for s in out_shapes] == [
+        None if o is None else batch + (() if o == "bool" else o)
+        for o in outs]
